@@ -3,24 +3,30 @@
 
     python3 chip_smoke.py          (from the repository root; needs one card)
 
-The main path is exp(tA)b for a Hermitian constant-coefficient grid
-stencil at BASELINE.json's sizes: the 1-D Laplacian at n = 100,000
-(config #2) and the 3-D 7-point Laplacian on 216^3 = 10,077,696 rows
-(config #5 on one card). Phases, each printing one line per check:
+The main paths are exp(tA)b and the phi-function actions
+[phi_0(tA)b ... phi_3(tA)b] for Hermitian operators at BASELINE.json's
+sizes: the 1-D Laplacian at n = 100,000 (config #2), the 2-D 5-point
+Poisson matrix on 1000 x 1000 in diagonal storage (config #3, phiv p=0..3
+at t = 1e-4), the 3-D 7-point Laplacian on 216^3 = 10,077,696 rows
+(config #5 on one card), and a 2-D 512^2 stencil small enough for the
+one-launch grid kernel. Phases, each printing one line per check:
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc builds the kernels of ops/kernels/csrc/ (seconds)
-  3. kernels  B1, B2, B3 against their plain twins, float32 and float64,
-              at the main path's shapes, plus bitwise-repeatable reductions
+  3. kernels  B1-B6 against their plain twins, float32 and float64, at
+              the main paths' shapes, plus bitwise-repeatable reductions
   4. main     the public entry points (expv_chebyshev, expv with and
-              without two_pass) with launch counts reset just before and
-              read just after; results checked against scipy (1-D) and
-              by the semigroup identity and cross-method agreement
-              (3-D); the kernel-driving passes rerun under
+              without two_pass, phiv with and without two_pass,
+              phiv_chebyshev, phiv_timestep_chebyshev) with launch counts
+              reset just before and read just after, each call's launches
+              held to the exact expected count; results checked against
+              scipy (1-D), by the semigroup identity (3-D), the phi
+              identities t A phi_{j+1} = phi_j - b/j!, and cross-method
+              agreement; the kernel-driving passes rerun under
               torch.cuda.set_sync_debug_mode("error")
   5. times    CUDA-event medians of >= 10 runs after warm-up, each kernel
-              beside its plain twin and each main-path call beside the
-              plain path
+              beside its plain twin, B6 beside the B3 sweeps on the same
+              grid, and each main-path call beside the plain path
 
 It prints a JSON line of the kernels, then the card's name and power
 limit, then {"ok": true, "device": {...}} as the last line. Any failed
@@ -31,6 +37,7 @@ without a CUDA device it exits with code 2 at once.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -42,6 +49,10 @@ SEED = 0
 N1 = 100_000            # BASELINE config #2
 N3 = 216                # BASELINE config #5 on one card: 216^3 rows
 T1, T3 = 0.5, 0.05      # run_baseline.py's times for the two configs
+NP = 1000               # BASELINE config #3: poisson_2d(1000, 1000)
+TP = 1e-4               # run_baseline.py's time for config #3
+K = 3                   # phi orders 0..K, as config #3 runs them
+NG, TG = 512, 0.5       # 2-D grid under the B6 gate
 
 # Kernel against twin, max-norm relative: float32 sums in another order
 # and contracts to FMA; float64 agrees to a few ulps of the output.
@@ -57,15 +68,30 @@ KTOL = {"float32": 1e-5, "float64": 1e-12}
 MTOL_SCIPY64 = 1e-10    # BASELINE's target
 MTOL_SCIPY32 = 1e-5
 MTOL3 = {"float64": 1e-10, "float32": 1e-5}
+# phi paths, float64, calibrated the same way (JAX package on CPU):
+#   1-D n = 1e5, t = 0.5, k = 3: phi identities 3.9e-16 (phiv m = 30),
+#   4.4e-16 (two-pass m = 40), 1.4e-12 (phiv_chebyshev, tol 1e-12);
+#   phi_0 vs scipy 3.3e-16 / 3.5e-16 / 1.3e-12; two-pass vs phiv 2.3e-16,
+#   Chebyshev vs phiv 7.1e-13; phiv_timestep_chebyshev at t = 0.5 vs
+#   phi_0 b + t phi_1 b 8.1e-13. Config #3 at t = 1e-4: phi identities
+#   1.7e-16, expv_chebyshev vs phiv column 0 2.6e-16. 2-D 512^2 at
+#   t = 0.5: Chebyshev vs two-pass m = 20 4.6e-13.
+MTOL_PHI = 1e-10
 
 REPLACES = {
     "resident_recurrence": "exponentialutilities_jl_tpu/ops/kernels/resident.py:89",
     "resident_lanczos": "exponentialutilities_jl_tpu/ops/kernels/resident.py:461",
+    "resident_multi": "exponentialutilities_jl_tpu/ops/kernels/resident.py:394",
+    "resident_banded": "exponentialutilities_jl_tpu/ops/kernels/resident.py:186",
+    "resident_grid": "exponentialutilities_jl_tpu/ops/kernels/resident.py:331",
     "fused_sweep": "exponentialutilities_jl_tpu/ops/kernels/lanczos_fused.py:380",
 }
 SOURCES = {
     "resident_recurrence": "exponentialutilities_jl_torch/ops/kernels/csrc/resident.cu",
     "resident_lanczos": "exponentialutilities_jl_torch/ops/kernels/csrc/resident.cu",
+    "resident_multi": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_family.cu",
+    "resident_banded": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_family.cu",
+    "resident_grid": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_family.cu",
     "fused_sweep": "exponentialutilities_jl_torch/ops/kernels/csrc/fused_sweep.cu",
 }
 
@@ -96,6 +122,7 @@ def main() -> int:
     import exponentialutilities_jl_torch as et
     from exponentialutilities_jl_torch.models import chebyshev as tc
     from exponentialutilities_jl_torch.models import expv as tx
+    from exponentialutilities_jl_torch.models import phiv as tpv
     from exponentialutilities_jl_torch.ops.kernels import _build
     from exponentialutilities_jl_torch.ops.kernels import dispatch as td
     from exponentialutilities_jl_torch.ops.kernels import lanczos_fused as tf
@@ -122,9 +149,23 @@ def main() -> int:
           f"earlier build) into {_build.BUILD_DIR}", flush=True)
 
     rng = np.random.default_rng(SEED)
+    rng2 = np.random.default_rng(SEED + 1)     # the inputs of B4-B6
 
-    def vec(n, dt):
-        return torch.as_tensor(rng.standard_normal(n), dtype=dt, device=dev)
+    def vec(n, dt, gen=rng):
+        return torch.as_tensor(gen.standard_normal(n), dtype=dt, device=dev)
+
+    def scaled_rows(m, op, dt):
+        """Random recurrence rows, ca scaled by 1/|A| (bounded growth)."""
+        rows = vec(4 * m, dt, rng2).reshape(m, 4) * 0.5
+        rows[:, 0] *= 2.0 / float(op.opnorm_hint())
+        return rows
+
+    def box27(shape, dt):
+        offs = [(a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
+                for c in (-1, 0, 1)]
+        coeffs = [-26.0 if o == (0, 0, 0) else 1.0 for o in offs]
+        return et.StencilOperator(shape, offs, np.asarray(coeffs),
+                                  is_hermitian=True, dtype=dt, device=dev)
 
     def ops1(dt, five_point=False, n=N1):
         """The 1-D Laplacian, or the 4th-order 5-point one (|o| = 2)."""
@@ -227,6 +268,54 @@ def main() -> int:
             print(f"kernel B3 {dname[dt]} {label} plain+accum: max rel err "
                   f"{max(errs):.2e} (tol {tol:g}), bitwise moments ok",
                   flush=True)
+        # B4: p = 4 accumulators over one omega chain, 1-D n = 1e5
+        op = ops1(dt)
+        x = vec(N1, dt, rng2)
+        rows = scaled_rows(12, op, dt)
+        cw = vec(48, dt, rng2).reshape(12, 4)
+        W = tr.recurrence_apply_resident_multi(op, x, rows, cw)
+        Wr = tr.resident_multi_ref(x, rows, cw, op.coeffs,
+                                   tr._flat_offsets(op))
+        e = rel_max(W, Wr)
+        check(e <= tol, f"B4 {dname[dt]}: {e:.2e}")
+        if dt == f64:
+            kerr["resident_multi"] = float((W - Wr).abs().max())
+        print(f"kernel B4 {dname[dt]} n={N1} p=4 m=12: rel err {e:.2e} "
+              f"(tol {tol:g})", flush=True)
+        # B5: config #3's operator, and the 1-D Laplacian in banded storage
+        for label, op in ((f"poisson_2d({NP}, {NP})",
+                           et.poisson_2d(NP, NP, dtype=dt, device=dev)),
+                          (f"laplacian_1d({N1})",
+                           et.laplacian_1d(N1, dtype=dt, device=dev))):
+            x = vec(op.shape[0], dt, rng2)
+            rows = scaled_rows(12, op, dt)
+            w = tr.recurrence_apply_resident_banded(op, x, rows)
+            wr = tr.resident_banded_ref(x, rows, op.diags, op.offsets)
+            e = rel_max(w, wr)
+            check(e <= tol, f"B5 {dname[dt]} {label}: {e:.2e}")
+            if dt == f64 and label.startswith("poisson"):
+                kerr["resident_banded"] = float((w - wr).abs().max())
+            print(f"kernel B5 {dname[dt]} {label} m=12: rel err {e:.2e} "
+                  f"(tol {tol:g})", flush=True)
+        # B6: 2-D 512^2 5-point, 3-D 64^3 7-point and 27-point box
+        for label, op in ((f"{NG}^2 5-point",
+                           et.laplacian_nd_stencil(NG, NG, dtype=dt,
+                                                   device=dev)),
+                          ("64^3 7-point",
+                           et.laplacian_nd_stencil(64, 64, 64, dtype=dt,
+                                                   device=dev)),
+                          ("64^3 27-point box", box27((64, 64, 64), dt))):
+            x = vec(op.shape[0], dt, rng2)
+            rows = scaled_rows(12, op, dt)
+            w = tr.recurrence_apply_resident_grid(op, x, rows)
+            wr = tr.resident_grid_ref(x, rows, op.grid_shape, op.offsets,
+                                      op.coeffs)
+            e = rel_max(w, wr)
+            check(e <= tol, f"B6 {dname[dt]} {label}: {e:.2e}")
+            if dt == f64 and label.startswith(f"{NG}"):
+                kerr["resident_grid"] = float((w - wr).abs().max())
+            print(f"kernel B6 {dname[dt]} {label} m=12: rel err {e:.2e} "
+                  f"(tol {tol:g})", flush=True)
     del Z, Vc, Vp, W, W1, W2, Y, Zn, Yp, Znp, Yr, Znr
 
     # ---- 4. the main path through the public entry points ---------------
@@ -241,11 +330,21 @@ def main() -> int:
     b1 = {dt: torch.as_tensor(b1np, dtype=dt, device=dev) for dt in (f32, f64)}
     b3 = {dt: torch.as_tensor(b3np, dtype=dt, device=dev) for dt in (f32, f64)}
 
+    opP = et.poisson_2d(NP, NP, device=dev)          # config #3, float64
+    bP = torch.as_tensor(rng2.standard_normal(NP * NP), device=dev)
+    opG = et.laplacian_nd_stencil(NG, NG, device=dev)
+    bG = torch.as_tensor(rng2.standard_normal(NG * NG), device=dev)
+    B1 = torch.stack([b1[f64], b1[f64]], dim=1)     # phi_0 b + t phi_1 b
+
     for dt in (f32, f64):
         check(td.recurrence_engine(op1[dt], dt, device=dev)
               is tr.recurrence_apply_resident, "1-D engine is B1")
         check(td.recurrence_engine(op3[dt], dt, device=dev, hermitian=True)
               is tf.recurrence_apply_fused, "3-D engine is B3")
+    check(td.recurrence_engine(opP, f64, device=dev, hermitian=True)
+          is tr.recurrence_apply_resident_banded, "config #3 engine is B5")
+    check(td.recurrence_engine(opG, f64, device=dev, hermitian=True)
+          is tr.recurrence_apply_resident_grid, "512^2 engine is B6")
 
     calls = {
         "1d cheb f32": lambda: et.expv_chebyshev(T1, op1[f32], b1[f32]),
@@ -272,10 +371,35 @@ def main() -> int:
         "3d two-pass m=20 32": {"fused_sweep": 42},
         "3d two-pass m=20 64": {"fused_sweep": 42},
     }
+    phi_calls = {     # float64
+        "1d phiv two-pass m=40": lambda: et.phiv(T1, op1[f64], b1[f64], K,
+                                                 m=40, two_pass=True),
+        "1d phiv_chebyshev": lambda: et.phiv_chebyshev(
+            T1, op1[f64], b1[f64], K, tol=1e-12),
+        "1d phiv m=30": lambda: et.phiv(T1, op1[f64], b1[f64], K, m=30),
+        "1d phiv_timestep_chebyshev": lambda: et.phiv_timestep_chebyshev(
+            [0.25, 0.5], op1[f64], B1, tol=1e-12),
+        "config3 phiv m=30": lambda: et.phiv(TP, opP, bP, K, m=30),
+        "config3 expv_chebyshev": lambda: et.expv_chebyshev(TP, opP, bP,
+                                                            tol=1e-12),
+        "2d cheb": lambda: et.expv_chebyshev(TG, opG, bG, tol=1e-12),
+        "2d two-pass m=20": lambda: et.expv(TG, opG, bG, m=20,
+                                            two_pass=True),
+    }
+    expect.update({
+        "1d phiv two-pass m=40": {"resident_lanczos": 1, "resident_multi": 1},
+        "1d phiv_chebyshev": {"resident_multi": 1},
+        "1d phiv m=30": {},
+        "1d phiv_timestep_chebyshev": {"resident_multi": 2},
+        "config3 phiv m=30": {},
+        "config3 expv_chebyshev": {"resident_banded": 1},
+        "2d cheb": {"resident_grid": 1},
+        "2d two-pass m=20": {"fused_sweep": 42},
+    })
 
     _build.reset_launch_counts()
     out = {}
-    for name, fn in calls.items():
+    for name, fn in {**calls, **phi_calls}.items():
         before = dict(_build.launches)
         out[name] = fn()
         torch.cuda.synchronize()
@@ -329,6 +453,49 @@ def main() -> int:
     e = rel_norm(out["1d cheb f64"], out["1d two-pass m=40 f64"])
     print(f"check 1d float64: Chebyshev vs two-pass {e:.2e}", flush=True)
 
+    def phi_identity(op, W, b, t):
+        """max_j |t A phi_{j+1} b - (phi_j b - b/j!)| / |phi_j b|, j < K."""
+        errs = []
+        for j in range(W.shape[1] - 1):
+            resid = t * op.matvec(W[:, j + 1]) - (W[:, j] - b / math.factorial(j))
+            errs.append(float(resid.norm() / W[:, j].norm()))
+        return max(errs)
+
+    def check_phi(name, got, want, what):
+        e = rel_norm(got, want)
+        check(e <= MTOL_PHI, f"{name} {what} {e:.2e}")
+        print(f"check {name}: {what} {e:.2e} (tol {MTOL_PHI:g})", flush=True)
+
+    for name in ("1d phiv two-pass m=40", "1d phiv_chebyshev", "1d phiv m=30",
+                 "config3 phiv m=30"):
+        W = out[name]
+        n, op, b, t = ((N1, op1[f64], b1[f64], T1) if name.startswith("1d")
+                       else (NP * NP, opP, bP, TP))
+        check(W.shape == (n, K + 1) and bool(torch.isfinite(W).all()),
+              f"{name} shape/finite")
+        e = phi_identity(op, W, b, t)
+        check(e <= MTOL_PHI, f"{name} phi identity {e:.2e}")
+        print(f"check {name}: phi identities {e:.2e} (tol {MTOL_PHI:g})",
+              flush=True)
+        if name.startswith("1d"):
+            check_phi(name, W[:, 0].cpu(), ref1, "phi_0 vs scipy")
+    W30 = out["1d phiv m=30"]
+    check_phi("1d phiv two-pass m=40", out["1d phiv two-pass m=40"], W30,
+              "vs phiv m=30")
+    check_phi("1d phiv_chebyshev", out["1d phiv_chebyshev"], W30,
+              "vs phiv m=30")
+    U = out["1d phiv_timestep_chebyshev"]
+    check(U.shape == (N1, 2) and bool(torch.isfinite(U).all()),
+          "phiv_timestep_chebyshev shape/finite")
+    check_phi("1d phiv_timestep_chebyshev", U[:, 1],
+              W30[:, 0] + T1 * W30[:, 1], "t = 0.5 vs phi_0 b + t phi_1 b")
+    check_phi("config3 expv_chebyshev", out["config3 expv_chebyshev"],
+              out["config3 phiv m=30"][:, 0], "(B5) vs phiv column 0")
+    check(bool(torch.isfinite(out["2d cheb"]).all()), "2d cheb finite")
+    check_phi("2d cheb", out["2d cheb"], out["2d two-pass m=20"],
+              "(B6) vs two-pass m=20 (B3)")
+    del out, W, W30, U
+
     # the kernel-driving passes make no host syncs
     lo, hi = op3[f64].spectral_bounds_hint()
     full3, _, _ = tc._full_exp_coeffs(T3, lo, hi, 1e-12, None)
@@ -338,6 +505,15 @@ def main() -> int:
     c1 = torch.as_tensor(full1, dtype=f64, device=dev)
     a3, bt3, beta3, _, _ = tf.lanczos_coeffs_fused(op3[f64], b3[f64], 20)
     coef3 = tx._lanczos_reduced_coeffs(a3, bt3, beta3, T3)
+
+    def cheb_rows(op, t, dt=f64):
+        lo_, hi_ = op.spectral_bounds_hint()
+        full, c, h = tc._full_exp_coeffs(t, lo_, hi_, 1e-12, None)
+        return td.chebyshev_rows(torch.as_tensor(full, device=dev), c, h, dt)
+
+    rows1 = cheb_rows(op1[f64], T1)
+    cw1 = vec(4 * rows1.shape[0], f64, rng2).reshape(-1, 4)
+    rowsP, rowsG = cheb_rows(opP, TP), cheb_rows(opG, TG)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -349,12 +525,15 @@ def main() -> int:
                                                        0.5 * (hi1 - lo1), f64))
         tf.lanczos_coeffs_fused(op3[f64], b3[f64], 20)
         tf.lanczos_replay_fused(op3[f64], b3[f64], coef3)
+        tr.recurrence_apply_resident_multi(op1[f64], b1[f64], rows1, cw1)
+        tr.recurrence_apply_resident_banded(opP, bP, rowsP)
+        tr.recurrence_apply_resident_grid(opG, bG, rowsG)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     print("sync-free: Chebyshev applies (1-D, 3-D), resident pass 1 and "
-          "recurrence, fused pass 1 and replay ran under sync debug mode "
-          "'error'", flush=True)
+          "recurrence, fused pass 1 and replay, and the B4, B5 and B6 "
+          "applies ran under sync debug mode 'error'", flush=True)
 
     # ---- 5. times -------------------------------------------------------
     def median_ms(fn, reps=10, warmup=2):
@@ -405,6 +584,33 @@ def main() -> int:
                                            op3[dt].offsets, op3[dt].coeffs, W),
                 "216^3, accumulating sweep"),
         }
+        # the new kernels at their main-path shapes and rows
+        rm = cheb_rows(op1[dt], T1, dt)
+        cwm = vec(4 * rm.shape[0], dt, rng2).reshape(-1, 4)
+        opPd = et.poisson_2d(NP, NP, dtype=dt, device=dev)
+        bPd = bP.to(dt)
+        rP = cheb_rows(opPd, TP, dt)
+        opGd = et.laplacian_nd_stencil(NG, NG, dtype=dt, device=dev)
+        bGd = bG.to(dt)
+        rG = cheb_rows(opGd, TG, dt)
+        cases.update({
+            "resident_multi": (
+                lambda: tr.recurrence_apply_resident_multi(op1[dt], x, rm,
+                                                           cwm),
+                lambda: tr.resident_multi_ref(x, rm, cwm, op1[dt].coeffs,
+                                              offs),
+                f"n={N1}, p=4, m={rm.shape[0]} Chebyshev rows"),
+            "resident_banded": (
+                lambda: tr.recurrence_apply_resident_banded(opPd, bPd, rP),
+                lambda: tr.resident_banded_ref(bPd, rP, opPd.diags,
+                                               opPd.offsets),
+                f"poisson_2d({NP}, {NP}), m={rP.shape[0]} Chebyshev rows"),
+            "resident_grid": (
+                lambda: tr.recurrence_apply_resident_grid(opGd, bGd, rG),
+                lambda: tr.resident_grid_ref(bGd, rG, opGd.grid_shape,
+                                             opGd.offsets, opGd.coeffs),
+                f"{NG}^2 5-point, m={rG.shape[0]} Chebyshev rows"),
+        })
         for name, (kfn, pfn, shape) in cases.items():
             # plain, kernel, kernel, plain: compare within one call
             p1 = median_ms(pfn)
@@ -415,6 +621,25 @@ def main() -> int:
                                  statistics.median([p1, p2]))
             print(f"time {name} {dn} ({shape}): kernel {k1:.4f} / {k2:.4f} ms,"
                   f" plain {p1:.4f} / {p2:.4f} ms {card}", flush=True)
+        # B6 against the B3 sweeps on the same grid and rows: what the
+        # L2 budget of the B6 gate should follow
+        for label, op in ((f"{NG}^2 5-point", opGd),
+                          ("64^3 7-point", et.laplacian_nd_stencil(
+                              64, 64, 64, dtype=dt, device=dev)),
+                          ("100^3 7-point, near the L2 budget",
+                           et.laplacian_nd_stencil(100, 100, 100, dtype=dt,
+                                                   device=dev))):
+            xg = vec(op.shape[0], dt, rng2)
+            rg = cheb_rows(op, TG, dt)
+            f1 = median_ms(lambda: tf.recurrence_apply_fused(op, xg, rg))
+            g1 = median_ms(lambda: tr.recurrence_apply_resident_grid(op, xg,
+                                                                     rg))
+            g2 = median_ms(lambda: tr.recurrence_apply_resident_grid(op, xg,
+                                                                     rg))
+            f2 = median_ms(lambda: tf.recurrence_apply_fused(op, xg, rg))
+            print(f"time B6 vs B3 {dn} ({label}, m={rg.shape[0]}): B6 "
+                  f"{g1:.4f} / {g2:.4f} ms, B3 sweeps {f1:.4f} / {f2:.4f} ms "
+                  f"{card}", flush=True)
         del Z, Vc, Vp, W
 
     plain_calls = {
@@ -433,7 +658,20 @@ def main() -> int:
         "3d two-pass m=20 64": lambda: tx._expv_two_pass(op3[f64], b3[f64],
                                                          T3, 20),
     }
-    for name, fn in calls.items():
+    plain_calls.update({
+        "1d phiv two-pass m=40": lambda: tpv._phiv_two_pass(
+            op1[f64], b1[f64], T1, 40, K),
+        "1d phiv_chebyshev": lambda: et.phiv_chebyshev(
+            T1, op1[f64], b1[f64], K, tol=1e-12, fused=False),
+        "1d phiv_timestep_chebyshev": lambda: et.phiv_timestep_chebyshev(
+            [0.25, 0.5], op1[f64], B1, tol=1e-12, fused=False),
+        "config3 expv_chebyshev": lambda: et.expv_chebyshev(
+            TP, opP, bP, tol=1e-12, fused=False),
+        "2d cheb": lambda: et.expv_chebyshev(TG, opG, bG, tol=1e-12,
+                                             fused=False),
+        "2d two-pass m=20": lambda: tx._expv_two_pass(opG, bG, TG, 20),
+    })
+    for name, fn in {**calls, **phi_calls}.items():
         k = median_ms(fn)
         line = f"time main {name}: {k:.3f} ms"
         if name in plain_calls:
@@ -442,7 +680,7 @@ def main() -> int:
         print(f"{line} {card}", flush=True)
 
     kernels = []
-    for name in ("resident_recurrence", "resident_lanczos", "fused_sweep"):
+    for name in REPLACES:
         ms, plain_ms = times[(name, "float64")]
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
                         "replaces": REPLACES[name],

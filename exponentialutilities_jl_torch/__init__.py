@@ -1,12 +1,13 @@
 """exponentialutilities_jl_torch: the PyTorch/CUDA port of
 ``exponentialutilities_jl_tpu``.
 
-This slice runs the Hermitian stencil ``exp(tA) b`` path: the operator
-containers, Lanczos, the Chebyshev and Krylov (happy-breakdown and
-storage-free two-pass) exponential actions, and three hand-written CUDA
-kernels for NVIDIA Hopper (``ops/kernels/csrc/``) that carry the
-recurrences on a CUDA device. The JAX package is the reference; each
-public name here mirrors its counterpart there.
+This slice runs the Hermitian exp(tA)b and phi-function actions: the
+operator containers, Lanczos, the dense exponential and phi functions
+that the Krylov path reduces to, the Chebyshev and Krylov
+(happy-breakdown and storage-free two-pass) actions, and six
+hand-written CUDA kernels for NVIDIA Hopper (``ops/kernels/csrc/``) that
+carry the recurrences on a CUDA device. The JAX package is the
+reference; each public name here mirrors its counterpart there.
 
 Public API
 
@@ -15,14 +16,22 @@ Operators        LinearOperator, DenseOperator, DiagonalOperator,
                  BandedOperator, StencilOperator, laplacian_nd_stencil
 Test matrices    laplacian_1d, poisson_2d, laplacian_3d
 Transfer         operator_data, from_operator_data, to_torch_operator
+Dense            expm, expm_higham2005, expm_taylor, phi_scalar, phiv_dense
 Krylov           KrylovBasis, lanczos, lanczos_coeffs, lanczos_replay
-Actions          expv, expv_from_basis, build_subspace, expv_chebyshev,
+Actions          expv, expv_from_basis, build_subspace, phiv,
+                 phiv_from_basis, make_phiv, expv_chebyshev,
+                 phiv_chebyshev, funm_chebyshev, phiv_timestep_chebyshev,
                  chebyshev_apply, spectral_bounds
 """
 
-from .models.chebyshev import chebyshev_apply, expv_chebyshev, spectral_bounds
+from .models.chebyshev import (chebyshev_apply, expv_chebyshev, funm_chebyshev,
+                               phiv_chebyshev, phiv_timestep_chebyshev,
+                               spectral_bounds)
 from .models.expv import build_subspace, expv, expv_from_basis
+from .models.phiv import make_phiv, phiv, phiv_from_basis
+from .ops.expm import expm, expm_higham2005, expm_taylor
 from .ops.krylov import KrylovBasis, lanczos, lanczos_coeffs, lanczos_replay
+from .ops.phi_dense import phi_scalar, phiv_dense
 from .ops.sparse import BandedOperator
 from .ops.stencil import StencilOperator, laplacian_nd_stencil
 from .utils.convert import from_operator_data, operator_data, to_torch_operator
@@ -36,7 +45,10 @@ __all__ = [
     "BandedOperator", "StencilOperator", "laplacian_nd_stencil",
     "laplacian_1d", "poisson_2d", "laplacian_3d",
     "operator_data", "from_operator_data", "to_torch_operator",
+    "expm", "expm_higham2005", "expm_taylor", "phi_scalar", "phiv_dense",
     "KrylovBasis", "lanczos", "lanczos_coeffs", "lanczos_replay",
     "expv", "expv_from_basis", "build_subspace",
-    "expv_chebyshev", "chebyshev_apply", "spectral_bounds",
+    "phiv", "phiv_from_basis", "make_phiv",
+    "expv_chebyshev", "phiv_chebyshev", "funm_chebyshev",
+    "phiv_timestep_chebyshev", "chebyshev_apply", "spectral_bounds",
 ]

@@ -1,34 +1,42 @@
-"""Chebyshev exponential actions for Hermitian operators (PyTorch port of
-``expv_chebyshev`` and its machinery in
-``exponentialutilities_jl_tpu/models/chebyshev.py``).
+"""Chebyshev matrix-function actions for Hermitian operators (PyTorch port
+of ``exponentialutilities_jl_tpu/models/chebyshev.py``).
 
 With [lo, hi] enclosing A's spectrum, A~ = (A - cI)/h (c, h the interval's
 center and half-width) and U_k the Chebyshev polynomials of the second
 kind,
 
-    exp(tA) b = sum_k b_k U_k(A~) b,  u_{k+1} = 2 A~ u_k - u_{k-1},
+    f(A) b = sum_k b_k U_k(A~) b,  u_{k+1} = 2 A~ u_k - u_{k-1},
 
-a matvec-only recurrence with no inner products. The coefficients come
-from the modified-Bessel identity e^{zx} = sum_k (I_k(z) - I_{k+2}(z)) U_k(x),
-computed on the host with scaled ``scipy.special.ive`` so the e^{t hi}
-magnitude factors out exactly.
+a matvec-only recurrence with no inner products. For exp the coefficients
+come from the modified-Bessel identity e^{zx} = sum_k (I_k(z) - I_{k+2}(z))
+U_k(x), computed on the host with scaled ``scipy.special.ive`` so the
+e^{t hi} magnitude factors out exactly; for any other f (the phi
+functions, ``funm_chebyshev``) from a cosine transform of f sampled at
+Chebyshev points. A (m, p) coefficient stack gives p combinations of the
+same recurrence at once (all phi orders, all snapshot times).
 
-On a CUDA device with a supported stencil the recurrence runs in the
-hand-written kernels behind ``ops.kernels.dispatch.recurrence_engine``
-(1-D: B1, one launch; 2-D/3-D: B3, one sweep per degree); otherwise it
-runs as the plain torch loop ``_chebyshev_apply_scan``.
+On a CUDA device with a supported operator the recurrence runs in the
+hand-written kernels: one real coefficient column through
+``ops.kernels.dispatch.recurrence_engine`` (1-D stencil: B1; banded: B5;
+small 2-D/3-D grid: B6; larger grids: B3, one sweep per degree), a real
+(m, p) stack on a 1-D stencil through B4 when ``resident_multi_ok``
+holds; otherwise it runs as the plain torch loop ``_chebyshev_apply_scan``.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
-from ..ops.kernels.dispatch import chebyshev_rows, recurrence_engine
+from ..ops.kernels.dispatch import (chebyshev_rows, recurrence_engine,
+                                    resident_multi_ok)
 from ..utils.linop import aslinearoperator
 from ..utils.precision import full_precision
 
-__all__ = ["spectral_bounds", "expv_chebyshev", "chebyshev_apply"]
+__all__ = ["spectral_bounds", "expv_chebyshev", "phiv_chebyshev",
+           "funm_chebyshev", "chebyshev_apply", "phiv_timestep_chebyshev"]
 
 _M_MAX = 4096
 
@@ -77,6 +85,17 @@ def spectral_bounds(A, probe=None, *, k: int = 30, seed: int = 0,
         return 0.0, 0.0
     pad = pad_rel * max(hi - lo, abs(hi), abs(lo), 1e-300)
     return lo - pad, hi + pad
+
+
+def _t_to_u(a):
+    """Chebyshev-T series coefficients (a_0 not pre-halved) to the U basis:
+    with T_0 = U_0 and T_k = (U_k - U_{k-2})/2,
+    b_0 = a_0 - a_2/2 and b_k = (a_k - a_{k+2})/2 for k >= 1."""
+    a = np.asarray(a)
+    ext = np.concatenate([a, np.zeros((2,) + a.shape[1:], a.dtype)])
+    b = (ext[:-2] - ext[2:]) / 2.0
+    b[0] = a[0] - ext[2] / 2.0
+    return b
 
 
 def _exp_ucoeffs(z, tol: float, m_fixed: int | None = None):
@@ -131,6 +150,83 @@ def _full_exp_coeffs(t, lo: float, hi: float, tol: float, m: int | None):
     return coeffs * amp * phase, c, h
 
 
+def _phi_scalar_np(z, p: int):
+    """phi_0..phi_p at real/complex sample points z (numpy, f64), (p+1,) +
+    z.shape: Taylor series for small |z| (the recurrence cancels there),
+    the upward recurrence phi_j = (phi_{j-1} - 1/(j-1)!)/z otherwise."""
+    z = np.atleast_1d(np.asarray(
+        z, np.complex128 if np.iscomplexobj(z) else np.float64))
+    out = np.zeros((p + 1,) + z.shape, z.dtype)
+    small = np.abs(z) < 0.5
+    zb = np.where(small, 1.0, z)
+    out[0] = np.exp(z)
+    acc = out[0]
+    for j in range(1, p + 1):
+        acc = (acc - 1.0 / math.factorial(j - 1)) / zb
+        out[j] = acc
+    if small.any():
+        zs = z[small]
+        for j in range(p + 1):
+            s = np.zeros_like(zs)
+            term = np.ones_like(zs) / math.factorial(j)
+            for i in range(1, 30):
+                s = s + term
+                term = term * zs / (i + j)
+            out[j][small] = s + term
+    return out
+
+
+def _fun_ucoeffs(f, tol: float, samples: int, m_fixed: int | None = None):
+    """U-basis coefficients of f on [-1, 1] from a cosine transform of f at
+    Chebyshev points (f may return a (p+1, samples) stack: (m, p+1)
+    coefficients).
+
+    A coefficient tail still above ``tol`` near the sample count means
+    the transform is aliased: the sample count doubles, up to 8x, and then
+    it raises rather than return an inaccurate expansion. ``m_fixed``
+    bypasses the tail selection and the raise."""
+    import scipy.fft as sfft
+
+    M = samples
+    if m_fixed is not None:
+        M = max(M, 2 * m_fixed)
+    for _ in range(4):
+        theta = (np.arange(M) + 0.5) * np.pi / M
+        fx = np.asarray(f(np.cos(theta)))             # (..., M)
+        # a_k = (2/M) sum_j f(x_j) cos(k theta_j): DCT-II / M
+        if np.iscomplexobj(fx):
+            a = (sfft.dct(fx.real, type=2, axis=-1)
+                 + 1j * sfft.dct(fx.imag, type=2, axis=-1)) / M
+        else:
+            a = sfft.dct(fx, type=2, axis=-1) / M
+        a = np.moveaxis(np.atleast_2d(a), -1, 0)      # (M, p+1) or (M, 1)
+        a[0] = a[0] / 2.0
+        b = _t_to_u(a)
+        mag = np.abs(b).max(axis=tuple(range(1, b.ndim)))
+        if m_fixed is not None:
+            # a fixed degree still needs unaliased leading coefficients
+            if float(mag[-8:].max()) <= 1e-12 * float(mag.max()):
+                return b[:m_fixed]
+            M *= 2
+            continue
+        total = mag.sum()
+        if total == 0:
+            return b[:1]
+        tail = np.cumsum(mag[::-1])[::-1]
+        keep = np.nonzero(tail > tol * total)[0]
+        m = int(keep[-1]) + 1 if keep.size else 1
+        if m < M - 2:
+            return b[:m]
+        M *= 2                                        # aliased: resample
+    if m_fixed is not None:
+        return b[:m_fixed]          # the caller accepted truncation error
+    raise ValueError(
+        f"Chebyshev expansion did not converge below tol={tol:g} within "
+        f"{M // 2} sample points - the function needs a higher degree "
+        "than is practical on this interval (for stiff horizons use the "
+        "substepped Krylov drivers)")
+
+
 @full_precision
 def _chebyshev_apply_scan(op, b, coeffs, center, inv_h):
     """w = sum_{k<m} coeffs[k] U_k(A~) b with A~ = inv_h (A - center I), as
@@ -158,9 +254,12 @@ def _chebyshev_apply_scan(op, b, coeffs, center, inv_h):
 def chebyshev_apply(A, b, ucoeffs, bounds, *, fused: bool | None = None):
     """sum_k ucoeffs[k] U_k(A~) b for A~ the affine map of A onto the
     interval ``bounds``. ucoeffs (m,) or (m, p) (all p combinations in one
-    matvec stream). Real (m,) coefficients on a CUDA device take the
-    kernel engine of ``recurrence_engine``; ``fused=True`` demands it and
+    matvec stream). On a CUDA device real (m,) coefficients take the
+    engine of ``recurrence_engine`` and a real (m, p) stack takes B4 when
+    ``resident_multi_ok`` holds; ``fused=True`` demands a kernel and
     ``fused=False`` forbids it."""
+    from ..ops.kernels.resident import recurrence_apply_resident_multi
+
     op = aslinearoperator(A)
     lo, hi = bounds
     c = 0.5 * (hi + lo)
@@ -173,9 +272,14 @@ def chebyshev_apply(A, b, ucoeffs, bounds, *, fused: bool | None = None):
                                    hermitian=True)
         if engine is not None:
             return engine(op, b, chebyshev_rows(coeffs, c, h, b.dtype))
+    elif (coeffs.ndim == 2 and fused is not False and not coeffs.is_complex()
+          and resident_multi_ok(op, b.dtype, b.device, coeffs.shape[1])):
+        rows = chebyshev_rows(torch.zeros_like(coeffs[:, 0]), c, h, b.dtype)
+        return recurrence_apply_resident_multi(op, b, rows, coeffs)
     elif fused:
         raise ValueError("fused=True: the CUDA engines take one real "
-                         "coefficient column")
+                         "coefficient column, or a real (m, p) stack on a "
+                         "1-D stencil that passes resident_multi_ok")
     return _chebyshev_apply_scan(op, b, coeffs, c, 1.0 / h)
 
 
@@ -225,10 +329,141 @@ def expv_chebyshev(t, A, b, *, bounds=None, m: int | None = None,
         val = np.exp(tc * 0.5 * (hi + lo))
         return b * (complex(val) if np.iscomplexobj(val) else float(val))
     full, c, h = _full_exp_coeffs(t, lo, hi, tol, m)
+    return _check_finite(
+        chebyshev_apply(op, b, _coeffs_to(full, b), (lo, hi), fused=fused),
+        "expv_chebyshev")
+
+
+def _coeffs_to(C, b):
+    """Host coefficients to b's device in b's dtype (complex when C is);
+    pageable host memory: the copy is staged at once, no device sync."""
     cdt = b.dtype
-    if np.iscomplexobj(full):
+    if np.iscomplexobj(C):
         cdt = torch.promote_types(b.dtype, torch.complex64)
-    # pageable host memory: the copy is staged at once, no device sync
-    coeffs = torch.as_tensor(full).to(cdt).to(b.device, non_blocking=True)
-    return _check_finite(chebyshev_apply(op, b, coeffs, (lo, hi), fused=fused),
-                         "expv_chebyshev")
+    return torch.as_tensor(C).to(cdt).to(b.device, non_blocking=True)
+
+
+def _hermitian_op(A, what: str):
+    op = aslinearoperator(A)
+    if not op.is_hermitian:
+        raise ValueError(f"{what} requires a Hermitian operator")
+    return op
+
+
+def phiv_chebyshev(t, A, b, k: int, *, bounds=None, m: int | None = None,
+                   tol: float = 1e-7, samples: int = 1024,
+                   fused: bool | None = None):
+    """[phi_0(tA)b ... phi_k(tA)b] (n, k+1) for Hermitian A: every order is
+    one more coefficient column of the same recurrence (one launch of B4
+    on a 1-D stencil). ``fused`` as in ``chebyshev_apply``."""
+    op = _hermitian_op(A, "phiv_chebyshev")
+    b = torch.as_tensor(b)
+    lo, hi = _resolve_bounds(op, bounds)
+    tc = complex(t) if np.iscomplexobj(np.asarray(t)) else float(t)
+    c = 0.5 * (hi + lo)
+    h = 0.5 * (hi - lo)
+    if h <= 0:
+        vals = _phi_scalar_np(np.asarray([tc * c]), k)[:, 0]
+        return torch.stack([complex(v) * b if np.iscomplexobj(v)
+                            else float(v) * b for v in vals], dim=-1)
+    C = _fun_ucoeffs(lambda x: _phi_scalar_np(tc * (c + h * x), k),
+                     tol, samples, m_fixed=m)          # (m, k+1)
+    return _check_finite(
+        chebyshev_apply(op, b, _coeffs_to(C, b), (lo, hi), fused=fused),
+        "phiv_chebyshev")
+
+
+def funm_chebyshev(f, A, b, *, bounds=None, m: int | None = None,
+                   tol: float = 1e-7, samples: int = 1024,
+                   fused: bool | None = None):
+    """f(A) b for Hermitian A and any scalar function f (a numpy-vectorized
+    callable, evaluated on the host at Chebyshev points of the spectral
+    interval); the device work is the recurrence of ``expv_chebyshev``."""
+    op = _hermitian_op(A, "funm_chebyshev")
+    b = torch.as_tensor(b)
+    lo, hi = _resolve_bounds(op, bounds)
+    c = 0.5 * (hi + lo)
+    h = 0.5 * (hi - lo)
+    if h <= 0:
+        val = np.asarray(f(np.asarray([c])))[..., 0]
+        return torch.as_tensor(val).to(b.device) * b
+    C = _fun_ucoeffs(lambda x: np.asarray(f(c + h * x)), tol, samples,
+                     m_fixed=m)
+    if C.ndim == 2 and C.shape[1] == 1:
+        C = C[:, 0]
+    return chebyshev_apply(op, b, _coeffs_to(C, b), (lo, hi), fused=fused)
+
+
+@full_precision
+def _chebyshev_combination_scan(op, Bt, C, center, inv_h):
+    """W[s] = sum_k sum_j C[k, s, j] U_k(A~) Bt[j]: the stacked-column
+    recurrence, one pass with p+1 matvecs per term and one small
+    (nt, p+1) @ (p+1, n) product per step folding every snapshot."""
+    cdt = C.dtype
+    Up = torch.zeros_like(Bt)
+    Uc = Bt
+    W = torch.zeros((C.shape[1], Bt.shape[1]), dtype=cdt, device=Bt.device)
+    for Ck in C:
+        W = W + Ck @ Uc.to(cdt)
+        AU = torch.stack([op.matvec(u) for u in Uc])
+        Up, Uc = Uc, (2.0 * inv_h) * (AU - center * Uc) - Up
+    return W
+
+
+def phiv_timestep_chebyshev(ts, A, B, *, bounds=None, tol: float = 1e-7,
+                            m: int | None = None, samples: int = 1024,
+                            fused: bool | None = None):
+    """u(t) = sum_j t^j phi_j(tA) b_j at the snapshot times ``ts`` for
+    Hermitian A (the Niesen-Wright linear combination) in one Chebyshev
+    pass: every snapshot is extra coefficient columns of the same
+    recurrence, with a-priori (coefficient-tail) error control.
+
+    ts: scalar or 1-D array of times. B: (n, p+1) columns b_0..b_p.
+    Returns U (n, len(ts)), or (n,) for scalar ts. On a 1-D stencil that
+    passes ``resident_multi_ok`` each input column b_j is one launch of B4
+    (all snapshots share its chain); ``fused=False`` forbids that.
+    """
+    op = _hermitian_op(A, "phiv_timestep_chebyshev")
+    B = torch.as_tensor(B)
+    if B.ndim == 1:
+        B = B[:, None]
+    p = B.shape[1] - 1
+    scalar_ts = np.ndim(ts) == 0
+    ts_arr = np.atleast_1d(np.asarray(ts, np.float64))
+    nt = len(ts_arr)
+    lo, hi = _resolve_bounds(op, bounds)
+    c = 0.5 * (hi + lo)
+    h = 0.5 * (hi - lo)
+
+    if h <= 0:
+        cols = []
+        for t in ts_arr:
+            vals = _phi_scalar_np(np.asarray([t * c]), p)[:, 0]
+            cols.append(sum((t ** j) * float(vals[j]) * B[:, j]
+                            for j in range(p + 1)))
+        U = torch.stack(cols, dim=-1)
+        return U[:, 0] if scalar_ts else U
+
+    def f(x):
+        # stacked (nt (p+1), M): rows (s, j) = t_s^j phi_j(t_s lambda(x))
+        return np.concatenate([
+            _phi_scalar_np(t * (c + h * x), p)
+            * (t ** np.arange(p + 1))[:, None] for t in ts_arr], axis=0)
+
+    C = _fun_ucoeffs(f, tol, samples, m_fixed=m)
+    C = C.reshape(len(C), nt, p + 1)
+    Cj = _coeffs_to(C, B)
+    if (fused is not False and not np.iscomplexobj(C)
+            and resident_multi_ok(op, B.dtype, B.device, nt)):
+        from ..ops.kernels.resident import recurrence_apply_resident_multi
+
+        rows = chebyshev_rows(torch.zeros_like(Cj[:, 0, 0]), c, h, B.dtype)
+        U = None
+        for j in range(p + 1):
+            Uj = recurrence_apply_resident_multi(op, B[:, j], rows,
+                                                 Cj[:, :, j])
+            U = Uj if U is None else U + Uj
+    else:
+        U = _chebyshev_combination_scan(op, B.T, Cj, c, 1.0 / h).T
+    U = _check_finite(U, "phiv_timestep_chebyshev")       # (n, nt)
+    return U[:, 0] if scalar_ts else U

@@ -1,0 +1,168 @@
+"""Krylov phi-function actions ``phiv(t, A, b, k) ~ [phi_0(tA)b ... phi_k(tA)b]``
+for Hermitian operators (PyTorch port of
+``exponentialutilities_jl_tpu/models/phiv.py``).
+
+The Lanczos basis reduces the problem to ``phiv_dense`` on the masked
+t H_m (the (m+k)^2 augmented-matrix exponential); the basis combination
+is one matrix product, optionally with the Niesen-Wright correction by
+the last basis vector (formula (10) of arXiv:0907.4631), and the
+a-posteriori error estimate |beta h_{m+1,m} t C2[last, k]| comes with it.
+
+``two_pass=True`` is the storage-free form: pass 1 records (alpha, beta),
+the reduced augmented exponential gives one combination column per
+order, pass 2 regenerates the basis and accumulates all k+1 columns. On a
+CUDA device with real float32/float64 data and real t, a 1-D constant
+stencil whose k+1 columns pass ``resident_multi_ok`` runs pass 1 in B2
+and pass 2 in one launch of B4 (``phiv_two_pass_resident``); everything
+else takes the plain torch passes.
+
+Not ported yet, and raising NotImplementedError: non-Hermitian operators
+(Arnoldi, ROADMAP A5), ``reduced="host"`` and ``differentiable=True``
+(ROADMAP A6). The sorted-SELL conjugation hoist of the JAX ``phiv`` has
+no operator to act on until SELL is ported (ROADMAP B9).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.krylov import KrylovBasis
+from ..ops.phi_dense import phiv_dense
+from ..utils.linop import aslinearoperator
+from ..utils.precision import full_precision
+from .expv import build_subspace
+
+__all__ = ["phiv", "phiv_from_basis", "make_phiv"]
+
+
+@full_precision
+def _phiv_combine(t, Ks: KrylovBasis, C2, k: int, correct: bool):
+    """(w (n, k+1), err) from the (m, k+1) reduced phi columns C2: basis
+    combination, optional correction and the error estimate."""
+    m = Ks.m
+    dt = C2.dtype
+    beta = Ks.beta.to(dt)
+    w = (Ks.V[:m].to(dt).T @ C2) * beta
+    # the last effective row: the residual beta is H[m_used, m_used - 1]
+    # and C2's row is m_used - 1
+    last = torch.clamp_min(Ks.m_used - 1, 0)
+    c_last = C2[last]                                   # (k+1,)
+    betah = beta * Ks.H[last + 1, last].to(dt) * t
+    if correct and k >= 1:
+        # w[:, i] += beta h C2[last, i+1] v_last for i < k (Niesen-Wright)
+        vlast = Ks.V[Ks.m_used].to(dt)
+        coeffs = torch.cat([c_last[1:], torch.zeros_like(c_last[:1])]) * betah
+        w = w + vlast[:, None] * coeffs[None, :]
+    err = torch.abs(betah * c_last[k])
+    live = Ks.beta > 0
+    return torch.where(live, w, 0.0), torch.where(live, err, 0.0)
+
+
+def _reduced_dtype(Ks: KrylovBasis, t):
+    dt = torch.promote_types(Ks.V.dtype, Ks.H.dtype)
+    return torch.promote_types(dt, torch.as_tensor(t).dtype)
+
+
+def phiv_from_basis(t, Ks: KrylovBasis, k: int, *, correct: bool = False,
+                    reduced: str = "device"):
+    """(w, err) from a prebuilt basis: w the (n, k+1) matrix of
+    phi_j(tA)b columns, err the error estimate of phi_k."""
+    if reduced != "device":
+        raise NotImplementedError(
+            f'reduced="{reduced}": only the device reduced exponential is '
+            "ported (ROADMAP A6)")
+    if not Ks.hermitian:
+        raise NotImplementedError(
+            "Arnoldi bases are not ported yet (ROADMAP A5)")
+    m = Ks.m
+    dt = _reduced_dtype(Ks, t)
+    Hm = t * Ks.H[:m, :m].to(dt)
+    e1 = torch.eye(m, dtype=dt, device=Hm.device)[0]
+    return _phiv_combine(t, Ks, phiv_dense(Hm, e1, k), k, correct)
+
+
+def make_phiv(op, k: int, *, m: int = 30, tol: float = 1e-7,
+              hermitian: bool | None = None, correct: bool = False):
+    """Serving factory: ``fn(t, b) -> (w, err)`` with the operator, order
+    and Krylov settings bound once."""
+    op = aslinearoperator(op)
+    m_ = min(m, op.shape[0])
+
+    def fn(t, b):
+        Ks = build_subspace(op, torch.as_tensor(b), m_, tol=tol,
+                            hermitian=hermitian)
+        return phiv_from_basis(t, Ks, k, correct=correct)
+
+    return fn
+
+
+def phiv(t, A, b, k: int, *, m: int = 30, tol: float = 1e-7,
+         correct: bool = False, errest: bool = False,
+         hermitian: bool | None = None, reduced: str = "device",
+         two_pass: bool = False, differentiable: bool = False):
+    """[phi_0(tA)b ... phi_k(tA)b] by a Krylov approximation of a Hermitian
+    operator: the (n, k+1) matrix, or (w, err) when ``errest=True``.
+
+    correct: the Niesen-Wright correction of the first k columns.
+    two_pass: the storage-free two-pass Lanczos (module doc), which picks
+      the CUDA kernels B2 and B4 for a 1-D constant stencil.
+    """
+    if differentiable:
+        raise NotImplementedError(
+            "differentiable=True is not ported yet (ROADMAP A6)")
+    if reduced != "device":
+        raise NotImplementedError(
+            f'reduced="{reduced}": only the device reduced exponential is '
+            "ported (ROADMAP A6)")
+    op = aslinearoperator(A)
+    b = torch.as_tensor(b)
+    m = min(m, op.shape[0])
+    herm = op.is_hermitian if hermitian is None else hermitian
+    if not herm:
+        raise NotImplementedError(
+            "non-Hermitian phiv needs Arnoldi, not ported yet (ROADMAP A5)")
+    if not two_pass:
+        Ks = build_subspace(op, b, m, tol=tol, hermitian=True)
+        w, err = phiv_from_basis(t, Ks, k, correct=correct)
+    else:
+        from ..ops.kernels.dispatch import resident_multi_ok
+        from ..ops.kernels.resident import phiv_two_pass_resident
+
+        # the kernels replay with real coefficients: complex t keeps the
+        # plain passes
+        if (not torch.as_tensor(t).is_complex()
+                and resident_multi_ok(op, b.dtype, b.device, k + 1)):
+            w, err = phiv_two_pass_resident(op, b, t, m, k, tol=tol)
+        else:
+            w, err = _phiv_two_pass(op, b, t, m, k)
+    return (w, err) if errest else w
+
+
+def _two_pass_reduced(alphas, betas, beta0, m_used, t, k: int, dt):
+    """Reduced stage of every two-pass phiv: (C2, err) with C2 (m, k+1)
+    the phi columns of the recorded tridiagonal t T (``phiv_dense``) and
+    err the error estimate |beta0 h t C2[last, k]|."""
+    m = alphas.shape[0]
+    T = (torch.diag(alphas) + torch.diag(betas[:-1], 1)
+         + torch.diag(betas[:-1], -1)).to(dt)
+    e1 = torch.eye(m, dtype=dt, device=T.device)[0]
+    C2 = phiv_dense(t * T, e1, k)
+    last = torch.clamp_min(m_used - 1, 0)
+    h_res = torch.where(m_used < m, betas[torch.clamp_max(m_used, m - 1)],
+                        betas[m - 1]).to(dt)
+    return C2, torch.abs(beta0.to(dt) * h_res * t * C2[last, k])
+
+
+@full_precision
+def _phiv_two_pass(op, b, t, m: int, k: int):
+    """Storage-free Hermitian phi-actions on the plain torch passes
+    (``ops.krylov.lanczos_coeffs`` / ``lanczos_replay``): (w (n, k+1),
+    err) without the (m+1, n) basis."""
+    from ..ops.krylov import lanczos_coeffs, lanczos_replay
+
+    alphas, betas, beta0, m_used, broke = lanczos_coeffs(op, b, m)
+    dt = torch.promote_types(b.dtype, torch.as_tensor(t).dtype)
+    C2, err = _two_pass_reduced(alphas, betas, beta0, m_used, t, k, dt)
+    w = lanczos_replay(op, b, C2 * beta0.to(dt), alphas, betas, m)
+    live = beta0 > 0
+    return torch.where(live, w, 0.0), torch.where(live, err, 0.0)

@@ -1,10 +1,11 @@
 """Build, load and bind the hand-written CUDA kernels (``csrc/``).
 
 The kernels are compiled by ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, loaded with ``ctypes``. The build
-runs at the first kernel launch of a process, never at import, and caches
-the library under ``exponentialutilities_jl_torch/_build/`` keyed by a hash
-of the sources and flags, so an edited source rebuilds and an unchanged one
+shared library with a plain C interface, loaded with ``ctypes``: one nvcc
+process per source, all started together, then one link. The build runs
+at the first kernel launch of a process, never at import, and caches the
+library under ``exponentialutilities_jl_torch/_build/`` keyed by a hash of
+the sources and flags, so an edited source rebuilds and an unchanged one
 loads in milliseconds. A failed build raises with nvcc's stderr.
 
 Every C launcher returns a CUDA error code (0 = success); ``check`` turns a
@@ -32,14 +33,15 @@ __all__ = ["library", "check", "launches", "reset_launch_counts", "ptr",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
-SOURCES = ("common.cuh", "resident.cu", "fused_sweep.cu")
+SOURCES = ("common.cuh", "resident.cu", "resident_family.cu", "fused_sweep.cu")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 KERNEL_DTYPES = (torch.float32, torch.float64)
 MAX_POINTS = 64                 # stencil points: eu::kMaxPoints in csrc/common.cuh
 
 launches = {"resident_recurrence": 0, "resident_lanczos": 0,
+            "resident_multi": 0, "resident_banded": 0, "resident_grid": 0,
             "fused_sweep": 0}
 
 
@@ -72,6 +74,15 @@ def _declare(lib):
         f.argtypes = [_VP, _VP, _VP, _I, _LL, _I, real, _VP, _VP, _VP, _I,
                       _VP]
         f.restype = _I
+        f = getattr(lib, f"eu_resident_multi_{suf}")
+        f.argtypes = [_VP, _VP, _VP, _I, _VP, _VP, _I, _LL, _I, _VP, _VP, _VP]
+        f.restype = _I
+        f = getattr(lib, f"eu_resident_banded_{suf}")
+        f.argtypes = [_VP, _VP, _VP, _VP, _I, _LL, _I, _VP, _VP, _VP]
+        f.restype = _I
+        f = getattr(lib, f"eu_resident_grid_{suf}")
+        f.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP, _VP, _VP]
+        f.restype = _I
         f = getattr(lib, f"eu_fused_sweep_{suf}")
         f.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
                       _I, _VP, _VP, _VP, _VP, _LL, _VP, _VP]
@@ -93,17 +104,41 @@ def library() -> ctypes.CDLL:
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(CSRC / s) for s in SOURCES if s.endswith(".cu")]]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed ({r.returncode}): "
-                               f"{' '.join(cmd)}\n{r.stderr}")
-        os.replace(tmp, so)
+        nvcc = _nvcc()
+        objs, procs = [], []
+        try:
+            for name in SOURCES:
+                if name.endswith(".cu"):
+                    obj = tmp.with_name(f"{tmp.name}.{name}.o")
+                    objs.append(obj)
+                    cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                           str(CSRC / name)]
+                    procs.append((cmd, subprocess.Popen(
+                        cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                        text=True)))
+            for cmd, proc in procs:
+                _run(cmd, proc)
+            cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+            _run(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True))
+            os.replace(tmp, so)
+        finally:
+            for _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            for f in (*objs, tmp):
+                f.unlink(missing_ok=True)
     lib = ctypes.CDLL(str(so))
     _declare(lib)
     return lib
+
+
+def _run(cmd, proc):
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{err}")
 
 
 def check(code: int, what: str):

@@ -1,6 +1,7 @@
 // Shared pieces of the hand-written Hopper kernels: stencil descriptors,
-// the fixed-order block reduction, and the error-code convention of the
-// plain C launchers (each returns a cudaError_t as int; 0 is success).
+// the fixed-order block reduction, the grid sizing of the persistent
+// cooperative kernels, and the error-code convention of the plain C
+// launchers (each returns a cudaError_t as int; 0 is success).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -49,6 +50,39 @@ __device__ __forceinline__ T fixed_order_total(const T* p, int n, int stride,
   T a = T(0);
   for (int b = threadIdx.x; b < n; b += kThreads) a += __ldcg(p + (size_t)b * stride);
   return block_sum(a, scratch);
+}
+
+// Largest grid of `fn` (kThreads per block) that is co-resident on the
+// current device, as a cooperative launch needs; negative: a CUDA error.
+inline int max_coresident_blocks(const void* fn) {
+  int dev = 0, sms = 0, per_sm = 0, coop = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return -(int)e;
+  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e != cudaSuccess) return -(int)e;
+  if (!coop) return -(int)cudaErrorNotSupported;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return -(int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, 0);
+  if (e != cudaSuccess) return -(int)e;
+  return per_sm * sms;
+}
+
+// Grid of a persistent kernel over n rows: one block per kThreads rows, at
+// most the co-resident maximum (grid-stride loops cover the rest).
+inline int grid_for(const void* fn, long long n, int* grid) {
+  const int cap = max_coresident_blocks(fn);
+  if (cap <= 0) return cap == 0 ? (int)cudaErrorCooperativeLaunchTooLarge : -cap;
+  const long long need = (n + kThreads - 1) / kThreads;
+  *grid = (int)(need < cap ? (need > 0 ? need : 1) : cap);
+  return 0;
+}
+
+inline Offsets1D make_offsets(const int* offs, int k) {
+  Offsets1D o{};
+  o.k = k;
+  for (int j = 0; j < k; ++j) o.o[j] = offs[j];
+  return o;
 }
 
 }  // namespace eu

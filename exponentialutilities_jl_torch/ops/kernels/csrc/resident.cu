@@ -180,44 +180,13 @@ resident_lanczos_kernel(const T* __restrict__ v0, const T* __restrict__ cvals,
 }
 
 template <typename T>
-int max_coresident_blocks(const void* fn) {
-  int dev = 0, sms = 0, per_sm = 0, coop = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return -(int)e;
-  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e != cudaSuccess) return -(int)e;
-  if (!coop) return -(int)cudaErrorNotSupported;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return -(int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, 0);
-  if (e != cudaSuccess) return -(int)e;
-  return per_sm * sms;
-}
-
-template <typename T>
-int grid_for(const void* fn, long long n, int* grid) {
-  const int cap = max_coresident_blocks<T>(fn);
-  if (cap <= 0) return cap == 0 ? (int)cudaErrorCooperativeLaunchTooLarge : -cap;
-  const long long need = (n + kThreads - 1) / kThreads;
-  *grid = (int)(need < cap ? (need > 0 ? need : 1) : cap);
-  return 0;
-}
-
-Offsets1D make_offsets(const int* offs, int k) {
-  Offsets1D o{};
-  o.k = k;
-  for (int j = 0; j < k; ++j) o.o[j] = offs[j];
-  return o;
-}
-
-template <typename T>
 int launch_recurrence(const T* x, const T* rows, const T* cvals, const T* scale,
                       const int* offs, int k, long long n, int m, T* w, T* buf,
                       T* partials, int partials_cap, T* nrm2, cudaStream_t stream) {
   if (k < 1 || k > kMaxPoints || n < 1 || m < 0) return (int)cudaErrorInvalidValue;
   const void* fn = (const void*)resident_recurrence_kernel<T>;
   int grid = 0;
-  int e = grid_for<T>(fn, n, &grid);
+  int e = grid_for(fn, n, &grid);
   if (e) return e;
   if (grid > partials_cap) return (int)cudaErrorInvalidValue;
   Offsets1D o = make_offsets(offs, k);
@@ -236,7 +205,7 @@ int launch_lanczos(const T* v0, const T* cvals, const int* offs, int k, long lon
   if (k < 1 || k > kMaxPoints || n < 1 || m < 0) return (int)cudaErrorInvalidValue;
   const void* fn = (const void*)resident_lanczos_kernel<T>;
   int grid = 0;
-  int e = grid_for<T>(fn, n, &grid);
+  int e = grid_for(fn, n, &grid);
   if (e) return e;
   if (2 * grid > partials_cap) return (int)cudaErrorInvalidValue;
   Offsets1D o = make_offsets(offs, k);
@@ -275,8 +244,8 @@ extern "C" int eu_resident_max_blocks(int f64) {
                       : (const void*)eu::resident_recurrence_kernel<float>;
   const void* b = f64 ? (const void*)eu::resident_lanczos_kernel<double>
                       : (const void*)eu::resident_lanczos_kernel<float>;
-  const int ca = f64 ? eu::max_coresident_blocks<double>(a) : eu::max_coresident_blocks<float>(a);
-  const int cb = f64 ? eu::max_coresident_blocks<double>(b) : eu::max_coresident_blocks<float>(b);
+  const int ca = eu::max_coresident_blocks(a);
+  const int cb = eu::max_coresident_blocks(b);
   if (ca < 0) return ca;
   if (cb < 0) return cb;
   return ca > cb ? ca : cb;

@@ -4,17 +4,22 @@
     w          += cw_k omega_k
 
 shared by the polynomial actions (PyTorch port of
-``exponentialutilities_jl_tpu/ops/kernels/dispatch.py``). Two hand-written
-CUDA engines implement the same (m, 4)-rows contract:
+``exponentialutilities_jl_tpu/ops/kernels/dispatch.py``). Four
+hand-written CUDA engines implement the same (m, 4)-rows contract, tried
+in the JAX package's order:
 
   * ``resident`` - 1-D constant stencils, the whole recurrence in one
                    persistent launch (ops/kernels/resident.py, B1)
+  * ``banded``   - ``BandedOperator``s, one persistent launch (B5)
+  * ``grid``     - 2-D/3-D constant stencils whose state fits the L2
+                   budget, one persistent launch (B6)
   * ``fused``    - 2-D/3-D constant box stencils, one sweep per step
                    (ops/kernels/lanczos_fused.recurrence_apply_fused, B3)
 
 ``recurrence_engine`` picks the first that applies to a real float32 or
 float64 recurrence on a CUDA device, or returns None for the caller's
-plain torch path (which is what CPU tensors take).
+plain torch path (which is what CPU tensors take). ``resident_multi_ok``
+is the gate of B4, the multi-column (m, p) form of the 1-D recurrence.
 """
 
 from __future__ import annotations
@@ -23,7 +28,10 @@ import torch
 
 from ._build import KERNEL_DTYPES
 
-__all__ = ["recurrence_engine", "chebyshev_rows", "kernel_device_ok"]
+__all__ = ["recurrence_engine", "chebyshev_rows", "kernel_device_ok",
+           "resident_multi_ok", "MAX_COLS"]
+
+MAX_COLS = 8            # B4 accumulator columns, as the JAX gate allows
 
 
 def chebyshev_rows(coeffs, center, halfwidth, dt):
@@ -43,6 +51,21 @@ def kernel_device_ok(dtype, device) -> bool:
     return torch.device(device).type == "cuda" and dtype in KERNEL_DTYPES
 
 
+def resident_multi_ok(op, dtype, device, p: int) -> bool:
+    """Gate of B4 (``recurrence_apply_resident_multi``): a 1-D real
+    constant stencil, real float32/float64 data on a CUDA device,
+    1 <= p <= MAX_COLS accumulators, and the (p + 3) state vectors within
+    ``resident.L2_STATE_BUDGET`` (the multi-column memory budget that the
+    JAX package's two-pass phiv gate leaves out)."""
+    from .resident import L2_STATE_BUDGET, resident_supported
+
+    if not (kernel_device_ok(dtype, device) and resident_supported(op)):
+        return False
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return (1 <= p <= MAX_COLS
+            and (p + 3) * op.shape[0] * itemsize <= L2_STATE_BUDGET)
+
+
 def recurrence_engine(op, dtype, fused=None, *, device,
                       hermitian: bool = False):
     """An ``apply(op, b, rows) -> w`` callable for the CUDA recurrence
@@ -55,10 +78,18 @@ def recurrence_engine(op, dtype, fused=None, *, device,
     if fused is False:
         return None
     from .lanczos_fused import fused_supported, recurrence_apply_fused
-    from .resident import recurrence_apply_resident, resident_supported
+    from .resident import (recurrence_apply_resident,
+                           recurrence_apply_resident_banded,
+                           recurrence_apply_resident_grid,
+                           resident_banded_supported, resident_grid_supported,
+                           resident_supported)
 
     if resident_supported(op):
         engine = recurrence_apply_resident
+    elif resident_banded_supported(op):
+        engine = recurrence_apply_resident_banded
+    elif resident_grid_supported(op, dtype):
+        engine = recurrence_apply_resident_grid
     elif fused_supported(op, hermitian=hermitian):
         engine = recurrence_apply_fused
     else:
@@ -68,7 +99,8 @@ def recurrence_engine(op, dtype, fused=None, *, device,
         if engine is None:
             raise ValueError(
                 "fused=True: no CUDA recurrence engine for this operator "
-                "(needs a real 1-D, or 2-D/3-D box, constant StencilOperator)")
+                "(needs a real BandedOperator, or a real 1-D, or 2-D/3-D "
+                "box, constant StencilOperator)")
         if not device_ok:
             raise ValueError(
                 f"fused=True: the CUDA engines take float32/float64 data on "

@@ -67,20 +67,22 @@ class BandedOperator(LinearOperator):
         return self.diags.abs().sum(dim=0).max()
 
     def _gershgorin_real(self):
-        """Per-row Gershgorin enclosure of the spectrum's real parts
-        (host floats; one copy of the diagonals to the host)."""
-        D = self.diags.detach().cpu().numpy()
+        """Per-row Gershgorin enclosure of the spectrum's real parts,
+        computed where the diagonals live; returns host floats (one sync,
+        two numbers copied)."""
+        D = self.diags.detach()
         n = self.shape[0]
-        i = np.arange(n)
-        d = np.zeros(n, D.dtype)
-        r = np.zeros(n)
+        i = torch.arange(n, device=D.device)
+        d = torch.zeros(n, dtype=D.dtype, device=D.device)
+        r = torch.zeros(n, dtype=torch.float64, device=D.device)
         for k, o in enumerate(self.offsets):
-            row = np.where((i + o >= 0) & (i + o < n), D[k], 0)
+            row = torch.where((i + o >= 0) & (i + o < n), D[k], 0)
             if o == 0:
                 d = d + row
             else:
-                r = r + np.abs(row)
-        return (float(np.min(np.real(d) - r)), float(np.max(np.real(d) + r)))
+                r = r + row.abs()
+        lo, hi = torch.stack([(d.real - r).min(), (d.real + r).max()]).tolist()
+        return lo, hi
 
     def spectral_bounds_hint(self):
         """Gershgorin spectrum enclosure for the Chebyshev actions;

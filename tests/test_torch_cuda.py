@@ -7,6 +7,8 @@ conftest imports JAX, which a GPU machine need not have).
 Tolerances, relative to the output's max-norm: 1e-5 in float32 (sum order
 and FMA contraction differ from the twin) and 1e-12 in float64."""
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -78,13 +80,62 @@ def test_b3_vs_twin(dev, dt, shape):
     assert torch.equal(mom, torch.stack(plain[2:]))
 
 
+def _rows(m, op, dt, dev, seed):
+    """Random recurrence rows with ca scaled by 1/|A| (bounded growth)."""
+    rows = _vec(4 * m, dt, dev, seed).reshape(m, 4) * 0.5
+    rows[:, 0] *= 2.0 / float(op.opnorm_hint())
+    return rows
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_b4_vs_twin(dev, dt):
+    op = et.StencilOperator((1000,), [(-2,), (-1,), (0,), (1,), (2,)],
+                            np.asarray([0.1, 1.0, -2.2, 1.0, 0.1]),
+                            is_hermitian=True, dtype=dt, device=dev)
+    x = _vec(1000, dt, dev, 7)
+    rows = _rows(10, op, dt, dev, 8)
+    cw = _vec(40, dt, dev, 9).reshape(10, 4)
+    W = tr.recurrence_apply_resident_multi(op, x, rows, cw)
+    _close(W, tr.resident_multi_ref(x, rows, cw, op.coeffs,
+                                    tr._flat_offsets(op)), dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("kind", ["poisson", "laplacian"])
+def test_b5_vs_twin(dev, dt, kind):
+    op = (et.poisson_2d(30, 40, dtype=dt, device=dev) if kind == "poisson"
+          else et.laplacian_1d(1000, dtype=dt, device=dev))
+    x = _vec(op.shape[0], dt, dev, 10)
+    rows = _rows(10, op, dt, dev, 11)
+    w = tr.recurrence_apply_resident_banded(op, x, rows)
+    _close(w, tr.resident_banded_ref(x, rows, op.diags, op.offsets), dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("shape,radius", [((33, 40), 1), ((5, 7, 13), 1),
+                                          ((6, 9, 14), 0)])
+def test_b6_vs_twin(dev, dt, shape, radius):
+    if radius:      # box stencil: 9 points in 2-D, 27 in 3-D
+        offs = list(itertools.product((-1, 0, 1), repeat=len(shape)))
+        cs = np.random.default_rng(12).standard_normal(len(offs)) * 0.15
+        op = et.StencilOperator(shape, offs, cs, dtype=dt, device=dev)
+    else:
+        op = et.laplacian_nd_stencil(*shape, dtype=dt, device=dev)
+    x = _vec(op.shape[0], dt, dev, 13)
+    rows = _rows(10, op, dt, dev, 14)
+    w = tr.recurrence_apply_resident_grid(op, x, rows)
+    _close(w, tr.resident_grid_ref(x, rows, op.grid_shape, op.offsets,
+                                   op.coeffs), dt)
+
+
 def test_main_path_dispatches_to_kernels(dev):
     op1 = et.laplacian_nd_stencil(2000, device=dev)
     op3 = et.laplacian_nd_stencil(6, 7, 8, device=dev)
     assert td.recurrence_engine(op1, torch.float64, device=dev) is \
         tr.recurrence_apply_resident
+    # a grid this small keeps its state in L2: the one-launch B6
     assert td.recurrence_engine(op3, torch.float64, device=dev) is \
-        tf.recurrence_apply_fused
+        tr.recurrence_apply_resident_grid
     _build.reset_launch_counts()
     b1 = _vec(2000, torch.float64, dev, 5)
     b3 = _vec(op3.shape[0], torch.float64, dev, 6)
@@ -95,9 +146,24 @@ def test_main_path_dispatches_to_kernels(dev):
     counts = dict(_build.launches)
     assert counts["resident_recurrence"] == 2
     assert counts["resident_lanczos"] == 1
-    assert counts["fused_sweep"] >= 2 * 21
+    assert counts["resident_grid"] == 1
+    assert counts["fused_sweep"] == 2 * 21
     assert float((w1 - w2).norm() / w2.norm()) < 1e-10
     assert float((w3 - w4).norm() / w4.norm()) < 1e-10
+
+
+def test_phi_path_dispatches_to_kernels(dev):
+    op = et.laplacian_nd_stencil(2000, device=dev)
+    b = _vec(2000, torch.float64, dev, 15)
+    _build.reset_launch_counts()
+    w1 = et.phiv(0.5, op, b, 3, m=40, two_pass=True)
+    w2 = et.phiv_chebyshev(0.5, op, b, 3, tol=1e-12)
+    w3 = et.phiv(0.5, op, b, 3, m=30)
+    assert dict(_build.launches) == {
+        "resident_recurrence": 0, "resident_lanczos": 1, "resident_multi": 2,
+        "resident_banded": 0, "resident_grid": 0, "fused_sweep": 0}
+    for w in (w1, w2):
+        assert float((w - w3).norm() / w3.norm()) < 1e-10
 
 
 def test_fused_true_wrong_dtype_raises(dev):

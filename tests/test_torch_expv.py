@@ -135,15 +135,23 @@ def test_gates_on_cpu_take_plain_path():
                                                            resident)
     assert (td.recurrence_engine(top, torch.float32, device="cuda")
             is resident.recurrence_apply_resident)
+    # a grid this small takes the one-launch B6, a banded matrix B5, a
+    # grid past the L2 budget the B3 sweeps
     assert (td.recurrence_engine(top3, torch.float64, device="cuda")
+            is resident.recurrence_apply_resident_grid)
+    assert (td.recurrence_engine(et.laplacian_1d(64), torch.float64,
+                                 fused=True, device="cuda")
+            is resident.recurrence_apply_resident_banded)
+    assert (td.recurrence_engine(et.laplacian_nd_stencil(216, 216, 216),
+                                 torch.float64, device="cuda")
             is lanczos_fused.recurrence_apply_fused)
     assert td.recurrence_engine(top3, torch.complex128, device="cuda") is None
     with pytest.raises(ValueError):
         td.recurrence_engine(top3, torch.complex128, fused=True,
                              device="cuda")
     with pytest.raises(ValueError):
-        td.recurrence_engine(et.laplacian_1d(64), torch.float64, fused=True,
-                             device="cuda")
+        td.recurrence_engine(et.DiagonalOperator(torch.ones(64)),
+                             torch.float64, fused=True, device="cuda")
     _build.reset_launch_counts()
     b = torch.ones(64, dtype=torch.float64)
     et.expv_chebyshev(0.5, top, b)

@@ -1,0 +1,207 @@
+"""PyTorch port vs JAX package: the phi-function actions (models/phiv.py,
+the phi part of models/chebyshev.py, ops/kernels/resident
+.phiv_two_pass_resident) and the B4 gate, on CPU with the same seeded
+numpy inputs through both packages. float64 runs the XLA paths on the JAX
+side and the plain torch paths (or the kernels' twins) on the port's;
+float32 holds the twins to the JAX Pallas kernels in interpret mode."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import scipy.sparse.linalg as spla
+import torch
+
+import exponentialutilities_jl_tpu as ej
+import exponentialutilities_jl_torch as et
+from exponentialutilities_jl_tpu.models import phiv as jpv
+from exponentialutilities_jl_tpu.ops.kernels import resident as jr
+from exponentialutilities_jl_torch.models import phiv as tpv
+from exponentialutilities_jl_torch.ops.kernels import dispatch as td
+from exponentialutilities_jl_torch.ops.kernels import resident as tr
+from torch_parity import RTOL32, RTOL64, assert_close, t2n
+
+torch.set_num_threads(2)
+
+K = 3
+# the error estimate |beta h t C2[last, k]| is a product of recurrence
+# values, each agreeing to a few ulps: hold it relatively
+RTOL_ERR = 1e-8
+
+
+def _problem(name, seed=0):
+    """(JAX op, port op, b, t) at a small size."""
+    rng = np.random.default_rng(seed)
+    if name == "1d":
+        jop, t = ej.laplacian_nd_stencil(400), 0.5
+    elif name == "poisson":                       # BandedOperator storage
+        jop, t = ej.poisson_2d(20, 30), 0.05
+    else:                                         # dense symmetric
+        A = rng.standard_normal((60, 60))
+        jop, t = ej.DenseOperator(jnp.asarray((A + A.T) / 8),
+                                  is_hermitian=True), 0.7
+    b = rng.standard_normal(jop.shape[0])
+    return jop, et.to_torch_operator(jop), b, t
+
+
+def _phi_identity_err(op, w, b, t):
+    """max_j |t A phi_{j+1} b - (phi_j b - b/j!)| / |phi_j b| over j < k."""
+    fact, errs = 1.0, []
+    for j in range(w.shape[1] - 1):
+        if j:
+            fact *= j
+        lhs = t * op.matvec(w[:, j + 1])
+        rhs = w[:, j] - b / fact
+        errs.append(float((lhs - rhs).norm() / w[:, j].norm()))
+    return max(errs)
+
+
+@pytest.mark.parametrize("correct", [False, True])
+@pytest.mark.parametrize("name", ["1d", "poisson", "dense"])
+def test_phiv_vs_jax(name, correct):
+    jop, top, b, t = _problem(name)
+    m = 10                                        # a visible error estimate
+    jw, je = ej.phiv(t, jop, jnp.asarray(b), K, m=m, correct=correct,
+                     errest=True)
+    tw, te = et.phiv(t, top, torch.as_tensor(b), K, m=m, correct=correct,
+                     errest=True)
+    assert tw.shape == (b.shape[0], K + 1)
+    assert_close(t2n(tw), np.asarray(jw), 1e2 * RTOL64, "w vs JAX")
+    assert float(te) == pytest.approx(float(je), rel=RTOL_ERR)
+    assert float(te) > 0
+
+
+@pytest.mark.parametrize("name", ["1d", "poisson"])
+def test_phiv_converged_identities_and_scipy(name):
+    jop, top, b, t = _problem(name, seed=1)
+    tw = et.phiv(t, top, torch.as_tensor(b), K, m=30)
+    A = np.asarray(jop.to_dense() if hasattr(jop, "to_dense")
+                   else jop.to_banded().to_dense())
+    assert_close(t2n(tw[:, 0]), spla.expm_multiply(t * A, b), 1e-10,
+                 "phi_0 vs scipy")
+    assert _phi_identity_err(top, tw, torch.as_tensor(b), t) < 1e-12
+
+
+@pytest.mark.parametrize("name", ["1d", "poisson"])
+def test_phiv_two_pass_vs_jax(name):
+    jop, top, b, t = _problem(name, seed=2)
+    m = 12
+    jw, je = jpv._phiv_two_pass(jop, jnp.asarray(b), jnp.asarray(t), m, K)
+    tw, te = tpv._phiv_two_pass(top, torch.as_tensor(b), t, m, K)
+    assert_close(t2n(tw), np.asarray(jw), 1e2 * RTOL64, "w vs JAX")
+    assert float(te) == pytest.approx(float(je), rel=RTOL_ERR)
+    # on CPU the public two_pass takes the plain passes
+    pw, pe = et.phiv(t, top, torch.as_tensor(b), K, m=m, two_pass=True,
+                     errest=True)
+    assert torch.equal(pw, tw) and torch.equal(pe, te)
+
+
+def test_phiv_two_pass_resident_f32_vs_interpret():
+    n, m, k, t = 300, 8, 2, 0.3
+    jop = ej.StencilOperator((n,), ((-1,), (0,), (1,)),
+                             jnp.asarray([1.0, -2.0, 1.0], jnp.float32),
+                             is_hermitian=True)
+    top = et.to_torch_operator(jop)
+    b = np.random.default_rng(3).standard_normal(n).astype(np.float32)
+    jw, je = jr.phiv_two_pass_resident(jop, jnp.asarray(b), t, m, k,
+                                       interpret=True)
+    tw, te = tr.phiv_two_pass_resident(top, torch.as_tensor(b), t, m, k)
+    assert tw.dtype == torch.float32
+    assert_close(t2n(tw), np.asarray(jw), RTOL32, "w")
+    assert float(te) == pytest.approx(float(je), rel=1e-4)
+
+
+@pytest.mark.parametrize("start", ["random", "zero"])
+def test_phiv_two_pass_resident_f64(start):
+    """float64 twins vs the JAX XLA two-pass phiv (the JAX resident
+    kernels are float32-only)."""
+    jop, top, b, t = _problem("1d", seed=4)
+    if start == "zero":
+        b = np.zeros_like(b)
+    m = 12
+    jw, je = jpv._phiv_two_pass(jop, jnp.asarray(b), jnp.asarray(t), m, K)
+    tw, te = tr.phiv_two_pass_resident(top, torch.as_tensor(b), t, m, K)
+    if start == "zero":
+        assert not t2n(tw).any() and float(te) == 0.0
+        return
+    assert_close(t2n(tw), np.asarray(jw), 1e2 * RTOL64, "w vs JAX")
+    assert float(te) == pytest.approx(float(je), rel=RTOL_ERR)
+
+
+def test_phiv_from_basis_and_make_phiv():
+    jop, top, b, t = _problem("1d", seed=5)
+    Ks = et.build_subspace(top, torch.as_tensor(b), 10)
+    w1, e1 = et.phiv_from_basis(t, Ks, K, correct=True)
+    w2, e2 = et.make_phiv(top, K, m=10, correct=True)(t, torch.as_tensor(b))
+    jw, je = ej.phiv(t, jop, jnp.asarray(b), K, m=10, correct=True,
+                     errest=True)
+    for w, e in ((w1, e1), (w2, e2)):
+        assert_close(t2n(w), np.asarray(jw), 1e2 * RTOL64, "w vs JAX")
+        assert float(e) == pytest.approx(float(je), rel=RTOL_ERR)
+
+
+def test_phiv_zero_start_and_rejects():
+    _, top, b, t = _problem("1d")
+    z = torch.zeros(len(b), dtype=torch.float64)
+    for two_pass in (False, True):
+        w, e = et.phiv(t, top, z, K, two_pass=two_pass, errest=True)
+        assert not t2n(w).any() and float(e) == 0.0
+    bt = torch.as_tensor(b)
+    nonherm = et.StencilOperator((len(b),), [(0,), (1,)], np.asarray([1.0, 0.5]))
+    with pytest.raises(NotImplementedError, match="A5"):
+        et.phiv(t, nonherm, bt, K)
+    with pytest.raises(NotImplementedError, match="A6"):
+        et.phiv(t, top, bt, K, reduced="host")
+    with pytest.raises(NotImplementedError, match="A6"):
+        et.phiv(t, top, bt, K, differentiable=True)
+    # CPU data never reaches a kernel: demanding one is a ValueError
+    with pytest.raises(ValueError):
+        et.phiv_chebyshev(t, top, bt, K, fused=True)
+
+
+@pytest.mark.parametrize("name", ["1d", "poisson"])
+def test_phiv_chebyshev_vs_jax(name):
+    jop, top, b, t = _problem(name, seed=6)
+    jw = ej.phiv_chebyshev(t, jop, jnp.asarray(b), K, tol=1e-12)
+    tw = et.phiv_chebyshev(t, top, torch.as_tensor(b), K, tol=1e-12)
+    assert_close(t2n(tw), np.asarray(jw), RTOL64, "vs JAX")
+    kw = et.phiv(t, top, torch.as_tensor(b), K, m=30)
+    assert_close(t2n(tw), t2n(kw), 1e-10, "vs Krylov phiv")
+
+
+@pytest.mark.parametrize("f", ["cos", "stack"])
+def test_funm_chebyshev_vs_jax(f):
+    jop, top, b, _ = _problem("1d", seed=7)
+    fn = np.cos if f == "cos" else (lambda x: np.stack([np.cos(x),
+                                                         np.exp(0.3 * x)]))
+    jw = ej.funm_chebyshev(fn, jop, jnp.asarray(b), tol=1e-12)
+    tw = et.funm_chebyshev(fn, top, torch.as_tensor(b), tol=1e-12)
+    assert_close(t2n(tw), np.asarray(jw), RTOL64, "vs JAX")
+
+
+@pytest.mark.parametrize("ts", [0.4, [0.1, 0.25, 0.4]])
+def test_phiv_timestep_chebyshev_vs_jax(ts):
+    jop, top, _, _ = _problem("1d", seed=8)
+    B = np.random.default_rng(8).standard_normal((jop.shape[0], 3))
+    jw = ej.phiv_timestep_chebyshev(ts, jop, jnp.asarray(B), tol=1e-12)
+    tw = et.phiv_timestep_chebyshev(ts, top, torch.as_tensor(B), tol=1e-12)
+    assert tw.shape == np.asarray(jw).shape
+    assert_close(t2n(tw), np.asarray(jw), RTOL64, "vs JAX")
+
+
+def test_resident_multi_ok_gate():
+    """B4's gate, decided from types and sizes alone (no card needed):
+    CUDA float32/float64 only, p <= 8, (p + 3) vectors within the L2
+    budget, 1-D stencils only."""
+    op = et.laplacian_nd_stencil(100_000)
+    f64, f32 = torch.float64, torch.float32
+    assert td.resident_multi_ok(op, f64, "cuda", 4)
+    assert not td.resident_multi_ok(op, f64, "cpu", 4)
+    assert not td.resident_multi_ok(op, torch.complex128, "cuda", 4)
+    assert not td.resident_multi_ok(op, f64, "cuda", 9)
+    assert not td.resident_multi_ok(op, f64, "cuda", 0)
+    big = et.laplacian_nd_stencil(800_000)         # 7 x 6.4 MB > 40 MiB
+    assert not td.resident_multi_ok(big, f64, "cuda", 4)
+    assert td.resident_multi_ok(big, f32, "cuda", 4)
+    assert not td.resident_multi_ok(et.laplacian_1d(1000), f64, "cuda", 2)
+    assert not td.resident_multi_ok(et.laplacian_nd_stencil(30, 30), f64,
+                                    "cuda", 2)
