@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
 
-    python3 chip_smoke.py          (from the repository root; needs one card)
+    python3 chip_smoke.py            (from the repository root; one card)
+    python3 chip_smoke.py --profile  (phases 1-4, then device profiles)
 
 The main paths are exp(tA)b and the phi-function actions
 [phi_0(tA)b ... phi_3(tA)b] for Hermitian operators at BASELINE.json's
@@ -9,33 +10,51 @@ sizes: the 1-D Laplacian at n = 100,000 (config #2), the 2-D 5-point
 Poisson matrix on 1000 x 1000 in diagonal storage (config #3, phiv p=0..3
 at t = 1e-4), the 3-D 7-point Laplacian on 216^3 = 10,077,696 rows
 (config #5 on one card), and a 2-D 512^2 stencil small enough for the
-one-launch grid kernel. Phases, each printing one line per check:
+one-launch grid kernel; and the sparse containers at n = 1e6: the
+banded-random matrix of benchmarks/bench_sell.py and the scattered-degree
+matrix of benchmarks/bench_sorted.py (both symmetrized) in SELL-C-sigma
+form (default, segmented and sorted packs), config #3's Poisson matrix
+plus a random residual as a hybrid (banded + SELL), and the 3-D Laplacian
+on 128^3 in 8 x 8 block-ELL. Phases, each printing one line per check and
+its seconds:
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc builds the kernels of ops/kernels/csrc/ (seconds)
-  3. kernels  B1-B6 against their plain twins, float32 and float64, at
-              the main paths' shapes, plus bitwise-repeatable reductions
+  3. kernels  B1-B10 (less B3-var) against their plain twins, float32 and
+              float64, at the main paths' shapes, plus bitwise-repeatable
+              results
   4. main     the public entry points (expv_chebyshev, expv with and
               without two_pass, phiv with and without two_pass,
               phiv_chebyshev, phiv_timestep_chebyshev) with launch counts
               reset just before and read just after, each call's launches
               held to the exact expected count; results checked against
-              scipy (1-D), by the semigroup identity (3-D), the phi
-              identities t A phi_{j+1} = phi_j - b/j!, and cross-method
+              scipy (1-D, and expm_multiply on the n = 1e6 SELL matrix),
+              by the semigroup identity (3-D), the phi identities
+              t A phi_{j+1} = phi_j - b/j!, and cross-method or cross-pack
               agreement; the kernel-driving passes rerun under
               torch.cuda.set_sync_debug_mode("error")
   5. times    CUDA-event medians of >= 10 runs after warm-up, each kernel
               beside its plain twin, B6 beside the B3 sweeps on the same
-              grid, and each main-path call beside the plain path
+              grid, B9 at bench_sell.py's timing shape (n = 1e7) with its
+              GB/s and Gnnz/s, and each main-path call beside the plain
+              path
 
 It prints a JSON line of the kernels, then the card's name and power
 limit, then {"ok": true, "device": {...}} as the last line. Any failed
 check raises, so the exit code is non-zero and no result line is printed;
 without a CUDA device it exits with code 2 at once.
+
+With --profile, phase 5 is replaced by torch.profiler over one warm call
+of each sparse main-path cell (config #3 phiv, the SELL expv, two-pass,
+expv_chebyshev and its spectral_bounds, the block-ELL two-pass): the
+CUDA-event wall time, the device busy time (union of the device
+intervals), the number of device ops, the largest kernels and the host
+ops of most self time. It prints no result lines then.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import statistics
@@ -77,6 +96,21 @@ MTOL3 = {"float64": 1e-10, "float32": 1e-5}
 #   1.7e-16, expv_chebyshev vs phiv column 0 2.6e-16. 2-D 512^2 at
 #   t = 0.5: Chebyshev vs two-pass m = 20 4.6e-13.
 MTOL_PHI = 1e-10
+# The sparse containers, float64, calibrated the same way (JAX package on
+# CPU at n = 1e5, the same matrix classes and settings, t = 0.5): SELL
+# (RCM) expv m = 40 vs scipy expm_multiply 1.0e-15 (two-pass 1.1e-15,
+# Chebyshev tol 1e-12 7.2e-13); scattered default pack vs scipy 1.1e-15,
+# seg and sorted expv vs the default pack 1.4e-15 / 1.5e-15; sorted phiv
+# (k = 3, m = 30) phi identities 4.4e-16, phi_0 vs the default expv
+# 1.0e-15; hybrid (poisson_2d(300, 300) + residual) vs the default pack
+# 9.4e-16; block-ELL two-pass vs the stencil two-pass (32^3, t = 0.05,
+# m = 20) 1.2e-15.
+MTOL_SPARSE = 1e-10
+
+NS = 1_000_000          # the SELL matrices of bench_sell.py / bench_sorted.py
+NS_TIME = 10_000_000    # bench_sell.py's timing shape
+NB = 128                # 3-D Laplacian 128^3 as 8 x 8 block-ELL (B8)
+TS = 0.5                # SELL and hybrid time (examples/unstructured_sparse_expv.py)
 
 REPLACES = {
     "resident_recurrence": "exponentialutilities_jl_tpu/ops/kernels/resident.py:89",
@@ -85,6 +119,10 @@ REPLACES = {
     "resident_banded": "exponentialutilities_jl_tpu/ops/kernels/resident.py:186",
     "resident_grid": "exponentialutilities_jl_tpu/ops/kernels/resident.py:331",
     "fused_sweep": "exponentialutilities_jl_tpu/ops/kernels/lanczos_fused.py:380",
+    "banded_spmv": "exponentialutilities_jl_tpu/ops/kernels/spmv.py:134",
+    "blockell_spmv": "exponentialutilities_jl_tpu/ops/kernels/spmv.py:42",
+    "sell_spmv": "exponentialutilities_jl_tpu/ops/kernels/sell.py:645",
+    "seg_compact": "exponentialutilities_jl_tpu/ops/kernels/sell.py:1391",
 }
 SOURCES = {
     "resident_recurrence": "exponentialutilities_jl_torch/ops/kernels/csrc/resident.cu",
@@ -93,6 +131,10 @@ SOURCES = {
     "resident_banded": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_family.cu",
     "resident_grid": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_family.cu",
     "fused_sweep": "exponentialutilities_jl_torch/ops/kernels/csrc/fused_sweep.cu",
+    "banded_spmv": "exponentialutilities_jl_torch/ops/kernels/csrc/spmv.cu",
+    "blockell_spmv": "exponentialutilities_jl_torch/ops/kernels/csrc/spmv.cu",
+    "sell_spmv": "exponentialutilities_jl_torch/ops/kernels/csrc/sell.cu",
+    "seg_compact": "exponentialutilities_jl_torch/ops/kernels/csrc/sell.cu",
 }
 
 
@@ -112,7 +154,70 @@ def rel_norm(got, want) -> float:
     return float((got - want).norm() / want.norm())
 
 
+def bench_sell_coo(n, d, band, rng):
+    """The banded-random matrix of benchmarks/bench_sell.py:30-34 (what an
+    RCM-permuted mesh or local graph looks like), float64 values / d."""
+    rows = np.repeat(np.arange(n, dtype=np.int64), d)
+    cols = np.clip(rows + rng.integers(-band // 2, band // 2, n * d), 0, n - 1)
+    return rows, cols, rng.standard_normal(n * d) / d
+
+
+def scattered_coo(n, rng, band=120):
+    """The scattered-degree matrix of benchmarks/bench_sorted.py:36-44:
+    degrees 6/20/40 shuffled over the rows, the narrow band."""
+    deg = np.full(n, 6, np.int64)
+    deg[int(0.85 * n):int(0.95 * n)] = 20
+    deg[int(0.95 * n):] = 40
+    rng.shuffle(deg)
+    rows = np.repeat(np.arange(n, dtype=np.int64), deg)
+    cols = np.clip(rows + rng.integers(-band, band, rows.size), 0, n - 1)
+    return rows, cols, rng.standard_normal(rows.size) / deg[rows]
+
+
+def symmetrized(coo, n, rng=None):
+    """0.5 (A + A^T) as CSR, scrambled by a random permutation when ``rng``
+    is given (examples/unstructured_sparse_expv.py:22-34)."""
+    import scipy.sparse as sp
+
+    rows, cols, vals = coo
+    A = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    A = (0.5 * (A + A.T)).tocsr()
+    if rng is not None:
+        p = rng.permutation(n)
+        A = A[p][:, p].tocsr()
+    return A
+
+
+def banded_csr(op):
+    """A BandedOperator (diags[k, i] = A[i, i + o_k]) as scipy CSR."""
+    import scipy.sparse as sp
+
+    D = op.diags.cpu().numpy()
+    n = D.shape[1]
+    return sp.diags([D[k][max(0, -o):n - max(0, o)]
+                     for k, o in enumerate(op.offsets)], list(op.offsets),
+                    shape=(n, n), format="csr")
+
+
+def laplacian_3d_csr(n):
+    """7-point Dirichlet Laplacian on n^3 (x fastest) as scipy CSR."""
+    import scipy.sparse as sp
+
+    L = sp.diags([np.ones(n - 1), -2.0 * np.ones(n), np.ones(n - 1)],
+                 [-1, 0, 1])
+    eye = sp.identity(n)
+    return (sp.kron(sp.kron(L, eye), eye) + sp.kron(sp.kron(eye, L), eye)
+            + sp.kron(sp.kron(eye, eye), L)).tocsr()
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description="Drive the port's main path "
+                                 "on one NVIDIA GPU (module doc).")
+    ap.add_argument("--profile", action="store_true",
+                    help="after phase 4, profile the sparse main-path "
+                    "cells instead of timing (phase 5)")
+    args = ap.parse_args()
+
     import torch
 
     if not torch.cuda.is_available():
@@ -131,6 +236,12 @@ def main() -> int:
     dev = torch.device("cuda")
     f32, f64 = torch.float32, torch.float64
     dname = {f32: "float32", f64: "float64"}
+    clock = [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        print(f"phase {name}: {now - clock[0]:.1f} s", flush=True)
+        clock[0] = now
 
     # ---- 1. device ------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -141,12 +252,14 @@ def main() -> int:
     card = f"[{smi}]"
     print(f"device: {kind}; nvidia-smi: {smi}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
+    phase_done("1 device")
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
     _build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, or loading an "
           f"earlier build) into {_build.BUILD_DIR}", flush=True)
+    phase_done("2 build")
 
     rng = np.random.default_rng(SEED)
     rng2 = np.random.default_rng(SEED + 1)     # the inputs of B4-B6
@@ -318,6 +431,102 @@ def main() -> int:
                   f"(tol {tol:g})", flush=True)
     del Z, Vc, Vp, W, W1, W2, Y, Zn, Yp, Znp, Yr, Znr
 
+    # B7-B10, the sparse containers' SpMV kernels: packed once in float64
+    # on the host (the JAX package's own packers), cast on the card
+    import scipy.sparse as sp
+    from exponentialutilities_jl_torch.ops.kernels import sell as ts
+    from exponentialutilities_jl_torch.ops.kernels import spmv as tsp
+
+    rng3 = np.random.default_rng(SEED + 2)
+    t0 = time.perf_counter()
+    sell_coo = bench_sell_coo(NS, 8, 700, rng3)
+    r, c, v = bench_sell_coo(100_000, 8, 700, rng3)
+    keep = r % 997 != 0                              # empty rows
+    dup = rng3.integers(0, int(keep.sum()), 20_000)  # duplicate entries
+    r, c, v = r[keep], c[keep], v[keep]
+    dup_coo = (np.concatenate([r, r[dup]]), np.concatenate([c, c[dup]]),
+               np.concatenate([v, v[dup]]))
+    wide_coo = bench_sell_coo(NS, 8, 20_000, rng3)
+    packs = {"bench_sell n=1e6 default": ts.sell_pack(sell_coo, NS,
+                                                      np.float64, device=dev),
+             "bench_sell n=1e6 bucketed": ts.sell_pack_bucketed(
+                 sell_coo, NS, np.float64, device=dev),
+             "empty rows + duplicates n=1e5": ts.sell_pack(
+                 dup_coo, 100_000, np.float64, device=dev),
+             "band 20000 n=1e6": ts.sell_pack(wide_coo, NS, np.float64,
+                                              device=dev)}
+    A_wide = sp.coo_matrix((wide_coo[2], wide_coo[:2]), shape=(NS, NS)).tocsr()
+    seg = ts.sell_pack_seg(scattered_coo(NS, rng3), NS, np.float64,
+                           seg_len=16, device=dev)
+    opB3 = et.blockell_from_scipy(laplacian_3d_csr(NB), 8, is_hermitian=True,
+                                  dtype=np.float64, device=dev)
+    nbr4 = 16_384                          # random 4 x 4 block-sparse matrix
+    pat = sp.random(nbr4, nbr4, density=8 / nbr4, random_state=SEED,
+                    format="csr")
+    A4 = sp.kron(pat, np.ones((4, 4)), format="csr")
+    A4.data = rng3.standard_normal(A4.nnz)
+    opB4 = et.blockell_from_scipy(A4, 4, dtype=np.float64, device=dev)
+    print(f"sparse packs: {time.perf_counter() - t0:.1f} s (host: COO, "
+          f"SELL-C-sigma and block-ELL packs, copies to the card)", flush=True)
+
+    def spmv_check(label, dt, kern, ref, key=None):
+        """kernel vs twin within KTOL and a bitwise repeat; returns y."""
+        tol = KTOL[dname[dt]]
+        y, y2, yr = kern(), kern(), ref()
+        e = rel_max(y, yr)
+        check(e <= tol, f"{label} {dname[dt]}: {e:.2e}")
+        check(torch.equal(y, y2), f"{label} {dname[dt]} bitwise repeat")
+        if key and dt == f64:
+            kerr[key] = float((y - yr).abs().max())
+        print(f"kernel {label} {dname[dt]}: rel err {e:.2e} (tol {tol:g}), "
+              f"bitwise repeat ok", flush=True)
+        return y
+
+    for dt in (f32, f64):
+        for label, op in ((f"poisson_2d({NP}, {NP})",
+                           et.poisson_2d(NP, NP, dtype=dt, device=dev)),
+                          (f"laplacian_1d({N1})",
+                           et.laplacian_1d(N1, dtype=dt, device=dev)),
+                          ("advection_diffusion_1d(2000)",
+                           et.advection_diffusion_1d(2000, dtype=dt,
+                                                     device=dev))):
+            x = vec(op.shape[0], dt, rng2)
+            spmv_check(f"B7 {label}", dt,
+                       lambda: tsp.banded_spmv(op.diags, op.offsets, x),
+                       lambda: tsp.banded_spmv_ref(op.diags, op.offsets, x),
+                       "banded_spmv" if label.startswith("poisson") else None)
+        for label, op in ((f"{NB}^3 7-point 8x8 blocks", opB3),
+                          (f"random {4 * nbr4} 4x4 blocks", opB4)):
+            blocks = op.blocks.to(dt)
+            x = vec(op.shape[0], dt, rng2)
+            spmv_check(f"B8 {label} w={blocks.shape[1]}", dt,
+                       lambda: tsp.blockell_spmv(blocks, op.bcols, x),
+                       lambda: tsp.blockell_spmv_ref(blocks, op.bcols, x),
+                       "blockell_spmv" if label.startswith(f"{NB}") else None)
+        del blocks
+        for label, d64 in packs.items():
+            d = d64.to(dtype=dt)
+            x = vec(d.n, dt, rng2)
+            y = spmv_check(f"B9 {label}", dt, lambda: ts.sell_spmv(d, x),
+                           lambda: ts.sell_spmv_ref(d, x),
+                           "sell_spmv" if label.endswith("default") else None)
+            if label.startswith("band") and dt == f64:
+                e = rel_max(y.cpu(), torch.as_tensor(A_wide @ x.cpu().numpy()))
+                check(e <= KTOL["float64"], f"B9 {label} vs scipy {e:.2e}")
+                print(f"check B9 {label}: vs scipy {e:.2e} (the TPU window "
+                      "refused this band)", flush=True)
+        d = seg.to(dtype=dt)
+        x = vec(NS, dt, rng2)
+        p = ts.sell_spmv(d.base, x)
+        spmv_check(f"B10 scattered n=1e6 seg L=16 ({d.base.n} segments)", dt,
+                   lambda: ts.seg_compact(p, d.seg_ptr),
+                   lambda: ts.seg_compact_ref(p, d.seg_ptr), "seg_compact")
+        spmv_check("B9+B10 sell_spmv_seg scattered n=1e6", dt,
+                   lambda: ts.sell_spmv_seg(d, x),
+                   lambda: ts.sell_spmv_seg_ref(d, x))
+    del packs, seg, opB4, d, x, p, y
+    phase_done("3 kernels")
+
     # ---- 4. the main path through the public entry points ---------------
     import scipy.sparse as sp
     import scipy.sparse.linalg as spla
@@ -391,15 +600,83 @@ def main() -> int:
         "1d phiv_chebyshev": {"resident_multi": 1},
         "1d phiv m=30": {},
         "1d phiv_timestep_chebyshev": {"resident_multi": 2},
-        "config3 phiv m=30": {},
+        "config3 phiv m=30": {"banded_spmv": 30},     # one B7 per matvec
         "config3 expv_chebyshev": {"resident_banded": 1},
         "2d cheb": {"resident_grid": 1},
         "2d two-pass m=20": {"fused_sweep": 42},
     })
 
+    # the sparse containers at n = 1e6, float64 (module doc)
+    t0 = time.perf_counter()
+    rng4 = np.random.default_rng(SEED + 3)
+    A_sell = symmetrized(bench_sell_coo(NS, 8, 700, rng4), NS, rng4)
+    opS = et.SellOperator.from_scipy(A_sell, rcm=True, is_hermitian=True,
+                                     dtype=np.float64, device=dev)
+    perm = torch.as_tensor(opS.perm, device=dev).long()
+    bSnp = rng4.standard_normal(NS)
+    bS = torch.as_tensor(bSnp, device=dev)[perm]     # into the RCM basis
+    A_scat = symmetrized(scattered_coo(NS, rng4), NS)
+    sc_ops = {mode: et.SellOperator.from_scipy(A_scat, mode=mode,
+                                               is_hermitian=True,
+                                               dtype=np.float64, device=dev)
+              for mode in (None, "seg", "sorted")}
+    bC = torch.as_tensor(rng4.standard_normal(NS), device=dev)
+    A_res = symmetrized(bench_sell_coo(NP * NP, 2, 700, rng4), NP * NP)
+    A_hyb = (banded_csr(et.poisson_2d(NP, NP)) + A_res).tocsr()
+    opH = et.hybrid_from_scipy(A_hyb, min_fill=0.4, dtype=np.float64,
+                               is_hermitian=True, device=dev)
+    check(opH.banded.offsets == (-NP, -1, 0, 1, NP),
+          f"hybrid dense diagonals {opH.banded.offsets}")
+    opHs = et.SellOperator.from_scipy(A_hyb, is_hermitian=True,
+                                      dtype=np.float64, device=dev)
+    bH = torch.as_tensor(rng4.standard_normal(NP * NP), device=dev)
+    op3b = et.laplacian_nd_stencil(NB, NB, NB, device=dev)
+    bB = torch.as_tensor(rng4.standard_normal(NB ** 3), device=dev)
+    print(f"sparse main-path operators: {time.perf_counter() - t0:.1f} s "
+          f"(host packs; SELL nnz {opS.nnz}, scattered nnz "
+          f"{sc_ops[None].nnz}, hybrid residual nnz {opH.sell.nnz})",
+          flush=True)
+    sparse_calls = {
+        "sell expv m=40": lambda: et.expv(TS, opS, bS, m=40),
+        "sell expv two-pass m=40": lambda: et.expv(TS, opS, bS, m=40,
+                                                   two_pass=True),
+        "sell expv_chebyshev": lambda: et.expv_chebyshev(TS, opS, bS,
+                                                         tol=1e-12),
+        "scattered default expv m=40": lambda: et.expv(TS, sc_ops[None], bC,
+                                                       m=40),
+        "scattered seg expv m=40": lambda: et.expv(TS, sc_ops["seg"], bC,
+                                                   m=40),
+        "scattered sorted expv m=40": lambda: et.expv(TS, sc_ops["sorted"],
+                                                      bC, m=40),
+        "scattered sorted phiv m=30": lambda: et.phiv(TS, sc_ops["sorted"],
+                                                      bC, K, m=30),
+        "hybrid expv m=40": lambda: et.expv(TS, opH, bH, m=40),
+        "hybrid matrix default pack expv m=40": lambda: et.expv(TS, opHs, bH,
+                                                                m=40),
+        f"blockell {NB}^3 two-pass m=20": lambda: et.expv(
+            T3, opB3, bB, m=20, two_pass=True),
+        f"stencil {NB}^3 two-pass m=20": lambda: et.expv(
+            T3, op3b, bB, m=20, two_pass=True),
+    }
+    expect.update({     # one SpMV launch per matvec (B10 beside B9 for seg)
+        "sell expv m=40": {"sell_spmv": 40},
+        "sell expv two-pass m=40": {"sell_spmv": 80},
+        # spectral_bounds: 2 seeded probes x 30 Lanczos steps, then the
+        # degree 12 of tol 1e-12 on those bounds
+        "sell expv_chebyshev": {"sell_spmv": 72},
+        "scattered default expv m=40": {"sell_spmv": 40},
+        "scattered seg expv m=40": {"sell_spmv": 40, "seg_compact": 40},
+        "scattered sorted expv m=40": {"sell_spmv": 40},
+        "scattered sorted phiv m=30": {"sell_spmv": 30},
+        "hybrid expv m=40": {"banded_spmv": 40, "sell_spmv": 40},
+        "hybrid matrix default pack expv m=40": {"sell_spmv": 40},
+        f"blockell {NB}^3 two-pass m=20": {"blockell_spmv": 40},
+        f"stencil {NB}^3 two-pass m=20": {"fused_sweep": 42},
+    })
+
     _build.reset_launch_counts()
     out = {}
-    for name, fn in {**calls, **phi_calls}.items():
+    for name, fn in {**calls, **phi_calls, **sparse_calls}.items():
         before = dict(_build.launches)
         out[name] = fn()
         torch.cuda.synchronize()
@@ -494,7 +771,54 @@ def main() -> int:
     check(bool(torch.isfinite(out["2d cheb"]).all()), "2d cheb finite")
     check_phi("2d cheb", out["2d cheb"], out["2d two-pass m=20"],
               "(B6) vs two-pass m=20 (B3)")
-    del out, W, W30, U
+
+    # the sparse containers: scipy on the same CSR matrices (RCM results
+    # mapped back), the default pack, the stencil path, the phi identities
+    def rcm_back(wp):
+        w = torch.empty_like(wp)
+        w[perm] = wp
+        return w
+
+    def check_sparse(name, got, want, what):
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"{name} shape/finite")
+        e = rel_norm(got, want)
+        check(e <= MTOL_SPARSE, f"{name} {what} {e:.2e}")
+        print(f"check {name}: {what} {e:.2e} (tol {MTOL_SPARSE:g})",
+              flush=True)
+
+    t0 = time.perf_counter()
+    ref_s = torch.as_tensor(spla.expm_multiply(TS * A_sell, bSnp), device=dev)
+    ref_c = torch.as_tensor(spla.expm_multiply(TS * A_scat, bC.cpu().numpy()),
+                            device=dev)
+    print(f"scipy expm_multiply at n = 1e6 (two matrices): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name in ("sell expv m=40", "sell expv two-pass m=40",
+                 "sell expv_chebyshev"):
+        check_sparse(name, rcm_back(out[name]), ref_s,
+                     "vs scipy expm_multiply")
+    base = out["scattered default expv m=40"]
+    check_sparse("scattered default expv m=40", base, ref_c,
+                 "vs scipy expm_multiply")
+    for name in ("scattered seg expv m=40", "scattered sorted expv m=40"):
+        check_sparse(name, out[name], base, "vs the default pack")
+    W = out["scattered sorted phiv m=30"]
+    check(W.shape == (NS, K + 1) and bool(torch.isfinite(W).all()),
+          "sorted phiv shape/finite")
+    e = phi_identity(sc_ops["sorted"], W, bC, TS)
+    check(e <= MTOL_SPARSE, f"sorted phiv phi identity {e:.2e}")
+    print(f"check scattered sorted phiv m=30: phi identities {e:.2e} "
+          f"(tol {MTOL_SPARSE:g})", flush=True)
+    check_sparse("scattered sorted phiv m=30", W[:, 0], base,
+                 "phi_0 vs the default pack's expv")
+    check_sparse("hybrid expv m=40", out["hybrid expv m=40"],
+                 out["hybrid matrix default pack expv m=40"],
+                 "(B7 + B9) vs the default SELL pack (B9)")
+    check_sparse(f"blockell {NB}^3 two-pass m=20",
+                 out[f"blockell {NB}^3 two-pass m=20"],
+                 out[f"stencil {NB}^3 two-pass m=20"],
+                 "(B8) vs the stencil two-pass (B3)")
+    del out, W, W30, U, base
 
     # the kernel-driving passes make no host syncs
     lo, hi = op3[f64].spectral_bounds_hint()
@@ -528,12 +852,20 @@ def main() -> int:
         tr.recurrence_apply_resident_multi(op1[f64], b1[f64], rows1, cw1)
         tr.recurrence_apply_resident_banded(opP, bP, rowsP)
         tr.recurrence_apply_resident_grid(opG, bG, rowsG)
+        opP.matvec(bP)                      # B7
+        opB3.matvec(bB)                     # B8
+        opS.matvec(bS)                      # B9
+        sc_ops["seg"].matvec(bC)            # B9 + B10
+        sc_ops["sorted"].matvec(bC)         # gathers around B9
+        opH.matvec(bH)                      # B7 + B9
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     print("sync-free: Chebyshev applies (1-D, 3-D), resident pass 1 and "
-          "recurrence, fused pass 1 and replay, and the B4, B5 and B6 "
-          "applies ran under sync debug mode 'error'", flush=True)
+          "recurrence, fused pass 1 and replay, the B4, B5 and B6 "
+          "applies, and the B7-B10 matvecs of the sparse containers ran "
+          "under sync debug mode 'error'", flush=True)
+    phase_done("4 main")
 
     # ---- 5. times -------------------------------------------------------
     def median_ms(fn, reps=10, warmup=2):
@@ -550,6 +882,58 @@ def main() -> int:
             e.synchronize()
             ts.append(s.elapsed_time(e))
         return statistics.median(ts)
+
+    def device_profile(name, fn, top=6):
+        """One warm call under torch.profiler: device busy time (the union
+        of the device intervals), device ops, the largest kernels and the
+        host ops of most self time, beside the CUDA-event wall time of the
+        same call."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        wall = median_ms(fn, reps=5)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy, end = 0.0, -math.inf
+        for a, b in sorted((e.time_range.start, e.time_range.end)
+                           for e in evs):
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        by_name = {}
+        for e in evs:
+            us, cnt = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), cnt + 1)
+        print(f"profile {name}: wall (events, median of 5) {wall:.3f} ms; "
+              f"device busy {busy / 1e3:.3f} ms in {len(evs)} device ops "
+              f"{card}", flush=True)
+        for kname, (us, cnt) in sorted(by_name.items(),
+                                       key=lambda kv: -kv[1][0])[:top]:
+            print(f"  {us / 1e3:9.3f} ms x {cnt:4d}  {kname[:64]}",
+                  flush=True)
+        host = sorted((a for a in prof.key_averages()
+                       if a.device_type == DeviceType.CPU),
+                      key=lambda a: -a.self_cpu_time_total)[:3]
+        for a in host:
+            print(f"  host {a.self_cpu_time_total / 1e3:9.3f} ms self x "
+                  f"{a.count:4d}  {a.key[:58]}", flush=True)
+
+    if args.profile:
+        for name, fn in {
+                "config3 phiv m=30": phi_calls["config3 phiv m=30"],
+                "sell expv m=40": sparse_calls["sell expv m=40"],
+                "sell expv two-pass m=40":
+                    sparse_calls["sell expv two-pass m=40"],
+                "sell expv_chebyshev": sparse_calls["sell expv_chebyshev"],
+                "sell spectral_bounds": lambda: tc.spectral_bounds(opS),
+                f"blockell {NB}^3 two-pass m=20":
+                    sparse_calls[f"blockell {NB}^3 two-pass m=20"]}.items():
+            device_profile(name, fn)
+        phase_done("5 profile")
+        return 0
 
     times = {}
     for dt in (f32, f64):
@@ -642,6 +1026,70 @@ def main() -> int:
                   f"{card}", flush=True)
         del Z, Vc, Vp, W
 
+    # B7-B10 at the main paths' shapes, plain, kernel, kernel, plain
+    def pair_times(name, dn, kfn, pfn, shape):
+        p1, k1, k2, p2 = (median_ms(f) for f in (pfn, kfn, kfn, pfn))
+        times[(name, dn)] = (statistics.median([k1, k2]),
+                             statistics.median([p1, p2]))
+        print(f"time {name} {dn} ({shape}): kernel {k1:.4f} / {k2:.4f} ms,"
+              f" plain {p1:.4f} / {p2:.4f} ms {card}", flush=True)
+        return times[(name, dn)]
+
+    for dt in (f32, f64):
+        dn = dname[dt]
+        opPd = et.poisson_2d(NP, NP, dtype=dt, device=dev)
+        xP = bP.to(dt)
+        pair_times("banded_spmv", dn,
+                   lambda: tsp.banded_spmv(opPd.diags, opPd.offsets, xP),
+                   lambda: tsp.banded_spmv_ref(opPd.diags, opPd.offsets, xP),
+                   f"poisson_2d({NP}, {NP})")
+        blocks, xB = opB3.blocks.to(dt), bB.to(dt)
+        pair_times("blockell_spmv", dn,
+                   lambda: tsp.blockell_spmv(blocks, opB3.bcols, xB),
+                   lambda: tsp.blockell_spmv_ref(blocks, opB3.bcols, xB),
+                   f"{NB}^3 7-point, 8x8 blocks, w={blocks.shape[1]}")
+        del blocks
+        dS, xS = opS.data.to(dtype=dt), bS.to(dt)
+        pair_times("sell_spmv", dn, lambda: ts.sell_spmv(dS, xS),
+                   lambda: ts.sell_spmv_ref(dS, xS),
+                   f"symmetrized bench_sell n=1e6 after RCM, {dS.nnz} nnz, "
+                   f"{dS.vals.numel()} slots")
+        dC, xC = sc_ops["seg"].data.to(dtype=dt), bC.to(dt)
+        pC = ts.sell_spmv(dC.base, xC)
+        pair_times("seg_compact", dn, lambda: ts.seg_compact(pC, dC.seg_ptr),
+                   lambda: ts.seg_compact_ref(pC, dC.seg_ptr),
+                   f"symmetrized scattered n=1e6, L=16, {dC.base.n} segments")
+        del dS, dC, pC
+
+    # B9 at benchmarks/bench_sell.py's timing shape, with its rates
+    # (bench_sell.py:84-87; itemsize 4 there, the float64 line uses 8)
+    t0 = time.perf_counter()
+    d7 = ts.sell_pack(bench_sell_coo(NS_TIME, 8, 700,
+                                     np.random.default_rng(SEED + 4)),
+                      NS_TIME, np.float32, device=dev)
+    print(f"B9 timing pack n={NS_TIME}: {time.perf_counter() - t0:.1f} s on "
+          f"the host, {d7.nnz} nnz, {d7.vals.numel()} slots", flush=True)
+    for dt in (f32, f64):
+        d = d7 if dt == f32 else d7.to(dtype=f64)
+        x = vec(NS_TIME, dt, rng2)
+        ms, plain = pair_times("sell_spmv n=1e7", dname[dt],
+                               lambda: ts.sell_spmv(d, x),
+                               lambda: ts.sell_spmv_ref(d, x),
+                               "bench_sell n=1e7, d=8, band 700")
+        t = ms * 1e-3
+        isz = x.element_size()
+        slots = d.vals.numel()
+        raw = (slots * isz + slots * 4 + 2 * NS_TIME * isz) / t / 1e9
+        eff = ((isz + 4) * d.nnz + 2 * isz * NS_TIME) / t / 1e9
+        print(f"rate B9 n=1e7 {dname[dt]}: {ms:.4f} ms per matvec | "
+              f"raw-stream {raw:.1f} GB/s | effective-CSR {eff:.1f} GB/s | "
+              f"{d.nnz / t / 1e9:.2f} Gnnz/s {card}", flush=True)
+    del d7, d, x
+
+    def plain_op(op, fn):
+        return et.MatrixFreeOperator(fn, op.shape, dtype=f64,
+                                     is_hermitian=True, device=dev)
+
     plain_calls = {
         "1d cheb f32": lambda: et.expv_chebyshev(T1, op1[f32], b1[f32],
                                                  fused=False),
@@ -671,7 +1119,28 @@ def main() -> int:
                                              fused=False),
         "2d two-pass m=20": lambda: tx._expv_two_pass(opG, bG, TG, 20),
     })
-    for name, fn in {**calls, **phi_calls}.items():
+    # the same calls with each matvec on the SpMV kernels' plain twins
+    pP = plain_op(opP, lambda v: tsp.banded_spmv_ref(opP.diags, opP.offsets,
+                                                     v))
+    pS = plain_op(opS, lambda v: ts.sell_spmv_ref(opS.data, v))
+    pSeg = plain_op(opS, lambda v: ts.sell_spmv_seg_ref(sc_ops["seg"].data,
+                                                         v))
+    pH = plain_op(opH, lambda v: (tsp.banded_spmv_ref(
+        opH.banded.diags, opH.banded.offsets, v)
+        + ts.sell_spmv_ref(opH.sell.data, v)))
+    pB = plain_op(opB3, lambda v: tsp.blockell_spmv_ref(opB3.blocks,
+                                                        opB3.bcols, v))
+    plain_calls.update({
+        "config3 phiv m=30": lambda: et.phiv(TP, pP, bP, K, m=30),
+        "sell expv m=40": lambda: et.expv(TS, pS, bS, m=40),
+        "sell expv two-pass m=40": lambda: et.expv(TS, pS, bS, m=40,
+                                                   two_pass=True),
+        "scattered seg expv m=40": lambda: et.expv(TS, pSeg, bC, m=40),
+        "hybrid expv m=40": lambda: et.expv(TS, pH, bH, m=40),
+        f"blockell {NB}^3 two-pass m=20": lambda: et.expv(
+            T3, pB, bB, m=20, two_pass=True),
+    })
+    for name, fn in {**calls, **phi_calls, **sparse_calls}.items():
         k = median_ms(fn)
         line = f"time main {name}: {k:.3f} ms"
         if name in plain_calls:
@@ -679,6 +1148,7 @@ def main() -> int:
             line += f", plain path {p:.3f} ms"
         print(f"{line} {card}", flush=True)
 
+    phase_done("5 times")
     kernels = []
     for name in REPLACES:
         ms, plain_ms = times[(name, "float64")]

@@ -2,11 +2,13 @@
 ``exponentialutilities_jl_tpu``.
 
 This slice runs the Hermitian exp(tA)b and phi-function actions: the
-operator containers, Lanczos, the dense exponential and phi functions
-that the Krylov path reduces to, the Chebyshev and Krylov
-(happy-breakdown and storage-free two-pass) actions, and six
-hand-written CUDA kernels for NVIDIA Hopper (``ops/kernels/csrc/``) that
-carry the recurrences on a CUDA device. The JAX package is the
+operator containers (stencils, diagonal storage, ELL, block-ELL, and the
+SELL-C-sigma containers for unstructured matrices from scipy), Lanczos,
+the dense exponential and phi functions that the Krylov path reduces to,
+the Chebyshev and Krylov (happy-breakdown and storage-free two-pass)
+actions, and ten hand-written CUDA kernels for NVIDIA Hopper
+(``ops/kernels/csrc/``): six that carry the recurrences and four SpMV
+kernels behind the sparse containers' matvecs. The JAX package is the
 reference; each public name here mirrors its counterpart there.
 
 Public API
@@ -14,7 +16,12 @@ Public API
 Operators        LinearOperator, DenseOperator, DiagonalOperator,
                  MatrixFreeOperator, NegatedOperator, aslinearoperator,
                  BandedOperator, StencilOperator, laplacian_nd_stencil
-Test matrices    laplacian_1d, poisson_2d, laplacian_3d
+Sparse           SparseELLOperator, BlockELLOperator, SellOperator,
+                 SortedSellOperator, HybridOperator, ell_from_scipy,
+                 blockell_from_scipy, banded_from_scipy, hybrid_from_scipy,
+                 hoist_conjugation
+Test matrices    laplacian_1d, poisson_2d, laplacian_3d,
+                 advection_diffusion_1d
 Transfer         operator_data, from_operator_data, to_torch_operator
 Dense            expm, expm_higham2005, expm_taylor, phi_scalar, phiv_dense
 Krylov           KrylovBasis, lanczos, lanczos_coeffs, lanczos_replay
@@ -32,18 +39,26 @@ from .models.phiv import make_phiv, phiv, phiv_from_basis
 from .ops.expm import expm, expm_higham2005, expm_taylor
 from .ops.krylov import KrylovBasis, lanczos, lanczos_coeffs, lanczos_replay
 from .ops.phi_dense import phi_scalar, phiv_dense
-from .ops.sparse import BandedOperator
+from .ops.sparse import (BandedOperator, BlockELLOperator, HybridOperator,
+                         SellOperator, SortedSellOperator, SparseELLOperator,
+                         banded_from_scipy, blockell_from_scipy,
+                         ell_from_scipy, hoist_conjugation, hybrid_from_scipy)
 from .ops.stencil import StencilOperator, laplacian_nd_stencil
 from .utils.convert import from_operator_data, operator_data, to_torch_operator
 from .utils.linop import (DenseOperator, DiagonalOperator, LinearOperator,
                           MatrixFreeOperator, NegatedOperator, aslinearoperator)
-from .utils.testmatrices import laplacian_1d, laplacian_3d, poisson_2d
+from .utils.testmatrices import (advection_diffusion_1d, laplacian_1d,
+                                 laplacian_3d, poisson_2d)
 
 __all__ = [
     "LinearOperator", "DenseOperator", "DiagonalOperator",
     "MatrixFreeOperator", "NegatedOperator", "aslinearoperator",
     "BandedOperator", "StencilOperator", "laplacian_nd_stencil",
-    "laplacian_1d", "poisson_2d", "laplacian_3d",
+    "SparseELLOperator", "BlockELLOperator", "SellOperator",
+    "SortedSellOperator", "HybridOperator", "ell_from_scipy",
+    "blockell_from_scipy", "banded_from_scipy", "hybrid_from_scipy",
+    "hoist_conjugation",
+    "laplacian_1d", "poisson_2d", "laplacian_3d", "advection_diffusion_1d",
     "operator_data", "from_operator_data", "to_torch_operator",
     "expm", "expm_higham2005", "expm_taylor", "phi_scalar", "phiv_dense",
     "KrylovBasis", "lanczos", "lanczos_coeffs", "lanczos_replay",

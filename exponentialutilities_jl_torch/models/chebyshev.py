@@ -20,7 +20,9 @@ hand-written kernels: one real coefficient column through
 ``ops.kernels.dispatch.recurrence_engine`` (1-D stencil: B1; banded: B5;
 small 2-D/3-D grid: B6; larger grids: B3, one sweep per degree), a real
 (m, p) stack on a 1-D stencil through B4 when ``resident_multi_ok``
-holds; otherwise it runs as the plain torch loop ``_chebyshev_apply_scan``.
+holds; otherwise it runs as the plain torch loop ``_chebyshev_apply_scan``
+(whose matvecs reach the SpMV kernels B7-B9). ``chebyshev_apply`` unwraps a
+``SortedSellOperator`` on entry (``hoist_conjugation``).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 
 from ..ops.kernels.dispatch import (chebyshev_rows, recurrence_engine,
                                     resident_multi_ok)
+from ..ops.sparse import hoist_conjugation
 from ..utils.linop import aslinearoperator
 from ..utils.precision import full_precision
 
@@ -261,6 +264,11 @@ def chebyshev_apply(A, b, ucoeffs, bounds, *, fused: bool | None = None):
     from ..ops.kernels.resident import recurrence_apply_resident_multi
 
     op = aslinearoperator(A)
+    op, b, post = hoist_conjugation(op, b)
+    if post is not None:
+        # sorted-conjugated container: the whole U_k recurrence runs in
+        # the sorted basis (polynomials commute with the conjugation)
+        return post(chebyshev_apply(op, b, ucoeffs, bounds, fused=fused))
     lo, hi = bounds
     c = 0.5 * (hi + lo)
     h = 0.5 * (hi - lo)

@@ -13,6 +13,10 @@ operators (PyTorch port of the Hermitian paths of
   launch each) and a 2-D/3-D box stencil in fused sweeps (B3); everything
   else, and complex t on any device, takes the plain torch passes.
 
+A ``SortedSellOperator`` is unwrapped on entry (``hoist_conjugation``):
+the solve runs on its inner operator in the sorted basis, with one
+permutation of b in and one of the result out.
+
 Breakdown is masked, not truncated: trailing alpha/beta are zero, which
 makes the reduced matrix block-diagonal so exp(tT) e1 is exact for the
 effective dimension.
@@ -28,6 +32,7 @@ import torch
 
 from ..ops.kernels.dispatch import kernel_device_ok
 from ..ops.krylov import KrylovBasis, lanczos
+from ..ops.sparse import hoist_conjugation
 from ..utils.linop import LinearOperator, aslinearoperator
 from ..utils.precision import full_precision
 
@@ -127,6 +132,13 @@ def expv(t, A, b, *, m: int = 30, tol: float = 1e-7,
     """
     op = aslinearoperator(A)
     b = torch.as_tensor(b)
+    op, b, post = hoist_conjugation(op, b)
+    if post is not None:
+        # degree-sorted conjugated container: the whole solve runs in the
+        # sorted basis (exp commutes with the conjugation)
+        return post(expv(t, op, b, m=m, tol=tol, mode=mode,
+                         hermitian=hermitian, reduced=reduced,
+                         two_pass=two_pass))
     m = min(m, op.shape[0])
     if reduced != "device":
         raise NotImplementedError(

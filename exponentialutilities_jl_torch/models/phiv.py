@@ -18,8 +18,9 @@ else takes the plain torch passes.
 
 Not ported yet, and raising NotImplementedError: non-Hermitian operators
 (Arnoldi, ROADMAP A5), ``reduced="host"`` and ``differentiable=True``
-(ROADMAP A6). The sorted-SELL conjugation hoist of the JAX ``phiv`` has
-no operator to act on until SELL is ported (ROADMAP B9).
+(ROADMAP A6). A ``SortedSellOperator`` is unwrapped on entry
+(``hoist_conjugation``), as in the JAX ``phiv``: the solve runs in the
+sorted basis and only the result is permuted back.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 
 from ..ops.krylov import KrylovBasis
 from ..ops.phi_dense import phiv_dense
+from ..ops.sparse import hoist_conjugation
 from ..utils.linop import aslinearoperator
 from ..utils.precision import full_precision
 from .expv import build_subspace
@@ -116,6 +118,14 @@ def phiv(t, A, b, k: int, *, m: int = 30, tol: float = 1e-7,
             "ported (ROADMAP A6)")
     op = aslinearoperator(A)
     b = torch.as_tensor(b)
+    op, b, post = hoist_conjugation(op, b)
+    if post is not None:
+        # sorted-conjugated container: solve in the sorted basis (every
+        # phi_k commutes with the conjugation)
+        out = phiv(t, op, b, k, m=m, tol=tol, correct=correct,
+                   errest=errest, hermitian=hermitian, reduced=reduced,
+                   two_pass=two_pass)
+        return (post(out[0]), out[1]) if errest else post(out)
     m = min(m, op.shape[0])
     herm = op.is_hermitian if hermitian is None else hermitian
     if not herm:

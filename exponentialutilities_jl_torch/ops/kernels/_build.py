@@ -28,12 +28,14 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["library", "check", "launches", "reset_launch_counts", "ptr",
-           "stream_of", "suffix", "KERNEL_DTYPES", "MAX_POINTS"]
+__all__ = ["library", "check", "check_operands", "launches",
+           "reset_launch_counts", "ptr", "stream_of", "suffix",
+           "KERNEL_DTYPES", "MAX_POINTS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
-SOURCES = ("common.cuh", "resident.cu", "resident_family.cu", "fused_sweep.cu")
+SOURCES = ("common.cuh", "resident.cu", "resident_family.cu", "fused_sweep.cu",
+           "spmv.cu", "sell.cu")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-Xcompiler", "-fPIC")
 
@@ -42,7 +44,8 @@ MAX_POINTS = 64                 # stencil points: eu::kMaxPoints in csrc/common.
 
 launches = {"resident_recurrence": 0, "resident_lanczos": 0,
             "resident_multi": 0, "resident_banded": 0, "resident_grid": 0,
-            "fused_sweep": 0}
+            "fused_sweep": 0, "banded_spmv": 0, "blockell_spmv": 0,
+            "sell_spmv": 0, "seg_compact": 0}
 
 
 def reset_launch_counts():
@@ -86,6 +89,18 @@ def _declare(lib):
         f = getattr(lib, f"eu_fused_sweep_{suf}")
         f.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
                       _I, _VP, _VP, _VP, _VP, _LL, _VP, _VP]
+        f.restype = _I
+        f = getattr(lib, f"eu_banded_spmv_{suf}")
+        f.argtypes = [_VP, _VP, _I, _VP, _LL, _VP, _VP]
+        f.restype = _I
+        f = getattr(lib, f"eu_blockell_spmv_{suf}")
+        f.argtypes = [_VP, _VP, _VP, _LL, _I, _I, _I, _VP, _VP]
+        f.restype = _I
+        f = getattr(lib, f"eu_sell_spmv_{suf}")
+        f.argtypes = [_VP, _VP, _VP, _VP, _VP, _LL, _LL, _VP, _VP]
+        f.restype = _I
+        f = getattr(lib, f"eu_seg_compact_{suf}")
+        f.argtypes = [_VP, _VP, _LL, _VP, _VP]
         f.restype = _I
     lib.eu_resident_max_blocks.argtypes = [_I]
     lib.eu_resident_max_blocks.restype = _I
@@ -145,6 +160,17 @@ def check(code: int, what: str):
     if code != 0:
         msg = library().eu_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def check_operands(what: str, x: torch.Tensor, *operands: torch.Tensor):
+    """Validate a launch on ``x``: a kernel dtype, every operand on x's
+    device."""
+    if x.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{what} takes float32/float64, got {x.dtype}")
+    for t in operands:
+        if t.device != x.device:
+            raise ValueError(f"{what}: operand on {t.device}, vector on "
+                             f"{x.device}")
 
 
 def ptr(t: torch.Tensor | None):

@@ -39,11 +39,11 @@ import ctypes
 import functools
 
 import torch
-import torch.nn.functional as F
 
 from ..sparse import BandedOperator
 from ..stencil import StencilOperator, stencil_apply
 from . import _build
+from .spmv import banded_spmv_ref
 
 __all__ = ["recurrence_apply_resident", "resident_recurrence",
            "resident_recurrence_ref", "lanczos_coeffs_resident",
@@ -165,19 +165,9 @@ def resident_multi_ref(x, rows, cw, cvals, offsets):
 
 def resident_banded_ref(x, rows, diags, offsets):
     """Plain twin of B5: w for A omega = sum_j D_j * shift(omega, o_j),
-    zero outside the vector."""
-    n = x.shape[0]
-    h = max(abs(o) for o in offsets)
-
-    def apply(v):
-        ve = F.pad(v, (h, h))
-        z = None
-        for j, o in enumerate(offsets):
-            term = diags[j] * ve[h + o:h + o + n]
-            z = term if z is None else z + term
-        return z
-
-    return _chain_ref(x, rows, rows[:, 3:], apply)[:, 0]
+    zero outside the vector (B7's twin as the operator)."""
+    return _chain_ref(x, rows, rows[:, 3:],
+                      lambda v: banded_spmv_ref(diags, offsets, v))[:, 0]
 
 
 def resident_grid_ref(x, rows, grid_shape, offsets, cvals):

@@ -1,0 +1,450 @@
+"""SELL-C-sigma SpMV for unstructured sparse matrices (PyTorch port of
+``exponentialutilities_jl_tpu/ops/kernels/sell.py``).
+
+The port keeps the contract of the JAX module (y = A x for a matrix packed
+from COO, duplicates summed) and its public names, not its TPU layout. The
+JAX packs exist for the TPU's 1024-column vector-gather window: window-local
+indices and per-block window starts, the roll/residue/subroll/chunked/
+rowsel gather modes, pair-packed indices, uniform-k schedules, and the
+errors raised when a matrix's band does not fit the window. A GPU gathers
+x natively, so one layout serves every mode here:
+
+* **SELL-C-sigma.** Rows are cut into slices of C = ``SLICE`` = 32 rows
+  (one warp). Inside windows of ``sigma`` rows (a multiple of C) the rows
+  are sorted by degree, longest first, so that a slice's rows have similar
+  lengths; each slice is as wide as its longest row. Values and int32
+  global column indices are stored slot-major inside a slice (slot j of
+  slice row r at ``slice_ptr[s] + C j + r``); padded slots hold value 0 and
+  column 0. ``slice_ptr`` (int64) gives each slice's first slot and
+  ``row_of`` (int32) the original row of each packed row, so y is written
+  in the original order.
+* **Bucketed** (``sell_pack_bucketed``): the same layout sorted over a
+  wider sigma (``BUCKET_SIGMA``). Degree bucketing is what the sigma sort
+  does.
+* **Segmented** (``sell_pack_seg``): every row longer than L = ``seg_len``
+  slots is split into ceil(d / L) segments of at most L entries, each
+  packed as a row of its own, so no slice is wider than L whatever the
+  degree mix. ``sell_spmv_seg`` is B9 over the segments (partials p_s in
+  segment order) followed by B10, the fixed-order per-row sum
+  y_i = sum_{s = seg_ptr[i]}^{seg_ptr[i+1]-1} p_s (what the JAX
+  ``_seg_compact_kernel`` computes in its direct mode).
+
+Kernels (``csrc/sell.cu``): B9 ``sell_spmv`` (one thread per row of a
+slice) and B10 ``seg_compact``; their plain twins are ``sell_spmv_ref``
+and ``seg_compact_ref``. A wrapper runs the twin for CPU tensors and, for
+CUDA tensors, launches the kernel or raises.
+
+The JAX pack arguments ``window``, ``residue``, ``mode``, ``max_chunks``,
+``uniform_k`` and ``kmax`` are accepted and have no effect on this
+layout. A matrix whose band the TPU window refused (any band wider than
+about 900 after RCM) packs like any other: that is a constraint removed,
+not a feature added. ``save``/``load`` write and read this layout (npz),
+not the JAX package's.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from . import _build
+
+__all__ = ["SellData", "sell_pack", "sell_spmv", "sell_spmv_ref",
+           "SellBucketed", "sell_pack_bucketed", "sell_spmv_bucketed",
+           "sell_spmv_bucketed_ref", "SellSeg", "sell_pack_seg",
+           "sell_spmv_seg", "sell_spmv_seg_ref", "seg_compact",
+           "seg_compact_ref", "SLICE", "SIGMA", "BUCKET_SIGMA", "SEG_LEN"]
+
+SLICE = 32              # rows per slice: eu::kSlice in csrc/sell.cu
+SIGMA = 256             # sort window of the default pack (8 slices)
+BUCKET_SIGMA = 8192     # sort window of the bucketed pack
+SEG_LEN = 16            # segment length of the segmented pack
+
+
+class SellData:
+    """A SELL-C-sigma pack (module doc) of an (n, ncols) matrix.
+
+    vals:      (S,) values, slot-major per slice, 0 in padded slots.
+    cols:      (S,) int32 global column indices, 0 in padded slots.
+    slice_ptr: (nslices + 1,) int64 first slot of each slice.
+    row_of:    (n,) int32 original row of each packed row.
+    n, ncols:  rows and columns; nnz: stored entries (duplicates summed).
+    sigma:     the sort window the pack was built with.
+    nslots:    S = slice_ptr[-1], kept on the host so a launch can check
+               the arrays' sizes without a sync. The packers pass it; when
+               it is None (a pack loaded or built by hand) the pack is
+               checked here, with one sync: slice_ptr runs from 0 to S in
+               whole slices, and every column and row index is in range,
+               since B9 gathers x and scatters y by them unchecked.
+    """
+
+    def __init__(self, vals, cols, slice_ptr, row_of, n, nnz, *, ncols=None,
+                 sigma=SIGMA, nslots=None):
+        self.vals = vals
+        self.cols = cols
+        self.slice_ptr = slice_ptr
+        self.row_of = row_of
+        self.n = int(n)
+        self.ncols = self.n if ncols is None else int(ncols)
+        self.nnz = int(nnz)
+        self.sigma = int(sigma)
+        self.nslots = self._validate() if nslots is None else int(nslots)
+
+    def _validate(self) -> int:
+        v, c, sp, ro = self.vals, self.cols, self.slice_ptr, self.row_of
+        if (v.dim() != 1 or c.shape != v.shape or sp.dim() != 1
+                or sp.numel() < 1 or ro.shape != (self.n,)
+                or self.n > (sp.numel() - 1) * SLICE):
+            raise ValueError(
+                f"SELL pack: vals {tuple(v.shape)}, cols {tuple(c.shape)}, "
+                f"slice_ptr {tuple(sp.shape)}, row_of {tuple(ro.shape)} for "
+                f"{self.n} rows")
+        sp = sp.long()
+        w = torch.diff(sp)
+
+        def span(t):
+            return (torch.aminmax(t.long()) if t.numel()
+                    else (sp.new_tensor(0), sp.new_tensor(-1)))
+
+        first, last, bad, cmin, cmax, rmin, rmax = torch.stack([
+            sp[0], sp[-1], ((w < 0) | (w % SLICE != 0)).sum(),
+            *span(c), *span(ro)]).tolist()
+        if first != 0 or last != v.numel() or bad:
+            raise ValueError(f"SELL pack: slice_ptr must rise from 0 to "
+                             f"{v.numel()} in multiples of {SLICE}")
+        if cmin < 0 or cmax >= self.ncols or rmin < 0 or rmax >= self.n:
+            raise ValueError(f"SELL pack: columns in [{cmin}, {cmax}] of "
+                             f"{self.ncols}, rows in [{rmin}, {rmax}] of "
+                             f"{self.n}")
+        return int(v.numel())
+
+    @property
+    def dtype(self):
+        return self.vals.dtype
+
+    @property
+    def device(self):
+        return self.vals.device
+
+    @property
+    def nslices(self) -> int:
+        return self.slice_ptr.shape[0] - 1
+
+    def _fields(self):
+        return {"vals": self.vals, "cols": self.cols,
+                "slice_ptr": self.slice_ptr, "row_of": self.row_of}
+
+    def _rebuild(self, **fields):
+        return type(self)(fields["vals"], fields["cols"],
+                          fields["slice_ptr"], fields["row_of"], self.n,
+                          self.nnz, ncols=self.ncols, sigma=self.sigma,
+                          nslots=self.nslots)
+
+    def to(self, device=None, dtype=None):
+        """A copy with the tensors on ``device`` and the values in
+        ``dtype`` (each default: unchanged)."""
+        f = {k: v.to(device) for k, v in self._fields().items()}
+        if dtype is not None:
+            f["vals"] = f["vals"].to(dtype)
+        return self._rebuild(**f)
+
+    def with_vals(self, vals):
+        """The same pattern with other slot values (e.g. |vals|)."""
+        f = self._fields()
+        f["vals"] = vals
+        return self._rebuild(**f)
+
+    def save(self, path: str) -> None:
+        """Persist the pack (npz): pack once, ``load`` on every restart."""
+        np.savez(path, **{k: v.cpu().numpy() for k, v in self._fields().items()},
+                 meta=np.asarray([self.n, self.ncols, self.nnz, self.sigma],
+                                 np.int64))
+
+    @classmethod
+    def load(cls, path: str, device=None):
+        with np.load(_npz(path), allow_pickle=False) as z:
+            n, ncols, nnz, sigma = (int(v) for v in z["meta"])
+            return cls(*(torch.as_tensor(z[k], device=device)
+                         for k in ("vals", "cols", "slice_ptr", "row_of")),
+                       n, nnz, ncols=ncols, sigma=sigma)
+
+
+class SellBucketed(SellData):
+    """The bucketed pack: a ``SellData`` sorted over ``BUCKET_SIGMA`` rows
+    (module doc)."""
+
+
+class SellSeg:
+    """The segmented pack (module doc).
+
+    base:    ``SellData`` whose rows are the segments (base.n segments,
+             base.ncols = n columns).
+    seg_ptr: (n + 1,) int64 first segment of each row.
+    n, nnz:  rows (= columns) and stored entries; seg_len: L.
+    validate: check, with one sync, that seg_ptr rises from 0 to base.n
+             (B10 reads the partials by it unchecked); the packer, which
+             builds it so, passes False.
+    """
+
+    def __init__(self, base: SellData, seg_ptr, n, nnz, seg_len=SEG_LEN, *,
+                 validate: bool = True):
+        self.base = base
+        self.seg_ptr = seg_ptr
+        self.n = int(n)
+        self.nnz = int(nnz)
+        self.seg_len = int(seg_len)
+        if validate:
+            s = seg_ptr.long()
+            ok = seg_ptr.shape == (self.n + 1,) and base.ncols == self.n
+            if ok:
+                first, last, bad = torch.stack(
+                    [s[0], s[-1], (torch.diff(s) < 0).sum()]).tolist()
+                ok = first == 0 and last == base.n and not bad
+            if not ok:
+                raise ValueError(f"segmented pack: seg_ptr must rise from 0 "
+                                 f"to {base.n} segments over {self.n} rows")
+
+    @property
+    def dtype(self):
+        return self.base.dtype
+
+    @property
+    def device(self):
+        return self.base.device
+
+    def to(self, device=None, dtype=None):
+        return SellSeg(self.base.to(device, dtype), self.seg_ptr.to(device),
+                       self.n, self.nnz, self.seg_len, validate=False)
+
+    def with_vals(self, vals):
+        return SellSeg(self.base.with_vals(vals), self.seg_ptr, self.n,
+                       self.nnz, self.seg_len, validate=False)
+
+    def save(self, path: str) -> None:
+        b = self.base
+        np.savez(path, **{k: v.cpu().numpy() for k, v in b._fields().items()},
+                 seg_ptr=self.seg_ptr.cpu().numpy(),
+                 meta=np.asarray([b.n, b.ncols, b.nnz, b.sigma], np.int64),
+                 seg_meta=np.asarray([self.n, self.nnz, self.seg_len],
+                                     np.int64))
+
+    @classmethod
+    def load(cls, path: str, device=None):
+        base = SellData.load(path, device=device)
+        with np.load(_npz(path), allow_pickle=False) as z:
+            n, nnz, seg_len = (int(v) for v in z["seg_meta"])
+            seg_ptr = torch.as_tensor(z["seg_ptr"], device=device)
+        return cls(base, seg_ptr, n, nnz, seg_len)
+
+
+def _npz(path: str) -> str:
+    # np.savez appends .npz to a bare name
+    return path if os.path.exists(path) or path.endswith(".npz") \
+        else path + ".npz"
+
+
+# ------------------------------------------------------------- packing --
+
+def _csr(rows_cols_vals, n: int, dtype):
+    """Sorted CSR (indptr, indices, data) with duplicates summed."""
+    import scipy.sparse as sp
+
+    rows, cols, vals = rows_cols_vals
+    A = sp.coo_matrix((np.asarray(vals, dtype=dtype),
+                       (np.asarray(rows), np.asarray(cols))),
+                      shape=(n, n)).tocsr()
+    A.sort_indices()
+    return A.indptr.astype(np.int64), A.indices, A.data
+
+
+def _pack_csr(indptr, indices, data, nrows: int, ncols: int, sigma: int,
+              device, cls=SellData) -> SellData:
+    """SELL-C-sigma pack (module doc) of the CSR rows."""
+    if nrows >= 2 ** 31 or ncols >= 2 ** 31:
+        raise ValueError("SELL packs take fewer than 2^31 rows and columns")
+    sigma = max(SLICE, sigma // SLICE * SLICE)
+    deg = np.diff(indptr)
+    top = int(deg.max(initial=0)) + 1
+    # stable: longest first inside each sigma window, row order on ties
+    key = (np.arange(nrows, dtype=np.int64) // sigma) * top + (top - 1 - deg)
+    row_of = np.argsort(key, kind="stable")
+    ns = -(-nrows // SLICE)
+    pdeg = np.zeros(ns * SLICE, np.int64)
+    pdeg[:nrows] = deg[row_of]
+    width = pdeg.reshape(ns, SLICE).max(axis=1)
+    slice_ptr = np.zeros(ns + 1, np.int64)
+    np.cumsum(width * SLICE, out=slice_ptr[1:])
+    inv = np.empty(nrows, np.int64)
+    inv[row_of] = np.arange(nrows)
+    p = np.repeat(inv, deg)                          # packed row per entry
+    j = np.arange(indptr[-1], dtype=np.int64) - np.repeat(indptr[:-1], deg)
+    slot = slice_ptr[p // SLICE] + j * SLICE + p % SLICE
+    vals = np.zeros(int(slice_ptr[-1]), data.dtype)
+    cols = np.zeros(int(slice_ptr[-1]), np.int32)
+    vals[slot] = data
+    cols[slot] = indices
+    return cls(torch.as_tensor(vals, device=device),
+               torch.as_tensor(cols, device=device),
+               torch.as_tensor(slice_ptr, device=device),
+               torch.as_tensor(row_of.astype(np.int32), device=device),
+               nrows, int(indptr[-1]), ncols=ncols, sigma=sigma,
+               nslots=int(slice_ptr[-1]))
+
+
+def sell_pack(rows_cols_vals, n: int, dtype=np.float32, window: int = 2048,
+              residue: bool = False, mode: str | None = None,
+              max_chunks: int = 4, uniform_k: bool | None = None, *,
+              sigma: int = SIGMA, device=None) -> SellData:
+    """Pack COO (rows, cols, vals) of an n x n matrix into SELL-C-sigma
+    (module doc); duplicate (row, col) entries are summed. ``window``,
+    ``residue``, ``mode``, ``max_chunks`` and ``uniform_k`` are the JAX
+    pack's TPU options and have no effect."""
+    indptr, indices, data = _csr(rows_cols_vals, n, dtype)
+    return _pack_csr(indptr, indices, data, n, n, sigma, device)
+
+
+def sell_pack_bucketed(rows_cols_vals, n: int, dtype=np.float32,
+                       window: int = 2048, kmax: int = 8, *,
+                       sigma: int = BUCKET_SIGMA, device=None) -> SellBucketed:
+    """The bucketed pack: ``sell_pack`` sorted over ``sigma`` rows.
+    ``window`` and ``kmax`` have no effect."""
+    indptr, indices, data = _csr(rows_cols_vals, n, dtype)
+    return _pack_csr(indptr, indices, data, n, n, sigma, device,
+                     cls=SellBucketed)
+
+
+def sell_pack_seg(rows_cols_vals, n: int, dtype=np.float32, *,
+                  seg_len: int = SEG_LEN, sigma: int = SIGMA,
+                  device=None) -> SellSeg:
+    """The segmented pack (module doc): rows split into segments of at
+    most ``seg_len`` entries, each packed as a row of its own."""
+    if seg_len < 1:
+        raise ValueError(f"seg_len must be >= 1, got {seg_len}")
+    indptr, indices, data = _csr(rows_cols_vals, n, dtype)
+    deg = np.diff(indptr)
+    k = -(-deg // seg_len)                   # segments per row (0 if empty)
+    seg_ptr = np.zeros(n + 1, np.int64)
+    np.cumsum(k, out=seg_ptr[1:])
+    nseg = int(seg_ptr[-1])
+    seg_row = np.repeat(np.arange(n, dtype=np.int64), k)
+    first = np.arange(nseg, dtype=np.int64) - seg_ptr[seg_row]
+    seg_indptr = np.empty(nseg + 1, np.int64)
+    seg_indptr[:-1] = indptr[seg_row] + seg_len * first
+    seg_indptr[-1] = indptr[-1]
+    base = _pack_csr(seg_indptr, indices, data, nseg, n, sigma, device)
+    return SellSeg(base, torch.as_tensor(seg_ptr, device=device), n,
+                   int(indptr[-1]), seg_len, validate=False)
+
+
+# --------------------------------------------------------------- twins --
+
+def sell_spmv_ref(data: SellData, x):
+    """Plain twin of B9: slot products summed per packed row, scattered to
+    the original rows."""
+    prod = data.vals * x[data.cols]
+    slot_row = (torch.repeat_interleave(
+        torch.arange(data.nslices, device=prod.device),
+        torch.diff(data.slice_ptr)) * SLICE
+        + torch.arange(prod.shape[0], device=prod.device) % SLICE)
+    acc = torch.zeros(data.nslices * SLICE, dtype=prod.dtype,
+                      device=prod.device).index_add_(0, slot_row, prod)
+    y = torch.empty(data.n, dtype=prod.dtype, device=prod.device)
+    y[data.row_of.long()] = acc[:data.n]
+    return y
+
+
+def seg_compact_ref(partials, seg_ptr):
+    """Plain twin of B10: y_i = sum of partials[seg_ptr[i]:seg_ptr[i+1]]."""
+    n = seg_ptr.shape[0] - 1
+    seg_row = torch.repeat_interleave(torch.arange(n, device=partials.device),
+                                      torch.diff(seg_ptr))
+    return torch.zeros(n, dtype=partials.dtype,
+                       device=partials.device).index_add_(0, seg_row, partials)
+
+
+def sell_spmv_bucketed_ref(data: SellBucketed, x):
+    """Plain twin for the bucketed pack (the same layout)."""
+    return sell_spmv_ref(data, x)
+
+
+def sell_spmv_seg_ref(data: SellSeg, x):
+    """Plain twin of the segmented product: B9's twin, then B10's."""
+    return seg_compact_ref(sell_spmv_ref(data.base, x), data.seg_ptr)
+
+
+# ------------------------------------------------------------ wrappers --
+
+def _check_array(what, t, dtype):
+    if t.dtype != dtype or not t.is_contiguous() or t.dim() != 1:
+        raise ValueError(f"{what}: arrays must be contiguous 1-D {dtype}, "
+                         f"got {t.dtype} {tuple(t.shape)}")
+
+
+def sell_spmv(data: SellData, x):
+    """y = A x for a SELL-C-sigma pack: kernel B9 on CUDA, its twin on CPU.
+    On CUDA the pack's values must be in x's dtype (cast the pack once with
+    ``data.to(dtype=...)``; a launch makes no copy of it)."""
+    if x.device.type == "cpu":
+        return sell_spmv_ref(data, x)
+    _build.check_operands("sell_spmv", x, data.vals, data.cols,
+                          data.slice_ptr, data.row_of)
+    for t, dt in ((data.vals, x.dtype), (data.cols, torch.int32),
+                  (data.slice_ptr, torch.int64), (data.row_of, torch.int32)):
+        _check_array("sell_spmv", t, dt)
+    if (data.vals.numel() != data.nslots or data.cols.numel() != data.nslots
+            or data.row_of.numel() != data.n):
+        raise ValueError(f"sell_spmv: vals {data.vals.numel()}, cols "
+                         f"{data.cols.numel()} slots and row_of "
+                         f"{data.row_of.numel()} rows, the pack has "
+                         f"{data.nslots} slots and {data.n} rows")
+    if x.shape != (data.ncols,):
+        raise ValueError(f"sell_spmv: expected a ({data.ncols},) vector, "
+                         f"got {tuple(x.shape)}")
+    y = torch.empty(data.n, dtype=x.dtype, device=x.device)
+    if data.n == 0:
+        return y
+    x = x.contiguous()
+    fn = getattr(_build.library(), f"eu_sell_spmv_{_build.suffix(x.dtype)}")
+    code = fn(_build.ptr(data.vals), _build.ptr(data.cols),
+              _build.ptr(data.slice_ptr), _build.ptr(data.row_of),
+              _build.ptr(x), data.n, data.nslices, _build.ptr(y),
+              _build.stream_of(x))
+    _build.check(code, "SELL SpMV kernel (B9)")
+    _build.launches["sell_spmv"] += 1
+    return y
+
+
+def seg_compact(partials, seg_ptr):
+    """y_i = sum of the partials of row i's segments, in segment order:
+    kernel B10 on CUDA, its twin on CPU. ``seg_ptr`` must rise from 0 to
+    ``partials.numel()``: the kernel reads the partials by it unchecked (a
+    check here would sync every product), and ``SellSeg`` checks it once
+    when built."""
+    if partials.device.type == "cpu":
+        return seg_compact_ref(partials, seg_ptr)
+    _build.check_operands("seg_compact", partials, seg_ptr)
+    _check_array("seg_compact", partials, partials.dtype)
+    _check_array("seg_compact", seg_ptr, torch.int64)
+    n = seg_ptr.shape[0] - 1
+    y = torch.empty(n, dtype=partials.dtype, device=partials.device)
+    if n == 0:
+        return y
+    fn = getattr(_build.library(),
+                 f"eu_seg_compact_{_build.suffix(partials.dtype)}")
+    code = fn(_build.ptr(partials), _build.ptr(seg_ptr), n, _build.ptr(y),
+              _build.stream_of(partials))
+    _build.check(code, "segment compaction kernel (B10)")
+    _build.launches["seg_compact"] += 1
+    return y
+
+
+def sell_spmv_bucketed(data: SellBucketed, x):
+    """y = A x for the bucketed pack: one launch of B9."""
+    return sell_spmv(data, x)
+
+
+def sell_spmv_seg(data: SellSeg, x):
+    """y = A x for the segmented pack: B9 over the segments, then B10."""
+    return seg_compact(sell_spmv(data.base, x), data.seg_ptr)

@@ -1,33 +1,291 @@
-"""Diagonal-storage operator (PyTorch port of ``BandedOperator`` in
+"""Sparse operator containers (PyTorch port of
 ``exponentialutilities_jl_tpu/ops/sparse.py``).
 
-Only ``BandedOperator`` is ported so far: the stencil operators convert to
-it (``StencilOperator.to_banded``) and the standard test matrices
-(``utils/testmatrices.py``) are built in it. Its matvec is plain torch;
-the hand-written banded SpMV kernel (B7 in ROADMAP.md) comes later.
+Structured storage:
+
+* ``BandedOperator``: diagonal storage, A[i, i+o] = diags[k][i]; matvec
+  kernel B7 (``ops/kernels/spmv.banded_spmv``).
+* ``SparseELLOperator``: padded ELLPACK, every row ``w`` (column, value)
+  slots; its matvec is a plain torch gather and reduce (the JAX package
+  has no kernel for it).
+* ``BlockELLOperator``: blocked ELL with dense (br x bc) blocks; matvec
+  kernel B8 (``ops/kernels/spmv.blockell_spmv``).
+
+Unstructured storage (``ops/kernels/sell.py``, SELL-C-sigma):
+
+* ``SellOperator``: built from COO or scipy, optionally RCM-permuted
+  (``perm``), in the default, bucketed or segmented pack; matvec kernel B9,
+  plus B10 for the segmented pack.
+* ``SortedSellOperator`` (``mode="sorted"``): the conjugation
+  A = P^T A_s P by a window-local stable degree sort. ``order`` is a plain
+  int64 tensor and ``permute``/``unpermute`` are index gathers (the JAX
+  package packed them as degree-1 SELL matrices only because an element
+  gather is slow on the TPU). ``hoist_conjugation`` lets ``expv``, ``phiv``
+  and ``chebyshev_apply`` run a whole solve in the sorted basis.
+* ``HybridOperator``: dense diagonals on B7 plus a SELL residual on B9.
+
+Every matvec on a CUDA tensor whose (promoted) dtype is float32 or float64
+launches its kernel or raises (an operator stored in another dtype than
+that casts its storage once, on first use, and keeps the copy); any other
+dtype (complex) takes the plain
+torch path through the dtype gate ``dispatch.kernel_device_ok``, and CPU
+tensors take the plain twins. The host packers are the JAX package's own
+(``utils/native.py``).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..utils.linop import LinearOperator
+from .kernels.dispatch import kernel_device_ok
+from .kernels.spmv import (banded_spmv, banded_spmv_ref, blockell_spmv,
+                           blockell_spmv_ref)
 
-__all__ = ["BandedOperator"]
+__all__ = ["SparseELLOperator", "BlockELLOperator", "BandedOperator",
+           "SellOperator", "SortedSellOperator", "ell_from_scipy",
+           "blockell_from_scipy", "banded_from_scipy", "HybridOperator",
+           "hybrid_from_scipy", "hoist_conjugation"]
+
+
+def _tensor(a, device=None, dtype=None):
+    t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+    return t.to(device=device, dtype=dtype)
+
+
+def _kernel(op_dtype, x):
+    """(use the kernel, compute dtype) for a matvec of x."""
+    rt = torch.promote_types(op_dtype, x.dtype)
+    return kernel_device_ok(rt, x.device), rt
+
+
+def _promoted(op, attr, dt):
+    """``op.<attr>`` (a tensor or a SELL pack) in dtype ``dt``: the
+    operator's own storage when the dtypes agree, else a copy made on first
+    use and kept, so a float32 operator driven by float64 vectors does not
+    copy its storage on every matvec. A reassigned ``op.<attr>`` is cast
+    anew."""
+    t = getattr(op, attr)
+    if t.dtype == dt:
+        return t
+    casts = op.__dict__.setdefault("_casts", {})
+    hit = casts.get((attr, dt))
+    if hit is None or hit[0] is not t:
+        hit = casts[(attr, dt)] = (t, t.to(dtype=dt))
+    return hit[1]
+
+
+class SparseELLOperator(LinearOperator):
+    """Padded-ELLPACK operator.
+
+    data: (n, w) values, zero in padded slots.
+    cols: (n, w) int32 column indices, 0 in padded slots (value 0).
+    """
+
+    def __init__(self, data, cols, is_hermitian: bool = False):
+        self.data = _tensor(data)
+        self.cols = _tensor(cols, device=self.data.device, dtype=torch.int32)
+        self.is_hermitian = bool(is_hermitian)
+
+    @property
+    def shape(self):
+        n = self.data.shape[0]
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @property
+    def device(self):
+        return self.data.device
+
+    @property
+    def nnz(self) -> int:
+        return int(self.data.numel())
+
+    def matvec(self, x):
+        return (self.data * x[self.cols]).sum(dim=1)
+
+    def opnorm_hint(self):
+        return self.data.abs().sum(dim=1).max()
+
+    def to_dense(self):
+        n, w = self.data.shape
+        A = torch.zeros((n, n), dtype=self.dtype, device=self.device)
+        rows = torch.arange(n, device=self.device)[:, None].expand(n, w)
+        return A.index_put_((rows, self.cols.long()), self.data,
+                            accumulate=True)
+
+    @classmethod
+    def from_dense(cls, A, is_hermitian: bool = False, device=None):
+        A = np.asarray(A)
+        n = A.shape[0]
+        nz = [np.nonzero(A[i])[0] for i in range(n)]
+        w = max(1, max((len(z) for z in nz), default=0))
+        data = np.zeros((n, w), dtype=A.dtype)
+        cols = np.zeros((n, w), dtype=np.int32)
+        for i, z in enumerate(nz):
+            data[i, :len(z)] = A[i, z]
+            cols[i, :len(z)] = z
+        return cls(_tensor(data, device), _tensor(cols, device),
+                   is_hermitian=is_hermitian)
+
+
+def ell_from_scipy(A, is_hermitian: bool = False, dtype=None,
+                   device=None) -> SparseELLOperator:
+    """A ``scipy.sparse`` matrix in padded ELL (the native packer)."""
+    from ..utils.native import csr_to_ell_arrays
+
+    vals, cols = csr_to_ell_arrays(A, dtype=dtype)
+    return SparseELLOperator(_tensor(vals, device), _tensor(cols, device),
+                             is_hermitian=is_hermitian)
+
+
+class BlockELLOperator(LinearOperator):
+    """Blocked-ELLPACK (BSR-style) operator with dense (br x bc) blocks.
+
+    blocks: (nbr, w, br, bc) values; zero blocks in padded slots.
+    bcols:  (nbr, w) int32 block-column indices in [0, n / bc); 0 in
+            padded slots. Checked once here, since B8 gathers x by them
+            unchecked.
+
+    ``use_pallas`` keeps the JAX signature and has no effect: on a CUDA
+    device the matvec always runs the hand-written kernel B8
+    (``ops/kernels/spmv.blockell_spmv``), on CPU its plain twin.
+    """
+
+    def __init__(self, blocks, bcols, is_hermitian: bool = False,
+                 use_pallas: bool = True):
+        self.blocks = _tensor(blocks)
+        self.bcols = _tensor(bcols, device=self.blocks.device,
+                             dtype=torch.int32)
+        self.is_hermitian = bool(is_hermitian)
+        self.use_pallas = bool(use_pallas)
+        nbr, w, br, bc = self.blocks.shape
+        if self.bcols.shape != (nbr, w) or (nbr * br) % bc:
+            raise ValueError(f"blocks {tuple(self.blocks.shape)} and bcols "
+                             f"{tuple(self.bcols.shape)} do not form a "
+                             "square block-ELL matrix")
+        if self.bcols.numel():
+            lo, hi = torch.stack(torch.aminmax(self.bcols)).tolist()
+            if lo < 0 or hi >= nbr * br // bc:
+                raise ValueError(f"bcols in [{lo}, {hi}], outside "
+                                 f"[0, {nbr * br // bc})")
+
+    @property
+    def block_shape(self):
+        return (self.blocks.shape[2], self.blocks.shape[3])
+
+    @property
+    def shape(self):
+        n = self.blocks.shape[0] * self.blocks.shape[2]
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return self.blocks.dtype
+
+    @property
+    def device(self):
+        return self.blocks.device
+
+    @property
+    def nnz(self) -> int:
+        return int(self.blocks.numel())
+
+    def matvec(self, x):
+        kern, rt = _kernel(self.dtype, x)
+        if kern:
+            return blockell_spmv(_promoted(self, "blocks", rt), self.bcols,
+                                 x.to(rt))
+        return blockell_spmv_ref(self.blocks, self.bcols, x)
+
+    def opnorm_hint(self):
+        return self.blocks.abs().sum(dim=(1, 3)).max()      # (nbr, br) sums
+
+    def to_dense(self):
+        nbr, w, br, bc = self.blocks.shape
+        n = nbr * br
+        dev = self.device
+        r = (torch.arange(nbr, device=dev)[:, None, None, None] * br
+             + torch.arange(br, device=dev)[None, None, :, None])
+        c = (self.bcols.long()[:, :, None, None] * bc
+             + torch.arange(bc, device=dev)[None, None, None, :])
+        r, c = torch.broadcast_tensors(r, c)
+        A = torch.zeros((n, n), dtype=self.dtype, device=dev)
+        return A.index_put_((r, c), self.blocks, accumulate=True)
+
+    @classmethod
+    def from_dense(cls, A, br: int, bc: Optional[int] = None,
+                   is_hermitian: bool = False, device=None):
+        A = np.asarray(A)
+        bc = bc if bc is not None else br
+        n = A.shape[0]
+        if n % br or n % bc:
+            raise ValueError(f"n={n} not divisible by block shape ({br},{bc})")
+        nbr, nbc = n // br, n // bc
+        blk = A.reshape(nbr, br, nbc, bc).transpose(0, 2, 1, 3)
+        nzmask = np.abs(blk).sum(axis=(2, 3)) != 0       # (nbr, nbc)
+        w = max(1, int(nzmask.sum(axis=1).max()))
+        blocks = np.zeros((nbr, w, br, bc), dtype=A.dtype)
+        bcols = np.zeros((nbr, w), dtype=np.int32)
+        for i in range(nbr):
+            z = np.nonzero(nzmask[i])[0]
+            blocks[i, :len(z)] = blk[i, z]
+            bcols[i, :len(z)] = z
+        return cls(_tensor(blocks, device), _tensor(bcols, device),
+                   is_hermitian=is_hermitian)
+
+
+def blockell_from_scipy(A, br: int, bc: Optional[int] = None,
+                        is_hermitian: bool = False, dtype=None,
+                        device=None) -> BlockELLOperator:
+    """A ``scipy.sparse`` matrix in blocked ELL with (br x bc) blocks (the
+    native packer)."""
+    from ..utils.native import bsr_to_blockell_arrays
+
+    blocks, bcols = bsr_to_blockell_arrays(A, br, bc, dtype=dtype)
+    return BlockELLOperator(_tensor(blocks, device), _tensor(bcols, device),
+                            is_hermitian=is_hermitian)
+
+
+def banded_from_scipy(A, offsets=None, is_hermitian: bool = False,
+                      dtype=None, device=None) -> "BandedOperator":
+    """A ``scipy.sparse`` matrix with banded structure in diagonal storage.
+    Raises if the matrix has entries outside ``offsets`` (or more than 64
+    distinct diagonals when the offsets are detected)."""
+    from ..utils.native import csr_band_offsets, csr_to_banded_arrays
+
+    A = A.tocsr()
+    if offsets is None:
+        offsets = csr_band_offsets(A)
+        if offsets is None:
+            raise ValueError(
+                "matrix has >64 distinct diagonals; pass offsets explicitly "
+                "or use ell_from_scipy")
+    diags, dropped = csr_to_banded_arrays(A, offsets, dtype=dtype)
+    if dropped:
+        raise ValueError(
+            f"{dropped} entries fall outside the given offsets {offsets}")
+    return BandedOperator(_tensor(diags, device), [int(o) for o in offsets],
+                          is_hermitian=is_hermitian)
 
 
 class BandedOperator(LinearOperator):
     """A[i, i+o] = diags[k][i] for each offset o = offsets[k].
 
     diags: (len(offsets), n); diags[k, i] is zero where i+offsets[k] falls
-    outside [0, n).
+    outside [0, n). The matvec is kernel B7 on CUDA (at most
+    ``_build.MAX_POINTS`` diagonals there) and shifted slices of a
+    zero-padded x on CPU.
     """
 
     def __init__(self, diags, offsets, is_hermitian: bool = False):
-        self.diags = (diags if isinstance(diags, torch.Tensor)
-                      else torch.as_tensor(np.asarray(diags)))
+        self.diags = _tensor(diags)
         self.offsets = tuple(int(o) for o in offsets)
         self.is_hermitian = bool(is_hermitian)
         if self.diags.shape[0] != len(self.offsets):
@@ -51,17 +309,11 @@ class BandedOperator(LinearOperator):
         return int(self.diags.numel())
 
     def matvec(self, x):
-        n = x.shape[0]
-        h = max((abs(o) for o in self.offsets), default=0)
-        rt = torch.promote_types(self.dtype, x.dtype)
-        # zero padding makes every shifted read a slice and handles the
-        # boundary rows exactly (out-of-range reads see the pad zeros)
-        xe = F.pad(x.to(rt), (h, h))
-        D = self.diags.to(rt)
-        y = torch.zeros(n, dtype=rt, device=x.device)
-        for k, o in enumerate(self.offsets):
-            y = y + D[k] * xe[h + o:h + o + n]
-        return y
+        kern, rt = _kernel(self.dtype, x)
+        if kern:
+            return banded_spmv(_promoted(self, "diags", rt), self.offsets,
+                               x.to(rt))
+        return banded_spmv_ref(self.diags, self.offsets, x)
 
     def opnorm_hint(self):
         return self.diags.abs().sum(dim=0).max()
@@ -93,6 +345,344 @@ class BandedOperator(LinearOperator):
         n = self.shape[0]
         A = torch.zeros((n, n), dtype=self.dtype, device=self.device)
         for k, o in enumerate(self.offsets):
-            i = torch.arange(max(0, -o), min(n, n - o), device=self.device)
+            lo = max(0, -o)
+            i = torch.arange(lo, max(lo, min(n, n - o)), device=self.device)
             A[i, i + o] = self.diags[k, i]
         return A
+
+    def to_ell(self) -> SparseELLOperator:
+        n = self.shape[0]
+        i = torch.arange(n, device=self.device)
+        cols, data = [], []
+        for k, o in enumerate(self.offsets):
+            valid = (i + o >= 0) & (i + o < n)
+            cols.append(torch.where(valid, i + o, 0))
+            data.append(torch.where(valid, self.diags[k], 0))
+        return SparseELLOperator(torch.stack(data, dim=1),
+                                 torch.stack(cols, dim=1),
+                                 is_hermitian=self.is_hermitian)
+
+    @classmethod
+    def from_dense(cls, A, offsets=None, is_hermitian: bool = False,
+                   device=None):
+        A = np.asarray(A)
+        n = A.shape[0]
+        if offsets is None:
+            offsets = sorted({int(j - i) for i, j in zip(*np.nonzero(A))})
+            if not offsets:
+                offsets = [0]
+        diags = np.zeros((len(offsets), n), dtype=A.dtype)
+        for k, o in enumerate(offsets):
+            i = np.arange(max(0, -o), min(n, n - o))
+            diags[k, i] = A[i, i + o]
+        return cls(_tensor(diags, device), offsets, is_hermitian=is_hermitian)
+
+
+def _rcm(rows, cols, vals, n):
+    """(perm, rows, cols): the RCM permutation (perm[new] = old) and the
+    COO indices relabelled by it."""
+    import scipy.sparse as sp
+    from ..utils.native import rcm_ordering
+
+    perm = rcm_ordering(sp.csr_matrix((vals, (rows, cols)), shape=(n, n)))
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(n)
+    return perm, inv[rows], inv[cols]
+
+
+# the port's modes, then the JAX TPU pack modes (default pack here)
+_SELL_MODES = (None, "bucketed", "seg", "sorted", "roll", "residue",
+               "subroll", "chunked", "rowsel")
+
+
+class SellOperator(LinearOperator):
+    """Unstructured sparse operator in SELL-C-sigma form
+    (``ops/kernels/sell.py``): matvec kernel B9 on CUDA (B9 then B10 for
+    the segmented pack), the plain twins on CPU.
+
+    Build with ``from_coo`` / ``from_scipy``. With ``rcm=True`` the
+    operator acts in the permuted basis: ``perm`` (numpy, perm[new] = old)
+    maps vectors in (``x[perm]``) and out.
+    """
+
+    def __init__(self, data, is_hermitian: bool = False, perm=None):
+        self.data = data
+        self.is_hermitian = bool(is_hermitian)
+        self.perm = perm
+
+    @property
+    def shape(self):
+        return (self.data.n, self.data.n)
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @property
+    def device(self):
+        return self.data.device
+
+    @property
+    def nnz(self) -> int:
+        return self.data.nnz
+
+    def matvec(self, x):
+        from .kernels.sell import (SellSeg, sell_spmv, sell_spmv_ref,
+                                   sell_spmv_seg, sell_spmv_seg_ref)
+
+        seg = isinstance(self.data, SellSeg)
+        kern, rt = _kernel(self.dtype, x)
+        if kern:
+            return (sell_spmv_seg if seg else sell_spmv)(
+                _promoted(self, "data", rt), x.to(rt))
+        return (sell_spmv_seg_ref if seg else sell_spmv_ref)(self.data, x)
+
+    def opnorm_hint(self):
+        """max_i sum_j |A_ij|: the row sums of |A| as |A| applied to ones."""
+        from .kernels.sell import SellSeg, sell_spmv_ref, sell_spmv_seg_ref
+
+        d = self.data
+        seg = isinstance(d, SellSeg)
+        vals = (d.base if seg else d).vals.abs()
+        ones = torch.ones(d.n, dtype=vals.dtype, device=self.device)
+        ref = sell_spmv_seg_ref if seg else sell_spmv_ref
+        return ref(d.with_vals(vals), ones).max()
+
+    @classmethod
+    def from_coo(cls, rows, cols, vals, n, *, dtype=np.float32,
+                 window: int = 2048, residue: bool = False,
+                 mode: str | None = None, rcm: bool = False,
+                 is_hermitian: bool = False, max_chunks: int = 4,
+                 uniform_k: bool | None = None, device=None):
+        """Pack COO into the SELL container. ``mode``: None (default
+        pack), "bucketed", "seg" (segmented) or "sorted"
+        (``SortedSellOperator``); the JAX TPU pack modes ("roll",
+        "residue", "subroll", "chunked", "rowsel") take the default pack.
+        ``window``, ``residue``, ``max_chunks`` and ``uniform_k`` have no
+        effect (``ops/kernels/sell.py``)."""
+        from .kernels.sell import sell_pack, sell_pack_bucketed, sell_pack_seg
+
+        if mode not in _SELL_MODES:
+            raise ValueError(f"unknown SELL mode {mode!r}")
+        rows = np.asarray(rows)
+        cols = np.asarray(cols)
+        vals = np.asarray(vals)
+        perm = None
+        if rcm:
+            perm, rows, cols = _rcm(rows, cols, vals, n)
+        if mode == "sorted":
+            return SortedSellOperator._build(
+                rows, cols, vals, n, dtype=dtype, is_hermitian=is_hermitian,
+                rcm_perm=perm, device=device)
+        if mode == "seg":
+            data = sell_pack_seg((rows, cols, vals), n, dtype=dtype,
+                                 device=device)
+        elif mode == "bucketed":
+            data = sell_pack_bucketed((rows, cols, vals), n, dtype=dtype,
+                                      device=device)
+        else:
+            data = sell_pack((rows, cols, vals), n, dtype=dtype,
+                             device=device)
+        return cls(data, is_hermitian=is_hermitian, perm=perm)
+
+    @classmethod
+    def from_scipy(cls, A, **kwargs):
+        A = A.tocoo()
+        return cls.from_coo(A.row, A.col, A.data, A.shape[0], **kwargs)
+
+
+class SortedSellOperator(LinearOperator):
+    """Degree-sorted conjugated SELL: A = P^T A_s P with A_s = P A P^T,
+    P the stable degree sort inside windows of ``sort_window`` rows.
+
+    inner: ``SellOperator`` over A_s (bucketed pack).
+    order: int64 tensor, order[new] = old in the caller's basis (the RCM
+           relabelling composed in when built with ``rcm=True``), so
+           ``permute(x) == x[order]`` always.
+
+    ``matvec`` is the conjugated form (two gathers around one SpMV);
+    ``expv``, ``phiv`` and ``chebyshev_apply`` hoist the conjugation
+    (``hoist_conjugation``): matrix functions commute with it, so a solve
+    pays one gather in and one out instead of two per matvec.
+    """
+
+    def __init__(self, inner, order, is_hermitian=False):
+        self.inner = inner
+        self.order = _tensor(order, device=inner.device, dtype=torch.int64)
+        self._inv = torch.empty_like(self.order)
+        self._inv[self.order] = torch.arange(self.order.shape[0],
+                                             device=self.order.device)
+        self.is_hermitian = bool(is_hermitian)
+
+    @property
+    def shape(self):
+        return self.inner.shape
+
+    @property
+    def dtype(self):
+        return self.inner.dtype
+
+    @property
+    def device(self):
+        return self.inner.device
+
+    @property
+    def nnz(self) -> int:
+        return self.inner.nnz
+
+    def permute(self, x):
+        """x in the original order -> sorted order (rows of a 2-D x)."""
+        return x[self.order]
+
+    def unpermute(self, x):
+        return x[self._inv]
+
+    def matvec(self, x):
+        return self.unpermute(self.inner.matvec(self.permute(x)))
+
+    def opnorm_hint(self):
+        return self.inner.opnorm_hint()          # conjugation keeps norms
+
+    @classmethod
+    def _build(cls, rows, cols, vals, n, *, dtype, is_hermitian,
+               rcm_perm=None, sort_window: int = 256, device=None):
+        from .kernels.sell import sell_pack_bucketed
+
+        deg = np.bincount(rows, minlength=n)
+        order = np.empty(n, np.int64)
+        for w0 in range(0, n, sort_window):
+            w1 = min(n, w0 + sort_window)
+            order[w0:w1] = w0 + np.argsort(deg[w0:w1], kind="stable")
+        inv = np.empty_like(order)
+        inv[order] = np.arange(n, dtype=np.int64)
+        inner = SellOperator(
+            sell_pack_bucketed((inv[rows], inv[cols], vals), n, dtype=dtype,
+                               device=device), is_hermitian=is_hermitian)
+        if rcm_perm is not None:
+            # x_sorted[i] = x_rcm[order[i]] = x[rcm_perm[order[i]]]
+            order = np.asarray(rcm_perm, np.int64)[order]
+        return cls(inner, order, is_hermitian=is_hermitian)
+
+    def save(self, prefix: str) -> None:
+        """``<prefix>_inner.npz`` (the pack) and ``<prefix>_order.npy``."""
+        self.inner.data.save(f"{prefix}_inner.npz")
+        np.save(f"{prefix}_order.npy", self.order.cpu().numpy())
+
+    @classmethod
+    def load(cls, prefix: str, *, is_hermitian: bool = False, device=None):
+        from .kernels.sell import SellBucketed
+
+        inner = SellOperator(SellBucketed.load(f"{prefix}_inner.npz",
+                                               device=device),
+                             is_hermitian=is_hermitian)
+        return cls(inner, np.load(f"{prefix}_order.npy"),
+                   is_hermitian=is_hermitian)
+
+
+def hoist_conjugation(op, b):
+    """(inner_op, permuted_b, postprocess) for a ``SortedSellOperator``;
+    (op, b, None) otherwise. Matrix functions commute with the conjugation
+    (f(P A P^T) = P f(A) P^T), so a solver calls this once and runs the
+    whole solve in the sorted basis."""
+    if isinstance(op, SortedSellOperator):
+        return op.inner, op.permute(torch.as_tensor(b)), op.unpermute
+    return op, b, None
+
+
+class HybridOperator(LinearOperator):
+    """A = banded + residual: the dense diagonals in a ``BandedOperator``
+    (kernel B7) and the rest in a ``SellOperator`` (kernel B9). Build with
+    ``hybrid_from_scipy``; either part may be None."""
+
+    def __init__(self, banded, sell, is_hermitian: bool = False):
+        self.banded = banded
+        self.sell = sell
+        self.is_hermitian = bool(is_hermitian)
+        self.perm = None
+
+    def _part(self):
+        return self.banded if self.banded is not None else self.sell
+
+    @property
+    def shape(self):
+        return self._part().shape
+
+    @property
+    def dtype(self):
+        return self._part().dtype
+
+    @property
+    def device(self):
+        return self._part().device
+
+    @property
+    def nnz(self) -> int:
+        nb = (0 if self.banded is None
+              else int(torch.count_nonzero(self.banded.diags)))
+        return nb + (0 if self.sell is None else self.sell.nnz)
+
+    def matvec(self, x):
+        if self.banded is None:
+            return self.sell.matvec(x)
+        y = self.banded.matvec(x)
+        if self.sell is not None:
+            y = y + self.sell.matvec(x)
+        return y
+
+    def opnorm_hint(self):
+        h = 0.0
+        if self.banded is not None:
+            h = h + self.banded.opnorm_hint()
+        if self.sell is not None:
+            h = h + self.sell.opnorm_hint()
+        return h
+
+
+def hybrid_from_scipy(A, *, min_fill: float = 0.4, max_offsets: int = 31,
+                      dtype=np.float32, window: int = 2048,
+                      mode: str | None = None, is_hermitian: bool = False,
+                      rcm: bool = False, device=None) -> HybridOperator:
+    """Split ``A`` into dense diagonals + SELL residual (``HybridOperator``).
+
+    Diagonals whose fill (entries on the offset / n) is >= ``min_fill`` go
+    to a ``BandedOperator`` (at most ``max_offsets``, densest first);
+    everything else packs into a ``SellOperator`` with ``mode``.
+    ``rcm=True`` RCM-permutes first; the operator then acts in the
+    permuted basis (``perm``, as ``SellOperator``). ``window`` has no
+    effect."""
+    A = A.tocoo()
+    n = A.shape[0]
+    rows, cols, vals = (np.asarray(A.row, np.int64),
+                        np.asarray(A.col, np.int64), np.asarray(A.data))
+    perm = None
+    if rcm:
+        perm, rows, cols = _rcm(rows, cols, vals, n)
+
+    off = cols - rows
+    uniq, counts = np.unique(off, return_counts=True)
+    dense = uniq[counts >= min_fill * n]
+    if len(dense) > max_offsets:
+        order = np.argsort(counts[np.isin(uniq, dense)])[::-1]
+        dense = dense[order[:max_offsets]]
+    offsets = np.sort(dense)
+
+    banded = sell = None
+    if len(offsets):
+        sel = np.isin(off, offsets)
+        diags = np.zeros((len(offsets), n),
+                         dtype or np.result_type(vals.dtype, np.float32))
+        np.add.at(diags, (np.searchsorted(offsets, off[sel]), rows[sel]),
+                  vals[sel])
+        banded = BandedOperator(_tensor(diags, device),
+                                offsets.tolist(), is_hermitian=is_hermitian)
+        res = ~sel
+    else:
+        res = np.ones(len(off), bool)
+    if res.any():
+        sell = SellOperator.from_coo(rows[res], cols[res], vals[res], n,
+                                     dtype=dtype, mode=mode,
+                                     is_hermitian=is_hermitian, device=device)
+    hy = HybridOperator(banded, sell, is_hermitian=is_hermitian)
+    hy.perm = perm
+    return hy
+

@@ -9,7 +9,8 @@ import torch
 
 from ..ops.sparse import BandedOperator
 
-__all__ = ["laplacian_1d", "poisson_2d", "laplacian_3d"]
+__all__ = ["laplacian_1d", "poisson_2d", "laplacian_3d",
+           "advection_diffusion_1d"]
 
 
 def _banded(diags, offsets, dtype, device):
@@ -59,3 +60,20 @@ def laplacian_3d(nx: int, ny: int, nz: int, dtype=torch.float64,
     up = np.where(i < n - nx * ny, scale, 0.0)
     return _banded([down, south, west, main, east, north, up],
                    (-nx * ny, -nx, -1, 0, 1, nx, nx * ny), dtype, device)
+
+
+def advection_diffusion_1d(n: int, peclet: float = 10.0, dtype=torch.float64,
+                           device=None) -> BandedOperator:
+    """Stiff 1-D advection-diffusion u_xx + Pe u_x with upwind advection,
+    Dirichlet: the non-Hermitian operator of BASELINE config #4."""
+    h = 1.0 / (n + 1)
+    dcoef = 1.0 / h ** 2
+    acoef = peclet / h
+    main = np.full(n, -2.0 * dcoef - acoef)
+    lower = np.full(n, dcoef + acoef)
+    lower[0] = 0.0
+    upper = np.full(n, dcoef)
+    upper[-1] = 0.0
+    D = torch.as_tensor(np.stack([lower, main, upper])).to(dtype=dtype,
+                                                            device=device)
+    return BandedOperator(D, (-1, 0, 1), is_hermitian=False)

@@ -161,7 +161,9 @@ def test_phi_path_dispatches_to_kernels(dev):
     w3 = et.phiv(0.5, op, b, 3, m=30)
     assert dict(_build.launches) == {
         "resident_recurrence": 0, "resident_lanczos": 1, "resident_multi": 2,
-        "resident_banded": 0, "resident_grid": 0, "fused_sweep": 0}
+        "resident_banded": 0, "resident_grid": 0, "fused_sweep": 0,
+        "banded_spmv": 0, "blockell_spmv": 0, "sell_spmv": 0,
+        "seg_compact": 0}
     for w in (w1, w2):
         assert float((w - w3).norm() / w3.norm()) < 1e-10
 
@@ -170,3 +172,183 @@ def test_fused_true_wrong_dtype_raises(dev):
     op = et.laplacian_nd_stencil(6, 7, 8, device=dev)
     with pytest.raises(ValueError):
         td.recurrence_engine(op, torch.float16, fused=True, device=dev)
+
+
+# ---- the sparse containers' SpMV kernels (B7-B10) -------------------------
+
+def _banded_random(n, d, band, seed):
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), d)
+    cols = np.clip(rows + rng.integers(-band // 2, band // 2, n * d), 0, n - 1)
+    return rows, cols, rng.standard_normal(n * d) / d
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("kind", ["poisson", "laplacian", "advection",
+                                  "wide"])
+def test_b7_vs_twin(dev, dt, kind):
+    from exponentialutilities_jl_torch.ops.kernels import spmv as tsp
+
+    if kind == "wide":           # offsets as wide as the vector
+        rng = np.random.default_rng(20)
+        op = et.BandedOperator(torch.as_tensor(rng.standard_normal((4, 50)),
+                                               dtype=dt, device=dev),
+                               (-49, -3, 0, 60))
+    else:
+        op = {"poisson": et.poisson_2d(30, 40, dtype=dt, device=dev),
+              "laplacian": et.laplacian_1d(1000, dtype=dt, device=dev),
+              "advection": et.advection_diffusion_1d(2000, dtype=dt,
+                                                     device=dev)}[kind]
+    x = _vec(op.shape[0], dt, dev, 21)
+    _build.reset_launch_counts()
+    y = op.matvec(x)
+    assert _build.launches["banded_spmv"] == 1
+    _close(y, tsp.banded_spmv_ref(op.diags, op.offsets, x), dt)
+    assert torch.equal(y, op.matvec(x))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("br,bc", [(4, 4), (8, 8), (2, 3)])
+def test_b8_vs_twin(dev, dt, br, bc):
+    import scipy.sparse as sp
+    from exponentialutilities_jl_torch.ops.kernels import spmv as tsp
+
+    n = 24 * br * bc
+    A = sp.random(n, n, density=0.01, random_state=22, format="csr")
+    op = et.blockell_from_scipy(A, br, bc, dtype=np.float64, device=dev)
+    op.blocks = op.blocks.to(dt)
+    x = _vec(n, dt, dev, 23)
+    _build.reset_launch_counts()
+    y = op.matvec(x)
+    assert _build.launches["blockell_spmv"] == 1
+    _close(y, tsp.blockell_spmv_ref(op.blocks, op.bcols, x), dt)
+    want = torch.as_tensor(A @ x.double().cpu().numpy(), dtype=dt, device=dev)
+    _close(y, want, dt)
+    assert torch.equal(y, op.matvec(x))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("mode,band", [(None, 300), ("bucketed", 300),
+                                       (None, 20000), ("seg", 300)])
+def test_b9_b10_vs_twin(dev, dt, mode, band):
+    import scipy.sparse as sp
+    from exponentialutilities_jl_torch.ops.kernels import sell as ts
+
+    n = 30000 if band > 1000 else 3000
+    rows, cols, vals = _banded_random(n, 8, band, 24)
+    keep = ~np.isin(rows, [0, 5, n - 1])             # empty rows
+    rows, cols, vals = rows[keep], cols[keep], vals[keep]
+    if mode == "seg":                                 # a few long rows
+        long_rows = np.arange(0, n, 97)
+        extra = np.repeat(long_rows, 40)
+        ecols = extra + np.tile(np.arange(-20, 20), long_rows.size)
+        rows = np.concatenate([rows, extra, extra[:3]])           # + dups
+        cols = np.concatenate([cols, np.clip(ecols, 0, n - 1),
+                               np.clip(ecols[:3], 0, n - 1)])
+        vals = np.concatenate([vals, np.ones(extra.size + 3)])
+    A = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    op = et.SellOperator.from_coo(rows, cols, vals, n, dtype=np.float64,
+                                  mode=mode, device=dev)
+    op.data = op.data.to(dtype=dt)
+    x = _vec(n, dt, dev, 25)
+    _build.reset_launch_counts()
+    y = op.matvec(x)
+    seg = mode == "seg"
+    assert _build.launches["sell_spmv"] == 1
+    assert _build.launches["seg_compact"] == int(seg)
+    ref = (ts.sell_spmv_seg_ref if seg else ts.sell_spmv_ref)(op.data, x)
+    _close(y, ref, dt)
+    want = torch.as_tensor(A @ x.double().cpu().numpy(), dtype=dt, device=dev)
+    _close(y, want, dt)
+    assert torch.equal(y, op.matvec(x))
+
+
+def test_sparse_matvec_dtype_gate(dev):
+    """Complex data on the card takes the plain path through the dtype
+    gate; real float32/float64 data launches the kernel."""
+    rows, cols, vals = _banded_random(500, 4, 40, 26)
+    op = et.SellOperator.from_coo(rows, cols, vals, 500, dtype=np.complex128,
+                                  device=dev)
+    x = _vec(500, torch.float64, dev, 27).to(torch.complex128)
+    _build.reset_launch_counts()
+    op.matvec(x)
+    et.poisson_2d(10, 10, device=dev).matvec(x[:100])
+    assert _build.launches["sell_spmv"] == 0
+    assert _build.launches["banded_spmv"] == 0
+    et.poisson_2d(10, 10, device=dev).matvec(x[:100].real.float())
+    assert _build.launches["banded_spmv"] == 1
+
+
+def test_sell_path_dispatches_to_kernels(dev):
+    """expv / phiv / expv_chebyshev on the SELL containers: one B9 launch
+    per matvec (plus one B10 for the segmented pack), the sorted
+    conjugation hoisted."""
+    import scipy.sparse as sp
+
+    n = 4000
+    rows, cols, vals = _banded_random(n, 6, 200, 28)
+    A = sp.coo_matrix((vals, (rows, cols)), shape=(n, n))
+    A = (0.5 * (A + A.T)).tocoo()
+    b = _vec(n, torch.float64, dev, 29)
+    ws = {}
+    for mode in (None, "seg", "sorted"):
+        op = et.SellOperator.from_scipy(A, dtype=np.float64, mode=mode,
+                                        is_hermitian=True, device=dev)
+        _build.reset_launch_counts()
+        ws[mode] = et.expv(0.5, op, b, m=30)
+        assert _build.launches["sell_spmv"] == 30
+        assert _build.launches["seg_compact"] == (30 if mode == "seg" else 0)
+    for mode in ("seg", "sorted"):
+        assert float((ws[mode] - ws[None]).norm() / ws[None].norm()) < 1e-12
+
+
+def test_spmv_wrappers_refuse_mixed_dtypes(dev):
+    """A launch never casts the matrix: a wrapper given storage in another
+    dtype than the vector raises, and so does a pack whose arrays do not
+    hold its slots."""
+    import scipy.sparse as sp
+    from exponentialutilities_jl_torch.ops.kernels import sell as ts
+    from exponentialutilities_jl_torch.ops.kernels import spmv as tsp
+
+    x = _vec(64, torch.float64, dev, 30)
+    opP = et.poisson_2d(8, 8, dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        tsp.banded_spmv(opP.diags, opP.offsets, x)
+    A = sp.random(64, 64, density=0.1, random_state=31, format="csr")
+    opB = et.blockell_from_scipy(A, 4, dtype=np.float32, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        tsp.blockell_spmv(opB.blocks, opB.bcols, x)
+    d = ts.sell_pack(_banded_random(64, 4, 10, 32), 64, np.float32,
+                     device=dev)
+    with pytest.raises(ValueError, match="float64"):
+        ts.sell_spmv(d, x)
+    with pytest.raises(ValueError, match="slots"):
+        ts.sell_spmv(d.with_vals(d.vals[:-32]), x.float())
+
+
+def test_promoted_storage_cast_once(dev):
+    """float32 containers driven by float64 vectors launch their kernels
+    in float64 on a copy of their storage made once, on the first matvec;
+    ``use_pallas=False`` does not keep B8 from running on the card."""
+    import scipy.sparse as sp
+
+    n = 256
+    A = sp.random(n, n, density=0.05, random_state=33, format="csr")
+    x = _vec(n, torch.float64, dev, 34)
+    B = et.blockell_from_scipy(A, 4, dtype=np.float32, device=dev)
+    ops = {"banded_spmv": et.BandedOperator.from_dense(
+               np.diag(np.arange(n, dtype=np.float32))
+               + np.diag(np.ones(n - 1, np.float32), 1), device=dev),
+           "blockell_spmv": et.BlockELLOperator(B.blocks, B.bcols,
+                                                use_pallas=False),
+           "sell_spmv": et.SellOperator.from_scipy(A, dtype=np.float32,
+                                                   device=dev)}
+    for name, op in ops.items():
+        _build.reset_launch_counts()
+        y = op.matvec(x)
+        (copy,) = [c for _, c in op._casts.values()]
+        op.matvec(x)
+        assert _build.launches[name] == 2, name
+        assert y.dtype == torch.float64, name
+        (again,) = [c for _, c in op._casts.values()]
+        assert again is copy, name

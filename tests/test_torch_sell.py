@@ -1,0 +1,303 @@
+"""PyTorch port vs JAX package and scipy: the unstructured sparse
+containers (ops/sparse.py: SellOperator in every mode, SortedSellOperator,
+HybridOperator) and the plain twins of their kernels (B9 ``sell_spmv``,
+B10 ``seg_compact``; ops/kernels/sell.py). Same seeded numpy inputs
+through both packages, float64 unless stated; results compared in the
+original basis.
+
+The port packs SELL-C-sigma, the JAX package its TPU window layouts, so
+the two agree on y = A x and not on the arrays. Tolerances (norm-scaled,
+tests/torch_parity.py): RTOL64 for products and Chebyshev actions (same
+products, another summation order); RTOL32 against the JAX Pallas
+kernels in interpret mode (float32, at the smallest shape); 1e2 RTOL64
+for the Krylov actions, as in tests/test_torch_expv.py; 1e-10 against
+scipy's expm_multiply (the BASELINE target)."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import scipy.sparse as sp
+import scipy.sparse.linalg as spla
+import torch
+
+import exponentialutilities_jl_tpu as ej
+import exponentialutilities_jl_torch as et
+from exponentialutilities_jl_tpu.ops.kernels import sell as jsell
+from exponentialutilities_jl_torch.ops.kernels import sell as tsell
+from torch_parity import RTOL32, RTOL64, assert_close, t2n
+
+torch.set_num_threads(2)
+
+MODES = [None, "bucketed", "seg", "sorted"]
+
+
+def _scattered(n, seed, band=120):
+    """The scattered-degree class of benchmarks/bench_sorted.py (degrees
+    6/20/40 shuffled), with three empty rows and duplicate entries."""
+    rng = np.random.default_rng(seed)
+    deg = np.full(n, 6, np.int64)
+    deg[int(0.85 * n):int(0.95 * n)] = 20
+    deg[int(0.95 * n):] = 40
+    rng.shuffle(deg)
+    deg[[1, n // 2, n - 1]] = 0
+    rows = np.repeat(np.arange(n, dtype=np.int64), deg)
+    cols = np.clip(rows + rng.integers(-band, band, rows.size), 0, n - 1)
+    vals = rng.standard_normal(rows.size) / deg[rows]
+    dup = rng.integers(0, rows.size, 50)
+    return (np.concatenate([rows, rows[dup]]), np.concatenate([cols, cols[dup]]),
+            np.concatenate([vals, vals[dup]]))
+
+
+def _sym(rows, cols, vals, n):
+    A = sp.coo_matrix((vals, (rows, cols)), shape=(n, n))
+    return (0.5 * (A + A.T)).tocoo()
+
+
+def _both(A, **kw):
+    kw.setdefault("dtype", np.float64)
+    return (ej.SellOperator.from_coo(A.row, A.col, A.data, A.shape[0], **kw),
+            et.SellOperator.from_coo(A.row, A.col, A.data, A.shape[0], **kw))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_sell_matvec_vs_jax(mode):
+    n = 2048
+    r, c, v = _scattered(n, 0)
+    A = sp.coo_matrix((v, (r, c)), shape=(n, n))
+    jop, top = _both(A, mode=mode)
+    assert type(top).__name__ == type(jop).__name__
+    x = np.random.default_rng(1).standard_normal(n)
+    y = t2n(top.matvec(torch.as_tensor(x)))
+    assert_close(y, np.asarray(jop.matvec(jnp.asarray(x))), RTOL64, "vs JAX")
+    assert_close(y, A.tocsr() @ x, RTOL64, "vs scipy")
+    assert top.nnz == jop.nnz
+    assert float(top.opnorm_hint()) == pytest.approx(
+        np.abs(A.tocsr()).sum(axis=1).max())
+
+
+def test_sell_rcm_matches_jax_permutation():
+    n = 2048
+    A = _sym(*_scattered(n, 2, band=400), n)
+    p = np.random.default_rng(3).permutation(n)           # scramble
+    A = A.tocsr()[p][:, p].tocoo()
+    jop, top = _both(A, rcm=True)
+    np.testing.assert_array_equal(top.perm, jop.perm)
+    x = np.random.default_rng(4).standard_normal(n)
+    xp = x[top.perm]
+    y = t2n(top.matvec(torch.as_tensor(xp)))
+    assert_close(y, np.asarray(jop.matvec(jnp.asarray(xp))), RTOL64, "vs JAX")
+    back = np.empty(n)
+    back[top.perm] = y
+    assert_close(back, A.tocsr() @ x, RTOL64, "original basis")
+
+
+def test_sell_twin_vs_jax_interpret():
+    """B9's twin against the JAX Pallas kernel in interpret mode (float32,
+    the smallest shape of the JAX package's own test)."""
+    n = 1024
+    r, c, v = _scattered(n, 5)
+    v = v.astype(np.float32)
+    x = np.random.default_rng(6).standard_normal(n).astype(np.float32)
+    jy = jsell.sell_spmv(jsell.sell_pack((r, c, v), n), jnp.asarray(x),
+                         interpret=True)
+    ty = tsell.sell_spmv(tsell.sell_pack((r, c, v), n), torch.as_tensor(x))
+    assert ty.dtype == torch.float32
+    assert_close(t2n(ty), np.asarray(jy), RTOL32, "B9 twin vs interpret")
+
+
+def test_seg_twin_vs_jax_interpret():
+    """B9 then B10 (twins) against the JAX segmented product in interpret
+    mode, its compaction kernel included (float32)."""
+    n = 1024
+    r, c, v = _scattered(n, 7)
+    v = v.astype(np.float32)
+    x = np.random.default_rng(8).standard_normal(n).astype(np.float32)
+    jy = jsell.sell_spmv_seg(jsell.sell_pack_seg((r, c, v), n),
+                             jnp.asarray(x), interpret=True)
+    pk = tsell.sell_pack_seg((r, c, v), n, seg_len=16)
+    ty = tsell.sell_spmv_seg(pk, torch.as_tensor(x))
+    assert_close(t2n(ty), np.asarray(jy), RTOL32, "seg vs interpret")
+
+
+@pytest.mark.parametrize("mode", [None, "seg"])
+def test_wide_band_vs_scipy(mode):
+    """A band of 20,000 columns: the JAX packs refuse it (the TPU gather
+    window); the SELL-C-sigma pack takes it and matches scipy."""
+    n = 20000
+    rng = np.random.default_rng(9)
+    rows = np.repeat(np.arange(n), 8)
+    cols = np.clip(rows + rng.integers(-10000, 10000, rows.size), 0, n - 1)
+    vals = rng.standard_normal(rows.size)
+    jpack = jsell.sell_pack_seg if mode == "seg" else jsell.sell_pack
+    with pytest.raises(ValueError):
+        jpack((rows, cols, vals), n)
+    op = et.SellOperator.from_coo(rows, cols, vals, n, dtype=np.float64,
+                                  mode=mode)
+    x = rng.standard_normal(n)
+    want = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr() @ x
+    assert_close(t2n(op.matvec(torch.as_tensor(x))), want, RTOL64, "vs scipy")
+
+
+def test_pack_layout():
+    """SELL-C-sigma invariants: every row packed once, slices as wide as
+    their longest row, rows sorted by degree inside each sigma window,
+    segments at most seg_len long."""
+    n = 1000
+    r, c, v = _scattered(n, 10)
+    d = tsell.sell_pack((r, c, v), n, dtype=np.float64, sigma=64)
+    row_of = t2n(d.row_of)
+    np.testing.assert_array_equal(np.sort(row_of), np.arange(n))
+    deg = np.diff(sp.coo_matrix((v, (r, c)), shape=(n, n)).tocsr().indptr)
+    pdeg = deg[row_of]
+    assert (np.diff(row_of // 64) >= 0).all()              # windows kept
+    for w0 in range(0, n, 64):
+        assert (np.diff(pdeg[w0:w0 + 64]) <= 0).all()       # longest first
+    width = np.diff(t2n(d.slice_ptr)) // tsell.SLICE
+    padded = np.zeros(d.nslices * tsell.SLICE, np.int64)
+    padded[:n] = pdeg
+    np.testing.assert_array_equal(width, padded.reshape(-1, 32).max(axis=1))
+    s = tsell.sell_pack_seg((r, c, v), n, dtype=np.float64, seg_len=8)
+    seg_deg = np.diff(t2n(s.seg_ptr))
+    np.testing.assert_array_equal(seg_deg, -(-deg // 8))
+    assert s.base.n == seg_deg.sum()
+    assert int(np.diff(t2n(s.base.slice_ptr)).max()) <= 8 * tsell.SLICE
+    with pytest.raises(ValueError, match="mode"):
+        et.SellOperator.from_coo(r, c, v, n, mode="subrol")
+
+
+@pytest.mark.parametrize("mode", [None, "seg", "sorted"])
+def test_sell_actions_vs_jax(mode):
+    """expv (happy breakdown, two-pass), phiv and expv_chebyshev on each
+    SELL container, port vs JAX; the sorted container's conjugation is
+    hoisted in both packages and the results are in the original basis."""
+    n = 1024
+    A = _sym(*_scattered(n, 11), n)
+    jop, top = _both(A, mode=mode, is_hermitian=True)
+    b = np.random.default_rng(12).standard_normal(n)
+    jb, tb = jnp.asarray(b), torch.as_tensor(b)
+    rtol = 1e2 * RTOL64
+    w = t2n(et.expv(0.5, top, tb, m=30))
+    assert_close(w, np.asarray(ej.expv(0.5, jop, jb, m=30)), rtol, "expv")
+    assert_close(w, spla.expm_multiply(0.5 * A.tocsr(), b), 1e-10, "scipy")
+    assert_close(t2n(et.expv(0.5, top, tb, m=30, two_pass=True)), w, rtol,
+                 "two-pass")
+    assert_close(t2n(et.phiv(0.5, top, tb, 2, m=30)),
+                 np.asarray(ej.phiv(0.5, jop, jb, 2, m=30)), rtol, "phiv")
+    bounds = (-2.0, 2.0)
+    assert_close(t2n(et.expv_chebyshev(0.5, top, tb, bounds=bounds,
+                                       tol=1e-12)),
+                 np.asarray(ej.expv_chebyshev(0.5, jop, jb, bounds=bounds,
+                                              tol=1e-12)), RTOL64, "cheb")
+
+
+def test_sorted_conjugation():
+    n = 1024
+    A = _sym(*_scattered(n, 13), n)
+    jop, top = _both(A, mode="sorted", rcm=True, is_hermitian=True)
+    np.testing.assert_array_equal(t2n(top.order), np.asarray(jop.order))
+    x = np.random.default_rng(14).standard_normal((n, 2))
+    tx = torch.as_tensor(x)
+    np.testing.assert_array_equal(t2n(top.permute(tx)), x[t2n(top.order)])
+    np.testing.assert_array_equal(t2n(top.unpermute(top.permute(tx))), x)
+    inner, pb, post = et.hoist_conjugation(top, tx[:, 0])
+    assert inner is top.inner and post == top.unpermute
+    assert_close(t2n(post(inner.matvec(pb))), t2n(top.matvec(tx[:, 0])),
+                 RTOL64, "hoisted matvec")
+    # rcm composed in: the operator maps original-basis vectors
+    assert_close(t2n(top.matvec(tx[:, 0])), A.tocsr() @ x[:, 0], RTOL64,
+                 "vs scipy")
+
+
+def test_hybrid_vs_jax():
+    """Poisson diagonals plus a random residual: the dense diagonals go to
+    B7, the rest to B9, as in the JAX split."""
+    P = sp.csr_matrix(np.asarray(ej.poisson_2d(32, 32).to_dense()))
+    rng = np.random.default_rng(15)
+    n = P.shape[0]
+    R = sp.coo_matrix((rng.standard_normal(2 * n) * 0.1,
+                       (rng.integers(0, n, 2 * n), rng.integers(0, n, 2 * n))),
+                      shape=(n, n))
+    A = (P + R + R.T).tocoo()
+    kw = dict(min_fill=0.4, dtype=np.float64, is_hermitian=True)
+    jh, th = ej.hybrid_from_scipy(A, **kw), et.hybrid_from_scipy(A, **kw)
+    assert th.banded.offsets == jh.banded.offsets == (-32, -1, 0, 1, 32)
+    np.testing.assert_array_equal(t2n(th.banded.diags),
+                                  np.asarray(jh.banded.diags))
+    assert th.nnz == jh.nnz
+    b = rng.standard_normal(n)
+    assert_close(t2n(th.matvec(torch.as_tensor(b))), A.tocsr() @ b, RTOL64,
+                 "matvec")
+    assert_close(t2n(et.expv(0.05, th, torch.as_tensor(b), m=30)),
+                 np.asarray(ej.expv(0.05, jh, jnp.asarray(b), m=30)),
+                 1e2 * RTOL64, "expv")
+
+
+def test_save_load_roundtrip(tmp_path):
+    n = 700
+    r, c, v = _scattered(n, 16)
+    x = torch.as_tensor(np.random.default_rng(17).standard_normal(n))
+    for cls, pack in ((tsell.SellData, tsell.sell_pack),
+                      (tsell.SellBucketed, tsell.sell_pack_bucketed),
+                      (tsell.SellSeg, tsell.sell_pack_seg)):
+        d = pack((r, c, v), n, dtype=np.float64)
+        path = str(tmp_path / cls.__name__)
+        d.save(path)
+        d2 = cls.load(path)
+        assert type(d2) is cls
+        ref = (tsell.sell_spmv_seg_ref if cls is tsell.SellSeg
+               else tsell.sell_spmv_ref)
+        assert torch.equal(ref(d, x), ref(d2, x))
+    op = et.SellOperator.from_coo(r, c, v, n, dtype=np.float64, mode="sorted")
+    op.save(str(tmp_path / "sorted"))
+    op2 = et.SortedSellOperator.load(str(tmp_path / "sorted"))
+    assert torch.equal(op.matvec(x), op2.matvec(x))
+
+
+@pytest.mark.parametrize("fault", ["column", "row", "slice_ptr", "slots"])
+def test_load_rejects_a_broken_pack(tmp_path, fault):
+    """A loaded pack is checked once: B9 gathers x and scatters y by its
+    indices unchecked, so an index out of range or a slice_ptr that does
+    not match the arrays is refused before any launch."""
+    n = 300
+    d = tsell.sell_pack(_scattered(n, 18), n, dtype=np.float64)
+    f = {k: v.clone() for k, v in d._fields().items()}
+    if fault == "column":
+        f["cols"][5] = n
+    elif fault == "row":
+        f["row_of"][0] = -1
+    elif fault == "slice_ptr":
+        f["slice_ptr"][1] += 1
+    else:
+        f["vals"], f["cols"] = f["vals"][:-32], f["cols"][:-32]
+    path = str(tmp_path / "bad.npz")
+    np.savez(path, **{k: v.numpy() for k, v in f.items()},
+             meta=np.asarray([d.n, d.ncols, d.nnz, d.sigma], np.int64))
+    with pytest.raises(ValueError, match="SELL pack"):
+        tsell.SellData.load(path)
+
+
+def test_seg_pack_checks_seg_ptr():
+    n = 300
+    s = tsell.sell_pack_seg(_scattered(n, 19), n, dtype=np.float64)
+    assert tsell.SellSeg(s.base, s.seg_ptr, n, s.nnz).n == n     # valid
+    bad = s.seg_ptr.clone()
+    bad[-1] += 1                        # one partial past the segments
+    with pytest.raises(ValueError, match="seg_ptr"):
+        tsell.SellSeg(s.base, bad, n, s.nnz)
+    with pytest.raises(ValueError, match="seg_ptr"):
+        tsell.SellSeg(s.base, s.seg_ptr[:-1], n, s.nnz)
+
+
+def test_promoted_pack_is_cast_once():
+    """A float32 pack driven by float64 vectors is cast once and the copy
+    kept (the CUDA matvec reads it; no launch casts the slots)."""
+    from exponentialutilities_jl_torch.ops.sparse import _promoted
+
+    n = 200
+    op = et.SellOperator.from_coo(*_scattered(n, 20), n, dtype=np.float32)
+    d64 = _promoted(op, "data", torch.float64)
+    assert d64.dtype == torch.float64 and d64.nslots == op.data.nslots
+    assert _promoted(op, "data", torch.float64) is d64
+    assert _promoted(op, "data", torch.float32) is op.data
+    op.data = op.data.to(dtype=torch.float32)          # reassigned: recast
+    assert _promoted(op, "data", torch.float64) is not d64
