@@ -5,8 +5,8 @@
     python3 chip_smoke.py --profile  (phases 1-4, then device profiles)
 
 The main paths are exp(tA)b and the phi-function actions
-[phi_0(tA)b ... phi_3(tA)b] for Hermitian operators at BASELINE.json's
-sizes: the 1-D Laplacian at n = 100,000 (config #2), the 2-D 5-point
+[phi_0(tA)b ... phi_3(tA)b] at BASELINE.json's sizes: for Hermitian
+operators the 1-D Laplacian at n = 100,000 (config #2), the 2-D 5-point
 Poisson matrix on 1000 x 1000 in diagonal storage (config #3, phiv p=0..3
 at t = 1e-4), the 3-D 7-point Laplacian on 216^3 = 10,077,696 rows
 (config #5 on one card), and a 2-D 512^2 stencil small enough for the
@@ -15,12 +15,17 @@ banded-random matrix of benchmarks/bench_sell.py and the scattered-degree
 matrix of benchmarks/bench_sorted.py (both symmetrized) in SELL-C-sigma
 form (default, segmented and sorted packs), config #3's Poisson matrix
 plus a random residual as a hybrid (banded + SELL), and the 3-D Laplacian
-on 128^3 in 8 x 8 block-ELL. Phases, each printing one line per check and
+on 128^3 in 8 x 8 block-ELL; the variable-coefficient div(a grad u) on
+216^3 with a ~ U(0.5, 2) (benchmarks/bench_var.py's operator, kernel
+B3-var); and the non-Hermitian Arnoldi path: config #1's dense 100 x 100
+matrix (expm and expv, m = 40) and config #4's advection_diffusion_1d(2000,
+Pe = 10) at t = 1e-4 (expv, phiv k = 1 and the storage-free IOP two-pass,
+each matvec on kernel B7). Phases, each printing one line per check and
 its seconds:
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc builds the kernels of ops/kernels/csrc/ (seconds)
-  3. kernels  B1-B10 (less B3-var) against their plain twins, float32 and
+  3. kernels  B1-B10 and B3-var against their plain twins, float32 and
               float64, at the main paths' shapes, plus bitwise-repeatable
               results
   4. main     the public entry points (expv_chebyshev, expv with and
@@ -28,16 +33,22 @@ its seconds:
               phiv_chebyshev, phiv_timestep_chebyshev) with launch counts
               reset just before and read just after, each call's launches
               held to the exact expected count; results checked against
-              scipy (1-D, and expm_multiply on the n = 1e6 SELL matrix),
-              by the semigroup identity (3-D), the phi identities
+              scipy (1-D, config #1, the dense config #4 oracle, and
+              expm_multiply on the n = 1e6 SELL matrix and a 48^3
+              variable operator), by the semigroup identity (3-D,
+              constant and variable), the phi identities
               t A phi_{j+1} = phi_j - b/j!, and cross-method or cross-pack
               agreement; the kernel-driving passes rerun under
               torch.cuda.set_sync_debug_mode("error")
   5. times    CUDA-event medians of >= 10 runs after warm-up, each kernel
               beside its plain twin, B6 beside the B3 sweeps on the same
               grid, B9 at bench_sell.py's timing shape (n = 1e7) with its
-              GB/s and Gnnz/s, and each main-path call beside the plain
-              path
+              GB/s and Gnnz/s, each main-path call beside the plain
+              path, and for each kernel its bound (the larger of its bytes
+              over 3.35 TB/s and its operations over the vector peak) and
+              the time of the one PyTorch call that computes the same
+              function, where there is one (CSR or BSR products,
+              segment_reduce)
 
 It prints a JSON line of the kernels, then the card's name and power
 limit, then {"ok": true, "device": {...}} as the last line. Any failed
@@ -45,8 +56,10 @@ check raises, so the exit code is non-zero and no result line is printed;
 without a CUDA device it exits with code 2 at once.
 
 With --profile, phase 5 is replaced by torch.profiler over one warm call
-of each sparse main-path cell (config #3 phiv, the SELL expv, two-pass,
-expv_chebyshev and its spectral_bounds, the block-ELL two-pass): the
+of each sparse, variable and non-Hermitian main-path cell (config #3
+phiv, the SELL expv, two-pass, expv_chebyshev and its spectral_bounds,
+the block-ELL two-pass; the 216^3 variable Chebyshev and two-pass; config
+#1 expm and expv; config #4 expv, phiv and the IOP two-pass): the
 CUDA-event wall time, the device busy time (union of the device
 intervals), the number of device ops, the largest kernels and the host
 ops of most self time. It prints no result lines then.
@@ -107,6 +120,22 @@ MTOL_PHI = 1e-10
 # m = 20) 1.2e-15.
 MTOL_SPARSE = 1e-10
 
+# The variable-coefficient path (216^3 div(a grad u), t = 0.05), calibrated
+# the same way on a 48^3 field (216^3 is too large for that CPU): float64
+# semigroup 7.4e-13 (Chebyshev, tol 1e-12) and 7.9e-16 (two-pass m = 20),
+# Chebyshev vs two-pass 8.0e-13, vs scipy expm_multiply 8.0e-13 / 7.7e-16;
+# float32 semigroup 1.4e-7 and 6.5e-8, cross-method 5.2e-7.
+MTOL_VAR = {"float64": 1e-10, "float32": 1e-5}
+NV = 48                 # the variable operator held to scipy
+# The non-Hermitian path, float64, calibrated the same way: config #1
+# expm vs scipy 4.0e-16, expv m = 40 7.4e-16; config #4 (t |A| = 1606) with
+# m = 250: expv and phiv (phi_0 b + t phi_1 (0.1 b), run_baseline.py's
+# oracle) vs the dense oracle 2.0e-13 (m = 200 reaches 6.8e-12, m = 150
+# 3.6e-7), the IOP two-pass (iop = 2) vs expv(iop=2, reorth=False) 6.3e-14.
+MTOL_NONHERM = 1e-10
+MTOL_IOP = 1e-12
+NA, TA, MA = 2000, 1e-4, 250     # config #4's operator, time and m here
+
 NS = 1_000_000          # the SELL matrices of bench_sell.py / bench_sorted.py
 NS_TIME = 10_000_000    # bench_sell.py's timing shape
 NB = 128                # 3-D Laplacian 128^3 as 8 x 8 block-ELL (B8)
@@ -119,6 +148,7 @@ REPLACES = {
     "resident_banded": "exponentialutilities_jl_tpu/ops/kernels/resident.py:186",
     "resident_grid": "exponentialutilities_jl_tpu/ops/kernels/resident.py:331",
     "fused_sweep": "exponentialutilities_jl_tpu/ops/kernels/lanczos_fused.py:380",
+    "fused_sweep_var": "exponentialutilities_jl_tpu/ops/kernels/lanczos_fused.py:621",
     "banded_spmv": "exponentialutilities_jl_tpu/ops/kernels/spmv.py:134",
     "blockell_spmv": "exponentialutilities_jl_tpu/ops/kernels/spmv.py:42",
     "sell_spmv": "exponentialutilities_jl_tpu/ops/kernels/sell.py:645",
@@ -131,11 +161,29 @@ SOURCES = {
     "resident_banded": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_family.cu",
     "resident_grid": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_family.cu",
     "fused_sweep": "exponentialutilities_jl_torch/ops/kernels/csrc/fused_sweep.cu",
+    "fused_sweep_var": "exponentialutilities_jl_torch/ops/kernels/csrc/fused_sweep.cu",
     "banded_spmv": "exponentialutilities_jl_torch/ops/kernels/csrc/spmv.cu",
     "blockell_spmv": "exponentialutilities_jl_torch/ops/kernels/csrc/spmv.cu",
     "sell_spmv": "exponentialutilities_jl_torch/ops/kernels/csrc/sell.cu",
     "seg_compact": "exponentialutilities_jl_torch/ops/kernels/csrc/sell.cu",
 }
+
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense, at the
+# 700 W limit): 3.35 TB/s of HBM, and outside the tensor cores 67 TFLOP/s
+# in float32 and 34 TFLOP/s in float64. Every kernel here runs plain FMA
+# code, so those vector peaks bound its operations.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+
+
+def bound(nbytes: float, flops: float, dn: str):
+    """(ms, "bytes" | "operations"): the least time the card could take to
+    move ``nbytes`` (each input read once, each output written once) and
+    do ``flops`` operations in dtype ``dn``."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = flops / PEAK_FLOPS[dn] * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def check(ok: bool, what: str):
@@ -214,8 +262,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port's main path "
                                  "on one NVIDIA GPU (module doc).")
     ap.add_argument("--profile", action="store_true",
-                    help="after phase 4, profile the sparse main-path "
-                    "cells instead of timing (phase 5)")
+                    help="after phase 4, profile the sparse, variable and "
+                    "non-Hermitian main-path cells instead of timing "
+                    "(phase 5)")
     args = ap.parse_args()
 
     import torch
@@ -305,10 +354,32 @@ def main() -> int:
         out = tf.fused_lanczos_step(Z, Vc, Vp, co, op, w_accum=W)
         return out[0], out[1], torch.stack([out[2], out[3]])
 
+    def var13(shape, dt, gen):
+        """A wide (|o| = 2) non-symmetric 13-point variable operator with
+        random positive fields."""
+        offs = [(0, 0, 0)] + [tuple(s if i == a else 0 for i in range(3))
+                              for a in range(3) for s in (-2, -1, 1, 2)]
+        C = gen.uniform(0.2, 1.0, (len(offs), math.prod(shape)))
+        C[0] = -C[1:].sum(axis=0)
+        return et.VariableStencilOperator(shape, offs, C, dtype=dt,
+                                          device=dev)
+
     def invariant_start(n, modes, dt):
         i = np.arange(1, n + 1)
         b = sum(np.sin(k * np.pi * i / (n + 1)) for k in modes)
         return torch.as_tensor(b, dtype=dt, device=dev)
+
+    # The variable-coefficient operator of benchmarks/bench_var.py:61-63:
+    # div(a grad u) on 216^3 with a ~ U(0.5, 2), fields built on the host
+    t0 = time.perf_counter()
+    aV = np.random.default_rng(SEED).uniform(0.5, 2.0, (N3, N3, N3))
+    opV = {f64: et.variable_diffusion_nd_stencil(aV, device=dev),
+           f32: et.variable_diffusion_nd_stencil(aV, dtype=np.float32,
+                                                 device=dev)}
+    del aV
+    print(f"variable operator 216^3: {time.perf_counter() - t0:.1f} s (host "
+          f"fields, {len(opV[f64].offsets)} per cell, copies to the card)",
+          flush=True)
 
     # ---- 3. kernels against their twins ---------------------------------
     kerr = {}          # float64 max abs error at the main path's shapes
@@ -381,6 +452,40 @@ def main() -> int:
             print(f"kernel B3 {dname[dt]} {label} plain+accum: max rel err "
                   f"{max(errs):.2e} (tol {tol:g}), bitwise moments ok",
                   flush=True)
+        # B3-var: the 216^3 field operator, a 2-D one at config #3's size
+        # and a wide 13-point one; the fields read at the output cell
+        rngV = np.random.default_rng(SEED + 6)
+        for label, op in (("216^3 div(a grad u)", opV[dt]),
+                          (f"{NP}x{NP} 2-D div(a grad u)",
+                           et.variable_diffusion_nd_stencil(
+                               rngV.uniform(0.5, 2.0, (NP, NP)), dtype=dt,
+                               device=dev)),
+                          ("48x40x64 13-point random fields",
+                           var13((48, 40, 64), dt, rngV))):
+            n = op.shape[0]
+            Z, Vc, Vp, W = (vec(n, dt, rngV) for _ in range(4))
+            co = torch.tensor([0.3, -0.7, 0.2, 0.45], dtype=dt, device=dev)
+            W1, W2 = W.clone(), W.clone()
+            Y, Zn, mom = sweep(op, Z, Vc, Vp, co, W1)
+            _, _, mom_again = sweep(op, Z, Vc, Vp, co, W.clone())
+            Yp, Znp, momp = sweep(op, Z, Vc, Vp, co[:3].contiguous())
+            Yr, Znr, momr = tf.fused_sweep_ref(Z, Vc, Vp, co, op.grid_shape,
+                                               op.offsets, op.coeff_fields,
+                                               W2)
+            errs = [rel_max(a, b) for a, b in ((Y, Yr), (Zn, Znr),
+                                               (mom, momr), (W1, W2),
+                                               (Yp, Yr), (Znp, Znr))]
+            check(max(errs) <= tol, f"B3-var {dname[dt]} {label}: {errs}")
+            check(torch.equal(mom, mom_again) and torch.equal(mom, momp),
+                  f"B3-var {dname[dt]} {label} bitwise moments")
+            if dt == f64 and label.startswith("216"):
+                kerr["fused_sweep_var"] = max(
+                    float((a - b).abs().max())
+                    for a, b in ((Y, Yr), (Zn, Znr), (W1, W2)))
+            print(f"kernel B3-var {dname[dt]} {label} plain+accum: max rel "
+                  f"err {max(errs):.2e} (tol {tol:g}), bitwise moments ok",
+                  flush=True)
+        del op
         # B4: p = 4 accumulators over one omega chain, 1-D n = 1e5
         op = ops1(dt)
         x = vec(N1, dt, rng2)
@@ -622,7 +727,7 @@ def main() -> int:
               for mode in (None, "seg", "sorted")}
     bC = torch.as_tensor(rng4.standard_normal(NS), device=dev)
     A_res = symmetrized(bench_sell_coo(NP * NP, 2, 700, rng4), NP * NP)
-    A_hyb = (banded_csr(et.poisson_2d(NP, NP)) + A_res).tocsr()
+    A_hyb = (banded_csr(et.poisson_2d(NP, NP, device=dev)) + A_res).tocsr()
     opH = et.hybrid_from_scipy(A_hyb, min_fill=0.4, dtype=np.float64,
                                is_hermitian=True, device=dev)
     check(opH.banded.offsets == (-NP, -1, 0, 1, NP),
@@ -674,9 +779,86 @@ def main() -> int:
         f"stencil {NB}^3 two-pass m=20": {"fused_sweep": 42},
     })
 
+    # the variable-coefficient path (B3-var): 216^3 in both dtypes, and a
+    # 48^3 field small enough for scipy
+    rng5 = np.random.default_rng(SEED + 5)
+    bVnp = rng5.standard_normal(N3 ** 3)
+    bV = {dt: torch.as_tensor(bVnp, dtype=dt, device=dev) for dt in (f32, f64)}
+    del bVnp
+    opV48 = et.variable_diffusion_nd_stencil(
+        rng5.uniform(0.5, 2.0, (NV, NV, NV)), device=dev)
+    bV48np = rng5.standard_normal(NV ** 3)
+    bV48 = torch.as_tensor(bV48np, device=dev)
+    for dt in (f32, f64):
+        check(td.recurrence_engine(opV[dt], dt, device=dev, hermitian=True)
+              is tf.recurrence_apply_fused, "216^3 variable engine is B3-var")
+    var_calls = {}
+    cheb_tol = {f32: 1e-7, f64: 1e-12}
+    for dt in (f32, f64):
+        sfx = dname[dt][-2:]
+        var_calls[f"var cheb {sfx}"] = (
+            lambda dt=dt: et.expv_chebyshev(T3, opV[dt], bV[dt],
+                                            tol=cheb_tol[dt]))
+        var_calls[f"var two-pass m=20 {sfx}"] = (
+            lambda dt=dt: et.expv(T3, opV[dt], bV[dt], m=20, two_pass=True))
+        expect[f"var two-pass m=20 {sfx}"] = {"fused_sweep_var": 42}
+    var_calls[f"var{NV} cheb"] = lambda: et.expv_chebyshev(T3, opV48, bV48,
+                                                          tol=1e-12)
+    var_calls[f"var{NV} two-pass m=20"] = lambda: et.expv(T3, opV48, bV48,
+                                                         m=20, two_pass=True)
+    expect[f"var{NV} two-pass m=20"] = {"fused_sweep_var": 42}
+
+    def cheb_degree(op, tol):
+        lo_, hi_ = op.spectral_bounds_hint()
+        return len(tc._full_exp_coeffs(T3, lo_, hi_, tol, None)[0])
+
+    # Chebyshev: one sweep per degree plus sweep 0. The degree follows
+    # from the Gershgorin hint, which is the JAX package's number exactly;
+    # these degrees were measured on the card (NVIDIA H100 80GB HBM3,
+    # 700.00 W) and are held here
+    for name, op, tol, deg in (("var cheb 32", opV[f32], 1e-7, 7),
+                               ("var cheb 64", opV[f64], 1e-12, 10),
+                               (f"var{NV} cheb", opV48, 1e-12, 10)):
+        got = cheb_degree(op, tol)
+        print(f"main {name}: Gershgorin hint {op.spectral_bounds_hint()}, "
+              f"degree {got}", flush=True)
+        check(got == deg, f"{name} Chebyshev degree {got}, expected {deg}")
+        expect[name] = {"fused_sweep_var": deg + 1}
+
+    # the non-Hermitian path: config #1 (run_baseline.py:72-74) and config
+    # #4's operator (run_baseline.py:210-215), float64
+    rngc = np.random.default_rng(SEED)
+    A1np = rngc.standard_normal((100, 100)) / 10
+    b1cnp = rngc.standard_normal(100)
+    A1c = torch.as_tensor(A1np, device=dev)
+    b1c = torch.as_tensor(b1cnp, device=dev)
+    opA = et.advection_diffusion_1d(NA, peclet=10.0, device=dev)
+    bAnp = np.random.default_rng(SEED).standard_normal(NA)
+    bA = torch.as_tensor(bAnp, device=dev)
+    nh_calls = {
+        "config1 expm": lambda: et.expm(A1c),
+        "config1 expv m=40": lambda: et.expv(1.0, A1c, b1c, m=40),
+        f"config4 expv m={MA}": lambda: et.expv(TA, opA, bA, m=MA),
+        f"config4 phiv k=1 m={MA}": lambda: et.phiv(TA, opA, bA, 1, m=MA,
+                                                    errest=True),
+        f"config4 two-pass iop=2 m={MA}": lambda: et.expv(
+            TA, opA, bA, m=MA, iop=2, two_pass=True),
+        f"config4 iop=2 reorth=False m={MA}": lambda: et.expv(
+            TA, opA, bA, m=MA, iop=2, reorth=False),
+    }
+    expect.update({
+        "config1 expm": {},                 # dense: torch matmuls, no kernel
+        "config1 expv m=40": {},
+        f"config4 expv m={MA}": {"banded_spmv": MA},     # one B7 per matvec
+        f"config4 phiv k=1 m={MA}": {"banded_spmv": MA},
+        f"config4 two-pass iop=2 m={MA}": {"banded_spmv": 2 * MA},
+        f"config4 iop=2 reorth=False m={MA}": {"banded_spmv": MA},
+    })
+
     _build.reset_launch_counts()
     out = {}
-    for name, fn in {**calls, **phi_calls, **sparse_calls}.items():
+    for name, fn in {**calls, **phi_calls, **sparse_calls, **var_calls,
+                     **nh_calls}.items():
         before = dict(_build.launches)
         out[name] = fn()
         torch.cuda.synchronize()
@@ -697,6 +879,13 @@ def main() -> int:
         h = et.expv(T3 / 2, op3[dt], b3[dt], m=20, two_pass=True)
         half[f"3d two-pass m=20 {dname[dt][-2:]}"] = et.expv(
             T3 / 2, op3[dt], h, m=20, two_pass=True)
+        h = et.expv_chebyshev(T3 / 2, opV[dt], bV[dt], tol=cheb_tol[dt])
+        half[f"var cheb {dname[dt][-2:]}"] = et.expv_chebyshev(
+            T3 / 2, opV[dt], h, tol=cheb_tol[dt])
+        h = et.expv(T3 / 2, opV[dt], bV[dt], m=20, two_pass=True)
+        half[f"var two-pass m=20 {dname[dt][-2:]}"] = et.expv(
+            T3 / 2, opV[dt], h, m=20, two_pass=True)
+        del h
     torch.cuda.synchronize()
     main_counts = dict(_build.launches)
     for k, v in main_counts.items():
@@ -818,7 +1007,75 @@ def main() -> int:
                  out[f"blockell {NB}^3 two-pass m=20"],
                  out[f"stencil {NB}^3 two-pass m=20"],
                  "(B8) vs the stencil two-pass (B3)")
-    del out, W, W30, U, base
+
+    # the variable path: semigroup, cross-method, and scipy at 48^3
+    for name in var_calls:
+        w = out[name]
+        check(w.shape == (w.shape[0],) and bool(torch.isfinite(w).all()),
+              f"{name} shape/finite")
+        if name in half:
+            dn = "float64" if name.endswith("64") else "float32"
+            e = rel_norm(half[name], w)
+            check(e <= MTOL_VAR[dn], f"{name} semigroup {e:.2e}")
+            print(f"check {name}: semigroup exp(tA)b vs exp(t/2 A)^2 b "
+                  f"{e:.2e} (tol {MTOL_VAR[dn]:g})", flush=True)
+    for sfx, dn in (("32", "float32"), ("64", "float64")):
+        e = rel_norm(out[f"var cheb {sfx}"], out[f"var two-pass m=20 {sfx}"])
+        check(e <= MTOL_VAR[dn], f"var cross-method {dn} {e:.2e}")
+        print(f"check var {dn}: Chebyshev vs two-pass {e:.2e} "
+              f"(tol {MTOL_VAR[dn]:g})", flush=True)
+    t0 = time.perf_counter()
+    ref_v = torch.as_tensor(spla.expm_multiply(
+        T3 * banded_csr(opV48.to_banded()), bV48np), device=dev)
+    print(f"scipy expm_multiply at {NV}^3: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for name in (f"var{NV} cheb", f"var{NV} two-pass m=20"):
+        e = rel_norm(out[name], ref_v)
+        check(e <= MTOL_VAR["float64"], f"{name} vs scipy {e:.2e}")
+        print(f"check {name}: vs scipy expm_multiply {e:.2e} "
+              f"(tol {MTOL_VAR['float64']:g})", flush=True)
+
+    # the non-Hermitian path against scipy's dense exponentials
+    import scipy.linalg as sla
+
+    t0 = time.perf_counter()
+    E1 = sla.expm(A1np)
+    Ad = banded_csr(opA).toarray()
+    aug = np.zeros((NA + 1, NA + 1))        # run_baseline.py:239-243
+    aug[:NA, :NA] = TA * Ad
+    aug[:NA, NA] = TA * 0.1 * bAnp
+    F2 = sla.expm(aug)
+    ref_e = F2[:NA, :NA] @ bAnp             # exp(tA) b
+    ref_p = ref_e + F2[:NA, NA]             # exp(tA) b + t phi_1(tA) 0.1 b
+    print(f"scipy dense expm (100 and {NA + 1}): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def check_nh(name, got, want, tol=MTOL_NONHERM):
+        got = got.cpu()
+        want = torch.as_tensor(want)
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"{name} shape/finite")
+        e = rel_norm(got, want)
+        check(e <= tol, f"{name} {e:.2e}")
+        print(f"check {name}: {e:.2e} (tol {tol:g})", flush=True)
+
+    check_nh("config1 expm vs scipy expm", out["config1 expm"], E1)
+    check_nh("config1 expv m=40 vs scipy expm(A) b", out["config1 expv m=40"],
+             E1 @ b1cnp)
+    check_nh(f"config4 expv m={MA} vs the dense oracle",
+             out[f"config4 expv m={MA}"], ref_e)
+    W4, err4 = out[f"config4 phiv k=1 m={MA}"]
+    check_nh(f"config4 phiv k=1 m={MA}: phi_0 b + t phi_1 (0.1 b) vs the "
+             "dense oracle", W4[:, 0] + TA * 0.1 * W4[:, 1], ref_p)
+    check(bool(torch.isfinite(err4)) and float(err4) < 1e-8,
+          f"config4 phiv error estimate {float(err4):.2e}")
+    print(f"check config4 phiv error estimate: {float(err4):.2e}", flush=True)
+    check_nh(f"config4 two-pass iop=2 m={MA} vs expv(iop=2, reorth=False)",
+             out[f"config4 two-pass iop=2 m={MA}"],
+             out[f"config4 iop=2 reorth=False m={MA}"].cpu(), MTOL_IOP)
+    check_nh(f"config4 two-pass iop=2 m={MA} vs the dense oracle",
+             out[f"config4 two-pass iop=2 m={MA}"], ref_e)
+    del out, W, W30, U, base, half, W4, F2, aug, Ad
 
     # the kernel-driving passes make no host syncs
     lo, hi = op3[f64].spectral_bounds_hint()
@@ -829,6 +1086,9 @@ def main() -> int:
     c1 = torch.as_tensor(full1, dtype=f64, device=dev)
     a3, bt3, beta3, _, _ = tf.lanczos_coeffs_fused(op3[f64], b3[f64], 20)
     coef3 = tx._lanczos_reduced_coeffs(a3, bt3, beta3, T3)
+    loV, hiV = opV[f64].spectral_bounds_hint()
+    cV = torch.as_tensor(tc._full_exp_coeffs(T3, loV, hiV, 1e-12, None)[0],
+                         dtype=f64, device=dev)
 
     def cheb_rows(op, t, dt=f64):
         lo_, hi_ = op.spectral_bounds_hint()
@@ -849,6 +1109,8 @@ def main() -> int:
                                                        0.5 * (hi1 - lo1), f64))
         tf.lanczos_coeffs_fused(op3[f64], b3[f64], 20)
         tf.lanczos_replay_fused(op3[f64], b3[f64], coef3)
+        et.chebyshev_apply(opV[f64], bV[f64], cV, (loV, hiV))   # B3-var
+        tf.lanczos_coeffs_fused(opV[f64], bV[f64], 20)
         tr.recurrence_apply_resident_multi(op1[f64], b1[f64], rows1, cw1)
         tr.recurrence_apply_resident_banded(opP, bP, rowsP)
         tr.recurrence_apply_resident_grid(opG, bG, rowsG)
@@ -861,8 +1123,9 @@ def main() -> int:
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    print("sync-free: Chebyshev applies (1-D, 3-D), resident pass 1 and "
-          "recurrence, fused pass 1 and replay, the B4, B5 and B6 "
+    print("sync-free: Chebyshev applies (1-D, 3-D, 3-D variable), "
+          "resident pass 1 and recurrence, fused pass 1 (constant and "
+          "variable) and replay, the B4, B5 and B6 "
           "applies, and the B7-B10 matvecs of the sparse containers ran "
           "under sync debug mode 'error'", flush=True)
     phase_done("4 main")
@@ -930,12 +1193,17 @@ def main() -> int:
                 "sell expv_chebyshev": sparse_calls["sell expv_chebyshev"],
                 "sell spectral_bounds": lambda: tc.spectral_bounds(opS),
                 f"blockell {NB}^3 two-pass m=20":
-                    sparse_calls[f"blockell {NB}^3 two-pass m=20"]}.items():
+                    sparse_calls[f"blockell {NB}^3 two-pass m=20"],
+                **{k: var_calls[k] for k in ("var cheb 64",
+                                             "var two-pass m=20 64")},
+                **nh_calls}.items():
             device_profile(name, fn)
         phase_done("5 profile")
         return 0
 
     times = {}
+    work = {}           # (bytes, operations) each timed call needs
+    lib_ms = {}         # the one PyTorch call of the same function
     for dt in (f32, f64):
         dn = dname[dt]
         rows = td.chebyshev_rows(
@@ -950,23 +1218,44 @@ def main() -> int:
         Z, Vc, Vp = b3[dt], vec(n3, dt), vec(n3, dt)
         W = torch.zeros(n3, dtype=dt, device=dev)
         co = torch.tensor([0.3, -0.7, 0.2, 0.0], dtype=dt, device=dev)
+        isz = torch.empty((), dtype=dt).element_size()
+        k1, kV = len(op1[dt].offsets), len(opV[dt].offsets)
         cases = {
             "resident_recurrence": (
                 lambda: tr.resident_recurrence(op1[dt], x, rows, 1.0),
                 lambda: tr.resident_recurrence_ref(x, rows, op1[dt].coeffs,
                                                    offs, sc),
-                f"n={N1}, m={rows.shape[0]} Chebyshev rows"),
+                f"n={N1}, m={rows.shape[0]} Chebyshev rows",
+                # x and the rows in, w and sum w^2 out; per step and cell a
+                # k-point stencil, the 3-term update and the accumulation
+                ((2 * N1 + 4 * rows.shape[0] + 1) * isz,
+                 rows.shape[0] * N1 * (2 * k1 + 6) + 2 * N1)),
             "resident_lanczos": (
                 lambda: tr.resident_lanczos(op1[dt], v0, 40, 1e-7),
                 lambda: tr.resident_lanczos_ref(v0, op1[dt].coeffs, offs, 40,
                                                 1e-7),
-                f"n={N1}, m=40"),
+                f"n={N1}, m=40",
+                # v0 in, (alpha, beta) out; per step and cell the stencil,
+                # two dots, the update and the normalization
+                ((N1 + 2 * 40) * isz, 40 * N1 * (2 * k1 + 8))),
             "fused_sweep": (
                 lambda: tf.fused_lanczos_step(Z, Vc, Vp, co, op3[dt],
                                               w_accum=W),
                 lambda: tf.fused_sweep_ref(Z, Vc, Vp, co, op3[dt].grid_shape,
                                            op3[dt].offsets, op3[dt].coeffs, W),
-                "216^3, accumulating sweep"),
+                "216^3, accumulating sweep",
+                # Z, Vc, Vp, W in, Y, Zn, W out; y, the stencil, the two
+                # moments and W += cw Vc per cell
+                (7 * n3 * isz, n3 * (2 * 7 + 10))),
+            "fused_sweep_var": (
+                lambda: tf.fused_lanczos_step(Z, Vc, Vp, co, opV[dt],
+                                              w_accum=W),
+                lambda: tf.fused_sweep_ref(Z, Vc, Vp, co, opV[dt].grid_shape,
+                                           opV[dt].offsets,
+                                           opV[dt].coeff_fields, W),
+                "216^3 div(a grad u), accumulating sweep",
+                # the 7 fields on top of B3's streams
+                ((7 + kV) * n3 * isz, n3 * (2 * kV + 10))),
         }
         # the new kernels at their main-path shapes and rows
         rm = cheb_rows(op1[dt], T1, dt)
@@ -983,19 +1272,28 @@ def main() -> int:
                                                            cwm),
                 lambda: tr.resident_multi_ref(x, rm, cwm, op1[dt].coeffs,
                                               offs),
-                f"n={N1}, p=4, m={rm.shape[0]} Chebyshev rows"),
+                f"n={N1}, p=4, m={rm.shape[0]} Chebyshev rows",
+                ((N1 + 8 * rm.shape[0] + 4 * N1) * isz,
+                 rm.shape[0] * N1 * (2 * k1 + 4 + 2 * 4))),
             "resident_banded": (
                 lambda: tr.recurrence_apply_resident_banded(opPd, bPd, rP),
                 lambda: tr.resident_banded_ref(bPd, rP, opPd.diags,
                                                opPd.offsets),
-                f"poisson_2d({NP}, {NP}), m={rP.shape[0]} Chebyshev rows"),
+                f"poisson_2d({NP}, {NP}), m={rP.shape[0]} Chebyshev rows",
+                # the diagonals count once, though the kernel streams them
+                # every step once they exceed L2
+                ((opPd.diags.numel() + 2 * NP * NP + 4 * rP.shape[0]) * isz,
+                 rP.shape[0] * NP * NP * (2 * len(opPd.offsets) + 6))),
             "resident_grid": (
                 lambda: tr.recurrence_apply_resident_grid(opGd, bGd, rG),
                 lambda: tr.resident_grid_ref(bGd, rG, opGd.grid_shape,
                                              opGd.offsets, opGd.coeffs),
-                f"{NG}^2 5-point, m={rG.shape[0]} Chebyshev rows"),
+                f"{NG}^2 5-point, m={rG.shape[0]} Chebyshev rows",
+                ((2 * NG * NG + 4 * rG.shape[0]) * isz,
+                 rG.shape[0] * NG * NG * (2 * len(opGd.offsets) + 6))),
         })
-        for name, (kfn, pfn, shape) in cases.items():
+        for name, (kfn, pfn, shape, wk) in cases.items():
+            work[(name, dn)] = wk
             # plain, kernel, kernel, plain: compare within one call
             p1 = median_ms(pfn)
             k1 = median_ms(kfn)
@@ -1027,38 +1325,91 @@ def main() -> int:
         del Z, Vc, Vp, W
 
     # B7-B10 at the main paths' shapes, plain, kernel, kernel, plain
-    def pair_times(name, dn, kfn, pfn, shape):
+    def pair_times(name, dn, kfn, pfn, shape, wk=None, lib=None):
         p1, k1, k2, p2 = (median_ms(f) for f in (pfn, kfn, kfn, pfn))
         times[(name, dn)] = (statistics.median([k1, k2]),
                              statistics.median([p1, p2]))
-        print(f"time {name} {dn} ({shape}): kernel {k1:.4f} / {k2:.4f} ms,"
-              f" plain {p1:.4f} / {p2:.4f} ms {card}", flush=True)
+        if wk is not None:
+            work[(name, dn)] = wk
+        line = (f"time {name} {dn} ({shape}): kernel {k1:.4f} / {k2:.4f} ms,"
+                f" plain {p1:.4f} / {p2:.4f} ms")
+        if lib is not None:
+            what, make = lib
+            try:
+                fn = make()
+                lib_ms[(name, dn)] = median_ms(fn)
+                line += f", {what} {lib_ms[(name, dn)]:.4f} ms"
+            except (RuntimeError, NotImplementedError) as exc:
+                line += f", {what} does not run here ({exc.__class__.__name__}"
+                line += f": {str(exc).splitlines()[0][:80]})"
+        print(f"{line} {card}", flush=True)
         return times[(name, dn)]
+
+    def csr_tensor(A, dt):
+        """A scipy matrix as a torch CSR tensor on the card."""
+        A = A.tocsr()
+        return torch.sparse_csr_tensor(
+            torch.as_tensor(A.indptr, dtype=torch.int64, device=dev),
+            torch.as_tensor(A.indices, dtype=torch.int64, device=dev),
+            torch.as_tensor(A.data, dtype=dt, device=dev), A.shape)
+
+    A_sell_rcm = A_sell[opS.perm][:, opS.perm].tocsr()
+    bsr = laplacian_3d_csr(NB).tobsr(blocksize=(8, 8))
 
     for dt in (f32, f64):
         dn = dname[dt]
         opPd = et.poisson_2d(NP, NP, dtype=dt, device=dev)
         xP = bP.to(dt)
+        isz = torch.empty((), dtype=dt).element_size()
+        nP = NP * NP
         pair_times("banded_spmv", dn,
                    lambda: tsp.banded_spmv(opPd.diags, opPd.offsets, xP),
                    lambda: tsp.banded_spmv_ref(opPd.diags, opPd.offsets, xP),
-                   f"poisson_2d({NP}, {NP})")
+                   f"poisson_2d({NP}, {NP})",
+                   ((opPd.diags.numel() + 2 * nP) * isz,
+                    2 * opPd.diags.numel()),
+                   ("CSR A @ x", lambda: (lambda A: lambda: A @ xP)(
+                       csr_tensor(banded_csr(opPd), dt))))
         blocks, xB = opB3.blocks.to(dt), bB.to(dt)
         pair_times("blockell_spmv", dn,
                    lambda: tsp.blockell_spmv(blocks, opB3.bcols, xB),
                    lambda: tsp.blockell_spmv_ref(blocks, opB3.bcols, xB),
-                   f"{NB}^3 7-point, 8x8 blocks, w={blocks.shape[1]}")
+                   f"{NB}^3 7-point, 8x8 blocks, w={blocks.shape[1]}",
+                   (blocks.numel() * isz
+                    + opB3.bcols.numel() * opB3.bcols.element_size()
+                    + 2 * NB ** 3 * isz, 2 * blocks.numel()),
+                   ("torch.sparse_bsr_tensor @ x", lambda: (
+                       lambda A: lambda: A @ xB[:, None])(
+                           torch.sparse_bsr_tensor(
+                               torch.as_tensor(bsr.indptr, dtype=torch.int64,
+                                               device=dev),
+                               torch.as_tensor(bsr.indices,
+                                               dtype=torch.int64, device=dev),
+                               torch.as_tensor(bsr.data, dtype=dt,
+                                               device=dev), bsr.shape))))
         del blocks
         dS, xS = opS.data.to(dtype=dt), bS.to(dt)
+        # the nonzeros with their column indices and x, y: what any
+        # layout of this matrix must move (the SELL padding is not data)
         pair_times("sell_spmv", dn, lambda: ts.sell_spmv(dS, xS),
                    lambda: ts.sell_spmv_ref(dS, xS),
                    f"symmetrized bench_sell n=1e6 after RCM, {dS.nnz} nnz, "
-                   f"{dS.vals.numel()} slots")
+                   f"{dS.vals.numel()} slots",
+                   (dS.nnz * (isz + 4) + 2 * NS * isz, 2 * dS.nnz),
+                   ("CSR A @ x", lambda: (lambda A: lambda: A @ xS)(
+                       csr_tensor(A_sell_rcm, dt))))
         dC, xC = sc_ops["seg"].data.to(dtype=dt), bC.to(dt)
         pC = ts.sell_spmv(dC.base, xC)
         pair_times("seg_compact", dn, lambda: ts.seg_compact(pC, dC.seg_ptr),
                    lambda: ts.seg_compact_ref(pC, dC.seg_ptr),
-                   f"symmetrized scattered n=1e6, L=16, {dC.base.n} segments")
+                   f"symmetrized scattered n=1e6, L=16, {dC.base.n} segments",
+                   (pC.numel() * isz
+                    + dC.seg_ptr.numel() * dC.seg_ptr.element_size()
+                    + NS * isz, pC.numel()),
+                   ("torch.segment_reduce(sum)", lambda: (
+                       lambda off: lambda: torch.segment_reduce(
+                           pC, "sum", offsets=off, initial=0))(
+                               dC.seg_ptr.to(torch.int64))))
         del dS, dC, pC
 
     # B9 at benchmarks/bench_sell.py's timing shape, with its rates
@@ -1086,9 +1437,9 @@ def main() -> int:
               f"{d.nnz / t / 1e9:.2f} Gnnz/s {card}", flush=True)
     del d7, d, x
 
-    def plain_op(op, fn):
+    def plain_op(op, fn, is_hermitian=True):
         return et.MatrixFreeOperator(fn, op.shape, dtype=f64,
-                                     is_hermitian=True, device=dev)
+                                     is_hermitian=is_hermitian, device=dev)
 
     plain_calls = {
         "1d cheb f32": lambda: et.expv_chebyshev(T1, op1[f32], b1[f32],
@@ -1140,7 +1491,31 @@ def main() -> int:
         f"blockell {NB}^3 two-pass m=20": lambda: et.expv(
             T3, pB, bB, m=20, two_pass=True),
     })
-    for name, fn in {**calls, **phi_calls, **sparse_calls}.items():
+    # the variable path on the plain passes, config #4 on B7's twin
+    for dt in (f32, f64):
+        sfx = dname[dt][-2:]
+        plain_calls[f"var cheb {sfx}"] = (
+            lambda dt=dt: et.expv_chebyshev(T3, opV[dt], bV[dt],
+                                            tol=cheb_tol[dt], fused=False))
+        plain_calls[f"var two-pass m=20 {sfx}"] = (
+            lambda dt=dt: tx._expv_two_pass(opV[dt], bV[dt], T3, 20))
+    pA = plain_op(opA, lambda v: tsp.banded_spmv_ref(opA.diags, opA.offsets,
+                                                     v), is_hermitian=False)
+    plain_calls.update({
+        f"var{NV} cheb": lambda: et.expv_chebyshev(T3, opV48, bV48, tol=1e-12,
+                                                   fused=False),
+        f"var{NV} two-pass m=20": lambda: tx._expv_two_pass(opV48, bV48, T3,
+                                                           20),
+        f"config4 expv m={MA}": lambda: et.expv(TA, pA, bA, m=MA),
+        f"config4 phiv k=1 m={MA}": lambda: et.phiv(TA, pA, bA, 1, m=MA,
+                                                    errest=True),
+        f"config4 two-pass iop=2 m={MA}": lambda: et.expv(
+            TA, pA, bA, m=MA, iop=2, two_pass=True),
+        f"config4 iop=2 reorth=False m={MA}": lambda: et.expv(
+            TA, pA, bA, m=MA, iop=2, reorth=False),
+    })
+    for name, fn in {**calls, **phi_calls, **sparse_calls, **var_calls,
+                     **nh_calls}.items():
         k = median_ms(fn)
         line = f"time main {name}: {k:.3f} ms"
         if name in plain_calls:
@@ -1152,11 +1527,19 @@ def main() -> int:
     kernels = []
     for name in REPLACES:
         ms, plain_ms = times[(name, "float64")]
+        bound_ms, bound_by = bound(*work[(name, "float64")], "float64")
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
                         "replaces": REPLACES[name],
                         "launches": main_counts[name],
                         "max_abs_err": kerr[name], "ms": ms,
-                        "plain_ms": plain_ms})
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by,
+                        "library_ms": lib_ms.get((name, "float64"))})
+        print(f"bound {name} float64: {bound_ms:.4f} ms by {bound_by} "
+              f"({work[(name, 'float64')][0] / 1e6:.1f} MB, "
+              f"{work[(name, 'float64')][1] / 1e6:.1f} Mflop); kernel "
+              f"{ms:.4f} ms = {bound_ms / ms:.1%} of the bound {card}",
+              flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

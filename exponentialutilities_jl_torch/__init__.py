@@ -1,21 +1,32 @@
 """exponentialutilities_jl_torch: the PyTorch/CUDA port of
 ``exponentialutilities_jl_tpu``.
 
-This slice runs the Hermitian exp(tA)b and phi-function actions: the
-operator containers (stencils, diagonal storage, ELL, block-ELL, and the
-SELL-C-sigma containers for unstructured matrices from scipy), Lanczos,
-the dense exponential and phi functions that the Krylov path reduces to,
-the Chebyshev and Krylov (happy-breakdown and storage-free two-pass)
-actions, and ten hand-written CUDA kernels for NVIDIA Hopper
-(``ops/kernels/csrc/``): six that carry the recurrences and four SpMV
-kernels behind the sparse containers' matvecs. The JAX package is the
-reference; each public name here mirrors its counterpart there.
+The port runs the exp(tA)b and phi-function actions: the operator
+containers (constant and variable-coefficient stencils, diagonal storage,
+ELL, block-ELL, and the SELL-C-sigma containers for unstructured matrices
+from scipy), Lanczos and Arnoldi (full or IOP window, storage-free
+two-pass forms), the dense exponential and phi functions that the Krylov
+path reduces to, the Chebyshev and Krylov (happy-breakdown, error-estimate
+and storage-free two-pass) actions, and eleven hand-written CUDA kernels
+for NVIDIA Hopper (``ops/kernels/csrc/``): seven that carry the
+recurrences (B3-var the variable-coefficient sweep) and four SpMV kernels
+behind the sparse containers' matvecs. The JAX package is the reference;
+each public name here mirrors its counterpart there.
+
+Host data (numpy, lists, scipy matrices) given to a constructor or an
+action goes to the default device, ``cuda`` unless changed with
+``set_default_device``; without a GPU that raises until the caller asks for
+the CPU (``device="cpu"`` or ``set_default_device("cpu")``).
 
 Public API
 
+Devices          set_default_device, default_device
 Operators        LinearOperator, DenseOperator, DiagonalOperator,
                  MatrixFreeOperator, NegatedOperator, aslinearoperator,
-                 BandedOperator, StencilOperator, laplacian_nd_stencil
+                 BandedOperator, StencilOperator, VariableStencilOperator,
+                 laplacian_nd_stencil, variable_diffusion_nd_stencil,
+                 advection_diffusion_3d_stencil,
+                 advection_diffusion_1d_stencil
 Sparse           SparseELLOperator, BlockELLOperator, SellOperator,
                  SortedSellOperator, HybridOperator, ell_from_scipy,
                  blockell_from_scipy, banded_from_scipy, hybrid_from_scipy,
@@ -24,8 +35,10 @@ Test matrices    laplacian_1d, poisson_2d, laplacian_3d,
                  advection_diffusion_1d
 Transfer         operator_data, from_operator_data, to_torch_operator
 Dense            expm, expm_higham2005, expm_taylor, phi_scalar, phiv_dense
-Krylov           KrylovBasis, lanczos, lanczos_coeffs, lanczos_replay
-Actions          expv, expv_from_basis, build_subspace, phiv,
+Krylov           KrylovBasis, lanczos, lanczos_coeffs, lanczos_replay,
+                 arnoldi, arnoldi_extend, arnoldi_coeffs, arnoldi_replay,
+                 expand_compact_hessenberg
+Actions          expv, expv_from_basis, build_subspace, make_expv, phiv,
                  phiv_from_basis, make_phiv, expv_chebyshev,
                  phiv_chebyshev, funm_chebyshev, phiv_timestep_chebyshev,
                  chebyshev_apply, spectral_bounds
@@ -34,26 +47,35 @@ Actions          expv, expv_from_basis, build_subspace, phiv,
 from .models.chebyshev import (chebyshev_apply, expv_chebyshev, funm_chebyshev,
                                phiv_chebyshev, phiv_timestep_chebyshev,
                                spectral_bounds)
-from .models.expv import build_subspace, expv, expv_from_basis
+from .models.expv import build_subspace, expv, expv_from_basis, make_expv
 from .models.phiv import make_phiv, phiv, phiv_from_basis
 from .ops.expm import expm, expm_higham2005, expm_taylor
-from .ops.krylov import KrylovBasis, lanczos, lanczos_coeffs, lanczos_replay
+from .ops.krylov import (KrylovBasis, arnoldi, arnoldi_coeffs, arnoldi_extend,
+                         arnoldi_replay, expand_compact_hessenberg, lanczos,
+                         lanczos_coeffs, lanczos_replay)
 from .ops.phi_dense import phi_scalar, phiv_dense
 from .ops.sparse import (BandedOperator, BlockELLOperator, HybridOperator,
                          SellOperator, SortedSellOperator, SparseELLOperator,
                          banded_from_scipy, blockell_from_scipy,
                          ell_from_scipy, hoist_conjugation, hybrid_from_scipy)
-from .ops.stencil import StencilOperator, laplacian_nd_stencil
+from .ops.stencil import (StencilOperator, VariableStencilOperator,
+                          advection_diffusion_1d_stencil,
+                          advection_diffusion_3d_stencil,
+                          laplacian_nd_stencil, variable_diffusion_nd_stencil)
 from .utils.convert import from_operator_data, operator_data, to_torch_operator
+from .utils.device import default_device, set_default_device
 from .utils.linop import (DenseOperator, DiagonalOperator, LinearOperator,
                           MatrixFreeOperator, NegatedOperator, aslinearoperator)
 from .utils.testmatrices import (advection_diffusion_1d, laplacian_1d,
                                  laplacian_3d, poisson_2d)
 
 __all__ = [
+    "set_default_device", "default_device",
     "LinearOperator", "DenseOperator", "DiagonalOperator",
     "MatrixFreeOperator", "NegatedOperator", "aslinearoperator",
-    "BandedOperator", "StencilOperator", "laplacian_nd_stencil",
+    "BandedOperator", "StencilOperator", "VariableStencilOperator",
+    "laplacian_nd_stencil", "variable_diffusion_nd_stencil",
+    "advection_diffusion_3d_stencil", "advection_diffusion_1d_stencil",
     "SparseELLOperator", "BlockELLOperator", "SellOperator",
     "SortedSellOperator", "HybridOperator", "ell_from_scipy",
     "blockell_from_scipy", "banded_from_scipy", "hybrid_from_scipy",
@@ -62,7 +84,9 @@ __all__ = [
     "operator_data", "from_operator_data", "to_torch_operator",
     "expm", "expm_higham2005", "expm_taylor", "phi_scalar", "phiv_dense",
     "KrylovBasis", "lanczos", "lanczos_coeffs", "lanczos_replay",
-    "expv", "expv_from_basis", "build_subspace",
+    "arnoldi", "arnoldi_extend", "arnoldi_coeffs", "arnoldi_replay",
+    "expand_compact_hessenberg",
+    "expv", "expv_from_basis", "build_subspace", "make_expv",
     "phiv", "phiv_from_basis", "make_phiv",
     "expv_chebyshev", "phiv_chebyshev", "funm_chebyshev",
     "phiv_timestep_chebyshev", "chebyshev_apply", "spectral_bounds",

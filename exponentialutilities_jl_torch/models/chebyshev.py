@@ -35,6 +35,7 @@ import torch
 from ..ops.kernels.dispatch import (chebyshev_rows, recurrence_engine,
                                     resident_multi_ok)
 from ..ops.sparse import hoist_conjugation
+from ..utils.device import action_vector
 from ..utils.linop import aslinearoperator
 from ..utils.precision import full_precision
 
@@ -264,6 +265,7 @@ def chebyshev_apply(A, b, ucoeffs, bounds, *, fused: bool | None = None):
     from ..ops.kernels.resident import recurrence_apply_resident_multi
 
     op = aslinearoperator(A)
+    b = action_vector(b, op)
     op, b, post = hoist_conjugation(op, b)
     if post is not None:
         # sorted-conjugated container: the whole U_k recurrence runs in
@@ -330,7 +332,7 @@ def expv_chebyshev(t, A, b, *, bounds=None, m: int | None = None,
     if not op.is_hermitian:
         raise ValueError("expv_chebyshev requires a Hermitian operator "
                          "(use expv for general A)")
-    b = torch.as_tensor(b)
+    b = action_vector(b, op)
     lo, hi = _resolve_bounds(op, bounds)
     if hi - lo <= 0:                           # A = cI exactly
         tc = complex(t) if np.iscomplexobj(np.asarray(t)) else float(t)
@@ -365,7 +367,7 @@ def phiv_chebyshev(t, A, b, k: int, *, bounds=None, m: int | None = None,
     one more coefficient column of the same recurrence (one launch of B4
     on a 1-D stencil). ``fused`` as in ``chebyshev_apply``."""
     op = _hermitian_op(A, "phiv_chebyshev")
-    b = torch.as_tensor(b)
+    b = action_vector(b, op)
     lo, hi = _resolve_bounds(op, bounds)
     tc = complex(t) if np.iscomplexobj(np.asarray(t)) else float(t)
     c = 0.5 * (hi + lo)
@@ -388,7 +390,7 @@ def funm_chebyshev(f, A, b, *, bounds=None, m: int | None = None,
     callable, evaluated on the host at Chebyshev points of the spectral
     interval); the device work is the recurrence of ``expv_chebyshev``."""
     op = _hermitian_op(A, "funm_chebyshev")
-    b = torch.as_tensor(b)
+    b = action_vector(b, op)
     lo, hi = _resolve_bounds(op, bounds)
     c = 0.5 * (hi + lo)
     h = 0.5 * (hi - lo)
@@ -432,7 +434,7 @@ def phiv_timestep_chebyshev(ts, A, B, *, bounds=None, tol: float = 1e-7,
     (all snapshots share its chain); ``fused=False`` forbids that.
     """
     op = _hermitian_op(A, "phiv_timestep_chebyshev")
-    B = torch.as_tensor(B)
+    B = action_vector(B, op)
     if B.ndim == 1:
         B = B[:, None]
     p = B.shape[1] - 1

@@ -1,64 +1,83 @@
-"""Krylov exponential action ``expv(t, A, b) ~ exp(tA) b`` for Hermitian
-operators (PyTorch port of the Hermitian paths of
-``exponentialutilities_jl_tpu/models/expv.py``).
+"""Krylov exponential action ``expv(t, A, b) ~ exp(tA) b`` (PyTorch port
+of ``exponentialutilities_jl_tpu/models/expv.py``).
 
-* ``mode="happy_breakdown"``: a Lanczos basis, then the reduced
-  tridiagonal exponential by ``torch.linalg.eigh`` and the (m, n)
+* ``mode="happy_breakdown"``: a Lanczos basis for Hermitian operators, an
+  Arnoldi basis (full or IOP window, CGS2 with ``reorth``) otherwise, then
+  the reduced exponential: ``torch.linalg.eigh`` of the masked tridiagonal,
+  or the degree-13 Pade ``expm_higham2005`` of t H_m, and the (m, n)
   combination w = beta V^T exp(tH) e1.
-* ``two_pass=True``: storage-free two-pass Lanczos. Pass 1 records
-  (alpha, beta), the reduced eigh gives the combination coefficients,
-  pass 2 regenerates the basis and accumulates w, in O(n) memory. On a
-  CUDA device with real float32/float64 data and real t, a 1-D constant
-  stencil runs both passes in the resident kernels (B2 then B1, one
-  launch each) and a 2-D/3-D box stencil in fused sweeps (B3); everything
-  else, and complex t on any device, takes the plain torch passes.
+* ``two_pass=True``: storage-free two passes in O(n) memory. Hermitian:
+  pass 1 records (alpha, beta), the reduced eigh gives the combination
+  coefficients, pass 2 regenerates the basis and accumulates w. On a CUDA
+  device with real float32/float64 data and real t, a 1-D constant
+  stencil runs both passes in the resident kernels (B2 then B1, one launch
+  each) and a 2-D/3-D box stencil, constant or variable-coefficient, in
+  fused sweeps (B3, B3-var); everything else, and complex t on any device,
+  takes the plain torch passes. Non-Hermitian: IOP Arnoldi over a rolling
+  window (``iop > 0`` required), the same recurrence as
+  ``expv(iop=win, reorth=False)``.
+* ``mode="error_estimate"``: Hermitian Lanczos stopped by Saad's Er2
+  estimate (``_expv_error_estimate``).
 
 A ``SortedSellOperator`` is unwrapped on entry (``hoist_conjugation``):
 the solve runs on its inner operator in the sorted basis, with one
-permutation of b in and one of the result out.
+permutation of b in and one of the result out. A numpy ``b`` goes to the
+operator's device.
 
-Breakdown is masked, not truncated: trailing alpha/beta are zero, which
-makes the reduced matrix block-diagonal so exp(tT) e1 is exact for the
-effective dimension.
+Breakdown is masked, not truncated: trailing basis rows and H entries are
+zero, which makes the reduced matrix block-triangular, so exp(tH) e1 is
+exact for the effective dimension.
 
-Not ported yet, and raising NotImplementedError: non-Hermitian operators
-(Arnoldi, ROADMAP A5), ``mode="error_estimate"`` and ``reduced="host"``
-(ROADMAP A6).
+Not ported yet, and raising NotImplementedError: ``reduced="host"`` and
+``differentiable=True`` (ROADMAP A6), ``expv_batched`` (A4).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..ops.expm import expm_higham2005
 from ..ops.kernels.dispatch import kernel_device_ok
-from ..ops.krylov import KrylovBasis, lanczos
+from ..ops.krylov import (KrylovBasis, arnoldi, arnoldi_coeffs, arnoldi_replay,
+                          expand_compact_hessenberg, lanczos, lanczos_coeffs,
+                          lanczos_replay)
 from ..ops.sparse import hoist_conjugation
+from ..utils.device import action_vector
 from ..utils.linop import LinearOperator, aslinearoperator
 from ..utils.precision import full_precision
 
-__all__ = ["expv", "expv_from_basis", "build_subspace"]
+__all__ = ["expv", "expv_from_basis", "build_subspace", "make_expv"]
 
 
 def build_subspace(op: LinearOperator, b, m: int, *, tol: float = 1e-7,
+                   iop: int = 0, reorth: bool = True,
                    hermitian: bool | None = None) -> KrylovBasis:
-    """Lanczos factorization of a Hermitian operator."""
+    """Lanczos factorization of a Hermitian operator, Arnoldi of any
+    other (the reference's auto-switch on ``ishermitian``)."""
     herm = op.is_hermitian if hermitian is None else hermitian
-    if not herm:
-        raise NotImplementedError(
-            "non-Hermitian operators need Arnoldi, not ported yet "
-            "(ROADMAP A5)")
-    return lanczos(op, b, m, tol=tol)
+    if herm:
+        return lanczos(op, b, m, tol=tol)
+    return arnoldi(op, b, m, iop=iop, tol=tol, reorth=reorth)
+
+
+def _t_dtype(t):
+    return torch.as_tensor(t).dtype
 
 
 def _exp_reduced_e1(Ks: KrylovBasis, t):
-    """First column of exp(t H_m) for the masked reduced tridiagonal, (m,):
-    eigh of H_m. The masked trailing zero block is block-diagonal; its
-    eigenvectors have zero first component, so e1 excites only the
-    effective leading block."""
+    """First column of exp(t H_m) for the masked reduced matrix, (m,).
+    Hermitian (real tridiagonal): eigh of H_m; the masked trailing zero
+    block is block-diagonal, its eigenvectors have zero first component,
+    so e1 excites only the effective leading block. Otherwise
+    ``expm_higham2005(t H_m)[:, 0]``."""
     m = Ks.m
-    w, Q = torch.linalg.eigh(Ks.H[:m, :m])
-    cdt = torch.promote_types(Q.dtype, torch.as_tensor(t).dtype)
-    return Q.to(cdt) @ (torch.exp(t * w) * Q[0, :].to(cdt))
+    Hm = Ks.H[:m, :m]
+    if Ks.hermitian and not Hm.is_complex():
+        w, Q = torch.linalg.eigh(Hm)
+        cdt = torch.promote_types(Q.dtype, _t_dtype(t))
+        return Q.to(cdt) @ (torch.exp(t * w) * Q[0, :].to(cdt))
+    return expm_higham2005(
+        t * Hm.to(torch.promote_types(Hm.dtype, _t_dtype(t))))[:, 0]
 
 
 @full_precision
@@ -70,15 +89,16 @@ def _combine_expv(Ks: KrylovBasis, expHe):
     return torch.where(Ks.beta > 0, out, 0.0)
 
 
-def expv_from_basis(t, Ks: KrylovBasis, *, reduced: str = "device"):
-    """w = beta V^T exp(tH) e1 from a prebuilt basis."""
-    if reduced != "device":
+def _device_reduced(reduced):
+    if reduced not in (None, "device"):
         raise NotImplementedError(
             f'reduced="{reduced}": only the device reduced exponential is '
             "ported (ROADMAP A6)")
-    if not Ks.hermitian:
-        raise NotImplementedError(
-            "Arnoldi bases are not ported yet (ROADMAP A5)")
+
+
+def expv_from_basis(t, Ks: KrylovBasis, *, reduced: str = "device"):
+    """w = beta V^T exp(tH) e1 from a prebuilt Lanczos or Arnoldi basis."""
+    _device_reduced(reduced)
     return _combine_expv(Ks, _exp_reduced_e1(Ks, t))
 
 
@@ -99,8 +119,6 @@ def _expv_two_pass(op, b, t, m: int):
     """Storage-free Hermitian expv on the plain torch passes
     (``ops.krylov.lanczos_coeffs`` / ``lanczos_replay``): 2m matvecs,
     O(n) memory."""
-    from ..ops.krylov import lanczos_coeffs, lanczos_replay
-
     alphas, betas, beta0, m_used, broke = lanczos_coeffs(op, b, m)
     coeffs = _lanczos_reduced_coeffs(alphas, betas, beta0, t)
     out = lanczos_replay(op, b, coeffs, alphas, betas, m)
@@ -119,43 +137,128 @@ def _expv_two_pass_fused(op, b, t, m: int, tol: float = 1e-7):
     return torch.where(beta0 > 0, out, 0.0)
 
 
-def expv(t, A, b, *, m: int = 30, tol: float = 1e-7,
-         mode: str = "happy_breakdown", hermitian: bool | None = None,
-         reduced: str = "device", two_pass: bool = False):
-    """exp(tA) b by a Krylov approximation of a Hermitian operator.
+@full_precision
+def _expv_two_pass_arnoldi(op, b, t, m: int, win: int):
+    """Storage-free non-Hermitian expv: two IOP-Arnoldi passes over a
+    (win, n) rolling window (``ops.krylov.arnoldi_coeffs`` /
+    ``arnoldi_replay``); the same recurrence as ``expv(iop=win,
+    reorth=False)`` without the basis."""
+    Hc, beta0, m_used, broke = arnoldi_coeffs(op, b, m, win)
+    H = expand_compact_hessenberg(Hc, win)
+    dt = torch.promote_types(H.dtype, _t_dtype(t))
+    expHe = expm_higham2005(t * H[:m, :m].to(dt))[:, 0]
+    w = arnoldi_replay(op, b, expHe * beta0.to(dt), Hc, m, win)
+    return torch.where(beta0 > 0, w, 0.0)
+
+
+@full_precision
+def _expv_error_estimate(op, b, t, m: int, atol: float, rtol: float):
+    """Hermitian Lanczos expv stopped by Saad's Er2 a-posteriori estimate
+    sigma = beta_j beta0 |e_j^T exp(t T_j) e1| < atol + rtol beta0.
+
+    A host loop: each Lanczos step reads its stop flag to the host (one
+    sync per step), where the JAX package keeps the loop on the device.
+    Returns (w, iterations)."""
+    n = b.shape[0]
+    dt = b.dtype
+    rdt = torch.empty((), dtype=dt).real.dtype
+    beta0 = torch.linalg.vector_norm(b).to(rdt)
+    eps = atol + rtol * beta0
+    v0 = torch.where(beta0 > 0, 1.0 / torch.where(beta0 > 0, beta0, 1.0),
+                     0.0).to(rdt) * b
+    V = torch.zeros((m + 1, n), dtype=dt, device=b.device)
+    V[0] = v0
+    alphas = torch.zeros(m, dtype=rdt, device=b.device)
+    betas = torch.zeros(m, dtype=rdt, device=b.device)
+    ev = torch.zeros(m, dtype=torch.promote_types(rdt, _t_dtype(t)),
+                     device=b.device)
+    idx = torch.arange(m, device=b.device)
+    j = 0
+    done = bool(beta0 == 0)
+    while j < m and not done:
+        x = V[j]
+        y = op.matvec(x).to(dt)
+        alpha = torch.vdot(x, y).real.to(rdt)
+        y = y - alpha * x
+        if j >= 1:
+            y = y - betas[j - 1] * V[j - 1]
+        nrm = torch.linalg.vector_norm(y).to(rdt)
+        alphas[j] = alpha
+        betas[j] = nrm
+        V[j + 1] = torch.where(nrm > 0, y / torch.where(nrm > 0, nrm, 1.0), 0)
+        # exp(t T_j) e1 of the leading (j+1)-block; the zero tail of the
+        # masked tridiagonal is block-diagonal and not excited by e1
+        a = torch.where(idx <= j, alphas, 0.0)
+        bb = torch.where(idx < j, betas, 0.0)
+        T = torch.diag(a) + torch.diag(bb[:-1], 1) + torch.diag(bb[:-1], -1)
+        w_eig, Q = torch.linalg.eigh(T)
+        ev = Q.to(ev.dtype) @ (torch.exp(t * w_eig) * Q[0, :])
+        sigma = nrm * beta0 * ev[j].abs()
+        j += 1
+        done = bool(sigma < eps)
+    w = ev @ V[:m].to(ev.dtype)
+    out = beta0.to(w.dtype) * w
+    return torch.where(beta0 > 0, out, 0.0), j
+
+
+def expv(t, A, b, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
+         mode: str = "happy_breakdown", reorth: bool = True,
+         hermitian: bool | None = None, atol: float = 1e-8,
+         rtol: float | None = None, reduced: str | None = "device",
+         two_pass: bool = False, return_info: bool = False,
+         differentiable: bool = False):
+    """exp(tA) b by a Krylov approximation (module doc).
 
     t: real or complex scalar. A: operator or square matrix. b: (n,).
     m: Krylov dimension (capped at n). tol: happy-breakdown threshold.
-    two_pass: the storage-free two-pass Lanczos (module doc), which picks
-      the CUDA kernels for real float32/float64 data and real t on a CUDA
-      device when the operator is a supported stencil.
+    iop: incomplete-orthogonalization window of the Arnoldi path (0 =
+      full); reorth: CGS2 there.
+    mode: "happy_breakdown" or "error_estimate" (Hermitian only; stops
+      when Saad's estimate is below atol + rtol |b|, rtol default
+      sqrt(tol); ``return_info=True`` also returns the iterations taken).
+    two_pass: the storage-free two-pass forms (module doc), which pick the
+      CUDA kernels for real float32/float64 data and real t on a CUDA
+      device when the operator is a supported stencil; non-Hermitian
+      operators need ``iop > 0`` there.
     """
+    if differentiable:
+        raise NotImplementedError(
+            "differentiable=True is not ported yet (ROADMAP A6)")
+    _device_reduced(reduced)
     op = aslinearoperator(A)
-    b = torch.as_tensor(b)
+    b = action_vector(b, op)
     op, b, post = hoist_conjugation(op, b)
     if post is not None:
         # degree-sorted conjugated container: the whole solve runs in the
         # sorted basis (exp commutes with the conjugation)
-        return post(expv(t, op, b, m=m, tol=tol, mode=mode,
-                         hermitian=hermitian, reduced=reduced,
-                         two_pass=two_pass))
+        out = expv(t, op, b, m=m, tol=tol, iop=iop, mode=mode, reorth=reorth,
+                   hermitian=hermitian, atol=atol, rtol=rtol, reduced=reduced,
+                   two_pass=two_pass, return_info=return_info)
+        if return_info and isinstance(out, tuple):
+            return (post(out[0]),) + out[1:]
+        return post(out)
     m = min(m, op.shape[0])
-    if reduced != "device":
-        raise NotImplementedError(
-            f'reduced="{reduced}": only the device reduced exponential is '
-            "ported (ROADMAP A6)")
+    herm = op.is_hermitian if hermitian is None else hermitian
     if mode == "error_estimate":
-        raise NotImplementedError(
-            'mode="error_estimate" is not ported yet (ROADMAP A6)')
+        if not herm:
+            raise NotImplementedError(
+                "error_estimate mode requires a Hermitian operator")
+        rtol = tol ** 0.5 if rtol is None else rtol
+        w, iters = _expv_error_estimate(op, b, t, m, atol, rtol)
+        return (w, iters) if return_info else w
     if mode != "happy_breakdown":
         raise ValueError(f"unknown expv mode {mode!r}")
-    herm = op.is_hermitian if hermitian is None else hermitian
-    if not herm:
-        raise NotImplementedError(
-            "non-Hermitian expv needs Arnoldi, not ported yet (ROADMAP A5)")
     if not two_pass:
-        return expv_from_basis(t, build_subspace(op, b, m, tol=tol,
-                                                 hermitian=True))
+        return expv_from_basis(t, build_subspace(op, b, m, tol=tol, iop=iop,
+                                                 reorth=reorth,
+                                                 hermitian=herm))
+    if not herm:
+        if iop <= 0:
+            raise ValueError(
+                "non-Hermitian two_pass expv requires an IOP window "
+                "(iop > 0): the rolling-window recurrence is what makes the "
+                "replay storage-free")
+        return _expv_two_pass_arnoldi(op, b, t, m, iop)
     from ..ops.kernels.lanczos_fused import fused_supported
     from ..ops.kernels.resident import (expv_two_pass_resident,
                                         resident_supported)
@@ -169,3 +272,21 @@ def expv(t, A, b, *, m: int = 30, tol: float = 1e-7,
     if kernels and fused_supported(op, hermitian=True):
         return _expv_two_pass_fused(op, b, t, m, tol=tol)
     return _expv_two_pass(op, b, t, m)
+
+
+def make_expv(op, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
+              reorth: bool = True, hermitian: bool | None = None):
+    """Serving factory: ``fn(t, b)`` with the operator and the Krylov
+    settings bound once (a plain closure over ``build_subspace`` and the
+    reduced exponential; nothing is compiled, so the JAX package's
+    ``bake_operator`` has no counterpart)."""
+    op = aslinearoperator(op)
+    m_ = min(m, op.shape[0])
+    herm = op.is_hermitian if hermitian is None else hermitian
+
+    def fn(t, b):
+        Ks = build_subspace(op, action_vector(b, op), m_, tol=tol, iop=iop,
+                            reorth=reorth, hermitian=herm)
+        return _combine_expv(Ks, _exp_reduced_e1(Ks, t))
+
+    return fn

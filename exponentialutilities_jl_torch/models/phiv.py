@@ -1,9 +1,9 @@
 """Krylov phi-function actions ``phiv(t, A, b, k) ~ [phi_0(tA)b ... phi_k(tA)b]``
-for Hermitian operators (PyTorch port of
-``exponentialutilities_jl_tpu/models/phiv.py``).
+(PyTorch port of ``exponentialutilities_jl_tpu/models/phiv.py``).
 
-The Lanczos basis reduces the problem to ``phiv_dense`` on the masked
-t H_m (the (m+k)^2 augmented-matrix exponential); the basis combination
+The Lanczos (Hermitian) or Arnoldi (general) basis reduces the problem to
+``phiv_dense`` on the masked t H_m (the (m+k)^2 augmented-matrix
+exponential); the basis combination
 is one matrix product, optionally with the Niesen-Wright correction by
 the last basis vector (formula (10) of arXiv:0907.4631), and the
 a-posteriori error estimate |beta h_{m+1,m} t C2[last, k]| comes with it.
@@ -16,11 +16,12 @@ stencil whose k+1 columns pass ``resident_multi_ok`` runs pass 1 in B2
 and pass 2 in one launch of B4 (``phiv_two_pass_resident``); everything
 else takes the plain torch passes.
 
-Not ported yet, and raising NotImplementedError: non-Hermitian operators
-(Arnoldi, ROADMAP A5), ``reduced="host"`` and ``differentiable=True``
-(ROADMAP A6). A ``SortedSellOperator`` is unwrapped on entry
+Not ported yet, and raising NotImplementedError: ``reduced="host"`` and
+``differentiable=True`` (ROADMAP A6); ``two_pass=True`` is Hermitian only,
+as in the JAX package. A ``SortedSellOperator`` is unwrapped on entry
 (``hoist_conjugation``), as in the JAX ``phiv``: the solve runs in the
-sorted basis and only the result is permuted back.
+sorted basis and only the result is permuted back. A numpy ``b`` goes to
+the operator's device.
 """
 
 from __future__ import annotations
@@ -30,9 +31,10 @@ import torch
 from ..ops.krylov import KrylovBasis
 from ..ops.phi_dense import phiv_dense
 from ..ops.sparse import hoist_conjugation
+from ..utils.device import action_vector
 from ..utils.linop import aslinearoperator
 from ..utils.precision import full_precision
-from .expv import build_subspace
+from .expv import _device_reduced, build_subspace
 
 __all__ = ["phiv", "phiv_from_basis", "make_phiv"]
 
@@ -67,15 +69,9 @@ def _reduced_dtype(Ks: KrylovBasis, t):
 
 def phiv_from_basis(t, Ks: KrylovBasis, k: int, *, correct: bool = False,
                     reduced: str = "device"):
-    """(w, err) from a prebuilt basis: w the (n, k+1) matrix of
-    phi_j(tA)b columns, err the error estimate of phi_k."""
-    if reduced != "device":
-        raise NotImplementedError(
-            f'reduced="{reduced}": only the device reduced exponential is '
-            "ported (ROADMAP A6)")
-    if not Ks.hermitian:
-        raise NotImplementedError(
-            "Arnoldi bases are not ported yet (ROADMAP A5)")
+    """(w, err) from a prebuilt Lanczos or Arnoldi basis: w the (n, k+1)
+    matrix of phi_j(tA)b columns, err the error estimate of phi_k."""
+    _device_reduced(reduced)
     m = Ks.m
     dt = _reduced_dtype(Ks, t)
     Hm = t * Ks.H[:m, :m].to(dt)
@@ -83,57 +79,58 @@ def phiv_from_basis(t, Ks: KrylovBasis, k: int, *, correct: bool = False,
     return _phiv_combine(t, Ks, phiv_dense(Hm, e1, k), k, correct)
 
 
-def make_phiv(op, k: int, *, m: int = 30, tol: float = 1e-7,
-              hermitian: bool | None = None, correct: bool = False):
+def make_phiv(op, k: int, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
+              reorth: bool = True, hermitian: bool | None = None,
+              correct: bool = False):
     """Serving factory: ``fn(t, b) -> (w, err)`` with the operator, order
     and Krylov settings bound once."""
     op = aslinearoperator(op)
     m_ = min(m, op.shape[0])
 
     def fn(t, b):
-        Ks = build_subspace(op, torch.as_tensor(b), m_, tol=tol,
-                            hermitian=hermitian)
+        Ks = build_subspace(op, action_vector(b, op), m_, tol=tol, iop=iop,
+                            reorth=reorth, hermitian=hermitian)
         return phiv_from_basis(t, Ks, k, correct=correct)
 
     return fn
 
 
-def phiv(t, A, b, k: int, *, m: int = 30, tol: float = 1e-7,
-         correct: bool = False, errest: bool = False,
-         hermitian: bool | None = None, reduced: str = "device",
+def phiv(t, A, b, k: int, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
+         correct: bool = False, errest: bool = False, reorth: bool = True,
+         hermitian: bool | None = None, reduced: str | None = "device",
          two_pass: bool = False, differentiable: bool = False):
-    """[phi_0(tA)b ... phi_k(tA)b] by a Krylov approximation of a Hermitian
-    operator: the (n, k+1) matrix, or (w, err) when ``errest=True``.
+    """[phi_0(tA)b ... phi_k(tA)b] by a Krylov approximation: the (n, k+1)
+    matrix, or (w, err) when ``errest=True``.
 
     correct: the Niesen-Wright correction of the first k columns.
-    two_pass: the storage-free two-pass Lanczos (module doc), which picks
-      the CUDA kernels B2 and B4 for a 1-D constant stencil.
+    iop, reorth: the Arnoldi window and CGS2 of a non-Hermitian operator.
+    two_pass: the storage-free two-pass Lanczos (module doc; Hermitian
+      only), which picks the CUDA kernels B2 and B4 for a 1-D constant
+      stencil.
     """
     if differentiable:
         raise NotImplementedError(
             "differentiable=True is not ported yet (ROADMAP A6)")
-    if reduced != "device":
-        raise NotImplementedError(
-            f'reduced="{reduced}": only the device reduced exponential is '
-            "ported (ROADMAP A6)")
+    _device_reduced(reduced)
     op = aslinearoperator(A)
-    b = torch.as_tensor(b)
+    b = action_vector(b, op)
     op, b, post = hoist_conjugation(op, b)
     if post is not None:
         # sorted-conjugated container: solve in the sorted basis (every
         # phi_k commutes with the conjugation)
-        out = phiv(t, op, b, k, m=m, tol=tol, correct=correct,
-                   errest=errest, hermitian=hermitian, reduced=reduced,
-                   two_pass=two_pass)
+        out = phiv(t, op, b, k, m=m, tol=tol, iop=iop, correct=correct,
+                   errest=errest, reorth=reorth, hermitian=hermitian,
+                   reduced=reduced, two_pass=two_pass)
         return (post(out[0]), out[1]) if errest else post(out)
     m = min(m, op.shape[0])
     herm = op.is_hermitian if hermitian is None else hermitian
-    if not herm:
-        raise NotImplementedError(
-            "non-Hermitian phiv needs Arnoldi, not ported yet (ROADMAP A5)")
     if not two_pass:
-        Ks = build_subspace(op, b, m, tol=tol, hermitian=True)
+        Ks = build_subspace(op, b, m, tol=tol, iop=iop, reorth=reorth,
+                            hermitian=herm)
         w, err = phiv_from_basis(t, Ks, k, correct=correct)
+    elif not herm:
+        raise NotImplementedError(
+            "two_pass phiv requires a Hermitian operator (Lanczos)")
     else:
         from ..ops.kernels.dispatch import resident_multi_ok
         from ..ops.kernels.resident import phiv_two_pass_resident

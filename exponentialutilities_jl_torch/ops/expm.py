@@ -27,6 +27,7 @@ import math
 
 import torch
 
+from ..utils.device import host_tensor
 from ..utils.precision import full_precision
 
 __all__ = ["expm", "expm_higham2005", "expm_taylor"]
@@ -130,7 +131,7 @@ def _scaling(nA: float, theta: float, max_squarings: int) -> int:
 
 
 def _square_2d(A, what):
-    A = torch.as_tensor(A)
+    A = host_tensor(A)
     if A.ndim > 2:
         raise NotImplementedError(
             f"{what}: batched (stacked) input is not ported yet (ROADMAP A3)")

@@ -44,8 +44,8 @@ MAX_POINTS = 64                 # stencil points: eu::kMaxPoints in csrc/common.
 
 launches = {"resident_recurrence": 0, "resident_lanczos": 0,
             "resident_multi": 0, "resident_banded": 0, "resident_grid": 0,
-            "fused_sweep": 0, "banded_spmv": 0, "blockell_spmv": 0,
-            "sell_spmv": 0, "seg_compact": 0}
+            "fused_sweep": 0, "fused_sweep_var": 0, "banded_spmv": 0,
+            "blockell_spmv": 0, "sell_spmv": 0, "seg_compact": 0}
 
 
 def reset_launch_counts():
@@ -86,10 +86,11 @@ def _declare(lib):
         f = getattr(lib, f"eu_resident_grid_{suf}")
         f.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP, _VP, _VP]
         f.restype = _I
-        f = getattr(lib, f"eu_fused_sweep_{suf}")
-        f.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
-                      _I, _VP, _VP, _VP, _VP, _LL, _VP, _VP]
-        f.restype = _I
+        for name in (f"eu_fused_sweep_{suf}", f"eu_fused_sweep_var_{suf}"):
+            f = getattr(lib, name)
+            f.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                          _I, _I, _VP, _VP, _VP, _VP, _LL, _VP, _VP]
+            f.restype = _I
         f = getattr(lib, f"eu_banded_spmv_{suf}")
         f.argtypes = [_VP, _VP, _I, _VP, _LL, _VP, _VP]
         f.restype = _I

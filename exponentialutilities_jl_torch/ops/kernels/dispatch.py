@@ -13,13 +13,16 @@ in the JAX package's order:
   * ``banded``   - ``BandedOperator``s, one persistent launch (B5)
   * ``grid``     - 2-D/3-D constant stencils whose state fits the L2
                    budget, one persistent launch (B6)
-  * ``fused``    - 2-D/3-D constant box stencils, one sweep per step
-                   (ops/kernels/lanczos_fused.recurrence_apply_fused, B3)
+  * ``fused``    - 2-D/3-D box stencils, one sweep per step
+                   (ops/kernels/lanczos_fused.recurrence_apply_fused): B3
+                   for constant, B3-var for variable coefficients
 
 ``recurrence_engine`` picks the first that applies to a real float32 or
 float64 recurrence on a CUDA device, or returns None for the caller's
-plain torch path (which is what CPU tensors take). ``resident_multi_ok``
-is the gate of B4, the multi-column (m, p) form of the 1-D recurrence.
+plain torch path (which is what CPU tensors take). A
+``VariableStencilOperator`` is turned away by B1, B5 and B6 (they have no
+fields) and taken by the fused sweeps. ``resident_multi_ok`` is the gate
+of B4, the multi-column (m, p) form of the 1-D recurrence.
 """
 
 from __future__ import annotations
@@ -99,8 +102,9 @@ def recurrence_engine(op, dtype, fused=None, *, device,
         if engine is None:
             raise ValueError(
                 "fused=True: no CUDA recurrence engine for this operator "
-                "(needs a real BandedOperator, or a real 1-D, or 2-D/3-D "
-                "box, constant StencilOperator)")
+                "(needs a real BandedOperator, a real 1-D or 2-D/3-D box "
+                "constant StencilOperator, or a real 2-D/3-D "
+                "VariableStencilOperator)")
         if not device_ok:
             raise ValueError(
                 f"fused=True: the CUDA engines take float32/float64 data on "

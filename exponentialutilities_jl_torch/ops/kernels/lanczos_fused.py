@@ -1,13 +1,14 @@
-"""Fused recurrence sweeps for 2-D/3-D constant box stencils (PyTorch port
-of the constant-coefficient part of
-``exponentialutilities_jl_tpu/ops/kernels/lanczos_fused.py``).
+"""Fused recurrence sweeps for 2-D/3-D box stencils, constant
+(``StencilOperator``) or variable-coefficient (``VariableStencilOperator``)
+(PyTorch port of ``exponentialutilities_jl_tpu/ops/kernels/lanczos_fused.py``).
 
-One sweep (kernel B3, ``csrc/fused_sweep.cu``) computes
+One sweep (``csrc/fused_sweep.cu``: kernel B3 for constant coefficients,
+B3-var for per-cell fields) computes
 
     y  = ca Z + cb Vc + cc Vp,   Zn = A y,   moments (sum y^2, sum y.Zn)
 
 and, in its accumulating form, W += cw Vc in place. The drivers below run
-one sweep per step:
+one sweep per step and serve both operator kinds:
 
 * ``lanczos_coeffs_fused``: Lanczos pass 1. No normalization pass ever
   runs: the sweep stores the UNNORMALIZED y_j = beta_{j+1} v_{j+1} and its
@@ -24,7 +25,9 @@ The scalars are computed on the device from the previous sweep's moments,
 so the m-step Python loops never synchronize with the host. Vectors are
 flat (n,) tensors in the natural row-major grid layout; 2-D grids run as
 nz = 1. On CPU tensors every sweep runs the plain twin
-``fused_sweep_ref``; on CUDA tensors it launches B3 or raises.
+``fused_sweep_ref``; on CUDA tensors it launches B3 (or B3-var) or raises.
+A variable operator's fields in another dtype than the vectors are cast
+once and kept on the operator (``VariableStencilOperator.fields``).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import math
 import numpy as np
 import torch
 
-from ..stencil import StencilOperator, stencil_apply
+from ..stencil import StencilOperator, VariableStencilOperator, stencil_apply
 from . import _build
 
 __all__ = ["fused_supported", "fused_lanczos_step", "fused_sweep_ref",
@@ -46,14 +49,20 @@ MAX_HALO = 3            # largest |offset| per axis (shared-memory brick)
 
 
 def fused_supported(op, hermitian: bool = True) -> bool:
-    """True for a real 2-D/3-D constant box ``StencilOperator`` with
-    |offset| <= MAX_HALO per axis (symmetric when ``hermitian``)."""
-    if not isinstance(op, StencilOperator) or len(op.grid_shape) not in (2, 3):
+    """True for a real 2-D/3-D box ``StencilOperator`` (symmetric when
+    ``hermitian``) or ``VariableStencilOperator`` (``is_hermitian`` when
+    ``hermitian``, as the JAX dispatch requires) with |offset| <=
+    MAX_HALO per axis and at most ``_build.MAX_POINTS`` points."""
+    variable = isinstance(op, VariableStencilOperator)
+    if not (variable or isinstance(op, StencilOperator)) \
+            or len(op.grid_shape) not in (2, 3):
         return False
-    if op.coeffs.is_complex() or len(op.offsets) > _build.MAX_POINTS:
+    if op.dtype.is_complex or len(op.offsets) > _build.MAX_POINTS:
         return False
     if any(abs(o) > MAX_HALO for off in op.offsets for o in off):
         return False
+    if variable:
+        return op.is_hermitian or not hermitian
     if hermitian:
         cmap = {off: float(c) for off, c in zip(op.offsets, op.host_coeffs)}
         if any(cmap.get(off, 0.0) != cmap.get(tuple(-o for o in off), 0.0)
@@ -79,8 +88,11 @@ def _tiles(shape3):
 
 def fused_sweep_ref(Z, Vc, Vp, coefs, grid_shape, offsets, cvals,
                     w_accum=None):
-    """Plain twin of B3: (Y, Zn, moments (2,)), with W += cw Vc done in
-    place on ``w_accum`` when given."""
+    """Plain twin of B3 and B3-var: (Y, Zn, moments (2,)), with W += cw Vc
+    done in place on ``w_accum`` when given. ``cvals`` is (k,) for a
+    constant stencil or the (k, n) fields of a variable one."""
+    if cvals.ndim == 2:
+        cvals = cvals.reshape((-1,) + tuple(grid_shape))
     y = coefs[0] * Z + coefs[1] * Vc + coefs[2] * Vp
     zn = stencil_apply(y.reshape(grid_shape), offsets, cvals).reshape(-1)
     moments = torch.stack([(y * y).sum(), (y * zn).sum()])
@@ -91,14 +103,22 @@ def fused_sweep_ref(Z, Vc, Vp, coefs, grid_shape, offsets, cvals,
 
 # ------------------------------------------------------------- wrapper --
 
+def _cvals(op, dtype):
+    """The sweep's coefficients in ``dtype``: (k,) constants, or the
+    (k, n) fields of a variable operator (cast once, kept on it)."""
+    if isinstance(op, VariableStencilOperator):
+        return op.fields(dtype)
+    return op.coeffs.to(dtype).contiguous()
+
+
 def fused_lanczos_step(Z, Vc, Vp, coefs, op, *, w_accum=None):
-    """One fused sweep (module doc): kernel B3 on CUDA, its twin on CPU.
-    ``coefs`` = (ca, cb, cc[, cw]) as a tensor on the vectors' device.
-    Returns (Y, Zn, ypy, yzy), plus W when ``w_accum`` is given (updated
-    in place: W = w_accum + cw Vc)."""
+    """One fused sweep (module doc): kernel B3 (constant stencil) or B3-var
+    (variable) on CUDA, their twin on CPU. ``coefs`` = (ca, cb, cc[, cw])
+    as a tensor on the vectors' device. Returns (Y, Zn, ypy, yzy), plus W
+    when ``w_accum`` is given (updated in place: W = w_accum + cw Vc)."""
     if not fused_supported(op, hermitian=False):
-        raise ValueError("fused sweep requires a real 2-D/3-D constant "
-                         "StencilOperator with |offset| <= "
+        raise ValueError("fused sweep requires a real 2-D/3-D Stencil or "
+                         "VariableStencil operator with |offset| <= "
                          f"{MAX_HALO} (got {type(op).__name__})")
     n = op.shape[0]
     for v in (Z, Vc, Vp) + ((w_accum,) if w_accum is not None else ()):
@@ -111,7 +131,7 @@ def fused_lanczos_step(Z, Vc, Vp, coefs, op, *, w_accum=None):
     dev = Z.device
     if dev.type == "cpu":
         Y, Zn, moments = fused_sweep_ref(Z, Vc, Vp, coefs, op.grid_shape,
-                                         op.offsets, op.coeffs.to(Z.dtype),
+                                         op.offsets, _cvals(op, Z.dtype),
                                          w_accum)
         return _step_result(Y, Zn, moments, w_accum)
     if dev.type != "cuda":
@@ -129,7 +149,8 @@ def fused_lanczos_step(Z, Vc, Vp, coefs, op, *, w_accum=None):
     nblocks = (math.ceil(shape3[2] / tx) * math.ceil(shape3[1] / ty)
                * math.ceil(shape3[0] / tz))
     coefs = coefs.to(Z.dtype)
-    cvals = op.coeffs.to(Z.dtype).contiguous()
+    cvals = _cvals(op, Z.dtype)
+    var = cvals.ndim == 2
     flat = np.asarray(offs3, dtype=np.int32).reshape(-1)
     offs_arg = (ctypes.c_int * len(flat))(*flat.tolist())
     Y = torch.empty_like(Z)
@@ -137,14 +158,16 @@ def fused_lanczos_step(Z, Vc, Vp, coefs, op, *, w_accum=None):
     partials = torch.empty(2 * nblocks, dtype=Z.dtype, device=dev)
     moments = torch.empty(2, dtype=Z.dtype, device=dev)
     lib = _build.library()
-    fn = getattr(lib, f"eu_fused_sweep_{_build.suffix(Z.dtype)}")
+    name = "fused_sweep_var" if var else "fused_sweep"
+    fn = getattr(lib, f"eu_{name}_{_build.suffix(Z.dtype)}")
     code = fn(_build.ptr(Z), _build.ptr(Vc), _build.ptr(Vp),
               _build.ptr(coefs), _build.ptr(cvals), offs_arg, len(offs3),
               shape3[0], shape3[1], shape3[2], tz, ty, tx, _build.ptr(Y),
               _build.ptr(Zn), _build.ptr(w_accum), _build.ptr(partials),
               2 * nblocks, _build.ptr(moments), _build.stream_of(Z))
-    _build.check(code, "fused sweep kernel (B3)")
-    _build.launches["fused_sweep"] += 1
+    _build.check(code, "fused sweep kernel (B3-var)" if var
+                 else "fused sweep kernel (B3)")
+    _build.launches[name] += 1
     return _step_result(Y, Zn, moments, w_accum)
 
 
@@ -195,10 +218,11 @@ def _start(b):
 
 def lanczos_coeffs_fused(op, b, m: int, *, tol: float = 1e-7):
     """Drop-in twin of ``ops.krylov.lanczos_coeffs`` for symmetric 2-D/3-D
-    constant box ``StencilOperator``s: m + 1 fused sweeps."""
+    box ``StencilOperator``s and Hermitian ``VariableStencilOperator``s:
+    m + 1 fused sweeps."""
     if not fused_supported(op, hermitian=True):
         raise ValueError("lanczos_coeffs_fused requires a symmetric 2-D/3-D "
-                         "constant StencilOperator")
+                         "Stencil or Hermitian VariableStencil operator")
     beta0, v0 = _start(b)
     zeros = torch.zeros_like(v0)
     # sweep 0: (1, 0, 0) emits y = v0, Z = A v0 and the first moments
@@ -232,7 +256,7 @@ def lanczos_replay_fused(op, b, coeffs, *, tol: float = 1e-7):
     same sweeps as ``lanczos_coeffs_fused`` (m + 1 accumulating sweeps)."""
     if not fused_supported(op, hermitian=True):
         raise ValueError("lanczos_replay_fused requires a symmetric 2-D/3-D "
-                         "constant StencilOperator")
+                         "Stencil or Hermitian VariableStencil operator")
     beta0, v0 = _start(b)
     coeffs = coeffs.to(v0.dtype)
     W = torch.zeros_like(v0)

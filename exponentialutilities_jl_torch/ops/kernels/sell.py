@@ -49,6 +49,7 @@ import os
 import numpy as np
 import torch
 
+from ...utils.device import host_tensor, resolve_device
 from . import _build
 
 __all__ = ["SellData", "sell_pack", "sell_spmv", "sell_spmv_ref",
@@ -166,7 +167,7 @@ class SellData:
     def load(cls, path: str, device=None):
         with np.load(_npz(path), allow_pickle=False) as z:
             n, ncols, nnz, sigma = (int(v) for v in z["meta"])
-            return cls(*(torch.as_tensor(z[k], device=device)
+            return cls(*(host_tensor(z[k], device)
                          for k in ("vals", "cols", "slice_ptr", "row_of")),
                        n, nnz, ncols=ncols, sigma=sigma)
 
@@ -235,7 +236,7 @@ class SellSeg:
         base = SellData.load(path, device=device)
         with np.load(_npz(path), allow_pickle=False) as z:
             n, nnz, seg_len = (int(v) for v in z["seg_meta"])
-            seg_ptr = torch.as_tensor(z["seg_ptr"], device=device)
+            seg_ptr = host_tensor(z["seg_ptr"], device)
         return cls(base, seg_ptr, n, nnz, seg_len)
 
 
@@ -285,10 +286,9 @@ def _pack_csr(indptr, indices, data, nrows: int, ncols: int, sigma: int,
     cols = np.zeros(int(slice_ptr[-1]), np.int32)
     vals[slot] = data
     cols[slot] = indices
-    return cls(torch.as_tensor(vals, device=device),
-               torch.as_tensor(cols, device=device),
-               torch.as_tensor(slice_ptr, device=device),
-               torch.as_tensor(row_of.astype(np.int32), device=device),
+    return cls(host_tensor(vals, device), host_tensor(cols, device),
+               host_tensor(slice_ptr, device),
+               host_tensor(row_of.astype(np.int32), device),
                nrows, int(indptr[-1]), ncols=ncols, sigma=sigma,
                nslots=int(slice_ptr[-1]))
 
@@ -322,6 +322,7 @@ def sell_pack_seg(rows_cols_vals, n: int, dtype=np.float32, *,
     most ``seg_len`` entries, each packed as a row of its own."""
     if seg_len < 1:
         raise ValueError(f"seg_len must be >= 1, got {seg_len}")
+    device = resolve_device(device)
     indptr, indices, data = _csr(rows_cols_vals, n, dtype)
     deg = np.diff(indptr)
     k = -(-deg // seg_len)                   # segments per row (0 if empty)
@@ -334,7 +335,7 @@ def sell_pack_seg(rows_cols_vals, n: int, dtype=np.float32, *,
     seg_indptr[:-1] = indptr[seg_row] + seg_len * first
     seg_indptr[-1] = indptr[-1]
     base = _pack_csr(seg_indptr, indices, data, nseg, n, sigma, device)
-    return SellSeg(base, torch.as_tensor(seg_ptr, device=device), n,
+    return SellSeg(base, host_tensor(seg_ptr, device), n,
                    int(indptr[-1]), seg_len, validate=False)
 
 

@@ -1,5 +1,5 @@
-"""Hermitian Krylov subspaces: Lanczos with breakdown kept as data
-(PyTorch port of the Lanczos part of
+"""Krylov subspaces with breakdown kept as data: Lanczos for Hermitian
+operators, Arnoldi for general ones (PyTorch port of
 ``exponentialutilities_jl_tpu/ops/krylov.py``).
 
 V and H keep their full (m+1, .) shapes after a happy breakdown; the
@@ -8,10 +8,18 @@ trailing basis rows and coefficients are zero and ``m_used`` /
 problem is exact without any data-dependent shapes (and without a host
 sync inside the loop).
 
-``lanczos_coeffs`` / ``lanczos_replay`` are the storage-free pair: pass 1
-records (alpha, beta) without keeping the basis, pass 2 regenerates each
-basis vector from the record and accumulates w = sum_j coeffs[j] v_j.
-Arnoldi (ROADMAP A5) is not ported yet.
+Arnoldi orthogonalizes by classical Gram-Schmidt with batched dots (one
+GEMV for the projections, CGS2 with ``reorth``), over the last ``iop``
+basis vectors (incomplete orthogonalization) or all of them (iop = 0).
+The step index is a Python int here, so each step reads only the rows of
+its window that already exist (the JAX loop masks a fixed-shape window);
+the basis and Hessenberg buffers are filled in place.
+
+``lanczos_coeffs`` / ``lanczos_replay`` and ``arnoldi_coeffs`` /
+``arnoldi_replay`` are the storage-free pairs: pass 1 records the
+recurrence (alpha, beta; or the compact Hessenberg of an IOP window)
+without keeping the basis, pass 2 regenerates each basis vector from the
+record and accumulates w = sum_j coeffs[j] v_j.
 """
 
 from __future__ import annotations
@@ -22,16 +30,19 @@ import torch
 
 from ..utils.precision import full_precision
 
-__all__ = ["KrylovBasis", "lanczos", "lanczos_coeffs", "lanczos_replay"]
+__all__ = ["KrylovBasis", "arnoldi", "arnoldi_extend", "lanczos",
+           "lanczos_coeffs", "lanczos_replay", "arnoldi_coeffs",
+           "arnoldi_replay", "expand_compact_hessenberg"]
 
 
 @dataclasses.dataclass
 class KrylovBasis:
-    """Result of a Lanczos factorization.
+    """Result of an Arnoldi or Lanczos factorization.
 
     V: (m+1, n) orthonormal basis, basis vectors as rows (zero past
        m_used after a happy breakdown).
-    H: (m+1, m) real symmetric-tridiagonal-extended matrix.
+    H: (m+1, m) Hessenberg (Arnoldi, in b's dtype) or real
+       symmetric-tridiagonal-extended (Lanczos) matrix.
     beta: |b|_2 of the starting vector (0-d tensor).
     m_used: effective dimension (0-d int32 tensor).
     breakdown: whether a happy breakdown occurred (0-d bool tensor).
@@ -72,6 +83,82 @@ def _start(b):
 
 def _safe_normalize(y, nrm):
     return y / torch.where(nrm > 0, nrm, 1.0)
+
+
+def _arnoldi_step(op, V, H, j: int, win: int, tol: float, reorth: bool,
+                  broke, m_used):
+    """Arnoldi step j on the basis rows ``V`` and Hessenberg ``H`` (both
+    written in place): CGS (CGS2 with ``reorth``) against the window rows
+    max(0, j - win + 1) .. j. Returns (broke, m_used)."""
+    rdt = _real_dtype(V.dtype)
+    lo = max(0, j - win + 1)
+    Vw = V[lo:j + 1]
+    y = op.matvec(V[j]).to(V.dtype)
+    h = Vw.conj() @ y
+    y = y - h @ Vw
+    if reorth:
+        h2 = Vw.conj() @ y
+        y = y - h2 @ Vw
+        h = h + h2
+    nrm = _norm(y, rdt)
+    now_broke = nrm < tol
+    active = ~broke
+    H[lo:j + 1, j] = torch.where(active, h, 0)
+    H[j + 1, j] = torch.where(active, nrm, 0).to(H.dtype)
+    V[j + 1] = torch.where(active & ~now_broke, _safe_normalize(y, nrm), 0.0)
+    m_used = torch.where(active, j + 1, m_used).to(torch.int32)
+    return broke | now_broke, m_used
+
+
+@full_precision
+def arnoldi(op, b, m: int, *, iop: int = 0, tol: float = 1e-7,
+            reorth: bool = True) -> KrylovBasis:
+    """Arnoldi factorization A V[j] ~ sum_i H[i, j] V[i] with (incomplete)
+    classical Gram-Schmidt (module doc).
+
+    iop: incomplete-orthogonalization window; 0 = full.
+    tol: happy-breakdown threshold on the residual norm.
+    reorth: a second CGS pass (CGS2); False for the cheapest (IOP-style)
+      iteration."""
+    n = b.shape[0]
+    beta, v0 = _start(b)
+    V = torch.zeros((m + 1, n), dtype=b.dtype, device=b.device)
+    V[0] = v0
+    H = torch.zeros((m + 1, m), dtype=b.dtype, device=b.device)
+    win = m if iop == 0 else iop
+    broke = beta == 0
+    m_used = torch.zeros((), dtype=torch.int32, device=b.device)
+    for j in range(m):
+        broke, m_used = _arnoldi_step(op, V, H, j, win, tol, reorth, broke,
+                                      m_used)
+    m_used = torch.where(beta == 0, 0, m_used).to(torch.int32)
+    return KrylovBasis(V=V, H=H, beta=beta, m_used=m_used, breakdown=broke,
+                       hermitian=False)
+
+
+@full_precision
+def arnoldi_extend(op, Ks: KrylovBasis, m_new: int, *, iop: int = 0,
+                   tol: float = 1e-7, reorth: bool = True) -> KrylovBasis:
+    """Extend an Arnoldi factorization from m to ``m_new`` without
+    repeating the first m matvecs: the kept rows and entries are copied
+    into the larger buffers and the iteration continues from step m."""
+    m_old = Ks.m
+    if m_new <= m_old:
+        raise ValueError(f"m_new={m_new} must exceed current m={m_old}")
+    if Ks.hermitian:
+        raise ValueError("arnoldi_extend requires an Arnoldi (non-Lanczos) "
+                         "basis")
+    V = torch.zeros((m_new + 1, Ks.n), dtype=Ks.V.dtype, device=Ks.V.device)
+    V[:m_old + 1] = Ks.V
+    H = torch.zeros((m_new + 1, m_new), dtype=Ks.H.dtype, device=Ks.H.device)
+    H[:m_old + 1, :m_old] = Ks.H
+    win = m_new if iop == 0 else iop
+    broke, m_used = Ks.breakdown, Ks.m_used
+    for j in range(m_old, m_new):
+        broke, m_used = _arnoldi_step(op, V, H, j, win, tol, reorth, broke,
+                                      m_used)
+    return KrylovBasis(V=V, H=H, beta=Ks.beta, m_used=m_used, breakdown=broke,
+                       hermitian=False)
 
 
 @full_precision
@@ -178,4 +265,94 @@ def lanczos_replay(op, b, coeffs, alphas, betas, m: int):
             y = y - betas[j - 1].to(rdt) * vp
         vnext = torch.where(betas[j] > 0, _safe_normalize(y, betas[j]), 0.0)
         vp, vc = vc, vnext
+    return w
+
+
+def _window_rows(W, j: int):
+    """The rows of the rolling window that hold basis vectors at step j
+    (the oldest win - j - 1 rows are still the zero start rows)."""
+    win = W.shape[0]
+    return W[win - min(j + 1, win):]
+
+
+@full_precision
+def arnoldi_coeffs(op, b, m: int, win: int, *, tol: float = 1e-7):
+    """Pass 1 of storage-free IOP Arnoldi: the compact Hessenberg without
+    the basis. The IOP recurrence only reads the last ``win`` basis
+    vectors, so the loop keeps a (win, n) rolling window.
+
+    Returns (Hc, beta0, m_used, breakdown) with Hc (m, win+1) compact
+    columns: Hc[j, :win] the projections onto the window rows (oldest to
+    newest) and Hc[j, win] = h_{j+1, j}."""
+    n = b.shape[0]
+    dt = b.dtype
+    rdt = _real_dtype(dt)
+    beta0, v0 = _start(b)
+    W = torch.zeros((win, n), dtype=dt, device=b.device)
+    W[-1] = v0
+    Hc = torch.zeros((m, win + 1), dtype=dt, device=b.device)
+    broke = beta0 == 0
+    m_used = torch.zeros((), dtype=torch.int32, device=b.device)
+    for j in range(m):
+        Wv = _window_rows(W, j)
+        y = op.matvec(W[-1]).to(dt)
+        h = Wv.conj() @ y
+        y = y - h @ Wv
+        nrm = _norm(y, rdt)
+        now_broke = nrm < tol
+        active = ~broke
+        vnext = torch.where(active & ~now_broke, _safe_normalize(y, nrm), 0.0)
+        Hc[j, win - Wv.shape[0]:win] = torch.where(active, h, 0)
+        Hc[j, win] = torch.where(active, nrm, 0).to(dt)
+        W = torch.cat([W[1:], vnext[None]])
+        m_used = torch.where(active, j + 1, m_used).to(torch.int32)
+        broke = broke | now_broke
+    m_used = torch.where(beta0 == 0, 0, m_used).to(torch.int32)
+    return Hc, beta0, m_used, broke
+
+
+def expand_compact_hessenberg(Hc, win: int):
+    """(m, win+1) compact columns to the full (m+1, m) banded Hessenberg."""
+    m = Hc.shape[0]
+    H = torch.zeros((m + 1, m), dtype=Hc.dtype, device=Hc.device)
+    for j in range(m):
+        lo = max(0, j - win + 1)
+        H[lo:j + 1, j] = Hc[j, win - (j + 1 - lo):win]
+        H[j + 1, j] = Hc[j, win]
+    return H
+
+
+@full_precision
+def arnoldi_replay(op, b, coeffs, Hc, m: int, win: int, *, final_coeff=None,
+                   with_final: bool = False):
+    """Pass 2: w = sum_j coeffs[j] v_j, regenerating the IOP basis from the
+    recorded compact Hessenberg by the same recurrence as pass 1. coeffs
+    (m,) or (m, p). With ``with_final=True``, ``final_coeff`` also weights
+    the (m+1)-th vector v_m."""
+    n = b.shape[0]
+    dt = b.dtype
+    rdt = _real_dtype(dt)
+    _, v0 = _start(b)
+    W = torch.zeros((win, n), dtype=dt, device=b.device)
+    W[-1] = v0
+    cdt = coeffs.dtype
+
+    def accum(w, vc, cj):
+        if coeffs.ndim == 1:
+            return w + cj * vc.to(cdt)
+        return w + vc.to(cdt)[:, None] * cj[None, :]
+
+    w = torch.zeros((n,) + tuple(coeffs.shape[1:]), dtype=cdt,
+                    device=b.device)
+    for j in range(m):
+        w = accum(w, W[-1], coeffs[j])
+        Wv = _window_rows(W, j)
+        y = op.matvec(W[-1]).to(dt)
+        y = y - Hc[j, win - Wv.shape[0]:win] @ Wv
+        nrm = Hc[j, win].real.to(rdt)
+        vnext = torch.where(nrm > 0, _safe_normalize(y, nrm), 0.0)
+        W = torch.cat([W[1:], vnext[None]])
+    if with_final:
+        w = accum(w, W[-1], torch.as_tensor(final_coeff, dtype=cdt,
+                                             device=b.device))
     return w

@@ -19,6 +19,7 @@ import math
 
 import torch
 
+from ..utils.device import host_tensor
 from ..utils.precision import full_precision
 from .expm import expm_higham2005, expm_taylor
 
@@ -75,7 +76,7 @@ def _ps_phi_taylor(X, p: int, order: int):
 def phi_scalar(z, k: int):
     """phi_0..phi_k of a scalar, (k+1,), or of each entry of an array,
     z.shape + (k+1,), from the (k+1)^2 augmented-matrix exponential."""
-    z = torch.as_tensor(z)
+    z = host_tensor(z)
 
     def one(zs):
         M = torch.diag(torch.ones(k, dtype=z.dtype, device=z.device), 1)
@@ -98,8 +99,8 @@ def phiv_dense(A, v, k: int, *, expm_method: str = "higham2005"):
     (Sidje, Thm 1). Returns an (m, k+1) matrix. ``expm_method="taylor"``
     selects the solver-free ``expm_taylor``."""
     engine = expm_taylor if expm_method == "taylor" else expm_higham2005
-    A = torch.as_tensor(A)
-    v = torch.as_tensor(v)
+    A = host_tensor(A)
+    v = host_tensor(v, A.device)
     m = A.shape[0]
     dt = torch.promote_types(A.dtype, v.dtype)
     A, v = A.to(dt), v.to(dt)

@@ -40,6 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.device import action_vector, host_tensor
 from ..utils.linop import LinearOperator
 from .kernels.dispatch import kernel_device_ok
 from .kernels.spmv import (banded_spmv, banded_spmv_ref, blockell_spmv,
@@ -49,11 +50,6 @@ __all__ = ["SparseELLOperator", "BlockELLOperator", "BandedOperator",
            "SellOperator", "SortedSellOperator", "ell_from_scipy",
            "blockell_from_scipy", "banded_from_scipy", "HybridOperator",
            "hybrid_from_scipy", "hoist_conjugation"]
-
-
-def _tensor(a, device=None, dtype=None):
-    t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
-    return t.to(device=device, dtype=dtype)
 
 
 def _kernel(op_dtype, x):
@@ -66,7 +62,8 @@ def _promoted(op, attr, dt):
     """``op.<attr>`` (a tensor or a SELL pack) in dtype ``dt``: the
     operator's own storage when the dtypes agree, else a copy made on first
     use and kept, so a float32 operator driven by float64 vectors does not
-    copy its storage on every matvec. A reassigned ``op.<attr>`` is cast
+    copy its storage on every matvec. The copy lies on the storage's
+    device; a reassigned ``op.<attr>`` (another device included) is cast
     anew."""
     t = getattr(op, attr)
     if t.dtype == dt:
@@ -86,8 +83,8 @@ class SparseELLOperator(LinearOperator):
     """
 
     def __init__(self, data, cols, is_hermitian: bool = False):
-        self.data = _tensor(data)
-        self.cols = _tensor(cols, device=self.data.device, dtype=torch.int32)
+        self.data = host_tensor(data)
+        self.cols = host_tensor(cols, device=self.data.device, dtype=torch.int32)
         self.is_hermitian = bool(is_hermitian)
 
     @property
@@ -131,7 +128,7 @@ class SparseELLOperator(LinearOperator):
         for i, z in enumerate(nz):
             data[i, :len(z)] = A[i, z]
             cols[i, :len(z)] = z
-        return cls(_tensor(data, device), _tensor(cols, device),
+        return cls(host_tensor(data, device), host_tensor(cols, device),
                    is_hermitian=is_hermitian)
 
 
@@ -141,7 +138,7 @@ def ell_from_scipy(A, is_hermitian: bool = False, dtype=None,
     from ..utils.native import csr_to_ell_arrays
 
     vals, cols = csr_to_ell_arrays(A, dtype=dtype)
-    return SparseELLOperator(_tensor(vals, device), _tensor(cols, device),
+    return SparseELLOperator(host_tensor(vals, device), host_tensor(cols, device),
                              is_hermitian=is_hermitian)
 
 
@@ -160,8 +157,8 @@ class BlockELLOperator(LinearOperator):
 
     def __init__(self, blocks, bcols, is_hermitian: bool = False,
                  use_pallas: bool = True):
-        self.blocks = _tensor(blocks)
-        self.bcols = _tensor(bcols, device=self.blocks.device,
+        self.blocks = host_tensor(blocks)
+        self.bcols = host_tensor(bcols, device=self.blocks.device,
                              dtype=torch.int32)
         self.is_hermitian = bool(is_hermitian)
         self.use_pallas = bool(use_pallas)
@@ -237,7 +234,7 @@ class BlockELLOperator(LinearOperator):
             z = np.nonzero(nzmask[i])[0]
             blocks[i, :len(z)] = blk[i, z]
             bcols[i, :len(z)] = z
-        return cls(_tensor(blocks, device), _tensor(bcols, device),
+        return cls(host_tensor(blocks, device), host_tensor(bcols, device),
                    is_hermitian=is_hermitian)
 
 
@@ -249,7 +246,7 @@ def blockell_from_scipy(A, br: int, bc: Optional[int] = None,
     from ..utils.native import bsr_to_blockell_arrays
 
     blocks, bcols = bsr_to_blockell_arrays(A, br, bc, dtype=dtype)
-    return BlockELLOperator(_tensor(blocks, device), _tensor(bcols, device),
+    return BlockELLOperator(host_tensor(blocks, device), host_tensor(bcols, device),
                             is_hermitian=is_hermitian)
 
 
@@ -271,7 +268,7 @@ def banded_from_scipy(A, offsets=None, is_hermitian: bool = False,
     if dropped:
         raise ValueError(
             f"{dropped} entries fall outside the given offsets {offsets}")
-    return BandedOperator(_tensor(diags, device), [int(o) for o in offsets],
+    return BandedOperator(host_tensor(diags, device), [int(o) for o in offsets],
                           is_hermitian=is_hermitian)
 
 
@@ -285,7 +282,7 @@ class BandedOperator(LinearOperator):
     """
 
     def __init__(self, diags, offsets, is_hermitian: bool = False):
-        self.diags = _tensor(diags)
+        self.diags = host_tensor(diags)
         self.offsets = tuple(int(o) for o in offsets)
         self.is_hermitian = bool(is_hermitian)
         if self.diags.shape[0] != len(self.offsets):
@@ -375,7 +372,7 @@ class BandedOperator(LinearOperator):
         for k, o in enumerate(offsets):
             i = np.arange(max(0, -o), min(n, n - o))
             diags[k, i] = A[i, i + o]
-        return cls(_tensor(diags, device), offsets, is_hermitian=is_hermitian)
+        return cls(host_tensor(diags, device), offsets, is_hermitian=is_hermitian)
 
 
 def _rcm(rows, cols, vals, n):
@@ -508,7 +505,7 @@ class SortedSellOperator(LinearOperator):
 
     def __init__(self, inner, order, is_hermitian=False):
         self.inner = inner
-        self.order = _tensor(order, device=inner.device, dtype=torch.int64)
+        self.order = host_tensor(order, device=inner.device, dtype=torch.int64)
         self._inv = torch.empty_like(self.order)
         self._inv[self.order] = torch.arange(self.order.shape[0],
                                              device=self.order.device)
@@ -585,7 +582,7 @@ def hoist_conjugation(op, b):
     (f(P A P^T) = P f(A) P^T), so a solver calls this once and runs the
     whole solve in the sorted basis."""
     if isinstance(op, SortedSellOperator):
-        return op.inner, op.permute(torch.as_tensor(b)), op.unpermute
+        return op.inner, op.permute(action_vector(b, op)), op.unpermute
     return op, b, None
 
 
@@ -673,7 +670,7 @@ def hybrid_from_scipy(A, *, min_fill: float = 0.4, max_offsets: int = 31,
                          dtype or np.result_type(vals.dtype, np.float32))
         np.add.at(diags, (np.searchsorted(offsets, off[sel]), rows[sel]),
                   vals[sel])
-        banded = BandedOperator(_tensor(diags, device),
+        banded = BandedOperator(host_tensor(diags, device),
                                 offsets.tolist(), is_hermitian=is_hermitian)
         res = ~sel
     else:

@@ -4,6 +4,8 @@ An operator is described by plain data: numpy arrays plus static fields,
 
     {"type": "StencilOperator", "grid_shape", "offsets", "coeffs",
      "is_hermitian"}
+    {"type": "VariableStencilOperator", "grid_shape", "offsets",
+     "coeff_fields" (k, n), "is_hermitian"}
     {"type": "BandedOperator", "diags", "offsets", "is_hermitian"}
     {"type": "DenseOperator", "A", "is_hermitian"}
     {"type": "DiagonalOperator", "d"}
@@ -17,10 +19,10 @@ from it. Together they let both packages apply the same operator.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..ops.sparse import BandedOperator
-from ..ops.stencil import StencilOperator
+from ..ops.stencil import StencilOperator, VariableStencilOperator
+from .device import host_tensor
 from .linop import DenseOperator, DiagonalOperator, LinearOperator
 
 __all__ = ["operator_data", "from_operator_data", "to_torch_operator"]
@@ -33,6 +35,11 @@ def operator_data(op) -> dict:
         return {"type": kind, "grid_shape": tuple(op.grid_shape),
                 "offsets": tuple(tuple(o) for o in op.offsets),
                 "coeffs": np.asarray(op.coeffs),
+                "is_hermitian": bool(op.is_hermitian)}
+    if kind == "VariableStencilOperator":
+        return {"type": kind, "grid_shape": tuple(op.grid_shape),
+                "offsets": tuple(tuple(o) for o in op.offsets),
+                "coeff_fields": np.asarray(op.coeff_fields),
                 "is_hermitian": bool(op.is_hermitian)}
     if kind == "BandedOperator":
         return {"type": kind, "diags": np.asarray(op.diags),
@@ -50,17 +57,22 @@ def operator_data(op) -> dict:
 def from_operator_data(data: dict, *, device=None,
                        dtype=None) -> LinearOperator:
     """Build the port's operator from ``operator_data`` output, placing its
-    tensors on ``device`` (default CPU) with ``dtype`` (default: the data's)."""
+    tensors on ``device`` (default: ``utils.device.default_device()``)
+    with ``dtype`` (default: the data's)."""
     kind = data["type"]
 
     def tensor(a):
-        return torch.tensor(np.asarray(a), device=device, dtype=dtype)
+        return host_tensor(np.array(a), device, dtype)
 
     if kind == "StencilOperator":
         return StencilOperator(data["grid_shape"], data["offsets"],
                                np.array(data["coeffs"]),
                                is_hermitian=data["is_hermitian"],
                                dtype=dtype, device=device)
+    if kind == "VariableStencilOperator":
+        return VariableStencilOperator(data["grid_shape"], data["offsets"],
+                                       tensor(data["coeff_fields"]),
+                                       is_hermitian=data["is_hermitian"])
     if kind == "BandedOperator":
         return BandedOperator(tensor(data["diags"]), data["offsets"],
                               is_hermitian=data["is_hermitian"])

@@ -11,8 +11,9 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
-import numpy as np
 import torch
+
+from .device import host_tensor, resolve_device
 
 __all__ = ["LinearOperator", "DenseOperator", "MatrixFreeOperator",
            "DiagonalOperator", "NegatedOperator", "aslinearoperator"]
@@ -45,7 +46,7 @@ class DenseOperator(LinearOperator):
     never at construction."""
 
     def __init__(self, A, is_hermitian: Optional[bool] = None):
-        self.A = torch.as_tensor(A)
+        self.A = host_tensor(A)
         self._is_hermitian = is_hermitian
 
     @property
@@ -79,7 +80,7 @@ class DiagonalOperator(LinearOperator):
     is_hermitian = True
 
     def __init__(self, d):
-        self.d = torch.as_tensor(d)
+        self.d = host_tensor(d)
 
     @property
     def shape(self):
@@ -110,7 +111,7 @@ class MatrixFreeOperator(LinearOperator):
         self._matvec = matvec
         self.shape = tuple(int(s) for s in shape)
         self.dtype = dtype
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self.is_hermitian = bool(is_hermitian)
         self._opnorm = opnorm
 
@@ -161,7 +162,7 @@ def aslinearoperator(A, is_hermitian: Optional[bool] = None) -> LinearOperator:
     """Coerce ``A`` (operator, tensor or numpy array) to a LinearOperator."""
     if isinstance(A, LinearOperator):
         return A
-    A = torch.as_tensor(np.asarray(A) if not isinstance(A, torch.Tensor) else A)
+    A = host_tensor(A)
     if A.ndim != 2 or A.shape[0] != A.shape[1]:
         raise ValueError(f"expected a square matrix, got shape {tuple(A.shape)}")
     return DenseOperator(A, is_hermitian=is_hermitian)

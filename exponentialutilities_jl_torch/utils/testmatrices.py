@@ -8,13 +8,14 @@ import numpy as np
 import torch
 
 from ..ops.sparse import BandedOperator
+from .device import host_tensor
 
 __all__ = ["laplacian_1d", "poisson_2d", "laplacian_3d",
            "advection_diffusion_1d"]
 
 
 def _banded(diags, offsets, dtype, device):
-    D = torch.as_tensor(np.stack(diags)).to(dtype=dtype, device=device)
+    D = host_tensor(np.stack(diags), device, dtype)
     return BandedOperator(D, offsets, is_hermitian=True)
 
 
@@ -74,6 +75,5 @@ def advection_diffusion_1d(n: int, peclet: float = 10.0, dtype=torch.float64,
     lower[0] = 0.0
     upper = np.full(n, dcoef)
     upper[-1] = 0.0
-    D = torch.as_tensor(np.stack([lower, main, upper])).to(dtype=dtype,
-                                                            device=device)
+    D = host_tensor(np.stack([lower, main, upper]), device, dtype)
     return BandedOperator(D, (-1, 0, 1), is_hermitian=False)

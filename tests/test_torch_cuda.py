@@ -80,6 +80,82 @@ def test_b3_vs_twin(dev, dt, shape):
     assert torch.equal(mom, torch.stack(plain[2:]))
 
 
+def _var_op(kind, dt, dev):
+    """Variable-coefficient operators of B3-var: div(a grad u) in 3-D and
+    2-D (Hermitian, boundary fields facing outside), and a wide (|o| = 2)
+    non-symmetric 13-point one with random fields."""
+    rng = np.random.default_rng(20)
+    if kind == "diff3d":
+        return et.variable_diffusion_nd_stencil(
+            rng.uniform(0.5, 2.0, (5, 7, 130)), dtype=dt, device=dev)
+    if kind == "diff2d":
+        return et.variable_diffusion_nd_stencil(
+            rng.uniform(0.5, 2.0, (9, 33)), dtype=dt, device=dev)
+    offs = [(0, 0, 0)] + [tuple(s if i == a else 0 for i in range(3))
+                          for a in range(3) for s in (-2, -1, 1, 2)]
+    shape = (6, 9, 40)
+    C = rng.uniform(0.2, 1.0, (len(offs), int(np.prod(shape))))
+    return et.VariableStencilOperator(shape, offs, C, dtype=dt, device=dev)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("kind", ["diff3d", "diff2d", "wide3d"])
+def test_b3_var_vs_twin(dev, dt, kind):
+    op = _var_op(kind, dt, dev)
+    n = op.shape[0]
+    Z, Vc, Vp, W = (_vec(n, dt, dev, s) for s in range(4))
+    co = torch.tensor([0.3, -0.7, 0.2, 0.45], dtype=dt, device=dev)
+    W1, W2 = W.clone(), W.clone()
+    _build.reset_launch_counts()
+    Y, Zn, ypy, yzy, _ = tf.fused_lanczos_step(Z, Vc, Vp, co, op, w_accum=W1)
+    mom = torch.stack([ypy, yzy])
+    Yr, Znr, momr = tf.fused_sweep_ref(Z, Vc, Vp, co, op.grid_shape,
+                                       op.offsets, op.coeff_fields, W2)
+    for a, b in ((Y, Yr), (Zn, Znr), (mom, momr), (W1, W2)):
+        _close(a, b, dt)
+    plain = tf.fused_lanczos_step(Z, Vc, Vp, co[:3].contiguous(), op)
+    _close(plain[1], Znr, dt)
+    again = tf.fused_lanczos_step(Z, Vc, Vp, co[:3].contiguous(), op)
+    assert torch.equal(mom, torch.stack(plain[2:]))
+    assert torch.equal(torch.stack(again[2:]), torch.stack(plain[2:]))
+    assert _build.launches["fused_sweep_var"] == 3
+    assert _build.launches["fused_sweep"] == 0
+
+
+def test_b3_var_fields_cast_once(dev):
+    """float32 fields driven by float64 vectors: B3-var runs in float64 on
+    a copy of the fields made once."""
+    op = _var_op("diff3d", torch.float32, dev)
+    n = op.shape[0]
+    x = _vec(n, torch.float64, dev, 21)
+    y = tf.stencil_matvec_fused(op, x)
+    (copy,) = [c for _, c in op._casts.values()]
+    tf.stencil_matvec_fused(op, x)
+    (again,) = [c for _, c in op._casts.values()]
+    assert again is copy and copy.dtype == torch.float64
+    _close(y, op.matvec(x), torch.float64)
+
+
+def test_var_and_arnoldi_paths_dispatch_to_kernels(dev):
+    a = np.random.default_rng(22).uniform(0.5, 2.0, (12, 14, 16))
+    op = et.variable_diffusion_nd_stencil(a, device=dev)
+    assert td.recurrence_engine(op, torch.float64, device=dev,
+                                hermitian=True) is tf.recurrence_apply_fused
+    b = _vec(op.shape[0], torch.float64, dev, 23)
+    _build.reset_launch_counts()
+    w1 = et.expv(0.05, op, b, m=20, two_pass=True)
+    assert dict(_build.launches)["fused_sweep_var"] == 42
+    w2 = et.expv_chebyshev(0.05, op, b, tol=1e-12)
+    assert float((w1 - w2).norm() / w1.norm()) < 1e-10
+    adv = et.advection_diffusion_1d(500, device=dev)
+    x = _vec(500, torch.float64, dev, 24)
+    _build.reset_launch_counts()
+    w3 = et.expv(1e-5, adv, x, m=30)
+    w4 = et.expv(1e-5, adv, x, m=30, iop=2, two_pass=True)
+    assert dict(_build.launches)["banded_spmv"] == 90
+    assert bool(torch.isfinite(w3).all()) and bool(torch.isfinite(w4).all())
+
+
 def _rows(m, op, dt, dev, seed):
     """Random recurrence rows with ca scaled by 1/|A| (bounded growth)."""
     rows = _vec(4 * m, dt, dev, seed).reshape(m, 4) * 0.5
@@ -162,7 +238,7 @@ def test_phi_path_dispatches_to_kernels(dev):
     assert dict(_build.launches) == {
         "resident_recurrence": 0, "resident_lanczos": 1, "resident_multi": 2,
         "resident_banded": 0, "resident_grid": 0, "fused_sweep": 0,
-        "banded_spmv": 0, "blockell_spmv": 0, "sell_spmv": 0,
+        "fused_sweep_var": 0, "banded_spmv": 0, "blockell_spmv": 0, "sell_spmv": 0,
         "seg_compact": 0}
     for w in (w1, w2):
         assert float((w - w3).norm() / w3.norm()) < 1e-10

@@ -1,9 +1,9 @@
 """PyTorch port vs JAX package: the structured sparse containers
 (ops/sparse.py: BandedOperator, SparseELLOperator, BlockELLOperator), the
 plain twins of their SpMV kernels (B7 ``banded_spmv``, B8
-``blockell_spmv``) and the host packers shared by path
-(utils/native.py). Same seeded numpy inputs through both packages, float64
-unless stated.
+``blockell_spmv``) and the port's copy of the JAX package's host packers
+(exponentialutilities_jl_torch/native/, through utils/native.py). Same
+seeded numpy inputs through both packages, float64 unless stated.
 
 Tolerances (norm-scaled, tests/torch_parity.py): RTOL64 where both sides
 run the same products in another summation order; RTOL32 against the JAX
@@ -48,8 +48,8 @@ def _x(n, seed=0):
 
 
 def test_native_loads_without_jax():
-    """utils/native.py loads the JAX package's framework-free packer file
-    by its path: a fresh interpreter that uses it never imports jax."""
+    """utils/native.py uses the port's own copy of the packers: a fresh
+    interpreter that uses it never imports jax or the JAX package."""
     code = (
         "import sys; sys.path.insert(0, %r)\n"
         "from exponentialutilities_jl_torch.utils import native\n"
@@ -82,9 +82,9 @@ def test_native_is_the_jax_packer():
 
 
 def test_rcm_ordering_with_isolated_rows():
-    """A graph with isolated rows after connected ones: the native search
-    loses vertices there (ROADMAP Queue C); the port's ordering is still a
-    permutation, and the RCM-permuted SELL operator still applies A."""
+    """A graph with isolated rows after connected ones: the JAX package's
+    native search loses vertices there (ROADMAP Queue C); the port's copy
+    orders every vertex, and the RCM-permuted SELL operator applies A."""
     n = 3000
     A = sp.random(n, n, density=1e-4, random_state=np.random.RandomState(1),
                   format="csr")
@@ -97,6 +97,37 @@ def test_rcm_ordering_with_isolated_rows():
     back = np.empty(n)
     back[perm] = t2n(op.matvec(torch.as_tensor(x[perm])))
     assert_close(back, A @ x, RTOL64, "rcm matvec")
+
+
+@pytest.mark.parametrize("case", ["random", "isolated", "components"])
+def test_rcm_repair_keeps_native_permutations(case):
+    """The repaired start-vertex search changes nothing where the JAX
+    package's native search already ordered every vertex, and completes
+    the ordering where it did not."""
+    rng = np.random.RandomState(5)
+    if case == "random":
+        A = _random_sparse(300, density=0.02, seed=9)
+    elif case == "isolated":
+        A = sp.random(2000, 2000, density=2e-4, random_state=rng, format="csr")
+    else:
+        A = sp.block_diag([_random_sparse(50, density=0.1, seed=s)
+                           for s in range(4)] + [sp.csr_matrix((7, 7))],
+                          format="csr")
+    A = (A + A.T).tocsr()
+    n = A.shape[0]
+    S = (A + A.T).tocsr()
+    indptr = np.ascontiguousarray(S.indptr, np.int64)
+    indices = np.ascontiguousarray(S.indices, np.int32)
+    old = np.empty(n, np.int32)
+    jnative.load_native().rcm_ordering(
+        n, indptr.ctypes.data_as(jnative._i64p),
+        indices.ctypes.data_as(jnative._i32p), old.ctypes.data_as(jnative._i32p))
+    new = tnative.rcm_ordering(A)
+    np.testing.assert_array_equal(np.sort(new), np.arange(n))
+    if np.array_equal(np.sort(old), np.arange(n)):
+        np.testing.assert_array_equal(new, old)
+    else:
+        assert case != "random"
 
 
 BANDED = {

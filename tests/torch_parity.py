@@ -6,6 +6,12 @@ arrays with a stated tolerance."""
 import numpy as np
 import torch
 
+from exponentialutilities_jl_torch import set_default_device
+
+# the port's constructors put host data on the card by default; the CPU
+# parity tests ask for the CPU
+set_default_device("cpu")
+
 # f64 against the JAX XLA paths: both sides run the same arithmetic up to
 # summation order, so agreement is a few ulps of the result's scale
 RTOL64 = 1e-12
