@@ -27,7 +27,10 @@ its seconds:
   2. build    nvcc builds the kernels of ops/kernels/csrc/ (seconds)
   3. kernels  B1-B10 and B3-var against their plain twins, float32 and
               float64, at the main paths' shapes, plus bitwise-repeatable
-              results
+              results; per SELL pack, the share of B9's 256-row blocks
+              that stage x in shared memory (none of the band-20000
+              pack's; phase 4 adds the RCM'd n = 1e6 pack, held to more
+              than half, and the scattered packs)
   4. main     the public entry points (expv_chebyshev, expv with and
               without two_pass, phiv with and without two_pass,
               phiv_chebyshev, phiv_timestep_chebyshev) with launch counts
@@ -48,7 +51,12 @@ its seconds:
               over 3.35 TB/s and its operations over the vector peak) and
               the time of the one PyTorch call that computes the same
               function, where there is one (CSR or BSR products,
-              segment_reduce)
+              segment_reduce). A median of one call also counts the host's
+              part of it (~20-35 us for these wrappers), so B7-B10 and
+              their library calls are also timed 20 calls back to back
+              (the device's time per call), and B9 also on a copy of
+              its pack with no staging budget (x gathered from global
+              memory in every block)
 
 It prints a JSON line of the kernels, then the card's name and power
 limit, then {"ok": true, "device": {...}} as the last line. Any failed
@@ -587,6 +595,17 @@ def main() -> int:
               f"bitwise repeat ok", flush=True)
         return y
 
+    def stage_share(label, d, want=None):
+        """Print (and with ``want`` check) the share of B9's 256-row blocks
+        that stage their x window in shared memory."""
+        share = float(ts.stage_blocks(d).double().mean())
+        print(f"stage {label}: {share:.1%} of "
+              f"{-(-d.nslices * ts.SLICE // ts.ROWS_PER_BLOCK)} blocks stage x "
+              f"(launch budget {d.stage_cap} values)", flush=True)
+        if want is not None:
+            check(share == want, f"{label} staged share {share}")
+        return share
+
     for dt in (f32, f64):
         for label, op in ((f"poisson_2d({NP}, {NP})",
                            et.poisson_2d(NP, NP, dtype=dt, device=dev)),
@@ -615,12 +634,15 @@ def main() -> int:
             y = spmv_check(f"B9 {label}", dt, lambda: ts.sell_spmv(d, x),
                            lambda: ts.sell_spmv_ref(d, x),
                            "sell_spmv" if label.endswith("default") else None)
+            stage_share(f"B9 {label} {dname[dt]}", d,
+                        0.0 if label.startswith("band") else None)
             if label.startswith("band") and dt == f64:
                 e = rel_max(y.cpu(), torch.as_tensor(A_wide @ x.cpu().numpy()))
                 check(e <= KTOL["float64"], f"B9 {label} vs scipy {e:.2e}")
                 print(f"check B9 {label}: vs scipy {e:.2e} (the TPU window "
                       "refused this band)", flush=True)
         d = seg.to(dtype=dt)
+        stage_share(f"B9 scattered n=1e6 seg L=16 {dname[dt]}", d.base)
         x = vec(NS, dt, rng2)
         p = ts.sell_spmv(d.base, x)
         spmv_check(f"B10 scattered n=1e6 seg L=16 ({d.base.n} segments)", dt,
@@ -737,6 +759,12 @@ def main() -> int:
     bH = torch.as_tensor(rng4.standard_normal(NP * NP), device=dev)
     op3b = et.laplacian_nd_stencil(NB, NB, NB, device=dev)
     bB = torch.as_tensor(rng4.standard_normal(NB ** 3), device=dev)
+    check(stage_share("B9 symmetrized bench_sell n=1e6 after RCM", opS.data)
+          > 0.5, "the RCM'd pack stages x in most blocks")
+    for mode, op in sc_ops.items():
+        stage_share(f"B9 scattered n=1e6 {mode or 'default'}",
+                    op.data.base if mode == "seg" else
+                    op.inner.data if mode == "sorted" else op.data)
     print(f"sparse main-path operators: {time.perf_counter() - t0:.1f} s "
           f"(host packs; SELL nnz {opS.nnz}, scattered nnz "
           f"{sc_ops[None].nnz}, hybrid residual nnz {opH.sell.nnz})",
@@ -1324,7 +1352,26 @@ def main() -> int:
                   f"{card}", flush=True)
         del Z, Vc, Vp, W
 
-    # B7-B10 at the main paths' shapes, plain, kernel, kernel, plain
+    bursts = {}         # back-to-back kernel ms
+
+    def burst_ms(fn, k=20):
+        """Per-call time of k calls back to back between two events: the
+        device time when the device is slower than the host's enqueue
+        (median_ms also counts the host's part of one call)."""
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(k):
+            fn()
+        e.record()
+        e.synchronize()
+        return s.elapsed_time(e) / k
+
+    # B7-B10 at the main paths' shapes, plain, kernel, kernel, plain; then
+    # kernel and library call back to back
     def pair_times(name, dn, kfn, pfn, shape, wk=None, lib=None):
         p1, k1, k2, p2 = (median_ms(f) for f in (pfn, kfn, kfn, pfn))
         times[(name, dn)] = (statistics.median([k1, k2]),
@@ -1333,17 +1380,35 @@ def main() -> int:
             work[(name, dn)] = wk
         line = (f"time {name} {dn} ({shape}): kernel {k1:.4f} / {k2:.4f} ms,"
                 f" plain {p1:.4f} / {p2:.4f} ms")
+        bursts[(name, dn)] = burst_ms(kfn)
+        burst = f"back-to-back: kernel {bursts[(name, dn)]:.4f} ms"
         if lib is not None:
             what, make = lib
             try:
                 fn = make()
                 lib_ms[(name, dn)] = median_ms(fn)
                 line += f", {what} {lib_ms[(name, dn)]:.4f} ms"
+                burst += f", {what} {burst_ms(fn):.4f} ms"
             except (RuntimeError, NotImplementedError) as exc:
                 line += f", {what} does not run here ({exc.__class__.__name__}"
                 line += f": {str(exc).splitlines()[0][:80]})"
-        print(f"{line} {card}", flush=True)
+        print(f"{line}; {burst} {card}", flush=True)
         return times[(name, dn)]
+
+    def staged_vs_global(label, d, x):
+        """B9 on one pack as packed (x staged where a block's window fits)
+        and on a copy whose staging budget is 0 (every block gathers x from
+        global memory), back to back, in turns; both give the same bits."""
+        g = ts.SellData(d.vals, d.cols, d.slice_ptr, d.row_of, d.n, d.nnz,
+                        ncols=d.ncols, sigma=d.sigma,
+                        derived=(d.nslots, d.spans, 0))
+        check(torch.equal(ts.sell_spmv(d, x), ts.sell_spmv(g, x)),
+              f"B9 {label}: staged and global gathers differ")
+        s1, g1, g2, s2 = (burst_ms(lambda p=p: ts.sell_spmv(p, x))
+                          for p in (d, g, g, d))
+        print(f"time B9 staging {label}, back-to-back: staged {s1:.4f} / "
+              f"{s2:.4f} ms, global gathers {g1:.4f} / {g2:.4f} ms {card}",
+              flush=True)
 
     def csr_tensor(A, dt):
         """A scipy matrix as a torch CSR tensor on the card."""
@@ -1398,6 +1463,7 @@ def main() -> int:
                    (dS.nnz * (isz + 4) + 2 * NS * isz, 2 * dS.nnz),
                    ("CSR A @ x", lambda: (lambda A: lambda: A @ xS)(
                        csr_tensor(A_sell_rcm, dt))))
+        staged_vs_global(f"RCM'd n=1e6 {dn}", dS, xS)
         dC, xC = sc_ops["seg"].data.to(dtype=dt), bC.to(dt)
         pC = ts.sell_spmv(dC.base, xC)
         pair_times("seg_compact", dn, lambda: ts.seg_compact(pC, dC.seg_ptr),
@@ -1427,14 +1493,18 @@ def main() -> int:
                                lambda: ts.sell_spmv(d, x),
                                lambda: ts.sell_spmv_ref(d, x),
                                "bench_sell n=1e7, d=8, band 700")
-        t = ms * 1e-3
+        staged_vs_global(f"n=1e7 {dname[dt]}", d, x)
         isz = x.element_size()
         slots = d.vals.numel()
-        raw = (slots * isz + slots * 4 + 2 * NS_TIME * isz) / t / 1e9
-        eff = ((isz + 4) * d.nnz + 2 * isz * NS_TIME) / t / 1e9
-        print(f"rate B9 n=1e7 {dname[dt]}: {ms:.4f} ms per matvec | "
-              f"raw-stream {raw:.1f} GB/s | effective-CSR {eff:.1f} GB/s | "
-              f"{d.nnz / t / 1e9:.2f} Gnnz/s {card}", flush=True)
+        for how, t in (("", ms * 1e-3),
+                       (" back-to-back", bursts[("sell_spmv n=1e7",
+                                                 dname[dt])] * 1e-3)):
+            raw = (slots * isz + slots * 4 + 2 * NS_TIME * isz) / t / 1e9
+            eff = ((isz + 4) * d.nnz + 2 * isz * NS_TIME) / t / 1e9
+            print(f"rate B9 n=1e7 {dname[dt]}{how}: {t * 1e3:.4f} ms per "
+                  f"matvec | raw-stream {raw:.1f} GB/s | effective-CSR "
+                  f"{eff:.1f} GB/s | {d.nnz / t / 1e9:.2f} Gnnz/s {card}",
+                  flush=True)
     del d7, d, x
 
     def plain_op(op, fn, is_hermitian=True):

@@ -98,7 +98,8 @@ def _declare(lib):
         f.argtypes = [_VP, _VP, _VP, _LL, _I, _I, _I, _VP, _VP]
         f.restype = _I
         f = getattr(lib, f"eu_sell_spmv_{suf}")
-        f.argtypes = [_VP, _VP, _VP, _VP, _VP, _LL, _LL, _VP, _VP]
+        f.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL, _I, _I,
+                      _VP, _VP]
         f.restype = _I
         f = getattr(lib, f"eu_seg_compact_{suf}")
         f.argtypes = [_VP, _VP, _LL, _VP, _VP]

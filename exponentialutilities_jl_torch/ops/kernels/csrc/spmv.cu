@@ -19,13 +19,28 @@
 //   y[r br + i] = sum_k sum_j blocks[r, k, i, j] x[bcols[r, k] bc + j]
 // The TPU kernel prefetches the block columns into SMEM, copies the needed
 // x rows into VMEM and reduces one (rows, w, br, bc) tile. Here one warp
-// owns one block-row: for each of its br output rows the lanes stride over
-// the w bc products (consecutive lanes on consecutive j, so a block row is
-// read contiguously), x is gathered through the read-only path, and the
-// row is reduced with warp shuffles in a fixed order. Bound: the block
-// stream, nbr w br bc sizeof(T) bytes, read once.
+// owns one block row, which is one contiguous run of w br bc values.
+// Bound on the H100: the block stream, nbr w br bc sizeof(T) bytes read
+// once (x, 2 MB to 16 MB here, stays in L2). The first design walked the
+// block row once per output row with 8-byte loads, a runtime division and
+// a bcols reload per element and one shuffle reduction per row: few loads
+// in flight, 1.5 TB/s. For the block shapes the port builds (8 x 8, 4 x 4;
+// template on (br, bc)) each lane now owns one 16-byte piece of a block: a
+// row i and V = 16 / sizeof(T) columns j..j+V-1 (8 x 8 float64: lane l has
+// i = l / 4, j = 2 (l % 4), and the warp's 32 loads are one 512-byte
+// block; smaller blocks put 32 / (br bc / V) blocks in one warp step). The
+// lane reads the matching x[bcols[k] bc + j ..] as one 16-byte load, the
+// warp's bcols come in once (lane k holds bcols[k], broadcast with
+// __shfl_sync), kStepsB steps of block and x loads are issued before their
+// FMAs (evict-first loads for the block stream), partial sums stay in
+// registers, and one fixed-order xor-shuffle reduction per block row ends
+// it. Any other (br, bc), or an operand that is not 16-byte aligned, takes
+// the general kernel: the lanes stride over the w bc products of each of
+// the br rows. The two kernels sum in different orders, so B8's result is
+// bitwise repeatable for the same operands at the same 16-byte alignment
+// (an offset view of x may give other last bits than an aligned copy).
 //
-// No float atomics: every result is bitwise repeatable.
+// No float atomics: every other result is bitwise repeatable.
 #include "common.cuh"
 
 namespace eu {
@@ -75,6 +90,82 @@ blockell_spmv_kernel(const T* __restrict__ blocks, const int* __restrict__ bcols
   }
 }
 
+template <typename T> struct Piece16;
+template <> struct Piece16<float> {
+  using type = float4;
+  static __device__ __forceinline__ float dot(float4 a, float4 b, float acc) {
+    acc = fmaf(a.x, b.x, acc);
+    acc = fmaf(a.y, b.y, acc);
+    acc = fmaf(a.z, b.z, acc);
+    return fmaf(a.w, b.w, acc);
+  }
+};
+template <> struct Piece16<double> {
+  using type = double2;
+  static __device__ __forceinline__ double dot(double2 a, double2 b, double acc) {
+    acc = fma(a.x, b.x, acc);
+    return fma(a.y, b.y, acc);
+  }
+};
+
+constexpr int kStepsB = 8;      // warp steps of loads issued before their FMAs
+
+// B8 for (BR, BC) blocks whose rows hold whole 16-byte pieces (module note)
+template <typename T, int BR, int BC>
+__global__ void __launch_bounds__(kThreads)
+blockell_spmv_tiled(const T* __restrict__ blocks, const int* __restrict__ bcols,
+                    const T* __restrict__ x, long long nbr, int w,
+                    T* __restrict__ y) {
+  using VT = typename Piece16<T>::type;
+  constexpr int V = 16 / sizeof(T);
+  constexpr int kPieces = BR * BC / V;          // lanes per block
+  constexpr int kPerStep = 32 / kPieces;        // blocks per warp step
+  constexpr int kRowLanes = BC / V;             // lanes per block row
+  constexpr int kSteps = kStepsB < 32 / kPerStep ? kStepsB : 32 / kPerStep;
+  static_assert(BC % V == 0 && kPieces <= 32 && 32 % kPieces == 0,
+                "a block row must be whole 16-byte pieces");
+  const long long r = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (r >= nbr) return;                     // the whole warp leaves together
+  const int lane = threadIdx.x & 31;
+  const int q = lane / kPieces;             // this lane's block in a step
+  const int e = lane % kPieces;             // its piece of that block
+  const int i = e / kRowLanes;              // the piece's row
+  const int j = (e % kRowLanes) * V;        // and first column
+  const VT* rb = reinterpret_cast<const VT*>(blocks + r * w * (long long)(BR * BC)) + e;
+  const int* rc = bcols + r * w;
+  T acc = T(0);
+  for (int k0 = 0; k0 < w; k0 += 32) {      // 32 block columns per bcols load
+    const int nk = min(32, w - k0);
+    const int col = lane < nk ? __ldcs(rc + k0 + lane) : 0;
+    for (int t0 = 0; t0 < nk; t0 += kSteps * kPerStep) {
+      VT a[kSteps], xv[kSteps];
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        const int kb = t0 + u * kPerStep + q;
+        const int cb = __shfl_sync(0xffffffffu, col, kb & 31);
+        if (kb < nk) {
+          a[u] = __ldcs(rb + (long long)(k0 + kb) * kPieces);
+          xv[u] = __ldg(reinterpret_cast<const VT*>(x + (long long)cb * BC + j));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u)
+        if (t0 + u * kPerStep + q < nk) acc = Piece16<T>::dot(a[u], xv[u], acc);
+    }
+  }
+  // the lanes of row i: the pieces of one block row, then the blocks of a
+  // step, in a fixed order
+#pragma unroll
+  for (int o = 1; o < kRowLanes; o <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+#pragma unroll
+  for (int o = kPieces; o < 32; o <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (q == 0 && e % kRowLanes == 0) y[r * BR + i] = acc;
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+
 template <typename T>
 int launch_banded_spmv(const T* diags, const int* offs, int k, const T* x,
                        long long n, T* y, cudaStream_t stream) {
@@ -93,8 +184,16 @@ int launch_blockell_spmv(const T* blocks, const int* bcols, const T* x,
   if (nbr < 1 || w < 1 || br < 1 || bc < 1) return (int)cudaErrorInvalidValue;
   const long long grid = (nbr + kWarps - 1) / kWarps;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  blockell_spmv_kernel<T><<<(unsigned)grid, kThreads, 0, stream>>>(
-      blocks, bcols, x, nbr, w, br, bc, y);
+  const bool vec = aligned16(blocks) && aligned16(x);
+  if (vec && br == 8 && bc == 8)
+    blockell_spmv_tiled<T, 8, 8><<<(unsigned)grid, kThreads, 0, stream>>>(
+        blocks, bcols, x, nbr, w, y);
+  else if (vec && br == 4 && bc == 4)
+    blockell_spmv_tiled<T, 4, 4><<<(unsigned)grid, kThreads, 0, stream>>>(
+        blocks, bcols, x, nbr, w, y);
+  else
+    blockell_spmv_kernel<T><<<(unsigned)grid, kThreads, 0, stream>>>(
+        blocks, bcols, x, nbr, w, br, bc, y);
   return (int)cudaGetLastError();
 }
 

@@ -14,10 +14,22 @@ x natively, so one layout serves every mode here:
   are sorted by degree, longest first, so that a slice's rows have similar
   lengths; each slice is as wide as its longest row. Values and int32
   global column indices are stored slot-major inside a slice (slot j of
-  slice row r at ``slice_ptr[s] + C j + r``); padded slots hold value 0 and
-  column 0. ``slice_ptr`` (int64) gives each slice's first slot and
-  ``row_of`` (int32) the original row of each packed row, so y is written
-  in the original order.
+  slice row r at ``slice_ptr[s] + C j + r``). ``slice_ptr`` (int64) gives
+  each slice's first slot and ``row_of`` (int32) the original row of each
+  packed row, so y is written in the original order.
+* **Spans.** ``spans`` (nslices, 2) int32 holds each slice's column span
+  [lo_s, hi_s] over its real entries ([0, -1] for a slice with none), and
+  padded slots hold value 0 and column lo_s, so every slot's column lies
+  in its slice's span. B9 stages x[lo..hi] of a block of
+  ``ROWS_PER_BLOCK`` = 256 rows (8 slices; the union of their spans) in
+  shared memory when that window fits ``STAGE_ELEMS`` values, and gathers
+  from global memory otherwise (``csrc/sell.cu``). The spans depend only on
+  ``cols`` and ``slice_ptr``: the packers compute them, a pack loaded or
+  built by hand computes them on its device while it is checked (over all
+  slots, padding included), and they are not saved. A pack saved by an
+  earlier version holds column 0 in its padded slots, so most of its spans
+  start at 0 and few of its blocks stage x: its products are right, and
+  packing the matrix again restores the staging.
 * **Bucketed** (``sell_pack_bucketed``): the same layout sorted over a
   wider sigma (``BUCKET_SIGMA``). Degree bucketing is what the sigma sort
   does.
@@ -30,9 +42,10 @@ x natively, so one layout serves every mode here:
   ``_seg_compact_kernel`` computes in its direct mode).
 
 Kernels (``csrc/sell.cu``): B9 ``sell_spmv`` (one thread per row of a
-slice) and B10 ``seg_compact``; their plain twins are ``sell_spmv_ref``
-and ``seg_compact_ref``. A wrapper runs the twin for CPU tensors and, for
-CUDA tensors, launches the kernel or raises.
+slice, x staged per 256-row block where the spans allow) and B10
+``seg_compact``; their plain twins are ``sell_spmv_ref`` and
+``seg_compact_ref``. A wrapper runs the twin for CPU tensors and, for CUDA
+tensors, launches the kernel or raises.
 
 The JAX pack arguments ``window``, ``residue``, ``mode``, ``max_chunks``,
 ``uniform_k`` and ``kmax`` are accepted and have no effect on this
@@ -56,33 +69,51 @@ __all__ = ["SellData", "sell_pack", "sell_spmv", "sell_spmv_ref",
            "SellBucketed", "sell_pack_bucketed", "sell_spmv_bucketed",
            "sell_spmv_bucketed_ref", "SellSeg", "sell_pack_seg",
            "sell_spmv_seg", "sell_spmv_seg_ref", "seg_compact",
-           "seg_compact_ref", "SLICE", "SIGMA", "BUCKET_SIGMA", "SEG_LEN"]
+           "seg_compact_ref", "stage_blocks", "SLICE", "SIGMA",
+           "BUCKET_SIGMA", "SEG_LEN", "ROWS_PER_BLOCK", "STAGE_ELEMS",
+           "WIDE_ROWS"]
 
 SLICE = 32              # rows per slice: eu::kSlice in csrc/sell.cu
 SIGMA = 256             # sort window of the default pack (8 slices)
 BUCKET_SIGMA = 8192     # sort window of the bucketed pack
 SEG_LEN = 16            # segment length of the segmented pack
+ROWS_PER_BLOCK = 256    # rows of one B9 block: eu::kSlicesPerBlock slices
+STAGE_ELEMS = 4096      # B9's x window budget: eu::kStageElems
+# mean slots a row from which B9 keeps 16 in flight, not 4: 16 won on rows
+# of 16.9 and lost on rows of 8.0 (the two packs timed, PERF.md); 12 lies
+# between them and was not timed itself
+WIDE_ROWS = 12
+_VEC = 4                # staged windows start 16-byte aligned (float32)
+_MAX_SLICE_SLOTS = 2 ** 31   # B9 offsets inside a slice are int32
 
 
 class SellData:
     """A SELL-C-sigma pack (module doc) of an (n, ncols) matrix.
 
     vals:      (S,) values, slot-major per slice, 0 in padded slots.
-    cols:      (S,) int32 global column indices, 0 in padded slots.
+    cols:      (S,) int32 global column indices, lo_s in padded slots.
     slice_ptr: (nslices + 1,) int64 first slot of each slice.
     row_of:    (n,) int32 original row of each packed row.
     n, ncols:  rows and columns; nnz: stored entries (duplicates summed).
     sigma:     the sort window the pack was built with.
-    nslots:    S = slice_ptr[-1], kept on the host so a launch can check
-               the arrays' sizes without a sync. The packers pass it; when
-               it is None (a pack loaded or built by hand) the pack is
-               checked here, with one sync: slice_ptr runs from 0 to S in
-               whole slices, and every column and row index is in range,
-               since B9 gathers x and scatters y by them unchecked.
+    spans:     (nslices, 2) int32 column span [lo_s, hi_s] of each slice
+               ([0, -1] for a slice without entries), on the pack's device.
+    nslots:    S = slice_ptr[-1], on the host, so a launch can check the
+               arrays' sizes without a sync.
+    stage_cap: the largest x window of a 256-row block (union of its spans,
+               16-byte aligned) within ``STAGE_ELEMS``, 0 if none fits: the
+               values of shared memory a B9 launch takes, on the host.
+    derived:   (nslots, spans, stage_cap) as the packers compute
+               them; when None (a pack loaded or built by hand) the pack is
+               checked here and they are derived on its device, with one
+               sync: slice_ptr runs from 0 to S in whole slices, every
+               column and row index is in range, since B9 gathers x and
+               scatters y by them unchecked, and the spans cover every
+               slot, since B9 stages x by them.
     """
 
     def __init__(self, vals, cols, slice_ptr, row_of, n, nnz, *, ncols=None,
-                 sigma=SIGMA, nslots=None):
+                 sigma=SIGMA, derived=None):
         self.vals = vals
         self.cols = cols
         self.slice_ptr = slice_ptr
@@ -91,9 +122,11 @@ class SellData:
         self.ncols = self.n if ncols is None else int(ncols)
         self.nnz = int(nnz)
         self.sigma = int(sigma)
-        self.nslots = self._validate() if nslots is None else int(nslots)
+        nslots, self.spans, stage_cap = (
+            self._validate() if derived is None else derived)
+        self.nslots, self.stage_cap = int(nslots), int(stage_cap)
 
-    def _validate(self) -> int:
+    def _validate(self):
         v, c, sp, ro = self.vals, self.cols, self.slice_ptr, self.row_of
         if (v.dim() != 1 or c.shape != v.shape or sp.dim() != 1
                 or sp.numel() < 1 or ro.shape != (self.n,)
@@ -109,17 +142,20 @@ class SellData:
             return (torch.aminmax(t.long()) if t.numel()
                     else (sp.new_tensor(0), sp.new_tensor(-1)))
 
-        first, last, bad, cmin, cmax, rmin, rmax = torch.stack([
-            sp[0], sp[-1], ((w < 0) | (w % SLICE != 0)).sum(),
-            *span(c), *span(ro)]).tolist()
+        spans = _slice_spans(c, sp)
+        first, last, bad, cmin, cmax, rmin, rmax, stage = torch.stack([
+            sp[0], sp[-1],
+            ((w < 0) | (w % SLICE != 0) | (w >= _MAX_SLICE_SLOTS)).sum(),
+            *span(c), *span(ro), _stage_cap(_block_windows(spans))]).tolist()
         if first != 0 or last != v.numel() or bad:
             raise ValueError(f"SELL pack: slice_ptr must rise from 0 to "
-                             f"{v.numel()} in multiples of {SLICE}")
+                             f"{v.numel()} in multiples of {SLICE}, fewer "
+                             f"than {_MAX_SLICE_SLOTS} slots a slice")
         if cmin < 0 or cmax >= self.ncols or rmin < 0 or rmax >= self.n:
             raise ValueError(f"SELL pack: columns in [{cmin}, {cmax}] of "
                              f"{self.ncols}, rows in [{rmin}, {rmax}] of "
                              f"{self.n}")
-        return int(v.numel())
+        return int(v.numel()), spans, stage
 
     @property
     def dtype(self):
@@ -137,11 +173,11 @@ class SellData:
         return {"vals": self.vals, "cols": self.cols,
                 "slice_ptr": self.slice_ptr, "row_of": self.row_of}
 
-    def _rebuild(self, **fields):
+    def _rebuild(self, spans, **fields):
         return type(self)(fields["vals"], fields["cols"],
                           fields["slice_ptr"], fields["row_of"], self.n,
                           self.nnz, ncols=self.ncols, sigma=self.sigma,
-                          nslots=self.nslots)
+                          derived=(self.nslots, spans, self.stage_cap))
 
     def to(self, device=None, dtype=None):
         """A copy with the tensors on ``device`` and the values in
@@ -149,13 +185,13 @@ class SellData:
         f = {k: v.to(device) for k, v in self._fields().items()}
         if dtype is not None:
             f["vals"] = f["vals"].to(dtype)
-        return self._rebuild(**f)
+        return self._rebuild(self.spans.to(device), **f)
 
     def with_vals(self, vals):
         """The same pattern with other slot values (e.g. |vals|)."""
         f = self._fields()
         f["vals"] = vals
-        return self._rebuild(**f)
+        return self._rebuild(self.spans, **f)
 
     def save(self, path: str) -> None:
         """Persist the pack (npz): pack once, ``load`` on every restart."""
@@ -246,6 +282,62 @@ def _npz(path: str) -> str:
         else path + ".npz"
 
 
+# ---------------------------------------------------------------- spans --
+
+def _slice_spans(cols, slice_ptr):
+    """(nslices, 2) int32 [min, max] column over each slice's slots ([0, -1]
+    for a slice without slots), on the pack's device and without a sync; a
+    broken ``slice_ptr`` gives spans that the caller's check discards."""
+    ns = slice_ptr.numel() - 1
+    if ns < 1 or cols.numel() == 0:
+        return torch.tensor([[0, -1]] * max(ns, 0), dtype=torch.int32,
+                            device=cols.device).reshape(-1, 2)
+    slot = torch.arange(cols.numel(), device=cols.device)
+    owner = (torch.searchsorted(slice_ptr, slot, right=True) - 1).clamp_(
+        0, ns - 1)
+    c = cols.long()
+    lo = torch.full((ns,), 2 ** 31, dtype=torch.int64, device=cols.device)
+    hi = torch.full((ns,), -1, dtype=torch.int64, device=cols.device)
+    lo.scatter_reduce_(0, owner, c, "amin")
+    hi.scatter_reduce_(0, owner, c, "amax")
+    empty = hi < lo
+    return torch.stack([lo.masked_fill(empty, 0), hi.masked_fill(empty, -1)],
+                       dim=1).to(torch.int32)
+
+
+def _block_windows(spans, vec: int = _VEC):
+    """Per B9 block (8 slices, 256 rows), the values its staged x window
+    holds: the union of the slices' spans from a ``vec``-aligned start,
+    rounded up to whole 16-byte pieces of ``vec`` values (float32's 4, the
+    default, bounds float64's 2); 0 for a block without entries."""
+    ns = spans.shape[0]
+    per = ROWS_PER_BLOCK // SLICE
+    pad = -ns % per
+    lo, hi = spans[:, 0].long(), spans[:, 1].long()
+    empty = hi < lo
+    big = torch.full((pad,), 2 ** 62, dtype=torch.int64, device=spans.device)
+    lo = torch.cat([lo.masked_fill(empty, 2 ** 62), big]).view(-1, per)
+    hi = torch.cat([hi.masked_fill(empty, -1), torch.full_like(big, -1)])
+    lo, hi = lo.amin(1), hi.view(-1, per).amax(1)
+    start = lo - lo % vec
+    return torch.where(hi >= lo, (hi + 1 - start + vec - 1) // vec * vec, 0)
+
+
+def _stage_cap(windows):
+    """The largest block window within ``STAGE_ELEMS`` (0 if none): the
+    shared memory of a B9 launch, so a pack whose windows are small (or
+    none fits) takes no more than it stages."""
+    fit = torch.where(windows <= STAGE_ELEMS, windows, 0)
+    return fit.max() if fit.numel() else fit.new_tensor(0)
+
+
+def stage_blocks(data: SellData):
+    """Per B9 block of ``data`` (bool tensor): whether its x window is
+    staged in shared memory (the rest gather from global memory)."""
+    w = _block_windows(data.spans, 16 // data.vals.element_size())
+    return (w > 0) & (w <= data.stage_cap)
+
+
 # ------------------------------------------------------------- packing --
 
 def _csr(rows_cols_vals, n: int, dtype):
@@ -262,12 +354,16 @@ def _csr(rows_cols_vals, n: int, dtype):
 
 def _pack_csr(indptr, indices, data, nrows: int, ncols: int, sigma: int,
               device, cls=SellData) -> SellData:
-    """SELL-C-sigma pack (module doc) of the CSR rows."""
+    """SELL-C-sigma pack (module doc) of the CSR rows, with its spans."""
     if nrows >= 2 ** 31 or ncols >= 2 ** 31:
         raise ValueError("SELL packs take fewer than 2^31 rows and columns")
     sigma = max(SLICE, sigma // SLICE * SLICE)
     deg = np.diff(indptr)
     top = int(deg.max(initial=0)) + 1
+    if (top - 1) * SLICE >= _MAX_SLICE_SLOTS:
+        raise ValueError(f"SELL packs take rows of fewer than "
+                         f"{_MAX_SLICE_SLOTS // SLICE} entries; the "
+                         f"segmented pack splits longer ones")
     # stable: longest first inside each sigma window, row order on ties
     key = (np.arange(nrows, dtype=np.int64) // sigma) * top + (top - 1 - deg)
     row_of = np.argsort(key, kind="stable")
@@ -277,20 +373,38 @@ def _pack_csr(indptr, indices, data, nrows: int, ncols: int, sigma: int,
     width = pdeg.reshape(ns, SLICE).max(axis=1)
     slice_ptr = np.zeros(ns + 1, np.int64)
     np.cumsum(width * SLICE, out=slice_ptr[1:])
+    # each slice's column span over its entries; padded slots take lo_s
+    rlo = np.full(ns * SLICE, 2 ** 62, np.int64)
+    rhi = np.full(ns * SLICE, -1, np.int64)
+    live = deg > 0
+    if live.any():
+        first = indptr[:-1][live]
+        lo_r = np.full(nrows, 2 ** 62, np.int64)
+        hi_r = np.full(nrows, -1, np.int64)
+        lo_r[live] = np.minimum.reduceat(indices[:indptr[-1]], first)
+        hi_r[live] = np.maximum.reduceat(indices[:indptr[-1]], first)
+        rlo[:nrows], rhi[:nrows] = lo_r[row_of], hi_r[row_of]
+    lo = rlo.reshape(ns, SLICE).min(axis=1)
+    hi = rhi.reshape(ns, SLICE).max(axis=1)
+    lo[hi < 0] = 0
+    spans = np.stack([lo, hi], axis=1).astype(np.int32)
     inv = np.empty(nrows, np.int64)
     inv[row_of] = np.arange(nrows)
     p = np.repeat(inv, deg)                          # packed row per entry
     j = np.arange(indptr[-1], dtype=np.int64) - np.repeat(indptr[:-1], deg)
     slot = slice_ptr[p // SLICE] + j * SLICE + p % SLICE
     vals = np.zeros(int(slice_ptr[-1]), data.dtype)
-    cols = np.zeros(int(slice_ptr[-1]), np.int32)
+    cols = np.repeat(spans[:, 0], width * SLICE)
     vals[slot] = data
-    cols[slot] = indices
+    cols[slot] = indices[:indptr[-1]]
+    spans_t = torch.as_tensor(spans)
+    stage = int(_stage_cap(_block_windows(spans_t)))
     return cls(host_tensor(vals, device), host_tensor(cols, device),
                host_tensor(slice_ptr, device),
                host_tensor(row_of.astype(np.int32), device),
                nrows, int(indptr[-1]), ncols=ncols, sigma=sigma,
-               nslots=int(slice_ptr[-1]))
+               derived=(int(slice_ptr[-1]), host_tensor(spans_t, device),
+                        stage))
 
 
 def sell_pack(rows_cols_vals, n: int, dtype=np.float32, window: int = 2048,
@@ -386,20 +500,28 @@ def _check_array(what, t, dtype):
 def sell_spmv(data: SellData, x):
     """y = A x for a SELL-C-sigma pack: kernel B9 on CUDA, its twin on CPU.
     On CUDA the pack's values must be in x's dtype (cast the pack once with
-    ``data.to(dtype=...)``; a launch makes no copy of it)."""
+    ``data.to(dtype=...)``; a launch makes no copy of it). The launch takes
+    the pack's ``stage_cap`` values of shared memory for the x windows and
+    keeps 16 slots of loads in flight per row when the pack's rows average
+    ``WIDE_ROWS`` slots or more, 4 otherwise."""
     if x.device.type == "cpu":
         return sell_spmv_ref(data, x)
     _build.check_operands("sell_spmv", x, data.vals, data.cols,
-                          data.slice_ptr, data.row_of)
+                          data.slice_ptr, data.spans, data.row_of)
     for t, dt in ((data.vals, x.dtype), (data.cols, torch.int32),
                   (data.slice_ptr, torch.int64), (data.row_of, torch.int32)):
         _check_array("sell_spmv", t, dt)
     if (data.vals.numel() != data.nslots or data.cols.numel() != data.nslots
-            or data.row_of.numel() != data.n):
+            or data.row_of.numel() != data.n
+            or data.spans.shape != (data.nslices, 2)
+            or data.spans.dtype != torch.int32
+            or not data.spans.is_contiguous()):
         raise ValueError(f"sell_spmv: vals {data.vals.numel()}, cols "
-                         f"{data.cols.numel()} slots and row_of "
-                         f"{data.row_of.numel()} rows, the pack has "
-                         f"{data.nslots} slots and {data.n} rows")
+                         f"{data.cols.numel()} slots, row_of "
+                         f"{data.row_of.numel()} rows and spans "
+                         f"{tuple(data.spans.shape)}, the pack has "
+                         f"{data.nslots} slots, {data.n} rows and "
+                         f"{data.nslices} slices")
     if x.shape != (data.ncols,):
         raise ValueError(f"sell_spmv: expected a ({data.ncols},) vector, "
                          f"got {tuple(x.shape)}")
@@ -407,10 +529,12 @@ def sell_spmv(data: SellData, x):
     if data.n == 0:
         return y
     x = x.contiguous()
+    wide = data.nslots >= WIDE_ROWS * SLICE * data.nslices
     fn = getattr(_build.library(), f"eu_sell_spmv_{_build.suffix(x.dtype)}")
     code = fn(_build.ptr(data.vals), _build.ptr(data.cols),
-              _build.ptr(data.slice_ptr), _build.ptr(data.row_of),
-              _build.ptr(x), data.n, data.nslices, _build.ptr(y),
+              _build.ptr(data.slice_ptr), _build.ptr(data.spans),
+              _build.ptr(data.row_of), _build.ptr(x), data.n, data.ncols,
+              data.nslices, data.stage_cap, 16 if wide else 4, _build.ptr(y),
               _build.stream_of(x))
     _build.check(code, "SELL SpMV kernel (B9)")
     _build.launches["sell_spmv"] += 1

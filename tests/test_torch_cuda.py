@@ -339,6 +339,144 @@ def test_b9_b10_vs_twin(dev, dt, mode, band):
     assert torch.equal(y, op.matvec(x))
 
 
+def _sell_kinds(kind, deg, rng):
+    """COO of the B9 staging cases, ``deg`` entries a row: every block's x
+    window fits the budget ("narrow"), none does ("wide"), or both kinds of
+    block ("mixed": a narrow band plus a few rows with one far column)."""
+    if kind == "wide":
+        return 30000, *_banded_random(30000, deg, 20000, 40)
+    n = 20000
+    rows, cols, vals = _banded_random(n, deg, 300, 41)
+    if kind == "mixed":
+        far = rng.choice(n, 6, replace=False)
+        rows = np.concatenate([rows, far])
+        cols = np.concatenate([cols, (far + n // 2) % n])
+        vals = np.concatenate([vals, np.ones(far.size)])
+    return n, rows, cols, vals
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("kind", ["narrow", "wide", "mixed"])
+@pytest.mark.parametrize("deg", [8, 20])
+def test_b9_staging_branches(dev, dt, kind, deg):
+    """B9 stages x per 256-row block where the block's spans fit the budget
+    and gathers from global memory elsewhere; rows of 8 take 4 slots of
+    loads in flight, rows of 20 take 16. The same pack with a staging
+    budget of 0 gathers every block from global memory and gives the same
+    bits."""
+    import scipy.sparse as sp
+    from exponentialutilities_jl_torch.ops.kernels import sell as ts
+
+    rng = np.random.default_rng(42)
+    n, rows, cols, vals = _sell_kinds(kind, deg, rng)
+    d = ts.sell_pack((rows, cols, vals), n, np.float64, device=dev).to(
+        dtype=dt)
+    wide = d.nslots >= ts.WIDE_ROWS * ts.SLICE * d.nslices
+    assert wide == (deg > ts.WIDE_ROWS)
+    staged = ts.stage_blocks(d)
+    if kind == "narrow":
+        assert bool(staged.all())
+    elif kind == "wide":
+        assert not bool(staged.any()) and d.stage_cap == 0
+    else:
+        assert 0 < int(staged.sum()) < staged.numel()
+    x = _vec(n, dt, dev, 43)
+    _build.reset_launch_counts()
+    y = ts.sell_spmv(d, x)
+    assert _build.launches["sell_spmv"] == 1
+    _close(y, ts.sell_spmv_ref(d, x), dt)
+    A = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    _close(y, torch.as_tensor(A @ x.double().cpu().numpy(), dtype=dt,
+                              device=dev), dt)
+    assert torch.equal(y, ts.sell_spmv(d, x))
+    g = ts.SellData(d.vals, d.cols, d.slice_ptr, d.row_of, d.n, d.nnz,
+                    ncols=d.ncols, sigma=d.sigma,
+                    derived=(d.nslots, d.spans, 0))
+    assert not bool(ts.stage_blocks(g).any())
+    assert torch.equal(y, ts.sell_spmv(g, x))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("mode", [None, "bucketed", "seg"])
+def test_b9_ragged_packs(dev, dt, mode):
+    """Empty rows (a whole empty slice among them), n not a multiple of
+    256, the bucketed and segmented packs, and a pack loaded from a file
+    (spans derived on the card)."""
+    import scipy.sparse as sp
+    from exponentialutilities_jl_torch.ops.kernels import sell as ts
+
+    n = 3001
+    rows, cols, vals = _banded_random(n, 6, 400, 44)
+    keep = ~np.isin(rows, np.r_[64:96, 700, n - 1])
+    rows, cols, vals = rows[keep], cols[keep], vals[keep]
+    op = et.SellOperator.from_coo(rows, cols, vals, n, dtype=np.float64,
+                                  mode=mode, device=dev)
+    op.data = op.data.to(dtype=dt)
+    x = _vec(n, dt, dev, 45)
+    y = op.matvec(x)
+    seg = mode == "seg"
+    ref = (ts.sell_spmv_seg_ref if seg else ts.sell_spmv_ref)(op.data, x)
+    _close(y, ref, dt)
+    A = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    _close(y, torch.as_tensor(A @ x.double().cpu().numpy(), dtype=dt,
+                              device=dev), dt)
+    assert torch.equal(y, op.matvec(x))
+    base = op.data.base if seg else op.data
+    f = base._fields()
+    again = type(base)(*(f[k] for k in ("vals", "cols", "slice_ptr",
+                                        "row_of")), base.n, base.nnz,
+                       ncols=base.ncols, sigma=base.sigma)
+    assert torch.equal(again.spans, base.spans)
+    assert again.stage_cap == base.stage_cap
+    assert torch.equal(ts.sell_spmv(again, x), ts.sell_spmv(base, x))
+
+
+def _blockell_random(nbr, w, b, dt, dev, seed):
+    """A random square (nbr, w, b, b) block-ELL operator, the w block
+    columns of a block row distinct."""
+    rng = np.random.default_rng(seed)
+    bcols = np.stack([rng.choice(nbr, w, replace=False) for _ in range(nbr)])
+    blocks = rng.standard_normal((nbr, w, b, b))
+    return et.BlockELLOperator(torch.as_tensor(blocks, dtype=dt, device=dev),
+                               torch.as_tensor(bcols, dtype=torch.int32,
+                                               device=dev))
+
+
+def _blockell_scipy(op):
+    """The operator as a scipy BSR matrix (its block columns are distinct
+    per block row)."""
+    import scipy.sparse as sp
+
+    nbr, w, br, bc = op.blocks.shape
+    return sp.bsr_matrix((op.blocks.double().cpu().numpy().reshape(-1, br, bc),
+                          op.bcols.cpu().numpy().ravel(),
+                          np.arange(0, nbr * w + 1, w)),
+                         shape=(nbr * br, nbr * br))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("b", [8, 4])
+@pytest.mark.parametrize("w", [1, 7, 40])
+def test_b8_block_shapes(dev, dt, b, w):
+    """B8's 8 x 8 and 4 x 4 kernels at w = 1, 7 and 40 (past the unrolled
+    steps and one bcols load of 32), nbr not a multiple of the warps per
+    block; an x that is not 16-byte aligned takes the general kernel."""
+    from exponentialutilities_jl_torch.ops.kernels import spmv as tsp
+
+    op = _blockell_random(45, w, b, dt, dev, 46 + w)
+    n = op.shape[0]
+    x = _vec(n, dt, dev, 47)
+    _build.reset_launch_counts()
+    y = op.matvec(x)
+    assert _build.launches["blockell_spmv"] == 1
+    _close(y, tsp.blockell_spmv_ref(op.blocks, op.bcols, x), dt)
+    want = _blockell_scipy(op) @ x.double().cpu().numpy()
+    _close(y, torch.as_tensor(want, dtype=dt, device=dev), dt)
+    assert torch.equal(y, op.matvec(x))
+    xo = torch.empty(n + 1, dtype=dt, device=dev)[1:].copy_(x)   # unaligned
+    _close(tsp.blockell_spmv(op.blocks, op.bcols, xo), y, dt)
+
+
 def test_sparse_matvec_dtype_gate(dev):
     """Complex data on the card takes the plain path through the dtype
     gate; real float32/float64 data launches the kernel."""

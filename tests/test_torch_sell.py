@@ -288,6 +288,160 @@ def test_seg_pack_checks_seg_ptr():
         tsell.SellSeg(s.base, s.seg_ptr[:-1], n, s.nnz)
 
 
+PACKS = {"default": tsell.sell_pack, "bucketed": tsell.sell_pack_bucketed,
+         "seg": lambda coo, n, **kw: tsell.sell_pack_seg(coo, n, seg_len=8,
+                                                         **kw)}
+
+
+def _with_empty_slice(n=1000, seed=21):
+    """The scattered class with rows 0..39 empty: the degree sort puts them
+    last in the first 256-row window, so packed rows 224..255 form a slice
+    without entries; n = 1000 leaves a last slice of 8 rows."""
+    r, c, v = _scattered(n, seed)
+    keep = r >= 40
+    return r[keep], c[keep], v[keep]
+
+
+def _packed_columns(kind, pk, coo, n):
+    """(base pack, the columns of each of its packed rows) from scipy's CSR
+    of the same COO (duplicates summed), independent of the packer."""
+    A = sp.coo_matrix((coo[2], coo[:2]), shape=(n, n)).tocsr()
+    A.sum_duplicates()
+    rows = [A.indices[A.indptr[i]:A.indptr[i + 1]] for i in range(n)]
+    if kind == "seg":
+        seg_ptr = t2n(pk.seg_ptr)
+        segs = []
+        for i in range(n):
+            for k in range(seg_ptr[i + 1] - seg_ptr[i]):
+                segs.append(rows[i][8 * k:8 * (k + 1)])
+        rows, pk = segs, pk.base
+    return pk, [rows[i] for i in t2n(pk.row_of)]
+
+
+@pytest.mark.parametrize("kind", list(PACKS))
+def test_spans_cover_each_slice(kind):
+    """spans[s] is the min and max column over slice s's entries ([0, -1]
+    for a slice without any), and every padded slot holds value 0 and the
+    column lo_s; the twin's product is scipy's on every pack."""
+    n = 1000
+    coo = _with_empty_slice(n)
+    pk = PACKS[kind](coo, n, dtype=np.float64)
+    x = np.random.default_rng(22).standard_normal(n)
+    ref = tsell.sell_spmv_seg_ref if kind == "seg" else tsell.sell_spmv_ref
+    assert_close(t2n(ref(pk, torch.as_tensor(x))),
+                 sp.coo_matrix((coo[2], coo[:2]), shape=(n, n)).tocsr() @ x,
+                 RTOL64, "twin vs scipy")
+    base, cols_of = _packed_columns(kind, pk, coo, n)
+    spans, sptr = t2n(base.spans), t2n(base.slice_ptr)
+    vals, cols = t2n(base.vals), t2n(base.cols)
+    assert spans.dtype == np.int32 and spans.shape == (base.nslices, 2)
+    empty = 0
+    for s in range(base.nslices):
+        real = [c for r in range(32 * s, min(32 * s + 32, base.n))
+                for c in cols_of[r]]
+        want = (min(real), max(real)) if real else (0, -1)
+        assert tuple(spans[s]) == want, s
+        empty += not real
+        width = (sptr[s + 1] - sptr[s]) // 32
+        for r in range(32):
+            p = 32 * s + r
+            deg = len(cols_of[p]) if p < base.n else 0
+            pad = sptr[s] + 32 * np.arange(deg, width) + r
+            assert not vals[pad].any()
+            assert (cols[pad] == spans[s, 0]).all()
+    assert empty >= (kind == "default")     # the slice of rows 0..39
+
+
+def _windows_ref(spans, vec=4):
+    """Per 8-slice block: the union of the non-empty spans from a
+    vec-aligned start, rounded up to whole vec pieces (0 if none)."""
+    out = []
+    for b in range(0, len(spans), 8):
+        live = [(lo, hi) for lo, hi in spans[b:b + 8] if hi >= lo]
+        if not live:
+            out.append(0)
+            continue
+        lo = min(l for l, _ in live)
+        hi = max(h for _, h in live)
+        start = lo - lo % vec
+        out.append(-(-(hi + 1 - start) // vec) * vec)
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("band,far", [(300, 0), (20000, 0), (300, 6)])
+def test_stage_windows_and_cap(band, far):
+    """The B9 blocks' x windows, the launch's stage_cap (the largest window
+    within STAGE_ELEMS) and which blocks stage: all for a narrow band, none
+    for a band wider than the budget, some when a few rows reach far."""
+    n = 30000 if band > 1000 else 20000
+    rng = np.random.default_rng(23)
+    rows = np.repeat(np.arange(n), 8)
+    cols = np.clip(rows + rng.integers(-band // 2, band // 2, rows.size), 0,
+                   n - 1)
+    vals = rng.standard_normal(rows.size)
+    if far:
+        hit = rng.choice(n, far, replace=False)
+        rows = np.concatenate([rows, hit])
+        cols = np.concatenate([cols, (hit + n // 2) % n])
+        vals = np.concatenate([vals, np.ones(far)])
+    d = tsell.sell_pack((rows, cols, vals), n, dtype=np.float64)
+    spans = [tuple(s) for s in t2n(d.spans)]
+    win = _windows_ref(spans)
+    np.testing.assert_array_equal(t2n(tsell._block_windows(d.spans)), win)
+    fit = win[win <= tsell.STAGE_ELEMS]
+    assert d.stage_cap == (fit.max() if fit.size else 0)
+    staged = t2n(tsell.stage_blocks(d))
+    np.testing.assert_array_equal(
+        staged, (_windows_ref(spans, vec=2) > 0)
+        & (_windows_ref(spans, vec=2) <= d.stage_cap))
+    if band > 1000:
+        assert d.stage_cap == 0 and not staged.any()
+    elif far:
+        assert 0 < staged.sum() < staged.size
+    else:
+        assert staged.all()
+    d32 = d.to(dtype=torch.float32)
+    np.testing.assert_array_equal(t2n(tsell.stage_blocks(d32)),
+                                  (win > 0) & (win <= d.stage_cap))
+
+
+@pytest.mark.parametrize("kind", list(PACKS))
+def test_spans_derived_when_checked(tmp_path, kind):
+    """A pack loaded from a file, or built by hand from its arrays, derives
+    its spans and stage_cap on its device when it is checked: the packer's
+    values. ``to`` and ``with_vals`` keep them."""
+    n = 1000
+    pk = PACKS[kind]((_with_empty_slice(n, 24)), n, dtype=np.float64)
+    base = pk.base if kind == "seg" else pk
+    f = base._fields()
+    hand = tsell.SellData(*(f[k] for k in ("vals", "cols", "slice_ptr",
+                                           "row_of")), base.n, base.nnz,
+                          ncols=base.ncols, sigma=base.sigma)
+    path = str(tmp_path / kind)
+    pk.save(path)
+    loaded = type(pk).load(path)
+    loaded = loaded.base if kind == "seg" else loaded
+    for other in (hand, loaded, base.to(dtype=torch.float32),
+                  base.with_vals(base.vals.abs())):
+        assert torch.equal(other.spans, base.spans)
+        assert other.stage_cap == base.stage_cap
+        assert other.nslots == base.nslots
+    with np.load(path + ".npz") as z:
+        assert "spans" not in z.files          # the file format is unchanged
+
+
+def test_pack_refuses_rows_past_the_slice_offsets(monkeypatch):
+    """B9 addresses a slice's slots with 32-bit offsets: the default pack
+    refuses a row that would need more (the segmented pack splits it)."""
+    monkeypatch.setattr(tsell, "_MAX_SLICE_SLOTS", 32 * 20)
+    n = 200
+    r, c, v = _scattered(n, 25)
+    with pytest.raises(ValueError, match="segmented"):
+        tsell.sell_pack((r, c, v), n, dtype=np.float64)
+    s = tsell.sell_pack_seg((r, c, v), n, dtype=np.float64, seg_len=16)
+    assert s.base.nslots > 0
+
+
 def test_promoted_pack_is_cast_once():
     """A float32 pack driven by float64 vectors is cast once and the copy
     kept (the CUDA matvec reads it; no launch casts the slots)."""
