@@ -26,8 +26,10 @@ its seconds:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc builds the kernels of ops/kernels/csrc/ (seconds)
   3. kernels  B1-B10 and B3-var against their plain twins, float32 and
-              float64, at the main paths' shapes, plus bitwise-repeatable
-              results; per SELL pack, the share of B9's 256-row blocks
+              float64, at the main paths' shapes and at shapes ragged
+              against B3's tiles and z chunks, plus bitwise-repeatable
+              results (B3's plain and accumulating moments, B8 on offset
+              views of its operands); per SELL pack, the share of B9's 256-row blocks
               that stage x in shared memory (none of the band-20000
               pack's; phase 4 adds the RCM'd n = 1e6 pack, held to more
               than half, and the scattered packs)
@@ -41,8 +43,10 @@ its seconds:
               variable operator), by the semigroup identity (3-D,
               constant and variable), the phi identities
               t A phi_{j+1} = phi_j - b/j!, and cross-method or cross-pack
-              agreement; the kernel-driving passes rerun under
-              torch.cuda.set_sync_debug_mode("error")
+              agreement; a two-pass call is one sweep and one second
+              stage (``sweep_stage``) per step, and the replay's alpha and
+              beta equal pass 1's bit for bit; the kernel-driving passes
+              rerun under torch.cuda.set_sync_debug_mode("error")
   5. times    CUDA-event medians of >= 10 runs after warm-up, each kernel
               beside its plain twin, B6 beside the B3 sweeps on the same
               grid, B9 at bench_sell.py's timing shape (n = 1e7) with its
@@ -52,9 +56,11 @@ its seconds:
               the time of the one PyTorch call that computes the same
               function, where there is one (CSR or BSR products,
               segment_reduce). A median of one call also counts the host's
-              part of it (~20-35 us for these wrappers), so B7-B10 and
-              their library calls are also timed 20 calls back to back
-              (the device's time per call), and B9 also on a copy of
+              part of it (~20-35 us for these wrappers), so every kernel
+              and the library calls are also timed 20 calls back to back
+              (the device's time per call; B3's with its second stage),
+              beside a 3-stream torch.add at 216^3 (the card's reachable
+              streaming rate), and B9 also on a copy of
               its pack with no staging budget (x gathered from global
               memory in every block)
 
@@ -66,7 +72,8 @@ without a CUDA device it exits with code 2 at once.
 With --profile, phase 5 is replaced by torch.profiler over one warm call
 of each sparse, variable and non-Hermitian main-path cell (config #3
 phiv, the SELL expv, two-pass, expv_chebyshev and its spectral_bounds,
-the block-ELL two-pass; the 216^3 variable Chebyshev and two-pass; config
+the block-ELL two-pass; the 216^3 variable Chebyshev and two-pass, the
+216^3 and 2-D 512^2 constant two-pass; config
 #1 expm and expv; config #4 expv, phiv and the IOP two-pass): the
 CUDA-event wall time, the device busy time (union of the device
 intervals), the number of device ops, the largest kernels and the host
@@ -432,18 +439,35 @@ def main() -> int:
                 kerr["resident_lanczos"] = float((ab - abr).abs().max())
             print(f"kernel B2 {dname[dt]} n={N1} m={m} {start}: rel err "
                   f"{e:.2e} (tol {tol:g}), bitwise repeat ok", flush=True)
+        # the ragged shapes: 3 planes of 700 x 900 (more column tiles than
+        # the card holds blocks: one z chunk), one plane as a 3-D grid, a
+        # 2-D grid, the 27-point box
         for label, op in (("216^3 7-point",
                            et.laplacian_nd_stencil(N3, N3, N3, dtype=dt,
                                                    device=dev)),
                           ("5x7x130 7-point",
                            et.laplacian_nd_stencil(5, 7, 130, dtype=dt,
                                                    device=dev)),
-                          ("48x40x64 13-point", star13((48, 40, 64), dt))):
+                          ("48x40x64 13-point", star13((48, 40, 64), dt)),
+                          ("3x700x900 7-point (one z chunk)",
+                           et.laplacian_nd_stencil(3, 700, 900, dtype=dt,
+                                                   device=dev)),
+                          ("1x513x517 7-point",
+                           et.laplacian_nd_stencil(1, 513, 517, dtype=dt,
+                                                   device=dev)),
+                          (f"{NG + 1}x{NG - 3} 2-D 5-point",
+                           et.laplacian_nd_stencil(NG + 1, NG - 3, dtype=dt,
+                                                   device=dev)),
+                          ("23x45x71 27-point box", box27((23, 45, 71), dt))):
             n = op.shape[0]
             Z, Vc, Vp, W = (vec(n, dt) for _ in range(4))
             co = torch.tensor([0.3, -0.7, 0.2, 0.45], dtype=dt, device=dev)
             W1, W2 = W.clone(), W.clone()
+            _build.reset_launch_counts()
             Y, Zn, mom = sweep(op, Z, Vc, Vp, co, W1)
+            check(_build.launches["fused_sweep"] == 1
+                  and _build.launches["sweep_stage"] == 1,
+                  f"B3 {label}: one sweep and one stage")
             _, _, mom_again = sweep(op, Z, Vc, Vp, co, W.clone())
             Yp, Znp, momp = sweep(op, Z, Vc, Vp, co[:3].contiguous())
             Yr, Znr, momr = tf.fused_sweep_ref(Z, Vc, Vp, co, op.grid_shape,
@@ -474,7 +498,11 @@ def main() -> int:
             Z, Vc, Vp, W = (vec(n, dt, rngV) for _ in range(4))
             co = torch.tensor([0.3, -0.7, 0.2, 0.45], dtype=dt, device=dev)
             W1, W2 = W.clone(), W.clone()
+            _build.reset_launch_counts()
             Y, Zn, mom = sweep(op, Z, Vc, Vp, co, W1)
+            check(_build.launches["fused_sweep_var"] == 1
+                  and _build.launches["sweep_stage"] == 1,
+                  f"B3-var {label}: one sweep and one stage")
             _, _, mom_again = sweep(op, Z, Vc, Vp, co, W.clone())
             Yp, Znp, momp = sweep(op, Z, Vc, Vp, co[:3].contiguous())
             Yr, Znr, momr = tf.fused_sweep_ref(Z, Vc, Vp, co, op.grid_shape,
@@ -623,10 +651,22 @@ def main() -> int:
                           (f"random {4 * nbr4} 4x4 blocks", opB4)):
             blocks = op.blocks.to(dt)
             x = vec(op.shape[0], dt, rng2)
-            spmv_check(f"B8 {label} w={blocks.shape[1]}", dt,
-                       lambda: tsp.blockell_spmv(blocks, op.bcols, x),
-                       lambda: tsp.blockell_spmv_ref(blocks, op.bcols, x),
-                       "blockell_spmv" if label.startswith(f"{NB}") else None)
+            y = spmv_check(f"B8 {label} w={blocks.shape[1]}", dt,
+                           lambda: tsp.blockell_spmv(blocks, op.bcols, x),
+                           lambda: tsp.blockell_spmv_ref(blocks, op.bcols, x),
+                           "blockell_spmv" if label.startswith(f"{NB}")
+                           else None)
+            # offset views (not 16-byte aligned): the aligned copies' bits
+            xo = torch.empty(x.numel() + 1, dtype=dt, device=dev)[1:]
+            bo = torch.empty(blocks.numel() + 1, dtype=dt, device=dev)[1:]
+            bo = bo.view(blocks.shape).copy_(blocks)
+            check(torch.equal(tsp.blockell_spmv(blocks, op.bcols,
+                                                xo.copy_(x)), y)
+                  and torch.equal(tsp.blockell_spmv(bo, op.bcols, xo), y),
+                  f"B8 {label} {dname[dt]}: unaligned operands change bits")
+            print(f"kernel B8 {label} {dname[dt]}: offset views of x and "
+                  "blocks give the aligned result bit for bit", flush=True)
+            del xo, bo
         del blocks
         for label, d64 in packs.items():
             d = d64.to(dtype=dt)
@@ -704,8 +744,9 @@ def main() -> int:
         "1d two-pass m=40 f64": {"resident_lanczos": 1,
                                  "resident_recurrence": 1},
         "1d happy-breakdown m=30 f64": {},
-        "3d two-pass m=20 32": {"fused_sweep": 42},
-        "3d two-pass m=20 64": {"fused_sweep": 42},
+        # two-pass m = 20: 21 sweeps a pass, each with its second stage
+        "3d two-pass m=20 32": {"fused_sweep": 42, "sweep_stage": 42},
+        "3d two-pass m=20 64": {"fused_sweep": 42, "sweep_stage": 42},
     }
     phi_calls = {     # float64
         "1d phiv two-pass m=40": lambda: et.phiv(T1, op1[f64], b1[f64], K,
@@ -730,7 +771,7 @@ def main() -> int:
         "config3 phiv m=30": {"banded_spmv": 30},     # one B7 per matvec
         "config3 expv_chebyshev": {"resident_banded": 1},
         "2d cheb": {"resident_grid": 1},
-        "2d two-pass m=20": {"fused_sweep": 42},
+        "2d two-pass m=20": {"fused_sweep": 42, "sweep_stage": 42},
     })
 
     # the sparse containers at n = 1e6, float64 (module doc)
@@ -804,7 +845,8 @@ def main() -> int:
         "hybrid expv m=40": {"banded_spmv": 40, "sell_spmv": 40},
         "hybrid matrix default pack expv m=40": {"sell_spmv": 40},
         f"blockell {NB}^3 two-pass m=20": {"blockell_spmv": 40},
-        f"stencil {NB}^3 two-pass m=20": {"fused_sweep": 42},
+        f"stencil {NB}^3 two-pass m=20": {"fused_sweep": 42,
+                                          "sweep_stage": 42},
     })
 
     # the variable-coefficient path (B3-var): 216^3 in both dtypes, and a
@@ -829,12 +871,14 @@ def main() -> int:
                                             tol=cheb_tol[dt]))
         var_calls[f"var two-pass m=20 {sfx}"] = (
             lambda dt=dt: et.expv(T3, opV[dt], bV[dt], m=20, two_pass=True))
-        expect[f"var two-pass m=20 {sfx}"] = {"fused_sweep_var": 42}
+        expect[f"var two-pass m=20 {sfx}"] = {"fused_sweep_var": 42,
+                                               "sweep_stage": 42}
     var_calls[f"var{NV} cheb"] = lambda: et.expv_chebyshev(T3, opV48, bV48,
                                                           tol=1e-12)
     var_calls[f"var{NV} two-pass m=20"] = lambda: et.expv(T3, opV48, bV48,
                                                          m=20, two_pass=True)
-    expect[f"var{NV} two-pass m=20"] = {"fused_sweep_var": 42}
+    expect[f"var{NV} two-pass m=20"] = {"fused_sweep_var": 42,
+                                        "sweep_stage": 42}
 
     def cheb_degree(op, tol):
         lo_, hi_ = op.spectral_bounds_hint()
@@ -1105,6 +1149,20 @@ def main() -> int:
              out[f"config4 two-pass iop=2 m={MA}"], ref_e)
     del out, W, W30, U, base, half, W4, F2, aug, Ad
 
+    # pass 1 and the replay run the same second stage on the same moments:
+    # the replay's alphas and betas are pass 1's, bit for bit
+    for label, op, b in (("216^3", op3[f64], b3[f64]),
+                         ("216^3 variable", opV[f64], bV[f64])):
+        a1, bt1, beta1, _, _, _ = tf._lanczos_sweeps(op, b, 20, 1e-7,
+                                                     what="pass 1")
+        cf = tx._lanczos_reduced_coeffs(a1, bt1, beta1, T3)
+        a2, bt2, _, _, _, _ = tf._lanczos_sweeps(op, b, 20, 1e-7, cf,
+                                                 what="replay")
+        check(torch.equal(a1, a2) and torch.equal(bt1, bt2),
+              f"{label}: replay scalars differ from pass 1's")
+        print(f"check {label} two-pass: the replay's alpha and beta equal "
+              "pass 1's bit for bit", flush=True)
+
     # the kernel-driving passes make no host syncs
     lo, hi = op3[f64].spectral_bounds_hint()
     full3, _, _ = tc._full_exp_coeffs(T3, lo, hi, 1e-12, None)
@@ -1224,10 +1282,30 @@ def main() -> int:
                     sparse_calls[f"blockell {NB}^3 two-pass m=20"],
                 **{k: var_calls[k] for k in ("var cheb 64",
                                              "var two-pass m=20 64")},
+                "3d two-pass m=20 64": calls["3d two-pass m=20 64"],
+                "2d two-pass m=20": phi_calls["2d two-pass m=20"],
                 **nh_calls}.items():
             device_profile(name, fn)
         phase_done("5 profile")
         return 0
+
+    bursts = {}         # back-to-back kernel ms
+
+    def burst_ms(fn, k=20):
+        """Per-call time of k calls back to back between two events: the
+        device time when the device is slower than the host's enqueue
+        (median_ms also counts the host's part of one call)."""
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(k):
+            fn()
+        e.record()
+        e.synchronize()
+        return s.elapsed_time(e) / k
 
     times = {}
     work = {}           # (bytes, operations) each timed call needs
@@ -1329,8 +1407,21 @@ def main() -> int:
             p2 = median_ms(pfn)
             times[(name, dn)] = (statistics.median([k1, k2]),
                                  statistics.median([p1, p2]))
+            bursts[(name, dn)] = burst_ms(kfn)
+            bms, bby = bound(*wk, dn)
             print(f"time {name} {dn} ({shape}): kernel {k1:.4f} / {k2:.4f} ms,"
-                  f" plain {p1:.4f} / {p2:.4f} ms {card}", flush=True)
+                  f" plain {p1:.4f} / {p2:.4f} ms; back-to-back: kernel "
+                  f"{bursts[(name, dn)]:.4f} ms, bound {bms:.4f} ms by {bby} "
+                  f"{card}", flush=True)
+        # the card's reachable streaming rate at the sweeps' size: one
+        # PyTorch add, 3 streams (context for the shares, not a kernel)
+        a3, b3s, c3 = (torch.empty(N3 ** 3, dtype=dt, device=dev).normal_()
+                       for _ in range(3))
+        ta = burst_ms(lambda: torch.add(a3, b3s, out=c3))
+        print(f"rate torch.add(a, b, out=c) {dn} at 216^3, back-to-back: "
+              f"{ta:.4f} ms, {3 * c3.numel() * isz / ta / 1e6:.1f} GB/s "
+              f"{card}", flush=True)
+        del a3, b3s, c3
         # B6 against the B3 sweeps on the same grid and rows: what the
         # L2 budget of the B6 gate should follow
         for label, op in ((f"{NG}^2 5-point", opGd),
@@ -1351,24 +1442,6 @@ def main() -> int:
                   f"{g1:.4f} / {g2:.4f} ms, B3 sweeps {f1:.4f} / {f2:.4f} ms "
                   f"{card}", flush=True)
         del Z, Vc, Vp, W
-
-    bursts = {}         # back-to-back kernel ms
-
-    def burst_ms(fn, k=20):
-        """Per-call time of k calls back to back between two events: the
-        device time when the device is slower than the host's enqueue
-        (median_ms also counts the host's part of one call)."""
-        for _ in range(2):
-            fn()
-        torch.cuda.synchronize()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        for _ in range(k):
-            fn()
-        e.record()
-        e.synchronize()
-        return s.elapsed_time(e) / k
 
     # B7-B10 at the main paths' shapes, plain, kernel, kernel, plain; then
     # kernel and library call back to back

@@ -13,7 +13,8 @@ non-zero code into an exception, so a refused launch never passes silently.
 
 ``launches`` counts kernel launches per kernel. A wrapper adds one exactly
 where it launches its kernel, so a run can show that it went through the
-kernels rather than their plain twins.
+kernels rather than their plain twins. ``sweep_stage`` counts the second
+stage of B3 and B3-var (the moments and the Lanczos scalars).
 """
 
 from __future__ import annotations
@@ -44,8 +45,9 @@ MAX_POINTS = 64                 # stencil points: eu::kMaxPoints in csrc/common.
 
 launches = {"resident_recurrence": 0, "resident_lanczos": 0,
             "resident_multi": 0, "resident_banded": 0, "resident_grid": 0,
-            "fused_sweep": 0, "fused_sweep_var": 0, "banded_spmv": 0,
-            "blockell_spmv": 0, "sell_spmv": 0, "seg_compact": 0}
+            "fused_sweep": 0, "fused_sweep_var": 0, "sweep_stage": 0,
+            "banded_spmv": 0, "blockell_spmv": 0, "sell_spmv": 0,
+            "seg_compact": 0}
 
 
 def reset_launch_counts():
@@ -89,8 +91,15 @@ def _declare(lib):
         for name in (f"eu_fused_sweep_{suf}", f"eu_fused_sweep_var_{suf}"):
             f = getattr(lib, name)
             f.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
-                          _I, _I, _VP, _VP, _VP, _VP, _LL, _VP, _VP]
+                          _I, _I, _VP, _VP, _VP, _VP, _LL, _VP]
             f.restype = _I
+        f = getattr(lib, f"eu_fused_sweep_capacity_{suf}")
+        f.argtypes = [_VP, _I, _I, _I, _I]
+        f.restype = _I
+        f = getattr(lib, f"eu_sweep_stage_{suf}")
+        f.argtypes = [_VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I,
+                      ctypes.c_double, _VP]
+        f.restype = _I
         f = getattr(lib, f"eu_banded_spmv_{suf}")
         f.argtypes = [_VP, _VP, _I, _VP, _LL, _VP, _VP]
         f.restype = _I

@@ -1,12 +1,13 @@
 // B3 and B3-var: one fused sweep of the three-term recurrence over a
 // 2-D/3-D grid with a box stencil, constant (B3) or with a per-cell
-// coefficient field per stencil point (B3-var).
+// coefficient field per stencil point (B3-var), and its second stage.
 //
 // Replaces exponentialutilities_jl_tpu/ops/kernels/lanczos_fused.py
 //   _fused_kernel via its constant entries _kernel_plain and _kernel_accum
 //   (lanczos_fused.py:380, :607, :614) and its variable-coefficient entries
 //   _kernel_var and _kernel_var_accum (:621, :628); all called by
-//   fused_lanczos_step (:783).
+//   fused_lanczos_step (:783). The second stage also computes what the JAX
+//   drivers compute inside their lax.scan bodies (:939, :1002).
 //
 //   y  = ca Z + cb Vc + cc Vp           (written to Y)
 //   Zn = A y                            (written to Zn; Dirichlet bounds)
@@ -16,199 +17,501 @@
 //   moments = (sum y*y, sum y*Zn)
 //   accum:  W += cw Vc  (in place)
 //
-// The TPU kernel streams ghost-padded z-planes through a 3-plane VMEM ring
-// (variable mode adds a ring of coefficient planes). Here each block owns a
-// (tz, ty, tx) tile of the natural contiguous (nz, ny, nx) layout, forms y
-// on the tile plus a halo of max|offset| per axis in shared memory
-// (out-of-grid cells are 0), and applies the stencil from shared memory.
-// Out-of-grid neighbours read that zero halo in both forms, so a field
-// entry of a boundary cell that faces outside (variable_diffusion_nd_stencil
-// keeps them nonzero) multiplies 0, exactly as the plain twin's zero pad.
+// Bound on the H100: device-memory bytes. B3 reads Z, Vc, Vp (and W) once
+// and writes Y, Zn (and W) once: 5n values (7n with accum); B3-var adds its
+// k fields, read once. At 216^3 in float64 that is 564 MB (accum), 0.1685
+// ms at 3.35 TB/s; the 7-point B3-var 1.13 GB, 0.337 ms.
 //
-// Both are bound by device-memory bandwidth. B3 reads Z, Vc, Vp (and W)
-// once and writes Y, Zn (and W) once: 5n values (7n with accum). B3-var
-// adds the k fields, (5 + k) n values ((7 + k) n with accum): for the
-// 7-point operator at 216^3 that is 12n = 967 MB in float64 (0.289 ms at
-// 3.35 TB/s) and 14n = 1.13 GB (0.337 ms); float32 is half. The fields add
-// no shared memory: each thread streams C[j * n + g] for its own output
-// cell from global memory (64-bit offsets), coalesced along x since the
-// tile's threads run x fastest, each read once. The halo re-reads of y's
-// inputs mostly hit L2. Marching the tile along z to drop those re-reads
-// (2.5-D), cp.async/TMA staging and register blocking are left to tuning.
+// The design keeps every input read once from device memory:
+// * A block owns a (ty x tx) column tile of the natural (nz, ny, nx) layout
+//   and a chunk of cz z-planes, and marches through it plane by plane, as
+//   the TPU kernel streams its planes through a VMEM ring. Shared memory
+//   holds a ring of R = 2 hz + 1 y-planes of the tile plus its x-y halo
+//   (cells outside the grid are 0), so each z-plane of Z, Vc, Vp is read
+//   once per column tile; only the thin x-y halo and the 2 hz planes at a
+//   chunk's ends are read again, by the neighbouring blocks, and those
+//   reads mostly hit L2.
+// * The inputs of a step (the Z, Vc, Vp halo plane, the W tile and, in
+//   float32, B3-var's first eight fields) come in by cp.async into one of
+//   kStages = 3 shared-memory stages, two steps ahead, zero-filled outside
+//   the grid: a plane's arithmetic never waits for its own loads. In
+//   float64 B3-var holds those fields in registers instead, issued at the
+//   start of the step (staging them would cost a resident block per SM).
+// * The accumulating form keeps Vc in a second ring and updates W from it,
+//   so Vc is not read twice.
+// * Each thread locates its cells once (one division per cell per sweep);
+//   per plane it adds a plane stride. The ring slots of the stencil points
+//   are computed once per step, for the block, in shared memory.
+// * What bounds a block is the latency of its steps (two barriers each),
+//   so the sweep runs as many blocks as fit: three per SM (launch bounds),
+//   and the host picks cz so that the whole grid is resident at once (one
+//   wave; blocks per SM from the occupancy API, the min over the plain and
+//   accumulating forms, so both use one block plan). Tiles (host side):
+//   16 x 32 for float32 B3 (two cells a thread), 8 x 32 otherwise.
+// * A 2-D grid (nz = 1) has hz = 0: the ring is one plane and the block
+//   one tile. Marching a 2-D grid along y was weighed: a 16 x 32 tile reads
+//   1.2 halo cells per cell, an x-strip marching 16 rows 1.14, but at
+//   512^2 the strip gives 64 blocks for 132 SMs.
+// Global loads are 8-byte (float64) or 4-byte scalars, coalesced along x;
+// 16-byte loads would not line up with the halo's offset start.
 //
 // The moments are per-block partials plus a one-block fixed-order second
-// stage, so a sweep's moments are bitwise repeatable: the Lanczos replay
-// (lanczos_replay_fused) recomputes alpha and beta from its own sweeps and
-// relies on getting exactly the values pass 1 recorded.
+// stage (sweep_stage_kernel), so a sweep's moments are bitwise repeatable.
+// In Lanczos mode the same stage also computes the next sweep's scalars
+// (module doc of lanczos_fused.py) into a small state buffer that the next
+// sweep reads its coefficients from, and writes alpha_j, beta_j: pass 1 and
+// the replay run the same code on the same inputs, so the replay's scalars
+// equal pass 1's bit for bit, and no scalar op runs between the sweeps.
+#include <algorithm>
+#include <cstdlib>
+#include <limits>
+
 #include "common.cuh"
 
 namespace eu {
 
+constexpr int kMaxHalo = 3;          // largest |offset| per axis
+constexpr int kHaloPer = 4;          // halo-plane cells per thread
+constexpr int kTilePer = 2;          // tile cells per thread (B3; B3-var 1)
+constexpr int kFieldStage = 8;       // B3-var fields staged or held per cell
+constexpr int kStages = 3;           // cp.async stages: kStages - 1 steps ahead
+constexpr int kSweepSmemMax = 200 * 1024;
+
+// The Lanczos state buffer (T values): the next sweep's coefficients, then
+// the recurrence's carried scalars.
+constexpr int kCa = 0, kCb = 1, kCc = 2, kCw = 3, kBetaPrev = 4, kBroke = 5,
+              kMUsed = 6, kLive = 7;
+
+struct SweepGeom {
+  int nz, ny, nx, cz, ty, tx, hz, hy, hx;
+};
+
+// Shared memory of one block, in values: the y ring and (accum) the Vc
+// ring, R halo planes each; kStages stages of a step's inputs: the Z, Vc,
+// Vp halo planes, (accum) the W tile and (B3-var) its first kf fields.
+__host__ __device__ inline size_t sweep_smem_values(const SweepGeom& G, bool accum, int kf) {
+  const size_t R = 2 * G.hz + 1;
+  const size_t pl = (size_t)(G.tx + 2 * G.hx) * (G.ty + 2 * G.hy);
+  const size_t nt = (size_t)G.tx * G.ty;
+  return R * pl * (accum ? 2 : 1) + kStages * (3 * pl + (accum ? nt : 0) + kf * nt);
+}
+
+// cp.async of one value (4 or 8 bytes), zero-filled when !valid
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
+               "n"(sizeof(T)), "r"(valid ? (int)sizeof(T) : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// all but the newest kStages - 2 groups of this thread have landed
+__device__ __forceinline__ void cp_async_wait_step() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
+}
+
 template <typename T, bool ACCUM, bool VAR>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 fused_sweep_kernel(const T* __restrict__ Z, const T* __restrict__ Vc,
                    const T* __restrict__ Vp, const T* __restrict__ coefs,
                    const T* __restrict__ cvals, const T* __restrict__ fields,
-                   Offsets3D offs, int nz, int ny, int nx, int tz, int ty,
-                   int tx, int hz, int hy, int hx, T* __restrict__ Y,
+                   Offsets3D offs, SweepGeom G, T* __restrict__ Y,
                    T* __restrict__ Zn, T* __restrict__ W,
                    T* __restrict__ partials) {
   extern __shared__ unsigned char smem_raw[];
-  T* ysh = reinterpret_cast<T*>(smem_raw);
   __shared__ T c_sh[kMaxPoints];
-  __shared__ int o_sh[kMaxPoints];
+  __shared__ int o_sh[kMaxPoints];     // in-plane offset of each point
+  __shared__ int z_sh[kMaxPoints];     // its dz
+  __shared__ int jo_sh[kMaxPoints];    // this step's ring offset of each point
   __shared__ T red[kThreads];
 
-  const int bx = tx + 2 * hx, by = ty + 2 * hy, bz = tz + 2 * hz;
+  constexpr int TP = VAR ? 1 : kTilePer;        // tile cells per thread
+  const int tid = threadIdx.x;
+  const int R = 2 * G.hz + 1;
+  const int bx = G.tx + 2 * G.hx, by = G.ty + 2 * G.hy;
+  const int pl = bx * by;                       // cells of a halo plane
+  const int nt = G.tx * G.ty;                   // cells of the tile
   const int k = offs.k;
-  for (int j = threadIdx.x; j < k; j += kThreads) {
-    if (!VAR) c_sh[j] = cvals[j];
-    o_sh[j] = (offs.dz[j] * by + offs.dy[j]) * bx + offs.dx[j];
+  // B3-var's first fields: staged in float32, in registers in float64
+  // (staging them would cost float64 a resident block per SM)
+  const int kf = VAR && sizeof(T) == 4 ? min(k, kFieldStage) : 0;
+  const int kr = VAR && sizeof(T) == 8 ? min(k, kFieldStage) : 0;
+  T* ring = reinterpret_cast<T*>(smem_raw);     // R y-planes
+  T* vring = ring + (size_t)R * pl;             // R Vc planes (accum)
+  T* stage0 = vring + (ACCUM ? (size_t)R * pl : 0);
+  const size_t stage_len = 3 * (size_t)pl + (ACCUM ? nt : 0) + (size_t)kf * nt;
+  if (tid < k) {
+    if (!VAR) c_sh[tid] = cvals[tid];
+    o_sh[tid] = offs.dy[tid] * bx + offs.dx[tid];
+    z_sh[tid] = offs.dz[tid];
   }
-  const int x0 = blockIdx.x * tx, y0 = blockIdx.y * ty, z0 = blockIdx.z * tz;
-  const T ca = coefs[0], cb = coefs[1], cc = coefs[2];
-  const size_t n = (size_t)nz * ny * nx;
+  const int x0 = blockIdx.x * G.tx, y0 = blockIdx.y * G.ty;
+  const int zs = blockIdx.z * G.cz;
+  const int ze = min(zs + G.cz, G.nz);
+  const long long plane = (long long)G.ny * G.nx;
+  const size_t n = (size_t)plane * G.nz;
+  const T ca = coefs[kCa], cb = coefs[kCb], cc = coefs[kCc];
+  const T cw = ACCUM ? coefs[kCw] : T(0);
 
-  // y on the tile and its halo; cells outside the grid are 0 (Dirichlet)
-  const int nbrick = bx * by * bz;
-  for (int l = threadIdx.x; l < nbrick; l += kThreads) {
-    const int lx = l % bx;
-    const int r = l / bx;
-    const int ly = r % by;
-    const int lz = r / by;
-    const int x = x0 + lx - hx, y = y0 + ly - hy, z = z0 + lz - hz;
-    T v = T(0);
-    if (x >= 0 && x < nx && y >= 0 && y < ny && z >= 0 && z < nz) {
-      const size_t g = ((size_t)z * ny + y) * nx + x;
-      v = ca * Z[g] + cb * Vc[g] + cc * Vp[g];
+  // this thread's halo-plane cells and tile cells, located once
+  int hoff[kHaloPer];
+  unsigned hin = 0;
+#pragma unroll
+  for (int i = 0; i < kHaloPer; ++i) {
+    const int l = tid + i * kThreads;
+    hoff[i] = 0;
+    if (l < pl) {
+      const int ly = l / bx, lx = l - ly * bx;
+      const int x = x0 + lx - G.hx, y = y0 + ly - G.hy;
+      if (x >= 0 && x < G.nx && y >= 0 && y < G.ny) {
+        hin |= 1u << i;
+        hoff[i] = y * G.nx + x;
+      }
     }
-    ysh[l] = v;
   }
-  __syncthreads();
+  int toff[TP], tsh[TP];
+  unsigned tin = 0;
+#pragma unroll
+  for (int i = 0; i < TP; ++i) {
+    const int l = tid + i * kThreads;
+    toff[i] = 0;
+    tsh[i] = 0;
+    if (l < nt) {
+      const int ly = l / G.tx, lx = l - ly * G.tx;
+      const int x = x0 + lx, y = y0 + ly;
+      if (x < G.nx && y < G.ny) {
+        tin |= 1u << i;
+        toff[i] = y * G.nx + x;
+        tsh[i] = (ly + G.hy) * bx + lx + G.hx;
+      }
+    }
+  }
+
+  // step q's inputs into stage `st`: the Z, Vc, Vp halo plane q (0 outside
+  // the grid) and W and the first fields of the output plane q - hz; one
+  // commit group per step, empty past the end
+  const int pend = ze + G.hz;                   // steps run zs - hz .. pend - 1
+  auto issue = [&](int q, int st) {
+    if (q < pend) {
+      T* sZ = stage0 + (size_t)st * stage_len;
+      const bool inz = q >= 0 && q < G.nz;
+#pragma unroll
+      for (int i = 0; i < kHaloPer; ++i) {
+        const int l = tid + i * kThreads;
+        if (l < pl) {
+          const bool v = inz && (hin >> i & 1u);
+          const size_t g = v ? (size_t)q * plane + hoff[i] : 0;
+          cp_async(sZ + l, Z + g, v);
+          cp_async(sZ + pl + l, Vc + g, v);
+          cp_async(sZ + 2 * pl + l, Vp + g, v);
+        }
+      }
+      const int zo = q - G.hz;
+      if ((ACCUM || VAR) && zo >= zs) {
+        T* sW = sZ + 3 * pl;
+        T* sF = sW + (ACCUM ? nt : 0);
+#pragma unroll
+        for (int i = 0; i < TP; ++i) {
+          if (!(tin >> i & 1u)) continue;
+          const int l = tid + i * kThreads;
+          const size_t g = (size_t)zo * plane + toff[i];
+          if (ACCUM) cp_async(sW + l, W + g, true);
+          for (int u = 0; u < kf; ++u) cp_async(sF + (size_t)u * nt + l, fields + (size_t)u * n + g, true);
+        }
+      }
+    }
+    cp_async_commit();
+  };
 
   T s_yy = T(0), s_yz = T(0);
-  const T cw = ACCUM ? coefs[3] : T(0);
-  const int ntile = tx * ty * tz;
-  for (int l = threadIdx.x; l < ntile; l += kThreads) {
-    const int lx = l % tx;
-    const int r = l / tx;
-    const int ly = r % ty;
-    const int lz = r / ty;
-    const int x = x0 + lx, y = y0 + ly, z = z0 + lz;
-    if (x < nx && y < ny && z < nz) {
-      const int s = ((lz + hz) * by + (ly + hy)) * bx + (lx + hx);
-      const size_t g = ((size_t)z * ny + y) * nx + x;
-      const T yv = ysh[s];
-      T zn = T(0);
-      if (VAR) {
-        for (int j = 0; j < k; ++j) zn += fields[(size_t)j * n + g] * ysh[s + o_sh[j]];
-      } else {
-        for (int j = 0; j < k; ++j) zn += c_sh[j] * ysh[s + o_sh[j]];
-      }
-      Y[g] = yv;
-      Zn[g] = zn;
-      s_yy += yv * yv;
-      s_yz += yv * zn;
-      if (ACCUM) W[g] += cw * Vc[g];
+  for (int q = 0; q < kStages - 1; ++q) issue(zs - G.hz + q, q);
+  int slot = 0, st = 0;                // ring slot and stage of step p
+  for (int p = zs - G.hz; p < pend; ++p) {
+    cp_async_wait_step();              // this thread's copies of step p landed
+    __syncthreads();                   // everyone's; step p - 1 is done
+    issue(p + kStages - 1, st == 0 ? kStages - 1 : st - 1);   // into p - 1's stage
+    // the ring slot of each stencil point for the output plane p - hz
+    int cs = slot - G.hz + R;
+    if (cs >= R) cs -= R;
+    if (tid < k) {
+      int s = slot - G.hz + z_sh[tid] + R;
+      if (s >= R) s -= R;
+      jo_sh[tid] = s * pl + o_sh[tid];
     }
+    // (B3-var, fields in registers) the output plane's first fields,
+    // issued before y is formed
+    const int zo = p - G.hz;
+    T fr[kFieldStage];
+#pragma unroll
+    for (int u = 0; u < kFieldStage; ++u) {
+      fr[u] = T(0);
+      if (u < kr && zo >= zs && (tin & 1u))
+        fr[u] = __ldcs(fields + (size_t)u * n + (size_t)zo * plane + toff[0]);
+    }
+    // y of plane p into its slot
+    const T* sZ = stage0 + (size_t)st * stage_len;
+    T* yp = ring + (size_t)slot * pl;
+#pragma unroll
+    for (int i = 0; i < kHaloPer; ++i) {
+      const int l = tid + i * kThreads;
+      if (l < pl) {
+        const T vc = sZ[pl + l];
+        yp[l] = fma(cc, sZ[2 * pl + l], fma(cb, vc, ca * sZ[l]));
+        if (ACCUM) vring[(size_t)slot * pl + l] = vc;
+      }
+    }
+    __syncthreads();
+
+    if (zo >= zs) {
+      const T* yc = ring + (size_t)cs * pl;
+      const T* sW = sZ + 3 * pl;
+      const T* sF = sW + (ACCUM ? nt : 0);
+#pragma unroll
+      for (int i = 0; i < TP; ++i) {
+        if (!(tin >> i & 1u)) continue;
+        const int l = tid + i * kThreads;
+        const size_t g = (size_t)zo * plane + toff[i];
+        const int t = tsh[i];
+        T zn = T(0);
+        if (VAR) {
+          for (int u = 0; u < kf; ++u) zn = fma(sF[(size_t)u * nt + l], ring[jo_sh[u] + t], zn);
+#pragma unroll
+          for (int u = 0; u < kFieldStage; ++u)
+            if (u < kr) zn = fma(fr[u], ring[jo_sh[u] + t], zn);
+          for (int j = kf + kr; j < k; ++j)
+            zn = fma(__ldcs(fields + (size_t)j * n + g), ring[jo_sh[j] + t], zn);
+        } else {
+          for (int j = 0; j < k; ++j) zn = fma(c_sh[j], ring[jo_sh[j] + t], zn);
+        }
+        const T yv = yc[t];
+        Y[g] = yv;
+        Zn[g] = zn;
+        s_yy = fma(yv, yv, s_yy);
+        s_yz = fma(yv, zn, s_yz);
+        if (ACCUM) W[g] = fma(cw, vring[(size_t)cs * pl + t], sW[l]);
+      }
+    }
+    slot = slot + 1 == R ? 0 : slot + 1;
+    st = st + 1 == kStages ? 0 : st + 1;
   }
   const size_t bid = ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
   s_yy = block_sum(s_yy, red);
   s_yz = block_sum(s_yz, red);
-  if (threadIdx.x == 0) {
+  if (tid == 0) {
     partials[2 * bid + 0] = s_yy;
     partials[2 * bid + 1] = s_yz;
   }
 }
 
-// Second stage: moments[0:2] = fixed-order sums of the per-block partials.
+// Second stage: the fixed-order totals of the per-block partials, written
+// to moments[0:2] when given. With a state buffer (Lanczos mode), after the
+// moments of sweep j, one thread
+//   * sets betas[j - 1] = |y_j| where step j - 1 was live (pass 1's beta
+//     reported one step ahead), 0 otherwise;
+//   * for j < m, computes step j's scalars from the moments and the state,
+//     the formulas of lanczos_fused._lanczos_scalars (its plain twin):
+//     beta = sqrt(max(ypy, 0)), alpha = ypy > 0 ? yzy / max(ypy, tiny) : 0,
+//     live = !broke && beta >= tol, ca = live / beta, cb = -alpha ca,
+//     cc = live ? -beta / beta_prev : 0 (a zero beta divides as 1), and in
+//     the replay cw = live ? coeffs[j] / beta : 0; it writes them to the
+//     state, alphas[j] = live ? alpha : 0 and m_used = j + 1 where live.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-sum_partials_kernel(const T* __restrict__ partials, int nblocks, T* __restrict__ moments) {
+sweep_stage_kernel(const T* __restrict__ partials, int nblocks, T* __restrict__ moments,
+                   T* __restrict__ st, T* __restrict__ alphas, T* __restrict__ betas,
+                   const T* __restrict__ coeffs, int j, int m, T tol, T tiny) {
   __shared__ T red[kThreads];
-  const T a = fixed_order_total(partials, nblocks, 2, red);
-  const T b = fixed_order_total(partials + 1, nblocks, 2, red);
-  if (threadIdx.x == 0) {
-    moments[0] = a;
-    moments[1] = b;
+  const T ypy = fixed_order_total(partials, nblocks, 2, red);
+  const T yzy = fixed_order_total(partials + 1, nblocks, 2, red);
+  if (threadIdx.x != 0) return;
+  if (moments != nullptr) {
+    moments[0] = ypy;
+    moments[1] = yzy;
   }
+  if (st == nullptr) return;
+  const T beta = sqrt(ypy > T(0) ? ypy : T(0));
+  if (betas != nullptr && j > 0) betas[j - 1] = st[kLive] != T(0) ? beta : T(0);
+  if (j >= m) return;
+  const T alpha = ypy > T(0) ? yzy / (ypy > tiny ? ypy : tiny) : T(0);
+  const bool broke = st[kBroke] != T(0);
+  const bool now_broke = beta < tol;
+  const bool go = !broke && !now_broke;
+  const T safe_beta = beta > T(0) ? beta : T(1);
+  const T bp = st[kBetaPrev];
+  const T safe_bp = bp > T(0) ? bp : T(1);
+  const T ca = go ? T(1) / safe_beta : T(0);
+  st[kCa] = ca;
+  st[kCb] = -alpha * ca;
+  st[kCc] = go ? -beta / safe_bp : T(0);
+  st[kCw] = (coeffs != nullptr && go) ? coeffs[j] / safe_beta : T(0);
+  if (alphas != nullptr) alphas[j] = go ? alpha : T(0);
+  if (go) st[kMUsed] = T(j + 1);
+  st[kLive] = go ? T(1) : T(0);
+  st[kBetaPrev] = beta;
+  st[kBroke] = (broke || now_broke) ? T(1) : T(0);
+}
+
+// The sweep's geometry from the host's arguments, checked; returns 0 or a
+// CUDA error code, and the dynamic shared memory of the plain and the
+// accumulating form (smem[0], smem[1]).
+inline int sweep_geom(const int* offs, int k, int nz, int ny, int nx, int cz, int ty,
+                      int tx, bool var, size_t elem, Offsets3D* o, SweepGeom* G,
+                      size_t smem[2]) {
+  if (k < 1 || k > kMaxPoints || nz < 1 || ny < 1 || nx < 1 || cz < 1 || ty < 1 || tx < 1)
+    return (int)cudaErrorInvalidValue;
+  if ((long long)ny * nx > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  *o = Offsets3D{};
+  o->k = k;
+  int hz = 0, hy = 0, hx = 0;
+  for (int j = 0; j < k; ++j) {
+    o->dz[j] = offs[3 * j + 0];
+    o->dy[j] = offs[3 * j + 1];
+    o->dx[j] = offs[3 * j + 2];
+    hz = std::max(hz, std::abs(o->dz[j]));
+    hy = std::max(hy, std::abs(o->dy[j]));
+    hx = std::max(hx, std::abs(o->dx[j]));
+  }
+  if (hz > kMaxHalo || hy > kMaxHalo || hx > kMaxHalo) return (int)cudaErrorInvalidValue;
+  if (ty * tx > (var ? 1 : kTilePer) * kThreads ||
+      (ty + 2 * hy) * (tx + 2 * hx) > kHaloPer * kThreads)
+    return (int)cudaErrorInvalidValue;
+  *G = SweepGeom{nz, ny, nx, cz, ty, tx, hz, hy, hx};
+  const int kf = var && elem == 4 ? std::min(k, kFieldStage) : 0;
+  smem[0] = sweep_smem_values(*G, false, kf) * elem;
+  smem[1] = sweep_smem_values(*G, true, kf) * elem;
+  return smem[1] > (size_t)kSweepSmemMax ? (int)cudaErrorInvalidValue : 0;
+}
+
+// Opt the kernel in to `bytes` of dynamic shared memory (past 48 KB with
+// the static shared memory it must be asked for); raised only as far as a
+// launch needs, since the limit also bounds how many blocks the occupancy
+// calculation admits.
+template <typename T, bool ACCUM, bool VAR>
+static cudaError_t allow_smem(size_t bytes) {     // static: one flag per library
+  static size_t allowed = 0;
+  if (bytes > allowed) {
+    cudaError_t e = cudaFuncSetAttribute(fused_sweep_kernel<T, ACCUM, VAR>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+    if (e != cudaSuccess) return e;
+    allowed = bytes;
+  }
+  return cudaSuccess;
 }
 
 template <typename T, bool VAR>
-void launch_body(dim3 grid, size_t smem, cudaStream_t stream, const T* Z, const T* Vc,
-                 const T* Vp, const T* coefs, const T* cvals, const T* fields,
-                 const Offsets3D& o, int nz, int ny, int nx, int tz, int ty, int tx,
-                 int hz, int hy, int hx, T* Y, T* Zn, T* W, T* partials) {
-  if (W != nullptr)
-    fused_sweep_kernel<T, true, VAR><<<grid, kThreads, smem, stream>>>(
-        Z, Vc, Vp, coefs, cvals, fields, o, nz, ny, nx, tz, ty, tx, hz, hy, hx, Y, Zn, W,
-        partials);
-  else
-    fused_sweep_kernel<T, false, VAR><<<grid, kThreads, smem, stream>>>(
-        Z, Vc, Vp, coefs, cvals, fields, o, nz, ny, nx, tz, ty, tx, hz, hy, hx, Y, Zn, W,
-        partials);
+int resident_blocks(const size_t smem[2]) {
+  cudaError_t e = allow_smem<T, false, VAR>(smem[0]);
+  if (e == cudaSuccess) e = allow_smem<T, true, VAR>(smem[1]);
+  int dev = 0, sms = 0, plain = 0, acc = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &plain, fused_sweep_kernel<T, false, VAR>, kThreads, smem[0]);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &acc, fused_sweep_kernel<T, true, VAR>, kThreads, smem[1]);
+  if (e != cudaSuccess) return -(int)e;
+  return std::min(plain, acc) * sms;
+}
+
+// Blocks of one sweep that the device holds at once (min over the plain
+// and accumulating forms), for the host's choice of cz; negative: an error.
+template <typename T>
+int sweep_capacity(const int* offs, int k, int ty, int tx, int var) {
+  Offsets3D o;
+  SweepGeom G;
+  size_t smem[2];
+  const int c = sweep_geom(offs, k, 1, 1, 1, 1, ty, tx, var != 0, sizeof(T), &o, &G, smem);
+  if (c != 0) return -c;
+  return var ? resident_blocks<T, true>(smem) : resident_blocks<T, false>(smem);
+}
+
+template <typename T, bool VAR>
+int launch_body(dim3 grid, const size_t smem[2], cudaStream_t stream, const T* Z,
+                const T* Vc, const T* Vp, const T* coefs, const T* cvals, const T* fields,
+                const Offsets3D& o, const SweepGeom& G, T* Y, T* Zn, T* W, T* partials) {
+  cudaError_t e;
+  if (W != nullptr) {
+    e = allow_smem<T, true, VAR>(smem[1]);
+    if (e != cudaSuccess) return (int)e;
+    fused_sweep_kernel<T, true, VAR><<<grid, kThreads, smem[1], stream>>>(
+        Z, Vc, Vp, coefs, cvals, fields, o, G, Y, Zn, W, partials);
+  } else {
+    e = allow_smem<T, false, VAR>(smem[0]);
+    if (e != cudaSuccess) return (int)e;
+    fused_sweep_kernel<T, false, VAR><<<grid, kThreads, smem[0], stream>>>(
+        Z, Vc, Vp, coefs, cvals, fields, o, G, Y, Zn, W, partials);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_stage(const T* partials, int nblocks, T* moments, T* state, T* alphas, T* betas,
+                 const T* coeffs, int j, int m, double tol, cudaStream_t stream) {
+  if (nblocks < 1 || (moments == nullptr && state == nullptr)) return (int)cudaErrorInvalidValue;
+  sweep_stage_kernel<T><<<1, kThreads, 0, stream>>>(
+      partials, nblocks, moments, state, alphas, betas, coeffs, j, m, (T)tol,
+      std::numeric_limits<T>::min());
+  return (int)cudaGetLastError();
 }
 
 // One sweep: the constant form when `fields` is null (reads cvals), the
-// variable form otherwise (reads the (k, n) fields, row-major).
+// variable form otherwise (reads the (k, n) fields, row-major). The
+// coefficients (ca, cb, cc[, cw]) are read from `coefs` on the device. The
+// second stage is its own host call (launch_stage), so the host prepares it
+// while the sweep runs.
 template <typename T>
 int launch_sweep(const T* Z, const T* Vc, const T* Vp, const T* coefs, const T* cvals,
-                 const T* fields, const int* offs, int k, int nz, int ny, int nx, int tz,
+                 const T* fields, const int* offs, int k, int nz, int ny, int nx, int cz,
                  int ty, int tx, T* Y, T* Zn, T* W, T* partials, long long partials_cap,
-                 T* moments, cudaStream_t stream) {
-  if (k < 1 || k > kMaxPoints || nz < 1 || ny < 1 || nx < 1 || tz < 1 || ty < 1 || tx < 1)
-    return (int)cudaErrorInvalidValue;
+                 cudaStream_t stream) {
   if ((fields == nullptr) == (cvals == nullptr)) return (int)cudaErrorInvalidValue;
-  Offsets3D o{};
-  o.k = k;
-  int hz = 0, hy = 0, hx = 0;
-  for (int j = 0; j < k; ++j) {
-    o.dz[j] = offs[3 * j + 0];
-    o.dy[j] = offs[3 * j + 1];
-    o.dx[j] = offs[3 * j + 2];
-    const int az = o.dz[j] < 0 ? -o.dz[j] : o.dz[j];
-    const int ay = o.dy[j] < 0 ? -o.dy[j] : o.dy[j];
-    const int ax = o.dx[j] < 0 ? -o.dx[j] : o.dx[j];
-    hz = az > hz ? az : hz;
-    hy = ay > hy ? ay : hy;
-    hx = ax > hx ? ax : hx;
-  }
-  const dim3 grid((nx + tx - 1) / tx, (ny + ty - 1) / ty, (nz + tz - 1) / tz);
+  Offsets3D o;
+  SweepGeom G;
+  size_t smem[2];
+  const int c = sweep_geom(offs, k, nz, ny, nx, cz, ty, tx, fields != nullptr, sizeof(T),
+                           &o, &G, smem);
+  if (c != 0) return c;
+  const dim3 grid((nx + tx - 1) / tx, (ny + ty - 1) / ty, (nz + cz - 1) / cz);
   const long long nblocks = (long long)grid.x * grid.y * grid.z;
   if (grid.y > 65535 || grid.z > 65535 || 2 * nblocks > partials_cap || nblocks > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(tx + 2 * hx) * (ty + 2 * hy) * (tz + 2 * hz) * sizeof(T);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  if (fields != nullptr)
-    launch_body<T, true>(grid, smem, stream, Z, Vc, Vp, coefs, cvals, fields, o, nz, ny, nx,
-                         tz, ty, tx, hz, hy, hx, Y, Zn, W, partials);
-  else
-    launch_body<T, false>(grid, smem, stream, Z, Vc, Vp, coefs, cvals, fields, o, nz, ny, nx,
-                          tz, ty, tx, hz, hy, hx, Y, Zn, W, partials);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  sum_partials_kernel<T><<<1, kThreads, 0, stream>>>(partials, (int)nblocks, moments);
-  return (int)cudaGetLastError();
+  return fields != nullptr
+             ? launch_body<T, true>(grid, smem, stream, Z, Vc, Vp, coefs, cvals, fields, o,
+                                    G, Y, Zn, W, partials)
+             : launch_body<T, false>(grid, smem, stream, Z, Vc, Vp, coefs, cvals, fields, o,
+                                     G, Y, Zn, W, partials);
 }
 
 }  // namespace eu
 
-#define EU_SWEEP_API(T, SUF)                                                         \
-  extern "C" int eu_fused_sweep_##SUF(                                               \
-      const T* Z, const T* Vc, const T* Vp, const T* coefs, const T* cvals,         \
-      const int* offs, int k, int nz, int ny, int nx, int tz, int ty, int tx, T* Y, \
-      T* Zn, T* W, T* partials, long long partials_cap, T* moments, void* stream) { \
-    return eu::launch_sweep<T>(Z, Vc, Vp, coefs, cvals, nullptr, offs, k, nz, ny,   \
-                               nx, tz, ty, tx, Y, Zn, W, partials, partials_cap,    \
-                               moments, (cudaStream_t)stream);                      \
-  }                                                                                  \
-  extern "C" int eu_fused_sweep_var_##SUF(                                           \
-      const T* Z, const T* Vc, const T* Vp, const T* coefs, const T* fields,        \
-      const int* offs, int k, int nz, int ny, int nx, int tz, int ty, int tx, T* Y, \
-      T* Zn, T* W, T* partials, long long partials_cap, T* moments, void* stream) { \
-    return eu::launch_sweep<T>(Z, Vc, Vp, coefs, nullptr, fields, offs, k, nz, ny,  \
-                               nx, tz, ty, tx, Y, Zn, W, partials, partials_cap,    \
-                               moments, (cudaStream_t)stream);                      \
+#define EU_SWEEP_API(T, SUF)                                                          \
+  extern "C" int eu_fused_sweep_##SUF(                                                \
+      const T* Z, const T* Vc, const T* Vp, const T* coefs, const T* cvals,          \
+      const int* offs, int k, int nz, int ny, int nx, int cz, int ty, int tx, T* Y,  \
+      T* Zn, T* W, T* partials, long long partials_cap, void* stream) {            \
+    return eu::launch_sweep<T>(Z, Vc, Vp, coefs, cvals, nullptr, offs, k, nz, ny,    \
+                               nx, cz, ty, tx, Y, Zn, W, partials, partials_cap,     \
+                               (cudaStream_t)stream);                                \
+  }                                                                                   \
+  extern "C" int eu_fused_sweep_var_##SUF(                                            \
+      const T* Z, const T* Vc, const T* Vp, const T* coefs, const T* fields,         \
+      const int* offs, int k, int nz, int ny, int nx, int cz, int ty, int tx, T* Y,  \
+      T* Zn, T* W, T* partials, long long partials_cap, void* stream) {            \
+    return eu::launch_sweep<T>(Z, Vc, Vp, coefs, nullptr, fields, offs, k, nz, ny,   \
+                               nx, cz, ty, tx, Y, Zn, W, partials, partials_cap,     \
+                               (cudaStream_t)stream);                                \
+  }                                                                                   \
+  extern "C" int eu_fused_sweep_capacity_##SUF(const int* offs, int k, int ty, int tx, \
+                                               int var) {                             \
+    return eu::sweep_capacity<T>(offs, k, ty, tx, var);                               \
+  }                                                                                   \
+  extern "C" int eu_sweep_stage_##SUF(const T* partials, int nblocks, T* moments,     \
+                                      T* state, T* alphas, T* betas, const T* coeffs, \
+                                      int j, int m, double tol, void* stream) {       \
+    return eu::launch_stage<T>(partials, nblocks, moments, state, alphas, betas,      \
+                               coeffs, j, m, tol, (cudaStream_t)stream);              \
   }
 
 EU_SWEEP_API(float, f32)

@@ -34,11 +34,11 @@
 // __shfl_sync), kStepsB steps of block and x loads are issued before their
 // FMAs (evict-first loads for the block stream), partial sums stay in
 // registers, and one fixed-order xor-shuffle reduction per block row ends
-// it. Any other (br, bc), or an operand that is not 16-byte aligned, takes
-// the general kernel: the lanes stride over the w bc products of each of
-// the br rows. The two kernels sum in different orders, so B8's result is
-// bitwise repeatable for the same operands at the same 16-byte alignment
-// (an offset view of x may give other last bits than an aligned copy).
+// it. An operand that is not 16-byte aligned (an offset view of x, say)
+// takes the same kernel with each piece read as V scalar loads (ALIGNED
+// false): the same lanes, pieces and summation order, so B8's bits do not
+// depend on the operands' alignment. Any other (br, bc) takes the general
+// kernel: the lanes stride over the w bc products of each of the br rows.
 //
 // No float atomics: every other result is bitwise repeatable.
 #include "common.cuh"
@@ -110,8 +110,19 @@ template <> struct Piece16<double> {
 
 constexpr int kStepsB = 8;      // warp steps of loads issued before their FMAs
 
+// The 16-byte piece at a p that may not be 16-byte aligned, as V scalar
+// loads (the values of one vector load). EVICT: the block stream.
+template <typename T, bool EVICT>
+__device__ __forceinline__ typename Piece16<T>::type load_scalars(const T* p) {
+  typename Piece16<T>::type v;
+  T* e = reinterpret_cast<T*>(&v);
+#pragma unroll
+  for (int u = 0; u < (int)(16 / sizeof(T)); ++u) e[u] = EVICT ? __ldcs(p + u) : __ldg(p + u);
+  return v;
+}
+
 // B8 for (BR, BC) blocks whose rows hold whole 16-byte pieces (module note)
-template <typename T, int BR, int BC>
+template <typename T, int BR, int BC, bool ALIGNED>
 __global__ void __launch_bounds__(kThreads)
 blockell_spmv_tiled(const T* __restrict__ blocks, const int* __restrict__ bcols,
                     const T* __restrict__ x, long long nbr, int w,
@@ -131,7 +142,9 @@ blockell_spmv_tiled(const T* __restrict__ blocks, const int* __restrict__ bcols,
   const int e = lane % kPieces;             // its piece of that block
   const int i = e / kRowLanes;              // the piece's row
   const int j = (e % kRowLanes) * V;        // and first column
-  const VT* rb = reinterpret_cast<const VT*>(blocks + r * w * (long long)(BR * BC)) + e;
+  const T* rbase = blocks + r * w * (long long)(BR * BC);
+  const VT* rb = reinterpret_cast<const VT*>(rbase) + e;   // ALIGNED
+  const T* rs = rbase + e * V;                              // !ALIGNED
   const int* rc = bcols + r * w;
   T acc = T(0);
   for (int k0 = 0; k0 < w; k0 += 32) {      // 32 block columns per bcols load
@@ -144,8 +157,13 @@ blockell_spmv_tiled(const T* __restrict__ blocks, const int* __restrict__ bcols,
         const int kb = t0 + u * kPerStep + q;
         const int cb = __shfl_sync(0xffffffffu, col, kb & 31);
         if (kb < nk) {
-          a[u] = __ldcs(rb + (long long)(k0 + kb) * kPieces);
-          xv[u] = __ldg(reinterpret_cast<const VT*>(x + (long long)cb * BC + j));
+          if constexpr (ALIGNED) {
+            a[u] = __ldcs(rb + (long long)(k0 + kb) * kPieces);
+            xv[u] = __ldg(reinterpret_cast<const VT*>(x + (long long)cb * BC + j));
+          } else {
+            a[u] = load_scalars<T, true>(rs + (long long)(k0 + kb) * (BR * BC));
+            xv[u] = load_scalars<T, false>(x + (long long)cb * BC + j);
+          }
         }
       }
 #pragma unroll
@@ -185,11 +203,17 @@ int launch_blockell_spmv(const T* blocks, const int* bcols, const T* x,
   const long long grid = (nbr + kWarps - 1) / kWarps;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const bool vec = aligned16(blocks) && aligned16(x);
-  if (vec && br == 8 && bc == 8)
-    blockell_spmv_tiled<T, 8, 8><<<(unsigned)grid, kThreads, 0, stream>>>(
+  if (br == 8 && bc == 8 && vec)
+    blockell_spmv_tiled<T, 8, 8, true><<<(unsigned)grid, kThreads, 0, stream>>>(
         blocks, bcols, x, nbr, w, y);
-  else if (vec && br == 4 && bc == 4)
-    blockell_spmv_tiled<T, 4, 4><<<(unsigned)grid, kThreads, 0, stream>>>(
+  else if (br == 8 && bc == 8)
+    blockell_spmv_tiled<T, 8, 8, false><<<(unsigned)grid, kThreads, 0, stream>>>(
+        blocks, bcols, x, nbr, w, y);
+  else if (br == 4 && bc == 4 && vec)
+    blockell_spmv_tiled<T, 4, 4, true><<<(unsigned)grid, kThreads, 0, stream>>>(
+        blocks, bcols, x, nbr, w, y);
+  else if (br == 4 && bc == 4)
+    blockell_spmv_tiled<T, 4, 4, false><<<(unsigned)grid, kThreads, 0, stream>>>(
         blocks, bcols, x, nbr, w, y);
   else
     blockell_spmv_kernel<T><<<(unsigned)grid, kThreads, 0, stream>>>(

@@ -7,8 +7,10 @@ B3-var for per-cell fields) computes
 
     y  = ca Z + cb Vc + cc Vp,   Zn = A y,   moments (sum y^2, sum y.Zn)
 
-and, in its accumulating form, W += cw Vc in place. The drivers below run
-one sweep per step and serve both operator kinds:
+and, in its accumulating form, W += cw Vc in place. Its second stage sums
+the per-block moments in a fixed order and, in Lanczos mode, computes the
+next sweep's scalars on the device. The drivers below run one sweep per
+step and serve both operator kinds:
 
 * ``lanczos_coeffs_fused``: Lanczos pass 1. No normalization pass ever
   runs: the sweep stores the UNNORMALIZED y_j = beta_{j+1} v_{j+1} and its
@@ -19,15 +21,26 @@ one sweep per step and serve both operator kinds:
   scalars from their own moments (bitwise-repeatable reductions make them
   equal to pass 1's) while accumulating w = sum_j c_j v_j.
 * ``recurrence_apply_fused``: the generic (m, 4)-rows recurrence (the
-  Chebyshev apply), no moment feedback.
+  Chebyshev apply), no moment feedback, so no second stage.
 
-The scalars are computed on the device from the previous sweep's moments,
-so the m-step Python loops never synchronize with the host. Vectors are
-flat (n,) tensors in the natural row-major grid layout; 2-D grids run as
-nz = 1. On CPU tensors every sweep runs the plain twin
-``fused_sweep_ref``; on CUDA tensors it launches B3 (or B3-var) or raises.
-A variable operator's fields in another dtype than the vectors are cast
-once and kept on the operator (``VariableStencilOperator.fields``).
+The Lanczos scalars live in a small state buffer on the device (``_ST``):
+the second stage after sweep j writes the next sweep's (ca, cb, cc, cw),
+alpha_j and beta_{j-1} there and into the outputs, and sweep j + 1 reads
+its coefficients from it. So a Lanczos or replay step is two launches and
+the m-step Python loops never synchronize with the host. On CPU tensors
+every sweep runs the plain twin ``fused_sweep_ref`` and every stage its
+twin ``sweep_stage_ref`` (``_lanczos_scalars``); on CUDA tensors they
+launch B3 (or B3-var) and the stage, or raise.
+
+What does not change between sweeps is planned once per (operator, dtype,
+device) and kept on the operator (``_SweepPlan``): the support check, the
+offsets, the tile and chunk plan, the bound C entry points and the
+partials and state buffers. A plan's buffers serve one call at a time on
+one stream. Vectors are flat (n,) tensors in the natural row-major grid
+layout; 2-D grids run as nz = 1. A variable operator's fields in another
+dtype than the vectors are cast once and kept on the operator
+(``VariableStencilOperator.fields``), as are a constant operator's
+coefficients.
 """
 
 from __future__ import annotations
@@ -35,17 +48,26 @@ from __future__ import annotations
 import ctypes
 import math
 
-import numpy as np
 import torch
 
+from ..sparse import _promoted
 from ..stencil import StencilOperator, VariableStencilOperator, stencil_apply
 from . import _build
 
 __all__ = ["fused_supported", "fused_lanczos_step", "fused_sweep_ref",
-           "lanczos_coeffs_fused", "lanczos_replay_fused",
+           "sweep_stage_ref", "lanczos_coeffs_fused", "lanczos_replay_fused",
            "recurrence_apply_fused", "stencil_matvec_fused", "MAX_HALO"]
 
-MAX_HALO = 3            # largest |offset| per axis (shared-memory brick)
+MAX_HALO = 3            # largest |offset| per axis: eu::kMaxHalo
+# (ty, tx) column tile of a B3 block (2 cells a thread) by itemsize, and of
+# a B3-var block (1 cell a thread: its fields): the fastest of the tiles
+# timed at 216^3 on the H100 (PERF.md, the kernel table)
+TILE = {4: (16, 32), 8: (8, 32)}
+VAR_TILE = (8, 32)
+
+# the Lanczos state buffer: eu::kCa .. eu::kLive in csrc/fused_sweep.cu
+_ST = dict(ca=0, cb=1, cc=2, cw=3, beta_prev=4, broke=5, m_used=6, live=7)
+_ST_LEN = 8
 
 
 def fused_supported(op, hermitian: bool = True) -> bool:
@@ -79,12 +101,29 @@ def _geometry(op):
     return gs, op.offsets
 
 
-def _tiles(shape3):
-    """(tz, ty, tx) block tile: 32 x 8 x 4 in 3-D, 32 x 32 for 2-D."""
-    return (1, 32, 32) if shape3[0] == 1 else (4, 8, 32)
+def _chunk(shape3, tile, hz: int, capacity: int) -> int:
+    """z-planes per block: as few chunks as keep every block of the grid
+    resident at once (``capacity`` blocks on the device), at least 2 hz
+    planes so a chunk's z-halo is no larger than the chunk itself."""
+    nz, ny, nx = shape3
+    cols = math.ceil(ny / tile[0]) * math.ceil(nx / tile[1])
+    cz = math.ceil(nz / max(1, capacity // cols))
+    return max(cz, min(nz, 2 * hz))
 
 
-# ---------------------------------------------------------------- twin --
+def _cvals(op, dtype):
+    """The sweep's coefficients in ``dtype``: (k,) constants, or the
+    (k, n) fields of a variable operator (cast once, kept on it)."""
+    if isinstance(op, VariableStencilOperator):
+        return op.fields(dtype)
+    return _promoted(op, "coeffs", dtype)
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+# ---------------------------------------------------------------- twins --
 
 def fused_sweep_ref(Z, Vc, Vp, coefs, grid_shape, offsets, cvals,
                     w_accum=None):
@@ -101,95 +140,9 @@ def fused_sweep_ref(Z, Vc, Vp, coefs, grid_shape, offsets, cvals,
     return y, zn, moments
 
 
-# ------------------------------------------------------------- wrapper --
-
-def _cvals(op, dtype):
-    """The sweep's coefficients in ``dtype``: (k,) constants, or the
-    (k, n) fields of a variable operator (cast once, kept on it)."""
-    if isinstance(op, VariableStencilOperator):
-        return op.fields(dtype)
-    return op.coeffs.to(dtype).contiguous()
-
-
-def fused_lanczos_step(Z, Vc, Vp, coefs, op, *, w_accum=None):
-    """One fused sweep (module doc): kernel B3 (constant stencil) or B3-var
-    (variable) on CUDA, their twin on CPU. ``coefs`` = (ca, cb, cc[, cw])
-    as a tensor on the vectors' device. Returns (Y, Zn, ypy, yzy), plus W
-    when ``w_accum`` is given (updated in place: W = w_accum + cw Vc)."""
-    if not fused_supported(op, hermitian=False):
-        raise ValueError("fused sweep requires a real 2-D/3-D Stencil or "
-                         "VariableStencil operator with |offset| <= "
-                         f"{MAX_HALO} (got {type(op).__name__})")
-    n = op.shape[0]
-    for v in (Z, Vc, Vp) + ((w_accum,) if w_accum is not None else ()):
-        if v.shape != (n,) or v.dtype != Z.dtype or v.device != Z.device:
-            raise ValueError("sweep vectors must be (n,) tensors of one "
-                             "dtype on one device")
-    ncoef = 4 if w_accum is not None else 3
-    if coefs.shape[0] < ncoef:
-        raise ValueError(f"sweep needs {ncoef} coefficients")
-    dev = Z.device
-    if dev.type == "cpu":
-        Y, Zn, moments = fused_sweep_ref(Z, Vc, Vp, coefs, op.grid_shape,
-                                         op.offsets, _cvals(op, Z.dtype),
-                                         w_accum)
-        return _step_result(Y, Zn, moments, w_accum)
-    if dev.type != "cuda":
-        raise ValueError(f"fused sweep: no kernel or twin for device {dev}")
-    if Z.dtype not in _build.KERNEL_DTYPES:
-        raise ValueError(f"fused sweep takes float32/float64, got {Z.dtype}")
-    if op.device != dev or coefs.device != dev:
-        raise ValueError("operator, coefficients and vectors must share "
-                         "one device")
-    if not all(v.is_contiguous() for v in (Z, Vc, Vp, coefs)) or (
-            w_accum is not None and not w_accum.is_contiguous()):
-        raise ValueError("fused sweep takes contiguous tensors")
-    shape3, offs3 = _geometry(op)
-    tz, ty, tx = _tiles(shape3)
-    nblocks = (math.ceil(shape3[2] / tx) * math.ceil(shape3[1] / ty)
-               * math.ceil(shape3[0] / tz))
-    coefs = coefs.to(Z.dtype)
-    cvals = _cvals(op, Z.dtype)
-    var = cvals.ndim == 2
-    flat = np.asarray(offs3, dtype=np.int32).reshape(-1)
-    offs_arg = (ctypes.c_int * len(flat))(*flat.tolist())
-    Y = torch.empty_like(Z)
-    Zn = torch.empty_like(Z)
-    partials = torch.empty(2 * nblocks, dtype=Z.dtype, device=dev)
-    moments = torch.empty(2, dtype=Z.dtype, device=dev)
-    lib = _build.library()
-    name = "fused_sweep_var" if var else "fused_sweep"
-    fn = getattr(lib, f"eu_{name}_{_build.suffix(Z.dtype)}")
-    code = fn(_build.ptr(Z), _build.ptr(Vc), _build.ptr(Vp),
-              _build.ptr(coefs), _build.ptr(cvals), offs_arg, len(offs3),
-              shape3[0], shape3[1], shape3[2], tz, ty, tx, _build.ptr(Y),
-              _build.ptr(Zn), _build.ptr(w_accum), _build.ptr(partials),
-              2 * nblocks, _build.ptr(moments), _build.stream_of(Z))
-    _build.check(code, "fused sweep kernel (B3-var)" if var
-                 else "fused sweep kernel (B3)")
-    _build.launches[name] += 1
-    return _step_result(Y, Zn, moments, w_accum)
-
-
-def _step_result(Y, Zn, moments, w_accum):
-    if w_accum is not None:
-        return Y, Zn, moments[0], moments[1], w_accum
-    return Y, Zn, moments[0], moments[1]
-
-
-def _const(values, like):
-    """A small coefficient vector on like's device, filled without a
-    host-to-device copy."""
-    out = torch.zeros(len(values), dtype=like.dtype, device=like.device)
-    for i, v in enumerate(values):
-        if v:
-            out[i].fill_(v)     # a fill kernel; ``out[i] = v`` copies via host
-    return out
-
-
 def _lanczos_scalars(ypy, yzy, beta_prev, broke, tol):
     """(ca, cb, cc, alpha, beta, now_broke, live, safe_beta) of the next
-    sweep from the previous sweep's moments, all on the device.
+    sweep from the previous sweep's moments.
 
     beta = |y_j| is the off-diagonal recorded one step earlier, so
     ``live`` (no breakdown so far, this one included) is the step's
@@ -210,81 +163,282 @@ def _lanczos_scalars(ypy, yzy, beta_prev, broke, tol):
     return ca, cb, cc, alpha, beta, now_broke, go, safe_beta
 
 
+def sweep_stage_ref(moments, state, alphas, betas, coeffs, j: int, m: int,
+                    tol: float):
+    """Plain twin of the Lanczos-mode second stage after sweep ``j``
+    (``sweep_stage_kernel``): updates ``state`` (``_ST``), ``alphas`` and
+    ``betas`` in place from the sweep's moments; ``coeffs`` (the replay's
+    weights) or None."""
+    ypy, yzy = moments[0], moments[1]
+    if j > 0:
+        betas[j - 1] = torch.where(state[_ST["live"]] != 0,
+                                   torch.sqrt(torch.clamp_min(ypy, 0.0)), 0.0)
+    if j >= m:
+        return
+    broke = state[_ST["broke"]] != 0
+    ca, cb, cc, alpha, beta, now_broke, live, safe_beta = _lanczos_scalars(
+        ypy, yzy, state[_ST["beta_prev"]], broke, tol)
+    cw = (torch.where(live, coeffs[j] / safe_beta, 0.0) if coeffs is not None
+          else torch.zeros_like(ca))
+    alphas[j] = torch.where(live, alpha, 0.0)
+    state[_ST["m_used"]] = torch.where(live, float(j + 1),
+                                       state[_ST["m_used"]])
+    state[:4] = torch.stack([ca, cb, cc, cw])
+    state[_ST["live"]] = live.to(state.dtype)
+    state[_ST["beta_prev"]] = beta
+    state[_ST["broke"]] = (broke | now_broke).to(state.dtype)
+
+
+# ---------------------------------------------------------------- plan --
+
+class _SweepPlan:
+    """What every sweep of one operator in one dtype on one device shares
+    (module doc). On CPU only the support checks; on CUDA also the tile
+    (ty, tx) = ``TILE`` (``VAR_TILE``) cut to the grid, the chunk of z-planes per block,
+    the block count, the C entry points, the partials and state buffers
+    and ``unit`` = (1, 0, 0, 0), the coefficients of a sweep that emits
+    y = Z."""
+
+    def __init__(self, op, dtype, device):
+        if not fused_supported(op, hermitian=False):
+            raise ValueError("fused sweep requires a real 2-D/3-D Stencil or "
+                             "VariableStencil operator with |offset| <= "
+                             f"{MAX_HALO} (got {type(op).__name__})")
+        self.hermitian = fused_supported(op, hermitian=True)
+        self.variable = isinstance(op, VariableStencilOperator)
+        self.grid_shape, self.offsets = op.grid_shape, op.offsets
+        self.n = op.shape[0]
+        self.kernel = device.type == "cuda"
+        if device.type not in ("cpu", "cuda"):
+            raise ValueError(f"fused sweep: no kernel or twin for {device}")
+        if not self.kernel:
+            return
+        if dtype not in _build.KERNEL_DTYPES:
+            raise ValueError(f"fused sweep takes float32/float64, got {dtype}")
+        if op.device != device:
+            raise ValueError("operator and vectors must share one device")
+        self.shape3, offs3 = _geometry(op)
+        nz, ny, nx = self.shape3
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        ty, tx = VAR_TILE if self.variable else TILE[itemsize]
+        self.tile = (min(ty, ny), min(tx, nx))
+        self.name = "fused_sweep_var" if self.variable else "fused_sweep"
+        self.what = ("fused sweep kernel (B3-var)" if self.variable
+                     else "fused sweep kernel (B3)")
+        lib = _build.library()
+        suf = _build.suffix(dtype)
+        self.sweep_fn = getattr(lib, f"eu_{self.name}_{suf}")
+        self.stage_fn = getattr(lib, f"eu_sweep_stage_{suf}")
+        flat = [int(v) for off in offs3 for v in off]
+        self.offs = (ctypes.c_int * len(flat))(*flat)
+        self.k = len(offs3)
+        with torch.cuda.device(device):
+            cap = getattr(lib, f"eu_fused_sweep_capacity_{suf}")(
+                self.offs, self.k, *self.tile, int(self.variable))
+        if cap <= 0:
+            _build.check(-cap if cap < 0 else 9,    # 9: cudaErrorInvalidConfiguration
+                         f"{self.what}: no block fits on the device")
+        hz = max(abs(off[0]) for off in offs3)
+        self.cz = _chunk(self.shape3, self.tile, hz, cap)
+        self.nblocks = (math.ceil(nx / self.tile[1])
+                        * math.ceil(ny / self.tile[0]) * math.ceil(nz / self.cz))
+        self.partials = torch.empty(2 * self.nblocks, dtype=dtype,
+                                    device=device)
+        self.state = torch.empty(_ST_LEN, dtype=dtype, device=device)
+        self.state0 = torch.zeros(_ST_LEN, dtype=dtype, device=device)
+        self.state0[_ST["ca"]].fill_(1.0)     # a fill; ``t[i] = v`` copies via host
+        self.state0[_ST["beta_prev"]].fill_(1.0)
+        self.unit = self.state0[:4]
+
+    def sweep(self, Z, Vc, Vp, coefs_ptr: int, cvals, Y, Zn, W, stream):
+        """Launch B3 (or B3-var) with its coefficients at ``coefs_ptr``."""
+        nz, ny, nx = self.shape3
+        code = self.sweep_fn(Z.data_ptr(), Vc.data_ptr(), Vp.data_ptr(),
+                             coefs_ptr, cvals.data_ptr(), self.offs, self.k,
+                             nz, ny, nx, self.cz, *self.tile, Y.data_ptr(),
+                             Zn.data_ptr(), _ptr(W), self.partials.data_ptr(),
+                             2 * self.nblocks, stream)
+        _build.check(code, self.what)
+        _build.launches[self.name] += 1
+
+    def stage(self, stream, moments=None, state=None, alphas=None,
+              betas=None, coeffs=None, j=0, m=0, tol=0.0):
+        """Launch the second stage of the last sweep: its moments into
+        ``moments``, or in Lanczos mode (``state``) the scalars of step
+        ``j`` into ``state``, ``alphas`` and ``betas``
+        (``sweep_stage_ref``)."""
+        code = self.stage_fn(self.partials.data_ptr(), self.nblocks,
+                             _ptr(moments), _ptr(state), _ptr(alphas),
+                             _ptr(betas), _ptr(coeffs), j, m, tol, stream)
+        _build.check(code, "second stage of the fused sweep")
+        _build.launches["sweep_stage"] += 1
+
+
+def _plan(op, dtype, device) -> _SweepPlan:
+    plans = op.__dict__.setdefault("_sweep_plans", {})
+    plan = plans.get((dtype, device))
+    if plan is None:
+        plan = plans[(dtype, device)] = _SweepPlan(op, dtype, device)
+    return plan
+
+
+def _stream(t) -> int:
+    """The current CUDA stream of t's device as a raw handle (the public
+    ``torch.cuda.current_stream`` builds a Stream object: several
+    microseconds of host time before every one-sweep launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def _vector(plan, v, what):
+    """``v`` as the drivers' contiguous (n,) start vector."""
+    if v.shape != (plan.n,):
+        raise ValueError(f"{what}: vector of shape {tuple(v.shape)} for an "
+                         f"operator of {plan.n} rows")
+    return v.contiguous()
+
+
+# ------------------------------------------------------------- wrapper --
+
+def fused_lanczos_step(Z, Vc, Vp, coefs, op, *, w_accum=None):
+    """One fused sweep (module doc): kernel B3 (constant stencil) or B3-var
+    (variable) and its second stage on CUDA, their twins on CPU. ``coefs``
+    = (ca, cb, cc[, cw]) as a tensor on the vectors' device. Returns (Y,
+    Zn, ypy, yzy), plus W when ``w_accum`` is given (updated in place:
+    W = w_accum + cw Vc)."""
+    dev, dt = Z.device, Z.dtype
+    plan = _plan(op, dt, dev)
+    vecs = (Z, Vc, Vp) if w_accum is None else (Z, Vc, Vp, w_accum)
+    shape = (plan.n,)
+    for v in vecs:
+        if v.shape != shape or v.dtype != dt or v.device != dev:
+            raise ValueError("sweep vectors must be (n,) tensors of one "
+                             "dtype on one device")
+    ncoef = 4 if w_accum is not None else 3
+    if coefs.shape[0] < ncoef:
+        raise ValueError(f"sweep needs {ncoef} coefficients")
+    cvals = _cvals(op, dt)
+    if not plan.kernel:
+        Y, Zn, moments = fused_sweep_ref(Z, Vc, Vp, coefs, op.grid_shape,
+                                         op.offsets, cvals, w_accum)
+        return _step_result(Y, Zn, moments, w_accum)
+    if coefs.device != dev:
+        raise ValueError("coefficients and vectors must share one device")
+    if not all(v.is_contiguous() for v in vecs):
+        raise ValueError("fused sweep takes contiguous tensors")
+    if coefs.dtype != dt or not coefs.is_contiguous():
+        coefs = coefs.to(dt).contiguous()
+    Y, Zn = torch.empty_like(Z), torch.empty_like(Z)
+    stream = _stream(Z)
+    plan.sweep(Z, Vc, Vp, coefs.data_ptr(), cvals, Y, Zn, w_accum, stream)
+    # made while the sweep runs: the stage's launch costs no device time
+    moments = torch.empty(2, dtype=dt, device=dev)
+    plan.stage(stream, moments=moments)
+    return _step_result(Y, Zn, moments, w_accum)
+
+
+def _step_result(Y, Zn, moments, w_accum):
+    ypy, yzy = moments.unbind()
+    if w_accum is not None:
+        return Y, Zn, ypy, yzy, w_accum
+    return Y, Zn, ypy, yzy
+
+
+def _const(values, like):
+    """A small coefficient vector on like's device, filled without a
+    host-to-device copy."""
+    out = torch.zeros(len(values), dtype=like.dtype, device=like.device)
+    for i, v in enumerate(values):
+        if v:
+            out[i].fill_(v)     # a fill kernel; ``out[i] = v`` copies via host
+    return out
+
+
 def _start(b):
     beta0 = torch.linalg.vector_norm(b)
     v0 = torch.where(beta0 > 0, b / torch.where(beta0 > 0, beta0, 1.0), 0.0)
     return beta0, v0
 
 
+def _lanczos_sweeps(op, b, m: int, tol: float, coeffs=None, *, what):
+    """Lanczos pass 1 (``coeffs`` None) or its replay with weights
+    ``coeffs`` ((m,)): m + 1 sweeps from v0 = b / |b|, each followed by
+    the Lanczos-mode second stage. Returns (alphas, betas, beta0, m_used,
+    broke, W), W None in pass 1; both passes fill alphas and betas."""
+    plan = _plan(op, b.dtype, b.device)
+    if not plan.hermitian:
+        raise ValueError(f"{what} requires a symmetric 2-D/3-D Stencil or "
+                         "Hermitian VariableStencil operator")
+    beta0, v0 = _start(_vector(plan, b, what))
+    dt, dev = v0.dtype, v0.device
+    if coeffs is not None:
+        coeffs = coeffs.to(dtype=dt, device=dev).contiguous()
+        m = coeffs.shape[0]
+    zeros = torch.zeros_like(v0)
+    W = None if coeffs is None else torch.zeros_like(v0)
+    alphas = torch.empty(m, dtype=dt, device=dev)
+    betas = torch.empty(m, dtype=dt, device=dev)
+    cvals = _cvals(op, dt)
+    if plan.kernel:
+        state = plan.state
+        state.copy_(plan.state0)
+        stream = _stream(v0)
+        Ys = [torch.empty_like(v0) for _ in range(3)]
+        Zs = [torch.empty_like(v0) for _ in range(2)]
+    else:
+        state = _const((1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0), v0)
+    state[_ST["broke"]].copy_(beta0 == 0)
+    # sweep 0: (1, 0, 0) emits y = v0, Z = A v0 and the first moments
+    Z, Vc, Vp = v0, zeros, zeros
+    for s in range(m + 1):
+        if plan.kernel:
+            Y, Zn = Ys[s % 3], Zs[s % 2]
+            plan.sweep(Z, Vc, Vp, state.data_ptr(), cvals, Y, Zn, W, stream)
+            plan.stage(stream, state=state, alphas=alphas, betas=betas,
+                       coeffs=coeffs, j=s, m=m, tol=tol)
+        else:
+            Y, Zn, moments = fused_sweep_ref(Z, Vc, Vp, state, op.grid_shape,
+                                             op.offsets, cvals, W)
+            sweep_stage_ref(moments, state, alphas, betas, coeffs, s, m, tol)
+        # sweep s + 1 accumulates c_s v_s from its Vc input (Vc = y_s with
+        # |y_s| = beta, so Vc / beta = v_s) while producing y_{s+1}
+        Z, Vc, Vp = Zn, Y, Vc
+    m_used = state[_ST["m_used"]].to(torch.int32)
+    return alphas, betas, beta0, m_used, state[_ST["broke"]] != 0, W
+
+
 def lanczos_coeffs_fused(op, b, m: int, *, tol: float = 1e-7):
     """Drop-in twin of ``ops.krylov.lanczos_coeffs`` for symmetric 2-D/3-D
     box ``StencilOperator``s and Hermitian ``VariableStencilOperator``s:
-    m + 1 fused sweeps."""
-    if not fused_supported(op, hermitian=True):
-        raise ValueError("lanczos_coeffs_fused requires a symmetric 2-D/3-D "
-                         "Stencil or Hermitian VariableStencil operator")
-    beta0, v0 = _start(b)
-    zeros = torch.zeros_like(v0)
-    # sweep 0: (1, 0, 0) emits y = v0, Z = A v0 and the first moments
-    Y, Z, ypy, yzy = fused_lanczos_step(v0, zeros, zeros,
-                                        _const((1.0, 0.0, 0.0), v0), op)
-    Yprev = zeros
-    beta_prev = torch.ones((), dtype=v0.dtype, device=v0.device)
-    broke = beta0 == 0
-    m_used = torch.zeros((), dtype=torch.int32, device=v0.device)
-    alphas, betas = [], []
-    for j in range(m):
-        ca, cb, cc, alpha, beta, now_broke, live, _ = _lanczos_scalars(
-            ypy, yzy, beta_prev, broke, tol)
-        Yn, Zn, ypy_n, yzy_n = fused_lanczos_step(
-            Z, Y, Yprev, torch.stack([ca, cb, cc]), op)
-        m_used = torch.where(live, j + 1, m_used).to(torch.int32)
-        alphas.append(torch.where(live, alpha, 0.0))
-        # the beta reported at position j is the NEXT off-diagonal |y_{j+1}|
-        beta_next = torch.sqrt(torch.clamp_min(ypy_n, 0.0))
-        betas.append(torch.where(live, beta_next, 0.0))
-        Yprev, Y, Z, ypy, yzy = Y, Yn, Zn, ypy_n, yzy_n
-        beta_prev, broke = beta, broke | now_broke
-    m_used = torch.where(beta0 == 0, 0, m_used).to(torch.int32)
-    empty = torch.zeros(0, dtype=v0.dtype, device=v0.device)
-    return (torch.stack(alphas) if m else empty,
-            torch.stack(betas) if m else empty, beta0, m_used, broke)
+    m + 1 fused sweeps, each with its second stage."""
+    return _lanczos_sweeps(op, b, m, tol, what="lanczos_coeffs_fused")[:5]
 
 
 def lanczos_replay_fused(op, b, coeffs, *, tol: float = 1e-7):
     """Replay twin: w = sum_j coeffs[j] v_j regenerating the basis with the
     same sweeps as ``lanczos_coeffs_fused`` (m + 1 accumulating sweeps)."""
-    if not fused_supported(op, hermitian=True):
-        raise ValueError("lanczos_replay_fused requires a symmetric 2-D/3-D "
-                         "Stencil or Hermitian VariableStencil operator")
-    beta0, v0 = _start(b)
-    coeffs = coeffs.to(v0.dtype)
-    W = torch.zeros_like(v0)
-    # sweep 0: y = v0 (ca = 1 on Z = v0); nothing to accumulate yet
-    Y, Z, ypy, yzy, W = fused_lanczos_step(
-        v0, v0, torch.zeros_like(v0), _const((1.0, 0.0, 0.0, 0.0), v0), op,
-        w_accum=W)
-    Yprev = torch.zeros_like(v0)
-    beta_prev = torch.ones((), dtype=v0.dtype, device=v0.device)
-    broke = beta0 == 0
-    for j in range(coeffs.shape[0]):
-        # sweep j+1 accumulates c_j v_j from its Vc input (Vc = y_j with
-        # |y_j| = beta, so Vc / beta = v_j) while producing y_{j+1}
-        ca, cb, cc, alpha, beta, now_broke, live, safe_beta = \
-            _lanczos_scalars(ypy, yzy, beta_prev, broke, tol)
-        cw = torch.where(live, coeffs[j] / safe_beta, 0.0)
-        Yn, Zn, ypy, yzy, W = fused_lanczos_step(
-            Z, Y, Yprev, torch.stack([ca, cb, cc, cw]), op, w_accum=W)
-        Yprev, Y, Z = Y, Yn, Zn
-        beta_prev, broke = beta, broke | now_broke
-    return W
+    return _lanczos_sweeps(op, b, 0, tol, coeffs,
+                           what="lanczos_replay_fused")[5]
+
+
+def _unit(plan, like):
+    """(1, 0, 0, 0): the coefficients of a sweep that emits y = Z."""
+    return plan.unit if plan.kernel else _const((1.0, 0.0, 0.0, 0.0), like)
 
 
 def stencil_matvec_fused(op, x):
-    """``A @ x`` through one (1, 0, 0) fused sweep (Zn = A x)."""
+    """``A @ x`` through one (1, 0, 0) fused sweep (Zn = A x); on CUDA
+    without the second stage (nothing reads the moments)."""
+    plan = _plan(op, x.dtype, x.device)
+    x = _vector(plan, x, "stencil_matvec_fused")
     zeros = torch.zeros_like(x)
-    return fused_lanczos_step(x, zeros, zeros, _const((1.0, 0.0, 0.0), x),
-                              op)[1]
+    cvals = _cvals(op, x.dtype)
+    if not plan.kernel:
+        return fused_sweep_ref(x, zeros, zeros, _unit(plan, x), op.grid_shape,
+                               op.offsets, cvals)[1]
+    Y, Zn = torch.empty_like(x), torch.empty_like(x)
+    plan.sweep(x, zeros, zeros, plan.unit.data_ptr(), cvals, Y, Zn, None,
+               _stream(x))
+    return Zn
 
 
 def recurrence_apply_fused(op, b, rows):
@@ -294,19 +448,29 @@ def recurrence_apply_fused(op, b, rows):
         w          += cw_k omega_k,          k = 0..m-1,  omega_0 = b.
 
     ``rows`` is a (m, 4) tensor on b's device (the Chebyshev rows of
-    ``ops.kernels.dispatch.chebyshev_rows``)."""
+    ``ops.kernels.dispatch.chebyshev_rows``). Nothing reads the moments,
+    so on CUDA no second stage runs."""
+    plan = _plan(op, b.dtype, b.device)
+    b = _vector(plan, b, "recurrence_apply_fused")
     rows = torch.as_tensor(rows, dtype=b.dtype, device=b.device).contiguous()
     zeros = torch.zeros_like(b)
     W = torch.zeros_like(b)
-    # sweep 0 emits omega_0 = b and Z = A omega_0 (no accumulation yet)
-    Y, Z, _, _, W = fused_lanczos_step(b, b, zeros,
-                                       _const((1.0, 0.0, 0.0, 0.0), b), op,
-                                       w_accum=W)
-    Yprev = zeros
-    for k in range(rows.shape[0]):
-        # sweep k+1 accumulates cw_k omega_k from its Vc input while
-        # emitting omega_{k+1}
-        Yn, Zn, _, _, W = fused_lanczos_step(Z, Y, Yprev, rows[k], op,
-                                             w_accum=W)
-        Yprev, Y, Z = Y, Yn, Zn
+    cvals = _cvals(op, b.dtype)
+    if plan.kernel:
+        stream = _stream(b)
+        Ys = [torch.empty_like(b) for _ in range(3)]
+        Zs = [torch.empty_like(b) for _ in range(2)]
+    # sweep 0 emits omega_0 = b and Z = A omega_0 (no accumulation yet);
+    # sweep k+1 accumulates cw_k omega_k from its Vc input while emitting
+    # omega_{k+1}
+    Z, Vc, Vp = b, b, zeros
+    for s in range(rows.shape[0] + 1):
+        co = _unit(plan, b) if s == 0 else rows[s - 1]
+        if plan.kernel:
+            Y, Zn = Ys[s % 3], Zs[s % 2]
+            plan.sweep(Z, Vc, Vp, co.data_ptr(), cvals, Y, Zn, W, stream)
+        else:
+            Y, Zn, _ = fused_sweep_ref(Z, Vc, Vp, co, op.grid_shape,
+                                       op.offsets, cvals, W)
+        Z, Vc, Vp = Zn, Y, (zeros if s == 0 else Vc)
     return W

@@ -26,10 +26,9 @@ x natively, so one layout serves every mode here:
   from global memory otherwise (``csrc/sell.cu``). The spans depend only on
   ``cols`` and ``slice_ptr``: the packers compute them, a pack loaded or
   built by hand computes them on its device while it is checked (over all
-  slots, padding included), and they are not saved. A pack saved by an
-  earlier version holds column 0 in its padded slots, so most of its spans
-  start at 0 and few of its blocks stage x: its products are right, and
-  packing the matrix again restores the staging.
+  slots, padding included, after pointing every value-0 slot at its
+  slice's lowest column: a pack saved by an earlier version holds column 0
+  there), and they are not saved.
 * **Bucketed** (``sell_pack_bucketed``): the same layout sorted over a
   wider sigma (``BUCKET_SIGMA``). Degree bucketing is what the sigma sort
   does.
@@ -142,6 +141,7 @@ class SellData:
             return (torch.aminmax(t.long()) if t.numel()
                     else (sp.new_tensor(0), sp.new_tensor(-1)))
 
+        self.cols = c = _repoint_padding(v, c, sp)
         spans = _slice_spans(c, sp)
         first, last, bad, cmin, cmax, rmin, rmax, stage = torch.stack([
             sp[0], sp[-1],
@@ -284,6 +284,32 @@ def _npz(path: str) -> str:
 
 # ---------------------------------------------------------------- spans --
 
+def _slot_owner(nslots, slice_ptr):
+    """The slice of each of ``nslots`` slots (clamped into range)."""
+    slot = torch.arange(nslots, device=slice_ptr.device)
+    return (torch.searchsorted(slice_ptr, slot, right=True) - 1).clamp_(
+        0, slice_ptr.numel() - 2)
+
+
+def _repoint_padding(vals, cols, slice_ptr):
+    """``cols`` with every value-0 slot pointed at its slice's lowest
+    column among the nonzero slots (slices without one keep theirs): the
+    packers' padding. A pack saved by an earlier version holds column 0
+    there, which would stretch its spans to 0; a stored zero multiplies
+    any x to 0, so products do not change."""
+    ns = slice_ptr.numel() - 1
+    if ns < 1 or cols.numel() == 0 or cols.shape != vals.shape:
+        return cols
+    owner = _slot_owner(cols.numel(), slice_ptr)
+    big = 2 ** 62
+    nz = vals != 0
+    lo = torch.full((ns,), big, dtype=torch.int64, device=cols.device)
+    lo.scatter_reduce_(0, owner, torch.where(nz, cols.long(), big), "amin")
+    target = lo[owner]
+    return torch.where(~nz & (target < big), target, cols.long()).to(
+        cols.dtype)
+
+
 def _slice_spans(cols, slice_ptr):
     """(nslices, 2) int32 [min, max] column over each slice's slots ([0, -1]
     for a slice without slots), on the pack's device and without a sync; a
@@ -292,9 +318,7 @@ def _slice_spans(cols, slice_ptr):
     if ns < 1 or cols.numel() == 0:
         return torch.tensor([[0, -1]] * max(ns, 0), dtype=torch.int32,
                             device=cols.device).reshape(-1, 2)
-    slot = torch.arange(cols.numel(), device=cols.device)
-    owner = (torch.searchsorted(slice_ptr, slot, right=True) - 1).clamp_(
-        0, ns - 1)
+    owner = _slot_owner(cols.numel(), slice_ptr)
     c = cols.long()
     lo = torch.full((ns,), 2 ** 31, dtype=torch.int64, device=cols.device)
     hi = torch.full((ns,), -1, dtype=torch.int64, device=cols.device)

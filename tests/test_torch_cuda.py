@@ -62,22 +62,51 @@ def test_b1_b2_vs_twin(dev, dt):
     assert torch.equal(ab, tr.resident_lanczos(op, v0, 12, 1e-7))
 
 
+def _const_op(kind, dt, dev):
+    """Constant operators of B3, ragged against its 16 x 32 column tiles
+    and its z chunks: the 7-point Laplacian on 5 x 7 x 130, on 3 planes of
+    700 x 900 (more column tiles than the card holds blocks, so all three
+    planes form one chunk), on one plane as a 3-D grid, and 2-D; the
+    halo-2 13-point star; the 27-point box (corners in every axis)."""
+    if kind == "13pt":
+        offs = [(0, 0, 0)] + [tuple(s if i == a else 0 for i in range(3))
+                              for a in range(3) for s in (-2, -1, 1, 2)]
+        cs = [-7.5] + [-1 / 12, 4 / 3, 4 / 3, -1 / 12] * 3
+        return et.StencilOperator((7, 19, 45), offs, np.asarray(cs),
+                                  is_hermitian=True, dtype=dt, device=dev)
+    if kind == "27pt":
+        offs = list(itertools.product((-1, 0, 1), repeat=3))
+        cs = np.random.default_rng(12).standard_normal(27) * 0.15
+        return et.StencilOperator((6, 21, 37), offs, cs, dtype=dt,
+                                  device=dev)
+    shape = {"7pt": (5, 7, 130), "nz3": (3, 700, 900), "nz1": (1, 33, 45),
+             "2d": (9, 33)}[kind]
+    return et.laplacian_nd_stencil(*shape, dtype=dt, device=dev)
+
+
 @pytest.mark.parametrize("dt", DTYPES)
-@pytest.mark.parametrize("shape", [(5, 7, 130), (9, 33)])
-def test_b3_vs_twin(dev, dt, shape):
-    op = et.laplacian_nd_stencil(*shape, dtype=dt, device=dev)
+@pytest.mark.parametrize("kind", ["7pt", "nz3", "nz1", "2d", "13pt", "27pt"])
+def test_b3_vs_twin(dev, dt, kind):
+    op = _const_op(kind, dt, dev)
     n = op.shape[0]
     Z, Vc, Vp, W = (_vec(n, dt, dev, s) for s in range(4))
     co = torch.tensor([0.3, -0.7, 0.2, 0.45], dtype=dt, device=dev)
     W1, W2 = W.clone(), W.clone()
+    _build.reset_launch_counts()
     Y, Zn, ypy, yzy, _ = tf.fused_lanczos_step(Z, Vc, Vp, co, op, w_accum=W1)
+    assert (_build.launches["fused_sweep"], _build.launches["sweep_stage"]) \
+        == (1, 1)
     mom = torch.stack([ypy, yzy])
     Yr, Znr, momr = tf.fused_sweep_ref(Z, Vc, Vp, co, op.grid_shape,
                                        op.offsets, op.coeffs, W2)
     for a, b in ((Y, Yr), (Zn, Znr), (mom, momr), (W1, W2)):
         _close(a, b, dt)
     plain = tf.fused_lanczos_step(Z, Vc, Vp, co[:3].contiguous(), op)
+    _close(plain[1], Znr, dt)
     assert torch.equal(mom, torch.stack(plain[2:]))
+    _close(tf.stencil_matvec_fused(op, Z), op.matvec(Z), dt)
+    if kind == "nz3":
+        assert tf._plan(op, dt, Z.device).cz == 3
 
 
 def _var_op(kind, dt, dev):
@@ -120,6 +149,46 @@ def test_b3_var_vs_twin(dev, dt, kind):
     assert torch.equal(torch.stack(again[2:]), torch.stack(plain[2:]))
     assert _build.launches["fused_sweep_var"] == 3
     assert _build.launches["fused_sweep"] == 0
+
+
+LANCZOS_TOL = {torch.float32: 1e-4, torch.float64: 1e-7}
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("kind", ["7pt", "2d", "13pt", "diff3d", "diff2d"])
+def test_b3_lanczos_two_launches_per_sweep(dev, dt, kind):
+    """Pass 1 and the replay on the card: one sweep and one second stage
+    per step (the stage computes the next sweep's scalars), the replay's
+    alphas and betas bitwise equal to pass 1's, both against the drivers'
+    CPU path on the same operator (float32 within 1e-4: the Krylov
+    recurrence amplifies the sums' other order)."""
+    if kind.startswith("diff"):
+        op, cpu = _var_op(kind, dt, dev), _var_op(kind, dt, "cpu")
+        name = "fused_sweep_var"
+    else:
+        op, cpu = _const_op(kind, dt, dev), _const_op(kind, dt, "cpu")
+        name = "fused_sweep"
+    n, m = op.shape[0], 12
+    b = _vec(n, dt, dev, 31)
+    c = _vec(m, dt, dev, 32) * 0.1
+    _build.reset_launch_counts()
+    a, bt, b0, mu, br, _ = tf._lanczos_sweeps(op, b, m, LANCZOS_TOL[dt],
+                                              what="pass 1")
+    assert (_build.launches[name], _build.launches["sweep_stage"]) == \
+        (m + 1, m + 1)
+    ra, rb, _, rmu, _, w = tf._lanczos_sweeps(op, b, m, LANCZOS_TOL[dt], c,
+                                              what="replay")
+    assert (_build.launches[name], _build.launches["sweep_stage"]) == \
+        (2 * m + 2, 2 * m + 2)
+    assert torch.equal(ra, a) and torch.equal(rb, bt)
+    assert int(rmu) == int(mu) == m and not bool(br)
+    ca, cbt, _, cmu, _, cw = tf._lanczos_sweeps(
+        cpu, b.cpu(), m, LANCZOS_TOL[dt], c.cpu(), what="cpu")
+    tol = 1e-4 if dt == torch.float32 else 1e-10
+    for got, want in ((a, ca), (bt, cbt), (w, cw)):
+        scale = float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= tol * scale
+    assert int(cmu) == m
 
 
 def test_b3_var_fields_cast_once(dev):
@@ -238,7 +307,7 @@ def test_phi_path_dispatches_to_kernels(dev):
     assert dict(_build.launches) == {
         "resident_recurrence": 0, "resident_lanczos": 1, "resident_multi": 2,
         "resident_banded": 0, "resident_grid": 0, "fused_sweep": 0,
-        "fused_sweep_var": 0, "banded_spmv": 0, "blockell_spmv": 0, "sell_spmv": 0,
+        "fused_sweep_var": 0, "sweep_stage": 0, "banded_spmv": 0, "blockell_spmv": 0, "sell_spmv": 0,
         "seg_compact": 0}
     for w in (w1, w2):
         assert float((w - w3).norm() / w3.norm()) < 1e-10
@@ -460,7 +529,8 @@ def _blockell_scipy(op):
 def test_b8_block_shapes(dev, dt, b, w):
     """B8's 8 x 8 and 4 x 4 kernels at w = 1, 7 and 40 (past the unrolled
     steps and one bcols load of 32), nbr not a multiple of the warps per
-    block; an x that is not 16-byte aligned takes the general kernel."""
+    block; an x or blocks that are not 16-byte aligned give the same bits
+    (scalar loads, the same summation order)."""
     from exponentialutilities_jl_torch.ops.kernels import spmv as tsp
 
     op = _blockell_random(45, w, b, dt, dev, 46 + w)
@@ -473,8 +543,12 @@ def test_b8_block_shapes(dev, dt, b, w):
     want = _blockell_scipy(op) @ x.double().cpu().numpy()
     _close(y, torch.as_tensor(want, dtype=dt, device=dev), dt)
     assert torch.equal(y, op.matvec(x))
-    xo = torch.empty(n + 1, dtype=dt, device=dev)[1:].copy_(x)   # unaligned
-    _close(tsp.blockell_spmv(op.blocks, op.bcols, xo), y, dt)
+    # offset views (not 16-byte aligned) give the aligned copies' bits
+    xo = torch.empty(n + 1, dtype=dt, device=dev)[1:].copy_(x)
+    assert torch.equal(tsp.blockell_spmv(op.blocks, op.bcols, xo), y)
+    bo = torch.empty(op.blocks.numel() + 1, dtype=dt, device=dev)[1:]
+    bo = bo.view(op.blocks.shape).copy_(op.blocks)
+    assert torch.equal(tsp.blockell_spmv(bo, op.bcols, xo), y)
 
 
 def test_sparse_matvec_dtype_gate(dev):

@@ -143,7 +143,7 @@ def _reduced(alphas, betas, beta0, t):
     return float(beta0) * sla.expm(t * T)[:, 0]
 
 
-@pytest.mark.parametrize("kind", ["7pt", "5pt-2d"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_lanczos_replay_fused(kind):
     jop = _jax_op(kind, jnp.float32)
     top = et.to_torch_operator(jop)
@@ -169,6 +169,56 @@ def test_lanczos_replay_fused_f64_vs_xla():
     jw = jk.lanczos_replay(jop, jnp.asarray(b), jnp.asarray(c), ja, jb, m)
     tw = tf.lanczos_replay_fused(top, torch.as_tensor(b), torch.as_tensor(c))
     assert_close(t2n(tw), np.asarray(jw), 1e2 * RTOL64, "replay")
+
+
+def _grid_modes(shape, modes):
+    """A sum of Dirichlet grid eigenvectors: b in an invariant subspace of
+    the Laplacian of dimension len(modes)."""
+    g = np.meshgrid(*(np.arange(1, s + 1) for s in shape), indexing="ij")
+    return sum(np.prod([np.sin(k * np.pi * x / (s + 1))
+                        for k, x, s in zip(ks, g, shape)], axis=0)
+               for ks in modes).reshape(-1)
+
+
+@pytest.mark.parametrize("start", ["invariant", "zero", "random"])
+@pytest.mark.parametrize("kind", ["7pt", "5pt-2d"])
+def test_lanczos_sweeps_breakdown_and_replay(kind, start):
+    """The drivers' CPU path (twin sweep + twin stage, ``sweep_stage_ref``)
+    against the XLA pass 1 and replay in float64: a happy breakdown after
+    two steps, beta0 = 0 and a random start; m_used and broke exactly, the
+    live betas and the replay within 1e2 RTOL64; the replay's own alphas
+    and betas equal pass 1's bit for bit (the same stages on the same
+    moments)."""
+    jop = _jax_op(kind, jnp.float64)
+    top = et.to_torch_operator(jop)
+    shape = jop.grid_shape
+    b = {"invariant": _grid_modes(shape, [(1,) * len(shape),
+                                          (2, 3, 4)[-len(shape):]]),
+         "zero": np.zeros(jop.shape[0]),
+         "random": np.random.default_rng(8).standard_normal(jop.shape[0])
+         }[start]
+    m = 6
+    ja, jb, jb0, jmu, jbr = jk.lanczos_coeffs(jop, jnp.asarray(b), m)
+    ta, tb, tb0, tmu, tbr, _ = tf._lanczos_sweeps(
+        top, torch.as_tensor(b), m, 1e-7, what="test")
+    assert (int(tmu), bool(tbr)) == (int(jmu), bool(jbr))
+    assert int(tmu) == {"invariant": 2, "zero": 0, "random": m}[start]
+    assert_close(t2n(ta), np.asarray(ja), 1e2 * RTOL64, "alphas")
+    live = np.asarray(jb) >= 1e-7
+    assert_close(t2n(tb) * live, np.asarray(jb) * live, 1e2 * RTOL64,
+                 "betas")
+    c = _reduced(ja, jb, jb0, 0.1)
+    jw = jk.lanczos_replay(jop, jnp.asarray(b), jnp.asarray(c), ja, jb, m)
+    ra, rb, _, rmu, _, tw = tf._lanczos_sweeps(
+        top, torch.as_tensor(b), m, 1e-7, torch.as_tensor(c), what="test")
+    assert torch.equal(ra, ta) and torch.equal(rb, tb)
+    assert int(rmu) == int(tmu)
+    assert torch.equal(tw, tf.lanczos_replay_fused(top, torch.as_tensor(b),
+                                                   torch.as_tensor(c)))
+    if start == "zero":
+        assert not bool(tw.any())
+    else:
+        assert_close(t2n(tw), np.asarray(jw), 1e2 * RTOL64, "replay")
 
 
 @pytest.mark.parametrize("kind", KINDS)

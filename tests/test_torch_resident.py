@@ -163,7 +163,7 @@ def test_cpu_runs_twin_not_kernel():
                                "resident_lanczos": 0, "resident_multi": 0,
                                "resident_banded": 0, "resident_grid": 0,
                                "fused_sweep": 0, "fused_sweep_var": 0,
-                               "banded_spmv": 0,
+                               "sweep_stage": 0, "banded_spmv": 0,
                                "blockell_spmv": 0, "sell_spmv": 0,
                                "seg_compact": 0}
 

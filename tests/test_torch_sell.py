@@ -430,6 +430,33 @@ def test_spans_derived_when_checked(tmp_path, kind):
         assert "spans" not in z.files          # the file format is unchanged
 
 
+@pytest.mark.parametrize("kind", list(PACKS))
+def test_pack_with_padding_at_column_0_loads_like_a_fresh_one(tmp_path,
+                                                               kind):
+    """A pack whose padded slots hold column 0 (what earlier versions
+    saved) loads with the fresh pack's spans and stage_cap: every value-0
+    slot is pointed at its slice's lowest column before the spans are
+    derived. The product does not change."""
+    n = 1000
+    pk = PACKS[kind](_with_empty_slice(n, 26), n, dtype=np.float64)
+    base = pk.base if kind == "seg" else pk
+    f = {k: v.clone() for k, v in base._fields().items()}
+    f["cols"][f["vals"] == 0] = 0
+    assert not torch.equal(tsell._slice_spans(f["cols"], f["slice_ptr"]),
+                           base.spans)           # the naive spans differ
+    path = str(tmp_path / "old.npz")
+    np.savez(path, **{k: v.numpy() for k, v in f.items()},
+             meta=np.asarray([base.n, base.ncols, base.nnz, base.sigma],
+                             np.int64))
+    old = tsell.SellData.load(path)
+    assert torch.equal(old.spans, base.spans)
+    assert old.stage_cap == base.stage_cap
+    assert torch.equal(old.cols, base.cols)
+    x = torch.as_tensor(np.random.default_rng(27).standard_normal(base.ncols))
+    assert torch.equal(tsell.sell_spmv_ref(old, x),
+                       tsell.sell_spmv_ref(base, x))
+
+
 def test_pack_refuses_rows_past_the_slice_offsets(monkeypatch):
     """B9 addresses a slice's slots with 32-bit offsets: the default pack
     refuses a row that would need more (the segmented pack splits it)."""
