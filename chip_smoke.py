@@ -29,7 +29,12 @@ its seconds:
               float64, at the main paths' shapes and at shapes ragged
               against B3's tiles and z chunks, plus bitwise-repeatable
               results (B3's plain and accumulating moments, B8 on offset
-              views of its operands); per SELL pack, the share of B9's 256-row blocks
+              views of its operands); B7 on ragged shapes (n odd, n under
+              one block, offsets wider than n, one and 64 diagonals), on
+              offset views of x and the diagonals and with every block an
+              edge block, bit for bit; B10 with a row of 5000 segments
+              and empty rows at n = 3001; per SELL pack, the share of
+              B9's 256-row blocks
               that stage x in shared memory (none of the band-20000
               pack's; phase 4 adds the RCM'd n = 1e6 pack, held to more
               than half, and the scattered packs)
@@ -56,13 +61,18 @@ its seconds:
               the time of the one PyTorch call that computes the same
               function, where there is one (CSR or BSR products,
               segment_reduce). A median of one call also counts the host's
-              part of it (~20-35 us for these wrappers), so every kernel
-              and the library calls are also timed 20 calls back to back
-              (the device's time per call; B3's with its second stage),
-              beside a 3-stream torch.add at 216^3 (the card's reachable
-              streaming rate), and B9 also on a copy of
-              its pack with no staging budget (x gathered from global
-              memory in every block)
+              part of it (two events alone read 9-25 us on the H100's
+              host), so every kernel and the library calls are also timed
+              20 calls back to back (the device's time per call where the
+              host enqueues faster than the device runs; B3's with its
+              second stage), B7, B9 and B10 also by their kernel events
+              under torch.profiler (the device time per launch, taken
+              last: after the profiler has run, every launch costs the
+              host more), beside a 3-stream torch.add at 216^3 (the
+              card's reachable streaming rate); B7 also at
+              config #4's n = 2000 and through banded_spmv (a plan built
+              per call), B9 also on a copy of its pack with no staging
+              budget (x gathered from global memory in every block)
 
 It prints a JSON line of the kernels, then the card's name and power
 limit, then {"ok": true, "device": {...}} as the last line. Any failed
@@ -83,6 +93,7 @@ ops of most self time. It prints no result lines then.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import statistics
@@ -599,6 +610,13 @@ def main() -> int:
     A_wide = sp.coo_matrix((wide_coo[2], wide_coo[:2]), shape=(NS, NS)).tocsr()
     seg = ts.sell_pack_seg(scattered_coo(NS, rng3), NS, np.float64,
                            seg_len=16, device=dev)
+    r, c, v = bench_sell_coo(3001, 6, 400, rng3)
+    keep = ~np.isin(r, np.r_[256:300, 1000, 3000])     # empty rows
+    seg_ragged = ts.sell_pack_seg(
+        (np.concatenate([r[keep], np.full(5000, 700)]),
+         np.concatenate([c[keep], np.arange(5000) % 3001]),
+         np.concatenate([v[keep], np.ones(5000)])), 3001, np.float64,
+        seg_len=1, device=dev)
     opB3 = et.blockell_from_scipy(laplacian_3d_csr(NB), 8, is_hermitian=True,
                                   dtype=np.float64, device=dev)
     nbr4 = 16_384                          # random 4 x 4 block-sparse matrix
@@ -634,6 +652,25 @@ def main() -> int:
             check(share == want, f"{label} staged share {share}")
         return share
 
+    def banded_bits(label, dt, D, offs, x, y):
+        """B7 through the public entry on offset views of x and of the
+        diagonals (scalar loads), and with every block an edge block (a
+        zero diagonal of offset n appended: exact zeros after the sum),
+        bit for bit against y."""
+        n = D.shape[1]
+        xo = torch.empty(n + 1, dtype=dt, device=dev)[1:].copy_(x)
+        Do = torch.empty(D.numel() + 1, dtype=dt, device=dev)[1:]
+        Do = Do.view(D.shape).copy_(D)
+        check(torch.equal(tsp.banded_spmv(D, offs, xo), y)
+              and torch.equal(tsp.banded_spmv(Do, offs, xo), y),
+              f"B7 {label} {dname[dt]}: unaligned operands change bits")
+        if len(offs) < _build.MAX_POINTS:
+            Dz = torch.cat([D, torch.zeros_like(D[:1])])
+            check(torch.equal(tsp.banded_spmv(Dz, offs + (n,), x), y),
+                  f"B7 {label} {dname[dt]}: edge and interior blocks differ")
+        print(f"kernel B7 {label} {dname[dt]}: offset views of x and diags "
+              "and all-edge blocks give the same bits", flush=True)
+
     for dt in (f32, f64):
         for label, op in ((f"poisson_2d({NP}, {NP})",
                            et.poisson_2d(NP, NP, dtype=dt, device=dev)),
@@ -643,10 +680,26 @@ def main() -> int:
                            et.advection_diffusion_1d(2000, dtype=dt,
                                                      device=dev))):
             x = vec(op.shape[0], dt, rng2)
-            spmv_check(f"B7 {label}", dt,
-                       lambda: tsp.banded_spmv(op.diags, op.offsets, x),
-                       lambda: tsp.banded_spmv_ref(op.diags, op.offsets, x),
-                       "banded_spmv" if label.startswith("poisson") else None)
+            y = spmv_check(f"B7 {label}", dt, lambda: op.matvec(x),
+                           lambda: tsp.banded_spmv_ref(op.diags, op.offsets,
+                                                       x),
+                           "banded_spmv" if label.startswith("poisson")
+                           else None)
+            banded_bits(label, dt, op.diags, op.offsets, x, y)
+        # ragged: n odd (diagonal rows not 16-byte aligned), n under one
+        # block, offsets at least n wide, one and MAX_POINTS diagonals
+        for label, n, offs in (
+                ("n=100001 odd", 100_001, (-317, -1, 0, 1, 317)),
+                ("n=100", 100, (-7, 0, 2)),
+                ("n=777 |o|>=n", 777, (-900, -776, 0, 776, 1000)),
+                ("k=1", 4096, (3,)),
+                (f"k={_build.MAX_POINTS}", 30_000, tuple(range(-32, 32)))):
+            D = vec(len(offs) * n, dt, rng2).reshape(len(offs), n)
+            x = vec(n, dt, rng2)
+            y = spmv_check(f"B7 ragged {label}", dt,
+                           lambda: tsp.banded_spmv(D, offs, x),
+                           lambda: tsp.banded_spmv_ref(D, offs, x))
+            banded_bits(f"ragged {label}", dt, D, offs, x, y)
         for label, op in ((f"{NB}^3 7-point 8x8 blocks", opB3),
                           (f"random {4 * nbr4} 4x4 blocks", opB4)):
             blocks = op.blocks.to(dt)
@@ -685,13 +738,24 @@ def main() -> int:
         stage_share(f"B9 scattered n=1e6 seg L=16 {dname[dt]}", d.base)
         x = vec(NS, dt, rng2)
         p = ts.sell_spmv(d.base, x)
-        spmv_check(f"B10 scattered n=1e6 seg L=16 ({d.base.n} segments)", dt,
-                   lambda: ts.seg_compact(p, d.seg_ptr),
-                   lambda: ts.seg_compact_ref(p, d.seg_ptr), "seg_compact")
+        y = spmv_check(f"B10 scattered n=1e6 seg L=16 ({d.base.n} segments)",
+                       dt, lambda: ts.seg_compact(p, d.seg_ptr),
+                       lambda: ts.seg_compact_ref(p, d.seg_ptr), "seg_compact")
         spmv_check("B9+B10 sell_spmv_seg scattered n=1e6", dt,
                    lambda: ts.sell_spmv_seg(d, x),
                    lambda: ts.sell_spmv_seg_ref(d, x))
-    del packs, seg, opB4, d, x, p, y
+        check(torch.equal(ts.launch_plan(d)(x), y),
+              "B10: the pack's plan and seg_compact differ")
+        # ragged: a row of 5000 one-entry segments, empty rows, n = 3001
+        d = seg_ragged.to(dtype=dt)
+        x = vec(d.n, dt, rng2)
+        p = ts.sell_spmv(d.base, x)
+        y = spmv_check(f"B10 ragged n={d.n} L=1 ({d.base.n} segments)", dt,
+                       lambda: ts.seg_compact(p, d.seg_ptr),
+                       lambda: ts.seg_compact_ref(p, d.seg_ptr))
+        check(torch.equal(ts.launch_plan(d)(x), y),
+              "B10 ragged: the pack's plan and seg_compact differ")
+    del packs, seg, seg_ragged, opB4, d, x, p, y
     phase_done("3 kernels")
 
     # ---- 4. the main path through the public entry points ---------------
@@ -1443,9 +1507,38 @@ def main() -> int:
                   f"{card}", flush=True)
         del Z, Vc, Vp, W
 
+    def device_ms(fn, kname, k=20):
+        """(ms, launches): the device time per launch of the kernel whose
+        name holds ``kname``, the mean of its kernel events under
+        torch.profiler over k calls of fn; (None, count) when the profiler
+        does not see exactly k of them."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(k):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and kname in e.name]
+        if len(evs) != k:
+            return None, len(evs)
+        return sum(e.time_range.elapsed_us() for e in evs) / k / 1e3, k
+
     # B7-B10 at the main paths' shapes, plain, kernel, kernel, plain; then
-    # kernel and library call back to back
-    def pair_times(name, dn, kfn, pfn, shape, wk=None, lib=None):
+    # kernel and library call back to back. One call counts the wrapper's
+    # host time, back to back counts it too where the host is slower than
+    # the device, so kernels given a ``kname`` also get their device time
+    # per launch from the profiler, at the end of the phase: once
+    # torch.profiler has run, every launch costs the host more for the
+    # rest of the process, which would slow the later one-call and
+    # main-path times (PERF.md, section 6)
+    device_jobs = []    # (name, dtype name, kernel fn, kernel name)
+
+    def pair_times(name, dn, kfn, pfn, shape, wk=None, lib=None, kname=None):
         p1, k1, k2, p2 = (median_ms(f) for f in (pfn, kfn, kfn, pfn))
         times[(name, dn)] = (statistics.median([k1, k2]),
                              statistics.median([p1, p2]))
@@ -1455,6 +1548,8 @@ def main() -> int:
                 f" plain {p1:.4f} / {p2:.4f} ms")
         bursts[(name, dn)] = burst_ms(kfn)
         burst = f"back-to-back: kernel {bursts[(name, dn)]:.4f} ms"
+        if kname is not None:
+            device_jobs.append((name, dn, kfn, kname))
         if lib is not None:
             what, make = lib
             try:
@@ -1500,14 +1595,33 @@ def main() -> int:
         xP = bP.to(dt)
         isz = torch.empty((), dtype=dt).element_size()
         nP = NP * NP
-        pair_times("banded_spmv", dn,
-                   lambda: tsp.banded_spmv(opPd.diags, opPd.offsets, xP),
+        # B7 as the main path calls it: BandedOperator.matvec on its plan
+        pair_times("banded_spmv", dn, functools.partial(opPd.matvec, xP),
                    lambda: tsp.banded_spmv_ref(opPd.diags, opPd.offsets, xP),
-                   f"poisson_2d({NP}, {NP})",
+                   f"poisson_2d({NP}, {NP}), BandedOperator.matvec",
                    ((opPd.diags.numel() + 2 * nP) * isz,
                     2 * opPd.diags.numel()),
                    ("CSR A @ x", lambda: (lambda A: lambda: A @ xP)(
-                       csr_tensor(banded_csr(opPd), dt))))
+                       csr_tensor(banded_csr(opPd), dt))),
+                   kname="banded_spmv_kernel")
+        per_call = median_ms(
+            lambda: tsp.banded_spmv(opPd.diags, opPd.offsets, xP))
+        print(f"time banded_spmv(diags, offsets, x) {dn} (poisson_2d({NP}, "
+              f"{NP}), a plan built per call): {per_call:.4f} ms {card}",
+              flush=True)
+        opAd = et.advection_diffusion_1d(NA, peclet=10.0, dtype=dt,
+                                         device=dev)
+        xA = bA.to(dt)
+        pair_times(f"banded_spmv n={NA}", dn,
+                   functools.partial(opAd.matvec, xA),
+                   lambda: tsp.banded_spmv_ref(opAd.diags, opAd.offsets, xA),
+                   f"config #4 advection_diffusion_1d({NA}), "
+                   "BandedOperator.matvec",
+                   ((opAd.diags.numel() + 2 * NA) * isz,
+                    2 * opAd.diags.numel()),
+                   ("CSR A @ x", lambda: (lambda A: lambda: A @ xA)(
+                       csr_tensor(banded_csr(opAd), dt))),
+                   kname="banded_spmv_kernel")
         blocks, xB = opB3.blocks.to(dt), bB.to(dt)
         pair_times("blockell_spmv", dn,
                    lambda: tsp.blockell_spmv(blocks, opB3.bcols, xB),
@@ -1529,17 +1643,19 @@ def main() -> int:
         dS, xS = opS.data.to(dtype=dt), bS.to(dt)
         # the nonzeros with their column indices and x, y: what any
         # layout of this matrix must move (the SELL padding is not data)
-        pair_times("sell_spmv", dn, lambda: ts.sell_spmv(dS, xS),
+        pair_times("sell_spmv", dn, functools.partial(ts.sell_spmv, dS, xS),
                    lambda: ts.sell_spmv_ref(dS, xS),
                    f"symmetrized bench_sell n=1e6 after RCM, {dS.nnz} nnz, "
                    f"{dS.vals.numel()} slots",
                    (dS.nnz * (isz + 4) + 2 * NS * isz, 2 * dS.nnz),
                    ("CSR A @ x", lambda: (lambda A: lambda: A @ xS)(
-                       csr_tensor(A_sell_rcm, dt))))
+                       csr_tensor(A_sell_rcm, dt))),
+                   kname="sell_spmv_kernel")
         staged_vs_global(f"RCM'd n=1e6 {dn}", dS, xS)
         dC, xC = sc_ops["seg"].data.to(dtype=dt), bC.to(dt)
         pC = ts.sell_spmv(dC.base, xC)
-        pair_times("seg_compact", dn, lambda: ts.seg_compact(pC, dC.seg_ptr),
+        pair_times("seg_compact", dn,
+                   functools.partial(ts.seg_compact, pC, dC.seg_ptr),
                    lambda: ts.seg_compact_ref(pC, dC.seg_ptr),
                    f"symmetrized scattered n=1e6, L=16, {dC.base.n} segments",
                    (pC.numel() * isz
@@ -1548,7 +1664,8 @@ def main() -> int:
                    ("torch.segment_reduce(sum)", lambda: (
                        lambda off: lambda: torch.segment_reduce(
                            pC, "sum", offsets=off, initial=0))(
-                               dC.seg_ptr.to(torch.int64))))
+                               dC.seg_ptr.to(torch.int64))),
+                   kname="seg_compact_kernel")
         del dS, dC, pC
 
     # B9 at benchmarks/bench_sell.py's timing shape, with its rates
@@ -1563,9 +1680,10 @@ def main() -> int:
         d = d7 if dt == f32 else d7.to(dtype=f64)
         x = vec(NS_TIME, dt, rng2)
         ms, plain = pair_times("sell_spmv n=1e7", dname[dt],
-                               lambda: ts.sell_spmv(d, x),
+                               functools.partial(ts.sell_spmv, d, x),
                                lambda: ts.sell_spmv_ref(d, x),
-                               "bench_sell n=1e7, d=8, band 700")
+                               "bench_sell n=1e7, d=8, band 700",
+                               kname="sell_spmv_kernel")
         staged_vs_global(f"n=1e7 {dname[dt]}", d, x)
         isz = x.element_size()
         slots = d.vals.numel()
@@ -1665,6 +1783,13 @@ def main() -> int:
             p = median_ms(plain_calls[name])
             line += f", plain path {p:.3f} ms"
         print(f"{line} {card}", flush=True)
+    for name, dn, kfn, kname in device_jobs:
+        ms, cnt = device_ms(kfn, kname)
+        print(f"device {name} {dn}: " + (
+            f"{ms:.4f} ms per launch (profiler, {cnt} launches)"
+            if ms is not None else
+            f"not measured (profiler saw {cnt} {kname} launches of 20)")
+            + f" {card}", flush=True)
 
     phase_done("5 times")
     kernels = []

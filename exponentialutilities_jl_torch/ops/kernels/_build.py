@@ -29,8 +29,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["library", "check", "check_operands", "launches",
-           "reset_launch_counts", "ptr", "stream_of", "suffix",
+__all__ = ["library", "check", "check_operands", "require_cuda",
+           "launches", "reset_launch_counts", "ptr", "raw_stream", "suffix",
            "KERNEL_DTYPES", "MAX_POINTS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -101,14 +101,13 @@ def _declare(lib):
                       ctypes.c_double, _VP]
         f.restype = _I
         f = getattr(lib, f"eu_banded_spmv_{suf}")
-        f.argtypes = [_VP, _VP, _I, _VP, _LL, _VP, _VP]
+        f.argtypes = [_VP, _VP, _VP, _VP]
         f.restype = _I
         f = getattr(lib, f"eu_blockell_spmv_{suf}")
         f.argtypes = [_VP, _VP, _VP, _LL, _I, _I, _I, _VP, _VP]
         f.restype = _I
         f = getattr(lib, f"eu_sell_spmv_{suf}")
-        f.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL, _I, _I,
-                      _VP, _VP]
+        f.argtypes = [_VP, _VP, _VP, _VP]
         f.restype = _I
         f = getattr(lib, f"eu_seg_compact_{suf}")
         f.argtypes = [_VP, _VP, _LL, _VP, _VP]
@@ -184,12 +183,24 @@ def check_operands(what: str, x: torch.Tensor, *operands: torch.Tensor):
                              f"{x.device}")
 
 
+def require_cuda(what: str, device: torch.device):
+    """Refuse a launch plan for a device that is not a CUDA device: a plan
+    hands its tensors' pointers to a kernel, and a host pointer there is an
+    illegal address that breaks every later CUDA call of the process."""
+    if device.type != "cuda":
+        raise ValueError(f"{what}: a launch plan for {device}; the kernel "
+                         "takes CUDA tensors (CPU tensors go to its twin)")
+
+
 def ptr(t: torch.Tensor | None):
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
 
-def stream_of(t: torch.Tensor):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def raw_stream(device: torch.device) -> int:
+    """The current CUDA stream of ``device`` as a raw handle (the public
+    ``torch.cuda.current_stream`` builds a Stream object: several
+    microseconds of host time before every launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def suffix(dtype: torch.dtype) -> str:

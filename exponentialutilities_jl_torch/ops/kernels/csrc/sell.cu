@@ -53,8 +53,15 @@
 // One thread per output row sums its segments' partials in a fixed order
 // (the TPU's lane windows and packed index tiles are gone). Bound: the
 // partials and seg_ptr, read once (~(sizeof(T) + 8) bytes per segment).
+// A warp's rows sit ~1.4 segments apart, so its partial loads span a few
+// 128-byte lines and hit L1 after the first. A block-staged variant (256
+// rows reading seg_ptr and their run of partials into shared memory with
+// 16-byte loads, then summing there) took longer on the device at the
+// main path's shape (its barriers; PERF.md, section 6), so this one stays.
 //
 // No float atomics: every result is bitwise repeatable.
+#include <cstddef>
+
 #include "common.cuh"
 
 namespace eu {
@@ -184,11 +191,30 @@ inline int grid_of(long long items, long long per_block, unsigned* grid) {
   return 0;
 }
 
+// What every B9 launch on one pack shares, built once on the host by its
+// plan (ops/kernels/sell.py SellPlan, whose ctypes mirror is _SellLaunch),
+// so a launch passes 4 arguments (ctypes converts every argument of every
+// call).
+struct SellLaunch {
+  const void* vals;
+  const int* cols;
+  const long long* slice_ptr;
+  const int* spans;
+  const int* row_of;
+  long long nrows, ncols, nslices;
+  int stage_cap, unroll;
+};
+static_assert(sizeof(SellLaunch) == 72 && offsetof(SellLaunch, nrows) == 40 &&
+                  offsetof(SellLaunch, stage_cap) == 64,
+              "the ctypes mirror in ops/kernels/sell.py assumes this layout");
+
 template <typename T>
-int launch_sell_spmv(const T* vals, const int* cols, const long long* slice_ptr,
-                     const int* spans, const int* row_of, const T* x,
-                     long long nrows, long long ncols, long long nslices,
-                     int stage_cap, int unroll, T* y, cudaStream_t stream) {
+int launch_sell_spmv(const SellLaunch* p, const T* x, T* y, cudaStream_t stream) {
+  const T* vals = static_cast<const T*>(p->vals);
+  const int *cols = p->cols, *spans = p->spans, *row_of = p->row_of;
+  const long long* slice_ptr = p->slice_ptr;
+  const long long nrows = p->nrows, ncols = p->ncols, nslices = p->nslices;
+  const int stage_cap = p->stage_cap, unroll = p->unroll;
   if (nrows < 1 || ncols < 0 || nslices < 1 || nrows > nslices * kSlice ||
       stage_cap < 0 || stage_cap > kStageElems || (unroll != 4 && unroll != 16))
     return (int)cudaErrorInvalidValue;
@@ -220,15 +246,9 @@ int launch_seg_compact(const T* partials, const long long* seg_ptr, long long n,
 }  // namespace eu
 
 #define EU_SELL_API(T, SUF)                                                          \
-  extern "C" int eu_sell_spmv_##SUF(const T* vals, const int* cols,                  \
-                                    const long long* slice_ptr, const int* spans,    \
-                                    const int* row_of, const T* x, long long nrows,  \
-                                    long long ncols, long long nslices,              \
-                                    int stage_cap, int unroll, T* y,                 \
+  extern "C" int eu_sell_spmv_##SUF(const eu::SellLaunch* p, const T* x, T* y,      \
                                     void* stream) {                                  \
-    return eu::launch_sell_spmv<T>(vals, cols, slice_ptr, spans, row_of, x, nrows,   \
-                                   ncols, nslices, stage_cap, unroll, y,             \
-                                   (cudaStream_t)stream);                            \
+    return eu::launch_sell_spmv<T>(p, x, y, (cudaStream_t)stream);                   \
   }                                                                                  \
   extern "C" int eu_seg_compact_##SUF(const T* partials, const long long* seg_ptr,   \
                                       long long n, T* y, void* stream) {             \

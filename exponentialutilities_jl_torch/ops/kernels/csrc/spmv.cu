@@ -5,14 +5,34 @@
 //   _banded_kernel  (banded_spmv, spmv.py:134)
 //   y_i = sum_k D[k, i] x[i + o_k], x read as zero outside [0, n)
 // The TPU kernel lays x out as (rows, 128) lane tiles, DMAs a halo window
-// per grid step and builds each shift from two lane slices. Here one
-// thread computes one row: the k <= kMaxPoints offsets travel as a kernel
-// argument (copied to shared memory), diagonal j of row i is read at
-// D[j n + i] (coalesced across the warp) and every x read is bounds-checked,
-// so no padding or halo exists. Bound on the H100: HBM bandwidth, with
-// (k + 2) n sizeof(T) bytes per product (the k diagonals, x once through L2
-// and the read-only path, y): ~56 MB for poisson_2d(1000, 1000) in float64,
-// ~17 us at 3.35 TB/s.
+// per grid step and builds each shift from two lane slices. Bound on the
+// H100: HBM bandwidth, with (k + 2) n sizeof(T) bytes per product (the k
+// diagonals, x once through L2 and the read-only path, y): ~56 MB for
+// poisson_2d(1000, 1000) in float64, ~17 us at 3.35 TB/s. The first design
+// (one thread a row, 8-byte loads, a bounds check on every x read) reached
+// ~73 % of that on the device. This one:
+//  * Gives each thread V = 16 / sizeof(T) consecutive rows (2 in float64,
+//    4 in float32), so a block of kThreads threads owns R = kThreads V rows
+//    and reads each diagonal's piece of a thread with one 16-byte
+//    evict-first load (__ldcs; the diagonals are read once).
+//  * Issues the loads of a group of up to kGroup diagonals (their pieces
+//    and the matching x values, through the read-only path: x is re-read
+//    by neighbouring rows and blocks) before their FMAs, so a thread keeps
+//    many loads in flight.
+//  * Runs the blocks whose x window [r0 + min o, r0 + R + max o) lies in
+//    [0, n) (and whose R rows all exist) without bounds checks; the host
+//    computes that block range from the offsets once per operator
+//    (ops/kernels/spmv.banded_interior). Edge blocks check each read and
+//    row, reading x as zero outside [0, n).
+//  * Sums each row in offset order, one FMA per term, on every path: the
+//    interior and edge paths, and the ALIGNED = false path that reads the
+//    same pieces with scalar loads when the diagonals are not 16-byte
+//    aligned (an offset view, or n not a multiple of V, where row j of the
+//    diagonals starts at j n). So y's bits do not depend on the path.
+// x is not staged in shared memory: a block's window holds about as many
+// values as its x loads (poisson_2d(1000, 1000), float64: 2512 against
+// 5 x 512), so staging would save no L2 traffic; the re-reads of the
+// near offsets hit L1.
 //
 // B8 replaces exponentialutilities_jl_tpu/ops/kernels/spmv.py
 //   _spmv_kernel  (blockell_spmv, spmv.py:42)
@@ -41,27 +61,11 @@
 // kernel: the lanes stride over the w bc products of each of the br rows.
 //
 // No float atomics: every other result is bitwise repeatable.
+#include <cstddef>
+
 #include "common.cuh"
 
 namespace eu {
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-banded_spmv_kernel(const T* __restrict__ diags, Offsets1D offs,
-                   const T* __restrict__ x, long long n, T* __restrict__ y) {
-  __shared__ int o_sh[kMaxPoints];
-  const int k = offs.k;
-  for (int j = threadIdx.x; j < k; j += kThreads) o_sh[j] = offs.o[j];
-  __syncthreads();
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  T acc = T(0);
-  for (int j = 0; j < k; ++j) {
-    const long long q = i + o_sh[j];
-    if (q >= 0 && q < n) acc += diags[(long long)j * n + i] * __ldg(x + q);
-  }
-  y[i] = acc;
-}
 
 constexpr int kWarps = kThreads / 32;
 
@@ -99,12 +103,30 @@ template <> struct Piece16<float> {
     acc = fmaf(a.z, b.z, acc);
     return fmaf(a.w, b.w, acc);
   }
+  static __device__ __forceinline__ float fma1(float a, float b, float c) {
+    return fmaf(a, b, c);
+  }
+  static __device__ __forceinline__ void split(float4 a, float (&e)[4]) {
+    e[0] = a.x; e[1] = a.y; e[2] = a.z; e[3] = a.w;
+  }
+  static __device__ __forceinline__ float4 join(const float (&e)[4]) {
+    return make_float4(e[0], e[1], e[2], e[3]);
+  }
 };
 template <> struct Piece16<double> {
   using type = double2;
   static __device__ __forceinline__ double dot(double2 a, double2 b, double acc) {
     acc = fma(a.x, b.x, acc);
     return fma(a.y, b.y, acc);
+  }
+  static __device__ __forceinline__ double fma1(double a, double b, double c) {
+    return fma(a, b, c);
+  }
+  static __device__ __forceinline__ void split(double2 a, double (&e)[2]) {
+    e[0] = a.x; e[1] = a.y;
+  }
+  static __device__ __forceinline__ double2 join(const double (&e)[2]) {
+    return make_double2(e[0], e[1]);
   }
 };
 
@@ -119,6 +141,88 @@ __device__ __forceinline__ typename Piece16<T>::type load_scalars(const T* p) {
 #pragma unroll
   for (int u = 0; u < (int)(16 / sizeof(T)); ++u) e[u] = EVICT ? __ldcs(p + u) : __ldg(p + u);
   return v;
+}
+
+constexpr int kGroup = 8;       // B7: diagonals whose loads precede their FMAs
+
+// B7 (module note): block b owns rows [b R, b R + R), R = kThreads V, and
+// thread t of it rows i0 .. i0 + V - 1; the blocks in [blo, bhi) are
+// interior (no bounds checks).
+template <typename T, bool ALIGNED>
+__global__ void __launch_bounds__(kThreads)
+banded_spmv_kernel(const T* __restrict__ diags, Offsets1D offs,
+                   const T* __restrict__ x, long long n, long long blo,
+                   long long bhi, T* __restrict__ y) {
+  using P = Piece16<T>;
+  using VT = typename P::type;
+  constexpr int V = 16 / sizeof(T);
+  __shared__ int o_sh[kMaxPoints];
+  const int k = offs.k;
+  for (int j = threadIdx.x; j < k; j += kThreads) o_sh[j] = offs.o[j];
+  __syncthreads();
+  const long long b = blockIdx.x;
+  const long long i0 = (b * kThreads + threadIdx.x) * V;
+  if (i0 >= n) return;
+  T acc[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc[v] = T(0);
+  if (b >= blo && b < bhi) {                 // uniform in the block
+    for (int j0 = 0; j0 < k; j0 += kGroup) {
+      T d[kGroup][V], xv[kGroup][V];
+#pragma unroll
+      for (int g = 0; g < kGroup; ++g) {
+        if (j0 + g < k) {
+          const T* dp = diags + (long long)(j0 + g) * n + i0;
+          if constexpr (ALIGNED) P::split(__ldcs(reinterpret_cast<const VT*>(dp)), d[g]);
+          else P::split(load_scalars<T, true>(dp), d[g]);
+          const T* xp = x + i0 + o_sh[j0 + g];
+#pragma unroll
+          for (int v = 0; v < V; ++v) xv[g][v] = __ldg(xp + v);
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < kGroup; ++g) {
+        if (j0 + g < k) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[v] = P::fma1(d[g][v], xv[g][v], acc[v]);
+        }
+      }
+    }
+    if constexpr (ALIGNED) {
+      *reinterpret_cast<VT*>(y + i0) = P::join(acc);
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) y[i0 + v] = acc[v];
+    }
+    return;
+  }
+  // an edge block: rows past n and x outside [0, n) read as zero
+  for (int j0 = 0; j0 < k; j0 += kGroup) {
+    T d[kGroup][V], xv[kGroup][V];
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      if (j0 + g < k) {
+        const T* dp = diags + (long long)(j0 + g) * n;
+        const long long o = o_sh[j0 + g];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const long long i = i0 + v, q = i + o;
+          d[g][v] = i < n ? __ldcs(dp + i) : T(0);
+          xv[g][v] = (i < n && q >= 0 && q < n) ? __ldg(x + q) : T(0);
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      if (j0 + g < k) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[v] = P::fma1(d[g][v], xv[g][v], acc[v]);
+      }
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v)
+    if (i0 + v < n) y[i0 + v] = acc[v];
 }
 
 // B8 for (BR, BC) blocks whose rows hold whole 16-byte pieces (module note)
@@ -184,14 +288,46 @@ inline bool aligned16(const void* p) {
   return (reinterpret_cast<size_t>(p) & 15) == 0;
 }
 
+// What every B7 launch on one matrix shares, built once on the host by
+// its plan (ops/kernels/spmv.py BandedPlan, whose ctypes mirror is
+// _BandedLaunch), so a launch passes 4 arguments (ctypes converts every
+// argument of every call). [blo, bhi): the interior blocks.
+struct BandedLaunch {
+  const void* diags;
+  long long n, blo, bhi;
+  Offsets1D offs;
+};
+static_assert(sizeof(BandedLaunch) == 296 && offsetof(BandedLaunch, offs) == 32,
+              "the ctypes mirror in ops/kernels/spmv.py assumes this layout");
+
+// Refused unless every x read of the interior blocks lies in [0, n) (the
+// kernel does not check there).
 template <typename T>
-int launch_banded_spmv(const T* diags, const int* offs, int k, const T* x,
-                       long long n, T* y, cudaStream_t stream) {
-  if (n < 1 || k < 1 || k > kMaxPoints) return (int)cudaErrorInvalidValue;
-  const long long grid = (n + kThreads - 1) / kThreads;
+int launch_banded_spmv(const BandedLaunch* p, const T* x, T* y,
+                       cudaStream_t stream) {
+  constexpr long long R = (long long)kThreads * (16 / sizeof(T));
+  const long long n = p->n, blo = p->blo, bhi = p->bhi;
+  const Offsets1D& o = p->offs;
+  if (n < 1 || o.k < 1 || o.k > kMaxPoints || blo < 0 || bhi < blo)
+    return (int)cudaErrorInvalidValue;
+  const long long grid = (n + R - 1) / R;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  banded_spmv_kernel<T><<<(unsigned)grid, kThreads, 0, stream>>>(
-      diags, make_offsets(offs, k), x, n, y);
+  if (bhi > blo) {
+    int lo = o.o[0], hi = o.o[0];
+    for (int j = 1; j < o.k; ++j) {
+      lo = lo < o.o[j] ? lo : o.o[j];
+      hi = hi > o.o[j] ? hi : o.o[j];
+    }
+    if (blo * R + lo < 0 || bhi * R + (hi > 0 ? hi : 0) > n)
+      return (int)cudaErrorInvalidValue;
+  }
+  const T* diags = static_cast<const T*>(p->diags);
+  if (aligned16(diags) && n % (16 / sizeof(T)) == 0)
+    banded_spmv_kernel<T, true><<<(unsigned)grid, kThreads, 0, stream>>>(
+        diags, o, x, n, blo, bhi, y);
+  else
+    banded_spmv_kernel<T, false><<<(unsigned)grid, kThreads, 0, stream>>>(
+        diags, o, x, n, blo, bhi, y);
   return (int)cudaGetLastError();
 }
 
@@ -224,9 +360,9 @@ int launch_blockell_spmv(const T* blocks, const int* bcols, const T* x,
 }  // namespace eu
 
 #define EU_SPMV_API(T, SUF)                                                          \
-  extern "C" int eu_banded_spmv_##SUF(const T* diags, const int* offs, int k,        \
-                                      const T* x, long long n, T* y, void* stream) { \
-    return eu::launch_banded_spmv<T>(diags, offs, k, x, n, y, (cudaStream_t)stream); \
+  extern "C" int eu_banded_spmv_##SUF(const eu::BandedLaunch* p, const T* x, T* y,  \
+                                      void* stream) {                                \
+    return eu::launch_banded_spmv<T>(p, x, y, (cudaStream_t)stream);                 \
   }                                                                                  \
   extern "C" int eu_blockell_spmv_##SUF(const T* blocks, const int* bcols,           \
                                         const T* x, long long nbr, int w, int br,    \

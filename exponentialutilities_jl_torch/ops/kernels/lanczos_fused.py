@@ -282,13 +282,6 @@ def _plan(op, dtype, device) -> _SweepPlan:
     return plan
 
 
-def _stream(t) -> int:
-    """The current CUDA stream of t's device as a raw handle (the public
-    ``torch.cuda.current_stream`` builds a Stream object: several
-    microseconds of host time before every one-sweep launch)."""
-    return torch._C._cuda_getCurrentRawStream(t.device.index)
-
-
 def _vector(plan, v, what):
     """``v`` as the drivers' contiguous (n,) start vector."""
     if v.shape != (plan.n,):
@@ -328,7 +321,7 @@ def fused_lanczos_step(Z, Vc, Vp, coefs, op, *, w_accum=None):
     if coefs.dtype != dt or not coefs.is_contiguous():
         coefs = coefs.to(dt).contiguous()
     Y, Zn = torch.empty_like(Z), torch.empty_like(Z)
-    stream = _stream(Z)
+    stream = _build.raw_stream(Z.device)
     plan.sweep(Z, Vc, Vp, coefs.data_ptr(), cvals, Y, Zn, w_accum, stream)
     # made while the sweep runs: the stage's launch costs no device time
     moments = torch.empty(2, dtype=dt, device=dev)
@@ -381,7 +374,7 @@ def _lanczos_sweeps(op, b, m: int, tol: float, coeffs=None, *, what):
     if plan.kernel:
         state = plan.state
         state.copy_(plan.state0)
-        stream = _stream(v0)
+        stream = _build.raw_stream(v0.device)
         Ys = [torch.empty_like(v0) for _ in range(3)]
         Zs = [torch.empty_like(v0) for _ in range(2)]
     else:
@@ -437,7 +430,7 @@ def stencil_matvec_fused(op, x):
                                op.offsets, cvals)[1]
     Y, Zn = torch.empty_like(x), torch.empty_like(x)
     plan.sweep(x, zeros, zeros, plan.unit.data_ptr(), cvals, Y, Zn, None,
-               _stream(x))
+               _build.raw_stream(x.device))
     return Zn
 
 
@@ -457,7 +450,7 @@ def recurrence_apply_fused(op, b, rows):
     W = torch.zeros_like(b)
     cvals = _cvals(op, b.dtype)
     if plan.kernel:
-        stream = _stream(b)
+        stream = _build.raw_stream(b.device)
         Ys = [torch.empty_like(b) for _ in range(3)]
         Zs = [torch.empty_like(b) for _ in range(2)]
     # sweep 0 emits omega_0 = b and Z = A omega_0 (no accumulation yet);

@@ -260,7 +260,7 @@ def resident_recurrence(op, x, rows, scale=1.0):
               _build.ptr(s), _offsets_arg(offsets), len(offsets), n,
               rows.shape[0], _build.ptr(w), _build.ptr(buf),
               _build.ptr(partials), cap, _build.ptr(nrm2),
-              _build.stream_of(x))
+              _build.raw_stream(x.device))
     _build.check(code, "resident recurrence kernel (B1)")
     _build.launches["resident_recurrence"] += 1
     return w, nrm2[0]
@@ -298,7 +298,7 @@ def recurrence_apply_resident_multi(op, b, rows, cw):
     code = fn(_build.ptr(b), _build.ptr(rows), _build.ptr(cw), p,
               _build.ptr(cvals), _offsets_arg(offsets), len(offsets), n,
               rows.shape[0], _build.ptr(W), _build.ptr(buf),
-              _build.stream_of(b))
+              _build.raw_stream(b.device))
     _build.check(code, "resident multi-column kernel (B4)")
     _build.launches["resident_multi"] += 1
     return W.T
@@ -325,7 +325,7 @@ def recurrence_apply_resident_banded(op, b, rows):
     fn = getattr(_build.library(), f"eu_resident_banded_{_build.suffix(b.dtype)}")
     code = fn(_build.ptr(b), _build.ptr(rows), _build.ptr(diags),
               _offsets_arg(op.offsets), len(op.offsets), n, rows.shape[0],
-              _build.ptr(w), _build.ptr(buf), _build.stream_of(b))
+              _build.ptr(w), _build.ptr(buf), _build.raw_stream(b.device))
     _build.check(code, "resident banded kernel (B5)")
     _build.launches["resident_banded"] += 1
     return w
@@ -356,7 +356,7 @@ def recurrence_apply_resident_grid(op, b, rows):
     fn = getattr(_build.library(), f"eu_resident_grid_{_build.suffix(b.dtype)}")
     code = fn(_build.ptr(b), _build.ptr(rows), _build.ptr(cvals),
               _offsets_arg(flat), len(offs3), nz, ny, nx, rows.shape[0],
-              _build.ptr(w), _build.ptr(buf), _build.stream_of(b))
+              _build.ptr(w), _build.ptr(buf), _build.raw_stream(b.device))
     _build.check(code, "resident grid kernel (B6)")
     _build.launches["resident_grid"] += 1
     return w
@@ -384,7 +384,7 @@ def resident_lanczos(op, v0, m: int, tol: float):
     code = fn(_build.ptr(v0), _build.ptr(cvals), _offsets_arg(offsets),
               len(offsets), n, int(m), float(tol), _build.ptr(ab),
               _build.ptr(buf), _build.ptr(partials), cap,
-              _build.stream_of(v0))
+              _build.raw_stream(v0.device))
     _build.check(code, "resident Lanczos kernel (B2)")
     _build.launches["resident_lanczos"] += 1
     return ab

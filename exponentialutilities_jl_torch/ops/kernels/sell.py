@@ -44,7 +44,12 @@ Kernels (``csrc/sell.cu``): B9 ``sell_spmv`` (one thread per row of a
 slice, x staged per 256-row block where the spans allow) and B10
 ``seg_compact``; their plain twins are ``sell_spmv_ref`` and
 ``seg_compact_ref``. A wrapper runs the twin for CPU tensors and, for CUDA
-tensors, launches the kernel or raises.
+tensors, launches the kernel or raises. A pack's launches go through its
+``launch_plan`` (``SellPlan``, ``SegPlan``), built at its first launch and
+kept in the pack: the checks of its arrays, B9's launch descriptor (their
+pointers, sizes, ``stage_cap`` and unroll) and the C entry points, so a
+product costs the host a comparison of x's dtype, device and shape, an
+empty output and one ctypes call per kernel.
 
 The JAX pack arguments ``window``, ``residue``, ``mode``, ``max_chunks``,
 ``uniform_k`` and ``kmax`` are accepted and have no effect on this
@@ -56,6 +61,7 @@ not the JAX package's.
 
 from __future__ import annotations
 
+import ctypes
 import os
 
 import numpy as np
@@ -70,7 +76,7 @@ __all__ = ["SellData", "sell_pack", "sell_spmv", "sell_spmv_ref",
            "sell_spmv_seg", "sell_spmv_seg_ref", "seg_compact",
            "seg_compact_ref", "stage_blocks", "SLICE", "SIGMA",
            "BUCKET_SIGMA", "SEG_LEN", "ROWS_PER_BLOCK", "STAGE_ELEMS",
-           "WIDE_ROWS"]
+           "WIDE_ROWS", "SellPlan", "SegPlan", "launch_plan"]
 
 SLICE = 32              # rows per slice: eu::kSlice in csrc/sell.cu
 SIGMA = 256             # sort window of the default pack (8 slices)
@@ -521,47 +527,155 @@ def _check_array(what, t, dtype):
                          f"got {t.dtype} {tuple(t.shape)}")
 
 
+def _check_devices(what, device, *arrays):
+    for t in arrays:
+        if t.device != device:
+            raise ValueError(f"{what}: arrays on {t.device} and {device}")
+
+
+class _SellLaunch(ctypes.Structure):
+    """``eu::SellLaunch`` (csrc/sell.cu): what a B9 launch reads on the
+    host, built once per plan."""
+    _fields_ = [("vals", ctypes.c_void_p), ("cols", ctypes.c_void_p),
+                ("slice_ptr", ctypes.c_void_p), ("spans", ctypes.c_void_p),
+                ("row_of", ctypes.c_void_p), ("nrows", ctypes.c_longlong),
+                ("ncols", ctypes.c_longlong), ("nslices", ctypes.c_longlong),
+                ("stage_cap", ctypes.c_int), ("unroll", ctypes.c_int)]
+
+
+class SellPlan:
+    """What every B9 launch on one pack shares: the checks of the pack's
+    arrays (dtypes, contiguity, sizes, one device), made once; the launch
+    descriptor (``_SellLaunch``: their pointers, sizes, ``stage_cap`` and
+    the unroll, 16 slots of loads in flight when the pack's rows average
+    ``WIDE_ROWS`` slots or more, 4 otherwise); the C entry point.
+    A call compares x's dtype, device and shape with the pack's, allocates
+    y and launches on the current stream, taken as a raw handle. A pack
+    that is not on a CUDA device raises."""
+
+    def __init__(self, data: SellData):
+        self.device, dt = data.vals.device, data.vals.dtype
+        _build.require_cuda("sell_spmv", self.device)
+        if dt not in _build.KERNEL_DTYPES:
+            raise ValueError(f"sell_spmv takes float32/float64, got {dt}")
+        self.dtype = dt
+        _check_devices("sell_spmv", self.device, data.cols, data.slice_ptr,
+                       data.spans, data.row_of)
+        for t, want in ((data.vals, dt), (data.cols, torch.int32),
+                        (data.slice_ptr, torch.int64),
+                        (data.row_of, torch.int32)):
+            _check_array("sell_spmv", t, want)
+        if (data.vals.numel() != data.nslots
+                or data.cols.numel() != data.nslots
+                or data.row_of.numel() != data.n
+                or data.spans.shape != (data.nslices, 2)
+                or data.spans.dtype != torch.int32
+                or not data.spans.is_contiguous()):
+            raise ValueError(f"sell_spmv: vals {data.vals.numel()}, cols "
+                             f"{data.cols.numel()} slots, row_of "
+                             f"{data.row_of.numel()} rows and spans "
+                             f"{tuple(data.spans.shape)}, the pack has "
+                             f"{data.nslots} slots, {data.n} rows and "
+                             f"{data.nslices} slices")
+        self.n, self.shape = data.n, (data.ncols,)
+        self.square = data.n == data.ncols
+        wide = data.nslots >= WIDE_ROWS * SLICE * data.nslices
+        # the descriptor holds raw pointers: keep the arrays alive with it
+        self.arrays = (data.vals, data.cols, data.slice_ptr, data.spans,
+                       data.row_of)
+        self.launch = _SellLaunch(
+            data.vals.data_ptr(), data.cols.data_ptr(),
+            data.slice_ptr.data_ptr(), data.spans.data_ptr(),
+            data.row_of.data_ptr(), data.n, data.ncols, data.nslices,
+            data.stage_cap, 16 if wide else 4)
+        self.addr = ctypes.addressof(self.launch)
+        self.fn = getattr(_build.library(),
+                          f"eu_sell_spmv_{_build.suffix(dt)}")
+
+    def __call__(self, x):
+        if x.dtype != self.dtype:
+            raise ValueError(f"sell_spmv: pack in {self.dtype}, vector in "
+                             f"{x.dtype}; cast the pack once with "
+                             "data.to(dtype=...)")
+        if x.device != self.device or x.shape != self.shape:
+            raise ValueError(f"sell_spmv: expected a {self.shape} vector on "
+                             f"{self.device}, got {tuple(x.shape)} on "
+                             f"{x.device}")
+        if not x.is_contiguous():
+            x = x.contiguous()
+        # empty_like parses no device: cheaper on the host than torch.empty
+        y = torch.empty_like(x) if self.square else x.new_empty(self.n)
+        if self.n == 0:
+            return y
+        code = self.fn(self.addr, x.data_ptr(), y.data_ptr(),
+                       _build.raw_stream(self.device))
+        if code:
+            _build.check(code, "SELL SpMV kernel (B9)")
+        _build.launches["sell_spmv"] += 1
+        return y
+
+
+class SegPlan:
+    """``SellPlan`` for the segmented pack: B9 over the segments (``base``),
+    then B10 on its partials, with the checks of ``seg_ptr`` made once."""
+
+    def __init__(self, data: SellSeg):
+        self.seg_ptr = data.seg_ptr
+        self.base = launch_plan(data.base)
+        _check_devices("seg_compact", self.base.device, data.seg_ptr)
+        _check_array("seg_compact", data.seg_ptr, torch.int64)
+        if data.seg_ptr.shape != (data.n + 1,):
+            raise ValueError(f"seg_compact: seg_ptr {tuple(data.seg_ptr.shape)}"
+                             f" for {data.n} rows")
+        self.n = data.n
+        self.fn = getattr(_build.library(),
+                          f"eu_seg_compact_{_build.suffix(self.base.dtype)}")
+
+    def __call__(self, x):
+        # B9's partials: contiguous, (nseg,), in the pack's dtype and device
+        return _launch_seg_compact(self.fn, self.base(x), self.seg_ptr,
+                                   self.n)
+
+
+def launch_plan(data):
+    """The pack's ``SellPlan`` (``SegPlan`` for a ``SellSeg``), built at its
+    first launch, which raises if the pack does not suit the kernels, and
+    kept in the pack; rebuilt when the pack's values are reassigned (its
+    index arrays are fixed when it is built)."""
+    plan = data.__dict__.get("_plan")
+    if plan is None or plan.vals_src is not _vals(data):
+        plan = SegPlan(data) if isinstance(data, SellSeg) else SellPlan(data)
+        plan.vals_src = _vals(data)
+        data._plan = plan
+    return plan
+
+
+def _vals(data):
+    return data.base.vals if isinstance(data, SellSeg) else data.vals
+
+
 def sell_spmv(data: SellData, x):
     """y = A x for a SELL-C-sigma pack: kernel B9 on CUDA, its twin on CPU.
     On CUDA the pack's values must be in x's dtype (cast the pack once with
     ``data.to(dtype=...)``; a launch makes no copy of it). The launch takes
     the pack's ``stage_cap`` values of shared memory for the x windows and
     keeps 16 slots of loads in flight per row when the pack's rows average
-    ``WIDE_ROWS`` slots or more, 4 otherwise."""
+    ``WIDE_ROWS`` slots or more, 4 otherwise; the pack's ``SellPlan`` holds
+    both."""
     if x.device.type == "cpu":
         return sell_spmv_ref(data, x)
-    _build.check_operands("sell_spmv", x, data.vals, data.cols,
-                          data.slice_ptr, data.spans, data.row_of)
-    for t, dt in ((data.vals, x.dtype), (data.cols, torch.int32),
-                  (data.slice_ptr, torch.int64), (data.row_of, torch.int32)):
-        _check_array("sell_spmv", t, dt)
-    if (data.vals.numel() != data.nslots or data.cols.numel() != data.nslots
-            or data.row_of.numel() != data.n
-            or data.spans.shape != (data.nslices, 2)
-            or data.spans.dtype != torch.int32
-            or not data.spans.is_contiguous()):
-        raise ValueError(f"sell_spmv: vals {data.vals.numel()}, cols "
-                         f"{data.cols.numel()} slots, row_of "
-                         f"{data.row_of.numel()} rows and spans "
-                         f"{tuple(data.spans.shape)}, the pack has "
-                         f"{data.nslots} slots, {data.n} rows and "
-                         f"{data.nslices} slices")
-    if x.shape != (data.ncols,):
-        raise ValueError(f"sell_spmv: expected a ({data.ncols},) vector, "
-                         f"got {tuple(x.shape)}")
-    y = torch.empty(data.n, dtype=x.dtype, device=x.device)
-    if data.n == 0:
+    return launch_plan(data)(x)
+
+
+def _launch_seg_compact(fn, partials, seg_ptr, n):
+    y = partials.new_empty(n)
+    if n == 0:
         return y
-    x = x.contiguous()
-    wide = data.nslots >= WIDE_ROWS * SLICE * data.nslices
-    fn = getattr(_build.library(), f"eu_sell_spmv_{_build.suffix(x.dtype)}")
-    code = fn(_build.ptr(data.vals), _build.ptr(data.cols),
-              _build.ptr(data.slice_ptr), _build.ptr(data.spans),
-              _build.ptr(data.row_of), _build.ptr(x), data.n, data.ncols,
-              data.nslices, data.stage_cap, 16 if wide else 4, _build.ptr(y),
-              _build.stream_of(x))
-    _build.check(code, "SELL SpMV kernel (B9)")
-    _build.launches["sell_spmv"] += 1
+    code = fn(partials.data_ptr(), seg_ptr.data_ptr(), n, y.data_ptr(),
+              _build.raw_stream(partials.device))
+    if code:
+        _build.check(code, "segment compaction kernel (B10)")
+    _build.launches["seg_compact"] += 1
     return y
 
 
@@ -570,23 +684,15 @@ def seg_compact(partials, seg_ptr):
     kernel B10 on CUDA, its twin on CPU. ``seg_ptr`` must rise from 0 to
     ``partials.numel()``: the kernel reads the partials by it unchecked (a
     check here would sync every product), and ``SellSeg`` checks it once
-    when built."""
+    when built. A pack's ``launch_plan`` makes the host checks below once."""
     if partials.device.type == "cpu":
         return seg_compact_ref(partials, seg_ptr)
     _build.check_operands("seg_compact", partials, seg_ptr)
     _check_array("seg_compact", partials, partials.dtype)
     _check_array("seg_compact", seg_ptr, torch.int64)
-    n = seg_ptr.shape[0] - 1
-    y = torch.empty(n, dtype=partials.dtype, device=partials.device)
-    if n == 0:
-        return y
     fn = getattr(_build.library(),
                  f"eu_seg_compact_{_build.suffix(partials.dtype)}")
-    code = fn(_build.ptr(partials), _build.ptr(seg_ptr), n, _build.ptr(y),
-              _build.stream_of(partials))
-    _build.check(code, "segment compaction kernel (B10)")
-    _build.launches["seg_compact"] += 1
-    return y
+    return _launch_seg_compact(fn, partials, seg_ptr, seg_ptr.shape[0] - 1)
 
 
 def sell_spmv_bucketed(data: SellBucketed, x):
@@ -595,5 +701,8 @@ def sell_spmv_bucketed(data: SellBucketed, x):
 
 
 def sell_spmv_seg(data: SellSeg, x):
-    """y = A x for the segmented pack: B9 over the segments, then B10."""
-    return seg_compact(sell_spmv(data.base, x), data.seg_ptr)
+    """y = A x for the segmented pack: B9 over the segments, then B10 (on
+    CPU their twins)."""
+    if x.device.type == "cpu":
+        return sell_spmv_seg_ref(data, x)
+    return launch_plan(data)(x)

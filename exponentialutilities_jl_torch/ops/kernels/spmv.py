@@ -9,7 +9,12 @@
   (``BlockELLOperator``).
 
 Both are hand-written CUDA kernels (``csrc/spmv.cu``), one launch per
-product. Their plain twins ``banded_spmv_ref`` (shifted slices of a
+product. B7's launches go through a ``BandedPlan``: the checks, casts,
+launch descriptor (offsets, interior block range) and entry point that
+every product of one matrix shares, made once (``BandedOperator`` keeps
+one per compute dtype and CUDA device), so a product costs the host a few
+attribute comparisons, ``torch.empty_like`` and one ctypes call of four
+arguments. Their plain twins ``banded_spmv_ref`` (shifted slices of a
 zero-padded x) and ``blockell_spmv_ref`` (an einsum of gathered blocks,
 the JAX package's off-TPU path) compute the same contract. A wrapper runs
 the twin for CPU tensors; for CUDA tensors it launches the kernel or
@@ -27,8 +32,10 @@ import torch.nn.functional as F
 from ...utils.precision import full_precision
 from . import _build
 
-__all__ = ["banded_spmv", "banded_spmv_ref", "blockell_spmv",
-           "blockell_spmv_ref"]
+__all__ = ["banded_spmv", "banded_spmv_ref", "BandedPlan", "banded_interior",
+           "blockell_spmv", "blockell_spmv_ref", "ROW_THREADS"]
+
+ROW_THREADS = 256       # threads of a B7 block: eu::kThreads in csrc/common.cuh
 
 
 def banded_spmv_ref(diags, offsets, x):
@@ -65,32 +72,94 @@ def _operand(what, t, dt):
     return t.contiguous()
 
 
+class _BandedLaunch(ctypes.Structure):
+    """``eu::BandedLaunch`` (csrc/spmv.cu): what a B7 launch reads on the
+    host, built once per plan."""
+    _fields_ = [("diags", ctypes.c_void_p), ("n", ctypes.c_longlong),
+                ("blo", ctypes.c_longlong), ("bhi", ctypes.c_longlong),
+                ("k", ctypes.c_int), ("o", ctypes.c_int * _build.MAX_POINTS)]
+
+
+def banded_interior(offsets, n: int, rows: int) -> tuple:
+    """[blo, bhi): the B7 blocks (block b owns rows [b rows, b rows +
+    rows)) whose rows all exist and whose x reads i + o, for every row i
+    and offset o, lie in [0, n). The kernel runs them without bounds
+    checks; (0, 0) when there are none."""
+    if not offsets:
+        return (0, 0)
+    blo = -(-max(-min(offsets), 0) // rows)
+    bhi = max((n - max(max(offsets), 0)) // rows, 0)
+    return (blo, bhi) if blo < bhi else (0, 0)
+
+
+class BandedPlan:
+    """What every B7 launch on one matrix, for vectors of one dtype on one
+    CUDA device, shares: the checks of the diagonals and offsets, made once;
+    the diagonals as the kernel reads them (contiguous, in ``dtype``); the
+    launch descriptor (``_BandedLaunch``: their pointer, the offsets and
+    the interior block range, ``banded_interior`` with V = 16 / itemsize
+    rows a thread); the C entry point. A call compares x's dtype, device
+    and shape with the plan's, allocates y and launches on the current
+    stream, taken as a raw handle. A device that is not CUDA raises."""
+
+    def __init__(self, diags, offsets, dtype, device):
+        self.device = torch.device(device)
+        _build.require_cuda("banded_spmv", self.device)
+        if dtype not in _build.KERNEL_DTYPES:
+            raise ValueError(f"banded_spmv takes float32/float64, got {dtype}")
+        if diags.device != self.device:
+            raise ValueError(f"banded_spmv: operand on {diags.device}, vector "
+                             f"on {self.device}")
+        self.offsets, self.dtype = tuple(int(o) for o in offsets), dtype
+        self.k = len(self.offsets)
+        if diags.dim() != 2 or diags.shape[0] != self.k:
+            raise ValueError(f"banded_spmv: diags {tuple(diags.shape)}, "
+                             f"{self.k} offsets")
+        if self.k > _build.MAX_POINTS:
+            raise ValueError(f"banded_spmv: {self.k} diagonals, the kernel "
+                             f"takes at most {_build.MAX_POINTS}")
+        self.diags = _operand("banded_spmv", diags, dtype)
+        self.n = diags.shape[1]
+        self.shape, self.fn = (self.n,), None
+        if self.n == 0 or self.k == 0:
+            return
+        blo, bhi = banded_interior(
+            self.offsets, self.n,
+            ROW_THREADS * (16 // self.diags.element_size()))
+        self.launch = _BandedLaunch(self.diags.data_ptr(), self.n, blo, bhi,
+                                    self.k, (ctypes.c_int * _build.MAX_POINTS)(
+                                        *self.offsets))
+        self.addr = ctypes.addressof(self.launch)
+        self.fn = getattr(_build.library(),
+                          f"eu_banded_spmv_{_build.suffix(dtype)}")
+
+    def __call__(self, x):
+        if (x.dtype != self.dtype or x.device != self.device
+                or x.shape != self.shape):
+            raise ValueError(f"banded_spmv: expected a {self.shape} "
+                             f"{self.dtype} vector on {self.device}, got "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
+        if not x.is_contiguous():
+            x = x.contiguous()
+        y = torch.empty_like(x)     # cheaper on the host than torch.empty
+        if self.fn is None:
+            return y.zero_()
+        code = self.fn(self.addr, x.data_ptr(), y.data_ptr(),
+                       _build.raw_stream(self.device))
+        if code:
+            _build.check(code, "banded SpMV kernel (B7)")
+        _build.launches["banded_spmv"] += 1
+        return y
+
+
 def banded_spmv(diags, offsets, x):
     """y = A x for diagonal storage (module doc): kernel B7 on CUDA, its
     twin on CPU. ``diags`` (k, n) in x's dtype on CUDA, ``offsets`` k ints
-    (at most ``_build.MAX_POINTS`` on CUDA), ``x`` (n,)."""
-    offsets = tuple(int(o) for o in offsets)
+    (at most ``_build.MAX_POINTS`` on CUDA), ``x`` (n,). Each call builds
+    a ``BandedPlan``; ``BandedOperator`` keeps its plans."""
     if x.device.type == "cpu":
-        return banded_spmv_ref(diags, offsets, x)
-    _build.check_operands("banded_spmv", x, diags)
-    k, n = diags.shape
-    if x.shape != (n,) or len(offsets) != k:
-        raise ValueError(f"banded_spmv: diags {tuple(diags.shape)}, "
-                         f"{len(offsets)} offsets, x {tuple(x.shape)}")
-    if k > _build.MAX_POINTS:
-        raise ValueError(f"banded_spmv: {k} diagonals, the kernel takes at "
-                         f"most {_build.MAX_POINTS}")
-    y = torch.empty(n, dtype=x.dtype, device=x.device)
-    if n == 0 or k == 0:
-        return y.zero_()
-    D = _operand("banded_spmv", diags, x.dtype)
-    x = x.contiguous()
-    fn = getattr(_build.library(), f"eu_banded_spmv_{_build.suffix(x.dtype)}")
-    code = fn(_build.ptr(D), (ctypes.c_int * k)(*offsets), k, _build.ptr(x),
-              n, _build.ptr(y), _build.stream_of(x))
-    _build.check(code, "banded SpMV kernel (B7)")
-    _build.launches["banded_spmv"] += 1
-    return y
+        return banded_spmv_ref(diags, tuple(int(o) for o in offsets), x)
+    return BandedPlan(diags, offsets, x.dtype, x.device)(x)
 
 
 def blockell_spmv(blocks, bcols, x):
@@ -115,7 +184,7 @@ def blockell_spmv(blocks, bcols, x):
     fn = getattr(_build.library(),
                  f"eu_blockell_spmv_{_build.suffix(x.dtype)}")
     code = fn(_build.ptr(B), _build.ptr(cols), _build.ptr(x), nbr, w, br, bc,
-              _build.ptr(y), _build.stream_of(x))
+              _build.ptr(y), _build.raw_stream(x.device))
     _build.check(code, "block-ELL SpMV kernel (B8)")
     _build.launches["blockell_spmv"] += 1
     return y

@@ -43,7 +43,9 @@ import torch
 from ..utils.device import action_vector, host_tensor
 from ..utils.linop import LinearOperator
 from .kernels.dispatch import kernel_device_ok
-from .kernels.spmv import (banded_spmv, banded_spmv_ref, blockell_spmv,
+from .kernels.sell import (SellSeg, launch_plan, sell_spmv_ref,
+                           sell_spmv_seg_ref)
+from .kernels.spmv import (BandedPlan, banded_spmv_ref, blockell_spmv,
                            blockell_spmv_ref)
 
 __all__ = ["SparseELLOperator", "BlockELLOperator", "BandedOperator",
@@ -307,10 +309,24 @@ class BandedOperator(LinearOperator):
 
     def matvec(self, x):
         kern, rt = _kernel(self.dtype, x)
-        if kern:
-            return banded_spmv(_promoted(self, "diags", rt), self.offsets,
-                               x.to(rt))
-        return banded_spmv_ref(self.diags, self.offsets, x)
+        if not kern:
+            return banded_spmv_ref(self.diags, self.offsets, x)
+        return self.plan(rt, x.device)(x.to(rt))
+
+    def plan(self, dtype, device):
+        """B7's ``BandedPlan`` for vectors of the compute dtype ``dtype`` on
+        the CUDA device ``device``: kept per (dtype, device) with the
+        diagonals and offsets it was built from, and rebuilt when either is
+        reassigned."""
+        device = torch.device(device)
+        plans = self.__dict__.setdefault("_plans", {})
+        hit = plans.get((dtype, device))
+        if hit is None or hit[0] is not self.diags or hit[1] != self.offsets:
+            hit = plans[(dtype, device)] = (
+                self.diags, self.offsets,
+                BandedPlan(_promoted(self, "diags", dtype), self.offsets,
+                           dtype, device))
+        return hit[2]
 
     def opnorm_hint(self):
         return self.diags.abs().sum(dim=0).max()
@@ -424,20 +440,14 @@ class SellOperator(LinearOperator):
         return self.data.nnz
 
     def matvec(self, x):
-        from .kernels.sell import (SellSeg, sell_spmv, sell_spmv_ref,
-                                   sell_spmv_seg, sell_spmv_seg_ref)
-
-        seg = isinstance(self.data, SellSeg)
         kern, rt = _kernel(self.dtype, x)
         if kern:
-            return (sell_spmv_seg if seg else sell_spmv)(
-                _promoted(self, "data", rt), x.to(rt))
-        return (sell_spmv_seg_ref if seg else sell_spmv_ref)(self.data, x)
+            return launch_plan(_promoted(self, "data", rt))(x.to(rt))
+        return (sell_spmv_seg_ref if isinstance(self.data, SellSeg)
+                else sell_spmv_ref)(self.data, x)
 
     def opnorm_hint(self):
         """max_i sum_j |A_ij|: the row sums of |A| as |A| applied to ones."""
-        from .kernels.sell import SellSeg, sell_spmv_ref, sell_spmv_seg_ref
-
         d = self.data
         seg = isinstance(d, SellSeg)
         vals = (d.base if seg else d).vals.abs()

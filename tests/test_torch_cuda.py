@@ -640,3 +640,79 @@ def test_promoted_storage_cast_once(dev):
         assert y.dtype == torch.float64, name
         (again,) = [c for _, c in op._casts.values()]
         assert again is copy, name
+
+
+def _banded_case(kind, dt, dev):
+    """(diags, offsets) of B7's ragged cases: n odd (the diagonals' rows
+    not 16-byte aligned), n smaller than one block, offsets at least n
+    wide, one diagonal, MAX_POINTS diagonals."""
+    rng = np.random.default_rng(50)
+    n, offs = {"odd": (5001, (-33, -1, 0, 1, 33)),
+               "small": (100, (-7, 0, 2)),
+               "wide": (777, (-900, -776, 0, 776, 1000)),
+               "k1": (4096, (3,)),
+               "kmax": (3000, tuple(range(-32, 32)))}[kind]
+    D = torch.as_tensor(rng.standard_normal((len(offs), n)), dtype=dt,
+                        device=dev)
+    return D, offs
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("kind", ["odd", "small", "wide", "k1", "kmax"])
+def test_b7_ragged(dev, dt, kind):
+    """B7 against its twin on ragged shapes; offset views of x and of the
+    diagonals (scalar loads) give the aligned copies' bits, and so does an
+    operator whose every block is an edge block (one zero diagonal of
+    offset n appended: it adds exact zeros after the sum)."""
+    from exponentialutilities_jl_torch.ops.kernels import spmv as tsp
+
+    D, offs = _banded_case(kind, dt, dev)
+    n = D.shape[1]
+    op = et.BandedOperator(D, offs)
+    x = _vec(n, dt, dev, 51)
+    _build.reset_launch_counts()
+    y = op.matvec(x)
+    assert _build.launches["banded_spmv"] == 1
+    _close(y, tsp.banded_spmv_ref(D, offs, x), dt)
+    assert torch.equal(y, op.matvec(x))
+    assert torch.equal(y, tsp.banded_spmv(D, offs, x))
+    xo = torch.empty(n + 1, dtype=dt, device=dev)[1:].copy_(x)
+    Do = torch.empty(D.numel() + 1, dtype=dt, device=dev)[1:]
+    Do = Do.view(D.shape).copy_(D)
+    assert torch.equal(tsp.banded_spmv(D, offs, xo), y)
+    assert torch.equal(tsp.banded_spmv(Do, offs, xo), y)
+    if len(offs) < _build.MAX_POINTS:
+        Dz = torch.cat([D, torch.zeros_like(D[:1])])
+        assert tsp.banded_interior(offs + (n,), n, 512) == (0, 0)
+        assert torch.equal(tsp.banded_spmv(Dz, offs + (n,), x), y)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_b10_ragged(dev, dt):
+    """B10 on a pack with a row of 5000 one-entry segments, empty rows and
+    n = 3001 (not a multiple of 256), against its twin and scipy; the
+    pack's plan and the public entries give the same bits, and so does a
+    repeat."""
+    import scipy.sparse as sp
+    from exponentialutilities_jl_torch.ops.kernels import sell as ts
+
+    n = 3001
+    rows, cols, vals = _banded_random(n, 6, 400, 52)
+    keep = ~np.isin(rows, np.r_[256:300, 1000, n - 1])
+    rows = np.concatenate([rows[keep], np.full(5000, 700)])
+    cols = np.concatenate([cols[keep], np.arange(5000) % n])
+    vals = np.concatenate([vals[keep], np.ones(5000)])
+    s = ts.sell_pack_seg((rows, cols, vals), n, np.float64, seg_len=1,
+                         device=dev).to(dtype=dt)
+    x = _vec(n, dt, dev, 53)
+    _build.reset_launch_counts()
+    y = ts.sell_spmv_seg(s, x)
+    assert (_build.launches["sell_spmv"], _build.launches["seg_compact"]) \
+        == (1, 1)
+    _close(y, ts.sell_spmv_seg_ref(s, x), dt)
+    A = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    _close(y, torch.as_tensor(A @ x.double().cpu().numpy(), dtype=dt,
+                              device=dev), dt)
+    assert torch.equal(ts.sell_spmv_seg(s, x), y)
+    assert torch.equal(ts.launch_plan(s)(x), y)
+    assert torch.equal(ts.seg_compact(ts.sell_spmv(s.base, x), s.seg_ptr), y)

@@ -13,6 +13,8 @@ kernels in interpret mode (float32, at the smallest shape); 1e2 RTOL64
 for the Krylov actions, as in tests/test_torch_expv.py; 1e-10 against
 scipy's expm_multiply (the BASELINE target)."""
 
+import ctypes
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -24,7 +26,8 @@ import exponentialutilities_jl_tpu as ej
 import exponentialutilities_jl_torch as et
 from exponentialutilities_jl_tpu.ops.kernels import sell as jsell
 from exponentialutilities_jl_torch.ops.kernels import sell as tsell
-from torch_parity import RTOL32, RTOL64, assert_close, t2n
+from torch_parity import (RTOL32, RTOL64, assert_close, t2n,
+                          use_fake_kernel_library)
 
 torch.set_num_threads(2)
 
@@ -482,3 +485,132 @@ def test_promoted_pack_is_cast_once():
     assert _promoted(op, "data", torch.float32) is op.data
     op.data = op.data.to(dtype=torch.float32)          # reassigned: recast
     assert _promoted(op, "data", torch.float64) is not d64
+
+
+# ---- B9/B10 launch plans, host logic --------------------------------------
+
+@pytest.mark.parametrize("case", ["scattered", "long_row", "empty_block"])
+def test_seg_plan_checks_seg_ptr_once(monkeypatch, case):
+    """The segmented pack on ragged inputs (a row of 5000 one-entry
+    segments, 256 empty rows, n = 3001 not a multiple of 256): its twin
+    equals scipy; SellSeg(validate=True) takes the packer's seg_ptr and
+    refuses one that falls or does not start at 0; the
+    pack's plan checks seg_ptr once and its B10 launch passes B9's
+    partials, seg_ptr and n; a vector of another size raises."""
+    import scipy.sparse as sp
+
+    from exponentialutilities_jl_torch.ops.kernels import _build
+
+    n = 3001
+    r, c, v = _scattered(n, 30)
+    seg_len = 8
+    if case == "long_row":
+        seg_len = 1
+        r = np.concatenate([r, np.full(5000, 700)])
+        c = np.concatenate([c, np.arange(5000) % n])
+        v = np.concatenate([v, np.ones(5000)])
+    elif case == "empty_block":
+        keep = (r < 256) | (r >= 512)
+        r, c, v = r[keep], c[keep], v[keep]
+    s = tsell.sell_pack_seg((r, c, v), n, dtype=np.float64, seg_len=seg_len)
+    x = np.random.default_rng(34).standard_normal(n)
+    A = sp.coo_matrix((v, (r, c)), shape=(n, n)).tocsr()
+    assert_close(t2n(tsell.sell_spmv_seg(s, torch.as_tensor(x))), A @ x,
+                 RTOL64, "seg twin vs scipy")
+    assert tsell.SellSeg(s.base, s.seg_ptr, n, s.nnz, seg_len).n == n
+    falls = s.seg_ptr.clone()
+    falls[n // 2] = falls[-1] + 1
+    for ptr in (falls, s.seg_ptr + 1):
+        with pytest.raises(ValueError, match="seg_ptr"):
+            tsell.SellSeg(s.base, ptr, n, s.nnz, seg_len)
+    lib = use_fake_kernel_library(monkeypatch)
+    plan = tsell.launch_plan(s)
+    _build.reset_launch_counts()
+    plan(torch.as_tensor(x))
+    (b9, b9_args), (name, args) = lib.calls
+    assert (b9, name) == ("eu_sell_spmv_f64", "eu_seg_compact_f64")
+    assert args[:3] == (b9_args[2], s.seg_ptr.data_ptr(), n)
+    assert (_build.launches["sell_spmv"], _build.launches["seg_compact"]) \
+        == (1, 1)
+    with pytest.raises(ValueError, match="vector"):
+        plan(torch.zeros(n + 1, dtype=torch.float64))
+
+
+def test_sell_launch_plans(monkeypatch):
+    """A pack's launch plan checks its arrays once, at its first launch,
+    and is kept; a launch passes the pack's pointers, sizes, stage_cap and
+    unroll, and a segmented pack's plan launches B9 and then B10; each
+    vector's dtype, device and shape are still checked, and a broken pack
+    still raises."""
+    from exponentialutilities_jl_torch.ops.kernels import _build
+
+    lib = use_fake_kernel_library(monkeypatch)
+    n = 3001
+    d = tsell.sell_pack(_scattered(n, 31), n, dtype=np.float64)
+    x = torch.as_tensor(np.random.default_rng(32).standard_normal(n))
+    plan = tsell.launch_plan(d)
+    assert tsell.launch_plan(d) is plan and not lib.calls
+    _build.reset_launch_counts()
+    plan(x)
+    (name, args), = lib.calls
+    assert name == "eu_sell_spmv_f64"
+    assert args[:2] == (plan.addr, x.data_ptr()) and args[3] == 0
+    L = plan.launch
+    assert (L.vals, L.cols, L.slice_ptr, L.spans, L.row_of) == (
+        d.vals.data_ptr(), d.cols.data_ptr(), d.slice_ptr.data_ptr(),
+        d.spans.data_ptr(), d.row_of.data_ptr())
+    wide = d.nslots >= tsell.WIDE_ROWS * tsell.SLICE * d.nslices
+    assert (L.nrows, L.ncols, L.nslices, L.stage_cap, L.unroll) == (
+        n, n, d.nslices, d.stage_cap, 16 if wide else 4)
+    S = tsell._SellLaunch                  # the layout csrc/sell.cu asserts
+    assert (ctypes.sizeof(S), S.nrows.offset, S.stage_cap.offset) == \
+        (72, 40, 64)
+    assert _build.launches["sell_spmv"] == 1
+    for bad, what in ((x.float(), "float64"), (x[:-1], "vector"),
+                      (x.to("meta"), "vector")):
+        with pytest.raises(ValueError, match=what):
+            plan(bad)
+    assert tsell.launch_plan(d.to(dtype=torch.float32))(x.float()) is not None
+    assert lib.calls[-1][0] == "eu_sell_spmv_f32"
+    with pytest.raises(ValueError, match="slots"):
+        tsell.launch_plan(d.with_vals(d.vals[:-32]))
+    f = d._fields()
+    hand = tsell.SellData(f["vals"], f["cols"].long(), f["slice_ptr"],
+                          f["row_of"], d.n, d.nnz, ncols=d.ncols)
+    with pytest.raises(ValueError, match="int32"):
+        tsell.launch_plan(hand)
+    d.vals = d.vals.clone()                       # reassigned: a new plan
+    assert tsell.launch_plan(d) is not plan
+    s = tsell.sell_pack_seg(_scattered(n, 33), n, dtype=np.float64,
+                            seg_len=8)
+    sp = tsell.launch_plan(s)
+    assert isinstance(sp, tsell.SegPlan) and tsell.launch_plan(s) is sp
+    _build.reset_launch_counts()
+    lib.calls.clear()
+    sp(x)
+    assert [c[0] for c in lib.calls] == ["eu_sell_spmv_f64",
+                                         "eu_seg_compact_f64"]
+    args = lib.calls[1][1]
+    assert args[1:3] == (s.seg_ptr.data_ptr(), n)
+    assert (_build.launches["sell_spmv"], _build.launches["seg_compact"]) \
+        == (1, 1)
+    with pytest.raises(ValueError, match="float64"):
+        sp(x.float())
+
+
+def test_sell_plans_refuse_cpu():
+    """With the real kernel library, a launch plan for a CPU pack (plain or
+    segmented) raises before any pointer could reach a kernel; the public
+    entries send CPU tensors to the twins instead."""
+    n = 500
+    d = tsell.sell_pack(_scattered(n, 35), n, dtype=np.float64)
+    s = tsell.sell_pack_seg(_scattered(n, 36), n, dtype=np.float64,
+                            seg_len=4)
+    for pack in (d, s):
+        with pytest.raises(ValueError, match="CUDA"):
+            tsell.launch_plan(pack)
+        assert "_plan" not in pack.__dict__
+    x = torch.as_tensor(np.random.default_rng(37).standard_normal(n))
+    assert torch.equal(tsell.sell_spmv(d, x), tsell.sell_spmv_ref(d, x))
+    assert torch.equal(tsell.sell_spmv_seg(s, x),
+                       tsell.sell_spmv_seg_ref(s, x))

@@ -13,6 +13,7 @@ reorthogonalizes, the port's does not). JAX never runs its banded kernel
 (``banded_spmv`` has no interpret mode), so B7's twin is held to the JAX
 ``BandedOperator.matvec`` and to the dense matrix."""
 
+import ctypes
 import subprocess
 import sys
 from pathlib import Path
@@ -29,7 +30,8 @@ from exponentialutilities_jl_tpu import native as jnative
 from exponentialutilities_jl_tpu.ops.kernels import spmv as jspmv
 from exponentialutilities_jl_torch.ops.kernels import spmv as tspmv
 from exponentialutilities_jl_torch.utils import native as tnative
-from torch_parity import RTOL32, RTOL64, assert_close, t2n
+from torch_parity import (RTOL32, RTOL64, assert_close, t2n,
+                          use_fake_kernel_library)
 
 torch.set_num_threads(2)
 
@@ -313,3 +315,138 @@ def test_blockell_use_pallas_has_no_effect(use_pallas):
     y = et.BlockELLOperator(top.blocks, top.bcols,
                             use_pallas=use_pallas).matvec(torch.as_tensor(x))
     assert_close(t2n(y), A @ x, RTOL64, "vs scipy")
+
+
+# ---- B7's launch plan (ops/kernels/spmv.BandedPlan), host logic ----------
+
+def _interior_brute(offsets, n, rows):
+    """The blocks whose rows all exist and read x only inside [0, n),
+    checked row by row."""
+    o = np.asarray(offsets)
+    out = []
+    for b in range(-(-n // rows)):
+        i = np.arange(b * rows, b * rows + rows)
+        q = i[:, None] + o[None, :]
+        if i[-1] < n and (q >= 0).all() and (q < n).all():
+            out.append(b)
+    return out
+
+
+@pytest.mark.parametrize("V", [2, 4])
+def test_banded_interior_vs_brute_force(V):
+    """The interior block range the plan hands B7 (no bounds checks there)
+    is exactly the set of blocks that need none, over random offsets (some
+    wider than the vector), n (smaller than a block, not a multiple of V)
+    and both row widths of a thread."""
+    rows = tspmv.ROW_THREADS * V
+    rng = np.random.default_rng(40 + V)
+    for _ in range(60):
+        n = int(rng.integers(1, 6 * rows))
+        k = int(rng.integers(1, 8))
+        reach = int(rng.choice([3, rows, n + 5]))
+        offsets = tuple(int(o) for o in rng.integers(-reach, reach + 1, k))
+        blo, bhi = tspmv.banded_interior(offsets, n, rows)
+        assert list(range(blo, bhi)) == _interior_brute(offsets, n, rows), \
+            (offsets, n, rows)
+    assert tspmv.banded_interior((-1000, -1, 0, 1, 1000), 10 ** 6, 512) == \
+        (2, 1951)
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    return use_fake_kernel_library(monkeypatch)
+
+
+def test_banded_plans_cached_per_dtype_and_device(fake_lib):
+    """BandedOperator keeps one plan per compute dtype and device, reuses
+    it, and builds a new one when its diagonals or offsets are reassigned;
+    a float32 plan holds the diagonals cast once. A CPU matvec runs the
+    twin and builds no plan."""
+    op = et.poisson_2d(9, 7)
+    x = torch.as_tensor(_x(63, 11))
+    dense = t2n(op.to_dense())
+    y64, y32 = op.matvec(x), op.matvec(x.float())
+    assert y64.dtype == torch.float64 and y32.dtype == torch.float64
+    assert "_plans" not in op.__dict__ and not fake_lib.calls
+    assert_close(t2n(y64), dense @ t2n(x), RTOL64, "CPU matvec")
+    cpu = torch.device("cpu")
+    p64, p32 = op.plan(torch.float64, cpu), op.plan(torch.float32, "cpu")
+    assert set(op._plans) == {(torch.float64, cpu), (torch.float32, cpu)}
+    assert op.plan(torch.float64, "cpu") is p64 and p64.diags is op.diags
+    assert p32.diags.dtype == torch.float32
+    assert op.plan(torch.float32, cpu).diags is p32.diags
+    op.diags = 2 * op.diags
+    p64b = op.plan(torch.float64, cpu)
+    assert p64b is not p64 and p64b.diags is op.diags
+    assert_close(t2n(op.matvec(x)), 2 * dense @ t2n(x), RTOL64, "new diags")
+    op.offsets = (0,) + op.offsets[1:]
+    plan = op.plan(torch.float64, cpu)
+    assert plan is not p64b and plan.offsets == op.offsets
+    assert not fake_lib.calls
+
+
+def test_banded_plan_checks_once_and_per_call(fake_lib):
+    """A kernel plan checks the diagonals once (dtype, device, shape, at
+    most MAX_POINTS offsets) and each vector's dtype, device and shape; a
+    launch passes its descriptor (the diagonals' pointer, n, the offsets,
+    the interior block range), x and y, and counts one launch. The
+    descriptor's layout is the one csrc/spmv.cu asserts."""
+    from exponentialutilities_jl_torch.ops.kernels import _build
+
+    cpu = torch.device("cpu")
+    D = torch.as_tensor(np.random.default_rng(12).standard_normal((3, 2001)))
+    offs = (-400, 0, 7)
+    with pytest.raises(ValueError, match="dtype"):
+        tspmv.BandedPlan(D.float(), offs, torch.float64, cpu)
+    with pytest.raises(ValueError, match="operand on meta"):
+        tspmv.BandedPlan(D.to("meta"), offs, torch.float64, cpu)
+    with pytest.raises(ValueError, match="offsets"):
+        tspmv.BandedPlan(D, offs[:2], torch.float64, cpu)
+    with pytest.raises(ValueError, match="at most"):
+        tspmv.BandedPlan(torch.zeros(_build.MAX_POINTS + 1, 8),
+                         range(_build.MAX_POINTS + 1), torch.float64, cpu)
+    with pytest.raises(ValueError, match="float32/float64"):
+        tspmv.BandedPlan(D.to(torch.complex128), offs, torch.complex128, cpu)
+    plan = tspmv.BandedPlan(D[:, ::1], offs, torch.float64, cpu)
+    x = torch.as_tensor(_x(2001, 13))
+    for bad in (x.float(), x[:-1], x.to("meta")):
+        with pytest.raises(ValueError, match="vector"):
+            plan(bad)
+    assert not fake_lib.calls
+    _build.reset_launch_counts()
+    plan(x)
+    plan(torch.as_tensor(_x(4002, 14))[::2])              # made contiguous
+    assert _build.launches["banded_spmv"] == 2
+    (name, args), _ = fake_lib.calls
+    assert name == "eu_banded_spmv_f64"
+    assert args == (plan.addr, x.data_ptr(), args[2], 0)
+    d = plan.launch
+    assert (d.diags, d.n, d.k, list(d.o[:3])) == (plan.diags.data_ptr(), 2001,
+                                                   3, list(offs))
+    assert (d.blo, d.bhi) == tspmv.banded_interior(offs, 2001, 512) == (1, 3)
+    L = tspmv._BandedLaunch
+    assert (ctypes.sizeof(L), L.k.offset, L.o.offset) == (296, 32, 36)
+    f32 = tspmv.BandedPlan(D.float(), offs, torch.float32, cpu)
+    with pytest.raises(ValueError, match="vector"):
+        f32(x)                          # no cast of x inside a plan
+    f32(x.float())
+    assert fake_lib.calls[-1][0] == "eu_banded_spmv_f32"
+    assert (f32.launch.blo, f32.launch.bhi) == \
+        tspmv.banded_interior(offs, 2001, 1024)
+
+
+def test_banded_plan_refuses_cpu():
+    """With the real kernel library, a plan for CPU tensors raises before
+    any pointer could reach a kernel; banded_spmv and BandedOperator send
+    CPU tensors to the twin instead."""
+    D = torch.as_tensor(np.random.default_rng(15).standard_normal((3, 64)))
+    offs = (-1, 0, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tspmv.BandedPlan(D, offs, torch.float64, "cpu")
+    op = et.BandedOperator(D, offs)
+    with pytest.raises(ValueError, match="CUDA"):
+        op.plan(torch.float64, "cpu")
+    x = torch.as_tensor(_x(64, 16))
+    want = tspmv.banded_spmv_ref(D, offs, x)
+    assert torch.equal(tspmv.banded_spmv(D, offs, x), want)
+    assert torch.equal(op.matvec(x), want)

@@ -34,3 +34,35 @@ def assert_close(got, want, rtol, what=""):
     scale = max(float(np.max(np.abs(want))), 1e-300) if want.size else 1.0
     err = float(np.max(np.abs(got - want))) if want.size else 0.0
     assert err <= rtol * scale, f"{what}: error {err:.3e} > {rtol:g} x {scale:.3e}"
+
+
+class FakeKernelLibrary:
+    """Stands in for the CUDA kernel library on a machine without nvcc:
+    records each launch's C entry point and arguments and reports success,
+    so the CPU tests reach the launch plans' host logic."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("eu_"):
+            raise AttributeError(name)
+
+        def fn(*args):
+            self.calls.append((name, args))
+            return 0
+        return fn
+
+
+def use_fake_kernel_library(monkeypatch):
+    """Route ``_build.library`` and ``_build.raw_stream`` to a
+    ``FakeKernelLibrary`` (returned) for one test, and let the launch plans
+    be built for CPU tensors (``_build.require_cuda`` refuses them
+    otherwise): nothing reaches a real kernel there."""
+    from exponentialutilities_jl_torch.ops.kernels import _build
+
+    lib = FakeKernelLibrary()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "raw_stream", lambda device: 0)
+    monkeypatch.setattr(_build, "require_cuda", lambda what, device: None)
+    return lib
