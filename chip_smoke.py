@@ -33,8 +33,13 @@ its seconds:
               one block, offsets wider than n, one and 64 diagonals), on
               offset views of x and the diagonals and with every block an
               edge block, bit for bit; B10 with a row of 5000 segments
-              and empty rows at n = 3001; per SELL pack, the share of
-              B9's 256-row blocks
+              and empty rows at n = 3001; B2's cluster form on ragged
+              shapes (n not a multiple of C x 1024, n < C, max|o| = L,
+              5 points, m = 0 and 1; the grid form above its gate), B4's
+              neighbour form bit for bit against the family kernel (p =
+              1, 4, 8; 3 and 5 points; ragged chunks, max|o| = chunk),
+              and config #2's plans on the cluster and neighbour forms;
+              per SELL pack, the share of B9's 256-row blocks
               that stage x in shared memory (none of the band-20000
               pack's; phase 4 adds the RCM'd n = 1e6 pack, held to more
               than half, and the scattered packs)
@@ -50,8 +55,9 @@ its seconds:
               t A phi_{j+1} = phi_j - b/j!, and cross-method or cross-pack
               agreement; a two-pass call is one sweep and one second
               stage (``sweep_stage``) per step, and the replay's alpha and
-              beta equal pass 1's bit for bit; the kernel-driving passes
-              rerun under torch.cuda.set_sync_debug_mode("error")
+              beta equal pass 1's bit for bit; every B4 launch of config
+              #2 on the neighbour form; the kernel-driving passes rerun
+              under torch.cuda.set_sync_debug_mode("error")
   5. times    CUDA-event medians of >= 10 runs after warm-up, each kernel
               beside its plain twin, B6 beside the B3 sweeps on the same
               grid, B9 at bench_sell.py's timing shape (n = 1e7) with its
@@ -65,7 +71,7 @@ its seconds:
               host), so every kernel and the library calls are also timed
               20 calls back to back (the device's time per call where the
               host enqueues faster than the device runs; B3's with its
-              second stage), B7, B9 and B10 also by their kernel events
+              second stage), every kernel also by its kernel events
               under torch.profiler (the device time per launch, taken
               last: after the profiler has run, every launch costs the
               host more), beside a 3-stream torch.add at 216^3 (the
@@ -83,8 +89,9 @@ With --profile, phase 5 is replaced by torch.profiler over one warm call
 of each sparse, variable and non-Hermitian main-path cell (config #3
 phiv, the SELL expv, two-pass, expv_chebyshev and its spectral_bounds,
 the block-ELL two-pass; the 216^3 variable Chebyshev and two-pass, the
-216^3 and 2-D 512^2 constant two-pass; config
-#1 expm and expv; config #4 expv, phiv and the IOP two-pass): the
+216^3, 2-D 512^2 and 1-D (config #2) constant two-pass, the 1-D
+two-pass phiv; config #1 expm and expv; config #4 expv, phiv and the IOP
+two-pass): the
 CUDA-event wall time, the device busy time (union of the device
 intervals), the number of device ops, the largest kernels and the host
 ops of most self time. It prints no result lines then.
@@ -111,6 +118,8 @@ NP = 1000               # BASELINE config #3: poisson_2d(1000, 1000)
 TP = 1e-4               # run_baseline.py's time for config #3
 K = 3                   # phi orders 0..K, as config #3 runs them
 NG, TG = 512, 0.5       # 2-D grid under the B6 gate
+THREE, FIVE = (-1, 0, 1), (-2, -1, 0, 1, 2)     # 1-D stencil offsets
+B2_ABOVE_GATE = {"float32": 600_000, "float64": 300_000}   # B2's grid form
 
 # Kernel against twin, max-norm relative: float32 sums in another order
 # and contracts to FMA; float64 agrees to a few ulps of the output.
@@ -182,7 +191,7 @@ REPLACES = {
 }
 SOURCES = {
     "resident_recurrence": "exponentialutilities_jl_torch/ops/kernels/csrc/resident.cu",
-    "resident_lanczos": "exponentialutilities_jl_torch/ops/kernels/csrc/resident.cu",
+    "resident_lanczos": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_cluster.cu",
     "resident_multi": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_family.cu",
     "resident_banded": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_family.cu",
     "resident_grid": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_family.cu",
@@ -338,6 +347,7 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     rng2 = np.random.default_rng(SEED + 1)     # the inputs of B4-B6
+    rng8 = np.random.default_rng(SEED + 8)     # B2's and B4's ragged shapes
 
     def vec(n, dt, gen=rng):
         return torch.as_tensor(gen.standard_normal(n), dtype=dt, device=dev)
@@ -363,6 +373,14 @@ def main() -> int:
                 np.asarray([-1 / 12, 4 / 3, -2.5, 4 / 3, -1 / 12]),
                 is_hermitian=True, dtype=dt, device=dev)
         return et.laplacian_nd_stencil(n, dtype=dt, device=dev)
+
+    def stencil1(n, offs, dt):
+        """A 1-D stencil with the 2nd- (3 points) or 4th-order (5 points)
+        Laplacian's coefficients on the offsets ``offs``."""
+        cs = ([1.0, -2.0, 1.0] if len(offs) == 3 else
+              [-1 / 12, 4 / 3, -2.5, 4 / 3, -1 / 12])
+        return et.StencilOperator((n,), [(o,) for o in offs], np.asarray(cs),
+                                  is_hermitian=True, dtype=dt, device=dev)
 
     def star13(shape, dt):
         offsets, coeffs = [(0, 0, 0)], [-7.5]
@@ -450,6 +468,34 @@ def main() -> int:
                 kerr["resident_lanczos"] = float((ab - abr).abs().max())
             print(f"kernel B2 {dname[dt]} n={N1} m={m} {start}: rel err "
                   f"{e:.2e} (tol {tol:g}), bitwise repeat ok", flush=True)
+        # B2 on ragged shapes: the cluster form with n not a multiple of
+        # C x 1024, n < C (blocks without rows), max|o| = L = 2, 5 points,
+        # m = 0 and 1; above its gate (float64 n = 3e5, float32 n = 6e5:
+        # more rows a block than resident.CLUSTER_MAX_ROWS) the grid form
+        btol = 1e-7 if dt == f64 else 1e-4
+        for n, offs in ((N1, FIVE), (1023, THREE), (16 * 1024 + 1, FIVE),
+                        (10, THREE), (3, THREE), (32, (-2, 0, 2)),
+                        (B2_ABOVE_GATE[dname[dt]], THREE)):
+            op = stencil1(n, offs, dt)
+            form = tr.lanczos_plan(op, dt, dev).form
+            want = "grid" if n == B2_ABOVE_GATE[dname[dt]] else "cluster"
+            check(form == want, f"B2 {dname[dt]} n={n}: {form} form, not "
+                  f"{want}")
+            b = vec(n, dt, rng8)
+            v0 = b / torch.linalg.vector_norm(b)
+            errs = []
+            for m in (0, 1, 12):
+                ab = tr.resident_lanczos(op, v0, m, btol)
+                ab2 = tr.resident_lanczos(op, v0, m, btol)
+                abr = tr.resident_lanczos_ref(v0, op.coeffs, list(offs), m,
+                                              btol)
+                errs.append(rel_max(ab, abr) if m else 0.0)
+                check(ab.shape == (m, 2) and errs[-1] <= tol
+                      and torch.equal(ab, ab2),
+                      f"B2 {dname[dt]} n={n} {offs} m={m}: {errs[-1]:.2e}")
+            print(f"kernel B2 {dname[dt]} n={n} offsets={offs} m=0,1,12 "
+                  f"({form} form): max rel err {max(errs):.2e} (tol {tol:g}),"
+                  f" bitwise repeat ok", flush=True)
         # the ragged shapes: 3 planes of 700 x 900 (more column tiles than
         # the card holds blocks: one z chunk), one plane as a 3-D grid, a
         # 2-D grid, the 27-point box
@@ -547,6 +593,41 @@ def main() -> int:
             kerr["resident_multi"] = float((W - Wr).abs().max())
         print(f"kernel B4 {dname[dt]} n={N1} p=4 m=12: rel err {e:.2e} "
               f"(tol {tol:g})", flush=True)
+        # B4's neighbour form against the family kernel, bit for bit (both
+        # compute a row with the same functions), and against the twin: p =
+        # 1, 4, 8; 3 and 5 points; ragged chunks (n = 777 on 4 blocks of
+        # 195 rows, n = 300 with max|o| = chunk = 150, n = 5 on one block)
+        for n, offs in ((N1, THREE), (N1, FIVE), (777, THREE),
+                        (300, (-150, 0, 150)), (5, THREE)):
+            op = stencil1(n, offs, dt)
+            plan = tr.multi_plan(op, dt, dev)
+            family = tr.MultiPlan(op, dt, dev, form="family")
+            x = vec(n, dt, rng8)
+            for p in (1, 4, 8):
+                rows = vec(48, dt, rng8).reshape(12, 4) * 0.5
+                rows[:, 0] *= 2.0 / float(op.opnorm_hint())
+                cw = vec(12 * p, dt, rng8).reshape(12, p)
+                check(plan.form(p) == "neighbour",
+                      f"B4 {dname[dt]} n={n} p={p}: {plan.form(p)} form")
+                W = tr.recurrence_apply_resident_multi(op, x, rows, cw)
+                Wf = family(x, rows, cw)
+                Wr = tr.resident_multi_ref(x, rows, cw, op.coeffs, list(offs))
+                e = rel_max(W, Wr)
+                check(torch.equal(W, Wf) and e <= tol,
+                      f"B4 {dname[dt]} n={n} {offs} p={p}: neighbour vs "
+                      f"family bitwise {torch.equal(W, Wf)}, {e:.2e}")
+            print(f"kernel B4 {dname[dt]} n={n} offsets={offs} p=1,4,8 m=12 "
+                  f"(neighbour form, {plan.grid} blocks of {plan.chunk} "
+                  f"rows): equals the family kernel bit for bit, rel err "
+                  f"{e:.2e} (tol {tol:g})", flush=True)
+        # config #2's plans: B2 on one cluster, B4 (p = K + 1) on neighbours
+        op = ops1(dt)
+        lp = tr.lanczos_plan(op, dt, dev)
+        check(lp.form == "cluster" and tr.multi_plan(op, dt, dev).form(K + 1)
+              == "neighbour", f"config #2 {dname[dt]}: B2 {lp.form} form, "
+              f"B4 {tr.multi_plan(op, dt, dev).form(K + 1)} form")
+        print(f"config #2 {dname[dt]} plans: B2 cluster form, {lp.cluster} "
+              f"blocks; B4 neighbour form", flush=True)
         # B5: config #3's operator, and the 1-D Laplacian in banded storage
         for label, op in ((f"poisson_2d({NP}, {NP})",
                            et.poisson_2d(NP, NP, dtype=dt, device=dev)),
@@ -1027,6 +1108,18 @@ def main() -> int:
     for k, v in main_counts.items():
         check(v > 0, f"kernel {k} never launched on the main path")
     print(f"main launches: {main_counts}", flush=True)
+    # the plans config #2's B2 and B4 launches went through (kept on its
+    # operator): B2's cluster form, and every B4 launch on the neighbour
+    # form (the plan counts those)
+    lp, mp = tr.lanczos_plan(op1[f64], f64, dev), tr.multi_plan(op1[f64], f64,
+                                                                 dev)
+    check(lp.form == "cluster"
+          and mp.nbr_launches == main_counts["resident_multi"],
+          f"config #2 main path: B2 {lp.form} form, {mp.nbr_launches} of "
+          f"{main_counts['resident_multi']} B4 launches on the neighbour form")
+    print(f"main config #2: B2 on the cluster form ({lp.cluster} blocks), "
+          f"all {mp.nbr_launches} B4 launches on the neighbour form ({mp.grid} "
+          f"blocks of {mp.chunk} rows)", flush=True)
 
     A1 = sp.diags([np.ones(N1 - 1), -2 * np.ones(N1), np.ones(N1 - 1)],
                   [-1, 0, 1], format="csr")
@@ -1348,12 +1441,22 @@ def main() -> int:
                                              "var two-pass m=20 64")},
                 "3d two-pass m=20 64": calls["3d two-pass m=20 64"],
                 "2d two-pass m=20": phi_calls["2d two-pass m=20"],
+                "1d two-pass m=40 f64": calls["1d two-pass m=40 f64"],
+                "1d phiv two-pass m=40": phi_calls["1d phiv two-pass m=40"],
                 **nh_calls}.items():
             device_profile(name, fn)
         phase_done("5 profile")
         return 0
 
     bursts = {}         # back-to-back kernel ms
+    device_jobs = []    # (name, dtype name, kernel fn, kernel name)
+    # the kernel events each timed call makes one of, for the profiler
+    knames = {"resident_recurrence": "resident_recurrence_kernel",
+              "resident_lanczos": "resident_lanczos",
+              "fused_sweep": "fused_sweep_kernel",
+              "fused_sweep_var": "fused_sweep_kernel",
+              "resident_multi": "resident_multi_nbr_kernel",
+              "resident_banded": "Banded", "resident_grid": "Grid3D"}
 
     def burst_ms(fn, k=20):
         """Per-call time of k calls back to back between two events: the
@@ -1376,92 +1479,98 @@ def main() -> int:
     lib_ms = {}         # the one PyTorch call of the same function
     for dt in (f32, f64):
         dn = dname[dt]
-        rows = td.chebyshev_rows(
-            torch.as_tensor(tc._full_exp_coeffs(T1, lo1, hi1, 1e-12, None)[0],
-                            dtype=dt, device=dev), 0.5 * (hi1 + lo1),
-            0.5 * (hi1 - lo1), dt)
-        x = b1[dt]
-        offs = tr._flat_offsets(op1[dt])
-        sc = torch.tensor(1.0, dtype=dt, device=dev)
-        v0 = x / torch.linalg.vector_norm(x)
-        n3 = N3 ** 3
-        Z, Vc, Vp = b3[dt], vec(n3, dt), vec(n3, dt)
-        W = torch.zeros(n3, dtype=dt, device=dev)
-        co = torch.tensor([0.3, -0.7, 0.2, 0.0], dtype=dt, device=dev)
-        isz = torch.empty((), dtype=dt).element_size()
-        k1, kV = len(op1[dt].offsets), len(opV[dt].offsets)
-        cases = {
-            "resident_recurrence": (
-                lambda: tr.resident_recurrence(op1[dt], x, rows, 1.0),
-                lambda: tr.resident_recurrence_ref(x, rows, op1[dt].coeffs,
-                                                   offs, sc),
-                f"n={N1}, m={rows.shape[0]} Chebyshev rows",
-                # x and the rows in, w and sum w^2 out; per step and cell a
-                # k-point stencil, the 3-term update and the accumulation
-                ((2 * N1 + 4 * rows.shape[0] + 1) * isz,
-                 rows.shape[0] * N1 * (2 * k1 + 6) + 2 * N1)),
-            "resident_lanczos": (
-                lambda: tr.resident_lanczos(op1[dt], v0, 40, 1e-7),
-                lambda: tr.resident_lanczos_ref(v0, op1[dt].coeffs, offs, 40,
-                                                1e-7),
-                f"n={N1}, m=40",
-                # v0 in, (alpha, beta) out; per step and cell the stencil,
-                # two dots, the update and the normalization
-                ((N1 + 2 * 40) * isz, 40 * N1 * (2 * k1 + 8))),
-            "fused_sweep": (
-                lambda: tf.fused_lanczos_step(Z, Vc, Vp, co, op3[dt],
-                                              w_accum=W),
-                lambda: tf.fused_sweep_ref(Z, Vc, Vp, co, op3[dt].grid_shape,
-                                           op3[dt].offsets, op3[dt].coeffs, W),
-                "216^3, accumulating sweep",
-                # Z, Vc, Vp, W in, Y, Zn, W out; y, the stencil, the two
-                # moments and W += cw Vc per cell
-                (7 * n3 * isz, n3 * (2 * 7 + 10))),
-            "fused_sweep_var": (
-                lambda: tf.fused_lanczos_step(Z, Vc, Vp, co, opV[dt],
-                                              w_accum=W),
-                lambda: tf.fused_sweep_ref(Z, Vc, Vp, co, opV[dt].grid_shape,
-                                           opV[dt].offsets,
-                                           opV[dt].coeff_fields, W),
-                "216^3 div(a grad u), accumulating sweep",
-                # the 7 fields on top of B3's streams
-                ((7 + kV) * n3 * isz, n3 * (2 * kV + 10))),
-        }
-        # the new kernels at their main-path shapes and rows
-        rm = cheb_rows(op1[dt], T1, dt)
-        cwm = vec(4 * rm.shape[0], dt, rng2).reshape(-1, 4)
-        opPd = et.poisson_2d(NP, NP, dtype=dt, device=dev)
-        bPd = bP.to(dt)
-        rP = cheb_rows(opPd, TP, dt)
-        opGd = et.laplacian_nd_stencil(NG, NG, dtype=dt, device=dev)
-        bGd = bG.to(dt)
-        rG = cheb_rows(opGd, TG, dt)
-        cases.update({
-            "resident_multi": (
-                lambda: tr.recurrence_apply_resident_multi(op1[dt], x, rm,
-                                                           cwm),
-                lambda: tr.resident_multi_ref(x, rm, cwm, op1[dt].coeffs,
-                                              offs),
-                f"n={N1}, p=4, m={rm.shape[0]} Chebyshev rows",
-                ((N1 + 8 * rm.shape[0] + 4 * N1) * isz,
-                 rm.shape[0] * N1 * (2 * k1 + 4 + 2 * 4))),
-            "resident_banded": (
-                lambda: tr.recurrence_apply_resident_banded(opPd, bPd, rP),
-                lambda: tr.resident_banded_ref(bPd, rP, opPd.diags,
-                                               opPd.offsets),
-                f"poisson_2d({NP}, {NP}), m={rP.shape[0]} Chebyshev rows",
-                # the diagonals count once, though the kernel streams them
-                # every step once they exceed L2
-                ((opPd.diags.numel() + 2 * NP * NP + 4 * rP.shape[0]) * isz,
-                 rP.shape[0] * NP * NP * (2 * len(opPd.offsets) + 6))),
-            "resident_grid": (
-                lambda: tr.recurrence_apply_resident_grid(opGd, bGd, rG),
-                lambda: tr.resident_grid_ref(bGd, rG, opGd.grid_shape,
-                                             opGd.offsets, opGd.coeffs),
-                f"{NG}^2 5-point, m={rG.shape[0]} Chebyshev rows",
-                ((2 * NG * NG + 4 * rG.shape[0]) * isz,
-                 rG.shape[0] * NG * NG * (2 * len(opGd.offsets) + 6))),
-        })
+        def kernel_cases(dt):
+            """The B1-B6, B3 and B3-var calls at their main-path shapes, in
+            a scope of their own: the profiler runs them after the loop."""
+            rows = td.chebyshev_rows(
+                torch.as_tensor(tc._full_exp_coeffs(T1, lo1, hi1, 1e-12, None)[0],
+                                dtype=dt, device=dev), 0.5 * (hi1 + lo1),
+                0.5 * (hi1 - lo1), dt)
+            x = b1[dt]
+            offs = tr._flat_offsets(op1[dt])
+            sc = torch.tensor(1.0, dtype=dt, device=dev)
+            v0 = x / torch.linalg.vector_norm(x)
+            n3 = N3 ** 3
+            Z, Vc, Vp = b3[dt], vec(n3, dt), vec(n3, dt)
+            W = torch.zeros(n3, dtype=dt, device=dev)
+            co = torch.tensor([0.3, -0.7, 0.2, 0.0], dtype=dt, device=dev)
+            isz = torch.empty((), dtype=dt).element_size()
+            k1, kV = len(op1[dt].offsets), len(opV[dt].offsets)
+            cases = {
+                "resident_recurrence": (
+                    lambda: tr.resident_recurrence(op1[dt], x, rows, 1.0),
+                    lambda: tr.resident_recurrence_ref(x, rows, op1[dt].coeffs,
+                                                       offs, sc),
+                    f"n={N1}, m={rows.shape[0]} Chebyshev rows",
+                    # x and the rows in, w and sum w^2 out; per step and cell a
+                    # k-point stencil, the 3-term update and the accumulation
+                    ((2 * N1 + 4 * rows.shape[0] + 1) * isz,
+                     rows.shape[0] * N1 * (2 * k1 + 6) + 2 * N1)),
+                "resident_lanczos": (
+                    lambda: tr.resident_lanczos(op1[dt], v0, 40, 1e-7),
+                    lambda: tr.resident_lanczos_ref(v0, op1[dt].coeffs, offs, 40,
+                                                    1e-7),
+                    f"n={N1}, m=40",
+                    # v0 in, (alpha, beta) out; per step and cell the stencil,
+                    # two dots, the update and the normalization
+                    ((N1 + 2 * 40) * isz, 40 * N1 * (2 * k1 + 8))),
+                "fused_sweep": (
+                    lambda: tf.fused_lanczos_step(Z, Vc, Vp, co, op3[dt],
+                                                  w_accum=W),
+                    lambda: tf.fused_sweep_ref(Z, Vc, Vp, co, op3[dt].grid_shape,
+                                               op3[dt].offsets, op3[dt].coeffs, W),
+                    "216^3, accumulating sweep",
+                    # Z, Vc, Vp, W in, Y, Zn, W out; y, the stencil, the two
+                    # moments and W += cw Vc per cell
+                    (7 * n3 * isz, n3 * (2 * 7 + 10))),
+                "fused_sweep_var": (
+                    lambda: tf.fused_lanczos_step(Z, Vc, Vp, co, opV[dt],
+                                                  w_accum=W),
+                    lambda: tf.fused_sweep_ref(Z, Vc, Vp, co, opV[dt].grid_shape,
+                                               opV[dt].offsets,
+                                               opV[dt].coeff_fields, W),
+                    "216^3 div(a grad u), accumulating sweep",
+                    # the 7 fields on top of B3's streams
+                    ((7 + kV) * n3 * isz, n3 * (2 * kV + 10))),
+            }
+            # the new kernels at their main-path shapes and rows
+            rm = cheb_rows(op1[dt], T1, dt)
+            cwm = vec(4 * rm.shape[0], dt, rng2).reshape(-1, 4)
+            opPd = et.poisson_2d(NP, NP, dtype=dt, device=dev)
+            bPd = bP.to(dt)
+            rP = cheb_rows(opPd, TP, dt)
+            opGd = et.laplacian_nd_stencil(NG, NG, dtype=dt, device=dev)
+            bGd = bG.to(dt)
+            rG = cheb_rows(opGd, TG, dt)
+            cases.update({
+                "resident_multi": (
+                    lambda: tr.recurrence_apply_resident_multi(op1[dt], x, rm,
+                                                               cwm),
+                    lambda: tr.resident_multi_ref(x, rm, cwm, op1[dt].coeffs,
+                                                  offs),
+                    f"n={N1}, p=4, m={rm.shape[0]} Chebyshev rows",
+                    ((N1 + 8 * rm.shape[0] + 4 * N1) * isz,
+                     rm.shape[0] * N1 * (2 * k1 + 4 + 2 * 4))),
+                "resident_banded": (
+                    lambda: tr.recurrence_apply_resident_banded(opPd, bPd, rP),
+                    lambda: tr.resident_banded_ref(bPd, rP, opPd.diags,
+                                                   opPd.offsets),
+                    f"poisson_2d({NP}, {NP}), m={rP.shape[0]} Chebyshev rows",
+                    # the diagonals count once, though the kernel streams them
+                    # every step once they exceed L2
+                    ((opPd.diags.numel() + 2 * NP * NP + 4 * rP.shape[0]) * isz,
+                     rP.shape[0] * NP * NP * (2 * len(opPd.offsets) + 6))),
+                "resident_grid": (
+                    lambda: tr.recurrence_apply_resident_grid(opGd, bGd, rG),
+                    lambda: tr.resident_grid_ref(bGd, rG, opGd.grid_shape,
+                                                 opGd.offsets, opGd.coeffs),
+                    f"{NG}^2 5-point, m={rG.shape[0]} Chebyshev rows",
+                    ((2 * NG * NG + 4 * rG.shape[0]) * isz,
+                     rG.shape[0] * NG * NG * (2 * len(opGd.offsets) + 6))),
+            })
+            return cases, opGd, isz
+
+        cases, opGd, isz = kernel_cases(dt)
         for name, (kfn, pfn, shape, wk) in cases.items():
             work[(name, dn)] = wk
             # plain, kernel, kernel, plain: compare within one call
@@ -1472,6 +1581,7 @@ def main() -> int:
             times[(name, dn)] = (statistics.median([k1, k2]),
                                  statistics.median([p1, p2]))
             bursts[(name, dn)] = burst_ms(kfn)
+            device_jobs.append((name, dn, kfn, knames[name]))
             bms, bby = bound(*wk, dn)
             print(f"time {name} {dn} ({shape}): kernel {k1:.4f} / {k2:.4f} ms,"
                   f" plain {p1:.4f} / {p2:.4f} ms; back-to-back: kernel "
@@ -1505,7 +1615,6 @@ def main() -> int:
             print(f"time B6 vs B3 {dn} ({label}, m={rg.shape[0]}): B6 "
                   f"{g1:.4f} / {g2:.4f} ms, B3 sweeps {f1:.4f} / {f2:.4f} ms "
                   f"{card}", flush=True)
-        del Z, Vc, Vp, W
 
     def device_ms(fn, kname, k=20):
         """(ms, launches): the device time per launch of the kernel whose
@@ -1536,8 +1645,6 @@ def main() -> int:
     # torch.profiler has run, every launch costs the host more for the
     # rest of the process, which would slow the later one-call and
     # main-path times (PERF.md, section 6)
-    device_jobs = []    # (name, dtype name, kernel fn, kernel name)
-
     def pair_times(name, dn, kfn, pfn, shape, wk=None, lib=None, kname=None):
         p1, k1, k2, p2 = (median_ms(f) for f in (pfn, kfn, kfn, pfn))
         times[(name, dn)] = (statistics.median([k1, k2]),
@@ -1624,7 +1731,8 @@ def main() -> int:
                    kname="banded_spmv_kernel")
         blocks, xB = opB3.blocks.to(dt), bB.to(dt)
         pair_times("blockell_spmv", dn,
-                   lambda: tsp.blockell_spmv(blocks, opB3.bcols, xB),
+                   functools.partial(tsp.blockell_spmv, blocks, opB3.bcols,
+                                     xB),
                    lambda: tsp.blockell_spmv_ref(blocks, opB3.bcols, xB),
                    f"{NB}^3 7-point, 8x8 blocks, w={blocks.shape[1]}",
                    (blocks.numel() * isz
@@ -1638,7 +1746,8 @@ def main() -> int:
                                torch.as_tensor(bsr.indices,
                                                dtype=torch.int64, device=dev),
                                torch.as_tensor(bsr.data, dtype=dt,
-                                               device=dev), bsr.shape))))
+                                               device=dev), bsr.shape))),
+                   kname="blockell_spmv")
         del blocks
         dS, xS = opS.data.to(dtype=dt), bS.to(dt)
         # the nonzeros with their column indices and x, y: what any

@@ -35,8 +35,8 @@ __all__ = ["library", "check", "check_operands", "require_cuda",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
-SOURCES = ("common.cuh", "resident.cu", "resident_family.cu", "fused_sweep.cu",
-           "spmv.cu", "sell.cu")
+SOURCES = ("common.cuh", "resident.cu", "resident_cluster.cu",
+           "resident_family.cu", "fused_sweep.cu", "spmv.cu", "sell.cu")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-Xcompiler", "-fPIC")
 
@@ -79,8 +79,20 @@ def _declare(lib):
         f.argtypes = [_VP, _VP, _VP, _I, _LL, _I, real, _VP, _VP, _VP, _I,
                       _VP]
         f.restype = _I
+        f = getattr(lib, f"eu_lanczos_cluster_fits_{suf}")
+        f.argtypes = [_VP]
+        f.restype = _I
+        f = getattr(lib, f"eu_resident_lanczos_cluster_{suf}")
+        f.argtypes = [_VP, _VP, _I, real, _VP, _VP]
+        f.restype = _I
         f = getattr(lib, f"eu_resident_multi_{suf}")
         f.argtypes = [_VP, _VP, _VP, _I, _VP, _VP, _I, _LL, _I, _VP, _VP, _VP]
+        f.restype = _I
+        f = getattr(lib, f"eu_multi_nbr_capacity_{suf}")
+        f.argtypes = [_LL]
+        f.restype = _I
+        f = getattr(lib, f"eu_resident_multi_nbr_{suf}")
+        f.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _VP, _VP]
         f.restype = _I
         f = getattr(lib, f"eu_resident_banded_{suf}")
         f.argtypes = [_VP, _VP, _VP, _VP, _I, _LL, _I, _VP, _VP, _VP]
@@ -112,6 +124,8 @@ def _declare(lib):
         f = getattr(lib, f"eu_seg_compact_{suf}")
         f.argtypes = [_VP, _VP, _LL, _VP, _VP]
         f.restype = _I
+    lib.eu_device_sms.argtypes = []
+    lib.eu_device_sms.restype = _I
     lib.eu_resident_max_blocks.argtypes = [_I]
     lib.eu_resident_max_blocks.restype = _I
     lib.eu_error_string.argtypes = [_I]

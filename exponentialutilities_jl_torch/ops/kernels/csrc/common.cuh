@@ -1,10 +1,15 @@
 // Shared pieces of the hand-written Hopper kernels: stencil descriptors,
 // the fixed-order block reduction, the grid sizing of the persistent
-// cooperative kernels, and the error-code convention of the plain C
-// launchers (each returns a cudaError_t as int; 0 is success).
+// cooperative kernels (cached per kernel and device), and the error-code
+// convention of the plain C launchers (each returns a cudaError_t as int;
+// 0 is success).
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
 
 namespace eu {
 
@@ -24,6 +29,11 @@ struct Offsets3D {
   int dy[kMaxPoints];
   int dx[kMaxPoints];
 };
+
+// a * b + c rounded once: an explicit fused multiply-add, so that the
+// compiler's contraction cannot make two kernels' arithmetic differ
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
 
 // Block-wide sum in a FIXED order: every call with the same per-thread
 // inputs returns bitwise the same value (no atomics). `scratch` holds
@@ -54,10 +64,21 @@ __device__ __forceinline__ T fixed_order_total(const T* p, int n, int stride,
 
 // Largest grid of `fn` (kThreads per block) that is co-resident on the
 // current device, as a cooperative launch needs; negative: a CUDA error.
+// The answer is fixed per (kernel, device), so it is queried once and kept:
+// the device, attribute and occupancy queries cost host time at every
+// launch of B1, B2's grid form and B4-B6 otherwise.
 inline int max_coresident_blocks(const void* fn) {
-  int dev = 0, sms = 0, per_sm = 0, coop = 0;
+  int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return -(int)e;
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, int> known;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const auto it = known.find({fn, dev});
+    if (it != known.end()) return it->second;
+  }
+  int sms = 0, per_sm = 0, coop = 0;
   e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e != cudaSuccess) return -(int)e;
   if (!coop) return -(int)cudaErrorNotSupported;
@@ -65,6 +86,8 @@ inline int max_coresident_blocks(const void* fn) {
   if (e != cudaSuccess) return -(int)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, 0);
   if (e != cudaSuccess) return -(int)e;
+  std::lock_guard<std::mutex> lock(mu);
+  known[{fn, dev}] = per_sm * sms;
   return per_sm * sms;
 }
 

@@ -31,13 +31,40 @@
 //   coalesced (row i of diagonal j at D[j n + i]); reusing diagonals over
 //   several steps (temporal tiling) is left to later tuning.
 // There are no reductions, so every result is bitwise repeatable.
+//
+// B4's neighbour form (resident_multi_nbr_kernel, below) takes the launches
+// whose per-block state fits on chip: it drops the grid barrier, which a
+// step of the recurrence does not need (row i of omega_{k+1} reads omega_k
+// only within max|o| rows of i), for flags between neighbouring blocks.
+// Both B4 kernels compute a row with the same functions (accumulate,
+// stencil_term, next_row), so they give the same bits at any shape both
+// take.
 #include <cooperative_groups.h>
+
+#include <cstddef>
 
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace eu {
+
+// The arithmetic of one row, written once with explicit fused multiply-adds
+// (fma_rn, common.cuh) so that contraction cannot differ between the
+// kernels that call it:
+//   W[j] += cw[k, j] omega_k                          (accumulate)
+//   z     = sum_j c_j omega[i + o_j], in j order      (stencil_term)
+//   omega_{k+1} = ca z + cb omega_k + cc omega_{k-1}  (next_row)
+template <typename T>
+__device__ __forceinline__ T accumulate(T w, T cw, T wc) { return fma_rn(cw, wc, w); }
+
+template <typename T>
+__device__ __forceinline__ T stencil_term(T z, T c, T x) { return fma_rn(c, x, z); }
+
+template <typename T>
+__device__ __forceinline__ T next_row(T ca, T cb, T cc, T z, T wc, T wp) {
+  return fma_rn(ca, z, fma_rn(cb, wc, cc * wp));
+}
 
 // Per-row operators. points() coefficient values are staged in shared
 // memory by the kernel and passed back to row() as `c`.
@@ -53,7 +80,7 @@ struct Stencil1D {             // B4: y_i = sum_j c_j x_{i + o_j}, Dirichlet
     T z = T(0);
     for (int j = 0; j < offs.k; ++j) {
       const long long q = i + offs.o[j];
-      if (q >= 0 && q < n) z += c[j] * x[q];
+      if (q >= 0 && q < n) z = stencil_term(z, c[j], x[q]);
     }
     return z;
   }
@@ -131,9 +158,10 @@ resident_family_kernel(const T* __restrict__ x, const T* __restrict__ rows,
     const T* cwk = cw + (long long)step * cw_stride;
     for (long long i = i0; i < n; i += stride) {
       const T wc = bc[i];
-      for (int j = 0; j < p; ++j) W[(long long)j * n + i] += cwk[j] * wc;
+      for (int j = 0; j < p; ++j)
+        W[(long long)j * n + i] = accumulate(W[(long long)j * n + i], cwk[j], wc);
       const T z = op.row(bc, i, c_sh);
-      bn[i] = ca * z + cb * wc + cc * bp[i];
+      bn[i] = next_row(ca, cb, cc, z, wc, bp[i]);
     }
     grid.sync();   // every omega_{k+1} row is written before any is read
     T* t = bp;
@@ -166,6 +194,263 @@ int launch_multi(const T* x, const T* rows, const T* cw, int p, const T* cvals,
   if (k < 1 || k > kMaxPoints) return (int)cudaErrorInvalidValue;
   Stencil1D<T> op{make_offsets(offs, k), cvals, n};
   return launch_family<T>(x, rows, cw, p, p, op, n, m, W, buf, stream);
+}
+
+// B4, neighbour form. A persistent cooperative grid with no grid barrier
+// (one block of 1024 threads per SM at most: the cooperative launch
+// guarantees co-residency, which the spinning needs). Block b owns the
+// rows [b chunk, (b + 1) chunk) and keeps on chip, for all m steps, three
+// omega spans of chunk + 2h values
+// (previous, current, next; its rows plus h = max|o| halo rows each side)
+// and its p accumulator rows: W is written once, at the end, and x read
+// once, so the HBM traffic is B4's byte bound. Step k:
+//   1. W += cw[k] omega_k and omega_{k+1} (row functions above) for the h
+//      edge rows at each end first, each also written to the global halo
+//      buffer of parity (k + 1) & 1,
+//   2. after a block barrier, thread 0 releases the block's flag =
+//      base + k + 1 at device scope (st.release.gpu: the barrier
+//      and the release's cumulativity order every thread's edge stores
+//      before it; a __threadfence before it cost 0.6 us a step on the
+//      H100, sync_bench.cu),
+//   3. warps 2-31 do the same for the interior rows while the flag
+//      travels; meanwhile lane 0 of warp 0 waits (acquire loads,
+//      __nanosleep back-off) for the left neighbour's flag and warp 0 reads
+//      its edge into the halo rows, warp 1 the right one's, with
+//      ld.global.cg (L1 is not coherent across SMs); one more block
+//      barrier, and the next step starts. The next step's scalars are
+//      fetched by the last warp at the start of a step and stored to
+//      shared memory before that barrier.
+// Parity buffers suffice: a neighbour sets its flag for omega_{k+1} only
+// after it has read this block's omega_k edges, so this block, which
+// waits for that flag before it publishes omega_{k+2} into omega_k's
+// parity, never overwrites edges still being read.
+// The flags only grow, and nothing resets them: a launch publishes m - 1
+// steps in every block, so every flag holds the same count when a launch
+// starts, and each block reads that base from its own flag (which only it
+// writes). A launch's waits are for base + k + 1, which no flag of an
+// earlier launch holds; the base lives on the card, so a launch replayed
+// from a CUDA graph reads the count its predecessors left. Two launches
+// that may overlap (two streams) need flags and halos of their own: the
+// plan keeps a set per stream.
+struct NbrLaunch {      // mirrored by resident._NbrLaunch; one per plan and stream
+  const void* cvals;    // k coefficients, in the launch's dtype
+  void* flags;          // grid unsigned 64-bit step counts, zero when made
+  void* halo;           // [2][grid][2][h] edge values
+  long long n;
+  int grid;
+  int chunk;            // rows a block owns; every block owns at least one
+  int h;                // max |o| <= chunk
+  int k;
+  int o[kMaxPoints];
+};
+static_assert(offsetof(NbrLaunch, n) == 24 && offsetof(NbrLaunch, grid) == 32 &&
+                  offsetof(NbrLaunch, k) == 44 && offsetof(NbrLaunch, o) == 48 &&
+                  sizeof(NbrLaunch) == 304,
+              "NbrLaunch layout is mirrored by resident._NbrLaunch");
+
+__device__ __forceinline__ unsigned long long load_acquire(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+// A neighbour is at most one step behind a co-resident block, so a wait of
+// seconds means a broken launch: trap (a launch error the wrapper raises)
+// rather than hang the card.
+__device__ __forceinline__ void wait_flag(const unsigned long long* p, unsigned long long want) {
+  int tries = 0;
+  while (load_acquire(p) < want) {
+    if (++tries > 16) __nanosleep(tries < 64 ? 32 : 128);
+    if (tries > (1 << 25)) __trap();
+  }
+}
+
+// Dynamic shared memory of one block: 3 spans of omega, p accumulator rows.
+inline size_t nbr_smem(const NbrLaunch& L, int p, size_t itemsize) {
+  return (3 * (size_t)(L.chunk + 2 * L.h) + (size_t)p * L.chunk) * itemsize;
+}
+
+constexpr int kNbrThreads = 1024;   // a block of the neighbour form
+constexpr int kMaxCols = 8;         // p <= dispatch.MAX_COLS
+
+template <typename T>
+__global__ void __launch_bounds__(kNbrThreads, 1)
+resident_multi_nbr_kernel(const T* __restrict__ x, const T* __restrict__ rows,
+                          const T* __restrict__ cw, int p, const __grid_constant__ NbrLaunch L,
+                          int m, T* __restrict__ W) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ T c_sh[kMaxPoints];
+  __shared__ int o_sh[kMaxPoints];
+  __shared__ T coef[2][4 + kMaxCols];   // a step's ca, cb, cc, -, cw[0..p), by parity
+  __shared__ unsigned long long base_sh;   // the flags' count when the launch started
+  const int t = threadIdx.x, b = blockIdx.x, warp = t >> 5, lane = t & 31;
+  const int h = L.h, k = L.k, chunk = L.chunk, span = chunk + 2 * h;
+  const long long n = L.n, lo = (long long)b * chunk;
+  const int len = (int)(n - lo < chunk ? n - lo : chunk);
+  T* wp = reinterpret_cast<T*>(smem_raw);   // omega_{k-1}; span index h + i is row lo + i
+  T* wc = wp + span;                         // omega_k
+  T* wn = wc + span;                         // omega_{k+1}
+  T* acc = wn + span;                        // acc[j chunk + i]: W[j] of row lo + i
+  T* halo = static_cast<T*>(L.halo);
+  unsigned long long* flags = static_cast<unsigned long long*>(L.flags);
+  // lane l of the last warp fetches coefficient l of the next step
+  auto fetch = [&](int s) -> T {
+    const int l = t - (kNbrThreads - 32);
+    if (s >= m || l < 0) return T(0);
+    if (l < 3) return rows[4 * s + l];
+    if (l >= 4 && l < 4 + p) return cw[(long long)s * p + l - 4];
+    return T(0);
+  };
+  for (int j = t; j < k; j += kNbrThreads) {
+    c_sh[j] = static_cast<const T*>(L.cvals)[j];
+    o_sh[j] = L.o[j];
+  }
+  for (int i = t; i < span; i += kNbrThreads) {   // omega_0 = x with its halo rows
+    const long long q = lo - h + i;
+    wc[i] = q >= 0 && q < n ? x[q] : T(0);
+    wp[i] = T(0);
+  }
+  for (int i = t; i < p * chunk; i += kNbrThreads) acc[i] = T(0);
+  if (warp == kNbrThreads / 32 - 1 && lane < 4 + kMaxCols) coef[0][lane] = fetch(0);
+  unsigned long long* own = flags + b;
+  if (t == 0) base_sh = load_acquire(own);
+  __syncthreads();
+  const unsigned long long base = base_sh;
+
+  for (int step = 0; step < m; ++step) {
+    const T* cf = coef[step & 1];
+    const T next = fetch(step + 1);   // lands while the step runs
+    const T ca = cf[0], cb = cf[1], cc = cf[2];
+    // one row: W += cw[k] omega_k, then omega_{k+1}; rows within h of an
+    // edge skip the stencil points outside [0, n), interior rows have none
+    auto accumulate_row = [&](int i) {
+      const T v = wc[h + i];
+      for (int j = 0; j < p; ++j) acc[j * chunk + i] = accumulate(acc[j * chunk + i], cf[4 + j], v);
+      return v;
+    };
+    auto row = [&](int i, bool edge) {
+      const T v = accumulate_row(i);
+      T z = T(0);
+      for (int j = 0; j < k; ++j) {
+        if (edge) {
+          const long long q = lo + i + o_sh[j];
+          if (q < 0 || q >= n) continue;
+        }
+        z = stencil_term(z, c_sh[j], wc[h + i + o_sh[j]]);
+      }
+      const T w = next_row(ca, cb, cc, z, v, wp[h + i]);
+      wn[h + i] = w;
+      return w;
+    };
+    if (step + 1 == m) {   // omega_m is never accumulated: W only
+      for (int i = t; i < len; i += kNbrThreads) accumulate_row(i);
+      break;
+    }
+    const int par = (step + 1) & 1;
+    T* mine = halo + ((size_t)par * L.grid + b) * 2 * h;
+    // the edge rows first, published as they are computed: [0, h) of the
+    // halo slot holds the first h rows, [h, 2h) the last h
+    for (int e = t; e < 2 * h; e += kNbrThreads) {
+      const int i = e < h ? e : len - 2 * h + e;
+      if (i < 0 || i >= len || (e >= h && i < h)) continue;   // counted once
+      const T w = row(i, true);
+      if (i < h) mine[i] = w;
+      if (i >= len - h) mine[2 * h - len + i] = w;
+    }
+    __syncthreads();   // the edges are written
+    // the release orders the block's edge stores (before the barrier)
+    // ahead of the flag for any thread that acquires it
+    const unsigned long long want = base + (unsigned long long)(step + 1);
+    if (t == 0) store_release(own, want);
+    if (warp >= 2) {   // the interior rows while the flag travels
+      for (int i = h + t - 64; i < len - h; i += kNbrThreads - 64) row(i, false);
+    } else if (warp == 0 && b > 0) {   // the left block's last h rows
+      if (lane == 0) wait_flag(flags + b - 1, want);
+      __syncwarp();
+      const T* src = halo + ((size_t)par * L.grid + b - 1) * 2 * h + h;
+      for (int i = lane; i < h; i += 32) wn[i] = __ldcg(src + i);   // rows lo - h + i
+    } else if (warp == 1 && b + 1 < L.grid) {   // the right block's first h rows
+      if (lane == 0) wait_flag(flags + b + 1, want);
+      __syncwarp();
+      const T* src = halo + ((size_t)par * L.grid + b + 1) * 2 * h;
+      for (int i = lane; i < h && lo + len + i < n; i += 32)
+        wn[h + len + i] = __ldcg(src + i);                          // rows lo + len + i
+    }
+    if (warp == kNbrThreads / 32 - 1 && lane < 4 + kMaxCols) coef[par][lane] = next;
+    __syncthreads();
+    T* tmp = wp;
+    wp = wc;
+    wc = wn;
+    wn = tmp;
+  }
+  for (int i = t; i < len; i += kNbrThreads)
+    for (int j = 0; j < p; ++j) W[(long long)j * n + lo + i] = acc[j * chunk + i];
+}
+
+template <typename T>
+static cudaError_t allow_nbr_smem(size_t bytes) {   // static: one flag per library
+  static size_t allowed = 0;
+  if (bytes > allowed) {
+    cudaError_t e = cudaFuncSetAttribute(resident_multi_nbr_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+    if (e != cudaSuccess) return e;
+    allowed = bytes;
+  }
+  return cudaSuccess;
+}
+
+// Blocks of the neighbour kernel co-resident on the current device with
+// `smem` bytes of dynamic shared memory each (0: a block does not fit);
+// negative: a CUDA error.
+template <typename T>
+int nbr_capacity(size_t smem) {
+  int dev = 0, optin = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaFuncAttributes fa{};
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, (const void*)resident_multi_nbr_kernel<T>);
+  if (e != cudaSuccess) return -(int)e;
+  if (!coop) return -(int)cudaErrorNotSupported;
+  if (smem + fa.sharedSizeBytes > (size_t)optin) return 0;
+  e = allow_nbr_smem<T>(smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, (const void*)resident_multi_nbr_kernel<T>, kNbrThreads, smem);
+  if (e != cudaSuccess) return -(int)e;
+  return per_sm * sms;
+}
+
+inline bool nbr_valid(const NbrLaunch& L) {
+  if (L.k < 1 || L.k > kMaxPoints || L.n < 1 || L.grid < 1 || L.chunk < 1 || L.h < 0 ||
+      L.h > L.chunk || (long long)(L.grid - 1) * L.chunk >= L.n ||
+      (long long)L.grid * L.chunk < L.n)
+    return false;
+  for (int j = 0; j < L.k; ++j)
+    if (L.o[j] > L.h || -L.o[j] > L.h) return false;
+  return true;
+}
+
+template <typename T>
+int launch_multi_nbr(const NbrLaunch& L, const T* x, const T* rows, const T* cw, int p, int m,
+                     T* W, cudaStream_t stream) {
+  if (!nbr_valid(L) || p < 1 || p > kMaxCols || m < 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = nbr_smem(L, p, sizeof(T));
+  cudaError_t e = allow_nbr_smem<T>(smem);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {(void*)&x, (void*)&rows, (void*)&cw, (void*)&p, (void*)&L,
+                  (void*)&m, (void*)&W};
+  e = cudaLaunchCooperativeKernel((const void*)resident_multi_nbr_kernel<T>, dim3(L.grid),
+                                  dim3(kNbrThreads), args, smem, stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 // B5: one accumulator with cw the fourth column of rows.
@@ -219,7 +504,23 @@ int launch_grid(const T* x, const T* rows, const T* cvals, const int* offs, int 
       int ny, int nx, int m, T* w, T* buf, void* stream) {                          \
     return eu::launch_grid<T>(x, rows, cvals, offs, k, nz, ny, nx, m, w, buf,       \
                               (cudaStream_t)stream);                                \
+  }                                                                                 \
+  extern "C" int eu_multi_nbr_capacity_##SUF(long long smem) {                      \
+    return eu::nbr_capacity<T>((size_t)smem);                                       \
+  }                                                                                 \
+  extern "C" int eu_resident_multi_nbr_##SUF(                                        \
+      const eu::NbrLaunch* L, const T* x, const T* rows, const T* cw, int p, int m, \
+      T* W, void* stream) {                                                         \
+    return eu::launch_multi_nbr<T>(*L, x, rows, cw, p, m, W, (cudaStream_t)stream); \
   }
 
 EU_FAMILY_API(float, f32)
 EU_FAMILY_API(double, f64)
+
+// Streaming multiprocessors of the current device (negative: a CUDA error).
+extern "C" int eu_device_sms() {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return e == cudaSuccess ? sms : -(int)e;
+}

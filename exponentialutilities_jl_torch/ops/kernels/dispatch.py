@@ -59,7 +59,10 @@ def resident_multi_ok(op, dtype, device, p: int) -> bool:
     constant stencil, real float32/float64 data on a CUDA device,
     1 <= p <= MAX_COLS accumulators, and the (p + 3) state vectors within
     ``resident.L2_STATE_BUDGET`` (the multi-column memory budget that the
-    JAX package's two-pass phiv gate leaves out)."""
+    JAX package's two-pass phiv gate leaves out). Which of B4's two forms
+    a launch takes (blocks that sync with their neighbours only, where a
+    block's state fits on chip and max|o| is within its rows; else the
+    family kernel) is the operator's ``resident.MultiPlan``'s choice."""
     from .resident import L2_STATE_BUDGET, resident_supported
 
     if not (kernel_device_ok(dtype, device) and resident_supported(op)):

@@ -9,22 +9,36 @@ with ``rows`` the (m, 4) per-step scalars (ca, cb, cc, cw) and the scale
 polynomial action (Chebyshev rows, the Lanczos replay rows of the
 two-pass expv and phiv).
 
-Five hand-written CUDA kernels carry it, each in one persistent
-cooperative launch:
+Five hand-written CUDA kernels carry it, each in one launch (persistent
+and cooperative, except B2's cluster form):
 
 * B1 ``recurrence_apply_resident`` (``csrc/resident.cu``): A a 1-D
   constant stencil with Dirichlet ends; also returns sum w^2.
-* B2 ``lanczos_coeffs_resident`` (``csrc/resident.cu``): Lanczos pass 1
-  with alpha and beta reduced inside the kernel each step (deterministic
-  fixed-order reductions), breakdown masking the remaining steps.
+* B2 ``lanczos_coeffs_resident``: Lanczos pass 1 with alpha and beta
+  reduced inside the kernel each step (deterministic fixed-order
+  reductions), breakdown masking the remaining steps. Two forms, chosen
+  once per operator by its ``LanczosPlan``: one thread-block cluster with
+  the state in shared memory (``csrc/resident_cluster.cu``) up to the
+  size where it is faster (``CLUSTER_MAX_ROWS``), a persistent
+  cooperative grid (``csrc/resident.cu``) above that.
 * B4 ``recurrence_apply_resident_multi`` (``csrc/resident_family.cu``):
   B1's operator with p accumulators over one shared omega chain,
-  W[:, j] += cw[k, j] omega_k (all phi orders in one pass).
+  W[:, j] += cw[k, j] omega_k (all phi orders in one pass). Two forms,
+  chosen by its ``MultiPlan``: blocks that keep their rows on chip and
+  wait for their two neighbours only, where a block's state fits on chip;
+  the family kernel with one grid barrier a step otherwise.
 * B5 ``recurrence_apply_resident_banded``: A a ``BandedOperator``,
   z = sum_j D_j * shift(omega, o_j), zero outside the vector.
 * B6 ``recurrence_apply_resident_grid``: A a 2-D/3-D constant stencil on
   the natural row-major grid with Dirichlet ends, for grids whose state
   fits the card's L2 (``L2_STATE_BUDGET``).
+
+B2 and B4 launch through plans (``lanczos_plan``, ``multi_plan``, kept on
+the operator per dtype and CUDA device): the cast coefficients, the
+form, the launch geometry queried once, the buffers (one set per stream,
+so launches on two streams may overlap) and a C launch descriptor, so a
+call compares x, allocates its outputs and makes one ctypes call. A
+refused or failed launch raises; no form retries another.
 
 Each has a plain-torch twin (``resident_recurrence_ref``,
 ``resident_lanczos_ref``, ``resident_multi_ref``, ``resident_banded_ref``,
@@ -53,7 +67,9 @@ __all__ = ["recurrence_apply_resident", "resident_recurrence",
            "recurrence_apply_resident_banded", "resident_banded_ref",
            "resident_banded_supported", "recurrence_apply_resident_grid",
            "resident_grid_ref", "resident_grid_supported",
-           "phiv_two_pass_resident", "L2_STATE_BUDGET"]
+           "phiv_two_pass_resident", "L2_STATE_BUDGET", "LanczosPlan",
+           "lanczos_plan", "cluster_shape", "MultiPlan", "multi_plan",
+           "nbr_geometry", "CLUSTER_SIZES", "CLUSTER_MAX_ROWS"]
 
 # B4 and B6 keep their whole state (3 recurrence vectors plus the
 # accumulators) in the H100's 50 MB L2; 40 MB leaves room for the rows,
@@ -62,6 +78,18 @@ __all__ = ["recurrence_apply_resident", "resident_recurrence",
 # times of chip_smoke.py (phase 5) are the measurement that should move
 # this budget.
 L2_STATE_BUDGET = 40 * 2 ** 20
+
+# B2's cluster form (csrc/resident_cluster.cu): a cluster of 16 blocks
+# where the card schedules one (16 needs a GPC with 16 free SMs), else 8
+CLUSTER_SIZES = (16, 8)
+# Rows a block of the cluster form owns at most, past which the grid
+# form is faster on the H100 (resident_times.py, both forms at m = 40):
+# float64 lost at 9375 rows (16 a thread, which spill), won at 6250;
+# float32 won at 18750 and lost at 28750, and 23,000 is where the two
+# lines of those four times cross
+CLUSTER_MAX_ROWS = {torch.float32: 23_000, torch.float64: 8_192}
+NBR_MIN_ROWS = 256              # rows a block of B4's neighbour form owns at least
+NBR_MAX_COLS = 8                # eu::kMaxCols: accumulators of the neighbour form
 
 def resident_supported(op) -> bool:
     """True when ``op`` is a 1-D real constant-coefficient StencilOperator
@@ -179,6 +207,309 @@ def resident_grid_ref(x, rows, grid_shape, offsets, cvals):
     return _chain_ref(x, rows, rows[:, 3:], apply)[:, 0]
 
 
+# --------------------------------------------------------------- plans --
+
+def _on(device):
+    """``device`` made current for a query (-1: the current device)."""
+    return torch.cuda.device(-1 if device.index is None else device.index)
+
+
+def _checked(code: int, what: str) -> int:
+    """A count returned by a C query, negative for a CUDA error."""
+    if code < 0:
+        _build.check(-code, what)
+    return code
+
+
+def _plan_device(device):
+    """``device`` with its index: "cuda" is the current CUDA device, as
+    the tensors made on it report."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _plan_checks(what, op, dtype, device):
+    _build.require_cuda(what, device)
+    if dtype not in _build.KERNEL_DTYPES:
+        raise ValueError(f"{what} takes float32/float64, got {dtype}")
+    if not resident_supported(op):
+        raise ValueError(f"{what} requires a 1-D real constant "
+                         f"StencilOperator (got {type(op).__name__})")
+    if op.device != device:
+        raise ValueError(f"{what}: operator on {op.device}, vector on "
+                         f"{device}")
+
+
+def _offsets_field(offsets):
+    return (ctypes.c_int * _build.MAX_POINTS)(*offsets)
+
+
+class _LanczosLaunch(ctypes.Structure):
+    """``eu::LanczosLaunch`` (csrc/resident_cluster.cu), built once per
+    plan."""
+    _fields_ = [("cvals", ctypes.c_void_p), ("n", ctypes.c_longlong),
+                ("rows", ctypes.c_longlong), ("cluster", ctypes.c_int),
+                ("k", ctypes.c_int), ("o", ctypes.c_int * _build.MAX_POINTS)]
+
+
+class _NbrLaunch(ctypes.Structure):
+    """``eu::NbrLaunch`` (csrc/resident_family.cu), built once per plan
+    and stream."""
+    _fields_ = [("cvals", ctypes.c_void_p), ("flags", ctypes.c_void_p),
+                ("halo", ctypes.c_void_p), ("n", ctypes.c_longlong),
+                ("grid", ctypes.c_int), ("chunk", ctypes.c_int),
+                ("h", ctypes.c_int), ("k", ctypes.c_int),
+                ("o", ctypes.c_int * _build.MAX_POINTS)]
+
+
+def cluster_shape(n: int, halo: int, max_rows: int, fits):
+    """(C, L) of B2's cluster form for n rows and max|o| = ``halo``, or
+    None for the grid form: the first C of ``CLUSTER_SIZES`` whose block
+    rows L = ceil(n / C) hold the halo, are at most ``max_rows``
+    (``CLUSTER_MAX_ROWS``) and for which ``fits(C, L)``, the card's count
+    of such clusters it can hold at once, is at least 1 (0 when a block's
+    2 L + 16 halo values of shared memory do not fit, or L needs more than
+    32 rows a thread)."""
+    for c in CLUSTER_SIZES:
+        rows = -(-n // c)
+        if halo <= rows <= max_rows and fits(c, rows) >= 1:
+            return c, rows
+    return None
+
+
+class LanczosPlan:
+    """What every B2 launch on one 1-D constant stencil, for vectors of one
+    dtype on one CUDA device, shares: the checks, the coefficients in that
+    dtype, the form, chosen once by size (``form``: "cluster", one
+    thread-block cluster of ``cluster`` blocks with the state in shared
+    memory, where ``cluster_shape`` finds one within the dtype's
+    ``CLUSTER_MAX_ROWS``; else "grid", the persistent
+    cooperative kernel of ``csrc/resident.cu``, with its scratch and
+    partials, one set per stream), the launch descriptor and the C entry
+    point. A call compares v0, makes the (m, 2) record with
+    ``torch.empty`` (the kernel writes every row) and makes one ctypes
+    call on the current stream."""
+
+    def __init__(self, op, dtype, device):
+        self.device = _plan_device(device)
+        _plan_checks("resident_lanczos", op, dtype, self.device)
+        self.dtype, self.n = dtype, op.shape[0]
+        self.shape = (self.n,)
+        offsets = _flat_offsets(op)
+        self.k = len(offsets)
+        self.cvals = op.coeffs.to(dtype).contiguous()
+        lib = _build.library()
+        suf = _build.suffix(dtype)
+        self.launch = _LanczosLaunch(self.cvals.data_ptr(), self.n, 0, 0,
+                                     self.k, _offsets_field(offsets))
+        self.addr = ctypes.addressof(self.launch)
+
+        def fits(c, rows):
+            self.launch.cluster, self.launch.rows = c, rows
+            with _on(self.device):
+                return _checked(getattr(lib, f"eu_lanczos_cluster_fits_{suf}")(
+                    self.addr), "B2 cluster occupancy query")
+
+        shape = cluster_shape(self.n, max(abs(o) for o in offsets),
+                              CLUSTER_MAX_ROWS[dtype], fits)
+        if shape is not None:
+            self.form = "cluster"
+            self.cluster, rows = shape
+            self.launch.cluster, self.launch.rows = shape
+            self.fn = getattr(lib, f"eu_resident_lanczos_cluster_{suf}")
+            return
+        self.form, self.cluster = "grid", 0
+        with _on(self.device):
+            blocks = _checked(lib.eu_resident_max_blocks(
+                int(dtype == torch.float64)), "resident kernel occupancy query")
+        self.cap = 2 * blocks
+        self.scratch = {}       # stream -> (buf, partials) of the grid form
+        self.offs = (ctypes.c_int * self.k)(*offsets)
+        self.fn = getattr(lib, f"eu_resident_lanczos_{suf}")
+
+    def _scratch(self, stream):
+        hit = self.scratch.get(stream)
+        if hit is None:
+            hit = self.scratch[stream] = (
+                torch.empty(3 * self.n, dtype=self.dtype, device=self.device),
+                torch.empty(self.cap, dtype=self.dtype, device=self.device))
+        return hit
+
+    def __call__(self, v0, m: int, tol: float):
+        if (v0.dtype != self.dtype or v0.device != self.device
+                or v0.shape != self.shape):
+            raise ValueError(f"resident_lanczos: expected a {self.shape} "
+                             f"{self.dtype} vector on {self.device}, got "
+                             f"{tuple(v0.shape)} {v0.dtype} on {v0.device}")
+        if not v0.is_contiguous():
+            v0 = v0.contiguous()
+        m = int(m)
+        ab = torch.empty((m, 2), dtype=self.dtype, device=self.device)
+        stream = _build.raw_stream(self.device)
+        if self.form == "cluster":
+            code = self.fn(self.addr, v0.data_ptr(), m, float(tol),
+                           ab.data_ptr(), stream)
+        else:
+            buf, partials = self._scratch(stream)
+            code = self.fn(v0.data_ptr(), self.cvals.data_ptr(), self.offs,
+                           self.k, self.n, m, float(tol), ab.data_ptr(),
+                           buf.data_ptr(), partials.data_ptr(), self.cap,
+                           stream)
+        if code:
+            _build.check(code, f"resident Lanczos kernel (B2, {self.form} "
+                         "form)")
+        _build.launches["resident_lanczos"] += 1
+        return ab
+
+
+def nbr_geometry(n: int, sms: int):
+    """(grid, chunk) of B4's neighbour form: at most one block per SM and
+    per ``NBR_MIN_ROWS`` rows, each owning ``chunk`` consecutive rows, every
+    block at least one."""
+    g = max(1, min(sms, -(-n // NBR_MIN_ROWS)))
+    chunk = -(-n // g)
+    return -(-n // chunk), chunk
+
+
+class MultiPlan:
+    """What every B4 launch on one 1-D constant stencil, for vectors of one
+    dtype on one CUDA device, shares: the checks, the coefficients in that
+    dtype, the neighbour form's geometry (``nbr_geometry`` from the card's
+    SM count, queried once), and per stream its flags (zeroed once; the
+    kernel takes each launch's base from them), halo buffers and launch
+    descriptor, and the family form's scratch. ``form(p)`` picks, once per
+    p, "neighbour" when max|o| <= chunk, p <= ``NBR_MAX_COLS`` and a
+    block's state (three omega spans of chunk + 2h and p accumulator rows)
+    fits on chip with the whole grid co-resident (the card's answer), else
+    "family". A call compares its operands, makes W with ``torch.empty``
+    and makes one ctypes call; ``nbr_launches`` counts the neighbour
+    form's. ``form="family"`` takes the family kernel for every p (the main
+    path never asks; the neighbour form is held bit for bit against it)."""
+
+    def __init__(self, op, dtype, device, form=None):
+        self.device = _plan_device(device)
+        _plan_checks("recurrence_apply_resident_multi", op, dtype,
+                     self.device)
+        if form not in (None, "family"):
+            raise ValueError(f"recurrence_apply_resident_multi: form {form!r}")
+        self.only_family = form == "family"
+        self.dtype, self.n = dtype, op.shape[0]
+        self.shape = (self.n,)
+        offsets = _flat_offsets(op)
+        self.k, self.h = len(offsets), max(abs(o) for o in offsets)
+        self.cvals = op.coeffs.to(dtype).contiguous()
+        self.itemsize = self.cvals.element_size()
+        self.lib = _build.library()
+        self.suf = _build.suffix(dtype)
+        with _on(self.device):
+            sms = _checked(self.lib.eu_device_sms(), "SM count query")
+        self.grid, self.chunk = nbr_geometry(self.n, sms)
+        self.o = _offsets_field(offsets)
+        self.nbr = {}           # stream -> (address, descriptor, flags, halo)
+        self.nbr_launches = 0
+        self.offs = (ctypes.c_int * self.k)(*offsets)
+        self.bufs = {}          # stream -> the family form's scratch
+        self._forms = {}
+        self.nbr_fn = getattr(self.lib, f"eu_resident_multi_nbr_{self.suf}")
+        self.family_fn = getattr(self.lib, f"eu_resident_multi_{self.suf}")
+
+    def smem(self, p: int) -> int:
+        """Bytes of shared memory a neighbour-form block needs for p."""
+        return (3 * (self.chunk + 2 * self.h) + p * self.chunk) * self.itemsize
+
+    def _nbr_launch(self, stream) -> int:
+        """The address of the neighbour form's descriptor for ``stream``,
+        with flags and halos of its own: launches on two streams may
+        overlap."""
+        hit = self.nbr.get(stream)
+        if hit is None:
+            flags = torch.zeros(self.grid, dtype=torch.int64,
+                                device=self.device)
+            halo = torch.empty(max(1, 4 * self.grid * self.h),
+                               dtype=self.dtype, device=self.device)
+            launch = _NbrLaunch(self.cvals.data_ptr(), flags.data_ptr(),
+                                halo.data_ptr(), self.n, self.grid,
+                                self.chunk, self.h, self.k, self.o)
+            hit = self.nbr[stream] = (ctypes.addressof(launch), launch, flags,
+                                      halo)
+        return hit[0]
+
+    def form(self, p: int) -> str:
+        f = self._forms.get(p)
+        if f is None:
+            f = "family"
+            if (self.h <= self.chunk and p <= NBR_MAX_COLS
+                    and not self.only_family):
+                with _on(self.device):
+                    cap = _checked(getattr(
+                        self.lib, f"eu_multi_nbr_capacity_{self.suf}")(
+                            self.smem(p)), "B4 occupancy query")
+                if cap >= self.grid:
+                    f = "neighbour"
+            self._forms[p] = f
+        return f
+
+    def __call__(self, x, rows, cw):
+        m, p = rows.shape[0], cw.shape[1]
+        for what, t, shape in (("vector", x, self.shape), ("rows", rows,
+                                                           (m, 4)),
+                               ("cw", cw, (m, p))):
+            if (t.dtype != self.dtype or t.device != self.device
+                    or t.shape != shape):
+                raise ValueError(
+                    f"recurrence_apply_resident_multi: expected {what} "
+                    f"{shape} {self.dtype} on {self.device}, got "
+                    f"{tuple(t.shape)} {t.dtype} on {t.device}")
+        x, rows, cw = x.contiguous(), rows.contiguous(), cw.contiguous()
+        W = torch.empty((p, self.n), dtype=self.dtype, device=self.device)
+        stream = _build.raw_stream(self.device)
+        form = self.form(p)
+        if form == "neighbour":
+            code = self.nbr_fn(self._nbr_launch(stream), x.data_ptr(),
+                               rows.data_ptr(), cw.data_ptr(), p, m,
+                               W.data_ptr(), stream)
+        else:
+            buf = self.bufs.get(stream)
+            if buf is None:
+                buf = self.bufs[stream] = torch.empty(
+                    3 * self.n, dtype=self.dtype, device=self.device)
+            code = self.family_fn(x.data_ptr(), rows.data_ptr(),
+                                  cw.data_ptr(), p, self.cvals.data_ptr(),
+                                  self.offs, self.k, self.n, m, W.data_ptr(),
+                                  buf.data_ptr(), stream)
+        if code:
+            _build.check(code, f"resident multi-column kernel (B4, {form} "
+                         "form)")
+        _build.launches["resident_multi"] += 1
+        self.nbr_launches += form == "neighbour"
+        return W.T
+
+
+def _op_plan(op, cls, dtype, device):
+    """``cls``'s plan for ``op``, kept per (dtype, device) with the
+    coefficients and offsets it was built from, rebuilt when either is
+    reassigned."""
+    device = _plan_device(device)
+    plans = op.__dict__.setdefault("_resident_plans", {})
+    hit = plans.get((cls, dtype, device))
+    if hit is None or hit[0] is not op.coeffs or hit[1] != op.offsets:
+        hit = plans[(cls, dtype, device)] = (op.coeffs, op.offsets,
+                                             cls(op, dtype, device))
+    return hit[2]
+
+
+def lanczos_plan(op, dtype, device) -> LanczosPlan:
+    """B2's plan for ``op`` and vectors of ``dtype`` on CUDA ``device``."""
+    return _op_plan(op, LanczosPlan, dtype, device)
+
+
+def multi_plan(op, dtype, device) -> MultiPlan:
+    """B4's plan for ``op`` and vectors of ``dtype`` on CUDA ``device``."""
+    return _op_plan(op, MultiPlan, dtype, device)
+
+
 # ------------------------------------------------------------ wrappers --
 
 def _check_launch(op, x):
@@ -276,7 +607,8 @@ def recurrence_apply_resident_multi(op, b, rows, cw):
     """W[:, j] = sum_k cw[k, j] omega_k over the shared omega chain of the
     module-doc recurrence (omega_0 = b; rows' cw column is unused) for a
     1-D constant ``StencilOperator``: one launch of kernel B4 on CUDA
-    whatever p, its twin on CPU. Returns (n, p)."""
+    whatever p (through the operator's ``multi_plan``), its twin on CPU.
+    Returns (n, p)."""
     if not resident_supported(op):
         raise ValueError("recurrence_apply_resident_multi requires a 1-D real "
                          f"constant StencilOperator (got {type(op).__name__})")
@@ -286,22 +618,10 @@ def recurrence_apply_resident_multi(op, b, rows, cw):
     if cw.ndim != 2 or cw.shape[0] != rows.shape[0] or cw.shape[1] < 1:
         raise ValueError(f"cw must be (m, p >= 1) with m = {rows.shape[0]}, "
                          f"got {tuple(cw.shape)}")
-    offsets = _flat_offsets(op)
     if b.device.type == "cpu":
-        return resident_multi_ref(b, rows, cw, op.coeffs.to(b.dtype), offsets)
-    cvals = _kernel_cvals(op, b)
-    b, rows, cw = b.contiguous(), rows.contiguous(), cw.contiguous()
-    n, p = b.shape[0], cw.shape[1]
-    W = torch.empty((p, n), dtype=b.dtype, device=b.device)
-    buf = torch.empty(3 * n, dtype=b.dtype, device=b.device)
-    fn = getattr(_build.library(), f"eu_resident_multi_{_build.suffix(b.dtype)}")
-    code = fn(_build.ptr(b), _build.ptr(rows), _build.ptr(cw), p,
-              _build.ptr(cvals), _offsets_arg(offsets), len(offsets), n,
-              rows.shape[0], _build.ptr(W), _build.ptr(buf),
-              _build.raw_stream(b.device))
-    _build.check(code, "resident multi-column kernel (B4)")
-    _build.launches["resident_multi"] += 1
-    return W.T
+        return resident_multi_ref(b, rows, cw, op.coeffs.to(b.dtype),
+                                  _flat_offsets(op))
+    return multi_plan(op, b.dtype, b.device)(b, rows, cw)
 
 
 def recurrence_apply_resident_banded(op, b, rows):
@@ -364,30 +684,16 @@ def recurrence_apply_resident_grid(op, b, rows):
 
 def resident_lanczos(op, v0, m: int, tol: float):
     """The (m, 2) (alpha, beta) record of Lanczos pass 1 from the
-    normalized v0: kernel B2 on CUDA, its twin on CPU."""
+    normalized v0: kernel B2 on CUDA (through the operator's
+    ``lanczos_plan``), its twin on CPU."""
     if not resident_supported(op):
         raise ValueError("resident_lanczos requires a 1-D real constant "
                          f"StencilOperator (got {type(op).__name__})")
     _require_device(v0, "resident_lanczos")
-    offsets = _flat_offsets(op)
     if v0.device.type == "cpu":
-        return resident_lanczos_ref(v0, op.coeffs.to(v0.dtype), offsets,
-                                    int(m), float(tol))
-    cvals = _kernel_cvals(op, v0)
-    v0 = v0.contiguous()
-    n = v0.shape[0]
-    ab = torch.zeros((int(m), 2), dtype=v0.dtype, device=v0.device)
-    buf = torch.empty(3 * n, dtype=v0.dtype, device=v0.device)
-    partials, cap = _partials(v0)
-    lib = _build.library()
-    fn = getattr(lib, f"eu_resident_lanczos_{_build.suffix(v0.dtype)}")
-    code = fn(_build.ptr(v0), _build.ptr(cvals), _offsets_arg(offsets),
-              len(offsets), n, int(m), float(tol), _build.ptr(ab),
-              _build.ptr(buf), _build.ptr(partials), cap,
-              _build.raw_stream(v0.device))
-    _build.check(code, "resident Lanczos kernel (B2)")
-    _build.launches["resident_lanczos"] += 1
-    return ab
+        return resident_lanczos_ref(v0, op.coeffs.to(v0.dtype),
+                                    _flat_offsets(op), int(m), float(tol))
+    return lanczos_plan(op, v0.dtype, v0.device)(v0, m, tol)
 
 
 def lanczos_coeffs_resident(op, b, m: int, *, tol: float = 1e-7):

@@ -716,3 +716,207 @@ def test_b10_ragged(dev, dt):
     assert torch.equal(ts.sell_spmv_seg(s, x), y)
     assert torch.equal(ts.launch_plan(s)(x), y)
     assert torch.equal(ts.seg_compact(ts.sell_spmv(s.base, x), s.seg_ptr), y)
+
+
+# ---- B2's cluster form and B4's neighbour form ----------------------------
+
+def _stencil1(n, offsets, dt, dev):
+    cs = np.random.default_rng(len(offsets)).uniform(0.5, 1.5, len(offsets))
+    return et.StencilOperator((n,), [(o,) for o in offsets], cs,
+                              is_hermitian=True, dtype=dt, device=dev)
+
+
+THREE, FIVE = (-1, 0, 1), (-2, -1, 0, 1, 2)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("n,offsets", [
+    (100_000, THREE), (100_000, FIVE),      # config #2, 16 x 6250 rows
+    (1023, THREE), (16 * 1024 + 1, FIVE),   # n not a multiple of C x 1024
+    (10, THREE), (3, THREE),                # n < C: blocks with no rows
+    (32, (-2, 0, 2))])                      # max|o| = L = 2
+@pytest.mark.parametrize("m", [0, 1, 40])
+def test_b2_cluster_vs_twin(dev, dt, n, offsets, m):
+    op = _stencil1(n, offsets, dt, dev)
+    plan = tr.lanczos_plan(op, dt, dev)
+    assert plan.form == "cluster"
+    b = _vec(n, dt, dev, 21)
+    v0 = b / torch.linalg.vector_norm(b)
+    tol = 1e-7 if dt == torch.float64 else 1e-4
+    ab = tr.resident_lanczos(op, v0, m, tol)
+    want = tr.resident_lanczos_ref(v0, op.coeffs, list(offsets), m, tol)
+    assert ab.shape == (m, 2)
+    if m:
+        # the twin sums in another order; float32 Lanczos drifts with m
+        _close(ab, want, dt) if dt == torch.float64 else _close(
+            ab[:12], want[:12], dt)
+    assert torch.equal(ab, tr.resident_lanczos(op, v0, m, tol))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_b2_cluster_breakdown_record(dev, dt):
+    """An invariant start (two eigenvectors) breaks down after two steps:
+    one live beta, zeros from the third row on."""
+    n = 100_000
+    i = np.arange(1, n + 1)
+    b = torch.as_tensor(sum(np.sin(k * np.pi * i / (n + 1))
+                            for k in (300, 4000)), dtype=dt, device=dev)
+    op = et.laplacian_nd_stencil(n, dtype=dt, device=dev)
+    assert tr.lanczos_plan(op, dt, dev).form == "cluster"
+    tol = 1e-7 if dt == torch.float64 else 1e-4
+    v0 = b / torch.linalg.vector_norm(b)
+    ab = tr.resident_lanczos(op, v0, 40, tol)
+    assert int((ab[:, 1] > 0).sum()) == 1 and not bool(ab[2:].any())
+    _close(ab, tr.resident_lanczos_ref(v0, op.coeffs, tr._flat_offsets(op),
+                                       40, tol), dt)
+
+
+def test_b2_above_the_gate_runs_the_grid_form(dev):
+    n = 300_000
+    op = et.laplacian_nd_stencil(n, device=dev)
+    assert tr.lanczos_plan(op, torch.float64, dev).form == "grid"
+    b = _vec(n, torch.float64, dev, 22)
+    v0 = b / torch.linalg.vector_norm(b)
+    _build.reset_launch_counts()
+    ab = tr.resident_lanczos(op, v0, 30, 1e-7)
+    assert _build.launches["resident_lanczos"] == 1
+    _close(ab, tr.resident_lanczos_ref(v0, op.coeffs, tr._flat_offsets(op),
+                                       30, 1e-7), torch.float64)
+    assert torch.equal(ab, tr.resident_lanczos(op, v0, 30, 1e-7))
+
+
+@pytest.mark.parametrize("dt,n,form", [
+    (torch.float64, 131_072, "cluster"), (torch.float64, 131_073, "grid"),
+    (torch.float32, 368_000, "cluster"), (torch.float32, 368_001, "grid")])
+def test_b2_at_the_gate(dev, dt, n, form):
+    """Each side of the cluster form's row cap (8192 rows a block float64,
+    8 a thread; 23,000 float32, 32 a thread) against the twin."""
+    op = et.laplacian_nd_stencil(n, dtype=dt, device=dev)
+    assert tr.lanczos_plan(op, dt, dev).form == form
+    b = _vec(n, dt, dev, 33)
+    v0 = b / torch.linalg.vector_norm(b)
+    tol = 1e-7 if dt == torch.float64 else 1e-4
+    ab = tr.resident_lanczos(op, v0, 40, tol)
+    want = tr.resident_lanczos_ref(v0, op.coeffs, tr._flat_offsets(op), 40,
+                                   tol)
+    _close(ab, want, dt) if dt == torch.float64 else _close(ab[:12],
+                                                           want[:12], dt)
+    assert torch.equal(ab, tr.resident_lanczos(op, v0, 40, tol))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("n,offsets", [
+    (100_000, THREE), (100_000, FIVE), (777, THREE), (777, FIVE),
+    (300, (-150, 0, 150)),                 # max|o| = chunk (2 blocks of 150)
+    (5, THREE)])
+@pytest.mark.parametrize("p", [1, 4, 8])
+def test_b4_neighbour_equals_family(dev, dt, n, offsets, p):
+    """The neighbour form gives the family kernel's bits (both call the
+    same row functions), and agrees with the twin."""
+    op = _stencil1(n, offsets, dt, dev)
+    plan = tr.multi_plan(op, dt, dev)
+    assert plan.form(p) == "neighbour"
+    x = _vec(n, dt, dev, 23)
+    rows = _rows(12, op, dt, dev, 24)
+    cw = _vec(12 * p, dt, dev, 25).reshape(12, p)
+    W = tr.recurrence_apply_resident_multi(op, x, rows, cw)
+    again = tr.recurrence_apply_resident_multi(op, x, rows, cw)
+    Wf = tr.MultiPlan(op, dt, dev, form="family")(x, rows, cw)
+    assert torch.equal(W, Wf) and torch.equal(W, again)
+    _close(W, tr.resident_multi_ref(x, rows, cw, op.coeffs, list(offsets)),
+           dt)
+
+
+@pytest.mark.parametrize("m", [0, 1, 2])
+def test_b4_neighbour_short_chains(dev, m):
+    op = _stencil1(1000, THREE, torch.float64, dev)
+    x = _vec(1000, torch.float64, dev, 26)
+    rows = _rows(m, op, torch.float64, dev, 27)
+    cw = _vec(3 * m, torch.float64, dev, 28).reshape(m, 3)
+    W = tr.recurrence_apply_resident_multi(op, x, rows, cw)
+    want = tr.resident_multi_ref(x, rows, cw, op.coeffs, list(THREE))
+    assert torch.equal(W, torch.zeros_like(W)) if m == 0 else bool(
+        (W - want).abs().max() <= 1e-12 * want.abs().max())
+
+
+def test_config2_plans_take_the_new_forms(dev):
+    op = et.laplacian_nd_stencil(100_000, device=dev)
+    lp = tr.lanczos_plan(op, torch.float64, dev)
+    mp = tr.multi_plan(op, torch.float64, dev)
+    assert (lp.form, lp.cluster) in (("cluster", 16), ("cluster", 8))
+    assert mp.form(4) == "neighbour"
+    b = _vec(100_000, torch.float64, dev, 29)
+    _build.reset_launch_counts()
+    w = et.phiv(0.5, op, b, 3, m=40, two_pass=True)
+    w2 = et.phiv(0.5, op, b, 3, m=30)
+    assert _build.launches["resident_lanczos"] == 1
+    assert _build.launches["resident_multi"] == 1
+    assert float((w - w2).norm() / w2.norm()) < 1e-10
+
+
+def test_b4_past_eight_columns_runs_the_family_kernel(dev):
+    op = _stencil1(1000, THREE, torch.float64, dev)
+    assert tr.multi_plan(op, torch.float64, dev).form(9) == "family"
+    x = _vec(1000, torch.float64, dev, 30)
+    rows = _rows(10, op, torch.float64, dev, 31)
+    cw = _vec(90, torch.float64, dev, 32).reshape(10, 9)
+    _close(tr.recurrence_apply_resident_multi(op, x, rows, cw),
+           tr.resident_multi_ref(x, rows, cw, op.coeffs, list(THREE)),
+           torch.float64)
+
+
+def _b4_operands(n, p, m, dt, dev, seed):
+    op = _stencil1(n, THREE, dt, dev)
+    return (op, _vec(n, dt, dev, seed), _rows(m, op, dt, dev, seed + 1),
+            _vec(m * p, dt, dev, seed + 2).reshape(m, p))
+
+
+@pytest.mark.parametrize("n", [100_000, 300_000])
+def test_b4_neighbour_on_two_streams(dev, n):
+    """Launches of one plan on two streams, back to back and free to
+    overlap, each with flags and halos of its own, give the bits of
+    launches on one stream; so do later launches on the default stream."""
+    op, x, rows, cw = _b4_operands(n, 4, 12, torch.float64, dev, 40)
+    x2 = _vec(n, torch.float64, dev, 43)
+    plan = tr.multi_plan(op, torch.float64, dev)
+    assert plan.form(4) == "neighbour"
+    want = [plan(x, rows, cw), plan(x2, rows, cw)]
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(3):
+        for s, v in ((s1, x), (s2, x2)):
+            with torch.cuda.stream(s):
+                got.append(plan(v, rows, cw))
+    torch.cuda.synchronize()
+    for i, W in enumerate(got):
+        assert torch.equal(W, want[i % 2]), i
+    assert len(plan.nbr) == 3
+    assert torch.equal(plan(x, rows, cw), want[0])
+
+
+def test_resident_plans_replay_from_a_cuda_graph(dev):
+    """A captured launch replays with the bits of an eager one: B4's
+    neighbour form reads its flags' base on the card, so a replay, which
+    passes the same arguments, waits for the right steps."""
+    op, x, rows, cw = _b4_operands(100_000, 4, 12, torch.float64, dev, 44)
+    v0 = x / torch.linalg.vector_norm(x)
+    plan = tr.multi_plan(op, torch.float64, dev)
+    assert plan.form(4) == "neighbour"
+    want_w = plan(x, rows, cw)
+    want_ab = tr.resident_lanczos(op, v0, 40, 1e-7)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # the capture stream's buffers, made
+        plan(x, rows, cw)           # outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side):
+        W = plan(x, rows, cw)
+        ab = tr.resident_lanczos(op, v0, 40, 1e-7)
+    for _ in range(3):
+        W.zero_()
+        ab.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(W, want_w) and torch.equal(ab, want_ab)

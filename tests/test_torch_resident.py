@@ -4,6 +4,7 @@ wrappers run the plain twins of kernels B1, B2, B4, B5 and B6; the JAX side
 runs its Pallas kernels in interpret mode (float32, RTOL32) or its XLA
 paths (float64, RTOL64)."""
 
+import ctypes
 import itertools
 
 import numpy as np
@@ -368,3 +369,318 @@ def test_banded_and_grid_gates():
         tr.recurrence_apply_resident_multi(et.laplacian_nd_stencil(16),
                                            torch.ones(16), torch.ones((2, 4)),
                                            torch.ones((3, 2)))
+
+
+# ------------------------------------------- B2 and B4 launch plans (host) --
+# The plans' host logic with the kernel library replaced by a fake that
+# answers the card's queries like an H100: 132 SMs, 232,448 bytes of shared
+# memory a block can opt in to, clusters of 16 schedulable (or only 8).
+
+OPTIN = 232_448
+# the kernels' static shared memory (float32, float64)
+CLUSTER_STATIC = {torch.float32: 1_280, torch.float64: 2_304}
+NBR_STATIC = 960
+
+
+# rows a block of B2's cluster form owns at most (the measured crossover
+# with the grid form)
+CLUSTER_MAX_ROWS = {torch.float32: 23_000, torch.float64: 8_192}
+
+
+def _cluster_fits(rows, halo, dtype):
+    """A cluster block fits: at most 8 (float64) or 32 (float32) rows a
+    thread of 1024, and its shared memory (two y spans of L + 2h, the
+    published edges 2 x 2 x 3 x h, and the static part) within the opt-in
+    limit."""
+    itemsize = 8 if dtype == torch.float64 else 4
+    per_thread = 8 if dtype == torch.float64 else 32
+    return (rows <= per_thread * 1024 and (2 * rows + 16 * halo) * itemsize
+            + CLUSTER_STATIC[dtype] <= OPTIN)
+
+
+def _card(max_cluster=16, sms=132, blocks=1024):
+    """The fake library's answers: clusters of at most ``max_cluster``
+    blocks fit where a block's shared memory does; neighbour blocks fit one
+    per SM where their state does."""
+    def fits(addr):
+        L = tr._LanczosLaunch.from_address(addr)
+        halo = max(abs(o) for o in L.o[:L.k])
+        return int(L.cluster <= max_cluster
+                   and _cluster_fits(L.rows, halo, fits.dtype))
+
+    def capacity(smem):
+        return sms if smem + NBR_STATIC <= OPTIN else 0
+
+    fits.dtype = torch.float64
+    returns = {"eu_device_sms": sms, "eu_resident_max_blocks": blocks,
+               "eu_multi_nbr_capacity_f32": capacity,
+               "eu_multi_nbr_capacity_f64": capacity}
+    return fits, returns
+
+
+def _fake(monkeypatch, dtype, **card):
+    from torch_parity import use_fake_kernel_library
+
+    fits, returns = _card(**card)
+    fits.dtype = dtype
+    returns[f"eu_lanczos_cluster_fits_{_build.suffix(dtype)}"] = fits
+    return use_fake_kernel_library(monkeypatch, returns)
+
+
+def _stencil(n, offsets, dtype=torch.float64):
+    return et.StencilOperator((n,), [(o,) for o in offsets],
+                              np.linspace(0.5, 1.5, len(offsets)),
+                              is_hermitian=True, dtype=dtype)
+
+
+def _brute_cluster(n, halo, dtype, max_cluster):
+    """B2's cluster gate by enumeration: the first C of (16, 8) whose
+    smallest block rows L (C L >= n) hold the halo, are within the
+    dtype's cap, and whose shared memory fits a block on a card holding
+    clusters of ``max_cluster``."""
+    for c in (16, 8):
+        rows = next(L for L in itertools.count(1) if c * L >= n)
+        if (halo <= rows <= CLUSTER_MAX_ROWS[dtype] and c <= max_cluster
+                and _cluster_fits(rows, halo, dtype)):
+            return c, rows
+    return None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("max_cluster", [16, 8, 4])
+def test_cluster_gate_vs_brute_force(dtype, max_cluster):
+    fits, _ = _card(max_cluster=max_cluster)
+    fits.dtype = dtype
+    probe_halo = [1]
+
+    def probe(c, rows):
+        L = tr._LanczosLaunch(0, 0, rows, c, 1)
+        L.o[0] = probe_halo[0]
+        return fits(ctypes.addressof(L))
+
+    cap = tr.CLUSTER_MAX_ROWS[dtype]
+    assert cap == CLUSTER_MAX_ROWS[dtype]
+    for n in (1, 2, 15, 16, 17, 1000, 16 * 1024, 16 * 1024 + 1, 65_536,
+              65_537, 100_000, 131_072, 131_073, 184_000, 184_001, 229_999,
+              230_000, 232_000, 240_000, 300_000, 368_000, 368_001, 460_000,
+              470_000, 523_000, 530_000, 1_000_000):
+        for halo in (1, 2, 7, 1000, 20_000):
+            if halo >= n:
+                continue
+            probe_halo[0] = halo
+            assert tr.cluster_shape(n, halo, cap, probe) == _brute_cluster(
+                n, halo, dtype, max_cluster), (n, halo)
+    if max_cluster >= 16:   # config #2: 16 blocks of 6250 rows
+        probe_halo[0] = 1
+        assert tr.cluster_shape(100_000, 1, cap, probe) == (16, 6250)
+
+
+@pytest.mark.parametrize("max_cluster,n,form,cluster", [
+    (16, 100_000, "cluster", 16), (8, 60_000, "cluster", 8),
+    (8, 100_000, "grid", 0),                # 12,500 rows a block: too many
+    (0, 100_000, "grid", 0), (16, 300_000, "grid", 0),
+    (16, 150_000, "grid", 0),
+    (16, 10, "cluster", 16)])
+def test_lanczos_plan_form_and_launch(monkeypatch, max_cluster, n, form,
+                                      cluster):
+    lib = _fake(monkeypatch, torch.float64, max_cluster=max_cluster)
+    op = _stencil(n, (-1, 0, 1))
+    plan = tr.lanczos_plan(op, torch.float64, torch.device("cpu"))
+    assert (plan.form, plan.cluster) == (form, cluster)
+    _build.reset_launch_counts()
+    lib.calls.clear()
+    v0 = torch.ones(n, dtype=torch.float64)
+    ab = plan(v0, 7, 1e-7)
+    assert ab.shape == (7, 2)
+    assert _build.launches["resident_lanczos"] == 1
+    (name, args), = lib.calls
+    if form == "cluster":
+        assert name == "eu_resident_lanczos_cluster_f64"
+        L = tr._LanczosLaunch.from_address(args[0])
+        assert (L.cluster, L.rows, L.k, list(L.o[:3])) == (
+            cluster, -(-n // cluster), 3, [-1, 0, 1])
+        assert args[2:4] == (7, 1e-7)
+    else:
+        assert name == "eu_resident_lanczos_f64"
+        (buf, partials), = plan.scratch.values()
+        assert plan.cap == 2 * 1024 and partials.numel() == 2048
+        assert buf.numel() == 3 * n and args[3:7] == (3, n, 7, 1e-7)
+    with pytest.raises(ValueError):
+        plan(torch.ones(n, dtype=torch.float32), 7, 1e-7)
+    with pytest.raises(ValueError):
+        plan(torch.ones(n + 1, dtype=torch.float64), 7, 1e-7)
+
+
+def test_lanczos_plan_halo_wider_than_block_rows(monkeypatch):
+    """max|o| above L = ceil(n / 16) but within ceil(n / 8): the 8-block
+    cluster; above both: the grid form."""
+    _fake(monkeypatch, torch.float64)
+    assert tr.lanczos_plan(_stencil(64, (-5, 0, 5)), torch.float64,
+                           torch.device("cpu")).cluster == 8
+    assert tr.lanczos_plan(_stencil(64, (-9, 0, 9)), torch.float64,
+                           torch.device("cpu")).form == "grid"
+
+
+@pytest.mark.parametrize("n,sms", [(1, 132), (255, 132), (257, 132),
+                                   (100_000, 132), (100_001, 132),
+                                   (33_000, 132), (33_793, 132),
+                                   (1_000_000, 114), (5, 1)])
+def test_nbr_geometry_vs_brute_force(n, sms):
+    grid, chunk = tr.nbr_geometry(n, sms)
+    g0 = max(1, min(sms, -(-n // 256)))
+    # the smallest chunk that covers n in g0 blocks, and then as few blocks
+    # of it as cover n: every block owns at least one row
+    want_chunk = next(c for c in itertools.count(1) if g0 * c >= n)
+    want_grid = next(g for g in itertools.count(1) if g * want_chunk >= n)
+    assert (grid, chunk) == (want_grid, want_chunk)
+    assert grid <= sms and (grid - 1) * chunk < n <= grid * chunk
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_multi_plan_forms_vs_brute_force(monkeypatch, dtype):
+    lib = _fake(monkeypatch, dtype)
+    itemsize = 4 if dtype == torch.float32 else 8
+    for n, offsets in ((100_000, (-1, 0, 1)), (100_000, (-2, -1, 0, 1, 2)),
+                       (300_000, (-1, 0, 1)), (500_000, (-1, 0, 1)),
+                       (300, (-150, 0, 150)), (300, (-151, 0, 151)),
+                       (5, (-1, 0, 1))):
+        plan = tr.multi_plan(_stencil(n, offsets, dtype), dtype,
+                             torch.device("cpu"))
+        h = max(abs(o) for o in offsets)
+        for p in range(1, 10):      # p = 9: past the kernel's 8 columns
+            state = (3 * (plan.chunk + 2 * h) + p * plan.chunk) * itemsize
+            want = ("neighbour" if h <= plan.chunk and p <= 8
+                    and state + NBR_STATIC <= OPTIN else "family")
+            assert plan.form(p) == want, (n, offsets, p)
+    # config #2: p = 4 on 132 blocks of 758 rows
+    plan = tr.multi_plan(_stencil(100_000, (-1, 0, 1), dtype), dtype,
+                         torch.device("cpu"))
+    assert (plan.grid, plan.chunk, plan.form(4)) == (132, 758, "neighbour")
+    lib.calls.clear()
+    x = torch.ones(100_000, dtype=dtype)
+    rows, cw = torch.ones((12, 4), dtype=dtype), torch.ones((12, 4),
+                                                            dtype=dtype)
+    launched = plan.nbr_launches
+    W = plan(x, rows, cw)
+    plan(x, rows, cw)
+    assert W.shape == (100_000, 4) and plan.nbr_launches == launched + 2
+    names = [c[0] for c in lib.calls]
+    assert names == [f"eu_resident_multi_nbr_{_build.suffix(dtype)}"] * 2
+    L = tr._NbrLaunch.from_address(lib.calls[0][1][0])
+    assert (L.grid, L.chunk, L.h, L.k, L.n) == (132, 758, 1, 3, 100_000)
+    (addr, _, flags, halo), = plan.nbr.values()
+    assert lib.calls[1][1][0] == addr
+    assert L.flags == flags.data_ptr() and flags.numel() == 132
+    assert not flags.any() and halo.numel() == 4 * 132 * 1
+    assert lib.calls[1][1][4:6] == (4, 12)
+
+
+def test_multi_plan_family_launch(monkeypatch):
+    lib = _fake(monkeypatch, torch.float64)
+    op = _stencil(300, (-151, 0, 151))
+    plan = tr.multi_plan(op, torch.float64, torch.device("cpu"))
+    lib.calls.clear()
+    _build.reset_launch_counts()
+    x = torch.ones(300, dtype=torch.float64)
+    W = plan(x, torch.ones((5, 4), dtype=torch.float64),
+             torch.ones((5, 2), dtype=torch.float64))
+    (name, args), = lib.calls
+    assert name == "eu_resident_multi_f64" and W.shape == (300, 2)
+    assert args[3] == 2 and args[6:9] == (3, 300, 5)
+    (buf,) = plan.bufs.values()
+    assert buf.numel() == 900 and args[10] == buf.data_ptr()
+    assert _build.launches["resident_multi"] == 1 and plan.nbr_launches == 0
+    with pytest.raises(ValueError):     # cw of another m
+        plan(x, torch.ones((5, 4), dtype=torch.float64),
+             torch.ones((4, 2), dtype=torch.float64))
+
+
+def test_resident_plans_cached_and_rebuilt(monkeypatch):
+    _fake(monkeypatch, torch.float64)
+    op = _stencil(1000, (-1, 0, 1))
+    cpu = torch.device("cpu")
+    for make in (tr.lanczos_plan, tr.multi_plan):
+        a = make(op, torch.float64, cpu)
+        assert make(op, torch.float64, cpu) is a
+        assert make(op, torch.float32, cpu) is not a
+        op.coeffs = op.coeffs.clone()        # reassigned: a new plan
+        b = make(op, torch.float64, cpu)
+        assert b is not a and make(op, torch.float64, cpu) is b
+    assert tr.lanczos_plan(op, torch.float64, cpu) is not tr.multi_plan(
+        op, torch.float64, cpu)
+
+
+def test_resident_plans_refuse_cpu():
+    """With the real library, a plan for the CPU raises before any query."""
+    op = _stencil(100, (-1, 0, 1))
+    for cls in (tr.LanczosPlan, tr.MultiPlan):
+        with pytest.raises(ValueError, match="launch plan"):
+            cls(op, torch.float64, torch.device("cpu"))
+
+
+def test_resident_plans_refuse_bad_operands(monkeypatch):
+    _fake(monkeypatch, torch.float64)
+    cpu = torch.device("cpu")
+    for cls in (tr.LanczosPlan, tr.MultiPlan):
+        with pytest.raises(ValueError):
+            cls(_stencil(100, (-1, 0, 1)), torch.float16, cpu)
+        with pytest.raises(ValueError):
+            cls(et.laplacian_nd_stencil(8, 8), torch.float64, cpu)
+
+
+def test_launch_descriptor_layouts():
+    """The ctypes mirrors of eu::LanczosLaunch and eu::NbrLaunch (their
+    static_asserts in csrc/resident_cluster.cu, csrc/resident_family.cu)."""
+    L = tr._LanczosLaunch
+    assert ctypes.sizeof(L) == 288
+    assert (L.n.offset, L.rows.offset, L.cluster.offset, L.k.offset,
+            L.o.offset) == (8, 16, 24, 28, 32)
+    N = tr._NbrLaunch
+    assert ctypes.sizeof(N) == 304
+    assert (N.n.offset, N.grid.offset, N.k.offset, N.o.offset) == (
+        24, 32, 44, 48)
+
+
+def test_plans_take_a_forced_form(monkeypatch):
+    """``MultiPlan(form="family")``: the family kernel whatever the size
+    (the neighbour form is held bit for bit against it); any other form
+    raises. B2's plan takes its form from the size alone."""
+    _fake(monkeypatch, torch.float64)
+    op = _stencil(100_000, (-1, 0, 1))
+    cpu = torch.device("cpu")
+    fam = tr.MultiPlan(op, torch.float64, cpu, form="family")
+    assert [fam.form(p) for p in (1, 4, 8)] == ["family"] * 3
+    with pytest.raises(ValueError):
+        tr.MultiPlan(op, torch.float64, cpu, form="grid")
+    with pytest.raises(TypeError):
+        tr.LanczosPlan(op, torch.float64, cpu, form="grid")
+
+
+@pytest.mark.parametrize("n,cls", [(100_000, tr.MultiPlan),
+                                   (300_000, tr.LanczosPlan),
+                                   (300, tr.MultiPlan)])
+def test_resident_plans_keep_buffers_per_stream(monkeypatch, n, cls):
+    """Flags, halos and scratch are kept per stream (launches on two
+    streams may overlap), made once for each and reused by every later
+    call on it. n = 3e5: B2's grid form; n = 300 with max|o| = 151: B4's
+    family kernel."""
+    lib = _fake(monkeypatch, torch.float64)
+    streams = iter([11, 22, 11, 22, 11])
+    monkeypatch.setattr(_build, "raw_stream", lambda device: next(streams))
+    offsets = (-151, 0, 151) if n == 300 else (-1, 0, 1)
+    plan = cls(_stencil(n, offsets), torch.float64, torch.device("cpu"))
+    x = torch.ones(n, dtype=torch.float64)
+    rows = torch.ones((6, 4), dtype=torch.float64)
+    lib.calls.clear()
+    for _ in range(5):
+        plan(x, 6, 1e-7) if cls is tr.LanczosPlan else plan(x, rows, rows)
+    held = {tr.LanczosPlan: "scratch", tr.MultiPlan: "nbr" if n > 300
+            else "bufs"}[cls]
+    assert sorted(getattr(plan, held)) == [11, 22]
+    # the pointer an entry point gets: a descriptor (its flags) or a buffer
+    where = {"scratch": 8, "nbr": 0, "bufs": 10}[held]
+    launches = [args for name, args in lib.calls
+                if name.startswith("eu_resident_")]
+    ptrs = [args[where] for args in launches]
+    assert [args[-1] for args in launches] == [11, 22, 11, 22, 11]
+    assert ptrs[0] == ptrs[2] == ptrs[4] != ptrs[1] == ptrs[3]

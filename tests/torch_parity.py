@@ -39,10 +39,13 @@ def assert_close(got, want, rtol, what=""):
 class FakeKernelLibrary:
     """Stands in for the CUDA kernel library on a machine without nvcc:
     records each launch's C entry point and arguments and reports success,
-    so the CPU tests reach the launch plans' host logic."""
+    so the CPU tests reach the launch plans' host logic. ``returns`` maps
+    an entry point to what it reports instead of 0 (a number, or a
+    function of its arguments): the card's answers to the plans' queries."""
 
-    def __init__(self):
+    def __init__(self, returns=None):
         self.calls = []
+        self.returns = dict(returns or {})
 
     def __getattr__(self, name):
         if not name.startswith("eu_"):
@@ -50,18 +53,19 @@ class FakeKernelLibrary:
 
         def fn(*args):
             self.calls.append((name, args))
-            return 0
+            r = self.returns.get(name, 0)
+            return r(*args) if callable(r) else r
         return fn
 
 
-def use_fake_kernel_library(monkeypatch):
+def use_fake_kernel_library(monkeypatch, returns=None):
     """Route ``_build.library`` and ``_build.raw_stream`` to a
     ``FakeKernelLibrary`` (returned) for one test, and let the launch plans
     be built for CPU tensors (``_build.require_cuda`` refuses them
     otherwise): nothing reaches a real kernel there."""
     from exponentialutilities_jl_torch.ops.kernels import _build
 
-    lib = FakeKernelLibrary()
+    lib = FakeKernelLibrary(returns)
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(_build, "raw_stream", lambda device: 0)
     monkeypatch.setattr(_build, "require_cuda", lambda what, device: None)
