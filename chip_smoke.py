@@ -39,6 +39,9 @@ its seconds:
               neighbour form bit for bit against the family kernel (p =
               1, 4, 8; 3 and 5 points; ragged chunks, max|o| = chunk),
               and config #2's plans on the cluster and neighbour forms;
+              B1's and B5's plans on their neighbour forms (B1 also past
+              its gate, n = 1.5M float64 / 3M float32, on the grid form;
+              B5 bit for bit against its family kernel);
               per SELL pack, the share of B9's 256-row blocks
               that stage x in shared memory (none of the band-20000
               pack's; phase 4 adds the RCM'd n = 1e6 pack, held to more
@@ -56,7 +59,10 @@ its seconds:
               agreement; a two-pass call is one sweep and one second
               stage (``sweep_stage``) per step, and the replay's alpha and
               beta equal pass 1's bit for bit; every B4 launch of config
-              #2 on the neighbour form; the kernel-driving passes rerun
+              #2 on the neighbour form, and every B1 launch of config #2's
+              expv_chebyshev and two-pass expv and every B5 launch of
+              config #3's expv_chebyshev on the neighbour form (counted
+              by their plans); the kernel-driving passes rerun
               under torch.cuda.set_sync_debug_mode("error")
   5. times    CUDA-event medians of >= 10 runs after warm-up, each kernel
               beside its plain twin, B6 beside the B3 sweeps on the same
@@ -120,6 +126,7 @@ K = 3                   # phi orders 0..K, as config #3 runs them
 NG, TG = 512, 0.5       # 2-D grid under the B6 gate
 THREE, FIVE = (-1, 0, 1), (-2, -1, 0, 1, 2)     # 1-D stencil offsets
 B2_ABOVE_GATE = {"float32": 600_000, "float64": 300_000}   # B2's grid form
+B1_PAST_GATE = {"float32": 3_000_000, "float64": 1_500_000}   # B1's grid form
 
 # Kernel against twin, max-norm relative: float32 sums in another order
 # and contracts to FMA; float64 agrees to a few ulps of the output.
@@ -190,7 +197,7 @@ REPLACES = {
     "seg_compact": "exponentialutilities_jl_tpu/ops/kernels/sell.py:1391",
 }
 SOURCES = {
-    "resident_recurrence": "exponentialutilities_jl_torch/ops/kernels/csrc/resident.cu",
+    "resident_recurrence": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_family.cu",
     "resident_lanczos": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_cluster.cu",
     "resident_multi": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_family.cu",
     "resident_banded": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_family.cu",
@@ -348,6 +355,7 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     rng2 = np.random.default_rng(SEED + 1)     # the inputs of B4-B6
     rng8 = np.random.default_rng(SEED + 8)     # B2's and B4's ragged shapes
+    rng9 = np.random.default_rng(SEED + 9)     # B1 past its neighbour gate
 
     def vec(n, dt, gen=rng):
         return torch.as_tensor(gen.standard_normal(n), dtype=dt, device=dev)
@@ -443,9 +451,32 @@ def main() -> int:
                 check(e <= tol and en <= tol, f"B1 {dname[dt]} n={n}")
                 if dt == f64 and n == N1 and not five:
                     kerr["resident_recurrence"] = float((w - wr).abs().max())
+                plan = tr.recurrence_plan(op, dt, dev)
+                check(plan.form == "neighbour", f"B1 {dname[dt]} n={n}: "
+                      f"{plan.form} form")
                 print(f"kernel B1 {dname[dt]} n={n} points={len(op.offsets)}:"
-                      f" rel err w {e:.2e}, sum w^2 {en:.2e} (tol {tol:g})",
-                      flush=True)
+                      f" rel err w {e:.2e}, sum w^2 {en:.2e} (tol {tol:g}); "
+                      f"{plan.form} form, {plan.grid} blocks of {plan.chunk} "
+                      f"rows", flush=True)
+        # B1 past its neighbour gate (a block's state exceeds its shared
+        # memory): the grid form, held to the twin
+        n = B1_PAST_GATE[dname[dt]]
+        op = ops1(dt, n=n)
+        x = vec(n, dt, rng9)
+        rows = vec(48, dt, rng9).reshape(12, 4) * 0.5
+        rows[:, 0] *= 2.0 / float(op.opnorm_hint())
+        plan = tr.recurrence_plan(op, dt, dev)
+        w, nrm = tr.resident_recurrence(op, x, rows, 0.7)
+        wr, nrr = tr.resident_recurrence_ref(
+            x, rows, op.coeffs, tr._flat_offsets(op),
+            torch.tensor(0.7, dtype=dt, device=dev))
+        e = rel_max(w, wr)
+        en = abs(float(nrm) - float(nrr)) / float(nrr)
+        check(plan.form == "grid" and e <= tol and en <= tol,
+              f"B1 {dname[dt]} n={n}: {plan.form} form, {e:.2e}, {en:.2e}")
+        print(f"kernel B1 {dname[dt]} n={n} (past the neighbour gate): grid "
+              f"form, rel err w {e:.2e}, sum w^2 {en:.2e} (tol {tol:g})",
+              flush=True)
         op = ops1(dt)
         m = 40 if dt == f64 else 20     # float32 Lanczos drifts past ~20
         for start in ("random", "invariant"):
@@ -641,8 +672,17 @@ def main() -> int:
             check(e <= tol, f"B5 {dname[dt]} {label}: {e:.2e}")
             if dt == f64 and label.startswith("poisson"):
                 kerr["resident_banded"] = float((w - wr).abs().max())
+            # the neighbour form, bit for bit against the family kernel
+            plan = tr.banded_plan(op, dt, dev)
+            wf = tr.BandedRecurrencePlan(op, dt, dev, form="family")(x, rows)
+            check(plan.form == "neighbour" and torch.equal(w, wf),
+                  f"B5 {dname[dt]} {label}: {plan.form} form, bitwise "
+                  f"{torch.equal(w, wf)}")
             print(f"kernel B5 {dname[dt]} {label} m=12: rel err {e:.2e} "
-                  f"(tol {tol:g})", flush=True)
+                  f"(tol {tol:g}); {plan.form} form, {plan.grid} blocks of "
+                  f"{plan.chunk} rows, {plan.kd} of {plan.k} diagonals in "
+                  f"shared memory, equals the family kernel bit for bit",
+                  flush=True)
         # B6: 2-D 512^2 5-point, 3-D 64^3 7-point and 27-point box
         for label, op in ((f"{NG}^2 5-point",
                            et.laplacian_nd_stencil(NG, NG, dtype=dt,
@@ -1072,14 +1112,32 @@ def main() -> int:
         f"config4 iop=2 reorth=False m={MA}": {"banded_spmv": MA},
     })
 
+    # the calls whose B1 or B5 launches must take the neighbour form: the
+    # plans (kept on the operators) count those launches
+    nbr_plans = {"1d cheb f32": tr.recurrence_plan(op1[f32], f32, dev),
+                 "1d cheb f64": tr.recurrence_plan(op1[f64], f64, dev),
+                 "1d two-pass m=40 f64": tr.recurrence_plan(op1[f64], f64,
+                                                            dev),
+                 "config3 expv_chebyshev": tr.banded_plan(opP, f64, dev)}
     _build.reset_launch_counts()
     out = {}
     for name, fn in {**calls, **phi_calls, **sparse_calls, **var_calls,
                      **nh_calls}.items():
         before = dict(_build.launches)
+        plan = nbr_plans.get(name)
+        nbr_before = plan.nbr_launches if plan is not None else 0
         out[name] = fn()
         torch.cuda.synchronize()
         delta = {k: v - before[k] for k, v in _build.launches.items() if v > before[k]}
+        if plan is not None:
+            key = "resident_banded" if plan.banded else "resident_recurrence"
+            got = plan.nbr_launches - nbr_before
+            check(plan.form == "neighbour" and got == delta.get(key, 0) >= 1,
+                  f"{name}: {got} of {delta.get(key, 0)} {key} launches on "
+                  f"the neighbour form ({plan.form})")
+            print(f"main {name}: all {got} {key} launches on the neighbour "
+                  f"form ({plan.grid} blocks of {plan.chunk} rows)",
+                  flush=True)
         if name in expect:
             check(delta == expect[name], f"{name} launches {delta}")
         else:       # Chebyshev 3-D: one sweep per degree plus sweep 0
@@ -1451,7 +1509,7 @@ def main() -> int:
     bursts = {}         # back-to-back kernel ms
     device_jobs = []    # (name, dtype name, kernel fn, kernel name)
     # the kernel events each timed call makes one of, for the profiler
-    knames = {"resident_recurrence": "resident_recurrence_kernel",
+    knames = {"resident_recurrence": "resident_nbr_kernel",
               "resident_lanczos": "resident_lanczos",
               "fused_sweep": "fused_sweep_kernel",
               "fused_sweep_var": "fused_sweep_kernel",

@@ -88,11 +88,17 @@ def _declare(lib):
         f = getattr(lib, f"eu_resident_multi_{suf}")
         f.argtypes = [_VP, _VP, _VP, _I, _VP, _VP, _I, _LL, _I, _VP, _VP, _VP]
         f.restype = _I
-        f = getattr(lib, f"eu_multi_nbr_capacity_{suf}")
-        f.argtypes = [_LL]
+        f = getattr(lib, f"eu_nbr_capacity_{suf}")
+        f.argtypes = [_I, _LL]
         f.restype = _I
         f = getattr(lib, f"eu_resident_multi_nbr_{suf}")
         f.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _VP, _VP]
+        f.restype = _I
+        f = getattr(lib, f"eu_resident_recurrence_nbr_{suf}")
+        f.argtypes = [_VP, _VP, _VP, _VP, _I, _VP, _VP, _VP]
+        f.restype = _I
+        f = getattr(lib, f"eu_resident_banded_nbr_{suf}")
+        f.argtypes = [_VP, _VP, _VP, _I, _VP, _VP]
         f.restype = _I
         f = getattr(lib, f"eu_resident_banded_{suf}")
         f.argtypes = [_VP, _VP, _VP, _VP, _I, _LL, _I, _VP, _VP, _VP]

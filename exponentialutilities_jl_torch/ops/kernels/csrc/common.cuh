@@ -35,6 +35,24 @@ struct Offsets3D {
 __device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
 __device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
 
+// The arithmetic of one row of the (m, 4)-row recurrence, written once with
+// explicit fused multiply-adds so that contraction cannot differ between the
+// kernels that call it (B1's two forms, B4's two, B5's two give the same
+// bits as their other form):
+//   W[j] += cw[k, j] omega_k                          (accumulate)
+//   z     = sum_j c_j omega[i + o_j], in j order      (stencil_term)
+//   omega_{k+1} = ca z + cb omega_k + cc omega_{k-1}  (next_row)
+template <typename T>
+__device__ __forceinline__ T accumulate(T w, T cw, T wc) { return fma_rn(cw, wc, w); }
+
+template <typename T>
+__device__ __forceinline__ T stencil_term(T z, T c, T x) { return fma_rn(c, x, z); }
+
+template <typename T>
+__device__ __forceinline__ T next_row(T ca, T cb, T cc, T z, T wc, T wp) {
+  return fma_rn(ca, z, fma_rn(cb, wc, cc * wp));
+}
+
 // Block-wide sum in a FIXED order: every call with the same per-thread
 // inputs returns bitwise the same value (no atomics). `scratch` holds
 // kThreads values; every thread of the block must call.

@@ -1,5 +1,8 @@
 // B1 and B2: the whole m-step recurrence of a 1-D constant stencil in ONE
-// persistent cooperative launch.
+// persistent cooperative launch. Both are the second form of their kernel
+// now: B1's first is the neighbour form of csrc/resident_family.cu, B2's
+// the cluster form of csrc/resident_cluster.cu; the grid kernels here take
+// the sizes whose state does not fit those forms' shared memory.
 //
 // Replaces exponentialutilities_jl_tpu/ops/kernels/resident.py
 //   _resident_kernel          (B1, resident.py:89)
@@ -38,8 +41,10 @@ __device__ __forceinline__ T stencil_1d(const T* x, long long i, long long n,
 }
 
 // omega_{k+1} = ca_k A omega_k + cb_k omega_k + cc_k omega_{k-1},
-// w += cw_k omega_k, omega_0 = s x, omega_{-1} = 0; also *nrm2 = sum w^2.
-// buf holds 3n scratch values (previous, current, next), rotated per step.
+// w += cw_k omega_k, omega_0 = s x (x where scale is null), omega_{-1} = 0;
+// also *nrm2 = sum w^2. buf holds 3n scratch values (previous, current,
+// next), rotated per step. A row is computed with the row functions of
+// common.cuh, so w has the neighbour form's bits.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 resident_recurrence_kernel(const T* __restrict__ x, const T* __restrict__ rows,
@@ -59,12 +64,11 @@ resident_recurrence_kernel(const T* __restrict__ x, const T* __restrict__ rows,
 
   const long long stride = (long long)gridDim.x * kThreads;
   const long long i0 = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const T s = scale[0];
   T* bp = buf;
   T* bc = buf + n;
   T* bn = buf + 2 * n;
   for (long long i = i0; i < n; i += stride) {
-    bc[i] = s * x[i];
+    bc[i] = scale ? scale[0] * x[i] : x[i];
     bp[i] = T(0);
     w[i] = T(0);
   }
@@ -77,9 +81,13 @@ resident_recurrence_kernel(const T* __restrict__ x, const T* __restrict__ rows,
     const T cw = rows[4 * step + 3];
     for (long long i = i0; i < n; i += stride) {
       const T wc = bc[i];
-      w[i] += cw * wc;
-      const T z = stencil_1d(bc, i, n, o_sh, c_sh, k);
-      bn[i] = ca * z + cb * wc + cc * bp[i];
+      w[i] = accumulate(w[i], cw, wc);
+      T z = T(0);
+      for (int j = 0; j < k; ++j) {
+        const long long q = i + o_sh[j];
+        if (q >= 0 && q < n) z = stencil_term(z, c_sh[j], bc[q]);
+      }
+      bn[i] = next_row(ca, cb, cc, z, wc, bp[i]);
     }
     grid.sync();   // every omega_{k+1} row is written before any is read
     T* t = bp;

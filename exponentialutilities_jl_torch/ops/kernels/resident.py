@@ -12,8 +12,13 @@ two-pass expv and phiv).
 Five hand-written CUDA kernels carry it, each in one launch (persistent
 and cooperative, except B2's cluster form):
 
-* B1 ``recurrence_apply_resident`` (``csrc/resident.cu``): A a 1-D
-  constant stencil with Dirichlet ends; also returns sum w^2.
+* B1 ``recurrence_apply_resident``: A a 1-D constant stencil with
+  Dirichlet ends; also returns sum w^2. Two forms, chosen once per
+  operator by its ``RecurrencePlan``: the neighbour form
+  (``resident_nbr_kernel`` of ``csrc/resident_family.cu``, shared with
+  B5), its sum of w^2 taken by the last block of the launch, where a
+  block's state fits on chip; the grid-barrier kernel of
+  ``csrc/resident.cu`` otherwise.
 * B2 ``lanczos_coeffs_resident``: Lanczos pass 1 with alpha and beta
   reduced inside the kernel each step (deterministic fixed-order
   reductions), breakdown masking the remaining steps. Two forms, chosen
@@ -25,18 +30,24 @@ and cooperative, except B2's cluster form):
   B1's operator with p accumulators over one shared omega chain,
   W[:, j] += cw[k, j] omega_k (all phi orders in one pass). Two forms,
   chosen by its ``MultiPlan``: blocks that keep their rows on chip and
-  wait for their two neighbours only, where a block's state fits on chip;
-  the family kernel with one grid barrier a step otherwise.
+  wait for their two neighbours only (the neighbour form), where a
+  block's state fits on chip; the family kernel with one grid barrier a
+  step otherwise.
 * B5 ``recurrence_apply_resident_banded``: A a ``BandedOperator``,
-  z = sum_j D_j * shift(omega, o_j), zero outside the vector.
+  z = sum_j D_j * shift(omega, o_j), zero outside the vector. Two forms,
+  chosen by its ``BandedRecurrencePlan``: the neighbour form, with as many
+  diagonals' rows kept in shared memory as fit beside the state, where
+  max|o| is within a block's rows and the state fits; the family kernel
+  otherwise.
 * B6 ``recurrence_apply_resident_grid``: A a 2-D/3-D constant stencil on
   the natural row-major grid with Dirichlet ends, for grids whose state
   fits the card's L2 (``L2_STATE_BUDGET``).
 
-B2 and B4 launch through plans (``lanczos_plan``, ``multi_plan``, kept on
-the operator per dtype and CUDA device): the cast coefficients, the
-form, the launch geometry queried once, the buffers (one set per stream,
-so launches on two streams may overlap) and a C launch descriptor, so a
+B1, B2, B4 and B5 launch through plans (``recurrence_plan``,
+``lanczos_plan``, ``multi_plan``, ``banded_plan``, kept on the operator per
+dtype and CUDA device): the cast coefficients or diagonals, the form,
+the launch geometry queried once, the buffers (one set per stream, so
+launches on two streams may overlap) and a C launch descriptor, so a
 call compares x, allocates its outputs and makes one ctypes call. A
 refused or failed launch raises; no form retries another.
 
@@ -50,7 +61,6 @@ raises.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -69,7 +79,9 @@ __all__ = ["recurrence_apply_resident", "resident_recurrence",
            "resident_grid_ref", "resident_grid_supported",
            "phiv_two_pass_resident", "L2_STATE_BUDGET", "LanczosPlan",
            "lanczos_plan", "cluster_shape", "MultiPlan", "multi_plan",
-           "nbr_geometry", "CLUSTER_SIZES", "CLUSTER_MAX_ROWS"]
+           "RecurrencePlan", "recurrence_plan", "BandedRecurrencePlan",
+           "banded_plan", "nbr_geometry", "nbr_smem", "CLUSTER_SIZES",
+           "CLUSTER_MAX_ROWS"]
 
 # B4 and B6 keep their whole state (3 recurrence vectors plus the
 # accumulators) in the H100's 50 MB L2; 40 MB leaves room for the rows,
@@ -88,8 +100,9 @@ CLUSTER_SIZES = (16, 8)
 # float32 won at 18750 and lost at 28750, and 23,000 is where the two
 # lines of those four times cross
 CLUSTER_MAX_ROWS = {torch.float32: 23_000, torch.float64: 8_192}
-NBR_MIN_ROWS = 256              # rows a block of B4's neighbour form owns at least
+NBR_MIN_ROWS = 256              # rows a block of the neighbour form owns at least
 NBR_MAX_COLS = 8                # eu::kMaxCols: accumulators of the neighbour form
+NBR_FLAG_STRIDE = 16            # eu::kFlagStride: one flag per 128-byte line
 
 def resident_supported(op) -> bool:
     """True when ``op`` is a 1-D real constant-coefficient StencilOperator
@@ -257,10 +270,11 @@ class _LanczosLaunch(ctypes.Structure):
 class _NbrLaunch(ctypes.Structure):
     """``eu::NbrLaunch`` (csrc/resident_family.cu), built once per plan
     and stream."""
-    _fields_ = [("cvals", ctypes.c_void_p), ("flags", ctypes.c_void_p),
-                ("halo", ctypes.c_void_p), ("n", ctypes.c_longlong),
+    _fields_ = [("coef", ctypes.c_void_p), ("flags", ctypes.c_void_p),
+                ("halo", ctypes.c_void_p), ("partials", ctypes.c_void_p),
+                ("ticket", ctypes.c_void_p), ("n", ctypes.c_longlong),
                 ("grid", ctypes.c_int), ("chunk", ctypes.c_int),
-                ("h", ctypes.c_int), ("k", ctypes.c_int),
+                ("h", ctypes.c_int), ("k", ctypes.c_int), ("kd", ctypes.c_int),
                 ("o", ctypes.c_int * _build.MAX_POINTS)]
 
 
@@ -365,7 +379,7 @@ class LanczosPlan:
 
 
 def nbr_geometry(n: int, sms: int):
-    """(grid, chunk) of B4's neighbour form: at most one block per SM and
+    """(grid, chunk) of the neighbour form: at most one block per SM and
     per ``NBR_MIN_ROWS`` rows, each owning ``chunk`` consecutive rows, every
     block at least one."""
     g = max(1, min(sms, -(-n // NBR_MIN_ROWS)))
@@ -373,20 +387,108 @@ def nbr_geometry(n: int, sms: int):
     return -(-n // chunk), chunk
 
 
-class MultiPlan:
+def nbr_smem(chunk: int, h: int, p: int, kd: int, itemsize: int,
+             spans: int = 2) -> int:
+    """Bytes of dynamic shared memory a neighbour-form block needs:
+    ``spans`` omega spans of chunk + 2h values (B4's kernel keeps three;
+    B1's and B5's two, omega_{k+1} overwriting omega_{k-1} in place), p
+    accumulator rows and kd diagonal rows of chunk values."""
+    return (spans * (chunk + 2 * h) + (p + kd) * chunk) * itemsize
+
+
+class _NbrForm:
+    """What the plans of B1, B4 and B5 share for their neighbour forms
+    (B4's ``resident_multi_nbr_kernel``, B1's and B5's
+    ``resident_nbr_kernel``): the geometry (``nbr_geometry`` from the
+    card's SM count, queried once), the card's occupancy answer for the
+    plan's kernel (``kind``, as ``eu::nbr_capacity`` numbers them), and per
+    stream the flags (zeroed once; the kernel takes each launch's base from
+    them), halo buffers, B1's partials and ticket, and the launch
+    descriptor. ``nbr_launches`` counts the launches that took the
+    neighbour form."""
+
+    kind = 1                # B1's kernel
+    spans = 2               # omega spans a block of the kernel keeps
+    banded = False
+
+    def _nbr_init(self, n, offsets, coef):
+        self.lib = _build.library()
+        self.suf = _build.suffix(self.dtype)
+        self.itemsize = torch.empty((), dtype=self.dtype).element_size()
+        self.k, self.h = len(offsets), max(abs(o) for o in offsets)
+        self.coef = coef
+        with _on(self.device):
+            sms = _checked(self.lib.eu_device_sms(), "SM count query")
+        self.grid, self.chunk = nbr_geometry(n, sms)
+        self.o = _offsets_field(offsets)
+        self.kd = 0
+        self.nbr = {}           # stream -> (address, descriptor, flags, halo[, partials])
+        self.nbr_launches = 0
+
+    def smem(self, p: int = 1, kd: int = 0) -> int:
+        """Bytes of shared memory a neighbour-form block needs."""
+        return nbr_smem(self.chunk, self.h, p, kd, self.itemsize, self.spans)
+
+    def _fits(self, p: int = 1, kd: int = 0) -> bool:
+        """The neighbour form takes p columns and kd kept diagonals: max|o|
+        within a block's rows, and the card holds the whole grid with that
+        much shared memory a block (its answer)."""
+        if self.h > self.chunk:
+            return False
+        with _on(self.device):
+            cap = _checked(getattr(self.lib, f"eu_nbr_capacity_{self.suf}")(
+                self.kind, self.smem(p, kd)), "neighbour-form occupancy query")
+        return cap >= self.grid
+
+    def _nbr_launch(self, stream, reduce: bool = False) -> int:
+        """The address of the neighbour form's descriptor for ``stream``,
+        with flags and halos of its own (launches on two streams may
+        overlap; block b's flag is ``flags[b NBR_FLAG_STRIDE]``); ``reduce``
+        adds B1's partials and its ticket (one more count after the
+        flags)."""
+        hit = self.nbr.get(stream)
+        if hit is None:
+            flags = torch.zeros(self.grid * NBR_FLAG_STRIDE + reduce,
+                                dtype=torch.int64, device=self.device)
+            halo = torch.empty(max(1, 4 * self.grid * self.h),
+                               dtype=self.dtype, device=self.device)
+            partials = (torch.empty(self.grid, dtype=self.dtype,
+                                    device=self.device) if reduce else None)
+            launch = _NbrLaunch(
+                self.coef.data_ptr(), flags.data_ptr(), halo.data_ptr(),
+                partials.data_ptr() if reduce else None,
+                flags[-1:].data_ptr() if reduce else None, self.n,
+                self.grid, self.chunk, self.h, self.k, self.kd, self.o)
+            hit = (ctypes.addressof(launch), launch, flags, halo)
+            if reduce:
+                hit += (partials,)
+            self.nbr[stream] = hit
+        return hit[0]
+
+    def _operands(self, what, pairs):
+        for name, t, shape in pairs:
+            if (t.dtype != self.dtype or t.device != self.device
+                    or t.shape != shape):
+                raise ValueError(
+                    f"{what}: expected {name} {shape} {self.dtype} on "
+                    f"{self.device}, got {tuple(t.shape)} {t.dtype} on "
+                    f"{t.device}")
+
+
+class MultiPlan(_NbrForm):
     """What every B4 launch on one 1-D constant stencil, for vectors of one
     dtype on one CUDA device, shares: the checks, the coefficients in that
-    dtype, the neighbour form's geometry (``nbr_geometry`` from the card's
-    SM count, queried once), and per stream its flags (zeroed once; the
-    kernel takes each launch's base from them), halo buffers and launch
-    descriptor, and the family form's scratch. ``form(p)`` picks, once per
-    p, "neighbour" when max|o| <= chunk, p <= ``NBR_MAX_COLS`` and a
-    block's state (three omega spans of chunk + 2h and p accumulator rows)
-    fits on chip with the whole grid co-resident (the card's answer), else
+    dtype, the neighbour form's geometry and buffers (``_NbrForm``), and
+    per stream the family form's scratch. ``form(p)`` picks, once per p,
+    "neighbour" when max|o| <= chunk, p <= ``NBR_MAX_COLS`` and a block's
+    state (three omega spans of chunk + 2h and p accumulator rows) fits on
+    chip with the whole grid co-resident (the card's answer), else
     "family". A call compares its operands, makes W with ``torch.empty``
     and makes one ctypes call; ``nbr_launches`` counts the neighbour
     form's. ``form="family"`` takes the family kernel for every p (the main
     path never asks; the neighbour form is held bit for bit against it)."""
+
+    kind, spans = 0, 3      # B4's own kernel: previous, current, next
 
     def __init__(self, op, dtype, device, form=None):
         self.device = _plan_device(device)
@@ -398,70 +500,27 @@ class MultiPlan:
         self.dtype, self.n = dtype, op.shape[0]
         self.shape = (self.n,)
         offsets = _flat_offsets(op)
-        self.k, self.h = len(offsets), max(abs(o) for o in offsets)
         self.cvals = op.coeffs.to(dtype).contiguous()
-        self.itemsize = self.cvals.element_size()
-        self.lib = _build.library()
-        self.suf = _build.suffix(dtype)
-        with _on(self.device):
-            sms = _checked(self.lib.eu_device_sms(), "SM count query")
-        self.grid, self.chunk = nbr_geometry(self.n, sms)
-        self.o = _offsets_field(offsets)
-        self.nbr = {}           # stream -> (address, descriptor, flags, halo)
-        self.nbr_launches = 0
+        self._nbr_init(self.n, offsets, self.cvals)
         self.offs = (ctypes.c_int * self.k)(*offsets)
         self.bufs = {}          # stream -> the family form's scratch
         self._forms = {}
         self.nbr_fn = getattr(self.lib, f"eu_resident_multi_nbr_{self.suf}")
         self.family_fn = getattr(self.lib, f"eu_resident_multi_{self.suf}")
 
-    def smem(self, p: int) -> int:
-        """Bytes of shared memory a neighbour-form block needs for p."""
-        return (3 * (self.chunk + 2 * self.h) + p * self.chunk) * self.itemsize
-
-    def _nbr_launch(self, stream) -> int:
-        """The address of the neighbour form's descriptor for ``stream``,
-        with flags and halos of its own: launches on two streams may
-        overlap."""
-        hit = self.nbr.get(stream)
-        if hit is None:
-            flags = torch.zeros(self.grid, dtype=torch.int64,
-                                device=self.device)
-            halo = torch.empty(max(1, 4 * self.grid * self.h),
-                               dtype=self.dtype, device=self.device)
-            launch = _NbrLaunch(self.cvals.data_ptr(), flags.data_ptr(),
-                                halo.data_ptr(), self.n, self.grid,
-                                self.chunk, self.h, self.k, self.o)
-            hit = self.nbr[stream] = (ctypes.addressof(launch), launch, flags,
-                                      halo)
-        return hit[0]
-
     def form(self, p: int) -> str:
         f = self._forms.get(p)
         if f is None:
-            f = "family"
-            if (self.h <= self.chunk and p <= NBR_MAX_COLS
-                    and not self.only_family):
-                with _on(self.device):
-                    cap = _checked(getattr(
-                        self.lib, f"eu_multi_nbr_capacity_{self.suf}")(
-                            self.smem(p)), "B4 occupancy query")
-                if cap >= self.grid:
-                    f = "neighbour"
+            f = ("neighbour" if p <= NBR_MAX_COLS and not self.only_family
+                 and self._fits(p) else "family")
             self._forms[p] = f
         return f
 
     def __call__(self, x, rows, cw):
         m, p = rows.shape[0], cw.shape[1]
-        for what, t, shape in (("vector", x, self.shape), ("rows", rows,
-                                                           (m, 4)),
-                               ("cw", cw, (m, p))):
-            if (t.dtype != self.dtype or t.device != self.device
-                    or t.shape != shape):
-                raise ValueError(
-                    f"recurrence_apply_resident_multi: expected {what} "
-                    f"{shape} {self.dtype} on {self.device}, got "
-                    f"{tuple(t.shape)} {t.dtype} on {t.device}")
+        self._operands("recurrence_apply_resident_multi",
+                       (("vector", x, self.shape), ("rows", rows, (m, 4)),
+                        ("cw", cw, (m, p))))
         x, rows, cw = x.contiguous(), rows.contiguous(), cw.contiguous()
         W = torch.empty((p, self.n), dtype=self.dtype, device=self.device)
         stream = _build.raw_stream(self.device)
@@ -487,15 +546,182 @@ class MultiPlan:
         return W.T
 
 
+def _scale_ptr(scale, x):
+    """B1's scale as the kernels read it: a null pointer for the number 1
+    (omega_0 = x, bit for bit s x), else the address of a one-element
+    tensor on x's device (a number other than 1 costs one fill launch) and
+    the tensor, kept alive through the launch."""
+    if isinstance(scale, torch.Tensor):
+        s = scale.to(device=x.device, dtype=x.dtype)
+        if s.numel() != 1:
+            raise ValueError(f"resident_recurrence: scale of shape "
+                             f"{tuple(scale.shape)}, one value expected")
+        return s.data_ptr(), s
+    if float(scale) == 1.0:
+        return None, None
+    s = torch.full((1,), float(scale), dtype=x.dtype, device=x.device)
+    return s.data_ptr(), s
+
+
+class RecurrencePlan(_NbrForm):
+    """What every B1 launch on one 1-D constant stencil, for vectors of one
+    dtype on one CUDA device, shares: the checks, the coefficients in that
+    dtype, the form, chosen once (``form``: "neighbour", the blocks of
+    ``_NbrForm`` with one accumulator row and the sum of w^2 taken by the
+    last block of a launch, where max|o| <= chunk and a block's state fits
+    on chip with the whole grid co-resident, the card's answer; else
+    "grid", the persistent cooperative kernel of ``csrc/resident.cu``,
+    with its scratch and partials, one set per stream), the launch
+    descriptors and the C entry point. A call compares x and the rows,
+    makes w and the sum with ``torch.empty``, passes the scale as a
+    pointer (null for 1) and makes one ctypes call. ``form="grid"`` takes
+    the grid kernel at any size (the main path never asks; the neighbour
+    form's w is held bit for bit against it)."""
+
+    def __init__(self, op, dtype, device, form=None):
+        self.device = _plan_device(device)
+        _plan_checks("resident_recurrence", op, dtype, self.device)
+        if form not in (None, "grid"):
+            raise ValueError(f"resident_recurrence: form {form!r}")
+        self.dtype, self.n = dtype, op.shape[0]
+        self.shape = (self.n,)
+        offsets = _flat_offsets(op)
+        self.cvals = op.coeffs.to(dtype).contiguous()
+        self._nbr_init(self.n, offsets, self.cvals)
+        if form is None and self._fits():
+            self.form = "neighbour"
+            self.fn = getattr(self.lib, f"eu_resident_recurrence_nbr_{self.suf}")
+            return
+        self.form = "grid"
+        with _on(self.device):
+            blocks = _checked(self.lib.eu_resident_max_blocks(
+                int(dtype == torch.float64)), "resident kernel occupancy query")
+        self.cap = 2 * blocks
+        self.offs = (ctypes.c_int * self.k)(*offsets)
+        self.scratch = {}       # stream -> (buf, partials) of the grid form
+        self.fn = getattr(self.lib, f"eu_resident_recurrence_{self.suf}")
+
+    def __call__(self, x, rows, scale=1.0):
+        m = rows.shape[0]
+        self._operands("resident_recurrence", (("vector", x, self.shape),
+                                               ("rows", rows, (m, 4))))
+        x, rows = x.contiguous(), rows.contiguous()
+        sp, s = _scale_ptr(scale, x)
+        w = torch.empty_like(x)
+        nrm2 = torch.empty((), dtype=self.dtype, device=self.device)
+        stream = _build.raw_stream(self.device)
+        if self.form == "neighbour":
+            code = self.fn(self._nbr_launch(stream, reduce=True), x.data_ptr(),
+                           sp, rows.data_ptr(), m, w.data_ptr(),
+                           nrm2.data_ptr(), stream)
+        else:
+            hit = self.scratch.get(stream)
+            if hit is None:
+                hit = self.scratch[stream] = (
+                    torch.empty(3 * self.n, dtype=self.dtype,
+                                device=self.device),
+                    torch.empty(self.cap, dtype=self.dtype,
+                                device=self.device))
+            code = self.fn(x.data_ptr(), rows.data_ptr(),
+                           self.cvals.data_ptr(), sp, self.offs, self.k,
+                           self.n, m, w.data_ptr(), hit[0].data_ptr(),
+                           hit[1].data_ptr(), self.cap, nrm2.data_ptr(),
+                           stream)
+        if code:
+            _build.check(code, f"resident recurrence kernel (B1, {self.form} "
+                         "form)")
+        _build.launches["resident_recurrence"] += 1
+        self.nbr_launches += self.form == "neighbour"
+        return w, nrm2
+
+
+class BandedRecurrencePlan(_NbrForm):
+    """What every B5 launch on one ``BandedOperator``, for vectors of one
+    dtype on one CUDA device, shares: the checks, the diagonals in that
+    dtype (the operator's cast, shared with B7), the form, chosen once
+    (``form``: "neighbour", the blocks of ``_NbrForm`` with one accumulator
+    row and the first ``kd`` diagonals' rows kept in shared memory, kd the
+    most that fit, where max|o| <= chunk and a block's state fits on chip
+    with the whole grid co-resident, the card's answer; else "family", the
+    grid-barrier kernel, with its scratch, one set per stream), the launch
+    descriptors and the C entry point. A call compares x and the rows,
+    makes w with ``torch.empty_like`` and makes one ctypes call.
+    ``form="family"`` takes the family kernel at any size (the main path
+    never asks; the neighbour form is held bit for bit against it)."""
+
+    kind, banded = 2, True  # B5's kernel
+    source = "diags"
+
+    def __init__(self, op, dtype, device, form=None):
+        self.device = _plan_device(device)
+        _build.require_cuda("recurrence_apply_resident_banded", self.device)
+        if form not in (None, "family"):
+            raise ValueError(f"recurrence_apply_resident_banded: form "
+                             f"{form!r}")
+        if dtype not in _build.KERNEL_DTYPES:
+            raise ValueError("recurrence_apply_resident_banded takes "
+                             f"float32/float64, got {dtype}")
+        if not resident_banded_supported(op):
+            raise ValueError("recurrence_apply_resident_banded requires a "
+                             f"real BandedOperator with <= "
+                             f"{_build.MAX_POINTS} diagonals (got "
+                             f"{type(op).__name__})")
+        if op.device != self.device:
+            raise ValueError(f"recurrence_apply_resident_banded: operator on "
+                             f"{op.device}, vector on {self.device}")
+        from ..sparse import _promoted
+
+        self.dtype, self.n = dtype, op.shape[0]
+        self.shape = (self.n,)
+        self.diags = _promoted(op, "diags", dtype).contiguous()
+        self._nbr_init(self.n, op.offsets, self.diags)
+        kd = None if form else next(
+            (kd for kd in range(self.k, -1, -1) if self._fits(1, kd)), None)
+        if kd is not None:
+            self.form, self.kd = "neighbour", kd
+            self.fn = getattr(self.lib, f"eu_resident_banded_nbr_{self.suf}")
+            return
+        self.form = "family"
+        self.offs = (ctypes.c_int * self.k)(*op.offsets)
+        self.bufs = {}          # stream -> the family form's scratch
+        self.fn = getattr(self.lib, f"eu_resident_banded_{self.suf}")
+
+    def __call__(self, x, rows):
+        m = rows.shape[0]
+        self._operands("recurrence_apply_resident_banded",
+                       (("vector", x, self.shape), ("rows", rows, (m, 4))))
+        x, rows = x.contiguous(), rows.contiguous()
+        w = torch.empty_like(x)
+        stream = _build.raw_stream(self.device)
+        if self.form == "neighbour":
+            code = self.fn(self._nbr_launch(stream), x.data_ptr(),
+                           rows.data_ptr(), m, w.data_ptr(), stream)
+        else:
+            buf = self.bufs.get(stream)
+            if buf is None:
+                buf = self.bufs[stream] = torch.empty(
+                    3 * self.n, dtype=self.dtype, device=self.device)
+            code = self.fn(x.data_ptr(), rows.data_ptr(),
+                           self.diags.data_ptr(), self.offs, self.k, self.n,
+                           m, w.data_ptr(), buf.data_ptr(), stream)
+        if code:
+            _build.check(code, f"resident banded kernel (B5, {self.form} "
+                         "form)")
+        _build.launches["resident_banded"] += 1
+        self.nbr_launches += self.form == "neighbour"
+        return w
+
+
 def _op_plan(op, cls, dtype, device):
     """``cls``'s plan for ``op``, kept per (dtype, device) with the
-    coefficients and offsets it was built from, rebuilt when either is
-    reassigned."""
+    coefficients (a ``BandedOperator``'s diagonals) and offsets it was built
+    from, rebuilt when either is reassigned."""
     device = _plan_device(device)
     plans = op.__dict__.setdefault("_resident_plans", {})
     hit = plans.get((cls, dtype, device))
-    if hit is None or hit[0] is not op.coeffs or hit[1] != op.offsets:
-        hit = plans[(cls, dtype, device)] = (op.coeffs, op.offsets,
+    src = getattr(op, getattr(cls, "source", "coeffs"))
+    if hit is None or hit[0] is not src or hit[1] != op.offsets:
+        hit = plans[(cls, dtype, device)] = (src, op.offsets,
                                              cls(op, dtype, device))
     return hit[2]
 
@@ -508,6 +734,17 @@ def lanczos_plan(op, dtype, device) -> LanczosPlan:
 def multi_plan(op, dtype, device) -> MultiPlan:
     """B4's plan for ``op`` and vectors of ``dtype`` on CUDA ``device``."""
     return _op_plan(op, MultiPlan, dtype, device)
+
+
+def recurrence_plan(op, dtype, device) -> RecurrencePlan:
+    """B1's plan for ``op`` and vectors of ``dtype`` on CUDA ``device``."""
+    return _op_plan(op, RecurrencePlan, dtype, device)
+
+
+def banded_plan(op, dtype, device) -> BandedRecurrencePlan:
+    """B5's plan for the ``BandedOperator`` ``op`` and vectors of ``dtype``
+    on CUDA ``device``."""
+    return _op_plan(op, BandedRecurrencePlan, dtype, device)
 
 
 # ------------------------------------------------------------ wrappers --
@@ -540,20 +777,6 @@ def _offsets_arg(offsets):
     return (ctypes.c_int * len(offsets))(*offsets)
 
 
-@functools.cache
-def _max_blocks(device_index: int, f64: bool) -> int:
-    """Largest co-resident grid of the resident kernels on this card."""
-    with torch.cuda.device(device_index):
-        n = _build.library().eu_resident_max_blocks(int(f64))
-    _build.check(-n if n < 0 else 0, "resident kernel occupancy query")
-    return n
-
-
-def _partials(x):
-    n = 2 * _max_blocks(x.device.index or 0, x.dtype == torch.float64)
-    return torch.empty(n, dtype=x.dtype, device=x.device), n
-
-
 def _require_device(x, what):
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: no kernel or twin for device {x.device}")
@@ -561,40 +784,21 @@ def _require_device(x, what):
 
 def resident_recurrence(op, x, rows, scale=1.0):
     """(w, sum w^2) of the module-doc recurrence for a 1-D constant
-    ``StencilOperator``: kernel B1 on CUDA, its twin on CPU. ``rows`` is
-    (m, 4) and ``scale`` a number or a one-element tensor, both on x's
-    device."""
+    ``StencilOperator``: kernel B1 on CUDA (through the operator's
+    ``recurrence_plan``), its twin on CPU. ``rows`` is (m, 4) and
+    ``scale`` a number or a one-element tensor, both on x's device."""
     if not resident_supported(op):
         raise ValueError("resident_recurrence requires a 1-D real constant "
                          f"StencilOperator (got {type(op).__name__})")
     _require_device(x, "resident_recurrence")
     rows = _as_rows(rows, x)
-    if isinstance(scale, torch.Tensor):
-        s = scale.to(device=x.device, dtype=x.dtype).reshape(1)
-    else:
-        s = torch.full((1,), float(scale), dtype=x.dtype, device=x.device)
-    offsets = _flat_offsets(op)
-    if x.device.type == "cpu":
-        return resident_recurrence_ref(x, rows, op.coeffs.to(x.dtype),
-                                       offsets, s[0])
-    cvals = _kernel_cvals(op, x)
-    x = x.contiguous()
-    rows = rows.contiguous()
-    n = x.shape[0]
-    w = torch.empty_like(x)
-    buf = torch.empty(3 * n, dtype=x.dtype, device=x.device)
-    partials, cap = _partials(x)
-    nrm2 = torch.empty(1, dtype=x.dtype, device=x.device)
-    lib = _build.library()
-    fn = getattr(lib, f"eu_resident_recurrence_{_build.suffix(x.dtype)}")
-    code = fn(_build.ptr(x), _build.ptr(rows), _build.ptr(cvals),
-              _build.ptr(s), _offsets_arg(offsets), len(offsets), n,
-              rows.shape[0], _build.ptr(w), _build.ptr(buf),
-              _build.ptr(partials), cap, _build.ptr(nrm2),
-              _build.raw_stream(x.device))
-    _build.check(code, "resident recurrence kernel (B1)")
-    _build.launches["resident_recurrence"] += 1
-    return w, nrm2[0]
+    if x.device.type == "cuda":
+        return recurrence_plan(op, x.dtype, x.device)(x, rows, scale)
+    s = (scale.to(device=x.device, dtype=x.dtype).reshape(())
+         if isinstance(scale, torch.Tensor)
+         else torch.tensor(float(scale), dtype=x.dtype))
+    return resident_recurrence_ref(x, rows, op.coeffs.to(x.dtype),
+                                   _flat_offsets(op), s)
 
 
 def recurrence_apply_resident(op, b, rows, *, scale=1.0):
@@ -626,8 +830,8 @@ def recurrence_apply_resident_multi(op, b, rows, cw):
 
 def recurrence_apply_resident_banded(op, b, rows):
     """w = sum_k cw_k omega_k (module doc, omega_0 = b) for a
-    ``BandedOperator``: one launch of kernel B5 on CUDA, its twin on CPU.
-    Returns (n,)."""
+    ``BandedOperator``: one launch of kernel B5 on CUDA (through the
+    operator's ``banded_plan``), its twin on CPU. Returns (n,)."""
     if not resident_banded_supported(op):
         raise ValueError("recurrence_apply_resident_banded requires a real "
                          f"BandedOperator with <= {_build.MAX_POINTS} "
@@ -636,19 +840,7 @@ def recurrence_apply_resident_banded(op, b, rows):
     rows = _as_rows(rows, b)
     if b.device.type == "cpu":
         return resident_banded_ref(b, rows, op.diags.to(b.dtype), op.offsets)
-    _check_launch(op, b)
-    b, rows = b.contiguous(), rows.contiguous()
-    diags = op.diags.to(b.dtype).contiguous()
-    n = b.shape[0]
-    w = torch.empty_like(b)
-    buf = torch.empty(3 * n, dtype=b.dtype, device=b.device)
-    fn = getattr(_build.library(), f"eu_resident_banded_{_build.suffix(b.dtype)}")
-    code = fn(_build.ptr(b), _build.ptr(rows), _build.ptr(diags),
-              _offsets_arg(op.offsets), len(op.offsets), n, rows.shape[0],
-              _build.ptr(w), _build.ptr(buf), _build.raw_stream(b.device))
-    _build.check(code, "resident banded kernel (B5)")
-    _build.launches["resident_banded"] += 1
-    return w
+    return banded_plan(op, b.dtype, b.device)(b, rows)
 
 
 def recurrence_apply_resident_grid(op, b, rows):

@@ -1,24 +1,29 @@
-"""Times the resident kernels B2 (Lanczos pass 1), B4 (multi-column
-recurrence) and, for context, B1 (the recurrence with sum w^2) of the
-package in the current directory on one CUDA card.
+"""Times the resident kernels B1 (the recurrence with sum w^2), B2
+(Lanczos pass 1), B4 (multi-column recurrence), B5 (banded recurrence)
+and B6 (whole-grid recurrence) of the package in the current directory on
+one CUDA card.
 
 Shapes: config #2's 1-D Laplacian at n = 1e5; B2 at m = 20 and 40, B4 at
-p = 4 with m = 12 and 40 (random rows scaled by 1/|A|), B1 at m = 12
-Chebyshev-like rows; float32 and float64. For each: the CUDA-event median
-of one call (the wrapper's host time included), the time per call of 20
-calls back to back, the host microseconds per call (200 calls enqueued,
-then one synchronize), the kernel's device time per launch (the mean of
-its kernel events under torch.profiler over 20 calls, taken after every
-other measurement: once the profiler has run, each launch costs the host
-more for the rest of the process), and the per-step cost: the slope of
-the back-to-back and device times over m, the figure a kernel bound by
-synchronisation shows and its byte bound cannot. Every line carries the
-card's name and power limit.
+p = 4 and B1 with m = 12 and 40 (random rows scaled by 1/|A|); B5 on
+config #3's poisson_2d(1000, 1000) at m = 4, 8 and 16; B6 on the 2-D
+512^2 Laplacian at m = 15 and 40; float32 and float64. For each: the
+CUDA-event median of one call (the wrapper's host time included), the
+time per call of 20 calls back to back, the host microseconds per call
+(200 calls enqueued, then one synchronize), the kernel's device time per
+launch (the mean of its kernel events under torch.profiler over 20
+calls, taken after every other measurement: once the profiler has run,
+each launch costs the host more for the rest of the process), and the
+per-step cost: the slope of the back-to-back and device times over m,
+the figure a kernel bound by synchronisation shows and its byte bound
+cannot. Every line carries the card's name and power limit.
 
 Where the tree has B4's launch plan (``resident.MultiPlan``), the family
 kernel is timed beside the neighbour form through a plan built with
-``form="family"``. B2 has no such option: its grid form is timed from a
-tree that runs it at every size (one from before the plans). The sizes
+``form="family"``; likewise B1's grid kernel (``RecurrencePlan(...,
+form="grid")``) and B5's family kernel (``BandedRecurrencePlan(...,
+form="family")``) where the tree has those plans. B2 has no such
+option: its grid form is timed from a tree that runs it at every size
+(one from before the plans). The sizes
 around B2's gate (``resident.CLUSTER_MAX_ROWS``: float64 n = 131k, the
 last size of the cluster form, 150k and 230k above it; float32 n = 200k,
 300k and 360k on it, 460k above) and B4 at n = 3e5 (chunks of 2273 rows)
@@ -34,9 +39,10 @@ neighbour flags, grid barriers) come from ``sync_bench.cu``, built and
 run by hand (its header says how).
 
 chip_smoke.py times the main-path shapes in its phase 5; this script is
-the version that also runs against an earlier commit. It also times
-config #2's two-pass ``expv(m=40)`` and ``phiv(k=3, m=40)`` end to end
-(float64), the calls that run B2 and then B1 or B4.
+the version that also runs against an earlier commit. It also times end
+to end (float64) config #2's ``expv_chebyshev`` (B1), two-pass
+``expv(m=40)`` and ``phiv(k=3, m=40)`` (B2 and then B1 or B4) and config
+#3's ``expv_chebyshev`` (B5).
 """
 
 import os
@@ -52,6 +58,8 @@ import torch
 sys.path.insert(0, os.getcwd())
 
 N = 100_000                  # BASELINE config #2
+NP = 1000                    # BASELINE config #3: poisson_2d(1000, 1000)
+NG = 512                     # the 2-D grid under B6's gate
 
 
 def median_ms(fn, reps=10, warmup=2):
@@ -183,13 +191,60 @@ def main() -> int:
                      kname)
         return rows
 
-    for dt in (torch.float32, torch.float64):
+    def scaled_rows(op, dt, m):
+        r = torch.as_tensor(rng.standard_normal((m, 4)) * 0.5, dtype=dt,
+                            device=dev)
+        r[:, 0] *= 2.0 / float(op.opnorm_hint())
+        return r
+
+    def b1(op, b, dt, rows):
+        dn, n = str(dt).split(".")[-1], op.shape[0]
+        forms = {"grid": partial(tr.resident_recurrence, op)}
+        if hasattr(tr, "RecurrencePlan"):   # the main path's form, and the grid
+            forms = {tr.recurrence_plan(op, dt, dev).form: forms["grid"]}
+            forms.setdefault("grid", tr.RecurrencePlan(op, dt, dev,
+                                                       form="grid"))
+        for form, fn in forms.items():
+            for m, r in rows.items():
+                line(("B1", f"{form} form", dn, n, m), f"B1 {dn} n={n} m={m} "
+                     f"({form} form)", partial(fn, b, r), "resident_")
+
+    def b5(dt, ms):
         dn = str(dt).split(".")[-1]
+        op = et.poisson_2d(NP, NP, dtype=dt, device=dev)
+        b = torch.as_tensor(rng.standard_normal(NP * NP), dtype=dt,
+                            device=dev)
+        forms = {"family": partial(tr.recurrence_apply_resident_banded, op)}
+        if hasattr(tr, "BandedRecurrencePlan"):
+            plan = tr.banded_plan(op, dt, dev)
+            forms = {plan.form: forms["family"]}
+            forms.setdefault("family", tr.BandedRecurrencePlan(
+                op, dt, dev, form="family"))
+            print(f"B5 {dn} config #3: {plan.form} form, {plan.grid} blocks "
+                  f"of {plan.chunk} rows, {plan.kd} of {plan.k} diagonals in "
+                  f"shared memory {card}", flush=True)
+        for form, fn in forms.items():
+            for m in ms:
+                line(("B5", f"{form} form", dn, NP * NP, m), f"B5 {dn} "
+                     f"poisson_2d({NP}, {NP}) m={m} ({form} form)",
+                     partial(fn, b, scaled_rows(op, dt, m)), "Banded")
+
+    def b6(dt, ms):
+        dn = str(dt).split(".")[-1]
+        op = et.laplacian_nd_stencil(NG, NG, dtype=dt, device=dev)
+        b = torch.as_tensor(rng.standard_normal(NG * NG), dtype=dt,
+                            device=dev)
+        for m in ms:
+            line(("B6", "family form", dn, NG * NG, m), f"B6 {dn} {NG}^2 "
+                 f"m={m}", partial(tr.recurrence_apply_resident_grid, op, b,
+                                   scaled_rows(op, dt, m)), "Grid3D")
+
+    for dt in (torch.float32, torch.float64):
         op, b = b2(N, dt, (20, 40))
         rows = b4(op, b, dt, (12, 40))
-        line(("B1", "grid", dn, N, 12), f"B1 {dn} n={N} m=12",
-             partial(tr.resident_recurrence, op, b, rows[12], 1.0),
-             "recurrence")
+        b1(op, b, dt, rows)
+        b5(dt, (4, 8, 16))
+        b6(dt, (15, 40))
     # the sizes around B2's gate and B4 with chunks three times config #2's
     for dt, sizes in ((torch.float64, (131_000, 150_000, 230_000)),
                       (torch.float32, (200_000, 300_000, 360_000, 460_000))):
@@ -197,26 +252,43 @@ def main() -> int:
             b2(n, dt, (40,))
         op, b = b2(300_000, dt, ())
         b4(op, b, dt, (12,))
-    # end to end at config #2 (t = 0.5, float64): the two-pass calls that
-    # run B2 then B1 (expv) or B2 then B4 (phiv, k = 3)
+    # end to end (float64): config #2 (t = 0.5), expv_chebyshev (B1) and
+    # the two-pass calls that run B2 then B1 (expv) or B2 then B4 (phiv,
+    # k = 3); config #3 (t = 1e-4), expv_chebyshev (B5)
     op = et.laplacian_nd_stencil(N, device=dev)
     b = torch.as_tensor(rng.standard_normal(N), device=dev)
-    for label, fn in (("expv(m=40, two_pass=True)", partial(
-            et.expv, 0.5, op, b, m=40, two_pass=True)),
-                      ("phiv(k=3, m=40, two_pass=True)", partial(
-                          et.phiv, 0.5, op, b, 3, m=40, two_pass=True))):
+    opP = et.poisson_2d(NP, NP, device=dev)
+    bP = torch.as_tensor(rng.standard_normal(NP * NP), device=dev)
+    for label, fn in (("config #2 expv_chebyshev(tol=1e-12)", partial(
+            et.expv_chebyshev, 0.5, op, b, tol=1e-12)),
+                      ("config #2 expv(m=40, two_pass=True)", partial(
+                          et.expv, 0.5, op, b, m=40, two_pass=True)),
+                      ("config #2 phiv(k=3, m=40, two_pass=True)", partial(
+                          et.phiv, 0.5, op, b, 3, m=40, two_pass=True)),
+                      ("config #3 expv_chebyshev(tol=1e-12)", partial(
+                          et.expv_chebyshev, 1e-4, opP, bP, tol=1e-12))):
         one = [median_ms(fn) for _ in range(3)]
-        print(f"end-to-end config #2 float64 {label}: one call "
+        print(f"end-to-end {label} float64: one call "
               f"{' / '.join(f'{t:.4f}' for t in one)} ms (three medians of "
               f"10), back-to-back {burst_ms(fn):.4f} ms {card}", flush=True)
-    for (kernel, form, dn, n, m) in [k for k in b2b if k[0] != "B1"]:
-        lo = 20 if kernel == "B2" else 12
-        if m != 40 or (kernel, form, dn, n, lo) not in b2b:
-            continue
-        slope = b2b[(kernel, form, dn, n, 40)] - b2b[(kernel, form, dn, n, lo)]
-        print(f"per-step {kernel} {dn} n={n} ({form}), back-to-back slope "
-              f"over m = {lo}..40: {slope / (40 - lo) * 1e3:.3f} us {card}",
-              flush=True)
+
+    def slopes(times, how):
+        """The per-step slope of each kernel and form timed at several m:
+        between the smallest and the largest m."""
+        groups = {}
+        for (kernel, form, dn, n, m), ms in times.items():
+            if ms is not None:
+                groups.setdefault((kernel, form, dn, n), {})[m] = ms
+        for (kernel, form, dn, n), by_m in groups.items():
+            if len(by_m) < 2:
+                continue
+            lo, hi = min(by_m), max(by_m)
+            print(f"per-step {kernel} {dn} n={n} ({form}), {how} slope over "
+                  f"m = {lo}..{hi}: "
+                  f"{(by_m[hi] - by_m[lo]) / (hi - lo) * 1e3:.3f} us {card}",
+                  flush=True)
+
+    slopes(b2b, "back-to-back")
     dev_ms = {}
     for key, label, fn, kname in device_jobs:
         dms = device_ms(fn, kname)
@@ -225,14 +297,7 @@ def main() -> int:
               + (f"{dms:.4f} ms per launch" if dms is not None else
                  "not measured (the profiler missed launches)")
               + f" {card}", flush=True)
-    for (kernel, form, dn, n, m) in [k for k in dev_ms if k[0] != "B1"]:
-        lo = 20 if kernel == "B2" else 12
-        a, z = dev_ms.get((kernel, form, dn, n, lo)), dev_ms.get(
-            (kernel, form, dn, n, 40))
-        if m == 40 and a is not None and z is not None:
-            print(f"per-step {kernel} {dn} n={n} ({form}), device slope over "
-                  f"m = {lo}..40: {(z - a) / (40 - lo) * 1e3:.3f} us {card}",
-                  flush=True)
+    slopes(dev_ms, "device")
     return 0
 
 

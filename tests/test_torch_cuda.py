@@ -920,3 +920,152 @@ def test_resident_plans_replay_from_a_cuda_graph(dev):
         g.replay()
         torch.cuda.synchronize()
         assert torch.equal(W, want_w) and torch.equal(ab, want_ab)
+
+
+# ---- B1's and B5's neighbour forms ----------------------------------------
+
+# one size past B1's neighbour gate per dtype: a block's state (two omega
+# spans and one accumulator row of ~n/132 rows) exceeds its shared memory
+B1_PAST_GATE = {torch.float32: 3_000_000, torch.float64: 1_500_000}
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("size", ["1000", "1e5", "past the gate"])
+def test_b1_neighbour_vs_twin_and_grid(dev, dt, size):
+    """B1 with a scale other than 1 against its twin, and its neighbour
+    form's w against the grid form's bit for bit (both call the same row
+    functions; the sums of w^2 add in other orders)."""
+    n = {"1000": 1000, "1e5": 100_000}.get(size, B1_PAST_GATE[dt])
+    op = _stencil1(n, FIVE, dt, dev)
+    plan = tr.recurrence_plan(op, dt, dev)
+    assert plan.form == ("grid" if size == "past the gate" else "neighbour")
+    x = _vec(n, dt, dev, 50)
+    rows = _rows(12, op, dt, dev, 51)
+    scale = torch.tensor(0.7, dtype=dt, device=dev)
+    w, nrm = tr.resident_recurrence(op, x, rows, scale)
+    wr, nrr = tr.resident_recurrence_ref(x, rows, op.coeffs, list(FIVE),
+                                         scale)
+    _close(w, wr, dt)
+    _close(nrm.reshape(1), nrr.reshape(1), dt)
+    wg, nrg = tr.RecurrencePlan(op, dt, dev, form="grid")(x, rows, scale)
+    assert torch.equal(w, wg)
+    _close(nrg.reshape(1), nrr.reshape(1), dt)
+
+
+@pytest.mark.parametrize("m", [0, 1, 2])
+def test_b1_b5_short_chains(dev, m):
+    """m = 0 gives zeros (and sum w^2 = 0), m = 1 and 2 the twins' w, on
+    both kernels' neighbour forms."""
+    op = _stencil1(1000, THREE, torch.float64, dev)
+    x = _vec(1000, torch.float64, dev, 52)
+    rows = _rows(m, op, torch.float64, dev, 53)
+    w, nrm = tr.resident_recurrence(op, x, rows, 0.5)
+    wr, nrr = tr.resident_recurrence_ref(x, rows, op.coeffs, list(THREE),
+                                         torch.tensor(0.5, device=dev,
+                                                      dtype=torch.float64))
+    opb = et.poisson_2d(30, 40, device=dev)
+    xb = _vec(1200, torch.float64, dev, 54)
+    rb = _rows(m, opb, torch.float64, dev, 55)
+    wb = tr.recurrence_apply_resident_banded(opb, xb, rb)
+    wbr = tr.resident_banded_ref(xb, rb, opb.diags, opb.offsets)
+    assert tr.recurrence_plan(op, torch.float64, dev).form == "neighbour"
+    assert tr.banded_plan(opb, torch.float64, dev).form == "neighbour"
+    if m == 0:
+        assert not w.any() and float(nrm) == 0.0 and not wb.any()
+    else:
+        _close(w, wr, torch.float64)
+        _close(nrm.reshape(1), nrr.reshape(1), torch.float64)
+        _close(wb, wbr, torch.float64)
+
+
+def test_b1_sum_bitwise_over_launches_and_graph_replays(dev):
+    """Sum w^2 is summed by the last block in block order: five launches,
+    and replays of a captured launch (whose ticket keeps counting), give
+    the same bits."""
+    op = _stencil1(100_000, THREE, torch.float64, dev)
+    x = _vec(100_000, torch.float64, dev, 56)
+    rows = _rows(12, op, torch.float64, dev, 57)
+    plan = tr.recurrence_plan(op, torch.float64, dev)
+    assert plan.form == "neighbour"
+    outs = [plan(x, rows) for _ in range(5)]
+    for w, nrm in outs[1:]:
+        assert torch.equal(w, outs[0][0]) and torch.equal(nrm, outs[0][1])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # the capture stream's buffers, made
+        plan(x, rows)               # outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side):
+        w, nrm = plan(x, rows)
+    for _ in range(3):
+        w.zero_()
+        nrm.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(w, outs[0][0]) and torch.equal(nrm, outs[0][1])
+
+
+def test_b1_on_two_streams(dev):
+    """Launches of one B1 plan on two streams, free to overlap, each with
+    flags, halos, partials and a ticket of its own, give the bits of
+    launches on one stream."""
+    op = _stencil1(100_000, THREE, torch.float64, dev)
+    x, x2 = (_vec(100_000, torch.float64, dev, s) for s in (58, 59))
+    rows = _rows(12, op, torch.float64, dev, 60)
+    plan = tr.recurrence_plan(op, torch.float64, dev)
+    want = [plan(x, rows), plan(x2, rows)]
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(3):
+        for s, v in ((s1, x), (s2, x2)):
+            with torch.cuda.stream(s):
+                got.append(plan(v, rows))
+    torch.cuda.synchronize()
+    for i, (w, nrm) in enumerate(got):
+        assert torch.equal(w, want[i % 2][0]), i
+        assert torch.equal(nrm, want[i % 2][1]), i
+    assert len(plan.nbr) == 3
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("kind", ["poisson 30x40", "poisson 300x300",
+                                  "laplacian 1e5"])
+def test_b5_neighbour_vs_twin_and_family(dev, dt, kind):
+    """B5's neighbour form (poisson 300 x 300: 132 blocks of 682 rows with
+    h = 300) against its twin, and bit for bit against the family kernel;
+    five launches give the same bits."""
+    op = {"poisson 30x40": lambda: et.poisson_2d(30, 40, dtype=dt,
+                                                 device=dev),
+          "poisson 300x300": lambda: et.poisson_2d(300, 300, dtype=dt,
+                                                   device=dev),
+          "laplacian 1e5": lambda: et.laplacian_1d(100_000, dtype=dt,
+                                                   device=dev)}[kind]()
+    plan = tr.banded_plan(op, dt, dev)
+    assert plan.form == "neighbour"
+    x = _vec(op.shape[0], dt, dev, 61)
+    rows = _rows(12, op, dt, dev, 62)
+    w = tr.recurrence_apply_resident_banded(op, x, rows)
+    _close(w, tr.resident_banded_ref(x, rows, op.diags, op.offsets), dt)
+    family = tr.BandedRecurrencePlan(op, dt, dev, form="family")
+    assert family.form == "family" and torch.equal(w, family(x, rows))
+    for _ in range(4):
+        assert torch.equal(w, plan(x, rows))
+
+
+def test_b5_offsets_wider_than_a_block_take_the_family_form(dev):
+    """n = 1000 on 4 blocks of 250 rows, offsets +-300: the family kernel."""
+    n = 1000
+    D = np.random.default_rng(63).uniform(-1, 1, (3, n))
+    D[0, :300] = D[2, n - 300:] = 0.0
+    op = et.BandedOperator(torch.as_tensor(D, device=dev), (-300, 0, 300))
+    plan = tr.banded_plan(op, torch.float64, dev)
+    assert (plan.grid, plan.chunk, plan.form) == (4, 250, "family")
+    x = _vec(n, torch.float64, dev, 64)
+    rows = _rows(10, op, torch.float64, dev, 65)
+    _build.reset_launch_counts()
+    w = tr.recurrence_apply_resident_banded(op, x, rows)
+    assert _build.launches["resident_banded"] == 1 and plan.nbr_launches == 0
+    _close(w, tr.resident_banded_ref(x, rows, op.diags, op.offsets),
+           torch.float64)

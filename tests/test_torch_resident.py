@@ -408,13 +408,13 @@ def _card(max_cluster=16, sms=132, blocks=1024):
         return int(L.cluster <= max_cluster
                    and _cluster_fits(L.rows, halo, fits.dtype))
 
-    def capacity(smem):
+    def capacity(kind, smem):
         return sms if smem + NBR_STATIC <= OPTIN else 0
 
     fits.dtype = torch.float64
     returns = {"eu_device_sms": sms, "eu_resident_max_blocks": blocks,
-               "eu_multi_nbr_capacity_f32": capacity,
-               "eu_multi_nbr_capacity_f64": capacity}
+               "eu_nbr_capacity_f32": capacity,
+               "eu_nbr_capacity_f64": capacity}
     return fits, returns
 
 
@@ -570,7 +570,7 @@ def test_multi_plan_forms_vs_brute_force(monkeypatch, dtype):
     assert (L.grid, L.chunk, L.h, L.k, L.n) == (132, 758, 1, 3, 100_000)
     (addr, _, flags, halo), = plan.nbr.values()
     assert lib.calls[1][1][0] == addr
-    assert L.flags == flags.data_ptr() and flags.numel() == 132
+    assert L.flags == flags.data_ptr() and flags.numel() == 132 * 16
     assert not flags.any() and halo.numel() == 4 * 132 * 1
     assert lib.calls[1][1][4:6] == (4, 12)
 
@@ -635,10 +635,11 @@ def test_launch_descriptor_layouts():
     assert ctypes.sizeof(L) == 288
     assert (L.n.offset, L.rows.offset, L.cluster.offset, L.k.offset,
             L.o.offset) == (8, 16, 24, 28, 32)
-    N = tr._NbrLaunch
-    assert ctypes.sizeof(N) == 304
-    assert (N.n.offset, N.grid.offset, N.k.offset, N.o.offset) == (
-        24, 32, 44, 48)
+    N = tr._NbrLaunch       # one descriptor for B1's, B4's and B5's form
+    assert ctypes.sizeof(N) == 328
+    assert (N.partials.offset, N.ticket.offset, N.n.offset, N.grid.offset,
+            N.k.offset, N.kd.offset, N.o.offset) == (24, 32, 40, 48, 60, 64,
+                                                     68)
 
 
 def test_plans_take_a_forced_form(monkeypatch):
@@ -683,4 +684,230 @@ def test_resident_plans_keep_buffers_per_stream(monkeypatch, n, cls):
                 if name.startswith("eu_resident_")]
     ptrs = [args[where] for args in launches]
     assert [args[-1] for args in launches] == [11, 22, 11, 22, 11]
+    assert ptrs[0] == ptrs[2] == ptrs[4] != ptrs[1] == ptrs[3]
+
+
+# ------------------------------------------ B1 and B5 launch plans (host) --
+
+def _banded_op(n, offsets, dtype=torch.float64):
+    D = torch.linspace(0.5, 1.5, len(offsets) * n,
+                       dtype=torch.float64).reshape(len(offsets), n)
+    return et.BandedOperator(D.to(dtype), offsets, is_hermitian=True)
+
+
+def test_nbr_smem_byte_counts():
+    """The neighbour forms' layout: two omega spans of chunk + 2h (B1, B5:
+    omega_{k+1} in place over omega_{k-1}; B4's kernel three), p accumulator
+    rows, kd diagonal rows. At
+    config #3 (n = 1e6 on 132 blocks of 7576 rows, h = 1000) float64 fits
+    the state and no diagonal; float32 the state and four of the five."""
+    assert tr.nbr_smem(7576, 1000, 1, 0, 8) == (2 * 9576 + 7576) * 8 == 213_824
+    assert tr.nbr_smem(7576, 1000, 1, 0, 4) == 106_912
+    assert tr.nbr_smem(7576, 1000, 1, 4, 4) == 228_128 <= OPTIN - NBR_STATIC
+    assert tr.nbr_smem(7576, 1000, 1, 5, 4) > OPTIN - NBR_STATIC
+    assert tr.nbr_smem(758, 1, 1, 0, 8) == (2 * 760 + 758) * 8     # config #2
+    assert tr.nbr_smem(758, 1, 4, 0, 8, 3) == (3 * 760 + 4 * 758) * 8  # B4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_recurrence_plan_forms_vs_brute_force(monkeypatch, dtype):
+    """B1's form against the brute force: the neighbour form where max|o|
+    is within a block's rows and two spans plus one accumulator row fit the
+    opt-in shared memory, else the grid kernel; also when the card answers
+    that fewer blocks fit than the grid needs."""
+    lib = _fake(monkeypatch, dtype)
+    itemsize = 4 if dtype == torch.float32 else 8
+    cpu = torch.device("cpu")
+    for n in (5, 1000, 100_000, 900_000, 1_200_000, 1_300_000, 2_500_000,
+              2_600_000, 3_000_000):
+        for offsets in ((-1, 0, 1), (-2, -1, 0, 1, 2)):
+            if n < 1000 and len(offsets) == 5:
+                continue
+            plan = tr.RecurrencePlan(_stencil(n, offsets, dtype), dtype, cpu)
+            h = max(abs(o) for o in offsets)
+            state = (2 * (plan.chunk + 2 * h) + plan.chunk) * itemsize
+            want = ("neighbour" if h <= plan.chunk
+                    and state + NBR_STATIC <= OPTIN else "grid")
+            assert plan.form == want, (n, offsets)
+            assert plan.smem() == state
+    for offsets in ((-150, 0, 150), (-151, 0, 151)):   # 2 blocks of 150
+        plan = tr.RecurrencePlan(_stencil(300, offsets, dtype), dtype, cpu)
+        assert plan.form == ("neighbour" if offsets[-1] == 150 else "grid")
+    lib.returns[f"eu_nbr_capacity_{_build.suffix(dtype)}"] = (
+        lambda kind, smem: 131)             # one block short of the grid
+    assert tr.RecurrencePlan(_stencil(100_000, (-1, 0, 1), dtype), dtype,
+                             cpu).form == "grid"
+    assert tr.RecurrencePlan(_stencil(1000, (-1, 0, 1), dtype), dtype,
+                             cpu).form == "neighbour"      # 4 blocks
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_banded_plan_forms_vs_brute_force(monkeypatch, dtype):
+    """B5's form and kept diagonals against the brute force: the neighbour
+    form where max|o| is within a block's rows and the state fits, with kd
+    the most diagonals whose rows fit beside it, else the family kernel."""
+    lib = _fake(monkeypatch, dtype)
+    itemsize = 4 if dtype == torch.float32 else 8
+    cpu = torch.device("cpu")
+    for n, offsets in ((1200, (-30, -1, 0, 1, 30)), (90_000, (-300, -1, 0, 1,
+                                                              300)),
+                       (100_000, (-1, 0, 1)), (1_000_000, (-1000, -1, 0, 1,
+                                                           1000)),
+                       (1_300_000, (-1, 0, 1)), (3_000_000, (-1, 0, 1)),
+                       (1000, (-300, 0, 300)), (1000, (-250, 0, 250)),
+                       (7, (0,))):
+        plan = tr.BandedRecurrencePlan(_banded_op(n, offsets, dtype), dtype,
+                                       cpu)
+        h, k = max(abs(o) for o in offsets), len(offsets)
+        fit = [kd for kd in range(k + 1)
+               if (2 * (plan.chunk + 2 * h) + (1 + kd) * plan.chunk)
+               * itemsize + NBR_STATIC <= OPTIN]
+        want = ("neighbour", max(fit)) if fit and h <= plan.chunk else (
+            "family", 0)
+        assert (plan.form, plan.kd) == want, (n, offsets)
+    config3 = tr.BandedRecurrencePlan(
+        _banded_op(1_000_000, (-1000, -1, 0, 1, 1000), dtype), dtype, cpu)
+    assert (config3.grid, config3.chunk, config3.form, config3.kd) == (
+        132, 7576, "neighbour", 4 if dtype == torch.float32 else 0)
+    lib.returns[f"eu_nbr_capacity_{_build.suffix(dtype)}"] = (
+        lambda kind, smem: 0 if kind == 2 else 132)     # B5's kernel
+    assert tr.BandedRecurrencePlan(_banded_op(100_000, (-1, 0, 1), dtype),
+                                   dtype, cpu).form == "family"
+
+
+def test_recurrence_plan_launches(monkeypatch):
+    """One ctypes call a launch: the neighbour form's descriptor (partials,
+    and the ticket after the flags), the scale as a null pointer for 1 and
+    a device pointer otherwise, w and the sum from torch.empty; the grid
+    form's scratch and partials."""
+    lib = _fake(monkeypatch, torch.float64)
+    cpu = torch.device("cpu")
+    op = _stencil(100_000, (-1, 0, 1))
+    plan = tr.recurrence_plan(op, torch.float64, cpu)
+    assert (plan.form, plan.grid, plan.chunk) == ("neighbour", 132, 758)
+    x = torch.ones(100_000, dtype=torch.float64)
+    rows = torch.ones((12, 4), dtype=torch.float64)
+    _build.reset_launch_counts()
+    lib.calls.clear()
+    w, nrm = plan(x, rows)
+    s = torch.tensor(0.5, dtype=torch.float64)
+    plan(x, rows, s)
+    assert w.shape == (100_000,) and nrm.shape == ()
+    assert _build.launches["resident_recurrence"] == 2
+    assert plan.nbr_launches == 2
+    (n1, a1), (n2, a2) = lib.calls
+    assert n1 == n2 == "eu_resident_recurrence_nbr_f64"
+    assert a1[2] is None and a2[2] == s.data_ptr() and a1[4] == 12
+    (addr, L, flags, halo, partials), = plan.nbr.values()
+    assert a1[0] == a2[0] == addr
+    assert flags.numel() == 132 * 16 + 1 and not flags.any()
+    assert halo.numel() == 4 * 132
+    assert L.ticket == flags.data_ptr() + 8 * 132 * 16     # own line
+    assert L.partials == partials.data_ptr() and partials.numel() == 132
+    assert (L.coef, L.k, L.kd, L.h) == (plan.cvals.data_ptr(), 3, 0, 1)
+    grid = tr.RecurrencePlan(op, torch.float64, cpu, form="grid")
+    lib.calls.clear()
+    grid(x, rows, 2.0)
+    (name, args), = lib.calls
+    (buf, part), = grid.scratch.values()
+    assert name == "eu_resident_recurrence_f64" and grid.nbr_launches == 0
+    assert args[9] == buf.data_ptr() and buf.numel() == 300_000
+    assert args[10] == part.data_ptr() and args[11] == grid.cap == 2048
+    assert args[3] is not None and args[5:8] == (3, 100_000, 12)
+    with pytest.raises(ValueError):
+        tr.RecurrencePlan(op, torch.float64, cpu, form="family")
+    with pytest.raises(ValueError):
+        plan(x, rows, torch.ones(2, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        plan(x.float(), rows)
+    with pytest.raises(ValueError):
+        plan(x, torch.ones((12, 3), dtype=torch.float64))
+
+
+def test_banded_plan_launches(monkeypatch):
+    lib = _fake(monkeypatch, torch.float32)
+    cpu = torch.device("cpu")
+    op = _banded_op(1_000_000, (-1000, -1, 0, 1, 1000), torch.float64)
+    plan = tr.banded_plan(op, torch.float32, cpu)
+    assert (plan.form, plan.kd) == ("neighbour", 4)
+    assert plan.diags.dtype == torch.float32 and plan.diags.is_contiguous()
+    x = torch.ones(1_000_000, dtype=torch.float32)
+    rows = torch.ones((4, 4), dtype=torch.float32)
+    lib.calls.clear()
+    _build.reset_launch_counts()
+    w = plan(x, rows)
+    (name, args), = lib.calls
+    assert name == "eu_resident_banded_nbr_f32" and w.shape == (1_000_000,)
+    assert args[3] == 4 and plan.nbr_launches == 1
+    L = tr._NbrLaunch.from_address(args[0])
+    assert (L.coef, L.kd, L.h, L.k, L.grid, L.chunk) == (
+        plan.diags.data_ptr(), 4, 1000, 5, 132, 7576)
+    assert not L.partials and not L.ticket
+    assert list(L.o[:5]) == [-1000, -1, 0, 1, 1000]
+    fam = tr.BandedRecurrencePlan(op, torch.float32, cpu, form="family")
+    lib.calls.clear()
+    fam(x, rows)
+    (name, args), = lib.calls
+    (buf,), = [tuple(fam.bufs.values())]
+    assert name == "eu_resident_banded_f32" and args[4:7] == (5, 1_000_000, 4)
+    assert args[8] == buf.data_ptr() and buf.numel() == 3_000_000
+    assert _build.launches["resident_banded"] == 2
+
+
+def test_b1_b5_plans_cached_rebuilt_and_refuse_cpu(monkeypatch):
+    """Kept per (dtype, device) on the operator, rebuilt when its
+    coefficients or diagonals are reassigned; with the real library a plan
+    for the CPU raises before any query."""
+    cpu = torch.device("cpu")
+    st, bd = _stencil(1000, (-1, 0, 1)), _banded_op(1000, (-1, 0, 1))
+    for cls, op in ((tr.RecurrencePlan, st), (tr.BandedRecurrencePlan, bd)):
+        with pytest.raises(ValueError, match="launch plan"):
+            cls(op, torch.float64, cpu)
+    _fake(monkeypatch, torch.float64)
+    for make, op, attr in ((tr.recurrence_plan, st, "coeffs"),
+                           (tr.banded_plan, bd, "diags")):
+        a = make(op, torch.float64, cpu)
+        assert make(op, torch.float64, cpu) is a
+        assert make(op, torch.float32, cpu) is not a
+        setattr(op, attr, getattr(op, attr).clone())    # reassigned
+        b = make(op, torch.float64, cpu)
+        assert b is not a and make(op, torch.float64, cpu) is b
+    assert tr.recurrence_plan(st, torch.float64, cpu) is not tr.multi_plan(
+        st, torch.float64, cpu)
+    for cls, op in ((tr.RecurrencePlan, bd), (tr.BandedRecurrencePlan, st)):
+        with pytest.raises(ValueError):
+            cls(op, torch.float64, cpu)
+    with pytest.raises(ValueError):
+        tr.BandedRecurrencePlan(bd, torch.float16, cpu)
+
+
+@pytest.mark.parametrize("case", ["B1 neighbour", "B1 grid", "B5 neighbour",
+                                  "B5 family"])
+def test_b1_b5_plans_keep_buffers_per_stream(monkeypatch, case):
+    """Flags, halos, partials, tickets and scratch are kept per stream,
+    made once for each and reused by every later call on it."""
+    lib = _fake(monkeypatch, torch.float64)
+    streams = iter([11, 22, 11, 22, 11])
+    monkeypatch.setattr(_build, "raw_stream", lambda device: next(streams))
+    cpu = torch.device("cpu")
+    forced = case.endswith(("grid", "family")) or None
+    if case.startswith("B1"):
+        plan = tr.RecurrencePlan(_stencil(100_000, (-1, 0, 1)), torch.float64,
+                                 cpu, form=forced and "grid")
+        held, where = ("nbr", 0) if plan.form == "neighbour" else (
+            "scratch", 9)
+    else:
+        plan = tr.BandedRecurrencePlan(_banded_op(100_000, (-1, 0, 1)),
+                                       torch.float64, cpu,
+                                       form=forced and "family")
+        held, where = ("nbr", 0) if plan.form == "neighbour" else ("bufs", 8)
+    assert plan.form == case.split()[1]
+    x = torch.ones(100_000, dtype=torch.float64)
+    rows = torch.ones((6, 4), dtype=torch.float64)
+    lib.calls.clear()
+    for _ in range(5):
+        plan(x, rows)
+    assert sorted(getattr(plan, held)) == [11, 22]
+    ptrs = [args[where] for _, args in lib.calls]
+    assert [args[-1] for _, args in lib.calls] == [11, 22, 11, 22, 11]
     assert ptrs[0] == ptrs[2] == ptrs[4] != ptrs[1] == ptrs[3]
