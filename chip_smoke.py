@@ -41,7 +41,10 @@ its seconds:
               and config #2's plans on the cluster and neighbour forms;
               B1's and B5's plans on their neighbour forms (B1 also past
               its gate, n = 1.5M float64 / 3M float32, on the grid form;
-              B5 bit for bit against its family kernel);
+              B5 bit for bit against its family kernel); B6's plan on its
+              neighbour form (tiles of whole x-lines) at 512^2 5-point,
+              64^3 7-point and 64^3 27-point box, bit for bit against
+              its family kernel;
               per SELL pack, the share of B9's 256-row blocks
               that stage x in shared memory (none of the band-20000
               pack's; phase 4 adds the RCM'd n = 1e6 pack, held to more
@@ -62,13 +65,16 @@ its seconds:
               #2 on the neighbour form, and every B1 launch of config #2's
               expv_chebyshev and two-pass expv and every B5 launch of
               config #3's expv_chebyshev on the neighbour form (counted
-              by their plans); the kernel-driving passes rerun
+              by their plans), and the 2-D 512^2 expv_chebyshev's B6
+              launch on the neighbour form; the kernel-driving passes rerun
               under torch.cuda.set_sync_debug_mode("error")
   5. times    CUDA-event medians of >= 10 runs after warm-up, each kernel
-              beside its plain twin, B6 beside the B3 sweeps on the same
-              grid, B9 at bench_sell.py's timing shape (n = 1e7) with its
-              GB/s and Gnnz/s, each main-path call beside the plain
-              path, and for each kernel its bound (the larger of its bytes
+              beside its plain twin, B6 (its main-path form and its
+              family kernel) beside the B3 sweeps on the same grid at
+              512^2, 1000^2, 64^3, 100^3, 128^3, 160^3 and 216^3 (the
+              gate's table), B9 at bench_sell.py's timing shape (n = 1e7)
+              with its GB/s and Gnnz/s, each main-path call beside the
+              plain path, and for each kernel its bound (the larger of its bytes
               over 3.35 TB/s and its operations over the vector peak) and
               the time of the one PyTorch call that computes the same
               function, where there is one (CSR or BSR products,
@@ -683,7 +689,9 @@ def main() -> int:
                   f"{plan.chunk} rows, {plan.kd} of {plan.k} diagonals in "
                   f"shared memory, equals the family kernel bit for bit",
                   flush=True)
-        # B6: 2-D 512^2 5-point, 3-D 64^3 7-point and 27-point box
+        # B6: 2-D 512^2 5-point, 3-D 64^3 7-point and 27-point box, on the
+        # main path's form (the neighbour form: tiles of whole x-lines),
+        # against the twin and bit for bit against the family kernel
         for label, op in ((f"{NG}^2 5-point",
                            et.laplacian_nd_stencil(NG, NG, dtype=dt,
                                                    device=dev)),
@@ -693,15 +701,25 @@ def main() -> int:
                           ("64^3 27-point box", box27((64, 64, 64), dt))):
             x = vec(op.shape[0], dt, rng2)
             rows = scaled_rows(12, op, dt)
+            plan = tr.grid_plan(op, dt, dev)
             w = tr.recurrence_apply_resident_grid(op, x, rows)
             wr = tr.resident_grid_ref(x, rows, op.grid_shape, op.offsets,
                                       op.coeffs)
+            wf = tr.GridRecurrencePlan(op, dt, dev, form="family")(x, rows)
             e = rel_max(w, wr)
-            check(e <= tol, f"B6 {dname[dt]} {label}: {e:.2e}")
+            check(plan.form == "neighbour" and e <= tol
+                  and torch.equal(w, wf),
+                  f"B6 {dname[dt]} {label}: {plan.form} form, {e:.2e}, "
+                  f"bitwise vs family {torch.equal(w, wf)}")
             if dt == f64 and label.startswith(f"{NG}"):
                 kerr["resident_grid"] = float((w - wr).abs().max())
+            t = plan.tiles
             print(f"kernel B6 {dname[dt]} {label} m=12: rel err {e:.2e} "
-                  f"(tol {tol:g})", flush=True)
+                  f"(tol {tol:g}); {plan.form} form, {t.grid} tiles of "
+                  f"{t.tz} x {t.ty} lines ({t.tiles_z} x {t.tiles_y}; halo "
+                  f"{t.hz} planes, {t.hy} lines), {plan.smem} bytes of "
+                  f"shared memory a block, equals the family kernel bit for "
+                  f"bit", flush=True)
     del Z, Vc, Vp, W, W1, W2, Y, Zn, Yp, Znp, Yr, Znr
 
     # B7-B10, the sparse containers' SpMV kernels: packed once in float64
@@ -1112,13 +1130,14 @@ def main() -> int:
         f"config4 iop=2 reorth=False m={MA}": {"banded_spmv": MA},
     })
 
-    # the calls whose B1 or B5 launches must take the neighbour form: the
-    # plans (kept on the operators) count those launches
+    # the calls whose B1, B5 or B6 launches must take the neighbour form:
+    # the plans (kept on the operators) count those launches
     nbr_plans = {"1d cheb f32": tr.recurrence_plan(op1[f32], f32, dev),
                  "1d cheb f64": tr.recurrence_plan(op1[f64], f64, dev),
                  "1d two-pass m=40 f64": tr.recurrence_plan(op1[f64], f64,
                                                             dev),
-                 "config3 expv_chebyshev": tr.banded_plan(opP, f64, dev)}
+                 "config3 expv_chebyshev": tr.banded_plan(opP, f64, dev),
+                 "2d cheb": tr.grid_plan(opG, f64, dev)}
     _build.reset_launch_counts()
     out = {}
     for name, fn in {**calls, **phi_calls, **sparse_calls, **var_calls,
@@ -1130,14 +1149,20 @@ def main() -> int:
         torch.cuda.synchronize()
         delta = {k: v - before[k] for k, v in _build.launches.items() if v > before[k]}
         if plan is not None:
-            key = "resident_banded" if plan.banded else "resident_recurrence"
+            if isinstance(plan, tr.GridRecurrencePlan):
+                key = "resident_grid"
+                where = (f"{plan.tiles.grid} tiles of {plan.tiles.tz} x "
+                         f"{plan.tiles.ty} lines")
+            else:
+                key = ("resident_banded" if plan.banded
+                       else "resident_recurrence")
+                where = f"{plan.grid} blocks of {plan.chunk} rows"
             got = plan.nbr_launches - nbr_before
             check(plan.form == "neighbour" and got == delta.get(key, 0) >= 1,
                   f"{name}: {got} of {delta.get(key, 0)} {key} launches on "
                   f"the neighbour form ({plan.form})")
             print(f"main {name}: all {got} {key} launches on the neighbour "
-                  f"form ({plan.grid} blocks of {plan.chunk} rows)",
-                  flush=True)
+                  f"form ({where})", flush=True)
         if name in expect:
             check(delta == expect[name], f"{name} launches {delta}")
         else:       # Chebyshev 3-D: one sweep per degree plus sweep 0
@@ -1514,7 +1539,8 @@ def main() -> int:
               "fused_sweep": "fused_sweep_kernel",
               "fused_sweep_var": "fused_sweep_kernel",
               "resident_multi": "resident_multi_nbr_kernel",
-              "resident_banded": "Banded", "resident_grid": "Grid3D"}
+              "resident_banded": "Banded",
+              "resident_grid": "resident_grid_nbr"}
 
     def burst_ms(fn, k=20):
         """Per-call time of k calls back to back between two events: the
@@ -1654,25 +1680,40 @@ def main() -> int:
               f"{ta:.4f} ms, {3 * c3.numel() * isz / ta / 1e6:.1f} GB/s "
               f"{card}", flush=True)
         del a3, b3s, c3
-        # B6 against the B3 sweeps on the same grid and rows: what the
-        # L2 budget of the B6 gate should follow
+        # B6 (its plan's form, and the family kernel) against the B3
+        # sweeps on the same grid and rows, one call each: the table the
+        # gate of B6 (resident_grid_supported) follows; B6 runs through its
+        # plans, which take grids above the gate's budget too
         for label, op in ((f"{NG}^2 5-point", opGd),
+                          ("1000^2 5-point", et.laplacian_nd_stencil(
+                              1000, 1000, dtype=dt, device=dev)),
                           ("64^3 7-point", et.laplacian_nd_stencil(
                               64, 64, 64, dtype=dt, device=dev)),
                           ("100^3 7-point, near the L2 budget",
                            et.laplacian_nd_stencil(100, 100, 100, dtype=dt,
-                                                   device=dev))):
+                                                   device=dev)),
+                          ("128^3 7-point, above the float64 budget",
+                           et.laplacian_nd_stencil(128, 128, 128, dtype=dt,
+                                                   device=dev)),
+                          ("160^3 7-point", et.laplacian_nd_stencil(
+                              160, 160, 160, dtype=dt, device=dev)),
+                          (f"{N3}^3 7-point", op3[dt])):
             xg = vec(op.shape[0], dt, rng2)
             rg = cheb_rows(op, TG, dt)
-            f1 = median_ms(lambda: tf.recurrence_apply_fused(op, xg, rg))
-            g1 = median_ms(lambda: tr.recurrence_apply_resident_grid(op, xg,
-                                                                     rg))
-            g2 = median_ms(lambda: tr.recurrence_apply_resident_grid(op, xg,
-                                                                     rg))
-            f2 = median_ms(lambda: tf.recurrence_apply_fused(op, xg, rg))
-            print(f"time B6 vs B3 {dn} ({label}, m={rg.shape[0]}): B6 "
-                  f"{g1:.4f} / {g2:.4f} ms, B3 sweeps {f1:.4f} / {f2:.4f} ms "
-                  f"{card}", flush=True)
+            main = tr.grid_plan(op, dt, dev)
+            fam = tr.GridRecurrencePlan(op, dt, dev, form="family")
+            f1, g1, h1, h2, g2, f2 = (median_ms(fn) for fn in (
+                lambda: tf.recurrence_apply_fused(op, xg, rg),
+                lambda: main(xg, rg), lambda: fam(xg, rg),
+                lambda: fam(xg, rg), lambda: main(xg, rg),
+                lambda: tf.recurrence_apply_fused(op, xg, rg)))
+            gate = tr.resident_grid_supported(op, dt)
+            print(f"time B6 vs B3 {dn} ({label}, m={rg.shape[0]}; gate "
+                  f"{'B6' if gate else 'B3'}): B6 ({main.form} form) "
+                  f"{g1:.4f} / {g2:.4f} ms, B6 family form {h1:.4f} / "
+                  f"{h2:.4f} ms, B3 sweeps {f1:.4f} / {f2:.4f} ms {card}",
+                  flush=True)
+            del fam, main
 
     def device_ms(fn, kname, k=20):
         """(ms, launches): the device time per launch of the kernel whose

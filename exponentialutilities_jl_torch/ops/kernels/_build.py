@@ -104,7 +104,10 @@ def _declare(lib):
         f.argtypes = [_VP, _VP, _VP, _VP, _I, _LL, _I, _VP, _VP, _VP]
         f.restype = _I
         f = getattr(lib, f"eu_resident_grid_{suf}")
-        f.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP, _VP, _VP]
+        f.argtypes = [_VP, _VP, _VP, _I, _VP, _VP, _VP]
+        f.restype = _I
+        f = getattr(lib, f"eu_resident_grid_nbr_{suf}")
+        f.argtypes = [_VP, _VP, _VP, _I, _VP, _VP]
         f.restype = _I
         for name in (f"eu_fused_sweep_{suf}", f"eu_fused_sweep_var_{suf}"):
             f = getattr(lib, name)

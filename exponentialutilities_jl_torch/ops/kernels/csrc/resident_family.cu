@@ -1,6 +1,7 @@
 // B4, B5 and B6: the (m, 4)-row recurrence of B1 with other per-row
 // operators and p accumulators, each in ONE persistent cooperative launch;
-// and the neighbour form that B1, B4 and B5 take where it fits.
+// the neighbour form that B1, B4 and B5 take where it fits; and B6's own
+// neighbour form over (z, y)-tiles of the grid.
 //
 // Replaces exponentialutilities_jl_tpu/ops/kernels/resident.py
 //   _resident_kernel         (B1, resident.py:89; its grid form: resident.cu)
@@ -14,38 +15,37 @@
 // The three TPU kernels differ only in how A acts on one row: a 1-D
 // constant stencil (B4), per-row diagonal values (B5), or a 2-D/3-D
 // constant stencil on the natural row-major (nz, ny, nx) layout (B6); B4
-// also keeps p accumulators where B5 and B6 keep one. Here they are one
-// kernel template over the per-row operator (the structs below), built as
-// B1 is (csrc/resident.cu): a co-resident grid sized by the occupancy API
-// walks the vectors with grid-stride loops, and one cg::this_grid().sync()
-// per step orders every write of omega_{k+1} before any read of it.
+// also keeps p accumulators where B5 and B6 keep one. The family kernel is
+// one template over the per-row operator (the structs below), built as B1's
+// grid form is (csrc/resident.cu): a co-resident grid sized by the
+// occupancy API walks the vectors in L2 with grid-stride loops, and one
+// cg::this_grid().sync() per step orders every write of omega_{k+1} before
+// any read of it. A step costs that barrier (~1 us on the H100,
+// sync_bench.cu) plus three vectors of L2 traffic.
 //
-// What bounds them on the H100:
-//   B4 at n = 1e5 (p = 4, float64: 3 state and 4 accumulator vectors,
-//   5.6 MB) and B6 under its gate (4 vectors within 40 MB) keep their data
-//   in the 50 MB L2, so a step is a few microseconds of L2 traffic and the
-//   grid barrier's latency bounds it; the one-launch design pays that
-//   barrier once per step instead of a kernel launch and the host's
-//   launch gaps.
-//   B5 at N = 1e6 in float64 streams the k = 5 diagonals plus the state
-//   every step in this kernel (~72 MB, more than L2): it is bound by HBM
-//   bandwidth, about 20-30 us per step at 3.35 TB/s.
-// The family kernel has no reductions, and B1's sum of w^2 in the neighbour
-// form is summed in a fixed order, so every result is bitwise repeatable.
-//
-// The neighbour form (resident_nbr_kernel, below) takes the launches of B1
-// (with its sum of w^2), B4 and B5 whose per-block state fits on chip: it
-// drops the grid barrier, which a step of the recurrence does not need
-// (row i of omega_{k+1} reads omega_k only within max|o| rows of i), for
-// flags between neighbouring blocks, and keeps the state in shared memory,
-// so only B5's diagonals still cross L2 every step (40 MB at config #3,
-// within L2). This family kernel stays for what the neighbour form cannot
-// take: B4 past 8 columns, max|o| wider than a block's rows, or a block
-// state that does not fit. Both forms compute a row with the row
-// functions of common.cuh (accumulate, stencil_term, next_row), so they
-// give the same bits at any shape both take.
+// The neighbour forms drop the grid barrier, which a step does not need
+// (a row of omega_{k+1} reads omega_k only within the stencil's reach), for
+// flags between neighbouring blocks, and keep each block's state in shared
+// memory for all m steps, so x is read once and w written once and only the
+// halo rows (and B5's diagonals) cross L2 every step:
+//   resident_nbr_kernel<T, Op> (B1, B5) and resident_multi_nbr_kernel<T>
+//     (B4): blocks own runs of rows and wait for the blocks left and right;
+//   resident_grid_nbr_kernel<T, K, R> (B6): blocks own tiles of whole
+//     x-lines of the grid and wait for the tiles around them (a 3-D stencil
+//     reaches a plane, nx ny rows, away: more than a block's share of rows
+//     in row order, but one plane of a tile's neighbour).
+// What bounds them on the H100: synchronisation (a neighbour's flag is
+// ~0.9 us, sync_bench.cu) for B1, B4 and B6, HBM bandwidth for B5 in
+// float64 at config #3 (its 40 MB of diagonals every step). The family
+// kernel stays for what they cannot take: B4 past 8 columns, an offset
+// wider than a block's rows (or tile), or a block state that does not fit.
+// Both forms compute a row with the row functions of common.cuh
+// (accumulate, stencil_term, next_row), so they give the same bits at any
+// shape both take, and every result is bitwise repeatable (B1's sum of w^2
+// in the neighbour form is summed in a fixed order).
 #include <cooperative_groups.h>
 
+#include <climits>
 #include <cstddef>
 
 #include "common.cuh"
@@ -109,7 +109,7 @@ struct Grid3D {                // B6: constant stencil on (nz, ny, nx), Dirichle
     for (int j = 0; j < offs.k; ++j) {
       const int qz = z + offs.dz[j], qy = y + offs.dy[j], qx = xx + offs.dx[j];
       if (qz >= 0 && qz < nz && qy >= 0 && qy < ny && qx >= 0 && qx < nx)
-        acc += c[j] * x[i + flat[j]];
+        acc = stencil_term(acc, c[j], x[i + flat[j]]);
     }
     return acc;
   }
@@ -621,6 +621,324 @@ resident_nbr_kernel(const T* __restrict__ x, const T* __restrict__ scale,
   if (t == 0) nrm2[0] = a;
 }
 
+// B6's neighbour form: resident_grid_nbr_kernel<T, K, R>. The grid's nz ny
+// x-lines (a 2-D grid is one plane) are cut into tiles of tz planes by ty
+// lines, whole lines each, and block b owns tile (b / tiles_y, b %
+// tiles_y); the last tile along an axis may hold fewer. A block keeps on
+// chip, for all m steps, two omega spans over its tile (omega_{k+1}
+// written in place over omega_{k-1}, as in resident_nbr_kernel) and its
+// accumulator rows. A span holds hz = max|dz| planes and hy = max|dy|
+// lines of halo each side and hx = max|dx| zero columns at each end of a
+// line; halo lines outside the grid stay zero, so a row sums its k points
+// with no Dirichlet masks, and a point outside the grid adds c 0 (the
+// family kernel skips it: the same value). Each thread owns the tile rows
+// t + kNbrThreads i (i < R), their span indices fixed in registers at
+// launch, and copies the halo rows t + kNbrThreads j (j < H) of a table of
+// halo lines each step; R and H are 2 for tiles of up to 2048 rows and
+// halo rows (fewer registers: no spills), else 8 and 4. Step k:
+//   1. the edge rows (those a waiting neighbour reads: within hz planes of
+//      a z face and hy lines of a y face toward it) first, each also
+//      stored to the publication buffer of parity (k + 1) & 1, at its row
+//      of its tile's slot;
+//   2. after a block barrier thread 0 releases the block's flag = base +
+//      k + 1 (st.release.gpu), and every thread computes its interior rows
+//      while the flag travels; then lane 0 of warp d waits for the flag of
+//      the neighbour in direction d (the tile at (+a, +b), d = 3 (a + 1) +
+//      (b + 1)), for each direction of `dirs` whose tile exists;
+//   3. after a block barrier every thread copies its halo rows from the
+//      neighbours' slots (ld.global.cg, all loads in flight before the
+//      stores) into the omega_{k+1} span; one more barrier, and the spans
+//      swap.
+// What bounds it on the H100: synchronisation. A step waits for a flag and
+// then for the halo rows, two L2 round trips in a row, plus three block
+// barriers: 1.7-1.9 us a step at 512^2 (128 tiles of 4 lines, 2 rows a
+// thread), against 6.0 for the family kernel (PERF.md). With 8 rows a
+// thread (1000^2) the rows' shared-memory traffic adds to it.
+// `dirs` holds every direction a point reaches (the faces of a point's dz
+// and dy, and the corner where both are nonzero) and its opposite, so a
+// tile waits for every tile that reads it: no tile gets two steps ahead of
+// a reader, and the parity buffers suffice as in the 1-D kernels (a tile
+// publishes omega_{k+3} over omega_{k+1} only after each reader has set its
+// flag for omega_{k+2}, which it does after it copied omega_{k+1}). Flags
+// only grow, and the base is read on the card, as in resident_nbr_kernel.
+struct GridLaunch {      // mirrored by resident._GridLaunch; one per plan and stream
+  const void* coef;      // the k stencil coefficients, in the launch's dtype
+  void* flags;           // grid unsigned 64-bit step counts kFlagStride apart, zero
+                         // when made (neighbour form; the family form: null)
+  void* pub;             // [2][grid][tz ty nx] rows the tiles publish, by parity
+                         // (neighbour form)
+  long long n;           // nz ny nx
+  int nz, ny, nx;        // 2-D grids as nz = 1
+  int tiles_z, tiles_y;  // the neighbour form's grid: tiles_z tiles_y blocks
+  int tz, ty;            // planes and lines of a tile
+  int hz, hy, hx;        // max |dz|, |dy|, |dx|: the spans' halo
+  int dirs;              // bit 3 (a + 1) + (b + 1): wait for the tile at (+a, +b)
+  int halo_lines;        // the most halo lines a tile copies (grid_halo_lines)
+  int k;
+  int dz[kMaxPoints], dy[kMaxPoints], dx[kMaxPoints];
+};
+static_assert(offsetof(GridLaunch, n) == 24 && offsetof(GridLaunch, nz) == 32 &&
+                  offsetof(GridLaunch, tiles_z) == 44 && offsetof(GridLaunch, tz) == 52 &&
+                  offsetof(GridLaunch, hz) == 60 && offsetof(GridLaunch, hx) == 68 &&
+                  offsetof(GridLaunch, dirs) == 72 && offsetof(GridLaunch, halo_lines) == 76 &&
+                  offsetof(GridLaunch, k) == 80 && offsetof(GridLaunch, dz) == 84 &&
+                  offsetof(GridLaunch, dy) == 340 && offsetof(GridLaunch, dx) == 596 &&
+                  sizeof(GridLaunch) == 856,
+              "GridLaunch layout is mirrored by resident._GridLaunch");
+
+constexpr int kGridRows = 8;   // tile rows a thread owns at most (tz ty nx <= 8192)
+constexpr int kGridHalo = 4;   // halo rows a thread copies at most (4096 a tile)
+constexpr int kGridSmall = 2;  // both, in the kernels for tiles of up to 2048
+
+// Dynamic shared memory of one block: the halo-line table (an int4 a
+// line), two omega spans of (tz + 2 hz) (ty + 2 hy) lines of nx + 2 hx
+// values, and the tile's tz ty nx accumulator rows.
+inline size_t grid_nbr_smem(const GridLaunch& L, size_t itemsize) {
+  return 16 * (size_t)L.halo_lines +
+         (2 * (size_t)(L.tz + 2 * L.hz) * (L.ty + 2 * L.hy) * (L.nx + 2 * L.hx) +
+          (size_t)L.tz * L.ty * L.nx) *
+             itemsize;
+}
+
+// One thread's walk over the rows of a box of `lines` lines a plane and
+// `cols` columns, kNbrThreads rows a stride, in row-major order: the start
+// costs three divisions, each stride adds constants.
+struct LineWalk {
+  int z, y, x;        // the row's plane, line and column in the box
+  int sz, sy, sx;     // a stride: sz planes, sy lines, sx columns
+  int lines, cols;
+  __device__ LineWalk(int t, int lines_, int cols_) : lines(lines_), cols(cols_) {
+    const int l = t / cols, sl = kNbrThreads / cols;
+    x = t - l * cols;
+    z = l / lines;
+    y = l - z * lines;
+    sx = kNbrThreads - sl * cols;
+    sz = sl / lines;
+    sy = sl - sz * lines;
+  }
+  __device__ __forceinline__ void next() {
+    x += sx;
+    y += sy;
+    z += sz;
+    if (x >= cols) {
+      x -= cols;
+      ++y;
+    }
+    if (y >= lines) {
+      y -= lines;
+      ++z;
+    }
+  }
+};
+
+// K > 0: a stencil of exactly K points (the loop over them unrolled); 0:
+// any k. R: tile rows a thread owns at most (kGridRows or kGridSmall).
+template <typename T, int K, int R>
+__global__ void __launch_bounds__(kNbrThreads, 1)
+resident_grid_nbr_kernel(const T* __restrict__ x, const T* __restrict__ rows,
+                         const __grid_constant__ GridLaunch L, int m, T* __restrict__ w) {
+  constexpr int H = R == kGridSmall ? kGridSmall : kGridHalo;   // halo rows a thread
+  extern __shared__ __align__(16) unsigned char smem_grid[];
+  __shared__ T c_sh[kMaxPoints];
+  __shared__ int so_sh[kMaxPoints];        // point j's offset in a span
+  __shared__ T coef[2][4];                 // a step's ca, cb, cc, cw, by parity
+  __shared__ unsigned long long base_sh;   // the flags' count when the launch started
+  __shared__ int count_sh[kNbrThreads / 32];
+  __shared__ unsigned edge_sh;             // bit c: a row with faces c is an edge row
+  const int t = threadIdx.x, b = blockIdx.x, warp = t >> 5, lane = t & 31;
+  const int k = K > 0 ? K : L.k;
+  const int nz = L.nz, ny = L.ny, nx = L.nx, hz = L.hz, hy = L.hy, hx = L.hx;
+  const int nxp = nx + 2 * hx;                  // a span line
+  const int sy = L.ty + 2 * hy;                 // lines of a span plane
+  const int span = (L.tz + 2 * hz) * sy * nxp;
+  const int stride = L.tz * L.ty * nx;          // a tile's slot in the publication buffer
+  const int bz = b / L.tiles_y, by = b - bz * L.tiles_y;
+  const int z0 = bz * L.tz, y0 = by * L.ty;
+  const int tzl = min(L.tz, nz - z0), tyl = min(L.ty, ny - y0);   // this tile's planes, lines
+  const int rows_here = tzl * tyl * nx;
+  const int row0 = (z0 * ny + y0) * nx;         // the tile's first grid row
+  int4* table = reinterpret_cast<int4*>(smem_grid);   // halo line: span index of its
+                                                      // column 0, its row in the source
+                                                      // tile's slot, its grid row
+  T* wc = reinterpret_cast<T*>(table + L.halo_lines);   // omega_k; tile row (z, y, c) at
+                                                         // ((z + hz) sy + y + hy) nxp + hx + c
+  T* wp = wc + span;                                     // omega_{k-1}, then omega_{k+1}
+  T* acc = wp + span;                                    // acc[r]: w of the tile's row r
+  T* pub = static_cast<T*>(L.pub);
+  const size_t slots = (size_t)L.tiles_z * L.tiles_y * stride;   // one parity's buffer
+  unsigned long long* flags = static_cast<unsigned long long*>(L.flags);
+  const int fetcher = t - (kNbrThreads - 32);   // lane l < 4 of the last warp fetches scalar l
+
+  for (int j = t; j < k; j += kNbrThreads) {
+    c_sh[j] = static_cast<const T*>(L.coef)[j];
+    so_sh[j] = (L.dz[j] * sy + L.dy[j]) * nxp + L.dx[j];
+  }
+  for (int i = t; i < 2 * span; i += kNbrThreads) wc[i] = T(0);   // and wp: zero halos
+  for (int i = t; i < rows_here; i += kNbrThreads) acc[i] = T(0);
+  if (fetcher >= 0 && fetcher < 4) coef[0][fetcher] = m > 0 ? rows[fetcher] : T(0);
+  unsigned long long* own = flags + (size_t)b * kFlagStride;
+  if (t == 0) base_sh = load_acquire(own);
+  // the neighbours this tile waits for, by direction bit
+  int nb = 0;
+  for (int d = 0; d < 9; ++d) {
+    const int qz = bz + d / 3 - 1, qy = by + d % 3 - 1;
+    if (d != 4 && (L.dirs >> d & 1) && qz >= 0 && qz < L.tiles_z && qy >= 0 && qy < L.tiles_y)
+      nb |= 1 << d;
+  }
+  // bit c of edge_sh: a row whose faces c = [z < hz] | [z >= tzl - hz] << 1
+  // | [y < hy] << 2 | [y >= tyl - hy] << 3 lies within the reach of a
+  // waiting neighbour (lane c of warp 0 decides it)
+  if (warp == 0) {
+    bool ed = false;
+    for (int d = 0; d < 9 && lane < 16; ++d) {
+      const int a = d / 3 - 1, c = d % 3 - 1;
+      ed |= (nb >> d & 1) && (a == 0 || (lane & (a < 0 ? 1 : 2))) &&
+            (c == 0 || (lane & (c < 0 ? 4 : 8)));
+    }
+    const unsigned lut = __ballot_sync(0xffffffffu, ed);
+    if (lane == 0) edge_sh = lut;
+  }
+
+  // the halo-line table: the span's lines outside the tile, in the grid,
+  // toward a neighbour of nb, in span order (a block-wide compaction)
+  const int box_lines = tyl + 2 * hy, span_lines = (tzl + 2 * hz) * box_lines;
+  int nlines = 0;
+  for (int l0 = 0; l0 < span_lines; l0 += kNbrThreads) {
+    const int l = l0 + t;
+    bool pick = false;
+    int4 e{};
+    if (l < span_lines) {
+      const int pz = l / box_lines, lz = pz - hz, ly = l - pz * box_lines - hy;
+      const int a = lz < 0 ? 0 : lz < tzl ? 1 : 2, c = ly < 0 ? 0 : ly < tyl ? 1 : 2;
+      const int gz = z0 + lz, gy = y0 + ly;
+      pick = (nb >> (3 * a + c) & 1) && gz >= 0 && gz < nz && gy >= 0 && gy < ny;
+      if (pick) {   // the source tile, and the line's row in its slot
+        const int sz0 = (bz + a - 1) * L.tz, sy0 = (by + c - 1) * L.ty;
+        const int styl = min(L.ty, ny - sy0);
+        e.x = ((lz + hz) * sy + ly + hy) * nxp + hx;
+        e.y = (b + (a - 1) * L.tiles_y + c - 1) * stride + ((gz - sz0) * styl + gy - sy0) * nx;
+        e.z = (gz * ny + gy) * nx;
+      }
+    }
+    const unsigned ball = __ballot_sync(0xffffffffu, pick);
+    if (lane == 0) count_sh[warp] = __popc(ball);
+    __syncthreads();
+    int at = nlines + __popc(ball & ((1u << lane) - 1)), total = 0;
+    for (int v = 0; v < kNbrThreads / 32; ++v) {
+      at += v < warp ? count_sh[v] : 0;
+      total += count_sh[v];
+    }
+    if (pick && at < L.halo_lines) table[at] = e;
+    nlines += total;
+    __syncthreads();
+  }
+  if (nlines > L.halo_lines) __trap();   // the host's count is the table's room
+
+  // this thread's tile rows r = t + kNbrThreads i (span index, and which
+  // are edge rows) and halo rows t + kNbrThreads j (span index, source);
+  // omega_0 = x on both
+  int srow[R], hdst[H], hsrc[H];
+  unsigned edge = 0;
+  const unsigned lut = edge_sh;   // written before the table's barriers
+  const int nrows = t < rows_here ? (rows_here - t + kNbrThreads - 1) / kNbrThreads : 0;
+  const int nhalo = t < nlines * nx ? (nlines * nx - t + kNbrThreads - 1) / kNbrThreads : 0;
+  {
+    LineWalk q(t, tyl, nx);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      srow[i] = ((q.z + hz) * sy + q.y + hy) * nxp + hx + q.x;
+      if (i < nrows) {
+        const int c = (q.z < hz) | (q.z >= tzl - hz) << 1 | (q.y < hy) << 2 |
+                      (q.y >= tyl - hy) << 3;
+        edge |= (lut >> c & 1) << i;
+        wc[srow[i]] = __ldg(x + row0 + (q.z * ny + q.y) * nx + q.x);
+      }
+      q.next();
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    hdst[j] = hsrc[j] = 0;
+    if (j < nhalo) {
+      const int f = t + j * kNbrThreads, line = f / nx, c = f - line * nx;
+      const int4 e = table[line];
+      hdst[j] = e.x + c;
+      hsrc[j] = e.y + c;
+      wc[hdst[j]] = __ldg(x + e.z + c);
+    }
+  }
+  __syncthreads();
+  const unsigned long long base = base_sh;
+
+  for (int step = 0; step < m; ++step) {
+    const T* cf = coef[step & 1];
+    // the next step's scalars land while this step runs
+    const T next = fetcher >= 0 && fetcher < 4 && step + 1 < m ? rows[4 * (step + 1) + fetcher]
+                                                               : T(0);
+    const T ca = cf[0], cb = cf[1], cc = cf[2], cw = cf[3];
+    if (step + 1 == m) {   // omega_m is never accumulated: w only
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        if (i < nrows) {
+          const int r = t + i * kNbrThreads;
+          acc[r] = accumulate(acc[r], cw, wc[srow[i]]);
+        }
+      break;
+    }
+    // one row: w += cw omega_k, then omega_{k+1} (no masks: zero halos)
+    auto row = [&](int s, int r) {
+      const T v = wc[s];
+      acc[r] = accumulate(acc[r], cw, v);
+      T z = T(0);
+      if (K > 0) {
+#pragma unroll
+        for (int j = 0; j < (K > 0 ? K : 1); ++j) z = stencil_term(z, c_sh[j], wc[s + so_sh[j]]);
+      } else {
+        for (int j = 0; j < k; ++j) z = stencil_term(z, c_sh[j], wc[s + so_sh[j]]);
+      }
+      const T wn = next_row(ca, cb, cc, z, v, wp[s]);
+      wp[s] = wn;
+      return wn;
+    };
+    const int par = (step + 1) & 1;
+    T* out = pub + par * slots;
+    T* mine = out + (size_t)b * stride;
+#pragma unroll
+    for (int i = 0; i < R; ++i)   // the edge rows first, published
+      if (edge >> i & 1) mine[t + i * kNbrThreads] = row(srow[i], t + i * kNbrThreads);
+    __syncthreads();   // the edges are written
+    // the release orders the block's edge stores (before the barrier)
+    // ahead of the flag for any thread that acquires it
+    const unsigned long long want = base + (unsigned long long)(step + 1);
+    if (t == 0) store_release(own, want);
+#pragma unroll
+    for (int i = 0; i < R; ++i)   // the interior rows while the flag travels
+      if (i < nrows && !(edge >> i & 1)) row(srow[i], t + i * kNbrThreads);
+    if (lane == 0 && warp < 9 && (nb >> warp & 1))
+      wait_flag(flags + (size_t)(b + (warp / 3 - 1) * L.tiles_y + warp % 3 - 1) * kFlagStride,
+                want);
+    if (fetcher >= 0 && fetcher < 4) coef[par][fetcher] = next;
+    __syncthreads();   // the flags were acquired before this barrier
+    T hv[H];   // the halo rows of omega_{k+1}: every load, then every store
+#pragma unroll
+    for (int j = 0; j < H; ++j)
+      if (j < nhalo) hv[j] = __ldcg(out + hsrc[j]);
+#pragma unroll
+    for (int j = 0; j < H; ++j)
+      if (j < nhalo) wp[hdst[j]] = hv[j];
+    __syncthreads();
+    T* tmp = wp;
+    wp = wc;
+    wc = tmp;
+  }
+  LineWalk q(t, tyl, nx);
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (i < nrows) w[row0 + (q.z * ny + q.y) * nx + q.x] = acc[t + i * kNbrThreads];
+    q.next();
+  }
+}
+
 // Opt `fn` in to `bytes` of dynamic shared memory as far as a launch needs;
 // `allowed` is the caller's static (one per kernel and library).
 inline cudaError_t allow_smem(const void* fn, size_t bytes, size_t* allowed) {
@@ -645,6 +963,12 @@ static cudaError_t allow_nbr_smem(size_t bytes) {
   return allow_smem((const void*)resident_nbr_kernel<T, Op>, bytes, &allowed);
 }
 
+template <typename T, int K, int R>
+static cudaError_t allow_grid_nbr_smem(size_t bytes) {
+  static size_t allowed = 0;
+  return allow_smem((const void*)resident_grid_nbr_kernel<T, K, R>, bytes, &allowed);
+}
+
 // Blocks of a neighbour kernel co-resident on the current device with
 // `smem` bytes of dynamic shared memory each (0: a block does not fit);
 // negative: a CUDA error.
@@ -667,7 +991,7 @@ inline int nbr_capacity(const void* fn, cudaError_t (*allow)(size_t), size_t sme
   return per_sm * sms;
 }
 
-// kind 0: B4's kernel; 1: B1's (NbrStencil); 2: B5's (NbrBanded)
+// kind 0: B4's kernel; 1: B1's (NbrStencil); 2: B5's (NbrBanded); 3: B6's
 template <typename T>
 int nbr_capacity(int kind, size_t smem) {
   switch (kind) {
@@ -680,6 +1004,9 @@ int nbr_capacity(int kind, size_t smem) {
     case 2:
       return nbr_capacity((const void*)resident_nbr_kernel<T, NbrBanded>,
                           allow_nbr_smem<T, NbrBanded>, smem);
+    case 3:
+      return nbr_capacity((const void*)resident_grid_nbr_kernel<T, 0, kGridRows>,
+                          allow_grid_nbr_smem<T, 0, kGridRows>, smem);
   }
   return -(int)cudaErrorInvalidValue;
 }
@@ -736,26 +1063,129 @@ int launch_banded(const T* x, const T* rows, const T* diags, const int* offs, in
   return launch_family<T>(x, rows, rows + 3, 4, 1, op, n, m, w, buf, stream);
 }
 
-// B6: one accumulator; offs holds k (dz, dy, dx) triples; 2-D grids as nz = 1.
-template <typename T>
-int launch_grid(const T* x, const T* rows, const T* cvals, const int* offs, int k,
-                int nz, int ny, int nx, int m, T* w, T* buf, cudaStream_t stream) {
-  if (k < 1 || k > kMaxPoints || nz < 1 || ny < 1 || nx < 1)
-    return (int)cudaErrorInvalidValue;
-  Grid3D<T> op{};
-  op.offs.k = k;
-  for (int j = 0; j < k; ++j) {
-    op.offs.dz[j] = offs[3 * j + 0];
-    op.offs.dy[j] = offs[3 * j + 1];
-    op.offs.dx[j] = offs[3 * j + 2];
-    op.flat[j] = ((long long)op.offs.dz[j] * ny + op.offs.dy[j]) * nx + op.offs.dx[j];
+// B6's directions to wait for: each point's faces and corner (bit 3 (a +
+// 1) + (b + 1) for the tile at (+a, +b)) and their opposites.
+inline int grid_dirs(const GridLaunch& L) {
+  int dirs = 0;
+  for (int j = 0; j < L.k; ++j) {
+    const int a = (L.dz[j] > 0) - (L.dz[j] < 0), e = (L.dy[j] > 0) - (L.dy[j] < 0);
+    for (int sgn = -1; sgn <= 1; sgn += 2)
+      for (int u = 0; u <= 1; ++u)
+        for (int v = 0; v <= 1; ++v) {
+          const int aa = sgn * u * a, ee = sgn * v * e;
+          if (aa != 0 || ee != 0) dirs |= 1 << (3 * (aa + 1) + ee + 1);
+        }
   }
-  op.cvals = cvals;
-  op.nz = nz;
-  op.ny = ny;
-  op.nx = nx;
-  const long long n = (long long)nz * ny * nx;
-  return launch_family<T>(x, rows, rows + 3, 4, 1, op, n, m, w, buf, stream);
+  return dirs;
+}
+
+inline bool grid_valid(const GridLaunch& L) {
+  return L.k >= 1 && L.k <= kMaxPoints && L.nz >= 1 && L.ny >= 1 && L.nx >= 1 &&
+         L.n == (long long)L.nz * L.ny * L.nx && L.coef != nullptr;
+}
+
+// The most halo lines a tile copies: for each direction of dirs along
+// which the grid has more than one tile, the tile's face (or corner) of
+// halo lines; a ragged tile or neighbour copies fewer.
+inline int grid_halo_lines(const GridLaunch& L) {
+  int lines = 0;
+  for (int d = 0; d < 9; ++d) {
+    const int a = d / 3 - 1, c = d % 3 - 1;
+    if (d == 4 || !(L.dirs >> d & 1) || (a != 0 && L.tiles_z < 2) || (c != 0 && L.tiles_y < 2))
+      continue;
+    lines += (a == 0 ? L.tz : L.hz) * (c == 0 ? L.ty : L.hy);
+  }
+  return lines;
+}
+
+// The neighbour form's tiles cover the grid; the spans' halo is the
+// stencil's reach, and along an axis cut into several tiles no more than a
+// tile's extent (so a halo lies in the next tile); a thread's rows and halo
+// rows fit its registers; indices fit an int.
+inline bool grid_nbr_valid(const GridLaunch& L) {
+  if (!grid_valid(L) || L.tz < 1 || L.ty < 1 ||
+      L.tiles_z != (L.nz + L.tz - 1) / L.tz || L.tiles_y != (L.ny + L.ty - 1) / L.ty ||
+      L.dirs != grid_dirs(L) || L.halo_lines != grid_halo_lines(L) ||
+      (L.tiles_z > 1 && L.hz > L.tz) || (L.tiles_y > 1 && L.hy > L.ty) ||
+      (long long)L.tz * L.ty * L.nx > kGridRows * kNbrThreads ||
+      (long long)L.halo_lines * L.nx > kGridHalo * kNbrThreads ||
+      (long long)L.tiles_z * L.tiles_y * L.tz * L.ty * L.nx > INT_MAX || L.n > INT_MAX ||
+      L.flags == nullptr || L.pub == nullptr)
+    return false;
+  int rz = 0, ry = 0, rx = 0;
+  for (int j = 0; j < L.k; ++j) {
+    const int az = L.dz[j] < 0 ? -L.dz[j] : L.dz[j], ay = L.dy[j] < 0 ? -L.dy[j] : L.dy[j],
+              ax = L.dx[j] < 0 ? -L.dx[j] : L.dx[j];
+    rz = az > rz ? az : rz;
+    ry = ay > ry ? ay : ry;
+    rx = ax > rx ? ax : rx;
+  }
+  return L.hz == rz && L.hy == ry && L.hx == rx;
+}
+
+template <typename T, int K, int R>
+int launch_grid_nbr_kr(const GridLaunch& L, const T* x, const T* rows, int m, T* w,
+                       cudaStream_t stream) {
+  const size_t smem = grid_nbr_smem(L, sizeof(T));
+  cudaError_t e = allow_grid_nbr_smem<T, K, R>(smem);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {(void*)&x, (void*)&rows, (void*)&L, (void*)&m, (void*)&w};
+  e = cudaLaunchCooperativeKernel((const void*)resident_grid_nbr_kernel<T, K, R>,
+                                  dim3(L.tiles_z * L.tiles_y), dim3(kNbrThreads), args, smem,
+                                  stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int K>
+int launch_grid_nbr_k(const GridLaunch& L, const T* x, const T* rows, int m, T* w,
+                      cudaStream_t stream) {
+  const int small = kGridSmall * kNbrThreads;
+  if (L.tz * L.ty * L.nx <= small && L.halo_lines * L.nx <= small)
+    return launch_grid_nbr_kr<T, K, kGridSmall>(L, x, rows, m, w, stream);
+  return launch_grid_nbr_kr<T, K, kGridRows>(L, x, rows, m, w, stream);
+}
+
+// B6's neighbour form: one block per tile. The 5-, 7- and 27-point
+// stencils take kernels with their point loop unrolled (on the H100 0.1-
+// 1.4 us a step faster than the kernel for any k at 512^2, 1000^2 and 64^3,
+// PERF.md), and tiles of up to 2048 rows and halo rows one whose threads
+// keep 2 of each (at 512^2 and 64^3 0.3-1.3 us a step faster than with 8
+// and 4, which spill registers).
+template <typename T>
+int launch_grid_nbr(const GridLaunch& L, const T* x, const T* rows, int m, T* w,
+                    cudaStream_t stream) {
+  if (!grid_nbr_valid(L) || m < 0) return (int)cudaErrorInvalidValue;
+  switch (L.k) {
+    case 5:
+      return launch_grid_nbr_k<T, 5>(L, x, rows, m, w, stream);
+    case 7:
+      return launch_grid_nbr_k<T, 7>(L, x, rows, m, w, stream);
+    case 27:
+      return launch_grid_nbr_k<T, 27>(L, x, rows, m, w, stream);
+  }
+  return launch_grid_nbr_k<T, 0>(L, x, rows, m, w, stream);
+}
+
+// B6's family form: one accumulator, the coefficients and offsets of the
+// descriptor, buf 3n scratch values.
+template <typename T>
+int launch_grid(const GridLaunch& L, const T* x, const T* rows, int m, T* w, T* buf,
+                cudaStream_t stream) {
+  if (!grid_valid(L)) return (int)cudaErrorInvalidValue;
+  Grid3D<T> op{};
+  op.offs.k = L.k;
+  for (int j = 0; j < L.k; ++j) {
+    op.offs.dz[j] = L.dz[j];
+    op.offs.dy[j] = L.dy[j];
+    op.offs.dx[j] = L.dx[j];
+    op.flat[j] = ((long long)L.dz[j] * L.ny + L.dy[j]) * L.nx + L.dx[j];
+  }
+  op.cvals = static_cast<const T*>(L.coef);
+  op.nz = L.nz;
+  op.ny = L.ny;
+  op.nx = L.nx;
+  return launch_family<T>(x, rows, rows + 3, 4, 1, op, L.n, m, w, buf, stream);
 }
 
 }  // namespace eu
@@ -774,10 +1204,14 @@ int launch_grid(const T* x, const T* rows, const T* cvals, const int* offs, int 
                                 (cudaStream_t)stream);                              \
   }                                                                                 \
   extern "C" int eu_resident_grid_##SUF(                                             \
-      const T* x, const T* rows, const T* cvals, const int* offs, int k, int nz,    \
-      int ny, int nx, int m, T* w, T* buf, void* stream) {                          \
-    return eu::launch_grid<T>(x, rows, cvals, offs, k, nz, ny, nx, m, w, buf,       \
-                              (cudaStream_t)stream);                                \
+      const eu::GridLaunch* L, const T* x, const T* rows, int m, T* w, T* buf,      \
+      void* stream) {                                                               \
+    return eu::launch_grid<T>(*L, x, rows, m, w, buf, (cudaStream_t)stream);        \
+  }                                                                                 \
+  extern "C" int eu_resident_grid_nbr_##SUF(                                         \
+      const eu::GridLaunch* L, const T* x, const T* rows, int m, T* w,              \
+      void* stream) {                                                               \
+    return eu::launch_grid_nbr<T>(*L, x, rows, m, w, (cudaStream_t)stream);         \
   }                                                                                 \
   extern "C" int eu_nbr_capacity_##SUF(int kind, long long smem) {                 \
     return eu::nbr_capacity<T>(kind, (size_t)smem);                                 \

@@ -12,7 +12,8 @@ in the JAX package's order:
                    persistent launch (ops/kernels/resident.py, B1)
   * ``banded``   - ``BandedOperator``s, one persistent launch (B5)
   * ``grid``     - 2-D/3-D constant stencils whose state fits the L2
-                   budget, one persistent launch (B6)
+                   budget, one persistent launch (B6: tiles of the grid
+                   kept on chip where they fit, else the family kernel)
   * ``fused``    - 2-D/3-D box stencils, one sweep per step
                    (ops/kernels/lanczos_fused.recurrence_apply_fused): B3
                    for constant, B3-var for variable coefficients

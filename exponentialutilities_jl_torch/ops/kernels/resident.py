@@ -40,11 +40,15 @@ and cooperative, except B2's cluster form):
   max|o| is within a block's rows and the state fits; the family kernel
   otherwise.
 * B6 ``recurrence_apply_resident_grid``: A a 2-D/3-D constant stencil on
-  the natural row-major grid with Dirichlet ends, for grids whose state
-  fits the card's L2 (``L2_STATE_BUDGET``).
+  the natural row-major grid with Dirichlet ends, for the grids of
+  ``resident_grid_supported``. Two forms, chosen by its
+  ``GridRecurrencePlan``: blocks that own (z, y)-tiles of whole x-lines,
+  keep them on chip and wait for the tiles around them only (the
+  neighbour form, ``resident_grid_nbr_kernel``), where a tile's state fits
+  on chip; the family kernel with one grid barrier a step otherwise.
 
-B1, B2, B4 and B5 launch through plans (``recurrence_plan``,
-``lanczos_plan``, ``multi_plan``, ``banded_plan``, kept on the operator per
+All five launch through plans (``recurrence_plan``, ``lanczos_plan``,
+``multi_plan``, ``banded_plan``, ``grid_plan``, kept on the operator per
 dtype and CUDA device): the cast coefficients or diagonals, the form,
 the launch geometry queried once, the buffers (one set per stream, so
 launches on two streams may overlap) and a C launch descriptor, so a
@@ -61,6 +65,7 @@ raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -81,14 +86,18 @@ __all__ = ["recurrence_apply_resident", "resident_recurrence",
            "lanczos_plan", "cluster_shape", "MultiPlan", "multi_plan",
            "RecurrencePlan", "recurrence_plan", "BandedRecurrencePlan",
            "banded_plan", "nbr_geometry", "nbr_smem", "CLUSTER_SIZES",
-           "CLUSTER_MAX_ROWS"]
+           "CLUSTER_MAX_ROWS", "GridRecurrencePlan", "grid_plan", "GridTiles",
+           "grid_tiles", "grid_smem", "grid_dirs", "grid_halo_lines",
+           "GRID_MAX_ROWS", "GRID_MAX_HALO"]
 
-# B4 and B6 keep their whole state (3 recurrence vectors plus the
-# accumulators) in the H100's 50 MB L2; 40 MB leaves room for the rows,
-# coefficients and other traffic. Above it the one-launch kernels stream
-# from HBM and B3's sweeps are the better 2-D/3-D engine: the B6-vs-B3
-# times of chip_smoke.py (phase 5) are the measurement that should move
-# this budget.
+# The gates of B4 (dispatch.resident_multi_ok) and B6
+# (resident_grid_supported): their state (3 recurrence vectors plus the
+# accumulators) within 40 MiB, the H100's 50 MB L2 less room for the other
+# traffic. B6 against B3's sweeps, one call each on the H100 (chip_smoke.py
+# phase 5, PERF.md): B6 faster at every grid measured within the budget;
+# above it, float32 even at 128^3 and slower from 160^3, float64 faster up
+# to 216^3 on the family kernel (a budget of its own for float64 would move
+# config #5's Chebyshev calls off the sweeps, where the main path keeps them).
 L2_STATE_BUDGET = 40 * 2 ** 20
 
 # B2's cluster form (csrc/resident_cluster.cu): a cluster of 16 blocks
@@ -103,6 +112,9 @@ CLUSTER_MAX_ROWS = {torch.float32: 23_000, torch.float64: 8_192}
 NBR_MIN_ROWS = 256              # rows a block of the neighbour form owns at least
 NBR_MAX_COLS = 8                # eu::kMaxCols: accumulators of the neighbour form
 NBR_FLAG_STRIDE = 16            # eu::kFlagStride: one flag per 128-byte line
+# B6's neighbour form: a thread owns at most 8 tile rows and copies at most
+# 4 halo rows (eu::kGridRows, eu::kGridHalo, times 1024 threads)
+GRID_MAX_ROWS, GRID_MAX_HALO = 8 * 1024, 4 * 1024
 
 def resident_supported(op) -> bool:
     """True when ``op`` is a 1-D real constant-coefficient StencilOperator
@@ -127,16 +139,21 @@ def resident_banded_supported(op) -> bool:
             and all(abs(o) < n for o in op.offsets))
 
 
+def _grid_operator(op) -> bool:
+    """A real 2-D/3-D constant ``StencilOperator`` with at most MAX_POINTS
+    points: what B6's kernels take at any size."""
+    return (isinstance(op, StencilOperator) and len(op.grid_shape) in (2, 3)
+            and not op.coeffs.is_complex()
+            and 0 < len(op.offsets) <= _build.MAX_POINTS)
+
+
 def resident_grid_supported(op, dtype=None) -> bool:
     """True for a real 2-D/3-D constant ``StencilOperator`` whose four
     state vectors (previous, current, next, w) in ``dtype`` (default: the
     operator's) fit ``L2_STATE_BUDGET``."""
-    if not isinstance(op, StencilOperator) or len(op.grid_shape) not in (2, 3):
+    if not _grid_operator(op):
         return False
-    if op.coeffs.is_complex() or not 0 < len(op.offsets) <= _build.MAX_POINTS:
-        return False
-    itemsize = torch.empty((), dtype=dtype or op.dtype).element_size()
-    return 4 * op.shape[0] * itemsize <= L2_STATE_BUDGET
+    return 4 * op.shape[0] * (dtype or op.dtype).itemsize <= L2_STATE_BUDGET
 
 
 def _flat_offsets(op):
@@ -265,6 +282,22 @@ class _LanczosLaunch(ctypes.Structure):
     _fields_ = [("cvals", ctypes.c_void_p), ("n", ctypes.c_longlong),
                 ("rows", ctypes.c_longlong), ("cluster", ctypes.c_int),
                 ("k", ctypes.c_int), ("o", ctypes.c_int * _build.MAX_POINTS)]
+
+
+class _GridLaunch(ctypes.Structure):
+    """``eu::GridLaunch`` (csrc/resident_family.cu), built once per plan
+    and stream."""
+    _fields_ = [("coef", ctypes.c_void_p), ("flags", ctypes.c_void_p),
+                ("pub", ctypes.c_void_p), ("n", ctypes.c_longlong),
+                ("nz", ctypes.c_int), ("ny", ctypes.c_int), ("nx", ctypes.c_int),
+                ("tiles_z", ctypes.c_int), ("tiles_y", ctypes.c_int),
+                ("tz", ctypes.c_int), ("ty", ctypes.c_int),
+                ("hz", ctypes.c_int), ("hy", ctypes.c_int),
+                ("hx", ctypes.c_int), ("dirs", ctypes.c_int),
+                ("halo_lines", ctypes.c_int), ("k", ctypes.c_int),
+                ("dz", ctypes.c_int * _build.MAX_POINTS),
+                ("dy", ctypes.c_int * _build.MAX_POINTS),
+                ("dx", ctypes.c_int * _build.MAX_POINTS)]
 
 
 class _NbrLaunch(ctypes.Structure):
@@ -712,6 +745,206 @@ class BandedRecurrencePlan(_NbrForm):
         return w
 
 
+class GridTiles(NamedTuple):
+    """B6's neighbour-form geometry: tiles of ``tz`` planes by ``ty``
+    whole x-lines, ``tiles_z`` x ``tiles_y`` of them (block b owns tile
+    (b // tiles_y, b % tiles_y); the last along an axis may hold fewer),
+    spans with the stencil's reach as halo: ``hz`` planes and ``hy`` lines
+    each side, ``hx`` zero columns at each end of a line."""
+    tz: int
+    ty: int
+    tiles_z: int
+    tiles_y: int
+    hz: int
+    hy: int
+    hx: int
+
+    @property
+    def grid(self) -> int:
+        return self.tiles_z * self.tiles_y
+
+
+def grid_halo_lines(tiles: GridTiles, dirs: int) -> int:
+    """The most halo lines a B6 tile copies (``eu::grid_halo_lines``): for
+    each direction of ``dirs`` (``grid_dirs``) along which the grid has
+    more than one tile, a face or corner of the tile's extent and the
+    halo."""
+    t, lines = tiles, 0
+    for d in range(9):
+        a, c = d // 3 - 1, d % 3 - 1
+        if (d == 4 or not dirs >> d & 1 or (a and t.tiles_z < 2)
+                or (c and t.tiles_y < 2)):
+            continue
+        lines += (t.hz if a else t.tz) * (t.hy if c else t.ty)
+    return lines
+
+
+def grid_smem(tiles: GridTiles, nx: int, itemsize: int,
+              halo_lines: int) -> int:
+    """Bytes of dynamic shared memory a block of B6's neighbour form needs
+    (``eu::grid_nbr_smem``): the halo-line table (16 bytes a line), two
+    omega spans of (tz + 2 hz)(ty + 2 hy) lines of nx + 2 hx values, and
+    the tile's tz ty nx accumulator rows."""
+    t = tiles
+    return 16 * halo_lines + (
+        2 * (t.tz + 2 * t.hz) * (t.ty + 2 * t.hy) * (nx + 2 * t.hx)
+        + t.tz * t.ty * nx) * itemsize
+
+
+def grid_tiles(shape3, offs3, sms: int) -> GridTiles:
+    """The tiles of B6's neighbour form for the (nz, ny, nx) grid and its
+    (dz, dy, dx) offsets: at most ``sms`` tiles (one block per SM), each
+    at least max|dz| planes (max|dy| lines) where the grid has more than
+    one tile along z (y), so a halo lies in the next tile; among those, the
+    fewest span and accumulator values a block (``grid_smem``), then the
+    fewest planes a tile. For each tz the fewest lines that keep within
+    ``sms`` tiles win (the footprint grows with ty), or one tile of all ny
+    lines."""
+    nz, ny, nx = shape3
+    hz, hy, hx = (max(abs(o[a]) for o in offs3) for a in range(3))
+    best = None
+    for tz in range(1, nz + 1):
+        tiles_z = -(-nz // tz)
+        if tiles_z > sms or (tiles_z > 1 and tz < hz):
+            continue
+        most = sms // tiles_z
+        for ty in {min(max(-(-ny // most), hy), ny), ny}:
+            t = GridTiles(tz, ty, tiles_z, -(-ny // ty), hz, hy, hx)
+            key = (grid_smem(t, nx, 1, 0), tz)
+            if best is None or key < best[0]:
+                best = key, t
+    return best[1]
+
+
+def grid_dirs(offs3) -> int:
+    """The neighbour directions a B6 tile waits for (``eu::grid_dirs``):
+    bit 3 (a + 1) + (b + 1) for the tile at (+a, +b) along (z, y), for the
+    faces and the corner each point reaches and their opposites (a tile
+    waits for every tile that reads it)."""
+    dirs = 0
+    for dz, dy, _ in offs3:
+        a, e = (dz > 0) - (dz < 0), (dy > 0) - (dy < 0)
+        for sgn in (-1, 1):
+            for u in (0, 1):
+                for v in (0, 1):
+                    aa, ee = sgn * u * a, sgn * v * e
+                    if aa or ee:
+                        dirs |= 1 << (3 * (aa + 1) + ee + 1)
+    return dirs
+
+
+class GridRecurrencePlan:
+    """What every B6 launch on one 2-D/3-D constant stencil, for vectors of
+    one dtype on one CUDA device, shares: the checks, the coefficients in
+    that dtype, the offsets, the tiles (``grid_tiles`` from the card's SM
+    count, queried once), the form, chosen once (``form``: "neighbour",
+    ``resident_grid_nbr_kernel``, where a tile has at most
+    ``GRID_MAX_ROWS`` rows and ``GRID_MAX_HALO`` halo rows and the card
+    holds the whole grid of tiles with ``smem`` bytes of shared memory a
+    block, its answer; else "family", the grid-barrier kernel), and per
+    stream the launch descriptor with the neighbour form's flags (zeroed
+    once; the kernel takes each launch's base from them) and publication
+    buffer (a slot of tz ty nx rows a tile, two parities), or the family
+    form's scratch. A call compares x and the rows, makes w with
+    ``torch.empty_like`` and makes one ctypes call; ``nbr_launches`` counts
+    the neighbour form's. ``form="family"`` takes the family kernel at any
+    size (the main path never asks; the neighbour form is held bit for bit
+    against it)."""
+
+    kind = 3                # B6's neighbour kernel, as eu::nbr_capacity numbers it
+
+    def __init__(self, op, dtype, device, form=None):
+        from .lanczos_fused import _geometry
+
+        self.device = _plan_device(device)
+        what = "recurrence_apply_resident_grid"
+        _build.require_cuda(what, self.device)
+        if form not in (None, "family"):
+            raise ValueError(f"{what}: form {form!r}")
+        if dtype not in _build.KERNEL_DTYPES:
+            raise ValueError(f"{what} takes float32/float64, got {dtype}")
+        if not _grid_operator(op):
+            raise ValueError(f"{what} requires a real 2-D/3-D constant "
+                             f"StencilOperator (got {type(op).__name__})")
+        if op.device != self.device:
+            raise ValueError(f"{what}: operator on {op.device}, vector on "
+                             f"{self.device}")
+        self.dtype, self.n = dtype, op.shape[0]
+        self.shape = (self.n,)
+        self.cvals = op.coeffs.to(dtype).contiguous()
+        self.shape3, offs3 = _geometry(op)
+        self.lib = _build.library()
+        suf = _build.suffix(dtype)
+        with _on(self.device):
+            sms = _checked(self.lib.eu_device_sms(), "SM count query")
+        t = self.tiles = grid_tiles(self.shape3, offs3, sms)
+        nx, dirs = self.shape3[2], grid_dirs(offs3)
+        self.halo_lines = grid_halo_lines(t, dirs)
+        self.smem = grid_smem(t, nx, dtype.itemsize, self.halo_lines)
+        self.slot = t.tz * t.ty * nx    # a tile's rows in the publication buffer
+        self.form = "family"
+        if (form is None and self.slot <= GRID_MAX_ROWS
+                and self.halo_lines * nx <= GRID_MAX_HALO):
+            with _on(self.device):
+                cap = _checked(getattr(self.lib, f"eu_nbr_capacity_{suf}")(
+                    self.kind, self.smem), "neighbour-form occupancy query")
+            if cap >= t.grid:
+                self.form = "neighbour"
+        self.fn = getattr(self.lib, f"eu_resident_grid_nbr_{suf}"
+                          if self.form == "neighbour" else
+                          f"eu_resident_grid_{suf}")
+        self._fields = (self.n, *self.shape3, t.tiles_z, t.tiles_y, t.tz,
+                        t.ty, t.hz, t.hy, t.hx, dirs, self.halo_lines,
+                        len(offs3), *(_offsets_field([o[a] for o in offs3])
+                                      for a in range(3)))
+        self.bufs = {}          # stream -> (address, descriptor, flags, buffer)
+        self.nbr_launches = 0
+
+    def _launch(self, stream):
+        """The descriptor's address and the buffers for ``stream``: the
+        neighbour form's flags (``NBR_FLAG_STRIDE`` apart) and its
+        publication buffer, or the family form's 3n scratch."""
+        hit = self.bufs.get(stream)
+        if hit is None:
+            flags = None
+            if self.form == "neighbour":
+                flags = torch.zeros(self.tiles.grid * NBR_FLAG_STRIDE,
+                                    dtype=torch.int64, device=self.device)
+                buf = torch.empty(2 * self.tiles.grid * self.slot,
+                                  dtype=self.dtype, device=self.device)
+                ptrs = (flags.data_ptr(), buf.data_ptr())
+            else:
+                buf = torch.empty(3 * self.n, dtype=self.dtype,
+                                  device=self.device)
+                ptrs = (None, None)
+            launch = _GridLaunch(self.cvals.data_ptr(), *ptrs, *self._fields)
+            hit = self.bufs[stream] = (ctypes.addressof(launch), launch, flags,
+                                       buf)
+        return hit
+
+    _operands = _NbrForm._operands
+
+    def __call__(self, x, rows):
+        m = rows.shape[0]
+        self._operands("recurrence_apply_resident_grid",
+                       (("vector", x, self.shape), ("rows", rows, (m, 4))))
+        x, rows = x.contiguous(), rows.contiguous()
+        w = torch.empty_like(x)
+        stream = _build.raw_stream(self.device)
+        addr, _, _, buf = self._launch(stream)
+        if self.form == "neighbour":
+            code = self.fn(addr, x.data_ptr(), rows.data_ptr(), m,
+                           w.data_ptr(), stream)
+        else:
+            code = self.fn(addr, x.data_ptr(), rows.data_ptr(), m,
+                           w.data_ptr(), buf.data_ptr(), stream)
+        if code:
+            _build.check(code, f"resident grid kernel (B6, {self.form} form)")
+        _build.launches["resident_grid"] += 1
+        self.nbr_launches += self.form == "neighbour"
+        return w
+
+
 def _op_plan(op, cls, dtype, device):
     """``cls``'s plan for ``op``, kept per (dtype, device) with the
     coefficients (a ``BandedOperator``'s diagonals) and offsets it was built
@@ -747,34 +980,19 @@ def banded_plan(op, dtype, device) -> BandedRecurrencePlan:
     return _op_plan(op, BandedRecurrencePlan, dtype, device)
 
 
+def grid_plan(op, dtype, device) -> GridRecurrencePlan:
+    """B6's plan for the 2-D/3-D ``op`` and vectors of ``dtype`` on CUDA
+    ``device``."""
+    return _op_plan(op, GridRecurrencePlan, dtype, device)
+
+
 # ------------------------------------------------------------ wrappers --
-
-def _check_launch(op, x):
-    """Validate a CUDA launch of an (n,) vector against its operator."""
-    if x.dtype not in _build.KERNEL_DTYPES:
-        raise ValueError(f"resident kernels take float32/float64, got {x.dtype}")
-    if op.device != x.device:
-        raise ValueError(f"operator on {op.device}, vector on {x.device}")
-    n = op.shape[0]
-    if x.ndim != 1 or x.shape[0] != n:
-        raise ValueError(f"expected an ({n},) vector, got {tuple(x.shape)}")
-
-
-def _kernel_cvals(op, x):
-    """Validate a CUDA launch; return the coefficients in x's dtype."""
-    _check_launch(op, x)
-    return op.coeffs.to(x.dtype).contiguous()
-
 
 def _as_rows(rows, x):
     rows = torch.as_tensor(rows, dtype=x.dtype, device=x.device)
     if rows.ndim != 2 or rows.shape[1] != 4:
         raise ValueError(f"rows must be (m, 4), got {tuple(rows.shape)}")
     return rows
-
-
-def _offsets_arg(offsets):
-    return (ctypes.c_int * len(offsets))(*offsets)
 
 
 def _require_device(x, what):
@@ -846,7 +1064,8 @@ def recurrence_apply_resident_banded(op, b, rows):
 def recurrence_apply_resident_grid(op, b, rows):
     """w = sum_k cw_k omega_k (module doc, omega_0 = b) for a 2-D/3-D
     constant ``StencilOperator`` on its natural row-major layout: one
-    launch of kernel B6 on CUDA, its twin on CPU. Returns (n,)."""
+    launch of kernel B6 on CUDA (through the operator's ``grid_plan``), its
+    twin on CPU. Returns (n,)."""
     if not resident_grid_supported(op, b.dtype):
         raise ValueError("recurrence_apply_resident_grid requires a real "
                          "2-D/3-D constant StencilOperator whose state fits "
@@ -857,21 +1076,7 @@ def recurrence_apply_resident_grid(op, b, rows):
     if b.device.type == "cpu":
         return resident_grid_ref(b, rows, op.grid_shape, op.offsets,
                                  op.coeffs.to(b.dtype))
-    from .lanczos_fused import _geometry
-
-    cvals = _kernel_cvals(op, b)
-    b, rows = b.contiguous(), rows.contiguous()
-    (nz, ny, nx), offs3 = _geometry(op)
-    flat = [o for off in offs3 for o in off]
-    w = torch.empty_like(b)
-    buf = torch.empty(3 * b.shape[0], dtype=b.dtype, device=b.device)
-    fn = getattr(_build.library(), f"eu_resident_grid_{_build.suffix(b.dtype)}")
-    code = fn(_build.ptr(b), _build.ptr(rows), _build.ptr(cvals),
-              _offsets_arg(flat), len(offs3), nz, ny, nx, rows.shape[0],
-              _build.ptr(w), _build.ptr(buf), _build.raw_stream(b.device))
-    _build.check(code, "resident grid kernel (B6)")
-    _build.launches["resident_grid"] += 1
-    return w
+    return grid_plan(op, b.dtype, b.device)(b, rows)
 
 
 def resident_lanczos(op, v0, m: int, tol: float):

@@ -6,7 +6,8 @@ one CUDA card.
 Shapes: config #2's 1-D Laplacian at n = 1e5; B2 at m = 20 and 40, B4 at
 p = 4 and B1 with m = 12 and 40 (random rows scaled by 1/|A|); B5 on
 config #3's poisson_2d(1000, 1000) at m = 4, 8 and 16; B6 on the 2-D
-512^2 Laplacian at m = 15 and 40; float32 and float64. For each: the
+512^2 and 1000^2 Laplacians and on 64^3 with the 7-point Laplacian and
+the 27-point box at m = 8, 15 and 30; float32 and float64. For each: the
 CUDA-event median of one call (the wrapper's host time included), the
 time per call of 20 calls back to back, the host microseconds per call
 (200 calls enqueued, then one synchronize), the kernel's device time per
@@ -20,8 +21,10 @@ cannot. Every line carries the card's name and power limit.
 Where the tree has B4's launch plan (``resident.MultiPlan``), the family
 kernel is timed beside the neighbour form through a plan built with
 ``form="family"``; likewise B1's grid kernel (``RecurrencePlan(...,
-form="grid")``) and B5's family kernel (``BandedRecurrencePlan(...,
-form="family")``) where the tree has those plans. B2 has no such
+form="grid")``), B5's family kernel (``BandedRecurrencePlan(...,
+form="family")``) and B6's (``GridRecurrencePlan(..., form="family")``)
+where the tree has those plans; a tree without B6's plan runs the family
+kernel alone. B2 has no such
 option: its grid form is timed from a tree that runs it at every size
 (one from before the plans). The sizes
 around B2's gate (``resident.CLUSTER_MAX_ROWS``: float64 n = 131k, the
@@ -32,17 +35,19 @@ calls only entry points that earlier versions of the port share
 otherwise, so it compares two trees of this repository in one run on one
 card:
 
-    cd <tree> && python3 /path/to/resident_times.py
+    cd <tree> && python3 /path/to/resident_times.py [PART ...]
 
-The costs of the synchronisation alone (cluster barriers, DSMEM partials,
+PART is any of b1, b2, b4, b5, b6 and e2e (default: all): the kernels to
+time, and the end-to-end calls. The costs of the synchronisation alone (cluster barriers, DSMEM partials,
 neighbour flags, grid barriers) come from ``sync_bench.cu``, built and
 run by hand (its header says how).
 
 chip_smoke.py times the main-path shapes in its phase 5; this script is
 the version that also runs against an earlier commit. It also times end
 to end (float64) config #2's ``expv_chebyshev`` (B1), two-pass
-``expv(m=40)`` and ``phiv(k=3, m=40)`` (B2 and then B1 or B4) and config
-#3's ``expv_chebyshev`` (B5).
+``expv(m=40)`` and ``phiv(k=3, m=40)`` (B2 and then B1 or B4), config
+#3's ``expv_chebyshev`` (B5) and the 2-D 512^2 ``expv_chebyshev`` (B6,
+chip_smoke.py's "2d cheb" cell).
 """
 
 import os
@@ -60,6 +65,7 @@ sys.path.insert(0, os.getcwd())
 N = 100_000                  # BASELINE config #2
 NP = 1000                    # BASELINE config #3: poisson_2d(1000, 1000)
 NG = 512                     # the 2-D grid under B6's gate
+PARTS = ("b1", "b2", "b4", "b5", "b6", "e2e")
 
 
 def median_ms(fn, reps=10, warmup=2):
@@ -129,6 +135,11 @@ def device_ms(fn, kname, k=20):
 def main() -> int:
     if not torch.cuda.is_available():
         print("resident_times.py needs a CUDA device", file=sys.stderr)
+        return 2
+    parts = set(sys.argv[1:]) or set(PARTS)
+    if parts - set(PARTS):
+        print(f"resident_times.py: parts are {', '.join(PARTS)}",
+              file=sys.stderr)
         return 2
     import exponentialutilities_jl_torch as et
     from exponentialutilities_jl_torch.ops.kernels import resident as tr
@@ -229,44 +240,85 @@ def main() -> int:
                      f"poisson_2d({NP}, {NP}) m={m} ({form} form)",
                      partial(fn, b, scaled_rows(op, dt, m)), "Banded")
 
+    def box27(shape, dt):
+        offs = [(a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
+                for c in (-1, 0, 1)]
+        return et.StencilOperator(
+            shape, offs, np.asarray([-26.0 if o == (0, 0, 0) else 1.0
+                                     for o in offs]),
+            is_hermitian=True, dtype=dt, device=dev)
+
     def b6(dt, ms):
         dn = str(dt).split(".")[-1]
-        op = et.laplacian_nd_stencil(NG, NG, dtype=dt, device=dev)
-        b = torch.as_tensor(rng.standard_normal(NG * NG), dtype=dt,
-                            device=dev)
-        for m in ms:
-            line(("B6", "family form", dn, NG * NG, m), f"B6 {dn} {NG}^2 "
-                 f"m={m}", partial(tr.recurrence_apply_resident_grid, op, b,
-                                   scaled_rows(op, dt, m)), "Grid3D")
+        for label, op in (
+                (f"{NG}^2 5-point", et.laplacian_nd_stencil(
+                    NG, NG, dtype=dt, device=dev)),
+                ("1000^2 5-point", et.laplacian_nd_stencil(
+                    1000, 1000, dtype=dt, device=dev)),
+                ("64^3 7-point", et.laplacian_nd_stencil(
+                    64, 64, 64, dtype=dt, device=dev)),
+                ("64^3 27-point box", box27((64, 64, 64), dt))):
+            b = torch.as_tensor(rng.standard_normal(op.shape[0]), dtype=dt,
+                                device=dev)
+            forms = {"family": partial(tr.recurrence_apply_resident_grid,
+                                       op)}
+            if hasattr(tr, "GridRecurrencePlan"):   # the main path's form,
+                plan = tr.grid_plan(op, dt, dev)   # and the family kernel
+                forms = {plan.form: forms["family"]}
+                forms.setdefault("family", tr.GridRecurrencePlan(
+                    op, dt, dev, form="family"))
+                t = plan.tiles
+                print(f"B6 {dn} {label}: {plan.form} form, {t.grid} tiles "
+                      f"of {t.tz} x {t.ty} lines, {plan.smem} bytes of "
+                      f"shared memory a block {card}", flush=True)
+            for form, fn in forms.items():
+                kname = "resident_grid_nbr" if form == "neighbour" else "Grid3D"
+                for m in ms:
+                    line(("B6", f"{form} form", dn, label, m), f"B6 {dn} "
+                         f"{label} m={m} ({form} form)",
+                         partial(fn, b, scaled_rows(op, dt, m)), kname)
 
     for dt in (torch.float32, torch.float64):
-        op, b = b2(N, dt, (20, 40))
-        rows = b4(op, b, dt, (12, 40))
-        b1(op, b, dt, rows)
-        b5(dt, (4, 8, 16))
-        b6(dt, (15, 40))
+        if parts & {"b2", "b4", "b1"}:
+            op, b = b2(N, dt, (20, 40) if "b2" in parts else ())
+            rows = b4(op, b, dt, (12, 40) if "b4" in parts else ())
+            if "b1" in parts:
+                b1(op, b, dt, rows or {m: scaled_rows(op, dt, m)
+                                       for m in (12, 40)})
+        if "b5" in parts:
+            b5(dt, (4, 8, 16))
+        if "b6" in parts:
+            b6(dt, (8, 15, 30))
     # the sizes around B2's gate and B4 with chunks three times config #2's
     for dt, sizes in ((torch.float64, (131_000, 150_000, 230_000)),
                       (torch.float32, (200_000, 300_000, 360_000, 460_000))):
-        for n in sizes:
-            b2(n, dt, (40,))
-        op, b = b2(300_000, dt, ())
-        b4(op, b, dt, (12,))
+        if "b2" in parts:
+            for n in sizes:
+                b2(n, dt, (40,))
+        if "b4" in parts:
+            op, b = b2(300_000, dt, ())
+            b4(op, b, dt, (12,))
     # end to end (float64): config #2 (t = 0.5), expv_chebyshev (B1) and
     # the two-pass calls that run B2 then B1 (expv) or B2 then B4 (phiv,
-    # k = 3); config #3 (t = 1e-4), expv_chebyshev (B5)
+    # k = 3); config #3 (t = 1e-4), expv_chebyshev (B5); the 2-D 512^2
+    # Laplacian (t = 0.5), expv_chebyshev (B6)
     op = et.laplacian_nd_stencil(N, device=dev)
     b = torch.as_tensor(rng.standard_normal(N), device=dev)
     opP = et.poisson_2d(NP, NP, device=dev)
     bP = torch.as_tensor(rng.standard_normal(NP * NP), device=dev)
-    for label, fn in (("config #2 expv_chebyshev(tol=1e-12)", partial(
-            et.expv_chebyshev, 0.5, op, b, tol=1e-12)),
-                      ("config #2 expv(m=40, two_pass=True)", partial(
-                          et.expv, 0.5, op, b, m=40, two_pass=True)),
-                      ("config #2 phiv(k=3, m=40, two_pass=True)", partial(
-                          et.phiv, 0.5, op, b, 3, m=40, two_pass=True)),
-                      ("config #3 expv_chebyshev(tol=1e-12)", partial(
-                          et.expv_chebyshev, 1e-4, opP, bP, tol=1e-12))):
+    opG = et.laplacian_nd_stencil(NG, NG, device=dev)
+    bG = torch.as_tensor(rng.standard_normal(NG * NG), device=dev)
+    e2e = (("config #2 expv_chebyshev(tol=1e-12)", partial(
+        et.expv_chebyshev, 0.5, op, b, tol=1e-12)),
+           ("config #2 expv(m=40, two_pass=True)", partial(
+               et.expv, 0.5, op, b, m=40, two_pass=True)),
+           ("config #2 phiv(k=3, m=40, two_pass=True)", partial(
+               et.phiv, 0.5, op, b, 3, m=40, two_pass=True)),
+           ("config #3 expv_chebyshev(tol=1e-12)", partial(
+               et.expv_chebyshev, 1e-4, opP, bP, tol=1e-12)),
+           (f"2-D {NG}^2 expv_chebyshev(tol=1e-12)", partial(
+               et.expv_chebyshev, 0.5, opG, bG, tol=1e-12)))
+    for label, fn in e2e if "e2e" in parts else ():
         one = [median_ms(fn) for _ in range(3)]
         print(f"end-to-end {label} float64: one call "
               f"{' / '.join(f'{t:.4f}' for t in one)} ms (three medians of "
@@ -283,7 +335,8 @@ def main() -> int:
             if len(by_m) < 2:
                 continue
             lo, hi = min(by_m), max(by_m)
-            print(f"per-step {kernel} {dn} n={n} ({form}), {how} slope over "
+            where = f"n={n}" if isinstance(n, int) else n
+            print(f"per-step {kernel} {dn} {where} ({form}), {how} slope over "
                   f"m = {lo}..{hi}: "
                   f"{(by_m[hi] - by_m[lo]) / (hi - lo) * 1e3:.3f} us {card}",
                   flush=True)

@@ -1069,3 +1069,143 @@ def test_b5_offsets_wider_than_a_block_take_the_family_form(dev):
     assert _build.launches["resident_banded"] == 1 and plan.nbr_launches == 0
     _close(w, tr.resident_banded_ref(x, rows, op.diags, op.offsets),
            torch.float64)
+
+
+# ---- B6's neighbour form --------------------------------------------------
+
+def _grid_op(kind, dt, dev):
+    """B6's stencils on square and non-square grids: the 5-point and
+    7-point Laplacians, the 9-point and 27-point boxes (random symmetric
+    coefficients, c(o) = c(-o): a real spectrum, so Chebyshev rows stay
+    bounded), and a 3-D stencil with |dz| = 2."""
+    if kind.startswith(("2d 9pt", "3d 27pt")):
+        shape = tuple(int(s) for s in kind.split()[-1].split("x"))
+        offs = list(itertools.product((-1, 0, 1), repeat=len(shape)))
+        half = np.random.default_rng(71).standard_normal(len(offs)) * 0.15
+        cs = [half[min(j, len(offs) - 1 - j)] for j in range(len(offs))]
+        return et.StencilOperator(shape, offs, np.asarray(cs), dtype=dt,
+                                  device=dev)
+    if kind.startswith("3d wide dz"):
+        return et.StencilOperator(
+            (7, 10, 20), ((0, 0, 0), (1, 0, 0), (-1, 0, 0), (2, 0, 0),
+                          (-2, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1),
+                          (0, 0, -1)),
+            np.asarray([-4.0, 1.0, 1.0, 0.25, 0.25, 0.8, 0.8, 0.6, 0.6]),
+            dtype=dt, device=dev)
+    shape = tuple(int(s) for s in kind.split()[-1].split("x"))
+    return et.laplacian_nd_stencil(*shape, dtype=dt, device=dev)
+
+
+# 1000 x 1000: tiles of 8000 rows, the kernels with 8 rows a thread
+GRID_KINDS = ["2d 5pt 64x64", "2d 5pt 300x200", "2d 5pt 1000x1000",
+              "2d 9pt 50x71", "3d 7pt 16x16x16", "3d 7pt 9x20x33",
+              "3d 27pt 12x13x14", "3d wide dz 7x10x20"]
+
+
+def _cheb_rows(m, op, dt, dev, seed):
+    """Chebyshev-U rows on [-|A|, |A|] (bounded chain) with weights
+    decaying as 0.98^k, as a Chebyshev expansion's do: at m = 200 float32
+    rounding then stays near 1e-6 of max|w| (undamped weights reach 7e-6
+    on the CPU twin itself)."""
+    hw = float(op.opnorm_hint())
+    cw = np.random.default_rng(seed).standard_normal(m) * 0.98 ** np.arange(m)
+    r = np.stack([np.full(m, 2.0 / hw), np.zeros(m), np.full(m, -1.0), cw], 1)
+    if m:
+        r[0, 2] = 0.0
+    return torch.as_tensor(r.reshape(m, 4), dtype=dt, device=dev)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("kind", GRID_KINDS)
+@pytest.mark.parametrize("m", [0, 1, 15, 200])
+def test_b6_neighbour_vs_twin_and_family(dev, dt, kind, m):
+    """B6's neighbour form against its twin, and bit for bit against the
+    family kernel (both call the same row functions)."""
+    op = _grid_op(kind, dt, dev)
+    plan = tr.grid_plan(op, dt, dev)
+    assert plan.form == "neighbour"
+    x = _vec(op.shape[0], dt, dev, 72)
+    rows = _cheb_rows(m, op, dt, dev, 73)
+    launched = plan.nbr_launches
+    w = tr.recurrence_apply_resident_grid(op, x, rows)
+    assert plan.nbr_launches == launched + 1
+    if m == 0:
+        assert not w.any()
+    else:
+        _close(w, tr.resident_grid_ref(x, rows, op.grid_shape, op.offsets,
+                                       op.coeffs), dt)
+    family = tr.GridRecurrencePlan(op, dt, dev, form="family")
+    assert family.form == "family" and torch.equal(w, family(x, rows))
+
+
+def test_b6_neighbour_repeats_on_two_streams_and_graph_replays(dev):
+    """Five launches give the same bits; launches on two streams, free to
+    overlap, each with flags and a publication buffer of their own, give
+    the bits of launches on one stream; three launches captured in one
+    CUDA graph give them at every replay (the flags' base is read on the
+    card)."""
+    op = _grid_op("3d 27pt 12x13x14", torch.float64, dev)
+    plan = tr.grid_plan(op, torch.float64, dev)
+    x, x2 = (_vec(op.shape[0], torch.float64, dev, s) for s in (74, 75))
+    rows = _cheb_rows(15, op, torch.float64, dev, 76)
+    want = [plan(x, rows), plan(x2, rows)]
+    for _ in range(4):
+        assert torch.equal(plan(x, rows), want[0])
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(3):
+        for s, v in ((s1, x), (s2, x2)):
+            with torch.cuda.stream(s):
+                got.append(plan(v, rows))
+    torch.cuda.synchronize()
+    for i, w in enumerate(got):
+        assert torch.equal(w, want[i % 2]), i
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # the capture stream's buffers, made
+        plan(x, rows)               # outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side):
+        outs = [plan(v, rows) for v in (x, x2, x)]
+    for _ in range(3):
+        for w in outs:
+            w.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        for w, v in zip(outs, (want[0], want[1], want[0])):
+            assert torch.equal(w, v)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_b6_offset_view_of_x(dev, dt):
+    """x an offset view into a larger buffer (not 16-byte aligned) gives
+    the bits of an aligned copy."""
+    op = _grid_op("2d 5pt 300x200", dt, dev)
+    n = op.shape[0]
+    big = _vec(n + 1, dt, dev, 77)
+    view = big[1:]
+    rows = _cheb_rows(15, op, dt, dev, 78)
+    assert view.data_ptr() % 16 != 0
+    assert torch.equal(tr.recurrence_apply_resident_grid(op, view, rows),
+                       tr.recurrence_apply_resident_grid(op, view.clone(),
+                                                         rows))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_b6_tiles_past_shared_memory_take_the_family_form(dev, dt):
+    """100^3 in float64: a tile of 8 x 10 lines needs 256,000 bytes, more
+    than a block's shared memory, so the plan takes the family kernel;
+    float32 fits. Both agree with the twin."""
+    op = et.laplacian_nd_stencil(100, 100, 100, dtype=dt, device=dev)
+    plan = tr.grid_plan(op, dt, dev)
+    assert (plan.tiles.tz, plan.tiles.ty, plan.tiles.grid) == (8, 10, 130)
+    assert plan.form == ("family" if dt == torch.float64 else "neighbour")
+    x = _vec(op.shape[0], dt, dev, 79)
+    rows = _cheb_rows(12, op, dt, dev, 80)
+    _build.reset_launch_counts()
+    w = tr.recurrence_apply_resident_grid(op, x, rows)
+    assert _build.launches["resident_grid"] == 1
+    _close(w, tr.resident_grid_ref(x, rows, op.grid_shape, op.offsets,
+                                   op.coeffs), dt)

@@ -911,3 +911,226 @@ def test_b1_b5_plans_keep_buffers_per_stream(monkeypatch, case):
     ptrs = [args[where] for _, args in lib.calls]
     assert [args[-1] for _, args in lib.calls] == [11, 22, 11, 22, 11]
     assert ptrs[0] == ptrs[2] == ptrs[4] != ptrs[1] == ptrs[3]
+
+
+# --------------------------------------------- B6's launch plan (host) --
+
+def _grid_stencil(kind, shape, dtype=torch.float64):
+    """The 5-point (2-D) / 7-point (3-D) Laplacian, the 9-point / 27-point
+    box, or a 3-D stencil with |dz| = 2, on ``shape``."""
+    d = len(shape)
+    if kind == "star":
+        offs = [(0,) * d] + [tuple(s if i == a else 0 for i in range(d))
+                             for a in range(d) for s in (-1, 1)]
+    elif kind == "box":
+        offs = list(itertools.product((-1, 0, 1), repeat=d))
+    else:           # "wide dz"
+        offs = [(0, 0, 0), (1, 0, 0), (-1, 0, 0), (2, 0, 0), (-2, 0, 0),
+                (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1)]
+    return et.StencilOperator(shape, offs, np.linspace(-1.0, 1.0, len(offs)),
+                              dtype=dtype)
+
+
+GRID_SHAPES = [(512, 512), (1000, 1000), (7, 300), (64, 64, 64),
+               (100, 100, 100), (5, 7, 9), (3, 4)]
+# the 5-/7-point and box stencils on every shape, |dz| = 2 on the 3-D ones
+GRID_CASES = [(shape, kind) for shape in GRID_SHAPES
+              for kind in ("star", "box", "wide dz")
+              if kind != "wide dz" or len(shape) == 3]
+
+
+@pytest.mark.parametrize("shape,kind", GRID_CASES)
+def test_grid_tiles_own_every_row_once_and_reach_every_point(shape, kind):
+    """B6's tiles (132 SMs): at most one a SM, every grid line (so every
+    row) owned by exactly one tile, and every point a tile's rows reach
+    inside the grid lies in the tile or in a neighbour whose direction the
+    tile waits for, within the spans' halo; no tile copies more halo lines
+    than ``grid_halo_lines`` counts (the C side's table room)."""
+    op = _grid_stencil(kind, shape)
+    shape3, offs3 = tf._geometry(op)
+    nz, ny, nx = shape3
+    t = tr.grid_tiles(shape3, offs3, 132)
+    dirs = tr.grid_dirs(offs3)
+    assert 1 <= t.grid <= 132
+    assert (t.hz, t.hy, t.hx) == tuple(max(abs(o[a]) for o in offs3)
+                                       for a in range(3))
+    assert t.tiles_z == -(-nz // t.tz) and t.tiles_y == -(-ny // t.ty)
+    z, y = np.meshgrid(np.arange(nz), np.arange(ny), indexing="ij")
+    owner = (z // t.tz) * t.tiles_y + y // t.ty     # block of each line
+    assert np.bincount(owner.ravel(), minlength=t.grid).min() >= 1
+    assert owner.max() == t.grid - 1                # each line once, all tiles
+    halo = np.zeros(t.grid, dtype=int)
+    for b in range(t.grid):
+        mine = owner == b
+        lines = set()
+        for dz, dy, dx in offs3:
+            assert abs(dx) <= t.hx
+            qz, qy = z[mine] + dz, y[mine] + dy
+            ok = (qz >= 0) & (qz < nz) & (qy >= 0) & (qy < ny)
+            qz, qy = qz[ok], qy[ok]
+            src = owner[qz, qy]
+            a = src // t.tiles_y - b // t.tiles_y
+            c = src % t.tiles_y - b % t.tiles_y
+            assert (np.abs(a) <= 1).all() and (np.abs(c) <= 1).all()
+            far = src != b
+            assert all(dirs >> int(3 * (aa + 1) + cc + 1) & 1
+                       for aa, cc in zip(a[far], c[far]))
+            assert abs(dz) <= t.hz and abs(dy) <= t.hy
+            lines |= set(zip(qz[far].tolist(), qy[far].tolist()))
+        halo[b] = len(lines)
+    assert halo.max() <= tr.grid_halo_lines(t, dirs)
+
+
+def test_grid_geometry_and_shared_memory_bytes():
+    """The tiles and bytes of the timed shapes (float64): the C side's
+    grid_nbr_smem is 16 bytes a halo line plus two spans of (tz + 2 hz)
+    (ty + 2 hy) lines of nx + 2 hx values and tz ty nx accumulator rows."""
+    def plan_numbers(kind, shape):
+        op = _grid_stencil(kind, shape)
+        shape3, offs3 = tf._geometry(op)
+        t = tr.grid_tiles(shape3, offs3, 132)
+        lines = tr.grid_halo_lines(t, tr.grid_dirs(offs3))
+        return t, lines, tr.grid_smem(t, shape3[2], 8, lines)
+
+    t, lines, smem = plan_numbers("star", (512, 512))
+    assert (t.tz, t.ty, t.grid, lines) == (1, 4, 128, 2)
+    assert smem == 16 * 2 + (2 * 1 * 6 * 514 + 4 * 512) * 8 == 65_760
+    t, lines, smem = plan_numbers("star", (1000, 1000))
+    assert (t.tz, t.ty, t.grid, lines) == (1, 8, 125, 2)
+    assert smem == 16 * 2 + (2 * 10 * 1002 + 8000) * 8 == 224_352
+    t, lines, smem = plan_numbers("star", (64, 64, 64))
+    assert (t.tz, t.ty, t.grid, lines) == (4, 8, 128, 24)
+    assert smem == 16 * 24 + (2 * 6 * 10 * 66 + 2048) * 8 == 80_128
+    t, lines, smem = plan_numbers("box", (64, 64, 64))
+    assert lines == 28 and smem == 16 * 28 + (2 * 6 * 10 * 66 + 2048) * 8
+    t, lines, smem = plan_numbers("star", (100, 100, 100))
+    assert (t.tz, t.ty, t.grid, lines) == (8, 10, 130, 36)
+    assert smem == 16 * 36 + (2 * 10 * 12 * 102 + 8000) * 8 == 260_416
+    assert smem > OPTIN                 # float64 100^3: the family form
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_grid_plan_forms_vs_brute_force(monkeypatch, dtype):
+    """B6's form against the brute force: the neighbour form where a tile
+    has at most 8192 rows and 4096 halo rows and its shared memory fits
+    the opt-in, else the family kernel; also when the card answers that
+    fewer blocks fit than there are tiles, and under form="family"."""
+    lib = _fake(monkeypatch, dtype)
+    itemsize = 4 if dtype == torch.float32 else 8
+    cpu = torch.device("cpu")
+    for kind, shape in (("star", (512, 512)), ("star", (1000, 1000)),
+                        ("box", (64, 64, 64)), ("star", (100, 100, 100)),
+                        ("box", (100, 100, 100)), ("wide dz", (7, 10, 20)),
+                        ("star", (1146, 1146)), ("star", (1600, 1600)),
+                        ("star", (3, 4))):
+        op = _grid_stencil(kind, shape, dtype)
+        plan = tr.GridRecurrencePlan(op, dtype, cpu)
+        t = plan.tiles
+        shape3, offs3 = tf._geometry(op)
+        nx = shape3[2]
+        lines = tr.grid_halo_lines(t, tr.grid_dirs(offs3))
+        smem = (16 * lines + (2 * (t.tz + 2 * t.hz) * (t.ty + 2 * t.hy)
+                              * (nx + 2 * t.hx) + t.tz * t.ty * nx) * itemsize)
+        assert plan.smem == smem and plan.halo_lines == lines
+        want = ("neighbour" if t.tz * t.ty * nx <= 8192
+                and lines * nx <= 4096 and smem + NBR_STATIC <= OPTIN
+                else "family")
+        assert plan.form == want, (kind, shape)
+        assert tr.GridRecurrencePlan(op, dtype, cpu,
+                                     form="family").form == "family"
+    op = _grid_stencil("star", (512, 512), dtype)
+    assert tr.GridRecurrencePlan(op, dtype, cpu).form == "neighbour"
+    lib.returns[f"eu_nbr_capacity_{_build.suffix(dtype)}"] = (
+        lambda kind, smem: 127 if kind == 3 else 132)  # one short of 128 tiles
+    assert tr.GridRecurrencePlan(op, dtype, cpu).form == "family"
+    with pytest.raises(ValueError):
+        tr.GridRecurrencePlan(op, dtype, cpu, form="grid")
+
+
+def test_grid_launch_descriptor_layout():
+    """The ctypes mirror of eu::GridLaunch (its static_assert in
+    csrc/resident_family.cu)."""
+    G = tr._GridLaunch
+    assert ctypes.sizeof(G) == 856
+    assert (G.n.offset, G.nz.offset, G.tiles_z.offset, G.tz.offset,
+            G.hz.offset, G.hx.offset, G.dirs.offset, G.halo_lines.offset,
+            G.k.offset, G.dz.offset, G.dy.offset, G.dx.offset) == (
+        24, 32, 44, 52, 60, 68, 72, 76, 80, 84, 340, 596)
+
+
+def test_grid_plan_refuses_cpu_and_bad_operands(monkeypatch):
+    """With the real library a plan for the CPU raises before any query;
+    a 1-D or complex stencil, a half-precision dtype and an unknown form
+    raise too."""
+    cpu = torch.device("cpu")
+    op = _grid_stencil("star", (16, 12))
+    with pytest.raises(ValueError, match="launch plan"):
+        tr.GridRecurrencePlan(op, torch.float64, cpu)
+    _fake(monkeypatch, torch.float64)
+    for bad in (_stencil(100, (-1, 0, 1)), et.StencilOperator(
+            (4, 4), [(0, 0)], np.asarray([1.0 + 1j]))):
+        with pytest.raises(ValueError):
+            tr.GridRecurrencePlan(bad, torch.float64, cpu)
+    with pytest.raises(ValueError):
+        tr.GridRecurrencePlan(op, torch.float16, cpu)
+
+
+@pytest.mark.parametrize("form", ["neighbour", "family"])
+def test_grid_plan_launches(monkeypatch, form):
+    """One ctypes call a launch, through the descriptor of the stream: the
+    neighbour form's flags (zeroed, one per 128-byte line) and publication
+    buffer (a slot of tz ty nx rows a tile, two parities), or the family
+    form's 3n scratch; w from torch.empty_like; kept per stream."""
+    lib = _fake(monkeypatch, torch.float64)
+    streams = iter([11, 22, 11])
+    monkeypatch.setattr(_build, "raw_stream", lambda device: next(streams))
+    cpu = torch.device("cpu")
+    op = _grid_stencil("box", (64, 64, 64))
+    plan = (tr.grid_plan(op, torch.float64, cpu) if form == "neighbour"
+            else tr.GridRecurrencePlan(op, torch.float64, cpu, form="family"))
+    assert plan.form == form
+    assert tr.grid_plan(op, torch.float64, cpu) is tr.grid_plan(
+        op, torch.float64, cpu)
+    x = torch.ones(64 ** 3, dtype=torch.float64)
+    rows = torch.ones((15, 4), dtype=torch.float64)
+    _build.reset_launch_counts()
+    lib.calls.clear()
+    ws = [plan(x, rows) for _ in range(3)]
+    assert all(w.shape == (64 ** 3,) for w in ws)
+    assert _build.launches["resident_grid"] == 3
+    assert plan.nbr_launches == (3 if form == "neighbour" else 0)
+    names = {name for name, _ in lib.calls}
+    assert names == {"eu_resident_grid_nbr_f64" if form == "neighbour"
+                     else "eu_resident_grid_f64"}
+    (a1, a2, a3) = (args for _, args in lib.calls)
+    assert a1[0] == a3[0] != a2[0] and a1[3] == 15 and a1[-1] == 11
+    assert sorted(plan.bufs) == [11, 22]
+    addr, L, flags, buf = plan.bufs[11]
+    assert (L.n, L.nz, L.ny, L.nx, L.k, L.coef) == (
+        64 ** 3, 64, 64, 64, 27, plan.cvals.data_ptr())
+    assert (L.tz, L.ty, L.tiles_z, L.tiles_y, L.hz, L.hy, L.hx) == tuple(
+        plan.tiles)
+    assert L.dirs == 0b111101111 and L.halo_lines == plan.halo_lines == 28
+    assert list(L.dz[:3]) == [-1, -1, -1] and list(L.dx[:3]) == [-1, 0, 1]
+    if form == "neighbour":
+        assert flags.numel() == 128 * 16 and not flags.any()
+        assert buf.numel() == 2 * 128 * 4 * 8 * 64
+        assert (L.flags, L.pub) == (flags.data_ptr(), buf.data_ptr())
+    else:
+        assert flags is None and not L.flags and not L.pub
+        assert buf.numel() == 3 * 64 ** 3 and a1[5] == buf.data_ptr()
+    with pytest.raises(ValueError):
+        plan(x.float(), rows)
+    with pytest.raises(ValueError):
+        plan(x, torch.ones((15, 3), dtype=torch.float64))
+
+
+def test_grid_plan_rebuilt_when_coefficients_change(monkeypatch):
+    _fake(monkeypatch, torch.float64)
+    cpu = torch.device("cpu")
+    op = _grid_stencil("star", (40, 50))
+    a = tr.grid_plan(op, torch.float64, cpu)
+    assert tr.grid_plan(op, torch.float32, cpu) is not a
+    op.coeffs = op.coeffs.clone()
+    b = tr.grid_plan(op, torch.float64, cpu)
+    assert b is not a and tr.grid_plan(op, torch.float64, cpu) is b
