@@ -66,9 +66,19 @@ its seconds:
               expv_chebyshev and two-pass expv and every B5 launch of
               config #3's expv_chebyshev on the neighbour form (counted
               by their plans), and the 2-D 512^2 expv_chebyshev's B6
-              launch on the neighbour form; the kernel-driving passes rerun
-              under torch.cuda.set_sync_debug_mode("error")
-  5. times    CUDA-event medians of >= 10 runs after warm-up, each kernel
+              launch on the neighbour form; the adaptive drivers on config
+              #4 (run_baseline.py's phiv_timestep, kiops,
+              phiv_timestep_device and kiops_device, the default-m NW and
+              its two-pass, make_phiv_timestep and its fn(B), expv_taylor;
+              each within 1e-10 of the dense oracle, stats printed beside
+              the JAX package's) and on config #3's operator at n = 1e6
+              with p = 3 (kiops, two-pass NW; 1e-6 against the phiv
+              columns and each other), each call's B7 launches held to
+              the count its own stats imply; the kernel-driving passes and
+              make_phiv_timestep's fn(B) rerun under
+              torch.cuda.set_sync_debug_mode("error")
+  5. times    CUDA-event medians of >= 10 runs after warm-up (of 5 after
+              one for the adaptive drivers), each kernel
               beside its plain twin, B6 (its main-path form and its
               family kernel) beside the B3 sweeps on the same grid at
               512^2, 1000^2, 64^3, 100^3, 128^3, 160^3 and 216^3 (the
@@ -103,7 +113,8 @@ phiv, the SELL expv, two-pass, expv_chebyshev and its spectral_bounds,
 the block-ELL two-pass; the 216^3 variable Chebyshev and two-pass, the
 216^3, 2-D 512^2 and 1-D (config #2) constant two-pass, the 1-D
 two-pass phiv; config #1 expm and expv; config #4 expv, phiv and the IOP
-two-pass): the
+two-pass, and config #4's phiv_timestep, kiops, phiv_timestep_device and
+kiops_device): the
 CUDA-event wall time, the device busy time (union of the device
 intervals), the number of device ops, the largest kernels and the host
 ops of most self time. It prints no result lines then.
@@ -182,6 +193,12 @@ NV = 48                 # the variable operator held to scipy
 # 3.6e-7), the IOP two-pass (iop = 2) vs expv(iop=2, reorth=False) 6.3e-14.
 MTOL_NONHERM = 1e-10
 MTOL_IOP = 1e-12
+# The adaptive drivers at tol = 1e-7 on config #3's n = 1e6 operator (p = 3,
+# t = 1e-4): against the phiv columns' combination and each other, at
+# 10 x their tolerance. On config #4 they are held to MTOL_NONHERM: the JAX
+# package on the CPU reaches 1.3e-13 (phiv_timestep), 3.0e-11 (kiops and
+# kiops_device) and 4.3e-13 (phiv_timestep_device) against the oracle.
+MTOL_DRIVER = 1e-6
 NA, TA, MA = 2000, 1e-4, 250     # config #4's operator, time and m here
 
 NS = 1_000_000          # the SELL matrices of bench_sell.py / bench_sorted.py
@@ -324,6 +341,8 @@ def main() -> int:
     import exponentialutilities_jl_torch as et
     from exponentialutilities_jl_torch.models import chebyshev as tc
     from exponentialutilities_jl_torch.models import expv as tx
+    from exponentialutilities_jl_torch.models import expv_taylor as tt
+    from exponentialutilities_jl_torch.models.timestepping import _bucket_m
     from exponentialutilities_jl_torch.models import phiv as tpv
     from exponentialutilities_jl_torch.ops.kernels import _build
     from exponentialutilities_jl_torch.ops.kernels import dispatch as td
@@ -1169,6 +1188,102 @@ def main() -> int:
             check(set(delta) == {"fused_sweep"} and delta["fused_sweep"] >= 2,
                   f"{name} launches {delta}")
         print(f"main {name}: kernel launches {delta}", flush=True)
+    # the adaptive drivers (run_baseline.py:217-237 and more) on config
+    # #4's operator, and on config #3's at n = 1e6 with p = 3. Each call's
+    # B7 launches are held to the count its own stats imply: every
+    # matvec of these calls is one BandedOperator.matvec, i.e. one B7
+    #   NW (phiv_timestep, also two_pass): stats.matvecs (p a substep for
+    #     W, m a basis or rebuild, m a two-pass replay);
+    #   phiv_timestep_device: stats.matvecs + p + m0 (its first basis,
+    #     which seeds the norm, is not counted; m0 the bucketed m);
+    #   kiops, kiops_device: stats.krylov_steps, one augmented matvec
+    #     (one B7) a Krylov step, since no basis here breaks down (a
+    #     breakdown would stop the count at m_used while the masked steps
+    #     still run); the stored basis makes the accepted and phantom
+    #     combinations without matvecs;
+    #   make_phiv_timestep: its calibration call, the NW count; fn(B):
+    #     nsteps (p + fn.m);
+    #   expv_taylor: s m* (s stages of m* matvecs).
+    B4 = torch.stack([bA, 0.1 * bA], dim=1)
+    BP = torch.stack([bP, 0.1 * bP, 0.01 * bP, 0.001 * bP], dim=1)
+    drv_calls = {
+        "config4 phiv_timestep adaptive m=20": lambda: et.phiv_timestep(
+            [TA], opA, B4, adaptive=True, tol=1e-7, m=20, return_stats=True),
+        "config4 kiops": lambda: et.kiops([TA], opA, B4, tol=1e-7),
+        "config4 phiv_timestep_device m=20": lambda: et.phiv_timestep_device(
+            [TA], opA, B4, tol=1e-7, m=20, return_stats=True),
+        "config4 kiops_device": lambda: et.kiops_device([TA], opA, B4,
+                                                        tol=1e-7),
+        "config4 phiv_timestep adaptive": lambda: et.phiv_timestep(
+            TA, opA, B4, adaptive=True, tol=1e-7, return_stats=True),
+        "config4 phiv_timestep two_pass": lambda: et.phiv_timestep(
+            [TA], opA, B4, adaptive=True, two_pass=True, tol=1e-7,
+            return_stats=True),
+        "config4 make_phiv_timestep": lambda: et.make_phiv_timestep(
+            TA, opA, B4, tol=1e-7),
+        "config4 expv_taylor": lambda: et.expv_taylor(TA, opA, bA),
+        "config3 n=1e6 kiops p=3": lambda: et.kiops([TP], opP, BP,
+                                                    tol=1e-7),
+        "config3 n=1e6 phiv_timestep two_pass p=3": lambda: et.phiv_timestep(
+            [TP], opP, BP, adaptive=True, two_pass=True, tol=1e-7,
+            return_stats=True),
+    }
+    JAX_C4 = {   # the JAX package's drivers on config #4, float64, CPU
+        "config4 phiv_timestep adaptive m=20":
+            "steps 47, rejections 1, matvecs 1855, final_m 38",
+        "config4 kiops": "steps 2, rejections 11, krylov_steps 256, exps "
+                         "13, last_m 128",
+        "config4 phiv_timestep_device m=20":
+            "steps 103, rejections 1, matvecs 2369, final_m 22",
+        "config4 kiops_device": "steps 2, rejections 8, krylov_steps 808, "
+                                "exps 10, last_m 128",
+    }
+    s_star = tt.operator_parameters(TA * float(opA.opnorm_hint()),
+                                    tt.taylor_theta(f64))
+
+    def drv_expected(name, res):
+        if name.endswith("make_phiv_timestep"):
+            # its calibration is the default-m adaptive call
+            return out["config4 phiv_timestep adaptive"][1].matvecs
+        if name.endswith("expv_taylor"):
+            return s_star[0] * s_star[1]
+        st = res[1]
+        if "kiops" in name:
+            return st.krylov_steps
+        if "device" in name:
+            return st.matvecs + 1 + _bucket_m(20, NA, 256)
+        return st.matvecs
+
+    for name, fn in drv_calls.items():
+        before = dict(_build.launches)
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        delta = {k: v - before[k] for k, v in _build.launches.items()
+                 if v > before[k]}
+        want = drv_expected(name, out[name])
+        check(delta == {"banded_spmv": want},
+              f"{name} launches {delta}, expected {want} B7")
+        res = out[name]
+        stats = res[1] if isinstance(res, tuple) else None
+        print(f"main {name}: {want} B7 launches as its counters imply "
+              f"({sec:.2f} s); stats {stats}", flush=True)
+        if name in JAX_C4:
+            print(f"  the JAX package on the CPU: {JAX_C4[name]}",
+                  flush=True)
+    fn4 = out["config4 make_phiv_timestep"]
+    before = dict(_build.launches)
+    out["config4 make_phiv_timestep fn(B)"] = fn4(B4)
+    torch.cuda.synchronize()
+    delta = {k: v - before[k] for k, v in _build.launches.items()
+             if v > before[k]}
+    want = fn4.nsteps * (1 + fn4.m)
+    check(delta == {"banded_spmv": want},
+          f"make_phiv_timestep fn(B) launches {delta}, expected {want}")
+    print(f"main config4 make_phiv_timestep fn(B): {fn4.nsteps} steps at m = "
+          f"{fn4.m}, {want} B7 launches", flush=True)
+
     # semigroup halves, also through the public entry points
     half = {}
     for dt in (f32, f64):
@@ -1387,7 +1502,29 @@ def main() -> int:
              out[f"config4 iop=2 reorth=False m={MA}"].cpu(), MTOL_IOP)
     check_nh(f"config4 two-pass iop=2 m={MA} vs the dense oracle",
              out[f"config4 two-pass iop=2 m={MA}"], ref_e)
-    del out, W, W30, U, base, half, W4, F2, aug, Ad
+    # the adaptive drivers against the same dense oracles
+    for name in ("config4 phiv_timestep adaptive m=20", "config4 kiops",
+                 "config4 phiv_timestep_device m=20", "config4 kiops_device",
+                 "config4 phiv_timestep two_pass",
+                 "config4 make_phiv_timestep fn(B)"):
+        check_nh(f"{name} vs the dense oracle", out[name][0].reshape(-1),
+                 ref_p)
+    check_nh("config4 expv_taylor vs the dense oracle",
+             out["config4 expv_taylor"], ref_e)
+    WP = out["config3 phiv m=30"]
+    refP = sum(TP ** j * 0.1 ** j * WP[:, j] for j in range(K + 1))
+    uk = out["config3 n=1e6 kiops p=3"][0].reshape(-1)
+    un = out["config3 n=1e6 phiv_timestep two_pass p=3"][0].reshape(-1)
+    for name, got, want_ in (
+            ("config3 n=1e6 kiops vs sum_j t^j c_j phiv columns", uk, refP),
+            ("config3 n=1e6 phiv_timestep two_pass vs the phiv columns", un,
+             refP),
+            ("config3 n=1e6 kiops vs phiv_timestep two_pass", uk, un)):
+        check(bool(torch.isfinite(got).all()), f"{name} finite")
+        e = rel_norm(got, want_)
+        check(e <= MTOL_DRIVER, f"{name} {e:.2e}")
+        print(f"check {name}: {e:.2e} (tol {MTOL_DRIVER:g})", flush=True)
+    del out, W, W30, U, base, half, W4, F2, aug, Ad, WP, refP, uk, un
 
     # pass 1 and the replay run the same second stage on the same moments:
     # the replay's alphas and betas are pass 1's, bit for bit
@@ -1446,14 +1583,16 @@ def main() -> int:
         sc_ops["seg"].matvec(bC)            # B9 + B10
         sc_ops["sorted"].matvec(bC)         # gathers around B9
         opH.matvec(bH)                      # B7 + B9
+        fn4(B4)                             # fixed-step NW, config #4
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     print("sync-free: Chebyshev applies (1-D, 3-D, 3-D variable), "
           "resident pass 1 and recurrence, fused pass 1 (constant and "
           "variable) and replay, the B4, B5 and B6 "
-          "applies, and the B7-B10 matvecs of the sparse containers ran "
-          "under sync debug mode 'error'", flush=True)
+          "applies, the B7-B10 matvecs of the sparse containers and "
+          "config #4's make_phiv_timestep fn(B) ran under sync debug "
+          "mode 'error'", flush=True)
     phase_done("4 main")
 
     # ---- 5. times -------------------------------------------------------
@@ -1526,7 +1665,11 @@ def main() -> int:
                 "2d two-pass m=20": phi_calls["2d two-pass m=20"],
                 "1d two-pass m=40 f64": calls["1d two-pass m=40 f64"],
                 "1d phiv two-pass m=40": phi_calls["1d phiv two-pass m=40"],
-                **nh_calls}.items():
+                **nh_calls,
+                **{k: drv_calls[k] for k in (
+                    "config4 phiv_timestep adaptive m=20", "config4 kiops",
+                    "config4 phiv_timestep_device m=20",
+                    "config4 kiops_device")}}.items():
             device_profile(name, fn)
         phase_done("5 profile")
         return 0
@@ -1991,6 +2134,13 @@ def main() -> int:
             p = median_ms(plain_calls[name])
             line += f", plain path {p:.3f} ms"
         print(f"{line} {card}", flush=True)
+    # the adaptive drivers: up to hundreds of ms a call, so a median of 5
+    # after one warm-up
+    for name, fn in {**drv_calls,
+                     "config4 make_phiv_timestep fn(B)": lambda: fn4(B4)
+                     }.items():
+        print(f"time main {name}: {median_ms(fn, reps=5, warmup=1):.3f} ms "
+              f"(median of 5) {card}", flush=True)
     for name, dn, kfn, kname in device_jobs:
         ms, cnt = device_ms(kfn, kname)
         print(f"device {name} {dn}: " + (

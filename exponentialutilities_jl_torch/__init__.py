@@ -7,7 +7,9 @@ ELL, block-ELL, and the SELL-C-sigma containers for unstructured matrices
 from scipy), Lanczos and Arnoldi (full or IOP window, storage-free
 two-pass forms), the dense exponential and phi functions that the Krylov
 path reduces to, the Chebyshev and Krylov (happy-breakdown, error-estimate
-and storage-free two-pass) actions, and eleven hand-written CUDA kernels
+and storage-free two-pass) actions, the adaptive drivers (Niesen-Wright
+time stepping and KIOPS, each also with the JAX device loop's control
+flow) and the truncated-Taylor expv, and eleven hand-written CUDA kernels
 for NVIDIA Hopper (``ops/kernels/csrc/``): seven that carry the
 recurrences (B3-var the variable-coefficient sweep) and four SpMV kernels
 behind the sparse containers' matvecs. The JAX package is the reference;
@@ -42,13 +44,27 @@ Actions          expv, expv_from_basis, build_subspace, make_expv, phiv,
                  phiv_from_basis, make_phiv, expv_chebyshev,
                  phiv_chebyshev, funm_chebyshev, phiv_timestep_chebyshev,
                  chebyshev_apply, spectral_bounds
+Time stepping    phiv_timestep, expv_timestep, TimestepStats,
+                 phiv_timestep_fused, expv_timestep_fused,
+                 make_phiv_timestep, phiv_timestep_device,
+                 expv_timestep_device
+KIOPS            kiops, KiopsStats, AugmentedOperator, kiops_device
+Taylor           expv_taylor, expv_taylor_batched, taylor_theta
 """
 
 from .models.chebyshev import (chebyshev_apply, expv_chebyshev, funm_chebyshev,
                                phiv_chebyshev, phiv_timestep_chebyshev,
                                spectral_bounds)
 from .models.expv import build_subspace, expv, expv_from_basis, make_expv
+from .models.expv_taylor import (expv_taylor, expv_taylor_batched,
+                                 taylor_theta)
+from .models.kiops import AugmentedOperator, KiopsStats, kiops
+from .models.kiops_device import kiops_device
+from .models.nw_device import expv_timestep_device, phiv_timestep_device
 from .models.phiv import make_phiv, phiv, phiv_from_basis
+from .models.timestepping import (TimestepStats, expv_timestep,
+                                  expv_timestep_fused, make_phiv_timestep,
+                                  phiv_timestep, phiv_timestep_fused)
 from .ops.expm import expm, expm_higham2005, expm_taylor
 from .ops.krylov import (KrylovBasis, arnoldi, arnoldi_coeffs, arnoldi_extend,
                          arnoldi_replay, expand_compact_hessenberg, lanczos,
@@ -90,4 +106,9 @@ __all__ = [
     "phiv", "phiv_from_basis", "make_phiv",
     "expv_chebyshev", "phiv_chebyshev", "funm_chebyshev",
     "phiv_timestep_chebyshev", "chebyshev_apply", "spectral_bounds",
+    "phiv_timestep", "expv_timestep", "TimestepStats",
+    "phiv_timestep_fused", "expv_timestep_fused", "make_phiv_timestep",
+    "phiv_timestep_device", "expv_timestep_device",
+    "kiops", "KiopsStats", "AugmentedOperator", "kiops_device",
+    "expv_taylor", "expv_taylor_batched", "taylor_theta",
 ]

@@ -82,9 +82,12 @@ def _exp_reduced_e1(Ks: KrylovBasis, t):
 
 @full_precision
 def _combine_expv(Ks: KrylovBasis, expHe):
-    """w = beta V^T expHe with the zero-start guard."""
+    """w = beta V^T expHe with the zero-start guard, in the common type of
+    the basis and the coefficients (a complex b on a real Hermitian
+    operator keeps its imaginary part)."""
     m = Ks.m
-    w = expHe @ Ks.V[:m].to(expHe.dtype)
+    dt = torch.promote_types(expHe.dtype, Ks.V.dtype)
+    w = expHe.to(dt) @ Ks.V[:m].to(dt)
     out = Ks.beta.to(w.dtype) * w
     return torch.where(Ks.beta > 0, out, 0.0)
 
@@ -196,7 +199,8 @@ def _expv_error_estimate(op, b, t, m: int, atol: float, rtol: float):
         sigma = nrm * beta0 * ev[j].abs()
         j += 1
         done = bool(sigma < eps)
-    w = ev @ V[:m].to(ev.dtype)
+    wdt = torch.promote_types(ev.dtype, dt)
+    w = ev.to(wdt) @ V[:m].to(wdt)
     out = beta0.to(w.dtype) * w
     return torch.where(beta0 > 0, out, 0.0), j
 

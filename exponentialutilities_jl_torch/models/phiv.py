@@ -39,22 +39,30 @@ from .expv import _device_reduced, build_subspace
 __all__ = ["phiv", "phiv_from_basis", "make_phiv"]
 
 
+def _row(x, i):
+    """x[i] for a 0-d index tensor ``i`` on x's device, without the host
+    read that indexing by a 0-d tensor makes."""
+    return x.index_select(0, i.reshape(1).long())[0]
+
+
 @full_precision
 def _phiv_combine(t, Ks: KrylovBasis, C2, k: int, correct: bool):
     """(w (n, k+1), err) from the (m, k+1) reduced phi columns C2: basis
-    combination, optional correction and the error estimate."""
+    combination, optional correction and the error estimate. No host
+    read."""
     m = Ks.m
-    dt = C2.dtype
+    dt = torch.promote_types(C2.dtype, Ks.V.dtype)
+    C2 = C2.to(dt)
     beta = Ks.beta.to(dt)
     w = (Ks.V[:m].to(dt).T @ C2) * beta
     # the last effective row: the residual beta is H[m_used, m_used - 1]
     # and C2's row is m_used - 1
     last = torch.clamp_min(Ks.m_used - 1, 0)
-    c_last = C2[last]                                   # (k+1,)
-    betah = beta * Ks.H[last + 1, last].to(dt) * t
+    c_last = _row(C2, last)                             # (k+1,)
+    betah = beta * _row(_row(Ks.H, last + 1), last).to(dt) * t
     if correct and k >= 1:
         # w[:, i] += beta h C2[last, i+1] v_last for i < k (Niesen-Wright)
-        vlast = Ks.V[Ks.m_used].to(dt)
+        vlast = _row(Ks.V, Ks.m_used).to(dt)
         coeffs = torch.cat([c_last[1:], torch.zeros_like(c_last[:1])]) * betah
         w = w + vlast[:, None] * coeffs[None, :]
     err = torch.abs(betah * c_last[k])
@@ -62,21 +70,27 @@ def _phiv_combine(t, Ks: KrylovBasis, C2, k: int, correct: bool):
     return torch.where(live, w, 0.0), torch.where(live, err, 0.0)
 
 
-def _reduced_dtype(Ks: KrylovBasis, t):
-    dt = torch.promote_types(Ks.V.dtype, Ks.H.dtype)
-    return torch.promote_types(dt, torch.as_tensor(t).dtype)
-
-
 def phiv_from_basis(t, Ks: KrylovBasis, k: int, *, correct: bool = False,
                     reduced: str = "device"):
     """(w, err) from a prebuilt Lanczos or Arnoldi basis: w the (n, k+1)
     matrix of phi_j(tA)b columns, err the error estimate of phi_k."""
     _device_reduced(reduced)
-    m = Ks.m
-    dt = _reduced_dtype(Ks, t)
-    Hm = t * Ks.H[:m, :m].to(dt)
+    return _phiv_combine(t, Ks, _reduced_phi(t, Ks.H, k), k, correct)
+
+
+def _reduced_phi(t, H, k: int, *, expm_method: str = "higham2005",
+                hnorm: float | None = None):
+    """The (m, k+1) reduced phi columns phi_j(t H_m) e1 of an (m+1, m)
+    Hessenberg H (``phiv_dense`` on the augmented matrix). ``hnorm``: the
+    1-norm of H_m on the host, which spares the exponential its read (the
+    augmented matrix's 1-norm is max(|t| hnorm, 1))."""
+    m = H.shape[1]
+    dt = torch.promote_types(H.dtype, torch.as_tensor(t).dtype)
+    Hm = t * H[:m, :m].to(dt)
     e1 = torch.eye(m, dtype=dt, device=Hm.device)[0]
-    return _phiv_combine(t, Ks, phiv_dense(Hm, e1, k), k, correct)
+    onenorm = (None if hnorm is None
+               else max(abs(t) * hnorm, 1.0) if k else abs(t) * hnorm)
+    return phiv_dense(Hm, e1, k, expm_method=expm_method, onenorm=onenorm)
 
 
 def make_phiv(op, k: int, *, m: int = 30, tol: float = 1e-7, iop: int = 0,

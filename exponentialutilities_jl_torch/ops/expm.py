@@ -7,13 +7,14 @@ actions need).
   one ``torch.linalg.solve`` and s squarings.
 * ``expm_taylor``: a solver-free Paterson-Stockmeyer Taylor kernel with
   the order chosen so the series tail is below the dtype's unit roundoff
-  at a scaled 1-norm of at most 1.
+  at a scaled 1-norm of at most 1; ``expm_taylor_masked`` is the same
+  kernel with the squaring count kept on the device (no host read).
 
 The JAX package picks the Pade degree and the squaring count on the
 device (``lax.switch``, a dynamic loop). Here torch runs eagerly: the
-1-norm is read to the host once per call (one device sync) and the
-degree and squaring count become Python values, so exactly one Pade
-branch and s matrix products run.
+1-norm is read to the host once per call (one device sync; none when the
+caller passes it as ``onenorm``) and the degree and squaring count become
+Python values, so exactly one Pade branch and s matrix products run.
 
 Not ported yet, and raising NotImplementedError (ROADMAP A3): balancing
 (``balance_matrix``, ``gebal``), ``method="generic"``,
@@ -30,7 +31,7 @@ import torch
 from ..utils.device import host_tensor
 from ..utils.precision import full_precision
 
-__all__ = ["expm", "expm_higham2005", "expm_taylor"]
+__all__ = ["expm", "expm_higham2005", "expm_taylor", "expm_taylor_masked"]
 
 # Higham 2005 Pade coefficient tables (Table 2.3 of "The Scaling and
 # Squaring Method for the Matrix Exponential Revisited") and 1-norm
@@ -127,6 +128,8 @@ def _scaling(nA: float, theta: float, max_squarings: int) -> int:
     """s = ceil(log2(nA / theta)) when nA exceeds theta, else 0, capped."""
     if not nA > theta:
         return 0
+    if math.isinf(nA):
+        return max_squarings
     return min(max(0, math.ceil(math.log2(nA / theta))), max_squarings)
 
 
@@ -142,13 +145,17 @@ def _square_2d(A, what):
 
 
 @full_precision
-def expm_higham2005(A, *, max_squarings: int = 32, balance: bool = False):
-    """Higham-2005 scaling-and-squaring Pade ``exp(A)`` (module doc)."""
+def expm_higham2005(A, *, max_squarings: int = 32, balance: bool = False,
+                    onenorm: float | None = None):
+    """Higham-2005 scaling-and-squaring Pade ``exp(A)`` (module doc).
+    ``onenorm``: the 1-norm of A when the caller knows it on the host,
+    which saves the call's one host read."""
     if balance:
         raise NotImplementedError("balance=True: Osborne balancing is not "
                                   "ported yet (ROADMAP A3)")
     A = _square_2d(A, "expm_higham2005")
-    nA = float(_onenorm(A))             # the one host sync of the call
+    # the one host sync of the call, unless the caller knows the norm
+    nA = float(_onenorm(A)) if onenorm is None else float(onenorm)
     if torch.finfo(A.dtype).bits <= 32:
         # f32/c64: degree-7 cap with single-precision thresholds
         thetas = (_THETA3_F32, _THETA5_F32, _THETA7_F32)
@@ -169,17 +176,41 @@ def expm_higham2005(A, *, max_squarings: int = 32, balance: bool = False):
 
 
 @full_precision
-def expm_taylor(A, *, order: int | None = None, max_squarings: int = 48):
+def expm_taylor(A, *, order: int | None = None, max_squarings: int = 48,
+                onenorm: float | None = None):
     """Scaling and squaring with a Paterson-Stockmeyer Taylor kernel: a
-    solver-free ``exp(A)`` (module doc)."""
+    solver-free ``exp(A)`` (module doc). ``onenorm`` as in
+    ``expm_higham2005``."""
     from .phi_dense import _ps_phi_taylor, _taylor_order
 
     A = _square_2d(A, "expm_taylor")
     theta, order_auto = _taylor_order(A.dtype)
     if order is None:
         order = order_auto
-    s = _scaling(float(_onenorm(A)), theta, max_squarings)
+    nA = float(_onenorm(A)) if onenorm is None else float(onenorm)
+    s = _scaling(nA, theta, max_squarings)
     return _masked_squaring(_ps_phi_taylor(A * 2.0 ** -s, 0, order), s)
+
+
+@full_precision
+def expm_taylor_masked(A, *, max_squarings: int = 48):
+    """``expm_taylor`` with no host read: the squaring count s is chosen
+    on the device and the ``max_squarings`` squarings are masked past it,
+    as the JAX package's traced loop is. Costs ``max_squarings`` products
+    of A's size; for callers that must not sync (a fixed-step driver)."""
+    from .phi_dense import _ps_phi_taylor, _taylor_order
+
+    A = _square_2d(A, "expm_taylor_masked")
+    theta, order = _taylor_order(A.dtype)
+    rdt = A.real.dtype if A.is_complex() else A.dtype
+    nA = _onenorm(A).to(rdt)
+    s = torch.where(nA > theta, torch.ceil(torch.log2(nA / theta)),
+                    0.0).clamp(0, max_squarings)
+    X = _ps_phi_taylor(A * torch.exp2(-s).to(A.dtype), 0, order)
+    live = torch.arange(max_squarings, device=A.device) < s
+    for i in range(max_squarings):
+        X = torch.where(live[i], X @ X, X)
+    return X
 
 
 _METHODS = {"higham2005": expm_higham2005, "taylor": expm_taylor}

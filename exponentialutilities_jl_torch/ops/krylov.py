@@ -247,7 +247,10 @@ def lanczos_replay(op, b, coeffs, alphas, betas, m: int):
     dt = b.dtype
     rdt = _real_dtype(dt)
     _, v0 = _start(b)
-    cdt = coeffs.dtype
+    # the common type of the basis and the coefficients: a complex b
+    # with real coefficients keeps its imaginary part
+    cdt = torch.promote_types(coeffs.dtype, dt)
+    coeffs = coeffs.to(cdt)
     vp, vc = torch.zeros_like(v0), v0
     if coeffs.ndim == 1:
         w = torch.zeros(v0.shape, dtype=cdt, device=b.device)
@@ -335,7 +338,8 @@ def arnoldi_replay(op, b, coeffs, Hc, m: int, win: int, *, final_coeff=None,
     _, v0 = _start(b)
     W = torch.zeros((win, n), dtype=dt, device=b.device)
     W[-1] = v0
-    cdt = coeffs.dtype
+    cdt = torch.promote_types(coeffs.dtype, dt)
+    coeffs = coeffs.to(cdt)
 
     def accum(w, vc, cj):
         if coeffs.ndim == 1:

@@ -15,15 +15,20 @@ Not ported yet (ROADMAP A4): ``phi``, ``phi_taylor``,
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from ..utils.device import host_tensor
 from ..utils.precision import full_precision
-from .expm import expm_higham2005, expm_taylor
+from .expm import expm_higham2005, expm_taylor, expm_taylor_masked
 
 __all__ = ["phi_scalar", "phiv_dense"]
+
+
+_ENGINES = {"higham2005": expm_higham2005, "taylor": expm_taylor,
+            "taylor_masked": expm_taylor_masked}
 
 
 def _inv_factorial(n: int) -> float:
@@ -90,15 +95,20 @@ def phi_scalar(z, k: int):
 
 
 @full_precision
-def phiv_dense(A, v, k: int, *, expm_method: str = "higham2005"):
+def phiv_dense(A, v, k: int, *, expm_method: str = "higham2005",
+               onenorm: float | None = None):
     """[phi_0(A)v phi_1(A)v ... phi_k(A)v] for a small dense A via the
     augmented matrix
 
         A~ = [A  v  e_1 ... e_{k-1}; 0  J]   (J the k x k nilpotent shift)
 
-    (Sidje, Thm 1). Returns an (m, k+1) matrix. ``expm_method="taylor"``
-    selects the solver-free ``expm_taylor``."""
-    engine = expm_taylor if expm_method == "taylor" else expm_higham2005
+    (Sidje, Thm 1). Returns an (m, k+1) matrix. ``expm_method``:
+    "higham2005", the solver-free "taylor", or "taylor_masked" (no host
+    read). ``onenorm``: the 1-norm of A~ (of A when k = 0) when the caller
+    knows it on the host; it saves the exponential's host read."""
+    engine = _ENGINES[expm_method]
+    if onenorm is not None:
+        engine = functools.partial(engine, onenorm=onenorm)
     A = host_tensor(A)
     v = host_tensor(v, A.device)
     m = A.shape[0]
@@ -110,7 +120,8 @@ def phiv_dense(A, v, k: int, *, expm_method: str = "higham2005"):
     Aug[:m, :m] = A
     Aug[:m, m] = v
     if k >= 2:
-        idx = torch.arange(m, m + k - 1, device=A.device)
-        Aug[idx, idx + 1] = 1
+        # the shift J as an identity block (a scalar written through an
+        # index tensor would be a host-to-device copy, i.e. a sync)
+        Aug[m:m + k - 1, m + 1:] = torch.eye(k - 1, dtype=dt, device=A.device)
     P = engine(Aug)
     return torch.cat([(P[:m, :m] @ v)[:, None], P[:m, m:m + k]], dim=1)

@@ -54,8 +54,13 @@ def host_tensor(a, device=None, dtype=None) -> torch.Tensor:
 
 
 def action_vector(b, op) -> torch.Tensor:
-    """An action's vector ``b``: a tensor as it is, host data on the
-    operator's device (the default device for an operator without one)."""
-    if isinstance(b, torch.Tensor):
-        return b
-    return host_tensor(b, getattr(op, "device", None))
+    """An action's vector (or column block) ``b``: a tensor on its own
+    device, host data on the operator's device (the default device for an
+    operator without one); a real ``b`` of a complex operator is promoted
+    to the operator's type, so that the Krylov basis can hold A b."""
+    if not isinstance(b, torch.Tensor):
+        b = host_tensor(b, getattr(op, "device", None))
+    op_dt = getattr(op, "dtype", None)
+    if isinstance(op_dt, torch.dtype) and op_dt.is_complex:
+        b = b.to(torch.promote_types(b.dtype, op_dt))
+    return b

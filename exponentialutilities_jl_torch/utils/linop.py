@@ -68,7 +68,10 @@ class DenseOperator(LinearOperator):
         return self.A.device
 
     def matvec(self, x):
-        return self.A @ x
+        # torch does not promote real @ complex: a real matrix meets a
+        # complex vector in their common type
+        rt = torch.promote_types(self.A.dtype, x.dtype)
+        return self.A.to(rt) @ x.to(rt)
 
     def opnorm_hint(self):
         return self.A.abs().sum(dim=1).max()

@@ -1209,3 +1209,55 @@ def test_b6_tiles_past_shared_memory_take_the_family_form(dev, dt):
     assert _build.launches["resident_grid"] == 1
     _close(w, tr.resident_grid_ref(x, rows, op.grid_shape, op.offsets,
                                    op.coeffs), dt)
+
+
+def test_complex_b_on_a_cuda_stencil_takes_the_plain_path(dev):
+    """A complex b on a real Hermitian stencil: the dtype gates send it to
+    the plain passes (the kernels are real-only), nothing raises, and the
+    result is the CPU run's (which scipy holds in tests/test_torch_expv.py)."""
+    n = 2000
+    op = et.laplacian_nd_stencil(n, device=dev)
+    op_cpu = et.laplacian_nd_stencil(n, device="cpu")
+    g = np.random.default_rng(41)
+    b = torch.as_tensor(g.standard_normal(n) + 1j * g.standard_normal(n))
+    assert td.recurrence_engine(op, torch.complex128, device=dev) is None
+    _build.reset_launch_counts()
+    for kw in (dict(m=30), dict(m=30, two_pass=True),
+               dict(m=40, mode="error_estimate")):
+        w = et.expv(0.3, op, b.to(dev), **kw)
+        assert w.dtype == torch.complex128
+        want = et.expv(0.3, op_cpu, b, **kw)
+        _close(w.cpu(), want, torch.float64)
+    assert not any(_build.launches.values())
+
+
+@pytest.mark.parametrize("driver", ["phiv_timestep", "kiops"])
+def test_drivers_on_the_card_match_the_cpu(dev, driver):
+    """The adaptive drivers on a small BandedOperator on the card take the
+    CPU run's steps, with one B7 launch per matvec of the operator."""
+    n, t = 400, 2e-3
+    g = np.random.default_rng(42)
+    b = g.standard_normal(n)
+    B = np.stack([b, 0.1 * b], axis=1)
+    runs = {}
+    for where in (dev, "cpu"):
+        op = et.advection_diffusion_1d(n, peclet=10.0, device=where)
+        Bt = torch.as_tensor(B, device=where)
+        _build.reset_launch_counts()
+        if driver == "kiops":
+            runs[str(where)] = et.kiops([t / 2, t], op, Bt, tol=1e-7)
+        else:
+            runs[str(where)] = et.phiv_timestep([t / 2, t], op, Bt,
+                                                adaptive=True, tol=1e-7,
+                                                m=20, return_stats=True)
+        if where == dev:
+            launches = _build.launches["banded_spmv"]
+    (wg, sg), (wc, sc) = runs[str(dev)], runs["cpu"]
+    assert (sg.steps, sg.rejections) == (sc.steps, sc.rejections)
+    if driver == "kiops":
+        assert (sg.krylov_steps, sg.exps, sg.last_m) == \
+            (sc.krylov_steps, sc.exps, sc.last_m)
+    else:
+        assert (sg.matvecs, sg.final_m) == (sc.matvecs, sc.final_m)
+        assert launches == sg.matvecs
+    _close(wg.cpu(), wc, torch.float64)

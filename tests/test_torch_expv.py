@@ -199,3 +199,62 @@ def test_full_precision_restores_settings():
         assert torch.get_float32_matmul_precision() == "medium"
     finally:
         torch.set_float32_matmul_precision(before)
+
+
+# Queue C repairs: a complex b keeps its imaginary part on a real
+# Hermitian operator (the JAX package casts it away, so scipy is the
+# oracle); a real DenseOperator takes a complex b; a real b of a complex
+# Hermitian DenseOperator is promoted to the operator's type
+def _complex_b(n, seed):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal(n) + 1j * rng.standard_normal(n)
+
+
+@pytest.mark.parametrize("kind", ["happy_breakdown", "breakdown",
+                                  "two_pass", "error_estimate"])
+def test_complex_b_on_real_hermitian(kind):
+    jop, top, _, _, _ = _problem("1d")
+    n, t = jop.shape[0], 0.3
+    A = np.asarray(jop.to_banded().to_dense())
+    b = _complex_b(n, 4)
+    kw = {"happy_breakdown": dict(m=30), "two_pass": dict(m=30,
+                                                         two_pass=True),
+          "error_estimate": dict(m=60, mode="error_estimate", atol=1e-14,
+                                 rtol=1e-14)}.get(kind)
+    if kind == "breakdown":
+        # b in the span of two grid eigenvectors: breakdown after two steps
+        i = np.arange(1, n + 1)
+        b = (np.sin(3 * np.pi * i / (n + 1))
+             + 1j * np.sin(40 * np.pi * i / (n + 1)))
+        kw = dict(m=10)
+    tw = et.expv(t, top, torch.as_tensor(b), **kw)
+    assert tw.dtype == torch.complex128
+    assert_close(t2n(tw), spla.expm_multiply(t * A, b), RTOL_SCIPY, kind)
+
+
+@pytest.mark.parametrize("kw", [dict(m=50), dict(m=50, iop=4),
+                                dict(m=50, iop=4, two_pass=True)],
+                         ids=["full", "iop", "two_pass"])
+def test_complex_b_on_real_dense(kw):
+    import scipy.linalg as sla
+
+    rng = np.random.default_rng(5)
+    M = rng.standard_normal((50, 50)) / 5
+    b = _complex_b(50, 6)
+    tw = et.expv(1.0, et.DenseOperator(torch.as_tensor(M)),
+                 torch.as_tensor(b), **kw)
+    assert_close(t2n(tw), sla.expm(M) @ b, RTOL_SCIPY, "real dense")
+
+
+@pytest.mark.parametrize("two_pass", [False, True])
+def test_real_b_on_complex_hermitian_dense(two_pass):
+    import scipy.linalg as sla
+
+    rng = np.random.default_rng(7)
+    H = rng.standard_normal((50, 50)) + 1j * rng.standard_normal((50, 50))
+    H = (H + H.conj().T) / 10
+    b = rng.standard_normal(50)
+    tw = et.expv(1.0, et.DenseOperator(torch.as_tensor(H), is_hermitian=True),
+                 b, m=50, two_pass=two_pass)
+    assert tw.dtype == torch.complex128
+    assert_close(t2n(tw), sla.expm(H) @ b, RTOL_SCIPY, "complex Hermitian")

@@ -205,3 +205,25 @@ def test_resident_multi_ok_gate():
     assert not td.resident_multi_ok(et.laplacian_1d(1000), f64, "cuda", 2)
     assert not td.resident_multi_ok(et.laplacian_nd_stencil(30, 30), f64,
                                     "cuda", 2)
+
+
+# Queue C repairs (scipy oracles): a real DenseOperator takes a complex b,
+# and a real b of a complex Hermitian DenseOperator is promoted
+@pytest.mark.parametrize("kind", ["real A, complex b", "complex A, real b"])
+def test_phiv_dense_mixed_types(kind):
+    import scipy.linalg as sla
+
+    rng = np.random.default_rng(9)
+    A = rng.standard_normal((40, 40)) / 5
+    b = rng.standard_normal(40) + 1j * rng.standard_normal(40)
+    herm = None
+    if kind == "complex A, real b":
+        A = A + 1j * rng.standard_normal((40, 40)) / 5
+        A, b, herm = (A + A.conj().T) / 2, b.real.copy(), True
+    op = et.DenseOperator(torch.as_tensor(A), is_hermitian=herm)
+    tw = et.phiv(0.8, op, torch.as_tensor(b), K, m=40)
+    assert tw.is_complex()
+    assert_close(t2n(tw[:, 0]), sla.expm(0.8 * A) @ b, 1e-10,
+                 "phi_0 vs scipy")
+    assert _phi_identity_err(op, tw, torch.as_tensor(b).to(tw.dtype),
+                             0.8) < 1e-10
