@@ -45,6 +45,13 @@ its seconds:
               neighbour form (tiles of whole x-lines) at 512^2 5-point,
               64^3 7-point and 64^3 27-point box, bit for bit against
               its family kernel;
+              B1 (bench_leja.py's 1-D advection-diffusion at n = 1e6, and
+              a 5-point |o| = 2 variant), B5 (config #4's operator), B6
+              (a 512^2 2-D advection stencil) and B3 (the 216^3
+              advection-diffusion stencil) on these non-symmetric
+              operators with Leja Newton rows (cc = 0) and Faber rows
+              (cc_0 = 0, cc_1 = -2 rho), B5 and B6 also bit for bit against
+              their family kernels;
               per SELL pack, the share of B9's 256-row blocks
               that stage x in shared memory (none of the band-20000
               pack's; phase 4 adds the RCM'd n = 1e6 pack, held to more
@@ -76,7 +83,25 @@ its seconds:
               columns and each other), each call's B7 launches held to
               the count its own stats imply; the kernel-driving passes and
               make_phiv_timestep's fn(B) rerun under
-              torch.cuda.set_sync_debug_mode("error")
+              torch.cuda.set_sync_debug_mode("error"); then a second path,
+              its counts set to 0 before it and read after: Leja and Faber
+              (phiv_timestep_leja/_faber on bench_leja.py's n = 1e6
+              operator with B = (n, 3), held to each other and to the
+              Krylov phiv_timestep_device at 1e-6; expv_faber m = 64 on the
+              216^3 advection stencil, held to the semigroup identity and
+              to Arnoldi expv(m=64); expv_leja, expv_faber and phiv_leja
+              on config #4's operator against the dense oracle; both on a
+              512^2 2-D advection stencil), each call's B1, B3, B5 or B6
+              launches held to the count its substeps and columns imply;
+              the integrators on bench_integrators.py's Allen-Cahn
+              (etdrk4 and etdrk4_device at 2048^2, three steps; exprb43
+              and exprb43_device at 1024^2 with equal steps and
+              rejections; exprb32 with JacobianOperator over a
+              BandedOperator f, its B7 launches = f's plain calls + 2 x
+              its calls under torch.func.jvp, against the analytic
+              Jacobian); a step of etdrk4_device and of exprb43_device's
+              fixed mode and a JacobianOperator matvec over B7 also run
+              under sync debug mode "error"
   5. times    CUDA-event medians of >= 10 runs after warm-up (of 5 after
               one for the adaptive drivers), each kernel
               beside its plain twin, B6 (its main-path form and its
@@ -100,7 +125,10 @@ its seconds:
               card's reachable streaming rate); B7 also at
               config #4's n = 2000 and through banded_spmv (a plan built
               per call), B9 also on a copy of its pack with no staging
-              budget (x gathered from global memory in every block)
+              budget (x gathered from global memory in every block); B1,
+              B5, B6 and B3 at the second path's non-symmetric shapes; each
+              cell of the second path (a median of 3 where its phase-4
+              call took under 2 s, else that call)
 
 It prints a JSON line of the kernels, then the card's name and power
 limit, then {"ok": true, "device": {...}} as the last line. Any failed
@@ -114,7 +142,8 @@ the block-ELL two-pass; the 216^3 variable Chebyshev and two-pass, the
 216^3, 2-D 512^2 and 1-D (config #2) constant two-pass, the 1-D
 two-pass phiv; config #1 expm and expv; config #4 expv, phiv and the IOP
 two-pass, and config #4's phiv_timestep, kiops, phiv_timestep_device and
-kiops_device): the
+kiops_device; the n = 1e6 Leja and Faber drivers, 216^3 expv_faber,
+config #4's expv_leja and expv_faber, 2048^2 etdrk4_device): the
 CUDA-event wall time, the device busy time (union of the device
 intervals), the number of device ops, the largest kernels and the host
 ops of most self time. It prints no result lines then.
@@ -200,6 +229,30 @@ MTOL_IOP = 1e-12
 # kiops_device) and 4.3e-13 (phiv_timestep_device) against the oracle.
 MTOL_DRIVER = 1e-6
 NA, TA, MA = 2000, 1e-4, 250     # config #4's operator, time and m here
+
+# The non-Hermitian polynomial actions and the integrators (phase 4's second
+# path), float64, calibrated on the CPU from the JAX package:
+#   config #4's operator at t = 1e-4, tol = 1e-12, vs the dense oracle:
+#   expv_leja 2.9e-12 (q = 11 substeps of degree 64), expv_faber 3.4e-13
+#   (q = 1, degree 212); phiv_leja (k = 1) at z = |t| s = 20 vs its own
+#   augmented oracle 3.7e-13;
+#   expv_faber on advection_diffusion_3d_stencil at 48^3, t = 30/gamma,
+#   m = 64: semigroup 1.3e-13, vs Arnoldi expv(m=64) 1.2e-13 (m = 40:
+#   9.5e-6);
+#   bench_integrators.py's Allen-Cahn (nu = 1e-4, h = 0.02, m = 16, three
+#   steps): etdrk4_device vs etdrk4 5.2e-17 at 256^2, 4.8e-16 at 512^2;
+#   exprb43 vs exprb43_device (rtol 1e-5, atol 1e-7, m = 24, t = 0.5) at
+#   256^2: 12 steps, no rejection each, 9.6e-14.
+NL, DL, AL = 1_000_000, 1e3, 2e2     # bench_leja.py: n, diffusion, advection
+TL = 1.0                             # its horizon: t s = 1100
+NF, MF, ZF = 216, 64, 30.0           # bench_faber_fused.py: grid, m, t gamma
+NU_AC, H_AC, M_AC = 1e-4, 0.02, 16   # bench_integrators.py's Allen-Cahn
+NE, E_STEPS = 2048, 3                # etdrk4 at 2048^2, three steps
+NR, TR, M_R = 1024, 0.5, 24          # exprb43 at 1024^2 (bench: tf = 0.5)
+TJ = 0.05                            # exprb32 on the banded Allen-Cahn
+MTOL_POLY = 1e-10       # config #4 oracle, Faber 216^3 semigroup and Arnoldi
+MTOL_ETD = 1e-10        # etdrk4_device vs etdrk4
+MTOL_EXPRB = 1e-8       # exprb43_device vs exprb43 (rtol 1e-5)
 
 NS = 1_000_000          # the SELL matrices of bench_sell.py / bench_sorted.py
 NS_TIME = 10_000_000    # bench_sell.py's timing shape
@@ -321,6 +374,365 @@ def laplacian_3d_csr(n):
     eye = sp.identity(n)
     return (sp.kron(sp.kron(L, eye), eye) + sp.kron(sp.kron(eye, L), eye)
             + sp.kron(sp.kron(eye, eye), L)).tocsr()
+
+
+def bench_leja_stencil(et, n, dt, dev, five_point=False):
+    """benchmarks/bench_leja.py's 1-D advection-diffusion (diffusion DL,
+    upwind advection AL, not scaled with n), or its 5-point |o| = 2
+    variant (4th-order diffusion, 2nd-order upwind advection)."""
+    if five_point:
+        offs = [(-2,), (-1,), (0,), (1,), (2,)]
+        cs = [-DL / 12 - AL / 2, 4 * DL / 3 + 2 * AL, -2.5 * DL - 1.5 * AL,
+              4 * DL / 3, -DL / 12]
+    else:
+        offs = [(-1,), (0,), (1,)]
+        cs = [DL + AL, -2 * DL - AL, DL]
+    return et.StencilOperator((n,), offs, np.asarray(cs), is_hermitian=False,
+                              dtype=dt, device=dev)
+
+
+def advection_2d(et, n, dt, dev, peclet=10.0):
+    """2-D diffusion + upwind x-advection on n^2, h = 1/(n+1): the 2-D
+    counterpart of advection_diffusion_3d_stencil."""
+    h = 1.0 / (n + 1)
+    d, a = 1.0 / h ** 2, peclet / h
+    return et.StencilOperator(
+        (n, n), [(0, 0), (0, 1), (0, -1), (1, 0), (-1, 0)],
+        np.asarray([-4.0 * d - a, d, d + a, d, d]), is_hermitian=False,
+        dtype=dt, device=dev)
+
+
+def poly_rows(kind, op, m, dt, dev, gen):
+    """(m, 4) rows of the Leja Newton form (cc = 0) or the Faber form
+    (cc_0 = 0, cc_1 = -2 rho) on the operator's interval / ellipse, with
+    random accumulation coefficients."""
+    import torch
+    from exponentialutilities_jl_torch.models import faber as tfb
+    from exponentialutilities_jl_torch.models import leja as tl
+
+    cw = gen.standard_normal(m)
+    if kind == "Newton":
+        c, s = tl._interval_map(op, None)
+        rows = tl._newton_rows(cw, tl.leja_points(m), c, 1.0 / s)
+    else:
+        c, _, _, g, rho = tfb._resolve_ellipse(op, None)
+        rows = tfb._faber_rows(cw, c, 1.0 / g, rho)
+    return torch.as_tensor(rows, dtype=dt, device=dev)
+
+
+def nonsym_kernel_checks(et, dev, dt, tol, vec, gen):
+    """Phase 3 on non-symmetric constant operators: B1, B5, B6 and B3 (as
+    ``recurrence_engine`` picks them) against their plain twins with
+    Newton and Faber rows; B5 and B6 also bit for bit against their family
+    kernels. Returns the max relative error."""
+    import torch
+    from exponentialutilities_jl_torch.ops.kernels import dispatch as td
+    from exponentialutilities_jl_torch.ops.kernels import lanczos_fused as tf
+    from exponentialutilities_jl_torch.ops.kernels import resident as tr
+
+    dn = str(dt).split(".")[-1]
+    cases = (
+        (f"1-D n={NL} bench_leja", bench_leja_stencil(et, NL, dt, dev),
+         tr.recurrence_apply_resident, 24),
+        (f"1-D n={NL} 5-point |o|=2", bench_leja_stencil(et, NL, dt, dev,
+                                                         True),
+         tr.recurrence_apply_resident, 24),
+        (f"config #4 advection_diffusion_1d({NA})",
+         et.advection_diffusion_1d(NA, peclet=10.0, dtype=dt, device=dev),
+         tr.recurrence_apply_resident_banded, 24),
+        (f"{NG}^2 2-D advection", advection_2d(et, NG, dt, dev),
+         tr.recurrence_apply_resident_grid, 24),
+        (f"{NF}^3 advection_diffusion_3d_stencil",
+         et.advection_diffusion_3d_stencil(NF, NF, NF, peclet=10.0, dtype=dt,
+                                           device=dev),
+         tf.recurrence_apply_fused, 8))
+    worst = 0.0
+    for label, op, engine, m in cases:
+        check(td.recurrence_engine(op, dt, device=dev, hermitian=False)
+              is engine, f"{label}: engine {engine.__name__}")
+        x = vec(op.shape[0], dt, gen)
+        for kind in ("Newton", "Faber"):
+            rows = poly_rows(kind, op, m, dt, dev, gen)
+            w = engine(op, x, rows)
+            if engine is tr.recurrence_apply_resident:
+                wr = tr.resident_recurrence_ref(
+                    x, rows, op.coeffs, tr._flat_offsets(op),
+                    torch.tensor(1.0, dtype=dt, device=dev))[0]
+                form = tr.recurrence_plan(op, dt, dev).form
+            elif engine is tr.recurrence_apply_resident_banded:
+                wr = tr.resident_banded_ref(x, rows, op.diags, op.offsets)
+                form = tr.banded_plan(op, dt, dev).form
+                check(torch.equal(w, tr.BandedRecurrencePlan(
+                    op, dt, dev, form="family")(x, rows)),
+                    f"B5 {label}: neighbour and family forms differ")
+            else:
+                # B6 and the B3 sweeps: the same constant-stencil twin
+                wr = tr.resident_grid_ref(x, rows, op.grid_shape, op.offsets,
+                                          op.coeffs)
+                form = "sweeps"
+                if engine is tr.recurrence_apply_resident_grid:
+                    form = tr.grid_plan(op, dt, dev).form
+                    check(torch.equal(w, tr.GridRecurrencePlan(
+                        op, dt, dev, form="family")(x, rows)),
+                        f"B6 {label}: neighbour and family forms differ")
+            e = rel_max(w, wr)
+            check(e <= tol and form in ("neighbour", "sweeps"),
+                  f"{engine.__name__} {dn} {label} {kind}: {e:.2e}, {form}")
+            worst = max(worst, e)
+            print(f"kernel {engine.__name__} {dn} {label}, {kind} rows "
+                  f"m={m}: rel err {e:.2e} (tol {tol:g}); {form} form",
+                  flush=True)
+    return worst
+
+
+def allen_cahn(et, n, dev):
+    """bench_integrators.py's 2-D Allen-Cahn, u' = nu Lap u + u - u^3 on
+    n^2, Dirichlet (make_problem): the Laplacian stencil and u0, float64."""
+    import torch
+
+    dx = 1.0 / (n + 1)
+    op = et.StencilOperator(
+        (n, n), [(0, 0), (0, 1), (0, -1), (1, 0), (-1, 0)],
+        np.asarray([-4.0, 1.0, 1.0, 1.0, 1.0]) / dx ** 2 * NU_AC,
+        is_hermitian=True, device=dev)
+    yy, xx = np.meshgrid(np.arange(1, n + 1) / (n + 1),
+                         np.arange(1, n + 1) / (n + 1), indexing="ij")
+    u0 = (np.sin(np.pi * xx) * np.sin(np.pi * yy)
+          * (1 + 0.3 * np.cos(4 * np.pi * xx))).reshape(-1) * 0.5
+    return op, torch.as_tensor(u0, device=dev)
+
+
+def event_ms(fn):
+    """(result, ms): one call between two CUDA events."""
+    import torch
+
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    res = fn()
+    e.record()
+    e.synchronize()
+    return res, s.elapsed_time(e)
+
+
+def poly_integrator_path(et, dev, card, ref_e, bA):
+    """Phase 4's second path: the Leja and Faber actions and the
+    exponential integrators through their public entry points (module
+    doc), launch counts set to 0 just before and read just after. Each
+    call's kernel launches are held to the count its parameters imply.
+    Returns (the counts, {cell: callable} for phase 5, the sync-free
+    callables, the non-symmetric kernel cases for phase 5)."""
+    import math
+
+    import scipy.linalg as sla
+    import torch
+    from exponentialutilities_jl_torch.models import faber as tfb
+    from exponentialutilities_jl_torch.models import leja as tl
+    from exponentialutilities_jl_torch.ops.kernels import _build
+
+    gen = np.random.default_rng(SEED + 11)
+    f64 = torch.float64
+    opL = bench_leja_stencil(et, NL, f64, dev)
+    BL = torch.as_tensor(gen.standard_normal((NL, 3)), device=dev)
+    opF = et.advection_diffusion_3d_stencil(NF, NF, NF, peclet=10.0,
+                                            device=dev)
+    bF = torch.as_tensor(gen.standard_normal(NF ** 3), device=dev)
+    _, _, _, gF, _ = tfb._resolve_ellipse(opF, None)
+    tF = ZF / gF
+    opA = et.advection_diffusion_1d(NA, peclet=10.0, device=dev)
+    _, sA = tl._interval_map(opA, None)
+    tP = 20.0 / sA                          # phiv_leja at z = 20
+    opE, uE = allen_cahn(et, NE, dev)
+    opR, uR = allen_cahn(et, NR, dev)
+    # the same Allen-Cahn Laplacian in diagonal storage: its matvec is B7
+    lapR = et.poisson_2d(NR, NR, device=dev)
+    opRB = et.BandedOperator(lapR.diags * (NU_AC * (NR + 1) ** 2),
+                             lapR.offsets)
+    opG = advection_2d(et, NG, f64, dev)
+    bG = torch.as_tensor(gen.standard_normal(NG * NG), device=dev)
+    _, sG = tl._interval_map(opG, None)
+    tG = 20.0 / sG
+
+    def fR(u):
+        return opR.matvec(u) + u - u ** 3
+
+    f_calls = {"plain": 0, "jvp": 0}
+
+    def fRB(u):
+        # every call is one B7 matvec, two under torch.func.jvp (the
+        # primal and the tangent)
+        traced = torch._C._functorch.is_functorch_wrapped_tensor(u)
+        f_calls["jvp" if traced else "plain"] += 1
+        return opRB.matvec(u) + u - u ** 3
+
+    def jac_RB(u):
+        return et.MatrixFreeOperator(
+            lambda v: opRB.matvec(v) + (1.0 - 3.0 * u * u) * v, opRB.shape,
+            dtype=f64, device=dev)
+
+    # the engine launches each call makes, from its parameters
+    _, sL = tl._interval_map(opL, None)
+    qL = math.ceil(TL * sL / 40.0)
+    _, _, _, gL, _ = tfb._resolve_ellipse(opL, None)
+    qLF = math.ceil(TL * gL / 512.0)
+    qA = tl._leja_expv_setup(opA, TA, None, 1e-12, None, 40.0)[4]
+    qAF = tfb._faber_expv_setup(opA, TA, None, 1e-12, None, 512.0)[4]
+    N = lambda u: u - u ** 3
+    cells = {
+        "leja 1-D n=1e6 phiv_timestep_leja": (
+            lambda: et.phiv_timestep_leja([TL], opL, BL, tol=1e-7,
+                                          max_z=40.0),
+            {"resident_recurrence": 3 * qL}),
+        "faber 1-D n=1e6 phiv_timestep_faber": (
+            lambda: et.phiv_timestep_faber([TL], opL, BL, tol=1e-7),
+            {"resident_recurrence": 3 * qLF}),
+        "krylov 1-D n=1e6 phiv_timestep_device m=30 iop=2": (
+            lambda: et.phiv_timestep_device([TL], opL, BL, tol=1e-7, m=30,
+                                            iop=2), {}),
+        f"faber {NF}^3 expv_faber m={MF}": (
+            lambda: et.expv_faber(tF, opF, bF, m=MF),
+            {"fused_sweep": MF + 1}),
+        f"arnoldi {NF}^3 expv m={MF}": (
+            lambda: et.expv(tF, opF, bF, m=MF), {}),
+        f"{NG}^2 2-D advection expv_leja tol=1e-12": (
+            lambda: et.expv_leja(tG, opG, bG, tol=1e-12),
+            {"resident_grid": 1}),
+        f"{NG}^2 2-D advection expv_faber tol=1e-12": (
+            lambda: et.expv_faber(tG, opG, bG, tol=1e-12),
+            {"resident_grid": 1}),
+        "config4 expv_leja tol=1e-12": (
+            lambda: et.expv_leja(TA, opA, bA, tol=1e-12),
+            {"resident_banded": qA}),
+        "config4 expv_faber tol=1e-12": (
+            lambda: et.expv_faber(TA, opA, bA, tol=1e-12),
+            {"resident_banded": qAF}),
+        "config4 phiv_leja k=1 z=20": (
+            lambda: et.phiv_leja(tP, opA, bA, 1, tol=1e-12),
+            {"resident_banded": 2}),
+        f"etdrk4 {NE}^2 m={M_AC}": (
+            lambda: et.etdrk4(opE, N, uE, (0.0, E_STEPS * H_AC), H_AC,
+                              m=M_AC), {}),
+        f"etdrk4_device {NE}^2 m={M_AC}": (
+            lambda: et.etdrk4_device(opE, N, uE, (0.0, E_STEPS * H_AC), H_AC,
+                                     m=M_AC), {}),
+        f"exprb43 {NR}^2 adaptive": (
+            lambda: et.exprb43(fR, uR, (0.0, TR), rtol=1e-5, atol=1e-7),
+            {}),
+        f"exprb43_device {NR}^2 adaptive m={M_R}": (
+            lambda: et.exprb43_device(fR, uR, (0.0, TR), rtol=1e-5,
+                                      atol=1e-7, m=M_R, return_stats=True),
+            {}),
+        f"exprb32 {NR}^2 banded jac=None": (
+            lambda: et.exprb32(fRB, uR, (0.0, TJ), rtol=1e-5, atol=1e-7),
+            None),              # B7: counted from f's calls below
+        f"exprb32 {NR}^2 banded analytic jac": (
+            lambda: et.exprb32(fRB, uR, (0.0, TJ), rtol=1e-5, atol=1e-7,
+                               jac=jac_RB), None),
+    }
+    _build.reset_launch_counts()
+    out, ms = {}, {}
+    for name, (fn, want) in cells.items():
+        before = dict(_build.launches)
+        calls_before = dict(f_calls)
+        out[name], ms[name] = event_ms(fn)
+        delta = {k: v - before[k] for k, v in _build.launches.items()
+                 if v > before[k]}
+        if want is None:
+            plain = f_calls["plain"] - calls_before["plain"]
+            jvp = f_calls["jvp"] - calls_before["jvp"]
+            print(f"main {name}: f called {plain} times plainly and {jvp} "
+                  f"times under torch.func.jvp", flush=True)
+            if name.endswith("jac=None"):
+                check(jvp > 0, f"{name}: f never ran under jvp")
+                want = {"banded_spmv": plain + 2 * jvp}
+            else:
+                # the analytic Jacobian: one more B7 a Krylov matvec
+                check(jvp == 0 and delta.get("banded_spmv", 0) > plain,
+                      f"{name}: {jvp} jvp calls, {delta}")
+                want = delta
+        check(delta == want, f"{name} launches {delta}, expected {want}")
+        res = out[name]
+        stats = f"; {res[1]}" if isinstance(res, tuple) else ""
+        print(f"main {name}: kernel launches {delta}; one call "
+              f"{ms[name]:.3f} ms (CUDA events){stats} {card}", flush=True)
+    counts = dict(_build.launches)
+
+    def held(name, got, want, tol, what):
+        got, want = got.reshape(-1), want.reshape(-1)
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"{name} shape/finite")
+        e = rel_norm(got, want)
+        check(e <= tol, f"{name} {what} {e:.2e}")
+        print(f"check {name}: {what} {e:.2e} (tol {tol:g})", flush=True)
+
+    uLj = out["leja 1-D n=1e6 phiv_timestep_leja"]
+    uLf = out["faber 1-D n=1e6 phiv_timestep_faber"]
+    uLk = out["krylov 1-D n=1e6 phiv_timestep_device m=30 iop=2"]
+    uLk = uLk[0] if isinstance(uLk, tuple) else uLk
+    held("leja 1-D n=1e6", uLj, uLk, MTOL_DRIVER, "vs Krylov phiv_timestep")
+    held("faber 1-D n=1e6", uLf, uLk, MTOL_DRIVER, "vs Krylov phiv_timestep")
+    held("leja 1-D n=1e6", uLj, uLf, MTOL_DRIVER, "vs faber")
+    wF = out[f"faber {NF}^3 expv_faber m={MF}"]
+    wF2 = et.expv_faber(tF / 2, opF, et.expv_faber(tF / 2, opF, bF, m=MF),
+                        m=MF)
+    held(f"faber {NF}^3", wF2, wF, MTOL_POLY,
+         "semigroup exp(tA)b vs exp(t/2 A)^2 b")
+    held(f"faber {NF}^3", wF, out[f"arnoldi {NF}^3 expv m={MF}"], MTOL_POLY,
+         f"vs Arnoldi expv(m={MF})")
+    del wF2
+    held(f"{NG}^2 2-D advection expv_leja",
+         out[f"{NG}^2 2-D advection expv_leja tol=1e-12"],
+         out[f"{NG}^2 2-D advection expv_faber tol=1e-12"], MTOL_POLY,
+         "vs expv_faber")
+    for name in ("config4 expv_leja tol=1e-12",
+                 "config4 expv_faber tol=1e-12"):
+        held(name, out[name].cpu(), torch.as_tensor(ref_e), MTOL_POLY,
+             "vs the dense oracle")
+    Ad = banded_csr(opA).toarray()
+    aug = np.zeros((NA + 1, NA + 1))
+    aug[:NA, :NA] = tP * Ad
+    aug[:NA, NA] = tP * 0.1 * bA.cpu().numpy()
+    F2 = sla.expm(aug)
+    refP = F2[:NA, :NA] @ bA.cpu().numpy() + F2[:NA, NA]
+    W = out["config4 phiv_leja k=1 z=20"]
+    held("config4 phiv_leja k=1 z=20", (W[:, 0] + tP * 0.1 * W[:, 1]).cpu(),
+         torch.as_tensor(refP), MTOL_POLY,
+         "phi_0 b + t phi_1 (0.1 b) vs the dense oracle")
+    uh, sh = out[f"etdrk4 {NE}^2 m={M_AC}"]
+    held(f"etdrk4_device {NE}^2", out[f"etdrk4_device {NE}^2 m={M_AC}"], uh,
+         MTOL_ETD, "vs etdrk4")
+    (uh, sh), (ud, sd) = (out[f"exprb43 {NR}^2 adaptive"],
+                          out[f"exprb43_device {NR}^2 adaptive m={M_R}"])
+    check((sd.steps, sd.rejected) == (sh.steps, sh.rejected),
+          f"exprb43 {NR}^2: steps/rejections host {sh} device {sd}")
+    print(f"check exprb43 {NR}^2: {sh.steps} steps, {sh.rejected} "
+          f"rejections on the host and device drivers", flush=True)
+    held(f"exprb43_device {NR}^2", ud, uh, MTOL_EXPRB, "vs exprb43")
+    (uj, sj), (ua, sa) = (out[f"exprb32 {NR}^2 banded jac=None"],
+                          out[f"exprb32 {NR}^2 banded analytic jac"])
+    check((sj.steps, sj.rejected) == (sa.steps, sa.rejected),
+          f"exprb32 banded: steps jvp {sj} analytic {sa}")
+    held(f"exprb32 {NR}^2 banded", uj, ua, MTOL_EXPRB,
+         "JacobianOperator (B7 under jvp) vs the analytic Jacobian")
+    J = et.JacobianOperator(fRB, uR)
+    v = torch.as_tensor(gen.standard_normal(NR * NR), device=dev)
+    from exponentialutilities_jl_torch.ops.kernels import spmv as tsp
+    held("JacobianOperator over B7", J.matvec(v),
+         tsp.banded_spmv_ref(opRB.diags, opRB.offsets, v)
+         + (1.0 - 3.0 * uR * uR) * v, 1e-12, "J v vs the twin's A v + "
+         "(1 - 3u^2) v")
+    from exponentialutilities_jl_torch.models import integrators as ti
+
+    sync_free = {
+        "etdrk4_device step": lambda: ti._etdrk4_scan(
+            opE, uE, H_AC, N=N, nsteps=1, m=M_AC, iop=2,
+            expm_method="taylor"),
+        "exprb43_device fixed step": lambda: ti._exprb43_scan(
+            uR, 0.01, f=fR, nsteps=1, m=M_R, iop=2, expm_method="taylor"),
+        "JacobianOperator matvec over B7": lambda: J.matvec(v),
+    }
+    timed = {k: fn for k, (fn, _) in cells.items()}
+    return counts, timed, sync_free, ms, (opL, BL[:, 0], opF, bF, opA)
 
 
 def main() -> int:
@@ -739,6 +1151,10 @@ def main() -> int:
                   f"{t.hz} planes, {t.hy} lines), {plan.smem} bytes of "
                   f"shared memory a block, equals the family kernel bit for "
                   f"bit", flush=True)
+        # the non-symmetric stencils: B1, B5, B6 and B3 with the rows of
+        # the Leja and Faber actions
+        nonsym_kernel_checks(et, dev, dt, tol, vec,
+                             np.random.default_rng(SEED + 10))
     del Z, Vc, Vp, W, W1, W2, Y, Zn, Yp, Znp, Yr, Znr
 
     # B7-B10, the sparse containers' SpMV kernels: packed once in float64
@@ -1540,6 +1956,17 @@ def main() -> int:
         print(f"check {label} two-pass: the replay's alpha and beta equal "
               "pass 1's bit for bit", flush=True)
 
+    # the second path: the Leja and Faber actions and the exponential
+    # integrators, each call's launches held to its expected count
+    poly_counts, poly_calls, poly_sync_free, poly_ms, poly_ops = \
+        poly_integrator_path(et, dev, card, ref_e, bA)
+    print(f"main launches of the polynomial and integrator path: "
+          f"{poly_counts}", flush=True)
+    for k in ("resident_recurrence", "resident_banded", "resident_grid",
+              "fused_sweep", "banded_spmv"):
+        check(poly_counts[k] > 0, f"kernel {k} never launched on the "
+              "polynomial and integrator path")
+
     # the kernel-driving passes make no host syncs
     lo, hi = op3[f64].spectral_bounds_hint()
     full3, _, _ = tc._full_exp_coeffs(T3, lo, hi, 1e-12, None)
@@ -1584,6 +2011,8 @@ def main() -> int:
         sc_ops["sorted"].matvec(bC)         # gathers around B9
         opH.matvec(bH)                      # B7 + B9
         fn4(B4)                             # fixed-step NW, config #4
+        for fn in poly_sync_free.values():  # fixed-step integrators, jvp
+            fn()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
@@ -1591,8 +2020,10 @@ def main() -> int:
           "resident pass 1 and recurrence, fused pass 1 (constant and "
           "variable) and replay, the B4, B5 and B6 "
           "applies, the B7-B10 matvecs of the sparse containers and "
-          "config #4's make_phiv_timestep fn(B) ran under sync debug "
-          "mode 'error'", flush=True)
+          "config #4's make_phiv_timestep fn(B), a step of etdrk4_device "
+          f"({NE}^2) and of exprb43_device's fixed mode ({NR}^2) and a "
+          "JacobianOperator matvec over B7 ran under sync debug mode "
+          "'error'", flush=True)
     phase_done("4 main")
 
     # ---- 5. times -------------------------------------------------------
@@ -1669,7 +2100,14 @@ def main() -> int:
                 **{k: drv_calls[k] for k in (
                     "config4 phiv_timestep adaptive m=20", "config4 kiops",
                     "config4 phiv_timestep_device m=20",
-                    "config4 kiops_device")}}.items():
+                    "config4 kiops_device")},
+                **{k: poly_calls[k] for k in (
+                    "leja 1-D n=1e6 phiv_timestep_leja",
+                    "faber 1-D n=1e6 phiv_timestep_faber",
+                    f"faber {NF}^3 expv_faber m={MF}",
+                    "config4 expv_leja tol=1e-12",
+                    "config4 expv_faber tol=1e-12",
+                    f"etdrk4_device {NE}^2 m={M_AC}")}}.items():
             device_profile(name, fn)
         phase_done("5 profile")
         return 0
@@ -2049,6 +2487,72 @@ def main() -> int:
                   flush=True)
     del d7, d, x
 
+    # B1, B5, B6 and B3 at the non-symmetric shapes of the polynomial path,
+    # float64: the Newton rows of its Leja calls (B3: one accumulating
+    # sweep on the 216^3 advection-diffusion stencil)
+    from exponentialutilities_jl_torch.models import leja as tl
+
+    opL, xL, opF, bF, opA = poly_ops
+    opG2 = advection_2d(et, NG, f64, dev)
+    xG2 = vec(NG * NG, f64, rng2)
+
+    def newton_rows(op, t, tol):
+        d, xi, c, s, _ = tl._leja_expv_setup(op, t, None, tol, None, 40.0)
+        return torch.as_tensor(tl._newton_rows(d, xi, c, 1.0 / s),
+                               device=dev)
+
+    rL = newton_rows(opL, TL / math.ceil(TL * tl._interval_map(opL, None)[1]
+                                         / 40.0), 1e-7)
+    rA = newton_rows(opA, TA, 1e-12)
+    rG = newton_rows(opG2, 20.0 / tl._interval_map(opG2, None)[1], 1e-12)
+    n3 = NF ** 3
+    ZF3, VcF, VpF = bF, vec(n3, f64, rng2), vec(n3, f64, rng2)
+    WF = torch.zeros(n3, dtype=f64, device=dev)
+    coF = torch.tensor([0.3, -0.7, 0.2, 0.45], dtype=f64, device=dev)
+    for name, kfn, pfn, shape, wk, kname in (
+            ("resident_recurrence nonsym",
+             lambda: tr.recurrence_apply_resident(opL, xL, rL),
+             lambda: tr.resident_recurrence_ref(
+                 xL, rL, opL.coeffs, tr._flat_offsets(opL),
+                 torch.tensor(1.0, dtype=f64, device=dev))[0],
+             f"bench_leja n={NL}, Newton rows m={rL.shape[0]}",
+             ((2 * NL + 4 * rL.shape[0] + 1) * 8,
+              rL.shape[0] * NL * (2 * 3 + 6) + 2 * NL),
+             "resident_nbr_kernel"),
+            ("resident_banded nonsym",
+             lambda: tr.recurrence_apply_resident_banded(opA, bA, rA),
+             lambda: tr.resident_banded_ref(bA, rA, opA.diags, opA.offsets),
+             f"config #4 n={NA}, Newton rows m={rA.shape[0]}",
+             ((opA.diags.numel() + 2 * NA + 4 * rA.shape[0]) * 8,
+              rA.shape[0] * NA * (2 * len(opA.offsets) + 6)), "Banded"),
+            ("resident_grid nonsym",
+             lambda: tr.recurrence_apply_resident_grid(opG2, xG2, rG),
+             lambda: tr.resident_grid_ref(xG2, rG, opG2.grid_shape,
+                                          opG2.offsets, opG2.coeffs),
+             f"{NG}^2 2-D advection, Newton rows m={rG.shape[0]}",
+             ((2 * NG * NG + 4 * rG.shape[0]) * 8,
+              rG.shape[0] * NG * NG * (2 * 5 + 6)), "resident_grid_nbr"),
+            ("fused_sweep nonsym",
+             lambda: tf.fused_lanczos_step(ZF3, VcF, VpF, coF, opF,
+                                           w_accum=WF),
+             lambda: tf.fused_sweep_ref(ZF3, VcF, VpF, coF, opF.grid_shape,
+                                        opF.offsets, opF.coeffs, WF),
+             f"{NF}^3 advection_diffusion_3d_stencil, accumulating sweep",
+             (7 * n3 * 8, n3 * (2 * 7 + 10)), "fused_sweep_kernel")):
+        pair_times(name, "float64", kfn, pfn, shape, wk, kname=kname)
+        bms, bby = bound(*wk, "float64")
+        print(f"bound {name} float64: {bms:.6f} ms by {bby}; launches on "
+              f"the polynomial path {poly_counts[name.split()[0]]} {card}",
+              flush=True)
+    # the polynomial and integrator path's cells: one-call medians (of 3
+    # after a warm-up where phase 4's call took under 2 s, else that call)
+    for name, fn in poly_calls.items():
+        if poly_ms[name] < 2000:
+            t, how = median_ms(fn, reps=3, warmup=1), "median of 3"
+        else:
+            t, how = poly_ms[name], "one call, phase 4"
+        print(f"time main {name}: {t:.3f} ms ({how}) {card}", flush=True)
+
     def plain_op(op, fn, is_hermitian=True):
         return et.MatrixFreeOperator(fn, op.shape, dtype=f64,
                                      is_hermitian=is_hermitian, device=dev)
@@ -2156,7 +2660,7 @@ def main() -> int:
         bound_ms, bound_by = bound(*work[(name, "float64")], "float64")
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
                         "replaces": REPLACES[name],
-                        "launches": main_counts[name],
+                        "launches": main_counts[name] + poly_counts[name],
                         "max_abs_err": kerr[name], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by,

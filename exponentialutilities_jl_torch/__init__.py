@@ -9,7 +9,10 @@ two-pass forms), the dense exponential and phi functions that the Krylov
 path reduces to, the Chebyshev and Krylov (happy-breakdown, error-estimate
 and storage-free two-pass) actions, the adaptive drivers (Niesen-Wright
 time stepping and KIOPS, each also with the JAX device loop's control
-flow) and the truncated-Taylor expv, and eleven hand-written CUDA kernels
+flow) and the truncated-Taylor expv, the non-Hermitian polynomial actions
+(Leja, Faber) and the exponential integrators (exprb32, exprb43, etdrk4
+and their device forms, with a matrix-free JacobianOperator), and eleven
+hand-written CUDA kernels
 for NVIDIA Hopper (``ops/kernels/csrc/``): seven that carry the
 recurrences (B3-var the variable-coefficient sweep) and four SpMV kernels
 behind the sparse containers' matvecs. The JAX package is the reference;
@@ -24,7 +27,8 @@ Public API
 
 Devices          set_default_device, default_device
 Operators        LinearOperator, DenseOperator, DiagonalOperator,
-                 MatrixFreeOperator, NegatedOperator, aslinearoperator,
+                 MatrixFreeOperator, NegatedOperator, JacobianOperator,
+                 aslinearoperator,
                  BandedOperator, StencilOperator, VariableStencilOperator,
                  laplacian_nd_stencil, variable_diffusion_nd_stencil,
                  advection_diffusion_3d_stencil,
@@ -50,12 +54,23 @@ Time stepping    phiv_timestep, expv_timestep, TimestepStats,
                  expv_timestep_device
 KIOPS            kiops, KiopsStats, AugmentedOperator, kiops_device
 Taylor           expv_taylor, expv_taylor_batched, taylor_theta
+Leja, Faber      expv_leja, phiv_leja, phiv_timestep_leja, leja_points,
+                 real_interval, expv_faber, phiv_faber,
+                 phiv_timestep_faber, fov_ellipse, faber_coeffs
+Integrators      exprb32, exprb43, etdrk4, ExpIntStats, etdrk4_device,
+                 exprb43_device, exprb32_device
 """
 
 from .models.chebyshev import (chebyshev_apply, expv_chebyshev, funm_chebyshev,
                                phiv_chebyshev, phiv_timestep_chebyshev,
                                spectral_bounds)
 from .models.expv import build_subspace, expv, expv_from_basis, make_expv
+from .models.faber import (expv_faber, faber_coeffs, fov_ellipse,
+                           phiv_faber, phiv_timestep_faber)
+from .models.integrators import (ExpIntStats, etdrk4, etdrk4_device, exprb32,
+                                 exprb32_device, exprb43, exprb43_device)
+from .models.leja import (expv_leja, leja_points, phiv_leja,
+                          phiv_timestep_leja, real_interval)
 from .models.expv_taylor import (expv_taylor, expv_taylor_batched,
                                  taylor_theta)
 from .models.kiops import AugmentedOperator, KiopsStats, kiops
@@ -80,8 +95,9 @@ from .ops.stencil import (StencilOperator, VariableStencilOperator,
                           laplacian_nd_stencil, variable_diffusion_nd_stencil)
 from .utils.convert import from_operator_data, operator_data, to_torch_operator
 from .utils.device import default_device, set_default_device
-from .utils.linop import (DenseOperator, DiagonalOperator, LinearOperator,
-                          MatrixFreeOperator, NegatedOperator, aslinearoperator)
+from .utils.linop import (DenseOperator, DiagonalOperator, JacobianOperator,
+                          LinearOperator, MatrixFreeOperator, NegatedOperator,
+                          aslinearoperator)
 from .utils.testmatrices import (advection_diffusion_1d, laplacian_1d,
                                  laplacian_3d, poisson_2d)
 
@@ -111,4 +127,11 @@ __all__ = [
     "phiv_timestep_device", "expv_timestep_device",
     "kiops", "KiopsStats", "AugmentedOperator", "kiops_device",
     "expv_taylor", "expv_taylor_batched", "taylor_theta",
+    "JacobianOperator",
+    "expv_leja", "phiv_leja", "phiv_timestep_leja", "leja_points",
+    "real_interval",
+    "expv_faber", "phiv_faber", "phiv_timestep_faber", "fov_ellipse",
+    "faber_coeffs",
+    "exprb32", "exprb43", "etdrk4", "ExpIntStats",
+    "etdrk4_device", "exprb43_device", "exprb32_device",
 ]

@@ -29,7 +29,8 @@ zero, which makes the reduced matrix block-triangular, so exp(tH) e1 is
 exact for the effective dimension.
 
 Not ported yet, and raising NotImplementedError: ``reduced="host"`` and
-``differentiable=True`` (ROADMAP A6), ``expv_batched`` (A4).
+``differentiable=True``; ``expv_batched`` is not ported either (all three
+ROADMAP A6).
 """
 
 from __future__ import annotations

@@ -29,8 +29,11 @@ launches its kernel or raises (an operator stored in another dtype than
 that casts its storage once, on first use, and keeps the copy); any other
 dtype (complex) takes the plain
 torch path through the dtype gate ``dispatch.kernel_device_ok``, and CPU
-tensors take the plain twins. The host packers are the JAX package's own
-(``utils/native.py``).
+tensors take the plain twins. A vector wrapped by a ``torch.func``
+transform goes through ``_KernelMatvec``, whose forward-mode rule launches
+the same kernel on the tangent, so ``torch.func.jvp`` and
+``JacobianOperator`` work over the kernel matvecs. The host packers are
+the JAX package's own (``utils/native.py``).
 """
 
 from __future__ import annotations
@@ -58,6 +61,32 @@ def _kernel(op_dtype, x):
     """(use the kernel, compute dtype) for a matvec of x."""
     rt = torch.promote_types(op_dtype, x.dtype)
     return kernel_device_ok(rt, x.device), rt
+
+
+class _KernelMatvec(torch.autograd.Function):
+    """y = A x through a kernel, for autograd: A does not depend on x, so
+    the forward-mode tangent is the same matvec of the tangent vector.
+    ``matvec`` is the container's own method, so the tangent (a wrapped
+    tensor under ``torch.func.jvp``) comes back here and reaches the
+    kernel unwrapped. Reverse mode is not defined."""
+
+    @staticmethod
+    def forward(x, matvec):
+        return matvec(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.matvec = inputs[1]
+
+    @staticmethod
+    def jvp(ctx, x_t, _):
+        return ctx.matvec(x_t)
+
+
+def _traced(x) -> bool:
+    """x is wrapped by a ``torch.func`` transform (a primal or tangent
+    under ``jvp``), whose state a kernel's raw pointer would drop."""
+    return torch._C._functorch.is_functorch_wrapped_tensor(x)
 
 
 def _promoted(op, attr, dt):
@@ -198,10 +227,12 @@ class BlockELLOperator(LinearOperator):
 
     def matvec(self, x):
         kern, rt = _kernel(self.dtype, x)
-        if kern:
-            return blockell_spmv(_promoted(self, "blocks", rt), self.bcols,
-                                 x.to(rt))
-        return blockell_spmv_ref(self.blocks, self.bcols, x)
+        if not kern:
+            return blockell_spmv_ref(self.blocks, self.bcols, x)
+        if _traced(x):
+            return _KernelMatvec.apply(x, self.matvec)
+        return blockell_spmv(_promoted(self, "blocks", rt), self.bcols,
+                             x.to(rt))
 
     def opnorm_hint(self):
         return self.blocks.abs().sum(dim=(1, 3)).max()      # (nbr, br) sums
@@ -311,6 +342,8 @@ class BandedOperator(LinearOperator):
         kern, rt = _kernel(self.dtype, x)
         if not kern:
             return banded_spmv_ref(self.diags, self.offsets, x)
+        if _traced(x):
+            return _KernelMatvec.apply(x, self.matvec)
         return self.plan(rt, x.device)(x.to(rt))
 
     def plan(self, dtype, device):
@@ -441,10 +474,12 @@ class SellOperator(LinearOperator):
 
     def matvec(self, x):
         kern, rt = _kernel(self.dtype, x)
-        if kern:
-            return launch_plan(_promoted(self, "data", rt))(x.to(rt))
-        return (sell_spmv_seg_ref if isinstance(self.data, SellSeg)
-                else sell_spmv_ref)(self.data, x)
+        if not kern:
+            return (sell_spmv_seg_ref if isinstance(self.data, SellSeg)
+                    else sell_spmv_ref)(self.data, x)
+        if _traced(x):
+            return _KernelMatvec.apply(x, self.matvec)
+        return launch_plan(_promoted(self, "data", rt))(x.to(rt))
 
     def opnorm_hint(self):
         """max_i sum_j |A_ij|: the row sums of |A| as |A| applied to ones."""

@@ -16,7 +16,8 @@ import torch
 from .device import host_tensor, resolve_device
 
 __all__ = ["LinearOperator", "DenseOperator", "MatrixFreeOperator",
-           "DiagonalOperator", "NegatedOperator", "aslinearoperator"]
+           "DiagonalOperator", "NegatedOperator", "aslinearoperator",
+           "JacobianOperator"]
 
 
 class LinearOperator:
@@ -169,3 +170,37 @@ def aslinearoperator(A, is_hermitian: Optional[bool] = None) -> LinearOperator:
     if A.ndim != 2 or A.shape[0] != A.shape[1]:
         raise ValueError(f"expected a square matrix, got shape {tuple(A.shape)}")
     return DenseOperator(A, is_hermitian=is_hermitian)
+
+
+class JacobianOperator(LinearOperator):
+    """The Jacobian J_f(u) of ``f`` as a matrix-free operator:
+    ``matvec(v) = torch.func.jvp(f, (u,), (v,))[1]``, one forward-mode
+    pass that never forms the matrix. ``f`` must be written in torch
+    operations that forward-mode AD can follow; the sparse containers'
+    kernel matvecs are (``ops/sparse.py``). Each matvec evaluates f(u) as
+    well as its derivative. The linearization point ``u`` is a tensor
+    (host data goes to ``device``, default the default device).
+
+    What the exponential integrators use when ``jac`` is None."""
+
+    def __init__(self, f: Callable, u, is_hermitian: bool = False, *,
+                 device=None):
+        self.f = f
+        self.u = host_tensor(u, device)
+        self.is_hermitian = bool(is_hermitian)
+
+    @property
+    def shape(self):
+        n = self.u.shape[0]
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return self.u.dtype
+
+    @property
+    def device(self):
+        return self.u.device
+
+    def matvec(self, v):
+        return torch.func.jvp(self.f, (self.u,), (v.to(self.u.dtype),))[1]

@@ -1261,3 +1261,198 @@ def test_drivers_on_the_card_match_the_cpu(dev, driver):
         assert (sg.matvecs, sg.final_m) == (sc.matvecs, sc.final_m)
         assert launches == sg.matvecs
     _close(wg.cpu(), wc, torch.float64)
+
+
+# ---- non-symmetric stencils and the Leja/Faber/integrator paths ----------
+
+def _nonsym_op(kind, dt, dev):
+    """Non-symmetric constant operators: the 1-D advection-diffusion of
+    benchmarks/bench_leja.py (scaled), a 5-point |o| = 2 variant, config
+    #4's banded operator, a 2-D advection stencil (B6) and the 3-D
+    advection-diffusion stencil on a grid ragged against B3's tiles."""
+    if kind == "1d":
+        return et.StencilOperator((3001,), ((-1,), (0,), (1,)),
+                                  np.asarray([1.2, -2.2, 1.0]), dtype=dt,
+                                  device=dev)
+    if kind == "1d5":
+        return et.StencilOperator((3001,), [(-2,), (-1,), (0,), (1,), (2,)],
+                                  np.asarray([0.1, 1.3, -2.7, 1.0, 0.05]),
+                                  dtype=dt, device=dev)
+    if kind == "banded":
+        return et.advection_diffusion_1d(2000, peclet=10.0, dtype=dt,
+                                         device=dev)
+    if kind == "2d":
+        return et.StencilOperator((70, 90), [(0, 0), (0, 1), (0, -1), (1, 0),
+                                             (-1, 0)],
+                                  np.asarray([-4.6, 1.0, 1.6, 0.8, 1.2]),
+                                  dtype=dt, device=dev)
+    return et.advection_diffusion_3d_stencil(9, 21, 37, peclet=10.0,
+                                             dtype=dt, device=dev)
+
+
+_NONSYM_KINDS = ["1d", "1d5", "banded", "2d", "3d"]
+# the launch counter of each engine
+_COUNTER = {"recurrence_apply_resident": "resident_recurrence",
+            "recurrence_apply_resident_banded": "resident_banded",
+            "recurrence_apply_resident_grid": "resident_grid",
+            "recurrence_apply_fused": "fused_sweep"}
+
+
+def _poly_rows(kind_rows, op, m, dt, dev):
+    """Newton rows (cc = 0) or Faber rows (cc_0 = 0, cc_1 = -2 rho) on the
+    operator's Gershgorin interval / ellipse, random accumulation
+    coefficients."""
+    from exponentialutilities_jl_torch.models import faber as tfb
+    from exponentialutilities_jl_torch.models import leja as tl
+
+    cw = np.random.default_rng(81).standard_normal(m)
+    if kind_rows == "newton":
+        c, s = tl._interval_map(op, None)
+        rows = tl._newton_rows(cw, tl.leja_points(m), c, 1.0 / s)
+    else:
+        c, _, _, g, rho = tfb._resolve_ellipse(op, None)
+        rows = tfb._faber_rows(cw, c, 1.0 / g, rho)
+    return torch.as_tensor(rows, dtype=dt, device=dev)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("rows_kind", ["newton", "faber"])
+@pytest.mark.parametrize("kind", _NONSYM_KINDS)
+def test_nonsymmetric_engines_vs_twin(dev, dt, rows_kind, kind):
+    """The engine of each non-symmetric operator (B6 for the small 3-D
+    grid, whose state fits L2) and, on the 3-D grid, the B3 sweeps too."""
+    op = _nonsym_op(kind, dt, dev)
+    engines = [td.recurrence_engine(op, dt, device=dev, hermitian=False)]
+    if kind == "3d":
+        engines.append(tf.recurrence_apply_fused)
+    x = _vec(op.shape[0], dt, dev, 82)
+    rows = _poly_rows(rows_kind, op, 24, dt, dev)
+    op_cpu = _nonsym_op(kind, dt, "cpu")
+    for engine in engines:
+        _build.reset_launch_counts()
+        w = engine(op, x, rows)
+        key = _COUNTER[engine.__name__]
+        assert _build.launches[key] == (25 if key == "fused_sweep" else 1)
+        _close(w.cpu(), engine(op_cpu, x.cpu(), rows.cpu()), dt)
+
+
+def test_leja_faber_take_the_engines(dev):
+    """expv_leja, expv_faber and phiv_leja on the card: the engine of each
+    operator, one launch a pass, the CPU run's result."""
+    g = np.random.default_rng(83)
+    for kind in ("1d", "banded", "2d", "3d"):
+        op = _nonsym_op(kind, torch.float64, dev)
+        op_cpu = _nonsym_op(kind, torch.float64, "cpu")
+        b = torch.as_tensor(g.standard_normal(op.shape[0]))
+        c, s = et.models.leja._interval_map(op_cpu, None)
+        t = 30.0 / s
+        key = _COUNTER[td.recurrence_engine(
+            op, torch.float64, device=dev, hermitian=False).__name__]
+        for fn, kw in ((et.expv_leja, dict(tol=1e-10)),
+                       (et.expv_faber, dict(tol=1e-10))):
+            _build.reset_launch_counts()
+            w = fn(t, op, b.to(dev), fused=True, **kw)
+            assert _build.launches[key] >= 1
+            _close(w.cpu(), fn(t, op_cpu, b, **kw), torch.float64)
+        _build.reset_launch_counts()
+        W = et.phiv_leja(t / 2, op, b.to(dev), 1, tol=1e-10)
+        if kind == "1d":        # one start vector, two columns: one B4
+            assert _build.launches["resident_multi"] == 1
+        else:
+            assert _build.launches[key] == 2
+        _close(W.cpu(), et.phiv_leja(t / 2, op_cpu, b, 1, tol=1e-10),
+               torch.float64)
+
+
+def test_nw_polynomial_drivers_launch_p1_passes_a_substep(dev):
+    op = _nonsym_op("1d", torch.float64, dev)
+    op_cpu = _nonsym_op("1d", torch.float64, "cpu")
+    B = torch.as_tensor(np.random.default_rng(84).standard_normal((3001, 3)))
+    c, s = et.models.leja._interval_map(op_cpu, None)
+    t = 100.0 / s                                   # q = 3 at max_z = 40
+    _build.reset_launch_counts()
+    U = et.phiv_timestep_leja(t, op, B.to(dev), tol=1e-8)
+    assert _build.launches["resident_recurrence"] == 3 * 3
+    _close(U.cpu(), et.phiv_timestep_leja(t, op_cpu, B, tol=1e-8),
+           torch.float64)
+    _build.reset_launch_counts()
+    U = et.phiv_timestep_faber(t, op, B.to(dev), tol=1e-8)
+    assert _build.launches["resident_recurrence"] == 3       # q = 1
+    _close(U.cpu(), et.phiv_timestep_faber(t, op_cpu, B, tol=1e-8),
+           torch.float64)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("kind", ["banded", "blockell", "sell", "seg"])
+def test_jvp_through_spmv_kernels(dev, dt, kind):
+    """torch.func.jvp through a container's kernel matvec: the kernel on
+    the primal and on the tangent, equal to the twin's jvp."""
+    import scipy.sparse as sp
+
+    g = np.random.default_rng(85)
+    n = 4096
+    npdt = np.float64 if dt == torch.float64 else np.float32
+    if kind == "banded":
+        op = et.advection_diffusion_1d(n, dtype=dt, device=dev)
+        cpu = et.advection_diffusion_1d(n, dtype=dt, device="cpu")
+        key = "banded_spmv"
+    else:
+        A = (sp.random(n, n, density=4 / n, random_state=3)
+             + sp.identity(n)).tocsr()
+        if kind == "blockell":
+            A = sp.kron(sp.random(n // 4, n // 4, density=2 / n,
+                                  random_state=4) + sp.identity(n // 4),
+                        np.ones((4, 4)), format="csr")
+            make = lambda d: et.blockell_from_scipy(A, 4, dtype=npdt,
+                                                    device=d)
+            key = "blockell_spmv"
+        else:
+            mode = "seg" if kind == "seg" else None
+            make = lambda d: et.SellOperator.from_scipy(
+                A, mode=mode, dtype=npdt, device=d)
+            key = "sell_spmv"
+        op, cpu = make(dev), make("cpu")
+    u = torch.as_tensor(g.standard_normal(n), dtype=dt)
+    v = torch.as_tensor(g.standard_normal(n), dtype=dt)
+    f = lambda x: op.matvec(x) + x ** 2
+    f_cpu = lambda x: cpu.matvec(x) + x ** 2
+    _build.reset_launch_counts()
+    y, jv = torch.func.jvp(f, (u.to(dev),), (v.to(dev),))
+    assert _build.launches[key] == 2
+    y_cpu, jv_cpu = torch.func.jvp(f_cpu, (u,), (v,))
+    _close(y.cpu(), y_cpu, dt)
+    _close(jv.cpu(), jv_cpu, dt)
+    J = et.JacobianOperator(op.matvec, u.to(dev))
+    _close(J.matvec(v.to(dev)).cpu(), cpu.matvec(v), dt)
+
+
+def test_fixed_step_integrators_are_sync_free(dev):
+    """etdrk4_device and exprb43_device(adaptive=False) make no host read
+    inside a step: their loops under sync debug mode "error" (the final
+    finiteness check is outside)."""
+    from exponentialutilities_jl_torch.models import integrators as ti
+
+    n = 64
+    lap = et.laplacian_nd_stencil(n, n, device="cpu")
+    op, op_cpu = (et.StencilOperator(lap.grid_shape, lap.offsets,
+                                     lap.host_coeffs * 1e-2,
+                                     is_hermitian=True, device=d)
+                  for d in (dev, "cpu"))
+    u0 = torch.as_tensor(np.random.default_rng(86).standard_normal(n * n),
+                         device=dev) * 0.1
+    N = lambda u: u - u ** 3
+    f = lambda u: op.matvec(u) + u - u ** 3
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ue = ti._etdrk4_scan(op, u0, 0.01, N=N, nsteps=2, m=12, iop=2,
+                             expm_method="taylor")
+        ur = ti._exprb43_scan(u0, 0.01, f=f, nsteps=2, m=12, iop=2,
+                              expm_method="taylor")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    f_cpu = lambda u: op_cpu.matvec(u) + u - u ** 3
+    _close(ue.cpu(), et.etdrk4_device(op_cpu, N, u0.cpu(), (0.0, 0.02), 0.01,
+                                      m=12), torch.float64)
+    _close(ur.cpu(), et.exprb43_device(f_cpu, u0.cpu(), (0.0, 0.02), 0.01,
+                                       m=12), torch.float64)
