@@ -101,7 +101,26 @@ its seconds:
               its calls under torch.func.jvp, against the analytic
               Jacobian); a step of etdrk4_device and of exprb43_device's
               fixed mode and a JacobianOperator matvec over B7 also run
-              under sync debug mode "error"
+              under sync debug mode "error"; then a third path, its
+              counts set to 0 before it and read after: the dense layer
+              (config #1's expm by all seven methods and with
+              balance=True, phi (Pade) and phi_taylor, funm with the
+              device Parlett, against scipy and the block oracle;
+              phi_pade at n = 256, k = 3 (accuracy_f64.py) with JAX's
+              (branch, s) and one host read under sync debug mode;
+              bench_dense_mfu.py's stacks of 1-norm 20 in float32 and
+              float64 through expm and phi(X, 4), against the per-matrix
+              call and scipy; expm_dd at n = 32 against expm_mp at 300
+              bits, the card's bits equal to the CPU's), expv_batched on
+              config #2 (8 columns, two-pass: 8 B2 + 8 B1) and config #3
+              (4 columns, m = 30: 120 B7), and the gradients: config #4's
+              ||expv(t, op, b, m=40)||^2 in b and op.diags (40 B7 forward
+              + 40 backward, held to the plain twin's autograd on the
+              card), the x-gradient of the n = 1e6 SELL matrix (2 B9),
+              expv_chebyshev on config #2's stencil with a requires-grad
+              b (no B1: the grad rule, counted), and
+              expm_higham2005(differentiable=True) under torch.func.grad
+              and sync debug mode "error"
   5. times    CUDA-event medians of >= 10 runs after warm-up (of 5 after
               one for the adaptive drivers), each kernel
               beside its plain twin, B6 (its main-path form and its
@@ -128,7 +147,10 @@ its seconds:
               budget (x gathered from global memory in every block); B1,
               B5, B6 and B3 at the second path's non-symmetric shapes; each
               cell of the second path (a median of 3 where its phase-4
-              call took under 2 s, else that call)
+              call took under 2 s, else that call); each cell of the third
+              path, each stack beside torch.linalg.matrix_exp on it and
+              with the TFLOP/s its degree (or Taylor order) and squaring
+              count imply
 
 It prints a JSON line of the kernels, then the card's name and power
 limit, then {"ok": true, "device": {...}} as the last line. Any failed
@@ -143,7 +165,10 @@ the block-ELL two-pass; the 216^3 variable Chebyshev and two-pass, the
 two-pass phiv; config #1 expm and expv; config #4 expv, phiv and the IOP
 two-pass, and config #4's phiv_timestep, kiops, phiv_timestep_device and
 kiops_device; the n = 1e6 Leja and Faber drivers, 216^3 expv_faber,
-config #4's expv_leja and expv_faber, 2048^2 etdrk4_device): the
+config #4's expv_leja and expv_faber, 2048^2 etdrk4_device; config #1's
+diagonalization and schur expm, the float64 stacks' expm (512 x 128 and
+32 x 512, and torch.linalg.matrix_exp on the first) and phi, the config
+#4 gradient): the
 CUDA-event wall time, the device busy time (union of the device
 intervals), the number of device ops, the largest kernels and the host
 ops of most self time. It prints no result lines then.
@@ -253,6 +278,52 @@ TJ = 0.05                            # exprb32 on the banded Allen-Cahn
 MTOL_POLY = 1e-10       # config #4 oracle, Faber 216^3 semigroup and Arnoldi
 MTOL_ETD = 1e-10        # etdrk4_device vs etdrk4
 MTOL_EXPRB = 1e-8       # exprb43_device vs exprb43 (rtol 1e-5)
+
+# The dense layer and the gradients (phase 4's third path), float64 unless
+# stated, calibrated on the CPU from the JAX package at the same settings
+# (printed beside each check as "JAX on the CPU"):
+#   config #1 (run_baseline.py:72-74, 100 x 100) vs scipy expm: higham2005
+#   4.0e-16, generic 1.0e-14, diagonalization 8.3e-15, native 6.0e-16,
+#   taylor 3.0e-15, schur (parlett="device") 6.9e-15, gebal 4.0e-16,
+#   higham2005 balance=True 4.0e-16; phi(A, 3) (Pade) 4.7e-16 and
+#   phi_taylor 2.7e-15 against the block oracle; funm(A, "exp") 6.9e-15;
+#   phi_pade at n = 256, k = 3 (benchmarks/accuracy_f64.py:106-124)
+#   1.2e-15 against the host block oracle, with (i, s) = (6, 3);
+#   bench_dense_mfu.py's stacks (1-norm 20; the first 8 elements, which
+#   take the whole stack's degree and s): expm vs scipy float32 1.2e-6,
+#   1.5e-6, 2.1e-6 and float64 6.7e-16, 7.6e-16, 1.2e-15 at (512, 128),
+#   (128, 256), (32, 512); phi(X, 4) vs the block oracle float32 3.0e-6,
+#   4.6e-6, 7.1e-6 and float64 5.4e-15, 8.5e-15, 9.3e-15; the batched call
+#   equals the per-matrix one bit for bit;
+#   expm_dd at n = 32 against expm_mp (300 bits) 2.6e-31 (expm_mp 4.6 s);
+#   expv_batched on config #2 (m = 40, two-pass; JAX's reduced="host") vs
+#   scipy expm_multiply 1.0e-15, 1.5e-15.
+MTOL_DENSE = {"float64": 1e-10, "float32": 2e-5}   # PERF.md 2; the JAX f32 test
+MTOL_DD = 1e-29          # expm_dd vs expm_mp, max-norm relative
+MTOL_GRAD = 1e-12        # kernel gradients vs the plain twin's autograd
+MTOL_GRAD_CPU = 1e-10    # the gated call's gradient vs the CPU's
+DENSE_JAX = {
+    "config1 expm higham2005": 4.0e-16, "config1 expm generic": 1.0e-14,
+    "config1 expm diagonalization": 8.3e-15, "config1 expm native": 6.0e-16,
+    "config1 expm taylor": 3.0e-15, "config1 expm schur": 6.9e-15,
+    "config1 expm gebal": 4.0e-16, "config1 expm_higham2005 balance": 4.0e-16,
+    "config1 phi pade": 4.7e-16, "config1 phi_taylor": 2.7e-15,
+    "config1 funm exp": 6.9e-15, "phi_pade 256": 1.2e-15,
+    "expm_dd 32": 2.6e-31, "expv_batched config2": 1.5e-15,
+    **{f"stack {b}x{n} {dn} {what}": e
+       for (b, n), e32, e64, p32, p64 in (
+           ((512, 128), 1.2e-6, 6.7e-16, 3.0e-6, 5.4e-15),
+           ((128, 256), 1.5e-6, 7.6e-16, 4.6e-6, 8.5e-15),
+           ((32, 512), 2.1e-6, 1.2e-15, 7.1e-6, 9.3e-15))
+       for dn, what, e in (("float32", "expm", e32), ("float64", "expm", e64),
+                           ("float32", "phi", p32), ("float64", "phi", p64))},
+}
+PADE_JAX = (6, 3)        # JAX's (branch, s) for the phi_pade 256 fixture
+STACKS = ((512, 128), (128, 256), (32, 512))   # bench_dense_mfu.py's (B, n)
+KS = 4                   # phi(X, 4) on the stacks
+ND = 32                  # expm_dd: expm_mp at 300 bits takes ~5 s here
+NBATCH2, NBATCH3 = 8, 4  # expv_batched columns on configs #2 and #3
+TG4 = 1e-6               # the gradient's t on config #4: t |A| = 16
 
 NS = 1_000_000          # the SELL matrices of bench_sell.py / bench_sorted.py
 NS_TIME = 10_000_000    # bench_sell.py's timing shape
@@ -733,6 +804,327 @@ def poly_integrator_path(et, dev, card, ref_e, bA):
     }
     timed = {k: fn for k, (fn, _) in cells.items()}
     return counts, timed, sync_free, ms, (opL, BL[:, 0], opF, bF, opA)
+
+
+def phi_oracle(A, k):
+    """[phi_0(A) .. phi_k(A)] from one scipy expm of the block matrix
+    [[A, E], [0, K]] (tests/test_phi.py's oracle)."""
+    import scipy.linalg as sla
+
+    n = A.shape[0]
+    E = np.zeros((n, k * n))
+    E[:, :n] = np.eye(n)
+    J = (np.kron(np.diag(np.ones(k - 1), 1), np.eye(n)) if k > 1
+         else np.zeros((n, n)))
+    P = sla.expm(np.block([[A, E], [np.zeros((k * n, n)), J]]))
+    return [sla.expm(A)] + [P[:n, j * n:(j + 1) * n] for j in range(1, k + 1)]
+
+
+def stack_flops(et, X, k=None):
+    """The operations one call on the stack X does, counted from the degree
+    and squaring count it chooses: expm (k None) = Higham 2005 (3 shared
+    products, the branch's, one LU solve with n right-hand sides, s
+    squarings); phi (k) = the Paterson-Stockmeyer Taylor stage, k recovery
+    products and s double-argument stages of k+1 products each."""
+    import math
+
+    from exponentialutilities_jl_torch.ops import expm as tex
+    from exponentialutilities_jl_torch.ops import phi_dense as tpd
+
+    B, n = X.shape[0], X.shape[-1]
+    nA = float(tex._onenorm(X))
+    prod = 2.0 * n ** 3
+    if k is None:
+        thetas, _ = tex._pade_tables(X.dtype)
+        s = tex._scaling(nA, thetas[-1], 32)
+        idx = sum(nA > t for t in thetas[:-1])
+        deg = (3, 5, 7, 9, 13)[idx]
+        branch = {3: 1, 5: 1, 7: 1, 9: 2, 13: 3}[deg]
+        return B * ((3 + branch + s) * prod + 8.0 / 3.0 * n ** 3), \
+            f"degree {deg}, s = {s}"
+    theta, order = tpd._taylor_order(X.dtype)
+    s = tex._scaling(nA, theta, 48)
+    tau = max(2, math.isqrt(order) + 1)
+    nblocks = (order + 1 + tau - 1) // tau
+    ps = (tau - 1) + (nblocks - 1)
+    return B * ((ps + k + s * (k + 1)) * prod), \
+        f"Taylor order {order}, s = {s}"
+
+
+def dense_grad_path(et, dev, card, A1np, op1, opP, opS):
+    """Phase 4's third path: the dense layer (every expm method, phi,
+    phi_pade, funm, the batched stacks, expm_dd), expv_batched on configs
+    #2 and #3, and the gradients (B7's reverse rule on config #4's
+    operator, B9's Hermitian x-gradient, the grad rule on config #2's
+    stencil, expm_higham2005(differentiable=True) under torch.func.grad),
+    launch counts set to 0 just before and read just after, each call's
+    launches held to its expected count. Returns (the counts, {cell:
+    callable} for phase 5, the stacks)."""
+    import linecache
+    import warnings
+
+    import scipy.linalg as sla
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    import torch
+    from mpmath import mp, workprec
+    from exponentialutilities_jl_torch.ops import phi_almohy as tpa
+    from exponentialutilities_jl_torch.ops import sparse as tsparse
+    from exponentialutilities_jl_torch.ops.kernels import _build
+    from exponentialutilities_jl_torch.ops.kernels import dispatch as td
+    from exponentialutilities_jl_torch.ops.kernels import sell as ts
+
+    f32, f64 = torch.float32, torch.float64
+    dname = {f32: "float32", f64: "float64"}
+    gen = np.random.default_rng(SEED + 21)
+
+    def held(name, got, want, tol, what, jax_err=None):
+        got = torch.as_tensor(got).detach().double().cpu().reshape(-1)
+        want = torch.as_tensor(want).detach().double().cpu().reshape(-1)
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"{name} shape/finite")
+        e = rel_norm(got, want)
+        check(e <= tol, f"{name} {what} {e:.2e}")
+        beside = "" if jax_err is None else f"; JAX on the CPU {jax_err:.1e}"
+        print(f"check {name}: {what} {e:.2e} (tol {tol:g}{beside})",
+              flush=True)
+
+    # ---- inputs and host oracles (before the counts are reset)
+    t0 = time.perf_counter()
+    A1c = torch.as_tensor(A1np, device=dev)
+    E1 = sla.expm(A1np)
+    P1 = phi_oracle(A1np, 3)
+    A3np = np.random.default_rng(3).standard_normal((256, 256)) / 8
+    A3 = torch.as_tensor(A3np, device=dev)
+    P3 = phi_oracle(A3np, 3)
+    stacks = {}
+    for b_, n_ in STACKS:
+        for dt, npdt in ((f32, np.float32), (f64, np.float64)):
+            X = np.random.default_rng(5).standard_normal(
+                (b_, n_, n_)).astype(npdt)
+            X *= (20.0 / np.linalg.norm(X, 1, axis=(1, 2)))[:, None, None]
+            stacks[(b_, n_, dname[dt])] = (torch.as_tensor(X, device=dev), X)
+    Add = np.random.default_rng(21).standard_normal((ND, ND)) / 4
+    tm = time.perf_counter()
+    Mmp = et.expm_mp(Add, prec_bits=300)
+    mp_s = time.perf_counter() - tm
+    B2np = np.random.default_rng(22).standard_normal((NBATCH2, N1))
+    B2 = torch.as_tensor(B2np, device=dev)
+    A1s = sp.diags([np.ones(N1 - 1), -2 * np.ones(N1), np.ones(N1 - 1)],
+                   [-1, 0, 1], format="csr")
+    ref2 = [spla.expm_multiply(T1 * A1s, B2np[i]) for i in range(NBATCH2)]
+    B3 = torch.as_tensor(gen.standard_normal((NBATCH3, NP * NP)), device=dev)
+    opA4 = et.advection_diffusion_1d(NA, peclet=10.0, device=dev)
+    bg4 = torch.as_tensor(gen.standard_normal(NA), device=dev)
+    xS = torch.as_tensor(gen.standard_normal(opS.shape[0]), device=dev)
+    gS = torch.as_tensor(gen.standard_normal(opS.shape[0]), device=dev)
+    print(f"dense path inputs and host oracles: "
+          f"{time.perf_counter() - t0:.1f} s (expm_mp {ND} x {ND} at 300 "
+          f"bits: {mp_s:.1f} s)", flush=True)
+
+    def grads_config4():
+        D = opA4.diags.clone().requires_grad_()
+        b = bg4.clone().requires_grad_()
+        op = et.BandedOperator(D, opA4.offsets)
+        w = et.expv(TG4, op, b, m=40, hermitian=False)
+        return torch.autograd.grad((w ** 2).sum(), (D, b))
+
+    def grad_sell():
+        x = xS.clone().requires_grad_()
+        return torch.autograd.grad(opS.matvec(x), x, gS)[0]
+
+    def grad_gated():
+        b = b1dev.clone().requires_grad_()
+        w = et.expv_chebyshev(T1, op1, b, tol=1e-12)
+        return torch.autograd.grad((w ** 2).sum(), b)[0]
+
+    b1dev = torch.as_tensor(np.random.default_rng(23).standard_normal(N1),
+                            device=dev)
+    cells = {f"config1 expm {m}": (lambda m=m: et.expm(
+        A1c, method=m, **({"parlett": "device"} if m == "schur" else {})))
+        for m in ("higham2005", "generic", "diagonalization", "native",
+                  "taylor", "schur", "gebal")}
+    cells.update({
+        "config1 expm_higham2005 balance": lambda: et.expm_higham2005(
+            A1c, balance=True),
+        "config1 phi pade": lambda: et.phi(A1c, 3),
+        "config1 phi_taylor": lambda: et.phi_taylor(A1c, 3),
+        "config1 funm exp": lambda: et.funm(A1c, "exp", parlett="device"),
+        "phi_pade 256": lambda: et.phi_pade(A3, 3),
+        **{f"stack {b_}x{n_} {dn} expm": (lambda X=X: et.expm(X))
+           for (b_, n_, dn), (X, _) in stacks.items()},
+        **{f"stack {b_}x{n_} {dn} phi": (lambda X=X: et.phi(X, KS))
+           for (b_, n_, dn), (X, _) in stacks.items()},
+        f"expm_dd {ND}": lambda: et.expm_dd(torch.as_tensor(Add, device=dev)),
+        "expv_batched config2": lambda: et.expv_batched(
+            T1, op1, B2, m=40, two_pass=True),
+        "expv_batched config3": lambda: et.expv_batched(TP, opP, B3, m=30),
+        "grad config4 expv m=40": grads_config4,
+        "grad sell x": grad_sell,
+        "grad gated expv_chebyshev": grad_gated,
+    })
+    expect = {
+        "expv_batched config2": {"resident_lanczos": NBATCH2,
+                                 "resident_recurrence": NBATCH2},
+        "expv_batched config3": {"banded_spmv": NBATCH3 * 30},
+        "grad config4 expv m=40": {"banded_spmv": 40 + 40},
+        "grad sell x": {"sell_spmv": 2},
+    }
+    _build.reset_launch_counts()
+    td.grad_gated["calls"] = 0
+    out, ms = {}, {}
+    for name, fn in cells.items():
+        before = dict(_build.launches)
+        out[name], ms[name] = event_ms(fn)
+        delta = {k: v - before[k] for k, v in _build.launches.items()
+                 if v > before[k]}
+        want = expect.get(name, {})
+        check(delta == want, f"{name}: launches {delta}, expected {want}")
+        print(f"main {name}: {ms[name]:.1f} ms, launches {delta or 'none'}",
+              flush=True)
+    counts = dict(_build.launches)
+    gated = td.grad_gated["calls"]
+    check(gated == 1, f"grad rule: {gated} gated calls, expected 1")
+    print(f"main grad rule: {gated} call sent to the plain path "
+          "(expv_chebyshev with a requires-grad b on config #2's stencil)",
+          flush=True)
+
+    # ---- checks
+    for m in ("higham2005", "generic", "diagonalization", "native", "taylor",
+              "schur", "gebal"):
+        held(f"config1 expm {m}", out[f"config1 expm {m}"], E1,
+             MTOL_DENSE["float64"], "vs scipy expm",
+             DENSE_JAX[f"config1 expm {m}"])
+    held("config1 expm_higham2005 balance",
+         out["config1 expm_higham2005 balance"], E1, MTOL_DENSE["float64"],
+         "vs scipy expm", DENSE_JAX["config1 expm_higham2005 balance"])
+    for name in ("config1 phi pade", "config1 phi_taylor"):
+        F = out[name]
+        check(tuple(F.shape) == (4, 100, 100), f"{name} shape")
+        e = max(rel_norm(F[j].cpu(), torch.as_tensor(P1[j]))
+                for j in range(4))
+        check(e <= MTOL_DENSE["float64"], f"{name} {e:.2e}")
+        print(f"check {name}: phi_0..phi_3 vs the block oracle {e:.2e} (tol "
+              f"{MTOL_DENSE['float64']:g}; JAX on the CPU "
+              f"{DENSE_JAX[name]:.1e})", flush=True)
+    held("config1 funm exp", out["config1 funm exp"], E1,
+         MTOL_DENSE["float64"], "parlett='device' vs scipy expm",
+         DENSE_JAX["config1 funm exp"])
+    F3 = out["phi_pade 256"]
+    e = max(rel_norm(F3[j].cpu(), torch.as_tensor(P3[j])) for j in range(4))
+    check(e <= MTOL_DENSE["float64"], f"phi_pade 256 {e:.2e}")
+    i_dev, s_dev = tpa._select_parameters(A3, 3, 64)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            et.phi_pade(A3, 3)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # the syncs of the call, by the source line that made them: the one
+    # read of (i, s), and any the LU library makes inside solve_ex
+    sites = [linecache.getline(w.filename, w.lineno).strip()
+             for w in caught
+             if "called a synchronizing" in str(w.message)]
+    reads = sum(".tolist()" in line for line in sites)
+    lu = sum("solve_ex" in line for line in sites)
+    got = (int(i_dev), int(s_dev))
+    check(got == PADE_JAX, f"phi_pade 256 (i, s) {got}, JAX {PADE_JAX}")
+    check(reads == 1 and reads + lu == len(sites),
+          f"phi_pade 256: syncs at {sites}, expected one read of (i, s)")
+    print(f"check phi_pade 256: phi_0..phi_3 vs the host block oracle "
+          f"{e:.2e} (tol {MTOL_DENSE['float64']:g}; JAX on the CPU "
+          f"{DENSE_JAX['phi_pade 256']:.1e}); (i, s) = {got} as JAX's; "
+          f"{reads} host read of them, {lu} sync inside the LU solve (sync "
+          "debug mode)", flush=True)
+    for (b_, n_, dn), (X, Xnp) in stacks.items():
+        tol = MTOL_DENSE[dn]
+        E = out[f"stack {b_}x{n_} {dn} expm"]
+        F = out[f"stack {b_}x{n_} {dn} phi"]
+        check(E.shape == X.shape and F.shape == (b_, KS + 1, n_, n_),
+              f"stack {b_}x{n_} {dn} shapes")
+        ep = max(rel_norm(E[i], et.expm_higham2005(X[i]))
+                 for i in range(min(4, b_)))
+        fp = max(rel_norm(F[i], et.phi_taylor(X[i], KS))
+                 for i in range(min(4, b_)))
+        es = max(rel_norm(E[i].cpu(), torch.as_tensor(
+            sla.expm(Xnp[i].astype(np.float64)))) for i in range(2))
+        fs = max(rel_norm(F[i, j].cpu(), torch.as_tensor(o)) for i in range(2)
+                 for j, o in enumerate(phi_oracle(Xnp[i].astype(np.float64),
+                                                  KS)))
+        for what, e_ in (("expm vs per-matrix (4)", ep),
+                         ("phi vs per-matrix (4)", fp),
+                         ("expm vs scipy (2)", es),
+                         ("phi vs the block oracle (2)", fs)):
+            check(e_ <= tol, f"stack {b_}x{n_} {dn} {what} {e_:.2e}")
+        print(f"check stack {b_}x{n_} {dn}: expm vs per-matrix {ep:.2e}, "
+              f"phi vs per-matrix {fp:.2e}, expm vs scipy {es:.2e} (JAX on "
+              f"the CPU {DENSE_JAX[f'stack {b_}x{n_} {dn} expm']:.1e}), phi "
+              f"vs the block oracle {fs:.2e} (JAX on the CPU "
+              f"{DENSE_JAX[f'stack {b_}x{n_} {dn} phi']:.1e}) (tol {tol:g})",
+              flush=True)
+    X = out[f"expm_dd {ND}"]
+    with workprec(330):
+        err = max(abs(mp.mpf(float(X.hi[i, j])) + mp.mpf(float(X.lo[i, j]))
+                      - Mmp[i, j]) for i in range(ND) for j in range(ND))
+        sc = max(abs(Mmp[i, j]) for i in range(ND) for j in range(ND))
+        e = float(err / sc)
+    check(e <= MTOL_DD, f"expm_dd {ND} vs expm_mp {e:.2e}")
+    Xc = et.expm_dd(torch.as_tensor(Add))
+    same = torch.equal(X.hi.cpu(), Xc.hi) and torch.equal(X.lo.cpu(), Xc.lo)
+    check(same, f"expm_dd {ND}: the card's bits differ from the CPU's")
+    print(f"check expm_dd {ND}: vs expm_mp (300 bits) {e:.2e} (tol "
+          f"{MTOL_DD:g}; JAX on the CPU {DENSE_JAX['expm_dd 32']:.1e}); "
+          "the card's hi and lo equal the CPU's bit for bit", flush=True)
+    W2 = out["expv_batched config2"]
+    check(W2.shape == (NBATCH2, N1), "expv_batched config2 shape")
+    e = max(rel_norm(W2[i].cpu(), torch.as_tensor(ref2[i]))
+            for i in range(NBATCH2))
+    check(e <= MTOL_DENSE["float64"], f"expv_batched config2 {e:.2e}")
+    print(f"check expv_batched config2: {NBATCH2} columns vs scipy "
+          f"expm_multiply, worst {e:.2e} (tol {MTOL_DENSE['float64']:g}; "
+          f"JAX on the CPU {DENSE_JAX['expv_batched config2']:.1e})",
+          flush=True)
+    W3 = out["expv_batched config3"]
+    same = all(torch.equal(W3[i], et.expv(TP, opP, B3[i], m=30))
+               for i in range(NBATCH3))
+    check(same, "expv_batched config3: a column differs from its expv")
+    print(f"check expv_batched config3: each of {NBATCH3} columns equals its "
+          "scalar expv bit for bit", flush=True)
+    gD, gb = out["grad config4 expv m=40"]
+    saved = tsparse.kernel_device_ok
+    tsparse.kernel_device_ok = lambda dt, device: False
+    try:
+        pD, pb = grads_config4()          # the plain twin on the card
+    finally:
+        tsparse.kernel_device_ok = saved
+    held("grad config4 diags", gD, pD, MTOL_GRAD, "B7 rule vs the plain "
+         "twin's autograd")
+    held("grad config4 b", gb, pb, MTOL_GRAD, "B7 rule vs the plain twin's "
+         "autograd")
+    held("grad sell x", out["grad sell x"], ts.sell_spmv_ref(opS.data, gS),
+         MTOL_GRAD, "B9 x-gradient vs the twin's A g (A = A^T)")
+    opc = et.laplacian_nd_stencil(N1, device="cpu")
+    bc = b1dev.cpu().requires_grad_()
+    (gc,) = torch.autograd.grad((et.expv_chebyshev(T1, opc, bc, tol=1e-12)
+                                 ** 2).sum(), bc)
+    held("grad gated expv_chebyshev", out["grad gated expv_chebyshev"], gc,
+         MTOL_GRAD_CPU, "vs the same call's gradient on the CPU")
+    # the differentiable form makes no host read under torch.func.grad
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g = torch.func.grad(lambda A: (et.expm_higham2005(
+            A, differentiable=True) ** 2).sum())(A1c)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    gr = A1c.clone().requires_grad_()
+    (ge,) = torch.autograd.grad((et.expm_higham2005(gr) ** 2).sum(), gr)
+    held("expm_higham2005 differentiable under torch.func.grad", g, ge,
+         MTOL_GRAD, "vs autograd of the default form (sync debug mode "
+         "'error')")
+    return counts, cells, ms, stacks
 
 
 def main() -> int:
@@ -1967,6 +2359,16 @@ def main() -> int:
         check(poly_counts[k] > 0, f"kernel {k} never launched on the "
               "polynomial and integrator path")
 
+    # the third path: the dense layer, expv_batched and the gradients
+    dense_counts, dense_calls, dense_ms, dense_stacks = dense_grad_path(
+        et, dev, card, A1np, op1[f64], opP, opS)
+    print(f"main launches of the dense and gradient path: {dense_counts}",
+          flush=True)
+    for k in ("resident_lanczos", "resident_recurrence", "banded_spmv",
+              "sell_spmv"):
+        check(dense_counts[k] > 0, f"kernel {k} never launched on the "
+              "dense and gradient path")
+
     # the kernel-driving passes make no host syncs
     lo, hi = op3[f64].spectral_bounds_hint()
     full3, _, _ = tc._full_exp_coeffs(T3, lo, hi, 1e-12, None)
@@ -2107,7 +2509,16 @@ def main() -> int:
                     f"faber {NF}^3 expv_faber m={MF}",
                     "config4 expv_leja tol=1e-12",
                     "config4 expv_faber tol=1e-12",
-                    f"etdrk4_device {NE}^2 m={M_AC}")}}.items():
+                    f"etdrk4_device {NE}^2 m={M_AC}")},
+                **{k: dense_calls[k] for k in (
+                    "config1 expm diagonalization", "config1 expm schur",
+                    "stack 512x128 float64 expm", "stack 512x128 float64 phi",
+                    "stack 32x512 float64 expm")},
+                "matrix_exp stack 512x128 float64":
+                    lambda: torch.linalg.matrix_exp(
+                        dense_stacks[(512, 128, "float64")][0]),
+                "grad config4 expv m=40": dense_calls[
+                    "grad config4 expv m=40"]}.items():
             device_profile(name, fn)
         phase_done("5 profile")
         return 0
@@ -2553,6 +2964,29 @@ def main() -> int:
             t, how = poly_ms[name], "one call, phase 4"
         print(f"time main {name}: {t:.3f} ms ({how}) {card}", flush=True)
 
+    # the dense and gradient path's cells: one-call medians (of 10 after
+    # two warm-ups where phase 4's call took under 1 s, of 3 under 5 s,
+    # else that call); each stack beside torch.linalg.matrix_exp on it and
+    # at the TFLOP/s its degree and squaring count imply
+    for name, fn in dense_calls.items():
+        if dense_ms[name] < 1000:
+            t, how = median_ms(fn), "median of 10"
+        elif dense_ms[name] < 5000:
+            t, how = median_ms(fn, reps=3, warmup=1), "median of 3"
+        else:
+            t, how = dense_ms[name], "one call, phase 4"
+        line = f"time main {name}: {t:.3f} ms ({how})"
+        if name.startswith("stack"):
+            _, shape, dn, what = name.split()
+            b_, n_ = (int(v) for v in shape.split("x"))
+            X = dense_stacks[(b_, n_, dn)][0]
+            fl, how_ = stack_flops(et, X, None if what == "expm" else KS)
+            line += f", {fl / t / 1e9:.2f} TFLOP/s ({how_})"
+            if what == "expm":
+                lib = median_ms(lambda X=X: torch.linalg.matrix_exp(X))
+                line += f"; torch.linalg.matrix_exp {lib:.3f} ms"
+        print(f"{line} {card}", flush=True)
+
     def plain_op(op, fn, is_hermitian=True):
         return et.MatrixFreeOperator(fn, op.shape, dtype=f64,
                                      is_hermitian=is_hermitian, device=dev)
@@ -2660,7 +3094,8 @@ def main() -> int:
         bound_ms, bound_by = bound(*work[(name, "float64")], "float64")
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
                         "replaces": REPLACES[name],
-                        "launches": main_counts[name] + poly_counts[name],
+                        "launches": (main_counts[name] + poly_counts[name]
+                                     + dense_counts[name]),
                         "max_abs_err": kerr[name], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by,

@@ -11,8 +11,10 @@ and storage-free two-pass) actions, the adaptive drivers (Niesen-Wright
 time stepping and KIOPS, each also with the JAX device loop's control
 flow) and the truncated-Taylor expv, the non-Hermitian polynomial actions
 (Leja, Faber) and the exponential integrators (exprb32, exprb43, etdrk4
-and their device forms, with a matrix-free JacobianOperator), and eleven
-hand-written CUDA kernels
+and their device forms, with a matrix-free JacobianOperator), the dense
+layer (every expm method, balancing and gebal, batched stacks, phi and
+the Al-Mohy-Liu phi_pade, Schur-Parlett funm, double-double and mpmath),
+and eleven hand-written CUDA kernels
 for NVIDIA Hopper (``ops/kernels/csrc/``): seven that carry the
 recurrences (B3-var the variable-coefficient sweep) and four SpMV kernels
 behind the sparse containers' matvecs. The JAX package is the reference;
@@ -40,11 +42,18 @@ Sparse           SparseELLOperator, BlockELLOperator, SellOperator,
 Test matrices    laplacian_1d, poisson_2d, laplacian_3d,
                  advection_diffusion_1d
 Transfer         operator_data, from_operator_data, to_torch_operator
-Dense            expm, expm_higham2005, expm_taylor, phi_scalar, phiv_dense
+Dense            expm, expm_higham2005, expm_higham2005_batched,
+                 expm_generic, expm_diagonalization, expm_native,
+                 expm_taylor, balance_matrix, gebal, expm_gebal, phi,
+                 phi_scalar, phi_taylor, phi_taylor_batched, phi_with_info,
+                 phi_pade, phi_pade_with_info, phiv_dense, funm,
+                 funm_schur_parlett
+Extended         expm_mp, expm_dd, DD, phi_dd, phiv_dense_dd, expv_dd
 Krylov           KrylovBasis, lanczos, lanczos_coeffs, lanczos_replay,
                  arnoldi, arnoldi_extend, arnoldi_coeffs, arnoldi_replay,
                  expand_compact_hessenberg
-Actions          expv, expv_from_basis, build_subspace, make_expv, phiv,
+Actions          expv, expv_from_basis, build_subspace, make_expv,
+                 expv_batched, phiv,
                  phiv_from_basis, make_phiv, expv_chebyshev,
                  phiv_chebyshev, funm_chebyshev, phiv_timestep_chebyshev,
                  chebyshev_apply, spectral_bounds
@@ -64,7 +73,8 @@ Integrators      exprb32, exprb43, etdrk4, ExpIntStats, etdrk4_device,
 from .models.chebyshev import (chebyshev_apply, expv_chebyshev, funm_chebyshev,
                                phiv_chebyshev, phiv_timestep_chebyshev,
                                spectral_bounds)
-from .models.expv import build_subspace, expv, expv_from_basis, make_expv
+from .models.expv import (build_subspace, expv, expv_batched, expv_from_basis,
+                          make_expv)
 from .models.faber import (expv_faber, faber_coeffs, fov_ellipse,
                            phiv_faber, phiv_timestep_faber)
 from .models.integrators import (ExpIntStats, etdrk4, etdrk4_device, exprb32,
@@ -80,11 +90,19 @@ from .models.phiv import make_phiv, phiv, phiv_from_basis
 from .models.timestepping import (TimestepStats, expv_timestep,
                                   expv_timestep_fused, make_phiv_timestep,
                                   phiv_timestep, phiv_timestep_fused)
-from .ops.expm import expm, expm_higham2005, expm_taylor
+from .ops.expm import (balance_matrix, expm, expm_diagonalization, expm_gebal,
+                       expm_generic, expm_higham2005, expm_higham2005_batched,
+                       expm_native, expm_taylor, gebal)
+from .ops.expm_dd import DD, expm_dd
+from .ops.expm_mp import expm_mp
+from .ops.funm import funm, funm_schur_parlett
+from .ops.phi_dd import expv_dd, phi_dd, phiv_dense_dd
 from .ops.krylov import (KrylovBasis, arnoldi, arnoldi_coeffs, arnoldi_extend,
                          arnoldi_replay, expand_compact_hessenberg, lanczos,
                          lanczos_coeffs, lanczos_replay)
-from .ops.phi_dense import phi_scalar, phiv_dense
+from .ops.phi_almohy import phi_pade, phi_pade_with_info
+from .ops.phi_dense import (phi, phi_scalar, phi_taylor, phi_taylor_batched,
+                            phi_with_info, phiv_dense)
 from .ops.sparse import (BandedOperator, BlockELLOperator, HybridOperator,
                          SellOperator, SortedSellOperator, SparseELLOperator,
                          banded_from_scipy, blockell_from_scipy,
@@ -114,11 +132,16 @@ __all__ = [
     "hoist_conjugation",
     "laplacian_1d", "poisson_2d", "laplacian_3d", "advection_diffusion_1d",
     "operator_data", "from_operator_data", "to_torch_operator",
-    "expm", "expm_higham2005", "expm_taylor", "phi_scalar", "phiv_dense",
+    "expm", "expm_higham2005", "expm_higham2005_batched", "expm_generic",
+    "expm_diagonalization", "expm_native", "expm_taylor", "balance_matrix",
+    "gebal", "expm_gebal", "funm", "funm_schur_parlett",
+    "expm_mp", "expm_dd", "DD", "phi_dd", "phiv_dense_dd", "expv_dd",
+    "phi", "phi_scalar", "phi_taylor", "phi_taylor_batched",
+    "phi_with_info", "phi_pade", "phi_pade_with_info", "phiv_dense",
     "KrylovBasis", "lanczos", "lanczos_coeffs", "lanczos_replay",
     "arnoldi", "arnoldi_extend", "arnoldi_coeffs", "arnoldi_replay",
     "expand_compact_hessenberg",
-    "expv", "expv_from_basis", "build_subspace", "make_expv",
+    "expv", "expv_from_basis", "build_subspace", "make_expv", "expv_batched",
     "phiv", "phiv_from_basis", "make_phiv",
     "expv_chebyshev", "phiv_chebyshev", "funm_chebyshev",
     "phiv_timestep_chebyshev", "chebyshev_apply", "spectral_bounds",

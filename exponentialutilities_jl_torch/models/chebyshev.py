@@ -279,11 +279,12 @@ def chebyshev_apply(A, b, ucoeffs, bounds, *, fused: bool | None = None):
     coeffs = torch.as_tensor(ucoeffs, device=b.device)
     if coeffs.ndim == 1 and not coeffs.is_complex():
         engine = recurrence_engine(op, b.dtype, fused, device=b.device,
-                                   hermitian=True)
+                                   hermitian=True, operands=(b, coeffs))
         if engine is not None:
             return engine(op, b, chebyshev_rows(coeffs, c, h, b.dtype))
     elif (coeffs.ndim == 2 and fused is not False and not coeffs.is_complex()
-          and resident_multi_ok(op, b.dtype, b.device, coeffs.shape[1])):
+          and resident_multi_ok(op, b.dtype, b.device, coeffs.shape[1],
+                                (b, coeffs))):
         rows = chebyshev_rows(torch.zeros_like(coeffs[:, 0]), c, h, b.dtype)
         return recurrence_apply_resident_multi(op, b, rows, coeffs)
     elif fused:
@@ -464,7 +465,7 @@ def phiv_timestep_chebyshev(ts, A, B, *, bounds=None, tol: float = 1e-7,
     C = C.reshape(len(C), nt, p + 1)
     Cj = _coeffs_to(C, B)
     if (fused is not False and not np.iscomplexobj(C)
-            and resident_multi_ok(op, B.dtype, B.device, nt)):
+            and resident_multi_ok(op, B.dtype, B.device, nt, (B,))):
         from ..ops.kernels.resident import recurrence_apply_resident_multi
 
         rows = chebyshev_rows(torch.zeros_like(Cj[:, 0, 0]), c, h, B.dtype)

@@ -28,9 +28,22 @@ Breakdown is masked, not truncated: trailing basis rows and H entries are
 zero, which makes the reduced matrix block-triangular, so exp(tH) e1 is
 exact for the effective dimension.
 
-Not ported yet, and raising NotImplementedError: ``reduced="host"`` and
-``differentiable=True``; ``expv_batched`` is not ported either (all three
-ROADMAP A6).
+``expv_batched(t, A, B)`` runs ``expv`` on each row of B ((batch, n) ->
+(batch, n)): each column takes the path, kernels included, that its
+scalar call takes (``torch.func.vmap`` cannot enter a raw-pointer kernel).
+
+``differentiable=True`` makes the non-Hermitian reduced exponential the
+form with no host read (``expm_higham2005(differentiable=True)``: masked
+squarings), for ``torch.func`` transforms; the Hermitian path (eigh) has
+no host read anyway. Plain ``torch.autograd`` differentiates every path:
+B7's matvec has a reverse rule (``ops/sparse.py``), and the grad rule of
+``ops/kernels/dispatch.py`` sends a two-pass call that requires grad to
+the plain torch passes.
+
+``reduced="host"`` raises NotImplementedError (ROADMAP A6): the JAX
+package stages the reduced problem on the host only because the TPU has
+no float64 LU; the H100 has one, so the device reduced exponential is
+the port's float64 path.
 """
 
 from __future__ import annotations
@@ -38,7 +51,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.expm import expm_higham2005
-from ..ops.kernels.dispatch import kernel_device_ok
+from ..ops.kernels.dispatch import grad_gate, kernel_device_ok
 from ..ops.krylov import (KrylovBasis, arnoldi, arnoldi_coeffs, arnoldi_replay,
                           expand_compact_hessenberg, lanczos, lanczos_coeffs,
                           lanczos_replay)
@@ -47,7 +60,8 @@ from ..utils.device import action_vector
 from ..utils.linop import LinearOperator, aslinearoperator
 from ..utils.precision import full_precision
 
-__all__ = ["expv", "expv_from_basis", "build_subspace", "make_expv"]
+__all__ = ["expv", "expv_from_basis", "build_subspace", "make_expv",
+           "expv_batched"]
 
 
 def build_subspace(op: LinearOperator, b, m: int, *, tol: float = 1e-7,
@@ -65,12 +79,13 @@ def _t_dtype(t):
     return torch.as_tensor(t).dtype
 
 
-def _exp_reduced_e1(Ks: KrylovBasis, t):
+def _exp_reduced_e1(Ks: KrylovBasis, t, differentiable: bool = False):
     """First column of exp(t H_m) for the masked reduced matrix, (m,).
     Hermitian (real tridiagonal): eigh of H_m; the masked trailing zero
     block is block-diagonal, its eigenvectors have zero first component,
     so e1 excites only the effective leading block. Otherwise
-    ``expm_higham2005(t H_m)[:, 0]``."""
+    ``expm_higham2005(t H_m)[:, 0]`` (its form with no host read when
+    ``differentiable``)."""
     m = Ks.m
     Hm = Ks.H[:m, :m]
     if Ks.hermitian and not Hm.is_complex():
@@ -78,7 +93,8 @@ def _exp_reduced_e1(Ks: KrylovBasis, t):
         cdt = torch.promote_types(Q.dtype, _t_dtype(t))
         return Q.to(cdt) @ (torch.exp(t * w) * Q[0, :].to(cdt))
     return expm_higham2005(
-        t * Hm.to(torch.promote_types(Hm.dtype, _t_dtype(t))))[:, 0]
+        t * Hm.to(torch.promote_types(Hm.dtype, _t_dtype(t))),
+        differentiable=differentiable)[:, 0]
 
 
 @full_precision
@@ -97,13 +113,16 @@ def _device_reduced(reduced):
     if reduced not in (None, "device"):
         raise NotImplementedError(
             f'reduced="{reduced}": only the device reduced exponential is '
-            "ported (ROADMAP A6)")
+            "ported (ROADMAP A6: the JAX package's host staging works "
+            "around the TPU's missing float64 LU)")
 
 
-def expv_from_basis(t, Ks: KrylovBasis, *, reduced: str = "device"):
-    """w = beta V^T exp(tH) e1 from a prebuilt Lanczos or Arnoldi basis."""
+def expv_from_basis(t, Ks: KrylovBasis, *, reduced: str = "device",
+                    differentiable: bool = False):
+    """w = beta V^T exp(tH) e1 from a prebuilt Lanczos or Arnoldi basis
+    (``differentiable``: module doc)."""
     _device_reduced(reduced)
-    return _combine_expv(Ks, _exp_reduced_e1(Ks, t))
+    return _combine_expv(Ks, _exp_reduced_e1(Ks, t, differentiable))
 
 
 def _lanczos_reduced_coeffs(alphas, betas, beta0, t):
@@ -142,7 +161,8 @@ def _expv_two_pass_fused(op, b, t, m: int, tol: float = 1e-7):
 
 
 @full_precision
-def _expv_two_pass_arnoldi(op, b, t, m: int, win: int):
+def _expv_two_pass_arnoldi(op, b, t, m: int, win: int,
+                           differentiable: bool = False):
     """Storage-free non-Hermitian expv: two IOP-Arnoldi passes over a
     (win, n) rolling window (``ops.krylov.arnoldi_coeffs`` /
     ``arnoldi_replay``); the same recurrence as ``expv(iop=win,
@@ -150,7 +170,8 @@ def _expv_two_pass_arnoldi(op, b, t, m: int, win: int):
     Hc, beta0, m_used, broke = arnoldi_coeffs(op, b, m, win)
     H = expand_compact_hessenberg(Hc, win)
     dt = torch.promote_types(H.dtype, _t_dtype(t))
-    expHe = expm_higham2005(t * H[:m, :m].to(dt))[:, 0]
+    expHe = expm_higham2005(t * H[:m, :m].to(dt),
+                            differentiable=differentiable)[:, 0]
     w = arnoldi_replay(op, b, expHe * beta0.to(dt), Hc, m, win)
     return torch.where(beta0 > 0, w, 0.0)
 
@@ -223,12 +244,12 @@ def expv(t, A, b, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
       sqrt(tol); ``return_info=True`` also returns the iterations taken).
     two_pass: the storage-free two-pass forms (module doc), which pick the
       CUDA kernels for real float32/float64 data and real t on a CUDA
-      device when the operator is a supported stencil; non-Hermitian
-      operators need ``iop > 0`` there.
+      device when the operator is a supported stencil and the grad rule
+      lets the call through; non-Hermitian operators need ``iop > 0``
+      there.
+    differentiable: the reduced exponential's form with no host read
+      (module doc).
     """
-    if differentiable:
-        raise NotImplementedError(
-            "differentiable=True is not ported yet (ROADMAP A6)")
     _device_reduced(reduced)
     op = aslinearoperator(A)
     b = action_vector(b, op)
@@ -238,7 +259,8 @@ def expv(t, A, b, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
         # sorted basis (exp commutes with the conjugation)
         out = expv(t, op, b, m=m, tol=tol, iop=iop, mode=mode, reorth=reorth,
                    hermitian=hermitian, atol=atol, rtol=rtol, reduced=reduced,
-                   two_pass=two_pass, return_info=return_info)
+                   two_pass=two_pass, return_info=return_info,
+                   differentiable=differentiable)
         if return_info and isinstance(out, tuple):
             return (post(out[0]),) + out[1:]
         return post(out)
@@ -256,22 +278,27 @@ def expv(t, A, b, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
     if not two_pass:
         return expv_from_basis(t, build_subspace(op, b, m, tol=tol, iop=iop,
                                                  reorth=reorth,
-                                                 hermitian=herm))
+                                                 hermitian=herm),
+                               differentiable=differentiable)
     if not herm:
         if iop <= 0:
             raise ValueError(
                 "non-Hermitian two_pass expv requires an IOP window "
                 "(iop > 0): the rolling-window recurrence is what makes the "
                 "replay storage-free")
-        return _expv_two_pass_arnoldi(op, b, t, m, iop)
+        return _expv_two_pass_arnoldi(op, b, t, m, iop, differentiable)
     from ..ops.kernels.lanczos_fused import fused_supported
     from ..ops.kernels.resident import (expv_two_pass_resident,
                                         resident_supported)
 
     # the kernels replay with real coefficients: complex t keeps the
-    # plain path, whose coefficients promote to complex
+    # plain path, whose coefficients promote to complex; the grad rule
+    # (ops/kernels/dispatch.py) sends a call that autograd must see there
     kernels = (kernel_device_ok(b.dtype, b.device)
-               and not torch.as_tensor(t).is_complex())
+               and not torch.as_tensor(t).is_complex()
+               and (resident_supported(op)
+                    or fused_supported(op, hermitian=True))
+               and not grad_gate(op, (b, t)))
     if kernels and resident_supported(op):
         return expv_two_pass_resident(op, b, t, m, tol=tol)
     if kernels and fused_supported(op, hermitian=True):
@@ -295,3 +322,21 @@ def make_expv(op, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
         return _combine_expv(Ks, _exp_reduced_e1(Ks, t))
 
     return fn
+
+
+def expv_batched(t, A, B, *, m: int = 30, tol: float = 1e-7,
+                 hermitian: bool | None = None, reduced: str | None = None,
+                 two_pass: bool = False, iop: int = 0, reorth: bool = True):
+    """exp(tA) b_i for each row b_i of B (batch, n): one Krylov subspace per
+    row, each through ``expv`` (module doc), so each column takes its scalar
+    call's path and kernels. Returns (batch, n). ``reduced="host"`` raises
+    NotImplementedError, as in ``expv``."""
+    _device_reduced(reduced)
+    op = aslinearoperator(A)
+    B = action_vector(B, op)
+    if B.ndim != 2:
+        raise ValueError(f"expv_batched takes B as (batch, n), got "
+                         f"{tuple(B.shape)}")
+    return torch.stack([
+        expv(t, op, b, m=m, tol=tol, hermitian=hermitian, iop=iop,
+             reorth=reorth, two_pass=two_pass) for b in B.unbind(0)])

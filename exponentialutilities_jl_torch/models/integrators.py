@@ -45,7 +45,7 @@ import math
 import numpy as np
 import torch
 
-from ..ops.expm import expm_higham2005, expm_taylor_masked
+from ..ops.expm import _pow2, expm_higham2005, expm_taylor_masked
 from ..utils.device import action_vector, host_tensor
 from ..utils.linop import JacobianOperator, LinearOperator, aslinearoperator
 from ..utils.precision import full_precision
@@ -360,16 +360,6 @@ def etdrk4(L, N, u0, t_span, dt, *, phi_tol=1e-9, return_trajectory=False,
 # ---------------------------------------------------------------------------
 # The device forms: fixed Krylov size m, solver-free reduced exponentials.
 # ---------------------------------------------------------------------------
-
-
-def _pow2(e, rdt):
-    """2^e for an integer-valued float tensor e, exactly (built from the
-    exponent bits; e clamped to the normal range)."""
-    if rdt == torch.float64:
-        bits = (e.clamp(-1022, 1023).to(torch.int64) + 1023) << 52
-        return bits.view(torch.float64)
-    bits = (e.clamp(-126, 127).to(torch.int32) + 127) << 23
-    return bits.view(torch.float32)
 
 
 def _phi_comb_device(op, B, taus, m: int, iop: int, expm_method: str,

@@ -193,7 +193,7 @@ def _engine(op, b, fused):
     """The recurrence engine for a real non-Hermitian recurrence on b, or
     None for the plain path (``dispatch.recurrence_engine``)."""
     return recurrence_engine(op, b.dtype, fused, device=b.device,
-                             hermitian=False)
+                             hermitian=False, operands=(b,))
 
 
 def _newton_rows(d, xi, c, inv_s):
@@ -210,7 +210,8 @@ def _apply_columns(op, b, rows, cw, apply, fused):
     (m, p) host coefficients. One launch of B4 on a 1-D stencil that
     passes ``resident_multi_ok``, else one engine pass a column."""
     p = rows.shape[0]
-    if fused is not False and resident_multi_ok(op, b.dtype, b.device, p):
+    if fused is not False and resident_multi_ok(op, b.dtype, b.device, p,
+                                                (b,)):
         from ..ops.kernels.resident import recurrence_apply_resident_multi
 
         dev = _host_to(np.concatenate([rows[0], cw], axis=1), b)

@@ -16,9 +16,13 @@ stencil whose k+1 columns pass ``resident_multi_ok`` runs pass 1 in B2
 and pass 2 in one launch of B4 (``phiv_two_pass_resident``); everything
 else takes the plain torch passes.
 
-Not ported yet, and raising NotImplementedError: ``reduced="host"`` and
-``differentiable=True`` (ROADMAP A6); ``two_pass=True`` is Hermitian only,
-as in the JAX package. A ``SortedSellOperator`` is unwrapped on entry
+``differentiable=True`` makes the reduced augmented exponential the form
+with no host read (``phiv_dense(differentiable=True)``), for ``torch.func``
+transforms; plain ``torch.autograd`` differentiates every path, the
+two-pass one through the grad rule of ``ops/kernels/dispatch.py``.
+``reduced="host"`` raises NotImplementedError (ROADMAP A6, as in
+``models/expv.py``); ``two_pass=True`` is Hermitian only, as in the JAX
+package. A ``SortedSellOperator`` is unwrapped on entry
 (``hoist_conjugation``), as in the JAX ``phiv``: the solve runs in the
 sorted basis and only the result is permuted back. A numpy ``b`` goes to
 the operator's device.
@@ -71,15 +75,17 @@ def _phiv_combine(t, Ks: KrylovBasis, C2, k: int, correct: bool):
 
 
 def phiv_from_basis(t, Ks: KrylovBasis, k: int, *, correct: bool = False,
-                    reduced: str = "device"):
+                    reduced: str = "device", differentiable: bool = False):
     """(w, err) from a prebuilt Lanczos or Arnoldi basis: w the (n, k+1)
-    matrix of phi_j(tA)b columns, err the error estimate of phi_k."""
+    matrix of phi_j(tA)b columns, err the error estimate of phi_k
+    (``differentiable``: module doc)."""
     _device_reduced(reduced)
-    return _phiv_combine(t, Ks, _reduced_phi(t, Ks.H, k), k, correct)
+    return _phiv_combine(t, Ks, _reduced_phi(
+        t, Ks.H, k, differentiable=differentiable), k, correct)
 
 
 def _reduced_phi(t, H, k: int, *, expm_method: str = "higham2005",
-                hnorm: float | None = None):
+                hnorm: float | None = None, differentiable: bool = False):
     """The (m, k+1) reduced phi columns phi_j(t H_m) e1 of an (m+1, m)
     Hessenberg H (``phiv_dense`` on the augmented matrix). ``hnorm``: the
     1-norm of H_m on the host, which spares the exponential its read (the
@@ -90,7 +96,8 @@ def _reduced_phi(t, H, k: int, *, expm_method: str = "higham2005",
     e1 = torch.eye(m, dtype=dt, device=Hm.device)[0]
     onenorm = (None if hnorm is None
                else max(abs(t) * hnorm, 1.0) if k else abs(t) * hnorm)
-    return phiv_dense(Hm, e1, k, expm_method=expm_method, onenorm=onenorm)
+    return phiv_dense(Hm, e1, k, expm_method=expm_method, onenorm=onenorm,
+                      differentiable=differentiable)
 
 
 def make_phiv(op, k: int, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
@@ -120,11 +127,10 @@ def phiv(t, A, b, k: int, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
     iop, reorth: the Arnoldi window and CGS2 of a non-Hermitian operator.
     two_pass: the storage-free two-pass Lanczos (module doc; Hermitian
       only), which picks the CUDA kernels B2 and B4 for a 1-D constant
-      stencil.
+      stencil when the grad rule lets the call through.
+    differentiable: the reduced exponential's form with no host read
+      (module doc).
     """
-    if differentiable:
-        raise NotImplementedError(
-            "differentiable=True is not ported yet (ROADMAP A6)")
     _device_reduced(reduced)
     op = aslinearoperator(A)
     b = action_vector(b, op)
@@ -134,14 +140,16 @@ def phiv(t, A, b, k: int, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
         # phi_k commutes with the conjugation)
         out = phiv(t, op, b, k, m=m, tol=tol, iop=iop, correct=correct,
                    errest=errest, reorth=reorth, hermitian=hermitian,
-                   reduced=reduced, two_pass=two_pass)
+                   reduced=reduced, two_pass=two_pass,
+                   differentiable=differentiable)
         return (post(out[0]), out[1]) if errest else post(out)
     m = min(m, op.shape[0])
     herm = op.is_hermitian if hermitian is None else hermitian
     if not two_pass:
         Ks = build_subspace(op, b, m, tol=tol, iop=iop, reorth=reorth,
                             hermitian=herm)
-        w, err = phiv_from_basis(t, Ks, k, correct=correct)
+        w, err = phiv_from_basis(t, Ks, k, correct=correct,
+                                 differentiable=differentiable)
     elif not herm:
         raise NotImplementedError(
             "two_pass phiv requires a Hermitian operator (Lanczos)")
@@ -152,14 +160,16 @@ def phiv(t, A, b, k: int, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
         # the kernels replay with real coefficients: complex t keeps the
         # plain passes
         if (not torch.as_tensor(t).is_complex()
-                and resident_multi_ok(op, b.dtype, b.device, k + 1)):
+                and resident_multi_ok(op, b.dtype, b.device, k + 1,
+                                      (b, t))):
             w, err = phiv_two_pass_resident(op, b, t, m, k, tol=tol)
         else:
-            w, err = _phiv_two_pass(op, b, t, m, k)
+            w, err = _phiv_two_pass(op, b, t, m, k, differentiable)
     return (w, err) if errest else w
 
 
-def _two_pass_reduced(alphas, betas, beta0, m_used, t, k: int, dt):
+def _two_pass_reduced(alphas, betas, beta0, m_used, t, k: int, dt,
+                      differentiable: bool = False):
     """Reduced stage of every two-pass phiv: (C2, err) with C2 (m, k+1)
     the phi columns of the recorded tridiagonal t T (``phiv_dense``) and
     err the error estimate |beta0 h t C2[last, k]|."""
@@ -167,7 +177,7 @@ def _two_pass_reduced(alphas, betas, beta0, m_used, t, k: int, dt):
     T = (torch.diag(alphas) + torch.diag(betas[:-1], 1)
          + torch.diag(betas[:-1], -1)).to(dt)
     e1 = torch.eye(m, dtype=dt, device=T.device)[0]
-    C2 = phiv_dense(t * T, e1, k)
+    C2 = phiv_dense(t * T, e1, k, differentiable=differentiable)
     last = torch.clamp_min(m_used - 1, 0)
     h_res = torch.where(m_used < m, betas[torch.clamp_max(m_used, m - 1)],
                         betas[m - 1]).to(dt)
@@ -175,7 +185,7 @@ def _two_pass_reduced(alphas, betas, beta0, m_used, t, k: int, dt):
 
 
 @full_precision
-def _phiv_two_pass(op, b, t, m: int, k: int):
+def _phiv_two_pass(op, b, t, m: int, k: int, differentiable: bool = False):
     """Storage-free Hermitian phi-actions on the plain torch passes
     (``ops.krylov.lanczos_coeffs`` / ``lanczos_replay``): (w (n, k+1),
     err) without the (m+1, n) basis."""
@@ -183,7 +193,8 @@ def _phiv_two_pass(op, b, t, m: int, k: int):
 
     alphas, betas, beta0, m_used, broke = lanczos_coeffs(op, b, m)
     dt = torch.promote_types(b.dtype, torch.as_tensor(t).dtype)
-    C2, err = _two_pass_reduced(alphas, betas, beta0, m_used, t, k, dt)
+    C2, err = _two_pass_reduced(alphas, betas, beta0, m_used, t, k, dt,
+                                differentiable)
     w = lanczos_replay(op, b, C2 * beta0.to(dt), alphas, betas, m)
     live = beta0 > 0
     return torch.where(live, w, 0.0), torch.where(live, err, 0.0)

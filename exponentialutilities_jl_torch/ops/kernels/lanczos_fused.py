@@ -53,6 +53,7 @@ import torch
 from ..sparse import _promoted
 from ..stencil import StencilOperator, VariableStencilOperator, stencil_apply
 from . import _build
+from .dispatch import refuse_grad
 
 __all__ = ["fused_supported", "fused_lanczos_step", "fused_sweep_ref",
            "sweep_stage_ref", "lanczos_coeffs_fused", "lanczos_replay_fused",
@@ -314,6 +315,7 @@ def fused_lanczos_step(Z, Vc, Vp, coefs, op, *, w_accum=None):
         Y, Zn, moments = fused_sweep_ref(Z, Vc, Vp, coefs, op.grid_shape,
                                          op.offsets, cvals, w_accum)
         return _step_result(Y, Zn, moments, w_accum)
+    refuse_grad("fused_lanczos_step (B3)", op, coefs, *vecs)
     if coefs.device != dev:
         raise ValueError("coefficients and vectors must share one device")
     if not all(v.is_contiguous() for v in vecs):
@@ -372,6 +374,7 @@ def _lanczos_sweeps(op, b, m: int, tol: float, coeffs=None, *, what):
     betas = torch.empty(m, dtype=dt, device=dev)
     cvals = _cvals(op, dt)
     if plan.kernel:
+        refuse_grad(f"{what} (B3)", op, b, coeffs)
         state = plan.state
         state.copy_(plan.state0)
         stream = _build.raw_stream(v0.device)
@@ -428,6 +431,7 @@ def stencil_matvec_fused(op, x):
     if not plan.kernel:
         return fused_sweep_ref(x, zeros, zeros, _unit(plan, x), op.grid_shape,
                                op.offsets, cvals)[1]
+    refuse_grad("stencil_matvec_fused (B3)", op, x)
     Y, Zn = torch.empty_like(x), torch.empty_like(x)
     plan.sweep(x, zeros, zeros, plan.unit.data_ptr(), cvals, Y, Zn, None,
                _build.raw_stream(x.device))
@@ -450,6 +454,7 @@ def recurrence_apply_fused(op, b, rows):
     W = torch.zeros_like(b)
     cvals = _cvals(op, b.dtype)
     if plan.kernel:
+        refuse_grad("recurrence_apply_fused (B3)", op, b, rows)
         stream = _build.raw_stream(b.device)
         Ys = [torch.empty_like(b) for _ in range(3)]
         Zs = [torch.empty_like(b) for _ in range(2)]

@@ -72,6 +72,7 @@ import torch
 from ..sparse import BandedOperator
 from ..stencil import StencilOperator, stencil_apply
 from . import _build
+from .dispatch import refuse_grad
 from .spmv import banded_spmv_ref
 
 __all__ = ["recurrence_apply_resident", "resident_recurrence",
@@ -1011,6 +1012,7 @@ def resident_recurrence(op, x, rows, scale=1.0):
     _require_device(x, "resident_recurrence")
     rows = _as_rows(rows, x)
     if x.device.type == "cuda":
+        refuse_grad("resident_recurrence (B1)", op, x, rows, scale)
         return recurrence_plan(op, x.dtype, x.device)(x, rows, scale)
     s = (scale.to(device=x.device, dtype=x.dtype).reshape(())
          if isinstance(scale, torch.Tensor)
@@ -1043,6 +1045,7 @@ def recurrence_apply_resident_multi(op, b, rows, cw):
     if b.device.type == "cpu":
         return resident_multi_ref(b, rows, cw, op.coeffs.to(b.dtype),
                                   _flat_offsets(op))
+    refuse_grad("recurrence_apply_resident_multi (B4)", op, b, rows, cw)
     return multi_plan(op, b.dtype, b.device)(b, rows, cw)
 
 
@@ -1058,6 +1061,7 @@ def recurrence_apply_resident_banded(op, b, rows):
     rows = _as_rows(rows, b)
     if b.device.type == "cpu":
         return resident_banded_ref(b, rows, op.diags.to(b.dtype), op.offsets)
+    refuse_grad("recurrence_apply_resident_banded (B5)", op, b, rows)
     return banded_plan(op, b.dtype, b.device)(b, rows)
 
 
@@ -1076,6 +1080,7 @@ def recurrence_apply_resident_grid(op, b, rows):
     if b.device.type == "cpu":
         return resident_grid_ref(b, rows, op.grid_shape, op.offsets,
                                  op.coeffs.to(b.dtype))
+    refuse_grad("recurrence_apply_resident_grid (B6)", op, b, rows)
     return grid_plan(op, b.dtype, b.device)(b, rows)
 
 
@@ -1090,6 +1095,7 @@ def resident_lanczos(op, v0, m: int, tol: float):
     if v0.device.type == "cpu":
         return resident_lanczos_ref(v0, op.coeffs.to(v0.dtype),
                                     _flat_offsets(op), int(m), float(tol))
+    refuse_grad("resident_lanczos (B2)", op, v0)
     return lanczos_plan(op, v0.dtype, v0.device)(v0, m, tol)
 
 

@@ -92,8 +92,11 @@ def _arnoldi_step(op, V, H, j: int, win: int, tol: float, reorth: bool,
     max(0, j - win + 1) .. j. Returns (broke, m_used)."""
     rdt = _real_dtype(V.dtype)
     lo = max(0, j - win + 1)
-    Vw = V[lo:j + 1]
-    y = op.matvec(V[j]).to(V.dtype)
+    Vw, vj = V[lo:j + 1], V[j]
+    if V.requires_grad:
+        # the later steps write V in place: autograd must save copies
+        Vw, vj = Vw.clone(), vj.clone()
+    y = op.matvec(vj).to(V.dtype)
     h = Vw.conj() @ y
     y = y - h @ Vw
     if reorth:
@@ -191,12 +194,15 @@ def lanczos(op, b, m: int, *, tol: float = 1e-7,
         nrm = _norm(y, rdt)
         now_broke = nrm < tol
         active = ~broke
+        beta = torch.where(active, nrm, 0.0)
         alphas[j] = torch.where(active, alpha, 0.0)
-        betas[j] = torch.where(active, nrm, 0.0)
+        betas[j] = beta
         vnext = torch.where(active & ~now_broke, _safe_normalize(y, nrm), 0.0)
         V[j + 1] = vnext
         m_used = torch.where(active, j + 1, m_used).to(torch.int32)
-        vp, vc, bprev, broke = vc, vnext, betas[j], broke | now_broke
+        # beta, not the view betas[j]: the next step writes betas in place,
+        # which would void the view that autograd saved
+        vp, vc, bprev, broke = vc, vnext, beta, broke | now_broke
     m_used = torch.where(beta0 == 0, 0, m_used).to(torch.int32)
 
     H = torch.zeros((m + 1, m), dtype=rdt, device=b.device)

@@ -29,11 +29,26 @@ launches its kernel or raises (an operator stored in another dtype than
 that casts its storage once, on first use, and keeps the copy); any other
 dtype (complex) takes the plain
 torch path through the dtype gate ``dispatch.kernel_device_ok``, and CPU
-tensors take the plain twins. A vector wrapped by a ``torch.func``
-transform goes through ``_KernelMatvec``, whose forward-mode rule launches
-the same kernel on the tangent, so ``torch.func.jvp`` and
-``JacobianOperator`` work over the kernel matvecs. The host packers are
-the JAX package's own (``utils/native.py``).
+tensors take the plain twins. A kernel matvec that autograd must see (grad
+mode on and x or the storage requires grad, or either wrapped by a
+``torch.func`` transform) goes through ``_KernelMatvec``:
+
+* forward mode: the same kernel on the tangent, so ``torch.func.jvp`` and
+  ``JacobianOperator`` work over the kernel matvecs (B7 adds the plain
+  twin's product of a diagonals tangent);
+* reverse mode, B7 (``BandedOperator``): the x-gradient A^H g is one B7
+  launch on the adjoint storage (offsets -o_k, diagonal k shifted by o_k,
+  built once per operator and dtype and kept like the plans), and the
+  diagonals' gradient dD[k, i] = g_i x_{i+o_k} is plain torch;
+* reverse mode, B8, B9 (and B10 under a segmented pack): the x-gradient of
+  a Hermitian container (A^H = A) is the same kernel on g. A non-Hermitian
+  container's x-gradient raises NotImplementedError in the backward pass,
+  and storage that requires grad raises NotImplementedError at the
+  product, naming the container (the JAX package's Pallas SpMVs have no
+  VJP either). ``SortedSellOperator`` and ``HybridOperator`` compose their
+  parts' rules.
+
+The host packers are the JAX package's own (``utils/native.py``).
 """
 
 from __future__ import annotations
@@ -42,6 +57,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..utils.device import action_vector, host_tensor
 from ..utils.linop import LinearOperator
@@ -64,29 +80,79 @@ def _kernel(op_dtype, x):
 
 
 class _KernelMatvec(torch.autograd.Function):
-    """y = A x through a kernel, for autograd: A does not depend on x, so
-    the forward-mode tangent is the same matvec of the tangent vector.
-    ``matvec`` is the container's own method, so the tangent (a wrapped
-    tensor under ``torch.func.jvp``) comes back here and reaches the
-    kernel unwrapped. Reverse mode is not defined."""
+    """y = A x through a container's kernel, seen by autograd (module doc).
+    ``op`` is the container, ``storage`` the tensor whose gradient it
+    defines (B7's diagonals) or None. The forward calls
+    ``op._kernel_matvec(x, storage)``, which lands here again while x or the
+    storage is still wrapped by an outer ``torch.func`` transform, and
+    launches the kernel on plain tensors. The rules are the container's
+    ``_kernel_vjp`` and ``_storage_jvp``."""
 
     @staticmethod
-    def forward(x, matvec):
-        return matvec(x)
+    def forward(x, op, storage):
+        return op._kernel_matvec(x, storage)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.matvec = inputs[1]
+        x, op, storage = inputs
+        ctx.op, ctx.storage = op, storage
+        ctx.save_for_backward(x, storage)
+        ctx.save_for_forward(x)
 
     @staticmethod
-    def jvp(ctx, x_t, _):
-        return ctx.matvec(x_t)
+    def backward(ctx, g):
+        x, storage = ctx.saved_tensors
+        gx, gs = ctx.op._kernel_vjp(x, storage, g, ctx.needs_input_grad[0],
+                                    ctx.needs_input_grad[2])
+        return gx, None, gs
+
+    @staticmethod
+    def jvp(ctx, x_t, _, s_t):
+        out = None
+        if x_t is not None:
+            out = ctx.op._kernel_matvec(x_t, ctx.storage)
+        if s_t is not None:
+            (x,) = ctx.saved_tensors
+            ds = ctx.op._storage_jvp(x, s_t)
+            out = ds if out is None else out + ds
+        return out
 
 
 def _traced(x) -> bool:
     """x is wrapped by a ``torch.func`` transform (a primal or tangent
-    under ``jvp``), whose state a kernel's raw pointer would drop."""
+    under ``jvp``, a tracked tensor under ``grad``), whose state a kernel's
+    raw pointer would drop."""
     return torch._C._functorch.is_functorch_wrapped_tensor(x)
+
+
+def _graph_wanted(*tensors) -> bool:
+    """Autograd must see a product of these tensors (None entries
+    skipped): one is wrapped by a ``torch.func`` transform, or grad mode is
+    on and one requires grad."""
+    ts = [t for t in tensors if t is not None]
+    return (any(_traced(t) for t in ts)
+            or (torch.is_grad_enabled() and any(t.requires_grad for t in ts)))
+
+
+def _refuse_storage_grad(op, storage, kernel: str):
+    """B8/B9 define no gradient of their storage: refuse a product that
+    would silently drop it."""
+    if _graph_wanted(storage):
+        raise NotImplementedError(
+            f"{type(op).__name__}: the gradient of its storage through the "
+            f"kernel matvec ({kernel}) is not defined; only the x-gradient "
+            "of a Hermitian container is (the JAX package's Pallas SpMVs "
+            "have no VJP either)")
+
+
+def _hermitian_vjp(op, g, kernel: str):
+    """A^H g = A g on the container's kernel (the x-gradient of B8, B9)."""
+    if not op.is_hermitian:
+        raise NotImplementedError(
+            f"{type(op).__name__}: reverse mode through the kernel matvec "
+            f"({kernel}) needs A^H, which the kernel computes only for a "
+            "Hermitian container (is_hermitian=True)")
+    return op._kernel_matvec(g, None)
 
 
 def _promoted(op, attr, dt):
@@ -229,10 +295,18 @@ class BlockELLOperator(LinearOperator):
         kern, rt = _kernel(self.dtype, x)
         if not kern:
             return blockell_spmv_ref(self.blocks, self.bcols, x)
-        if _traced(x):
-            return _KernelMatvec.apply(x, self.matvec)
+        _refuse_storage_grad(self, self.blocks, "B8")
+        return self._kernel_matvec(x, None)
+
+    def _kernel_matvec(self, x, _):
+        if _graph_wanted(x):
+            return _KernelMatvec.apply(x, self, None)
+        rt = torch.promote_types(self.dtype, x.dtype)
         return blockell_spmv(_promoted(self, "blocks", rt), self.bcols,
                              x.to(rt))
+
+    def _kernel_vjp(self, x, _, g, need_x, need_storage):
+        return _hermitian_vjp(self, g, "B8").to(x.dtype), None
 
     def opnorm_hint(self):
         return self.blocks.abs().sum(dim=(1, 3)).max()      # (nbr, br) sums
@@ -342,9 +416,68 @@ class BandedOperator(LinearOperator):
         kern, rt = _kernel(self.dtype, x)
         if not kern:
             return banded_spmv_ref(self.diags, self.offsets, x)
-        if _traced(x):
-            return _KernelMatvec.apply(x, self.matvec)
-        return self.plan(rt, x.device)(x.to(rt))
+        return self._kernel_matvec(x, self.diags)
+
+    def _kernel_matvec(self, x, D):
+        """A(D) x on B7; through ``_KernelMatvec`` when autograd must see
+        it. D is the operator's diagonals (their plan) or, under a
+        ``torch.func`` transform, their unwrapped value (a plan of its
+        own)."""
+        if _graph_wanted(x, D):
+            return _KernelMatvec.apply(x, self, D)
+        rt = torch.promote_types(D.dtype, x.dtype)
+        if D is self.diags:
+            return self.plan(rt, x.device)(x.to(rt))
+        return BandedPlan(D.to(rt), self.offsets, rt, x.device)(x.to(rt))
+
+    def _kernel_vjp(self, x, D, g, need_x, need_D):
+        """(A^H g, dD): A^H g by one B7 launch on the adjoint storage;
+        dD[k, i] = g_i x_{i+o_k} (zero where i + o_k leaves [0, n)) in
+        plain torch."""
+        gx = gD = None
+        if need_x:
+            gx = self.adjoint(D).matvec(g).to(x.dtype)
+        if need_D:
+            n = x.shape[0]
+            h = max((abs(o) for o in self.offsets), default=0)
+            rt = torch.promote_types(D.dtype, x.dtype)
+            xe = F.pad(x.to(rt).conj(), (h, h))
+            gD = torch.stack([g.to(rt) * xe[h + o:h + o + n]
+                              for o in self.offsets]).to(D.dtype)
+        return gx, gD
+
+    def _storage_jvp(self, x, D_t):
+        return banded_spmv_ref(D_t, self.offsets, x)
+
+    def adjoint(self, D=None):
+        """A^H as a ``BandedOperator``: (A^H)[j, j - o] = conj(A[j - o, j]),
+        so offsets -o_k and diagonal k shifted by o_k, zero where it
+        leaves the vector. Built from the diagonals ``D`` (the operator's
+        own by default); kept per dtype and device with the diagonals, their
+        version and the offsets it was built from, except while autograd
+        must see D (then it is built anew, on D's graph)."""
+        D = self.diags if D is None else D
+        if _graph_wanted(D):
+            return self._build_adjoint(D)
+        cache = self.__dict__.setdefault("_adjoints", {})
+        key = (D.dtype, D.device)
+        hit = cache.get(key)
+        if (hit is None or hit[0] is not D or hit[1] != D._version
+                or hit[2] != self.offsets):
+            hit = cache[key] = (D, D._version, self.offsets,
+                                self._build_adjoint(D.detach()))
+        return hit[3]
+
+    def _build_adjoint(self, D):
+        n = D.shape[1]
+        rows = []
+        for k, o in enumerate(self.offsets):
+            d = D[k].conj()
+            rows.append(F.pad(d[:max(n - o, 0)], (min(o, n), 0)) if o >= 0
+                        else F.pad(d[min(-o, n):], (0, min(-o, n))))
+        Dh = torch.stack(rows) if rows else D.clone()
+        return BandedOperator(Dh, [-o for o in self.offsets],
+                              is_hermitian=self.is_hermitian)
 
     def plan(self, dtype, device):
         """B7's ``BandedPlan`` for vectors of the compute dtype ``dtype`` on
@@ -477,9 +610,19 @@ class SellOperator(LinearOperator):
         if not kern:
             return (sell_spmv_seg_ref if isinstance(self.data, SellSeg)
                     else sell_spmv_ref)(self.data, x)
-        if _traced(x):
-            return _KernelMatvec.apply(x, self.matvec)
+        d = self.data
+        _refuse_storage_grad(self, (d.base if isinstance(d, SellSeg)
+                                    else d).vals, "B9")
+        return self._kernel_matvec(x, None)
+
+    def _kernel_matvec(self, x, _):
+        if _graph_wanted(x):
+            return _KernelMatvec.apply(x, self, None)
+        rt = torch.promote_types(self.dtype, x.dtype)
         return launch_plan(_promoted(self, "data", rt))(x.to(rt))
+
+    def _kernel_vjp(self, x, _, g, need_x, need_storage):
+        return _hermitian_vjp(self, g, "B9").to(x.dtype), None
 
     def opnorm_hint(self):
         """max_i sum_j |A_ij|: the row sums of |A| as |A| applied to ones."""

@@ -1456,3 +1456,65 @@ def test_fixed_step_integrators_are_sync_free(dev):
                                       m=12), torch.float64)
     _close(ur.cpu(), et.exprb43_device(f_cpu, u0.cpu(), (0.0, 0.02), 0.01,
                                        m=12), torch.float64)
+
+
+# --- reverse mode through the kernel matvecs, the grad rule, DD bits
+
+def test_b7_reverse_rule_vs_twin(dev):
+    """B7's reverse rule (one B7 launch on the adjoint storage for the
+    x-gradient, plain torch for the diagonals'): gradients of an expv
+    through the kernel equal the plain twin's autograd at 1e-12."""
+    n = 2000
+    op0 = et.advection_diffusion_1d(n, peclet=10.0, device=dev)
+    b0 = _vec(n, torch.float64, dev, 40)
+
+    def grads(kernel_dev):
+        D = op0.diags.to(kernel_dev).clone().requires_grad_()
+        b = b0.to(kernel_dev).clone().requires_grad_()
+        op = et.BandedOperator(D, op0.offsets)
+        w = et.expv(1e-6, op, b, m=40, hermitian=False)
+        return torch.autograd.grad((w ** 2).sum(), (D, b))
+
+    _build.reset_launch_counts()
+    gk = grads(dev)
+    assert _build.launches["banded_spmv"] == 2 * 40
+    gp = grads("cpu")
+    for a, b in zip(gk, gp):
+        _close(a.cpu(), b, torch.float64)
+
+
+def test_sell_hermitian_x_gradient_through_b9(dev):
+    import scipy.sparse as sp
+    n = 3000
+    R = sp.random(n, n, density=0.002, random_state=5)
+    S = (R + R.T + sp.identity(n) * 4).tocsr()
+    op = et.SellOperator.from_scipy(S, dtype=np.float64, device=dev,
+                                    is_hermitian=True)
+    x = _vec(n, torch.float64, dev, 41).requires_grad_()
+    g = _vec(n, torch.float64, dev, 42)
+    _build.reset_launch_counts()
+    (gx,) = torch.autograd.grad(op.matvec(x), x, g)
+    assert _build.launches["sell_spmv"] == 2
+    want = torch.as_tensor(S.T @ g.cpu().numpy())
+    _close(gx.cpu(), want, torch.float64)
+
+
+def test_grad_rule_skips_recurrence_kernels(dev):
+    op = et.laplacian_nd_stencil(4096, dtype=torch.float64, device=dev)
+    b = _vec(4096, torch.float64, dev, 43).requires_grad_()
+    _build.reset_launch_counts()
+    w = et.expv_chebyshev(0.5, op, b)
+    (g,) = torch.autograd.grad((w ** 2).sum(), b)
+    assert sum(_build.launches.values()) == 0
+    opc = et.laplacian_nd_stencil(4096, dtype=torch.float64, device="cpu")
+    bc = b.detach().cpu().requires_grad_()
+    (gc,) = torch.autograd.grad((et.expv_chebyshev(0.5, opc, bc) ** 2).sum(),
+                                bc)
+    _close(g.cpu(), gc, torch.float64)
+
+
+def test_dd_bits_card_equal_cpu(dev):
+    A = np.random.default_rng(44).standard_normal((24, 24)) / 4
+    Xc = et.expm_dd(torch.as_tensor(A, device="cpu"))
+    Xd = et.expm_dd(torch.as_tensor(A, device=dev))
+    assert torch.equal(Xd.hi.cpu(), Xc.hi) and torch.equal(Xd.lo.cpu(), Xc.lo)

@@ -62,20 +62,23 @@ def test_expm_float32_and_complex(fn, norm):
 
 
 def test_expm_front_door_rejects():
+    """What the front door still rejects; every method, stacked input and
+    balance=True run (ported in the dense-layer slice; their parity tests
+    are in tests/test_torch_dense.py)."""
     A = torch.as_tensor(_mat(1.0))
     for method in ("generic", "diagonalization", "native", "schur", "gebal"):
-        with pytest.raises(NotImplementedError, match="A3"):
-            et.expm(A, method=method)
+        assert_close(t2n(et.expm(A, method=method)), sla.expm(t2n(A)),
+                     RTOL_SCIPY, method)
     with pytest.raises(ValueError):
         et.expm(A, method="nope")
     with pytest.raises(TypeError):
         et.expm(et.laplacian_1d(8))
-    with pytest.raises(NotImplementedError, match="A3"):
-        et.expm(torch.stack([A, A]))
+    S = t2n(et.expm(torch.stack([A, A])))
+    assert_close(S[1], sla.expm(t2n(A)), RTOL_SCIPY, "stacked")
     with pytest.raises(ValueError):
         et.expm(A[:, :5])
-    with pytest.raises(NotImplementedError, match="A3"):
-        et.expm_higham2005(A, balance=True)
+    assert_close(t2n(et.expm_higham2005(A, balance=True)), sla.expm(t2n(A)),
+                 RTOL_SCIPY, "balance=True")
 
 
 def test_phi_scalar_vs_jax():

@@ -171,8 +171,10 @@ def test_not_ported_paths_raise():
         et.expv(0.5, nonherm, b, two_pass=True)
     with pytest.raises(NotImplementedError, match="Hermitian"):
         et.expv(0.5, nonherm, b, mode="error_estimate")
-    with pytest.raises(NotImplementedError, match="A6"):
-        et.expv(0.5, top, b, differentiable=True)
+    # differentiable=True is ported (the reduced exponential's form with
+    # no host read): the same result
+    assert_close(t2n(et.expv(0.5, nonherm, b, differentiable=True)),
+                 t2n(et.expv(0.5, nonherm, b)), RTOL64, "differentiable")
     with pytest.raises(NotImplementedError, match="A6"):
         et.expv(0.5, top, b, reduced="host")
     with pytest.raises(ValueError):

@@ -1,0 +1,60 @@
+"""PyTorch port vs JAX package and scipy: ``expv_batched`` (models/expv.py)
+on the CPU in float64. The port runs each row through ``expv`` with the
+device reduced exponential; the JAX batched tests (tests/test_krylov.py)
+use reduced="host", so the port is held to the JAX reduced="host" result
+and to scipy's expm_multiply, at the JAX tests' tolerances."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import scipy.sparse.linalg as spla
+import torch
+
+import exponentialutilities_jl_tpu as ej
+import exponentialutilities_jl_torch as et
+from torch_parity import assert_close, t2n
+
+torch.set_num_threads(2)
+
+
+def _batch(n, nb, seed):
+    return np.random.default_rng(seed).standard_normal((nb, n))
+
+
+@pytest.mark.parametrize("two_pass", [False, True])
+def test_hermitian_batch_vs_jax_host_and_scipy(two_pass):
+    n = 64
+    A = ej.laplacian_1d(n)
+    At = et.laplacian_1d(n)
+    B = _batch(n, 3, 1)
+    t = 0.4
+    W = t2n(et.expv_batched(t, At, torch.as_tensor(B), m=30,
+                            two_pass=two_pass))
+    Wj = np.asarray(ej.expv_batched(t, A, jnp.asarray(B), m=30,
+                                    reduced="host", two_pass=two_pass))
+    assert W.shape == (3, n)
+    S = sp.csr_matrix(np.asarray(A.to_dense()))
+    for i in range(3):
+        assert_close(W[i], spla.expm_multiply(t * S, B[i]), 1e-10,
+                     f"row {i} vs scipy")
+    assert_close(W, Wj, 1e-12, "vs JAX reduced=host")
+
+
+def test_nonhermitian_batch_and_rejects():
+    n = 40
+    A = np.asarray(ej.advection_diffusion_1d(n, peclet=5.0).to_dense())
+    B = _batch(n, 2, 2)
+    W = t2n(et.expv_batched(0.01, torch.as_tensor(A), torch.as_tensor(B),
+                            m=n, hermitian=False))
+    Wj = np.asarray(ej.expv_batched(0.01, jnp.asarray(A), jnp.asarray(B),
+                                    m=n, hermitian=False, reduced="host"))
+    assert_close(W, Wj, 1e-11, "vs JAX reduced=host")
+    for i in range(2):
+        assert_close(W[i], spla.expm_multiply(0.01 * A, B[i]), 1e-10,
+                     f"row {i} vs scipy")
+    with pytest.raises(NotImplementedError, match="A6"):
+        et.expv_batched(0.01, torch.as_tensor(A), torch.as_tensor(B),
+                        reduced="host")
+    with pytest.raises(ValueError):
+        et.expv_batched(0.01, torch.as_tensor(A), torch.as_tensor(B[0]))

@@ -151,8 +151,10 @@ def test_phiv_zero_start_and_rejects():
         et.phiv(t, nonherm, bt, K, two_pass=True)
     with pytest.raises(NotImplementedError, match="A6"):
         et.phiv(t, top, bt, K, reduced="host")
-    with pytest.raises(NotImplementedError, match="A6"):
-        et.phiv(t, top, bt, K, differentiable=True)
+    # differentiable=True is ported: the reduced exponential's form with
+    # no host read, the same result
+    assert_close(t2n(et.phiv(t, top, bt, K, differentiable=True)),
+                 t2n(et.phiv(t, top, bt, K)), RTOL64, "differentiable")
     # CPU data never reaches a kernel: demanding one is a ValueError
     with pytest.raises(ValueError):
         et.phiv_chebyshev(t, top, bt, K, fused=True)
