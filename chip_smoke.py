@@ -1127,6 +1127,523 @@ def dense_grad_path(et, dev, card, A1np, op1, opP, opS):
     return counts, cells, ms, stacks
 
 
+# ---- the fourth path: the distributed layer on this one card ----
+# parallel/ on torch.distributed: P = 2 and 4 ranks sharing cuda:0 over
+# gloo (each a subprocess of this script that loads the kernels the parent
+# built), then one NCCL rank, then two NCCL ranks on one card (refused).
+# These are no scaling numbers: the ranks time-share one card, and gloo
+# stages every halo and psum through the host.
+SHARD_WORLDS = (2, 4)
+SHARD_DEVICE = "cuda:0"  # every rank's tensors: the one card
+SHARD_TIMEOUT = 420      # seconds a rank may take before the run fails
+SHARD_REPS = 5           # CUDA-event median of each sharded call (rank 0)
+# sharded vs the single-device port on the same card: the summation order
+# of the reductions only (CPU parity: tests/test_torch_parallel.py and
+# test_torch_stencil_fused_sharded.py hold them to 1e-12 as well)
+MTOL_SHARD = 1e-12
+
+
+class SlabAxis:
+    """A mesh axis of ``size`` ranks with no process group: all that a
+    rank's ``FusedShardPlan`` reads to lay out its extended slab (phase 3
+    builds the fourth path's slabs with it; no collective runs)."""
+
+    def __init__(self, size, device):
+        self.size, self.device = size, device
+
+    def axis_size(self):
+        return self.size
+
+
+def slab_plans(et, dt, dev, opV):
+    """Every extended slab that the fourth path sweeps, as (label, plan,
+    the slab's operator), from the port's own plan classes: for P in
+    SHARD_WORLDS, config #5's 7-point Laplacian and the variable operator
+    on N3/P + 2 planes, the Faber advection stencil on NF/P + 2, and the
+    2-D NG^2 Laplacian as the (NG/P + 2, 1, NG) grid with offsets (dy, 0,
+    dx). The variable slab takes the fields of the global operator's first
+    N3/P + 2 planes (rank 0's rows and its upper halo)."""
+    from exponentialutilities_jl_torch.parallel import stencil_fused as sf
+
+    lap3 = et.laplacian_nd_stencil(N3, N3, N3, dtype=dt, device=dev)
+    adv = et.advection_diffusion_3d_stencil(NF, NF, NF, peclet=10.0,
+                                            dtype=dt, device=dev)
+    lap2 = et.laplacian_nd_stencil(NG, NG, dtype=dt, device=dev)
+    out = []
+    for P in SHARD_WORLDS:
+        ax = SlabAxis(P, dev)
+        for label, plan in ((f"{N3}^3 7-point", sf.FusedShardPlan(lap3, ax)),
+                            (f"{NF}^3 advection (Faber)",
+                             sf.FusedShardPlan(adv, ax)),
+                            (f"{NG}^2 5-point as 3-D",
+                             sf.FusedShardPlan2D(lap2, ax))):
+            out.append((f"P={P} {label}", plan, plan.ext))
+        pv = sf.FusedShardPlanVar(opV, ax)
+        F = opV.coeff_fields[:, :pv.sze * pv.plane]
+        out.append((f"P={P} {N3}^3 div(a grad u)", pv,
+                    et.VariableStencilOperator(pv.ext_shape, pv.ext_offsets,
+                                               F, opV.is_hermitian)))
+    return out
+
+
+def slab_checks(et, dev, dt, tol, opV, gen):
+    """Phase 3: B3 and B3-var on every slab of ``slab_plans`` with its
+    interior plane range [h0, h0 + sz), accumulating and plain, against the
+    plain twin on the same inputs: Y, Zn, W and the moments within ``tol``,
+    the plain and accumulating moments bit for bit equal; Y, Zn and W bit
+    for bit those of the call without a range, and the explicit whole
+    range bit for bit the default. One line per slab."""
+    import torch
+
+    from exponentialutilities_jl_torch.ops.kernels import lanczos_fused as tf
+
+    dn = str(dt).split(".")[-1]
+    for label, plan, ext in slab_plans(et, dt, dev, opV):
+        kname = "B3-var" if isinstance(ext, et.VariableStencilOperator) \
+            else "B3"
+        n, zr = ext.shape[0], plan.z_range
+        Z, Vc, Vp, W = (torch.as_tensor(gen.standard_normal(n), dtype=dt,
+                                        device=dev) for _ in range(4))
+        co = torch.tensor([0.3, -0.7, 0.2, 0.45], dtype=dt, device=dev)
+        co3 = co[:3].contiguous()
+        W1, W2, W3 = W.clone(), W.clone(), W.clone()
+        Y, Zn, ypy, yzy, _ = tf.fused_lanczos_step(Z, Vc, Vp, co, ext,
+                                                   w_accum=W1, z_range=zr)
+        Yp, Znp, ypp, yzp = tf.fused_lanczos_step(Z, Vc, Vp, co3, ext,
+                                                  z_range=zr)
+        Yr, Znr, momr = tf.fused_sweep_ref(Z, Vc, Vp, co, plan.ext_shape,
+                                           plan.ext_offsets,
+                                           tf._cvals(ext, dt), W2,
+                                           z_range=zr)
+        mom, momp = torch.stack([ypy, yzy]), torch.stack([ypp, yzp])
+        errs = [rel_max(a, b) for a, b in ((Y, Yr), (Zn, Znr), (W1, W2),
+                                           (mom, momr), (Yp, Yr), (Znp, Znr),
+                                           (momp, momr))]
+        check(max(errs) <= tol, f"{kname} {dn} slab {label} with planes "
+              f"{zr}: {errs}")
+        check(torch.equal(mom, momp), f"{kname} {dn} slab {label}: plain "
+              "and accumulating moments differ")
+        Yd, Znd, _, _, _ = tf.fused_lanczos_step(Z, Vc, Vp, co, ext,
+                                                 w_accum=W3)
+        check(torch.equal(Y, Yd) and torch.equal(Zn, Znd)
+              and torch.equal(W1, W3), f"{kname} {dn} slab {label}: the "
+              "plane range changed Y, Zn or W")
+        full = tf.fused_lanczos_step(Z, Vc, Vp, co3, ext,
+                                     z_range=(0, plan.sze))
+        dflt = tf.fused_lanczos_step(Z, Vc, Vp, co3, ext)
+        check(torch.equal(torch.stack(full[2:]), torch.stack(dflt[2:])),
+              f"{kname} {dn} slab {label}: the whole range differs from "
+              "the default")
+        print(f"kernel {kname} {dn} slab {label} {plan.ext_shape}, moments "
+              f"over planes {zr}: max rel err {max(errs):.2e} vs the twin "
+              f"(tol {tol:g}; Y, Zn, W, moments, accumulating and plain); "
+              "plain and accumulating moments bitwise equal; Y, Zn, W bit "
+              "for bit the call without a range; the whole range bit for "
+              "bit the default", flush=True)
+        del Z, Vc, Vp, W, W1, W2, W3, Y, Zn, Yp, Znp, Yr, Znr, Yd, Znd
+
+
+def shard_inputs(et, dev, var_device):
+    """The fourth path's operators and vectors, the same in the parent and
+    in every rank: from SEED + 14 in one fixed order. The variable
+    operator's fields live on ``var_device`` (a rank keeps them on the
+    host; its plan moves its rows to the card)."""
+    import torch
+
+    gen = np.random.default_rng(SEED + 14)
+
+    def v(n):
+        return torch.as_tensor(gen.standard_normal(n), device=dev)
+
+    aV = np.random.default_rng(SEED).uniform(0.5, 2.0, (N3, N3, N3))
+    ins = {"op3": et.laplacian_nd_stencil(N3, N3, N3, device=dev),
+           "opV": et.variable_diffusion_nd_stencil(aV, device=var_device),
+           "opF": et.advection_diffusion_3d_stencil(NF, NF, NF, peclet=10.0,
+                                                    device=dev),
+           "opG": et.laplacian_nd_stencil(NG, NG, device=dev),
+           "op1": et.laplacian_nd_stencil(N1, device=dev),
+           "opP": et.poisson_2d(NP, NP, device=dev),
+           "opL": bench_leja_stencil(et, NL, torch.float64, dev)}
+    for name, n in (("b3", N3 ** 3), ("bV", N3 ** 3), ("bF", NF ** 3),
+                    ("bG", NG * NG), ("b1", N1), ("bP", NP * NP),
+                    ("bL", NL)):
+        ins[name] = v(n)
+    return ins
+
+
+def shard_cells(et, ins, boundsV):
+    """{cell: (single-device call, sharded call(mesh, b_local) -> this
+    rank's rows (or (rows, err)), input name, expected launches per rank,
+    expected collectives per rank)}. Counts from the parameters: a
+    two-pass m = 20 is 2(m + 1) sweeps, 4(m + 1) stages, 2(m + 2) psums and
+    halo exchanges; a recurrence of M rows M + 1 sweeps and M + 2
+    exchanges (+1 for B3-var's fields); the plain Lanczos 1 + 2m psums and
+    m exchanges; Leja q m exchanges, no psum."""
+    from exponentialutilities_jl_torch import parallel as par
+    from exponentialutilities_jl_torch.models import chebyshev as tc
+    from exponentialutilities_jl_torch.models import faber as tfb
+    from exponentialutilities_jl_torch.models import leja as tl
+
+    op3, opV, opF, opG = ins["op3"], ins["opV"], ins["opF"], ins["opG"]
+    op1, opP, opL = ins["op1"], ins["opP"], ins["opL"]
+    M3 = len(tc._full_exp_coeffs(T3, *op3.spectral_bounds_hint(), 1e-12,
+                                 None)[0])
+    MV = len(tc._full_exp_coeffs(T3, *boundsV, 1e-12, None)[0])
+    _, _, _, gF, _ = tfb._resolve_ellipse(opF, None)
+    tF = ZF / gF
+    qF, mF = (lambda s: (s[4], s[5]))(tfb._faber_expv_setup(
+        opF, tF, None, 1e-7, MF, 512.0))
+    dL, _, _, _, qL = tl._leja_expv_setup(opL, TL, None, 1e-7, None, 40.0)
+    tp = {"fused_sweep": 42, "sweep_stage": 84}
+    cp = {"psum": 44, "ppermute": 44}
+
+    def step_call(mesh, b):
+        step, params = par.make_expv_step(opP, mesh, m=30)
+        return step(TP, params, b)
+
+    return {
+        f"{N3}^3 two-pass m=20": (
+            lambda: et.expv(T3, op3, ins["b3"], m=20, two_pass=True),
+            lambda mesh, b: par.expv_sharded(T3, op3, b, mesh, m=20,
+                                             two_pass=True),
+            "b3", tp, cp),
+        f"{N3}^3 cheb": (
+            lambda: et.expv_chebyshev(T3, op3, ins["b3"], tol=1e-12),
+            lambda mesh, b: par.expv_chebyshev_sharded(T3, op3, b, mesh,
+                                                       tol=1e-12),
+            "b3", {"fused_sweep": M3 + 1}, {"ppermute": M3 + 2}),
+        f"{N3}^3 variable cheb": (
+            lambda: et.expv_chebyshev(T3, opV, ins["bV"], tol=1e-12),
+            lambda mesh, b: par.expv_chebyshev_sharded(
+                T3, opV, b, mesh, bounds=boundsV, tol=1e-12),
+            "bV", {"fused_sweep_var": MV + 1}, {"ppermute": MV + 3}),
+        f"{NF}^3 faber m={MF}": (
+            lambda: et.expv_faber(tF, opF, ins["bF"], m=MF),
+            lambda mesh, b: par.expv_faber_sharded(tF, opF, b, mesh, m=MF),
+            "bF", {"fused_sweep": qF * (mF + 1)},
+            {"ppermute": qF * (mF + 2), "psum": 1}),
+        f"{NG}^2 two-pass m=20": (
+            lambda: et.expv(TG, opG, ins["bG"], m=20, two_pass=True),
+            lambda mesh, b: par.expv_sharded(TG, opG, b, mesh, m=20,
+                                             two_pass=True),
+            "bG", tp, cp),
+        "config2 expv m=40": (
+            lambda: et.expv(T1, op1, ins["b1"], m=40),
+            lambda mesh, b: par.expv_sharded(T1, op1, b, mesh, m=40),
+            "b1", {}, {"psum": 81, "ppermute": 40}),
+        f"config3 phiv k={K} m=30": (
+            lambda: et.phiv(TP, opP, ins["bP"], K, m=30, errest=True),
+            lambda mesh, b: par.phiv_sharded(TP, opP, b, K, mesh, m=30),
+            "bP", {}, {"psum": 61, "ppermute": 30}),
+        "config3 make_expv_step m=30": (
+            lambda: et.expv(TP, opP, ins["bP"], m=30), step_call,
+            "bP", {}, {"psum": 61, "ppermute": 30}),
+        f"leja n={NL}": (
+            lambda: et.expv_leja(TL, opL, ins["bL"], fused=False),
+            lambda mesh, b: par.expv_leja_sharded(TL, opL, b, mesh),
+            "bL", {}, {"ppermute": qL * len(dL)}),
+    }
+
+
+def shard_rank_main(args) -> int:
+    """One rank of the fourth path (``--shard-rank``): join the group
+    (file store in ``--shard-dir``), run every cell on this rank's rows
+    and write ``rank<R>.json``: errors against the parent's references,
+    launches and collectives per cell, the replicated scalars in hex,
+    rank 0's CUDA-event medians."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    import exponentialutilities_jl_torch as et
+    from exponentialutilities_jl_torch import parallel as par
+    from exponentialutilities_jl_torch.models import expv as tx
+    from exponentialutilities_jl_torch.ops.kernels import _build
+    from exponentialutilities_jl_torch.ops.kernels import lanczos_fused as tf
+    from exponentialutilities_jl_torch.parallel import stencil_fused as sf
+
+    d, r, P, mode = args.shard_dir, args.shard_rank, args.shard_world, \
+        args.shard_mode
+    dev = torch.device(SHARD_DEVICE)
+    torch.cuda.set_device(dev)
+    out = {"rank": r}
+    par.initialize_distributed(f"file://{d}/store-{mode}-{P}", P, r, 0,
+                               backend="gloo" if mode == "gloo" else "nccl")
+    if mode == "nccl-dup":
+        # two NCCL ranks on one card: the mesh refuses, and so does NCCL
+        try:
+            par.make_mesh(device=dev)
+            out["mesh"] = None
+        except ValueError as e:
+            out["mesh"] = str(e)
+        try:
+            t = torch.ones(1, device=dev)
+            dist.all_reduce(t)
+            torch.cuda.synchronize()
+            out["nccl"] = None
+        except Exception as e:
+            out["nccl"] = f"{type(e).__name__}: {e}"
+        with open(os.path.join(d, f"dup_rank{r}.json"), "w") as f:
+            json.dump(out, f)
+        os._exit(0)
+    mesh = par.make_mesh(device=dev)
+    with open(os.path.join(d, "meta.json")) as f:
+        meta = json.load(f)
+    ins = shard_inputs(et, dev, "cpu")
+    cells = shard_cells(et, ins, tuple(meta["boundsV"]))
+    if mode == "nccl":
+        cells = {k: v for k, v in cells.items() if k.endswith("two-pass m=20")
+                 and k.startswith(f"{N3}^3")}
+    res = out["cells"] = {}
+    for i, (name, (_, sharded, bname, _, _)) in enumerate(cells.items()):
+        b = ins[bname]
+        nl = b.shape[0] // P
+        bl = b[r * nl:(r + 1) * nl].contiguous()
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        mesh.reset_census()
+        w = sharded(mesh, bl)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _build.launches.items() if v}
+        census = {k: v for k, v in mesh.census["shard"].items() if v}
+        err = None
+        if isinstance(w, tuple):
+            w, err = w
+            err = float(err).hex()
+        ref = torch.load(os.path.join(d, f"ref{i}.pt"), mmap=True)
+        ref = ref[r * nl:(r + 1) * nl].to(dev)
+        c = {"launches": launches, "census": census, "err": err,
+             "finite": bool(torch.isfinite(w).all()),
+             "diff": float((w - ref).abs().max()),
+             "scale": float(ref.abs().max())}
+        if os.path.exists(os.path.join(d, f"oracle{i}.pt")):
+            orc = torch.load(os.path.join(d, f"oracle{i}.pt"), mmap=True)
+            orc = orc[r * nl:(r + 1) * nl].to(dev)
+            col = w[:, 0] if w.ndim == 2 else w
+            c["oracle_sq"] = float(((col - orc) ** 2).sum())
+            c["oracle_norm_sq"] = float((orc ** 2).sum())
+        res[name] = c
+    # the replicated scalars and the replay (216^3 two-pass), and the
+    # sync-free check on the NCCL rank
+    op3 = ins["op3"]
+    nl = op3.shape[0] // P
+    b3l = ins["b3"][r * nl:(r + 1) * nl].contiguous()
+    plan = sf.fused_shard_plan(op3, mesh, hermitian=True)
+    sync = mode == "nccl"
+    torch.cuda.synchronize()
+    if sync:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        a, bt, b0, mu, _ = sf.lanczos_coeffs_fused_sharded(plan, b3l, 20)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    co = tx._lanczos_reduced_coeffs(a, bt, b0, T3)     # eigh: one sync
+    torch.cuda.synchronize()
+    if sync:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        a2, bt2 = sf._lanczos_sharded(plan, b3l, 0, 1e-7, co)[:2]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out["scalars"] = [float(x).hex() for x in torch.cat([a, bt, b0[None]])]
+    out["replay_equal"] = bool(torch.equal(a, a2) and torch.equal(bt, bt2))
+    out["sync_free"] = sync
+    # rank 0's CUDA-event medians (every rank runs every call: the
+    # collectives keep them in step), and the share of a sharded pass 1
+    # that is not the sweeps: the same sweeps and stages on the rank's
+    # extended slab with no collective, all ranks at once
+    times = out["ms"] = {}
+
+    def med(fn, reps):
+        ts = []
+        for _ in range(reps):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            ts.append(s.elapsed_time(e))
+        return statistics.median(ts)
+
+    for name, (_, sharded, bname, _, _) in cells.items():
+        b = ins[bname]
+        nl = b.shape[0] // P
+        bl = b[r * nl:(r + 1) * nl].contiguous()
+        reps = 3 if name.startswith("leja") else SHARD_REPS
+        times[name] = med(lambda: sharded(mesh, bl), reps)
+    v_ext = plan.to_ext(b3l / 1.0)
+    times["pass1 sharded"] = med(
+        lambda: sf.lanczos_coeffs_fused_sharded(plan, b3l, 20), SHARD_REPS)
+    times["pass1 slab alone"] = med(
+        lambda: tf.lanczos_coeffs_fused(plan.ext, v_ext, 20), SHARD_REPS)
+    with open(os.path.join(d, f"rank{r}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(d, mode, world):
+    """Start ``world`` ranks of this script (``--shard-rank``) and wait;
+    any rank's failure or timeout fails the run (every rank is killed)."""
+    import os
+
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--shard-rank", str(r),
+         "--shard-world", str(world), "--shard-dir", d, "--shard-mode",
+         mode], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    errs = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                _, err = p.communicate(timeout=SHARD_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                errs.append(f"rank {r} of {world} ({mode}) timed out")
+                break
+            if p.returncode != 0:
+                errs.append(f"rank {r} of {world} ({mode}) exited "
+                            f"{p.returncode}: {err[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    check(not errs, "; ".join(errs))
+
+
+def sharded_path(et, dev, card):
+    """The fourth path (module doc): references from the single-device
+    port on this card, then the ranks; every check printed on its own
+    line. Returns (launches summed over every rank of every run,
+    {(world, cell): rank 0's ms}, {cell: single-device call})."""
+    import os
+    import shutil
+    import tempfile
+
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    import torch
+
+    from exponentialutilities_jl_torch.ops.kernels import _build
+
+    t0 = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="eu_shard_")
+    try:
+        ins = shard_inputs(et, dev, dev)
+        boundsV = ins["opV"].spectral_bounds_hint()
+        with open(os.path.join(d, "meta.json"), "w") as f:
+            json.dump({"boundsV": list(boundsV)}, f)
+        cells = shard_cells(et, ins, boundsV)
+        A1 = sp.diags([np.ones(N1 - 1), -2 * np.ones(N1), np.ones(N1 - 1)],
+                      [-1, 0, 1], format="csr")
+        AP = banded_csr(ins["opP"])
+        oracles = {"config2 expv m=40": spla.expm_multiply(
+            T1 * A1, ins["b1"].cpu().numpy())}
+        oracles[f"config3 phiv k={K} m=30"] = spla.expm_multiply(
+            TP * AP, ins["bP"].cpu().numpy())
+        oracles["config3 make_expv_step m=30"] = \
+            oracles[f"config3 phiv k={K} m=30"]
+        singles = {}
+        for i, (name, (single, _, _, _, _)) in enumerate(cells.items()):
+            w = single()
+            singles[name] = single
+            if isinstance(w, tuple):
+                w = w[0]
+            if name.startswith("leja"):
+                wPl = w
+            torch.save(w.cpu(), os.path.join(d, f"ref{i}.pt"))
+            if name in oracles:
+                torch.save(torch.as_tensor(oracles[name]),
+                           os.path.join(d, f"oracle{i}.pt"))
+        wB1 = et.expv_leja(TL, ins["opL"], ins["bL"])       # B1's path
+        print(f"sharded path inputs and references: "
+              f"{time.perf_counter() - t0:.1f} s; leja n={NL}: the plain "
+              f"path vs B1's {rel_max(wPl, wB1):.2e}", flush=True)
+        del wB1, wPl
+        torch.cuda.empty_cache()
+        counts = {k: 0 for k in _build.launches}
+        ms = {}
+        for mode, world in [("gloo", P) for P in SHARD_WORLDS] + [("nccl",
+                                                                   1)]:
+            t1 = time.perf_counter()
+            run_ranks(d, mode, world)
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(d, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            tag = f"P={world} {mode}"
+            for name, c0 in ranks[0]["cells"].items():
+                _, _, _, want_l, want_c = cells[name]
+                for rk in ranks:
+                    c = rk["cells"][name]
+                    check(c["finite"], f"{tag} {name}: non-finite rows")
+                    check(c["launches"] == want_l,
+                          f"{tag} {name} rank {rk['rank']}: launches "
+                          f"{c['launches']} != {want_l}")
+                    check(c["census"] == want_c,
+                          f"{tag} {name} rank {rk['rank']}: collectives "
+                          f"{c['census']} != {want_c}")
+                    for k, v in c["launches"].items():
+                        counts[k] += v
+                e = (max(rk["cells"][name]["diff"] for rk in ranks)
+                     / max(rk["cells"][name]["scale"] for rk in ranks))
+                check(e <= MTOL_SHARD, f"{tag} {name} vs single-device "
+                      f"{e:.2e}")
+                line = (f"check sharded {tag} {name}: vs the single-device "
+                        f"port {e:.2e} (tol {MTOL_SHARD:g}); launches "
+                        f"{c0['launches']} and collectives {c0['census']} "
+                        "on every rank")
+                if "oracle_sq" in c0:
+                    eo = math.sqrt(sum(rk["cells"][name]["oracle_sq"]
+                                       for rk in ranks)
+                                   / sum(rk["cells"][name]["oracle_norm_sq"]
+                                         for rk in ranks))
+                    check(eo <= MTOL_SCIPY64, f"{tag} {name} vs scipy "
+                          f"{eo:.2e}")
+                    line += (f"; vs scipy expm_multiply {eo:.2e} "
+                             f"(tol {MTOL_SCIPY64:g})")
+                if c0["err"] is not None:
+                    check(all(rk["cells"][name]["err"] == c0["err"]
+                              for rk in ranks), f"{tag} {name}: err differs "
+                          "between ranks")
+                    line += "; err bit-identical across ranks"
+                print(line, flush=True)
+            check(all(rk["scalars"] == ranks[0]["scalars"] for rk in ranks),
+                  f"{tag}: alpha, beta, beta0 differ between ranks")
+            check(all(rk["replay_equal"] for rk in ranks),
+                  f"{tag}: the replay's alpha, beta differ from pass 1's")
+            print(f"check sharded {tag} {N3}^3 two-pass: alpha, beta, beta0 "
+                  "bit-identical across ranks; the replay's alpha and beta "
+                  "equal pass 1's on every rank"
+                  + ("; pass 1 and the replay ran under sync debug mode "
+                     "'error'" if mode == "nccl" else ""), flush=True)
+            for name, t in ranks[0]["ms"].items():
+                ms[(tag, name)] = t
+            sh = 1.0 - (ranks[0]["ms"]["pass1 slab alone"]
+                        / ranks[0]["ms"]["pass1 sharded"])
+            ms[(tag, "staging share")] = sh
+            print(f"sharded {tag}: {time.perf_counter() - t1:.1f} s (ranks "
+                  "started, run and checked)", flush=True)
+        # two NCCL ranks on this one card: the mesh raises, NCCL refuses
+        run_ranks(d, "nccl-dup", 2)
+        for r in range(2):
+            with open(os.path.join(d, f"dup_rank{r}.json")) as f:
+                dup = json.load(f)
+            check(dup["mesh"] is not None and "share one device"
+                  in dup["mesh"], f"NCCL mesh of two ranks on one card did "
+                  f"not raise: {dup}")
+            print(f"check NCCL two ranks on one card, rank {r}: make_mesh "
+                  f"raised ({dup['mesh']}); NCCL itself: "
+                  f"{(dup['nccl'] or 'no error').splitlines()[-1]}",
+                  flush=True)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return counts, ms, singles
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port's main path "
                                  "on one NVIDIA GPU (module doc).")
@@ -1134,6 +1651,11 @@ def main() -> int:
                     help="after phase 4, profile the sparse, variable and "
                     "non-Hermitian main-path cells instead of timing "
                     "(phase 5)")
+    # one rank of the fourth path, started by this script itself
+    ap.add_argument("--shard-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--shard-world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--shard-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--shard-mode", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -1141,6 +1663,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.shard_rank is not None:
+        return shard_rank_main(args)
 
     import exponentialutilities_jl_torch as et
     from exponentialutilities_jl_torch.models import chebyshev as tc
@@ -1438,6 +1962,10 @@ def main() -> int:
             print(f"kernel B3-var {dname[dt]} {label} plain+accum: max rel "
                   f"err {max(errs):.2e} (tol {tol:g}), bitwise moments ok",
                   flush=True)
+        # B3 and B3-var on every extended slab of the fourth path, with
+        # the interior plane range, against the twin (slab_checks)
+        slab_checks(et, dev, dt, tol, opV[dt],
+                    np.random.default_rng(SEED + 15))
         del op
         # B4: p = 4 accumulators over one omega chain, 1-D n = 1e5
         op = ops1(dt)
@@ -2369,6 +2897,14 @@ def main() -> int:
         check(dense_counts[k] > 0, f"kernel {k} never launched on the "
               "dense and gradient path")
 
+    # the fourth path: the distributed layer, ranks sharing this card
+    shard_counts, shard_ms, shard_singles = sharded_path(et, dev, card)
+    print(f"launches of the sharded path (every rank of every run): "
+          f"{ {k: v for k, v in shard_counts.items() if v} }", flush=True)
+    for k in ("fused_sweep", "fused_sweep_var", "sweep_stage"):
+        check(shard_counts[k] > 0, f"kernel {k} never launched on the "
+              "sharded path")
+
     # the kernel-driving passes make no host syncs
     lo, hi = op3[f64].spectral_bounds_hint()
     full3, _, _ = tc._full_exp_coeffs(T3, lo, hi, 1e-12, None)
@@ -3072,6 +3608,25 @@ def main() -> int:
             p = median_ms(plain_calls[name])
             line += f", plain path {p:.3f} ms"
         print(f"{line} {card}", flush=True)
+    # the fourth path: rank 0's CUDA-event medians (measured while the
+    # ranks ran, P processes time-sharing this card, gloo staging through
+    # the host: no scaling numbers) beside the single-device call
+    for name, single in shard_singles.items():
+        t1 = median_ms(single, reps=5, warmup=1)
+        for tag in sorted({tg for tg, _ in shard_ms}):
+            if (tag, name) in shard_ms:
+                reps = 3 if name.startswith("leja") else SHARD_REPS
+                print(f"time sharded {tag} {name}: {shard_ms[(tag, name)]:.3f}"
+                      f" ms (rank 0, median of {reps}); single-device "
+                      f"{t1:.3f} ms {card}", flush=True)
+    for tag in sorted({tg for tg, _ in shard_ms}):
+        print(f"time sharded {tag} {N3}^3 pass 1 m=20: "
+              f"{shard_ms[(tag, 'pass1 sharded')]:.3f} ms, the same sweeps "
+              "on the rank's slab alone "
+              f"{shard_ms[(tag, 'pass1 slab alone')]:.3f} ms: the halo "
+              "exchanges and psums take "
+              f"{shard_ms[(tag, 'staging share')]:.1%} of a step {card}",
+              flush=True)
     # the adaptive drivers: up to hundreds of ms a call, so a median of 5
     # after one warm-up
     for name, fn in {**drv_calls,
@@ -3095,7 +3650,8 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
                         "replaces": REPLACES[name],
                         "launches": (main_counts[name] + poly_counts[name]
-                                     + dense_counts[name]),
+                                     + dense_counts[name]
+                                     + shard_counts[name]),
                         "max_abs_err": kerr[name], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by,

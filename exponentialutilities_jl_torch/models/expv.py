@@ -66,13 +66,14 @@ __all__ = ["expv", "expv_from_basis", "build_subspace", "make_expv",
 
 def build_subspace(op: LinearOperator, b, m: int, *, tol: float = 1e-7,
                    iop: int = 0, reorth: bool = True,
-                   hermitian: bool | None = None) -> KrylovBasis:
+                   hermitian: bool | None = None, comm=None) -> KrylovBasis:
     """Lanczos factorization of a Hermitian operator, Arnoldi of any
-    other (the reference's auto-switch on ``ishermitian``)."""
+    other (the reference's auto-switch on ``ishermitian``). ``comm``: the
+    ``parallel.MeshAxis`` that b's rows are sharded over, or None."""
     herm = op.is_hermitian if hermitian is None else hermitian
     if herm:
-        return lanczos(op, b, m, tol=tol)
-    return arnoldi(op, b, m, iop=iop, tol=tol, reorth=reorth)
+        return lanczos(op, b, m, tol=tol, comm=comm)
+    return arnoldi(op, b, m, iop=iop, tol=tol, reorth=reorth, comm=comm)
 
 
 def _t_dtype(t):
@@ -138,13 +139,14 @@ def _lanczos_reduced_coeffs(alphas, betas, beta0, t):
 
 
 @full_precision
-def _expv_two_pass(op, b, t, m: int):
+def _expv_two_pass(op, b, t, m: int, comm=None):
     """Storage-free Hermitian expv on the plain torch passes
     (``ops.krylov.lanczos_coeffs`` / ``lanczos_replay``): 2m matvecs,
-    O(n) memory."""
-    alphas, betas, beta0, m_used, broke = lanczos_coeffs(op, b, m)
+    O(n) memory; ``comm`` as in ``build_subspace``."""
+    alphas, betas, beta0, m_used, broke = lanczos_coeffs(op, b, m,
+                                                         comm=comm)
     coeffs = _lanczos_reduced_coeffs(alphas, betas, beta0, t)
-    out = lanczos_replay(op, b, coeffs, alphas, betas, m)
+    out = lanczos_replay(op, b, coeffs, alphas, betas, m, comm=comm)
     return torch.where(beta0 > 0, out, 0.0)
 
 

@@ -185,16 +185,20 @@ def _two_pass_reduced(alphas, betas, beta0, m_used, t, k: int, dt,
 
 
 @full_precision
-def _phiv_two_pass(op, b, t, m: int, k: int, differentiable: bool = False):
+def _phiv_two_pass(op, b, t, m: int, k: int, differentiable: bool = False,
+                   comm=None):
     """Storage-free Hermitian phi-actions on the plain torch passes
     (``ops.krylov.lanczos_coeffs`` / ``lanczos_replay``): (w (n, k+1),
-    err) without the (m+1, n) basis."""
+    err) without the (m+1, n) basis; ``comm`` as in
+    ``models.expv.build_subspace``."""
     from ..ops.krylov import lanczos_coeffs, lanczos_replay
 
-    alphas, betas, beta0, m_used, broke = lanczos_coeffs(op, b, m)
+    alphas, betas, beta0, m_used, broke = lanczos_coeffs(op, b, m,
+                                                         comm=comm)
     dt = torch.promote_types(b.dtype, torch.as_tensor(t).dtype)
     C2, err = _two_pass_reduced(alphas, betas, beta0, m_used, t, k, dt,
                                 differentiable)
-    w = lanczos_replay(op, b, C2 * beta0.to(dt), alphas, betas, m)
+    w = lanczos_replay(op, b, C2 * beta0.to(dt), alphas, betas, m,
+                       comm=comm)
     live = beta0 > 0
     return torch.where(live, w, 0.0), torch.where(live, err, 0.0)

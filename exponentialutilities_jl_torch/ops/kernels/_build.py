@@ -112,7 +112,7 @@ def _declare(lib):
         for name in (f"eu_fused_sweep_{suf}", f"eu_fused_sweep_var_{suf}"):
             f = getattr(lib, name)
             f.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
-                          _I, _I, _VP, _VP, _VP, _VP, _LL, _VP]
+                          _I, _I, _VP, _VP, _VP, _VP, _LL, _I, _I, _VP]
             f.restype = _I
         f = getattr(lib, f"eu_fused_sweep_capacity_{suf}")
         f.argtypes = [_VP, _I, _I, _I, _I]

@@ -14,8 +14,16 @@
 //        B3:     Zn_i = sum_j c_j       y_{i + o_j}
 //        B3-var: Zn_i = sum_j C[j, i]   y_{i + o_j}   (field read at the
 //                                                       OUTPUT cell i)
-//   moments = (sum y*y, sum y*Zn)
+//   moments = (sum y*y, sum y*Zn)   over the output planes [z0, z1)
 //   accum:  W += cw Vc  (in place)
+//
+// The moment plane range [z0, z1) defaults to the whole grid, where every
+// cell adds its terms in the same order as before the range existed, so a
+// single-device sweep's moments are unchanged bit for bit. The sharded
+// sweeps (parallel/stencil_fused.py) run the sweep on a rank's slab
+// extended by h0 halo planes at each end and sum the moments over the
+// interior planes [h0, h0 + sz) only: the halo planes belong to the
+// neighbouring ranks, whose moments count them.
 //
 // Bound on the H100: device-memory bytes. B3 reads Z, Vc, Vp (and W) once
 // and writes Y, Zn (and W) once: 5n values (7n with accum); B3-var adds its
@@ -84,6 +92,7 @@ constexpr int kCa = 0, kCb = 1, kCc = 2, kCw = 3, kBetaPrev = 4, kBroke = 5,
 
 struct SweepGeom {
   int nz, ny, nx, cz, ty, tx, hz, hy, hx;
+  int mz0, mz1;                      // moment plane range [mz0, mz1)
 };
 
 // Shared memory of one block, in values: the y ring and (accum) the Vc
@@ -285,8 +294,10 @@ fused_sweep_kernel(const T* __restrict__ Z, const T* __restrict__ Vc,
         const T yv = yc[t];
         Y[g] = yv;
         Zn[g] = zn;
-        s_yy = fma(yv, yv, s_yy);
-        s_yz = fma(yv, zn, s_yz);
+        if (zo >= G.mz0 && zo < G.mz1) {
+          s_yy = fma(yv, yv, s_yy);
+          s_yz = fma(yv, zn, s_yz);
+        }
         if (ACCUM) W[g] = fma(cw, vring[(size_t)cs * pl + t], sW[l]);
       }
     }
@@ -374,7 +385,7 @@ inline int sweep_geom(const int* offs, int k, int nz, int ny, int nx, int cz, in
   if (ty * tx > (var ? 1 : kTilePer) * kThreads ||
       (ty + 2 * hy) * (tx + 2 * hx) > kHaloPer * kThreads)
     return (int)cudaErrorInvalidValue;
-  *G = SweepGeom{nz, ny, nx, cz, ty, tx, hz, hy, hx};
+  *G = SweepGeom{nz, ny, nx, cz, ty, tx, hz, hy, hx, 0, nz};
   const int kf = var && elem == 4 ? std::min(k, kFieldStage) : 0;
   smem[0] = sweep_smem_values(*G, false, kf) * elem;
   smem[1] = sweep_smem_values(*G, true, kf) * elem;
@@ -457,7 +468,8 @@ int launch_stage(const T* partials, int nblocks, T* moments, T* state, T* alphas
 }
 
 // One sweep: the constant form when `fields` is null (reads cvals), the
-// variable form otherwise (reads the (k, n) fields, row-major). The
+// variable form otherwise (reads the (k, n) fields, row-major), with the
+// moments summed over the output planes [z0, z1) (0 <= z0 <= z1 <= nz). The
 // coefficients (ca, cb, cc[, cw]) are read from `coefs` on the device. The
 // second stage is its own host call (launch_stage), so the host prepares it
 // while the sweep runs.
@@ -465,14 +477,17 @@ template <typename T>
 int launch_sweep(const T* Z, const T* Vc, const T* Vp, const T* coefs, const T* cvals,
                  const T* fields, const int* offs, int k, int nz, int ny, int nx, int cz,
                  int ty, int tx, T* Y, T* Zn, T* W, T* partials, long long partials_cap,
-                 cudaStream_t stream) {
+                 int z0, int z1, cudaStream_t stream) {
   if ((fields == nullptr) == (cvals == nullptr)) return (int)cudaErrorInvalidValue;
+  if (z0 < 0 || z0 > z1 || z1 > nz) return (int)cudaErrorInvalidValue;
   Offsets3D o;
   SweepGeom G;
   size_t smem[2];
   const int c = sweep_geom(offs, k, nz, ny, nx, cz, ty, tx, fields != nullptr, sizeof(T),
                            &o, &G, smem);
   if (c != 0) return c;
+  G.mz0 = z0;
+  G.mz1 = z1;
   const dim3 grid((nx + tx - 1) / tx, (ny + ty - 1) / ty, (nz + cz - 1) / cz);
   const long long nblocks = (long long)grid.x * grid.y * grid.z;
   if (grid.y > 65535 || grid.z > 65535 || 2 * nblocks > partials_cap || nblocks > 0x7fffffff)
@@ -490,18 +505,20 @@ int launch_sweep(const T* Z, const T* Vc, const T* Vp, const T* coefs, const T* 
   extern "C" int eu_fused_sweep_##SUF(                                                \
       const T* Z, const T* Vc, const T* Vp, const T* coefs, const T* cvals,          \
       const int* offs, int k, int nz, int ny, int nx, int cz, int ty, int tx, T* Y,  \
-      T* Zn, T* W, T* partials, long long partials_cap, void* stream) {            \
+      T* Zn, T* W, T* partials, long long partials_cap, int z0, int z1,             \
+      void* stream) {                                                                 \
     return eu::launch_sweep<T>(Z, Vc, Vp, coefs, cvals, nullptr, offs, k, nz, ny,    \
-                               nx, cz, ty, tx, Y, Zn, W, partials, partials_cap,     \
-                               (cudaStream_t)stream);                                \
+                               nx, cz, ty, tx, Y, Zn, W, partials, partials_cap, z0, \
+                               z1, (cudaStream_t)stream);                            \
   }                                                                                   \
   extern "C" int eu_fused_sweep_var_##SUF(                                            \
       const T* Z, const T* Vc, const T* Vp, const T* coefs, const T* fields,         \
       const int* offs, int k, int nz, int ny, int nx, int cz, int ty, int tx, T* Y,  \
-      T* Zn, T* W, T* partials, long long partials_cap, void* stream) {            \
+      T* Zn, T* W, T* partials, long long partials_cap, int z0, int z1,             \
+      void* stream) {                                                                 \
     return eu::launch_sweep<T>(Z, Vc, Vp, coefs, nullptr, fields, offs, k, nz, ny,   \
-                               nx, cz, ty, tx, Y, Zn, W, partials, partials_cap,     \
-                               (cudaStream_t)stream);                                \
+                               nx, cz, ty, tx, Y, Zn, W, partials, partials_cap, z0, \
+                               z1, (cudaStream_t)stream);                            \
   }                                                                                   \
   extern "C" int eu_fused_sweep_capacity_##SUF(const int* offs, int k, int ty, int tx, \
                                                int var) {                             \

@@ -127,15 +127,22 @@ def _ptr(t) -> int:
 # ---------------------------------------------------------------- twins --
 
 def fused_sweep_ref(Z, Vc, Vp, coefs, grid_shape, offsets, cvals,
-                    w_accum=None):
+                    w_accum=None, z_range=None):
     """Plain twin of B3 and B3-var: (Y, Zn, moments (2,)), with W += cw Vc
     done in place on ``w_accum`` when given. ``cvals`` is (k,) for a
-    constant stencil or the (k, n) fields of a variable one."""
+    constant stencil or the (k, n) fields of a variable one. ``z_range``
+    (z0, z1): the moments sum over the planes [z0, z1) of grid axis 0
+    only (default: all)."""
     if cvals.ndim == 2:
         cvals = cvals.reshape((-1,) + tuple(grid_shape))
     y = coefs[0] * Z + coefs[1] * Vc + coefs[2] * Vp
     zn = stencil_apply(y.reshape(grid_shape), offsets, cvals).reshape(-1)
-    moments = torch.stack([(y * y).sum(), (y * zn).sum()])
+    ym, zm = y, zn
+    if z_range is not None:
+        plane = y.shape[0] // grid_shape[0]
+        ym = y[z_range[0] * plane:z_range[1] * plane]
+        zm = zn[z_range[0] * plane:z_range[1] * plane]
+    moments = torch.stack([(ym * ym).sum(), (ym * zm).sum()])
     if w_accum is not None:
         w_accum.add_(coefs[3] * Vc)
     return y, zn, moments
@@ -251,24 +258,32 @@ class _SweepPlan:
         self.state0[_ST["beta_prev"]].fill_(1.0)
         self.unit = self.state0[:4]
 
-    def sweep(self, Z, Vc, Vp, coefs_ptr: int, cvals, Y, Zn, W, stream):
-        """Launch B3 (or B3-var) with its coefficients at ``coefs_ptr``."""
+    def sweep(self, Z, Vc, Vp, coefs_ptr: int, cvals, Y, Zn, W, stream,
+              z_range=None):
+        """Launch B3 (or B3-var) with its coefficients at ``coefs_ptr``,
+        its moments over the planes ``z_range`` = (z0, z1) of the 3-D
+        grid (default: all of them)."""
         nz, ny, nx = self.shape3
+        z0, z1 = (0, nz) if z_range is None else z_range
         code = self.sweep_fn(Z.data_ptr(), Vc.data_ptr(), Vp.data_ptr(),
                              coefs_ptr, cvals.data_ptr(), self.offs, self.k,
                              nz, ny, nx, self.cz, *self.tile, Y.data_ptr(),
                              Zn.data_ptr(), _ptr(W), self.partials.data_ptr(),
-                             2 * self.nblocks, stream)
+                             2 * self.nblocks, z0, z1, stream)
         _build.check(code, self.what)
         _build.launches[self.name] += 1
 
     def stage(self, stream, moments=None, state=None, alphas=None,
-              betas=None, coeffs=None, j=0, m=0, tol=0.0):
+              betas=None, coeffs=None, j=0, m=0, tol=0.0, partials=None):
         """Launch the second stage of the last sweep: its moments into
         ``moments``, or in Lanczos mode (``state``) the scalars of step
         ``j`` into ``state``, ``alphas`` and ``betas``
-        (``sweep_stage_ref``)."""
-        code = self.stage_fn(self.partials.data_ptr(), self.nblocks,
+        (``sweep_stage_ref``). ``partials``: a 2-vector of moments to read
+        instead of the last sweep's per-block partials (the sharded
+        sweeps' reduced moments)."""
+        src, nb = ((self.partials, self.nblocks) if partials is None
+                   else (partials, 1))
+        code = self.stage_fn(src.data_ptr(), nb,
                              _ptr(moments), _ptr(state), _ptr(alphas),
                              _ptr(betas), _ptr(coeffs), j, m, tol, stream)
         _build.check(code, "second stage of the fused sweep")
@@ -293,12 +308,14 @@ def _vector(plan, v, what):
 
 # ------------------------------------------------------------- wrapper --
 
-def fused_lanczos_step(Z, Vc, Vp, coefs, op, *, w_accum=None):
+def fused_lanczos_step(Z, Vc, Vp, coefs, op, *, w_accum=None, z_range=None):
     """One fused sweep (module doc): kernel B3 (constant stencil) or B3-var
     (variable) and its second stage on CUDA, their twins on CPU. ``coefs``
     = (ca, cb, cc[, cw]) as a tensor on the vectors' device. Returns (Y,
     Zn, ypy, yzy), plus W when ``w_accum`` is given (updated in place:
-    W = w_accum + cw Vc)."""
+    W = w_accum + cw Vc). ``z_range`` (z0, z1): the moments cover the
+    planes [z0, z1) of the grid's axis 0 only (a 2-D grid's is its one
+    plane); the default, all planes, is the sweep of the drivers here."""
     dev, dt = Z.device, Z.dtype
     plan = _plan(op, dt, dev)
     vecs = (Z, Vc, Vp) if w_accum is None else (Z, Vc, Vp, w_accum)
@@ -312,8 +329,9 @@ def fused_lanczos_step(Z, Vc, Vp, coefs, op, *, w_accum=None):
         raise ValueError(f"sweep needs {ncoef} coefficients")
     cvals = _cvals(op, dt)
     if not plan.kernel:
-        Y, Zn, moments = fused_sweep_ref(Z, Vc, Vp, coefs, op.grid_shape,
-                                         op.offsets, cvals, w_accum)
+        shape3, offs3 = _geometry(op)
+        Y, Zn, moments = fused_sweep_ref(Z, Vc, Vp, coefs, shape3, offs3,
+                                         cvals, w_accum, z_range)
         return _step_result(Y, Zn, moments, w_accum)
     refuse_grad("fused_lanczos_step (B3)", op, coefs, *vecs)
     if coefs.device != dev:
@@ -324,7 +342,8 @@ def fused_lanczos_step(Z, Vc, Vp, coefs, op, *, w_accum=None):
         coefs = coefs.to(dt).contiguous()
     Y, Zn = torch.empty_like(Z), torch.empty_like(Z)
     stream = _build.raw_stream(Z.device)
-    plan.sweep(Z, Vc, Vp, coefs.data_ptr(), cvals, Y, Zn, w_accum, stream)
+    plan.sweep(Z, Vc, Vp, coefs.data_ptr(), cvals, Y, Zn, w_accum, stream,
+               z_range)
     # made while the sweep runs: the stage's launch costs no device time
     moments = torch.empty(2, dtype=dt, device=dev)
     plan.stage(stream, moments=moments)

@@ -69,14 +69,22 @@ def _real_dtype(dt):
     return torch.empty((), dtype=dt).real.dtype
 
 
-def _norm(x, rdt):
-    return torch.linalg.vector_norm(x).to(rdt)
+def _norm(x, rdt, comm=None):
+    """2-norm of x; of the whole row-sharded vector with ``comm`` (local
+    partial sum, one psum)."""
+    if comm is None:
+        return torch.linalg.vector_norm(x).to(rdt)
+    return torch.sqrt(comm.psum((x.conj() * x).real.sum())).to(rdt)
 
 
-def _start(b):
+def _psum(v, comm):
+    return v if comm is None else comm.psum(v)
+
+
+def _start(b, comm=None):
     """(beta0, v0): |b| and b/|b| (zero vector when b = 0)."""
     rdt = _real_dtype(b.dtype)
-    beta0 = _norm(b, rdt)
+    beta0 = _norm(b, rdt, comm)
     inv = torch.where(beta0 > 0, 1.0 / torch.where(beta0 > 0, beta0, 1.0), 0.0)
     return beta0, (inv * b).to(b.dtype)
 
@@ -86,10 +94,12 @@ def _safe_normalize(y, nrm):
 
 
 def _arnoldi_step(op, V, H, j: int, win: int, tol: float, reorth: bool,
-                  broke, m_used):
+                  broke, m_used, comm=None):
     """Arnoldi step j on the basis rows ``V`` and Hessenberg ``H`` (both
     written in place): CGS (CGS2 with ``reorth``) against the window rows
-    max(0, j - win + 1) .. j. Returns (broke, m_used)."""
+    max(0, j - win + 1) .. j. Returns (broke, m_used). With ``comm`` (a
+    ``parallel.MeshAxis``) V holds this rank's rows, and each CGS pass and
+    the norm cost one psum."""
     rdt = _real_dtype(V.dtype)
     lo = max(0, j - win + 1)
     Vw, vj = V[lo:j + 1], V[j]
@@ -97,13 +107,13 @@ def _arnoldi_step(op, V, H, j: int, win: int, tol: float, reorth: bool,
         # the later steps write V in place: autograd must save copies
         Vw, vj = Vw.clone(), vj.clone()
     y = op.matvec(vj).to(V.dtype)
-    h = Vw.conj() @ y
+    h = _psum(Vw.conj() @ y, comm)
     y = y - h @ Vw
     if reorth:
-        h2 = Vw.conj() @ y
+        h2 = _psum(Vw.conj() @ y, comm)
         y = y - h2 @ Vw
         h = h + h2
-    nrm = _norm(y, rdt)
+    nrm = _norm(y, rdt, comm)
     now_broke = nrm < tol
     active = ~broke
     H[lo:j + 1, j] = torch.where(active, h, 0)
@@ -115,16 +125,18 @@ def _arnoldi_step(op, V, H, j: int, win: int, tol: float, reorth: bool,
 
 @full_precision
 def arnoldi(op, b, m: int, *, iop: int = 0, tol: float = 1e-7,
-            reorth: bool = True) -> KrylovBasis:
+            reorth: bool = True, comm=None) -> KrylovBasis:
     """Arnoldi factorization A V[j] ~ sum_i H[i, j] V[i] with (incomplete)
     classical Gram-Schmidt (module doc).
 
     iop: incomplete-orthogonalization window; 0 = full.
     tol: happy-breakdown threshold on the residual norm.
     reorth: a second CGS pass (CGS2); False for the cheapest (IOP-style)
-      iteration."""
+      iteration.
+    comm: the ``parallel.MeshAxis`` that b's rows are sharded over (the
+      basis then holds this rank's rows), or None."""
     n = b.shape[0]
-    beta, v0 = _start(b)
+    beta, v0 = _start(b, comm)
     V = torch.zeros((m + 1, n), dtype=b.dtype, device=b.device)
     V[0] = v0
     H = torch.zeros((m + 1, m), dtype=b.dtype, device=b.device)
@@ -133,7 +145,7 @@ def arnoldi(op, b, m: int, *, iop: int = 0, tol: float = 1e-7,
     m_used = torch.zeros((), dtype=torch.int32, device=b.device)
     for j in range(m):
         broke, m_used = _arnoldi_step(op, V, H, j, win, tol, reorth, broke,
-                                      m_used)
+                                      m_used, comm)
     m_used = torch.where(beta == 0, 0, m_used).to(torch.int32)
     return KrylovBasis(V=V, H=H, beta=beta, m_used=m_used, breakdown=broke,
                        hermitian=False)
@@ -166,14 +178,16 @@ def arnoldi_extend(op, Ks: KrylovBasis, m_new: int, *, iop: int = 0,
 
 @full_precision
 def lanczos(op, b, m: int, *, tol: float = 1e-7,
-            full_reorth: bool = False) -> KrylovBasis:
+            full_reorth: bool = False, comm=None) -> KrylovBasis:
     """Hermitian Lanczos three-term recurrence. H is real (alpha on the
     diagonal, beta on the sub- and superdiagonal). ``full_reorth=True``
-    re-orthogonalizes each step against the whole basis (one GEMV)."""
+    re-orthogonalizes each step against the whole basis (one GEMV).
+    ``comm``: as in ``arnoldi`` (a psum for alpha and one for the norm per
+    step, one more with ``full_reorth``)."""
     n = b.shape[0]
     dt = b.dtype
     rdt = _real_dtype(dt)
-    beta0, v0 = _start(b)
+    beta0, v0 = _start(b, comm)
     V = torch.zeros((m + 1, n), dtype=dt, device=b.device)
     V[0] = v0
     alphas = torch.zeros(m, dtype=rdt, device=b.device)
@@ -185,13 +199,13 @@ def lanczos(op, b, m: int, *, tol: float = 1e-7,
     m_used = torch.zeros((), dtype=torch.int32, device=b.device)
     for j in range(m):
         y = op.matvec(vc)
-        alpha = torch.vdot(vc, y).real.to(rdt)
+        alpha = _psum(torch.vdot(vc, y), comm).real.to(rdt)
         y = y - alpha * vc
         y = y - bprev * vp
         if full_reorth:
-            h2 = torch.where(rows <= j, V.conj() @ y, 0)
+            h2 = torch.where(rows <= j, _psum(V.conj() @ y, comm), 0)
             y = y - h2 @ V
-        nrm = _norm(y, rdt)
+        nrm = _norm(y, rdt, comm)
         now_broke = nrm < tol
         active = ~broke
         beta = torch.where(active, nrm, 0.0)
@@ -216,12 +230,12 @@ def lanczos(op, b, m: int, *, tol: float = 1e-7,
 
 
 @full_precision
-def lanczos_coeffs(op, b, m: int, *, tol: float = 1e-7):
+def lanczos_coeffs(op, b, m: int, *, tol: float = 1e-7, comm=None):
     """Pass 1 of storage-free Lanczos: (alphas, betas, beta0, m_used,
-    breakdown) without keeping the basis."""
+    breakdown) without keeping the basis. ``comm``: as in ``lanczos``."""
     dt = b.dtype
     rdt = _real_dtype(dt)
-    beta0, v0 = _start(b)
+    beta0, v0 = _start(b, comm)
     vp, vc = torch.zeros_like(v0), v0
     bprev = torch.zeros((), dtype=rdt, device=b.device)
     broke = beta0 == 0
@@ -229,9 +243,9 @@ def lanczos_coeffs(op, b, m: int, *, tol: float = 1e-7):
     alphas, betas = [], []
     for j in range(m):
         y = op.matvec(vc)
-        alpha = torch.vdot(vc, y).real.to(rdt)
+        alpha = _psum(torch.vdot(vc, y), comm).real.to(rdt)
         y = y - alpha * vc - bprev * vp
-        nrm = _norm(y, rdt)
+        nrm = _norm(y, rdt, comm)
         now_broke = nrm < tol
         active = ~broke
         vnext = torch.where(active & ~now_broke, _safe_normalize(y, nrm), 0.0)
@@ -246,13 +260,14 @@ def lanczos_coeffs(op, b, m: int, *, tol: float = 1e-7):
 
 
 @full_precision
-def lanczos_replay(op, b, coeffs, alphas, betas, m: int):
+def lanczos_replay(op, b, coeffs, alphas, betas, m: int, *, comm=None):
     """Pass 2 of storage-free Lanczos: w = sum_j coeffs[j] v_j, each v_j
     regenerated from the recorded (alpha, beta) by the same recurrence as
-    pass 1. ``coeffs`` (m,) gives w (n,); (m, p) gives w (n, p)."""
+    pass 1. ``coeffs`` (m,) gives w (n,); (m, p) gives w (n, p).
+    ``comm``: as in ``lanczos`` (one psum, the norm of b)."""
     dt = b.dtype
     rdt = _real_dtype(dt)
-    _, v0 = _start(b)
+    _, v0 = _start(b, comm)
     # the common type of the basis and the coefficients: a complex b
     # with real coefficients keeps its imaginary part
     cdt = torch.promote_types(coeffs.dtype, dt)

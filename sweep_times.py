@@ -12,10 +12,23 @@ repository in one run on one card:
 
     cd <tree> && python3 /path/to/sweep_times.py
 
+With ``--dump FILE`` it also writes the bits of the default calls on fixed
+inputs (the moments in hex, SHA-256 digests of Y, Zn and W, plain and
+accumulating, at 216^3 in 3-D and 512^2 in 2-D, and of the two-pass
+``expv(m=20)`` on the 3-D operators) as JSON; ``--against FILE`` compares
+this tree's bits with such a file (another tree's) and exits 1 on any
+difference:
+
+    cd <parent> && python3 /path/to/sweep_times.py --dump parent.json
+    cd <change> && python3 /path/to/sweep_times.py --against parent.json
+
 chip_smoke.py times the same calls in its phase 5; this script is the
 version that also runs against an earlier commit.
 """
 
+import argparse
+import hashlib
+import json
 import os
 import statistics
 import subprocess
@@ -60,7 +73,43 @@ def burst_ms(fn, k=20):
     return s.elapsed_time(e) / k
 
 
+def digest(t) -> str:
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def default_bits(et, tf, ops, dt, dev):
+    """{call: bits} of the default (whole-grid) sweeps and the two-pass
+    expv on seeded inputs: what must not change between two trees."""
+    out = {}
+    dn = str(dt).split(".")[-1]
+    ops = dict(ops, **{"B3 2-D 512^2": et.laplacian_nd_stencil(
+        512, 512, dtype=dt, device=dev)})
+    for name, op in ops.items():
+        n = op.shape[0]
+        gen = torch.Generator(device=dev).manual_seed(2)
+        Z, Vc, Vp, W = (torch.randn(n, dtype=dt, device=dev, generator=gen)
+                        for _ in range(4))
+        co = torch.tensor([0.3, -0.7, 0.2, 0.45], dtype=dt, device=dev)
+        plain = tf.fused_lanczos_step(Z, Vc, Vp, co[:3].contiguous(), op)
+        accum = tf.fused_lanczos_step(Z, Vc, Vp, co, op, w_accum=W)
+        bits = {"moments": [float(x).hex() for x in plain[2:] + accum[2:4]]}
+        for label, t in (("Y", plain[0]), ("Zn", plain[1]),
+                         ("Y accum", accum[0]), ("Zn accum", accum[1]),
+                         ("W", accum[4])):
+            bits[label] = digest(t)
+        if not name.startswith("B3 2-D"):
+            bits["expv two-pass m=20"] = digest(
+                et.expv(0.05, op, Z, m=20, two_pass=True))
+        out[f"{name} {dn}"] = bits
+    return out
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dump", help="write the default calls' bits here")
+    ap.add_argument("--against", help="compare the default calls' bits "
+                    "with this file (from --dump)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("sweep_times.py needs a CUDA device", file=sys.stderr)
         return 2
@@ -75,6 +124,7 @@ def main() -> int:
     a = np.random.default_rng(0).uniform(0.5, 2.0, (N, N, N))
     n = N ** 3
     gen = torch.Generator(device=dev).manual_seed(1)
+    bits = {}
     for dt in (torch.float32, torch.float64):
         ops = {"B3": et.laplacian_nd_stencil(N, N, N, dtype=dt, device=dev),
                "B3-var": et.variable_diffusion_nd_stencil(
@@ -82,6 +132,8 @@ def main() -> int:
                    device=dev)}
         Z, Vc, Vp = (torch.randn(n, dtype=dt, device=dev, generator=gen)
                      for _ in range(3))
+        if args.dump or args.against:
+            bits.update(default_bits(et, tf, ops, dt, dev))
         W = torch.zeros(n, dtype=dt, device=dev)
         co = torch.tensor([0.3, -0.7, 0.2, 0.0], dtype=dt, device=dev)
         isz = Z.element_size()
@@ -96,6 +148,19 @@ def main() -> int:
                   f"one call {one:.4f} ms, back-to-back {b2b:.4f} ms, bound "
                   f"{bound:.4f} ms by bytes [{card}]", flush=True)
         del ops, Z, Vc, Vp, W
+    if args.dump:
+        with open(args.dump, "w") as f:
+            json.dump(bits, f, indent=1)
+    if args.against:
+        with open(args.against) as f:
+            want = json.load(f)
+        bad = sorted(k for k in want if bits.get(k) != want[k])
+        for k in sorted(want):
+            print(f"default call {k}: "
+                  + ("DIFFERS" if k in bad else "bit for bit equal")
+                  + f" to {args.against} [{card}]", flush=True)
+        if bad or set(bits) != set(want):
+            return 1
     return 0
 
 

@@ -1518,3 +1518,157 @@ def test_dd_bits_card_equal_cpu(dev):
     Xc = et.expm_dd(torch.as_tensor(A, device="cpu"))
     Xd = et.expm_dd(torch.as_tensor(A, device=dev))
     assert torch.equal(Xd.hi.cpu(), Xc.hi) and torch.equal(Xd.lo.cpu(), Xc.lo)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("kind", ["7pt", "nz3", "13pt", "2d", "diff3d"])
+def test_b3_plane_range_vs_twin(dev, dt, kind):
+    """The moment plane range of B3 / B3-var (the sharded sweeps' interior
+    planes): the moments over [z0, z1) against the twin's, Y and Zn bit for
+    bit those of the default call, and the default range bit for bit the
+    explicit whole range."""
+    op = _var_op(kind, dt, dev) if kind == "diff3d" else \
+        _const_op(kind, dt, dev)
+    nz = tf._geometry(op)[0][0]
+    zr = (1, nz - 1) if nz > 2 else (0, nz)
+    n = op.shape[0]
+    Z, Vc, Vp, W = (_vec(n, dt, dev, s) for s in range(4))
+    co = torch.tensor([0.3, -0.7, 0.2, 0.45], dtype=dt, device=dev)
+    cv = op.coeff_fields if kind == "diff3d" else op.coeffs
+    W1, W2, W3 = W.clone(), W.clone(), W.clone()
+    Y, Zn, ypy, yzy, _ = tf.fused_lanczos_step(Z, Vc, Vp, co, op,
+                                               w_accum=W1, z_range=zr)
+    shape3, offs3 = tf._geometry(op)
+    Yr, Znr, momr = tf.fused_sweep_ref(Z, Vc, Vp, co, shape3, offs3, cv, W2,
+                                       z_range=zr)
+    _close(torch.stack([ypy, yzy]), momr, dt)
+    Yd, Znd, ypd, yzd, _ = tf.fused_lanczos_step(Z, Vc, Vp, co, op,
+                                                 w_accum=W3)
+    assert torch.equal(Y, Yd) and torch.equal(Zn, Znd)
+    assert torch.equal(W1, W3)
+    full = tf.fused_lanczos_step(Z, Vc, Vp, co[:3].contiguous(), op,
+                                 z_range=(0, nz))
+    dflt = tf.fused_lanczos_step(Z, Vc, Vp, co[:3].contiguous(), op)
+    assert torch.equal(torch.stack(full[2:]), torch.stack(dflt[2:]))
+    with pytest.raises(RuntimeError):
+        tf.fused_lanczos_step(Z, Vc, Vp, co[:3].contiguous(), op,
+                              z_range=(0, nz + 1))
+
+
+class _SlabAxis:
+    """A mesh axis of ``size`` ranks with no process group: what a rank's
+    shard plan reads to lay out its extended slab."""
+
+    def __init__(self, size, device):
+        self.size, self.device = size, device
+
+    def axis_size(self):
+        return self.size
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("P", [2, 4])
+@pytest.mark.parametrize("kind", ["7pt", "13pt", "advection", "2d",
+                                  "diff3d"])
+def test_b3_shard_slab_vs_twin(dev, dt, P, kind):
+    """B3 / B3-var on a rank's extended slab as the sharded sweeps launch
+    it (the plan classes' geometry: sz + 2 h0 planes, a 2-D grid as (sy +
+    2 h0, 1, nx) with offsets (dy, 0, dx)), moments over the interior
+    planes: Y, Zn, W and the moments against the twin, accumulating and
+    plain."""
+    from exponentialutilities_jl_torch.parallel import stencil_fused as sf
+
+    ax = _SlabAxis(P, dev)
+    if kind == "diff3d":
+        gop = et.variable_diffusion_nd_stencil(
+            np.random.default_rng(21).uniform(0.5, 2.0, (12, 7, 130)),
+            dtype=dt, device=dev)
+        plan = sf.FusedShardPlanVar(gop, ax)
+        ext = et.VariableStencilOperator(
+            plan.ext_shape, plan.ext_offsets,
+            gop.coeff_fields[:, :plan.sze * plan.plane], gop.is_hermitian)
+    else:
+        if kind == "2d":
+            gop = et.laplacian_nd_stencil(24, 77, dtype=dt, device=dev)
+            plan = sf.FusedShardPlan2D(gop, ax)
+        else:
+            gop = (et.advection_diffusion_3d_stencil(12, 19, 45, dtype=dt,
+                                                     device=dev)
+                   if kind == "advection" else
+                   _const_op("13pt", dt, dev) if kind == "13pt" else
+                   et.laplacian_nd_stencil(12, 7, 130, dtype=dt, device=dev))
+            if kind == "13pt":      # 7 planes do not split: 8 of them do
+                gop = et.StencilOperator((8,) + gop.grid_shape[1:],
+                                         gop.offsets, gop.coeffs,
+                                         is_hermitian=True, device=dev)
+            plan = sf.FusedShardPlan(gop, ax)
+        ext = plan.ext
+    zr = plan.z_range
+    n = ext.shape[0]
+    Z, Vc, Vp, W = (_vec(n, dt, dev, s) for s in range(4))
+    co = torch.tensor([0.3, -0.7, 0.2, 0.45], dtype=dt, device=dev)
+    W1, W2 = W.clone(), W.clone()
+    Y, Zn, ypy, yzy, _ = tf.fused_lanczos_step(Z, Vc, Vp, co, ext,
+                                               w_accum=W1, z_range=zr)
+    Yp, Znp, ypp, yzp = tf.fused_lanczos_step(Z, Vc, Vp, co[:3].contiguous(),
+                                              ext, z_range=zr)
+    Yr, Znr, momr = tf.fused_sweep_ref(Z, Vc, Vp, co, plan.ext_shape,
+                                       plan.ext_offsets, tf._cvals(ext, dt),
+                                       W2, z_range=zr)
+    for got, want in ((Y, Yr), (Zn, Znr), (W1, W2), (Yp, Yr), (Znp, Znr),
+                      (torch.stack([ypy, yzy]), momr),
+                      (torch.stack([ypp, yzp]), momr)):
+        _close(got, want, dt)
+
+
+def test_sharded_two_pass_one_nccl_rank(dev, tmp_path):
+    """A NCCL group of one rank: the sharded fused two-pass (B3 on the
+    extended slab, the moments' all_reduce on the card) against the
+    single-device two-pass, its passes free of host synchronization, and
+    its launches and collectives held to the counts m implies."""
+    import torch.distributed as dist
+
+    from exponentialutilities_jl_torch import parallel as par
+    from exponentialutilities_jl_torch.models.expv import (
+        _expv_two_pass_fused, _lanczos_reduced_coeffs)
+    from exponentialutilities_jl_torch.parallel import stencil_fused as sf
+
+    if not dist.is_nccl_available():
+        pytest.skip("needs NCCL")
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = par.make_mesh(device="cuda:0")
+        op = et.laplacian_nd_stencil(24, 20, 30, dtype=torch.float64,
+                                     device=dev)
+        b = _vec(op.shape[0], torch.float64, dev, 7)
+        m = 20
+        want = _expv_two_pass_fused(op, b, 0.05, m)
+        w = par.expv_sharded(0.05, op, b, mesh, m=m, two_pass=True)
+        _close(w, want, torch.float64)
+        plan = sf.fused_shard_plan(op, mesh, hermitian=True)
+        mesh.reset_census()
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            a, bb, b0, mu, _ = sf.lanczos_coeffs_fused_sharded(plan, b, m)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        # the reduced eigh between the passes reads its info to the host
+        co = _lanczos_reduced_coeffs(a, bb, b0, 0.05)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            a2, b2, _, _, _, out = sf._lanczos_sharded(plan, b, 0, 1e-7,
+                                                       co)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.equal(a, a2) and torch.equal(bb, b2)
+        assert _build.launches["fused_sweep"] == 2 * (m + 1)
+        assert _build.launches["sweep_stage"] == 4 * (m + 1)
+        assert dict(mesh.census["shard"]) == {"psum": 2 * (m + 2),
+                                              "ppermute": 2 * (m + 2)}
+    finally:
+        dist.destroy_process_group()

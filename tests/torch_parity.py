@@ -3,6 +3,13 @@ port against the JAX package: same seeded numpy inputs through both, the
 operator carried across by ``utils/convert.py``, results compared as numpy
 arrays with a stated tolerance."""
 
+import os
+import pickle
+import subprocess
+import sys
+import time
+from pathlib import Path
+
 import numpy as np
 import torch
 
@@ -70,3 +77,71 @@ def use_fake_kernel_library(monkeypatch, returns=None):
     monkeypatch.setattr(_build, "raw_stream", lambda device: 0)
     monkeypatch.setattr(_build, "require_cuda", lambda what, device: None)
     return lib
+
+
+WORKER = Path(__file__).resolve().parent / "torch_dist_worker.py"
+
+
+def jax_mesh_size(mesh) -> int:
+    """The rank count of the port's mesh that matches a JAX mesh: one rank
+    per device along its (first) axis."""
+    return int(mesh.shape[mesh.axis_names[0]])
+
+
+def run_ranks(suite: str, worlds, inputs: dict, tmp: Path,
+              timeout: float = 300.0) -> dict:
+    """Run ``suite`` of tests/torch_dist_worker.py on gloo ranks of each
+    world size in ``worlds`` (all started at once, one process per rank,
+    a file rendezvous per world under ``tmp``), the seeded ``inputs``
+    written to ``tmp/inputs.npz``. Returns {world: [rank 0 results, ...]}.
+    A rank that fails, or any rank still running after ``timeout``
+    seconds (then every rank is killed), fails the caller."""
+    tmp = Path(tmp)
+    np.savez(tmp / "inputs.npz", **inputs)
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [str(WORKER.parents[1])]
+                   + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+              "LOCAL_RANK"):
+        env.pop(k, None)
+    procs = {}
+    for world in worlds:
+        d = tmp / f"world{world}"
+        d.mkdir(exist_ok=True)
+        for r in range(world):
+            procs[(world, r)] = subprocess.Popen(
+                [sys.executable, str(WORKER), str(d / "store"), str(r),
+                 str(world), str(tmp / "inputs.npz"), str(d), suite],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env)
+    deadline = time.monotonic() + timeout
+    failed = []
+    try:
+        for key, p in procs.items():
+            try:
+                _, err = p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                failed.append((key, "timed out"))
+                break
+            if p.returncode != 0:
+                failed.append((key, err.decode(errors="replace")[-4000:]))
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert not failed, f"ranks of {suite} failed: {failed}"
+    out = {}
+    for world in worlds:
+        out[world] = []
+        for r in range(world):
+            with open(tmp / f"world{world}" / f"{suite}_rank{r}.pkl",
+                      "rb") as f:
+                out[world].append(pickle.load(f))
+    return out
+
+
+def gathered(results, case, key="w"):
+    """The whole vector of a case: every rank's rows in rank order."""
+    return np.concatenate([r[case][key] for r in results])
