@@ -55,7 +55,11 @@ its seconds:
               per SELL pack, the share of B9's 256-row blocks
               that stage x in shared memory (none of the band-20000
               pack's; phase 4 adds the RCM'd n = 1e6 pack, held to more
-              than half, and the scattered packs)
+              than half, and the scattered packs); B3/B3-var on the
+              fourth path's extended slabs; B7 on the GSPMD route's
+              halo-extended slabs (configs #3 and #4, every rank of P =
+              4) against LocalBandedOperator's plain matvec, and B8 on a
+              rank's block rows with the whole x (a rectangular product)
   4. main     the public entry points (expv_chebyshev, expv with and
               without two_pass, phiv with and without two_pass,
               phiv_chebyshev, phiv_timestep_chebyshev) with launch counts
@@ -120,14 +124,28 @@ its seconds:
               expv_chebyshev on config #2's stencil with a requires-grad
               b (no B1: the grad rule, counted), and
               expm_higham2005(differentiable=True) under torch.func.grad
-              and sync debug mode "error"
+              and sync debug mode "error"; then a fourth path, the
+              distributed layer (parallel/) on ranks of this script
+              sharing the card (sharded_path); then a fifth, the GSPMD
+              route (gspmd_path): parallel.shard_operator's views of
+              config #3's, config #4's, an ELL, the 128^3 block-ELL and
+              config #1's dense operator and the n = 1e6 Leja stencil
+              under the ordinary drivers (expv, kiops, the two-pass NW,
+              expv_chebyshev, phiv_timestep_device, kiops_device,
+              exprb43_device, Leja, Faber) on P = 2 gloo ranks, the data x
+              shard expv_batched on P = 4, config #3's expv and kiops on
+              one NCCL rank; each against the single-device port (equal
+              stats for the adaptive drivers) and scipy, every rank's B7
+              and B8 launches held to its driver's matvec count
   5. times    CUDA-event medians of >= 10 runs after warm-up (of 5 after
               one for the adaptive drivers), each kernel
               beside its plain twin, B6 (its main-path form and its
               family kernel) beside the B3 sweeps on the same grid at
               512^2, 1000^2, 64^3, 100^3, 128^3, 160^3 and 216^3 (the
               gate's table), B9 at bench_sell.py's timing shape (n = 1e7)
-              with its GB/s and Gnnz/s, each main-path call beside the
+              with its GB/s and Gnnz/s, the sharded and GSPMD cells (rank
+              0's medians) beside the single-device call, each main-path
+              call beside the
               plain path, and for each kernel its bound (the larger of its bytes
               over 3.35 TB/s and its operations over the vector peak) and
               the time of the one PyTorch call that computes the same
@@ -1644,6 +1662,550 @@ def sharded_path(et, dev, card):
     return counts, ms, singles
 
 
+# ---- the fifth path: the GSPMD route on this one card ----
+# parallel.shard_operator and the ordinary drivers on each rank's rows: P =
+# 2 gloo ranks sharing cuda:0 for most cells, P = 4 for the data x shard
+# mesh, one NCCL rank. The same launcher as the fourth path (``--shard-rank``
+# with modes "gspmd", "gspmd-ds", "gspmd-nccl"). No scaling numbers: the
+# ranks time-share one card and gloo stages through the host.
+GSPMD_WORLD = 2
+GSPMD_DS_WORLD = 4       # the data x shard mesh: 2 x 2
+# sharded vs the single-device port on the same card: MTOL_SHARD for the
+# fixed-m Krylov and Chebyshev cells; Leja/Faber (no reductions in the
+# recurrence) at the JAX test's 1e-13, relative 2-norm; the adaptive
+# drivers with equal steps, rejections and Krylov steps, at the JAX
+# exprb43_device test's 1e-10
+MTOL_GSPMD_POLY = 1e-13
+MTOL_GSPMD_ADAPT = 1e-10
+# config #4's drivers at TA and the n = 1e6 Leja/Faber at TL, full depth:
+# seconds a call at P = 2 (gloo), so each is timed by its checked call
+# alone (and the single-device call by one run); every other cell by a
+# median of 5
+GSPMD_LONG = ("config4 phiv_timestep_device m=20", "config4 kiops_device",
+              "config4 exprb43_device", "leja n=1e6", "faber n=1e6")
+
+
+class HaloAxis:
+    """A mesh axis with no process group for the phase-3 checks of the
+    GSPMD slabs: rank ``index`` of ``size``, its halos cut from the global
+    vector ``x`` (zeros past the ends), as ``MeshAxis.ppermute_halo`` would
+    deliver them."""
+
+    def __init__(self, size, index, x, device):
+        self.size, self.index, self.x = size, index, x
+        self.device = device
+
+    def axis_size(self):
+        return self.size
+
+    def axis_index(self):
+        return self.index
+
+    def ppermute_halo(self, lo, hi):
+        h, nl = lo.shape[0], self.x.shape[0] // self.size
+        a, b = self.index * nl, (self.index + 1) * nl
+        below = self.x[a - h:a] if self.index > 0 else hi.new_zeros(h)
+        above = (self.x[b:b + h] if self.index + 1 < self.size
+                 else lo.new_zeros(h))
+        return below.clone(), above.clone()
+
+
+def gspmd_kernel_checks(et, dev, dt, tol, opB, gen):
+    """Phase 3: B7 on the halo-extended slab of every rank of P = 4 for
+    config #3's and config #4's operators (``ShardedBandedOperator``'s
+    product, one launch) against ``LocalBandedOperator``'s plain matvec on
+    the same rows and against the global operator's rows; B8 on each
+    rank's block rows of the 128^3 block-ELL (P = 2) with the whole x, a
+    rectangular product, against ``blockell_spmv_ref``. Returns the
+    largest error of each kernel."""
+    import torch
+
+    from exponentialutilities_jl_torch.ops.kernels import _build
+    from exponentialutilities_jl_torch.ops.kernels import spmv as tsp
+    from exponentialutilities_jl_torch.parallel import gspmd, ops as pops
+
+    dn = str(dt).split(".")[-1]
+    errs = {"banded_spmv": 0.0, "blockell_spmv": 0.0}
+    for label, gop in ((f"config3 poisson_2d({NP}, {NP})",
+                        et.poisson_2d(NP, NP, dtype=dt, device=dev)),
+                       (f"config4 advection_diffusion_1d({NA})",
+                        et.advection_diffusion_1d(NA, peclet=10.0, dtype=dt,
+                                                  device=dev))):
+        n = gop.shape[0]
+        x = torch.as_tensor(gen.standard_normal(n), dtype=dt, device=dev)
+        yg = gop.matvec(x)
+        P = 4
+        for i in range(P):
+            ax = HaloAxis(P, i, x, dev)
+            sop = gspmd.ShardedBandedOperator(gop, ax)
+            nl = n // P
+            xl = x[i * nl:(i + 1) * nl]
+            before = _build.launches["banded_spmv"]
+            y = sop._local_matvec(xl)
+            torch.cuda.synchronize()
+            check(_build.launches["banded_spmv"] - before == 1,
+                  f"B7 slab {label} rank {i}: not one launch")
+            lop = pops.LocalBandedOperator(gop.diags[:, i * nl:(i + 1) * nl],
+                                           gop.offsets, n, ax)
+            e1 = rel_max(y, lop.matvec(xl))
+            e2 = rel_max(y, yg[i * nl:(i + 1) * nl])
+            check(max(e1, e2) <= tol, f"B7 {dn} halo slab {label} rank {i} "
+                  f"of {P}: {e1:.2e} vs the local plain matvec, {e2:.2e} "
+                  "vs the global rows")
+            errs["banded_spmv"] = max(errs["banded_spmv"], e1, e2)
+        print(f"kernel B7 {dn} halo-extended slabs {label}, P = 4 (every "
+              f"rank, diagonals (k, n/4 + 2h)): max rel err "
+              f"{errs['banded_spmv']:.2e} vs LocalBandedOperator's plain "
+              f"matvec and the global rows (tol {tol:g}); one launch each",
+              flush=True)
+    blocks = opB.blocks.to(dt)
+    x = torch.as_tensor(gen.standard_normal(opB.shape[0]), dtype=dt,
+                        device=dev)
+    nbr = blocks.shape[0]
+    for i in range(2):
+        rows = slice(i * nbr // 2, (i + 1) * nbr // 2)
+        B, C = blocks[rows].contiguous(), opB.bcols[rows].contiguous()
+        y = tsp.blockell_spmv(B, C, x)
+        e = rel_max(y, tsp.blockell_spmv_ref(B, C, x))
+        check(e <= tol and y.shape[0] == x.shape[0] // 2,
+              f"B8 {dn} rectangular rank {i}: {e:.2e}")
+        errs["blockell_spmv"] = max(errs["blockell_spmv"], e)
+    print(f"kernel B8 {dn} rectangular ({nbr // 2} of {nbr} block rows by "
+          f"the whole x, {NB}^3 8 x 8, P = 2 halves): max rel err "
+          f"{errs['blockell_spmv']:.2e} vs blockell_spmv_ref (tol {tol:g})",
+          flush=True)
+    return errs
+
+
+def gspmd_inputs(et, dev, blk):
+    """The fifth path's global operators and vectors, the same in the
+    parent and in every rank (SEED + 16; config #1's dense matrix and the
+    config #4 vector from phase 4's seeds). ``blk``: the 128^3 block-ELL's
+    (blocks, bcols), built once by the parent."""
+    import torch
+
+    gen = np.random.default_rng(SEED + 16)
+
+    def v(n):
+        return torch.as_tensor(gen.standard_normal(n), device=dev)
+
+    rngc = np.random.default_rng(SEED)
+    A1np = rngc.standard_normal((100, 100)) / 10
+    b1c = rngc.standard_normal(100)
+    ops = {"P": et.poisson_2d(NP, NP, device=dev),
+           "A": et.advection_diffusion_1d(NA, peclet=10.0, device=dev),
+           "E": et.laplacian_1d(N1, device=dev).to_ell(),
+           "B": et.BlockELLOperator(blk[0].to(dev), blk[1].to(dev),
+                                    is_hermitian=True),
+           "D": et.DenseOperator(torch.as_tensor(A1np, device=dev)),
+           "L": bench_leja_stencil(et, NL, torch.float64, dev)}
+    bP, b1, bB, bL = v(NP * NP), v(N1), v(NB ** 3), v(NL)
+    bA = torch.as_tensor(np.random.default_rng(SEED).standard_normal(NA),
+                         device=dev)
+    vecs = {"bP": bP,
+            "BP": torch.stack([bP, 0.1 * bP, 0.01 * bP, 0.001 * bP], dim=1),
+            "bA": bA, "BA": torch.stack([bA, 0.1 * bA], dim=1),
+            "uA": 0.1 * v(NA), "b1": b1, "bB": bB,
+            "bD": torch.as_tensor(b1c, device=dev),
+            "BL": torch.stack([bL, 0.1 * bL], dim=1),
+            "BB": v(4 * NP * NP).reshape(4, NP * NP)}
+    return ops, vecs
+
+
+def gspmd_cells(et):
+    """{cell: (call(ops, vecs, comm, counter) -> result dict, the
+    launches per rank its result implies (a function of it), its
+    tolerance kind)}. The same call runs on the global operators and
+    vectors (the single-device reference) and on a rank's sharded
+    operators and rows. ``counter`` counts f's calls, plain and under
+    ``torch.func.jvp`` (exprb43_device's Jacobian matvecs)."""
+    import dataclasses
+
+    import torch
+
+    from exponentialutilities_jl_torch.models import chebyshev as tc
+    from exponentialutilities_jl_torch.models.timestepping import _bucket_m
+
+    def st(s):
+        return dataclasses.asdict(s)
+
+    def expv_P(o, v, comm, cnt):
+        return {"w": et.expv(TP, o["P"], v["bP"], m=30)}
+
+    def kiops_P(o, v, comm, cnt):
+        w, s = et.kiops([TP], o["P"], v["BP"], tol=1e-7)
+        return {"w": w, "stats": st(s)}
+
+    def nw_P(o, v, comm, cnt):
+        U, s = et.phiv_timestep([TP], o["P"], v["BP"], adaptive=True,
+                                two_pass=True, tol=1e-7, return_stats=True)
+        return {"w": U, "stats": st(s)}
+
+    def cheb_P(o, v, comm, cnt):
+        return {"w": et.expv_chebyshev(TP, o["P"], v["bP"], tol=1e-12)}
+
+    def nwdev_A(o, v, comm, cnt):
+        U, s = et.phiv_timestep_device([TA], o["A"], v["BA"], tol=1e-7,
+                                       m=20, return_stats=True)
+        return {"w": U, "stats": st(s)}
+
+    def kiopsdev_A(o, v, comm, cnt):
+        w, s = et.kiops_device([TA], o["A"], v["BA"], tol=1e-7)
+        return {"w": w, "stats": st(s)}
+
+    def exprb_A(o, v, comm, cnt):
+        A = o["A"]
+
+        def f(u):
+            traced = torch._C._functorch.is_functorch_wrapped_tensor(u)
+            cnt["jvp" if traced else "plain"] += 1
+            return A.matvec(u) - u ** 3
+
+        u, s = et.exprb43_device(f, v["uA"], (0.0, TA), adaptive=True,
+                                 m=12, rtol=1e-6, atol=1e-9,
+                                 return_stats=True, comm=comm)
+        return {"w": u, "stats": st(s), "f": dict(cnt)}
+
+    def ell(o, v, comm, cnt):
+        return {"w": et.expv(T1, o["E"], v["b1"], m=40, hermitian=True)}
+
+    def blockell(o, v, comm, cnt):
+        return {"w": et.expv(T3, o["B"], v["bB"], m=20)}
+
+    def dense(o, v, comm, cnt):
+        return {"w": et.expv(1.0, o["D"], v["bD"], m=40)}
+
+    def leja(o, v, comm, cnt):
+        return {"w": et.phiv_timestep_leja([TL], o["L"], v["BL"],
+                                           tol=1e-7)}
+
+    def faber(o, v, comm, cnt):
+        return {"w": et.phiv_timestep_faber([TL], o["L"], v["BL"],
+                                            tol=1e-7)}
+
+    def degree(op, t, tol):
+        return len(tc._full_exp_coeffs(t, *op.spectral_bounds_hint(), tol,
+                                       None)[0])
+
+    b7 = "banded_spmv"
+    return {
+        "config3 expv m=30": (expv_P, lambda r, o: {b7: 30}, "fixed"),
+        "config3 kiops p=3": (
+            kiops_P, lambda r, o: {b7: r["stats"]["krylov_steps"]},
+            "adaptive"),
+        "config3 phiv_timestep two-pass p=3": (
+            nw_P, lambda r, o: {b7: r["stats"]["matvecs"]}, "adaptive"),
+        "config3 expv_chebyshev": (
+            cheb_P, lambda r, o: {b7: degree(o["P"], TP, 1e-12)}, "fixed"),
+        "config4 phiv_timestep_device m=20": (
+            nwdev_A, lambda r, o: {b7: r["stats"]["matvecs"] + 1
+                                   + _bucket_m(20, NA, 256)}, "adaptive"),
+        "config4 kiops_device": (
+            kiopsdev_A, lambda r, o: {b7: r["stats"]["krylov_steps"]},
+            "adaptive"),
+        "config4 exprb43_device": (
+            exprb_A, lambda r, o: {b7: r["f"]["plain"] + 2 * r["f"]["jvp"]},
+            "adaptive"),
+        f"ell laplacian_1d({N1}) expv m=40": (ell, lambda r, o: {}, "fixed"),
+        f"blockell {NB}^3 expv m=20": (
+            blockell, lambda r, o: {"blockell_spmv": 20}, "fixed"),
+        "config1 dense expv m=40": (dense, lambda r, o: {}, "fixed"),
+        "leja n=1e6": (leja, lambda r, o: {}, "poly"),
+        "faber n=1e6": (faber, lambda r, o: {}, "poly"),
+    }
+
+
+# collectives per rank a cell's parameters imply (printed for the others):
+# Lanczos m: 1 + 2m psums, m halo exchanges (or all_gathers); Arnoldi with
+# CGS2: 1 + 3m psums; Chebyshev M: M exchanges, the finiteness pmax
+def gspmd_census(et, ops):
+    from exponentialutilities_jl_torch.models import chebyshev as tc
+
+    M = len(tc._full_exp_coeffs(TP, *ops["P"].spectral_bounds_hint(),
+                                1e-12, None)[0])
+    return {"config3 expv m=30": {"psum": 61, "ppermute": 30},
+            "config3 expv_chebyshev": {"ppermute": M, "pmax": 1},
+            f"ell laplacian_1d({N1}) expv m=40": {"psum": 81,
+                                                  "all_gather": 40},
+            f"blockell {NB}^3 expv m=20": {"psum": 41, "all_gather": 20},
+            "config1 dense expv m=40": {"psum": 121, "all_gather": 40}}
+
+
+def gspmd_rank_main(args) -> int:
+    """One rank of the fifth path: shard every cell's operator with
+    ``parallel.shard_operator``, run the cell's ordinary driver on this
+    rank's rows and write ``gspmd_<mode>_rank<R>.json``: errors against the
+    parent's single-device references, launches and collectives per cell,
+    the replicated scalars (stats, in hex where floats), rank 0's CUDA-event
+    medians."""
+    import collections
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    import exponentialutilities_jl_torch as et
+    from exponentialutilities_jl_torch import parallel as par
+    from exponentialutilities_jl_torch.ops.kernels import _build
+
+    d, r, P, mode = (args.shard_dir, args.shard_rank, args.shard_world,
+                     args.shard_mode)
+    dev = torch.device(SHARD_DEVICE)
+    torch.cuda.set_device(dev)
+    par.initialize_distributed(f"file://{d}/store-{mode}-{P}", P, r, 0,
+                               backend="nccl" if mode == "gspmd-nccl"
+                               else "gloo")
+    blk = torch.load(os.path.join(d, "gspmd_blockell.pt"), mmap=True)
+    ops, vecs = gspmd_inputs(et, dev, blk)
+    out = {"rank": r, "cells": {}, "ms": {}}
+
+    def hexs(x):
+        if isinstance(x, float):
+            return x.hex()
+        if isinstance(x, dict):
+            return {k: hexs(v) for k, v in x.items()}
+        return x
+
+    def timed(fn, reps):
+        ts = []
+        for _ in range(reps):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            ts.append(s.elapsed_time(e))
+        return statistics.median(ts)
+
+    if mode == "gspmd-ds":
+        # the data x shard mesh: this rank's data slice of B's rows and its
+        # shard's columns; expv_batched reduces over "shard" only
+        hd = par.make_host_data_mesh(n_hosts=2, device=dev)
+        di, si = hd.axis("data").axis_index(), hd.axis("shard").axis_index()
+        op_s = par.shard_operator(ops["P"], hd, "shard")
+        nl = NP * NP // 2
+        Bl = vecs["BB"][2 * di:2 * di + 2, si * nl:(si + 1) * nl]
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        hd.reset_census()
+        W = et.expv_batched(TP, op_s, Bl, m=30)
+        torch.cuda.synchronize()
+        ref = torch.load(os.path.join(d, "gspmd_ref_batched.pt"),
+                         mmap=True)[2 * di:2 * di + 2, si * nl:(si + 1) * nl]
+        out["cells"]["config3 expv_batched 4 columns m=30"] = {
+            "launches": {k: v for k, v in _build.launches.items() if v},
+            "census": {k: dict(v) for k, v in hd.census.items()},
+            "diff": float((W - ref.to(dev)).abs().max()),
+            "scale": float(ref.abs().max()), "data": di, "shard": si}
+        out["ms"]["config3 expv_batched 4 columns m=30"] = timed(
+            lambda: et.expv_batched(TP, op_s, Bl, m=30), 5)
+    else:
+        mesh = par.make_mesh(device=dev)
+        ax = mesh.axis()
+        cells = gspmd_cells(et)
+        if mode == "gspmd-nccl":
+            cells = {k: cells[k] for k in ("config3 expv m=30",
+                                           "config3 kiops p=3")}
+        sh = {k: par.shard_operator(op, mesh) for k, op in ops.items()}
+        loc = {k: par.shard_vector(v, mesh) for k, v in vecs.items()
+               if k != "BB"}
+        for i, (name, (call, want_l, kind)) in enumerate(cells.items()):
+            cnt = collections.Counter()
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            mesh.reset_census()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            res = call(sh, loc, ax, cnt)
+            e.record()
+            e.synchronize()
+            first_ms = s.elapsed_time(e)
+            launches = {k: v for k, v in _build.launches.items() if v}
+            census = {k: v for k, v in mesh.census["shard"].items() if v}
+            w = res["w"]
+            ref = torch.load(os.path.join(d, f"gspmd_ref{i}.pt"), mmap=True)
+            nl = ref.shape[0] // P
+            ref = ref[r * nl:(r + 1) * nl].to(dev)
+            c = {"launches": launches, "census": census,
+                 "want_launches": want_l(res, ops),
+                 "finite": bool(torch.isfinite(w).all()),
+                 "diff": float((w - ref).abs().max()),
+                 "scale": float(ref.abs().max()),
+                 "diff_sq": float(((w - ref) ** 2).sum()),
+                 "ref_sq": float((ref ** 2).sum()),
+                 "stats": hexs(res.get("stats")), "f": res.get("f")}
+            orc = os.path.join(d, f"gspmd_oracle{i}.pt")
+            if os.path.exists(orc):
+                o = torch.load(orc, mmap=True)[r * nl:(r + 1) * nl].to(dev)
+                col = w[:, 0] if w.ndim == 2 else w
+                c["oracle_sq"] = float(((col - o) ** 2).sum())
+                c["oracle_norm_sq"] = float((o ** 2).sum())
+            out["cells"][name] = c
+            # every rank runs every timed call (the collectives keep them
+            # in step); a long cell's time is its checked call's
+            if name in GSPMD_LONG:
+                out["ms"][name] = first_ms
+            else:
+                out["ms"][name] = timed(
+                    lambda: call(sh, loc, ax, collections.Counter()), 5)
+    with open(os.path.join(d, f"gspmd_{mode}_rank{r}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def gspmd_path(et, dev, card, opB3):
+    """The fifth path (module doc): single-device references on this card,
+    then the ranks; every check printed on its own line. Returns (launches
+    summed over every rank of every run, {(run, cell): rank 0's ms},
+    {cell: single-device call})."""
+    import collections
+    import os
+    import shutil
+    import tempfile
+
+    import scipy.linalg as sla
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    import torch
+
+    from exponentialutilities_jl_torch.ops.kernels import _build
+
+    t0 = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="eu_gspmd_")
+    try:
+        blk = (opB3.blocks.cpu(), opB3.bcols.cpu())
+        torch.save(blk, os.path.join(d, "gspmd_blockell.pt"))
+        ops, vecs = gspmd_inputs(et, dev, blk)
+        cells = gspmd_cells(et)
+        census_want = gspmd_census(et, ops)
+        A1 = sp.diags([np.ones(N1 - 1), -2 * np.ones(N1), np.ones(N1 - 1)],
+                      [-1, 0, 1], format="csr")
+        oracles = {
+            "config3 expv m=30": spla.expm_multiply(
+                TP * banded_csr(ops["P"]), vecs["bP"].cpu().numpy()),
+            f"ell laplacian_1d({N1}) expv m=40": spla.expm_multiply(
+                T1 * A1, vecs["b1"].cpu().numpy()),
+            "config1 dense expv m=40": sla.expm(
+                ops["D"].A.cpu().numpy()) @ vecs["bD"].cpu().numpy()}
+        singles, sstats = {}, {}
+        for i, (name, (call, _, _)) in enumerate(cells.items()):
+            res = call(ops, vecs, None, collections.Counter())
+            singles[name] = (lambda call=call: call(
+                ops, vecs, None, collections.Counter()))
+            sstats[name] = res.get("stats")
+            torch.save(res["w"].cpu(), os.path.join(d, f"gspmd_ref{i}.pt"))
+            if name in oracles:
+                torch.save(torch.as_tensor(oracles[name]),
+                           os.path.join(d, f"gspmd_oracle{i}.pt"))
+        Wb = et.expv_batched(TP, ops["P"], vecs["BB"], m=30)
+        torch.save(Wb.cpu(), os.path.join(d, "gspmd_ref_batched.pt"))
+        singles["config3 expv_batched 4 columns m=30"] = (
+            lambda: et.expv_batched(TP, ops["P"], vecs["BB"], m=30))
+        print(f"GSPMD path inputs and references: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        del Wb
+        torch.cuda.empty_cache()
+        counts = {k: 0 for k in _build.launches}
+        ms = {}
+        for mode, world in (("gspmd", GSPMD_WORLD),
+                            ("gspmd-ds", GSPMD_DS_WORLD),
+                            ("gspmd-nccl", 1)):
+            t1 = time.perf_counter()
+            run_ranks(d, mode, world)
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(d, f"gspmd_{mode}_rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            tag = f"P={world} {mode}"
+            for name, c0 in ranks[0]["cells"].items():
+                for rk in ranks:
+                    c = rk["cells"][name]
+                    for k, v in c["launches"].items():
+                        counts[k] += v
+                if mode == "gspmd-ds":
+                    want_l = {"banded_spmv": 2 * 30}
+                    for rk in ranks:
+                        c = rk["cells"][name]
+                        check(c["launches"] == want_l,
+                              f"{tag} {name} rank {rk['rank']}: launches "
+                              f"{c['launches']} != {want_l}")
+                        check(not any(c["census"]["data"].values()),
+                              f"{tag} {name}: a collective on 'data': "
+                              f"{c['census']}")
+                    e = (max(rk["cells"][name]["diff"] for rk in ranks)
+                         / max(rk["cells"][name]["scale"] for rk in ranks))
+                    check(e <= MTOL_SHARD, f"{tag} {name} vs single-device "
+                          f"{e:.2e}")
+                    print(f"check GSPMD {tag} {name}: 2 x 2 data x shard "
+                          f"mesh, vs the single-device port {e:.2e} (tol "
+                          f"{MTOL_SHARD:g}); launches {c0['launches']} on "
+                          f"every rank; collectives {c0['census']} (none "
+                          "on 'data')", flush=True)
+                    continue
+                kind = cells[name][2]
+                for rk in ranks:
+                    c = rk["cells"][name]
+                    check(c["finite"], f"{tag} {name}: non-finite rows")
+                    check(c["launches"] == c["want_launches"],
+                          f"{tag} {name} rank {rk['rank']}: launches "
+                          f"{c['launches']} != {c['want_launches']}")
+                    if name in census_want:
+                        check(c["census"] == census_want[name],
+                              f"{tag} {name} rank {rk['rank']}: collectives "
+                              f"{c['census']} != {census_want[name]}")
+                    check(c["stats"] == c0["stats"] and c["f"] == c0["f"],
+                          f"{tag} {name}: replicated stats differ between "
+                          "ranks")
+                line = f"check GSPMD {tag} {name}: "
+                if kind == "poly":
+                    e = math.sqrt(sum(rk["cells"][name]["diff_sq"]
+                                      for rk in ranks)
+                                  / sum(rk["cells"][name]["ref_sq"]
+                                        for rk in ranks))
+                    tol = MTOL_GSPMD_POLY
+                else:
+                    e = (max(rk["cells"][name]["diff"] for rk in ranks)
+                         / max(rk["cells"][name]["scale"] for rk in ranks))
+                    tol = MTOL_GSPMD_ADAPT if kind == "adaptive" \
+                        else MTOL_SHARD
+                check(e <= tol, f"{tag} {name} vs single-device {e:.2e}")
+                line += f"vs the single-device port {e:.2e} (tol {tol:g})"
+                if kind == "adaptive":
+                    want_s = {k: v for k, v in sstats[name].items()
+                              if k not in ("final_tau",)}
+                    got_s = {k: v for k, v in c0["stats"].items()
+                             if k not in ("final_tau",)}
+                    check(got_s == want_s, f"{tag} {name}: stats {got_s} "
+                          f"!= the single-device {want_s}")
+                    line += f"; stats equal the single-device call's {got_s}"
+                line += (f"; launches {c0['launches']} on every rank (its "
+                         f"counters imply {c0['want_launches']}); "
+                         f"collectives {c0['census']}")
+                if name in census_want:
+                    line += " as its parameters imply"
+                line += "; replicated stats bit-identical across ranks"
+                if "oracle_sq" in c0:
+                    eo = math.sqrt(sum(rk["cells"][name]["oracle_sq"]
+                                       for rk in ranks)
+                                   / sum(rk["cells"][name]["oracle_norm_sq"]
+                                         for rk in ranks))
+                    check(eo <= MTOL_SCIPY64, f"{tag} {name} vs scipy "
+                          f"{eo:.2e}")
+                    line += f"; vs scipy {eo:.2e} (tol {MTOL_SCIPY64:g})"
+                print(line, flush=True)
+            for name, t in ranks[0]["ms"].items():
+                ms[(tag, name)] = t
+            print(f"GSPMD {tag}: {time.perf_counter() - t1:.1f} s (ranks "
+                  "started, run and checked)", flush=True)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return counts, ms, singles
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port's main path "
                                  "on one NVIDIA GPU (module doc).")
@@ -1664,6 +2226,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     if args.shard_rank is not None:
+        if args.shard_mode.startswith("gspmd"):
+            return gspmd_rank_main(args)
         return shard_rank_main(args)
 
     import exponentialutilities_jl_torch as et
@@ -2215,6 +2779,10 @@ def main() -> int:
                   "blocks give the aligned result bit for bit", flush=True)
             del xo, bo
         del blocks
+        # B7 on the GSPMD route's halo-extended slabs, B8 on a rank's block
+        # rows against the whole x (the fifth path's products)
+        gspmd_kernel_checks(et, dev, dt, KTOL[dname[dt]], opB3,
+                            np.random.default_rng(SEED + 17))
         for label, d64 in packs.items():
             d = d64.to(dtype=dt)
             x = vec(d.n, dt, rng2)
@@ -2904,6 +3472,15 @@ def main() -> int:
     for k in ("fused_sweep", "fused_sweep_var", "sweep_stage"):
         check(shard_counts[k] > 0, f"kernel {k} never launched on the "
               "sharded path")
+
+    # the fifth path: the GSPMD route (parallel.shard_operator and the
+    # ordinary drivers), ranks sharing this card
+    gspmd_counts, gspmd_ms, gspmd_singles = gspmd_path(et, dev, card, opB3)
+    print(f"launches of the GSPMD path (every rank of every run): "
+          f"{ {k: v for k, v in gspmd_counts.items() if v} }", flush=True)
+    for k in ("banded_spmv", "blockell_spmv"):
+        check(gspmd_counts[k] > 0, f"kernel {k} never launched on the "
+              "GSPMD path")
 
     # the kernel-driving passes make no host syncs
     lo, hi = op3[f64].spectral_bounds_hint()
@@ -3619,6 +4196,18 @@ def main() -> int:
                 print(f"time sharded {tag} {name}: {shard_ms[(tag, name)]:.3f}"
                       f" ms (rank 0, median of {reps}); single-device "
                       f"{t1:.3f} ms {card}", flush=True)
+    # the fifth path: rank 0's CUDA-event medians beside the single-device
+    # call on this card (the same caveats)
+    for name, single in gspmd_singles.items():
+        long = name in GSPMD_LONG
+        t1 = median_ms(single, reps=1, warmup=0) if long else \
+            median_ms(single, reps=5, warmup=1)
+        how = "one call" if long else "median of 5"
+        for tag in sorted({tg for tg, _ in gspmd_ms}):
+            if (tag, name) in gspmd_ms:
+                print(f"time GSPMD {tag} {name}: {gspmd_ms[(tag, name)]:.3f}"
+                      f" ms (rank 0, {how}); single-device {t1:.3f} ms "
+                      f"({how}) {card}", flush=True)
     for tag in sorted({tg for tg, _ in shard_ms}):
         print(f"time sharded {tag} {N3}^3 pass 1 m=20: "
               f"{shard_ms[(tag, 'pass1 sharded')]:.3f} ms, the same sweeps "
@@ -3651,7 +4240,8 @@ def main() -> int:
                         "replaces": REPLACES[name],
                         "launches": (main_counts[name] + poly_counts[name]
                                      + dense_counts[name]
-                                     + shard_counts[name]),
+                                     + shard_counts[name]
+                                     + gspmd_counts[name]),
                         "max_abs_err": kerr[name], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by,

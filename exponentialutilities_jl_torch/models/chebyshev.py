@@ -22,7 +22,11 @@ small 2-D/3-D grid: B6; larger grids: B3, one sweep per degree), a real
 (m, p) stack on a 1-D stencil through B4 when ``resident_multi_ok``
 holds; otherwise it runs as the plain torch loop ``_chebyshev_apply_scan``
 (whose matvecs reach the SpMV kernels B7-B9). ``chebyshev_apply`` unwraps a
-``SortedSellOperator`` on entry (``hoist_conjugation``).
+``SortedSellOperator`` on entry (``hoist_conjugation``). A row-sharded
+operator (``parallel.shard_operator``) takes the plain loop on this rank's
+rows; the recurrence has no reductions, and the drivers' finiteness check
+is one over every rank (``utils/comm.py``), so a divergence raises on all
+of them.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch
 from ..ops.kernels.dispatch import (chebyshev_rows, recurrence_engine,
                                     resident_multi_ok)
 from ..ops.sparse import hoist_conjugation
+from ..utils.comm import all_finite, operator_comm
 from ..utils.device import action_vector
 from ..utils.linop import aslinearoperator
 from ..utils.precision import full_precision
@@ -52,7 +57,8 @@ def spectral_bounds(A, probe=None, *, k: int = 30, seed: int = 0,
     per-pair residuals beta_k |s_k| plus ``pad_rel`` of the width, as the
     union over ``nprobe`` random probes (``torch.Generator`` seeded with
     seed, seed + 1, ...) or over the one given ``probe``. Returns host
-    floats."""
+    floats. A row-sharded operator takes this rank's rows of the same
+    global probes (a given ``probe`` is this rank's rows)."""
     from ..ops.krylov import lanczos_coeffs
 
     op = aslinearoperator(A)
@@ -60,11 +66,15 @@ def spectral_bounds(A, probe=None, *, k: int = 30, seed: int = 0,
         raise ValueError("spectral_bounds requires a Hermitian operator")
     n = op.shape[0]
     k = min(k, n)
+    comm = operator_comm(op)
+    nl = n if comm is None else n // comm.axis_size()
+    lo_row = 0 if comm is None else comm.axis_index() * nl
     if probe is None:
         probes = []
         for i in range(max(1, nprobe)):
             g = torch.Generator().manual_seed(seed + i)
             probes.append(torch.randn(n, generator=g, dtype=torch.float64)
+                          [lo_row:lo_row + nl]
                           .to(dtype=op.dtype, device=op.device))
     else:
         probes = [probe]
@@ -294,11 +304,12 @@ def chebyshev_apply(A, b, ucoeffs, bounds, *, fused: bool | None = None):
     return _chebyshev_apply_scan(op, b, coeffs, c, 1.0 / h)
 
 
-def _check_finite(U, what: str):
+def _check_finite(U, what: str, comm=None):
     """No-silent-NaN guard of the Chebyshev drivers: a spectral interval
     that fails to enclose the spectrum makes the U_k recurrence diverge.
-    The one host sync per driver call."""
-    if not bool(torch.isfinite(U).all()):
+    The one host sync per driver call; with ``comm`` the check covers every
+    rank's rows, so every rank raises."""
+    if not bool(all_finite(U, comm)):
         raise FloatingPointError(
             f"{what} diverged (non-finite result): check that the "
             "spectral bounds enclose A's spectrum (pass bounds=(lo, hi) "
@@ -342,7 +353,7 @@ def expv_chebyshev(t, A, b, *, bounds=None, m: int | None = None,
     full, c, h = _full_exp_coeffs(t, lo, hi, tol, m)
     return _check_finite(
         chebyshev_apply(op, b, _coeffs_to(full, b), (lo, hi), fused=fused),
-        "expv_chebyshev")
+        "expv_chebyshev", operator_comm(op))
 
 
 def _coeffs_to(C, b):
@@ -381,7 +392,7 @@ def phiv_chebyshev(t, A, b, k: int, *, bounds=None, m: int | None = None,
                      tol, samples, m_fixed=m)          # (m, k+1)
     return _check_finite(
         chebyshev_apply(op, b, _coeffs_to(C, b), (lo, hi), fused=fused),
-        "phiv_chebyshev")
+        "phiv_chebyshev", operator_comm(op))
 
 
 def funm_chebyshev(f, A, b, *, bounds=None, m: int | None = None,
@@ -476,5 +487,6 @@ def phiv_timestep_chebyshev(ts, A, B, *, bounds=None, tol: float = 1e-7,
             U = Uj if U is None else U + Uj
     else:
         U = _chebyshev_combination_scan(op, B.T, Cj, c, 1.0 / h).T
-    U = _check_finite(U, "phiv_timestep_chebyshev")       # (n, nt)
+    U = _check_finite(U, "phiv_timestep_chebyshev",
+                      operator_comm(op))                  # (n, nt)
     return U[:, 0] if scalar_ts else U

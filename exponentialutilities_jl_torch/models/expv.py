@@ -40,6 +40,11 @@ B7's matvec has a reverse rule (``ops/sparse.py``), and the grad rule of
 ``ops/kernels/dispatch.py`` sends a two-pass call that requires grad to
 the plain torch passes.
 
+A row-sharded operator (``parallel.shard_operator``) runs every path but
+the kernels' on this rank's rows of b: the operator's ``comm``
+(``utils/comm.py``) reduces the dots and norms, and the result is this
+rank's rows.
+
 ``reduced="host"`` raises NotImplementedError (ROADMAP A6): the JAX
 package stages the reduced problem on the host only because the TPU has
 no float64 LU; the H100 has one, so the device reduced exponential is
@@ -56,6 +61,7 @@ from ..ops.krylov import (KrylovBasis, arnoldi, arnoldi_coeffs, arnoldi_replay,
                           expand_compact_hessenberg, lanczos, lanczos_coeffs,
                           lanczos_replay)
 from ..ops.sparse import hoist_conjugation
+from ..utils.comm import operator_comm, vdot, vector_norm
 from ..utils.device import action_vector
 from ..utils.linop import LinearOperator, aslinearoperator
 from ..utils.precision import full_precision
@@ -66,14 +72,14 @@ __all__ = ["expv", "expv_from_basis", "build_subspace", "make_expv",
 
 def build_subspace(op: LinearOperator, b, m: int, *, tol: float = 1e-7,
                    iop: int = 0, reorth: bool = True,
-                   hermitian: bool | None = None, comm=None) -> KrylovBasis:
+                   hermitian: bool | None = None) -> KrylovBasis:
     """Lanczos factorization of a Hermitian operator, Arnoldi of any
-    other (the reference's auto-switch on ``ishermitian``). ``comm``: the
-    ``parallel.MeshAxis`` that b's rows are sharded over, or None."""
+    other (the reference's auto-switch on ``ishermitian``). A row-sharded
+    ``op`` takes this rank's rows of b (``ops/krylov.arnoldi``)."""
     herm = op.is_hermitian if hermitian is None else hermitian
     if herm:
-        return lanczos(op, b, m, tol=tol, comm=comm)
-    return arnoldi(op, b, m, iop=iop, tol=tol, reorth=reorth, comm=comm)
+        return lanczos(op, b, m, tol=tol)
+    return arnoldi(op, b, m, iop=iop, tol=tol, reorth=reorth)
 
 
 def _t_dtype(t):
@@ -139,14 +145,13 @@ def _lanczos_reduced_coeffs(alphas, betas, beta0, t):
 
 
 @full_precision
-def _expv_two_pass(op, b, t, m: int, comm=None):
+def _expv_two_pass(op, b, t, m: int):
     """Storage-free Hermitian expv on the plain torch passes
     (``ops.krylov.lanczos_coeffs`` / ``lanczos_replay``): 2m matvecs,
-    O(n) memory; ``comm`` as in ``build_subspace``."""
-    alphas, betas, beta0, m_used, broke = lanczos_coeffs(op, b, m,
-                                                         comm=comm)
+    O(n) memory."""
+    alphas, betas, beta0, m_used, broke = lanczos_coeffs(op, b, m)
     coeffs = _lanczos_reduced_coeffs(alphas, betas, beta0, t)
-    out = lanczos_replay(op, b, coeffs, alphas, betas, m, comm=comm)
+    out = lanczos_replay(op, b, coeffs, alphas, betas, m)
     return torch.where(beta0 > 0, out, 0.0)
 
 
@@ -179,17 +184,19 @@ def _expv_two_pass_arnoldi(op, b, t, m: int, win: int,
 
 
 @full_precision
-def _expv_error_estimate(op, b, t, m: int, atol: float, rtol: float):
+def _expv_error_estimate(op, b, t, m: int, atol: float, rtol: float,
+                         comm=None):
     """Hermitian Lanczos expv stopped by Saad's Er2 a-posteriori estimate
     sigma = beta_j beta0 |e_j^T exp(t T_j) e1| < atol + rtol beta0.
 
     A host loop: each Lanczos step reads its stop flag to the host (one
     sync per step), where the JAX package keeps the loop on the device.
-    Returns (w, iterations)."""
+    ``comm``: b's rows are sharded (the flag comes from reduced scalars,
+    the same on every rank). Returns (w, iterations)."""
     n = b.shape[0]
     dt = b.dtype
     rdt = torch.empty((), dtype=dt).real.dtype
-    beta0 = torch.linalg.vector_norm(b).to(rdt)
+    beta0 = vector_norm(b, comm).to(rdt)
     eps = atol + rtol * beta0
     v0 = torch.where(beta0 > 0, 1.0 / torch.where(beta0 > 0, beta0, 1.0),
                      0.0).to(rdt) * b
@@ -205,11 +212,11 @@ def _expv_error_estimate(op, b, t, m: int, atol: float, rtol: float):
     while j < m and not done:
         x = V[j]
         y = op.matvec(x).to(dt)
-        alpha = torch.vdot(x, y).real.to(rdt)
+        alpha = vdot(x, y, comm).real.to(rdt)
         y = y - alpha * x
         if j >= 1:
             y = y - betas[j - 1] * V[j - 1]
-        nrm = torch.linalg.vector_norm(y).to(rdt)
+        nrm = vector_norm(y, comm).to(rdt)
         alphas[j] = alpha
         betas[j] = nrm
         V[j + 1] = torch.where(nrm > 0, y / torch.where(nrm > 0, nrm, 1.0), 0)
@@ -273,7 +280,8 @@ def expv(t, A, b, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
             raise NotImplementedError(
                 "error_estimate mode requires a Hermitian operator")
         rtol = tol ** 0.5 if rtol is None else rtol
-        w, iters = _expv_error_estimate(op, b, t, m, atol, rtol)
+        w, iters = _expv_error_estimate(op, b, t, m, atol, rtol,
+                                        operator_comm(op))
         return (w, iters) if return_info else w
     if mode != "happy_breakdown":
         raise ValueError(f"unknown expv mode {mode!r}")
@@ -331,7 +339,10 @@ def expv_batched(t, A, B, *, m: int = 30, tol: float = 1e-7,
                  two_pass: bool = False, iop: int = 0, reorth: bool = True):
     """exp(tA) b_i for each row b_i of B (batch, n): one Krylov subspace per
     row, each through ``expv`` (module doc), so each column takes its scalar
-    call's path and kernels. Returns (batch, n). ``reduced="host"`` raises
+    call's path and kernels. With a row-sharded operator B holds this
+    rank's columns of each row (and, on a data x shard mesh, only its
+    data slice of the rows): the reductions run over the operator's axis
+    alone. Returns (batch, n). ``reduced="host"`` raises
     NotImplementedError, as in ``expv``."""
     _device_reduced(reduced)
     op = aslinearoperator(A)

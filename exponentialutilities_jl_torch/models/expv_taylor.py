@@ -17,6 +17,11 @@ no reduced problem and no basis storage.
   test and the finiteness stop stay device masks, so the loop makes no
   host read. With ``opnorm`` given, an operator call makes none at all;
   a dense call reads its norms once to choose (m*, s).
+
+A row-sharded operator (``parallel.shard_operator``) runs the operator
+path on this rank's rows with the global operator's ``opnorm_hint``; the
+early-termination test and the finiteness stop take their maxima over
+every rank (one pmax a step), so every rank stops at the same term.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from fractions import Fraction
 import numpy as np
 import torch
 
+from ..utils.comm import operator_comm
 from ..utils.device import action_vector, host_tensor
 from ..utils.linop import LinearOperator
 from ..utils.precision import full_precision
@@ -111,39 +117,49 @@ def _select_parameters(nA: float, etas, thetas):
 
 
 def _taylor_loop(matvec, b, scale, eta, m_star, s, eps, m_max: int,
-                 s_max: int):
+                 s_max: int, comm=None):
     """s stages of the degree-m* Taylor recurrence with the two-term
     early-termination test. b is one system (n,) or a stack (B, n); m*
     and s are ints, or (B,) tensors of a stack with each system masked
     past its own, and the loops run to the host bounds ``m_max`` and
     ``s_max``. The early stop and the finiteness stop are device masks:
-    no host read."""
+    no host read. ``comm``: b's rows are sharded, and the maxima and the
+    finiteness are the global ones."""
     rdt = _real(b.dtype)
 
-    def amax(x):
-        return x.abs().amax(dim=-1).to(rdt)
+    def amax(*xs):
+        vals = [x.abs().amax(dim=-1).to(rdt) for x in xs]
+        if comm is None:
+            return vals
+        return list(comm.pmax(torch.stack(vals)).unbind(0))
+
+    def finite(x):
+        ok_ = torch.isfinite(x).all(dim=-1)
+        if comm is None:
+            return ok_
+        return comm.pmax((~ok_).to(rdt)) == 0
 
     def col(mask):
         return mask[..., None]
 
     F = b
-    ok = torch.isfinite(b).all(dim=-1)
+    ok = finite(b)
     for k in range(s_max):
         v, F2 = F, F
-        c1 = amax(v)
+        (c1,) = amax(v)
         done = torch.zeros_like(ok)
         for j in range(1, m_max + 1):
             vn = matvec(v) * (scale / j)
             Fn = F2 + vn
-            c2 = amax(vn)
-            stop = (c1 + c2) <= eps * amax(Fn)
+            c2, cF = amax(vn, Fn)
+            stop = (c1 + c2) <= eps * cF
             live = ~done & (j <= m_star)
             v = torch.where(col(live), vn, v)
             F2 = torch.where(col(live), Fn, F2)
             c1 = torch.where(live, c2, c1)
             done = done | (live & stop)
         F = torch.where(col(ok & (k < s)), F2 * eta, F)
-        ok = ok & torch.isfinite(F).all(dim=-1)
+        ok = ok & finite(F)
     return F
 
 
@@ -250,7 +266,8 @@ def _expv_taylor_op(t, op, b, tol, opnorm, mu):
     def mv(x):
         return op.matvec(x) - mu * x
 
-    return _taylor_loop(mv, b.to(dt), scale, eta, m_star, s, tol, m_star, s)
+    return _taylor_loop(mv, b.to(dt), scale, eta, m_star, s, tol, m_star, s,
+                        operator_comm(op))
 
 
 def expv_taylor_batched(t, As, bs, *, tol: float | None = None):

@@ -39,6 +39,11 @@ result raises, and so does a result whose norm exceeds the bound
 (1 + sqrt 2) sup_E |f| |b| that the claimed ellipse implies (times a
 slack of 64), which catches a finite but wrong answer from an ellipse
 that does not enclose W(A).
+
+A row-sharded operator (``parallel.shard_operator``) runs the plain loops
+on this rank's rows with the global operator's ellipse (its
+``fov_ellipse_hint``); the guard's norms and finiteness are reduced over
+the operator's ``comm``, so every rank raises together.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ import torch
 
 from ..ops.sparse import BandedOperator
 from ..ops.stencil import StencilOperator
+from ..utils.comm import all_finite, operator_comm, vector_norm
 from ..utils.device import action_vector
 from ..utils.linop import DenseOperator, aslinearoperator
 from ..utils.precision import full_precision
@@ -103,8 +109,13 @@ def fov_ellipse(A) -> tuple[float, float, float]:
     [min eig H, max eig H], Im W(A) within +-max|eig S'|. Exact on a dense
     operator (host eigvalsh), Gershgorin on ``BandedOperator`` and
     constant ``StencilOperator``; a Hermitian operator of another kind
-    gets its ``real_interval`` and beta = 0."""
+    gets its ``real_interval`` and beta = 0. An operator with a
+    ``fov_ellipse_hint`` (a sharded one: its global operator's ellipse)
+    answers for itself."""
     op = aslinearoperator(A)
+    hint = getattr(op, "fov_ellipse_hint", None)
+    if callable(hint):
+        return hint()
     if isinstance(op, DenseOperator):
         M = op.A.detach().cpu().numpy()
         wh = np.linalg.eigvalsh((M + M.conj().T) / 2)
@@ -275,13 +286,13 @@ def _faber_expv_setup(op, t, ellipse, tol, m, max_z, *,
     return a, c, gamma, rho, q, m_used, log_sup
 
 
-def _norms_read(U, extra=()):
+def _norms_read(U, extra=(), comm=None):
     """The one host read of a result: (finite, max column norm, *extra
-    norms)."""
+    norms); over every rank's rows with ``comm``."""
     U2 = U if U.ndim == 2 else U[:, None]
     rdt = U2.real.dtype if U2.is_complex() else U2.dtype
-    vals = torch.stack([torch.isfinite(U2).all().to(rdt),
-                        torch.linalg.vector_norm(U2, dim=0).max().to(rdt),
+    vals = torch.stack([all_finite(U2, comm).to(rdt),
+                        vector_norm(U2, comm, dim=0).max().to(rdt),
                         *[e.to(rdt) for e in extra]]).tolist()
     return bool(vals[0]), vals[1], vals[2:]
 
@@ -350,7 +361,8 @@ def expv_faber(t, A, b, *, ellipse=None, tol: float = 1e-7,
                            1.0 / gamma, rho, q)
     if not b.is_complex() and out.is_complex():
         out = out.real
-    read = _norms_read(out, (torch.linalg.vector_norm(b),))
+    comm = operator_comm(op)
+    read = _norms_read(out, (vector_norm(b, comm),), comm)
     return _check_finite_faber(out, "expv_faber",
                                q * (np.log(_CROUZEIX) + log_sup),
                                read[2][0], read=read)
@@ -403,7 +415,8 @@ def phiv_faber(t, A, b, k: int, *, ellipse=None, tol: float = 1e-7,
                          rho, 1)
     if not b.is_complex() and W.is_complex():
         W = W.real
-    read = _norms_read(W, (torch.linalg.vector_norm(b),))
+    comm = operator_comm(op)
+    read = _norms_read(W, (vector_norm(b, comm),), comm)
     log_bound = (np.log(_CROUZEIX)
                  + np.log(max(float(np.abs(V).max()), 1e-300)))
     return _check_finite_faber(W, "phiv_faber", log_bound, read[2][0],
@@ -465,7 +478,8 @@ def phiv_timestep_faber(ts, A, B, *, ellipse=None, tol: float = 1e-7,
         U = _constant_combination(ts_in, c, B, p)
         return U[:, 0] if scalar_ts else U
 
-    Bnorms = torch.linalg.vector_norm(B, dim=0).tolist()
+    comm = operator_comm(op)
+    Bnorms = vector_norm(B, comm, dim=0).tolist()
     eng = _engine(op, B, fused)
 
     def march(snaps):
@@ -536,7 +550,7 @@ def phiv_timestep_faber(ts, A, B, *, ellipse=None, tol: float = 1e-7,
     states = _signed_marches(ts_in, march)
     U = torch.stack([u for u, _ in states], dim=-1)
     finite, _, nrms = _norms_read(
-        U, tuple(torch.linalg.vector_norm(U, dim=0)))
+        U, tuple(vector_norm(U, comm, dim=0)), comm)
     _check_finite_faber(U, "phiv_timestep_faber", read=(finite, 0.0, nrms))
     for i, (_, cp) in enumerate(states):
         if np.isfinite(cp) and nrms[i] > _GUARD_SLACK * max(cp, 1e-300):

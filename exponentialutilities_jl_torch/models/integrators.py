@@ -35,6 +35,15 @@ controller reads one (finiteness, error norm, phi error) triple per
 attempt and moves to the next bucket of ``_EXPRB_M_LADDER`` when a phi
 combination breaches its tolerance, so its steps and rejections are those
 of the JAX device loop.
+
+Sharded state. An integrator that takes only ``f`` and ``u0`` takes
+``comm=`` (a ``parallel.MeshAxis``; the counterpart of the JAX package's
+row-sharded ``u0``): u0 is then this rank's rows, f maps this rank's rows
+to this rank's rows (through an operator of ``parallel.shard_operator``),
+the Jacobians carry ``comm``, and the WRMS norm, sum |b| of the augmented
+scaling and the finiteness checks reduce over the axis, so every rank
+takes the single-device call's steps and rejections. ``etdrk4`` and
+``etdrk4_device`` read ``comm`` from L.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ import numpy as np
 import torch
 
 from ..ops.expm import _pow2, expm_higham2005, expm_taylor_masked
+from ..utils.comm import all_finite, operator_comm, psum
 from ..utils.device import action_vector, host_tensor
 from ..utils.linop import JacobianOperator, LinearOperator, aslinearoperator
 from ..utils.precision import full_precision
@@ -80,15 +90,20 @@ def _phi_comb(J, bs, h, *, tol, kw):
     return w
 
 
-def _wrms_tensor(err_vec, u, u_new, rtol, atol):
+def _wrms_tensor(err_vec, u, u_new, rtol, atol, comm=None):
     """Per-component weighted RMS error norm (OrdinaryDiffEq /
     Hairer-Wanner), a 0-d tensor: sqrt(mean((err_i / (atol_i + rtol
     max(|u_i|, |u_new_i|)))^2)); a zero scale (atol = 0 and a component
     zero in both states) gives 0 for a zero error and inf otherwise,
-    never 0/0."""
+    never 0/0. With ``comm`` the mean is over every rank's rows (a psum
+    of the local sums over the global n)."""
     sc = atol + rtol * torch.maximum(u.abs(), u_new.abs())
     ratio = err_vec / torch.clamp_min(sc, torch.finfo(sc.dtype).tiny)
-    return torch.sqrt(torch.mean(ratio.abs() ** 2))
+    if comm is None:
+        return torch.sqrt(torch.mean(ratio.abs() ** 2))
+    # the layer splits rows evenly: n = n_local P
+    return torch.sqrt(comm.psum((ratio.abs() ** 2).sum())
+                      / (ratio.shape[0] * comm.axis_size()))
 
 
 def _atol(atol, u):
@@ -119,7 +134,7 @@ def _controller(dt, enorm, order, *, enorm_prev=None, safety=0.9,
 
 def _run_rosenbrock(step_fn, order, f, u0, t_span, *, jac, dt0, rtol, atol,
                     max_steps, return_trajectory, phi_tol, kiops_kwargs,
-                    adaptive=True, controller="pi", device=None):
+                    adaptive=True, controller="pi", device=None, comm=None):
     t0, tf = float(t_span[0]), float(t_span[1])
     if tf <= t0:
         raise ValueError("t_span must satisfy tf > t0")
@@ -131,7 +146,7 @@ def _run_rosenbrock(step_fn, order, f, u0, t_span, *, jac, dt0, rtol, atol,
     atol_t = _atol(atol, u)
     stats = ExpIntStats()
     make_jac = (jac if jac is not None
-                else (lambda uu: JacobianOperator(f, uu)))
+                else (lambda uu: JacobianOperator(f, uu, comm=comm)))
     dt = float(dt0) if dt0 else (tf - t0) / 100
     t = t0
     ts, us = [t0], [u]
@@ -149,8 +164,8 @@ def _run_rosenbrock(step_fn, order, f, u0, t_span, *, jac, dt0, rtol, atol,
         stats.n_f_evals += nf
         stats.n_kiops += nk
         finite, enorm = torch.stack([
-            torch.isfinite(u_new).all().to(atol_t.dtype),
-            _wrms_tensor(err_vec, u, u_new, rtol, atol_t)]).tolist()
+            all_finite(u_new, comm).to(atol_t.dtype),
+            _wrms_tensor(err_vec, u, u_new, rtol, atol_t, comm)]).tolist()
         if not finite:
             enorm = math.inf
         if not adaptive:
@@ -194,7 +209,7 @@ def _run_rosenbrock(step_fn, order, f, u0, t_span, *, jac, dt0, rtol, atol,
                   }[stats.info]
         raise FloatingPointError(
             f"exponential integrator stopped at t={t:.6g} < tf={tf:.6g}: "
-            f"{reason} (u finite: {bool(torch.isfinite(u).all())}; "
+            f"{reason} (u finite: {bool(all_finite(u, comm))}; "
             "loosen tolerances, raise max_steps, or check f/Jacobian)")
     if return_trajectory:
         return np.asarray(ts), torch.stack(us, dim=0), stats
@@ -235,7 +250,8 @@ def _step_exprb43(f, J, u, h, tol, kw):
 @full_precision
 def exprb32(f, u0, t_span, *, jac=None, dt0=None, rtol=1e-6, atol=1e-9,
             max_steps=100_000, return_trajectory=False, phi_tol=None,
-            adaptive=True, controller="pi", device=None, **kiops_kwargs):
+            adaptive=True, controller="pi", device=None, comm=None,
+            **kiops_kwargs):
     """Adaptive 3(2) exponential Rosenbrock for stiff u' = f(u).
 
     f: u -> f(u) in torch operations (forward-mode differentiable when
@@ -251,6 +267,8 @@ def exprb32(f, u0, t_span, *, jac=None, dt0=None, rtol=1e-6, atol=1e-9,
       min(rtol, 1e-7)/10).
     adaptive: False runs fixed steps of dt0.
     controller: "pi" (default) or "i".
+    comm: the ``parallel.MeshAxis`` that u's rows are sharded over (module
+      doc), or None.
     kiops_kwargs: forwarded to kiops (mmin, mmax, iop, two_pass, ...).
 
     Returns (u_final, ExpIntStats), or (ts, us, stats) with
@@ -264,13 +282,14 @@ def exprb32(f, u0, t_span, *, jac=None, dt0=None, rtol=1e-6, atol=1e-9,
                            max_steps=max_steps, adaptive=adaptive,
                            return_trajectory=return_trajectory,
                            phi_tol=phi_tol, kiops_kwargs=kiops_kwargs,
-                           controller=controller, device=device)
+                           controller=controller, device=device, comm=comm)
 
 
 @full_precision
 def exprb43(f, u0, t_span, *, jac=None, dt0=None, rtol=1e-8, atol=1e-11,
             max_steps=100_000, return_trajectory=False, phi_tol=None,
-            adaptive=True, controller="pi", device=None, **kiops_kwargs):
+            adaptive=True, controller="pi", device=None, comm=None,
+            **kiops_kwargs):
     """Adaptive 4(3) exponential Rosenbrock (see ``exprb32``)."""
     phi_tol = phi_tol if phi_tol is not None else min(rtol, 1e-7) / 10
     kiops_kwargs["return_stats"] = True
@@ -279,7 +298,7 @@ def exprb43(f, u0, t_span, *, jac=None, dt0=None, rtol=1e-8, atol=1e-11,
                            max_steps=max_steps, adaptive=adaptive,
                            return_trajectory=return_trajectory,
                            phi_tol=phi_tol, kiops_kwargs=kiops_kwargs,
-                           controller=controller, device=device)
+                           controller=controller, device=device, comm=comm)
 
 
 def _fixed_steps(t_span, dt) -> int:
@@ -306,12 +325,14 @@ def etdrk4(L, N, u0, t_span, dt, *, phi_tol=1e-9, return_trajectory=False,
       u+ = u + h[phi_1(hL)(Lu + N_1) + phi_2(hL)(-3N_1 + 2N_a + 2N_b - N_c)
                  + phi_3(hL)(4N_1 - 4N_a - 4N_b + 4N_c)]
 
-    u0's host data goes to L's device. Returns (u_final, ExpIntStats)
-    (or the trajectory); a non-finite state raises."""
+    u0's host data goes to L's device; over a sharded L (module doc) u0 is
+    this rank's rows. Returns (u_final, ExpIntStats) (or the trajectory);
+    a non-finite state raises."""
     t0 = float(t_span[0])
     h = float(dt)
     nsteps = _fixed_steps(t_span, dt)
     op = aslinearoperator(L)
+    comm = operator_comm(op)
     kiops_kwargs["return_stats"] = True
     u = action_vector(u0, op)
     stats = ExpIntStats()
@@ -345,7 +366,7 @@ def etdrk4(L, N, u0, t_span, dt, *, phi_tol=1e-9, return_trajectory=False,
         stats.steps += 1
         stats.n_f_evals += 4
         stats.n_kiops += 4
-        if not bool(torch.isfinite(u).all()):
+        if not bool(all_finite(u, comm)):
             raise FloatingPointError(
                 f"etdrk4: non-finite state at step {k + 1} "
                 f"(t={t0 + (k + 1) * h:.6g}) - reduce dt or check L/N")
@@ -375,7 +396,7 @@ def _phi_comb_device(op, B, taus, m: int, iop: int, expm_method: str,
     rdt = _real_dtype(torch.empty((), dtype=torch.promote_types(
         dt, torch.float32)))
     # nu = 2^-e, mu = 2^e with 2^e >= sum |b_1..b_p|, exact inverses
-    norm_u = B[:, 1:].abs().sum().to(rdt)
+    norm_u = psum(B[:, 1:].abs().sum(), operator_comm(op)).to(rdt)
     pos = norm_u > 0
     ex = torch.ceil(torch.log2(torch.clamp_min(norm_u,
                                                torch.finfo(rdt).tiny)))
@@ -402,8 +423,8 @@ def _phi_comb_device(op, B, taus, m: int, iop: int, expm_method: str,
     return (outs, errs) if with_err else outs
 
 
-def _check_final(u, what: str):
-    if not bool(torch.isfinite(u).all()):
+def _check_final(u, what: str, comm=None):
+    if not bool(all_finite(u, comm)):
         raise FloatingPointError(
             f"{what}: non-finite final state - raise m, reduce dt, or "
             "validate against the adaptive etdrk4/exprb drivers")
@@ -444,16 +465,16 @@ def etdrk4_device(L, N, u0, t_span, dt, *, m: int = 20, iop: int = 2,
     op = aslinearoperator(L)
     u = _etdrk4_scan(op, action_vector(u0, op), float(dt), N=N,
                      nsteps=nsteps, m=m, iop=iop, expm_method=expm_method)
-    return _check_final(u, "etdrk4_device")
+    return _check_final(u, "etdrk4_device", operator_comm(op))
 
 
 @full_precision
 def _exprb43_scan(u, h: float, *, f, nsteps: int, m: int, iop: int,
-                  expm_method: str):
+                  expm_method: str, comm=None):
     """nsteps fixed exprb43 steps at a fixed m, no host read."""
     zero = torch.zeros_like(u)
     for _ in range(nsteps):
-        J = JacobianOperator(f, u)
+        J = JacobianOperator(f, u, comm=comm)
         F1 = f(u)
         gn = F1 - J.matvec(u)
         U2, U3 = _phi_comb_device(J, torch.stack([u, gn, zero], 1),
@@ -471,7 +492,8 @@ def exprb43_device(f, u0, t_span, dt=None, *, adaptive=None, m: int = 20,
                    iop: int = 2, expm_method: str = "taylor",
                    m_max: int = 128, rtol=1e-8, atol=1e-11, phi_tol=None,
                    controller: str = "pi", max_steps: int = 100_000,
-                   return_stats: bool = False, snapshots=None, device=None):
+                   return_stats: bool = False, snapshots=None, device=None,
+                   comm=None):
     """exprb43 in the JAX package's device form (module doc).
 
     adaptive=False (the default when ``dt`` is given): fixed steps of dt
@@ -485,6 +507,9 @@ def exprb43_device(f, u0, t_span, dt=None, *, adaptive=None, m: int = 20,
       ending at tf, each a forced step endpoint; returns the (n, nt)
       states at those times.
 
+    comm: u's rows are sharded over this ``parallel.MeshAxis`` (module
+      doc).
+
     Returns u, or (u, ExpIntStats) with ``return_stats``. u0's host data
     goes to ``device``."""
     if adaptive is None:
@@ -495,7 +520,7 @@ def exprb43_device(f, u0, t_span, dt=None, *, adaptive=None, m: int = 20,
             expm_method=expm_method, rtol=rtol, atol=atol,
             phi_tol=phi_tol, controller=controller, max_steps=max_steps,
             return_stats=return_stats, adaptive=True, snapshots=snapshots,
-            device=device)
+            device=device, comm=comm)
     if snapshots is not None:
         raise ValueError(
             "snapshots requires adaptive=True in exprb43_device (the "
@@ -505,8 +530,8 @@ def exprb43_device(f, u0, t_span, dt=None, *, adaptive=None, m: int = 20,
         raise ValueError("adaptive=False requires dt")
     nsteps = _fixed_steps(t_span, dt)
     u = _exprb43_scan(host_tensor(u0, device), float(dt), f=f, nsteps=nsteps,
-                      m=m, iop=iop, expm_method=expm_method)
-    _check_final(u, "exprb43_device")
+                      m=m, iop=iop, expm_method=expm_method, comm=comm)
+    _check_final(u, "exprb43_device", comm)
     if return_stats:
         return u, ExpIntStats(steps=nsteps, n_f_evals=3 * nsteps,
                               n_kiops=3 * nsteps, final_m=m)
@@ -540,13 +565,15 @@ class _LoopState:
 
 @full_precision
 def _exprb_attempt(st: _LoopState, f, scheme: str, m: int, iop: int,
-                   expm_method: str, tf: float, rtol, atol):
+                   expm_method: str, tf: float, rtol, atol, comm=None):
     """One attempt of the device loop: (u_new, dt, finite, enorm,
-    eps_phi, nk_step) with the three scalars in one host read."""
+    eps_phi, nk_step) with the three scalars in one host read (the phi
+    errors come from replicated reduced scalars; with ``comm`` the
+    finiteness and the WRMS norm are reduced over the axis)."""
     u = st.u
     dt = min(st.dt, tf - st.t)
     zero = torch.zeros_like(u)
-    J = JacobianOperator(f, u)
+    J = JacobianOperator(f, u, comm=comm)
     F1 = f(u)
     gn = F1 - J.matvec(u)
     if scheme == "exprb43":
@@ -576,10 +603,10 @@ def _exprb_attempt(st: _LoopState, f, scheme: str, m: int, iop: int,
             with_err=True)
         err_vec = u_new - U2
         errs, nk_step = (e1, e2), 2
-    finite = torch.isfinite(u_new).all() & torch.isfinite(err_vec).all()
+    finite = all_finite(u_new, comm, err_vec)
     rdt = atol.dtype
     enorm = _wrms_tensor(torch.where(finite, err_vec, 0), u, u_new, rtol,
-                         atol)
+                         atol, comm)
     vals = torch.stack([finite.to(rdt), enorm.to(rdt),
                         torch.stack(errs).max().to(rdt)]).tolist()
     return u_new, dt, bool(vals[0]), vals[1], vals[2], nk_step
@@ -588,7 +615,7 @@ def _exprb_attempt(st: _LoopState, f, scheme: str, m: int, iop: int,
 def _exprb_device_loop(st: _LoopState, tf, t_eps, dt_floor, rtol, atol,
                        phi_tol, *, f, scheme: str, m: int, iop: int,
                        expm_method: str, max_steps: int, use_pi: bool,
-                       at_mmax: bool, adaptive: bool):
+                       at_mmax: bool, adaptive: bool, comm=None):
     """The JAX ``lax.while_loop`` program at one Krylov size m, as a host
     loop: attempts until tf, the attempt budget, an m request or a
     failure; updates ``st`` in place."""
@@ -597,7 +624,7 @@ def _exprb_device_loop(st: _LoopState, tf, t_eps, dt_floor, rtol, atol,
     while (st.t < tf - t_eps and st.steps + st.rejected < max_steps
            and st.want_m == 0 and st.info == 0):
         u_new, dt, finite, enorm, eps_phi, nk_step = _exprb_attempt(
-            st, f, scheme, m, iop, expm_method, tf, rtol, atol)
+            st, f, scheme, m, iop, expm_method, tf, rtol, atol, comm)
         if not finite:
             enorm = math.inf
         # kiops' own acceptance bound (omega = err/tol <= delta = 1.4 at
@@ -653,7 +680,7 @@ def _exprb_device_loop(st: _LoopState, tf, t_eps, dt_floor, rtol, atol,
 def _run_exprb_device(scheme, f, u0, t_span, dt0, *, m, m_max, iop,
                       expm_method, rtol, atol, phi_tol, controller,
                       max_steps, return_stats, adaptive, snapshots=None,
-                      device=None):
+                      device=None, comm=None):
     t0, tf = float(t_span[0]), float(t_span[1])
     if tf <= t0:
         raise ValueError("t_span must satisfy tf > t0")
@@ -689,7 +716,7 @@ def _run_exprb_device(scheme, f, u0, t_span, dt0, *, m, m_max, iop,
                 atol_t, phi_tol, f=f, scheme=scheme, m=m, iop=iop,
                 expm_method=expm_method, max_steps=max_steps,
                 use_pi=(controller == "pi"), at_mmax=(m >= m_max),
-                adaptive=adaptive)
+                adaptive=adaptive, comm=comm)
             if st.want_m == 0:
                 break
             m = _next_bucket(m, m_max)
@@ -723,7 +750,8 @@ def exprb32_device(f, u0, t_span, dt=None, *, adaptive=None, m: int = 20,
                    iop: int = 2, expm_method: str = "taylor",
                    m_max: int = 128, rtol=1e-6, atol=1e-9, phi_tol=None,
                    controller: str = "pi", max_steps: int = 100_000,
-                   return_stats: bool = False, snapshots=None, device=None):
+                   return_stats: bool = False, snapshots=None, device=None,
+                   comm=None):
     """exprb32 in the JAX package's device form (see ``exprb43_device``):
     the adaptive 3(2) controller when ``adaptive`` (the default with
     dt=None), finite-checked fixed steps of dt otherwise (in the same
@@ -740,4 +768,4 @@ def exprb32_device(f, u0, t_span, dt=None, *, adaptive=None, m: int = 20,
         expm_method=expm_method, rtol=rtol, atol=atol, phi_tol=phi_tol,
         controller=controller, max_steps=max_steps,
         return_stats=return_stats, adaptive=adaptive, snapshots=snapshots,
-        device=device)
+        device=device, comm=comm)

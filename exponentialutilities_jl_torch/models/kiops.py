@@ -28,6 +28,12 @@ exponential is told its 1-norm). A snapshot inside a substep ("phantom")
 adds the read of its exponential's 1-norm. W stays on the operator's
 device.
 
+Over a row-sharded operator (``parallel.shard_operator``) the augmented
+vectors are [this rank's rows; the p-entry tail], the tail replicated on
+every rank: the augmented operator's ``comm`` (``utils.comm.AugmentedAxis``)
+adds the tail to the Arnoldi dots and norms from axis index 0 only, and
+sum |u| is a psum, so every rank reads the single-device call's scalars.
+
 ``reduced="host"`` (the JAX package's float64 workaround for the TPU) is
 not ported and raises NotImplementedError.
 """
@@ -44,6 +50,7 @@ from ..ops.expm import expm_higham2005, expm_taylor
 from ..ops.krylov import (arnoldi, arnoldi_coeffs, arnoldi_extend,
                           arnoldi_replay, expand_compact_hessenberg)
 from ..ops.sparse import hoist_conjugation
+from ..utils.comm import AugmentedAxis, operator_comm, psum
 from ..utils.device import action_vector
 from ..utils.linop import LinearOperator, aslinearoperator
 from ..utils.precision import full_precision
@@ -56,17 +63,21 @@ __all__ = ["kiops", "KiopsStats", "AugmentedOperator"]
 
 class AugmentedOperator(LinearOperator):
     """The KIOPS augmented operator on vectors [x; x_aug] of length n+p:
-    y = [A x + B x_aug; shift(x_aug)]."""
+    y = [A x + B x_aug; shift(x_aug)]. Over a sharded ``op``, x is this
+    rank's rows (``n_main`` of them) and ``comm`` the augmented axis
+    (module doc)."""
 
     is_hermitian = False
 
     def __init__(self, op: LinearOperator, B):
         self.op = op
         self.B = B              # (n, p): the nu-scaled flipped u columns
+        axis = operator_comm(op)
+        self.comm = None if axis is None else AugmentedAxis(axis, B.shape[0])
 
     @property
     def n_main(self) -> int:
-        return self.op.shape[0]
+        return self.B.shape[0]
 
     @property
     def p_aug(self) -> int:
@@ -74,7 +85,7 @@ class AugmentedOperator(LinearOperator):
 
     @property
     def shape(self):
-        n = self.n_main + self.p_aug
+        n = self.op.shape[0] + self.p_aug
         return (n, n)
 
     @property
@@ -130,7 +141,7 @@ def _augmented_columns(op, u):
     if p == 0:
         p = 1
         u = torch.cat([u, torch.zeros_like(u)], dim=1)
-    norm_u = float(u[:, 1:].abs().sum())
+    norm_u = float(psum(u[:, 1:].abs().sum(), operator_comm(op)))
     if ppo > 1 and norm_u > 0:
         ex = math.ceil(math.log2(norm_u))
         nu, mu = math.ldexp(1.0, -ex), math.ldexp(1.0, ex)

@@ -31,6 +31,11 @@ Failure protocol: a divided-difference table that does not converge
 within its probe degree raises ValueError, one that overflows raises
 FloatingPointError, and ``phiv_timestep_leja`` raises on a non-finite
 result (one host read per call); nothing returns NaN silently.
+
+A row-sharded operator (``parallel.shard_operator``) runs the plain loops
+on this rank's rows: the interval is the global operator's
+(``real_interval`` reads its ``_gershgorin_real`` hook), the loops have no
+reductions, and the finiteness check covers every rank.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ import numpy as np
 import torch
 
 from ..ops.kernels.dispatch import recurrence_engine, resident_multi_ok
+from ..utils.comm import all_finite, operator_comm
 from ..utils.device import action_vector
 from ..utils.linop import DenseOperator, aslinearoperator
 from ..utils.precision import full_precision
@@ -488,7 +494,7 @@ def phiv_timestep_leja(ts, A, B, *, interval=None, tol: float = 1e-7,
 
     U = torch.stack(_signed_marches(ts_in, march), dim=-1)
     # the one host read of the call: divergence must surface, never NaN
-    if not bool(torch.isfinite(U).all()):
+    if not bool(all_finite(U, operator_comm(op))):
         raise FloatingPointError(
             "phiv_timestep_leja diverged (non-finite result): the "
             "operator's field of values likely has imaginary extent "

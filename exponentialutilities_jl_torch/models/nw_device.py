@@ -19,6 +19,9 @@ per tau trial (the trial's error estimate; every reduced exponential is
 told its 1-norm, snapshots included). No CUDA graph is captured: the
 loop's branches follow the values it reads.
 
+A row-sharded operator (``parallel.shard_operator``) runs as in
+``phiv_timestep``: this rank's rows of B, global n in the cost model.
+
 ``expm_method="auto"`` is ``"higham2005"`` (the H100 has float64 LU);
 ``"taylor"`` selects the solver-free engine.
 """
@@ -30,6 +33,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.comm import operator_comm, pmax
 from ..utils.linop import aslinearoperator
 from ..utils.device import action_vector
 from .expv import build_subspace
@@ -76,7 +80,7 @@ def _substeps(op, B, ts, st, tend, abstol, delta, gamma, p, m, iop,
     """Substeps at one Krylov size m until the end, ``max_steps``, a
     bucket request or a failure (the JAX ``_nw_device`` program); updates
     the state dict ``st`` in place."""
-    n = B.shape[0]
+    n = op.shape[0]             # global (sharded B: this rank's rows)
     kk = p + 1
     nt = len(ts)
     while (st["t"] < tend * (1 - 1e-14) and st["steps"] < max_steps
@@ -200,7 +204,8 @@ def phiv_timestep_device(ts, A, B, *, m: int = 10, tol: float = 1e-7,
     ts_arr = np.atleast_1d(np.asarray(ts, dtype=np.float64))
     ts_sorted = np.sort(ts_arr, kind="stable")
     tend = float(ts_sorted[-1])
-    n, ppo = B.shape
+    n_rows, ppo = B.shape
+    n = op.shape[0]
     p = ppo - 1
     if hermitian is None:
         hermitian = op.is_hermitian
@@ -209,7 +214,7 @@ def phiv_timestep_device(ts, A, B, *, m: int = 10, tol: float = 1e-7,
         expm_method = "higham2005"
     nnz_eff = float(nnz) if nnz > 0 else float(n) * float(n)
 
-    b0norm = float(B[:, 0].abs().max())
+    b0norm = float(pmax(B[:, 0].abs().max(), operator_comm(op)))
     if opnorm is None:
         # matrix-free scale from a first Hessenberg's 1-norm
         W0 = _compute_W(op, B[:, 0], B, 0.0, p)
@@ -223,7 +228,7 @@ def phiv_timestep_device(ts, A, B, *, m: int = 10, tol: float = 1e-7,
                                                  tend), 1e-300))
 
     st = {"u": B[:, 0], "t": 0.0, "tau": float(tau),
-          "U": torch.zeros((n, len(ts_sorted)), dtype=B.dtype,
+          "U": torch.zeros((n_rows, len(ts_sorted)), dtype=B.dtype,
                            device=B.device),
           "done": [False] * len(ts_sorted), "steps": 0, "rejections": 0,
           "matvecs": 0, "want_m": 0, "info": 0}

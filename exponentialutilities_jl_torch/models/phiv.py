@@ -25,7 +25,8 @@ two-pass one through the grad rule of ``ops/kernels/dispatch.py``.
 package. A ``SortedSellOperator`` is unwrapped on entry
 (``hoist_conjugation``), as in the JAX ``phiv``: the solve runs in the
 sorted basis and only the result is permuted back. A numpy ``b`` goes to
-the operator's device.
+the operator's device. A row-sharded operator (``parallel.shard_operator``)
+runs the plain paths on this rank's rows, as in ``models/expv.py``.
 """
 
 from __future__ import annotations
@@ -185,20 +186,16 @@ def _two_pass_reduced(alphas, betas, beta0, m_used, t, k: int, dt,
 
 
 @full_precision
-def _phiv_two_pass(op, b, t, m: int, k: int, differentiable: bool = False,
-                   comm=None):
+def _phiv_two_pass(op, b, t, m: int, k: int, differentiable: bool = False):
     """Storage-free Hermitian phi-actions on the plain torch passes
     (``ops.krylov.lanczos_coeffs`` / ``lanczos_replay``): (w (n, k+1),
-    err) without the (m+1, n) basis; ``comm`` as in
-    ``models.expv.build_subspace``."""
+    err) without the (m+1, n) basis."""
     from ..ops.krylov import lanczos_coeffs, lanczos_replay
 
-    alphas, betas, beta0, m_used, broke = lanczos_coeffs(op, b, m,
-                                                         comm=comm)
+    alphas, betas, beta0, m_used, broke = lanczos_coeffs(op, b, m)
     dt = torch.promote_types(b.dtype, torch.as_tensor(t).dtype)
     C2, err = _two_pass_reduced(alphas, betas, beta0, m_used, t, k, dt,
                                 differentiable)
-    w = lanczos_replay(op, b, C2 * beta0.to(dt), alphas, betas, m,
-                       comm=comm)
+    w = lanczos_replay(op, b, C2 * beta0.to(dt), alphas, betas, m)
     live = beta0 > 0
     return torch.where(live, w, 0.0), torch.where(live, err, 0.0)

@@ -26,6 +26,12 @@ snapshot. The fixed-(tau, m) steppers ``phiv_timestep_fused``,
 all: their reduced exponential keeps its squaring count on the device
 (``expm_taylor_masked``).
 
+A row-sharded operator (``parallel.shard_operator``) steps this rank's
+rows of B: the Krylov builders reduce over the operator's ``comm``, |b_0|
+is a pmax, and every adaptation decision reads replicated scalars, so the
+ranks take the single-device call's steps together. The global n decides
+the m buckets and the cost model.
+
 ``reduced="host"`` (the JAX package's float64 workaround for the TPU) is
 not ported and raises NotImplementedError.
 """
@@ -40,6 +46,7 @@ import numpy as np
 import torch
 
 from ..ops.sparse import hoist_conjugation
+from ..utils.comm import operator_comm, pmax
 from ..utils.device import action_vector
 from ..utils.linop import NegatedOperator, aslinearoperator
 from .expv import _device_reduced, build_subspace
@@ -368,13 +375,14 @@ def phiv_timestep(ts, A, B, *, tau: float = 0.0, m: int = 10,
     ts_arr = np.atleast_1d(np.asarray(ts, dtype=np.float64))
     ts_sorted = np.sort(ts_arr)
     tend = float(ts_sorted[-1])
-    n, ppo = B.shape
+    n_rows, ppo = B.shape
+    n = op.shape[0]             # global: the buckets and the cost model
     p = ppo - 1
     m = _bucket_m(m, n, m_max)
     stats = TimestepStats()
 
     u = B[:, 0]
-    b0norm = float(B[:, 0].abs().max())
+    b0norm = float(pmax(B[:, 0].abs().max(), operator_comm(op)))
 
     abstol = None
     if opnorm is not None:
@@ -402,7 +410,7 @@ def phiv_timestep(ts, A, B, *, tau: float = 0.0, m: int = 10,
     engine = (_TwoPassSubstep(op, tol, iop, hermitian, p) if two_pass
               else _BasisSubstep(op, tol, iop, hermitian, p, correct))
 
-    U = torch.zeros((n, len(ts_sorted)), dtype=B.dtype, device=B.device)
+    U = torch.zeros((n_rows, len(ts_sorted)), dtype=B.dtype, device=B.device)
     t = 0.0
     snapshot = 0
 

@@ -165,14 +165,16 @@ def banded_spmv(diags, offsets, x):
 def blockell_spmv(blocks, bcols, x):
     """y = A x for blocked ELL (module doc): kernel B8 on CUDA, its twin on
     CPU. ``blocks`` (nbr, w, br, bc) in x's dtype on CUDA, ``bcols``
-    (nbr, w) int32 in [0, nbc), ``x`` (n,) with n = nbr br = nbc bc. The
-    kernel gathers x by ``bcols`` unchecked (a check here would sync every
-    product): ``BlockELLOperator`` checks them once when built."""
+    (nbr, w) int32 in [0, nbc), ``x`` (nbc bc,): A may be rectangular
+    (nbr br rows; a sharded operator's block rows against the whole x).
+    The kernel gathers x by ``bcols`` unchecked (a check here would sync
+    every product): ``BlockELLOperator`` checks them once when built, and
+    the sharded one keeps the global operator's checked columns."""
     if x.device.type == "cpu":
         return blockell_spmv_ref(blocks, bcols, x)
     _build.check_operands("blockell_spmv", x, blocks, bcols)
     nbr, w, br, bc = blocks.shape
-    if x.shape != (nbr * br,) or bcols.shape != (nbr, w) or x.shape[0] % bc:
+    if x.dim() != 1 or bcols.shape != (nbr, w) or x.shape[0] % bc:
         raise ValueError(f"blockell_spmv: blocks {tuple(blocks.shape)}, "
                          f"bcols {tuple(bcols.shape)}, x {tuple(x.shape)}")
     y = torch.empty(nbr * br, dtype=x.dtype, device=x.device)

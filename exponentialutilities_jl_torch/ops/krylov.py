@@ -28,6 +28,7 @@ import dataclasses
 
 import torch
 
+from ..utils.comm import dots, operator_comm, vdot, vector_norm
 from ..utils.precision import full_precision
 
 __all__ = ["KrylovBasis", "arnoldi", "arnoldi_extend", "lanczos",
@@ -69,22 +70,10 @@ def _real_dtype(dt):
     return torch.empty((), dtype=dt).real.dtype
 
 
-def _norm(x, rdt, comm=None):
-    """2-norm of x; of the whole row-sharded vector with ``comm`` (local
-    partial sum, one psum)."""
-    if comm is None:
-        return torch.linalg.vector_norm(x).to(rdt)
-    return torch.sqrt(comm.psum((x.conj() * x).real.sum())).to(rdt)
-
-
-def _psum(v, comm):
-    return v if comm is None else comm.psum(v)
-
-
 def _start(b, comm=None):
     """(beta0, v0): |b| and b/|b| (zero vector when b = 0)."""
     rdt = _real_dtype(b.dtype)
-    beta0 = _norm(b, rdt, comm)
+    beta0 = vector_norm(b, comm).to(rdt)
     inv = torch.where(beta0 > 0, 1.0 / torch.where(beta0 > 0, beta0, 1.0), 0.0)
     return beta0, (inv * b).to(b.dtype)
 
@@ -107,13 +96,13 @@ def _arnoldi_step(op, V, H, j: int, win: int, tol: float, reorth: bool,
         # the later steps write V in place: autograd must save copies
         Vw, vj = Vw.clone(), vj.clone()
     y = op.matvec(vj).to(V.dtype)
-    h = _psum(Vw.conj() @ y, comm)
+    h = dots(Vw, y, comm)
     y = y - h @ Vw
     if reorth:
-        h2 = _psum(Vw.conj() @ y, comm)
+        h2 = dots(Vw, y, comm)
         y = y - h2 @ Vw
         h = h + h2
-    nrm = _norm(y, rdt, comm)
+    nrm = vector_norm(y, comm).to(rdt)
     now_broke = nrm < tol
     active = ~broke
     H[lo:j + 1, j] = torch.where(active, h, 0)
@@ -125,7 +114,7 @@ def _arnoldi_step(op, V, H, j: int, win: int, tol: float, reorth: bool,
 
 @full_precision
 def arnoldi(op, b, m: int, *, iop: int = 0, tol: float = 1e-7,
-            reorth: bool = True, comm=None) -> KrylovBasis:
+            reorth: bool = True) -> KrylovBasis:
     """Arnoldi factorization A V[j] ~ sum_i H[i, j] V[i] with (incomplete)
     classical Gram-Schmidt (module doc).
 
@@ -133,8 +122,13 @@ def arnoldi(op, b, m: int, *, iop: int = 0, tol: float = 1e-7,
     tol: happy-breakdown threshold on the residual norm.
     reorth: a second CGS pass (CGS2); False for the cheapest (IOP-style)
       iteration.
-    comm: the ``parallel.MeshAxis`` that b's rows are sharded over (the
-      basis then holds this rank's rows), or None."""
+
+    A row-sharded ``op`` (one that carries ``comm``, the
+    ``parallel.MeshAxis`` of its rows: ``utils.comm.operator_comm``) takes
+    this rank's rows of b, and the basis holds this rank's rows; each CGS
+    pass and each norm then costs one psum. Every builder below reads the
+    axis from its operator the same way."""
+    comm = operator_comm(op)
     n = b.shape[0]
     beta, v0 = _start(b, comm)
     V = torch.zeros((m + 1, n), dtype=b.dtype, device=b.device)
@@ -157,6 +151,7 @@ def arnoldi_extend(op, Ks: KrylovBasis, m_new: int, *, iop: int = 0,
     """Extend an Arnoldi factorization from m to ``m_new`` without
     repeating the first m matvecs: the kept rows and entries are copied
     into the larger buffers and the iteration continues from step m."""
+    comm = operator_comm(op)
     m_old = Ks.m
     if m_new <= m_old:
         raise ValueError(f"m_new={m_new} must exceed current m={m_old}")
@@ -171,19 +166,20 @@ def arnoldi_extend(op, Ks: KrylovBasis, m_new: int, *, iop: int = 0,
     broke, m_used = Ks.breakdown, Ks.m_used
     for j in range(m_old, m_new):
         broke, m_used = _arnoldi_step(op, V, H, j, win, tol, reorth, broke,
-                                      m_used)
+                                      m_used, comm)
     return KrylovBasis(V=V, H=H, beta=Ks.beta, m_used=m_used, breakdown=broke,
                        hermitian=False)
 
 
 @full_precision
 def lanczos(op, b, m: int, *, tol: float = 1e-7,
-            full_reorth: bool = False, comm=None) -> KrylovBasis:
+            full_reorth: bool = False) -> KrylovBasis:
     """Hermitian Lanczos three-term recurrence. H is real (alpha on the
     diagonal, beta on the sub- and superdiagonal). ``full_reorth=True``
     re-orthogonalizes each step against the whole basis (one GEMV).
-    ``comm``: as in ``arnoldi`` (a psum for alpha and one for the norm per
-    step, one more with ``full_reorth``)."""
+    A sharded ``op`` (``arnoldi``): a psum for alpha and one for the norm
+    per step, one more with ``full_reorth``."""
+    comm = operator_comm(op)
     n = b.shape[0]
     dt = b.dtype
     rdt = _real_dtype(dt)
@@ -199,13 +195,13 @@ def lanczos(op, b, m: int, *, tol: float = 1e-7,
     m_used = torch.zeros((), dtype=torch.int32, device=b.device)
     for j in range(m):
         y = op.matvec(vc)
-        alpha = _psum(torch.vdot(vc, y), comm).real.to(rdt)
+        alpha = vdot(vc, y, comm).real.to(rdt)
         y = y - alpha * vc
         y = y - bprev * vp
         if full_reorth:
-            h2 = torch.where(rows <= j, _psum(V.conj() @ y, comm), 0)
+            h2 = torch.where(rows <= j, dots(V, y, comm), 0)
             y = y - h2 @ V
-        nrm = _norm(y, rdt, comm)
+        nrm = vector_norm(y, comm).to(rdt)
         now_broke = nrm < tol
         active = ~broke
         beta = torch.where(active, nrm, 0.0)
@@ -230,9 +226,11 @@ def lanczos(op, b, m: int, *, tol: float = 1e-7,
 
 
 @full_precision
-def lanczos_coeffs(op, b, m: int, *, tol: float = 1e-7, comm=None):
+def lanczos_coeffs(op, b, m: int, *, tol: float = 1e-7):
     """Pass 1 of storage-free Lanczos: (alphas, betas, beta0, m_used,
-    breakdown) without keeping the basis. ``comm``: as in ``lanczos``."""
+    breakdown) without keeping the basis. A sharded ``op``: as in
+    ``lanczos``."""
+    comm = operator_comm(op)
     dt = b.dtype
     rdt = _real_dtype(dt)
     beta0, v0 = _start(b, comm)
@@ -243,9 +241,9 @@ def lanczos_coeffs(op, b, m: int, *, tol: float = 1e-7, comm=None):
     alphas, betas = [], []
     for j in range(m):
         y = op.matvec(vc)
-        alpha = _psum(torch.vdot(vc, y), comm).real.to(rdt)
+        alpha = vdot(vc, y, comm).real.to(rdt)
         y = y - alpha * vc - bprev * vp
-        nrm = _norm(y, rdt, comm)
+        nrm = vector_norm(y, comm).to(rdt)
         now_broke = nrm < tol
         active = ~broke
         vnext = torch.where(active & ~now_broke, _safe_normalize(y, nrm), 0.0)
@@ -260,11 +258,12 @@ def lanczos_coeffs(op, b, m: int, *, tol: float = 1e-7, comm=None):
 
 
 @full_precision
-def lanczos_replay(op, b, coeffs, alphas, betas, m: int, *, comm=None):
+def lanczos_replay(op, b, coeffs, alphas, betas, m: int):
     """Pass 2 of storage-free Lanczos: w = sum_j coeffs[j] v_j, each v_j
     regenerated from the recorded (alpha, beta) by the same recurrence as
     pass 1. ``coeffs`` (m,) gives w (n,); (m, p) gives w (n, p).
-    ``comm``: as in ``lanczos`` (one psum, the norm of b)."""
+    A sharded ``op``: one psum, the norm of b."""
+    comm = operator_comm(op)
     dt = b.dtype
     rdt = _real_dtype(dt)
     _, v0 = _start(b, comm)
@@ -307,11 +306,13 @@ def arnoldi_coeffs(op, b, m: int, win: int, *, tol: float = 1e-7):
 
     Returns (Hc, beta0, m_used, breakdown) with Hc (m, win+1) compact
     columns: Hc[j, :win] the projections onto the window rows (oldest to
-    newest) and Hc[j, win] = h_{j+1, j}."""
+    newest) and Hc[j, win] = h_{j+1, j}. A sharded ``op``: as in
+    ``arnoldi``."""
+    comm = operator_comm(op)
     n = b.shape[0]
     dt = b.dtype
     rdt = _real_dtype(dt)
-    beta0, v0 = _start(b)
+    beta0, v0 = _start(b, comm)
     W = torch.zeros((win, n), dtype=dt, device=b.device)
     W[-1] = v0
     Hc = torch.zeros((m, win + 1), dtype=dt, device=b.device)
@@ -320,9 +321,9 @@ def arnoldi_coeffs(op, b, m: int, win: int, *, tol: float = 1e-7):
     for j in range(m):
         Wv = _window_rows(W, j)
         y = op.matvec(W[-1]).to(dt)
-        h = Wv.conj() @ y
+        h = dots(Wv, y, comm)
         y = y - h @ Wv
-        nrm = _norm(y, rdt)
+        nrm = vector_norm(y, comm).to(rdt)
         now_broke = nrm < tol
         active = ~broke
         vnext = torch.where(active & ~now_broke, _safe_normalize(y, nrm), 0.0)
@@ -352,11 +353,12 @@ def arnoldi_replay(op, b, coeffs, Hc, m: int, win: int, *, final_coeff=None,
     """Pass 2: w = sum_j coeffs[j] v_j, regenerating the IOP basis from the
     recorded compact Hessenberg by the same recurrence as pass 1. coeffs
     (m,) or (m, p). With ``with_final=True``, ``final_coeff`` also weights
-    the (m+1)-th vector v_m."""
+    the (m+1)-th vector v_m. A sharded ``op``: one psum, the norm of b."""
+    comm = operator_comm(op)
     n = b.shape[0]
     dt = b.dtype
     rdt = _real_dtype(dt)
-    _, v0 = _start(b)
+    _, v0 = _start(b, comm)
     W = torch.zeros((win, n), dtype=dt, device=b.device)
     W[-1] = v0
     cdt = torch.promote_types(coeffs.dtype, dt)

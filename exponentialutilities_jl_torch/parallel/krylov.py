@@ -45,7 +45,8 @@ def _shard_op(op, mesh: Mesh, axis_name):
         return shard_stencil(op, mesh, axis_name)
     raise TypeError(
         f"no sharding rule for operator type {type(op).__name__}; use a "
-        "BandedOperator or StencilOperator")
+        "BandedOperator or StencilOperator (or the GSPMD route, "
+        "parallel.shard_operator, and the ordinary drivers)")
 
 
 def _local(op, mesh, axis_name, b):
@@ -117,9 +118,9 @@ def expv_sharded(t, op, b, mesh: Mesh, *, m: int = 30, tol: float = 1e-7,
             plan, local_rows(b, axis, op.shape[0]), t, m, tol=tol)
     lop, b_local = _local(op, mesh, axis_name, b)
     if two_pass:
-        return _expv_two_pass(lop, b_local, t, m, comm=axis)
+        return _expv_two_pass(lop, b_local, t, m)
     Ks = build_subspace(lop, b_local, m, tol=tol, iop=iop, reorth=reorth,
-                        hermitian=herm, comm=axis)
+                        hermitian=herm)
     return expv_from_basis(t, Ks)
 
 
@@ -147,7 +148,7 @@ def phiv_sharded(t, op, b, k: int, mesh: Mesh, *, m: int = 30,
     herm = op.is_hermitian if hermitian is None else hermitian
     lop, b_local = _local(op, mesh, axis_name, b)
     Ks = build_subspace(lop, b_local, m, tol=tol, iop=iop, reorth=reorth,
-                        hermitian=herm, comm=mesh.axis(axis_name))
+                        hermitian=herm)
     return phiv_from_basis(t, Ks, k, correct=correct)
 
 
@@ -237,7 +238,7 @@ def make_expv_step(op, mesh: Mesh, *, m: int = 30, tol: float = 1e-7,
     def step(t, params_, b):
         lop = make_local(params_)
         Ks = build_subspace(lop, local_rows(b, axis, n), m, tol=tol,
-                            hermitian=herm, comm=axis)
+                            hermitian=herm)
         return expv_from_basis(t, Ks)
 
     return step, params

@@ -7,6 +7,8 @@ An operator is described by plain data: numpy arrays plus static fields,
     {"type": "VariableStencilOperator", "grid_shape", "offsets",
      "coeff_fields" (k, n), "is_hermitian"}
     {"type": "BandedOperator", "diags", "offsets", "is_hermitian"}
+    {"type": "SparseELLOperator", "data", "cols", "is_hermitian"}
+    {"type": "BlockELLOperator", "blocks", "bcols", "is_hermitian"}
     {"type": "DenseOperator", "A", "is_hermitian"}
     {"type": "DiagonalOperator", "d"}
 
@@ -20,7 +22,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..ops.sparse import BandedOperator
+from ..ops.sparse import BandedOperator, BlockELLOperator, SparseELLOperator
 from ..ops.stencil import StencilOperator, VariableStencilOperator
 from .device import host_tensor
 from .linop import DenseOperator, DiagonalOperator, LinearOperator
@@ -44,6 +46,14 @@ def operator_data(op) -> dict:
     if kind == "BandedOperator":
         return {"type": kind, "diags": np.asarray(op.diags),
                 "offsets": tuple(op.offsets),
+                "is_hermitian": bool(op.is_hermitian)}
+    if kind == "SparseELLOperator":
+        return {"type": kind, "data": np.asarray(op.data),
+                "cols": np.asarray(op.cols),
+                "is_hermitian": bool(op.is_hermitian)}
+    if kind == "BlockELLOperator":
+        return {"type": kind, "blocks": np.asarray(op.blocks),
+                "bcols": np.asarray(op.bcols),
                 "is_hermitian": bool(op.is_hermitian)}
     if kind == "DenseOperator":
         herm = getattr(op, "_is_hermitian", None)
@@ -76,6 +86,14 @@ def from_operator_data(data: dict, *, device=None,
     if kind == "BandedOperator":
         return BandedOperator(tensor(data["diags"]), data["offsets"],
                               is_hermitian=data["is_hermitian"])
+    if kind == "SparseELLOperator":
+        return SparseELLOperator(tensor(data["data"]),
+                                 host_tensor(np.array(data["cols"]), device),
+                                 is_hermitian=data["is_hermitian"])
+    if kind == "BlockELLOperator":
+        return BlockELLOperator(tensor(data["blocks"]),
+                                host_tensor(np.array(data["bcols"]), device),
+                                is_hermitian=data["is_hermitian"])
     if kind == "DenseOperator":
         return DenseOperator(tensor(data["A"]),
                              is_hermitian=data["is_hermitian"])

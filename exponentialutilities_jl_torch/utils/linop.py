@@ -155,6 +155,10 @@ class NegatedOperator(LinearOperator):
     def nnz(self):
         return self.inner.nnz
 
+    @property
+    def comm(self):
+        return getattr(self.inner, "comm", None)
+
     def matvec(self, x):
         return -self.inner.matvec(x)
 
@@ -181,17 +185,24 @@ class JacobianOperator(LinearOperator):
     well as its derivative. The linearization point ``u`` is a tensor
     (host data goes to ``device``, default the default device).
 
-    What the exponential integrators use when ``jac`` is None."""
+    What the exponential integrators use when ``jac`` is None. ``comm``:
+    the ``parallel.MeshAxis`` that u's rows are sharded over (f then maps
+    this rank's rows to this rank's rows, e.g. through an operator of
+    ``parallel.shard_operator``); the Krylov steps on J reduce over it,
+    and ``shape`` is the global one."""
 
     def __init__(self, f: Callable, u, is_hermitian: bool = False, *,
-                 device=None):
+                 device=None, comm=None):
         self.f = f
         self.u = host_tensor(u, device)
         self.is_hermitian = bool(is_hermitian)
+        self.comm = comm
 
     @property
     def shape(self):
         n = self.u.shape[0]
+        if self.comm is not None:
+            n *= self.comm.axis_size()
         return (n, n)
 
     @property

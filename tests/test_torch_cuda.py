@@ -1672,3 +1672,116 @@ def test_sharded_two_pass_one_nccl_rank(dev, tmp_path):
                                               "ppermute": 2 * (m + 2)}
     finally:
         dist.destroy_process_group()
+
+
+class _HaloAxis:
+    """A mesh axis of ``size`` ranks with no process group: rank
+    ``index``'s halos cut from the global vector ``x`` (zeros past the
+    ends), what ``MeshAxis.ppermute_halo`` delivers."""
+
+    def __init__(self, size, index, x):
+        self.size, self.index, self.x = size, index, x
+        self.device = x.device
+
+    def axis_size(self):
+        return self.size
+
+    def axis_index(self):
+        return self.index
+
+    def ppermute_halo(self, lo, hi):
+        h, nl = lo.shape[0], self.x.shape[0] // self.size
+        a, b = self.index * nl, (self.index + 1) * nl
+        below = self.x[a - h:a] if self.index > 0 else hi.new_zeros(h)
+        above = (self.x[b:b + h] if self.index + 1 < self.size
+                 else lo.new_zeros(h))
+        return below.clone(), above.clone()
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("kind", ["poisson", "advection", "wide"])
+def test_b7_halo_slab_vs_local_plain(dev, dt, kind):
+    """The GSPMD route's banded product (``parallel.gspmd``): one B7 launch
+    on each rank's halo-extended slab, against ``LocalBandedOperator``'s
+    plain matvec on the same rows and the global operator's rows, for
+    every rank of P = 4 (the two boundary slabs and the interior ones)."""
+    from exponentialutilities_jl_torch.parallel import gspmd
+    from exponentialutilities_jl_torch.parallel.ops import LocalBandedOperator
+
+    if kind == "poisson":
+        gop = et.poisson_2d(40, 24, dtype=dt, device=dev)
+    elif kind == "advection":
+        gop = et.advection_diffusion_1d(2000, peclet=10.0, dtype=dt,
+                                        device=dev)
+    else:                                   # offsets up to a whole slab
+        n = 1024
+        offs = (-256, -3, 0, 5, 256)
+        D = _vec(len(offs) * n, dt, dev, 11).reshape(len(offs), n)
+        gop = et.BandedOperator(D, offs)
+    n = gop.shape[0]
+    x = _vec(n, dt, dev, 12)
+    yg = gop.matvec(x)
+    P, nl = 4, n // 4
+    for i in range(P):
+        ax = _HaloAxis(P, i, x)
+        sop = gspmd.ShardedBandedOperator(gop, ax)
+        xl = x[i * nl:(i + 1) * nl]
+        _build.reset_launch_counts()
+        y = sop._local_matvec(xl)
+        torch.cuda.synchronize()
+        assert _build.launches["banded_spmv"] == 1
+        lop = LocalBandedOperator(gop.diags[:, i * nl:(i + 1) * nl],
+                                  gop.offsets, n, ax)
+        _close(y, lop.matvec(xl), dt)
+        _close(y, yg[i * nl:(i + 1) * nl], dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_b8_rectangular_vs_twin(dev, dt):
+    """B8 on a rank's block rows against the whole x (the GSPMD route's
+    block-ELL product, a rectangular matrix), against its twin; bits
+    independent of the operands' alignment."""
+    from exponentialutilities_jl_torch.ops.kernels import spmv as tsp
+
+    op = _blockell_random(48, 5, 8, dt, dev, 47)
+    x = _vec(op.shape[0], dt, dev, 48)
+    for lo, hi in ((0, 12), (12, 36), (36, 48)):
+        B = op.blocks[lo:hi].contiguous()
+        C = op.bcols[lo:hi].contiguous()
+        _build.reset_launch_counts()
+        y = tsp.blockell_spmv(B, C, x)
+        assert _build.launches["blockell_spmv"] == 1
+        assert y.shape == ((hi - lo) * 8,)
+        _close(y, tsp.blockell_spmv_ref(B, C, x), dt)
+        xo = torch.empty(x.numel() + 1, dtype=dt, device=dev)[1:]
+        assert torch.equal(tsp.blockell_spmv(B, C, xo.copy_(x)), y)
+
+
+def test_shard_operator_one_rank(dev, tmp_path):
+    """A gloo group of one rank on the card: ``shard_operator``'s banded
+    and block-ELL views run the ordinary ``expv`` with one B7 (B8) launch
+    a Lanczos step, against the single-device call."""
+    import torch.distributed as dist
+
+    from exponentialutilities_jl_torch import parallel as par
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = par.make_mesh(device="cuda:0")
+        f64 = torch.float64
+        opP = et.poisson_2d(64, 48, dtype=f64, device=dev)
+        opB = _blockell_random(64, 5, 8, f64, dev, 49)
+        opB = et.BlockELLOperator(opB.blocks, opB.bcols, is_hermitian=False)
+        for op, key, m in ((opP, "banded_spmv", 30),
+                           (opB, "blockell_spmv", 20)):
+            b = _vec(op.shape[0], f64, dev, 50)
+            want = et.expv(1e-3, op, b, m=m)
+            sop = par.shard_operator(op, mesh)
+            _build.reset_launch_counts()
+            w = et.expv(1e-3, sop, par.shard_vector(b, mesh), m=m)
+            torch.cuda.synchronize()
+            assert _build.launches[key] == m
+            _close(w, want, f64)
+    finally:
+        dist.destroy_process_group()

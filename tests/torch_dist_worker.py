@@ -4,7 +4,7 @@
 
 Imports torch and the PyTorch port only (no JAX): the parity tests
 (tests/test_torch_parallel.py, test_torch_stencil_fused_sharded.py,
-test_torch_multihost.py) start WORLD of these with ``subprocess``, each
+test_torch_multihost.py, test_torch_gspmd.py) start WORLD of these with ``subprocess``, each
 joining the process group through ``init_method=file://STORE`` (no TCP
 port, so concurrent test workers cannot collide). The rank reads the
 seeded numpy inputs from INPUTS (an .npz), runs every case of SUITE on a
@@ -119,7 +119,7 @@ def suite_parallel(mesh, inp):
     def lanczos_scalars():
         d, mk = par.shard_banded(lap256, mesh)
         a, bb, b0, mu, br = et.lanczos_coeffs(
-            mk(d), par.shard_vector(b256, mesh), 40, comm=ax)
+            mk(d), par.shard_vector(b256, mesh), 40)
         return {"alphas": a, "betas": bb, "beta0": b0, "m_used": mu}
     cases["lanczos_scalars"] = lanczos_scalars
 
@@ -431,8 +431,238 @@ def suite_multihost(mesh, inp):
     return cases
 
 
+def carried_op(inp, key):
+    """The port's operator from the plain data (utils/convert.py) that the
+    test wrote under ``key__<field>``."""
+    from exponentialutilities_jl_torch.utils.convert import \
+        from_operator_data
+
+    pre = key + "__"
+    data = {k[len(pre):]: v for k, v in inp.items() if k.startswith(pre)}
+    data["type"] = str(data["type"])
+    h = int(data["is_hermitian"])
+    data["is_hermitian"] = None if h < 0 else bool(h)
+    if "offsets" in data:
+        data["offsets"] = [tuple(int(x) for x in np.atleast_1d(o))
+                           if np.ndim(o) else int(o) for o in data["offsets"]]
+    if "grid_shape" in data:
+        data["grid_shape"] = tuple(int(s) for s in data["grid_shape"])
+    return from_operator_data(data, device="cpu")
+
+
+def suite_gspmd(mesh, inp):
+    """The GSPMD route (parallel.shard_operator): the ordinary drivers on
+    sharded operators and this rank's rows, float64."""
+    import dataclasses
+
+    from torch import distributed as dist
+
+    from exponentialutilities_jl_torch.models.expv_taylor import expv_taylor
+    from exponentialutilities_jl_torch.models.integrators import (
+        exprb43, exprb43_device)
+    from exponentialutilities_jl_torch.models.kiops_device import \
+        kiops_device
+    from exponentialutilities_jl_torch.models.nw_device import \
+        phiv_timestep_device
+    from exponentialutilities_jl_torch.utils.comm import (AugmentedAxis,
+                                                          vector_norm)
+
+    ax = mesh.axis()
+    ops = {k: carried_op(inp, k) for k in ("lap", "ell", "bell", "dense",
+                                           "ad3", "lap128", "adv")}
+    sh = {k: par.shard_operator(v, mesh) for k, v in ops.items()}
+
+    def rows(key):
+        return par.shard_vector(torch.as_tensor(inp[key]), mesh)
+
+    def stats(s):
+        return dataclasses.asdict(s)
+
+    def f_ac(A):
+        return lambda u: A.matvec(u) - u ** 3
+
+    cases = {}
+    cases["expv_banded"] = lambda: {"w": et.expv(0.5, sh["lap"], rows("b256"),
+                                                 m=40)}
+    cases["expv_ell"] = lambda: {"w": et.expv(0.5, sh["ell"], rows("b256"),
+                                              m=40, hermitian=True)}
+    cases["expv_blockell"] = lambda: {"w": et.expv(0.2, sh["bell"],
+                                                   rows("b512"), m=20)}
+    cases["expv_dense"] = lambda: {"w": et.expv(0.5, sh["dense"],
+                                                rows("b64"), m=40)}
+    cases["expv_arnoldi"] = lambda: {"w": et.expv(5e-4, sh["adv"],
+                                                  rows("b128"), m=40)}
+
+    def expv_timestep():
+        U, st = et.expv_timestep([0.5], sh["lap"], rows("b256"),
+                                 adaptive=True, return_stats=True)
+        return {"w": U[:, 0], "stats": stats(st)}
+    cases["expv_timestep"] = expv_timestep
+
+    def kiops():
+        w, st = et.kiops([0.5], sh["lap"], rows("b256")[:, None])
+        return {"w": w.reshape(-1), "stats": stats(st)}
+    cases["kiops"] = kiops
+
+    def nw_device():
+        U, st = phiv_timestep_device([0.5], sh["lap"], rows("b256")[:, None],
+                                     m=20, return_stats=True)
+        return {"w": U[:, 0], "stats": stats(st)}
+    cases["nw_device"] = nw_device
+
+    def kiops_dev():
+        w, st = kiops_device([0.5], sh["lap"], rows("b256")[:, None])
+        return {"w": w.reshape(-1), "stats": stats(st)}
+    cases["kiops_device"] = kiops_dev
+
+    def exprb43_dev():
+        u, st = exprb43_device(f_ac(sh["lap"]), rows("u0"), (0.0, 0.05),
+                               adaptive=True, m=12, rtol=1e-6, atol=1e-9,
+                               return_stats=True, comm=ax)
+        return {"w": u, "stats": stats(st)}
+    cases["exprb43_device"] = exprb43_dev
+
+    cases["expv_chebyshev"] = lambda: {"w": et.expv_chebyshev(
+        0.5, sh["lap"], rows("b256"), tol=1e-12,
+        bounds=ops["lap"].spectral_bounds_hint())}
+
+    def leja_faber():
+        B = rows("B_ad3")
+        return {"leja": et.phiv_timestep_leja([0.003], sh["ad3"], B),
+                "faber": et.phiv_timestep_faber([0.003], sh["ad3"], B)}
+    cases["leja_faber"] = leja_faber
+
+    def batched_data_shard():
+        if dist.get_world_size() != 4:
+            return {"skip": True}
+        hd = par.make_host_data_mesh(n_hosts=2, device="cpu")
+        d = hd.axis("data").axis_index()
+        s = hd.axis("shard").axis_index()
+        op_s = par.shard_operator(ops["lap128"], hd, "shard")
+        Bl = torch.as_tensor(inp["B4"])[2 * d:2 * d + 2, 64 * s:64 * (s + 1)]
+        hd.reset_census()
+        W = et.expv_batched(0.3, op_s, Bl, m=30)
+        return {"W": W, "data": d, "shard": s,
+                "census": {k: dict(v) for k, v in hd.census.items()}}
+    cases["batched_data_shard"] = batched_data_shard
+
+    def kiops_tail():
+        w, st = et.kiops([0.1, 0.3], sh["lap"], rows("U4"))
+        # the augmented start [w; tail]: its norm with the tail counted once
+        # (AugmentedAxis) and counted on every rank (the plain axis)
+        x0 = torch.cat([rows("U4")[:, 0], torch.as_tensor(inp["tail"])])
+        aug = AugmentedAxis(ax, x0.shape[0] - 3)
+        return {"w": w, "stats": stats(st),
+                "norm_once": vector_norm(x0, aug),
+                "norm_every_rank": vector_norm(x0, ax)}
+    cases["kiops_tail"] = kiops_tail
+
+    cases["raise_cheb_diverges"] = lambda: et.expv_chebyshev(
+        0.5, sh["lap"], rows("b256"), bounds=(-1.0, 0.0), m=400)
+
+    def raise_sell():
+        import scipy.sparse as sp
+        A = sp.random(64, 64, density=0.1, random_state=3, format="csr")
+        par.shard_operator(et.SellOperator.from_scipy(A, device="cpu"),
+                           mesh)
+    cases["raise_sell"] = raise_sell
+    cases["raise_variable"] = lambda: par.shard_operator(
+        et.variable_diffusion_nd_stencil(np.ones((8, 4, 4)), device="cpu"),
+        mesh)
+
+    # the other drivers, against the single-device port
+    def phiv():
+        w, err = et.phiv(0.2, sh["lap"], rows("b256"), 2, m=40, errest=True)
+        return {"w": w, "err": err}
+    cases["phiv"] = phiv
+    cases["expv_two_pass"] = lambda: {"w": et.expv(
+        0.5, sh["lap"], rows("b256"), m=40, two_pass=True)}
+    cases["expv_iop_two_pass"] = lambda: {"w": et.expv(
+        5e-4, sh["adv"], rows("b128"), m=30, iop=2, two_pass=True)}
+
+    def expv_errest():
+        w, it = et.expv(0.5, sh["lap"], rows("b256"), m=40,
+                        mode="error_estimate", return_info=True)
+        return {"w": w, "iters": it}
+    cases["expv_error_estimate"] = expv_errest
+    cases["make_expv"] = lambda: {"w": et.make_expv(sh["lap"], m=40)(
+        0.5, rows("b256"))}
+    cases["phiv_chebyshev"] = lambda: {"w": et.phiv_chebyshev(
+        0.5, sh["lap"], rows("b256"), 2, tol=1e-12)}
+    cases["phiv_timestep_chebyshev"] = lambda: {
+        "w": et.phiv_timestep_chebyshev([0.25, 0.5], sh["lap"],
+                                        rows("U4")[:, :3], tol=1e-12)}
+    cases["cheb_ell_bounds"] = lambda: {"w": et.expv_chebyshev(
+        0.5, sh["ell"], rows("b256"), tol=1e-10)}
+
+    def phiv_timestep_two_pass():
+        U, st = et.phiv_timestep([0.2, 0.5], sh["lap"], rows("U4")[:, :3],
+                                 adaptive=True, two_pass=True,
+                                 return_stats=True)
+        return {"w": U, "stats": stats(st)}
+    cases["phiv_timestep_two_pass"] = phiv_timestep_two_pass
+
+    def phiv_timestep_negative():
+        U, st = et.phiv_timestep([-0.2, 0.3], sh["lap"], rows("U4")[:, :2],
+                                 adaptive=True, return_stats=True)
+        return {"w": U, "stats": stats(st)}
+    cases["phiv_timestep_negative"] = phiv_timestep_negative
+
+    def fused_fixed():
+        u, eps = et.phiv_timestep_fused(0.5, sh["lap"], rows("U4")[:, :2],
+                                        nsteps=4, m=12)
+        return {"w": u, "eps": eps}
+    cases["phiv_timestep_fused"] = fused_fixed
+    cases["expv_taylor"] = lambda: {"w": expv_taylor(
+        0.5, sh["lap"], rows("b256"))}
+    cases["expv_leja"] = lambda: {"w": et.expv_leja(
+        0.004, sh["ad3"], rows("b_ad3"))}
+    cases["expv_faber"] = lambda: {"w": et.expv_faber(
+        0.004, sh["ad3"], rows("b_ad3"))}
+    cases["phiv_faber"] = lambda: {"w": et.phiv_faber(
+        0.004, sh["ad3"], rows("b_ad3"), 2)}
+
+    def exprb43_host():
+        u, st = exprb43(f_ac(sh["lap"]), rows("u0"), (0.0, 0.05), rtol=1e-6,
+                        atol=1e-9, comm=ax)
+        return {"w": u, "stats": stats(st)}
+    cases["exprb43"] = exprb43_host
+
+    cases["phiv_leja"] = lambda: {"w": et.phiv_leja(
+        0.004, sh["ad3"], rows("b_ad3"), 1)}
+
+    def etdrk4_host():
+        u, st = et.etdrk4(sh["lap"], lambda u: -u ** 3, rows("u0"),
+                          (0.0, 0.05), 0.025)
+        return {"w": u, "stats": stats(st)}
+    cases["etdrk4"] = etdrk4_host
+
+    def exprb32_fixed():
+        u, st = et.exprb32_device(f_ac(sh["lap"]), rows("u0"), (0.0, 0.05),
+                                  0.0125, m=16, return_stats=True, comm=ax)
+        return {"w": u, "stats": stats(st)}
+    cases["exprb32_device"] = exprb32_fixed
+
+    def etdrk4_dev():
+        return {"w": et.etdrk4_device(sh["lap"], lambda u: -u ** 3,
+                                      rows("u0"), (0.0, 0.05), 0.0125,
+                                      m=20)}
+    cases["etdrk4_device"] = etdrk4_dev
+
+    def hints():
+        op = sh["lap"]
+        return {"bounds": op.spectral_bounds_hint(),
+                "interval": et.real_interval(op),
+                "ellipse": et.fov_ellipse(sh["ad3"]),
+                "opnorm": op.opnorm_hint(), "shape": op.shape,
+                "nnz": op.nnz, "n_local": op.n_local,
+                "halo": op.halo, "dense_nnz": hasattr(sh["dense"], "nnz")}
+    cases["hints"] = hints
+    return cases
+
+
 SUITES = {"parallel": suite_parallel, "fused": suite_fused,
-          "multihost": suite_multihost}
+          "multihost": suite_multihost, "gspmd": suite_gspmd}
 
 
 def main(argv):
