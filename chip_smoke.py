@@ -265,6 +265,13 @@ NV = 48                 # the variable operator held to scipy
 # 3.6e-7), the IOP two-pass (iop = 2) vs expv(iop=2, reorth=False) 6.3e-14.
 MTOL_NONHERM = 1e-10
 MTOL_IOP = 1e-12
+# reduced="host" (host scipy) against the device form, calibrated the same
+# way (the JAX package's host against its device form): config #2's
+# two-pass expv m = 40 2.9e-16, config #4's expv m = 250 2.5e-14 and phiv
+# k = 1 m = 250 2.5e-14
+MTOL_HOST2 = 1e-13
+JAX_HOST = {"config2 expv": 2.9e-16, "config4 expv": 2.5e-14,
+            "config4 phiv": 2.5e-14}
 # The adaptive drivers at tol = 1e-7 on config #3's n = 1e6 operator (p = 3,
 # t = 1e-4): against the phiv columns' combination and each other, at
 # 10 x their tolerance. On config #4 they are held to MTOL_NONHERM: the JAX
@@ -327,6 +334,7 @@ DENSE_JAX = {
     "config1 expm gebal": 4.0e-16, "config1 expm_higham2005 balance": 4.0e-16,
     "config1 phi pade": 4.7e-16, "config1 phi_taylor": 2.7e-15,
     "config1 funm exp": 6.9e-15, "phi_pade 256": 1.2e-15,
+    "config1 funm jnp.exp": 6.9e-15,
     "expm_dd 32": 2.6e-31, "expv_batched config2": 1.5e-15,
     **{f"stack {b}x{n} {dn} {what}": e
        for (b, n), e32, e64, p32, p64 in (
@@ -342,6 +350,17 @@ KS = 4                   # phi(X, 4) on the stacks
 ND = 32                  # expm_dd: expm_mp at 300 bits takes ~5 s here
 NBATCH2, NBATCH3 = 8, 4  # expv_batched columns on configs #2 and #3
 TG4 = 1e-6               # the gradient's t on config #4: t |A| = 16
+# expv(0.5, DiagonalOperator(d), b, m = 30) with a complex d (n = NDC, Re d
+# in [-4, 0], Im d in [-3, 3]) against exp(0.5 d) b; funm(config #1 A,
+# torch.exp, matfunc=torch.linalg.matrix_exp) against scipy expm
+NDC = 1_000_000
+MTOL_CDIAG = 1e-12
+# calibrated on the CPU from the JAX package at the same settings:
+# funm(A, jnp.exp, matfunc=jax.scipy.linalg.expm) 6.9e-15 vs scipy; its
+# DiagonalOperator keeps is_hermitian=True for a complex d
+JAX_CDIAG = ("TypeError with its default flag and a real b, 2.2e+07 with a "
+          "complex b; is_hermitian=False 8.2e-01 (a real b), 5.5e-16 (a "
+          "complex b)")
 
 NS = 1_000_000          # the SELL matrices of bench_sell.py / bench_sorted.py
 NS_TIME = 10_000_000    # bench_sell.py's timing shape
@@ -404,8 +423,11 @@ def rel_max(got, want) -> float:
 
 
 def rel_norm(got, want) -> float:
-    got = got.double()
-    want = want.double()
+    import torch
+
+    dt = torch.promote_types(got.dtype, torch.float64)
+    got = got.to(dt)
+    want = want.to(dt)
     return float((got - want).norm() / want.norm())
 
 
@@ -936,6 +958,12 @@ def dense_grad_path(et, dev, card, A1np, op1, opP, opS):
     bg4 = torch.as_tensor(gen.standard_normal(NA), device=dev)
     xS = torch.as_tensor(gen.standard_normal(opS.shape[0]), device=dev)
     gS = torch.as_tensor(gen.standard_normal(opS.shape[0]), device=dev)
+    # a complex diagonal (non-Hermitian: Arnoldi), n = NDC
+    dCnp = -gen.uniform(0, 4, NDC) + 1j * gen.uniform(-3, 3, NDC)
+    bCnp = gen.standard_normal(NDC)
+    opDC = et.DiagonalOperator(torch.as_tensor(dCnp, device=dev))
+    bDC = torch.as_tensor(bCnp, device=dev)
+    refDC = np.exp(0.5 * dCnp) * bCnp
     print(f"dense path inputs and host oracles: "
           f"{time.perf_counter() - t0:.1f} s (expm_mp {ND} x {ND} at 300 "
           f"bits: {mp_s:.1f} s)", flush=True)
@@ -980,6 +1008,12 @@ def dense_grad_path(et, dev, card, A1np, op1, opP, opS):
         "grad config4 expv m=40": grads_config4,
         "grad sell x": grad_sell,
         "grad gated expv_chebyshev": grad_gated,
+        f"complex diagonal n={NDC} expv m=30": lambda: et.expv(
+            0.5, opDC, bDC, m=30),
+        # config #1's eigenvalues cluster: the blocks take the torch
+        # matfunc, the 1 x 1 blocks torch.exp
+        "config1 funm torch.exp": lambda: et.funm(
+            A1c, torch.exp, matfunc=torch.linalg.matrix_exp),
     })
     expect = {
         "expv_batched config2": {"resident_lanczos": NBATCH2,
@@ -1028,6 +1062,17 @@ def dense_grad_path(et, dev, card, A1np, op1, opP, opS):
     held("config1 funm exp", out["config1 funm exp"], E1,
          MTOL_DENSE["float64"], "parlett='device' vs scipy expm",
          DENSE_JAX["config1 funm exp"])
+    held("config1 funm torch.exp", out["config1 funm torch.exp"], E1,
+         MTOL_DENSE["float64"], "torch callables vs scipy expm",
+         DENSE_JAX["config1 funm jnp.exp"])
+    w = out[f"complex diagonal n={NDC} expv m=30"]
+    e = rel_norm(w.cpu(), torch.as_tensor(refDC))
+    check(w.dtype == torch.complex128 and bool(torch.isfinite(w).all())
+          and not opDC.is_hermitian and e <= MTOL_CDIAG,
+          f"complex diagonal expv {e:.2e}")
+    print(f"check complex diagonal n={NDC} expv m=30: DiagonalOperator of a "
+          f"complex d is not Hermitian (Arnoldi); vs exp(0.5 d) b {e:.2e} "
+          f"(tol {MTOL_CDIAG:g}; JAX on the CPU: {JAX_CDIAG})", flush=True)
     F3 = out["phi_pade 256"]
     e = max(rel_norm(F3[j].cpu(), torch.as_tensor(P3[j])) for j in range(4))
     check(e <= MTOL_DENSE["float64"], f"phi_pade 256 {e:.2e}")
@@ -1683,17 +1728,39 @@ MTOL_GSPMD_ADAPT = 1e-10
 # median of 5
 GSPMD_LONG = ("config4 phiv_timestep_device m=20", "config4 kiops_device",
               "config4 exprb43_device", "leja n=1e6", "faber n=1e6")
+# A halo wider than a shard: poisson_2d(NH, 2) (n = 2 NH, offsets +-1 and
+# +-NH) on the P = 4 ranks of the data x shard run, 5e4 rows a rank, so k =
+# 2 exchanges a matvec and B7 on a 2.5e5-row slab; held to the
+# single-device port at MTOL_HOP (max-norm relative). The reverse rule of a
+# non-Hermitian sharded operator: config #4's gradient (expv m = 40,
+# differentiable=True, t = TG4, loss sum w^2) and config #1's at P = 2,
+# held to the single-device port at MTOL_SHARD. Calibrated on the CPU from
+# the JAX package's GSPMD route at the same settings (virtual devices, the
+# single-device JAX call as the reference): poisson_2d(NH, 2) expv m = 30 at
+# P = 4 (t = TP) JAX_HOP; jax.grad of config #4's and config #1's cells at
+# P = 2 JAX_GRAD.
+NH = 100_000
+GSPMD_HOP_WORLD = GSPMD_DS_WORLD
+MTOL_HOP = 1e-14
+JAX_HOP = 1.5e-15
+JAX_GRAD = {"config4 grad expv m=40": 1.6e-15,
+            "config1 dense grad expv m=40": 3.3e-16}
+HOP_CELL = f"poisson_2d({NH}, 2) expv m=30"
 
 
 class HaloAxis:
     """A mesh axis with no process group for the phase-3 checks of the
     GSPMD slabs: rank ``index`` of ``size``, its halos cut from the global
     vector ``x`` (zeros past the ends), as ``MeshAxis.ppermute_halo`` would
-    deliver them."""
+    deliver them. The exchanges of one slab come in rounds, each the next
+    rows outward (a halo wider than a shard takes several); ``calls``
+    counts them. Make one per slab."""
 
     def __init__(self, size, index, x, device):
         self.size, self.index, self.x = size, index, x
         self.device = device
+        self.calls = 0
+        self.depth = 0
 
     def axis_size(self):
         return self.size
@@ -1701,13 +1768,20 @@ class HaloAxis:
     def axis_index(self):
         return self.index
 
+    def _cut(self, i, j, like):
+        out = like.new_zeros(j - i)
+        a, b = max(i, 0), min(j, self.x.shape[0])
+        if b > a:
+            out[a - i:b - i] = self.x[a:b]
+        return out
+
     def ppermute_halo(self, lo, hi):
-        h, nl = lo.shape[0], self.x.shape[0] // self.size
+        r, nl = lo.shape[0], self.x.shape[0] // self.size
         a, b = self.index * nl, (self.index + 1) * nl
-        below = self.x[a - h:a] if self.index > 0 else hi.new_zeros(h)
-        above = (self.x[b:b + h] if self.index + 1 < self.size
-                 else lo.new_zeros(h))
-        return below.clone(), above.clone()
+        d = self.depth
+        self.calls += 1
+        self.depth += r
+        return self._cut(a - d - r, a - d, hi), self._cut(b + d, b + d + r, lo)
 
 
 def gspmd_kernel_checks(et, dev, dt, tol, opB, gen):
@@ -1716,8 +1790,11 @@ def gspmd_kernel_checks(et, dev, dt, tol, opB, gen):
     product, one launch) against ``LocalBandedOperator``'s plain matvec on
     the same rows and against the global operator's rows; B8 on each
     rank's block rows of the 128^3 block-ELL (P = 2) with the whole x, a
-    rectangular product, against ``blockell_spmv_ref``. Returns the
-    largest error of each kernel."""
+    rectangular product, against ``blockell_spmv_ref``; B7 on the
+    multi-hop slabs of poisson_2d(NH, 2) at P = 4 (h = NH, two exchanges)
+    and on the adjoint slabs of config #4's operator at P = 2 and 4 (the
+    reverse rule), each against B7's twin on the same slab and the global
+    rows. Returns the largest error of each kernel."""
     import torch
 
     from exponentialutilities_jl_torch.ops.kernels import _build
@@ -1746,7 +1823,8 @@ def gspmd_kernel_checks(et, dev, dt, tol, opB, gen):
             check(_build.launches["banded_spmv"] - before == 1,
                   f"B7 slab {label} rank {i}: not one launch")
             lop = pops.LocalBandedOperator(gop.diags[:, i * nl:(i + 1) * nl],
-                                           gop.offsets, n, ax)
+                                           gop.offsets, n,
+                                           HaloAxis(P, i, x, dev))
             e1 = rel_max(y, lop.matvec(xl))
             e2 = rel_max(y, yg[i * nl:(i + 1) * nl])
             check(max(e1, e2) <= tol, f"B7 {dn} halo slab {label} rank {i} "
@@ -1774,6 +1852,67 @@ def gspmd_kernel_checks(et, dev, dt, tol, opB, gen):
           f"the whole x, {NB}^3 8 x 8, P = 2 halves): max rel err "
           f"{errs['blockell_spmv']:.2e} vs blockell_spmv_ref (tol {tol:g})",
           flush=True)
+    def slab_vs_twin(sop, xl, i, P, rows_ref, what):
+        """B7 on rank i's slab (one launch, ``sop.comm`` a fresh HaloAxis)
+        against B7's twin on the same slab and the global rows."""
+        before = _build.launches["banded_spmv"]
+        y = sop._local_matvec(xl)
+        torch.cuda.synchronize()
+        hops = sop.comm.calls
+        check(_build.launches["banded_spmv"] - before == 1,
+              f"B7 {what} rank {i}: not one launch")
+        sop.comm = HaloAxis(P, i, sop.comm.x, dev)
+        slab = sop._slab(xl)
+        h = sop.halo
+        yt = tsp.banded_spmv_ref(sop.ext.diags, sop.offsets,
+                                 slab)[h:h + xl.shape[0]]
+        e1, e2 = rel_max(y, yt), rel_max(y, rows_ref)
+        check(max(e1, e2) <= tol, f"B7 {dn} {what} rank {i} of {P}: "
+              f"{e1:.2e} vs the twin on the slab, {e2:.2e} vs the global "
+              "rows")
+        return max(e1, e2), hops, slab.shape[0]
+
+    # a halo wider than a shard, poisson_2d(NH, 2) at P = 4: h = NH,
+    # k = 2 exchanges, one launch on the (n/4 + 2h)-row slab
+    gop = et.poisson_2d(NH, 2, dtype=dt, device=dev)
+    n = gop.shape[0]
+    x = torch.as_tensor(gen.standard_normal(n), dtype=dt, device=dev)
+    yg = tsp.banded_spmv_ref(gop.diags, gop.offsets, x)
+    P, nl, e_hop = GSPMD_HOP_WORLD, n // GSPMD_HOP_WORLD, 0.0
+    for i in range(P):
+        sop = gspmd.ShardedBandedOperator(gop, HaloAxis(P, i, x, dev))
+        e, hops, rows = slab_vs_twin(sop, x[i * nl:(i + 1) * nl], i, P,
+                                     yg[i * nl:(i + 1) * nl],
+                                     "multi-hop slab")
+        check(hops == 2 and rows == nl + 2 * NH,
+              f"multi-hop slab rank {i}: {hops} exchanges, {rows} rows")
+        e_hop = max(e_hop, e)
+    errs["banded_spmv"] = max(errs["banded_spmv"], e_hop)
+    print(f"kernel B7 {dn} multi-hop slabs poisson_2d({NH}, 2), P = {P} "
+          f"(h = {NH} > {nl} rows a rank: 2 exchanges, a {nl + 2 * NH}-row "
+          f"slab): max rel err {e_hop:.2e} vs B7's twin on the same slab "
+          f"and the global rows (tol {tol:g}); one launch each", flush=True)
+
+    # the adjoint slab of config #4's operator (the reverse rule of a
+    # non-Hermitian sharded banded operator), P = 2 and 4
+    gop = et.advection_diffusion_1d(NA, peclet=10.0, dtype=dt, device=dev)
+    g = torch.as_tensor(gen.standard_normal(NA), dtype=dt, device=dev)
+    want = torch.as_tensor(banded_csr(gop).T @ g.cpu().numpy(), device=dev)
+    e_adj = 0.0
+    for P in (2, 4):
+        nl = NA // P
+        for i in range(P):
+            sop = gspmd.ShardedBandedOperator(gop, HaloAxis(P, i, g, dev))
+            adj = sop._adjoint()
+            adj.comm = HaloAxis(P, i, g, dev)
+            e, _, _ = slab_vs_twin(adj, g[i * nl:(i + 1) * nl], i, P,
+                                   want[i * nl:(i + 1) * nl], "adjoint slab")
+            e_adj = max(e_adj, e)
+    errs["banded_spmv"] = max(errs["banded_spmv"], e_adj)
+    print(f"kernel B7 {dn} adjoint slabs of config4 advection_diffusion_1d"
+          f"({NA}), P = 2 and 4 (every rank): max rel err {e_adj:.2e} vs "
+          f"B7's twin on the same slab and the rows of A^T g (tol {tol:g}); "
+          "one launch each", flush=True)
     return errs
 
 
@@ -1793,6 +1932,7 @@ def gspmd_inputs(et, dev, blk):
     A1np = rngc.standard_normal((100, 100)) / 10
     b1c = rngc.standard_normal(100)
     ops = {"P": et.poisson_2d(NP, NP, device=dev),
+           "H": et.poisson_2d(NH, 2, device=dev),
            "A": et.advection_diffusion_1d(NA, peclet=10.0, device=dev),
            "E": et.laplacian_1d(N1, device=dev).to_ell(),
            "B": et.BlockELLOperator(blk[0].to(dev), blk[1].to(dev),
@@ -1808,7 +1948,8 @@ def gspmd_inputs(et, dev, blk):
             "uA": 0.1 * v(NA), "b1": b1, "bB": bB,
             "bD": torch.as_tensor(b1c, device=dev),
             "BL": torch.stack([bL, 0.1 * bL], dim=1),
-            "BB": v(4 * NP * NP).reshape(4, NP * NP)}
+            "BB": v(4 * NP * NP).reshape(4, NP * NP),
+            "bH": v(2 * NH)}
     return ops, vecs
 
 
@@ -1875,6 +2016,16 @@ def gspmd_cells(et):
     def dense(o, v, comm, cnt):
         return {"w": et.expv(1.0, o["D"], v["bD"], m=40)}
 
+    def grad(key, vec, t):
+        # d/db sum w^2 over every rank's rows: each rank's backward on its
+        # own part, the psums' reverse rules joining them
+        def call(o, v, comm, cnt):
+            b = v[vec].clone().requires_grad_()
+            w = et.expv(t, o[key], b, m=40, differentiable=True)
+            (w ** 2).sum().backward()
+            return {"w": b.grad}
+        return call
+
     def leja(o, v, comm, cnt):
         return {"w": et.phiv_timestep_leja([TL], o["L"], v["BL"],
                                            tol=1e-7)}
@@ -1910,6 +2061,11 @@ def gspmd_cells(et):
         f"blockell {NB}^3 expv m=20": (
             blockell, lambda r, o: {"blockell_spmv": 20}, "fixed"),
         "config1 dense expv m=40": (dense, lambda r, o: {}, "fixed"),
+        # forward B7 on the slab, reverse B7 on the adjoint slab
+        "config4 grad expv m=40": (grad("A", "bA", TG4),
+                                   lambda r, o: {b7: 80}, "fixed"),
+        "config1 dense grad expv m=40": (grad("D", "bD", 1.0),
+                                         lambda r, o: {}, "fixed"),
         "leja n=1e6": (leja, lambda r, o: {}, "poly"),
         "faber n=1e6": (faber, lambda r, o: {}, "poly"),
     }
@@ -1917,7 +2073,10 @@ def gspmd_cells(et):
 
 # collectives per rank a cell's parameters imply (printed for the others):
 # Lanczos m: 1 + 2m psums, m halo exchanges (or all_gathers); Arnoldi with
-# CGS2: 1 + 3m psums; Chebyshev M: M exchanges, the finiteness pmax
+# CGS2: 1 + 3m psums; Chebyshev M: M exchanges, the finiteness pmax. A
+# gradient adds its reverse sweep: one psum for each psum of the forward
+# (the psum's reverse rule) and, per matvec, one halo exchange (the banded
+# view, B7 on the adjoint slab) or one psum (the dense view's A_rows^H g)
 def gspmd_census(et, ops):
     from exponentialutilities_jl_torch.models import chebyshev as tc
 
@@ -1928,7 +2087,10 @@ def gspmd_census(et, ops):
             f"ell laplacian_1d({N1}) expv m=40": {"psum": 81,
                                                   "all_gather": 40},
             f"blockell {NB}^3 expv m=20": {"psum": 41, "all_gather": 20},
-            "config1 dense expv m=40": {"psum": 121, "all_gather": 40}}
+            "config1 dense expv m=40": {"psum": 121, "all_gather": 40},
+            "config4 grad expv m=40": {"psum": 2 * 121, "ppermute": 2 * 40},
+            "config1 dense grad expv m=40": {"psum": 2 * 121 + 40,
+                                             "all_gather": 40}}
 
 
 def gspmd_rank_main(args) -> int:
@@ -2000,6 +2162,26 @@ def gspmd_rank_main(args) -> int:
             "scale": float(ref.abs().max()), "data": di, "shard": si}
         out["ms"]["config3 expv_batched 4 columns m=30"] = timed(
             lambda: et.expv_batched(TP, op_s, Bl, m=30), 5)
+        # a halo wider than a shard on the same ranks' 1-D mesh
+        mesh = par.make_mesh(device=dev)
+        op_h = par.shard_operator(ops["H"], mesh)
+        b_h = par.shard_vector(vecs["bH"], mesh)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        mesh.reset_census()
+        w = et.expv(TP, op_h, b_h, m=30)
+        torch.cuda.synchronize()
+        nl = 2 * NH // P
+        ref = torch.load(os.path.join(d, "gspmd_ref_hop.pt"),
+                         mmap=True)[r * nl:(r + 1) * nl].to(dev)
+        out["cells"][HOP_CELL] = {
+            "launches": {k: v for k, v in _build.launches.items() if v},
+            "census": {k: v for k, v in mesh.census["shard"].items() if v},
+            "halo": op_h.halo, "slab": int(op_h.ext.diags.shape[1]),
+            "finite": bool(torch.isfinite(w).all()),
+            "diff": float((w - ref).abs().max()),
+            "scale": float(ref.abs().max())}
+        out["ms"][HOP_CELL] = timed(lambda: et.expv(TP, op_h, b_h, m=30), 5)
     else:
         mesh = par.make_mesh(device=dev)
         ax = mesh.axis()
@@ -2074,6 +2256,31 @@ def gspmd_path(et, dev, card, opB3):
 
     from exponentialutilities_jl_torch.ops.kernels import _build
 
+    def hop_checks(tag, ranks):
+        """The multi-hop cell: B7 and k = 2 exchanges a matvec on every
+        rank, config #3's psums, the (n/P + 2h)-row slab, the single-device
+        port at MTOL_HOP."""
+        want_l = {"banded_spmv": 30}
+        want_c = {"psum": 61, "ppermute": 2 * 30}
+        nl = 2 * NH // GSPMD_HOP_WORLD
+        for rk in ranks:
+            c = rk["cells"][HOP_CELL]
+            check(c["finite"], f"{tag} {HOP_CELL}: non-finite rows")
+            check(c["launches"] == want_l and c["census"] == want_c,
+                  f"{tag} {HOP_CELL} rank {rk['rank']}: launches "
+                  f"{c['launches']}, collectives {c['census']}")
+            check(c["halo"] == NH and c["slab"] == nl + 2 * NH,
+                  f"{tag} {HOP_CELL}: halo {c['halo']}, slab {c['slab']}")
+        e = (max(rk["cells"][HOP_CELL]["diff"] for rk in ranks)
+             / max(rk["cells"][HOP_CELL]["scale"] for rk in ranks))
+        check(e <= MTOL_HOP, f"{tag} {HOP_CELL} vs single-device {e:.2e}")
+        c0 = ranks[0]["cells"][HOP_CELL]
+        print(f"check GSPMD {tag} {HOP_CELL}: halo {NH} over {nl} rows a "
+              f"rank, B7 on a {c0['slab']}-row slab; vs the single-device "
+              f"port {e:.2e} (tol {MTOL_HOP:g}; JAX on the CPU {JAX_HOP:.1e})"
+              f"; launches {c0['launches']} on every rank; collectives "
+              f"{c0['census']} (2 exchanges a matvec)", flush=True)
+
     t0 = time.perf_counter()
     d = tempfile.mkdtemp(prefix="eu_gspmd_")
     try:
@@ -2105,6 +2312,23 @@ def gspmd_path(et, dev, card, opB3):
         torch.save(Wb.cpu(), os.path.join(d, "gspmd_ref_batched.pt"))
         singles["config3 expv_batched 4 columns m=30"] = (
             lambda: et.expv_batched(TP, ops["P"], vecs["BB"], m=30))
+        wh = et.expv(TP, ops["H"], vecs["bH"], m=30)
+        torch.save(wh.cpu(), os.path.join(d, "gspmd_ref_hop.pt"))
+        singles[HOP_CELL] = lambda: et.expv(TP, ops["H"], vecs["bH"], m=30)
+        # the gradient cell's single-device reference against the third
+        # path's form of the same gradient (no differentiable=True)
+        b = vecs["bA"].clone().requires_grad_()
+        w = et.expv(TG4, ops["A"], b, m=40, hermitian=False)
+        g13 = torch.autograd.grad((w ** 2).sum(), b)[0]
+        g1 = torch.load(os.path.join(
+            d, f"gspmd_ref{list(cells).index('config4 grad expv m=40')}.pt"))
+        e = rel_max(g1, g13.cpu())
+        check(e <= MTOL_GRAD, f"config4 grad expv m=40: differentiable=True "
+              f"vs the third path's form {e:.2e}")
+        print(f"check GSPMD config4 grad expv m=40 single-device reference: "
+              f"differentiable=True vs the third path's gradient form "
+              f"{e:.2e} (tol {MTOL_GRAD:g})", flush=True)
+        del wh, w, b, g13, g1
         print(f"GSPMD path inputs and references: "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         del Wb
@@ -2126,6 +2350,9 @@ def gspmd_path(et, dev, card, opB3):
                     c = rk["cells"][name]
                     for k, v in c["launches"].items():
                         counts[k] += v
+                if name == HOP_CELL:
+                    hop_checks(tag, ranks)
+                    continue
                 if mode == "gspmd-ds":
                     want_l = {"banded_spmv": 2 * 30}
                     for rk in ranks:
@@ -2173,7 +2400,9 @@ def gspmd_path(et, dev, card, opB3):
                     tol = MTOL_GSPMD_ADAPT if kind == "adaptive" \
                         else MTOL_SHARD
                 check(e <= tol, f"{tag} {name} vs single-device {e:.2e}")
-                line += f"vs the single-device port {e:.2e} (tol {tol:g})"
+                line += f"vs the single-device port {e:.2e} (tol {tol:g}"
+                line += (f"; JAX on the CPU {JAX_GRAD[name]:.1e})"
+                         if name in JAX_GRAD else ")")
                 if kind == "adaptive":
                     want_s = {k: v for k, v in sstats[name].items()
                               if k not in ("final_tau",)}
@@ -2856,6 +3085,9 @@ def main() -> int:
                                                 two_pass=True),
         "1d happy-breakdown m=30 f64": lambda: et.expv(T1, op1[f64], b1[f64],
                                                        m=30),
+        # the reduced tridiagonal on host scipy between the kernels' passes
+        "1d two-pass m=40 f64 reduced=host": lambda: et.expv(
+            T1, op1[f64], b1[f64], m=40, two_pass=True, reduced="host"),
     }
     for dt in (f32, f64):
         tol = 1e-12 if dt == f64 else 1e-7
@@ -2869,6 +3101,8 @@ def main() -> int:
         "1d cheb f64": {"resident_recurrence": 1},
         "1d two-pass m=40 f64": {"resident_lanczos": 1,
                                  "resident_recurrence": 1},
+        "1d two-pass m=40 f64 reduced=host": {"resident_lanczos": 1,
+                                              "resident_recurrence": 1},
         "1d happy-breakdown m=30 f64": {},
         # two-pass m = 20: 21 sweeps a pass, each with its second stage
         "3d two-pass m=20 32": {"fused_sweep": 42, "sweep_stage": 42},
@@ -3043,6 +3277,10 @@ def main() -> int:
             TA, opA, bA, m=MA, iop=2, two_pass=True),
         f"config4 iop=2 reorth=False m={MA}": lambda: et.expv(
             TA, opA, bA, m=MA, iop=2, reorth=False),
+        f"config4 expv m={MA} reduced=host": lambda: et.expv(
+            TA, opA, bA, m=MA, reduced="host"),
+        f"config4 phiv k=1 m={MA} reduced=host": lambda: et.phiv(
+            TA, opA, bA, 1, m=MA, errest=True, reduced="host"),
     }
     expect.update({
         "config1 expm": {},                 # dense: torch matmuls, no kernel
@@ -3051,6 +3289,8 @@ def main() -> int:
         f"config4 phiv k=1 m={MA}": {"banded_spmv": MA},
         f"config4 two-pass iop=2 m={MA}": {"banded_spmv": 2 * MA},
         f"config4 iop=2 reorth=False m={MA}": {"banded_spmv": MA},
+        f"config4 expv m={MA} reduced=host": {"banded_spmv": MA},
+        f"config4 phiv k=1 m={MA} reduced=host": {"banded_spmv": MA},
     })
 
     # the calls whose B1, B5 or B6 launches must take the neighbour form:
@@ -3249,6 +3489,13 @@ def main() -> int:
               f"(tol {MTOL3[dn]:g})", flush=True)
     e = rel_norm(out["1d cheb f64"], out["1d two-pass m=40 f64"])
     print(f"check 1d float64: Chebyshev vs two-pass {e:.2e}", flush=True)
+    e = rel_norm(out["1d two-pass m=40 f64 reduced=host"],
+                 out["1d two-pass m=40 f64"])
+    check(e <= MTOL_HOST2, f"1d two-pass reduced=host vs device {e:.2e}")
+    print(f"check 1d two-pass m=40 f64 reduced=host: vs reduced=device "
+          f"{e:.2e} (tol {MTOL_HOST2:g}; JAX on the CPU "
+          f"{JAX_HOST['config2 expv']:.1e}); B2 and B1 one launch each, the "
+          "reduced tridiagonal on host scipy between them", flush=True)
 
     def phi_identity(op, W, b, t):
         """max_j |t A phi_{j+1} b - (phi_j b - b/j!)| / |phi_j b|, j < K."""
@@ -3406,6 +3653,23 @@ def main() -> int:
              out[f"config4 iop=2 reorth=False m={MA}"].cpu(), MTOL_IOP)
     check_nh(f"config4 two-pass iop=2 m={MA} vs the dense oracle",
              out[f"config4 two-pass iop=2 m={MA}"], ref_e)
+    # reduced="host" (ops/host_reduced.py) against the device form
+    Wh4, errh4 = out[f"config4 phiv k=1 m={MA} reduced=host"]
+    for name, got, want_, jax_e in (
+            (f"config4 expv m={MA}", out[f"config4 expv m={MA} reduced=host"],
+             out[f"config4 expv m={MA}"], JAX_HOST["config4 expv"]),
+            (f"config4 phiv k=1 m={MA}", Wh4, W4, JAX_HOST["config4 phiv"])):
+        e = rel_norm(got, want_)
+        check(bool(torch.isfinite(got).all()) and e <= MTOL_NONHERM,
+              f"{name} reduced=host vs device {e:.2e}")
+        print(f"check {name} reduced=host: vs reduced=device {e:.2e} (tol "
+              f"{MTOL_NONHERM:g}; JAX on the CPU {jax_e:.1e})", flush=True)
+    check_nh(f"config4 expv m={MA} reduced=host vs the dense oracle",
+             out[f"config4 expv m={MA} reduced=host"], ref_e)
+    check(bool(torch.isfinite(errh4)) and float(errh4) < 1e-8,
+          f"config4 phiv reduced=host error estimate {float(errh4):.2e}")
+    print(f"check config4 phiv reduced=host error estimate: "
+          f"{float(errh4):.2e} (device {float(err4):.2e})", flush=True)
     # the adaptive drivers against the same dense oracles
     for name in ("config4 phiv_timestep adaptive m=20", "config4 kiops",
                  "config4 phiv_timestep_device m=20", "config4 kiops_device",
@@ -4177,13 +4441,17 @@ def main() -> int:
         f"config4 iop=2 reorth=False m={MA}": lambda: et.expv(
             TA, pA, bA, m=MA, iop=2, reorth=False),
     })
+    tmain = {}
     for name, fn in {**calls, **phi_calls, **sparse_calls, **var_calls,
                      **nh_calls}.items():
-        k = median_ms(fn)
+        k = tmain[name] = median_ms(fn)
         line = f"time main {name}: {k:.3f} ms"
         if name in plain_calls:
             p = median_ms(plain_calls[name])
             line += f", plain path {p:.3f} ms"
+        if name.endswith(" reduced=host"):
+            line += (f", reduced=device {tmain[name[:-len(' reduced=host')]]:.3f}"
+                     " ms")
         print(f"{line} {card}", flush=True)
     # the fourth path: rank 0's CUDA-event medians (measured while the
     # ranks ran, P processes time-sharing this card, gloo staging through

@@ -45,10 +45,16 @@ the kernels' on this rank's rows of b: the operator's ``comm``
 (``utils/comm.py``) reduces the dots and norms, and the result is this
 rank's rows.
 
-``reduced="host"`` raises NotImplementedError (ROADMAP A6): the JAX
-package stages the reduced problem on the host only because the TPU has
-no float64 LU; the H100 has one, so the device reduced exponential is
-the port's float64 path.
+``reduced="host"`` evaluates the m-sized reduced problem with scipy on
+the host in float64/complex128 (``ops/host_reduced.py``), in every path
+that has one: the basis path (``expm`` of t H_m), the two-pass Hermitian
+forms (``eigh_tridiagonal`` between the passes; the kernels still run
+both passes), the two-pass IOP form and ``expv_batched``. It costs one
+device-to-host read and one host-to-device write per reduced problem.
+The default ``reduced=None`` is ``reduced_default()``, "device": the
+H100 has native float64, where the JAX package stages on the host only
+for the TPU. ``differentiable=True`` and ``mode="error_estimate"`` refuse
+"host", as the JAX package documents.
 """
 
 from __future__ import annotations
@@ -56,6 +62,8 @@ from __future__ import annotations
 import torch
 
 from ..ops.expm import expm_higham2005
+from ..ops.host_reduced import (host_expm_e1, host_lanczos_coeffs,
+                                reduced_default)
 from ..ops.kernels.dispatch import grad_gate, kernel_device_ok
 from ..ops.krylov import (KrylovBasis, arnoldi, arnoldi_coeffs, arnoldi_replay,
                           expand_compact_hessenberg, lanczos, lanczos_coeffs,
@@ -116,26 +124,41 @@ def _combine_expv(Ks: KrylovBasis, expHe):
     return torch.where(Ks.beta > 0, out, 0.0)
 
 
-def _device_reduced(reduced):
-    if reduced not in (None, "device"):
-        raise NotImplementedError(
-            f'reduced="{reduced}": only the device reduced exponential is '
-            "ported (ROADMAP A6: the JAX package's host staging works "
-            "around the TPU's missing float64 LU)")
+def _reduced_where(reduced, differentiable: bool = False,
+                   mode: str = "happy_breakdown") -> str:
+    """"device" or "host" for a caller's ``reduced`` (None: the default),
+    refusing "host" with ``differentiable`` (a host read breaks the
+    ``torch.func`` transforms) and with the error-estimate loop."""
+    reduced = reduced_default() if reduced is None else reduced
+    if reduced not in ("device", "host"):
+        raise ValueError(f'reduced must be "device", "host" or None, got '
+                         f"{reduced!r}")
+    if reduced == "host" and differentiable:
+        raise ValueError('reduced="host" is not differentiable (the reduced '
+                         "problem goes through host scipy); use "
+                         'reduced="device"')
+    if reduced == "host" and mode == "error_estimate":
+        raise ValueError('mode="error_estimate" evaluates its reduced '
+                         'problems on the device; use reduced="device"')
+    return reduced
 
 
 def expv_from_basis(t, Ks: KrylovBasis, *, reduced: str = "device",
                     differentiable: bool = False):
     """w = beta V^T exp(tH) e1 from a prebuilt Lanczos or Arnoldi basis
-    (``differentiable``: module doc)."""
-    _device_reduced(reduced)
+    (``reduced``, ``differentiable``: module doc)."""
+    if _reduced_where(reduced, differentiable) == "host":
+        m = Ks.m
+        return _combine_expv(Ks, host_expm_e1(Ks.H[:m, :m], t))
     return _combine_expv(Ks, _exp_reduced_e1(Ks, t, differentiable))
 
 
-def _lanczos_reduced_coeffs(alphas, betas, beta0, t):
+def _lanczos_reduced_coeffs(alphas, betas, beta0, t, reduced="device"):
     """Reduced stage of every two-pass Hermitian expv: masked tridiagonal
     T -> eigh -> the replay combination coefficients beta0 Q e^{t Lambda}
-    Q^T e1."""
+    Q^T e1 (on the host with ``reduced="host"``)."""
+    if reduced == "host":
+        return host_lanczos_coeffs(alphas, betas, beta0, t)
     T = (torch.diag(alphas) + torch.diag(betas[:-1], 1)
          + torch.diag(betas[:-1], -1))
     w_eig, Q = torch.linalg.eigh(T)
@@ -145,31 +168,33 @@ def _lanczos_reduced_coeffs(alphas, betas, beta0, t):
 
 
 @full_precision
-def _expv_two_pass(op, b, t, m: int):
+def _expv_two_pass(op, b, t, m: int, reduced: str = "device"):
     """Storage-free Hermitian expv on the plain torch passes
     (``ops.krylov.lanczos_coeffs`` / ``lanczos_replay``): 2m matvecs,
     O(n) memory."""
     alphas, betas, beta0, m_used, broke = lanczos_coeffs(op, b, m)
-    coeffs = _lanczos_reduced_coeffs(alphas, betas, beta0, t)
+    coeffs = _lanczos_reduced_coeffs(alphas, betas, beta0, t, reduced)
     out = lanczos_replay(op, b, coeffs, alphas, betas, m)
     return torch.where(beta0 > 0, out, 0.0)
 
 
-def _expv_two_pass_fused(op, b, t, m: int, tol: float = 1e-7):
+def _expv_two_pass_fused(op, b, t, m: int, tol: float = 1e-7,
+                         reduced: str = "device"):
     """Two-pass Hermitian expv with both passes as fused sweeps (B3)."""
     from ..ops.kernels.lanczos_fused import (lanczos_coeffs_fused,
                                              lanczos_replay_fused)
 
     alphas, betas, beta0, m_used, broke = lanczos_coeffs_fused(op, b, m,
                                                                tol=tol)
-    coeffs = _lanczos_reduced_coeffs(alphas, betas, beta0, t)
+    coeffs = _lanczos_reduced_coeffs(alphas, betas, beta0, t, reduced)
     out = lanczos_replay_fused(op, b, coeffs, tol=tol)
     return torch.where(beta0 > 0, out, 0.0)
 
 
 @full_precision
 def _expv_two_pass_arnoldi(op, b, t, m: int, win: int,
-                           differentiable: bool = False):
+                           differentiable: bool = False,
+                           reduced: str = "device"):
     """Storage-free non-Hermitian expv: two IOP-Arnoldi passes over a
     (win, n) rolling window (``ops.krylov.arnoldi_coeffs`` /
     ``arnoldi_replay``); the same recurrence as ``expv(iop=win,
@@ -177,8 +202,11 @@ def _expv_two_pass_arnoldi(op, b, t, m: int, win: int,
     Hc, beta0, m_used, broke = arnoldi_coeffs(op, b, m, win)
     H = expand_compact_hessenberg(Hc, win)
     dt = torch.promote_types(H.dtype, _t_dtype(t))
-    expHe = expm_higham2005(t * H[:m, :m].to(dt),
-                            differentiable=differentiable)[:, 0]
+    if reduced == "host":
+        expHe = host_expm_e1(H[:m, :m], t, dt)
+    else:
+        expHe = expm_higham2005(t * H[:m, :m].to(dt),
+                                differentiable=differentiable)[:, 0]
     w = arnoldi_replay(op, b, expHe * beta0.to(dt), Hc, m, win)
     return torch.where(beta0 > 0, w, 0.0)
 
@@ -239,7 +267,7 @@ def _expv_error_estimate(op, b, t, m: int, atol: float, rtol: float,
 def expv(t, A, b, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
          mode: str = "happy_breakdown", reorth: bool = True,
          hermitian: bool | None = None, atol: float = 1e-8,
-         rtol: float | None = None, reduced: str | None = "device",
+         rtol: float | None = None, reduced: str | None = None,
          two_pass: bool = False, return_info: bool = False,
          differentiable: bool = False):
     """exp(tA) b by a Krylov approximation (module doc).
@@ -256,10 +284,12 @@ def expv(t, A, b, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
       device when the operator is a supported stencil and the grad rule
       lets the call through; non-Hermitian operators need ``iop > 0``
       there.
+    reduced: "device", "host" or None (the default, "device"): where the
+      m-sized reduced problem is evaluated (module doc).
     differentiable: the reduced exponential's form with no host read
       (module doc).
     """
-    _device_reduced(reduced)
+    reduced = _reduced_where(reduced, differentiable, mode)
     op = aslinearoperator(A)
     b = action_vector(b, op)
     op, b, post = hoist_conjugation(op, b)
@@ -289,6 +319,7 @@ def expv(t, A, b, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
         return expv_from_basis(t, build_subspace(op, b, m, tol=tol, iop=iop,
                                                  reorth=reorth,
                                                  hermitian=herm),
+                               reduced=reduced,
                                differentiable=differentiable)
     if not herm:
         if iop <= 0:
@@ -296,7 +327,8 @@ def expv(t, A, b, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
                 "non-Hermitian two_pass expv requires an IOP window "
                 "(iop > 0): the rolling-window recurrence is what makes the "
                 "replay storage-free")
-        return _expv_two_pass_arnoldi(op, b, t, m, iop, differentiable)
+        return _expv_two_pass_arnoldi(op, b, t, m, iop, differentiable,
+                                      reduced)
     from ..ops.kernels.lanczos_fused import fused_supported
     from ..ops.kernels.resident import (expv_two_pass_resident,
                                         resident_supported)
@@ -310,18 +342,23 @@ def expv(t, A, b, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
                     or fused_supported(op, hermitian=True))
                and not grad_gate(op, (b, t)))
     if kernels and resident_supported(op):
-        return expv_two_pass_resident(op, b, t, m, tol=tol)
+        return expv_two_pass_resident(op, b, t, m, tol=tol, reduced=reduced)
     if kernels and fused_supported(op, hermitian=True):
-        return _expv_two_pass_fused(op, b, t, m, tol=tol)
-    return _expv_two_pass(op, b, t, m)
+        return _expv_two_pass_fused(op, b, t, m, tol=tol, reduced=reduced)
+    return _expv_two_pass(op, b, t, m, reduced)
 
 
 def make_expv(op, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
-              reorth: bool = True, hermitian: bool | None = None):
+              reorth: bool = True, hermitian: bool | None = None,
+              bake_operator: bool = False):
     """Serving factory: ``fn(t, b)`` with the operator and the Krylov
     settings bound once (a plain closure over ``build_subspace`` and the
-    reduced exponential; nothing is compiled, so the JAX package's
-    ``bake_operator`` has no counterpart)."""
+    reduced exponential).
+
+    bake_operator: accepted for the JAX package's signature and changes
+      nothing. There it embeds the operator's arrays in the compiled
+      program as constants; nothing is compiled here, and the closure
+      over ``op`` already holds its tensors, as baking does."""
     op = aslinearoperator(op)
     m_ = min(m, op.shape[0])
     herm = op.is_hermitian if hermitian is None else hermitian
@@ -342,9 +379,9 @@ def expv_batched(t, A, B, *, m: int = 30, tol: float = 1e-7,
     call's path and kernels. With a row-sharded operator B holds this
     rank's columns of each row (and, on a data x shard mesh, only its
     data slice of the rows): the reductions run over the operator's axis
-    alone. Returns (batch, n). ``reduced="host"`` raises
-    NotImplementedError, as in ``expv``."""
-    _device_reduced(reduced)
+    alone. Returns (batch, n). ``reduced``: as in ``expv`` (each row's
+    reduced problem on the host with "host")."""
+    reduced = _reduced_where(reduced)
     op = aslinearoperator(A)
     B = action_vector(B, op)
     if B.ndim != 2:
@@ -352,4 +389,5 @@ def expv_batched(t, A, B, *, m: int = 30, tol: float = 1e-7,
                          f"{tuple(B.shape)}")
     return torch.stack([
         expv(t, op, b, m=m, tol=tol, hermitian=hermitian, iop=iop,
-             reorth=reorth, two_pass=two_pass) for b in B.unbind(0)])
+             reorth=reorth, reduced=reduced, two_pass=two_pass)
+        for b in B.unbind(0)])

@@ -34,8 +34,9 @@ every rank: the augmented operator's ``comm`` (``utils.comm.AugmentedAxis``)
 adds the tail to the Arnoldi dots and norms from axis index 0 only, and
 sum |u| is a psum, so every rank reads the single-device call's scalars.
 
-``reduced="host"`` (the JAX package's float64 workaround for the TPU) is
-not ported and raises NotImplementedError.
+``reduced="host"`` evaluates each trial's augmented exponential and each
+phantom's exponential with scipy on the host (``ops/host_reduced.py``):
+one device-to-host read and one host-to-device write per reduced problem.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ import numpy as np
 import torch
 
 from ..ops.expm import expm_higham2005, expm_taylor
+from ..ops.host_reduced import host_expm
 from ..ops.krylov import (arnoldi, arnoldi_coeffs, arnoldi_extend,
                           arnoldi_replay, expand_compact_hessenberg)
 from ..ops.sparse import hoist_conjugation
@@ -54,7 +56,7 @@ from ..utils.comm import AugmentedAxis, operator_comm, psum
 from ..utils.device import action_vector
 from ..utils.linop import LinearOperator, aslinearoperator
 from ..utils.precision import full_precision
-from .expv import _device_reduced
+from .expv import _reduced_where
 from .phiv import _row
 from .timestepping import _MAX_NONFINITE_REJECTS
 
@@ -67,11 +69,10 @@ class AugmentedOperator(LinearOperator):
     rank's rows (``n_main`` of them) and ``comm`` the augmented axis
     (module doc)."""
 
-    is_hermitian = False
-
-    def __init__(self, op: LinearOperator, B):
+    def __init__(self, op: LinearOperator, B, is_hermitian: bool = False):
         self.op = op
         self.B = B              # (n, p): the nu-scaled flipped u columns
+        self.is_hermitian = bool(is_hermitian)
         axis = operator_comm(op)
         self.comm = None if axis is None else AugmentedAxis(axis, B.shape[0])
 
@@ -235,11 +236,15 @@ def _kiops_build(aug_op, w_col, t_now, mu, m: int, iop: int, p: int,
 
 
 @full_precision
-def _kiops_err(Kb: _Basis, tau_sgn: float, expm_method: str = "higham2005"):
+def _kiops_err(Kb: _Basis, tau_sgn: float, expm_method: str = "higham2005",
+               reduced: str = "device"):
     """Reduced-only trial: (coeffs (m+1,), err as a host float); no n-sized
     work."""
-    engine = expm_taylor if expm_method == "taylor" else expm_higham2005
-    F = engine(tau_sgn * Kb.Haug, onenorm=abs(tau_sgn) * Kb.haug_norm)
+    if reduced == "host":
+        F = host_expm(tau_sgn * Kb.Haug)
+    else:
+        engine = expm_taylor if expm_method == "taylor" else expm_higham2005
+        F = engine(tau_sgn * Kb.Haug, onenorm=abs(tau_sgn) * Kb.haug_norm)
     err = abs(Kb.beta_host * Kb.nrm * F[max(Kb.j - 1, 0), Kb.j].item())
     return Kb.beta.to(F.dtype) * F[:, 0], err
 
@@ -258,11 +263,13 @@ def _kiops_combine(aug_op, Kb: _Basis, coeffs, n: int):
 
 
 @full_precision
-def _kiops_phantom(aug_op, Kb: _Basis, tau_sgn: float, n: int):
+def _kiops_phantom(aug_op, Kb: _Basis, tau_sgn: float, n: int,
+                   reduced: str = "device"):
     """A snapshot inside an accepted substep: exp of the j^2 block without
     the phi_1 coupling, combined with the basis."""
     Hj = _phantom_hessenberg(Kb.H, Kb.m_used)
-    F2 = expm_higham2005(tau_sgn * Hj)
+    F2 = (host_expm(tau_sgn * Hj) if reduced == "host"
+          else expm_higham2005(tau_sgn * Hj))
     rows = torch.arange(Kb.m + 1, device=F2.device)
     col = torch.where(rows < Kb.m_used, F2[:, 0], 0)
     beta = Kb.beta.to(F2.dtype)
@@ -289,7 +296,7 @@ def kiops(tstops, A, u, *, tol: float = 1e-7, mmin: int = 10,
     tstop) on the operator's device and stats a ``KiopsStats`` (only W
     with ``return_stats=False``).
     """
-    _device_reduced(reduced)
+    reduced = _reduced_where(reduced)
     op = aslinearoperator(A)
     op, u, post = hoist_conjugation(op, action_vector(u, op))
     if post is not None:
@@ -344,7 +351,7 @@ def kiops(tstops, A, u, *, tol: float = 1e-7, mmin: int = 10,
 
         # trials are reduced work only: the n-sized combination or replay
         # runs once per accepted substep
-        coeffs, err = _kiops_err(Kb, sgn * tau)
+        coeffs, err = _kiops_err(Kb, sgn * tau, reduced=reduced)
         stats.exps += 1
 
         if happy:
@@ -424,7 +431,8 @@ def kiops(tstops, A, u, *, tol: float = 1e-7, mmin: int = 10,
             # snapshots strictly inside (tau_now, next_t)
             while l < num_steps - 1 and abs(tau_out[l]) < abs(next_t):
                 tau_phantom = abs(tau_out[l]) - tau_now
-                W[:, l] = _kiops_phantom(aug, Kb, sgn * tau_phantom, n)
+                W[:, l] = _kiops_phantom(aug, Kb, sgn * tau_phantom, n,
+                                         reduced)
                 l += 1
             W[:, l] = _kiops_combine(aug, Kb, coeffs, n)
             w_cur = W[:, l]

@@ -20,9 +20,11 @@ else takes the plain torch passes.
 with no host read (``phiv_dense(differentiable=True)``), for ``torch.func``
 transforms; plain ``torch.autograd`` differentiates every path, the
 two-pass one through the grad rule of ``ops/kernels/dispatch.py``.
-``reduced="host"`` raises NotImplementedError (ROADMAP A6, as in
-``models/expv.py``); ``two_pass=True`` is Hermitian only, as in the JAX
-package. A ``SortedSellOperator`` is unwrapped on entry
+``reduced="host"`` evaluates the reduced augmented exponential with scipy
+on the host in float64/complex128 (``ops/host_reduced.py``, as in
+``models/expv.py``: one read and one write per reduced problem, refused
+with ``differentiable``); ``two_pass=True`` is Hermitian only, as in the
+JAX package. A ``SortedSellOperator`` is unwrapped on entry
 (``hoist_conjugation``), as in the JAX ``phiv``: the solve runs in the
 sorted basis and only the result is permuted back. A numpy ``b`` goes to
 the operator's device. A row-sharded operator (``parallel.shard_operator``)
@@ -33,13 +35,14 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.host_reduced import host_phiv_e1
 from ..ops.krylov import KrylovBasis
 from ..ops.phi_dense import phiv_dense
 from ..ops.sparse import hoist_conjugation
 from ..utils.device import action_vector
 from ..utils.linop import aslinearoperator
 from ..utils.precision import full_precision
-from .expv import _device_reduced, build_subspace
+from .expv import _reduced_where, build_subspace
 
 __all__ = ["phiv", "phiv_from_basis", "make_phiv"]
 
@@ -79,19 +82,24 @@ def phiv_from_basis(t, Ks: KrylovBasis, k: int, *, correct: bool = False,
                     reduced: str = "device", differentiable: bool = False):
     """(w, err) from a prebuilt Lanczos or Arnoldi basis: w the (n, k+1)
     matrix of phi_j(tA)b columns, err the error estimate of phi_k
-    (``differentiable``: module doc)."""
-    _device_reduced(reduced)
+    (``reduced``, ``differentiable``: module doc)."""
+    reduced = _reduced_where(reduced, differentiable)
     return _phiv_combine(t, Ks, _reduced_phi(
-        t, Ks.H, k, differentiable=differentiable), k, correct)
+        t, Ks.H, k, differentiable=differentiable, reduced=reduced), k,
+        correct)
 
 
 def _reduced_phi(t, H, k: int, *, expm_method: str = "higham2005",
-                hnorm: float | None = None, differentiable: bool = False):
+                hnorm: float | None = None, differentiable: bool = False,
+                reduced: str = "device"):
     """The (m, k+1) reduced phi columns phi_j(t H_m) e1 of an (m+1, m)
-    Hessenberg H (``phiv_dense`` on the augmented matrix). ``hnorm``: the
-    1-norm of H_m on the host, which spares the exponential its read (the
-    augmented matrix's 1-norm is max(|t| hnorm, 1))."""
+    Hessenberg H (``phiv_dense`` on the augmented matrix, or host scipy
+    with ``reduced="host"``). ``hnorm``: the 1-norm of H_m on the host,
+    which spares the exponential its read (the augmented matrix's 1-norm
+    is max(|t| hnorm, 1))."""
     m = H.shape[1]
+    if reduced == "host":
+        return host_phiv_e1(H[:m, :m], t, k)
     dt = torch.promote_types(H.dtype, torch.as_tensor(t).dtype)
     Hm = t * H[:m, :m].to(dt)
     e1 = torch.eye(m, dtype=dt, device=Hm.device)[0]
@@ -119,7 +127,7 @@ def make_phiv(op, k: int, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
 
 def phiv(t, A, b, k: int, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
          correct: bool = False, errest: bool = False, reorth: bool = True,
-         hermitian: bool | None = None, reduced: str | None = "device",
+         hermitian: bool | None = None, reduced: str | None = None,
          two_pass: bool = False, differentiable: bool = False):
     """[phi_0(tA)b ... phi_k(tA)b] by a Krylov approximation: the (n, k+1)
     matrix, or (w, err) when ``errest=True``.
@@ -129,10 +137,12 @@ def phiv(t, A, b, k: int, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
     two_pass: the storage-free two-pass Lanczos (module doc; Hermitian
       only), which picks the CUDA kernels B2 and B4 for a 1-D constant
       stencil when the grad rule lets the call through.
+    reduced: "device", "host" or None (the default, "device"): where the
+      reduced augmented exponential is evaluated (module doc).
     differentiable: the reduced exponential's form with no host read
       (module doc).
     """
-    _device_reduced(reduced)
+    reduced = _reduced_where(reduced, differentiable)
     op = aslinearoperator(A)
     b = action_vector(b, op)
     op, b, post = hoist_conjugation(op, b)
@@ -149,7 +159,7 @@ def phiv(t, A, b, k: int, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
     if not two_pass:
         Ks = build_subspace(op, b, m, tol=tol, iop=iop, reorth=reorth,
                             hermitian=herm)
-        w, err = phiv_from_basis(t, Ks, k, correct=correct,
+        w, err = phiv_from_basis(t, Ks, k, correct=correct, reduced=reduced,
                                  differentiable=differentiable)
     elif not herm:
         raise NotImplementedError(
@@ -163,22 +173,27 @@ def phiv(t, A, b, k: int, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
         if (not torch.as_tensor(t).is_complex()
                 and resident_multi_ok(op, b.dtype, b.device, k + 1,
                                       (b, t))):
-            w, err = phiv_two_pass_resident(op, b, t, m, k, tol=tol)
+            w, err = phiv_two_pass_resident(op, b, t, m, k, tol=tol,
+                                            reduced=reduced)
         else:
-            w, err = _phiv_two_pass(op, b, t, m, k, differentiable)
+            w, err = _phiv_two_pass(op, b, t, m, k, differentiable, reduced)
     return (w, err) if errest else w
 
 
 def _two_pass_reduced(alphas, betas, beta0, m_used, t, k: int, dt,
-                      differentiable: bool = False):
+                      differentiable: bool = False, reduced: str = "device"):
     """Reduced stage of every two-pass phiv: (C2, err) with C2 (m, k+1)
-    the phi columns of the recorded tridiagonal t T (``phiv_dense``) and
-    err the error estimate |beta0 h t C2[last, k]|."""
+    the phi columns of the recorded tridiagonal t T (``phiv_dense``, or
+    host scipy with ``reduced="host"``) and err the error estimate
+    |beta0 h t C2[last, k]|."""
     m = alphas.shape[0]
     T = (torch.diag(alphas) + torch.diag(betas[:-1], 1)
          + torch.diag(betas[:-1], -1)).to(dt)
-    e1 = torch.eye(m, dtype=dt, device=T.device)[0]
-    C2 = phiv_dense(t * T, e1, k, differentiable=differentiable)
+    if reduced == "host":
+        C2 = host_phiv_e1(T, t, k, dt)
+    else:
+        e1 = torch.eye(m, dtype=dt, device=T.device)[0]
+        C2 = phiv_dense(t * T, e1, k, differentiable=differentiable)
     last = torch.clamp_min(m_used - 1, 0)
     h_res = torch.where(m_used < m, betas[torch.clamp_max(m_used, m - 1)],
                         betas[m - 1]).to(dt)
@@ -186,7 +201,8 @@ def _two_pass_reduced(alphas, betas, beta0, m_used, t, k: int, dt,
 
 
 @full_precision
-def _phiv_two_pass(op, b, t, m: int, k: int, differentiable: bool = False):
+def _phiv_two_pass(op, b, t, m: int, k: int, differentiable: bool = False,
+                   reduced: str = "device"):
     """Storage-free Hermitian phi-actions on the plain torch passes
     (``ops.krylov.lanczos_coeffs`` / ``lanczos_replay``): (w (n, k+1),
     err) without the (m+1, n) basis."""
@@ -195,7 +211,7 @@ def _phiv_two_pass(op, b, t, m: int, k: int, differentiable: bool = False):
     alphas, betas, beta0, m_used, broke = lanczos_coeffs(op, b, m)
     dt = torch.promote_types(b.dtype, torch.as_tensor(t).dtype)
     C2, err = _two_pass_reduced(alphas, betas, beta0, m_used, t, k, dt,
-                                differentiable)
+                                differentiable, reduced)
     w = lanczos_replay(op, b, C2 * beta0.to(dt), alphas, betas, m)
     live = beta0 > 0
     return torch.where(live, w, 0.0), torch.where(live, err, 0.0)

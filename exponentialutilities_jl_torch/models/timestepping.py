@@ -32,8 +32,10 @@ is a pmax, and every adaptation decision reads replicated scalars, so the
 ranks take the single-device call's steps together. The global n decides
 the m buckets and the cost model.
 
-``reduced="host"`` (the JAX package's float64 workaround for the TPU) is
-not ported and raises NotImplementedError.
+``reduced="host"`` evaluates each trial's reduced phi columns with scipy
+on the host (``ops/host_reduced.py``): one device-to-host read and one
+host-to-device write per reduced problem. The fixed-step forms keep their
+device exponential (they take no ``reduced``, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ from ..ops.sparse import hoist_conjugation
 from ..utils.comm import operator_comm, pmax
 from ..utils.device import action_vector
 from ..utils.linop import NegatedOperator, aslinearoperator
-from .expv import _device_reduced, build_subspace
+from .expv import _reduced_where, build_subspace
 from .phiv import _phiv_combine, _reduced_phi, _row
 
 __all__ = ["expv_timestep", "phiv_timestep", "TimestepStats",
@@ -238,13 +240,14 @@ class _TwoPassSubstep:
     substep for the phi_p columns at the accepted tau and every snapshot
     tau."""
 
-    def __init__(self, op, tol, iop, hermitian, p):
+    def __init__(self, op, tol, iop, hermitian, p, reduced="device"):
         self.op = op
         self.tol = tol
         self.win = iop if iop > 0 else 2
         self.hermitian = bool(hermitian)
         self.p = p
         self.kk = p + 1
+        self.reduced = reduced
 
     def build(self, v, m: int):
         from ..ops.krylov import (arnoldi_coeffs, expand_compact_hessenberg,
@@ -272,7 +275,8 @@ class _TwoPassSubstep:
                 "m": m, "rec": rec, "v": v}
 
     def _c2(self, S, tau_val):
-        return _reduced_phi(tau_val, S["H"], self.kk, hnorm=S["hm"])
+        return _reduced_phi(tau_val, S["H"], self.kk, hnorm=S["hm"],
+                            reduced=self.reduced)
 
     def err_estimate(self, S, tau_val) -> float:
         """|beta_0 h_{m+1,m} tau C2[last, p+1]| on the reduced problem
@@ -298,10 +302,11 @@ class _BasisSubstep:
     interface of ``_TwoPassSubstep``; the reduced phi columns of the last
     trial are kept for the accepted substep."""
 
-    def __init__(self, op, tol, iop, hermitian, p, correct):
+    def __init__(self, op, tol, iop, hermitian, p, correct,
+                 reduced="device"):
         self.op, self.tol, self.iop = op, tol, iop
         self.hermitian, self.p, self.kk = hermitian, p, p + 1
-        self.correct = correct
+        self.correct, self.reduced = correct, reduced
 
     def build(self, v, m: int):
         Ks = build_subspace(self.op, v, m, tol=self.tol, iop=self.iop,
@@ -313,7 +318,8 @@ class _BasisSubstep:
                 "m": m, "C2": None}
 
     def err_estimate(self, S, tau_val) -> float:
-        C2 = _reduced_phi(tau_val, S["H"], self.kk, hnorm=S["hm"])
+        C2 = _reduced_phi(tau_val, S["H"], self.kk, hnorm=S["hm"],
+                          reduced=self.reduced)
         S["C2"] = (tau_val, C2)
         last = max(S["m_used"] - 1, 0)
         return abs(S["beta0"] * S["h_res"] * tau_val
@@ -323,7 +329,8 @@ class _BasisSubstep:
         """The phi_p(tau A) w_p column (with the correction if asked)."""
         hit = S["C2"]
         C2 = (hit[1] if hit is not None and hit[0] == tau_val else
-              _reduced_phi(tau_val, S["H"], self.kk, hnorm=S["hm"]))
+              _reduced_phi(tau_val, S["H"], self.kk, hnorm=S["hm"],
+                           reduced=self.reduced))
         P, _ = _phiv_combine(tau_val, S["Ks"], C2, self.kk, self.correct)
         return P[:, self.p]
 
@@ -349,17 +356,19 @@ def phiv_timestep(ts, A, B, *, tau: float = 0.0, m: int = 10,
       n^2).
     two_pass: the storage-free substeps (module doc); needs
       ``correct=False``.
+    reduced: "device", "host" or None ("device"): where each trial's
+      reduced phi columns are evaluated (module doc).
 
     Returns U (n, len(ts)) (or (n,) for a scalar ts) on the operator's
     device, plus ``TimestepStats`` with ``return_stats=True``.
     """
-    _device_reduced(reduced)
+    reduced = _reduced_where(reduced)
     op = aslinearoperator(A)
     op, B, post = hoist_conjugation(op, _as_columns(B, op))
     kwargs = dict(tau=tau, m=m, tol=tol, opnorm=opnorm, iop=iop,
                   correct=correct, adaptive=adaptive, delta=delta,
                   gamma=gamma, nnz=nnz, m_max=m_max, hermitian=hermitian,
-                  verbose=verbose, two_pass=two_pass)
+                  verbose=verbose, reduced=reduced, two_pass=two_pass)
     if post is not None:
         # sorted-conjugated container: solve in the sorted basis (every
         # phi_j commutes with the conjugation)
@@ -407,8 +416,10 @@ def phiv_timestep(ts, A, B, *, tau: float = 0.0, m: int = 10,
         raise NotImplementedError(
             "two_pass phiv_timestep does not support correct=True "
             "(the correction needs the (m+1)-th basis vector)")
-    engine = (_TwoPassSubstep(op, tol, iop, hermitian, p) if two_pass
-              else _BasisSubstep(op, tol, iop, hermitian, p, correct))
+    engine = (_TwoPassSubstep(op, tol, iop, hermitian, p, reduced)
+              if two_pass
+              else _BasisSubstep(op, tol, iop, hermitian, p, correct,
+                                 reduced))
 
     U = torch.zeros((n_rows, len(ts_sorted)), dtype=B.dtype, device=B.device)
     t = 0.0

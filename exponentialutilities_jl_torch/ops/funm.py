@@ -30,6 +30,7 @@ requires grad while grad mode is on, ``funm`` raises NotImplementedError.
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
@@ -38,6 +39,7 @@ import torch
 from ..utils.device import host_tensor
 from ..utils.precision import full_precision
 from .expm import refuse_host_staged
+from .host_reduced import host_phi_np
 
 __all__ = ["funm", "funm_schur_parlett"]
 
@@ -98,29 +100,6 @@ def _reorder_schur(T: np.ndarray, Z: np.ndarray, cid: np.ndarray):
     return T, Z, bounds
 
 
-def _host_phi(A, k: int):
-    """[phi_0(A), ..., phi_k(A)] (k+1, n, n) in complex128 on the host, by
-    the block identity exp([[A, E], [0, K]])[:n, n + (j-1) n : n + j n] =
-    phi_j(A), E = [I 0 ... 0], K the k n-sized block-nilpotent shift."""
-    import scipy.linalg as sla
-
-    A = np.asarray(A, np.complex128)
-    n = A.shape[0]
-    if k == 0:
-        return sla.expm(A)[None]
-    E = np.zeros((n, k * n), np.complex128)
-    E[:, :n] = np.eye(n)
-    K = np.zeros((k * n, k * n), np.complex128)
-    for j in range(k - 1):
-        K[j * n:(j + 1) * n, (j + 1) * n:(j + 2) * n] = np.eye(n)
-    P = sla.expm(np.block([[A, E], [np.zeros((k * n, n), np.complex128), K]]))
-    out = np.empty((k + 1, n, n), np.complex128)
-    out[0] = P[:n, :n]
-    for j in range(1, k + 1):
-        out[j] = P[:n, n + (j - 1) * n:n + j * n]
-    return out
-
-
 def _atomic_exp(T):
     import scipy.linalg as sla
     return sla.expm(T)
@@ -128,7 +107,7 @@ def _atomic_exp(T):
 
 def _atomic_phi(k):
     def fm(T):
-        return _host_phi(T, k)[k]
+        return host_phi_np(T, k)[k]
     return fm
 
 
@@ -190,6 +169,27 @@ def _parlett_device(T, Fd, cross, denom, Z, iters: int, device):
     return Z @ F @ Z.mH, res
 
 
+def _user_callable(g: Callable) -> Callable:
+    """A user's f or matfunc as a numpy block evaluator: it is called on a
+    complex128 CPU tensor (0-d for a 1 x 1 block's eigenvalue, 2-D for a
+    block), so torch functions work; numpy ufuncs, ``cmath`` and scipy
+    read the tensor through ``__array__`` / ``__complex__``. Whatever it
+    returns (a tensor, a numpy value, a Python complex) comes back as
+    complex128 numpy."""
+    def call(block: np.ndarray) -> np.ndarray:
+        x = torch.from_numpy(np.array(block, np.complex128))
+        with warnings.catch_warnings():
+            # a numpy ufunc on a tensor wraps its result through the
+            # tensor's older __array_wrap__ signature (numpy >= 2 warns)
+            warnings.filterwarnings("ignore", "__array_wrap__",
+                                    DeprecationWarning)
+            y = g(x)
+        if isinstance(y, torch.Tensor):
+            y = y.detach().cpu().resolve_conj()
+        return np.asarray(y, np.complex128)
+    return call
+
+
 def _torch_dtype(dt):
     if isinstance(dt, torch.dtype):
         return dt
@@ -206,7 +206,10 @@ def funm_schur_parlett(A, f, *, delta: float = 0.2,
       "sin", "cos", "phi<k>" (e.g. "phi1"), or a scalar callable applied on
       1 x 1 blocks; a larger block (eigenvalues within ``delta``) then needs
       ``matfunc``, a block evaluator ``Tblock -> f(Tblock)`` (it also
-      overrides a named f's).
+      overrides a named f's). Both get complex128 CPU tensors (0-d and
+      2-D), so ``torch.exp`` works as well as ``np.exp``, a ``cmath``
+      lambda or a scipy function; a tensor, numpy value or Python complex
+      may come back.
     delta: clustering threshold (0.2: wider than Davies-Higham's 0.1, for
       accuracy).
     parlett: "auto", "device" or "host" (module doc).
@@ -238,10 +241,10 @@ def funm_schur_parlett(A, f, *, delta: float = 0.2,
                 f"unknown named matrix function {f!r}; expected one of "
                 f"{sorted(_NAMED) + ['phi<k>']} or a scalar callable")
     else:
-        scalar_f = f
-        block_f = matfunc
+        scalar_f = None if f is None else _user_callable(f)
+        block_f = None
     if matfunc is not None:
-        block_f = matfunc
+        block_f = _user_callable(matfunc)
 
     Ah = A.detach().cpu().numpy().astype(np.complex128)
     T, Z = sla.schur(Ah, output="complex")
@@ -254,7 +257,7 @@ def funm_schur_parlett(A, f, *, delta: float = 0.2,
     for i in range(nb):
         Ti = T[blk[i], blk[i]]
         if Ti.shape[0] == 1 and scalar_f is not None:
-            F[blk[i], blk[i]] = scalar_f(Ti[0, 0])
+            F[blk[i], blk[i]] = scalar_f(Ti[:1, :1].reshape(()))
         elif block_f is not None:
             F[blk[i], blk[i]] = np.asarray(block_f(Ti), np.complex128)
         else:

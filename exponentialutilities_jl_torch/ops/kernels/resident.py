@@ -1136,32 +1136,37 @@ def _inv_or_zero(beta0):
                        0.0)
 
 
-def expv_two_pass_resident(op, b, t, m: int, *, tol: float = 1e-7):
+def expv_two_pass_resident(op, b, t, m: int, *, tol: float = 1e-7,
+                           reduced: str = "device"):
     """Storage-free 1-D Hermitian expv with both passes one launch each:
     pass 1 = ``lanczos_coeffs_resident`` (B2), the m x m reduced
-    tridiagonal exponential (``torch.linalg.eigh``), pass 2 = the B1
-    recurrence with the replay rows of the record."""
+    tridiagonal exponential (``torch.linalg.eigh``, or host scipy with
+    ``reduced="host"``), pass 2 = the B1 recurrence with the replay rows
+    of the record."""
     from ...models.expv import _lanczos_reduced_coeffs
 
     alphas, betas, beta0, m_used, broke = lanczos_coeffs_resident(
         op, b, m, tol=tol)
-    coeffs = _lanczos_reduced_coeffs(alphas, betas, beta0, t)
+    coeffs = _lanczos_reduced_coeffs(alphas, betas, beta0, t, reduced)
     rows = _replay_rows(alphas, betas, coeffs.to(b.dtype))
     w = recurrence_apply_resident(op, b, rows, scale=_inv_or_zero(beta0))
     return torch.where(beta0 > 0, w, 0.0)
 
 
-def phiv_two_pass_resident(op, b, t, m: int, k: int, *, tol: float = 1e-7):
+def phiv_two_pass_resident(op, b, t, m: int, k: int, *, tol: float = 1e-7,
+                           reduced: str = "device"):
     """Storage-free 1-D Hermitian phi-actions (w (n, k+1), err): pass 1 =
     ``lanczos_coeffs_resident`` (B2), the reduced augmented exponential
-    (``phiv_dense``), pass 2 = ONE launch of B4 accumulating every phi
-    order from the shared regenerated basis chain. ``err`` is the
-    a-posteriori estimate |beta0 h t C2[last, k]| of ``models.phiv``."""
+    (``phiv_dense``, or host scipy with ``reduced="host"``), pass 2 = ONE
+    launch of B4 accumulating every phi order from the shared regenerated
+    basis chain. ``err`` is the a-posteriori estimate |beta0 h t
+    C2[last, k]| of ``models.phiv``."""
     from ...models.phiv import _two_pass_reduced
 
     alphas, betas, beta0, m_used, broke = lanczos_coeffs_resident(
         op, b, m, tol=tol)
-    C2, err = _two_pass_reduced(alphas, betas, beta0, m_used, t, k, b.dtype)
+    C2, err = _two_pass_reduced(alphas, betas, beta0, m_used, t, k, b.dtype,
+                                reduced=reduced)
     rows = _replay_rows(alphas, betas, torch.zeros_like(alphas))
     w = recurrence_apply_resident_multi(op, _inv_or_zero(beta0) * b, rows,
                                         C2 * beta0)

@@ -27,12 +27,19 @@ view keeps until then.
 
 Products, one per kind:
 
-* ``BandedOperator``: the h = max|offset| halo rows from the two ring
+* ``BandedOperator``: the h = max|offset| halo rows from the ring
   neighbours (``MeshAxis.ppermute_halo``), then ONE launch of kernel B7 on
   the halo-extended slab: diagonals of length n_local + 2h, zero on the h
   halo rows at each end and where the global column leaves [0, n). Every
   kept row's columns lie inside the extended vector, so B7's own boundary
-  truncation never cuts a row of the global operator. The class is no
+  truncation never cuts a row of the global operator. A halo wider than a
+  shard takes k = ceil(h / n_local) exchanges: the first passes this
+  rank's edge rows, each later one passes on what the last one brought
+  (whole shards, the outermost trimmed to the rows still missing), so the
+  slab gathers the k neighbours on each side with halo traffic only. The
+  axis ends receive zeros, and the diagonals are zero wherever a column
+  leaves [0, n), so h is capped at (P - 1) n_local, where the slab
+  already spans every column (k <= P - 1). The class is no
   ``BandedOperator`` (``parallel/ops.py`` says why): the recurrence
   engines never see it. CPU tensors run the same slab arithmetic on B7's
   twin.
@@ -49,8 +56,15 @@ Products, one per kind:
 A product that autograd or a ``torch.func`` transform must see (the
 integrators' ``JacobianOperator``) runs through ``ops/sparse._KernelMatvec``:
 the collectives and kernels see plain tensors, the tangent takes the same
-product, and the reverse rule of a Hermitian operator is the product
-itself. Other operators (``VariableStencilOperator``, the SELL, sorted
+product, and the reverse rule gives this rank's rows of A^H g. For a
+Hermitian operator that is the product itself. Otherwise a banded view
+shards the global operator's adjoint (``BandedOperator.adjoint``) at the
+first reverse sweep and runs the same halo exchange and one B7 launch on
+the adjoint slab, the single-device rule on each rank's rows; an ELL,
+block-ELL or dense view forms A_rows^H g_rows, an n-vector, in plain torch
+(the JAX route runs these kinds without its kernels), sums it over the
+axis (one psum) and keeps this rank's rows. The storage gradient is None
+in every view. Other operators (``VariableStencilOperator``, the SELL, sorted
 and hybrid containers, matrix-free operators) raise TypeError, as the
 JAX route does.
 """
@@ -88,12 +102,15 @@ def _row_range(n: int, axis, unit: int = 1) -> tuple[int, int]:
 class _Sharded(LinearOperator):
     """This rank's view of a row-partitioned operator (module doc). A
     subclass provides ``_local_matvec(x)``: this rank's rows of A x from
-    this rank's rows of x (the collectives included)."""
+    this rank's rows of x (the collectives included), and for a
+    non-Hermitian operator ``_adjoint_matvec(g)``: this rank's rows of
+    A^H g (the reverse rule's product)."""
 
     def _init_sharded(self, op, axis, n_local: int):
         self.comm = axis
         self.n_global = int(op.shape[0])
         self.n_local = int(n_local)
+        self.row_lo = axis.axis_index() * self.n_local
         self.is_hermitian = bool(op.is_hermitian)
         self._nnz = int(op.nnz) if hasattr(op, "nnz") else None
         opn = op.opnorm_hint()
@@ -165,11 +182,18 @@ class _Sharded(LinearOperator):
         return self.matvec(x)
 
     def _kernel_vjp(self, x, _, g, need_x, need_storage):
-        if not self.is_hermitian:
-            raise NotImplementedError(
-                f"reverse mode through a sharded {self._kind} needs A^H, "
-                "which is the product itself only for a Hermitian operator")
-        return self.matvec(g).to(x.dtype), None
+        gx = self.matvec(g) if self.is_hermitian else self._adjoint_matvec(g)
+        return gx.to(x.dtype), None
+
+    def _adjoint_matvec(self, g):
+        raise NotImplementedError(
+            f"reverse mode through a non-Hermitian sharded {self._kind} has "
+            "no rule (the JAX route does not shard it)")
+
+    def _scatter_rows(self, v):
+        """This rank's rows of the axis sum of the n-vectors ``v`` (each
+        rank's A_rows^H g_rows)."""
+        return self.comm.psum(v)[self.row_lo:self.row_lo + self.n_local]
 
 
 class ShardedBandedOperator(_Sharded):
@@ -181,12 +205,15 @@ class ShardedBandedOperator(_Sharded):
         lo, hi = _row_range(op.shape[0], axis)
         self._init_sharded(op, axis, hi - lo)
         self.offsets = tuple(op.offsets)
-        self.halo = h = max((abs(o) for o in self.offsets), default=0)
         nl = hi - lo
+        h = max((abs(o) for o in self.offsets), default=0)
         if h > nl:
-            raise ValueError(
-                f"halo width {h} exceeds local shard size {nl}; use fewer "
-                "shards or a wider shard")
+            # multi-hop halo: the slab never needs more than every column
+            h = min(h, (axis.axis_size() - 1) * nl)
+        self.halo = h
+        # the global operator, kept until the first reverse sweep shards
+        # its adjoint
+        self._source = None if self.is_hermitian else op
         D = op.diags.detach()[:, lo:hi].to(axis.device)
         ig = lo + torch.arange(nl, device=D.device)
         De = torch.zeros((len(self.offsets), nl + 2 * h), dtype=D.dtype,
@@ -209,8 +236,33 @@ class ShardedBandedOperator(_Sharded):
         h = self.halo
         if h == 0:
             return self.ext.matvec(x)
-        below, above = self.comm.ppermute_halo(x[:h], x[-h:])
-        return self.ext.matvec(torch.cat([below, x, above]))[h:h + x.shape[0]]
+        return self.ext.matvec(self._slab(x))[h:h + x.shape[0]]
+
+    def _slab(self, x):
+        """[h rows below; x; h rows above] from ceil(h / n_local) halo
+        exchanges (module doc)."""
+        lows, highs = [], []
+        send_lo, send_hi, left = x, x, self.halo
+        while left > 0:
+            r = min(left, self.n_local)
+            below, above = self.comm.ppermute_halo(send_lo[:r], send_hi[-r:])
+            lows.append(below)
+            highs.append(above)
+            send_lo, send_hi, left = above, below, left - r
+        return torch.cat(lows[::-1] + [x] + highs)
+
+    def _adjoint(self):
+        """This rank's view of the global operator's adjoint, sharded at
+        the first call; its own adjoint is this view."""
+        if getattr(self, "_adj", None) is None:
+            self._adj = ShardedBandedOperator(self._source.adjoint(),
+                                              self.comm)
+            self._adj._adj, self._adj._source = self, None
+            self._source = None
+        return self._adj
+
+    def _adjoint_matvec(self, g):
+        return self._adjoint().matvec(g)
 
 
 class ShardedStencilOperator(_Sharded, LocalStencilOperator):
@@ -251,6 +303,13 @@ class ShardedELLOperator(_Sharded):
     def _local_matvec(self, x):
         return (self.data * self.comm.all_gather(x)[self.cols]).sum(dim=1)
 
+    def _adjoint_matvec(self, g):
+        rt = torch.promote_types(self.dtype, g.dtype)
+        v = torch.zeros(self.n_global, dtype=rt, device=g.device)
+        v.index_add_(0, self.cols.reshape(-1).long(),
+                     (self.data.conj().to(rt) * g.to(rt)[:, None]).reshape(-1))
+        return self._scatter_rows(v)
+
 
 class ShardedBlockELLOperator(_Sharded):
     """This rank's block rows of a ``BlockELLOperator`` against the
@@ -285,6 +344,15 @@ class ShardedBlockELLOperator(_Sharded):
         return blockell_spmv(_promoted(self, "blocks", rt), self.bcols,
                              xg.to(rt))
 
+    def _adjoint_matvec(self, g):
+        nbr, w, br, bc = self.blocks.shape
+        rt = torch.promote_types(self.dtype, g.dtype)
+        part = torch.einsum("iwrc,ir->iwc", self.blocks.conj().to(rt),
+                            g.to(rt).reshape(nbr, br))
+        v = torch.zeros((self.n_global // bc, bc), dtype=rt, device=g.device)
+        v.index_add_(0, self.bcols.reshape(-1).long(), part.reshape(-1, bc))
+        return self._scatter_rows(v.reshape(-1))
+
 
 class ShardedDenseOperator(_Sharded):
     """This rank's rows of a ``DenseOperator`` (n_local, n) times the
@@ -307,6 +375,10 @@ class ShardedDenseOperator(_Sharded):
         xg = self.comm.all_gather(x)
         rt = torch.promote_types(self.A.dtype, xg.dtype)
         return self.A.to(rt) @ xg.to(rt)
+
+    def _adjoint_matvec(self, g):
+        rt = torch.promote_types(self.A.dtype, g.dtype)
+        return self._scatter_rows(self.A.to(rt).mH @ g.to(rt))
 
 
 def shard_operator(op: LinearOperator, mesh: Mesh,

@@ -24,6 +24,15 @@ Every call is counted per axis in ``mesh.census`` (``psum``, ``pmax``,
 ``ppermute``, ``all_gather``), which is how the collective-census tests
 of the JAX package carry over.
 
+``psum`` is differentiable: a sum that autograd or a ``torch.func``
+transform must see runs through ``_PSum``, whose reverse rule is the psum
+of the cotangents (every rank's outputs read the summed value) and whose
+tangent is the psum of the tangents. So reverse mode through a sharded
+driver is the single-device gradient of the sum of the ranks' losses,
+each rank calling ``backward`` on its own part; the ranks' backward
+passes meet in those psums in the same order, as their forward passes
+did. ``pmax`` feeds only host decisions and masks and has no rule.
+
 Backends and devices. NCCL when every rank owns its own GPU (a NCCL mesh
 whose ranks share a device raises: NCCL refuses it); gloo for CPU tensors;
 gloo with CUDA tensors for several ranks sharing one card. gloo's send,
@@ -95,7 +104,11 @@ class MeshAxis:
         return out
 
     def psum(self, t):
-        """Sum of ``t`` over the axis (a new tensor; ``lax.psum``)."""
+        """Sum of ``t`` over the axis (a new tensor; ``lax.psum``), seen by
+        autograd where it must be (module doc)."""
+        if (torch._C._functorch.is_functorch_wrapped_tensor(t)
+                or (torch.is_grad_enabled() and t.requires_grad)):
+            return _PSum.apply(t, self)
         return self._reduce(t, dist.ReduceOp.SUM, "psum")
 
     def pmax(self, t):
@@ -154,6 +167,26 @@ class MeshAxis:
         dist.all_gather(parts, src, group=self.group)
         out = torch.cat(parts)
         return out.to(t.device, non_blocking=True) if staged else out
+
+
+class _PSum(torch.autograd.Function):
+    """psum seen by autograd: reverse rule and tangent are psums too."""
+
+    @staticmethod
+    def forward(t, axis):
+        return axis.psum(t)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.axis = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.psum(g), None
+
+    @staticmethod
+    def jvp(ctx, t_t, _):
+        return ctx.axis.psum(t_t)
 
 
 def _pinned_empty(t):

@@ -10,12 +10,17 @@ An operator is described by plain data: numpy arrays plus static fields,
     {"type": "SparseELLOperator", "data", "cols", "is_hermitian"}
     {"type": "BlockELLOperator", "blocks", "bcols", "is_hermitian"}
     {"type": "DenseOperator", "A", "is_hermitian"}
-    {"type": "DiagonalOperator", "d"}
+    {"type": "DiagonalOperator", "d", "is_hermitian"}
 
 ``operator_data`` reads that description off any operator object with the
 JAX package's field names (it converts arrays with ``numpy.asarray`` and
 imports nothing of JAX); ``from_operator_data`` builds the port's operator
 from it. Together they let both packages apply the same operator.
+
+A ``DiagonalOperator`` carries ``is_hermitian`` as True only when the
+source says so **and** its ``d`` is real: the JAX package's flag defaults
+to True even for a complex ``d``, where it would send the port's drivers
+to Lanczos on a non-Hermitian matrix.
 """
 
 from __future__ import annotations
@@ -60,7 +65,10 @@ def operator_data(op) -> dict:
         return {"type": kind, "A": np.asarray(op.A),
                 "is_hermitian": None if herm is None else bool(herm)}
     if kind == "DiagonalOperator":
-        return {"type": kind, "d": np.asarray(op.d)}
+        d = np.asarray(op.d)
+        return {"type": kind, "d": d,
+                "is_hermitian": bool(op.is_hermitian)
+                and not np.iscomplexobj(d)}
     raise TypeError(f"no plain-data description for {kind}")
 
 
@@ -98,7 +106,8 @@ def from_operator_data(data: dict, *, device=None,
         return DenseOperator(tensor(data["A"]),
                              is_hermitian=data["is_hermitian"])
     if kind == "DiagonalOperator":
-        return DiagonalOperator(tensor(data["d"]))
+        return DiagonalOperator(tensor(data["d"]),
+                                is_hermitian=data["is_hermitian"])
     raise TypeError(f"unknown operator type {kind!r}")
 
 

@@ -79,12 +79,17 @@ class DenseOperator(LinearOperator):
 
 
 class DiagonalOperator(LinearOperator):
-    """Diagonal operator ``diag(d)``."""
+    """Diagonal operator ``diag(d)``.
 
-    is_hermitian = True
+    ``is_hermitian=None`` means Hermitian exactly when ``d`` has a real
+    dtype (a complex diagonal is Hermitian only if it is real, which a
+    dtype cannot tell); an explicit bool is honoured as given.
+    """
 
-    def __init__(self, d):
+    def __init__(self, d, is_hermitian: Optional[bool] = None):
         self.d = host_tensor(d)
+        self.is_hermitian = (not self.d.is_complex() if is_hermitian is None
+                             else bool(is_hermitian))
 
     @property
     def shape(self):

@@ -1736,6 +1736,105 @@ def test_b7_halo_slab_vs_local_plain(dev, dt, kind):
         _close(y, yg[i * nl:(i + 1) * nl], dt)
 
 
+class _HopAxis(_HaloAxis):
+    """``_HaloAxis`` whose exchanges come in rounds, each the next rows
+    outward (a halo wider than a shard takes several): make one per
+    slab."""
+
+    def __init__(self, size, index, x):
+        super().__init__(size, index, x)
+        self.calls = self.depth = 0
+
+    def _cut(self, i, j, like):
+        out = like.new_zeros(j - i)
+        a, b = max(i, 0), min(j, self.x.shape[0])
+        if b > a:
+            out[a - i:b - i] = self.x[a:b]
+        return out
+
+    def ppermute_halo(self, lo, hi):
+        r, nl = lo.shape[0], self.x.shape[0] // self.size
+        a, b = self.index * nl, (self.index + 1) * nl
+        d = self.depth
+        self.calls += 1
+        self.depth += r
+        return self._cut(a - d - r, a - d, hi), self._cut(b + d, b + d + r, lo)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("kind", ["multi-hop", "adjoint"])
+def test_b7_multi_hop_and_adjoint_slabs(dev, dt, kind):
+    """One B7 launch on each rank's slab of a halo wider than a shard
+    (poisson_2d(64, 2) at P = 4: h = 64 over 32 rows a rank, 2 exchanges)
+    and on the adjoint slab of a non-Hermitian operator (the sharded
+    reverse rule), against B7's twin on the same slab and the global
+    rows."""
+    from exponentialutilities_jl_torch.ops.kernels import spmv as tsp
+    from exponentialutilities_jl_torch.parallel import gspmd
+
+    if kind == "multi-hop":
+        gop = et.poisson_2d(64, 2, dtype=dt, device=dev)
+    else:
+        gop = et.advection_diffusion_1d(256, peclet=10.0, dtype=dt,
+                                        device=dev)
+    n = gop.shape[0]
+    x = _vec(n, dt, dev, 13)
+    ref = gop.adjoint() if kind == "adjoint" else gop
+    yg = tsp.banded_spmv_ref(ref.diags, ref.offsets, x)
+    P, nl = 4, n // 4
+    for i in range(P):
+        sop = gspmd.ShardedBandedOperator(gop, _HopAxis(P, i, x))
+        if kind == "adjoint":
+            sop = sop._adjoint()
+            sop.comm = _HopAxis(P, i, x)
+        xl = x[i * nl:(i + 1) * nl]
+        _build.reset_launch_counts()
+        y = sop._local_matvec(xl)
+        torch.cuda.synchronize()
+        assert _build.launches["banded_spmv"] == 1
+        assert sop.comm.calls == (2 if kind == "multi-hop" else 1)
+        sop.comm = _HopAxis(P, i, x)
+        h = sop.halo
+        yt = tsp.banded_spmv_ref(sop.ext.diags, sop.offsets,
+                                 sop._slab(xl))[h:h + nl]
+        _close(y, yt, dt)
+        _close(y, yg[i * nl:(i + 1) * nl], dt)
+
+
+def test_shard_operator_one_rank_reverse(dev, tmp_path):
+    """Reverse mode through a non-Hermitian sharded banded operator on a
+    gloo group of one rank: B7 on the slab forward and on the adjoint slab
+    backward (2m launches), the single-device gradient."""
+    import torch.distributed as dist
+
+    from exponentialutilities_jl_torch import parallel as par
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = par.make_mesh(device="cuda:0")
+        f64 = torch.float64
+        op = et.advection_diffusion_1d(512, peclet=10.0, dtype=f64,
+                                       device=dev)
+        b0 = _vec(512, f64, dev, 51)
+
+        def grad(o, v):
+            b = v.clone().requires_grad_()
+            w = et.expv(1e-5, o, b, m=30, differentiable=True)
+            (w ** 2).sum().backward()
+            return b.grad
+
+        want = grad(op, b0)
+        sop = par.shard_operator(op, mesh)
+        _build.reset_launch_counts()
+        got = grad(sop, par.shard_vector(b0, mesh))
+        torch.cuda.synchronize()
+        assert _build.launches["banded_spmv"] == 2 * 30
+        _close(got, want, f64)
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("dt", DTYPES)
 def test_b8_rectangular_vs_twin(dev, dt):
     """B8 on a rank's block rows against the whole x (the GSPMD route's

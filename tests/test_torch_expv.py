@@ -175,8 +175,18 @@ def test_not_ported_paths_raise():
     # no host read): the same result
     assert_close(t2n(et.expv(0.5, nonherm, b, differentiable=True)),
                  t2n(et.expv(0.5, nonherm, b)), RTOL64, "differentiable")
-    with pytest.raises(NotImplementedError, match="A6"):
-        et.expv(0.5, top, b, reduced="host")
+    # reduced="host" is ported (ops/host_reduced.py): JAX's result, and
+    # the refusals the JAX package documents
+    jtop = ej.laplacian_nd_stencil(16)
+    assert_close(t2n(et.expv(0.5, top, b, reduced="host")),
+                 np.asarray(ej.expv(0.5, jtop, jnp.ones(16), reduced="host")),
+                 RTOL64, "reduced=host")
+    with pytest.raises(ValueError, match="differentiable"):
+        et.expv(0.5, top, b, reduced="host", differentiable=True)
+    with pytest.raises(ValueError, match="error_estimate"):
+        et.expv(0.5, top, b, reduced="host", mode="error_estimate")
+    with pytest.raises(ValueError, match="reduced"):
+        et.expv(0.5, top, b, reduced="cpu")
     with pytest.raises(ValueError):
         et.expv(0.5, top, b, mode="nope")
     with pytest.raises(ValueError):
@@ -260,3 +270,183 @@ def test_real_b_on_complex_hermitian_dense(two_pass):
                  b, m=50, two_pass=two_pass)
     assert tw.dtype == torch.complex128
     assert_close(t2n(tw), sla.expm(H) @ b, RTOL_SCIPY, "complex Hermitian")
+
+
+# reduced="host": the m-sized reduced problem on host scipy
+# (ops/host_reduced.py), against the JAX package's reduced="host" on every
+# path that has one, and against the port's device form
+
+HOST_PATHS = {"lanczos": dict(m=30), "arnoldi": dict(m=40, hermitian=False),
+              "two_pass": dict(m=30, two_pass=True),
+              "iop_two_pass": dict(m=40, iop=3, two_pass=True,
+                                   hermitian=False)}
+
+
+@pytest.mark.parametrize("path", list(HOST_PATHS))
+def test_reduced_host_vs_jax(path):
+    rng = np.random.default_rng(31)
+    n = 60
+    A = rng.standard_normal((n, n)) / 8
+    if path in ("lanczos", "two_pass"):
+        A = (A + A.T) / 2
+    b = rng.standard_normal(n)
+    kw = HOST_PATHS[path]
+    jw = ej.expv(0.7, jnp.asarray(A), jnp.asarray(b), reduced="host", **kw)
+    th = et.expv(0.7, torch.as_tensor(A), torch.as_tensor(b), reduced="host",
+                 **kw)
+    td_ = et.expv(0.7, torch.as_tensor(A), torch.as_tensor(b), **kw)
+    assert th.dtype == torch.float64
+    assert_close(t2n(th), np.asarray(jw), RTOL64, "vs JAX reduced=host")
+    assert_close(t2n(th), t2n(td_), RTOL64, "vs reduced=device")
+
+
+def test_expv_from_basis_reduced_host_vs_jax():
+    from exponentialutilities_jl_tpu.models.expv import \
+        build_subspace as jbuild
+    from exponentialutilities_jl_torch.models.expv import build_subspace
+
+    rng = np.random.default_rng(32)
+    A = rng.standard_normal((50, 50)) / 6
+    b = rng.standard_normal(50)
+    Kt = build_subspace(et.DenseOperator(torch.as_tensor(A)),
+                        torch.as_tensor(b), 30)
+    Kj = jbuild(ej.DenseOperator(jnp.asarray(A)), jnp.asarray(b), 30)
+    for t in (0.9, 0.4 - 0.3j):
+        w = et.expv_from_basis(t, Kt, reduced="host")
+        assert_close(t2n(w), np.asarray(ej.expv_from_basis(
+            t, Kj, reduced="host")), RTOL64, f"t={t}")
+        assert_close(t2n(w), t2n(et.expv_from_basis(t, Kt)), RTOL64,
+                     f"t={t} vs device")
+
+
+# A DiagonalOperator is Hermitian exactly when its d is real, unless
+# the caller says otherwise; a complex d runs Arnoldi (scipy is the oracle:
+# the JAX package's default flag is True for a complex d)
+
+def _complex_d(n=40, seed=33):
+    rng = np.random.default_rng(seed)
+    return -rng.uniform(0, 4, n) + 1j * rng.uniform(-3, 3, n), \
+        rng.standard_normal(n)
+
+
+@pytest.mark.parametrize("entry", ["expv", "phiv", "expv_batched", "kiops"])
+def test_complex_diagonal_operator(entry):
+    d, b = _complex_d()
+    op = et.DiagonalOperator(torch.as_tensor(d))
+    assert op.is_hermitian is False
+    t = 0.5
+    if entry == "expv":
+        got = et.expv(t, op, b, m=30)
+        want = np.exp(t * d) * b
+    elif entry == "phiv":
+        got = et.phiv(t, op, b, 1, m=30)[:, 1]
+        z = t * d
+        want = (np.exp(z) - 1) / z * b
+    elif entry == "expv_batched":
+        got = et.expv_batched(t, op, np.stack([b, 2 * b]), m=30)[1]
+        want = 2 * np.exp(t * d) * b
+    else:
+        got = et.kiops([t], op, b[:, None], tol=1e-12)[0].reshape(-1)
+        want = np.exp(t * d) * b
+    assert_close(t2n(got), want, 1e-13 if entry != "kiops" else 1e-10,
+                 entry)
+
+
+def test_diagonal_operator_flag_and_convert():
+    from exponentialutilities_jl_torch.utils.convert import (
+        from_operator_data, operator_data)
+
+    d, b = _complex_d()
+    dr = d.real.copy()
+    assert et.DiagonalOperator(torch.as_tensor(dr)).is_hermitian is True
+    assert et.DiagonalOperator(dr, is_hermitian=False).is_hermitian is False
+    herm = et.DiagonalOperator(dr + 0j, is_hermitian=True)
+    assert herm.is_hermitian is True
+    # an explicit flag is honoured: the real-valued complex diagonal runs
+    # Lanczos, a real one Arnoldi, both exact
+    assert_close(t2n(et.expv(0.5, herm, b, m=30)), np.exp(0.5 * dr) * b,
+                 1e-13, "explicit True")
+    assert_close(t2n(et.expv(0.5, et.DiagonalOperator(dr, is_hermitian=False),
+                             b, m=30)), np.exp(0.5 * dr) * b, 1e-13,
+                 "explicit False")
+    # JAX's flag is True even for a complex d: the carried operator is
+    # Hermitian only when d is real, and gives the exact action
+    jc = ej.DiagonalOperator(jnp.asarray(d))
+    assert jc.is_hermitian is True
+    tc_ = et.to_torch_operator(jc, device="cpu")
+    assert tc_.is_hermitian is False
+    assert_close(t2n(et.expv(0.5, tc_, b, m=30)), np.exp(0.5 * d) * b, 1e-13,
+                 "carried complex")
+    assert et.to_torch_operator(ej.DiagonalOperator(jnp.asarray(dr)),
+                                device="cpu").is_hermitian is True
+    assert et.to_torch_operator(ej.DiagonalOperator(
+        jnp.asarray(dr), is_hermitian=False), device="cpu").is_hermitian \
+        is False
+    # the port's own round trip keeps the flag
+    for op in (et.DiagonalOperator(dr), et.DiagonalOperator(d),
+               et.DiagonalOperator(dr, is_hermitian=False)):
+        back = from_operator_data(operator_data(op), device="cpu")
+        assert back.is_hermitian is op.is_hermitian
+        assert torch.equal(back.d, op.d)
+
+
+# The JAX signatures' keywords
+
+def test_make_expv_bake_operator():
+    top = et.laplacian_nd_stencil(64)
+    b = torch.as_tensor(np.random.default_rng(34).standard_normal(64))
+    w = et.make_expv(top, m=30)(0.5, b)
+    assert torch.equal(et.make_expv(top, m=30, bake_operator=True)(0.5, b), w)
+    assert torch.equal(et.make_expv(top, m=30, bake_operator=False)(0.5, b),
+                       w)
+    jw = ej.make_expv(ej.laplacian_nd_stencil(64), m=30,
+                      bake_operator=True)(0.5, jnp.asarray(t2n(b)))
+    assert_close(t2n(w), np.asarray(jw), RTOL64, "vs JAX baked")
+
+
+# complex paths where the port meets scipy and the JAX package does not:
+# pinned with scipy as the oracle
+
+def _complex_hermitian(n=40, seed=35):
+    rng = np.random.default_rng(seed)
+    H = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    return (H + H.conj().T) / 10
+
+
+def test_error_estimate_complex_b_on_complex_hermitian():
+    import scipy.linalg as sla
+
+    H = _complex_hermitian()
+    b = _complex_b(40, 36)
+    op = et.DenseOperator(torch.as_tensor(H), is_hermitian=True)
+    w, it = et.expv(0.8, op, b, m=40, mode="error_estimate", atol=1e-14,
+                    rtol=1e-14, return_info=True)
+    assert w.dtype == torch.complex128 and it <= 40
+    assert_close(t2n(w), sla.expm(0.8 * H) @ b, RTOL_SCIPY, "error estimate")
+
+
+@pytest.mark.parametrize("driver", ["error_estimate", "phiv", "phiv_two_pass",
+                                    "expv_timestep", "kiops"])
+def test_real_b_on_complex_hermitian(driver):
+    import scipy.linalg as sla
+
+    H = _complex_hermitian()
+    b = np.random.default_rng(37).standard_normal(40)
+    op = et.DenseOperator(torch.as_tensor(H), is_hermitian=True)
+    E = sla.expm(0.8 * H)
+    if driver == "error_estimate":
+        got = et.expv(0.8, op, b, m=40, mode="error_estimate", atol=1e-14,
+                      rtol=1e-14)
+        want, tol = E @ b, RTOL_SCIPY
+    elif driver.startswith("phiv"):
+        got = et.phiv(0.8, op, b, 1, m=40,
+                      two_pass=driver.endswith("two_pass"))[:, 0]
+        want, tol = E @ b, RTOL_SCIPY
+    elif driver == "expv_timestep":
+        got = et.expv_timestep(0.8, op, b, adaptive=True, tol=1e-10)
+        want, tol = E @ b, 1e-7
+    else:
+        got = et.kiops([0.8], op, b[:, None], tol=1e-10)[0].reshape(-1)
+        want, tol = E @ b, 1e-7
+    assert got.dtype == torch.complex128
+    assert_close(t2n(got), want, tol, driver)

@@ -53,8 +53,60 @@ def test_nonhermitian_batch_and_rejects():
     for i in range(2):
         assert_close(W[i], spla.expm_multiply(0.01 * A, B[i]), 1e-10,
                      f"row {i} vs scipy")
-    with pytest.raises(NotImplementedError, match="A6"):
-        et.expv_batched(0.01, torch.as_tensor(A), torch.as_tensor(B),
-                        reduced="host")
+    # reduced="host" is ported: each row's reduced exponential on host
+    # scipy, as JAX's batched host path
+    Wh = t2n(et.expv_batched(0.01, torch.as_tensor(A), torch.as_tensor(B),
+                             m=n, hermitian=False, reduced="host"))
+    assert_close(Wh, Wj, 1e-12, "reduced=host vs JAX reduced=host")
     with pytest.raises(ValueError):
         et.expv_batched(0.01, torch.as_tensor(A), torch.as_tensor(B[0]))
+
+
+@pytest.mark.parametrize("two_pass", [False, True])
+def test_hermitian_batch_reduced_host_vs_jax(two_pass):
+    n = 64
+    B = _batch(n, 3, 3)
+    W = t2n(et.expv_batched(0.4, et.laplacian_1d(n), torch.as_tensor(B),
+                            m=30, two_pass=two_pass, reduced="host"))
+    Wj = np.asarray(ej.expv_batched(0.4, ej.laplacian_1d(n), jnp.asarray(B),
+                                    m=30, reduced="host", two_pass=two_pass))
+    assert_close(W, Wj, 1e-12, "vs JAX reduced=host")
+
+
+# complex rows, and real rows of a complex operator: the JAX package lands
+# 0.64-0.97 away here, so scipy is the oracle
+
+def _complex_hermitian(n, seed):
+    rng = np.random.default_rng(seed)
+    H = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    return (H + H.conj().T) / 10
+
+
+@pytest.mark.parametrize("case", ["complex rows", "complex rows two_pass",
+                                  "real rows complex op",
+                                  "real rows complex nonherm"])
+def test_complex_batches_vs_scipy(case):
+    import scipy.linalg as sla
+
+    n = 40
+    rng = np.random.default_rng(4)
+    if case.startswith("complex rows"):
+        A = np.asarray(ej.laplacian_1d(n).to_dense())
+        B = _batch(n, 2, 5) + 1j * _batch(n, 2, 6)
+        op = et.laplacian_1d(n)
+        kw = dict(two_pass=case.endswith("two_pass"))
+    elif case == "real rows complex op":
+        A = _complex_hermitian(n, 7)
+        B = _batch(n, 2, 8)
+        op = et.DenseOperator(torch.as_tensor(A), is_hermitian=True)
+        kw = {}
+    else:
+        A = (rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))) / 8
+        B = _batch(n, 2, 9)
+        op = et.DenseOperator(torch.as_tensor(A), is_hermitian=False)
+        kw = {}
+    W = t2n(et.expv_batched(0.4, op, torch.as_tensor(B), m=n, **kw))
+    assert W.dtype == np.complex128
+    E = sla.expm(0.4 * A)
+    for i in range(2):
+        assert_close(W[i], E @ B[i], 1e-10, f"{case} row {i}")

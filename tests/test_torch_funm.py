@@ -105,3 +105,59 @@ def test_iteration_cap_falls_back():
     assert _rel(F, sla.expm(A)) < 1e-10
     with pytest.raises(FloatingPointError):
         et.funm(torch.as_tensor(A), "exp", parlett="device", iters=1)
+
+
+# A user's f and matfunc get complex128 CPU tensors, so torch callables
+# work beside numpy ufuncs, cmath lambdas and scipy functions
+
+def _separated(n=12, seed=5):
+    """Eigenvalues 1 apart (every one its own 1 x 1 block), non-normal."""
+    rng = np.random.default_rng(seed)
+    Q = sla.qr(rng.standard_normal((n, n)))[0]
+    T = np.triu(rng.standard_normal((n, n)), 1) / 4 + np.diag(
+        np.arange(n) / 2.0 - 3.0)
+    return Q @ T @ Q.T
+
+
+def _clustered(seed=6):
+    """Two clusters of four within delta and four isolated eigenvalues."""
+    rng = np.random.default_rng(seed)
+    lam = np.concatenate([np.full(4, -1.0), np.full(4, 0.7),
+                          [-3.0, -2.0, 1.8, 2.9]])
+    lam[:8] += 1e-3 * rng.standard_normal(8)
+    R = rng.standard_normal((12, 12))
+    return sla.solve(R, (R * lam).T).T
+
+
+SCALAR_FS = {"torch.exp": (torch.exp, sla.expm),
+             "torch.sin": (torch.sin, sla.sinm),
+             "np.exp": (np.exp, sla.expm),
+             "cmath.exp": (lambda z: __import__("cmath").exp(z), sla.expm)}
+
+
+@pytest.mark.parametrize("name", list(SCALAR_FS))
+def test_user_scalar_callables(name):
+    f, oracle = SCALAR_FS[name]
+    A = _separated()
+    F = t2n(et.funm(torch.as_tensor(A), f))
+    assert F.dtype == np.float64
+    assert _rel(F, oracle(A)) < 1e-12
+
+
+def test_torch_exp_matches_jax_jnp_exp():
+    import jax.numpy as jnp
+
+    A = _separated()
+    F = t2n(et.funm(torch.as_tensor(A), torch.exp))
+    assert _rel(F, np.asarray(ej.funm(A, jnp.exp))) < 1e-12
+
+
+@pytest.mark.parametrize("matfunc", ["torch", "scipy"])
+def test_user_matfunc_on_clusters(matfunc):
+    A = _clustered()
+    mf = torch.linalg.matrix_exp if matfunc == "torch" else sla.expm
+    F = t2n(et.funm(torch.as_tensor(A), torch.exp, matfunc=mf))
+    assert _rel(F, sla.expm(A)) < 1e-12
+    # a block evaluator alone serves the 1 x 1 blocks too
+    G = t2n(et.funm(torch.as_tensor(A), None, matfunc=mf))
+    assert _rel(G, sla.expm(A)) < 1e-12

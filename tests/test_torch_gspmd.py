@@ -28,8 +28,8 @@ from jax.sharding import NamedSharding, PartitionSpec as JP
 
 import exponentialutilities_jl_tpu as eu
 from exponentialutilities_jl_tpu import parallel as jpar
-from torch_parity import (RTOL64, assert_close, gathered, jax_mesh_size,
-                          run_ranks, t2n)
+from torch_parity import (GRAD_CASES, RTOL64, assert_close, gathered,
+                          jax_mesh_size, run_ranks, t2n)
 
 import exponentialutilities_jl_torch as et
 from exponentialutilities_jl_torch.models.expv_taylor import expv_taylor
@@ -44,6 +44,20 @@ WORLDS = (2, 4)
 MTOL_ADAPTIVE = 1e-10      # the JAX test's exprb43_device bound
 
 
+def _band3():
+    """A non-Hermitian band of n = 32 whose widest offset (20) spans three
+    shards of 8 rows at P = 4 (k = 3 exchanges a matvec) and is capped at
+    P = 2 to the other shard's 16 rows (k = 1)."""
+    rng = np.random.default_rng(8)
+    offs = (-20, -3, 0, 1, 19)
+    n = 32
+    D = rng.standard_normal((len(offs), n)) * 0.5
+    i = np.arange(n)
+    for k, o in enumerate(offs):
+        D[k, (i + o < 0) | (i + o >= n)] = 0.0
+    return eu.BandedOperator(jnp.asarray(D), offs, is_hermitian=False)
+
+
 def _jax_ops():
     """The JAX operators whose plain data the ranks rebuild."""
     rng = np.random.default_rng(5)
@@ -51,13 +65,22 @@ def _jax_ops():
     lap3 = eu.laplacian_3d(8, 8, 8)
     import scipy.sparse as sp
     L3 = sp.csr_matrix(np.asarray(lap3.to_dense()))
+    adv = eu.advection_diffusion_1d(128, peclet=3.0)
     return {"lap": eu.laplacian_1d(256),
             "ell": eu.laplacian_1d(256).to_ell(),
             "bell": eu.blockell_from_scipy(L3, 8, is_hermitian=True),
             "dense": eu.DenseOperator(jnp.asarray(A), is_hermitian=False),
             "ad3": eu.advection_diffusion_3d_stencil(16, 8, 8, peclet=4.0),
             "lap128": eu.laplacian_1d(128),
-            "adv": eu.advection_diffusion_1d(128, peclet=3.0)}
+            "adv": adv,
+            # offsets +-6 over 3 rows a rank at P = 4: k = 2
+            "p2d6": eu.poisson_2d(6, 2),
+            "band3": _band3(),
+            # the non-Hermitian kinds of the reverse rule
+            "adv_ell": adv.to_ell(),
+            "adv_bell": eu.blockell_from_scipy(
+                sp.csr_matrix(np.asarray(adv.to_dense())), 8,
+                is_hermitian=False)}
 
 
 JOPS = _jax_ops()
@@ -81,7 +104,8 @@ def _inputs():
                B_ad3=np.stack([b, 0.1 * b], axis=1),
                B4=rng.standard_normal((4, 128)),
                U4=rng.standard_normal((256, 4)),
-               tail=np.asarray([0.5, -0.25, 2.0]))
+               tail=np.asarray([0.5, -0.25, 2.0]),
+               b12=rng.standard_normal(12), b32=rng.standard_normal(32))
     for key, op in JOPS.items():
         inp.update(_pack(key, operator_data(op)))
     return inp
@@ -125,6 +149,8 @@ def single(case):
     b = _t("b256")
     if case == "expv_banded":
         return {"w": et.expv(0.5, o["lap"], b, m=40)}
+    if case == "expv_host":
+        return {"w": et.expv(0.5, o["lap"], b, m=40, reduced="host")}
     if case == "expv_ell":
         return {"w": et.expv(0.5, o["ell"], b, m=40, hermitian=True)}
     if case == "expv_blockell":
@@ -133,6 +159,16 @@ def single(case):
         return {"w": et.expv(0.5, o["dense"], _t("b64"), m=40)}
     if case == "expv_arnoldi":
         return {"w": et.expv(5e-4, o["adv"], _t("b128"), m=40)}
+    if case == "expv_p2d":
+        return {"w": et.expv(0.1, o["p2d6"], _t("b12"), m=10)}
+    if case == "expv_band3":
+        return {"w": et.expv(0.05, o["band3"], _t("b32"), m=20)}
+    if case.startswith("grad_"):
+        key = case[5:]
+        t, vec, m = GRAD_CASES[key]
+        b = _t(vec).clone().requires_grad_()
+        et.expv(t, o[key], b, m=m, differentiable=True).sum().backward()
+        return {"w": b.grad}
     if case == "expv_timestep":
         U, st = et.expv_timestep([0.5], o["lap"], b, adaptive=True,
                                  return_stats=True)
@@ -261,12 +297,24 @@ def jax_gspmd(case, P):
 
     if case == "expv_banded":
         return eu.expv(0.5, so("lap"), sv(j["b256"]), m=40)
+    if case == "expv_host":
+        return eu.expv(0.5, so("lap"), sv(j["b256"]), m=40, reduced="host")
     if case == "expv_ell":
         return eu.expv(0.5, so("ell"), sv(j["b256"]), m=40, hermitian=True)
     if case == "expv_blockell":
         return eu.expv(0.2, so("bell"), sv(j["b512"]), m=20)
     if case == "expv_dense":
         return eu.expv(0.5, so("dense"), sv(j["b64"]), m=40)
+    if case == "expv_p2d":
+        return eu.expv(0.1, so("p2d6"), sv(j["b12"]), m=10)
+    if case == "expv_band3":
+        return eu.expv(0.05, so("band3"), sv(j["b32"]), m=20)
+    if case.startswith("grad_"):
+        key = case[5:]
+        t, vec, m = GRAD_CASES[key]
+        op_s = so(key)
+        return jax.grad(lambda b: jnp.sum(eu.expv(
+            t, op_s, b, m=m, differentiable=True)))(sv(j[vec]))
     if case == "expv_timestep":
         return eu.expv_timestep([0.5], so("lap"), sv(j["b256"]),
                                 adaptive=True)[:, 0]
@@ -314,6 +362,11 @@ JAX_CASES = {
     "kiops": MTOL_ADAPTIVE, "nw_device": MTOL_ADAPTIVE,
     "kiops_device": MTOL_ADAPTIVE, "exprb43_device": MTOL_ADAPTIVE,
     "expv_chebyshev": RTOL64,
+    # a halo wider than a shard; the reverse rule of each non-Hermitian
+    # kind (grad_band3, the multi-hop adjoint slab, is held to the
+    # single-device port and scipy)
+    "expv_p2d": 1e-14, "expv_band3": RTOL64, "expv_host": RTOL64,
+    **{f"grad_{key}": RTOL64 for key in GRAD_CASES if key != "band3"},
 }
 
 
@@ -347,7 +400,8 @@ SINGLE_CASES = sorted(set(JAX_CASES) | {
     "phiv_timestep_chebyshev", "cheb_ell_bounds", "phiv_timestep_two_pass",
     "phiv_timestep_negative", "phiv_timestep_fused", "expv_taylor",
     "expv_leja", "expv_faber", "phiv_faber", "exprb43", "etdrk4_device",
-    "expv_arnoldi", "phiv_leja", "etdrk4", "exprb32_device"})
+    "expv_arnoldi", "phiv_leja", "etdrk4", "exprb32_device",
+    "grad_band3"})
 
 
 @pytest.mark.parametrize("P", WORLDS)
@@ -392,6 +446,8 @@ ORACLES = {
     "expv_two_pass": ("lap", 0.5, "b256", 1e-9),
     "expv_taylor": ("lap", 0.5, "b256", 1e-9),
     "expv_arnoldi": ("adv", 5e-4, "b128", 1e-8),
+    "expv_p2d": ("p2d6", 0.1, "b12", 1e-14),
+    "expv_band3": ("band3", 0.05, "b32", 1e-12),
 }
 
 
@@ -518,8 +574,11 @@ def test_collectives(ranks, P):
     matvec; Chebyshev makes no psum but its one finiteness pmax."""
     c = {k: ranks[P][0][k]["census_case"]["shard"] for k in (
         "expv_banded", "expv_ell", "expv_blockell", "expv_dense",
-        "expv_chebyshev")}
+        "expv_chebyshev", "expv_host")}
     assert c["expv_banded"]["ppermute"] == 40
+    # reduced="host" evaluates the replicated reduced problem on each
+    # rank's host: the same collectives as the device form
+    assert c["expv_host"] == c["expv_banded"]
     assert c["expv_banded"].get("all_gather", 0) == 0
     assert c["expv_ell"]["all_gather"] == 40
     assert c["expv_ell"].get("ppermute", 0) == 0
@@ -528,6 +587,35 @@ def test_collectives(ranks, P):
     assert c["expv_chebyshev"].get("psum", 0) == 0
     assert c["expv_chebyshev"]["pmax"] == 1
     assert c["expv_chebyshev"]["ppermute"] > 0
+
+
+@pytest.mark.parametrize("P", WORLDS)
+def test_multi_hop_halo_exchanges(ranks, P):
+    """A halo wider than a shard gathers the slab from k = ceil(h /
+    n_local) neighbours on each side, k <= P - 1: k halo exchanges a
+    matvec and no all-gather. poisson_2d(6, 2) (h = 6): k = 2 at P = 4
+    (3 rows a rank), 1 at P = 2; the n = 32 band (h = 20): k = 3 at P = 4,
+    and 1 at P = 2 (h capped to the other shard's 16 rows)."""
+    k = {"expv_p2d": {2: 1, 4: 2}, "expv_band3": {2: 1, 4: 3}}
+    m = {"expv_p2d": 10, "expv_band3": 20}
+    for case in k:
+        for r in ranks[P]:
+            c = r[case]["census_case"]["shard"]
+            assert c["ppermute"] == k[case][P] * m[case], (case, c)
+            assert c.get("all_gather", 0) == 0, (case, c)
+
+
+@pytest.mark.parametrize("P", WORLDS)
+@pytest.mark.parametrize("key", sorted(GRAD_CASES))
+def test_grad_vs_scipy(ranks, key, P):
+    """d/db sum(exp(tA) b) = exp(tA)^T 1 for each non-Hermitian kind, the
+    banded ones through B7's rule on the adjoint slab, the others through
+    A_rows^H g summed over the axis (at the forward's own scipy bound)."""
+    t, vec, m = GRAD_CASES[key]
+    n = INP[vec].shape[0]
+    want = sla.expm(t * _dense(key)).T @ np.ones(n)
+    got = gathered(ranks[P], f"grad_{key}")
+    np.testing.assert_allclose(got, want, rtol=1e-8, atol=1e-9)
 
 
 class _RankAxis:

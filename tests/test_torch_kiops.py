@@ -174,10 +174,24 @@ def test_failure_protocol(driver):
 
 
 def test_kiops_not_ported():
-    A = torch.as_tensor(laplacian_1d(16))
-    with pytest.raises(NotImplementedError, match="A6"):
-        et.kiops([1.0], A, torch.ones(16, dtype=torch.float64),
-                 reduced="host")
+    """reduced="host" is ported: the trials' augmented exponentials and
+    the phantoms' on host scipy, against JAX's reduced="host" (the same
+    steps) and the port's device form."""
+    A = laplacian_1d(40)
+    u = np.random.default_rng(11).standard_normal((40, 3))
+    for two_pass in (False, True):
+        w, st = et.kiops([0.3, 1.0], torch.as_tensor(A), torch.as_tensor(u),
+                         reduced="host", two_pass=two_pass)
+        wd, sd = et.kiops([0.3, 1.0], torch.as_tensor(A), torch.as_tensor(u),
+                          two_pass=two_pass)
+        assert (st.steps, st.krylov_steps) == (sd.steps, sd.krylov_steps)
+        assert_close(t2n(w), t2n(wd), 1e-12, f"two_pass={two_pass} device")
+    wj, sj = ej.kiops([0.3, 1.0], jnp.asarray(A), jnp.asarray(u),
+                      reduced="host")
+    w, st = et.kiops([0.3, 1.0], torch.as_tensor(A), torch.as_tensor(u),
+                     reduced="host")
+    assert (st.steps, st.rejections) == (int(sj.steps), int(sj.rejections))
+    assert_close(t2n(w), np.asarray(wj), 1e-12, "vs JAX reduced=host")
 
 
 def test_config4_kiops_device_vs_jax_and_oracle():
@@ -202,3 +216,37 @@ def test_config4_kiops_device_vs_jax_and_oracle():
     want = F[:n, :n] @ b + F[:n, n]
     err = np.linalg.norm(t2n(tw[:, 0]) - want) / np.linalg.norm(want)
     assert err < RTOL, err
+
+
+def test_augmented_operator_is_hermitian_keyword():
+    """The JAX dataclass field ``is_hermitian`` (False by default) is a
+    keyword of the port's constructor too."""
+    A = et.DenseOperator(torch.as_tensor(laplacian_1d(8)))
+    B = torch.ones((8, 2), dtype=torch.float64)
+    assert et.AugmentedOperator(A, B).is_hermitian is False
+    aug = et.AugmentedOperator(A, B, is_hermitian=False)
+    assert aug.is_hermitian is False and aug.shape == (10, 10)
+    assert et.AugmentedOperator(A, B, is_hermitian=True).is_hermitian is True
+    assert ej.AugmentedOperator(ej.DenseOperator(jnp.asarray(t2n(A.A))),
+                                jnp.asarray(t2n(B)),
+                                is_hermitian=False).is_hermitian is False
+
+
+# kiops_device with a complex U: the JAX package lands 2.9e-4 to 2.4e-2
+# away on these dense kinds, so the oracle is scipy
+
+@pytest.mark.parametrize("kind", ["real", "complex", "complex hermitian"])
+def test_kiops_device_complex_u_vs_oracle(kind):
+    n = 40
+    rng = np.random.default_rng(13)
+    A = rng.standard_normal((n, n)) / 8
+    if kind != "real":
+        A = A + 1j * rng.standard_normal((n, n)) / 8
+    if kind == "complex hermitian":
+        A = (A + A.conj().T) / 2
+    U = rng.standard_normal((n, 3)) + 1j * rng.standard_normal((n, 3))
+    op = et.DenseOperator(torch.as_tensor(A),
+                          is_hermitian=kind == "complex hermitian")
+    w, s = et.kiops_device([0.5, 1.0], op, torch.as_tensor(U), tol=1e-12)
+    assert w.dtype == torch.complex128 and s.info == 0
+    assert_close(t2n(w), oracle([0.5, 1.0], A, U), 1e-10, kind)

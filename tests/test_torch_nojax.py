@@ -11,6 +11,9 @@ to the import and load rules only: its kernel records name the TPU kernels
 each CUDA kernel replaces by file."""
 
 import ast
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -105,3 +108,23 @@ def test_scan_catches_a_load_by_path(tmp_path):
                for n in ast.walk(tree) if isinstance(n, ast.Call))
     assert any(isinstance(n, ast.Constant) and "_jl_tpu" in str(n.value)
                and id(n) not in _docstrings(tree) for n in ast.walk(tree))
+
+
+def test_host_reduced_is_the_ports_own():
+    """ops/host_reduced.py (host scipy, no JAX) is scanned above, and in a
+    fresh process importing it and evaluating a reduced problem loads no
+    module of JAX or of the JAX package."""
+    assert PORT / "ops" / "host_reduced.py" in FILES
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "before = set(sys.modules)\n"
+        "from exponentialutilities_jl_torch.ops import host_reduced as h\n"
+        "h.host_phiv_e1(torch.eye(4, dtype=torch.float64), 0.5, 2)\n"
+        "new = set(sys.modules) - before\n"
+        f"bad = [m for m in new if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                   check=True, timeout=120)

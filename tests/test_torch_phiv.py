@@ -149,8 +149,12 @@ def test_phiv_zero_start_and_rejects():
     nonherm = et.StencilOperator((len(b),), [(0,), (1,)], np.asarray([1.0, 0.5]))
     with pytest.raises(NotImplementedError, match="Hermitian"):
         et.phiv(t, nonherm, bt, K, two_pass=True)
-    with pytest.raises(NotImplementedError, match="A6"):
-        et.phiv(t, top, bt, K, reduced="host")
+    # reduced="host" is ported (ops/host_reduced.py): the device form's
+    # result; refused with differentiable=True
+    assert_close(t2n(et.phiv(t, top, bt, K, reduced="host")),
+                 t2n(et.phiv(t, top, bt, K)), RTOL64, "reduced=host")
+    with pytest.raises(ValueError, match="differentiable"):
+        et.phiv(t, top, bt, K, reduced="host", differentiable=True)
     # differentiable=True is ported: the reduced exponential's form with
     # no host read, the same result
     assert_close(t2n(et.phiv(t, top, bt, K, differentiable=True)),
@@ -229,3 +233,61 @@ def test_phiv_dense_mixed_types(kind):
                  "phi_0 vs scipy")
     assert _phi_identity_err(op, tw, torch.as_tensor(b).to(tw.dtype),
                              0.8) < 1e-10
+
+
+# reduced="host" (ops/host_reduced.py): the reduced augmented exponential
+# on host scipy, against JAX's reduced="host"
+
+@pytest.mark.parametrize("form", ["basis", "two_pass", "from_basis",
+                                  "arnoldi"])
+def test_phiv_reduced_host_vs_jax(form):
+    jop, top, b, t = _problem("dense", seed=3)
+    if form == "arnoldi":
+        A = np.random.default_rng(4).standard_normal((60, 60)) / 8
+        jop = ej.DenseOperator(jnp.asarray(A), is_hermitian=False)
+        top = et.to_torch_operator(jop)
+    kw = dict(two_pass=True) if form == "two_pass" else {}
+    if form == "from_basis":
+        Kt = tpv.build_subspace(top, torch.as_tensor(b), 30)
+        Kj = jpv.build_subspace(jop, jnp.asarray(b), 30)
+        tw, te = et.phiv_from_basis(t, Kt, K, reduced="host")
+        jw, je = ej.phiv_from_basis(t, Kj, K, reduced="host")
+    else:
+        tw, te = et.phiv(t, top, torch.as_tensor(b), K, m=30, errest=True,
+                         reduced="host", **kw)
+        jw, je = ej.phiv(t, jop, jnp.asarray(b), K, m=30, errest=True,
+                         reduced="host", **kw)
+    assert_close(t2n(tw), np.asarray(jw), RTOL64, form)
+    np.testing.assert_allclose(float(te), float(je), rtol=RTOL_ERR)
+    dw = et.phiv(t, top, torch.as_tensor(b), K, m=30, **kw) \
+        if form != "from_basis" else et.phiv_from_basis(t, Kt, K)[0]
+    assert_close(t2n(tw), t2n(dw), RTOL64, f"{form} vs device")
+    with pytest.raises(ValueError, match="differentiable"):
+        et.phiv(t, top, torch.as_tensor(b), K, reduced="host",
+                differentiable=True)
+
+
+def test_host_reduced_helpers_vs_jax():
+    from exponentialutilities_jl_tpu.ops import host_reduced as jh
+    from exponentialutilities_jl_torch.ops import host_reduced as th
+
+    rng = np.random.default_rng(9)
+    H = rng.standard_normal((12, 12)) / 3
+    A = rng.standard_normal((10, 10)) / 2
+    Ht = torch.as_tensor(H)
+    assert th.reduced_default() == jh.reduced_default() == "device"
+    for t in (0.7, 0.3 + 0.2j):
+        e1 = th.host_expm_e1(Ht, t)
+        assert e1.dtype == (torch.float64 if isinstance(t, float)
+                            else torch.complex128)
+        assert_close(t2n(e1), np.asarray(jh.host_expm_e1(H, t)), 1e-14,
+                     f"expm_e1 t={t}")
+        for k in (0, 2):
+            assert_close(t2n(th.host_phiv_e1(Ht, t, k)),
+                         np.asarray(jh.host_phiv_e1(H, t, k)), 1e-14,
+                         f"phiv_e1 k={k} t={t}")
+    assert_close(t2n(th.host_expm(Ht)), np.asarray(jh.host_expm(H)), 1e-14,
+                 "expm")
+    P = th.host_phi(torch.as_tensor(A), 3)
+    assert tuple(P.shape) == (4, 10, 10) and P.dtype == torch.float64
+    assert_close(t2n(P), np.asarray(jh.host_phi(A, 3)), 1e-14, "phi")

@@ -274,8 +274,13 @@ def test_all_zero_times_and_not_ported():
     assert torch.equal(et.phiv_timestep_device(0.0, A, B), B[:, 0])
     with pytest.raises(NotImplementedError):
         et.phiv_timestep(1.0, A, B, two_pass=True, correct=True)
-    with pytest.raises(NotImplementedError, match="A6"):
-        et.phiv_timestep(1.0, A, B, reduced="host")
+    # reduced="host" is ported: the trials' reduced phi columns on host
+    # scipy, the device form's steps and result
+    Uh, sh = et.phiv_timestep(1.0, A, B, adaptive=True, reduced="host",
+                              return_stats=True)
+    Ud, sd = et.phiv_timestep(1.0, A, B, adaptive=True, return_stats=True)
+    _same_stats(sh, sd)
+    assert_close(t2n(Uh), t2n(Ud), 1e-12, "reduced=host vs device")
 
 
 def test_config4_phiv_timestep_vs_jax_and_oracle():
@@ -302,3 +307,35 @@ def test_config4_phiv_timestep_vs_jax_and_oracle():
     oracle = F[:n, :n] @ b + F[:n, n]
     err = np.linalg.norm(t2n(tU[:, 0]) - oracle) / np.linalg.norm(oracle)
     assert err < RTOL, err
+
+
+@pytest.mark.parametrize("name", ["laplacian adaptive snapshots",
+                                  "advection-diffusion adaptive iop",
+                                  "two_pass lanczos", "two_pass iop"])
+def test_phiv_timestep_reduced_host_vs_jax(name):
+    """reduced="host" against JAX's reduced="host": the same steps, the
+    results to 1e-12 (the JAX package takes this path on its TPU)."""
+    A, B, ts, kw = _case(name)
+    jU, js = ej.phiv_timestep(ts, jnp.asarray(A), jnp.asarray(B),
+                              return_stats=True, reduced="host", **kw)
+    tU, ts_ = et.phiv_timestep(ts, torch.as_tensor(A), torch.as_tensor(B),
+                               return_stats=True, reduced="host", **kw)
+    _same_stats(ts_, js, max(np.abs(ts)))
+    assert_close(t2n(tU), np.asarray(jU), 1e-12, name)
+
+
+@pytest.mark.parametrize("herm", [True, False])
+def test_two_pass_complex_b_vs_oracle(herm):
+    """Two-pass phiv_timestep with complex columns b_j (the JAX package
+    lands 0.49-0.64 away): scipy's augmented exponential is the oracle."""
+    n = 60
+    rng = np.random.default_rng(21)
+    A = laplacian_1d(n) if herm else adv_diff(n) / 40.0
+    B = rng.standard_normal((n, 3)) + 1j * rng.standard_normal((n, 3))
+    kw = dict(hermitian=True) if herm else dict(hermitian=False, iop=4)
+    U = et.phiv_timestep([0.5, 1.0], torch.as_tensor(A), torch.as_tensor(B),
+                         adaptive=True, two_pass=True, tol=1e-10, **kw)
+    assert U.dtype == torch.complex128
+    want = (phi_combination_oracle([0.5, 1.0], A, B.real)
+            + 1j * phi_combination_oracle([0.5, 1.0], A, B.imag))
+    assert_close(t2n(U), want, 1e-8, "complex B")

@@ -27,6 +27,7 @@ import torch
 import exponentialutilities_jl_torch as et
 from exponentialutilities_jl_torch import parallel as par
 from exponentialutilities_jl_torch.parallel import stencil_fused as sf
+from torch_parity import GRAD_CASES
 
 et.set_default_device("cpu")
 torch.set_num_threads(1)
@@ -469,7 +470,8 @@ def suite_gspmd(mesh, inp):
 
     ax = mesh.axis()
     ops = {k: carried_op(inp, k) for k in ("lap", "ell", "bell", "dense",
-                                           "ad3", "lap128", "adv")}
+                                           "ad3", "lap128", "adv", "p2d6",
+                                           "band3", "adv_ell", "adv_bell")}
     sh = {k: par.shard_operator(v, mesh) for k, v in ops.items()}
 
     def rows(key):
@@ -488,10 +490,29 @@ def suite_gspmd(mesh, inp):
                                               m=40, hermitian=True)}
     cases["expv_blockell"] = lambda: {"w": et.expv(0.2, sh["bell"],
                                                    rows("b512"), m=20)}
+    # the replicated reduced problem on each rank's host: no collective
+    cases["expv_host"] = lambda: {"w": et.expv(0.5, sh["lap"], rows("b256"),
+                                               m=40, reduced="host")}
     cases["expv_dense"] = lambda: {"w": et.expv(0.5, sh["dense"],
                                                 rows("b64"), m=40)}
     cases["expv_arnoldi"] = lambda: {"w": et.expv(5e-4, sh["adv"],
                                                   rows("b128"), m=40)}
+    # halos wider than a shard (k exchanges a matvec)
+    cases["expv_p2d"] = lambda: {"w": et.expv(0.1, sh["p2d6"], rows("b12"),
+                                              m=10)}
+    cases["expv_band3"] = lambda: {"w": et.expv(0.05, sh["band3"],
+                                                rows("b32"), m=20)}
+
+    def grad(key, t, vec, m):
+        # d/db of the sum over every rank's rows of expv: each rank's
+        # backward on its own part (parallel/mesh.py)
+        def case():
+            b = rows(vec).clone().requires_grad_()
+            et.expv(t, sh[key], b, m=m, differentiable=True).sum().backward()
+            return {"w": b.grad}
+        return case
+    for key, (t, vec, m) in GRAD_CASES.items():
+        cases[f"grad_{key}"] = grad(key, t, vec, m)
 
     def expv_timestep():
         U, st = et.expv_timestep([0.5], sh["lap"], rows("b256"),

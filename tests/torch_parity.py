@@ -28,6 +28,13 @@ RTOL64 = 1e-12
 RTOL32 = 1e-5
 
 
+# the reverse-mode cases of the "gspmd" worker suite (each non-Hermitian
+# sharded kind): operator key -> (t, vector key, m)
+GRAD_CASES = {"adv": (5e-4, "b128", 40), "adv_ell": (5e-4, "b128", 40),
+              "adv_bell": (5e-4, "b128", 40), "dense": (0.3, "b64", 30),
+              "band3": (0.05, "b32", 20)}
+
+
 def t2n(x):
     return x.detach().cpu().numpy()
 
