@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py            (from the repository root; one card)
     python3 chip_smoke.py --profile  (phases 1-4, then device profiles)
+    python3 chip_smoke.py --graphs-only [--profile]
+                                     (phases 1-2 and the sixth path)
 
 The main paths are exp(tA)b and the phi-function actions
 [phi_0(tA)b ... phi_3(tA)b] at BASELINE.json's sizes: for Hermitian
@@ -136,7 +138,19 @@ its seconds:
               shard expv_batched on P = 4, config #3's expv and kiops on
               one NCCL rank; each against the single-device port (equal
               stats for the adaptive drivers) and scipy, every rank's B7
-              and B8 launches held to its driver's matvec count
+              and B8 launches held to its driver's matvec count; then a
+              sixth, the device loops from CUDA graphs (graph_path):
+              config #4's phiv_timestep_device, kiops_device and
+              exprb43_device, etdrk4_device at 2048^2 and
+              exprb43_device at 1024^2, each with its route, captures
+              (one per step and bucket run twice or more), replays,
+              blocking reads (at most bucket changes + 2) and B7
+              executions (captured launches times replays, held to
+              their steps' executions) printed and held, against the
+              same steps run eagerly (1e-14, equal stats) and its dense
+              oracle or host driver. Wherever a device loop runs from
+              graphs (the first, second and sixth paths) a kernel's
+              count is its executions, not its host launches
   5. times    CUDA-event medians of >= 10 runs after warm-up (of 5 after
               one for the adaptive drivers), each kernel
               beside its plain twin, B6 (its main-path form and its
@@ -183,7 +197,8 @@ the block-ELL two-pass; the 216^3 variable Chebyshev and two-pass, the
 two-pass phiv; config #1 expm and expv; config #4 expv, phiv and the IOP
 two-pass, and config #4's phiv_timestep, kiops, phiv_timestep_device and
 kiops_device; the n = 1e6 Leja and Faber drivers, 216^3 expv_faber,
-config #4's expv_leja and expv_faber, 2048^2 etdrk4_device; config #1's
+config #4's expv_leja and expv_faber, 2048^2 etdrk4_device, config
+#4's exprb43_device and the 1024^2 exprb43_device; config #1's
 diagonalization and schur expm, the float64 stacks' expm (512 x 128 and
 32 x 512, and torch.linalg.matrix_exp on the first) and phi, the config
 #4 gradient): the
@@ -632,7 +647,10 @@ def poly_integrator_path(et, dev, card, ref_e, bA):
     doc), launch counts set to 0 just before and read just after. Each
     call's kernel launches are held to the count its parameters imply.
     Returns (the counts, {cell: callable} for phase 5, the sync-free
-    callables, the non-symmetric kernel cases for phase 5)."""
+    callables, the non-symmetric kernel cases for phase 5, the host
+    integrators' results that the sixth path holds its graphs to). A
+    device loop run from CUDA graphs counts its kernel executions (captured
+    launches times replays)."""
     import math
 
     import scipy.linalg as sla
@@ -640,6 +658,7 @@ def poly_integrator_path(et, dev, card, ref_e, bA):
     from exponentialutilities_jl_torch.models import faber as tfb
     from exponentialutilities_jl_torch.models import leja as tl
     from exponentialutilities_jl_torch.ops.kernels import _build
+    from exponentialutilities_jl_torch.utils import graphs
 
     gen = np.random.default_rng(SEED + 11)
     f64 = torch.float64
@@ -741,13 +760,17 @@ def poly_integrator_path(et, dev, card, ref_e, bA):
                                jac=jac_RB), None),
     }
     _build.reset_launch_counts()
+    graphs.reset_counts()
     out, ms = {}, {}
     for name, (fn, want) in cells.items():
         before = dict(_build.launches)
+        adj = graphs.launch_adjustment()
         calls_before = dict(f_calls)
         out[name], ms[name] = event_ms(fn)
-        delta = {k: v - before[k] for k, v in _build.launches.items()
-                 if v > before[k]}
+        # executions: a graph replay runs the launches it captured
+        delta = {k: v for k, v in graphs.kernel_executions(
+            {k: _build.launches[k] - before[k] for k in before},
+            since=adj).items() if v}
         if want is None:
             plain = f_calls["plain"] - calls_before["plain"]
             jvp = f_calls["jvp"] - calls_before["jvp"]
@@ -766,7 +789,7 @@ def poly_integrator_path(et, dev, card, ref_e, bA):
         stats = f"; {res[1]}" if isinstance(res, tuple) else ""
         print(f"main {name}: kernel launches {delta}; one call "
               f"{ms[name]:.3f} ms (CUDA events){stats} {card}", flush=True)
-    counts = dict(_build.launches)
+    counts = graphs.kernel_executions(dict(_build.launches))
 
     def held(name, got, want, tol, what):
         got, want = got.reshape(-1), want.reshape(-1)
@@ -843,7 +866,10 @@ def poly_integrator_path(et, dev, card, ref_e, bA):
         "JacobianOperator matvec over B7": lambda: J.matvec(v),
     }
     timed = {k: fn for k, (fn, _) in cells.items()}
-    return counts, timed, sync_free, ms, (opL, BL[:, 0], opF, bF, opA)
+    host_refs = {"etdrk4": out[f"etdrk4 {NE}^2 m={M_AC}"][0],
+                 "exprb43": out[f"exprb43 {NR}^2 adaptive"][0]}
+    return (counts, timed, sync_free, ms, (opL, BL[:, 0], opF, bF, opA),
+            host_refs)
 
 
 def phi_oracle(A, k):
@@ -2435,6 +2461,222 @@ def gspmd_path(et, dev, card, opB3):
     return counts, ms, singles
 
 
+# The device-resident programs from CUDA graphs (phase 4's sixth path,
+# utils/graphs.py): the JAX package's five one-program loops (NW and KIOPS
+# device drivers, exprb43_device's adaptive loop, the etdrk4_device and
+# exprb43_device scans) on config #4's operator and bench_integrators.py's
+# Allen-Cahn. Each cell runs from its graphs, then as the same steps
+# eagerly (graphs.eager()); the two agree to GRAPH_TOL with equal stats.
+GRAPH_TOL = 1e-14       # relative 2-norm, graph replays vs the eager steps
+GRAPH_M0 = 20           # config #4's NW m (bucketed to 22)
+
+
+def graph_path(et, dev, card, bA, ref_p, host_refs):
+    """The sixth path (the comment above): counts set to 0 just before it
+    and read just after. A step's B7 executions are its graph's captured
+    launches times its replays plus its eager runs' launches; each cell's
+    route, captures, replays, blocking reads and B7 executions are printed
+    and held to their predictions. Returns (kernel executions of the path,
+    {cell: callable} for phase 5)."""
+    import collections
+    import dataclasses
+
+    import torch
+    from exponentialutilities_jl_torch.models.timestepping import _bucket_m
+    from exponentialutilities_jl_torch.ops.kernels import _build
+    from exponentialutilities_jl_torch.utils import graphs
+
+    opA = et.advection_diffusion_1d(NA, peclet=10.0, device=dev)
+    B4 = torch.stack([bA, 0.1 * bA], dim=1)
+    opE, uE = allen_cahn(et, NE, dev)
+    opR, uR = allen_cahn(et, NR, dev)
+
+    def f4(u):              # the fifth path's config #4 exprb43_device f
+        return opA.matvec(u) - u ** 3
+
+    def fR(u):
+        return opR.matvec(u) + u - u ** 3
+
+    def N(u):
+        return u - u ** 3
+
+    c4 = "config4 "
+    cells = {
+        c4 + f"phiv_timestep_device m={GRAPH_M0}": (
+            lambda: et.phiv_timestep_device([TA], opA, B4, tol=1e-7,
+                                            m=GRAPH_M0, return_stats=True),
+            "nw"),
+        c4 + "kiops_device": (
+            lambda: et.kiops_device([TA], opA, B4, tol=1e-7), "kiops"),
+        c4 + "exprb43_device": (
+            lambda: et.exprb43_device(f4, 0.1 * bA, (0.0, TA),
+                                      adaptive=True, m=12, rtol=1e-6,
+                                      atol=1e-9, return_stats=True),
+            "loop"),
+        f"etdrk4_device {NE}^2 m={M_AC}": (
+            lambda: (et.etdrk4_device(opE, N, uE, (0.0, E_STEPS * H_AC),
+                                      H_AC, m=M_AC), None), "scan"),
+        f"exprb43_device {NR}^2 adaptive m={M_R}": (
+            lambda: et.exprb43_device(fR, uR, (0.0, TR), rtol=1e-5,
+                                      atol=1e-7, m=M_R, return_stats=True),
+            "loop"),
+    }
+    total = collections.Counter()
+    out = {}
+    for name, (fn, kind) in cells.items():
+        _build.reset_launch_counts()
+        graphs.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wg, sg = fn()
+        torch.cuda.synchronize()
+        ms_g = (time.perf_counter() - t0) * 1e3
+        cnt = dict(graphs.counts)
+        ex = dict(graphs.executions)
+        steps = dict(graphs.step_launches)
+        exe = graphs.kernel_executions(dict(_build.launches))
+        total.update(exe)
+        graphs.reset_counts()
+        t0 = time.perf_counter()
+        with graphs.eager():
+            we, se = fn()
+        torch.cuda.synchronize()
+        ms_e = (time.perf_counter() - t0) * 1e3
+        check(not graphs.counts["captures"] and not graphs.counts["replays"],
+              f"{name}: the eager run captured {dict(graphs.counts)}")
+        out[name] = wg
+        # route and captures: a step is captured at its second execution
+        route = "graph" if cnt.get("replays", 0) else "eager"
+        want_cap = sum(1 for v in ex.values() if v >= 2)
+        loops = cnt.get("loops", 0)
+        reads = cnt.get("blocking_reads", 0)
+        check(route == "graph", f"{name}: route {route} {cnt}")
+        check(cnt.get("captures", 0) == want_cap,
+              f"{name}: {cnt.get('captures', 0)} captures, predicted "
+              f"{want_cap} (one per step and bucket run twice or more)")
+        check(reads <= max(loops - 1, 0) + 2,
+              f"{name}: {reads} blocking reads, {loops} loops")
+        # every graph holds exactly its eager step's kernel launches
+        for (w, key, step, form), ln in steps.items():
+            if form == "graph":
+                check(ln == steps.get((w, key, step, "eager"), {}),
+                      f"{name}: graph {key}/{step} launches {ln}, eager "
+                      f"{steps.get((w, key, step, 'eager'))}")
+        b7 = exe.get("banded_spmv", 0)
+        if kind == "nw":
+            p, m0 = 1, _bucket_m(GRAPH_M0, NA, 256)
+            want_b7 = p + m0 + sum(v * (p + key) for (_, key, step), v
+                                   in ex.items() if step == "sub")
+            real = sg.matvecs + p + m0
+        elif kind == "kiops":
+            want_b7 = sum(v * key for (_, key, _), v in ex.items())
+            real = sg.krylov_steps
+        else:
+            want_b7 = sum(v * steps.get((w, key, step, "eager"), {}).get(
+                "banded_spmv", 0) for (w, key, step), v in ex.items())
+            real = None
+        check(b7 == want_b7, f"{name}: {b7} B7 executions, predicted "
+              f"{want_b7} from the steps' executions")
+        caps = {f"{key}/{step}": ln.get("banded_spmv", 0)
+                for (_, key, step, form), ln in steps.items()
+                if form == "graph"}
+        e = rel_norm(wg.reshape(-1).cpu(), we.reshape(-1).cpu())
+        check(bool(torch.isfinite(wg).all()) and e <= GRAPH_TOL,
+              f"{name}: graph vs eager {e:.2e}")
+        check(sg == se, f"{name}: graph stats {sg}, eager {se}")
+        print(f"graph {name}: route {route}; {cnt.get('captures', 0)} "
+              f"captures (predicted {want_cap}), {cnt.get('replays', 0)} "
+              f"replays, {cnt.get('eager_steps', 0)} eager steps, {loops} "
+              f"loops, {reads} blocking reads (at most {max(loops - 1, 0)} "
+              f"bucket changes + 2), {cnt.get('flag_reads', 0)} flag reads "
+              f"behind the device; steps {ex}", flush=True)
+        print(f"graph {name}: B7 executions {b7} (= B7 captured per graph "
+              f"{caps} x its replays + the eager steps' launches; predicted "
+              f"{want_b7})" + ("" if real is None else
+                               f", of which the stats imply {real} and "
+                               f"{b7 - real} ran in masked steps")
+              + f"; host launch counter {dict((k, v) for k, v in _build.launches.items() if v)}",
+              flush=True)
+        print(f"graph {name}: graph vs eager {e:.2e} (tol {GRAPH_TOL:g}), "
+              f"stats {sg} equal; one call {ms_g:.1f} ms from graphs "
+              f"(captures included), {ms_e:.1f} ms eager {card}",
+              flush=True)
+    # the errors against the oracles, at today's tolerances
+    for name in (c4 + f"phiv_timestep_device m={GRAPH_M0}",
+                 c4 + "kiops_device"):
+        e = rel_norm(out[name].reshape(-1).cpu(), torch.as_tensor(ref_p))
+        check(e <= MTOL_NONHERM, f"{name} vs the dense oracle {e:.2e}")
+        print(f"check graph {name}: vs the dense oracle {e:.2e} (tol "
+              f"{MTOL_NONHERM:g})", flush=True)
+    for name, want, tol in (
+            (f"etdrk4_device {NE}^2 m={M_AC}", host_refs["etdrk4"],
+             MTOL_ETD),
+            (f"exprb43_device {NR}^2 adaptive m={M_R}",
+             host_refs["exprb43"], MTOL_EXPRB)):
+        e = rel_norm(out[name].reshape(-1), want.reshape(-1))
+        check(e <= tol, f"{name} vs its host driver {e:.2e}")
+        print(f"check graph {name}: vs its host driver {e:.2e} (tol "
+              f"{tol:g})", flush=True)
+    del out
+    timed = {name: fn for name, (fn, _) in cells.items()}
+    return dict(total), timed
+
+
+def graphs_only(et, dev, card, profile: bool) -> int:
+    """``--graphs-only``: the sixth path with its references made here
+    (config #4's dense oracle, the host etdrk4 and exprb43), then, with
+    ``--profile``, torch.profiler over its cells."""
+    import scipy.linalg as sla
+    import torch
+
+    t0 = time.perf_counter()
+    opA = et.advection_diffusion_1d(NA, peclet=10.0, device=dev)
+    bAnp = np.random.default_rng(SEED).standard_normal(NA)
+    bA = torch.as_tensor(bAnp, device=dev)
+    aug = np.zeros((NA + 1, NA + 1))
+    aug[:NA, :NA] = TA * banded_csr(opA).toarray()
+    aug[:NA, NA] = TA * 0.1 * bAnp
+    F2 = sla.expm(aug)
+    ref_p = F2[:NA, :NA] @ bAnp + F2[:NA, NA]
+    opE, uE = allen_cahn(et, NE, dev)
+    opR, uR = allen_cahn(et, NR, dev)
+    host_refs = {
+        "etdrk4": et.etdrk4(opE, lambda u: u - u ** 3, uE,
+                            (0.0, E_STEPS * H_AC), H_AC, m=M_AC)[0],
+        "exprb43": et.exprb43(lambda u: opR.matvec(u) + u - u ** 3, uR,
+                              (0.0, TR), rtol=1e-5, atol=1e-7)[0]}
+    print(f"graphs-only references: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    counts, calls = graph_path(et, dev, card, bA, ref_p, host_refs)
+    print(f"kernel executions of the graph path: "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    if profile:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile as prof_
+
+        for name, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            with prof_(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+                s = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - s) * 1e3
+            evs = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+            busy, end = 0.0, -math.inf
+            for a, b in sorted((e.time_range.start, e.time_range.end)
+                               for e in evs):
+                if b > end:
+                    busy += b - max(a, end)
+                    end = b
+            print(f"profile graph {name}: wall {wall:.3f} ms (host clock, "
+                  f"profiled); device busy {busy / 1e3:.3f} ms in "
+                  f"{len(evs)} device ops {card}", flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port's main path "
                                  "on one NVIDIA GPU (module doc).")
@@ -2442,6 +2684,10 @@ def main() -> int:
                     help="after phase 4, profile the sparse, variable and "
                     "non-Hermitian main-path cells instead of timing "
                     "(phase 5)")
+    ap.add_argument("--graphs-only", action="store_true",
+                    help="run phases 1-2 and the sixth path alone (the "
+                    "device loops from CUDA graphs, their references "
+                    "computed on the spot); prints no result lines")
     # one rank of the fourth path, started by this script itself
     ap.add_argument("--shard-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--shard-world", type=int, help=argparse.SUPPRESS)
@@ -2469,6 +2715,7 @@ def main() -> int:
     from exponentialutilities_jl_torch.ops.kernels import dispatch as td
     from exponentialutilities_jl_torch.ops.kernels import lanczos_fused as tf
     from exponentialutilities_jl_torch.ops.kernels import resident as tr
+    from exponentialutilities_jl_torch.utils import graphs
 
     dev = torch.device("cuda")
     f32, f64 = torch.float32, torch.float64
@@ -2497,6 +2744,8 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, or loading an "
           f"earlier build) into {_build.BUILD_DIR}", flush=True)
     phase_done("2 build")
+    if args.graphs_only:
+        return graphs_only(et, dev, card, args.profile)
 
     rng = np.random.default_rng(SEED)
     rng2 = np.random.default_rng(SEED + 1)     # the inputs of B4-B6
@@ -3302,6 +3551,7 @@ def main() -> int:
                  "config3 expv_chebyshev": tr.banded_plan(opP, f64, dev),
                  "2d cheb": tr.grid_plan(opG, f64, dev)}
     _build.reset_launch_counts()
+    graphs.reset_counts()
     out = {}
     for name, fn in {**calls, **phi_calls, **sparse_calls, **var_calls,
                      **nh_calls}.items():
@@ -3385,34 +3635,50 @@ def main() -> int:
     s_star = tt.operator_parameters(TA * float(opA.opnorm_hint()),
                                     tt.taylor_theta(f64))
 
-    def drv_expected(name, res):
+    def drv_expected(name, res, ex):
+        """B7 executions from the stats, and for a device loop (run from
+        CUDA graphs, every step's matvecs also in its masked executions)
+        from the executions ``ex`` of its steps: NW p + m a substep plus
+        the norm's p + m0, KIOPS m a substep."""
         if name.endswith("make_phiv_timestep"):
             # its calibration is the default-m adaptive call
             return out["config4 phiv_timestep adaptive"][1].matvecs
         if name.endswith("expv_taylor"):
             return s_star[0] * s_star[1]
         st = res[1]
+        if name.endswith("kiops_device"):
+            return sum(v * key for (_, key, _), v in ex.items())
         if "kiops" in name:
             return st.krylov_steps
         if "device" in name:
-            return st.matvecs + 1 + _bucket_m(20, NA, 256)
+            return 1 + _bucket_m(20, NA, 256) + sum(
+                v * (1 + key) for (_, key, step), v in ex.items()
+                if step == "sub")
         return st.matvecs
 
     for name, fn in drv_calls.items():
         before = dict(_build.launches)
+        adj = graphs.launch_adjustment()
+        ex0 = dict(graphs.executions)
         t0 = time.perf_counter()
         out[name] = fn()
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        delta = {k: v - before[k] for k, v in _build.launches.items()
-                 if v > before[k]}
-        want = drv_expected(name, out[name])
+        delta = {k: v for k, v in graphs.kernel_executions(
+            {k: _build.launches[k] - before[k] for k in before},
+            since=adj).items() if v}
+        ex = {k: v - ex0.get(k, 0) for k, v in graphs.executions.items()
+              if v > ex0.get(k, 0)}
+        want = drv_expected(name, out[name], ex)
         check(delta == {"banded_spmv": want},
               f"{name} launches {delta}, expected {want} B7")
         res = out[name]
         stats = res[1] if isinstance(res, tuple) else None
         print(f"main {name}: {want} B7 launches as its counters imply "
-              f"({sec:.2f} s); stats {stats}", flush=True)
+              f"({sec:.2f} s); stats {stats}" + (
+                  f"; from CUDA graphs: B7 executions = captured launches x "
+                  f"replays + eager steps' launches, steps {ex}" if ex
+                  else ""), flush=True)
         if name in JAX_C4:
             print(f"  the JAX package on the CPU: {JAX_C4[name]}",
                   flush=True)
@@ -3446,7 +3712,7 @@ def main() -> int:
             T3 / 2, opV[dt], h, m=20, two_pass=True)
         del h
     torch.cuda.synchronize()
-    main_counts = dict(_build.launches)
+    main_counts = graphs.kernel_executions(dict(_build.launches))
     for k, v in main_counts.items():
         check(v > 0, f"kernel {k} never launched on the main path")
     print(f"main launches: {main_counts}", flush=True)
@@ -3710,8 +3976,8 @@ def main() -> int:
 
     # the second path: the Leja and Faber actions and the exponential
     # integrators, each call's launches held to its expected count
-    poly_counts, poly_calls, poly_sync_free, poly_ms, poly_ops = \
-        poly_integrator_path(et, dev, card, ref_e, bA)
+    (poly_counts, poly_calls, poly_sync_free, poly_ms, poly_ops,
+     host_refs) = poly_integrator_path(et, dev, card, ref_e, bA)
     print(f"main launches of the polynomial and integrator path: "
           f"{poly_counts}", flush=True)
     for k in ("resident_recurrence", "resident_banded", "resident_grid",
@@ -3745,6 +4011,14 @@ def main() -> int:
     for k in ("banded_spmv", "blockell_spmv"):
         check(gspmd_counts[k] > 0, f"kernel {k} never launched on the "
               "GSPMD path")
+
+    # the sixth path: the device-resident programs from CUDA graphs
+    graph_counts, graph_calls = graph_path(et, dev, card, bA, ref_p,
+                                           host_refs)
+    print(f"kernel executions of the graph path: "
+          f"{ {k: v for k, v in graph_counts.items() if v} }", flush=True)
+    check(graph_counts.get("banded_spmv", 0) > 0,
+          "kernel banded_spmv never ran on the graph path")
 
     # the kernel-driving passes make no host syncs
     lo, hi = op3[f64].spectral_bounds_hint()
@@ -3880,6 +4154,9 @@ def main() -> int:
                     "config4 phiv_timestep adaptive m=20", "config4 kiops",
                     "config4 phiv_timestep_device m=20",
                     "config4 kiops_device")},
+                **{k: graph_calls[k] for k in (
+                    "config4 exprb43_device",
+                    f"exprb43_device {NR}^2 adaptive m={M_R}")},
                 **{k: poly_calls[k] for k in (
                     "leja 1-D n=1e6 phiv_timestep_leja",
                     "faber 1-D n=1e6 phiv_timestep_faber",
@@ -4491,6 +4768,11 @@ def main() -> int:
                      }.items():
         print(f"time main {name}: {median_ms(fn, reps=5, warmup=1):.3f} ms "
               f"(median of 5) {card}", flush=True)
+    # the sixth path's cells from their CUDA graphs (each call captures
+    # anew: the graphs live for one call)
+    for name, fn in graph_calls.items():
+        print(f"time graph {name}: {median_ms(fn, reps=3, warmup=1):.3f} "
+              f"ms (median of 3) {card}", flush=True)
     for name, dn, kfn, kname in device_jobs:
         ms, cnt = device_ms(kfn, kname)
         print(f"device {name} {dn}: " + (
@@ -4509,7 +4791,8 @@ def main() -> int:
                         "launches": (main_counts[name] + poly_counts[name]
                                      + dense_counts[name]
                                      + shard_counts[name]
-                                     + gspmd_counts[name]),
+                                     + gspmd_counts[name]
+                                     + graph_counts.get(name, 0)),
                         "max_abs_err": kerr[name], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by,

@@ -25,16 +25,20 @@ WRMS error norm in one transfer) besides kiops' own reads.
 
 The ``*_device`` forms are the JAX package's whole-integration programs
 (one ``lax.scan`` for the fixed-step forms, one ``lax.while_loop`` per
-Krylov bucket for the adaptive controller) as host loops with the same
-control flow and arithmetic: a fixed Krylov size m, each phi combination
-one fixed-m augmented Arnoldi basis (``_phi_comb_device``) and a
-solver-free reduced exponential (``expm_taylor_masked``). The fixed-step
-forms (``etdrk4_device``, ``exprb43_device(adaptive=False)``) make no host
-read inside a step, one at the end (the finiteness check). The adaptive
-controller reads one (finiteness, error norm, phi error) triple per
-attempt and moves to the next bucket of ``_EXPRB_M_LADDER`` when a phi
-combination breaches its tolerance, so its steps and rejections are those
-of the JAX device loop.
+Krylov bucket for the adaptive controller) with the same control flow
+and arithmetic: a fixed Krylov size m, each phi combination one fixed-m
+augmented Arnoldi basis (``_phi_comb_device``) and a solver-free reduced
+exponential (``expm_taylor_masked``). A step of the scan, or an attempt
+of the adaptive loop with the controller's decision (every write
+masked), runs through ``utils/graphs.LoopRunner``: on a CUDA device from
+one CUDA graph (per m bucket), on the CPU and with ``comm`` eagerly. The
+fixed-step forms (``etdrk4_device``, ``exprb43_device(adaptive=False)``)
+make one host read, at the end (the finiteness check); the adaptive loop
+one as each bucket's (or snapshot segment's) loop ends, its flags read
+one attempt behind the device in between. It moves to the next bucket of
+``_EXPRB_M_LADDER`` when a phi combination breaches its tolerance, so its
+steps and rejections are those of the JAX device loop. A user ``f`` or
+``N`` is called inside the captured step and must not read the device.
 
 Sharded state. An integrator that takes only ``f`` and ``u0`` takes
 ``comm=`` (a ``parallel.MeshAxis``; the counterpart of the JAX package's
@@ -54,9 +58,10 @@ import math
 import numpy as np
 import torch
 
-from ..ops.expm import _pow2, expm_higham2005, expm_taylor_masked
+from ..ops.expm import _onenorm, _pow2, expm_higham2005, expm_taylor_masked
 from ..utils.comm import all_finite, operator_comm, psum
 from ..utils.device import action_vector, host_tensor
+from ..utils.graphs import LoopRunner, masked_copy
 from ..utils.linop import JacobianOperator, LinearOperator, aslinearoperator
 from ..utils.precision import full_precision
 from .expv import build_subspace
@@ -411,10 +416,11 @@ def _phi_comb_device(op, B, taus, m: int, iop: int, expm_method: str,
     jm = torch.clamp_min(Ks.m_used - 1, 0)
     outs, errs = [], []
     for tau in taus:
+        A = tau * Haug
         if expm_method == "taylor":
-            F = expm_taylor_masked(tau * Haug)
+            F = expm_taylor_masked(A)
         else:
-            F = expm_higham2005(tau * Haug)
+            F = expm_higham2005(A, onenorm=_onenorm(A))
         coeffs = Ks.beta.to(F.dtype) * F[:, 0]
         outs.append((coeffs.to(Ks.V.dtype) @ Ks.V[:, :n]).to(dt))
         if with_err:
@@ -423,19 +429,39 @@ def _phi_comb_device(op, B, taus, m: int, iop: int, expm_method: str,
     return (outs, errs) if with_err else outs
 
 
-def _check_final(u, what: str, comm=None):
-    if not bool(all_finite(u, comm)):
+def _fname(fn) -> str:
+    return getattr(fn, "__qualname__", None) or repr(fn)
+
+
+def _check_final(u, what: str, comm, runner: LoopRunner):
+    """The fixed-step forms' one host read: the final state's
+    finiteness."""
+    if not runner.read(all_finite(u, comm))[0]:
         raise FloatingPointError(
             f"{what}: non-finite final state - raise m, reduce dt, or "
             "validate against the adaptive etdrk4/exprb drivers")
     return u
 
 
-@full_precision
+def _repeat(step, u, nsteps: int, m: int, what: str, runner):
+    """Run ``step`` nsteps times through ``runner`` (a runner of its own
+    when None)."""
+    if runner is not None:
+        runner.repeat(m, "step", step, nsteps)
+        return
+    with LoopRunner(what, u.device) as own:
+        own.repeat(m, "step", step, nsteps)
+
+
 def _etdrk4_scan(L, u, h: float, *, N, nsteps: int, m: int, iop: int,
-                 expm_method: str):
-    """nsteps ETDRK4 steps at a fixed m, no host read."""
-    for _ in range(nsteps):
+                 expm_method: str, runner: LoopRunner | None = None):
+    """nsteps ETDRK4 steps at a fixed m: one step over the state tensor,
+    run ``nsteps`` times by the runner (a CUDA graph's replays), no host
+    read."""
+    u = u.clone()
+
+    @full_precision
+    def step():
         N1 = N(u)
         (a,) = _phi_comb_device(L, torch.stack([u, N1], 1), [h / 2], m, iop,
                                 expm_method)
@@ -448,8 +474,11 @@ def _etdrk4_scan(L, u, h: float, *, N, nsteps: int, m: int, iop: int,
         Nc = N(c)
         b2 = (-3.0 * N1 + 2.0 * Na + 2.0 * Nb - Nc) / h
         b3 = (4.0 * N1 - 4.0 * Na - 4.0 * Nb + 4.0 * Nc) / h ** 2
-        (u,) = _phi_comb_device(L, torch.stack([u, N1, b2, b3], 1), [h], m,
-                                iop, expm_method)
+        (u_new,) = _phi_comb_device(L, torch.stack([u, N1, b2, b3], 1), [h],
+                                    m, iop, expm_method)
+        u.copy_(u_new)
+
+    _repeat(step, u, nsteps, m, f"etdrk4_device (N={_fname(N)})", runner)
     return u
 
 
@@ -457,23 +486,34 @@ def etdrk4_device(L, N, u0, t_span, dt, *, m: int = 20, iop: int = 2,
                   expm_method: str = "taylor"):
     """ETDRK4 at a fixed step and a fixed Krylov size m (the JAX package's
     one-program form): each stage one fixed-m augmented phi combination,
-    reduced exponentials by the solver-free masked Taylor engine, no host
-    read between steps. Validate m once against ``etdrk4``, then serve.
-    Raises FloatingPointError on a non-finite final state (the one host
-    read)."""
+    reduced exponentials by the solver-free masked Taylor engine. On a
+    CUDA device one step is captured into a CUDA graph and replayed, so
+    ``N`` must not read the device (no ``.item()``, ``float()``,
+    ``bool()`` of a tensor, no data-dependent shapes): the capture raises
+    naming it otherwise. On the CPU and over a sharded L the step runs
+    eagerly. Validate m once against ``etdrk4``, then serve. Raises
+    FloatingPointError on a non-finite final state (the one host read)."""
     nsteps = _fixed_steps(t_span, dt)
     op = aslinearoperator(L)
-    u = _etdrk4_scan(op, action_vector(u0, op), float(dt), N=N,
-                     nsteps=nsteps, m=m, iop=iop, expm_method=expm_method)
-    return _check_final(u, "etdrk4_device", operator_comm(op))
+    comm = operator_comm(op)
+    u0 = action_vector(u0, op)
+    with LoopRunner(f"etdrk4_device (N={_fname(N)})", u0.device,
+                    sharded=comm is not None) as runner:
+        u = _etdrk4_scan(op, u0, float(dt), N=N, nsteps=nsteps, m=m,
+                         iop=iop, expm_method=expm_method, runner=runner)
+        return _check_final(u, "etdrk4_device", comm, runner)
 
 
-@full_precision
 def _exprb43_scan(u, h: float, *, f, nsteps: int, m: int, iop: int,
-                  expm_method: str, comm=None):
-    """nsteps fixed exprb43 steps at a fixed m, no host read."""
+                  expm_method: str, runner: LoopRunner | None = None,
+                  comm=None):
+    """nsteps fixed exprb43 steps at a fixed m: one step over the state
+    tensor, run ``nsteps`` times by the runner, no host read."""
+    u = u.clone()
     zero = torch.zeros_like(u)
-    for _ in range(nsteps):
+
+    @full_precision
+    def step():
         J = JacobianOperator(f, u, comm=comm)
         F1 = f(u)
         gn = F1 - J.matvec(u)
@@ -483,8 +523,11 @@ def _exprb43_scan(u, h: float, *, f, nsteps: int, m: int, iop: int,
         D3 = f(U3) - J.matvec(U3) - gn
         b3 = (16.0 * D2 - 2.0 * D3) / h ** 2
         b4 = (-48.0 * D2 + 12.0 * D3) / h ** 3
-        (u,) = _phi_comb_device(J, torch.stack([u, gn, zero, b3, b4], 1),
-                                [h], m, iop, expm_method)
+        (u_new,) = _phi_comb_device(J, torch.stack([u, gn, zero, b3, b4], 1),
+                                    [h], m, iop, expm_method)
+        u.copy_(u_new)
+
+    _repeat(step, u, nsteps, m, f"exprb43_device (f={_fname(f)})", runner)
     return u
 
 
@@ -506,6 +549,12 @@ def exprb43_device(f, u0, t_span, dt=None, *, adaptive=None, m: int = 20,
     snapshots (adaptive only): strictly increasing times in (t0, tf]
       ending at tf, each a forced step endpoint; returns the (n, nt)
       states at those times.
+
+    On a CUDA device a step (fixed) or an attempt (adaptive, one graph per
+    m bucket) is captured into a CUDA graph and replayed, so ``f`` must
+    not read the device (no ``.item()``, ``float()``, ``bool()`` of a
+    tensor, no data-dependent shapes): the capture raises naming it
+    otherwise. On the CPU and with ``comm`` the steps run eagerly.
 
     comm: u's rows are sharded over this ``parallel.MeshAxis`` (module
       doc).
@@ -529,9 +578,12 @@ def exprb43_device(f, u0, t_span, dt=None, *, adaptive=None, m: int = 20,
     if dt is None:
         raise ValueError("adaptive=False requires dt")
     nsteps = _fixed_steps(t_span, dt)
-    u = _exprb43_scan(host_tensor(u0, device), float(dt), f=f, nsteps=nsteps,
-                      m=m, iop=iop, expm_method=expm_method, comm=comm)
-    _check_final(u, "exprb43_device", comm)
+    u0 = host_tensor(u0, device)
+    with LoopRunner(f"exprb43_device (f={_fname(f)})", u0.device,
+                    sharded=comm is not None) as runner:
+        u = _exprb43_scan(u0, float(dt), f=f, nsteps=nsteps, m=m, iop=iop,
+                          expm_method=expm_method, runner=runner, comm=comm)
+        _check_final(u, "exprb43_device", comm, runner)
     if return_stats:
         return u, ExpIntStats(steps=nsteps, n_f_evals=3 * nsteps,
                               n_kiops=3 * nsteps, final_m=m)
@@ -548,30 +600,41 @@ def _next_bucket(m, m_max):
     return m_max
 
 
-@dataclasses.dataclass
+_F64 = torch.float64
+_I64 = torch.int64
+
+
 class _LoopState:
-    """The device loop's carry: the state, the controller's memory and
-    the counters (host numbers, u on the device)."""
-    u: torch.Tensor
-    t: float
-    dt: float
-    eprev: float = -1.0
-    steps: int = 0
-    rejected: int = 0
-    nk: int = 0
-    want_m: int = 0
-    info: int = 0
+    """The device loop's carry: the state, the controller's memory, the
+    counters and the segment's end, as device tensors (0-d but u)."""
+
+    def __init__(self, u, t0: float, dt: float):
+        dev = u.device
+
+        def f64(v):
+            return torch.full((), v, dtype=_F64, device=dev)
+
+        def i64():
+            return torch.zeros((), dtype=_I64, device=dev)
+
+        self.u = u.clone()
+        self.t, self.dt, self.eprev, self.tf = f64(t0), f64(dt), f64(-1.0), \
+            f64(t0)
+        self.steps, self.rejected, self.nk = i64(), i64(), i64()
+        self.want_m, self.info = i64(), i64()
+        self.five = f64(5.0)
+        # [active, want_m, info, t, steps, rejected, nk]
+        self.flags = torch.zeros(7, dtype=_F64, device=dev)
 
 
-@full_precision
 def _exprb_attempt(st: _LoopState, f, scheme: str, m: int, iop: int,
-                   expm_method: str, tf: float, rtol, atol, comm=None):
-    """One attempt of the device loop: (u_new, dt, finite, enorm,
-    eps_phi, nk_step) with the three scalars in one host read (the phi
-    errors come from replicated reduced scalars; with ``comm`` the
-    finiteness and the WRMS norm are reduced over the axis)."""
+                   expm_method: str, rtol, atol, comm=None):
+    """One attempt's arithmetic: (u_new, dt, finite, enorm, eps_phi,
+    nk_step), the scalars 0-d tensors (with ``comm`` the finiteness and
+    the WRMS norm are reduced over the axis; the phi errors come from
+    replicated reduced scalars)."""
     u = st.u
-    dt = min(st.dt, tf - st.t)
+    dt = torch.minimum(st.dt, st.tf - st.t)
     zero = torch.zeros_like(u)
     J = JacobianOperator(f, u, comm=comm)
     F1 = f(u)
@@ -597,7 +660,7 @@ def _exprb_attempt(st: _LoopState, f, scheme: str, m: int, iop: int,
             J, torch.stack([u, gn], 1), [dt], m, iop, expm_method,
             with_err=True)
         D2 = f(U2) - J.matvec(U2) - gn
-        b3 = (2.0 / dt ** 2) * D2
+        b3 = (torch.full_like(dt, 2.0) / dt ** 2) * D2
         (u_new,), (e2,) = _phi_comb_device(
             J, torch.stack([u, gn, zero, b3], 1), [dt], m, iop, expm_method,
             with_err=True)
@@ -607,74 +670,88 @@ def _exprb_attempt(st: _LoopState, f, scheme: str, m: int, iop: int,
     rdt = atol.dtype
     enorm = _wrms_tensor(torch.where(finite, err_vec, 0), u, u_new, rtol,
                          atol, comm)
-    vals = torch.stack([finite.to(rdt), enorm.to(rdt),
-                        torch.stack(errs).max().to(rdt)]).tolist()
-    return u_new, dt, bool(vals[0]), vals[1], vals[2], nk_step
+    enorm = torch.where(finite, enorm.to(rdt).to(_F64), math.inf)
+    eps_phi = torch.stack(errs).max().to(rdt).to(_F64)
+    return u_new, dt, finite, enorm, eps_phi, nk_step
 
 
-def _exprb_device_loop(st: _LoopState, tf, t_eps, dt_floor, rtol, atol,
-                       phi_tol, *, f, scheme: str, m: int, iop: int,
-                       expm_method: str, max_steps: int, use_pi: bool,
-                       at_mmax: bool, adaptive: bool, comm=None):
-    """The JAX ``lax.while_loop`` program at one Krylov size m, as a host
-    loop: attempts until tf, the attempt budget, an m request or a
-    failure; updates ``st`` in place."""
+def _exprb_step(st: _LoopState, t_eps, dt_floor, rtol, atol, phi_tol, *,
+                f, scheme: str, m: int, iop: int, expm_method: str,
+                max_steps: int, use_pi: bool, at_mmax: bool, adaptive: bool,
+                comm=None):
+    """The JAX ``lax.while_loop`` body at one Krylov size m: one attempt
+    and the controller's decision, every write masked (the loop is
+    ``graphs.LoopRunner.loop`` over it)."""
     order = 4 if scheme == "exprb43" else 3
     safety, fmin, fmax = 0.9, 0.2, 5.0
-    while (st.t < tf - t_eps and st.steps + st.rejected < max_steps
-           and st.want_m == 0 and st.info == 0):
+
+    def active():
+        return ((st.t < st.tf - t_eps)
+                & (st.steps + st.rejected < max_steps)
+                & (st.want_m == 0) & (st.info == 0))
+
+    @full_precision
+    def step():
+        go = active()
         u_new, dt, finite, enorm, eps_phi, nk_step = _exprb_attempt(
-            st, f, scheme, m, iop, expm_method, tf, rtol, atol, comm)
-        if not finite:
-            enorm = math.inf
+            st, f, scheme, m, iop, expm_method, rtol, atol, comm)
         # kiops' own acceptance bound (omega = err/tol <= delta = 1.4 at
         # tau_end == tau) polices the fixed-m approximation
-        phi_ok = math.isfinite(eps_phi) and eps_phi <= 1.4 * phi_tol
-        phi_fail = finite and not phi_ok
+        phi_ok = torch.isfinite(eps_phi) & (eps_phi <= 1.4 * phi_tol)
+        phi_fail = finite & ~phi_ok
         if not adaptive:
             # fixed steps: accept anything finite, keep dt, report
             # divergence through info 3
             accept = finite
-            want_new = 0
+            want_new = torch.zeros_like(st.want_m)
             dt_new = st.dt
-            info_new = st.info if finite else 3
+            info_new = torch.where(finite, st.info, 3)
         else:
             # a phi breach on finite data asks for the next m bucket
-            want_new = 0 if at_mmax else int(phi_fail and enorm <= 1.0)
-            accept = finite and enorm <= 1.0 and phi_ok
-            pi_ok = use_pi and st.eprev > 0
-            en = max(enorm, 1e-300)
+            want_new = (torch.zeros_like(st.want_m) if at_mmax
+                        else (phi_fail & (enorm <= 1.0)).to(_I64))
+            accept = finite & (enorm <= 1.0) & phi_ok
+            pi_ok = (st.eprev > 0) & use_pi
+            en = torch.clamp_min(enorm, 1e-300)
             fac_pi = (safety * en ** (-0.7 / order)
-                      * max(st.eprev, 1e-300) ** (0.4 / order))
+                      * torch.clamp_min(st.eprev, 1e-300) ** (0.4 / order))
             fac_i = safety * en ** (-1.0 / order)
-            fac_acc = (fmax if enorm <= 0 else
-                       min(fmax, max(fmin, fac_pi if pi_ok else fac_i)))
-            fac_rej = min(fmax, max(fmin, safety * (
-                en if finite else 100.0) ** (-1.0 / order)))
+            fac_acc = torch.where(enorm <= 0, fmax, torch.clamp(
+                torch.where(pi_ok, fac_pi, fac_i), fmin, fmax))
+            fac_rej = torch.clamp(safety * torch.where(
+                finite, en, 100.0) ** (-1.0 / order), fmin, fmax)
             # non-finite: hard shrink; enorm > 1: controller shrink; a
             # phi-only breach: next bucket (dt kept) or dt/2 at m_max
-            if accept:
-                dt_new = dt * fac_acc
-            elif not finite:
-                dt_new = dt / 5
-            elif enorm > 1.0:
-                dt_new = dt * fac_rej
-            else:
-                dt_new = dt / 2 if at_mmax else st.dt
-            underflow = (not accept) and want_new == 0 and dt_new < dt_floor
-            info_new = 1 if underflow else st.info
-        real_attempt = want_new == 0
-        if accept:
-            st.u = u_new
-            st.t = st.t + dt
-        st.dt = dt_new
-        st.eprev = enorm if accept and enorm > 0 else -1.0
-        st.steps += int(accept)
-        st.rejected += int((not accept) and real_attempt)
-        st.nk += nk_step if real_attempt else 0
-        st.want_m = want_new
-        st.info = info_new
-    return st
+            dt_new = torch.where(
+                accept, dt * fac_acc,
+                torch.where(~finite, dt / st.five,
+                            torch.where(enorm > 1.0, dt * fac_rej,
+                                        dt / 2 if at_mmax else st.dt)))
+            underflow = ~accept & (want_new == 0) & (dt_new < dt_floor)
+            info_new = torch.where(underflow, 1, st.info)
+        real = want_new == 0
+        acc = go & accept
+        masked_copy(st.u, acc, u_new)
+        masked_copy(st.t, acc, st.t + dt)
+        masked_copy(st.dt, go, dt_new)
+        masked_copy(st.eprev, go,
+                    torch.where(accept & (enorm > 0), enorm, -1.0))
+        st.steps.add_(acc.to(_I64))
+        st.rejected.add_((go & ~accept & real).to(_I64))
+        st.nk.add_((go & real).to(_I64) * nk_step)
+        masked_copy(st.want_m, go, want_new)
+        masked_copy(st.info, go, info_new)
+        st.flags.copy_(torch.stack([
+            active().to(_F64), st.want_m.to(_F64), st.info.to(_F64), st.t,
+            st.steps.to(_F64), st.rejected.to(_F64), st.nk.to(_F64)]))
+
+    return step
+
+
+def _choose(flags):
+    """The next attempt (``graphs.LoopRunner.loop``), until the flags show
+    the bucket's loop ended."""
+    return "attempt" if flags is None or flags[0] else None
 
 
 def _run_exprb_device(scheme, f, u0, t_span, dt0, *, m, m_max, iop,
@@ -704,33 +781,41 @@ def _run_exprb_device(scheme, f, u0, t_span, dt0, *, m, m_max, iop,
     atol_t = _atol(atol, u)
     phi_tol = phi_tol if phi_tol is not None else min(rtol, 1e-7) / 10
     m = max(3, min(m, m_max))
-    st = _LoopState(u=u, t=t0, dt=float(dt0) if dt0 else (tf - t0) / 100)
+    st = _LoopState(u, t0, float(dt0) if dt0 else (tf - t0) / 100)
+    steps = {}
     cols = []
-    for tf_seg in seg_ends:
-        # each snapshot is a forced step endpoint (the clamp dt = min(dt,
-        # tf_seg - t) lands an accepted step on it); controller memory,
-        # dt and the m bucket carry across segments
-        for _ in range(len(_EXPRB_M_LADDER) + 2):      # bucket changes
-            _exprb_device_loop(
-                st, tf_seg, 1e-14 * (tf - t0), 1e-12 * (tf - t0), rtol,
-                atol_t, phi_tol, f=f, scheme=scheme, m=m, iop=iop,
-                expm_method=expm_method, max_steps=max_steps,
-                use_pi=(controller == "pi"), at_mmax=(m >= m_max),
-                adaptive=adaptive, comm=comm)
-            if st.want_m == 0:
-                break
-            m = _next_bucket(m, m_max)
-            st.want_m = 0
-        if st.info != 0 or st.t < tf_seg - 1e-14 * (tf - t0):
-            break                       # a failure, raised below
-        if snapshots is not None:
-            cols.append(st.u)
+    with LoopRunner(f"{scheme}_device (f={_fname(f)})", u.device,
+                    sharded=comm is not None) as runner:
+        for tf_seg in seg_ends:
+            # each snapshot is a forced step endpoint (the clamp dt =
+            # min(dt, tf_seg - t) lands an accepted step on it);
+            # controller memory, dt and the m bucket carry across
+            # segments, which rerun the same graphs
+            st.tf.fill_(tf_seg)
+            for _ in range(len(_EXPRB_M_LADDER) + 2):  # bucket changes
+                if m not in steps:
+                    steps[m] = _exprb_step(
+                        st, 1e-14 * (tf - t0), 1e-12 * (tf - t0), rtol,
+                        atol_t, phi_tol, f=f, scheme=scheme, m=m, iop=iop,
+                        expm_method=expm_method, max_steps=max_steps,
+                        use_pi=(controller == "pi"), at_mmax=(m >= m_max),
+                        adaptive=adaptive, comm=comm)
+                flags = runner.loop(m, {"attempt": steps[m]}, st.flags,
+                                    _choose, "attempt")
+                if flags[1] == 0:
+                    break
+                m = _next_bucket(m, m_max)
+                st.want_m.zero_()
+            if flags[2] != 0 or flags[3] < tf_seg - 1e-14 * (tf - t0):
+                break                       # a failure, raised below
+            if snapshots is not None:
+                cols.append(st.u.clone())
     stats = ExpIntStats(
-        steps=st.steps, rejected=st.rejected, n_kiops=st.nk,
-        n_f_evals=(3 if scheme == "exprb43" else 2) * (st.steps
-                                                       + st.rejected),
-        final_m=m, info=st.info)
-    if stats.info == 0 and st.t < tf - 1e-14 * (tf - t0):
+        steps=int(flags[4]), rejected=int(flags[5]), n_kiops=int(flags[6]),
+        n_f_evals=(3 if scheme == "exprb43" else 2) * int(flags[4]
+                                                          + flags[5]),
+        final_m=m, info=int(flags[2]))
+    if stats.info == 0 and flags[3] < tf - 1e-14 * (tf - t0):
         stats.info = 2
     if stats.info:
         # no-silent-failure protocol
@@ -739,7 +824,7 @@ def _run_exprb_device(scheme, f, u0, t_span, dt0, *, m, m_max, iop,
                   3: "non-finite state at fixed dt - reduce dt"
                   }[stats.info]
         raise FloatingPointError(
-            f"{scheme}_device stopped at t={st.t:.6g} < tf={tf:.6g}: "
+            f"{scheme}_device stopped at t={flags[3]:.6g} < tf={tf:.6g}: "
             f"{reason} (final m={m}; loosen tolerances, raise max_steps/"
             "m_max, or check f)")
     out = st.u if snapshots is None else torch.stack(cols, dim=1)

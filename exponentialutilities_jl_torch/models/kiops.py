@@ -118,11 +118,15 @@ class KiopsStats:
     info: int = 0
 
 
-def _kiops_x0(w_col, t_now: float, mu: float, p: int):
+def _kiops_x0(w_col, t_now, mu: float, p: int):
     """Augmented starting vector: w plus the Taylor-weight tail
-    t^i / i! mu."""
+    t^i / i! mu (t_now a float, or a 0-d float64 tensor: a loop step's)."""
     tail = [(t_now ** (p - 1 - i)) / math.factorial(p - 1 - i) * mu
-            for i in range(p - 1)] + [mu]
+            for i in range(p - 1)]
+    if isinstance(t_now, torch.Tensor):
+        tail = torch.stack(tail + [torch.full_like(t_now, mu)])
+        return torch.cat([w_col, tail.to(w_col.dtype)])
+    tail = tail + [mu]
     # filled on the device: a tensor made from host values would be a
     # host-to-device copy, which waits for the stream
     return torch.cat([w_col] + [torch.full((1,), v, dtype=w_col.dtype,
@@ -130,10 +134,11 @@ def _kiops_x0(w_col, t_now: float, mu: float, p: int):
                                 for v in tail])
 
 
-def _augmented_columns(op, u):
+def _augmented_columns(op, u, read=float):
     """(u (n, p+1), p, mu, AugmentedOperator): the p = 0 case padded with a
     zero column, and the augmented columns scaled by nu = 2^-e with
-    2^e >= sum |u[:, 1:]| (mu = 1 / nu exactly)."""
+    2^e >= sum |u[:, 1:]| (mu = 1 / nu exactly). ``read`` takes sum |u|
+    to the host (a loop runner's counted read)."""
     u = action_vector(u, op)
     if u.ndim == 1:
         u = u[:, None]
@@ -142,7 +147,7 @@ def _augmented_columns(op, u):
     if p == 0:
         p = 1
         u = torch.cat([u, torch.zeros_like(u)], dim=1)
-    norm_u = float(psum(u[:, 1:].abs().sum(), operator_comm(op)))
+    norm_u = read(psum(u[:, 1:].abs().sum(), operator_comm(op)))
     if ppo > 1 and norm_u > 0:
         ex = math.ceil(math.log2(norm_u))
         nu, mu = math.ldexp(1.0, -ex), math.ldexp(1.0, ex)

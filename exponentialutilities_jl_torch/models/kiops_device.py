@@ -1,5 +1,5 @@
-"""KIOPS with the control flow of the JAX package's device loop (PyTorch
-port of ``exponentialutilities_jl_tpu/models/kiops_device.py``).
+"""KIOPS as the JAX package's device loop (PyTorch port of
+``exponentialutilities_jl_tpu/models/kiops_device.py``).
 
 The JAX package runs the substep and rejection loop of ``kiops`` as one
 ``lax.while_loop`` program per Krylov size m: every substep builds the
@@ -7,15 +7,20 @@ augmented basis (a rejected substep builds it again from the same start),
 takes one trial, estimates the order, and accepts or rejects; an m change
 ends the program with ``want_m`` set and the host re-enters at the new
 bucket of ``_M_LADDER``, where the basis is rebuilt (no ``arnoldi_extend``
-resume). Here that program is a host loop with the same control flow and
-arithmetic, so the stats are those of the JAX device driver, which differ
-from ``kiops``'s.
+resume). Here one substep is one masked step over device tensors
+(``_Bucket.step``), run by ``utils/graphs.LoopRunner``: on a CUDA device
+from one CUDA graph per bucket, on the CPU eagerly. Arithmetic and control
+flow are the JAX device driver's, so the stats are its own, which differ
+from ``kiops``'s. Each snapshot's phantom is a masked write (each step
+evaluates one reduced exponential and one n-sized combination per
+requested time).
 
-Host reads per substep: two, the new basis's scalars (effective
-dimension, breakdown flag, residual, beta and the augmented Hessenberg's
-1-norm, in one transfer) and then the trial's error estimate (the reduced
-exponential is told its 1-norm). A snapshot inside a substep adds the read
-of its exponential's 1-norm. W stays on the operator's device.
+Host reads per solve: one at the start (sum |u_1..u_p|, the augmented
+columns' scale) and one when each bucket's loop ends (its flags carry the
+want_m request and the stats); the flags read within a bucket lag one
+step behind the device (``utils/graphs``). W stays on the operator's
+device. A row-sharded operator's steps run eagerly (its collectives
+cannot be captured).
 
 ``expm_method="auto"`` is ``"higham2005"`` (the H100 has float64 LU);
 ``"taylor"`` selects the solver-free engine.
@@ -28,12 +33,17 @@ import math
 import numpy as np
 import torch
 
-from ..ops.expm import expm_higham2005, expm_taylor
+from ..ops.expm import _onenorm, expm_higham2005, expm_taylor
+from ..utils.comm import operator_comm
+from ..utils.device import action_vector
+from ..utils.graphs import LoopRunner, masked_copy
 from ..utils.linop import aslinearoperator
 from ..utils.precision import full_precision
 from .expv import build_subspace
-from .kiops import (KiopsStats, _augmented_columns, _Basis, _kiops_err,
+from .kiops import (KiopsStats, _aug_hessenberg, _augmented_columns,
                     _kiops_x0, _phantom_hessenberg)
+from .nw_device import _F64, _I64
+from .phiv import _row
 from .timestepping import _MAX_NONFINITE_REJECTS
 
 __all__ = ["kiops_device"]
@@ -49,167 +59,229 @@ def _bucket(m, mmin, mmax):
     return mmax
 
 
-def _fpow(a: float, b: float) -> float:
-    """a ** b, with inf on overflow (the device arithmetic's answer)."""
-    try:
-        return a ** b
-    except OverflowError:
-        return math.inf
+class _State:
+    """The loop state that all buckets share (0-d tensors unless noted)."""
+
+    def __init__(self, u, nt, tau_end, tol, sgn, mu, ts):
+        dev = u.device
+
+        def f64(v):
+            return torch.full((), v, dtype=_F64, device=dev)
+
+        def i64(v=0):
+            return torch.full((), v, dtype=_I64, device=dev)
+
+        self.w = u[:, 0].clone()
+        self.t, self.tau = f64(0.0), f64(tau_end)
+        self.oldtau, self.oldomega = f64(math.nan), f64(math.nan)
+        self.order, self.kest = f64(1.0), f64(2.0)
+        self.orderold = torch.ones((), dtype=torch.bool, device=dev)
+        self.kestold = torch.ones((), dtype=torch.bool, device=dev)
+        self.ireject, self.nonfin = i64(), i64()
+        self.W = torch.zeros((u.shape[0], nt), dtype=u.dtype, device=dev)
+        self.done = torch.zeros(nt, dtype=torch.bool, device=dev)
+        self.steps, self.rejections, self.krylov, self.exps = (i64(), i64(),
+                                                               i64(), i64())
+        self.want_m, self.info = i64(), i64()
+        # [active, want_m, info, steps, rejections, krylov, exps]
+        self.flags = torch.zeros(7, dtype=_F64, device=dev)
+        self.tau_end, self.tol, self.five = f64(tau_end), f64(tol), f64(5.0)
+        g, gm = (0.2, 0.1) if tau_end > 1 else (0.9, 0.6)
+        self.gamma, self.gamma_mmax = f64(g), f64(gm)
+        self.sgn, self.mu = sgn, mu
+        self.ts = torch.as_tensor(ts, dtype=_F64).to(dev)
 
 
-def _ratio_log(num: float, den: float) -> float:
-    """log(num) / log(den), inf when log(den) is 0."""
-    d = math.log(den)
-    return math.log(num) / d if d != 0 else math.inf
+class _Bucket:
+    """The substep at one Krylov size m."""
 
+    def __init__(self, S: _State, aug, m, *, p, iop, expm_method, max_steps,
+                 mmax_is_m):
+        self.S, self.aug, self.m, self.p, self.iop = S, aug, m, p, iop
+        self.engine = (expm_taylor if expm_method == "taylor"
+                       else expm_higham2005)
+        self.max_steps, self.mmax_is_m = max_steps, mmax_is_m
 
-@full_precision
-def _phantom(Kb: _Basis, tau_sgn: float, n: int, expm_method: str):
-    """A snapshot inside an accepted substep (no phi_1 coupling)."""
-    engine = expm_taylor if expm_method == "taylor" else expm_higham2005
-    F2 = engine(tau_sgn * _phantom_hessenberg(Kb.H, Kb.m_used))
-    rows = torch.arange(Kb.m + 1, device=F2.device)
-    col = Kb.beta.to(F2.dtype) * torch.where(rows < Kb.m_used, F2[:, 0], 0)
-    dt = torch.promote_types(col.dtype, Kb.V.dtype)
-    return col.to(dt) @ Kb.V[:, :n].to(dt)
+    def _active(self):
+        S = self.S
+        return ((S.t < S.tau_end * (1 - 1e-14)) & (S.steps < self.max_steps)
+                & (S.want_m == 0) & (S.info == 0))
 
+    def _phantom(self, Ks, tau_sgn, n):
+        """A snapshot inside an accepted substep (no phi_1 coupling)."""
+        Hj = _phantom_hessenberg(Ks.H, Ks.m_used)
+        A = tau_sgn.to(Hj.real.dtype) * Hj
+        F2 = self.engine(A, onenorm=_onenorm(A))
+        rows = torch.arange(self.m + 1, device=F2.device)
+        col = Ks.beta.to(F2.dtype) * torch.where(rows < Ks.m_used, F2[:, 0],
+                                                 0)
+        dt = torch.promote_types(col.dtype, Ks.V.dtype)
+        return col.to(dt) @ Ks.V[:, :n].to(dt)
 
-def _substeps(aug, ts, st, tau_end, tol, sgn, mu, p, m, iop, expm_method,
-              max_steps, mmax_is_m):
-    """Substeps at one Krylov size m (the JAX ``_kiops_device`` program);
-    updates the state dict ``st`` in place."""
-    n = aug.n_main
-    gamma, gamma_mmax = (0.2, 0.1) if tau_end > 1 else (0.9, 0.6)
-    delta = 1.4
-    nt = len(ts)
-    while (st["t"] < tau_end * (1 - 1e-14) and st["steps"] < max_steps
-           and st["want_m"] == 0 and st["info"] == 0):
-        t = st["t"]
-        tau = min(st["tau"], tau_end - t)
-        x0 = _kiops_x0(st["w"], t, mu, p)
-        Ks = build_subspace(aug, x0, m, iop=iop, hermitian=False)
-        Kb = _Basis(H=Ks.H, beta=Ks.beta, m_used=Ks.m_used,
-                    breakdown=Ks.breakdown, V=Ks.V, Ks=Ks).summarize()
-        j, happy = Kb.j, Kb.happy
-        coeffs, err = _kiops_err(Kb, sgn * tau, expm_method)
-        bad = not math.isfinite(err)
-        omega_raw = tau_end * err / (tau * tol)
-        omega = (0.0 if happy else
-                 omega_raw if math.isfinite(omega_raw) else math.inf)
+    @full_precision
+    def step(self):
+        """One substep: the augmented basis, one trial, the order and kappa
+        estimates, and acceptance (every write masked)."""
+        S, m, p = self.S, self.m, self.p
+        n = self.aug.n_main
+        delta = 1.4
+        go = self._active()
+        t = S.t
+        tau = torch.minimum(S.tau, S.tau_end - t)
+        Ks = build_subspace(self.aug, _kiops_x0(S.w, t, S.mu, p), m,
+                            iop=self.iop, hermitian=False)
+        Haug, nrm = _aug_hessenberg(Ks.H, Ks.m_used)
+        j = Ks.m_used.to(_I64)
+        jf = j.to(_F64)
+        happy = Ks.breakdown
+        rdt = Haug.real.dtype
+        tau_sgn = S.sgn * tau
+        F = self.engine(tau_sgn.to(rdt) * Haug,
+                        onenorm=tau_sgn.abs() * Haug.abs().sum(dim=0).max()
+                        .to(_F64))
+        coeffs = Ks.beta.to(F.dtype) * F[:, 0]
+        f_err = _row(_row(F, torch.clamp_min(j - 1, 0)), j)
+        err = (Ks.beta.to(_F64) * nrm.abs().to(_F64)
+               * f_err.to(torch.promote_types(f_err.dtype, _F64))).abs()
+        bad = ~torch.isfinite(err)
+        omega_raw = S.tau_end * err / (tau * S.tol)
+        omega = torch.where(happy, 0.0,
+                            torch.where(torch.isfinite(omega_raw), omega_raw,
+                                        math.inf))
 
         # order and kappa estimates
-        prev_ok = (math.isfinite(st["oldomega"]) and st["oldomega"] > 0
-                   and st["ireject"] >= 1)
-        use_obs = False
-        if prev_ok and st["oldtau"] != tau:
-            order_obs = _ratio_log(max(omega / st["oldomega"], 1e-300),
-                                   max(tau / st["oldtau"], 1e-300))
-            use_obs = math.isfinite(order_obs)
-        order = (max(1.0, order_obs) if use_obs else
-                 j / 4 if st["orderold"] else st["order"])
-        orderold = not use_obs
-        kest = 2.0 if st["kestold"] else st["kest"]
+        prev_ok = (torch.isfinite(S.oldomega) & (S.oldomega > 0)
+                   & (S.ireject >= 1))
+        num = torch.clamp_min(omega / S.oldomega, 1e-300)
+        den = torch.log(torch.clamp_min(tau / S.oldtau, 1e-300))
+        order_obs = torch.where(den != 0, torch.log(num) / den, math.inf)
+        use_obs = prev_ok & (S.oldtau != tau) & torch.isfinite(order_obs)
+        order = torch.where(use_obs, torch.clamp_min(order_obs, 1.0),
+                            torch.where(S.orderold, jf / 4, S.order))
+        kest = torch.where(S.kestold, 2.0, S.kest)
 
-        remaining = (tau_end - t if omega > delta else tau_end - (t + tau))
-        order_eff = max(order, 1e-2)
-        tau_opt = tau * _fpow(gamma / max(omega, 1e-16), 1.0 / order_eff)
-        tau_opt = min(remaining, max(tau / 5, min(5 * tau, tau_opt)))
-        x = j + math.log(max(omega / gamma, 1e-16)) / math.log(kest)
+        remaining = torch.where(omega > delta, S.tau_end - t,
+                                S.tau_end - (t + tau))
+        order_eff = torch.clamp_min(order, 1e-2)
+        tau_opt = tau * (S.gamma / torch.clamp_min(omega, 1e-16)) ** (
+            1.0 / order_eff)
+        tau_opt = torch.minimum(remaining, torch.maximum(
+            tau / S.five, torch.minimum(5 * tau, tau_opt)))
+        x = jf + torch.log(torch.clamp_min(omega / S.gamma, 1e-16)) \
+            / torch.log(kest)
         lo, hi = (3 * m) // 4, (4 * m + 2) // 3
-        m_opt = min(max(math.ceil(x), lo), hi) if math.isfinite(x) else hi
+        m_opt = torch.where(torch.isfinite(x),
+                            torch.clamp(torch.ceil(x), lo, hi), float(hi))
 
-        at_mmax = mmax_is_m and j == m
-        tau_mmax = tau * _fpow(gamma_mmax / max(omega, 1e-16),
-                               1.0 / order_eff)
-        tau_mmax = min(tau_end - t, max(tau / 5, tau_mmax))
-        if happy:
-            tau_new = min(tau_end - (t + tau), tau)
-        elif at_mmax:
-            tau_new = tau_mmax if omega > delta else tau_opt
-        else:
-            tau_new = tau
-        want_m = (0 if happy or at_mmax or omega <= delta or m_opt == m
-                  or bad else m_opt)
+        at_mmax = (j == m) if self.mmax_is_m else torch.zeros_like(happy)
+        tau_mmax = tau * (S.gamma_mmax / torch.clamp_min(omega, 1e-16)) ** (
+            1.0 / order_eff)
+        tau_mmax = torch.minimum(S.tau_end - t,
+                                 torch.maximum(tau / S.five, tau_mmax))
+        tau_new = torch.where(
+            happy, torch.minimum(S.tau_end - (t + tau), tau),
+            torch.where(at_mmax, torch.where(omega > delta, tau_mmax,
+                                             tau_opt), tau))
+        want = torch.where(happy | at_mmax | (omega <= delta) | (m_opt == m)
+                           | bad, 0, m_opt.to(_I64))
         # a tau shrink replaces the m request on a non-finite estimate
-        if bad:
-            tau_new = tau / 5
-        elif want_m == 0 and not happy and not at_mmax:
-            tau_new = tau_opt if omega > delta else min(remaining, tau)
-        nonfin = st["nonfin"] + 1 if bad else 0
+        tau_new = torch.where(
+            bad, tau / S.five,
+            torch.where((want == 0) & ~happy & ~at_mmax,
+                        torch.where(omega > delta, tau_opt,
+                                    torch.minimum(remaining, tau)),
+                        tau_new))
+        nonfin = torch.where(bad, S.nonfin + 1, 0)
         failed = nonfin > _MAX_NONFINITE_REJECTS
-        accepted = omega <= delta and want_m == 0 and not failed and not bad
+        acc = go & (omega <= delta) & (want == 0) & ~failed & ~bad
 
-        if accepted:
-            next_t = t + tau
-            dt = torch.promote_types(coeffs.dtype, Ks.V.dtype)
-            w_new = coeffs.to(dt) @ Ks.V[:, :n].to(dt)
-            for i in range(nt):
-                # snapshots strictly inside (t, next_t); the one at next_t
-                # is w_new itself
-                if (not st["done"][i] and ts[i] > t
-                        and ts[i] < next_t - 1e-14 * tau_end):
-                    st["W"][:, i] = _phantom(Kb, sgn * (ts[i] - t), n,
-                                             expm_method)
-                    st["done"][i] = True
-            for i in range(nt):
-                if (not st["done"][i]
-                        and abs(ts[i] - next_t) <= 1e-14 * tau_end):
-                    st["W"][:, i] = w_new
-                    st["done"][i] = True
-            st["w"], st["t"] = w_new, next_t
-        st.update(tau=max(tau_new, 1e-300), oldtau=tau, oldomega=omega,
-                  order=order, kest=kest, orderold=orderold, nonfin=nonfin,
-                  ireject=0 if accepted else st["ireject"] + 1,
-                  want_m=want_m)
-        st["steps"] += accepted
-        st["rejections"] += not accepted
-        st["krylov"] += j
-        st["exps"] += 1
-        if failed:
-            st["info"] = 2
+        next_t = t + tau
+        dt = torch.promote_types(coeffs.dtype, Ks.V.dtype)
+        w_new = coeffs.to(dt) @ Ks.V[:, :n].to(dt)
+        for i in range(S.ts.shape[0]):
+            # snapshots strictly inside (t, next_t); the one at next_t is
+            # w_new itself
+            hit = (acc & ~S.done[i] & (S.ts[i] > t)
+                   & (S.ts[i] < next_t - 1e-14 * S.tau_end))
+            masked_copy(S.W[:, i], hit,
+                 self._phantom(Ks, S.sgn * (S.ts[i] - t), n))
+            masked_copy(S.done[i], hit, True)
+        for i in range(S.ts.shape[0]):
+            hit = (acc & ~S.done[i]
+                   & ((S.ts[i] - next_t).abs() <= 1e-14 * S.tau_end))
+            masked_copy(S.W[:, i], hit, w_new)
+            masked_copy(S.done[i], hit, True)
+        masked_copy(S.w, acc, w_new)
+        masked_copy(S.t, acc, next_t)
+        for dst, val in ((S.tau, torch.clamp_min(tau_new, 1e-300)),
+                         (S.oldtau, tau), (S.oldomega, omega),
+                         (S.order, order), (S.kest, kest),
+                         (S.orderold, ~use_obs), (S.nonfin, nonfin),
+                         (S.ireject, torch.where(acc, 0, S.ireject + 1)),
+                         (S.want_m, want)):
+            masked_copy(dst, go, val)
+        S.steps.add_(acc.to(_I64))
+        S.rejections.add_((go & ~acc).to(_I64))
+        S.krylov.add_(torch.where(go, j, 0))
+        S.exps.add_(go.to(_I64))
+        masked_copy(S.info, go & failed, 2)
+        S.flags.copy_(torch.stack([
+            self._active().to(_F64), S.want_m.to(_F64), S.info.to(_F64),
+            S.steps.to(_F64), S.rejections.to(_F64), S.krylov.to(_F64),
+            S.exps.to(_F64)]))
+
+
+def _choose(flags):
+    """The next step (``graphs.LoopRunner.loop``): one kind of step, until
+    the flags show the bucket's loop ended."""
+    return "step" if flags is None or flags[0] else None
 
 
 def kiops_device(ts, A, u, *, m: int = 10, tol: float = 1e-7, iop: int = 2,
                  mmin: int = 10, mmax: int = 128, expm_method: str = "auto",
                  task1: bool = False, max_steps: int = 10_000,
                  return_stats: bool = True):
-    """KIOPS with the control flow of the JAX device loop (module doc).
-    Same contract as ``kiops``: u (n, p+1) columns [b_0 ... b_p]; returns
-    the phi combination at the requested times on the operator's device
-    (plus ``KiopsStats``)."""
+    """KIOPS as the JAX device loop (module doc). Same contract as
+    ``kiops``: u (n, p+1) columns [b_0 ... b_p]; returns the phi
+    combination at the requested times on the operator's device (plus
+    ``KiopsStats``). On a CUDA device each bucket's substep runs from a
+    CUDA graph; on the CPU and for a sharded operator, eagerly."""
     op = aslinearoperator(A)
     scalar_t = np.ndim(ts) == 0
     tau_out = np.atleast_1d(np.asarray(ts, dtype=np.float64))
-    u, p, mu, aug = _augmented_columns(op, u)
-    n = u.shape[0]
-    sgn = float(np.sign(tau_out[-1])) or 1.0
-    tau_end = float(abs(tau_out[-1]))
-    nt = len(tau_out)
-    if expm_method == "auto":
-        expm_method = "higham2005"
+    comm = operator_comm(op)
+    u = action_vector(u, op)
+    with LoopRunner("kiops_device", u.device,
+                    sharded=comm is not None) as runner:
+        u, p, mu, aug = _augmented_columns(
+            op, u, read=lambda x: runner.read(x)[0])
+        sgn = float(np.sign(tau_out[-1])) or 1.0
+        tau_end = float(abs(tau_out[-1]))
+        nt = len(tau_out)
+        if expm_method == "auto":
+            expm_method = "higham2005"
+        m = _bucket(m, mmin, mmax)
+        S = _State(u, nt, tau_end, tol, sgn, mu, np.abs(tau_out))
+        buckets = {}
+        for _ in range(32):
+            bk = buckets.get(m)
+            if bk is None:
+                bk = buckets[m] = _Bucket(
+                    S, aug, m, p=p, iop=iop, expm_method=expm_method,
+                    max_steps=max_steps, mmax_is_m=m >= mmax)
+            flags = runner.loop(m, {"step": bk.step}, S.flags, _choose,
+                                "step")
+            if flags[1] == 0:
+                break
+            m = _bucket(int(flags[1]), mmin, mmax)
+            S.want_m.zero_()
 
-    m = _bucket(m, mmin, mmax)
-    st = {"w": u[:, 0], "t": 0.0, "tau": tau_end, "oldtau": math.nan,
-          "oldomega": math.nan, "order": 1.0, "kest": 2.0,
-          "orderold": True, "kestold": True, "ireject": 0, "nonfin": 0,
-          "W": torch.zeros((n, nt), dtype=u.dtype, device=u.device),
-          "done": [False] * nt, "steps": 0, "rejections": 0, "krylov": 0,
-          "exps": 0, "want_m": 0, "info": 0}
-    ts_abs = [abs(float(x)) for x in tau_out]
-    for _ in range(32):
-        _substeps(aug, ts_abs, st, tau_end, tol, sgn, mu, p, m, iop,
-                  expm_method, max_steps, m >= mmax)
-        if st["want_m"] == 0:
-            break
-        m = _bucket(st["want_m"], mmin, mmax)
-        st["want_m"] = 0
-
-    stats = KiopsStats(steps=st["steps"], rejections=st["rejections"],
-                       krylov_steps=st["krylov"], exps=st["exps"],
-                       last_m=m, info=st["info"])
-    W = st["W"]
+    stats = KiopsStats(steps=int(flags[3]), rejections=int(flags[4]),
+                       krylov_steps=int(flags[5]), exps=int(flags[6]),
+                       last_m=m, info=int(flags[2]))
+    W = S.W
     if stats.info:
-        W[:, [i for i, d in enumerate(st["done"]) if not d]] = math.nan
+        W = torch.where(S.done[None, :], W, math.nan)
     if task1:
         for i in range(nt):
             if tau_out[i] != 0:

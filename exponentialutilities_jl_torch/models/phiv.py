@@ -96,10 +96,20 @@ def _reduced_phi(t, H, k: int, *, expm_method: str = "higham2005",
     Hessenberg H (``phiv_dense`` on the augmented matrix, or host scipy
     with ``reduced="host"``). ``hnorm``: the 1-norm of H_m on the host,
     which spares the exponential its read (the augmented matrix's 1-norm
-    is max(|t| hnorm, 1))."""
+    is max(|t| hnorm, 1)). A 0-d tensor ``t`` with a 0-d tensor ``hnorm``
+    makes no host read at all (the exponential's device form, the loop
+    steps of ``models/nw_device.py``); t then scales H in H's real
+    dtype."""
     m = H.shape[1]
     if reduced == "host":
         return host_phiv_e1(H[:m, :m], t, k)
+    if isinstance(hnorm, torch.Tensor):
+        t_h = t.to(H.real.dtype)
+        Hm = t_h * H[:m, :m]
+        e1 = torch.eye(m, dtype=Hm.dtype, device=Hm.device)[0]
+        nrm = t.abs().to(torch.float64) * hnorm.to(torch.float64)
+        return phiv_dense(Hm, e1, k, expm_method=expm_method,
+                          onenorm=torch.clamp_min(nrm, 1.0) if k else nrm)
     dt = torch.promote_types(H.dtype, torch.as_tensor(t).dtype)
     Hm = t * H[:m, :m].to(dt)
     e1 = torch.eye(m, dtype=dt, device=Hm.device)[0]

@@ -94,9 +94,10 @@ def _as_columns(B, op):
     return B[:, None] if B.ndim == 1 else B
 
 
-def _compute_W(op, u, B, t: float, p: int):
+def _compute_W(op, u, B, t, p: int):
     """W recurrence (16) of Niesen-Wright: w_0 = u,
-    w_j = A w_{j-1} + sum_{l=0}^{p-j} (t^l / l!) b_{j+l}; (n, p+1)."""
+    w_j = A w_{j-1} + sum_{l=0}^{p-j} (t^l / l!) b_{j+l}; (n, p+1). t is a
+    float or a 0-d float64 tensor (a loop step's)."""
     cols = [u]
     for j in range(1, p + 1):
         w = op.matvec(cols[-1])
@@ -106,9 +107,10 @@ def _compute_W(op, u, B, t: float, p: int):
     return torch.stack(cols, dim=1)
 
 
-def _update_u(W, pcol, tau: float, p: int):
+def _update_u(W, pcol, tau, p: int):
     """u <- tau^p phi_p(tau A) w_p + sum_{j<p} (tau^j / j!) w_j (NW (15));
-    ``pcol`` is the phi_p(tau A) w_p column."""
+    ``pcol`` is the phi_p(tau A) w_p column; tau a float or a 0-d
+    tensor."""
     u = (tau ** p) * pcol
     for j in range(p):
         u = u + (tau ** j / math.factorial(j)) * W[:, j]
@@ -167,16 +169,23 @@ def _onenorms(H, m: int):
     return cols.max(), H[:m, :m].abs().sum(dim=0).max()
 
 
-def _basis_summary(H, beta, m_used, broke):
-    """One host read of what the driver needs of a new basis: (broke,
-    m_used, beta, the residual h_{m_used, m_used-1}, |H|_1, |H_m|_1)."""
+def _basis_summary_device(H, beta, m_used, broke):
+    """What the driver needs of a new basis, as 0-d tensors in H's real
+    dtype: (broke, m_used, beta, the residual h_{m_used, m_used-1}, |H|_1,
+    |H_m|_1)."""
     m = H.shape[1]
     last = torch.clamp_min(m_used - 1, 0)
     h_res = _row(_row(H, last + 1), last).abs()
     hn, hm = _onenorms(H, m)
     rdt = hn.dtype
-    vals = torch.stack([broke.to(rdt), m_used.to(rdt), beta.to(rdt),
-                        h_res.to(rdt), hn, hm]).tolist()
+    return (broke.to(rdt), m_used.to(rdt), beta.to(rdt), h_res.to(rdt), hn,
+            hm)
+
+
+def _basis_summary(H, beta, m_used, broke):
+    """``_basis_summary_device`` in one host read: (broke, m_used, beta,
+    h_res, |H|_1, |H_m|_1) as host numbers."""
+    vals = torch.stack(_basis_summary_device(H, beta, m_used, broke)).tolist()
     return (bool(vals[0]), int(vals[1]), vals[2], vals[3], vals[4], vals[5])
 
 

@@ -257,12 +257,16 @@ def _higham(A, nA, max_squarings: int):
     return _squarings(_pq_solve(U, V), s)
 
 
-def _higham_device(A, max_squarings: int):
+def _higham_device(A, max_squarings: int, nA=None,
+                   differentiable: bool = True):
     """Higham 2005 with no host read: degree and s from the norm on the
-    device, every branch's (U, V) formed and one selected, one solve,
-    masked squarings."""
+    device (``nA``, a 0-d tensor, or A's own), every branch's (U, V)
+    formed and one selected, one solve (``_solve``), masked squarings.
+    The selected branch, the solve of the non-differentiable form and the
+    live squarings are the host form's operations on the same values."""
     thetas, branches = _pade_tables(A.dtype)
-    nA = _onenorm(A).to(_real_dtype(A.dtype))
+    if nA is None:
+        nA = _onenorm(A).to(_real_dtype(A.dtype))
     s = _scaling_device(nA, thetas[-1], max_squarings)
     As = _scaled(A, s)
     idx = sum((nA > t).to(torch.int64) for t in thetas[:-1])
@@ -271,7 +275,8 @@ def _higham_device(A, max_squarings: int):
     A6 = A2 @ A4
     UV = [torch.stack(br(As, A2, A4, A6)) for br in branches]
     U, V = torch.stack(UV).index_select(0, idx.reshape(1))[0]
-    return _masked_squarings(_pq_solve(U, V, True), s, max_squarings)
+    return _masked_squarings(_pq_solve(U, V, differentiable), s,
+                             max_squarings)
 
 
 def _unbalance(E, d):
@@ -285,7 +290,9 @@ def expm_higham2005(A, *, max_squarings: int = 32, balance: bool = False,
                     differentiable: bool = False):
     """Higham-2005 scaling-and-squaring Pade ``exp(A)`` (module doc).
     ``onenorm``: the 1-norm of A when the caller knows it on the host,
-    which saves the call's one host read. ``balance=True``: exp(A) =
+    which saves the call's one host read; a 0-d tensor (the norm on the
+    device) selects the form with no host read, with the host form's
+    solve (a loop step of ``utils/graphs.py``). ``balance=True``: exp(A) =
     D exp(D^-1 A D) D^-1 with ``balance_matrix``'s exact factors. A stack
     (..., n, n) goes to ``expm_higham2005_batched``. ``differentiable``:
     the form with no host read (module doc)."""
@@ -301,6 +308,8 @@ def expm_higham2005(A, *, max_squarings: int = 32, balance: bool = False,
             differentiable=differentiable), d)
     if differentiable:
         return _higham_device(A, max_squarings)
+    if isinstance(onenorm, torch.Tensor):
+        return _higham_device(A, max_squarings, onenorm, False)
     return _higham(A, _norm_host(A, onenorm), max_squarings)
 
 
@@ -515,18 +524,19 @@ def expm_taylor(A, *, order: int | None = None, max_squarings: int = 48,
                 onenorm: float | None = None, differentiable: bool = False):
     """Scaling and squaring with a Paterson-Stockmeyer Taylor kernel: a
     solver-free ``exp(A)`` (module doc). ``onenorm`` as in
-    ``expm_higham2005``; ``differentiable``: the form with no host read
-    (``max_squarings`` masked squarings). A stack takes its largest
-    norm."""
+    ``expm_higham2005``; ``differentiable`` or a 0-d tensor ``onenorm``:
+    the form with no host read (``max_squarings`` masked squarings). A
+    stack takes its largest norm."""
     from .phi_dense import _ps_phi_taylor, _taylor_order
 
     A = _square(A, "expm_taylor")
     theta, order_auto = _taylor_order(A.dtype)
     if order is None:
         order = order_auto
-    if differentiable:
-        s = _scaling_device(_onenorm(A).to(_real_dtype(A.dtype)), theta,
-                            max_squarings)
+    if differentiable or isinstance(onenorm, torch.Tensor):
+        nA = (onenorm if isinstance(onenorm, torch.Tensor)
+              else _onenorm(A).to(_real_dtype(A.dtype)))
+        s = _scaling_device(nA, theta, max_squarings)
         return _masked_squarings(_ps_phi_taylor(_scaled(A, s), 0, order), s,
                                  max_squarings)
     s = _scaling(_norm_host(A, onenorm), theta, max_squarings)

@@ -1,0 +1,273 @@
+"""Loop programs over device tensors, replayed from CUDA graphs: the
+port's counterpart of ``jax.jit`` for the drivers whose JAX form is one
+compiled ``lax.while_loop`` or ``lax.scan`` program (``nw_device``,
+``kiops_device`` and the ``*_device`` integrators).
+
+A loop is a set of steps: functions of no arguments that read the loop's
+state (tensors made before the loop, on the caller's stream) and write it
+in place, every write masked by the state's own flags, so that a step run
+after the loop has ended, or a step of the wrong kind, changes nothing.
+The steps keep a 1-D ``flags`` tensor up to date; the host reads it to
+choose the next step and to see the loop end.
+
+``LoopRunner.loop`` runs one loop at one key (a Krylov bucket; the steps
+of one key share their shapes), ``LoopRunner.repeat`` runs one step a
+fixed number of times (a fixed-step scan) with no read at all.
+
+On a CUDA device each step of a key is run once eagerly on the runner's
+side stream (its warm-up: the kernel library is built, launch plans are
+made and the BLAS and solver handles get their workspaces outside the
+capture; the warm-up is the loop's first execution of that step, not a
+throwaway run). At its second execution it is captured into a
+``torch.cuda.CUDAGraph`` and replayed, then replayed from then on (a step
+run once is never captured). A capture that fails raises a RuntimeError
+naming the step; there is no eager fallback. A step must therefore not
+read the device (``.item()``, ``.tolist()``, ``float()``, ``int()`` or
+``bool()`` of a device tensor, ``torch.nonzero``, boolean indexing) nor
+build a tensor from host data. The graphs and their memory pools belong to the runner,
+which lives for one driver call (``with LoopRunner(...)``): they are freed
+when it closes.
+
+Read cadence. After every execution the flags are copied without
+blocking into pinned host memory and an event is recorded; the host waits
+on the event of execution k only after it has enqueued execution k + 1,
+and chooses execution k + 2 from the flags of execution k. So within a
+loop the device never waits for the host, and the loop's end costs one
+masked execution more. The read that ends a loop is counted as a blocking
+read (after it the device has at most that masked execution left); the
+others as flag reads.
+
+Eager runs. On the CPU (the tests' device path), inside ``eager()``, and
+for an operator sharded over a communicator (its collectives run on
+gloo, which a graph cannot capture) the same steps run eagerly with the
+same cadence, on the caller's stream. A sharded loop reads its flags
+after every step (each read a blocking one), so that it runs no step past
+its end: its collective counts are those of the host loops.
+
+``counts`` tallies, per process, what the runners did (``captures``,
+``replays``, ``eager_steps``, ``loops``, ``blocking_reads``,
+``flag_reads``),
+``executions`` each step's executions by (driver, key, step name),
+``step_launches`` the kernel launches of each step's warm-up and of its
+graph (by (driver, key, step name, "eager" or "graph")), and
+``kernel_executions`` turns the kernels' host launch counters
+(``ops/kernels/_build.launches``, which count a captured launch once and
+a replay never) into executions: captured launches out, captured
+launches times replays in.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+
+import torch
+
+__all__ = ["LoopRunner", "eager", "masked_copy", "counts", "executions",
+           "step_launches", "reset_counts", "launch_adjustment",
+           "kernel_executions"]
+
+counts = collections.Counter()
+executions = collections.Counter()
+step_launches = {}
+# kernel launches recorded while capturing (counted by the host counters,
+# never run as such) and those run by replays
+_captured = collections.Counter()
+_replayed = collections.Counter()
+_eager_only = [False]
+
+
+def reset_counts():
+    counts.clear()
+    executions.clear()
+    step_launches.clear()
+    _captured.clear()
+    _replayed.clear()
+
+
+def launch_adjustment() -> dict:
+    """Per kernel, replayed launches less captured ones, so far."""
+    return {k: _replayed[k] - _captured[k]
+            for k in set(_captured) | set(_replayed)}
+
+
+def kernel_executions(launches, since=None) -> dict:
+    """Executions per kernel (every key of ``launches`` kept) from host
+    launch counters: ``_build.launches`` since the last ``reset_counts``,
+    or the difference of two of its snapshots with ``since`` the
+    ``launch_adjustment()`` taken at the first."""
+    adj, since = launch_adjustment(), since or {}
+    keys = set(launches) | set(adj)
+    return {k: launches.get(k, 0) + adj.get(k, 0) - since.get(k, 0)
+            for k in keys}
+
+
+@contextlib.contextmanager
+def eager():
+    """Run every loop step eagerly, also on a CUDA device (the graph
+    versus eager comparison)."""
+    prev, _eager_only[0] = _eager_only[0], True
+    try:
+        yield
+    finally:
+        _eager_only[0] = prev
+
+
+def masked_copy(dst, mask, val):
+    """dst <- val where ``mask`` (a bool tensor broadcast against dst), in
+    place: the write of a loop step, a no-op where the mask is off."""
+    dst.copy_(torch.where(mask, val, dst))
+
+
+def _launch_counts():
+    from ..ops.kernels import _build
+    return dict(_build.launches)
+
+
+class LoopRunner:
+    """Runs the steps of one driver call (module doc). ``what`` names the
+    driver in errors; ``sharded``: the operator carries a communicator."""
+
+    def __init__(self, what: str, device, *, sharded: bool = False):
+        self.what = what
+        self.device = torch.device(device)
+        self.graphed = (self.device.type == "cuda" and not sharded
+                        and not _eager_only[0])
+        self.lag = 0 if sharded else 1
+        self.stream = torch.cuda.Stream(self.device) if self.graphed else None
+        self.graphs = {}
+        self.launches = {}
+        self.warm = set()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def close(self):
+        """Free the graphs and their pools (a graph still running is
+        destroyed when it completes)."""
+        for g in self.graphs.values():
+            g.reset()
+        self.graphs.clear()
+
+    @contextlib.contextmanager
+    def _on_stream(self):
+        if self.stream is None:
+            yield
+            return
+        caller = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(caller)
+        try:
+            with torch.cuda.stream(self.stream):
+                yield
+        finally:
+            caller.wait_stream(self.stream)
+
+    def read(self, *tensors):
+        """One blocking read of 0-d tensors: their host values."""
+        counts["blocking_reads"] += 1
+        vals = torch.stack([t.detach().to(torch.float64).reshape(())
+                            for t in tensors]).tolist()
+        return vals
+
+    def _capture(self, key, name, fn):
+        before = _launch_counts()
+        g = torch.cuda.CUDAGraph()
+        err = None
+        g.capture_begin()
+        try:
+            fn()
+        except Exception as e:          # noqa: BLE001 - re-raised below
+            err = e
+        try:
+            g.capture_end()
+        except Exception as e:          # noqa: BLE001 - re-raised below
+            err = err or e
+        if err is not None:
+            raise RuntimeError(
+                f"{self.what}: capturing its {name!r} step into a CUDA "
+                f"graph failed ({type(err).__name__}: {err}). A step must "
+                "not read the device (.item(), .tolist(), float(), int() "
+                "or bool() of a CUDA tensor, torch.nonzero, boolean "
+                "indexing) nor build a tensor from host data; a user "
+                "function called inside the step (f, N) must follow the "
+                "same rule") from err
+        after = _launch_counts()
+        inside = {k: after[k] - before.get(k, 0) for k in after
+                  if after[k] != before.get(k, 0)}
+        _captured.update(inside)
+        self.launches[(key, name)] = inside
+        step_launches[(self.what, key, name, "graph")] = inside
+        counts["captures"] += 1
+        return g
+
+    def _execute(self, key, name, fn):
+        executions[(self.what, key, name)] += 1
+        g = self.graphs.get((key, name)) if self.graphed else None
+        if g is not None:
+            g.replay()
+            counts["replays"] += 1
+            _replayed.update(self.launches[(key, name)])
+            return
+        if self.graphed and (key, name) in self.warm:
+            self.graphs[(key, name)] = self._capture(key, name, fn)
+            self._execute(key, name, fn)
+            executions[(self.what, key, name)] -= 1
+            return
+        before = _launch_counts()
+        fn()
+        counts["eager_steps"] += 1
+        if (key, name) not in self.warm:
+            after = _launch_counts()
+            step_launches[(self.what, key, name, "eager")] = {
+                k: after[k] - before.get(k, 0) for k in after
+                if after[k] != before.get(k, 0)}
+        self.warm.add((key, name))
+
+    def _post(self, flags):
+        """The flags of the execution just enqueued, on their way to the
+        host: (event, pinned host copy) when graphed, else (None, a copy
+        that the read below syncs on)."""
+        if self.stream is None:
+            return None, flags.detach().clone()
+        buf = torch.empty(flags.shape, dtype=flags.dtype, pin_memory=True)
+        buf.copy_(flags.detach(), non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(self.stream)
+        return ev, buf
+
+    def loop(self, key, steps: dict, flags, choose, first: str):
+        """Execute ``steps`` (name -> function) from ``first`` until
+        ``choose`` ends the loop: ``choose(host_flags)`` names the next
+        step from a read of ``flags`` (None before any read: a guess) or
+        returns None when those flags show the loop ended. Returns the
+        host flags (a list of floats) of the read that ended it."""
+        counts["loops"] += 1
+        inflight = collections.deque()
+        name = first
+        with self._on_stream():
+            while True:
+                self._execute(key, name, steps[name])
+                inflight.append(self._post(flags))
+                if len(inflight) <= self.lag:
+                    name = choose(None)
+                    continue
+                ev, buf = inflight.popleft()
+                if ev is not None:
+                    ev.synchronize()
+                host = buf.tolist()
+                name = choose(host)
+                if name is None or self.lag == 0:
+                    counts["blocking_reads"] += 1
+                else:
+                    counts["flag_reads"] += 1
+                if name is None:
+                    return host
+
+    def repeat(self, key, name: str, fn, count: int):
+        """Execute the step ``fn`` ``count`` times with no read."""
+        with self._on_stream():
+            for _ in range(count):
+                self._execute(key, name, fn)

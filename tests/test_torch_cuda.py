@@ -1884,3 +1884,106 @@ def test_shard_operator_one_rank(dev, tmp_path):
             _close(w, want, f64)
     finally:
         dist.destroy_process_group()
+
+
+# --- the device loops from CUDA graphs (utils/graphs.py) -------------------
+
+def _graph_cells(dev):
+    """The five device-resident programs on config #4's operator at n =
+    400 (every matvec one B7) and on a 2-D stencil: {name: call}."""
+    n, t = 400, 2e-3
+    op = et.advection_diffusion_1d(n, peclet=10.0, device=dev)
+    b = torch.as_tensor(np.random.default_rng(43).standard_normal(n),
+                        device=dev)
+    B = torch.stack([b, 0.1 * b], dim=1)
+    lap = et.laplacian_nd_stencil(32, 32, device="cpu")
+    op2 = et.StencilOperator(lap.grid_shape, lap.offsets,
+                             lap.host_coeffs * 1e-2, is_hermitian=True,
+                             device=dev)
+    u2 = torch.as_tensor(np.random.default_rng(44).standard_normal(32 * 32),
+                         device=dev) * 0.1
+
+    def f(u):
+        return op.matvec(u) - u ** 3
+
+    return {
+        "phiv_timestep_device": lambda: et.phiv_timestep_device(
+            [t / 2, t], op, B, tol=1e-7, m=20, return_stats=True),
+        "kiops_device": lambda: et.kiops_device([t / 2, t], op, B, tol=1e-7),
+        "exprb43_device": lambda: et.exprb43_device(
+            f, b * 0.1, (0.0, t), adaptive=True, m=12, rtol=1e-6,
+            atol=1e-9, return_stats=True),
+        "exprb32_device fixed": lambda: et.exprb32_device(
+            f, b * 0.1, (0.0, t), t / 4, adaptive=False, m=12,
+            return_stats=True),
+        "etdrk4_device": lambda: (et.etdrk4_device(
+            op2, lambda u: u - u ** 3, u2, (0.0, 0.04), 0.01, m=12), None),
+    }
+
+
+@pytest.mark.parametrize("name", ["phiv_timestep_device", "kiops_device",
+                                  "exprb43_device", "exprb32_device fixed",
+                                  "etdrk4_device"])
+def test_graph_replays_equal_the_eager_steps(dev, name):
+    """Each device loop from its CUDA graphs equals the same steps run
+    eagerly to 1e-14, with identical stats; the graph run captured and
+    replayed, the eager one did neither."""
+    from exponentialutilities_jl_torch.utils import graphs
+
+    call = _graph_cells(dev)[name]
+    graphs.reset_counts()
+    wg, sg = call()
+    torch.cuda.synchronize()
+    cg = dict(graphs.counts)
+    graphs.reset_counts()
+    with graphs.eager():
+        we, se = call()
+    ce = dict(graphs.counts)
+    assert cg.get("captures", 0) >= 1 and cg.get("replays", 0) >= 1, cg
+    assert not ce.get("captures") and not ce.get("replays"), ce
+    assert sg == se
+    err = float((wg - we).abs().max())
+    assert err <= 1e-14 * float(we.abs().max()), err
+
+
+def test_capture_of_a_reading_step_raises(dev):
+    """A nonlinearity that reads the device (.item()) cannot be captured:
+    the capture raises naming it, and the card works on after."""
+    lap = et.laplacian_nd_stencil(16, 16, device="cpu")
+    op = et.StencilOperator(lap.grid_shape, lap.offsets,
+                            lap.host_coeffs * 1e-2, is_hermitian=True,
+                            device=dev)
+    u0 = torch.full((256,), 0.1, dtype=torch.float64, device=dev)
+
+    def reads_the_device(u):
+        return u * float(u.abs().max().item())
+
+    with pytest.raises(RuntimeError, match="reads_the_device"):
+        et.etdrk4_device(op, reads_the_device, u0, (0.0, 0.03), 0.01, m=8)
+    torch.cuda.synchronize()
+    assert float((u0 + 1).sum()) == pytest.approx(256 * 1.1)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_b7_in_a_graph_vs_twin(dev, dt):
+    """B7 captured into a CUDA graph: each replay reads the static x it
+    was captured with (refilled between replays) and equals the twin."""
+    from exponentialutilities_jl_torch.ops.kernels import spmv as tsp
+    from exponentialutilities_jl_torch.utils import graphs
+
+    op = et.advection_diffusion_1d(3001, peclet=10.0, dtype=dt, device=dev)
+    x = _vec(3001, dt, dev, 7)
+    y = torch.empty_like(x)
+
+    def step():
+        y.copy_(op.matvec(x))
+
+    graphs.reset_counts()
+    with graphs.LoopRunner("b7 graph", dev) as runner:
+        for seed in range(4):
+            x.copy_(_vec(3001, dt, dev, 100 + seed))
+            runner.repeat(0, "matvec", step, 1)
+            _close(y, tsp.banded_spmv_ref(op.diags, op.offsets, x), dt)
+    assert graphs.counts["captures"] == 1 and graphs.counts["replays"] == 3
+    assert graphs.kernel_executions({"banded_spmv": 2}) == \
+        {"banded_spmv": 4}
