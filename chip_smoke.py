@@ -5,6 +5,8 @@
     python3 chip_smoke.py --profile  (phases 1-4, then device profiles)
     python3 chip_smoke.py --graphs-only [--profile]
                                      (phases 1-2 and the sixth path)
+    python3 chip_smoke.py --krylov-graphs-only [--profile]
+                                     (phases 1-2 and the seventh path)
 
 The main paths are exp(tA)b and the phi-function actions
 [phi_0(tA)b ... phi_3(tA)b] at BASELINE.json's sizes: for Hermitian
@@ -148,9 +150,23 @@ its seconds:
               executions (captured launches times replays, held to
               their steps' executions) printed and held, against the
               same steps run eagerly (1e-14, equal stats) and its dense
-              oracle or host driver. Wherever a device loop runs from
-              graphs (the first, second and sixth paths) a kernel's
-              count is its executions, not its host launches
+              oracle or host driver; then a seventh, the Krylov builders
+              from CUDA graphs (krylov_graph_path: B7, B8, B9 and B9 +
+              B10 replayed from a graph against their twins; config #4's
+              expv, phiv k = 1 and IOP two-pass at m = 250, kiops and
+              phiv_timestep m = 20; config #3's phiv k = 3 m = 30 and
+              expv_batched; config #1's expv m = 40; SELL n = 1e6 expv
+              m = 40, default and seg packs; the 128^3 block-ELL two-pass
+              m = 20), each against its oracle and the same call under
+              graphs.eager() (1e-14, equal stats), its captures and
+              replays (after step 0, one capture and m - 2 graph
+              launches a builder call of m >= 4) and kernel executions
+              held, both forms'
+              CUDA-event medians of 5 printed; the whole script profiles
+              its cells at the end of phase 5. The builders run from
+              graphs on every path but the sharded ones, so a kernel's
+              count is its executions (captured launches times replays),
+              not its host launches
   5. times    CUDA-event medians of >= 10 runs after warm-up (of 5 after
               one for the adaptive drivers), each kernel
               beside its plain twin, B6 (its main-path form and its
@@ -686,13 +702,17 @@ def poly_integrator_path(et, dev, card, ref_e, bA):
     def fR(u):
         return opR.matvec(u) + u - u ** 3
 
-    f_calls = {"plain": 0, "jvp": 0}
+    f_calls = {"plain": 0, "jvp": 0, "plain captured": 0, "jvp captured": 0}
 
     def fRB(u):
         # every call is one B7 matvec, two under torch.func.jvp (the
-        # primal and the tangent)
+        # primal and the tangent); a call made while a Krylov builder's
+        # step is captured runs again at each replay of its graph
         traced = torch._C._functorch.is_functorch_wrapped_tensor(u)
-        f_calls["jvp" if traced else "plain"] += 1
+        key = "jvp" if traced else "plain"
+        f_calls[key] += 1
+        if torch.cuda.is_current_stream_capturing():
+            f_calls[key + " captured"] += 1
         return opRB.matvec(u) + u - u ** 3
 
     def jac_RB(u):
@@ -766,19 +786,29 @@ def poly_integrator_path(et, dev, card, ref_e, bA):
         before = dict(_build.launches)
         adj = graphs.launch_adjustment()
         calls_before = dict(f_calls)
+        graphs_before = dict(graphs.counts)
         out[name], ms[name] = event_ms(fn)
         # executions: a graph replay runs the launches it captured
         delta = {k: v for k, v in graphs.kernel_executions(
             {k: _build.launches[k] - before[k] for k in before},
             since=adj).items() if v}
         if want is None:
-            plain = f_calls["plain"] - calls_before["plain"]
-            jvp = f_calls["jvp"] - calls_before["jvp"]
+            calls = {k: v - calls_before[k] for k, v in f_calls.items()}
+            plain, jvp = calls["plain"], calls["jvp"]
+            caps, reps = (graphs.counts[k] - graphs_before.get(k, 0)
+                          for k in ("captures", "replays"))
             print(f"main {name}: f called {plain} times plainly and {jvp} "
-                  f"times under torch.func.jvp", flush=True)
+                  f"times under torch.func.jvp, {calls['jvp captured']} of "
+                  f"them into {caps} Krylov builder graphs replayed {reps} "
+                  "times", flush=True)
             if name.endswith("jac=None"):
-                check(jvp > 0, f"{name}: f never ran under jvp")
-                want = {"banded_spmv": plain + 2 * jvp}
+                # each builder graph holds one Jacobian matvec (one jvp):
+                # its executions are the graph's replays
+                check(jvp > 0 and calls["plain captured"] == 0
+                      and calls["jvp captured"] == caps,
+                      f"{name}: f calls {calls}, {caps} captures")
+                want = {"banded_spmv": plain + 2 * (
+                    jvp - calls["jvp captured"] + reps)}
             else:
                 # the analytic Jacobian: one more B7 a Krylov matvec
                 check(jvp == 0 and delta.get("banded_spmv", 0) > plain,
@@ -939,6 +969,7 @@ def dense_grad_path(et, dev, card, A1np, op1, opP, opS):
     from exponentialutilities_jl_torch.ops.kernels import _build
     from exponentialutilities_jl_torch.ops.kernels import dispatch as td
     from exponentialutilities_jl_torch.ops.kernels import sell as ts
+    from exponentialutilities_jl_torch.utils import graphs
 
     f32, f64 = torch.float32, torch.float64
     dname = {f32: "float32", f64: "float64"}
@@ -1049,18 +1080,22 @@ def dense_grad_path(et, dev, card, A1np, op1, opP, opS):
         "grad sell x": {"sell_spmv": 2},
     }
     _build.reset_launch_counts()
+    graphs.reset_counts()
     td.grad_gated["calls"] = 0
     out, ms = {}, {}
     for name, fn in cells.items():
         before = dict(_build.launches)
+        adj = graphs.launch_adjustment()
         out[name], ms[name] = event_ms(fn)
-        delta = {k: v - before[k] for k, v in _build.launches.items()
-                 if v > before[k]}
+        # executions: the Krylov builders replay their CUDA graphs
+        delta = {k: v for k, v in graphs.kernel_executions(
+            {k: _build.launches[k] - before[k] for k in before},
+            since=adj).items() if v}
         want = expect.get(name, {})
         check(delta == want, f"{name}: launches {delta}, expected {want}")
         print(f"main {name}: {ms[name]:.1f} ms, launches {delta or 'none'}",
               flush=True)
-    counts = dict(_build.launches)
+    counts = graphs.kernel_executions(dict(_build.launches))
     gated = td.grad_gated["calls"]
     check(gated == 1, f"grad rule: {gated} gated calls, expected 1")
     print(f"main grad rule: {gated} call sent to the plain path "
@@ -2622,6 +2657,380 @@ def graph_path(et, dev, card, bA, ref_p, host_refs):
     return dict(total), timed
 
 
+# The Krylov builders from CUDA graphs (phase 4's seventh path,
+# ops/krylov.py): each builder call runs its m steps as one masked step,
+# run once, captured at its second execution and replayed from then on,
+# in a graph that lives for the call. Each cell runs from its graphs, then
+# with the same steps eagerly (graphs.eager()); the two agree to GRAPH_TOL
+# with equal m_used and stats, the graph form meets the cell's oracle at
+# its limit (PERF.md 2), its kernel executions are held to the count its
+# matvecs imply, and its captures and replays to one capture and m - 2
+# graph launches a builder call of m >= 4 steps (step 0 runs before the
+# runner, on the caller's stream: it decides whether autograd must see
+# the call).
+KG_REPS = 5             # CUDA-event median of each form, taken in turns
+
+
+def krylov_graph_inputs(et, dev):
+    """The seventh path's operators, vectors and references, made here for
+    ``--krylov-graphs-only`` as main makes them (config #3's b and the
+    batched columns from generators of their own)."""
+    import scipy.linalg as sla
+    import scipy.sparse.linalg as spla
+    import torch
+
+    t0 = time.perf_counter()
+    g = {"opA": et.advection_diffusion_1d(NA, peclet=10.0, device=dev)}
+    bAnp = np.random.default_rng(SEED).standard_normal(NA)
+    g["bA"] = torch.as_tensor(bAnp, device=dev)
+    aug = np.zeros((NA + 1, NA + 1))
+    aug[:NA, :NA] = TA * banded_csr(g["opA"]).toarray()
+    aug[:NA, NA] = TA * 0.1 * bAnp
+    F2 = sla.expm(aug)
+    g["ref_e"] = F2[:NA, :NA] @ bAnp
+    g["ref_p"] = g["ref_e"] + F2[:NA, NA]
+    rngc = np.random.default_rng(SEED)
+    A1np = rngc.standard_normal((100, 100)) / 10
+    b1np = rngc.standard_normal(100)
+    g["A1c"] = torch.as_tensor(A1np, device=dev)
+    g["b1c"] = torch.as_tensor(b1np, device=dev)
+    g["ref_1"] = sla.expm(A1np) @ b1np
+    g["opP"] = et.poisson_2d(NP, NP, device=dev)
+    g["bP"] = torch.as_tensor(np.random.default_rng(SEED + 19)
+                              .standard_normal(NP * NP), device=dev)
+    rng4 = np.random.default_rng(SEED + 3)
+    A_sell = symmetrized(bench_sell_coo(NS, 8, 700, rng4), NS, rng4)
+    g["opS"] = et.SellOperator.from_scipy(A_sell, rcm=True, is_hermitian=True,
+                                          dtype=np.float64, device=dev)
+    g["perm"] = torch.as_tensor(g["opS"].perm, device=dev).long()
+    bSnp = rng4.standard_normal(NS)
+    g["bS"] = torch.as_tensor(bSnp, device=dev)[g["perm"]]
+    A_scat = symmetrized(scattered_coo(NS, rng4), NS)
+    g["opSeg"] = et.SellOperator.from_scipy(A_scat, mode="seg",
+                                            is_hermitian=True,
+                                            dtype=np.float64, device=dev)
+    g["bC"] = torch.as_tensor(rng4.standard_normal(NS), device=dev)
+    symmetrized(bench_sell_coo(NP * NP, 2, 700, rng4), NP * NP)
+    rng4.standard_normal(NP * NP)           # main's hybrid b: same bB below
+    g["opB3"] = et.blockell_from_scipy(laplacian_3d_csr(NB), 8,
+                                       is_hermitian=True, dtype=np.float64,
+                                       device=dev)
+    g["bB"] = torch.as_tensor(rng4.standard_normal(NB ** 3), device=dev)
+    g["ref_s"] = torch.as_tensor(spla.expm_multiply(TS * A_sell, bSnp),
+                                 device=dev)
+    g["ref_c"] = torch.as_tensor(spla.expm_multiply(
+        TS * A_scat, g["bC"].cpu().numpy()), device=dev)
+    g["w_stencil"] = et.expv(T3, et.laplacian_nd_stencil(NB, NB, NB,
+                                                         device=dev),
+                             g["bB"], m=20, two_pass=True)
+    torch.cuda.synchronize()
+    print(f"krylov-graphs-only inputs and references: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return g
+
+
+def replay_twin_checks(et, dev, g):
+    """B7, B8, B9 and B9 + B10 captured into a CUDA graph at the seventh
+    path's shapes: each of 4 replays reads the x it was captured with
+    (refilled between replays) and is held to the plain twin (KTOL)."""
+    import torch
+    from exponentialutilities_jl_torch.ops.kernels import sell as ts
+    from exponentialutilities_jl_torch.ops.kernels import spmv as tsp
+    from exponentialutilities_jl_torch.utils import graphs
+
+    opA, opP, opB3, opS, opSeg = (g[k] for k in ("opA", "opP", "opB3", "opS",
+                                                 "opSeg"))
+    twins = {
+        "config4 banded_spmv": (opA, lambda x: tsp.banded_spmv_ref(
+            opA.diags, opA.offsets, x)),
+        "config3 banded_spmv": (opP, lambda x: tsp.banded_spmv_ref(
+            opP.diags, opP.offsets, x)),
+        f"blockell {NB}^3 blockell_spmv": (
+            opB3, lambda x: tsp.blockell_spmv_ref(opB3.blocks, opB3.bcols,
+                                                  x)),
+        "sell n=1e6 sell_spmv": (opS, lambda x: ts.sell_spmv_ref(opS.data,
+                                                                 x)),
+        "seg n=1e6 sell_spmv + seg_compact": (
+            opSeg, lambda x: ts.sell_spmv_seg_ref(opSeg.data, x)),
+    }
+    gen = np.random.default_rng(SEED + 20)
+    for label, (op, twin) in twins.items():
+        n = op.shape[0]
+        x = torch.empty(n, dtype=torch.float64, device=dev)
+        y = torch.empty_like(x)
+
+        def step():
+            y.copy_(op.matvec(x))
+
+        worst = 0.0
+        with graphs.LoopRunner(f"replay twin {label}", dev) as runner:
+            for _ in range(4):
+                x.copy_(torch.as_tensor(gen.standard_normal(n), device=dev))
+                runner.repeat(0, "matvec", step, 1)
+                want = twin(x)
+                e = float((y - want).abs().max())
+                worst = max(worst, e)
+                check(e <= KTOL["float64"] * float(want.abs().max()),
+                      f"{label} in a graph replay vs its twin {e:.2e}")
+            check(len(runner.graphs) == 1, f"{label}: no graph captured")
+        print(f"check replay {label}: 3 graph replays and the warm-up vs "
+              f"the plain twin, max abs err {worst:.2e} (tol "
+              f"{KTOL['float64']:g} of the max)", flush=True)
+
+
+def krylov_graph_path(et, dev, card, g):
+    """The seventh path (the comment above): counts set to 0 just before
+    each cell and read just after. Returns (kernel executions of the path,
+    {cell: callable})."""
+    import collections
+    import math
+
+    import torch
+    from exponentialutilities_jl_torch.ops.kernels import _build
+    from exponentialutilities_jl_torch.utils import graphs
+
+    replay_twin_checks(et, dev, g)
+    opA, bA, opP, bP = g["opA"], g["bA"], g["opP"], g["bP"]
+    B4 = torch.stack([bA, 0.1 * bA], dim=1)
+    BB = torch.as_tensor(np.random.default_rng(SEED + 22).standard_normal(
+        (NBATCH3, NP * NP)), device=dev)
+    perm = g["perm"]
+
+    def rcm_back(wp):
+        w = torch.empty_like(wp)
+        w[perm] = wp
+        return w
+
+    def phi_identity(op, W, b, t):
+        return max(float((t * op.matvec(W[:, j + 1])
+                          - (W[:, j] - b / math.factorial(j))).norm()
+                         / W[:, j].norm()) for j in range(W.shape[1] - 1))
+
+    ref_e, ref_p = (torch.as_tensor(g[k], device=dev)
+                    for k in ("ref_e", "ref_p"))
+    ref_1 = torch.as_tensor(g["ref_1"], device=dev)
+    M4 = MA
+    # name: (call, the result compared graph vs eager, oracle checks
+    #        [(what, err, tol)], kernel executions implied, builder calls
+    #        with their step counts (None: from the stats))
+    cells = {
+        f"config4 expv m={M4}": (
+            lambda: et.expv(TA, opA, bA, m=M4), lambda r: r,
+            lambda r: [("vs the dense oracle", rel_norm(r, ref_e),
+                        MTOL_NONHERM)],
+            lambda r: {"banded_spmv": M4}, [M4]),
+        f"config4 phiv k=1 m={M4}": (
+            lambda: et.phiv(TA, opA, bA, 1, m=M4, errest=True),
+            lambda r: r[0],
+            lambda r: [("phi_0 b + t phi_1 (0.1 b) vs the dense oracle",
+                        rel_norm(r[0][:, 0] + TA * 0.1 * r[0][:, 1], ref_p),
+                        MTOL_NONHERM)],
+            lambda r: {"banded_spmv": M4}, [M4]),
+        f"config4 two-pass iop=2 m={M4}": (
+            lambda: et.expv(TA, opA, bA, m=M4, iop=2, two_pass=True),
+            lambda r: r,
+            lambda r: [("vs the dense oracle", rel_norm(r, ref_e),
+                        MTOL_NONHERM)],
+            lambda r: {"banded_spmv": 2 * M4}, [M4, M4]),
+        "config4 kiops": (
+            lambda: et.kiops([TA], opA, B4, tol=1e-7), lambda r: r[0],
+            lambda r: [("vs the dense oracle", rel_norm(r[0].reshape(-1),
+                                                        ref_p),
+                        MTOL_NONHERM)],
+            lambda r: {"banded_spmv": r[1].krylov_steps}, None),
+        "config4 phiv_timestep m=20": (
+            lambda: et.phiv_timestep([TA], opA, B4, adaptive=True, tol=1e-7,
+                                     m=20, return_stats=True),
+            lambda r: r[0],
+            lambda r: [("vs the dense oracle", rel_norm(r[0].reshape(-1),
+                                                        ref_p),
+                        MTOL_NONHERM)],
+            lambda r: {"banded_spmv": r[1].matvecs}, None),
+        "config3 phiv k=3 m=30": (
+            lambda: et.phiv(TP, opP, bP, K, m=30), lambda r: r,
+            lambda r: [("phi identities", phi_identity(opP, r, bP, TP),
+                        MTOL_PHI)],
+            lambda r: {"banded_spmv": 30}, [30]),
+        f"config3 expv_batched {NBATCH3} columns m=30": (
+            lambda: et.expv_batched(TP, opP, BB, m=30), lambda r: r,
+            lambda r: [("each column vs its scalar expv (bit for bit)",
+                        max(rel_norm(r[i], et.expv(TP, opP, BB[i], m=30))
+                            for i in range(NBATCH3)), 0.0)],
+            lambda r: {"banded_spmv": NBATCH3 * 30}, [30] * NBATCH3),
+        "config1 expv m=40": (
+            lambda: et.expv(1.0, g["A1c"], g["b1c"], m=40), lambda r: r,
+            lambda r: [("vs scipy expm(A) b", rel_norm(r, ref_1),
+                        MTOL_NONHERM)],
+            lambda r: {}, [40]),
+        "sell expv m=40": (
+            lambda: et.expv(TS, g["opS"], g["bS"], m=40), lambda r: r,
+            lambda r: [("vs scipy expm_multiply", rel_norm(rcm_back(r),
+                                                           g["ref_s"]),
+                        MTOL_SPARSE)],
+            lambda r: {"sell_spmv": 40}, [40]),
+        "scattered seg expv m=40": (
+            lambda: et.expv(TS, g["opSeg"], g["bC"], m=40), lambda r: r,
+            lambda r: [("vs scipy expm_multiply", rel_norm(r, g["ref_c"]),
+                        MTOL_SPARSE)],
+            lambda r: {"sell_spmv": 40, "seg_compact": 40}, [40]),
+        f"blockell {NB}^3 two-pass m=20": (
+            lambda: et.expv(T3, g["opB3"], g["bB"], m=20, two_pass=True),
+            lambda r: r,
+            lambda r: [("(B8) vs the stencil two-pass (B3)",
+                        rel_norm(r, g["w_stencil"]), MTOL_SPARSE)],
+            lambda r: {"blockell_spmv": 40}, [20, 20]),
+    }
+    total = collections.Counter()
+
+    def timed(fn, eager_form):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        if eager_form:
+            with graphs.eager():
+                fn()
+        else:
+            fn()
+        e.record()
+        e.synchronize()
+        return s.elapsed_time(e)
+
+    for name, (fn, arr, oracle, implied, steps) in cells.items():
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        graphs.reset_counts()
+        rg = fn()
+        torch.cuda.synchronize()
+        cnt = dict(graphs.counts)
+        host = {k: v for k, v in _build.launches.items() if v}
+        exe = {k: v for k, v in graphs.kernel_executions(
+            dict(_build.launches)).items() if v}
+        ex = dict(graphs.executions)
+        total.update(exe)
+        graphs.reset_counts()
+        with graphs.eager():
+            re_ = fn()
+        torch.cuda.synchronize()
+        ce = dict(graphs.counts)
+        check(not ce.get("captures") and not ce.get("replays"),
+              f"{name}: the eager run captured {ce}")
+        # the graph form's oracle, at the path's limit
+        for what, e, tol in oracle(rg):
+            check(e <= tol, f"{name} {what} {e:.2e}")
+            print(f"check krylov-graph {name}: {what} {e:.2e} (tol {tol:g})",
+                  flush=True)
+        # graph vs eager, and the same m_used / stats
+        wg, we = arr(rg), arr(re_)
+        e = rel_norm(wg.reshape(-1), we.reshape(-1))
+        check(bool(torch.isfinite(wg).all()) and e <= GRAPH_TOL,
+              f"{name}: graph vs eager {e:.2e}")
+        sg = rg[1] if isinstance(rg, tuple) else None
+        se = re_[1] if isinstance(re_, tuple) else None
+        if sg is not None and not torch.is_tensor(sg):
+            check(sg == se, f"{name}: graph stats {sg}, eager {se}")
+        # kernel executions from the matvecs; captures and replays from the
+        # builder calls: step 0 before the runner, then m >= 4 steps one
+        # eager step, one capture and m - 2 graph launches, m <= 3 eager
+        want = implied(rg)
+        check(exe == want, f"{name}: kernel executions {exe}, implied {want}")
+        nsteps = sum(ex.values())
+        if steps is None:
+            check(cnt.get("replays", 0) + cnt.get("eager_steps", 0) == nsteps
+                  and cnt.get("captures", 0) >= 1,
+                  f"{name}: {cnt}, {nsteps} builder steps")
+        else:
+            want_c = {"captures": sum(m_ >= 4 for m_ in steps),
+                      "replays": sum(m_ - 2 for m_ in steps if m_ >= 4),
+                      "eager_steps": sum(1 if m_ >= 4 else m_ - 1
+                                         for m_ in steps)}
+            check({k: cnt.get(k, 0) for k in want_c} == want_c,
+                  f"{name}: {cnt}, predicted {want_c}")
+        check(not cnt.get("blocking_reads") and not cnt.get("loops"),
+              f"{name}: a builder read the device {cnt}")
+        # wall ms of both forms in turns, after one warm-up each
+        timed(fn, False)
+        timed(fn, True)
+        tg, te = [], []
+        for _ in range(KG_REPS):
+            tg.append(timed(fn, False))
+            te.append(timed(fn, True))
+        ms_g, ms_e = statistics.median(tg), statistics.median(te)
+        print(f"krylov-graph {name}: {cnt.get('captures', 0)} captures, "
+              f"{cnt.get('replays', 0)} replays, {cnt.get('eager_steps', 0)} "
+              f"eager steps over {nsteps} builder steps in "
+              f"{len(ex)} (builder, m) keys; kernel executions {exe} "
+              f"(host launches {host}); graph vs eager {e:.2e} (tol "
+              f"{GRAPH_TOL:g})" + (f", stats {sg} equal" if sg is not None
+                                   and not torch.is_tensor(sg) else ""),
+              flush=True)
+        print(f"time krylov-graph {name}: graph {ms_g:.3f} ms, "
+              f"eager {ms_e:.3f} ms (CUDA events, median of "
+              f"{KG_REPS} in turns; the graph form's captures included) "
+              f"{card}", flush=True)
+    return dict(total), {name: c[0] for name, c in cells.items()}
+
+
+def krylov_graph_profile(calls, card):
+    """torch.profiler over one warm call of each seventh-path cell in each
+    form: wall (host clock, profiled), device busy (the union of the
+    device intervals), device ops, and the host's launch calls (runtime
+    and driver API events named *Launch*: kernel launches and graph
+    launches)."""
+    import collections
+    import contextlib
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof_
+    from exponentialutilities_jl_torch.utils import graphs
+
+    for name, fn in calls.items():
+        for form in ("graph", "eager"):
+            ctx = (graphs.eager() if form == "eager"
+                   else contextlib.nullcontext())
+            with ctx:
+                fn()
+                torch.cuda.synchronize()
+                with prof_(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+                    s = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - s) * 1e3
+            evs = prof.events()
+            dev_evs = [e for e in evs if e.device_type == DeviceType.CUDA]
+            busy, end = 0.0, -math.inf
+            for a, b in sorted((e.time_range.start, e.time_range.end)
+                               for e in dev_evs):
+                if b > end:
+                    busy += b - max(a, end)
+                    end = b
+            host = [e for e in evs if e.device_type == DeviceType.CPU]
+            launches = collections.Counter(e.name for e in host
+                                           if "Launch" in e.name)
+            mallocs = [e for e in host if e.name == "cudaMalloc"]
+            print(f"profile krylov-graph {name} {form}: wall {wall:.3f} ms "
+                  f"(host clock, profiled); device busy {busy / 1e3:.3f} ms "
+                  f"in {len(dev_evs)} device ops; host launch calls "
+                  f"{sum(launches.values())} {dict(launches)}; {len(mallocs)} "
+                  f"cudaMalloc calls, "
+                  f"{sum(e.cpu_time_total for e in mallocs) / 1e3:.3f} ms "
+                  f"{card}", flush=True)
+
+
+def krylov_graphs_only(et, dev, card, profile: bool) -> int:
+    """``--krylov-graphs-only``: the seventh path with its inputs and
+    references made here, then, with ``--profile``, torch.profiler over
+    its cells."""
+    g = krylov_graph_inputs(et, dev)
+    counts, calls = krylov_graph_path(et, dev, card, g)
+    print(f"kernel executions of the krylov graph path: "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    if profile:
+        krylov_graph_profile(calls, card)
+    return 0
+
+
 def graphs_only(et, dev, card, profile: bool) -> int:
     """``--graphs-only``: the sixth path with its references made here
     (config #4's dense oracle, the host etdrk4 and exprb43), then, with
@@ -2688,6 +3097,10 @@ def main() -> int:
                     help="run phases 1-2 and the sixth path alone (the "
                     "device loops from CUDA graphs, their references "
                     "computed on the spot); prints no result lines")
+    ap.add_argument("--krylov-graphs-only", action="store_true",
+                    help="run phases 1-2 and the seventh path alone (the "
+                    "Krylov builders from CUDA graphs, their references "
+                    "computed on the spot); prints no result lines")
     # one rank of the fourth path, started by this script itself
     ap.add_argument("--shard-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--shard-world", type=int, help=argparse.SUPPRESS)
@@ -2746,6 +3159,8 @@ def main() -> int:
     phase_done("2 build")
     if args.graphs_only:
         return graphs_only(et, dev, card, args.profile)
+    if args.krylov_graphs_only:
+        return krylov_graphs_only(et, dev, card, args.profile)
 
     rng = np.random.default_rng(SEED)
     rng2 = np.random.default_rng(SEED + 1)     # the inputs of B4-B6
@@ -3556,11 +3971,15 @@ def main() -> int:
     for name, fn in {**calls, **phi_calls, **sparse_calls, **var_calls,
                      **nh_calls}.items():
         before = dict(_build.launches)
+        adj = graphs.launch_adjustment()
         plan = nbr_plans.get(name)
         nbr_before = plan.nbr_launches if plan is not None else 0
         out[name] = fn()
         torch.cuda.synchronize()
-        delta = {k: v - before[k] for k, v in _build.launches.items() if v > before[k]}
+        # executions: the Krylov builders replay their CUDA graphs
+        delta = {k: v for k, v in graphs.kernel_executions(
+            {k: _build.launches[k] - before[k] for k in before},
+            since=adj).items() if v}
         if plan is not None:
             if isinstance(plan, tr.GridRecurrencePlan):
                 key = "resident_grid"
@@ -3684,10 +4103,12 @@ def main() -> int:
                   flush=True)
     fn4 = out["config4 make_phiv_timestep"]
     before = dict(_build.launches)
+    adj = graphs.launch_adjustment()
     out["config4 make_phiv_timestep fn(B)"] = fn4(B4)
     torch.cuda.synchronize()
-    delta = {k: v - before[k] for k, v in _build.launches.items()
-             if v > before[k]}
+    delta = {k: v for k, v in graphs.kernel_executions(
+        {k: _build.launches[k] - before[k] for k in before},
+        since=adj).items() if v}
     want = fn4.nsteps * (1 + fn4.m)
     check(delta == {"banded_spmv": want},
           f"make_phiv_timestep fn(B) launches {delta}, expected {want}")
@@ -3958,6 +4379,7 @@ def main() -> int:
         e = rel_norm(got, want_)
         check(e <= MTOL_DRIVER, f"{name} {e:.2e}")
         print(f"check {name}: {e:.2e} (tol {MTOL_DRIVER:g})", flush=True)
+    w_stencil = out[f"stencil {NB}^3 two-pass m=20"]
     del out, W, W30, U, base, half, W4, F2, aug, Ad, WP, refP, uk, un
 
     # pass 1 and the replay run the same second stage on the same moments:
@@ -3995,7 +4417,14 @@ def main() -> int:
         check(dense_counts[k] > 0, f"kernel {k} never launched on the "
               "dense and gradient path")
 
-    # the fourth path: the distributed layer, ranks sharing this card
+    # the fourth path: the distributed layer, ranks sharing this card. The
+    # builders' freed graph pools stay reserved by this process until an
+    # allocation fails: hand the cached blocks back before the ranks start
+    held_gib = torch.cuda.memory_reserved() / 2**30
+    torch.cuda.empty_cache()
+    print(f"device memory reserved by this process before the ranks: "
+          f"{held_gib:.2f} GiB, {torch.cuda.memory_reserved() / 2**30:.2f} "
+          "GiB after empty_cache", flush=True)
     shard_counts, shard_ms, shard_singles = sharded_path(et, dev, card)
     print(f"launches of the sharded path (every rank of every run): "
           f"{ {k: v for k, v in shard_counts.items() if v} }", flush=True)
@@ -4013,12 +4442,30 @@ def main() -> int:
               "GSPMD path")
 
     # the sixth path: the device-resident programs from CUDA graphs
+    t0 = time.perf_counter()
     graph_counts, graph_calls = graph_path(et, dev, card, bA, ref_p,
                                            host_refs)
+    print(f"graph path: {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"kernel executions of the graph path: "
           f"{ {k: v for k, v in graph_counts.items() if v} }", flush=True)
     check(graph_counts.get("banded_spmv", 0) > 0,
           "kernel banded_spmv never ran on the graph path")
+
+    # the seventh path: the Krylov builders from CUDA graphs
+    kg = {"opA": opA, "bA": bA, "ref_e": ref_e, "ref_p": ref_p,
+          "A1c": A1c, "b1c": b1c, "ref_1": E1 @ b1cnp, "opP": opP, "bP": bP,
+          "opS": opS, "perm": perm, "bS": bS, "opSeg": sc_ops["seg"],
+          "bC": bC, "opB3": opB3, "bB": bB, "ref_s": ref_s, "ref_c": ref_c,
+          "w_stencil": w_stencil}
+    t0 = time.perf_counter()
+    krylov_counts, krylov_calls = krylov_graph_path(et, dev, card, kg)
+    print(f"krylov graph path: {time.perf_counter() - t0:.1f} s", flush=True)
+    del kg, w_stencil
+    print(f"kernel executions of the krylov graph path: "
+          f"{ {k: v for k, v in krylov_counts.items() if v} }", flush=True)
+    for k in ("banded_spmv", "blockell_spmv", "sell_spmv", "seg_compact"):
+        check(krylov_counts.get(k, 0) > 0, f"kernel {k} never ran on the "
+              "krylov graph path")
 
     # the kernel-driving passes make no host syncs
     lo, hi = op3[f64].spectral_bounds_hint()
@@ -4174,6 +4621,7 @@ def main() -> int:
                 "grad config4 expv m=40": dense_calls[
                     "grad config4 expv m=40"]}.items():
             device_profile(name, fn)
+        krylov_graph_profile(krylov_calls, card)
         phase_done("5 profile")
         return 0
 
@@ -4724,8 +5172,14 @@ def main() -> int:
         k = tmain[name] = median_ms(fn)
         line = f"time main {name}: {k:.3f} ms"
         if name in plain_calls:
-            p = median_ms(plain_calls[name])
-            line += f", plain path {p:.3f} ms"
+            # kernel against plain twin with both loops eager (the SELL
+            # twin reads the device, so it cannot run from graphs): the
+            # ratio then counts kernel speed, not graph launch savings
+            with graphs.eager():
+                ke = median_ms(fn, reps=5, warmup=1)
+                p = median_ms(plain_calls[name], reps=5, warmup=1)
+            line += (f", under graphs.eager() {ke:.3f} ms, plain path "
+                     f"{p:.3f} ms (eager; medians of 5)")
         if name.endswith(" reduced=host"):
             line += (f", reduced=device {tmain[name[:-len(' reduced=host')]]:.3f}"
                      " ms")
@@ -4781,6 +5235,9 @@ def main() -> int:
             f"not measured (profiler saw {cnt} {kname} launches of 20)")
             + f" {card}", flush=True)
 
+    # the seventh path's device busy and host launch calls, profiled last
+    krylov_graph_profile(krylov_calls, card)
+
     phase_done("5 times")
     kernels = []
     for name in REPLACES:
@@ -4792,7 +5249,8 @@ def main() -> int:
                                      + dense_counts[name]
                                      + shard_counts[name]
                                      + gspmd_counts[name]
-                                     + graph_counts.get(name, 0)),
+                                     + graph_counts.get(name, 0)
+                                     + krylov_counts.get(name, 0)),
                         "max_abs_err": kerr[name], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by,

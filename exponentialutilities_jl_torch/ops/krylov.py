@@ -8,18 +8,58 @@ trailing basis rows and coefficients are zero and ``m_used`` /
 problem is exact without any data-dependent shapes (and without a host
 sync inside the loop).
 
-Arnoldi orthogonalizes by classical Gram-Schmidt with batched dots (one
-GEMV for the projections, CGS2 with ``reorth``), over the last ``iop``
-basis vectors (incomplete orthogonalization) or all of them (iop = 0).
-The step index is a Python int here, so each step reads only the rows of
-its window that already exist (the JAX loop masks a fixed-shape window);
-the basis and Hessenberg buffers are filled in place.
+Each builder is one step over state made before its loop (the JAX
+package's ``lax.fori_loop`` / ``lax.scan`` body). The step index j is an
+int64 device tensor (the index type of ``index_copy_``); the step reads
+and writes V, H, the recurrence records, the rolling window, ``broke``
+and ``m_used`` through device indices (``index_select``,
+``index_copy_``), every write masked by ``broke``. Arnoldi orthogonalizes
+by classical Gram-Schmidt with batched dots (one GEMV for the
+projections, CGS2 with ``reorth``) over a fixed-shape masked window, as
+JAX's step does: with iop = 0 against all m + 1 basis rows under the mask
+rows <= j, with iop > 0 against the ``win`` rows that end at j (a
+gather).
 
 ``lanczos_coeffs`` / ``lanczos_replay`` and ``arnoldi_coeffs`` /
 ``arnoldi_replay`` are the storage-free pairs: pass 1 records the
 recurrence (alpha, beta; or the compact Hessenberg of an IOP window)
 without keeping the basis, pass 2 regenerates each basis vector from the
-record and accumulates w = sum_j coeffs[j] v_j.
+record and accumulates w = sum_j coeffs[j] v_j. The IOP pair keeps its
+(win, n) window as a ring, v_j in slot j mod win; the compact Hessenberg
+keeps JAX's column order (oldest to newest, then h_{j+1, j}), and both
+passes subtract the projections in the ring's order, so pass 2 repeats
+pass 1's arithmetic.
+
+How the m steps run (``_run``). Step 0 runs first, on the caller's
+stream, with its writes rebinding the state to new tensors (no tensor
+that autograd saved is overwritten). The state it leaves decides the
+rest, from the data: where a state tensor requires grad, is wrapped by
+a ``torch.func`` transform or carries a forward-mode tangent (an
+operand, the operator's own tensors, a parameter that a matrix-free
+operator's function closes over), autograd must see every step, and
+steps 1 .. m - 1 rebind too, eagerly, on the caller's stream. Otherwise
+they write in place:
+
+* on a CUDA device, through a ``utils/graphs.LoopRunner`` of the call's
+  own: step 1 runs eagerly on the runner's side stream (the warm-up),
+  step 2 is captured into a CUDA graph and every later step replays it
+  (one capture and m - 2 graph launches for m >= 4, the captured
+  execution being the first of them; m <= 3 runs eagerly). The graph is
+  freed when the builder returns, its memory back in the pool that every
+  runner shares (``utils/graphs.py``). A capture that fails raises a
+  RuntimeError naming the builder and the operator class: a matvec must
+  not read the device (no ``.item()``, ``float()``, ``bool()`` of a CUDA
+  tensor, no tensor built from host data);
+* inline, with no runner, where ``graphs.inline`` says so: inside a
+  device driver's step (whose warm-up and capture then run the same
+  kernels) and on a capturing stream;
+* eagerly through a runner on the CPU, under ``graphs.eager()`` and for
+  a row-sharded operator (its collectives cannot be captured).
+
+The arithmetic is the same in every form. The step's bookkeeping (the
+step counter and j + 1 as one (2,) tensor, ``broke``, ``m_used``, the
+recurrence's last beta and vector) is written through the ops' ``out=``,
+one kernel a value.
 """
 
 from __future__ import annotations
@@ -27,7 +67,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
+from ..utils import graphs
 from ..utils.comm import dots, operator_comm, vdot, vector_norm
 from ..utils.precision import full_precision
 
@@ -82,34 +124,151 @@ def _safe_normalize(y, nrm):
     return y / torch.where(nrm > 0, nrm, 1.0)
 
 
-def _arnoldi_step(op, V, H, j: int, win: int, tol: float, reorth: bool,
-                  broke, m_used, comm=None):
-    """Arnoldi step j on the basis rows ``V`` and Hessenberg ``H`` (both
-    written in place): CGS (CGS2 with ``reorth``) against the window rows
-    max(0, j - win + 1) .. j. Returns (broke, m_used). With ``comm`` (a
-    ``parallel.MeshAxis``) V holds this rank's rows, and each CGS pass and
-    the norm cost one psum."""
-    rdt = _real_dtype(V.dtype)
-    lo = max(0, j - win + 1)
-    Vw, vj = V[lo:j + 1], V[j]
-    if V.requires_grad:
-        # the later steps write V in place: autograd must save copies
-        Vw, vj = Vw.clone(), vj.clone()
-    y = op.matvec(vj).to(V.dtype)
-    h = dots(Vw, y, comm)
-    y = y - h @ Vw
-    if reorth:
-        h2 = dots(Vw, y, comm)
-        y = y - h2 @ Vw
-        h = h + h2
-    nrm = vector_norm(y, comm).to(rdt)
-    now_broke = nrm < tol
-    active = ~broke
-    H[lo:j + 1, j] = torch.where(active, h, 0)
-    H[j + 1, j] = torch.where(active, nrm, 0).to(H.dtype)
-    V[j + 1] = torch.where(active & ~now_broke, _safe_normalize(y, nrm), 0.0)
-    m_used = torch.where(active, j + 1, m_used).to(torch.int32)
-    return broke | now_broke, m_used
+def _sees_grad(S) -> bool:
+    """Whether autograd or a ``torch.func`` transform must see the loop
+    (module doc): a state tensor requires grad, is wrapped by a transform
+    or carries a forward-mode tangent."""
+    return any(
+        isinstance(t, torch.Tensor)
+        and (t.requires_grad
+             or torch._C._functorch.is_functorch_wrapped_tensor(t)
+             or fwAD.unpack_dual(t).tangent is not None)
+        for t in vars(S).values())
+
+
+class _State:
+    """A builder's loop state: tensors made before the loop, read by the
+    step as attributes, and ``jj`` = (j, j + 1), the step counter. ``set``,
+    ``put`` (an ``index_copy`` along ``dim``), ``put_at`` (an
+    ``index_put``) and ``apply`` (the result of an op with ``out=``) write
+    in place (what a CUDA graph replays), or with ``rebind`` (module doc)
+    rebind the name to the new tensor."""
+
+    def __init__(self, device, start: int = 0, **tensors):
+        self.__dict__.update(tensors)
+        self.jj = torch.arange(start, start + 2, device=device)
+        self.zero = torch.zeros((), device=device)     # where's 0 for out=
+        self.rebind = True
+
+    def set(self, name, value):
+        old = getattr(self, name)
+        if self.rebind:
+            setattr(self, name, value.to(old.dtype))
+        else:
+            old.copy_(value)
+
+    def put(self, name, dim: int, index, value):
+        old = getattr(self, name)
+        value = value.to(old.dtype)
+        if self.rebind:
+            setattr(self, name, old.index_copy(dim, index, value))
+        else:
+            old.index_copy_(dim, index, value)
+
+    def put_at(self, name, indices, value):
+        old = getattr(self, name)
+        value = value.to(old.dtype)
+        if self.rebind:
+            setattr(self, name, old.index_put(indices, value))
+        else:
+            old.index_put_(indices, value)
+
+    def apply(self, name, fn, *args):
+        """name <- fn(*args), an elementwise op of name's shape."""
+        old = getattr(self, name)
+        if self.rebind:
+            setattr(self, name, fn(*args).to(old.dtype))
+        else:
+            fn(*args, out=old)
+
+    def step_on(self):
+        """j <- j + 1 (the step's last write)."""
+        self.apply("jj", torch.add, self.jj, 1)
+
+
+def _run(what: str, op, S: _State, step, m: int, device):
+    """Run ``step`` m times (module doc): step 0 rebinding, then the rest
+    as its state says, inline, or through a runner of the call's own that
+    captures and replays it where it can."""
+    if m <= 0:
+        return
+    S.rebind = True
+    step()
+    S.rebind = _sees_grad(S)
+    if S.rebind or graphs.inline(device):
+        for _ in range(m - 1):
+            step()
+        return
+    if m == 1:
+        return
+    with graphs.LoopRunner(f"{what} ({type(op).__name__})", device,
+                           sharded=operator_comm(op) is not None) as runner:
+        runner.repeat(m, "step", step, m - 1, last=True)
+
+
+def _window_rows(m: int, win: int, device):
+    """(m, win): the basis rows of step j's IOP window, clip(j - win + 1,
+    0, m + 1 - win) + arange(win) (unused when win >= m)."""
+    j = torch.arange(m, device=device)[:, None]
+    return (torch.clamp(j - win + 1, 0, max(m + 1 - win, 0))
+            + torch.arange(min(win, m + 1), device=device))
+
+
+def _arnoldi_step(op, S: _State, m: int, win: int, tol: float,
+                  reorth: bool, comm=None):
+    """The Arnoldi step (JAX's ``_arnoldi_step_fn``) on the state S (V,
+    H, broke, m_used, rows, wins: ``_window_rows``): CGS (CGS2 with
+    ``reorth``) against the masked window, then column j of H and row
+    j + 1 of V. With
+    ``comm`` (a ``parallel.MeshAxis``) V holds this rank's rows, and each
+    CGS pass and the norm cost one psum."""
+
+    def step():
+        V = S.V
+        jv, j1v = S.jj[:1], S.jj[1:]
+        j, j1 = jv[0], j1v[0]
+        dt = V.dtype
+        rdt = _real_dtype(dt)
+        y = op.matvec(V.index_select(0, jv)[0]).to(dt)
+        if win < m:
+            # true IOP: the win rows ending at j (JAX's dynamic slice at
+            # clip(j - win + 1, 0, m + 1 - win)), a gather (O(win n))
+            idx = S.wins.index_select(0, jv)[0]
+            Vw = V.index_select(0, idx)
+            wmask = idx <= j
+            hw = torch.where(wmask, dots(Vw, y, comm), 0)
+            y = y - hw @ Vw
+            if reorth:
+                hw2 = torch.where(wmask, dots(Vw, y, comm), 0)
+                y = y - hw2 @ Vw
+                hw = hw + hw2
+        else:
+            # JAX's mask also asks rows > j - win, which every row meets
+            # when win >= m
+            mask = S.rows <= j
+            h = torch.where(mask, dots(V, y, comm), 0)
+            y = y - h @ V
+            if reorth:
+                h2 = torch.where(mask, dots(V, y, comm), 0)
+                y = y - h2 @ V
+                h = h + h2
+        nrm = vector_norm(y, comm).to(rdt)
+        active = ~S.broke
+        if win < m:
+            # column j is zero but for the window and row j + 1, which is
+            # written last (JAX writes the whole column from such an h)
+            S.put_at("H", (idx, j.expand(win)), torch.where(active, hw, 0))
+            S.put_at("H", (j1v, jv), torch.where(active, nrm, 0).reshape(1))
+        else:
+            h = torch.where(S.rows == j1, nrm.to(dt), h)
+            S.put("H", 1, jv, torch.where(active, h, 0)[:, None])
+        S.apply("broke", torch.logical_or, S.broke, nrm < tol)
+        S.put("V", 0, j1v, torch.where(
+            S.broke, 0.0, _safe_normalize(y, nrm))[None])
+        S.apply("m_used", torch.where, active, j1, S.m_used)
+        S.step_on()
+
+    return step
 
 
 @full_precision
@@ -129,20 +288,22 @@ def arnoldi(op, b, m: int, *, iop: int = 0, tol: float = 1e-7,
     pass and each norm then costs one psum. Every builder below reads the
     axis from its operator the same way."""
     comm = operator_comm(op)
-    n = b.shape[0]
+    n, dev = b.shape[0], b.device
     beta, v0 = _start(b, comm)
-    V = torch.zeros((m + 1, n), dtype=b.dtype, device=b.device)
+    V = torch.zeros((m + 1, n), dtype=b.dtype, device=dev)
     V[0] = v0
-    H = torch.zeros((m + 1, m), dtype=b.dtype, device=b.device)
     win = m if iop == 0 else iop
-    broke = beta == 0
-    m_used = torch.zeros((), dtype=torch.int32, device=b.device)
-    for j in range(m):
-        broke, m_used = _arnoldi_step(op, V, H, j, win, tol, reorth, broke,
-                                      m_used, comm)
-    m_used = torch.where(beta == 0, 0, m_used).to(torch.int32)
-    return KrylovBasis(V=V, H=H, beta=beta, m_used=m_used, breakdown=broke,
-                       hermitian=False)
+    S = _State(dev, V=V,
+               H=torch.zeros((m + 1, m), dtype=b.dtype, device=dev),
+               broke=beta == 0,
+               m_used=torch.zeros((), dtype=torch.int64, device=dev),
+               rows=torch.arange(m + 1, device=dev),
+               wins=_window_rows(m, win, dev))
+    _run("arnoldi", op, S, _arnoldi_step(op, S, m, win, tol, reorth, comm),
+         m, dev)
+    m_used = torch.where(beta == 0, 0, S.m_used).to(torch.int32)
+    return KrylovBasis(V=S.V, H=S.H, beta=beta, m_used=m_used,
+                       breakdown=S.broke, hermitian=False)
 
 
 @full_precision
@@ -150,7 +311,8 @@ def arnoldi_extend(op, Ks: KrylovBasis, m_new: int, *, iop: int = 0,
                    tol: float = 1e-7, reorth: bool = True) -> KrylovBasis:
     """Extend an Arnoldi factorization from m to ``m_new`` without
     repeating the first m matvecs: the kept rows and entries are copied
-    into the larger buffers and the iteration continues from step m."""
+    into the larger buffers and the iteration continues from step m (the
+    step counter starts at m)."""
     comm = operator_comm(op)
     m_old = Ks.m
     if m_new <= m_old:
@@ -158,17 +320,36 @@ def arnoldi_extend(op, Ks: KrylovBasis, m_new: int, *, iop: int = 0,
     if Ks.hermitian:
         raise ValueError("arnoldi_extend requires an Arnoldi (non-Lanczos) "
                          "basis")
-    V = torch.zeros((m_new + 1, Ks.n), dtype=Ks.V.dtype, device=Ks.V.device)
+    dev = Ks.V.device
+    V = torch.zeros((m_new + 1, Ks.n), dtype=Ks.V.dtype, device=dev)
     V[:m_old + 1] = Ks.V
-    H = torch.zeros((m_new + 1, m_new), dtype=Ks.H.dtype, device=Ks.H.device)
+    H = torch.zeros((m_new + 1, m_new), dtype=Ks.H.dtype, device=dev)
     H[:m_old + 1, :m_old] = Ks.H
     win = m_new if iop == 0 else iop
-    broke, m_used = Ks.breakdown, Ks.m_used
-    for j in range(m_old, m_new):
-        broke, m_used = _arnoldi_step(op, V, H, j, win, tol, reorth, broke,
-                                      m_used, comm)
-    return KrylovBasis(V=V, H=H, beta=Ks.beta, m_used=m_used, breakdown=broke,
+    S = _State(dev, m_old, V=V, H=H,
+               broke=Ks.breakdown.clone(),
+               m_used=Ks.m_used.to(torch.int64, copy=True),
+               rows=torch.arange(m_new + 1, device=dev),
+               wins=_window_rows(m_new, win, dev))
+    _run("arnoldi_extend", op, S,
+         _arnoldi_step(op, S, m_new, win, tol, reorth, comm),
+         m_new - m_old, dev)
+    return KrylovBasis(V=S.V, H=S.H, beta=Ks.beta,
+                       m_used=S.m_used.to(torch.int32), breakdown=S.broke,
                        hermitian=False)
+
+
+def _lanczos_state(b, comm, **tensors):
+    """(beta0, the state of a Lanczos recurrence: vp, vc, bprev, broke,
+    m_used and ``tensors``)."""
+    rdt = _real_dtype(b.dtype)
+    beta0, v0 = _start(b, comm)
+    S = _State(b.device, vp=torch.zeros_like(v0), vc=v0,
+               bprev=torch.zeros((), dtype=rdt, device=b.device),
+               broke=beta0 == 0,
+               m_used=torch.zeros((), dtype=torch.int64, device=b.device),
+               **tensors)
+    return beta0, S
 
 
 @full_precision
@@ -176,53 +357,63 @@ def lanczos(op, b, m: int, *, tol: float = 1e-7,
             full_reorth: bool = False) -> KrylovBasis:
     """Hermitian Lanczos three-term recurrence. H is real (alpha on the
     diagonal, beta on the sub- and superdiagonal). ``full_reorth=True``
-    re-orthogonalizes each step against the whole basis (one GEMV).
-    A sharded ``op`` (``arnoldi``): a psum for alpha and one for the norm
-    per step, one more with ``full_reorth``."""
+    re-orthogonalizes each step against the whole basis (one GEMV under
+    the mask rows <= j). A sharded ``op`` (``arnoldi``): a psum for alpha
+    and one for the norm per step, one more with ``full_reorth``."""
     comm = operator_comm(op)
-    n = b.shape[0]
-    dt = b.dtype
+    n, dt, dev = b.shape[0], b.dtype, b.device
     rdt = _real_dtype(dt)
-    beta0, v0 = _start(b, comm)
-    V = torch.zeros((m + 1, n), dtype=dt, device=b.device)
-    V[0] = v0
-    alphas = torch.zeros(m, dtype=rdt, device=b.device)
-    betas = torch.zeros(m, dtype=rdt, device=b.device)
-    rows = torch.arange(m + 1, device=b.device)
-    vp, vc = torch.zeros_like(v0), v0
-    bprev = torch.zeros((), dtype=rdt, device=b.device)
-    broke = beta0 == 0
-    m_used = torch.zeros((), dtype=torch.int32, device=b.device)
-    for j in range(m):
+    V = torch.zeros((m + 1, n), dtype=dt, device=dev)
+    beta0, S = _lanczos_state(
+        b, comm, V=V,
+        alphas=torch.zeros(m, dtype=rdt, device=dev),
+        betas=torch.zeros(m, dtype=rdt, device=dev),
+        rows=torch.arange(m + 1, device=dev))
+    V[0] = S.vc
+    _run("lanczos", op, S, _lanczos_step(op, S, tol, comm, full_reorth),
+         m, dev)
+    m_used = torch.where(beta0 == 0, 0, S.m_used).to(torch.int32)
+
+    H = torch.zeros((m + 1, m), dtype=rdt, device=dev)
+    di = torch.arange(m, device=dev)
+    H[di, di] = S.alphas
+    H[di + 1, di] = S.betas
+    if m >= 2:
+        H[di[:-1], di[:-1] + 1] = S.betas[:-1]
+    return KrylovBasis(V=S.V, H=H, beta=beta0, m_used=m_used,
+                       breakdown=S.broke, hermitian=True)
+
+
+def _lanczos_step(op, S: _State, tol: float, comm, full_reorth=None):
+    """The Lanczos step on S (``_lanczos_state``): alpha_j and beta_j
+    recorded, v_{j+1} into ``vc`` (and row j + 1 of V where S keeps the
+    basis: ``full_reorth`` not None)."""
+
+    def step():
+        vp, vc = S.vp, S.vc
+        jv, j1v = S.jj[:1], S.jj[1:]
+        rdt = S.bprev.dtype
         y = op.matvec(vc)
         alpha = vdot(vc, y, comm).real.to(rdt)
         y = y - alpha * vc
-        y = y - bprev * vp
+        y = y - S.bprev * vp
         if full_reorth:
-            h2 = torch.where(rows <= j, dots(V, y, comm), 0)
-            y = y - h2 @ V
+            h2 = torch.where(S.rows <= jv[0], dots(S.V, y, comm), 0)
+            y = y - h2 @ S.V
         nrm = vector_norm(y, comm).to(rdt)
-        now_broke = nrm < tol
-        active = ~broke
-        beta = torch.where(active, nrm, 0.0)
-        alphas[j] = torch.where(active, alpha, 0.0)
-        betas[j] = beta
-        vnext = torch.where(active & ~now_broke, _safe_normalize(y, nrm), 0.0)
-        V[j + 1] = vnext
-        m_used = torch.where(active, j + 1, m_used).to(torch.int32)
-        # beta, not the view betas[j]: the next step writes betas in place,
-        # which would void the view that autograd saved
-        vp, vc, bprev, broke = vc, vnext, beta, broke | now_broke
-    m_used = torch.where(beta0 == 0, 0, m_used).to(torch.int32)
+        active = ~S.broke
+        S.put("alphas", 0, jv, torch.where(active, alpha, 0.0).reshape(1))
+        S.apply("bprev", torch.where, active, nrm, S.zero)
+        S.put("betas", 0, jv, S.bprev.reshape(1))
+        S.apply("broke", torch.logical_or, S.broke, nrm < tol)
+        S.set("vp", vc)
+        S.apply("vc", torch.where, S.broke, S.zero, _safe_normalize(y, nrm))
+        if full_reorth is not None:
+            S.put("V", 0, j1v, S.vc[None])
+        S.apply("m_used", torch.where, active, j1v[0], S.m_used)
+        S.step_on()
 
-    H = torch.zeros((m + 1, m), dtype=rdt, device=b.device)
-    di = torch.arange(m, device=b.device)
-    H[di, di] = alphas
-    H[di + 1, di] = betas
-    if m >= 2:
-        H[di[:-1], di[:-1] + 1] = betas[:-1]
-    return KrylovBasis(V=V, H=H, beta=beta0, m_used=m_used, breakdown=broke,
-                       hermitian=True)
+    return step
 
 
 @full_precision
@@ -231,109 +422,119 @@ def lanczos_coeffs(op, b, m: int, *, tol: float = 1e-7):
     breakdown) without keeping the basis. A sharded ``op``: as in
     ``lanczos``."""
     comm = operator_comm(op)
-    dt = b.dtype
-    rdt = _real_dtype(dt)
-    beta0, v0 = _start(b, comm)
-    vp, vc = torch.zeros_like(v0), v0
-    bprev = torch.zeros((), dtype=rdt, device=b.device)
-    broke = beta0 == 0
-    m_used = torch.zeros((), dtype=torch.int32, device=b.device)
-    alphas, betas = [], []
-    for j in range(m):
-        y = op.matvec(vc)
-        alpha = vdot(vc, y, comm).real.to(rdt)
-        y = y - alpha * vc - bprev * vp
-        nrm = vector_norm(y, comm).to(rdt)
-        now_broke = nrm < tol
-        active = ~broke
-        vnext = torch.where(active & ~now_broke, _safe_normalize(y, nrm), 0.0)
-        m_used = torch.where(active, j + 1, m_used).to(torch.int32)
-        alphas.append(torch.where(active, alpha, 0.0))
-        betas.append(torch.where(active, nrm, 0.0))
-        vp, vc, bprev, broke = vc, vnext, betas[-1], broke | now_broke
-    m_used = torch.where(beta0 == 0, 0, m_used).to(torch.int32)
-    empty = torch.zeros(0, dtype=rdt, device=b.device)
-    return (torch.stack(alphas) if m else empty,
-            torch.stack(betas) if m else empty, beta0, m_used, broke)
+    dev = b.device
+    rdt = _real_dtype(b.dtype)
+    beta0, S = _lanczos_state(
+        b, comm, alphas=torch.zeros(m, dtype=rdt, device=dev),
+        betas=torch.zeros(m, dtype=rdt, device=dev))
+    _run("lanczos_coeffs", op, S, _lanczos_step(op, S, tol, comm), m, dev)
+    m_used = torch.where(beta0 == 0, 0, S.m_used).to(torch.int32)
+    return S.alphas, S.betas, beta0, m_used, S.broke
+
+
+def _term(v, cj, cdt):
+    """cj v: (n,) with a scalar cj, (n, p) with a (p,) row."""
+    if cj.ndim == 0:
+        return cj * v.to(cdt)
+    return v.to(cdt)[:, None] * cj[None, :]
 
 
 @full_precision
 def lanczos_replay(op, b, coeffs, alphas, betas, m: int):
     """Pass 2 of storage-free Lanczos: w = sum_j coeffs[j] v_j, each v_j
     regenerated from the recorded (alpha, beta) by the same recurrence as
-    pass 1. ``coeffs`` (m,) gives w (n,); (m, p) gives w (n, p).
+    pass 1, with coeffs[j], alphas[j] and betas[j - 1] read through the
+    step counter. ``coeffs`` (m,) gives w (n,); (m, p) gives w (n, p).
     A sharded ``op``: one psum, the norm of b."""
     comm = operator_comm(op)
-    dt = b.dtype
+    dt, dev = b.dtype, b.device
     rdt = _real_dtype(dt)
     _, v0 = _start(b, comm)
     # the common type of the basis and the coefficients: a complex b
     # with real coefficients keeps its imaginary part
     cdt = torch.promote_types(coeffs.dtype, dt)
     coeffs = coeffs.to(cdt)
-    vp, vc = torch.zeros_like(v0), v0
-    if coeffs.ndim == 1:
-        w = torch.zeros(v0.shape, dtype=cdt, device=b.device)
-    else:
-        w = torch.zeros(v0.shape + coeffs.shape[1:], dtype=cdt,
-                        device=b.device)
-    for j in range(m):
-        if coeffs.ndim == 1:
-            w = w + coeffs[j] * vc.to(cdt)
-        else:
-            w = w + vc.to(cdt)[:, None] * coeffs[j][None, :]
+    # beta_{j-1}, 0 at j = 0
+    bprevs = torch.cat([torch.zeros_like(betas[:1]), betas[:-1]])
+    S = _State(dev, vp=torch.zeros_like(v0), vc=v0,
+               w=torch.zeros(v0.shape + coeffs.shape[1:], dtype=cdt,
+                             device=dev))
+
+    def step():
+        vp, vc = S.vp, S.vc
+        jv = S.jj[:1]
+        S.apply("w", torch.add, S.w,
+                _term(vc, coeffs.index_select(0, jv)[0], cdt))
         y = op.matvec(vc)
-        y = y - alphas[j].to(rdt) * vc
-        if j >= 1:
-            y = y - betas[j - 1].to(rdt) * vp
-        vnext = torch.where(betas[j] > 0, _safe_normalize(y, betas[j]), 0.0)
-        vp, vc = vc, vnext
-    return w
+        y = y - alphas.index_select(0, jv)[0].to(rdt) * vc
+        y = y - bprevs.index_select(0, jv)[0].to(rdt) * vp
+        bj = betas.index_select(0, jv)[0]
+        S.set("vp", vc)
+        S.apply("vc", torch.where, bj > 0, _safe_normalize(y, bj), S.zero)
+        S.step_on()
+
+    _run("lanczos_replay", op, S, step, m, dev)
+    return S.w
 
 
-def _window_rows(W, j: int):
-    """The rows of the rolling window that hold basis vectors at step j
-    (the oldest win - j - 1 rows are still the zero start rows)."""
-    win = W.shape[0]
-    return W[win - min(j + 1, win):]
+def _ring_tables(m: int, win: int, device):
+    """The IOP ring's index tables (module doc): ``ring`` (m + 2,), the slot
+    j mod win of v_j; per step j (m, win): ``valid`` whether slot s holds a
+    basis vector (j - ((j - s) mod win) >= 0), ``oldest`` the slots from the
+    oldest window vector to the newest ((j + 1 + k) mod win), and
+    ``cols`` the compact column of each slot (win - 1 - ((j - s) mod
+    win))."""
+    j = torch.arange(m, device=device)[:, None]
+    s = torch.arange(win, device=device)
+    back = torch.remainder(j - s, win)
+    return dict(ring=torch.remainder(torch.arange(m + 2, device=device), win),
+                valid=back <= j, oldest=torch.remainder(j + 1 + s, win),
+                cols=(win - 1) - back)
 
 
 @full_precision
 def arnoldi_coeffs(op, b, m: int, win: int, *, tol: float = 1e-7):
     """Pass 1 of storage-free IOP Arnoldi: the compact Hessenberg without
     the basis. The IOP recurrence only reads the last ``win`` basis
-    vectors, so the loop keeps a (win, n) rolling window.
+    vectors, so the loop keeps a (win, n) ring (module doc).
 
     Returns (Hc, beta0, m_used, breakdown) with Hc (m, win+1) compact
     columns: Hc[j, :win] the projections onto the window rows (oldest to
     newest) and Hc[j, win] = h_{j+1, j}. A sharded ``op``: as in
     ``arnoldi``."""
     comm = operator_comm(op)
-    n = b.shape[0]
-    dt = b.dtype
+    n, dt, dev = b.shape[0], b.dtype, b.device
     rdt = _real_dtype(dt)
     beta0, v0 = _start(b, comm)
-    W = torch.zeros((win, n), dtype=dt, device=b.device)
-    W[-1] = v0
-    Hc = torch.zeros((m, win + 1), dtype=dt, device=b.device)
-    broke = beta0 == 0
-    m_used = torch.zeros((), dtype=torch.int32, device=b.device)
-    for j in range(m):
-        Wv = _window_rows(W, j)
-        y = op.matvec(W[-1]).to(dt)
-        h = dots(Wv, y, comm)
-        y = y - h @ Wv
+    W = torch.zeros((win, n), dtype=dt, device=dev)
+    W[0] = v0
+    S = _State(dev, W=W,
+               Hc=torch.zeros((m, win + 1), dtype=dt, device=dev),
+               broke=beta0 == 0,
+               m_used=torch.zeros((), dtype=torch.int64, device=dev),
+               **_ring_tables(m, win, dev))
+
+    def step():
+        W = S.W
+        jv, j1 = S.jj[:1], S.jj[1]
+        slot = S.ring.index_select(0, S.jj)     # the slots of v_j, v_{j+1}
+        y = op.matvec(W.index_select(0, slot[:1])[0]).to(dt)
+        h = torch.where(S.valid.index_select(0, jv)[0], dots(W, y, comm), 0)
+        y = y - h @ W
         nrm = vector_norm(y, comm).to(rdt)
-        now_broke = nrm < tol
-        active = ~broke
-        vnext = torch.where(active & ~now_broke, _safe_normalize(y, nrm), 0.0)
-        Hc[j, win - Wv.shape[0]:win] = torch.where(active, h, 0)
-        Hc[j, win] = torch.where(active, nrm, 0).to(dt)
-        W = torch.cat([W[1:], vnext[None]])
-        m_used = torch.where(active, j + 1, m_used).to(torch.int32)
-        broke = broke | now_broke
-    m_used = torch.where(beta0 == 0, 0, m_used).to(torch.int32)
-    return Hc, beta0, m_used, broke
+        active = ~S.broke
+        hc = torch.cat([h.index_select(0, S.oldest.index_select(0, jv)[0]),
+                        nrm.to(dt).reshape(1)])
+        S.put("Hc", 0, jv, torch.where(active, hc, 0)[None])
+        S.apply("broke", torch.logical_or, S.broke, nrm < tol)
+        S.put("W", 0, slot[1:], torch.where(
+            S.broke, 0.0, _safe_normalize(y, nrm))[None])
+        S.apply("m_used", torch.where, active, j1, S.m_used)
+        S.step_on()
+
+    _run("arnoldi_coeffs", op, S, step, m, dev)
+    m_used = torch.where(beta0 == 0, 0, S.m_used).to(torch.int32)
+    return S.Hc, beta0, m_used, S.broke
 
 
 def expand_compact_hessenberg(Hc, win: int):
@@ -351,35 +552,43 @@ def expand_compact_hessenberg(Hc, win: int):
 def arnoldi_replay(op, b, coeffs, Hc, m: int, win: int, *, final_coeff=None,
                    with_final: bool = False):
     """Pass 2: w = sum_j coeffs[j] v_j, regenerating the IOP basis from the
-    recorded compact Hessenberg by the same recurrence as pass 1. coeffs
-    (m,) or (m, p). With ``with_final=True``, ``final_coeff`` also weights
-    the (m+1)-th vector v_m. A sharded ``op``: one psum, the norm of b."""
+    recorded compact Hessenberg by the same recurrence as pass 1 (coeffs[j]
+    and Hc[j] read through the step counter). coeffs (m,) or (m, p). With
+    ``with_final=True``, ``final_coeff`` also weights the (m+1)-th vector
+    v_m. A sharded ``op``: one psum, the norm of b."""
     comm = operator_comm(op)
-    n = b.shape[0]
-    dt = b.dtype
+    n, dt, dev = b.shape[0], b.dtype, b.device
     rdt = _real_dtype(dt)
     _, v0 = _start(b, comm)
-    W = torch.zeros((win, n), dtype=dt, device=b.device)
-    W[-1] = v0
+    W = torch.zeros((win, n), dtype=dt, device=dev)
+    W[0] = v0
     cdt = torch.promote_types(coeffs.dtype, dt)
     coeffs = coeffs.to(cdt)
+    S = _State(dev, W=W,
+               w=torch.zeros((n,) + tuple(coeffs.shape[1:]), dtype=cdt,
+                             device=dev),
+               **_ring_tables(m, win, dev))
 
-    def accum(w, vc, cj):
-        if coeffs.ndim == 1:
-            return w + cj * vc.to(cdt)
-        return w + vc.to(cdt)[:, None] * cj[None, :]
+    def step():
+        W = S.W
+        jv = S.jj[:1]
+        slot = S.ring.index_select(0, S.jj)
+        vc = W.index_select(0, slot[:1])[0]
+        S.apply("w", torch.add, S.w,
+                _term(vc, coeffs.index_select(0, jv)[0], cdt))
+        y = op.matvec(vc).to(dt)
+        hrow = Hc.index_select(0, jv)[0]
+        # the projections in the ring's order
+        h = hrow.index_select(0, S.cols.index_select(0, jv)[0])
+        y = y - h.to(dt) @ W
+        nrm = hrow[win].real.to(rdt)
+        S.put("W", 0, slot[1:],
+              torch.where(nrm > 0, _safe_normalize(y, nrm), 0.0)[None])
+        S.step_on()
 
-    w = torch.zeros((n,) + tuple(coeffs.shape[1:]), dtype=cdt,
-                    device=b.device)
-    for j in range(m):
-        w = accum(w, W[-1], coeffs[j])
-        Wv = _window_rows(W, j)
-        y = op.matvec(W[-1]).to(dt)
-        y = y - Hc[j, win - Wv.shape[0]:win] @ Wv
-        nrm = Hc[j, win].real.to(rdt)
-        vnext = torch.where(nrm > 0, _safe_normalize(y, nrm), 0.0)
-        W = torch.cat([W[1:], vnext[None]])
+    _run("arnoldi_replay", op, S, step, m, dev)
+    w = S.w
     if with_final:
-        w = accum(w, W[-1], torch.as_tensor(final_coeff, dtype=cdt,
-                                             device=b.device))
+        w = w + _term(S.W[m % win], torch.as_tensor(
+            final_coeff, dtype=cdt, device=dev), cdt)
     return w

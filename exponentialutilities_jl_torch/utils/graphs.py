@@ -12,7 +12,18 @@ choose the next step and to see the loop end.
 
 ``LoopRunner.loop`` runs one loop at one key (a Krylov bucket; the steps
 of one key share their shapes), ``LoopRunner.repeat`` runs one step a
-fixed number of times (a fixed-step scan) with no read at all.
+fixed number of times (a fixed-step scan) with no read at all. With
+``last=True`` those are the step's last executions in the runner (a
+Krylov builder's m steps, ``ops/krylov.py``): a step that would not run
+again after its captured execution (a count of 2 or less) runs eagerly
+instead of being captured.
+
+Nested loops. A loop that a step runs (a builder inside a device
+driver's step) runs inline, in the enclosing step, with no runner of its
+own: ``inline`` says when, which is while any runner executes a step (its
+warm-up, its capture or an eager run) and while the current CUDA stream
+is capturing (a caller's own graph). The enclosing step's warm-up and
+its capture then run the same kernels, and its counts stay its own.
 
 On a CUDA device each step of a key is run once eagerly on the runner's
 side stream (its warm-up: the kernel library is built, launch plans are
@@ -24,9 +35,18 @@ run once is never captured). A capture that fails raises a RuntimeError
 naming the step; there is no eager fallback. A step must therefore not
 read the device (``.item()``, ``.tolist()``, ``float()``, ``int()`` or
 ``bool()`` of a device tensor, ``torch.nonzero``, boolean indexing) nor
-build a tensor from host data. The graphs and their memory pools belong to the runner,
-which lives for one driver call (``with LoopRunner(...)``): they are freed
-when it closes.
+build a tensor from host data. The graphs belong to the runner, which
+lives for one driver call (``with LoopRunner(...)``): they are freed when
+it closes. Every runner of a device uses one side stream and captures
+into one memory pool (``_shared``): graphs run one after another on that
+stream, and a step's temporaries live within its execution, so a capture
+reuses what earlier graphs freed. Graphs alive at once (the buckets of
+one loop, a runner opened while another one lives) may therefore be
+replayed in any order: none leaves a live tensor in the pool, since the
+state is made before the loop, outside it. (A pool of its own per runner would be
+handed back only when an allocation fails outside a capture: the
+builders' thousands of graphs filled the card that way, and an
+allocation inside a capture cannot free cached memory.)
 
 Read cadence. After every execution the flags are copied without
 blocking into pinned host memory and an event is recorded; the host waits
@@ -37,12 +57,14 @@ masked execution more. The read that ends a loop is counted as a blocking
 read (after it the device has at most that masked execution left); the
 others as flag reads.
 
-Eager runs. On the CPU (the tests' device path), inside ``eager()``, and
-for an operator sharded over a communicator (its collectives run on
-gloo, which a graph cannot capture) the same steps run eagerly with the
-same cadence, on the caller's stream. A sharded loop reads its flags
-after every step (each read a blocking one), so that it runs no step past
-its end: its collective counts are those of the host loops.
+Eager runs. On the CPU (the tests' device path), inside ``eager()`` and
+for an operator sharded over a communicator (its collectives run on gloo,
+which a graph cannot capture) the same steps run eagerly with the same
+cadence, on the caller's stream. (Steps that autograd or a ``torch.func``
+transform must see open no runner: ``ops/krylov.py`` runs them itself.) A sharded loop
+reads its flags after every step (each read a blocking one), so that it
+runs no step past its end: its collective counts are those of the host
+loops.
 
 ``counts`` tallies, per process, what the runners did (``captures``,
 ``replays``, ``eager_steps``, ``loops``, ``blocking_reads``,
@@ -63,9 +85,9 @@ import contextlib
 
 import torch
 
-__all__ = ["LoopRunner", "eager", "masked_copy", "counts", "executions",
-           "step_launches", "reset_counts", "launch_adjustment",
-           "kernel_executions"]
+__all__ = ["LoopRunner", "eager", "inline", "masked_copy", "counts",
+           "executions", "step_launches", "reset_counts",
+           "launch_adjustment", "kernel_executions"]
 
 counts = collections.Counter()
 executions = collections.Counter()
@@ -75,6 +97,8 @@ step_launches = {}
 _captured = collections.Counter()
 _replayed = collections.Counter()
 _eager_only = [False]
+_in_step = [0]          # runner steps executing now (module doc: nesting)
+_shared = {}            # CUDA device -> (side stream, pool id, anchor graph)
 
 
 def reset_counts():
@@ -113,6 +137,54 @@ def eager():
         _eager_only[0] = prev
 
 
+def inline(device) -> bool:
+    """A loop on ``device`` started now runs inline (module doc: a
+    runner's step is executing, or the current CUDA stream is
+    capturing)."""
+    if _in_step[0]:
+        return True
+    return (torch.device(device).type == "cuda"
+            and torch.cuda.is_current_stream_capturing())
+
+
+def _device_key(device):
+    if device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _side(device):
+    """(side stream, graph memory pool id) of every runner on ``device``
+    (module doc). The pool lives as long as one graph captured into it
+    does (in the device and the pinned host allocator alike): a one-node
+    anchor graph, made here and never freed, keeps it for the process. A
+    capture that fails leaves its pool recording (the allocator's end of a
+    capture never runs), so ``_capture`` drops the pair and the next
+    runner makes a new one."""
+    device = _device_key(device)
+    got = _shared.get(device)
+    if got is None:
+        with torch.cuda.device(device):
+            stream = torch.cuda.Stream(device)
+            pool = torch.cuda.graph_pool_handle()
+            anchor = torch.cuda.CUDAGraph()
+            stream.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(stream):
+                anchor.capture_begin(pool=pool)
+                torch.zeros(1, device=device)
+                anchor.capture_end()
+        got = _shared[device] = (stream, pool, anchor)
+    return got[:2]
+
+
+def _run_step(fn):
+    _in_step[0] += 1
+    try:
+        fn()
+    finally:
+        _in_step[0] -= 1
+
+
 def masked_copy(dst, mask, val):
     """dst <- val where ``mask`` (a bool tensor broadcast against dst), in
     place: the write of a loop step, a no-op where the mask is off."""
@@ -126,7 +198,8 @@ def _launch_counts():
 
 class LoopRunner:
     """Runs the steps of one driver call (module doc). ``what`` names the
-    driver in errors; ``sharded``: the operator carries a communicator."""
+    driver in errors; ``sharded``: the operator carries a communicator
+    (its steps run eagerly, each followed by a read)."""
 
     def __init__(self, what: str, device, *, sharded: bool = False):
         self.what = what
@@ -134,7 +207,8 @@ class LoopRunner:
         self.graphed = (self.device.type == "cuda" and not sharded
                         and not _eager_only[0])
         self.lag = 0 if sharded else 1
-        self.stream = torch.cuda.Stream(self.device) if self.graphed else None
+        self.stream, self.pool = (_side(self.device) if self.graphed
+                                  else (None, None))
         self.graphs = {}
         self.launches = {}
         self.warm = set()
@@ -146,8 +220,8 @@ class LoopRunner:
         self.close()
 
     def close(self):
-        """Free the graphs and their pools (a graph still running is
-        destroyed when it completes)."""
+        """Free the graphs (a graph still running is destroyed when it
+        completes); their memory goes back to the shared pool."""
         for g in self.graphs.values():
             g.reset()
         self.graphs.clear()
@@ -176,9 +250,9 @@ class LoopRunner:
         before = _launch_counts()
         g = torch.cuda.CUDAGraph()
         err = None
-        g.capture_begin()
+        g.capture_begin(pool=self.pool)
         try:
-            fn()
+            _run_step(fn)
         except Exception as e:          # noqa: BLE001 - re-raised below
             err = e
         try:
@@ -186,14 +260,16 @@ class LoopRunner:
         except Exception as e:          # noqa: BLE001 - re-raised below
             err = err or e
         if err is not None:
+            _shared.pop(_device_key(self.device), None)
             raise RuntimeError(
                 f"{self.what}: capturing its {name!r} step into a CUDA "
                 f"graph failed ({type(err).__name__}: {err}). A step must "
                 "not read the device (.item(), .tolist(), float(), int() "
                 "or bool() of a CUDA tensor, torch.nonzero, boolean "
                 "indexing) nor build a tensor from host data; a user "
-                "function called inside the step (f, N) must follow the "
-                "same rule") from err
+                "function called inside the step (f, N, a matvec) must "
+                "follow the same rule, or run the call under "
+                "exponentialutilities_jl_torch.utils.graphs.eager()") from err
         after = _launch_counts()
         inside = {k: after[k] - before.get(k, 0) for k in after
                   if after[k] != before.get(k, 0)}
@@ -203,7 +279,7 @@ class LoopRunner:
         counts["captures"] += 1
         return g
 
-    def _execute(self, key, name, fn):
+    def _execute(self, key, name, fn, capture: bool = True):
         executions[(self.what, key, name)] += 1
         g = self.graphs.get((key, name)) if self.graphed else None
         if g is not None:
@@ -211,13 +287,13 @@ class LoopRunner:
             counts["replays"] += 1
             _replayed.update(self.launches[(key, name)])
             return
-        if self.graphed and (key, name) in self.warm:
+        if self.graphed and capture and (key, name) in self.warm:
             self.graphs[(key, name)] = self._capture(key, name, fn)
             self._execute(key, name, fn)
             executions[(self.what, key, name)] -= 1
             return
         before = _launch_counts()
-        fn()
+        _run_step(fn)
         counts["eager_steps"] += 1
         if (key, name) not in self.warm:
             after = _launch_counts()
@@ -266,8 +342,11 @@ class LoopRunner:
                 if name is None:
                     return host
 
-    def repeat(self, key, name: str, fn, count: int):
-        """Execute the step ``fn`` ``count`` times with no read."""
+    def repeat(self, key, name: str, fn, count: int, *, last: bool = False):
+        """Execute the step ``fn`` ``count`` times with no read. ``last``:
+        these are its last executions in this runner, so it is captured
+        only where at least one execution follows the captured one."""
         with self._on_stream():
-            for _ in range(count):
-                self._execute(key, name, fn)
+            for i in range(count):
+                self._execute(key, name, fn,
+                              capture=not last or count - i >= 2)

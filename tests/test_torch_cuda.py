@@ -7,6 +7,7 @@ conftest imports JAX, which a GPU machine need not have).
 Tolerances, relative to the output's max-norm: 1e-5 in float32 (sum order
 and FMA contraction differ from the twin) and 1e-12 in float64."""
 
+import contextlib
 import itertools
 
 import numpy as np
@@ -36,6 +37,20 @@ def _close(got, want, dt):
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
     assert err <= RTOL[dt] * max(scale, 1e-300), (err, scale)
+
+
+def _reset_counts():
+    from exponentialutilities_jl_torch.utils import graphs
+    _build.reset_launch_counts()
+    graphs.reset_counts()
+
+
+def _executions():
+    """Kernel executions since ``_reset_counts``: the Krylov builders run
+    from CUDA graphs, so host launches less the captured ones plus the
+    captured ones times their replays (``utils/graphs.py``)."""
+    from exponentialutilities_jl_torch.utils import graphs
+    return graphs.kernel_executions(dict(_build.launches))
 
 
 def _vec(n, dt, dev, seed):
@@ -218,10 +233,10 @@ def test_var_and_arnoldi_paths_dispatch_to_kernels(dev):
     assert float((w1 - w2).norm() / w1.norm()) < 1e-10
     adv = et.advection_diffusion_1d(500, device=dev)
     x = _vec(500, torch.float64, dev, 24)
-    _build.reset_launch_counts()
+    _reset_counts()
     w3 = et.expv(1e-5, adv, x, m=30)
     w4 = et.expv(1e-5, adv, x, m=30, iop=2, two_pass=True)
-    assert dict(_build.launches)["banded_spmv"] == 90
+    assert _executions()["banded_spmv"] == 90
     assert bool(torch.isfinite(w3).all()) and bool(torch.isfinite(w4).all())
 
 
@@ -582,10 +597,11 @@ def test_sell_path_dispatches_to_kernels(dev):
     for mode in (None, "seg", "sorted"):
         op = et.SellOperator.from_scipy(A, dtype=np.float64, mode=mode,
                                         is_hermitian=True, device=dev)
-        _build.reset_launch_counts()
+        _reset_counts()
         ws[mode] = et.expv(0.5, op, b, m=30)
-        assert _build.launches["sell_spmv"] == 30
-        assert _build.launches["seg_compact"] == (30 if mode == "seg" else 0)
+        ex = _executions()
+        assert ex["sell_spmv"] == 30
+        assert ex["seg_compact"] == (30 if mode == "seg" else 0)
     for mode in ("seg", "sorted"):
         assert float((ws[mode] - ws[None]).norm() / ws[None].norm()) < 1e-12
 
@@ -1243,7 +1259,7 @@ def test_drivers_on_the_card_match_the_cpu(dev, driver):
     for where in (dev, "cpu"):
         op = et.advection_diffusion_1d(n, peclet=10.0, device=where)
         Bt = torch.as_tensor(B, device=where)
-        _build.reset_launch_counts()
+        _reset_counts()
         if driver == "kiops":
             runs[str(where)] = et.kiops([t / 2, t], op, Bt, tol=1e-7)
         else:
@@ -1251,7 +1267,7 @@ def test_drivers_on_the_card_match_the_cpu(dev, driver):
                                                 adaptive=True, tol=1e-7,
                                                 m=20, return_stats=True)
         if where == dev:
-            launches = _build.launches["banded_spmv"]
+            launches = _executions()["banded_spmv"]
     (wg, sg), (wc, sc) = runs[str(dev)], runs["cpu"]
     assert (sg.steps, sg.rejections) == (sc.steps, sc.rejections)
     if driver == "kiops":
@@ -1987,3 +2003,327 @@ def test_b7_in_a_graph_vs_twin(dev, dt):
     assert graphs.counts["captures"] == 1 and graphs.counts["replays"] == 3
     assert graphs.kernel_executions({"banded_spmv": 2}) == \
         {"banded_spmv": 4}
+
+
+# ---- the Krylov builders from CUDA graphs (ops/krylov.py) ----------------
+
+def _builder_calls(op, b, m, win=2):
+    """Each of the seven builders on (op, b) at m steps: name -> call."""
+    from exponentialutilities_jl_torch.utils import graphs
+
+    c = torch.linspace(1.0, 0.1, m, dtype=b.dtype, device=b.device)
+    C = torch.stack([c, c.flip(0)], 1)
+    with graphs.eager():
+        rec = et.lanczos_coeffs(op, b, m)
+        Hc = et.arnoldi_coeffs(op, b, m, win)[0]
+        K2 = et.arnoldi(op, b, 2)
+    return {
+        "arnoldi": lambda: et.arnoldi(op, b, m),
+        "arnoldi_extend": lambda: et.arnoldi_extend(op, K2, m + 2),
+        "lanczos": lambda: et.lanczos(op, b, m, full_reorth=True),
+        "lanczos_coeffs": lambda: et.lanczos_coeffs(op, b, m),
+        "lanczos_replay": lambda: et.lanczos_replay(op, b, C, rec[0], rec[1],
+                                                    m),
+        "arnoldi_coeffs": lambda: et.arnoldi_coeffs(op, b, m, win),
+        "arnoldi_replay": lambda: et.arnoldi_replay(
+            op, b, c, Hc, m, win, final_coeff=0.5, with_final=True),
+    }
+
+
+def _flat(res):
+    """The tensors of a builder's result, flattened to one float64 vector
+    (m_used and breakdown kept apart)."""
+    if isinstance(res, et.KrylovBasis):
+        return (torch.cat([res.V.reshape(-1), res.H.reshape(-1),
+                           res.beta.reshape(-1)]),
+                (int(res.m_used), bool(res.breakdown)))
+    if isinstance(res, tuple):
+        fl = [t for t in res if t.is_floating_point()]
+        rest = tuple(int(t) if t.dtype == torch.int32 else bool(t)
+                     for t in res if not t.is_floating_point())
+        return torch.cat([t.reshape(-1) for t in fl]), rest
+    return res.reshape(-1), ()
+
+
+@pytest.mark.parametrize("name", ["arnoldi", "arnoldi_extend", "lanczos",
+                                  "lanczos_coeffs", "lanczos_replay",
+                                  "arnoldi_coeffs", "arnoldi_replay"])
+def test_builder_graph_vs_eager(dev, name, monkeypatch):
+    """Each builder from its CUDA graph equals its steps run eagerly
+    (graphs.eager()) to 1e-14 with equal m_used and breakdown: step 0
+    before the runner, then one eager step, one capture and m - 2 graph
+    launches (the captured execution is the first of them), B7 executed
+    once a step, and the runner's graph freed when the call returns."""
+    from exponentialutilities_jl_torch.utils import graphs
+
+    m = 30
+    op = et.advection_diffusion_1d(3001, peclet=10.0, device=dev)
+    b = _vec(3001, torch.float64, dev, 60)
+    call = _builder_calls(op, b, m)[name]
+    steps = m                   # arnoldi_extend: from 2 to m + 2
+    runners = []
+    init = graphs.LoopRunner.__init__
+
+    def record(self, *a, **k):
+        init(self, *a, **k)
+        runners.append(self)
+
+    monkeypatch.setattr(graphs.LoopRunner, "__init__", record)
+    _reset_counts()
+    got = call()
+    torch.cuda.synchronize()
+    cg, ex = dict(graphs.counts), _executions()
+    assert cg == {"eager_steps": 1, "captures": 1, "replays": steps - 2}, cg
+    assert ex["banded_spmv"] == steps, ex
+    assert len(runners) == 1 and runners[0].graphed
+    assert not runners[0].graphs            # freed by the call's return
+    _reset_counts()
+    with graphs.eager():
+        want = call()
+    assert dict(graphs.counts) == {"eager_steps": steps - 1}
+    gv, gr = _flat(got)
+    wv, wr = _flat(want)
+    assert gr == wr
+    err = float((gv - wv).norm() / wv.norm())
+    assert err <= 1e-14, err
+
+
+def test_builder_small_m_runs_eagerly(dev):
+    """m <= 3: the runner gets m - 1 <= 2 steps (step 0 runs before it), so
+    no graph would run after the captured execution, and none is
+    captured."""
+    from exponentialutilities_jl_torch.utils import graphs
+
+    op = et.advection_diffusion_1d(501, device=dev)
+    b = _vec(501, torch.float64, dev, 61)
+    for m in (1, 2, 3):
+        _reset_counts()
+        et.arnoldi(op, b, m)
+        et.lanczos_coeffs(op, b, m)
+        assert dict(graphs.counts) == ({"eager_steps": 2 * (m - 1)}
+                                       if m > 1 else {}), m
+    _reset_counts()
+    et.arnoldi(op, b, 4)
+    assert dict(graphs.counts) == {"eager_steps": 1, "captures": 1,
+                                   "replays": 2}
+
+
+@pytest.mark.parametrize("kind", ["blockell", "sell", "seg"])
+def test_b8_b9_b10_in_builder_replays_vs_twin(dev, kind):
+    """B8, B9 and B9 + B10 inside the replays of lanczos_coeffs and
+    lanczos_replay: the two-pass record and result equal the same calls on
+    the CPU (the plain twins) to 1e-12, and the eager form on the card
+    to 1e-14; each kernel executed m times a pass."""
+    import scipy.sparse as sp
+    from exponentialutilities_jl_torch.utils import graphs
+
+    n, m = 4096, 16
+    if kind == "blockell":
+        A = sp.kron(sp.random(n // 8, n // 8, density=4 / n, random_state=62)
+                    + sp.identity(n // 8), np.ones((8, 8)), format="csr")
+        A = 0.5 * (A + A.T)
+        make = lambda d: et.blockell_from_scipy(A, 8, dtype=np.float64,
+                                                is_hermitian=True, device=d)
+        keys = {"blockell_spmv": 2 * m}
+    else:
+        rows, cols, vals = _banded_random(n, 6, 300, 63)
+        A = sp.coo_matrix((vals, (rows, cols)), shape=(n, n))
+        A = (0.5 * (A + A.T)).tocoo()
+        mode = "seg" if kind == "seg" else None
+        make = lambda d: et.SellOperator.from_scipy(
+            A, dtype=np.float64, mode=mode, is_hermitian=True, device=d)
+        keys = {"sell_spmv": 2 * m}
+        if kind == "seg":
+            keys["seg_compact"] = 2 * m
+    op, cpu = make(dev), make("cpu")
+    bnp = np.random.default_rng(64).standard_normal(n)
+    b = torch.as_tensor(bnp, device=dev)
+
+    def two_pass(o, v):
+        a, bt, b0, mu, br = et.lanczos_coeffs(o, v, m)
+        c = torch.linspace(1.0, 0.2, m, dtype=v.dtype, device=v.device)
+        return a, bt, et.lanczos_replay(o, v, c, a, bt, m)
+
+    _reset_counts()
+    got = two_pass(op, b)
+    torch.cuda.synchronize()
+    ex = {k: v for k, v in _executions().items() if v}
+    assert ex == keys, ex
+    assert graphs.counts["captures"] == 2
+    want = two_pass(cpu, torch.as_tensor(bnp))
+    for g, w in zip(got, want):
+        _close(g.cpu(), w, torch.float64)
+    with graphs.eager():
+        eag = two_pass(op, b)
+    for g, w in zip(got, eag):
+        assert float((g - w).norm() / w.norm()) <= 1e-14
+
+
+class _ReadingOperator(et.LinearOperator):
+    """A matvec that reads the device: it cannot be captured."""
+
+    def __init__(self, op):
+        self.op = op
+        self.is_hermitian = True
+
+    @property
+    def shape(self):
+        return self.op.shape
+
+    @property
+    def dtype(self):
+        return self.op.dtype
+
+    @property
+    def device(self):
+        return self.op.device
+
+    def matvec(self, x):
+        return self.op.matvec(x) * float(x.abs().max().item() > -1.0)
+
+
+def test_builder_capture_of_a_reading_matvec_raises(dev):
+    """The capture fails and raises, naming the builder and the operator
+    class; nothing falls back to the eager loop, and the card works on."""
+    from exponentialutilities_jl_torch.utils import graphs
+
+    op = _ReadingOperator(et.laplacian_nd_stencil(300, device=dev))
+    b = _vec(300, torch.float64, dev, 65)
+    _reset_counts()
+    with pytest.raises(RuntimeError,
+                       match=r"lanczos_coeffs \(_ReadingOperator\)"):
+        et.lanczos_coeffs(op, b, 8)
+    assert graphs.counts["eager_steps"] == 1        # the warm-up only
+    torch.cuda.synchronize()
+    with graphs.eager():
+        a = et.lanczos_coeffs(op, b, 8)[0]
+    assert bool(torch.isfinite(a).all())
+
+
+def test_etdrk4_device_bitwise_with_the_builder_inline(dev):
+    """Inside etdrk4_device's step the builder runs inline (no runner, no
+    executions of its own), and the graph run equals the eager steps bit
+    for bit."""
+    from exponentialutilities_jl_torch.utils import graphs
+
+    call = _graph_cells(dev)["etdrk4_device"]
+    graphs.reset_counts()
+    wg, _ = call()
+    torch.cuda.synchronize()
+    drivers = {w for (w, _, _) in graphs.executions}
+    assert len(drivers) == 1 and drivers.pop().startswith("etdrk4_device")
+    with graphs.eager():
+        we, _ = call()
+    assert torch.equal(wg, we)
+
+
+def test_builder_requires_grad_makes_no_capture(dev):
+    """A start vector that requires grad: step 0's state shows it, so the
+    steps run eagerly on the caller's stream (no runner, no capture) and
+    backward runs through B7's rule."""
+    from exponentialutilities_jl_torch.utils import graphs
+
+    op = et.advection_diffusion_1d(1001, peclet=10.0, device=dev)
+    b = _vec(1001, torch.float64, dev, 66).requires_grad_()
+    _reset_counts()
+    K = et.arnoldi(op, b, 12, iop=2)
+    assert not graphs.counts
+    (g,) = torch.autograd.grad(K.V.sum(), b)
+    assert bool(torch.isfinite(g).all())
+    with torch.no_grad():
+        K2 = et.arnoldi(op, b.detach(), 12, iop=2)
+    assert float((K.V.detach() - K2.V).norm() / K2.V.norm()) <= 1e-14
+
+
+def test_builder_graphs_reuse_one_memory_pool(dev):
+    """Every runner captures into one memory pool on one side stream: a
+    hundred builder calls after the first few reserve no more device
+    memory (a pool of its own per call stayed reserved until an
+    allocation failed, and inside a capture none can be freed)."""
+    op = et.advection_diffusion_1d(100_000, peclet=10.0, device=dev)
+    b = _vec(100_000, torch.float64, dev, 67)
+    for _ in range(3):
+        et.lanczos_coeffs(op, b, 8)
+        et.arnoldi(op, b, 6, iop=2)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_reserved()
+    for _ in range(100):
+        et.lanczos_coeffs(op, b, 8)
+        et.arnoldi(op, b, 6, iop=2)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_reserved() == held
+
+
+@pytest.mark.parametrize("two_pass", [False, True])
+def test_builder_grad_through_a_parameter_in_a_closure(dev, two_pass):
+    """A matrix-free operator whose function closes over a parameter p
+    (x -> p B7(x)): no tensor the builders are given requires grad, but
+    step 0's state does, so no runner opens and backward reaches p. expv
+    and the two-pass expv, value and d/dp, against the same calls on the
+    CPU to 1e-12, and d/dp against sum(t A exp(t p A) b) from the value."""
+    from exponentialutilities_jl_torch.utils import graphs
+
+    n, t, p0 = 501, 1e-5, 0.9
+    ws, gs = {}, {}
+    for where in (dev, "cpu"):
+        ban = et.advection_diffusion_1d(n, peclet=0.0 if two_pass else 10.0,
+                                        device=where)
+        p = torch.tensor(p0, dtype=torch.float64, device=where,
+                         requires_grad=True)
+        op = et.MatrixFreeOperator(lambda x, ban=ban, p=p: p * ban.matvec(x),
+                                   (n, n), is_hermitian=two_pass,
+                                   device=where)
+        b = _vec(n, torch.float64, where, 68)
+        _reset_counts()
+        w = et.expv(t, op, b, m=30, two_pass=two_pass)
+        if where == dev:
+            assert not graphs.counts
+            assert _executions()["banded_spmv"] == (60 if two_pass else 30)
+        (g,) = torch.autograd.grad(w.sum(), p)
+        ws[str(where)], gs[str(where)] = w.detach().cpu(), float(g)
+        want = float(t * ban.matvec(w.detach()).sum())
+        assert abs(float(g) - want) <= 1e-8 * abs(want), (float(g), want)
+    _close(ws[str(dev)], ws["cpu"], torch.float64)
+    assert abs(gs[str(dev)] - gs["cpu"]) <= 1e-12 * abs(gs["cpu"])
+
+
+def test_live_runner_graphs_interleave_with_another_capture(dev):
+    """Two runners alive at once share one memory pool: runner a's graph,
+    replayed after runner b captured into the pool (and between b's
+    replays), still computes a's step, and b's computes b's; both equal
+    the same steps run eagerly, bit for bit. Each step makes temporaries
+    that a later capture may reuse."""
+    from exponentialutilities_jl_torch.utils import graphs
+
+    def make(n, seed):
+        x = _vec(n, torch.float64, dev, seed)
+
+        def step_a():
+            x.copy_(torch.sin(x + 1.0) * 2.0 + x.roll(1) * 0.5)
+
+        def step_b():
+            x.copy_(torch.cos(x) + x.sum() * 1e-3 + x.flip(0) * 0.25)
+
+        return x, step_a, step_b
+
+    def run(eager_form):
+        xa, step_a, _ = make(4096, 69)
+        xb, _, step_b = make(1000, 70)
+        ctx = graphs.eager() if eager_form else contextlib.nullcontext()
+        with ctx, graphs.LoopRunner("a", dev) as ra:
+            ra.repeat(0, "a", step_a, 3)            # warm-up, capture
+            with graphs.LoopRunner("b", dev) as rb:
+                rb.repeat(0, "b", step_b, 3)
+                for _ in range(5):
+                    ra.repeat(0, "a", step_a, 1)
+                    rb.repeat(0, "b", step_b, 2)
+            ra.repeat(0, "a", step_a, 2)
+        torch.cuda.synchronize()
+        return xa.clone(), xb.clone()
+
+    graphs.reset_counts()
+    ga, gb = run(False)
+    assert graphs.counts["captures"] == 2
+    assert graphs.counts["replays"] == 2 + 5 + 2 + 2 + 10
+    ea, eb = run(True)
+    assert torch.equal(ga, ea) and torch.equal(gb, eb)
