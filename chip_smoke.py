@@ -7,6 +7,9 @@
                                      (phases 1-2 and the sixth path)
     python3 chip_smoke.py --krylov-graphs-only [--profile]
                                      (phases 1-2 and the seventh path)
+    python3 chip_smoke.py --serving-only [--profile]
+                                     (phases 1-2, R1's checks, the eighth
+                                     path and R1's times)
 
 The main paths are exp(tA)b and the phi-function actions
 [phi_0(tA)b ... phi_3(tA)b] at BASELINE.json's sizes: for Hermitian
@@ -63,7 +66,10 @@ its seconds:
               fourth path's extended slabs; B7 on the GSPMD route's
               halo-extended slabs (configs #3 and #4, every rank of P =
               4) against LocalBandedOperator's plain matvec, and B8 on a
-              rank's block rows with the whole x (a rectangular product)
+              rank's block rows with the whole x (a rectangular product);
+              R1 (the port's own kernel, the Hermitian reduced
+              exponential) against its eigh twin in float32 and float64
+              (tridiag_checks: m = 1 to 250, a breakdown, complex t, s)
   4. main     the public entry points (expv_chebyshev, expv with and
               without two_pass, phiv with and without two_pass,
               phiv_chebyshev, phiv_timestep_chebyshev) with launch counts
@@ -162,8 +168,15 @@ its seconds:
               replays (after step 0, one capture and m - 2 graph
               launches a builder call of m >= 4) and kernel executions
               held, both forms'
-              CUDA-event medians of 5 printed; the whole script profiles
-              its cells at the end of phase 5. The builders run from
+              CUDA-event medians of 5 printed; then an eighth, the
+              serving closures and the error-estimate loop
+              (serving_path: make_expv / make_phiv on configs #1, #3,
+              #4 and SELL n = 1e6, calls 1-12 each with 1 capture and 10
+              replays, no sync in a replayed call, bit-equal to the
+              eager closure and held to the cell's oracle; the
+              error-estimate loop with the CPU's iteration count); the
+              whole script profiles its cells at the end of phase 5.
+              The builders run from
               graphs on every path but the sharded ones, so a kernel's
               count is its executions (captured launches times replays),
               not its host launches
@@ -410,6 +423,10 @@ REPLACES = {
     "blockell_spmv": "exponentialutilities_jl_tpu/ops/kernels/spmv.py:42",
     "sell_spmv": "exponentialutilities_jl_tpu/ops/kernels/sell.py:645",
     "seg_compact": "exponentialutilities_jl_tpu/ops/kernels/sell.py:1391",
+    # R1 replaces no Pallas kernel: it is the port's own kernel for the
+    # eigh formula that XLA compiles there (the Hermitian reduced
+    # exponential, _exp_reduced_e1)
+    "tridiag_exp": "exponentialutilities_jl_tpu/models/expv.py:72",
 }
 SOURCES = {
     "resident_recurrence": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_family.cu",
@@ -423,6 +440,7 @@ SOURCES = {
     "blockell_spmv": "exponentialutilities_jl_torch/ops/kernels/csrc/spmv.cu",
     "sell_spmv": "exponentialutilities_jl_torch/ops/kernels/csrc/sell.cu",
     "seg_compact": "exponentialutilities_jl_torch/ops/kernels/csrc/sell.cu",
+    "tridiag_exp": "exponentialutilities_jl_torch/ops/kernels/csrc/tridiag.cu",
 }
 
 
@@ -1074,8 +1092,10 @@ def dense_grad_path(et, dev, card, A1np, op1, opP, opS):
     })
     expect = {
         "expv_batched config2": {"resident_lanczos": NBATCH2,
-                                 "resident_recurrence": NBATCH2},
-        "expv_batched config3": {"banded_spmv": NBATCH3 * 30},
+                                 "resident_recurrence": NBATCH2,
+                                 "tridiag_exp": NBATCH2},
+        "expv_batched config3": {"banded_spmv": NBATCH3 * 30,
+                                 "tridiag_exp": NBATCH3},
         "grad config4 expv m=40": {"banded_spmv": 40 + 40},
         "grad sell x": {"sell_spmv": 2},
     }
@@ -1418,7 +1438,8 @@ def shard_cells(et, ins, boundsV):
     qF, mF = (lambda s: (s[4], s[5]))(tfb._faber_expv_setup(
         opF, tF, None, 1e-7, MF, 512.0))
     dL, _, _, _, qL = tl._leja_expv_setup(opL, TL, None, 1e-7, None, 40.0)
-    tp = {"fused_sweep": 42, "sweep_stage": 84}
+    # R1: the reduced exponential between the passes, on every rank
+    tp = {"fused_sweep": 42, "sweep_stage": 84, "tridiag_exp": 1}
     cp = {"psum": 44, "ppermute": 44}
 
     def step_call(mesh, b):
@@ -1454,14 +1475,14 @@ def shard_cells(et, ins, boundsV):
         "config2 expv m=40": (
             lambda: et.expv(T1, op1, ins["b1"], m=40),
             lambda mesh, b: par.expv_sharded(T1, op1, b, mesh, m=40),
-            "b1", {}, {"psum": 81, "ppermute": 40}),
+            "b1", {"tridiag_exp": 1}, {"psum": 81, "ppermute": 40}),
         f"config3 phiv k={K} m=30": (
             lambda: et.phiv(TP, opP, ins["bP"], K, m=30, errest=True),
             lambda mesh, b: par.phiv_sharded(TP, opP, b, K, mesh, m=30),
             "bP", {}, {"psum": 61, "ppermute": 30}),
         "config3 make_expv_step m=30": (
             lambda: et.expv(TP, opP, ins["bP"], m=30), step_call,
-            "bP", {}, {"psum": 61, "ppermute": 30}),
+            "bP", {"tridiag_exp": 1}, {"psum": 61, "ppermute": 30}),
         f"leja n={NL}": (
             lambda: et.expv_leja(TL, opL, ins["bL"], fused=False),
             lambda mesh, b: par.expv_leja_sharded(TL, opL, b, mesh),
@@ -1562,7 +1583,7 @@ def shard_rank_main(args) -> int:
         a, bt, b0, mu, _ = sf.lanczos_coeffs_fused_sharded(plan, b3l, 20)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    co = tx._lanczos_reduced_coeffs(a, bt, b0, T3)     # eigh: one sync
+    co = tx._lanczos_reduced_coeffs(a, bt, b0, T3)     # R1, no read
     torch.cuda.synchronize()
     if sync:
         torch.cuda.set_sync_debug_mode("error")
@@ -2099,9 +2120,12 @@ def gspmd_cells(et):
         return len(tc._full_exp_coeffs(t, *op.spectral_bounds_hint(), tol,
                                        None)[0])
 
-    b7 = "banded_spmv"
+    b7, r1 = "banded_spmv", "tridiag_exp"
     return {
-        "config3 expv m=30": (expv_P, lambda r, o: {b7: 30}, "fixed"),
+        # Hermitian Krylov cells: one R1 (tridiag_exp) for the reduced
+        # exponential on every rank
+        "config3 expv m=30": (expv_P, lambda r, o: {b7: 30, r1: 1},
+                              "fixed"),
         "config3 kiops p=3": (
             kiops_P, lambda r, o: {b7: r["stats"]["krylov_steps"]},
             "adaptive"),
@@ -2118,9 +2142,10 @@ def gspmd_cells(et):
         "config4 exprb43_device": (
             exprb_A, lambda r, o: {b7: r["f"]["plain"] + 2 * r["f"]["jvp"]},
             "adaptive"),
-        f"ell laplacian_1d({N1}) expv m=40": (ell, lambda r, o: {}, "fixed"),
+        f"ell laplacian_1d({N1}) expv m=40": (ell, lambda r, o: {r1: 1},
+                                               "fixed"),
         f"blockell {NB}^3 expv m=20": (
-            blockell, lambda r, o: {"blockell_spmv": 20}, "fixed"),
+            blockell, lambda r, o: {"blockell_spmv": 20, r1: 1}, "fixed"),
         "config1 dense expv m=40": (dense, lambda r, o: {}, "fixed"),
         # forward B7 on the slab, reverse B7 on the adjoint slab
         "config4 grad expv m=40": (grad("A", "bA", TG4),
@@ -2321,7 +2346,7 @@ def gspmd_path(et, dev, card, opB3):
         """The multi-hop cell: B7 and k = 2 exchanges a matvec on every
         rank, config #3's psums, the (n/P + 2h)-row slab, the single-device
         port at MTOL_HOP."""
-        want_l = {"banded_spmv": 30}
+        want_l = {"banded_spmv": 30, "tridiag_exp": 1}
         want_c = {"psum": 61, "ppermute": 2 * 30}
         nl = 2 * NH // GSPMD_HOP_WORLD
         for rk in ranks:
@@ -2415,7 +2440,7 @@ def gspmd_path(et, dev, card, opB3):
                     hop_checks(tag, ranks)
                     continue
                 if mode == "gspmd-ds":
-                    want_l = {"banded_spmv": 2 * 30}
+                    want_l = {"banded_spmv": 2 * 30, "tridiag_exp": 2}
                     for rk in ranks:
                         c = rk["cells"][name]
                         check(c["launches"] == want_l,
@@ -2856,7 +2881,8 @@ def krylov_graph_path(et, dev, card, g):
             lambda r: [("each column vs its scalar expv (bit for bit)",
                         max(rel_norm(r[i], et.expv(TP, opP, BB[i], m=30))
                             for i in range(NBATCH3)), 0.0)],
-            lambda r: {"banded_spmv": NBATCH3 * 30}, [30] * NBATCH3),
+            lambda r: {"banded_spmv": NBATCH3 * 30,
+                       "tridiag_exp": NBATCH3}, [30] * NBATCH3),
         "config1 expv m=40": (
             lambda: et.expv(1.0, g["A1c"], g["b1c"], m=40), lambda r: r,
             lambda r: [("vs scipy expm(A) b", rel_norm(r, ref_1),
@@ -2867,18 +2893,19 @@ def krylov_graph_path(et, dev, card, g):
             lambda r: [("vs scipy expm_multiply", rel_norm(rcm_back(r),
                                                            g["ref_s"]),
                         MTOL_SPARSE)],
-            lambda r: {"sell_spmv": 40}, [40]),
+            lambda r: {"sell_spmv": 40, "tridiag_exp": 1}, [40]),
         "scattered seg expv m=40": (
             lambda: et.expv(TS, g["opSeg"], g["bC"], m=40), lambda r: r,
             lambda r: [("vs scipy expm_multiply", rel_norm(r, g["ref_c"]),
                         MTOL_SPARSE)],
-            lambda r: {"sell_spmv": 40, "seg_compact": 40}, [40]),
+            lambda r: {"sell_spmv": 40, "seg_compact": 40,
+                       "tridiag_exp": 1}, [40]),
         f"blockell {NB}^3 two-pass m=20": (
             lambda: et.expv(T3, g["opB3"], g["bB"], m=20, two_pass=True),
             lambda r: r,
             lambda r: [("(B8) vs the stencil two-pass (B3)",
                         rel_norm(r, g["w_stencil"]), MTOL_SPARSE)],
-            lambda r: {"blockell_spmv": 40}, [20, 20]),
+            lambda r: {"blockell_spmv": 40, "tridiag_exp": 1}, [20, 20]),
     }
     total = collections.Counter()
 
@@ -3086,6 +3113,467 @@ def graphs_only(et, dev, card, profile: bool) -> int:
     return 0
 
 
+# R1 (ops/kernels/tridiag.py) against its eigh twin, phase 3: random
+# real symmetric tridiagonals of norm ~4 (t |T| ~ 4), real and complex t,
+# with and without s, float32 and float64; the orders the Krylov paths use
+# (m = 1 and 2 at the edges, 20-60 the main paths', 250 config #4's m,
+# which takes the global scratch), and a breakdown at j = 3 (the masked
+# zero tail of a Lanczos record), whose tail must come out exactly 0
+R1_ORDERS = (1, 2, 20, 40, 60, 250)
+R1_TOL = {"float32": 1e-5, "float64": 1e-13}
+R1_TIMED = (30, 40, 250)      # R1's times at these orders (40: the line)
+
+
+def r1_inputs(m, dt, dev, seed, tail=0):
+    import torch
+
+    g = np.random.default_rng(seed)
+    a = -np.abs(g.standard_normal(m)) * 2
+    b = np.abs(g.standard_normal(max(m - 1, 0)))
+    if tail:
+        a[m - tail:] = 0.0
+        b[m - tail - 1:] = 0.0
+    return (torch.as_tensor(a, dtype=dt, device=dev),
+            torch.as_tensor(b, dtype=dt, device=dev))
+
+
+def tridiag_checks(et, dev):
+    """R1 against its twin (the comment above); returns the largest
+    absolute float64 error."""
+    import torch
+    from exponentialutilities_jl_torch.ops.kernels import tridiag as tt
+
+    worst = {}
+    for dt, cdt, dn in ((torch.float32, torch.complex64, "float32"),
+                        (torch.float64, torch.complex128, "float64")):
+        cases = [(m, 0) for m in R1_ORDERS] + [(40, 37)]
+        for m, tail in cases:
+            a, b = r1_inputs(m, dt, dev, SEED + 30 + m, tail)
+            s = torch.tensor(1.7, dtype=dt, device=dev)
+            for t in (torch.tensor(0.6, dtype=dt, device=dev),
+                      torch.tensor(0.6 - 0.8j, dtype=cdt, device=dev)):
+                for sc in (None, s):
+                    got = tt.tridiag_exp_e1(a, b, t, sc)
+                    want = tt.tridiag_exp_e1_ref(a, b, t, sc)
+                    torch.cuda.synchronize()
+                    e = float((got - want).abs().max())
+                    scale = float(want.abs().max())
+                    check(got.dtype == want.dtype and e <= R1_TOL[dn] * scale,
+                          f"R1 {dn} m={m} tail={tail} t={complex(t)} "
+                          f"s={sc is not None}: {e:.2e} of {scale:.2e}")
+                    if tail:
+                        check(not bool(got[m - tail:].abs().max()),
+                              f"R1 {dn} m={m}: the masked tail is not 0")
+                    check(torch.equal(got, tt.tridiag_exp_e1(a, b, t, sc)),
+                          f"R1 {dn} m={m}: not bitwise repeatable")
+                    worst[dn] = max(worst.get(dn, 0.0), e)
+        print(f"check R1 tridiag_exp {dn}: m = {R1_ORDERS} and a breakdown "
+              f"at j = 3 (m = 40), real and complex t, with and without s: "
+              f"max abs err {worst[dn]:.2e} (tol {R1_TOL[dn]:g} of the max; "
+              "bitwise repeatable; the masked tail exactly 0)", flush=True)
+    return worst["float64"]
+
+
+def r1_work(m):
+    """(bytes, operations) of R1 at order m in float64: the diagonals, t
+    and s in, m values out; implicit QL with the eigenvectors accumulated
+    (6 m^3, Golub and Van Loan's count for the tridiagonal QR/QL with
+    vectors) and the m-term combination of every row (2 m^2)."""
+    return ((3 * m + 1) * 8, 6 * m ** 3 + 2 * m ** 2)
+
+
+# The serving closures and the error-estimate loop (phase 4's eighth path,
+# utils/graphs.Program): make_expv and make_phiv on config #3 (phiv k = 3,
+# m = 30, B7, Hermitian), config #4 (expv and phiv k = 1 at m = 250, B7,
+# Arnoldi), config #1 (expv m = 40, dense) and the n = 1e6 SELL matrix
+# (expv m = 40, B9, Hermitian: R1); calls 1-12 of each with a fresh b:
+# call 1 eager, call 2 captured, calls 3-12 replayed under sync debug mode
+# "error" (no blocking read), every result bit-equal to the same call of
+# the closure under graphs.eager() and held to the cell's oracle, its
+# kernel executions to the count its matvecs imply. Then
+# expv(mode="error_estimate", m = 60, atol = rtol = 1e-12) on config #3
+# and the SELL matrix: one capture, one blocking read (the one that ends
+# the loop), the CPU's iteration count and w.
+SERVE_CALLS = 12
+SERVE_REPS = 10
+
+
+def serving_inputs(et, dev):
+    """The eighth path's operators and references, made here for
+    ``--serving-only`` as main makes them."""
+    import scipy.sparse.linalg as spla
+    import torch
+
+    t0 = time.perf_counter()
+    s = {"opA": et.advection_diffusion_1d(NA, peclet=10.0, device=dev)}
+    rngc = np.random.default_rng(SEED)
+    s["A1np"] = rngc.standard_normal((100, 100)) / 10
+    s["A1c"] = torch.as_tensor(s["A1np"], device=dev)
+    s["opP"] = et.poisson_2d(NP, NP, device=dev)
+    rng4 = np.random.default_rng(SEED + 3)
+    s["A_sell"] = symmetrized(bench_sell_coo(NS, 8, 700, rng4), NS, rng4)
+    s["opS"] = et.SellOperator.from_scipy(s["A_sell"], rcm=True,
+                                          is_hermitian=True,
+                                          dtype=np.float64, device=dev)
+    s["perm"] = torch.as_tensor(s["opS"].perm, device=dev).long()
+    bSnp = rng4.standard_normal(NS)
+    s["bS"] = torch.as_tensor(bSnp, device=dev)[s["perm"]]
+    s["ref_s"] = torch.as_tensor(spla.expm_multiply(TS * s["A_sell"], bSnp),
+                                 device=dev)
+    torch.cuda.synchronize()
+    print(f"serving-only inputs and references: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return s
+
+
+def serving_path(et, dev, card, s):
+    """The eighth path (the comment above). Returns (kernel executions of
+    the path, {cell: (closure, t, b)} for the profile)."""
+    import collections
+    import math
+
+    import scipy.linalg as sla
+    import torch
+    from exponentialutilities_jl_torch.ops.kernels import _build
+    from exponentialutilities_jl_torch.utils import graphs
+
+    t0 = time.perf_counter()
+    opA, opP, opS, A1c, perm = (s[k] for k in ("opA", "opP", "opS", "A1c",
+                                               "perm"))
+    # config #4's exp(tA) and phi_1(tA) from one block exponential
+    # expm([[tA, I], [0, 0]]) = [[e^{tA}, phi_1(tA)], [0, I]]
+    big = np.zeros((2 * NA, 2 * NA))
+    big[:NA, :NA] = TA * banded_csr(opA).toarray()
+    big[:NA, NA:] = np.eye(NA)
+    F = torch.as_tensor(sla.expm(big), device=dev)
+    E4, P4 = F[:NA, :NA].contiguous(), F[:NA, NA:].contiguous()
+    del big, F
+    E1 = torch.as_tensor(sla.expm(s["A1np"]), device=dev)
+    print(f"serving path references: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    def phi_identity(op, W, b, t):
+        return max(float((t * op.matvec(W[:, j + 1])
+                          - (W[:, j] - b / math.factorial(j))).norm()
+                         / W[:, j].norm()) for j in range(W.shape[1] - 1))
+
+    gen = np.random.default_rng(SEED + 40)
+
+    def fresh(n, first=None):
+        bs = [first] if first is not None else []
+        while len(bs) < SERVE_CALLS:
+            bs.append(torch.as_tensor(gen.standard_normal(n), device=dev))
+        return bs
+
+    # name: (closure, t, the b of calls 1-12, the same call through the
+    #        entry point, oracle(i, b, result) -> [(what, err, tol)],
+    #        kernel executions of the 12 calls)
+    cells = {
+        f"config3 make_phiv k={K} m=30": (
+            et.make_phiv(opP, K, m=30), TP, fresh(NP * NP),
+            lambda b: et.phiv(TP, opP, b, K, m=30, errest=True),
+            lambda i, b, r: [("phi identities", phi_identity(opP, r[0], b,
+                                                             TP), MTOL_PHI)],
+            {"banded_spmv": 30 * SERVE_CALLS}),
+        f"config4 make_expv m={MA}": (
+            et.make_expv(opA, m=MA), TA, fresh(NA),
+            lambda b: et.expv(TA, opA, b, m=MA),
+            lambda i, b, r: [("vs the dense oracle", rel_norm(r, E4 @ b),
+                              MTOL_NONHERM)],
+            {"banded_spmv": MA * SERVE_CALLS}),
+        f"config4 make_phiv k=1 m={MA}": (
+            et.make_phiv(opA, 1, m=MA), TA, fresh(NA),
+            lambda b: et.phiv(TA, opA, b, 1, m=MA, errest=True),
+            lambda i, b, r: [
+                ("phi_0 vs the dense oracle", rel_norm(r[0][:, 0], E4 @ b),
+                 MTOL_NONHERM),
+                ("phi_1 vs the dense oracle", rel_norm(r[0][:, 1], P4 @ b),
+                 MTOL_NONHERM)],
+            {"banded_spmv": MA * SERVE_CALLS}),
+        "config1 make_expv m=40": (
+            et.make_expv(A1c, m=40), 1.0, fresh(100),
+            lambda b: et.expv(1.0, A1c, b, m=40),
+            lambda i, b, r: [("vs scipy expm(A) b", rel_norm(r, E1 @ b),
+                              MTOL_NONHERM)],
+            {}),
+        "sell n=1e6 make_expv m=40": (
+            et.make_expv(opS, m=40), TS, fresh(NS, s["bS"]),
+            lambda b: et.expv(TS, opS, b, m=40),
+            lambda i, b, r: ([("vs scipy expm_multiply", rel_norm(
+                r.index_select(0, torch.argsort(perm)), s["ref_s"]),
+                MTOL_SPARSE)] if i == 0 else []),
+            {"sell_spmv": 40 * SERVE_CALLS, "tridiag_exp": SERVE_CALLS}),
+    }
+    total = collections.Counter()
+
+    def events(fn, eager_form=False):
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        if eager_form:
+            with graphs.eager():
+                out = fn()
+        else:
+            out = fn()
+        z.record()
+        z.synchronize()
+        return a.elapsed_time(z), out
+
+    for name, (fn, t, bs, entry, oracle, want) in cells.items():
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        graphs.reset_counts()
+        outs, call_ms = [], []
+        for i, b in enumerate(bs):
+            if i >= 2:          # a replayed call: no blocking read
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                ms, r = events(lambda b=b: fn(t, b))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            outs.append(r)
+            call_ms.append(ms)
+        cnt = dict(graphs.counts)
+        exe = {k: v for k, v in graphs.kernel_executions(
+            dict(_build.launches)).items() if v}
+        total.update(exe)
+        want_c = {"eager_steps": 1, "captures": 1,
+                  "replays": SERVE_CALLS - 2}
+        check({k: cnt.get(k, 0) for k in want_c} == want_c
+              and not cnt.get("blocking_reads") and not cnt.get("loops"),
+              f"{name}: counts {cnt}, expected {want_c}")
+        check(exe == want, f"{name}: kernel executions {exe}, implied {want}")
+        first = [r[0] if isinstance(r, tuple) else r for r in outs]
+        check(len({w.data_ptr() for w in first}) == SERVE_CALLS,
+              f"{name}: two results alias")
+        worst = {}
+        bits = True
+        for i, (b, r) in enumerate(zip(bs, outs)):
+            w = first[i]
+            check(bool(torch.isfinite(w).all()), f"{name} call {i + 1}: "
+                  "non-finite")
+            for what, e, tol in oracle(i, b, r):
+                check(e <= tol, f"{name} call {i + 1} {what} {e:.2e}")
+                worst[what] = (max(worst.get(what, (0.0, tol))[0], e), tol)
+            with graphs.eager():
+                re_ = fn(t, b)
+            for x, y in zip(r if isinstance(r, tuple) else (r,),
+                            re_ if isinstance(re_, tuple) else (re_,)):
+                bits = bits and torch.equal(x, y)
+            ent = entry(b)
+            ent = ent[0] if isinstance(ent, tuple) else ent
+            e = rel_norm(w.reshape(-1), ent.reshape(-1))
+            check(e <= MTOL_IOP, f"{name} call {i + 1} vs the entry point "
+                  f"{e:.2e}")
+            worst["vs the entry point"] = (max(worst.get(
+                "vs the entry point", (0.0, MTOL_IOP))[0], e), MTOL_IOP)
+        check(bits, f"{name}: a replay differs from the eager closure")
+        print(f"check serving {name}: calls 1-{SERVE_CALLS} with a fresh b "
+              f"each: counts {want_c} (replayed calls under sync debug mode "
+              f"'error', no blocking read); every result bit-equal to the "
+              f"eager closure (graphs.eager()); no two results alias; "
+              f"kernel executions {exe} (host launches "
+              f"{ {k: v for k, v in _build.launches.items() if v} }); "
+              + "; ".join(f"{w} max {e:.2e} (tol {tol:g})"
+                          for w, (e, tol) in worst.items()), flush=True)
+        # times: replayed calls, the entry point, the eager closure
+        b = bs[-1]
+        rep, ent, eag = [], [], []
+        events(lambda: entry(b))
+        events(lambda: fn(t, b), True)
+        for _ in range(SERVE_REPS):
+            rep.append(events(lambda: fn(t, b))[0])
+            ent.append(events(lambda: entry(b))[0])
+            eag.append(events(lambda: fn(t, b), True)[0])
+        print(f"time serving {name}: replayed call "
+              f"{statistics.median(rep):.3f} ms, through expv/phiv "
+              f"{statistics.median(ent):.3f} ms, eager closure "
+              f"{statistics.median(eag):.3f} ms (CUDA events, medians of "
+              f"{SERVE_REPS} in turns); call 1 (eager warm-up) "
+              f"{call_ms[0]:.3f} ms, call 2 (capture) {call_ms[1]:.3f} ms "
+              f"{card}", flush=True)
+
+    # the error-estimate loop from a CUDA graph against the CPU's
+    perm_c = s["perm"].cpu().numpy()
+    Ap = s["A_sell"].tocsr()[perm_c][:, perm_c].tocsr()
+    cpu_ops = {
+        "config3": et.poisson_2d(NP, NP, device="cpu"),
+        "sell n=1e6": et.MatrixFreeOperator(
+            lambda x: torch.from_numpy(Ap @ x.numpy()), (NS, NS),
+            is_hermitian=True, device="cpu")}
+    xs = torch.as_tensor(gen.standard_normal(NS), device=dev)
+    e = rel_norm(opS.matvec(xs).cpu(), cpu_ops["sell n=1e6"].matvec(xs.cpu()))
+    check(e <= 1e-14, f"SELL pack vs the permuted CSR on the CPU {e:.2e}")
+    for label, op, t in (("config3", opP, TP), ("sell n=1e6", opS, TS)):
+        name = f"{label} expv error_estimate m=60"
+        b = torch.as_tensor(gen.standard_normal(op.shape[0]), device=dev)
+        kw = dict(m=60, mode="error_estimate", atol=1e-12, rtol=1e-12,
+                  return_info=True)
+        t1 = time.perf_counter()
+        w_cpu, it_cpu = et.expv(t, cpu_ops[label], b.cpu(), **kw)
+        cpu_s = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        graphs.reset_counts()
+        ms, (w, it) = events(lambda: et.expv(t, op, b, **kw))
+        cnt = dict(graphs.counts)
+        exe = {k: v for k, v in graphs.kernel_executions(
+            dict(_build.launches)).items() if v}
+        total.update(exe)
+        key = "banded_spmv" if label == "config3" else "sell_spmv"
+        # step 0 before the runner, it - 1 live steps, one masked step
+        want = {key: it + 1, "tridiag_exp": it + 1}
+        check(it == it_cpu and 1 < it < 60,
+              f"{name}: {it} iterations, the CPU's {it_cpu}")
+        check(cnt.get("captures") == 1 and cnt.get("blocking_reads") == 1
+              and cnt.get("eager_steps", 0) + cnt.get("replays", 0) == it,
+              f"{name}: counts {cnt}")
+        check(exe == want, f"{name}: kernel executions {exe}, implied {want}")
+        e = rel_norm(w.cpu(), w_cpu)
+        check(e <= MTOL_SPARSE, f"{name} vs the CPU {e:.2e}")
+        # the loop from its graphs against the same steps run eagerly
+        # (graphs.eager(): a read of the flags one step behind, no capture),
+        # in turns
+        ems, eag = [], []
+        for _ in range(SERVE_REPS):
+            ems.append(events(lambda: et.expv(t, op, b, **kw))[0])
+            eag.append(events(lambda: et.expv(t, op, b, **kw), True)[0])
+        print(f"check serving {name}: {it} iterations, the CPU's {it_cpu} "
+              f"({cpu_s:.1f} s there); counts {cnt} (the loop's one read "
+              f"ends it); kernel executions {exe}; vs the CPU {e:.2e} (tol "
+              f"{MTOL_SPARSE:g})", flush=True)
+        print(f"time serving {name}: first call {ms:.3f} ms, then "
+              f"{statistics.median(ems):.3f} ms (each call captures its "
+              f"loop anew), under graphs.eager() "
+              f"{statistics.median(eag):.3f} ms (CUDA events, medians of "
+              f"{SERVE_REPS} in turns) {card}", flush=True)
+    calls = {name: (c[0], c[1], c[2][-1]) for name, c in cells.items()}
+    return dict(total), calls
+
+
+def serving_profile(calls, card):
+    """torch.profiler over one replayed call of each closure: device busy
+    (the union of the device intervals), device ops and the host's launch
+    calls (runtime and driver API events named *Launch*)."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof_
+
+    for name, (fn, t, b) in calls.items():
+        fn(t, b)
+        torch.cuda.synchronize()
+        with prof_(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+            s = time.perf_counter()
+            fn(t, b)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - s) * 1e3
+        evs = prof.events()
+        dev_evs = [e for e in evs if e.device_type == DeviceType.CUDA]
+        busy, end = 0.0, -math.inf
+        for a, z in sorted((e.time_range.start, e.time_range.end)
+                           for e in dev_evs):
+            if z > end:
+                busy += z - max(a, end)
+                end = z
+        launches = collections.Counter(
+            e.name for e in evs
+            if e.device_type == DeviceType.CPU and "Launch" in e.name)
+        print(f"profile serving {name} replayed call: wall {wall:.3f} ms "
+              f"(host clock, profiled); device busy {busy / 1e3:.3f} ms in "
+              f"{len(dev_evs)} device ops; host launch calls "
+              f"{sum(launches.values())} {dict(launches)} {card}",
+              flush=True)
+
+
+def r1_times(dev, card, median_ms, burst_ms):
+    """R1 at the orders of R1_TIMED, float64, t real and s = beta0 as in
+    the two-pass coefficients: one call and back to back, its twin, the
+    library call (torch.linalg.eigh of the built tridiagonal and the
+    combination) and the bound. Returns {m: (kernel ms, twin ms, library
+    ms)}."""
+    import torch
+    from exponentialutilities_jl_torch.ops.kernels import tridiag as tt
+
+    out = {}
+    for m in R1_TIMED:
+        a, b = r1_inputs(m, torch.float64, dev, SEED + 50 + m)
+        t = torch.tensor(0.6, dtype=torch.float64, device=dev)
+        s = torch.tensor(1.7, dtype=torch.float64, device=dev)
+        T = torch.diag(a) + torch.diag(b, 1) + torch.diag(b, -1)
+
+        def kfn():
+            return tt.tridiag_exp_e1(a, b, t, s)
+
+        def pfn():
+            return tt.tridiag_exp_e1_ref(a, b, t, s)
+
+        def lfn():
+            w, Q = torch.linalg.eigh(T)
+            return Q @ (torch.exp(t * w) * Q[0]) * s
+
+        p1, k1, k2, p2, l1 = (median_ms(f) for f in (pfn, kfn, kfn, pfn,
+                                                     lfn))
+        kb, lb = burst_ms(kfn), burst_ms(lfn)
+        bms, bby = bound(*r1_work(m), "float64")
+        out[m] = (statistics.median([k1, k2]), statistics.median([p1, p2]),
+                  l1)
+        print(f"time R1 tridiag_exp float64 m={m}: kernel {k1:.4f} / "
+              f"{k2:.4f} ms, plain (eigh twin) {p1:.4f} / {p2:.4f} ms, "
+              f"torch.linalg.eigh + combination {l1:.4f} ms; back-to-back: "
+              f"kernel {kb:.4f} ms, eigh + combination {lb:.4f} ms; bound "
+              f"{bms:.6f} ms by {bby} {card}", flush=True)
+    return out
+
+
+def serving_only(et, dev, card, profile: bool) -> int:
+    """``--serving-only``: R1 against its twin, the eighth path with its
+    inputs made here, R1's times, then, with ``--profile``, one replayed
+    call of each closure under torch.profiler."""
+    import torch
+
+    tridiag_checks(et, dev)
+    s = serving_inputs(et, dev)
+    counts, calls = serving_path(et, dev, card, s)
+    print(f"kernel executions of the serving path: {counts}", flush=True)
+    check(counts.get("tridiag_exp", 0) > 0, "R1 never ran on the serving "
+          "path")
+
+    def median_ms(fn, reps=10, warmup=2):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            z = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            z.record()
+            z.synchronize()
+            ts.append(a.elapsed_time(z))
+        return statistics.median(ts)
+
+    def burst_ms(fn, k=20):
+        fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(k):
+            fn()
+        z.record()
+        z.synchronize()
+        return a.elapsed_time(z) / k
+
+    r1_times(dev, card, median_ms, burst_ms)
+    if profile:
+        serving_profile(calls, card)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port's main path "
                                  "on one NVIDIA GPU (module doc).")
@@ -3101,6 +3589,11 @@ def main() -> int:
                     help="run phases 1-2 and the seventh path alone (the "
                     "Krylov builders from CUDA graphs, their references "
                     "computed on the spot); prints no result lines")
+    ap.add_argument("--serving-only", action="store_true",
+                    help="run phases 1-2, R1 against its twin, the eighth "
+                    "path (the serving closures and the error-estimate "
+                    "loop, references computed on the spot) and R1's "
+                    "times; prints no result lines")
     # one rank of the fourth path, started by this script itself
     ap.add_argument("--shard-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--shard-world", type=int, help=argparse.SUPPRESS)
@@ -3161,6 +3654,8 @@ def main() -> int:
         return graphs_only(et, dev, card, args.profile)
     if args.krylov_graphs_only:
         return krylov_graphs_only(et, dev, card, args.profile)
+    if args.serving_only:
+        return serving_only(et, dev, card, args.profile)
 
     rng = np.random.default_rng(SEED)
     rng2 = np.random.default_rng(SEED + 1)     # the inputs of B4-B6
@@ -3711,6 +4206,7 @@ def main() -> int:
         check(torch.equal(ts.launch_plan(d)(x), y),
               "B10 ragged: the pack's plan and seg_compact differ")
     del packs, seg, seg_ragged, opB4, d, x, p, y
+    kerr["tridiag_exp"] = tridiag_checks(et, dev)
     phase_done("3 kernels")
 
     # ---- 4. the main path through the public entry points ---------------
@@ -3763,14 +4259,17 @@ def main() -> int:
     expect = {   # kernel launches each call must make
         "1d cheb f32": {"resident_recurrence": 1},
         "1d cheb f64": {"resident_recurrence": 1},
+        # R1 (tridiag_exp): the Hermitian reduced exponential, once a call
         "1d two-pass m=40 f64": {"resident_lanczos": 1,
-                                 "resident_recurrence": 1},
+                                 "resident_recurrence": 1, "tridiag_exp": 1},
         "1d two-pass m=40 f64 reduced=host": {"resident_lanczos": 1,
                                               "resident_recurrence": 1},
-        "1d happy-breakdown m=30 f64": {},
+        "1d happy-breakdown m=30 f64": {"tridiag_exp": 1},
         # two-pass m = 20: 21 sweeps a pass, each with its second stage
-        "3d two-pass m=20 32": {"fused_sweep": 42, "sweep_stage": 42},
-        "3d two-pass m=20 64": {"fused_sweep": 42, "sweep_stage": 42},
+        "3d two-pass m=20 32": {"fused_sweep": 42, "sweep_stage": 42,
+                                "tridiag_exp": 1},
+        "3d two-pass m=20 64": {"fused_sweep": 42, "sweep_stage": 42,
+                                "tridiag_exp": 1},
     }
     phi_calls = {     # float64
         "1d phiv two-pass m=40": lambda: et.phiv(T1, op1[f64], b1[f64], K,
@@ -3795,7 +4294,8 @@ def main() -> int:
         "config3 phiv m=30": {"banded_spmv": 30},     # one B7 per matvec
         "config3 expv_chebyshev": {"resident_banded": 1},
         "2d cheb": {"resident_grid": 1},
-        "2d two-pass m=20": {"fused_sweep": 42, "sweep_stage": 42},
+        "2d two-pass m=20": {"fused_sweep": 42, "sweep_stage": 42,
+                             "tridiag_exp": 1},
     })
 
     # the sparse containers at n = 1e6, float64 (module doc)
@@ -3857,20 +4357,25 @@ def main() -> int:
             T3, op3b, bB, m=20, two_pass=True),
     }
     expect.update({     # one SpMV launch per matvec (B10 beside B9 for seg)
-        "sell expv m=40": {"sell_spmv": 40},
-        "sell expv two-pass m=40": {"sell_spmv": 80},
+        "sell expv m=40": {"sell_spmv": 40, "tridiag_exp": 1},
+        "sell expv two-pass m=40": {"sell_spmv": 80, "tridiag_exp": 1},
         # spectral_bounds: 2 seeded probes x 30 Lanczos steps, then the
         # degree 12 of tol 1e-12 on those bounds
         "sell expv_chebyshev": {"sell_spmv": 72},
-        "scattered default expv m=40": {"sell_spmv": 40},
-        "scattered seg expv m=40": {"sell_spmv": 40, "seg_compact": 40},
-        "scattered sorted expv m=40": {"sell_spmv": 40},
+        "scattered default expv m=40": {"sell_spmv": 40, "tridiag_exp": 1},
+        "scattered seg expv m=40": {"sell_spmv": 40, "seg_compact": 40,
+                                    "tridiag_exp": 1},
+        "scattered sorted expv m=40": {"sell_spmv": 40, "tridiag_exp": 1},
         "scattered sorted phiv m=30": {"sell_spmv": 30},
-        "hybrid expv m=40": {"banded_spmv": 40, "sell_spmv": 40},
-        "hybrid matrix default pack expv m=40": {"sell_spmv": 40},
-        f"blockell {NB}^3 two-pass m=20": {"blockell_spmv": 40},
+        "hybrid expv m=40": {"banded_spmv": 40, "sell_spmv": 40,
+                             "tridiag_exp": 1},
+        "hybrid matrix default pack expv m=40": {"sell_spmv": 40,
+                                                 "tridiag_exp": 1},
+        f"blockell {NB}^3 two-pass m=20": {"blockell_spmv": 40,
+                                           "tridiag_exp": 1},
         f"stencil {NB}^3 two-pass m=20": {"fused_sweep": 42,
-                                          "sweep_stage": 42},
+                                          "sweep_stage": 42,
+                                          "tridiag_exp": 1},
     })
 
     # the variable-coefficient path (B3-var): 216^3 in both dtypes, and a
@@ -3896,13 +4401,14 @@ def main() -> int:
         var_calls[f"var two-pass m=20 {sfx}"] = (
             lambda dt=dt: et.expv(T3, opV[dt], bV[dt], m=20, two_pass=True))
         expect[f"var two-pass m=20 {sfx}"] = {"fused_sweep_var": 42,
-                                               "sweep_stage": 42}
+                                               "sweep_stage": 42,
+                                               "tridiag_exp": 1}
     var_calls[f"var{NV} cheb"] = lambda: et.expv_chebyshev(T3, opV48, bV48,
                                                           tol=1e-12)
     var_calls[f"var{NV} two-pass m=20"] = lambda: et.expv(T3, opV48, bV48,
                                                          m=20, two_pass=True)
     expect[f"var{NV} two-pass m=20"] = {"fused_sweep_var": 42,
-                                        "sweep_stage": 42}
+                                        "sweep_stage": 42, "tridiag_exp": 1}
 
     def cheb_degree(op, tol):
         lo_, hi_ = op.spectral_bounds_hint()
@@ -4467,6 +4973,18 @@ def main() -> int:
         check(krylov_counts.get(k, 0) > 0, f"kernel {k} never ran on the "
               "krylov graph path")
 
+    # the eighth path: the serving closures and the error-estimate loop
+    t0 = time.perf_counter()
+    serving_counts, serving_calls = serving_path(et, dev, card, {
+        "opA": opA, "A1np": A1np, "A1c": A1c, "opP": opP, "A_sell": A_sell,
+        "opS": opS, "perm": perm, "bS": bS, "ref_s": ref_s})
+    print(f"serving path: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"kernel executions of the serving path: "
+          f"{ {k: v for k, v in serving_counts.items() if v} }", flush=True)
+    for k in ("banded_spmv", "sell_spmv", "tridiag_exp"):
+        check(serving_counts.get(k, 0) > 0, f"kernel {k} never ran on the "
+              "serving path")
+
     # the kernel-driving passes make no host syncs
     lo, hi = op3[f64].spectral_bounds_hint()
     full3, _, _ = tc._full_exp_coeffs(T3, lo, hi, 1e-12, None)
@@ -4622,6 +5140,7 @@ def main() -> int:
                     "grad config4 expv m=40"]}.items():
             device_profile(name, fn)
         krylov_graph_profile(krylov_calls, card)
+        serving_profile(serving_calls, card)
         phase_done("5 profile")
         return 0
 
@@ -5227,6 +5746,27 @@ def main() -> int:
     for name, fn in graph_calls.items():
         print(f"time graph {name}: {median_ms(fn, reps=3, warmup=1):.3f} "
               f"ms (median of 3) {card}", flush=True)
+    # R1 at the serving and two-pass orders (m = 40 is the kernels
+    # line's), before the profiler runs
+    from exponentialutilities_jl_torch.ops.kernels import tridiag as tt
+    r1 = r1_times(dev, card, median_ms, burst_ms)
+    times[("tridiag_exp", "float64")] = r1[40][:2]
+    lib_ms[("tridiag_exp", "float64")] = r1[40][2]
+    # a Hermitian Krylov call at m = 250 (config #3's operator, the basis
+    # path): R1 at its largest order on the main path, beside R1's own
+    # time and eigh's there (hermitian_times.py runs it against an earlier
+    # tree)
+    e250 = median_ms(lambda: et.expv(TP, opP, bP, m=250), reps=5, warmup=1)
+    print(f"time main config3 expv m=250 (Hermitian, basis path): "
+          f"{e250:.3f} ms (median of 5); its reduced stage R1 at m=250 "
+          f"{r1[250][0]:.4f} ms, torch.linalg.eigh + combination "
+          f"{r1[250][2]:.4f} ms {card}", flush=True)
+    work[("tridiag_exp", "float64")] = r1_work(40)
+    a40, b40 = r1_inputs(40, f64, dev, SEED + 90)
+    t40 = torch.tensor(0.6, dtype=f64, device=dev)
+    device_jobs.append(("tridiag_exp", "float64",
+                        lambda: tt.tridiag_exp_e1(a40, b40, t40),
+                        "tridiag_exp_kernel"))
     for name, dn, kfn, kname in device_jobs:
         ms, cnt = device_ms(kfn, kname)
         print(f"device {name} {dn}: " + (
@@ -5235,8 +5775,10 @@ def main() -> int:
             f"not measured (profiler saw {cnt} {kname} launches of 20)")
             + f" {card}", flush=True)
 
-    # the seventh path's device busy and host launch calls, profiled last
+    # the seventh and eighth paths' device busy and host launch calls,
+    # profiled last
     krylov_graph_profile(krylov_calls, card)
+    serving_profile(serving_calls, card)
 
     phase_done("5 times")
     kernels = []
@@ -5250,7 +5792,8 @@ def main() -> int:
                                      + shard_counts[name]
                                      + gspmd_counts[name]
                                      + graph_counts.get(name, 0)
-                                     + krylov_counts.get(name, 0)),
+                                     + krylov_counts.get(name, 0)
+                                     + serving_counts.get(name, 0)),
                         "max_abs_err": kerr[name], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by,

@@ -3,21 +3,24 @@ of ``exponentialutilities_jl_tpu/models/expv.py``).
 
 * ``mode="happy_breakdown"``: a Lanczos basis for Hermitian operators, an
   Arnoldi basis (full or IOP window, CGS2 with ``reorth``) otherwise, then
-  the reduced exponential: ``torch.linalg.eigh`` of the masked tridiagonal,
-  or the degree-13 Pade ``expm_higham2005`` of t H_m, and the (m, n)
-  combination w = beta V^T exp(tH) e1.
+  the reduced exponential: Q exp(t Lambda) Q^T e1 of the masked
+  tridiagonal (``ops/kernels/tridiag.tridiag_exp_e1``: kernel R1 on a
+  CUDA device, the eigh twin on the CPU), or the degree-13 Pade ``expm_higham2005`` of t H_m, and the
+  (m, n) combination w = beta V^T exp(tH) e1.
 * ``two_pass=True``: storage-free two passes in O(n) memory. Hermitian:
-  pass 1 records (alpha, beta), the reduced eigh gives the combination
-  coefficients, pass 2 regenerates the basis and accumulates w. On a CUDA
-  device with real float32/float64 data and real t, a 1-D constant
-  stencil runs both passes in the resident kernels (B2 then B1, one launch
-  each) and a 2-D/3-D box stencil, constant or variable-coefficient, in
-  fused sweeps (B3, B3-var); everything else, and complex t on any device,
-  takes the plain torch passes. Non-Hermitian: IOP Arnoldi over a rolling
-  window (``iop > 0`` required), the same recurrence as
-  ``expv(iop=win, reorth=False)``.
+  pass 1 records (alpha, beta), the reduced exponential (R1 or its twin)
+  gives the combination coefficients, pass 2 regenerates the basis and
+  accumulates w. On a CUDA device with real float32/float64 data and real
+  t, a 1-D constant stencil runs both passes in the resident kernels (B2
+  then B1, one launch each) and a 2-D/3-D box stencil, constant or
+  variable-coefficient, in fused sweeps (B3, B3-var); everything else, and
+  complex t on any device, takes the plain torch passes. Non-Hermitian:
+  IOP Arnoldi over a rolling window (``iop > 0`` required), the same
+  recurrence as ``expv(iop=win, reorth=False)``.
 * ``mode="error_estimate"``: Hermitian Lanczos stopped by Saad's Er2
-  estimate (``_expv_error_estimate``).
+  estimate (``_expv_error_estimate``): one masked step over state made
+  before the loop, run by a ``utils/graphs.LoopRunner`` (on a CUDA device
+  from a CUDA graph, with no read inside the loop).
 
 A ``SortedSellOperator`` is unwrapped on entry (``hoist_conjugation``):
 the solve runs on its inner operator in the sorted basis, with one
@@ -32,13 +35,18 @@ exact for the effective dimension.
 (batch, n)): each column takes the path, kernels included, that its
 scalar call takes (``torch.func.vmap`` cannot enter a raw-pointer kernel).
 
-``differentiable=True`` makes the non-Hermitian reduced exponential the
-form with no host read (``expm_higham2005(differentiable=True)``: masked
-squarings), for ``torch.func`` transforms; the Hermitian path (eigh) has
-no host read anyway. Plain ``torch.autograd`` differentiates every path:
-B7's matvec has a reverse rule (``ops/sparse.py``), and the grad rule of
-``ops/kernels/dispatch.py`` sends a two-pass call that requires grad to
-the plain torch passes.
+The Hermitian reduced exponential. On a CUDA device it is kernel R1
+(``ops/kernels/tridiag.py``), which reads t, beta0 and the diagonals from
+device memory and makes no host read; ``torch.linalg.eigh`` (its twin)
+reads its info to the host, a sync, and runs only on the CPU and for
+calls that autograd or a ``torch.func`` transform must see, which the
+grad rule of ``ops/kernels/dispatch.py`` sends there (it has eigh's
+gradient). ``differentiable=True`` makes the non-Hermitian reduced
+exponential the form with no host read (``expm_higham2005(
+differentiable=True)``: masked squarings), for ``torch.func`` transforms.
+Plain ``torch.autograd`` differentiates every path: B7's matvec has a
+reverse rule (``ops/sparse.py``), and the grad rule sends a two-pass call
+that requires grad to the plain torch passes.
 
 A row-sharded operator (``parallel.shard_operator``) runs every path but
 the kernels' on this rank's rows of b: the operator's ``comm``
@@ -61,14 +69,17 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.expm import expm_higham2005
+from ..ops.expm import _onenorm, expm_higham2005
 from ..ops.host_reduced import (host_expm_e1, host_lanczos_coeffs,
                                 reduced_default)
 from ..ops.kernels.dispatch import grad_gate, kernel_device_ok
-from ..ops.krylov import (KrylovBasis, arnoldi, arnoldi_coeffs, arnoldi_replay,
+from ..ops.kernels.tridiag import scalar_operand, tridiag_exp_e1
+from ..ops.krylov import (KrylovBasis, _sees_grad, _State, arnoldi,
+                          arnoldi_coeffs, arnoldi_replay,
                           expand_compact_hessenberg, lanczos, lanczos_coeffs,
                           lanczos_replay)
 from ..ops.sparse import hoist_conjugation
+from ..utils import graphs
 from ..utils.comm import operator_comm, vdot, vector_norm
 from ..utils.device import action_vector
 from ..utils.linop import LinearOperator, aslinearoperator
@@ -96,20 +107,21 @@ def _t_dtype(t):
 
 def _exp_reduced_e1(Ks: KrylovBasis, t, differentiable: bool = False):
     """First column of exp(t H_m) for the masked reduced matrix, (m,).
-    Hermitian (real tridiagonal): eigh of H_m; the masked trailing zero
-    block is block-diagonal, its eigenvectors have zero first component,
-    so e1 excites only the effective leading block. Otherwise
-    ``expm_higham2005(t H_m)[:, 0]`` (its form with no host read when
-    ``differentiable``)."""
+    Hermitian (real tridiagonal): ``tridiag_exp_e1`` (R1); the masked
+    trailing zero block is block-diagonal, its eigenvectors have zero
+    first component, so e1 excites only the effective leading block.
+    Otherwise ``expm_higham2005(t H_m)[:, 0]``: its form with no host read
+    when ``differentiable``, or with the 1-norm taken on the device when
+    the call runs inside a step that may be captured (``graphs.inline``: a
+    serving program's call, a loop step), else the host form."""
     m = Ks.m
     Hm = Ks.H[:m, :m]
     if Ks.hermitian and not Hm.is_complex():
-        w, Q = torch.linalg.eigh(Hm)
-        cdt = torch.promote_types(Q.dtype, _t_dtype(t))
-        return Q.to(cdt) @ (torch.exp(t * w) * Q[0, :].to(cdt))
-    return expm_higham2005(
-        t * Hm.to(torch.promote_types(Hm.dtype, _t_dtype(t))),
-        differentiable=differentiable)[:, 0]
+        return tridiag_exp_e1(torch.diagonal(Hm), torch.diagonal(Hm, -1), t)
+    Ht = t * Hm.to(torch.promote_types(Hm.dtype, _t_dtype(t)))
+    if not differentiable and graphs.inline(Ht.device):
+        return expm_higham2005(Ht, onenorm=_onenorm(Ht))[:, 0]
+    return expm_higham2005(Ht, differentiable=differentiable)[:, 0]
 
 
 @full_precision
@@ -154,17 +166,13 @@ def expv_from_basis(t, Ks: KrylovBasis, *, reduced: str = "device",
 
 
 def _lanczos_reduced_coeffs(alphas, betas, beta0, t, reduced="device"):
-    """Reduced stage of every two-pass Hermitian expv: masked tridiagonal
-    T -> eigh -> the replay combination coefficients beta0 Q e^{t Lambda}
-    Q^T e1 (on the host with ``reduced="host"``)."""
+    """Reduced stage of every two-pass Hermitian expv: the masked
+    tridiagonal T of the record -> the replay combination coefficients
+    beta0 Q e^{t Lambda} Q^T e1 (``tridiag_exp_e1`` with s = beta0; on
+    the host with ``reduced="host"``)."""
     if reduced == "host":
         return host_lanczos_coeffs(alphas, betas, beta0, t)
-    T = (torch.diag(alphas) + torch.diag(betas[:-1], 1)
-         + torch.diag(betas[:-1], -1))
-    w_eig, Q = torch.linalg.eigh(T)
-    cdt = torch.promote_types(Q.dtype, torch.as_tensor(t).dtype)
-    return (Q.to(cdt) @ (torch.exp(t * w_eig) * Q[0, :].to(cdt))
-            * beta0.to(cdt))
+    return tridiag_exp_e1(alphas, betas[:-1], t, beta0)
 
 
 @full_precision
@@ -211,57 +219,115 @@ def _expv_two_pass_arnoldi(op, b, t, m: int, win: int,
     return torch.where(beta0 > 0, w, 0.0)
 
 
+def _errest_step(op, S, t, m: int, eps, beta0, comm):
+    """The error-estimate loop's step (JAX's ``body``) on the state S (V,
+    alphas, betas, ev, done, flags and the counter jj): a Lanczos step,
+    exp(t T_j) e1 of the (j + 1)-masked tridiagonal, Saad's sigma and the
+    stop flag, every write masked by ``done | (j >= m)`` (indices clamped,
+    so a step past the end reads and writes in bounds and changes
+    nothing). ``flags`` = (j, done) for the host."""
+    dt = S.V.dtype
+    rdt = S.alphas.dtype
+    idx = torch.arange(m, device=S.V.device)
+
+    def step():
+        jv = S.jj[:1]
+        j = jv[0]
+        live = torch.logical_and(~S.done, j < m)
+        jc = torch.clamp(jv, max=m - 1)
+        jp = torch.clamp(jv - 1, min=0)
+        x = S.V.index_select(0, jc)[0]
+        y = op.matvec(x).to(dt)
+        alpha = vdot(x, y, comm).real.to(rdt)
+        y = y - alpha * x
+        bprev = torch.where(j >= 1, S.betas.index_select(0, jp)[0], 0.0)
+        y = y - bprev * S.V.index_select(0, jp)[0]
+        nrm = vector_norm(y, comm).to(rdt)
+        S.put("alphas", 0, jc, torch.where(
+            live, alpha, S.alphas.index_select(0, jc)[0]).reshape(1))
+        S.put("betas", 0, jc, torch.where(
+            live, nrm, S.betas.index_select(0, jc)[0]).reshape(1))
+        vnew = torch.where(nrm > 0, y / torch.where(nrm > 0, nrm, 1.0), 0)
+        S.put("V", 0, jc + 1, torch.where(
+            live, vnew, S.V.index_select(0, jc + 1)[0])[None])
+        # exp(t T_j) e1 of the leading (j+1)-block; the zero tail of the
+        # masked tridiagonal is block-diagonal and not excited by e1
+        a = torch.where(idx <= j, S.alphas, 0.0)
+        bb = torch.where(idx < j, S.betas, 0.0)
+        ev = tridiag_exp_e1(a, bb[:-1], t).to(S.ev.dtype)
+        S.apply("ev", torch.where, live, ev, S.ev)
+        sigma = nrm * beta0 * ev.index_select(0, jc)[0].abs()
+        S.apply("done", torch.where, live, sigma < eps, S.done)
+        S.apply("jj", torch.add, S.jj, live.to(S.jj.dtype))
+        S.apply("flags", torch.stack, [S.jj[0].to(S.flags.dtype),
+                                       S.done.to(S.flags.dtype)])
+
+    return step
+
+
 @full_precision
 def _expv_error_estimate(op, b, t, m: int, atol: float, rtol: float,
                          comm=None):
     """Hermitian Lanczos expv stopped by Saad's Er2 a-posteriori estimate
     sigma = beta_j beta0 |e_j^T exp(t T_j) e1| < atol + rtol beta0.
 
-    A host loop: each Lanczos step reads its stop flag to the host (one
-    sync per step), where the JAX package keeps the loop on the device.
-    ``comm``: b's rows are sharded (the flag comes from reduced scalars,
-    the same on every rank). Returns (w, iterations)."""
+    One masked step (``_errest_step``) over state made before the loop,
+    as in the JAX package's ``lax.while_loop``. Step 0 runs first, on the
+    caller's stream, rebinding the state; if a state tensor then requires
+    grad or is wrapped by a ``torch.func`` transform, every step rebinds,
+    with one read of the flags after each. Otherwise a
+    ``utils/graphs.LoopRunner`` runs the rest with flags (j, done): on a
+    CUDA device from a CUDA graph, the flags read one execution behind, so
+    the loop makes no read inside it and costs one masked execution past
+    its end; on the CPU the same step eagerly. ``comm``: b's rows are
+    sharded (the flag comes from reduced scalars, the same on every rank);
+    every step then runs eagerly after a read of the flags, as the host
+    loop did, so the collectives are those of the steps taken. Returns
+    (w, iterations)."""
     n = b.shape[0]
     dt = b.dtype
+    dev = b.device
     rdt = torch.empty((), dtype=dt).real.dtype
     beta0 = vector_norm(b, comm).to(rdt)
     eps = atol + rtol * beta0
     v0 = torch.where(beta0 > 0, 1.0 / torch.where(beta0 > 0, beta0, 1.0),
                      0.0).to(rdt) * b
-    V = torch.zeros((m + 1, n), dtype=dt, device=b.device)
+    V = torch.zeros((m + 1, n), dtype=dt, device=dev)
     V[0] = v0
-    alphas = torch.zeros(m, dtype=rdt, device=b.device)
-    betas = torch.zeros(m, dtype=rdt, device=b.device)
-    ev = torch.zeros(m, dtype=torch.promote_types(rdt, _t_dtype(t)),
-                     device=b.device)
-    idx = torch.arange(m, device=b.device)
-    j = 0
-    done = bool(beta0 == 0)
-    while j < m and not done:
-        x = V[j]
-        y = op.matvec(x).to(dt)
-        alpha = vdot(x, y, comm).real.to(rdt)
-        y = y - alpha * x
-        if j >= 1:
-            y = y - betas[j - 1] * V[j - 1]
-        nrm = vector_norm(y, comm).to(rdt)
-        alphas[j] = alpha
-        betas[j] = nrm
-        V[j + 1] = torch.where(nrm > 0, y / torch.where(nrm > 0, nrm, 1.0), 0)
-        # exp(t T_j) e1 of the leading (j+1)-block; the zero tail of the
-        # masked tridiagonal is block-diagonal and not excited by e1
-        a = torch.where(idx <= j, alphas, 0.0)
-        bb = torch.where(idx < j, betas, 0.0)
-        T = torch.diag(a) + torch.diag(bb[:-1], 1) + torch.diag(bb[:-1], -1)
-        w_eig, Q = torch.linalg.eigh(T)
-        ev = Q.to(ev.dtype) @ (torch.exp(t * w_eig) * Q[0, :])
-        sigma = nrm * beta0 * ev[j].abs()
-        j += 1
-        done = bool(sigma < eps)
-    wdt = torch.promote_types(ev.dtype, dt)
-    w = ev.to(wdt) @ V[:m].to(wdt)
+    tq = scalar_operand(t, beta0)
+    S = _State(dev, V=V,
+               alphas=torch.zeros(m, dtype=rdt, device=dev),
+               betas=torch.zeros(m, dtype=rdt, device=dev),
+               ev=torch.zeros(m, dtype=tq.dtype, device=dev),
+               done=beta0 == 0,
+               flags=torch.zeros(2, dtype=torch.float64, device=dev))
+    S.apply("flags", torch.stack, [S.jj[0].to(S.flags.dtype),
+                                   S.done.to(S.flags.dtype)])
+    step = _errest_step(op, S, tq, m, eps, beta0, comm)
+
+    def ended(host):
+        return bool(host[1]) or host[0] >= m
+
+    if comm is None:
+        step()                          # step 0, rebinding (module doc)
+        S.rebind = _sees_grad(S)
+    if S.rebind:
+        while True:
+            graphs.counts["blocking_reads"] += 1
+            host = S.flags.tolist()
+            if ended(host):
+                break
+            step()
+    else:
+        with graphs.LoopRunner(f"expv error_estimate ({type(op).__name__})",
+                               dev) as runner:
+            host = runner.loop(m, {"step": step}, S.flags,
+                               lambda h: (None if h is not None and ended(h)
+                                          else "step"), "step")
+    wdt = torch.promote_types(S.ev.dtype, dt)
+    w = S.ev.to(wdt) @ S.V[:m].to(wdt)
     out = beta0.to(w.dtype) * w
-    return torch.where(beta0 > 0, out, 0.0), j
+    return torch.where(beta0 > 0, out, 0.0), int(host[0])
 
 
 def expv(t, A, b, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
@@ -348,27 +414,55 @@ def expv(t, A, b, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
     return _expv_two_pass(op, b, t, m, reduced)
 
 
+def _serving_closure(what: str, op, call):
+    """``fn(t, b)``: ``call(t, b)`` as one ``utils/graphs.Program`` call
+    (``make_expv``, ``models/phiv.make_phiv``) at the key b's shape and
+    dtype, t's dtype, the device and grad mode. b is moved to the
+    operator's device and t made a 0-d tensor there (in b's real
+    precision) before the program, outside any capture. ``fn.program`` is
+    the program and ``fn.close()`` frees its graphs."""
+    prog = graphs.Program(f"{what} ({type(op).__name__})",
+                          sharded=operator_comm(op) is not None)
+
+    def fn(t, b):
+        b = action_vector(b, op)
+        t = scalar_operand(t, b.real if b.is_complex() else b)
+        return prog((tuple(b.shape), b.dtype, t.dtype, b.device,
+                     torch.is_grad_enabled()), call, (t, b))
+
+    fn.program = prog
+    fn.close = prog.close
+    return fn
+
+
 def make_expv(op, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
               reorth: bool = True, hermitian: bool | None = None,
               bake_operator: bool = False):
     """Serving factory: ``fn(t, b)`` with the operator and the Krylov
-    settings bound once (a plain closure over ``build_subspace`` and the
-    reduced exponential).
+    settings bound once, each call one program (the JAX package's jitted
+    ``_expv_fused``): ``utils/graphs.Program`` runs the first call of a
+    key (b's shape and dtype, t's dtype, the device, grad mode) eagerly,
+    captures the second into a CUDA graph and replays it from then on, the
+    result a fresh tensor each call; a call that autograd or a
+    ``torch.func`` transform must see runs eagerly (``_serving_closure``).
+    Inside, the reduced problem reads nothing to the host: R1 for a
+    Hermitian operator, Higham 2005 with the 1-norm taken on the device
+    otherwise. ``fn.close()`` frees the graphs before the closure goes.
 
     bake_operator: accepted for the JAX package's signature and changes
       nothing. There it embeds the operator's arrays in the compiled
-      program as constants; nothing is compiled here, and the closure
-      over ``op`` already holds its tensors, as baking does."""
+      program as constants; the closure over ``op`` already holds its
+      tensors, as baking does."""
     op = aslinearoperator(op)
     m_ = min(m, op.shape[0])
     herm = op.is_hermitian if hermitian is None else hermitian
 
-    def fn(t, b):
-        Ks = build_subspace(op, action_vector(b, op), m_, tol=tol, iop=iop,
-                            reorth=reorth, hermitian=herm)
+    def call(t, b):
+        Ks = build_subspace(op, b, m_, tol=tol, iop=iop, reorth=reorth,
+                            hermitian=herm)
         return _combine_expv(Ks, _exp_reduced_e1(Ks, t))
 
-    return fn
+    return _serving_closure("make_expv", op, call)
 
 
 def expv_batched(t, A, B, *, m: int = 30, tol: float = 1e-7,

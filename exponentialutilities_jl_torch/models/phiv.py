@@ -35,14 +35,17 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.expm import _onenorm
 from ..ops.host_reduced import host_phiv_e1
+from ..ops.kernels.tridiag import scalar_operand
 from ..ops.krylov import KrylovBasis
 from ..ops.phi_dense import phiv_dense
 from ..ops.sparse import hoist_conjugation
+from ..utils import graphs
 from ..utils.device import action_vector
 from ..utils.linop import aslinearoperator
 from ..utils.precision import full_precision
-from .expv import _reduced_where, build_subspace
+from .expv import _reduced_where, _serving_closure, build_subspace
 
 __all__ = ["phiv", "phiv_from_basis", "make_phiv"]
 
@@ -84,9 +87,17 @@ def phiv_from_basis(t, Ks: KrylovBasis, k: int, *, correct: bool = False,
     matrix of phi_j(tA)b columns, err the error estimate of phi_k
     (``reduced``, ``differentiable``: module doc)."""
     reduced = _reduced_where(reduced, differentiable)
+    m = Ks.m
+    hnorm = None
+    if (reduced == "device" and not differentiable
+            and graphs.inline(Ks.H.device)):
+        # a step that may be captured (a serving program's call): the
+        # norm on the device, so the exponential reads nothing
+        t = scalar_operand(t, Ks.H.real)
+        hnorm = _onenorm(Ks.H[:m, :m])
     return _phiv_combine(t, Ks, _reduced_phi(
-        t, Ks.H, k, differentiable=differentiable, reduced=reduced), k,
-        correct)
+        t, Ks.H, k, hnorm=hnorm, differentiable=differentiable,
+        reduced=reduced), k, correct)
 
 
 def _reduced_phi(t, H, k: int, *, expm_method: str = "higham2005",
@@ -97,14 +108,16 @@ def _reduced_phi(t, H, k: int, *, expm_method: str = "higham2005",
     with ``reduced="host"``). ``hnorm``: the 1-norm of H_m on the host,
     which spares the exponential its read (the augmented matrix's 1-norm
     is max(|t| hnorm, 1)). A 0-d tensor ``t`` with a 0-d tensor ``hnorm``
-    makes no host read at all (the exponential's device form, the loop
-    steps of ``models/nw_device.py``); t then scales H in H's real
-    dtype."""
+    makes no host read at all (the exponential's device form: the loop
+    steps of ``models/nw_device.py``, a serving program's call); a real t
+    then scales H in H's real dtype, a complex one in the promoted
+    type."""
     m = H.shape[1]
     if reduced == "host":
         return host_phiv_e1(H[:m, :m], t, k)
     if isinstance(hnorm, torch.Tensor):
-        t_h = t.to(H.real.dtype)
+        t_h = t.to(torch.promote_types(H.dtype, t.dtype) if t.is_complex()
+                   else H.real.dtype)
         Hm = t_h * H[:m, :m]
         e1 = torch.eye(m, dtype=Hm.dtype, device=Hm.device)[0]
         nrm = t.abs().to(torch.float64) * hnorm.to(torch.float64)
@@ -123,16 +136,19 @@ def make_phiv(op, k: int, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
               reorth: bool = True, hermitian: bool | None = None,
               correct: bool = False):
     """Serving factory: ``fn(t, b) -> (w, err)`` with the operator, order
-    and Krylov settings bound once."""
+    and Krylov settings bound once, each call one program
+    (``utils/graphs.Program``, as ``models/expv.make_expv``; the JAX
+    package's jitted ``_phiv_fused``), its reduced augmented exponential
+    with no host read. ``fn.close()`` frees the graphs."""
     op = aslinearoperator(op)
     m_ = min(m, op.shape[0])
 
-    def fn(t, b):
-        Ks = build_subspace(op, action_vector(b, op), m_, tol=tol, iop=iop,
-                            reorth=reorth, hermitian=hermitian)
+    def call(t, b):
+        Ks = build_subspace(op, b, m_, tol=tol, iop=iop, reorth=reorth,
+                            hermitian=hermitian)
         return phiv_from_basis(t, Ks, k, correct=correct)
 
-    return fn
+    return _serving_closure("make_phiv", op, call)
 
 
 def phiv(t, A, b, k: int, *, m: int = 30, tol: float = 1e-7, iop: int = 0,

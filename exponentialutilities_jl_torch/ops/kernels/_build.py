@@ -14,7 +14,8 @@ non-zero code into an exception, so a refused launch never passes silently.
 ``launches`` counts kernel launches per kernel. A wrapper adds one exactly
 where it launches its kernel, so a run can show that it went through the
 kernels rather than their plain twins. ``sweep_stage`` counts the second
-stage of B3 and B3-var (the moments and the Lanczos scalars).
+stage of B3 and B3-var (the moments and the Lanczos scalars), ``tridiag_exp``
+R1, the Hermitian reduced exponential (``ops/kernels/tridiag.py``).
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ __all__ = ["library", "check", "check_operands", "require_cuda",
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 SOURCES = ("common.cuh", "resident.cu", "resident_cluster.cu",
-           "resident_family.cu", "fused_sweep.cu", "spmv.cu", "sell.cu")
+           "resident_family.cu", "fused_sweep.cu", "spmv.cu", "sell.cu",
+           "tridiag.cu")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-Xcompiler", "-fPIC")
 
@@ -47,7 +49,7 @@ launches = {"resident_recurrence": 0, "resident_lanczos": 0,
             "resident_multi": 0, "resident_banded": 0, "resident_grid": 0,
             "fused_sweep": 0, "fused_sweep_var": 0, "sweep_stage": 0,
             "banded_spmv": 0, "blockell_spmv": 0, "sell_spmv": 0,
-            "seg_compact": 0}
+            "seg_compact": 0, "tridiag_exp": 0}
 
 
 def reset_launch_counts():
@@ -132,6 +134,9 @@ def _declare(lib):
         f.restype = _I
         f = getattr(lib, f"eu_seg_compact_{suf}")
         f.argtypes = [_VP, _VP, _LL, _VP, _VP]
+        f.restype = _I
+        f = getattr(lib, f"eu_tridiag_exp_{suf}")
+        f.argtypes = [_VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _I, _LL, _I, _VP]
         f.restype = _I
     lib.eu_device_sms.argtypes = []
     lib.eu_device_sms.restype = _I

@@ -30,7 +30,8 @@ pointers and have no reverse (or forward) rule. So every gate, these two
 and the two-pass choices of ``models/expv.py`` and ``models/phiv.py``,
 returns the plain torch path when ``grad_requested``: grad mode is on and
 t, b, the rows or the operator's own tensors require grad, or one of them
-is wrapped by a ``torch.func`` transform. This is a dispatch rule that the
+is wrapped by a ``torch.func`` transform or carries a forward-mode
+tangent. This is a dispatch rule that the
 caller's request triggers, like the complex-t rule, not a fallback on
 failure: the plain path computes the same function, and autograd
 differentiates it. ``grad_gated`` counts the calls it sent there (calls
@@ -42,6 +43,7 @@ kernel path returns a result without a graph.
 from __future__ import annotations
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from ._build import KERNEL_DTYPES
 
@@ -63,10 +65,12 @@ def _operator_tensors(op):
 def grad_requested(op, *operands) -> bool:
     """The grad rule (module doc): grad mode is on and one of ``operands``
     (t, b, rows; non-tensors skipped) or of the operator's own tensors
-    requires grad, or one is wrapped by a ``torch.func`` transform."""
+    requires grad, or one is wrapped by a ``torch.func`` transform or
+    carries a forward-mode tangent."""
     ts = [t for t in operands if isinstance(t, torch.Tensor)]
     ts += _operator_tensors(op)
-    if any(torch._C._functorch.is_functorch_wrapped_tensor(t) for t in ts):
+    if any(torch._C._functorch.is_functorch_wrapped_tensor(t)
+           or fwAD.unpack_dual(t).tangent is not None for t in ts):
         return True
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 

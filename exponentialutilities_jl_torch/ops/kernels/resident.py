@@ -1140,9 +1140,9 @@ def expv_two_pass_resident(op, b, t, m: int, *, tol: float = 1e-7,
                            reduced: str = "device"):
     """Storage-free 1-D Hermitian expv with both passes one launch each:
     pass 1 = ``lanczos_coeffs_resident`` (B2), the m x m reduced
-    tridiagonal exponential (``torch.linalg.eigh``, or host scipy with
-    ``reduced="host"``), pass 2 = the B1 recurrence with the replay rows
-    of the record."""
+    tridiagonal exponential (kernel R1, ``ops/kernels/tridiag.py``, with
+    no host read; host scipy with ``reduced="host"``), pass 2 = the B1
+    recurrence with the replay rows of the record."""
     from ...models.expv import _lanczos_reduced_coeffs
 
     alphas, betas, beta0, m_used, broke = lanczos_coeffs_resident(

@@ -67,7 +67,6 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.autograd.forward_ad as fwAD
 
 from ..utils import graphs
 from ..utils.comm import dots, operator_comm, vdot, vector_norm
@@ -128,12 +127,7 @@ def _sees_grad(S) -> bool:
     """Whether autograd or a ``torch.func`` transform must see the loop
     (module doc): a state tensor requires grad, is wrapped by a transform
     or carries a forward-mode tangent."""
-    return any(
-        isinstance(t, torch.Tensor)
-        and (t.requires_grad
-             or torch._C._functorch.is_functorch_wrapped_tensor(t)
-             or fwAD.unpack_dual(t).tangent is not None)
-        for t in vars(S).values())
+    return graphs.sees_grad(vars(S).values())
 
 
 class _State:

@@ -66,6 +66,32 @@ reads its flags after every step (each read a blocking one), so that it
 runs no step past its end: its collective counts are those of the host
 loops.
 
+Programs. ``Program`` is the counterpart of a jitted serving closure (the
+JAX package's ``make_expv`` / ``make_phiv``): a whole call, a function of
+static device inputs, captured into one graph per key and replayed. It
+belongs to its closure and lives as long as it does (``close`` frees the
+graphs earlier). The first call of a key runs eagerly (the warm-up: the
+kernels are built, plans made, the BLAS and solver handles get their
+workspaces), with every loop inside it inline, and records the tensors
+from outside the call that it reads (the operator's, a parameter that a
+user function closes over: ``_Touched``). If its result requires grad or
+is wrapped by a ``torch.func`` transform, the key stays eager for good.
+The second call is captured on the side stream into the shared pool and
+replayed; from the third on, the inputs are copied into the key's static
+inputs (made outside the capture, as is the output) and the graph
+replayed, and the call returns a clone of the static output, so two
+results never alias. Every call is first held to the grad rule: if
+autograd or a ``torch.func`` transform must see it now (an input or a
+recorded tensor requires grad in grad mode, is wrapped by a transform or
+carries a forward-mode tangent, or a transform or a dual level is active:
+``_sees_grad_now``), it runs eagerly, whatever the key has captured, so
+a parameter that starts to require grad after the capture gets its
+gradient. The CPU, ``eager()`` and a sharded operator run every call
+eagerly. A program counts its eager calls in ``eager_steps``, its
+capture in ``captures`` and the calls it served by replaying an existing
+graph in ``replays`` (the capturing call's own replay is part of its
+capture, but its kernel executions are counted).
+
 ``counts`` tallies, per process, what the runners did (``captures``,
 ``replays``, ``eager_steps``, ``loops``, ``blocking_reads``,
 ``flag_reads``),
@@ -82,12 +108,15 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import weakref
 
 import torch
+import torch.autograd.forward_ad as fwAD
+from torch.overrides import TorchFunctionMode
 
-__all__ = ["LoopRunner", "eager", "inline", "masked_copy", "counts",
-           "executions", "step_launches", "reset_counts",
-           "launch_adjustment", "kernel_executions"]
+__all__ = ["LoopRunner", "Program", "eager", "inline", "masked_copy",
+           "counts", "executions", "step_launches", "reset_counts",
+           "launch_adjustment", "kernel_executions", "sees_grad"]
 
 counts = collections.Counter()
 executions = collections.Counter()
@@ -196,6 +225,56 @@ def _launch_counts():
     return dict(_build.launches)
 
 
+def _capture(device, pool, fn, what: str):
+    """(graph, kernel launches recorded) of ``fn`` captured on the current
+    (side) stream into ``pool``. A failed capture raises, naming ``what``
+    (module doc); its pool is dropped (``_side``)."""
+    before = _launch_counts()
+    g = torch.cuda.CUDAGraph()
+    err = None
+    g.capture_begin(pool=pool)
+    try:
+        _run_step(fn)
+    except Exception as e:          # noqa: BLE001 - re-raised below
+        err = e
+    try:
+        g.capture_end()
+    except Exception as e:          # noqa: BLE001 - re-raised below
+        err = err or e
+    if err is not None:
+        _shared.pop(_device_key(device), None)
+        raise RuntimeError(
+            f"{what} into a CUDA graph failed ({type(err).__name__}: "
+            f"{err}). A step must not read the device (.item(), "
+            ".tolist(), float(), int() or bool() of a CUDA tensor, "
+            "torch.nonzero, boolean indexing) nor build a tensor from host "
+            "data; a user function called inside the step (f, N, a "
+            "matvec) must follow the same rule, or run the call under "
+            "exponentialutilities_jl_torch.utils.graphs.eager()") from err
+    after = _launch_counts()
+    inside = {k: after[k] - before.get(k, 0) for k in after
+              if after[k] != before.get(k, 0)}
+    _captured.update(inside)
+    counts["captures"] += 1
+    return g, inside
+
+
+@contextlib.contextmanager
+def _on_side(stream, device):
+    """Run on ``stream`` (None: the caller's), ordered after the caller's
+    work before and before it after."""
+    if stream is None:
+        yield
+        return
+    caller = torch.cuda.current_stream(device)
+    stream.wait_stream(caller)
+    try:
+        with torch.cuda.stream(stream):
+            yield
+    finally:
+        caller.wait_stream(stream)
+
+
 class LoopRunner:
     """Runs the steps of one driver call (module doc). ``what`` names the
     driver in errors; ``sharded``: the operator carries a communicator
@@ -226,19 +305,6 @@ class LoopRunner:
             g.reset()
         self.graphs.clear()
 
-    @contextlib.contextmanager
-    def _on_stream(self):
-        if self.stream is None:
-            yield
-            return
-        caller = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(caller)
-        try:
-            with torch.cuda.stream(self.stream):
-                yield
-        finally:
-            caller.wait_stream(self.stream)
-
     def read(self, *tensors):
         """One blocking read of 0-d tensors: their host values."""
         counts["blocking_reads"] += 1
@@ -247,36 +313,10 @@ class LoopRunner:
         return vals
 
     def _capture(self, key, name, fn):
-        before = _launch_counts()
-        g = torch.cuda.CUDAGraph()
-        err = None
-        g.capture_begin(pool=self.pool)
-        try:
-            _run_step(fn)
-        except Exception as e:          # noqa: BLE001 - re-raised below
-            err = e
-        try:
-            g.capture_end()
-        except Exception as e:          # noqa: BLE001 - re-raised below
-            err = err or e
-        if err is not None:
-            _shared.pop(_device_key(self.device), None)
-            raise RuntimeError(
-                f"{self.what}: capturing its {name!r} step into a CUDA "
-                f"graph failed ({type(err).__name__}: {err}). A step must "
-                "not read the device (.item(), .tolist(), float(), int() "
-                "or bool() of a CUDA tensor, torch.nonzero, boolean "
-                "indexing) nor build a tensor from host data; a user "
-                "function called inside the step (f, N, a matvec) must "
-                "follow the same rule, or run the call under "
-                "exponentialutilities_jl_torch.utils.graphs.eager()") from err
-        after = _launch_counts()
-        inside = {k: after[k] - before.get(k, 0) for k in after
-                  if after[k] != before.get(k, 0)}
-        _captured.update(inside)
+        g, inside = _capture(self.device, self.pool, fn,
+                             f"{self.what}: capturing its {name!r} step")
         self.launches[(key, name)] = inside
         step_launches[(self.what, key, name, "graph")] = inside
-        counts["captures"] += 1
         return g
 
     def _execute(self, key, name, fn, capture: bool = True):
@@ -323,7 +363,7 @@ class LoopRunner:
         counts["loops"] += 1
         inflight = collections.deque()
         name = first
-        with self._on_stream():
+        with _on_side(self.stream, self.device):
             while True:
                 self._execute(key, name, steps[name])
                 inflight.append(self._post(flags))
@@ -346,7 +386,155 @@ class LoopRunner:
         """Execute the step ``fn`` ``count`` times with no read. ``last``:
         these are its last executions in this runner, so it is captured
         only where at least one execution follows the captured one."""
-        with self._on_stream():
+        with _on_side(self.stream, self.device):
             for i in range(count):
                 self._execute(key, name, fn,
                               capture=not last or count - i >= 2)
+
+
+def sees_grad(tensors) -> bool:
+    """Whether autograd or a ``torch.func`` transform must see a
+    computation on ``tensors``: one requires grad, is wrapped by a
+    transform or carries a forward-mode tangent (non-tensors skipped)."""
+    return any(
+        isinstance(t, torch.Tensor)
+        and (t.requires_grad
+             or torch._C._functorch.is_functorch_wrapped_tensor(t)
+             or fwAD.unpack_dual(t).tangent is not None)
+        for t in tensors)
+
+
+def _sees_grad_now(tensors) -> bool:
+    """The grad rule of a program call (module doc): a ``torch.func``
+    transform or a forward-mode dual level is active, or one of
+    ``tensors`` is wrapped by a transform, carries a tangent or, in grad
+    mode, requires grad."""
+    if (torch._C._functorch.peek_interpreter_stack() is not None
+            or fwAD._current_level >= 0):
+        return True
+    grad = torch.is_grad_enabled()
+    return any(
+        (grad and t.requires_grad)
+        or torch._C._functorch.is_functorch_wrapped_tensor(t)
+        or fwAD.unpack_dual(t).tangent is not None
+        for t in tensors if isinstance(t, torch.Tensor))
+
+
+class _Touched(TorchFunctionMode):
+    """While active, records the tensors that torch functions read and
+    that no torch function made while it was active: what a call reads
+    from outside it (module doc). Only weak references are kept, so no
+    tensor lives longer for it."""
+
+    def __init__(self):
+        super().__init__()
+        self.made = weakref.WeakValueDictionary()
+        self.outside = {}
+
+    def _see(self, x):
+        if isinstance(x, torch.Tensor) and self.made.get(id(x)) is not x:
+            self.outside[id(x)] = weakref.ref(x)
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        for x in (*args, *kwargs.values()):
+            if isinstance(x, (list, tuple)):
+                for y in x:
+                    self._see(y)
+            else:
+                self._see(x)
+        out = func(*args, **kwargs)
+        for y in out if isinstance(out, (list, tuple)) else (out,):
+            if isinstance(y, torch.Tensor):
+                self.made[id(y)] = y
+        return out
+
+    def refs(self, skip=()):
+        """Weak references to the recorded tensors, less ``skip`` (the
+        call's inputs, which each call passes anew)."""
+        skip = {id(x) for x in skip}
+        return [r for k, r in self.outside.items() if k not in skip]
+
+
+def _clone(x):
+    if isinstance(x, tuple):
+        return tuple(t.clone() for t in x)
+    return x.clone()
+
+
+class Program:
+    """A whole call of a closure, captured into one CUDA graph per key and
+    replayed (module doc, "Programs"). ``what`` names the closure and its
+    operator in errors; ``sharded``: the operator carries a communicator
+    (every call runs eagerly). It lives as long as its owner: ``close``
+    frees its graphs, and so does the owner's going (the graphs go with
+    the program)."""
+
+    def __init__(self, what: str, *, sharded: bool = False):
+        self.what = what
+        self.sharded = sharded
+        # key -> (graph, static inputs, output, captured launches)
+        self.graphs = {}
+        # key -> weak references to the tensors from outside the call that
+        # its warm-up read
+        self.touched = {}
+        self.eager_keys = set()
+
+    def close(self):
+        """Free the graphs; their memory goes back to the shared pool."""
+        for g, *_ in self.graphs.values():
+            g.reset()
+        self.graphs.clear()
+
+    def __call__(self, key, fn, inputs: tuple):
+        """``fn(*inputs)`` for device tensors ``inputs`` (module doc): the
+        first call of a key eagerly, its second captured (and replayed),
+        every later one replayed after ``inputs`` are copied into the
+        key's static inputs; the result of a replay is a fresh clone. A
+        call that the grad rule must see runs eagerly."""
+        device = inputs[0].device
+        graphed = (device.type == "cuda" and not self.sharded
+                   and not _eager_only[0] and key not in self.eager_keys)
+        if graphed and key in self.touched and not _sees_grad_now(
+                (*inputs, *(r() for r in self.touched[key]))):
+            got = self.graphs.get(key)
+            if got is None:
+                return self._capture(key, fn, inputs, device)
+            g, static, out, inside = got
+            stream, _ = _side(device)
+            with _on_side(stream, device), torch.no_grad():
+                for s, x in zip(static, inputs):
+                    s.copy_(x)
+                g.replay()
+            counts["replays"] += 1
+            _replayed.update(inside)
+            return _clone(out)
+        out = []
+        if key in self.touched:
+            _run_step(lambda: out.append(fn(*inputs)))
+            counts["eager_steps"] += 1
+            return out[0]
+        with _Touched() as rec:         # the key's warm-up
+            _run_step(lambda: out.append(fn(*inputs)))
+        counts["eager_steps"] += 1
+        self.touched[key] = rec.refs(skip=inputs)
+        res = out[0]
+        if sees_grad(res if isinstance(res, tuple) else (res,)):
+            self.eager_keys.add(key)
+        return res
+
+    def _capture(self, key, fn, inputs, device):
+        # inputs and outputs live outside the capture's temporaries: the
+        # static inputs are made here, the output by the capture from the
+        # shared pool, kept alive by the program
+        static = tuple(x.detach().clone() for x in inputs)
+        stream, pool = _side(device)
+        out = []
+        with _on_side(stream, device):
+            g, inside = _capture(device, pool,
+                                 lambda: out.append(fn(*static)),
+                                 f"{self.what}: capturing a call")
+            g.replay()
+        _replayed.update(inside)
+        self.graphs[key] = (g, static, out[0], inside)
+        return _clone(out[0])

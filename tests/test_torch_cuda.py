@@ -323,7 +323,7 @@ def test_phi_path_dispatches_to_kernels(dev):
         "resident_recurrence": 0, "resident_lanczos": 1, "resident_multi": 2,
         "resident_banded": 0, "resident_grid": 0, "fused_sweep": 0,
         "fused_sweep_var": 0, "sweep_stage": 0, "banded_spmv": 0, "blockell_spmv": 0, "sell_spmv": 0,
-        "seg_compact": 0}
+        "seg_compact": 0, "tridiag_exp": 0}
     for w in (w1, w2):
         assert float((w - w3).norm() / w3.norm()) < 1e-10
 
@@ -1229,8 +1229,10 @@ def test_b6_tiles_past_shared_memory_take_the_family_form(dev, dt):
 
 def test_complex_b_on_a_cuda_stencil_takes_the_plain_path(dev):
     """A complex b on a real Hermitian stencil: the dtype gates send it to
-    the plain passes (the kernels are real-only), nothing raises, and the
-    result is the CPU run's (which scipy holds in tests/test_torch_expv.py)."""
+    the plain passes (the recurrence kernels are real-only), nothing
+    raises, and the result is the CPU run's (which scipy holds in
+    tests/test_torch_expv.py). The reduced problem, a real tridiagonal,
+    is R1's in each call (once a Lanczos step for the error estimate)."""
     n = 2000
     op = et.laplacian_nd_stencil(n, device=dev)
     op_cpu = et.laplacian_nd_stencil(n, device="cpu")
@@ -1244,7 +1246,9 @@ def test_complex_b_on_a_cuda_stencil_takes_the_plain_path(dev):
         assert w.dtype == torch.complex128
         want = et.expv(0.3, op_cpu, b, **kw)
         _close(w.cpu(), want, torch.float64)
-    assert not any(_build.launches.values())
+    assert not any(v for k, v in _build.launches.items()
+                   if k != "tridiag_exp")
+    assert _build.launches["tridiag_exp"] >= 3
 
 
 @pytest.mark.parametrize("driver", ["phiv_timestep", "kiops"])
@@ -1672,7 +1676,7 @@ def test_sharded_two_pass_one_nccl_rank(dev, tmp_path):
             a, bb, b0, mu, _ = sf.lanczos_coeffs_fused_sharded(plan, b, m)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        # the reduced eigh between the passes reads its info to the host
+        # the reduced stage between the passes (R1) is not held here
         co = _lanczos_reduced_coeffs(a, bb, b0, 0.05)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
@@ -2327,3 +2331,219 @@ def test_live_runner_graphs_interleave_with_another_capture(dev):
     assert graphs.counts["replays"] == 2 + 5 + 2 + 2 + 10
     ea, eb = run(True)
     assert torch.equal(ga, ea) and torch.equal(gb, eb)
+
+
+# --- R1 and the serving programs (ops/kernels/tridiag.py, graphs.Program) --
+
+def _tridiag(m, dt, dev, seed, tail=0):
+    """A random real symmetric tridiagonal (alphas, betas (m - 1)) of
+    norm ~4 with its last ``tail`` rows masked to zero (a breakdown)."""
+    g = np.random.default_rng(seed)
+    a = -np.abs(g.standard_normal(m)) * 2
+    b = np.abs(g.standard_normal(max(m - 1, 0)))
+    if tail:
+        a[m - tail:] = 0.0
+        b[m - tail - 1:] = 0.0
+    return (torch.as_tensor(a, dtype=dt, device=dev),
+            torch.as_tensor(b, dtype=dt, device=dev))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("m,tail", [(1, 0), (2, 0), (20, 0), (40, 0),
+                                    (60, 0), (250, 0), (40, 37)])
+def test_r1_vs_twin(dev, dt, m, tail):
+    """R1 against its eigh twin: real and complex t, with and without s,
+    in shared memory (m <= 60) and in the global scratch (m = 250); a
+    breakdown at j = 3 (the masked zero tail) leaves the tail exactly 0."""
+    from exponentialutilities_jl_torch.ops.kernels import tridiag as tt
+
+    a, b = _tridiag(m, dt, dev, 71 + m, tail)
+    s = torch.tensor(1.7, dtype=dt, device=dev)
+    cdt = torch.complex64 if dt == torch.float32 else torch.complex128
+    for t in (torch.tensor(0.6, dtype=dt, device=dev),
+              torch.tensor(0.6 - 0.8j, dtype=cdt, device=dev)):
+        for sc in (None, s):
+            _build.reset_launch_counts()
+            got = tt.tridiag_exp_e1(a, b, t, sc)
+            assert _build.launches["tridiag_exp"] == 1
+            want = tt.tridiag_exp_e1_ref(a, b, t, sc)
+            assert got.dtype == want.dtype
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            assert err <= {torch.float32: 1e-5,
+                           torch.float64: 1e-13}[dt] * scale, (err, scale)
+            if tail:
+                assert not got[m - tail:].abs().max()
+            assert torch.equal(got, tt.tridiag_exp_e1(a, b, t, sc))
+
+
+def _serving_cells(dev):
+    """Hermitian (a 1-D stencil) and Arnoldi (config #4's operator at n =
+    400) closures: {name: (closure, t, n)}."""
+    st = et.laplacian_nd_stencil(500, device=dev)
+    adv = et.advection_diffusion_1d(400, peclet=10.0, device=dev)
+    return {"expv stencil": (et.make_expv(st, m=30), 0.5, 500),
+            "expv advection": (et.make_expv(adv, m=40), 2e-4, 400),
+            "phiv stencil": (et.make_phiv(st, 2, m=30), 0.5, 500),
+            "phiv advection": (et.make_phiv(adv, 1, m=40), 2e-4, 400)}
+
+
+@pytest.mark.parametrize("name", ["expv stencil", "expv advection",
+                                  "phiv stencil", "phiv advection"])
+def test_program_counts_and_bits(dev, name):
+    """Calls 1-6 of a closure: 1 eager call, 1 capture, 4 replays, no sync
+    in a replayed call, each result bit-equal to the same call under
+    graphs.eager(), and no two results alias."""
+    from exponentialutilities_jl_torch.utils import graphs
+
+    fn, t, n = _serving_cells(dev)[name]
+    bs = [_vec(n, torch.float64, dev, 80 + i) for i in range(6)]
+    graphs.reset_counts()
+    outs = []
+    for i, b in enumerate(bs):
+        if i >= 2:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs.append(fn(t, b))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert {k: graphs.counts[k] for k in ("eager_steps", "captures",
+                                          "replays")} == \
+        {"eager_steps": 1, "captures": 1, "replays": 4}
+    assert not graphs.counts["blocking_reads"]
+    first = [o[0] if isinstance(o, tuple) else o for o in outs]
+    assert len({w.data_ptr() for w in first}) == 6
+    with graphs.eager():
+        for b, o in zip(bs, outs):
+            e = fn(t, b)
+            for x, y in zip(o if isinstance(o, tuple) else (o,),
+                            e if isinstance(e, tuple) else (e,)):
+                assert torch.equal(x, y), name
+    fn.close()
+    assert not fn.program.graphs
+
+
+def test_two_live_programs_interleave(dev):
+    """Two closures alive at once, their replays interleaved: each replay
+    equals its eager call bit for bit."""
+    from exponentialutilities_jl_torch.utils import graphs
+
+    cells = _serving_cells(dev)
+    (fa, ta, na), (fb, tb, nb) = cells["expv stencil"], cells["phiv advection"]
+    calls = [(fa, ta, _vec(na, torch.float64, dev, 90 + i)) if i % 2 == 0
+             else (fb, tb, _vec(nb, torch.float64, dev, 90 + i))
+             for i in range(10)]
+    got = [fn(t, b) for fn, t, b in calls]
+    with graphs.eager():
+        want = [fn(t, b) for fn, t, b in calls]
+    for g, w in zip(got, want):
+        g, w = (g[0], w[0]) if isinstance(g, tuple) else (g, w)
+        assert torch.equal(g, w)
+    assert len(fa.program.graphs) == 1 and len(fb.program.graphs) == 1
+
+
+def test_program_key_that_needs_grad_stays_eager(dev):
+    """A closure whose MatrixFreeOperator closes over a requires-grad
+    tensor: its result requires grad, so the key makes no capture, and the
+    gradient equals the CPU's."""
+    from exponentialutilities_jl_torch.utils import graphs
+
+    gs = {}
+    for where in (dev, "cpu"):
+        ban = et.laplacian_nd_stencil(300, device=where)
+        p = torch.tensor(0.8, dtype=torch.float64, device=where,
+                         requires_grad=True)
+        op = et.MatrixFreeOperator(lambda x, ban=ban, p=p: p * ban.matvec(x),
+                                   (300, 300), is_hermitian=True,
+                                   device=where)
+        fn = et.make_expv(op, m=30)
+        graphs.reset_counts()
+        for _ in range(3):
+            w = fn(0.3, _vec(300, torch.float64, where, 95))
+            (g,) = torch.autograd.grad(w.sum(), p)
+        assert not graphs.counts["captures"] and not fn.program.graphs
+        assert graphs.counts["eager_steps"] == 3
+        gs[str(where)] = float(g)
+    assert abs(gs[str(dev)] - gs["cpu"]) <= 1e-12 * abs(gs["cpu"])
+
+
+@pytest.mark.parametrize("how", ["b requires grad", "vjp in b",
+                                 "parameter turned on"])
+def test_program_call_that_needs_grad_after_a_capture_runs_eager(dev, how):
+    """Plain calls of a closure (1 eager, 1 capture, 1 replay), then a call
+    that autograd or torch.func must see: b requires grad, a vjp in b, or
+    a tensor the operator closes over set to require grad after the
+    capture. That call runs eagerly, its gradient equals the CPU's, and a
+    plain call after it replays the graph again."""
+    from exponentialutilities_jl_torch.utils import graphs
+
+    n, t = 300, 0.3
+    gs = {}
+    for where in (dev, "cpu"):
+        ban = et.laplacian_nd_stencil(n, device=where)
+        p = torch.tensor(0.8, dtype=torch.float64, device=where)
+        op = et.MatrixFreeOperator(lambda x, ban=ban, p=p: p * ban.matvec(x),
+                                   (n, n), is_hermitian=True, device=where)
+        fn = et.make_expv(op, m=30)
+        graphs.reset_counts()
+        for i in range(3):
+            assert not fn(t, _vec(n, torch.float64, where, 98 + i)).requires_grad
+        b = _vec(n, torch.float64, where, 101)
+        if how == "b requires grad":
+            b.requires_grad_(True)
+            (g,) = torch.autograd.grad(fn(t, b).square().sum(), b)
+        elif how == "vjp in b":
+            w, pull = torch.func.vjp(lambda x: fn(t, x), b)
+            (g,) = pull(torch.ones_like(w))
+        else:
+            p.requires_grad_(True)
+            (g,) = torch.autograd.grad(fn(t, b).square().sum(), p)
+            g = g.reshape(1)
+        gs[str(where)] = g.detach().cpu()
+        if where != "cpu":
+            assert {k: graphs.counts[k] for k in ("eager_steps", "captures",
+                                                  "replays")} == \
+                {"eager_steps": 2, "captures": 1, "replays": 1}
+            if how == "parameter turned on":
+                p.requires_grad_(False)
+            fn(t, _vec(n, torch.float64, where, 102))
+            assert graphs.counts["replays"] == 2
+        fn.close()
+    _close(gs[str(dev)], gs["cpu"], torch.float64)
+
+
+@pytest.mark.parametrize("kind", ["stencil", "sell"])
+def test_error_estimate_loop_on_the_card(dev, kind):
+    """The error-estimate loop from a CUDA graph: the CPU's iteration
+    count and w, at most one masked step past the end, no blocking read
+    but the one that ends the loop."""
+    import scipy.sparse as sp
+    from exponentialutilities_jl_torch.utils import graphs
+
+    if kind == "stencil":
+        ops = {w: et.laplacian_nd_stencil(40, 50, device=w)
+               for w in (dev, "cpu")}
+        t = 0.05
+    else:
+        rows, cols, vals = _banded_random(3000, 6, 100, 96)
+        A = sp.coo_matrix((vals, (rows, cols)), shape=(3000, 3000))
+        A = (0.5 * (A + A.T)).tocoo()
+        ops = {w: et.SellOperator.from_scipy(A, dtype=np.float64,
+                                             is_hermitian=True, device=w)
+               for w in (dev, "cpu")}
+        t = 0.5
+    n = ops["cpu"].shape[0]
+    b = _vec(n, torch.float64, "cpu", 97)
+    want, it_cpu = et.expv(t, ops["cpu"], b, m=60, mode="error_estimate",
+                           atol=1e-12, rtol=1e-12, return_info=True)
+    graphs.reset_counts()
+    w, it = et.expv(t, ops[dev], b.to(dev), m=60, mode="error_estimate",
+                    atol=1e-12, rtol=1e-12, return_info=True)
+    assert it == it_cpu and 3 < it < 60
+    assert graphs.counts["captures"] == 1
+    assert graphs.counts["blocking_reads"] == 1
+    # step 0 before the runner, then it - 1 live steps and one masked one
+    assert graphs.counts["eager_steps"] + graphs.counts["replays"] == it
+    _close(w.cpu(), want, torch.float64)

@@ -166,7 +166,7 @@ def test_cpu_runs_twin_not_kernel():
                                "fused_sweep": 0, "fused_sweep_var": 0,
                                "sweep_stage": 0, "banded_spmv": 0,
                                "blockell_spmv": 0, "sell_spmv": 0,
-                               "seg_compact": 0}
+                               "seg_compact": 0, "tridiag_exp": 0}
 
 
 def test_resident_supported_and_rejects():
