@@ -69,7 +69,8 @@ its seconds:
               rank's block rows with the whole x (a rectangular product);
               R1 (the port's own kernel, the Hermitian reduced
               exponential) against its eigh twin in float32 and float64
-              (tridiag_checks: m = 1 to 250, a breakdown, complex t, s)
+              (tridiag_checks: m = 1 to 250, a breakdown, complex t, s,
+              and the hard inputs of tests/tridiag_cases.py)
   4. main     the public entry points (expv_chebyshev, expv with and
               without two_pass, phiv with and without two_pass,
               phiv_chebyshev, phiv_timestep_chebyshev) with launch counts
@@ -3116,10 +3117,18 @@ def graphs_only(et, dev, card, profile: bool) -> int:
 # R1 (ops/kernels/tridiag.py) against its eigh twin, phase 3: random
 # real symmetric tridiagonals of norm ~4 (t |T| ~ 4), real and complex t,
 # with and without s, float32 and float64; the orders the Krylov paths use
-# (m = 1 and 2 at the edges, 20-60 the main paths', 250 config #4's m,
-# which takes the global scratch), and a breakdown at j = 3 (the masked
-# zero tail of a Lanczos record), whose tail must come out exactly 0
-R1_ORDERS = (1, 2, 20, 40, 60, 250)
+# (m = 1 and 2 at the edges, 20-60 the main paths', 250 config #4's m;
+# 400 takes the kernel's global-scratch form), and a breakdown at j = 3
+# (the masked zero tail of a Lanczos record),
+# whose tail must come out exactly 0, at R1_TOL of the largest entry.
+# Then the inputs a divide and conquer gets wrong first
+# (tests/tridiag_cases.py: Wilkinson W+ 21 and 201, glued Wilkinson
+# blocks, a graded diagonal 1e-12 .. 1e2, a constant tridiagonal, the
+# Lanczos tridiagonal of a 1-D Laplacian with ghost eigenvalues at m =
+# 250, t |T| up to 1e3 with negative and complex t, the error-estimate
+# loop's zero tails), each at R1_TOL x max(1, |t| ||T||_1), the
+# conditioning of exp(tT) e1
+R1_ORDERS = (1, 2, 20, 40, 60, 250, 400)
 R1_TOL = {"float32": 1e-5, "float64": 1e-13}
 R1_TIMED = (30, 40, 250)      # R1's times at these orders (40: the line)
 
@@ -3171,15 +3180,69 @@ def tridiag_checks(et, dev):
               f"at j = 3 (m = 40), real and complex t, with and without s: "
               f"max abs err {worst[dn]:.2e} (tol {R1_TOL[dn]:g} of the max; "
               "bitwise repeatable; the masked tail exactly 0)", flush=True)
+        hard = r1_hard_checks(dt, cdt, dn, dev)
+        print(f"check R1 tridiag_exp {dn} hard inputs: {len(hard)} cases, "
+              f"with and without s, largest error / tolerance "
+              f"{max(hard.values()):.2e} ({max(hard, key=hard.get)}; "
+              "bitwise repeatable; masked tails exactly 0)", flush=True)
     return worst["float64"]
+
+
+def r1_hard_checks(dt, cdt, dn, dev):
+    """R1 against its twin on tests/tridiag_cases.py's hard inputs (the
+    comment above R1_ORDERS); returns {case: error / its tolerance}."""
+    import os
+
+    import torch
+    from exponentialutilities_jl_torch.ops.kernels import tridiag as tt
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from tridiag_cases import case_tol, hard_cases
+
+    out = {}
+    s = torch.tensor(1.7, dtype=dt, device=dev)
+    for name, a, b, t in hard_cases():
+        at = torch.as_tensor(a, dtype=dt, device=dev)
+        bt = torch.as_tensor(b, dtype=dt, device=dev)
+        tq = torch.tensor(t, dtype=cdt if isinstance(t, complex) else dt,
+                          device=dev)
+        tol = case_tol(a, b, t, dn)
+        zero = np.flatnonzero(np.asarray(b) == 0)
+        for sc in (None, s):
+            got = tt.tridiag_exp_e1(at, bt, tq, sc)
+            want = tt.tridiag_exp_e1_ref(at, bt, tq, sc)
+            torch.cuda.synchronize()
+            e = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            check(got.dtype == want.dtype and e <= tol * scale,
+                  f"R1 {dn} {name} s={sc is not None}: {e:.2e} of "
+                  f"{scale:.2e} (tol {tol:.1e})")
+            check(torch.equal(got, tt.tridiag_exp_e1(at, bt, tq, sc)),
+                  f"R1 {dn} {name}: not bitwise repeatable")
+            if zero.size:
+                check(not bool(got[zero[0] + 1:].abs().max()),
+                      f"R1 {dn} {name}: the masked tail is not 0")
+            out[name] = max(out.get(name, 0.0), e / (tol * scale))
+    return out
 
 
 def r1_work(m):
     """(bytes, operations) of R1 at order m in float64: the diagonals, t
-    and s in, m values out; implicit QL with the eigenvectors accumulated
-    (6 m^3, Golub and Van Loan's count for the tridiagonal QR/QL with
-    vectors) and the m-term combination of every row (2 m^2)."""
-    return ((3 * m + 1) * 8, 6 * m ** 3 + 2 * m ** 2)
+    and s in, m values out; the divide and conquer's merges on an input
+    that deflates nothing (the random inputs timed here), with one
+    evaluation of each secular function: ~25 operations for each pair of
+    a node's k rows (the secular terms 6, the Loewner factors 5, the
+    column norms and the two rows carried up 9, the way down 5), the
+    least this design does there."""
+    ops, todo = 0, [(0, m)]
+    while todo:
+        lo, hi = todo.pop()
+        if hi - lo >= 2:
+            ops += 25 * (hi - lo) ** 2
+            mid = lo + (hi - lo) // 2
+            todo += [(lo, mid), (mid, hi)]
+    return ((3 * m + 1) * 8, ops)
 
 
 # The serving closures and the error-estimate loop (phase 4's eighth path,
@@ -3224,6 +3287,56 @@ def serving_inputs(et, dev):
     print(f"serving-only inputs and references: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return s
+
+
+def serving_stale_check(et, dev, s):
+    """A serving closure follows its operator's storage (utils/graphs.py,
+    "Stale storage"): make_expv(m=30) on a copy of config #3's operator,
+    calls 1-3 (eager, capture, replay), then its diagonals scaled by 1.5
+    in place or reassigned: call 4 drops the graph and runs eagerly (one
+    recapture), call 5 is captured anew, call 6 replays with no blocking
+    read. exp(t 1.5 A) b = exp(1.5 t A) b, so calls 4-6 equal, bit for bit
+    among themselves, an eager closure's call at 1.5 t made before the
+    change (to the Krylov rounding, 1e-12)."""
+    import torch
+    from exponentialutilities_jl_torch.utils import graphs
+
+    gen = np.random.default_rng(SEED + 41)
+    b = torch.as_tensor(gen.standard_normal(NP * NP), device=dev)
+    for how in ("in place", "reassign"):
+        op = et.BandedOperator(s["opP"].diags.clone(), s["opP"].offsets,
+                               is_hermitian=True)
+        with graphs.eager():          # another closure: fn's call 1 below
+            want = et.make_expv(op, m=30)(1.5 * TP, b)   # is its warm-up
+        fn = et.make_expv(op, m=30)
+        graphs.reset_counts()
+        for _ in range(3):
+            fn(TP, b)
+        if how == "in place":
+            op.diags.mul_(1.5)
+        else:
+            op.diags = op.diags * 1.5
+        got = [fn(TP, b), fn(TP, b)]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got.append(fn(TP, b))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        cnt = {k: graphs.counts.get(k, 0) for k in
+               ("eager_steps", "captures", "replays", "recaptures")}
+        want_c = {"eager_steps": 2, "captures": 2, "replays": 2,
+                  "recaptures": 1}
+        check(cnt == want_c, f"stale {how}: counts {cnt}, expected {want_c}")
+        check(torch.equal(got[0], got[1]) and torch.equal(got[0], got[2]),
+              f"stale {how}: calls 4-6 differ")
+        e = rel_norm(got[0], want)
+        check(e <= 1e-12, f"stale {how}: {e:.2e} from exp(1.5 t A) b")
+        fn.close()
+        print(f"check serving stale storage ({how}, config3 make_expv "
+              f"m=30): counts {cnt}; calls 4-6 bit-equal; {e:.2e} from "
+              f"the eager exp(1.5 t A) b of before the change (tol 1e-12)",
+              flush=True)
 
 
 def serving_path(et, dev, card, s):
@@ -3392,6 +3505,8 @@ def serving_path(et, dev, card, s):
               f"{SERVE_REPS} in turns); call 1 (eager warm-up) "
               f"{call_ms[0]:.3f} ms, call 2 (capture) {call_ms[1]:.3f} ms "
               f"{card}", flush=True)
+
+    serving_stale_check(et, dev, s)
 
     # the error-estimate loop from a CUDA graph against the CPU's
     perm_c = s["perm"].cpu().numpy()

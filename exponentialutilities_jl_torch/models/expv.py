@@ -422,7 +422,7 @@ def _serving_closure(what: str, op, call):
     precision) before the program, outside any capture. ``fn.program`` is
     the program and ``fn.close()`` frees its graphs."""
     prog = graphs.Program(f"{what} ({type(op).__name__})",
-                          sharded=operator_comm(op) is not None)
+                          sharded=operator_comm(op) is not None, holds=op)
 
     def fn(t, b):
         b = action_vector(b, op)
@@ -449,10 +449,17 @@ def make_expv(op, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
     Hermitian operator, Higham 2005 with the 1-norm taken on the device
     otherwise. ``fn.close()`` frees the graphs before the closure goes.
 
+    The closure follows the operator's current storage, as the JAX
+    package's default closure (``bake_operator=False``, the operator passed
+    on every call) does: a call after ``op``'s storage is reassigned or
+    changed in place drops the captured graph and runs as a warm-up, so it
+    sees the new values and the next call is captured anew
+    (``utils/graphs.Program``, "Stale storage").
+
     bake_operator: accepted for the JAX package's signature and changes
       nothing. There it embeds the operator's arrays in the compiled
-      program as constants; the closure over ``op`` already holds its
-      tensors, as baking does."""
+      program as constants, so a later change of them is not seen; here
+      every call reads the operator's storage as it is then."""
     op = aslinearoperator(op)
     m_ = min(m, op.shape[0])
     herm = op.is_hermitian if hermitian is None else hermitian

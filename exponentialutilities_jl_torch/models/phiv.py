@@ -139,7 +139,10 @@ def make_phiv(op, k: int, *, m: int = 30, tol: float = 1e-7, iop: int = 0,
     and Krylov settings bound once, each call one program
     (``utils/graphs.Program``, as ``models/expv.make_expv``; the JAX
     package's jitted ``_phiv_fused``), its reduced augmented exponential
-    with no host read. ``fn.close()`` frees the graphs."""
+    with no host read. Like ``make_expv``'s, the closure follows the
+    operator's current storage: a call after it is reassigned or changed
+    in place runs eagerly and the next one is captured anew.
+    ``fn.close()`` frees the graphs."""
     op = aslinearoperator(op)
     m_ = min(m, op.shape[0])
 

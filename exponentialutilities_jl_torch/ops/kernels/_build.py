@@ -136,7 +136,8 @@ def _declare(lib):
         f.argtypes = [_VP, _VP, _LL, _VP, _VP]
         f.restype = _I
         f = getattr(lib, f"eu_tridiag_exp_{suf}")
-        f.argtypes = [_VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _I, _LL, _I, _VP]
+        f.argtypes = [_VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _I, _LL, _I, _I,
+                      _VP, _VP]
         f.restype = _I
     lib.eu_device_sms.argtypes = []
     lib.eu_device_sms.restype = _I

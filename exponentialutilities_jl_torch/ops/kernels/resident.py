@@ -948,12 +948,17 @@ class GridRecurrencePlan:
 
 def _op_plan(op, cls, dtype, device):
     """``cls``'s plan for ``op``, kept per (dtype, device) with the
-    coefficients (a ``BandedOperator``'s diagonals) and offsets it was built
-    from, rebuilt when either is reassigned."""
+    coefficients (a ``BandedOperator``'s diagonals, in their ``_promoted``
+    form) and offsets it was built from, rebuilt when either is reassigned
+    or the cast copy is made anew."""
+    from ..sparse import _promoted
+
     device = _plan_device(device)
     plans = op.__dict__.setdefault("_resident_plans", {})
     hit = plans.get((cls, dtype, device))
-    src = getattr(op, getattr(cls, "source", "coeffs"))
+    source = getattr(cls, "source", "coeffs")
+    src = (_promoted(op, source, dtype) if source == "diags"
+           else getattr(op, source))
     if hit is None or hit[0] is not src or hit[1] != op.offsets:
         hit = plans[(cls, dtype, device)] = (src, op.offsets,
                                              cls(op, dtype, device))

@@ -9,18 +9,24 @@ the error-estimate loop. The JAX package evaluates it with XLA's eigh
 inside its compiled programs; on the card ``torch.linalg.eigh`` reads its
 info to the host, so a call through it cannot be captured into a CUDA
 graph. ``tridiag_exp_e1`` is R1's one dispatcher: it launches the
-hand-written kernel (``csrc/tridiag.cu``: one block, one thread running
-the implicit QL sweeps with Wilkinson shifts on the one copy of d and e
-in shared memory, the other warps rotating their rows of Q by the sweep
-before) for CUDA tensors and raises if the build or the launch fails; on CPU
-tensors, and for calls that autograd or a ``torch.func`` transform must
-see (the grad rule of ``ops/kernels/dispatch.py``, counted in its
-``grad_gated``), it runs the plain twin ``tridiag_exp_e1_ref``, the
-eigh formula, which has eigh's gradient. t (a number or a 0-d tensor)
-becomes a 0-d tensor on the diagonals' device without a host-to-device
-copy (``scalar_operand``), and s is a 0-d tensor there: the kernel reads
-both from device memory, so a captured launch reads each replay's
-values.
+hand-written kernel for CUDA tensors and raises if the build or the launch
+fails. The kernel (``csrc/tridiag.cu``, one block) is Cuppen's divide and
+conquer on the leading unreduced block only (out[n:] = 0 past the first
+negligible coupling, so the error-estimate loop's masked step j costs
+order j + 1): a tear down to leaves of one row, then one merge level at a
+time (a rank sort, ``dlaed2``'s deflation, one secular root a thread kept
+as a pole and an offset, Gu and Eisenstat's recomputed z), the first and
+last rows carried up, and s e^{t lambda} (Q^T e1) carried down through the
+levels, with no eigenvector matrix formed. ``tests/test_torch_tridiag_dc.py``
+holds a numpy model of these steps against scipy on the hard inputs of
+``tests/tridiag_cases.py``. On CPU tensors, and for calls that autograd or
+a ``torch.func`` transform must see (the grad rule of
+``ops/kernels/dispatch.py``, counted in its ``grad_gated``), the wrapper
+runs the plain twin ``tridiag_exp_e1_ref``, the eigh formula, which has
+eigh's gradient. t (a number or a 0-d tensor) becomes a 0-d tensor on the
+diagonals' device without a host-to-device copy (``scalar_operand``), and
+s is a 0-d tensor there: the kernel reads both from device memory, so a
+captured launch reads each replay's values.
 """
 
 from __future__ import annotations
@@ -34,27 +40,39 @@ from . import _build
 from .dispatch import grad_gate
 
 __all__ = ["tridiag_exp_e1", "tridiag_exp_e1_ref", "scalar_operand",
-           "launch_shape", "SMEM_BUDGET", "MAX_THREADS", "MAX_ITER"]
+           "launch_shape", "work_bytes", "SMEM_BUDGET", "MAX_THREADS",
+           "MAX_ITER", "MAX_ORDER"]
 
 SMEM_BUDGET = 200 * 1024   # bytes of dynamic shared memory (227 KB opt-in)
-MAX_THREADS = 32 + 256     # warp 0 (thread 0: the QL sweeps) + appliers
-MAX_ITER = 64              # QL iterations per eigenvalue before NaN
+MAX_THREADS = 512          # groups of lanes, one a root or row
+MAX_ITER = 64              # secular evaluations per root before NaN
+MAX_ORDER = 32767          # positions are int16 in the kernel
+CLOCK_SLOTS = 128          # 3 + 8 x the tree's depth, at most
 
 
-def launch_shape(m: int, dtype) -> tuple[int, int, bool]:
-    """(threads, bytes of dynamic shared memory, whether Q is among them)
-    of a launch at order m in real dtype: d, e and two rotation buffers
-    (6 m values) always, Q (m^2) where the whole fits ``SMEM_BUDGET``,
-    else Q in a global scratch buffer."""
-    nt = min(MAX_THREADS, 32 + 32 * max(1, math.ceil(m / 32)))
-    es = torch.empty((), dtype=dtype).element_size()
-    with_q = (m * m + 6 * m) * es
-    if with_q <= SMEM_BUDGET:
-        return nt, with_q, True
-    if 6 * m * es > SMEM_BUDGET:
-        raise ValueError(f"R1 tridiag_exp_e1: m = {m} is too large for one "
-                         "block's shared memory")
-    return nt, 6 * m * es, False
+def work_bytes(m: int) -> int:
+    """Bytes of the kernel's workspace at order m (``csrc/tridiag.cu``'s
+    ``work_bytes``): 8 working vectors of m doubles, and for each of the
+    tree's ceil(log2 m) levels (at least one) 7 arrays of m doubles and 6
+    of m int16. All arithmetic is in double, whatever the data's type."""
+    lv = max(1, (m - 1).bit_length()) * m
+    return 8 * (8 * m + 7 * lv) + 2 * 6 * lv
+
+
+def launch_shape(m: int) -> tuple[int, int, int, bool]:
+    """(threads, lanes, bytes of workspace, whether it is shared memory)
+    of a launch at order m, in either data type (the work is in double):
+    ``MAX_THREADS`` threads in groups of ``lanes`` (a power of two up to
+    32, as many as keep a group for each of the m roots or rows a level
+    has), the workspace in dynamic shared memory where it fits
+    ``SMEM_BUDGET`` (m <= 302), else in a global scratch buffer that the
+    wrapper allocates."""
+    if m > MAX_ORDER:
+        raise ValueError(f"R1 tridiag_exp_e1: m = {m} is above {MAX_ORDER}, "
+                         "the kernel's int16 positions")
+    lanes = min(32, 1 << max(0, (MAX_THREADS // max(m, 1)).bit_length() - 1))
+    nbytes = work_bytes(m)
+    return MAX_THREADS, lanes, nbytes, nbytes <= SMEM_BUDGET
 
 
 def tridiag_exp_e1_ref(alphas, betas, t, s=None):
@@ -102,7 +120,11 @@ def tridiag_exp_e1(alphas, betas, t, s=None):
     return _launch(alphas, betas, scalar_operand(t, alphas), s)
 
 
-def _launch(alphas, betas, t, s):
+def _launch(alphas, betas, t, s, clocks=None):
+    """One launch of R1; ``clocks``: an int64 CUDA tensor of ``CLOCK_SLOTS``
+    values that thread 0 fills with the SM's cycle counter at the start
+    and after every phase's barrier (a timing script's view of where the
+    time goes), else None."""
     dev = alphas.device
     _check("alphas", alphas, 1, dev)
     _check("betas", betas, 1, dev)
@@ -125,13 +147,19 @@ def _launch(alphas, betas, t, s):
     out = torch.empty(m, dtype=odt, device=dev)
     if m == 0:
         return out
-    nt, nbytes, q_shared = launch_shape(m, rdt)
-    scratch = (None if q_shared else
-               torch.empty(m * m, dtype=rdt, device=dev))
+    nt, lanes, nbytes, shared = launch_shape(m)
+    scratch = (None if shared else
+               torch.empty(-(-nbytes // 8), dtype=torch.float64, device=dev))
+    if clocks is not None:
+        _check("clocks", clocks, 1, dev)
+        if clocks.dtype != torch.int64 or clocks.numel() < CLOCK_SLOTS:
+            raise ValueError(f"R1 tridiag_exp_e1: clocks must hold "
+                             f"{CLOCK_SLOTS} int64 values")
     fn = getattr(_build.library(), f"eu_tridiag_exp_{_build.suffix(rdt)}")
     _build.check(fn(_build.ptr(a), _build.ptr(b), _build.ptr(tt),
                     int(odt.is_complex), _build.ptr(ss), _build.ptr(out),
-                    _build.ptr(scratch), m, nt, nbytes, MAX_ITER,
-                    _build.raw_stream(dev)), "R1 tridiag_exp_e1")
+                    _build.ptr(scratch), m, nt, nbytes, MAX_ITER, lanes,
+                    _build.ptr(clocks), _build.raw_stream(dev)),
+                 "R1 tridiag_exp_e1")
     _build.launches["tridiag_exp"] += 1
     return out

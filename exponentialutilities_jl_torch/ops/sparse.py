@@ -155,20 +155,35 @@ def _hermitian_vjp(op, g, kernel: str):
     return op._kernel_matvec(g, None)
 
 
+def _values(t):
+    """The tensor whose values a cast of ``t`` copies: ``t`` itself, or a
+    SELL pack's slot values (the segmented pack's base's)."""
+    if isinstance(t, torch.Tensor):
+        return t
+    return (t.base if hasattr(t, "base") else t).vals
+
+
 def _promoted(op, attr, dt):
     """``op.<attr>`` (a tensor or a SELL pack) in dtype ``dt``: the
     operator's own storage when the dtypes agree, else a copy made on first
     use and kept, so a float32 operator driven by float64 vectors does not
     copy its storage on every matvec. The copy lies on the storage's
-    device; a reassigned ``op.<attr>`` (another device included) is cast
-    anew."""
+    device; a reassigned ``op.<attr>`` (another device included), a
+    reassigned pack's values and storage changed in place (its
+    ``_version``, as ``BandedOperator.adjoint`` checks) are cast anew."""
     t = getattr(op, attr)
     if t.dtype == dt:
         return t
-    casts = op.__dict__.setdefault("_casts", {})
+    casts = op.__dict__.setdefault("_casts", {})       # (source, copy)
+    stamps = op.__dict__.setdefault("_cast_stamps", {})
     hit = casts.get((attr, dt))
-    if hit is None or hit[0] is not t:
+    v = _values(t)
+    stamp = (v, None if v.is_inference() else v._version)  # no counter there
+    old = stamps.get((attr, dt))
+    if (hit is None or hit[0] is not t or old[0] is not v
+            or old[1] != stamp[1]):
         hit = casts[(attr, dt)] = (t, t.to(dtype=dt))
+        stamps[(attr, dt)] = stamp
     return hit[1]
 
 
@@ -482,16 +497,17 @@ class BandedOperator(LinearOperator):
     def plan(self, dtype, device):
         """B7's ``BandedPlan`` for vectors of the compute dtype ``dtype`` on
         the CUDA device ``device``: kept per (dtype, device) with the
-        diagonals and offsets it was built from, and rebuilt when either is
-        reassigned."""
+        diagonals (their ``_promoted`` form) and offsets it was built from,
+        and rebuilt when either is reassigned or the cast copy is made anew
+        (diagonals of another dtype changed in place)."""
         device = torch.device(device)
         plans = self.__dict__.setdefault("_plans", {})
         hit = plans.get((dtype, device))
-        if hit is None or hit[0] is not self.diags or hit[1] != self.offsets:
+        src = _promoted(self, "diags", dtype)
+        if hit is None or hit[0] is not src or hit[1] != self.offsets:
             hit = plans[(dtype, device)] = (
-                self.diags, self.offsets,
-                BandedPlan(_promoted(self, "diags", dtype), self.offsets,
-                           dtype, device))
+                src, self.offsets,
+                BandedPlan(src, self.offsets, dtype, device))
         return hit[2]
 
     def opnorm_hint(self):

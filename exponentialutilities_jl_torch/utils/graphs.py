@@ -92,6 +92,25 @@ capture in ``captures`` and the calls it served by replaying an existing
 graph in ``replays`` (the capturing call's own replay is part of its
 capture, but its kernel executions are counted).
 
+Stale storage. A graph replays the pointers of its capture, while the
+JAX package's closure is handed the operator on every call, so that it
+follows the operator's current storage. So a program keeps, for each
+key, a record of what its call reads from outside it, made after the
+warm-up and again after the capture: the tensors that ``_Touched``
+recorded, and those the program's owner (``holds``: the closure's
+operator) holds now, each by its path of attributes (``held_tensors``),
+each with its identity and its ``_version`` (a replay bumps no
+version). Before the capture and before every replay the record is held
+against the tensors now (``stale``): if a recorded tensor has died or
+changed in place, or a path leads to another tensor (an attribute on it
+reassigned), the key's graph is dropped (``recaptures`` counts it), the
+call runs as the key's warm-up, eagerly, where the operator rebuilds
+what it derives from its storage (launch plans, cast copies), and the
+next call is captured anew. Not seen: a tensor attribute added to the
+operator after the record, and a closure cell of a user function
+reassigned to another tensor (a tensor it closes over is in the record).
+The check reads no device: a few attribute reads and versions a tensor.
+
 ``counts`` tallies, per process, what the runners did (``captures``,
 ``replays``, ``eager_steps``, ``loops``, ``blocking_reads``,
 ``flag_reads``),
@@ -116,7 +135,8 @@ from torch.overrides import TorchFunctionMode
 
 __all__ = ["LoopRunner", "Program", "eager", "inline", "masked_copy",
            "counts", "executions", "step_launches", "reset_counts",
-           "launch_adjustment", "kernel_executions", "sees_grad"]
+           "launch_adjustment", "kernel_executions", "sees_grad",
+           "held_tensors"]
 
 counts = collections.Counter()
 executions = collections.Counter()
@@ -456,6 +476,58 @@ class _Touched(TorchFunctionMode):
         return [r for k, r in self.outside.items() if k not in skip]
 
 
+_PACKAGE = __name__.split(".")[0]
+
+
+def _held(obj, depth: int = 4) -> list:
+    """(path, tensor) of every tensor ``obj`` holds now, in a fixed order:
+    its public attributes (no leading underscore: caches are skipped),
+    followed into lists, tuples, dicts and objects of this package,
+    ``depth`` levels deep (an operator's diagonals, a SELL pack's arrays,
+    an inner or wrapped operator's storage). A path is a tuple of steps,
+    (True, name) an attribute and (False, key) an item."""
+    out, seen = [], set()
+
+    def walk(x, path, d):
+        if isinstance(x, torch.Tensor):
+            out.append((path, x))
+            return
+        if d == 0 or id(x) in seen:
+            return
+        if isinstance(x, (list, tuple)):
+            items = [((False, i), y) for i, y in enumerate(x)]
+        elif isinstance(x, dict):
+            items = [((False, k), y) for k, y in x.items()]
+        elif type(x).__module__.split(".")[0] == _PACKAGE and hasattr(
+                x, "__dict__"):
+            seen.add(id(x))
+            items = [((True, k), y) for k, y in vars(x).items()
+                     if not k.startswith("_")]
+        else:
+            return
+        for step, y in items:
+            walk(y, path + (step,), d - 1)
+
+    walk(obj, (), depth)
+    return out
+
+
+def held_tensors(obj, depth: int = 4) -> list:
+    """The tensors ``obj`` holds now, in a fixed order (``_held``)."""
+    return [t for _, t in _held(obj, depth)]
+
+
+def _resolve(obj, path):
+    for attr, key in path:
+        obj = getattr(obj, key) if attr else obj[key]
+    return obj
+
+
+def _version(t):
+    # an inference tensor keeps no version counter
+    return None if t.is_inference() else t._version
+
+
 def _clone(x):
     if isinstance(x, tuple):
         return tuple(t.clone() for t in x)
@@ -466,18 +538,23 @@ class Program:
     """A whole call of a closure, captured into one CUDA graph per key and
     replayed (module doc, "Programs"). ``what`` names the closure and its
     operator in errors; ``sharded``: the operator carries a communicator
-    (every call runs eagerly). It lives as long as its owner: ``close``
-    frees its graphs, and so does the owner's going (the graphs go with
-    the program)."""
+    (every call runs eagerly); ``holds``: the object (the operator) whose
+    tensors every call must read as they are now (module doc, "Stale
+    storage"). It lives as long as its owner: ``close`` frees its graphs,
+    and so does the owner's going (the graphs go with the program)."""
 
-    def __init__(self, what: str, *, sharded: bool = False):
+    def __init__(self, what: str, *, sharded: bool = False, holds=None):
         self.what = what
         self.sharded = sharded
+        self.holds = holds
         # key -> (graph, static inputs, output, captured launches)
         self.graphs = {}
         # key -> weak references to the tensors from outside the call that
         # its warm-up read
         self.touched = {}
+        # key -> ([(weak reference, version)] of the touched tensors, the
+        # same of ``held_tensors(holds)``): the record (module doc)
+        self.records = {}
         self.eager_keys = set()
 
     def close(self):
@@ -485,6 +562,45 @@ class Program:
         for g, *_ in self.graphs.values():
             g.reset()
         self.graphs.clear()
+
+    def record(self, key):
+        """Record what the key's call reads from outside it, as it stands
+        now (module doc, "Stale storage"): each tensor the owner holds by
+        its path, and the touched tensors it does not hold."""
+        held = _held(self.holds)
+        ids = {id(t) for _, t in held}
+        touched = [t for t in (r() for r in self.touched[key])
+                   if t is not None and id(t) not in ids]
+        self.records[key] = (
+            [(weakref.ref(t), _version(t)) for t in touched],
+            [(p, weakref.ref(t), _version(t)) for p, t in held])
+
+    def stale(self, key) -> bool:
+        """Whether the key's record no longer holds: a recorded tensor died
+        or changed in place, or a path of the owner leads to another
+        tensor now (an attribute reassigned) or to none."""
+        touched, held = self.records[key]
+        for r, v in touched:
+            t = r()
+            if t is None or (v is not None and t._version != v):
+                return True
+        for path, r, v in held:
+            try:
+                t = _resolve(self.holds, path)
+            except (AttributeError, LookupError, TypeError):
+                return True
+            if t is not r() or (v is not None and t._version != v):
+                return True
+        return False
+
+    def _drop(self, key):
+        """Forget the key's graph and record: its next call is a warm-up."""
+        got = self.graphs.pop(key, None)
+        if got is not None:
+            got[0].reset()
+        self.touched.pop(key, None)
+        self.records.pop(key, None)
+        counts["recaptures"] += 1
 
     def __call__(self, key, fn, inputs: tuple):
         """``fn(*inputs)`` for device tensors ``inputs`` (module doc): the
@@ -495,6 +611,8 @@ class Program:
         device = inputs[0].device
         graphed = (device.type == "cuda" and not self.sharded
                    and not _eager_only[0] and key not in self.eager_keys)
+        if graphed and key in self.touched and self.stale(key):
+            self._drop(key)
         if graphed and key in self.touched and not _sees_grad_now(
                 (*inputs, *(r() for r in self.touched[key]))):
             got = self.graphs.get(key)
@@ -518,6 +636,7 @@ class Program:
             _run_step(lambda: out.append(fn(*inputs)))
         counts["eager_steps"] += 1
         self.touched[key] = rec.refs(skip=inputs)
+        self.record(key)
         res = out[0]
         if sees_grad(res if isinstance(res, tuple) else (res,)):
             self.eager_keys.add(key)
@@ -537,4 +656,5 @@ class Program:
             g.replay()
         _replayed.update(inside)
         self.graphs[key] = (g, static, out[0], inside)
+        self.record(key)
         return _clone(out[0])

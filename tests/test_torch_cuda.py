@@ -19,6 +19,7 @@ from exponentialutilities_jl_torch.ops.kernels import _build
 from exponentialutilities_jl_torch.ops.kernels import dispatch as td
 from exponentialutilities_jl_torch.ops.kernels import lanczos_fused as tf
 from exponentialutilities_jl_torch.ops.kernels import resident as tr
+from tridiag_cases import case_tol, hard_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -2350,11 +2351,12 @@ def _tridiag(m, dt, dev, seed, tail=0):
 
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("m,tail", [(1, 0), (2, 0), (20, 0), (40, 0),
-                                    (60, 0), (250, 0), (40, 37)])
+                                    (60, 0), (250, 0), (400, 0), (40, 37)])
 def test_r1_vs_twin(dev, dt, m, tail):
     """R1 against its eigh twin: real and complex t, with and without s,
-    in shared memory (m <= 60) and in the global scratch (m = 250); a
-    breakdown at j = 3 (the masked zero tail) leaves the tail exactly 0."""
+    its workspace in shared memory (m <= 250) and in the global scratch
+    (m = 400); a breakdown at j = 3 (the masked zero tail) leaves the tail
+    exactly 0."""
     from exponentialutilities_jl_torch.ops.kernels import tridiag as tt
 
     a, b = _tridiag(m, dt, dev, 71 + m, tail)
@@ -2375,6 +2377,137 @@ def test_r1_vs_twin(dev, dt, m, tail):
             if tail:
                 assert not got[m - tail:].abs().max()
             assert torch.equal(got, tt.tridiag_exp_e1(a, b, t, sc))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("case", [c[0] for c in hard_cases()])
+def test_r1_hard_inputs_vs_twin(dev, dt, case):
+    """R1 against its eigh twin on the inputs a divide and conquer gets
+    wrong first (``tests/tridiag_cases.py``: Wilkinson W+ 21 and 201,
+    glued Wilkinson blocks, a graded diagonal 1e-12 .. 1e2, a constant
+    tridiagonal, the Lanczos tridiagonal of a 1-D Laplacian with ghost
+    eigenvalues at m = 250, t |T| up to 1e3, negative and complex t, the
+    error-estimate loop's zero tails), with and without s, at R1_TOL x
+    max(1, |t| ||T||_1) of the largest entry; one launch, bitwise
+    repeatable, a masked tail exactly 0."""
+    from exponentialutilities_jl_torch.ops.kernels import tridiag as tt
+
+    name, a, b, t = next(c for c in hard_cases() if c[0] == case)
+    dn = "float32" if dt == torch.float32 else "float64"
+    cdt = torch.complex64 if dt == torch.float32 else torch.complex128
+    at = torch.as_tensor(a, dtype=dt, device=dev)
+    bt = torch.as_tensor(b, dtype=dt, device=dev)
+    tq = torch.tensor(t, dtype=cdt if isinstance(t, complex) else dt,
+                      device=dev)
+    s = torch.tensor(1.7, dtype=dt, device=dev)
+    tol = case_tol(a, b, t, dn)
+    for sc in (None, s):
+        _build.reset_launch_counts()
+        got = tt.tridiag_exp_e1(at, bt, tq, sc)
+        assert _build.launches["tridiag_exp"] == 1
+        want = tt.tridiag_exp_e1_ref(at, bt, tq, sc)
+        assert got.dtype == want.dtype
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        assert err <= tol * scale, (name, err, scale)
+        assert torch.equal(got, tt.tridiag_exp_e1(at, bt, tq, sc))
+        nz = np.flatnonzero(np.abs(b) == 0)
+        if nz.size:
+            assert not got[nz[0] + 1:].abs().max(), name
+
+
+@pytest.mark.parametrize("m", [1, 30, 250])
+def test_r1_phase_clocks(dev, m):
+    """R1's phase stamps (``tridiag._launch(clocks=...)``, the timing
+    scripts' view of where its time goes): thread 0 stamps the start and
+    3 + 8 ceil(log2 m) phase ends, in order, and a stamped launch returns
+    the unstamped one's result bit for bit."""
+    from exponentialutilities_jl_torch.ops.kernels import tridiag as tt
+
+    a, b = _tridiag(m, torch.float64, dev, 80 + m)
+    t = torch.tensor(0.6, dtype=torch.float64, device=dev)
+    clk = torch.zeros(tt.CLOCK_SLOTS, dtype=torch.int64, device=dev)
+    got = tt._launch(a, b, t, None, clocks=clk)
+    n = 3 + 8 * (m - 1).bit_length()
+    c = clk.tolist()
+    assert all(c[i] <= c[i + 1] for i in range(n)) and c[n] > c[0]
+    assert not any(c[n + 1:])
+    assert torch.equal(got, tt.tridiag_exp_e1(a, b, t))
+
+
+@pytest.mark.parametrize("which", ["expv", "phiv"])
+@pytest.mark.parametrize("how", ["reassign", "in place"])
+@pytest.mark.parametrize("kind", ["banded", "sell", "banded f32"])
+def test_serving_follows_operator_storage(dev, kind, how, which):
+    """A serving closure whose operator's storage changes after its graph
+    was captured: config #3's 2-D Poisson stencil at 12 x 10 as a
+    BandedOperator (B7), as a SELL operator (B9) and as a float32
+    BandedOperator that float64 vectors drive (the ``_promoted`` cast).
+    Calls 1-3 (eager, capture, replay), then the diagonals or the SELL
+    values are reassigned or changed in place: call 4 drops the graph and
+    runs as a warm-up (one recapture), call 5 is captured anew, call 6
+    replays with no host read. Calls 4-6 equal the eager closure under
+    ``graphs.eager()`` bit for bit and scipy's ``expm_multiply`` on the
+    new matrix at 1e-10 (phiv: its phi_0 column). The JAX package's
+    closures on the new arrays are held to the same results on the CPU
+    (``tests/test_torch_serving.py``: this machine need not have JAX)."""
+    import scipy.sparse as sp
+    from scipy.sparse.linalg import expm_multiply
+
+    from exponentialutilities_jl_torch.utils import graphs
+
+    op = et.poisson_2d(12, 10, device=dev)
+    A = op.to_dense().cpu().numpy()
+    if kind == "sell":
+        op = et.SellOperator.from_scipy(sp.coo_matrix(A), dtype=np.float64,
+                                        is_hermitian=True, device=dev)
+    elif kind == "banded f32":
+        op = et.poisson_2d(12, 10, dtype=torch.float32, device=dev)
+    op.is_hermitian = True
+    fn = (et.make_expv(op, m=30) if which == "expv"
+          else et.make_phiv(op, 2, m=30))
+    t = 0.1
+    bs = [_vec(120, torch.float64, dev, 200 + i) for i in range(6)]
+    graphs.reset_counts()
+    for b in bs[:3]:
+        fn(t, b)
+    assert {k: graphs.counts[k] for k in ("eager_steps", "captures",
+                                          "replays", "recaptures")} == \
+        {"eager_steps": 1, "captures": 1, "replays": 1, "recaptures": 0}
+    if kind == "sell":
+        if how == "reassign":
+            op.data.vals = op.data.vals * 1.5
+        else:
+            op.data.vals.mul_(1.5)
+    elif how == "reassign":
+        op.diags = op.diags * 1.5
+    else:
+        op.diags.mul_(1.5)
+    A2 = sp.csr_matrix(1.5 * A)
+    outs = []
+    for i, b in enumerate(bs[3:]):
+        if i == 2:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs.append(fn(t, b))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert {k: graphs.counts[k] for k in ("eager_steps", "captures",
+                                          "replays", "recaptures")} == \
+        {"eager_steps": 2, "captures": 2, "replays": 2, "recaptures": 1}
+    with graphs.eager():
+        want = [fn(t, b) for b in bs[3:]]
+    for b, o, e in zip(bs[3:], outs, want):
+        w = o if which == "expv" else o[0]
+        we = e if which == "expv" else e[0]
+        assert torch.equal(w, we), (kind, how)
+        ref = expm_multiply(t * A2, b.cpu().numpy())
+        w0 = (w if which == "expv" else w[:, 0]).cpu().numpy()
+        assert np.abs(w0 - ref).max() <= 1e-10 * np.abs(ref).max(), \
+            (kind, how, np.abs(w0 - ref).max())
+    fn.close()
 
 
 def _serving_cells(dev):

@@ -277,9 +277,154 @@ def test_tridiag_wrapper_on_cpu_is_the_twin():
                            tt.tridiag_exp_e1_ref(at, bt, tq))
     f32 = tt.scalar_operand(0.3, at.float())
     assert f32.dtype == torch.float32
-    # warp 0 (the QL sweeps) and one applier a row up to 256 rows; Q in
-    # shared memory where it fits with d, e and the rotation buffers
-    assert tt.launch_shape(250, torch.float64) == (288, 6 * 250 * 8, False)
-    assert tt.launch_shape(40, torch.float64) == (96, 46 * 40 * 8, True)
-    assert tt.launch_shape(150, torch.float32) == (192, 156 * 150 * 4, True)
-    assert tt.launch_shape(1, torch.float32) == (64, 7 * 4, True)
+    # 512 threads in groups of lanes, one group a secular root or row (a
+    # power of two up to 32: m groups or more); the divide and conquer's
+    # workspace (8 vectors of m doubles, and for each of the ceil(log2 m)
+    # tree levels 7 arrays of m doubles and 6 of m int16) in shared memory
+    # where it fits, else in a global scratch, whatever the data's type
+    # (the work is in double)
+    def ws(m, lv):
+        return 8 * (8 * m + 7 * lv * m) + 2 * 6 * lv * m
+
+    assert tt.launch_shape(250) == (512, 2, ws(250, 8), True)
+    assert tt.launch_shape(40) == (512, 8, ws(40, 6), True)
+    assert tt.launch_shape(150) == (512, 2, ws(150, 8), True)
+    assert tt.launch_shape(1) == (512, 32, ws(1, 1), True)
+    assert tt.launch_shape(30) == (512, 16, ws(30, 5), True)
+    assert tt.launch_shape(302) == (512, 1, ws(302, 9), True)
+    assert tt.launch_shape(303) == (512, 1, ws(303, 9),
+                                                   False)
+    assert tt.launch_shape(4266) == (512, 1, ws(4266, 13),
+                                                    False)
+    with pytest.raises(ValueError, match="int16"):
+        tt.launch_shape(40000)
+
+
+# --- stale operator storage (graphs.Program's record; models/expv.py) ---
+
+def _stale_operator(kind):
+    """(torch operator, its dense matrix A): config #3's 2-D Poisson
+    stencil at 12 x 10 as a BandedOperator, as a SELL operator, or as a
+    float32 BandedOperator that float64 vectors drive (the ``_promoted``
+    route)."""
+    op = et.poisson_2d(12, 10, device="cpu")
+    A = np.asarray(op.to_dense())
+    if kind == "sell":
+        import scipy.sparse as sp
+
+        op = et.SellOperator.from_scipy(sp.coo_matrix(A), dtype=np.float64,
+                                        is_hermitian=True, device="cpu")
+    elif kind == "banded f32":
+        op = et.poisson_2d(12, 10, dtype=torch.float32, device="cpu")
+    op.is_hermitian = True
+    return op, A
+
+
+def _change(op, kind, how):
+    """Scale op's storage by 1.5: reassign it (a new tensor) or change it
+    in place."""
+    if kind == "sell":
+        if how == "reassign":
+            op.data.vals = op.data.vals * 1.5
+        else:
+            op.data.vals.mul_(1.5)
+    elif how == "reassign":
+        op.diags = op.diags * 1.5
+    else:
+        op.diags.mul_(1.5)
+
+
+def _jax_twin(kind, A):
+    """The JAX package's operator on the same (new) arrays."""
+    import scipy.sparse as sp
+
+    if kind == "sell":
+        C = sp.coo_matrix(A)
+        return ej.SellOperator.from_coo(C.row, C.col, C.data, A.shape[0],
+                                        dtype=np.float64, is_hermitian=True)
+    return ej.banded_from_scipy(sp.csr_matrix(A), is_hermitian=True)
+
+
+@pytest.mark.parametrize("how", ["reassign", "in place"])
+@pytest.mark.parametrize("kind", ["banded", "sell", "banded f32"])
+def test_program_record_goes_stale(kind, how):
+    """The bookkeeping of a serving program's stale-storage check on the
+    CPU, where every call runs eagerly: after a call (the key's warm-up)
+    the key's record holds; reassigning the operator's storage or changing
+    it in place makes it stale. The next calls of make_expv and make_phiv
+    (eager here) then equal JAX's make_expv / make_phiv on the new arrays
+    and scipy on the new matrix."""
+    op, A = _stale_operator(kind)
+    fe, fp = et.make_expv(op, m=30), et.make_phiv(op, 2, m=30)
+    b = np.random.default_rng(63).standard_normal(A.shape[0])
+    t = 0.1
+    fe(t, b)
+    fp(t, b)
+    for fn in (fe, fp):
+        (key,) = fn.program.records
+        assert not fn.program.stale(key)
+    _change(op, kind, how)
+    A2 = 1.5 * A
+    for fn in (fe, fp):
+        (key,) = fn.program.records
+        assert fn.program.stale(key)
+    jop = _jax_twin(kind, A2)
+    w = fe(t, b)
+    assert_close(t2n(w), np.asarray(ej.make_expv(jop, m=30)(
+        t, jnp.asarray(b))), RTOL, f"{kind} {how} vs JAX")
+    assert_close(t2n(w), sla.expm(t * A2) @ b, RTOL_SCIPY, "vs scipy")
+    wp, _ = fp(t, b)
+    jw, _ = ej.make_phiv(jop, 2, m=30)(t, jnp.asarray(b))
+    assert_close(t2n(wp), np.asarray(jw), RTOL, f"{kind} {how} phiv vs JAX")
+    assert_close(t2n(wp[:, 0]), sla.expm(t * A2) @ b, RTOL_SCIPY,
+                 "phiv vs scipy")
+
+
+def test_program_record_holds_touched_tensors():
+    """A tensor that a MatrixFreeOperator's function closes over is in the
+    record: changing it in place makes the key stale, and held_tensors
+    walks an operator's public storage in a fixed order."""
+    ban = et.laplacian_nd_stencil(40, device="cpu")
+    p = torch.tensor(0.8, dtype=torch.float64)
+    op = et.MatrixFreeOperator(lambda x: p * ban.matvec(x), (40, 40),
+                               is_hermitian=True, device="cpu")
+    fn = et.make_expv(op, m=20)
+    fn(0.2, np.ones(40))
+    (key,) = fn.program.records
+    assert not fn.program.stale(key)
+    p.mul_(2)
+    assert fn.program.stale(key)
+    sop, _ = _stale_operator("sell")
+    d = sop.data
+    assert graphs.held_tensors(sop) == [d.vals, d.cols, d.slice_ptr,
+                                        d.row_of, d.spans]
+
+
+@pytest.mark.parametrize("kind", ["banded", "sell"])
+def test_promoted_cast_follows_storage(kind):
+    """``sparse._promoted`` keeps one cast copy of a float32 operator's
+    storage for float64 vectors, and makes it anew when the storage is
+    reassigned or changed in place (its version)."""
+    from exponentialutilities_jl_torch.ops import sparse as tsp
+
+    op, A = _stale_operator("banded f32")
+    attr = "diags"
+    if kind == "sell":
+        import scipy.sparse as sp
+
+        op = et.SellOperator.from_scipy(sp.coo_matrix(A), dtype=np.float32,
+                                        device="cpu")
+        attr = "data"
+
+    def values(x):
+        return x if kind == "banded" else x.vals
+
+    c1 = tsp._promoted(op, attr, torch.float64)
+    assert tsp._promoted(op, attr, torch.float64) is c1
+    for how in ("in place", "reassign"):
+        _change(op, kind, how)
+        c2 = tsp._promoted(op, attr, torch.float64)
+        assert c2 is not c1
+        assert torch.equal(values(c2), values(getattr(op, attr)).double())
+        assert tsp._promoted(op, attr, torch.float64) is c2
+        c1 = c2
