@@ -10,6 +10,8 @@
     python3 chip_smoke.py --serving-only [--profile]
                                      (phases 1-2, R1's checks, the eighth
                                      path and R1's times)
+    python3 chip_smoke.py --fixed-fused-only [--profile]
+                                     (phases 1-2 and the ninth path)
 
 The main paths are exp(tA)b and the phi-function actions
 [phi_0(tA)b ... phi_3(tA)b] at BASELINE.json's sizes: for Hermitian
@@ -175,8 +177,20 @@ its seconds:
               #4 and SELL n = 1e6, calls 1-12 each with 1 capture and 10
               replays, no sync in a replayed call, bit-equal to the
               eager closure and held to the cell's oracle; the
-              error-estimate loop with the CPU's iteration count); the
-              whole script profiles its cells at the end of phase 5.
+              error-estimate loop with the CPU's iteration count); then a
+              ninth, the fixed NW stepper and the fused passes from CUDA
+              graphs (fixed_fused_path: config #4's make_phiv_timestep
+              fn(B) at calls 1, 2 and 3 with 1 eager call, 1 capture and
+              1 replay, and phiv_timestep_fused with 1 eager substep, 1
+              capture and nsteps - 1 replays, B7 executions nsteps (1 +
+              m) a call, against the dense oracle; two-pass expv m = 20
+              on 512^2 and on 216^3, constant and variable, one capture
+              a pass, 2 (m + 1) sweeps and stages a call, against
+              expv_chebyshev; each call bit-equal to graphs.eager(), its
+              graph form under sync debug mode "error"; B3 and B3-var in
+              their device-index form against their twins and bit-equal
+              to the host-index form, both forms timed back to back);
+              the whole script profiles its cells at the end of phase 5.
               The builders run from
               graphs on every path but the sharded ones, so a kernel's
               count is its executions (captured launches times replays),
@@ -2998,7 +3012,7 @@ def krylov_graph_path(et, dev, card, g):
     return dict(total), {name: c[0] for name, c in cells.items()}
 
 
-def krylov_graph_profile(calls, card):
+def krylov_graph_profile(calls, card, label="krylov-graph"):
     """torch.profiler over one warm call of each seventh-path cell in each
     form: wall (host clock, profiled), device busy (the union of the
     device intervals), device ops, and the host's launch calls (runtime
@@ -3037,7 +3051,7 @@ def krylov_graph_profile(calls, card):
             launches = collections.Counter(e.name for e in host
                                            if "Launch" in e.name)
             mallocs = [e for e in host if e.name == "cudaMalloc"]
-            print(f"profile krylov-graph {name} {form}: wall {wall:.3f} ms "
+            print(f"profile {label} {name} {form}: wall {wall:.3f} ms "
                   f"(host clock, profiled); device busy {busy / 1e3:.3f} ms "
                   f"in {len(dev_evs)} device ops; host launch calls "
                   f"{sum(launches.values())} {dict(launches)}; {len(mallocs)} "
@@ -3689,6 +3703,391 @@ def serving_only(et, dev, card, profile: bool) -> int:
     return 0
 
 
+# ---- the ninth path: the fixed NW stepper and the fused passes from CUDA
+# graphs ----
+# make_phiv_timestep's fn(B) on config #4 (a graphs.Scan: call 1 runs its
+# first substep eagerly, captures the second and replays it nsteps - 2
+# times, calls 2+ replay it nsteps times), the same stepper through
+# phiv_timestep_fused (a runner of its own: 1 eager, 1 capture, nsteps - 1
+# replays a call), and the two-pass expv(m=20) on the fused
+# sweeps (each pass one (sweep, stage) step in the device-index form, run
+# m + 1 times: 1 eager, 1 capture, m replays) on the 2-D 512^2 Laplacian
+# and on 216^3 with constant and variable coefficients. Each call's counts
+# and kernel executions held exactly, its results bit-equal to the same
+# call under graphs.eager() and held to an oracle, the replayed calls
+# under sync debug mode "error"; B3 and B3-var in the device-index form
+# against their twins and bit-equal to the host-index form; CUDA-event
+# medians of FIXED_REPS beside the eager form.
+FIXED_REPS = 10
+FIXED_M = 20
+FIXED_CUT = 40          # config #4's time over this: the cut fn(B) cell
+
+
+def fixed_fused_inputs(et, dev):
+    """The ninth path's operators, made here for ``--fixed-fused-only`` as
+    main makes them."""
+    t0 = time.perf_counter()
+    aV = np.random.default_rng(SEED).uniform(0.5, 2.0, (N3, N3, N3))
+    s = {"opA": et.advection_diffusion_1d(NA, peclet=10.0, device=dev),
+         "opG": et.laplacian_nd_stencil(NG, NG, device=dev),
+         "op3": et.laplacian_nd_stencil(N3, N3, N3, device=dev),
+         "opV": et.variable_diffusion_nd_stencil(aV, device=dev)}
+    print(f"fixed-fused-only inputs: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return s
+
+
+def ring_form_checks(et, dev, op, label, gen):
+    """B3 (or B3-var) in the device-index form at steps s = 0, 1, 2, 6, 7
+    of a random ring and state (m = 6: s = 6 the last stage, s = 7 past
+    the end), against the twins (KTOL) and bit for bit
+    against the host-index form (the same kernels told s and its
+    pointers); then a whole pass 1 from its graph against the twins' pass
+    on the same card. Returns the largest absolute error against the
+    twins (the kernels line's max_abs_err)."""
+    import ctypes
+
+    import torch
+    from exponentialutilities_jl_torch.ops.kernels import _build
+    from exponentialutilities_jl_torch.ops.kernels import lanczos_fused as tf
+
+    f64 = torch.float64
+    n = op.shape[0]
+    dev = op.device             # the plan's key: the vectors' device
+    plan = tf._plan(op, f64, dev)
+    cvals = tf._cvals(op, f64)
+    base = [torch.as_tensor(gen.standard_normal(n), device=dev)
+            for _ in range(7)]
+    base[1].zero_()
+    Wb = torch.as_tensor(gen.standard_normal(n), device=dev)
+    cf = torch.as_tensor(gen.standard_normal(6), device=dev)
+    worst, worst_abs = 0.0, 0.0
+    for s in (0, 1, 2, 6, 7):
+        runs = []
+        for form in ("device", "host", "twin"):
+            ring = [v.clone() for v in base]
+            W = Wb.clone()
+            st = torch.zeros(tf._ST_LEN, dtype=f64, device=dev)
+            for k, v in ((0, 0.3), (1, -0.7), (2, 0.2), (3, 0.45), (4, 1.3),
+                         (7, 1.0), (8, float(s))):
+                st[k].fill_(v)
+            al = torch.zeros(6, dtype=f64, device=dev)
+            be = torch.zeros(6, dtype=f64, device=dev)
+            stream = _build.raw_stream(dev)
+            if form == "device":
+                ptrs = (ctypes.c_void_p * 7)(*(v.data_ptr() for v in ring))
+                plan.sweep_ring(ptrs, st, cvals, W, stream)
+                plan.stage(stream, state=st, alphas=al, betas=be, coeffs=cf,
+                           j=None, m=6, tol=1e-7)
+            elif form == "host":
+                Z, Vc, Vp, Y, Zn = tf.ring_slots(ring, s)
+                plan.sweep(Z, Vc, Vp, st.data_ptr(), cvals, Y, Zn, W, stream)
+                plan.stage(stream, state=st, alphas=al, betas=be, coeffs=cf,
+                           j=s, m=6, tol=1e-7)
+                st[8].add_(1)
+            else:
+                mom = tf.fused_sweep_ring_ref(ring, st, op.grid_shape,
+                                              op.offsets, cvals, W)
+                tf.sweep_stage_ref(mom, st, al, be, cf, 6, 1e-7)
+            runs.append((*ring, W, st, al, be))
+        dev_, host, twin = runs
+        check(all(torch.equal(a, b) for a, b in zip(dev_, host)),
+              f"{label} s={s}: device-index form differs from the "
+              "host-index form")
+        e = max(rel_max(a, b) for a, b in zip(dev_, twin)
+                if float(b.abs().max()) > 0)
+        check(e <= KTOL["float64"], f"{label} s={s}: device-index form vs "
+              f"twin {e:.2e}")
+        worst = max(worst, e)
+        worst_abs = max(worst_abs, max(float((a - b).abs().max())
+                                       for a, b in zip(dev_, twin)))
+    # a whole pass 1: its graph against the twins' pass on the card
+    b = base[0]
+    a1, bt1, beta1, mu1, br1, _ = tf._lanczos_sweeps(op, b, FIXED_M, 1e-7,
+                                                     what="pass 1")
+    beta0, v0 = tf._start(b)
+    ring = (v0, torch.zeros_like(v0),
+            *(torch.empty_like(v0) for _ in range(5)))
+    st = tf._const(tf._STATE0, v0)
+    st[tf._ST["broke"]].copy_(beta0 == 0)
+    al = torch.empty(FIXED_M, dtype=f64, device=dev)
+    be = torch.empty(FIXED_M, dtype=f64, device=dev)
+    for _ in range(FIXED_M + 1):
+        mom = tf.fused_sweep_ring_ref(ring, st, op.grid_shape, op.offsets,
+                                      cvals)
+        tf.sweep_stage_ref(mom, st, al, be, None, FIXED_M, 1e-7)
+    e = max(rel_max(a1, al), rel_max(bt1, be))
+    check(e <= 1e2 * KTOL["float64"] and int(mu1) == int(
+        st[tf._ST["m_used"]]) and bool(br1) == bool(st[tf._ST["broke"]]),
+          f"{label} pass 1 from its graph vs the twins' pass {e:.2e}")
+    print(f"check B3 device-index form {label}: steps 0, 1, 2, 6, 7 "
+          f"(m = 6) bit-equal "
+          f"to the host-index form, {worst:.2e} from the twins (tol "
+          f"{KTOL['float64']:g}); pass 1 m={FIXED_M} from its graph "
+          f"{e:.2e} from the twins' pass (tol {1e2 * KTOL['float64']:g}), "
+          f"m_used and broke equal", flush=True)
+    return worst_abs
+
+
+def fixed_fused_path(et, dev, card, s):
+    """The ninth path (the comment above). Returns (kernel executions of
+    the path, {cell: call} for the profile, the largest device-index
+    error of B3 and of B3-var against their twins)."""
+    import collections
+    import ctypes
+
+    import scipy.linalg as sla
+    import torch
+    from exponentialutilities_jl_torch.ops.kernels import _build
+    from exponentialutilities_jl_torch.ops.kernels import lanczos_fused as tf
+    from exponentialutilities_jl_torch.utils import graphs
+
+    t_path = time.perf_counter()
+    gen = np.random.default_rng(SEED + 60)
+    opA = s["opA"]
+    A_t = TA * banded_csr(opA).toarray()
+    total = collections.Counter()
+    keys = ("eager_steps", "captures", "replays", "blocking_reads")
+
+    def events(fn, eager_form=False):
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        if eager_form:
+            with graphs.eager():
+                out = fn()
+        else:
+            out = fn()
+        z.record()
+        z.synchronize()
+        return a.elapsed_time(z), out
+
+    def run_counted(fn, sync_free):
+        """fn() with the counts set to 0 just before and read just after,
+        under sync debug mode "error" when ``sync_free``."""
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        graphs.reset_counts()
+        if sync_free:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            ms, out = events(fn)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        cnt = {k: graphs.counts.get(k, 0) for k in keys}
+        exe = {k: v for k, v in graphs.kernel_executions(
+            dict(_build.launches)).items() if v}
+        total.update(exe)
+        return ms, out, cnt, exe
+
+    def in_turns(fn):
+        """Medians of FIXED_REPS: the graph form and graphs.eager(), in
+        turns."""
+        gr, eg = [], []
+        events(fn, True)
+        for _ in range(FIXED_REPS):
+            gr.append(events(fn)[0])
+            eg.append(events(fn, True)[0])
+        return statistics.median(gr), statistics.median(eg)
+
+    def fresh_B():
+        return np.stack([gen.standard_normal(NA),
+                         0.1 * gen.standard_normal(NA)], 1)
+
+    def oracle(Bn, t_end):
+        # u = e^{tA} b0 + t phi_1(tA) b1 from one augmented exponential
+        aug = np.zeros((NA + 1, NA + 1))
+        aug[:NA, :NA] = A_t * (t_end / TA)
+        aug[:NA, NA] = t_end * Bn[:, 1]
+        F = sla.expm(aug)
+        return torch.as_tensor(F[:NA, :NA] @ Bn[:, 0] + F[:NA, NA],
+                               device=dev)
+
+    # make_phiv_timestep's fn(B), calls 1, 2, 3 with a fresh B each, and
+    # phiv_timestep_fused at its grid: at config #4's time (full depth:
+    # the graph form alone, the eager form costing tens of seconds a call)
+    # and at FIXED_CUT of it (depth cut: beside graphs.eager())
+    calls = {}
+    for depth, t_end in (("full", TA), ("cut", TA / FIXED_CUT)):
+        fn = et.make_phiv_timestep(t_end, opA, torch.as_tensor(
+            fresh_B(), device=dev), tol=1e-7)
+        label = f"config4 t={t_end:g} (nsteps {fn.nsteps}, m {fn.m})"
+        check(fn.nsteps >= 3, f"{label}: fn(B) nsteps {fn.nsteps}")
+        want_exe = {"banded_spmv": fn.nsteps * (1 + fn.m)}
+        want_cnt = ({"eager_steps": 1, "captures": 1,
+                     "replays": fn.nsteps - 1, "blocking_reads": 0},
+                    {"eager_steps": 0, "captures": 0, "replays": fn.nsteps,
+                     "blocking_reads": 0})
+        call_ms = []
+        for i in range(3):
+            Bn = fresh_B()
+            Bt = torch.as_tensor(Bn, device=dev)
+            ms, (u, eps), cnt, exe = run_counted(lambda: fn(Bt), i >= 1)
+            call_ms.append(ms)
+            check(cnt == want_cnt[min(i, 1)], f"{label} fn(B) call {i + 1}: "
+                  f"counts {cnt}, expected {want_cnt[min(i, 1)]}")
+            check(exe == want_exe, f"{label} fn(B) call {i + 1}: kernel "
+                  f"executions {exe}, implied {want_exe}")
+            e = rel_norm(u, oracle(Bn, t_end))
+            check(bool(torch.isfinite(u).all()) and eps.shape == (
+                fn.nsteps,) and e <= MTOL_NONHERM, f"{label} fn(B) call "
+                  f"{i + 1}: {e:.2e} from the dense oracle")
+            if depth == "cut":
+                with graphs.eager():
+                    ue, epse = fn(Bt)
+                check(torch.equal(u, ue) and torch.equal(eps, epse),
+                      f"{label} fn(B) call {i + 1} differs from "
+                      "graphs.eager()")
+            print(f"check fixed {label} fn(B) call {i + 1}: counts {cnt}; "
+                  f"kernel executions {exe} = nsteps x (1 + m); {e:.2e} "
+                  f"from the dense oracle (tol {MTOL_NONHERM:g})"
+                  + ("; bit-equal to graphs.eager()" if depth == "cut"
+                     else "")
+                  + (" under sync debug mode 'error'" if i >= 1 else ""),
+                  flush=True)
+
+        # the same stepper through phiv_timestep_fused: a runner a call
+        def direct(fn=fn, Bt=Bt, t_end=t_end):
+            return et.phiv_timestep_fused(t_end, opA, Bt, nsteps=fn.nsteps,
+                                          m=fn.m)
+
+        dms, (ud, epsd), cnt, exe = run_counted(direct, True)
+        want = {"eager_steps": 1, "captures": 1, "replays": fn.nsteps - 1,
+                "blocking_reads": 0}
+        check(cnt == want and exe == want_exe,
+              f"{label} phiv_timestep_fused: counts {cnt}, expected {want}; "
+              f"kernel executions {exe}, implied {want_exe}")
+        check(torch.equal(ud, u) and torch.equal(epsd, eps),
+              f"{label} phiv_timestep_fused differs from fn(B)")
+        print(f"check fixed {label} phiv_timestep_fused: counts {cnt} "
+              f"(under sync debug mode 'error'); kernel executions {exe}; "
+              f"bit-equal to fn(B)'s replay", flush=True)
+        if depth == "full":
+            print(f"time fixed {label}: fn(B) call 1 (a substep eager, one "
+                  f"captured, the rest replayed) {call_ms[0]:.3f} ms, calls "
+                  f"2 and 3 (replays) {call_ms[1]:.3f} / {call_ms[2]:.3f} "
+                  f"ms; phiv_timestep_fused {dms:.3f} ms (CUDA events) "
+                  f"{card}", flush=True)
+            fn.close()
+            continue
+        rep, eag = in_turns(lambda fn=fn, Bt=Bt: fn(Bt))
+        gms, ems = in_turns(direct)
+        print(f"time fixed {label}: fn(B) call 1 {call_ms[0]:.3f} ms, calls "
+              f"2 and 3 {call_ms[1]:.3f} / {call_ms[2]:.3f} ms; replayed "
+              f"{rep:.3f} ms, graphs.eager() {eag:.3f} ms; "
+              f"phiv_timestep_fused {gms:.3f} ms (its own capture), "
+              f"graphs.eager() {ems:.3f} ms (CUDA events, medians of "
+              f"{FIXED_REPS} in turns) {card}", flush=True)
+        calls[f"{label} fn(B)"] = lambda fn=fn, Bt=Bt: fn(Bt)
+        calls[f"{label} phiv_timestep_fused"] = direct
+
+    # the two-pass expv on the fused sweeps
+    cells = {"2d 512^2": (s["opG"], TG, "fused_sweep"),
+             "3d 216^3": (s["op3"], T3, "fused_sweep"),
+             "var 216^3": (s["opV"], T3, "fused_sweep_var")}
+    m = FIXED_M
+    worst = {}
+    for name, (op, t, kname) in cells.items():
+        b = torch.as_tensor(gen.standard_normal(op.shape[0]), device=dev)
+
+        def call(op=op, t=t, b=b):
+            return et.expv(t, op, b, m=m, two_pass=True)
+
+        call()
+        ms, w, cnt, exe = run_counted(call, True)
+        want = {"eager_steps": 2, "captures": 2, "replays": 2 * m,
+                "blocking_reads": 0}
+        want_e = {kname: 2 * (m + 1), "sweep_stage": 2 * (m + 1),
+                  "tridiag_exp": 1}
+        check(cnt == want, f"{name} two-pass: counts {cnt}, expected {want}")
+        check(exe == want_e, f"{name} two-pass: kernel executions {exe}, "
+              f"implied {want_e}")
+        with graphs.eager():
+            we = call()
+        check(torch.equal(w, we), f"{name} two-pass differs from "
+              "graphs.eager()")
+        e = rel_norm(w, et.expv_chebyshev(t, op, b, tol=1e-12))
+        check(e <= MTOL3["float64"], f"{name} two-pass vs expv_chebyshev "
+              f"{e:.2e}")
+        worst[kname] = max(worst.get(kname, 0.0),
+                           ring_form_checks(et, dev, op, name, gen))
+        gms, ems = in_turns(call)
+        print(f"check fixed {name} two-pass m={m}: counts {cnt} (one "
+              f"capture a pass; under sync debug mode 'error'); kernel "
+              f"executions {exe}; bit-equal to graphs.eager(); {e:.2e} from "
+              f"expv_chebyshev (tol {MTOL3['float64']:g})", flush=True)
+        print(f"time fixed {name} two-pass m={m}: {gms:.3f} ms, "
+              f"graphs.eager() {ems:.3f} ms (medians of {FIXED_REPS} in "
+              f"turns) {card}", flush=True)
+        calls[f"{name} two-pass m={m}"] = call
+
+    # one accumulating sweep and its stage at 216^3, the device-index form
+    # beside the host-index form, 20 back to back in turns
+    op = s["op3"]
+    n = op.shape[0]
+    plan = tf._plan(op, torch.float64, op.device)
+    cvals = tf._cvals(op, torch.float64)
+    ring = [torch.as_tensor(gen.standard_normal(n), device=dev)
+            for _ in range(7)]
+    ring[1].zero_()
+    W = torch.zeros(n, dtype=torch.float64, device=dev)
+    st = plan.state0.clone()
+    al = torch.zeros(m, dtype=torch.float64, device=dev)
+    be = torch.zeros(m, dtype=torch.float64, device=dev)
+    ptrs = (ctypes.c_void_p * 7)(*(v.data_ptr() for v in ring))
+    Z, Vc, Vp, Y, Zn = tf.ring_slots(ring, 5)
+
+    def dev_form():
+        st[8].fill_(5.0)
+        stream = _build.raw_stream(op.device)
+        plan.sweep_ring(ptrs, st, cvals, W, stream)
+        plan.stage(stream, state=st, alphas=al, betas=be, j=None, m=m,
+                   tol=1e-7)
+
+    def host_form():
+        st[8].fill_(5.0)
+        stream = _build.raw_stream(op.device)
+        plan.sweep(Z, Vc, Vp, st.data_ptr(), cvals, Y, Zn, W, stream)
+        plan.stage(stream, state=st, alphas=al, betas=be, j=5, m=m,
+                   tol=1e-7)
+
+    def burst(f, k=20):
+        f()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(k):
+            f()
+        z.record()
+        z.synchronize()
+        return a.elapsed_time(z) / k
+
+    ts = {"device": [], "host": []}
+    for _ in range(3):
+        ts["device"].append(burst(dev_form))
+        ts["host"].append(burst(host_form))
+    print(f"time B3 216^3 accumulating sweep + stage (each with a fill of "
+          f"the counter) back to back: device-index form "
+          f"{statistics.median(ts['device']):.4f} ms, host-index form "
+          f"{statistics.median(ts['host']):.4f} ms (medians of 3 bursts of "
+          f"20 in turns) {card}", flush=True)
+    print(f"fixed path: {time.perf_counter() - t_path:.1f} s", flush=True)
+    return dict(total), calls, worst
+
+
+def fixed_fused_only(et, dev, card, profile: bool) -> int:
+    """``--fixed-fused-only``: the ninth path with its inputs made here,
+    then, with ``--profile``, torch.profiler over its cells."""
+    s = fixed_fused_inputs(et, dev)
+    counts, calls, _ = fixed_fused_path(et, dev, card, s)
+    print(f"kernel executions of the fixed path: "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    if profile:
+        krylov_graph_profile(calls, card, label="fixed")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port's main path "
                                  "on one NVIDIA GPU (module doc).")
@@ -3709,6 +4108,11 @@ def main() -> int:
                     "path (the serving closures and the error-estimate "
                     "loop, references computed on the spot) and R1's "
                     "times; prints no result lines")
+    ap.add_argument("--fixed-fused-only", action="store_true",
+                    help="run phases 1-2 and the ninth path alone (the "
+                    "fixed NW stepper and the fused passes from CUDA "
+                    "graphs, inputs made on the spot); prints no result "
+                    "lines")
     # one rank of the fourth path, started by this script itself
     ap.add_argument("--shard-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--shard-world", type=int, help=argparse.SUPPRESS)
@@ -3771,6 +4175,8 @@ def main() -> int:
         return krylov_graphs_only(et, dev, card, args.profile)
     if args.serving_only:
         return serving_only(et, dev, card, args.profile)
+    if args.fixed_fused_only:
+        return fixed_fused_only(et, dev, card, args.profile)
 
     rng = np.random.default_rng(SEED)
     rng2 = np.random.default_rng(SEED + 1)     # the inputs of B4-B6
@@ -5100,6 +5506,18 @@ def main() -> int:
         check(serving_counts.get(k, 0) > 0, f"kernel {k} never ran on the "
               "serving path")
 
+    # the ninth path: the fixed NW stepper and the fused passes from graphs
+    fixed_counts, fixed_calls, ring_err = fixed_fused_path(et, dev, card, {
+        "opA": opA, "opG": opG, "op3": op3[f64], "opV": opV[f64]})
+    for k, e in ring_err.items():       # B3's device-index form vs twins
+        kerr[k] = max(kerr[k], e)
+    print(f"kernel executions of the fixed path: "
+          f"{ {k: v for k, v in fixed_counts.items() if v} }", flush=True)
+    for k in ("banded_spmv", "fused_sweep", "fused_sweep_var", "sweep_stage",
+              "tridiag_exp"):
+        check(fixed_counts.get(k, 0) > 0, f"kernel {k} never ran on the "
+              "fixed path")
+
     # the kernel-driving passes make no host syncs
     lo, hi = op3[f64].spectral_bounds_hint()
     full3, _, _ = tc._full_exp_coeffs(T3, lo, hi, 1e-12, None)
@@ -5256,6 +5674,7 @@ def main() -> int:
             device_profile(name, fn)
         krylov_graph_profile(krylov_calls, card)
         serving_profile(serving_calls, card)
+        krylov_graph_profile(fixed_calls, card, label="fixed")
         phase_done("5 profile")
         return 0
 
@@ -5894,6 +6313,7 @@ def main() -> int:
     # profiled last
     krylov_graph_profile(krylov_calls, card)
     serving_profile(serving_calls, card)
+    krylov_graph_profile(fixed_calls, card, label="fixed")
 
     phase_done("5 times")
     kernels = []
@@ -5908,7 +6328,8 @@ def main() -> int:
                                      + gspmd_counts[name]
                                      + graph_counts.get(name, 0)
                                      + krylov_counts.get(name, 0)
-                                     + serving_counts.get(name, 0)),
+                                     + serving_counts.get(name, 0)
+                                     + fixed_counts.get(name, 0)),
                         "max_abs_err": kerr[name], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by,

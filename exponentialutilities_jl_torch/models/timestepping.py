@@ -24,7 +24,14 @@ accepted substep forms the phi_p column at the accepted tau and at every
 snapshot. The fixed-(tau, m) steppers ``phiv_timestep_fused``,
 ``expv_timestep_fused`` and ``make_phiv_timestep`` make no host read at
 all: their reduced exponential keeps its squaring count on the device
-(``expm_taylor_masked``).
+(``expm_taylor_masked``). As the JAX package's ``lax.scan``, they run one
+substep over state made before the loop (u, t, a step counter and the
+error history), ``nsteps`` times through a ``utils/graphs.LoopRunner``:
+on a CUDA device the first substep runs eagerly, the second is captured
+into one CUDA graph with the Krylov builder's steps inline, and the rest
+replay it. ``make_phiv_timestep``'s ``fn(B)`` is one ``graphs.Scan`` call:
+the first call of a key captures the substep, and every later call
+replays it ``nsteps`` times.
 
 A row-sharded operator (``parallel.shard_operator``) steps this rank's
 rows of B: the Krylov builders reduce over the operator's ``comm``, |b_0|
@@ -48,6 +55,7 @@ import numpy as np
 import torch
 
 from ..ops.sparse import hoist_conjugation
+from ..utils import graphs
 from ..utils.comm import operator_comm, pmax
 from ..utils.device import action_vector
 from ..utils.linop import NegatedOperator, aslinearoperator
@@ -554,22 +562,82 @@ def expv_timestep(ts, A, b, **kwargs):
     return phiv_timestep(ts, op, action_vector(b, op)[:, None], **kwargs)
 
 
-def _phiv_timestep_fused(op, B, tend: float, p: int, m: int, nsteps: int,
-                         iop: int, correct: bool, hermitian: bool):
-    """nsteps substeps of tau = tend / nsteps at a fixed m, with no host
-    read: (u(tend), the (nsteps,) error estimates)."""
-    tau = tend / nsteps
-    u, t = B[:, 0], 0.0
-    eps_hist = []
-    for _ in range(nsteps):
-        W = _compute_W(op, u, B, t, p)
+class _FusedState:
+    """The fixed stepper's loop state (the JAX scan's carry and its ys),
+    made before the loop: u, t (0-d, in B's real dtype), the step counter
+    k (0-d int64) and the error history eps ((nsteps,)). ``write`` stores
+    a substep's results in place (what a CUDA graph replays), or with
+    ``rebind`` binds the names to them (the first substep, whose results
+    set u's and eps's dtypes, and every substep that autograd or a
+    ``torch.func`` transform must see)."""
+
+    def __init__(self, B, nsteps: int):
+        rdt = B.real.dtype if B.is_complex() else B.dtype
+        self.u = B[:, 0]
+        self.t = torch.zeros((), dtype=rdt, device=B.device)
+        self.k = torch.zeros((), dtype=torch.int64, device=B.device)
+        self.eps = torch.zeros(nsteps, dtype=rdt, device=B.device)
+        self.rebind = True
+
+    def write(self, live, u, t, eps):
+        at = torch.clamp(self.k, max=self.eps.shape[0] - 1).reshape(1)
+        eps = torch.where(live, eps, self.eps.index_select(0, at)[0])
+        if self.rebind:
+            self.u = torch.where(live, u, self.u)
+            self.t = torch.where(live, t, self.t)
+            self.eps = self.eps.to(eps.dtype).index_copy(0, at,
+                                                         eps.reshape(1))
+            self.k = self.k + live.to(self.k.dtype)
+        else:
+            graphs.masked_copy(self.u, live, u)
+            graphs.masked_copy(self.t, live, t)
+            self.eps.index_copy_(0, at, eps.reshape(1))
+            self.k.add_(live.to(self.k.dtype))
+
+
+def _fused_scan(op, B, tend: float, p: int, m: int, nsteps: int, iop: int,
+                correct: bool, hermitian: bool) -> graphs.ScanParts:
+    """The fixed stepper as a scan (``utils/graphs.ScanParts``): one
+    substep over ``_FusedState`` (JAX's scan body: W, the basis, the
+    reduced phi with a 0-d tau, the combination and the update), masked by
+    k < nsteps, ``nsteps`` times; the result (u(tend), the (nsteps,) error
+    estimates); the restart puts u = B[:, 0] and t = k = 0 back."""
+    S = _FusedState(B, nsteps)
+    tau = torch.full((), tend / nsteps, dtype=S.t.dtype, device=B.device)
+
+    def step():
+        live = S.k < nsteps
+        W = _compute_W(op, S.u, B, S.t, p)
         Ks = build_subspace(op, W[:, p], m, iop=iop, hermitian=hermitian)
         C2 = _reduced_phi(tau, Ks.H, p + 1, expm_method="taylor_masked")
         P, eps = _phiv_combine(tau, Ks, C2, p + 1, correct)
-        u = _update_u(W, P[:, p], tau, p)
-        t = t + tau
-        eps_hist.append(eps)
-    return u, torch.stack(eps_hist)
+        S.write(live, _update_u(W, P[:, p], tau, p), S.t + tau, eps)
+
+    def restart():
+        S.u.copy_(B[:, 0])
+        S.t.zero_()
+        S.k.zero_()
+
+    return graphs.ScanParts(S, step, nsteps, lambda: (S.u, S.eps), restart)
+
+
+def _phiv_timestep_fused(op, B, tend: float, p: int, m: int, nsteps: int,
+                         iop: int, correct: bool, hermitian: bool):
+    """nsteps substeps of tau = tend / nsteps at a fixed m, with no host
+    read: (u(tend), the (nsteps,) error estimates). The scan
+    (``_fused_scan``) runs its first substep rebinding the state; then,
+    unless autograd or a transform must see it, the rest in place (module
+    doc): inline inside a step that a runner executes or a capture
+    records, else through a ``graphs.LoopRunner`` of the call's own."""
+    scan = _fused_scan(op, B, tend, p, m, nsteps, iop, correct, hermitian)
+    if graphs.inline(B.device):
+        graphs.run_scan(scan, None, m)
+    else:
+        with graphs.LoopRunner(
+                f"phiv_timestep_fused ({type(op).__name__})", B.device,
+                sharded=operator_comm(op) is not None) as runner:
+            graphs.run_scan(scan, runner, m)
+    return scan.result()
 
 
 def phiv_timestep_fused(t_end, A, B, *, nsteps: int, m: int = 10,
@@ -603,9 +671,19 @@ def make_phiv_timestep(t_end, A, B, *, tol: float = 1e-7, m: int = 10,
                        hermitian: bool | None = None, safety: float = 0.8):
     """Calibrate, then fix: run the adaptive driver once for a working
     (tau, m), and return ``fn(B) -> (u(t_end), eps_history)``, a
-    fixed-(tau, m) stepper with no host read. ``safety`` shrinks the
+    fixed-(tau, m) stepper with no host read, each call one scan (the JAX
+    package's jitted ``_phiv_timestep_fused``, a ``lax.scan``):
+    ``utils/graphs.Scan`` keeps per key (B's shape, dtype and device, grad
+    mode) the substep's state and its CUDA graph, captured at the second
+    substep of the first call; every later call replays that graph
+    ``nsteps`` times, with no capture and no read, the results fresh
+    tensors each call (the graph is one substep, so it does not grow with
+    ``nsteps``); a call that autograd or a ``torch.func`` transform must
+    see runs eagerly. Like ``make_expv``'s, the closure follows the operator's
+    current storage ("Stale storage" there). ``safety`` shrinks the
     calibrated tau so the fixed grid stays inside the accepted-error
-    region for nearby inputs."""
+    region for nearby inputs. ``fn.nsteps`` and ``fn.m`` are the
+    calibrated grid, ``fn.close()`` frees the graphs."""
     op = aslinearoperator(A)
     B = _as_columns(B, op)
     _, stats = phiv_timestep(float(t_end), op, B, tol=tol, m=m, iop=iop,
@@ -614,12 +692,22 @@ def make_phiv_timestep(t_end, A, B, *, tol: float = 1e-7, m: int = 10,
     tau = max(stats.final_tau * safety, 1e-300)
     nsteps = max(1, int(math.ceil(float(t_end) / tau)))
     m_cal = max(stats.final_m, 2)
+    herm = op.is_hermitian if hermitian is None else hermitian
+    m_op = min(m_cal, op.shape[0])
+    prog = graphs.Scan(f"make_phiv_timestep ({type(op).__name__})",
+                       sharded=operator_comm(op) is not None, holds=op)
+
+    def make(B_new):
+        return _fused_scan(op, B_new, float(t_end), B_new.shape[1] - 1,
+                           m_op, nsteps, iop, correct, herm)
 
     def fn(B_new):
-        return phiv_timestep_fused(float(t_end), op, B_new, nsteps=nsteps,
-                                   m=m_cal, iop=iop, correct=correct,
-                                   hermitian=hermitian)
+        B_new = _as_columns(B_new, op)
+        return prog((tuple(B_new.shape), B_new.dtype, B_new.device,
+                     torch.is_grad_enabled()), make, (B_new,))
 
     fn.nsteps = nsteps
     fn.m = m_cal
+    fn.program = prog
+    fn.close = prog.close
     return fn

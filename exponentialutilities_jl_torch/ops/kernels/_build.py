@@ -116,6 +116,12 @@ def _declare(lib):
             f.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                           _I, _I, _VP, _VP, _VP, _VP, _LL, _I, _I, _VP]
             f.restype = _I
+        for name in (f"eu_fused_sweep_ring_{suf}",
+                     f"eu_fused_sweep_var_ring_{suf}"):
+            f = getattr(lib, name)
+            f.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
+                          _VP, _VP, _LL, _I, _I, _VP]
+            f.restype = _I
         f = getattr(lib, f"eu_fused_sweep_capacity_{suf}")
         f.argtypes = [_VP, _I, _I, _I, _I]
         f.restype = _I

@@ -70,6 +70,20 @@
 // sweep reads its coefficients from, and writes alpha_j, beta_j: pass 1 and
 // the replay run the same code on the same inputs, so the replay's scalars
 // equal pass 1's bit for bit, and no scalar op runs between the sweeps.
+//
+// The device-index form (the Lanczos passes, lanczos_fused._lanczos_sweeps)
+// takes its step from the device, so that one (sweep, stage) pair is a step
+// that a CUDA graph captures once and replays m - 1 times with the same
+// arguments. The state buffer carries the step counter s (kStep): the sweep
+// reads s and picks its five vectors from the pass's ring, passed by value
+// in the launch's parameter block (the kernel's parameter space in constant
+// memory, fixed for a capture): v0, a zero vector, three y buffers and two
+// A y buffers (SweepRing below). The stage reads j = s from the state
+// instead of a host argument and advances the counter. Nothing is copied:
+// sweep s writes y_s and A y_s into their ring slots and sweep s + 1 reads
+// them there. The host-index form (a pointer per vector, j from the host)
+// stays for the callers whose loops the host drives: the sharded slab
+// sweeps, the Chebyshev recurrence and the one-sweep wrapper.
 #include <algorithm>
 #include <cstdlib>
 #include <limits>
@@ -85,10 +99,31 @@ constexpr int kFieldStage = 8;       // B3-var fields staged or held per cell
 constexpr int kStages = 3;           // cp.async stages: kStages - 1 steps ahead
 constexpr int kSweepSmemMax = 200 * 1024;
 
-// The Lanczos state buffer (T values): the next sweep's coefficients, then
-// the recurrence's carried scalars.
+// The Lanczos state buffer (T values): the next sweep's coefficients, the
+// recurrence's carried scalars, then the step counter of the device-index
+// form (an integer held exactly in T).
 constexpr int kCa = 0, kCb = 1, kCc = 2, kCw = 3, kBetaPrev = 4, kBroke = 5,
-              kMUsed = 6, kLive = 7;
+              kMUsed = 6, kLive = 7, kStep = 8;
+
+// The ring of a device-index pass (module doc): sweep s reads Z = A y_{s-1}
+// (v0 at s = 0), Vc = y_{s-1} and Vp = y_{s-2} (the zero vector before the
+// start) and writes y_s and A y_s, y_s in slot s mod 3 and A y_s in slot
+// s mod 2.
+template <typename T>
+struct SweepRing {
+  const T* v0;
+  const T* zero;
+  T* y0;
+  T* y1;
+  T* y2;
+  T* z0;
+  T* z1;
+};
+
+template <typename T>
+__device__ __forceinline__ T* ring_y(const SweepRing<T>& r, int i) {
+  return i == 0 ? r.y0 : (i == 1 ? r.y1 : r.y2);
+}
 
 struct SweepGeom {
   int nz, ny, nx, cz, ty, tx, hz, hy, hx;
@@ -118,14 +153,14 @@ __device__ __forceinline__ void cp_async_wait_step() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
 }
 
-template <typename T, bool ACCUM, bool VAR>
+template <typename T, bool ACCUM, bool VAR, bool RING>
 __global__ void __launch_bounds__(kThreads, 3)
 fused_sweep_kernel(const T* __restrict__ Z, const T* __restrict__ Vc,
                    const T* __restrict__ Vp, const T* __restrict__ coefs,
                    const T* __restrict__ cvals, const T* __restrict__ fields,
                    Offsets3D offs, SweepGeom G, T* __restrict__ Y,
                    T* __restrict__ Zn, T* __restrict__ W,
-                   T* __restrict__ partials) {
+                   T* __restrict__ partials, SweepRing<T> vecs) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ T c_sh[kMaxPoints];
   __shared__ int o_sh[kMaxPoints];     // in-plane offset of each point
@@ -160,6 +195,14 @@ fused_sweep_kernel(const T* __restrict__ Z, const T* __restrict__ Vc,
   const size_t n = (size_t)plane * G.nz;
   const T ca = coefs[kCa], cb = coefs[kCb], cc = coefs[kCc];
   const T cw = ACCUM ? coefs[kCw] : T(0);
+  if (RING) {                   // the device-index form: step s's vectors
+    const int s = (int)coefs[kStep];
+    Z = s == 0 ? vecs.v0 : ((s & 1) ? vecs.z0 : vecs.z1);
+    Vc = s == 0 ? vecs.zero : ring_y(vecs, (s + 2) % 3);
+    Vp = s <= 1 ? vecs.zero : ring_y(vecs, (s + 1) % 3);
+    Y = ring_y(vecs, s % 3);
+    Zn = (s & 1) ? vecs.z1 : vecs.z0;
+  }
 
   // this thread's halo-plane cells and tile cells, located once
   int hoff[kHaloPer];
@@ -315,9 +358,13 @@ fused_sweep_kernel(const T* __restrict__ Z, const T* __restrict__ Vc,
 
 // Second stage: the fixed-order totals of the per-block partials, written
 // to moments[0:2] when given. With a state buffer (Lanczos mode), after the
-// moments of sweep j, one thread
+// moments of sweep j (j < 0: the device-index form, j read from the state's
+// counter, which the stage then advances to j + 1), one thread
 //   * sets betas[j - 1] = |y_j| where step j - 1 was live (pass 1's beta
-//     reported one step ahead), 0 otherwise;
+//     reported one step ahead), 0 otherwise; at j = m, where no step
+//     follows, it also records a breakdown that |y_m| < tol shows, as the
+//     plain pass 1 does at its last step; past j = m (a step after the
+//     pass's end) it writes nothing but the counter;
 //   * for j < m, computes step j's scalars from the moments and the state,
 //     the formulas of lanczos_fused._lanczos_scalars (its plain twin):
 //     beta = sqrt(max(ypy, 0)), alpha = ypy > 0 ? yzy / max(ypy, tiny) : 0,
@@ -339,26 +386,32 @@ sweep_stage_kernel(const T* __restrict__ partials, int nblocks, T* __restrict__ 
     moments[1] = yzy;
   }
   if (st == nullptr) return;
+  const bool from_state = j < 0;
+  if (from_state) j = (int)st[kStep];
   const T beta = sqrt(ypy > T(0) ? ypy : T(0));
-  if (betas != nullptr && j > 0) betas[j - 1] = st[kLive] != T(0) ? beta : T(0);
-  if (j >= m) return;
-  const T alpha = ypy > T(0) ? yzy / (ypy > tiny ? ypy : tiny) : T(0);
-  const bool broke = st[kBroke] != T(0);
-  const bool now_broke = beta < tol;
-  const bool go = !broke && !now_broke;
-  const T safe_beta = beta > T(0) ? beta : T(1);
-  const T bp = st[kBetaPrev];
-  const T safe_bp = bp > T(0) ? bp : T(1);
-  const T ca = go ? T(1) / safe_beta : T(0);
-  st[kCa] = ca;
-  st[kCb] = -alpha * ca;
-  st[kCc] = go ? -beta / safe_bp : T(0);
-  st[kCw] = (coeffs != nullptr && go) ? coeffs[j] / safe_beta : T(0);
-  if (alphas != nullptr) alphas[j] = go ? alpha : T(0);
-  if (go) st[kMUsed] = T(j + 1);
-  st[kLive] = go ? T(1) : T(0);
-  st[kBetaPrev] = beta;
-  st[kBroke] = (broke || now_broke) ? T(1) : T(0);
+  if (betas != nullptr && j > 0 && j <= m) betas[j - 1] = st[kLive] != T(0) ? beta : T(0);
+  if (j < m) {
+    const T alpha = ypy > T(0) ? yzy / (ypy > tiny ? ypy : tiny) : T(0);
+    const bool broke = st[kBroke] != T(0);
+    const bool now_broke = beta < tol;
+    const bool go = !broke && !now_broke;
+    const T safe_beta = beta > T(0) ? beta : T(1);
+    const T bp = st[kBetaPrev];
+    const T safe_bp = bp > T(0) ? bp : T(1);
+    const T ca = go ? T(1) / safe_beta : T(0);
+    st[kCa] = ca;
+    st[kCb] = -alpha * ca;
+    st[kCc] = go ? -beta / safe_bp : T(0);
+    st[kCw] = (coeffs != nullptr && go) ? coeffs[j] / safe_beta : T(0);
+    if (alphas != nullptr) alphas[j] = go ? alpha : T(0);
+    if (go) st[kMUsed] = T(j + 1);
+    st[kLive] = go ? T(1) : T(0);
+    st[kBetaPrev] = beta;
+    st[kBroke] = (broke || now_broke) ? T(1) : T(0);
+  } else if (j == m && beta < tol) {
+    st[kBroke] = T(1);
+  }
+  if (from_state) st[kStep] = T(j + 1);
 }
 
 // The sweep's geometry from the host's arguments, checked; returns 0 or a
@@ -396,11 +449,11 @@ inline int sweep_geom(const int* offs, int k, int nz, int ny, int nx, int cz, in
 // the static shared memory it must be asked for); raised only as far as a
 // launch needs, since the limit also bounds how many blocks the occupancy
 // calculation admits.
-template <typename T, bool ACCUM, bool VAR>
+template <typename T, bool ACCUM, bool VAR, bool RING = false>
 static cudaError_t allow_smem(size_t bytes) {     // static: one flag per library
   static size_t allowed = 0;
   if (bytes > allowed) {
-    cudaError_t e = cudaFuncSetAttribute(fused_sweep_kernel<T, ACCUM, VAR>,
+    cudaError_t e = cudaFuncSetAttribute(fused_sweep_kernel<T, ACCUM, VAR, RING>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
     if (e != cudaSuccess) return e;
@@ -418,10 +471,10 @@ int resident_blocks(const size_t smem[2]) {
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &plain, fused_sweep_kernel<T, false, VAR>, kThreads, smem[0]);
+        &plain, fused_sweep_kernel<T, false, VAR, false>, kThreads, smem[0]);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &acc, fused_sweep_kernel<T, true, VAR>, kThreads, smem[1]);
+        &acc, fused_sweep_kernel<T, true, VAR, false>, kThreads, smem[1]);
   if (e != cudaSuccess) return -(int)e;
   return std::min(plain, acc) * sms;
 }
@@ -438,29 +491,42 @@ int sweep_capacity(const int* offs, int k, int ty, int tx, int var) {
   return var ? resident_blocks<T, true>(smem) : resident_blocks<T, false>(smem);
 }
 
+template <typename T, bool ACCUM, bool VAR, bool RING>
+int launch_form(dim3 grid, size_t smem, cudaStream_t stream, const T* Z, const T* Vc,
+                const T* Vp, const T* coefs, const T* cvals, const T* fields,
+                const Offsets3D& o, const SweepGeom& G, T* Y, T* Zn, T* W, T* partials,
+                const SweepRing<T>& ring) {
+  const cudaError_t e = allow_smem<T, ACCUM, VAR, RING>(smem);
+  if (e != cudaSuccess) return (int)e;
+  fused_sweep_kernel<T, ACCUM, VAR, RING><<<grid, kThreads, smem, stream>>>(
+      Z, Vc, Vp, coefs, cvals, fields, o, G, Y, Zn, W, partials, ring);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool VAR>
 int launch_body(dim3 grid, const size_t smem[2], cudaStream_t stream, const T* Z,
                 const T* Vc, const T* Vp, const T* coefs, const T* cvals, const T* fields,
-                const Offsets3D& o, const SweepGeom& G, T* Y, T* Zn, T* W, T* partials) {
-  cudaError_t e;
-  if (W != nullptr) {
-    e = allow_smem<T, true, VAR>(smem[1]);
-    if (e != cudaSuccess) return (int)e;
-    fused_sweep_kernel<T, true, VAR><<<grid, kThreads, smem[1], stream>>>(
-        Z, Vc, Vp, coefs, cvals, fields, o, G, Y, Zn, W, partials);
-  } else {
-    e = allow_smem<T, false, VAR>(smem[0]);
-    if (e != cudaSuccess) return (int)e;
-    fused_sweep_kernel<T, false, VAR><<<grid, kThreads, smem[0], stream>>>(
-        Z, Vc, Vp, coefs, cvals, fields, o, G, Y, Zn, W, partials);
-  }
-  return (int)cudaGetLastError();
+                const Offsets3D& o, const SweepGeom& G, T* Y, T* Zn, T* W, T* partials,
+                const SweepRing<T>* ring) {
+  const SweepRing<T> r = ring != nullptr ? *ring : SweepRing<T>{};
+  if (W != nullptr)
+    return ring != nullptr
+               ? launch_form<T, true, VAR, true>(grid, smem[1], stream, Z, Vc, Vp, coefs,
+                                                 cvals, fields, o, G, Y, Zn, W, partials, r)
+               : launch_form<T, true, VAR, false>(grid, smem[1], stream, Z, Vc, Vp, coefs,
+                                                  cvals, fields, o, G, Y, Zn, W, partials, r);
+  return ring != nullptr
+             ? launch_form<T, false, VAR, true>(grid, smem[0], stream, Z, Vc, Vp, coefs,
+                                                cvals, fields, o, G, Y, Zn, W, partials, r)
+             : launch_form<T, false, VAR, false>(grid, smem[0], stream, Z, Vc, Vp, coefs,
+                                                 cvals, fields, o, G, Y, Zn, W, partials, r);
 }
 
 template <typename T>
 int launch_stage(const T* partials, int nblocks, T* moments, T* state, T* alphas, T* betas,
                  const T* coeffs, int j, int m, double tol, cudaStream_t stream) {
-  if (nblocks < 1 || (moments == nullptr && state == nullptr)) return (int)cudaErrorInvalidValue;
+  if (nblocks < 1 || (moments == nullptr && state == nullptr) || (j < 0 && state == nullptr))
+    return (int)cudaErrorInvalidValue;
   sweep_stage_kernel<T><<<1, kThreads, 0, stream>>>(
       partials, nblocks, moments, state, alphas, betas, coeffs, j, m, (T)tol,
       std::numeric_limits<T>::min());
@@ -472,13 +538,19 @@ int launch_stage(const T* partials, int nblocks, T* moments, T* state, T* alphas
 // moments summed over the output planes [z0, z1) (0 <= z0 <= z1 <= nz). The
 // coefficients (ca, cb, cc[, cw]) are read from `coefs` on the device. The
 // second stage is its own host call (launch_stage), so the host prepares it
-// while the sweep runs.
+// while the sweep runs. With `ring` (the device-index form) `coefs` is the
+// Lanczos state and the vectors are the ring's slots of its step (Z, Vc, Vp,
+// Y and Zn are ignored).
 template <typename T>
 int launch_sweep(const T* Z, const T* Vc, const T* Vp, const T* coefs, const T* cvals,
                  const T* fields, const int* offs, int k, int nz, int ny, int nx, int cz,
                  int ty, int tx, T* Y, T* Zn, T* W, T* partials, long long partials_cap,
-                 int z0, int z1, cudaStream_t stream) {
+                 int z0, int z1, cudaStream_t stream, const SweepRing<T>* ring = nullptr) {
   if ((fields == nullptr) == (cvals == nullptr)) return (int)cudaErrorInvalidValue;
+  if (ring != nullptr && (ring->v0 == nullptr || ring->zero == nullptr || ring->y0 == nullptr ||
+                          ring->y1 == nullptr || ring->y2 == nullptr || ring->z0 == nullptr ||
+                          ring->z1 == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (z0 < 0 || z0 > z1 || z1 > nz) return (int)cudaErrorInvalidValue;
   Offsets3D o;
   SweepGeom G;
@@ -494,9 +566,27 @@ int launch_sweep(const T* Z, const T* Vc, const T* Vp, const T* coefs, const T* 
     return (int)cudaErrorInvalidValue;
   return fields != nullptr
              ? launch_body<T, true>(grid, smem, stream, Z, Vc, Vp, coefs, cvals, fields, o,
-                                    G, Y, Zn, W, partials)
+                                    G, Y, Zn, W, partials, ring)
              : launch_body<T, false>(grid, smem, stream, Z, Vc, Vp, coefs, cvals, fields, o,
-                                     G, Y, Zn, W, partials);
+                                     G, Y, Zn, W, partials, ring);
+}
+
+// The device-index form (module doc): `ring` is a host array of the seven
+// device pointers v0, zero, y0, y1, y2, z0, z1, copied into the launch.
+template <typename T>
+int launch_sweep_ring(const void* const* ring, const T* state, const T* cvals,
+                      const T* fields, const int* offs, int k, int nz, int ny, int nx,
+                      int cz, int ty, int tx, T* W, T* partials, long long partials_cap,
+                      int z0, int z1, cudaStream_t stream) {
+  if (ring == nullptr || state == nullptr) return (int)cudaErrorInvalidValue;
+  const SweepRing<T> r{static_cast<const T*>(ring[0]), static_cast<const T*>(ring[1]),
+                       static_cast<T*>(const_cast<void*>(ring[2])),
+                       static_cast<T*>(const_cast<void*>(ring[3])),
+                       static_cast<T*>(const_cast<void*>(ring[4])),
+                       static_cast<T*>(const_cast<void*>(ring[5])),
+                       static_cast<T*>(const_cast<void*>(ring[6]))};
+  return launch_sweep<T>(r.v0, r.zero, r.zero, state, cvals, fields, offs, k, nz, ny, nx, cz,
+                         ty, tx, r.y0, r.z0, W, partials, partials_cap, z0, z1, stream, &r);
 }
 
 }  // namespace eu
@@ -519,6 +609,22 @@ int launch_sweep(const T* Z, const T* Vc, const T* Vp, const T* coefs, const T* 
     return eu::launch_sweep<T>(Z, Vc, Vp, coefs, nullptr, fields, offs, k, nz, ny,   \
                                nx, cz, ty, tx, Y, Zn, W, partials, partials_cap, z0, \
                                z1, (cudaStream_t)stream);                            \
+  }                                                                                   \
+  extern "C" int eu_fused_sweep_ring_##SUF(                                           \
+      const void* const* ring, const T* state, const T* cvals, const int* offs, int k, \
+      int nz, int ny, int nx, int cz, int ty, int tx, T* W, T* partials,             \
+      long long partials_cap, int z0, int z1, void* stream) {                        \
+    return eu::launch_sweep_ring<T>(ring, state, cvals, nullptr, offs, k, nz, ny, nx, \
+                                    cz, ty, tx, W, partials, partials_cap, z0, z1,    \
+                                    (cudaStream_t)stream);                            \
+  }                                                                                   \
+  extern "C" int eu_fused_sweep_var_ring_##SUF(                                       \
+      const void* const* ring, const T* state, const T* fields, const int* offs, int k, \
+      int nz, int ny, int nx, int cz, int ty, int tx, T* W, T* partials,             \
+      long long partials_cap, int z0, int z1, void* stream) {                        \
+    return eu::launch_sweep_ring<T>(ring, state, nullptr, fields, offs, k, nz, ny, nx, \
+                                    cz, ty, tx, W, partials, partials_cap, z0, z1,    \
+                                    (cudaStream_t)stream);                            \
   }                                                                                   \
   extern "C" int eu_fused_sweep_capacity_##SUF(const int* offs, int k, int ty, int tx, \
                                                int var) {                             \

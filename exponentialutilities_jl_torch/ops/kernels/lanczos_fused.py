@@ -27,10 +27,25 @@ The Lanczos scalars live in a small state buffer on the device (``_ST``):
 the second stage after sweep j writes the next sweep's (ca, cb, cc, cw),
 alpha_j and beta_{j-1} there and into the outputs, and sweep j + 1 reads
 its coefficients from it. So a Lanczos or replay step is two launches and
-the m-step Python loops never synchronize with the host. On CPU tensors
-every sweep runs the plain twin ``fused_sweep_ref`` and every stage its
-twin ``sweep_stage_ref`` (``_lanczos_scalars``); on CUDA tensors they
-launch B3 (or B3-var) and the stage, or raise.
+never synchronizes with the host.
+
+The two passes take their step from the device (the device-index form,
+``csrc/fused_sweep.cu``): the state also holds the step counter s, the
+sweep picks its five vectors from the pass's ring (v0, a zero vector,
+three y and two A y buffers: ``ring_slots``) by s, and the stage reads
+j = s and advances it. A pass is then one step, (sweep, stage), with the
+same arguments every time, run m + 1 times by a ``utils/graphs.LoopRunner``
+(``_lanczos_sweeps``): on a CUDA device step 0 runs eagerly, step 1 is
+captured into a CUDA graph and the rest replay it; inside a step that a
+runner executes or a capture records (a serving program, a device
+driver's step) the pass runs inline. On CPU tensors the same step runs
+the twins, ``fused_sweep_ring_ref`` and ``sweep_stage_ref``
+(``_lanczos_scalars``), whose writes are masked by the counter, not
+branched on it on the host; on CUDA tensors it launches B3 (or B3-var)
+and the stage, or raises. ``fused_lanczos_step``, the Chebyshev
+recurrence and the sharded slab sweeps (``parallel/stencil_fused.py``,
+whose collectives run on gloo, which a graph cannot capture) keep the
+host-index form: a pointer per vector and j from the host.
 
 What does not change between sweeps is planned once per (operator, dtype,
 device) and kept on the operator (``_SweepPlan``): the support check, the
@@ -50,13 +65,15 @@ import math
 
 import torch
 
+from ...utils import graphs
 from ..sparse import _promoted
 from ..stencil import StencilOperator, VariableStencilOperator, stencil_apply
 from . import _build
 from .dispatch import refuse_grad
 
 __all__ = ["fused_supported", "fused_lanczos_step", "fused_sweep_ref",
-           "sweep_stage_ref", "lanczos_coeffs_fused", "lanczos_replay_fused",
+           "fused_sweep_ring_ref", "ring_slots", "sweep_stage_ref",
+           "lanczos_coeffs_fused", "lanczos_replay_fused",
            "recurrence_apply_fused", "stencil_matvec_fused", "MAX_HALO"]
 
 MAX_HALO = 3            # largest |offset| per axis: eu::kMaxHalo
@@ -66,9 +83,12 @@ MAX_HALO = 3            # largest |offset| per axis: eu::kMaxHalo
 TILE = {4: (16, 32), 8: (8, 32)}
 VAR_TILE = (8, 32)
 
-# the Lanczos state buffer: eu::kCa .. eu::kLive in csrc/fused_sweep.cu
-_ST = dict(ca=0, cb=1, cc=2, cw=3, beta_prev=4, broke=5, m_used=6, live=7)
-_ST_LEN = 8
+# the Lanczos state buffer: eu::kCa .. eu::kStep in csrc/fused_sweep.cu
+_ST = dict(ca=0, cb=1, cc=2, cw=3, beta_prev=4, broke=5, m_used=6, live=7,
+           step=8)
+_ST_LEN = 9
+# its values before sweep 0: (1, 0, 0) emits y = v0, beta_prev divides as 1
+_STATE0 = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0)
 
 
 def fused_supported(op, hermitian: bool = True) -> bool:
@@ -171,30 +191,73 @@ def _lanczos_scalars(ypy, yzy, beta_prev, broke, tol):
     return ca, cb, cc, alpha, beta, now_broke, go, safe_beta
 
 
-def sweep_stage_ref(moments, state, alphas, betas, coeffs, j: int, m: int,
+def sweep_stage_ref(moments, state, alphas, betas, coeffs, m: int,
                     tol: float):
-    """Plain twin of the Lanczos-mode second stage after sweep ``j``
-    (``sweep_stage_kernel``): updates ``state`` (``_ST``), ``alphas`` and
-    ``betas`` in place from the sweep's moments; ``coeffs`` (the replay's
+    """Plain twin of the Lanczos-mode second stage after sweep j, in its
+    device-index form (``sweep_stage_kernel`` with j read from the state):
+    j is the state's counter (``_ST["step"]``), which it advances; it
+    updates ``state`` (``_ST``), ``alphas`` and ``betas`` in place from the
+    sweep's moments, every write masked by j (betas[j - 1] where 0 < j <=
+    m, step j's scalars where j < m, at j = m a breakdown that |y_m| < tol
+    shows, as the plain pass 1 records at its last step; past m nothing
+    but the counter) with no host branch on it; ``coeffs`` (the replay's
     weights) or None."""
     ypy, yzy = moments[0], moments[1]
-    if j > 0:
-        betas[j - 1] = torch.where(state[_ST["live"]] != 0,
-                                   torch.sqrt(torch.clamp_min(ypy, 0.0)), 0.0)
-    if j >= m:
-        return
-    broke = state[_ST["broke"]] != 0
-    ca, cb, cc, alpha, beta, now_broke, live, safe_beta = _lanczos_scalars(
-        ypy, yzy, state[_ST["beta_prev"]], broke, tol)
-    cw = (torch.where(live, coeffs[j] / safe_beta, 0.0) if coeffs is not None
-          else torch.zeros_like(ca))
-    alphas[j] = torch.where(live, alpha, 0.0)
-    state[_ST["m_used"]] = torch.where(live, float(j + 1),
-                                       state[_ST["m_used"]])
-    state[:4] = torch.stack([ca, cb, cc, cw])
-    state[_ST["live"]] = live.to(state.dtype)
-    state[_ST["beta_prev"]] = beta
-    state[_ST["broke"]] = (broke | now_broke).to(state.dtype)
+    step = state[_ST["step"]:_ST["step"] + 1]
+    if m > 0:
+        j = step.to(torch.int64)
+        jb = torch.clamp(j - 1, 0, m - 1)
+        beta_j = torch.where(state[_ST["live"]] != 0,
+                             torch.sqrt(torch.clamp_min(ypy, 0.0)), 0.0)
+        betas.index_copy_(0, jb, torch.where((j > 0) & (j <= m), beta_j,
+                                             betas.index_select(0, jb)))
+        act = j < m
+        jc = torch.clamp(j, max=m - 1)
+        broke = state[_ST["broke"]] != 0
+        ca, cb, cc, alpha, beta, now_broke, live, safe_beta = \
+            _lanczos_scalars(ypy, yzy, state[_ST["beta_prev"]], broke, tol)
+        cw = (torch.where(live, coeffs.index_select(0, jc)[0] / safe_beta,
+                          0.0) if coeffs is not None
+              else torch.zeros_like(ca))
+        alphas.index_copy_(0, jc, torch.where(
+            act, torch.where(live, alpha, 0.0), alphas.index_select(0, jc)))
+        new = torch.stack([
+            ca, cb, cc, cw, beta, (broke | now_broke).to(state.dtype),
+            torch.where(live, step[0] + 1, state[_ST["m_used"]]),
+            live.to(state.dtype)])
+        # at the last step only broke, by the breakdown |y_m| < tol
+        slot = torch.arange(_ST["step"], device=state.device)
+        keep = state[:_ST["step"]]
+        state[:_ST["step"]] = torch.where(
+            act | ((slot == _ST["broke"]) & (j == m)), new, keep)
+    step.add_(1)
+
+
+def ring_slots(ring, s: int):
+    """(Z, Vc, Vp, Y, Zn) of sweep s from a pass's ring (v0, zero, y0, y1,
+    y2, z0, z1): Z = A y_{s-1} (v0 at s = 0), Vc = y_{s-1}, Vp = y_{s-2}
+    (the zero vector before the start), y_s into slot s mod 3 and A y_s
+    into slot s mod 2 (``SweepRing`` in ``csrc/fused_sweep.cu``)."""
+    v0, zero, ys, zs = ring[0], ring[1], ring[2:5], ring[5:7]
+    return (v0 if s == 0 else zs[(s - 1) % 2],
+            zero if s == 0 else ys[(s - 1) % 3],
+            zero if s <= 1 else ys[(s - 2) % 3],
+            ys[s % 3], zs[s % 2])
+
+
+def fused_sweep_ring_ref(ring, state, grid_shape, offsets, cvals,
+                         w_accum=None):
+    """Plain twin of B3 and B3-var in their device-index form: sweep s =
+    ``state[_ST["step"]]`` (read here: the twin's vectors are Python
+    objects) on the ring's slots of step s (``ring_slots``), its
+    coefficients from ``state``; writes y_s and A y_s into their slots and
+    returns the moments (2,)."""
+    Z, Vc, Vp, Y, Zn = ring_slots(ring, int(state[_ST["step"]]))
+    y, zn, moments = fused_sweep_ref(Z, Vc, Vp, state, grid_shape, offsets,
+                                     cvals, w_accum)
+    Y.copy_(y)
+    Zn.copy_(zn)
+    return moments
 
 
 # ---------------------------------------------------------------- plan --
@@ -236,6 +299,7 @@ class _SweepPlan:
         lib = _build.library()
         suf = _build.suffix(dtype)
         self.sweep_fn = getattr(lib, f"eu_{self.name}_{suf}")
+        self.ring_fn = getattr(lib, f"eu_{self.name}_ring_{suf}")
         self.stage_fn = getattr(lib, f"eu_sweep_stage_{suf}")
         flat = [int(v) for off in offs3 for v in off]
         self.offs = (ctypes.c_int * len(flat))(*flat)
@@ -253,9 +317,7 @@ class _SweepPlan:
         self.partials = torch.empty(2 * self.nblocks, dtype=dtype,
                                     device=device)
         self.state = torch.empty(_ST_LEN, dtype=dtype, device=device)
-        self.state0 = torch.zeros(_ST_LEN, dtype=dtype, device=device)
-        self.state0[_ST["ca"]].fill_(1.0)     # a fill; ``t[i] = v`` copies via host
-        self.state0[_ST["beta_prev"]].fill_(1.0)
+        self.state0 = _const(_STATE0, self.state)
         self.unit = self.state0[:4]
 
     def sweep(self, Z, Vc, Vp, coefs_ptr: int, cvals, Y, Zn, W, stream,
@@ -273,11 +335,25 @@ class _SweepPlan:
         _build.check(code, self.what)
         _build.launches[self.name] += 1
 
+    def sweep_ring(self, ring, state, cvals, W, stream):
+        """Launch B3 (or B3-var) in its device-index form: the step s from
+        ``state``'s counter, its vectors the slots of step s of ``ring``
+        (a ctypes array of the seven pointers v0, zero, y0, y1, y2, z0, z1:
+        ``ring_slots``), its coefficients from ``state``."""
+        nz, ny, nx = self.shape3
+        code = self.ring_fn(ring, state.data_ptr(), cvals.data_ptr(),
+                            self.offs, self.k, nz, ny, nx, self.cz,
+                            *self.tile, _ptr(W), self.partials.data_ptr(),
+                            2 * self.nblocks, 0, nz, stream)
+        _build.check(code, self.what)
+        _build.launches[self.name] += 1
+
     def stage(self, stream, moments=None, state=None, alphas=None,
               betas=None, coeffs=None, j=0, m=0, tol=0.0, partials=None):
         """Launch the second stage of the last sweep: its moments into
         ``moments``, or in Lanczos mode (``state``) the scalars of step
-        ``j`` into ``state``, ``alphas`` and ``betas``
+        ``j`` into ``state``, ``alphas`` and ``betas``; ``j`` None: the
+        device-index form, j read from the state's counter and advanced
         (``sweep_stage_ref``). ``partials``: a 2-vector of moments to read
         instead of the last sweep's per-block partials (the sharded
         sweeps' reduced moments)."""
@@ -285,7 +361,8 @@ class _SweepPlan:
                    else (partials, 1))
         code = self.stage_fn(src.data_ptr(), nb,
                              _ptr(moments), _ptr(state), _ptr(alphas),
-                             _ptr(betas), _ptr(coeffs), j, m, tol, stream)
+                             _ptr(betas), _ptr(coeffs),
+                             -1 if j is None else j, m, tol, stream)
         _build.check(code, "second stage of the fused sweep")
         _build.launches["sweep_stage"] += 1
 
@@ -376,8 +453,12 @@ def _start(b):
 def _lanczos_sweeps(op, b, m: int, tol: float, coeffs=None, *, what):
     """Lanczos pass 1 (``coeffs`` None) or its replay with weights
     ``coeffs`` ((m,)): m + 1 sweeps from v0 = b / |b|, each followed by
-    the Lanczos-mode second stage. Returns (alphas, betas, beta0, m_used,
-    broke, W), W None in pass 1; both passes fill alphas and betas."""
+    the Lanczos-mode second stage, as one step in the device-index form
+    (module doc) run m + 1 times. Sweep 0's (1, 0, 0) emits y = v0, Z =
+    A v0 and the first moments; sweep s + 1 accumulates c_s v_s from its
+    Vc input (Vc = y_s with |y_s| = beta, so Vc / beta = v_s) while
+    producing y_{s+1}. Returns (alphas, betas, beta0, m_used, broke, W),
+    W None in pass 1; both passes fill alphas and betas."""
     plan = _plan(op, b.dtype, b.device)
     if not plan.hermitian:
         raise ValueError(f"{what} requires a symmetric 2-D/3-D Stencil or "
@@ -387,7 +468,8 @@ def _lanczos_sweeps(op, b, m: int, tol: float, coeffs=None, *, what):
     if coeffs is not None:
         coeffs = coeffs.to(dtype=dt, device=dev).contiguous()
         m = coeffs.shape[0]
-    zeros = torch.zeros_like(v0)
+    ring = (v0, torch.zeros_like(v0),
+            *(torch.empty_like(v0) for _ in range(5)))
     W = None if coeffs is None else torch.zeros_like(v0)
     alphas = torch.empty(m, dtype=dt, device=dev)
     betas = torch.empty(m, dtype=dt, device=dev)
@@ -396,27 +478,28 @@ def _lanczos_sweeps(op, b, m: int, tol: float, coeffs=None, *, what):
         refuse_grad(f"{what} (B3)", op, b, coeffs)
         state = plan.state
         state.copy_(plan.state0)
-        stream = _build.raw_stream(v0.device)
-        Ys = [torch.empty_like(v0) for _ in range(3)]
-        Zs = [torch.empty_like(v0) for _ in range(2)]
-    else:
-        state = _const((1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0), v0)
-    state[_ST["broke"]].copy_(beta0 == 0)
-    # sweep 0: (1, 0, 0) emits y = v0, Z = A v0 and the first moments
-    Z, Vc, Vp = v0, zeros, zeros
-    for s in range(m + 1):
-        if plan.kernel:
-            Y, Zn = Ys[s % 3], Zs[s % 2]
-            plan.sweep(Z, Vc, Vp, state.data_ptr(), cvals, Y, Zn, W, stream)
+        ptrs = (ctypes.c_void_p * len(ring))(*(v.data_ptr() for v in ring))
+
+        def step():
+            stream = _build.raw_stream(dev)
+            plan.sweep_ring(ptrs, state, cvals, W, stream)
             plan.stage(stream, state=state, alphas=alphas, betas=betas,
-                       coeffs=coeffs, j=s, m=m, tol=tol)
-        else:
-            Y, Zn, moments = fused_sweep_ref(Z, Vc, Vp, state, op.grid_shape,
-                                             op.offsets, cvals, W)
-            sweep_stage_ref(moments, state, alphas, betas, coeffs, s, m, tol)
-        # sweep s + 1 accumulates c_s v_s from its Vc input (Vc = y_s with
-        # |y_s| = beta, so Vc / beta = v_s) while producing y_{s+1}
-        Z, Vc, Vp = Zn, Y, Vc
+                       coeffs=coeffs, j=None, m=m, tol=tol)
+    else:
+        state = _const(_STATE0, v0)
+
+        def step():
+            moments = fused_sweep_ring_ref(ring, state, op.grid_shape,
+                                           op.offsets, cvals, W)
+            sweep_stage_ref(moments, state, alphas, betas, coeffs, m, tol)
+    state[_ST["broke"]].copy_(beta0 == 0)
+    if graphs.inline(dev):
+        for _ in range(m + 1):
+            step()
+    else:
+        with graphs.LoopRunner(f"{what} ({type(op).__name__})",
+                               dev) as runner:
+            runner.repeat(m, "sweep", step, m + 1, last=True)
     m_used = state[_ST["m_used"]].to(torch.int32)
     return alphas, betas, beta0, m_used, state[_ST["broke"]] != 0, W
 

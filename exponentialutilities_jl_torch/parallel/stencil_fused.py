@@ -44,9 +44,9 @@ import torch
 
 from ..ops.kernels import _build
 from ..ops.kernels.dispatch import chebyshev_rows, refuse_grad
-from ..ops.kernels.lanczos_fused import (_ST, _const, _cvals, _plan,
-                                         fused_supported, fused_sweep_ref,
-                                         sweep_stage_ref)
+from ..ops.kernels.lanczos_fused import (_ST, _STATE0, _const, _cvals,
+                                         _plan, fused_supported,
+                                         fused_sweep_ref, sweep_stage_ref)
 from ..ops.stencil import StencilOperator, VariableStencilOperator
 
 __all__ = ["fused_shard_plan", "FusedShardPlan", "FusedShardPlan2D",
@@ -312,7 +312,7 @@ def _lanczos_sharded(plan, b_local, m: int, tol: float, coeffs=None):
         state = sw.sp.state
         state.copy_(sw.sp.state0)
     else:
-        state = _const((1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0), v0)
+        state = _const(_STATE0, v0)
     state[_ST["broke"]].copy_(beta0 == 0)
     Z, Vc, Vp = V0, zeros, zeros
     for s in range(m + 1):
@@ -324,8 +324,9 @@ def _lanczos_sharded(plan, b_local, m: int, tol: float, coeffs=None):
             sw.sp.stage(sw.stream, state=state, alphas=alphas, betas=betas,
                         coeffs=coeffs, j=s, m=m, tol=tol, partials=mom)
         else:
-            sweep_stage_ref(comm.psum(mom), state, alphas, betas, coeffs, s,
-                            m, tol)
+            # the twin takes j = s from the state's counter
+            sweep_stage_ref(comm.psum(mom), state, alphas, betas, coeffs, m,
+                            tol)
         Zn = plan.refresh(Zn)
         Z, Vc, Vp = Zn, Y, Vc
     m_used = state[_ST["m_used"]].to(torch.int32)

@@ -1,7 +1,8 @@
 """Loop programs over device tensors, replayed from CUDA graphs: the
 port's counterpart of ``jax.jit`` for the drivers whose JAX form is one
 compiled ``lax.while_loop`` or ``lax.scan`` program (``nw_device``,
-``kiops_device`` and the ``*_device`` integrators).
+``kiops_device``, the ``*_device`` integrators, the Krylov builders, the
+fused sweeps' Lanczos passes and the fixed NW stepper).
 
 A loop is a set of steps: functions of no arguments that read the loop's
 state (tensors made before the loop, on the caller's stream) and write it
@@ -92,6 +93,26 @@ capture in ``captures`` and the calls it served by replaying an existing
 graph in ``replays`` (the capturing call's own replay is part of its
 capture, but its kernel executions are counted).
 
+Scans. ``Scan`` is a ``Program`` whose call is one step repeated a fixed
+number of times over state made from the inputs (the JAX package's
+jitted ``lax.scan`` closure, ``make_phiv_timestep``'s ``fn(B)``): its
+graph is the step, not the whole call, so that it does not grow with the
+count. ``make(*inputs)`` returns the scan (``ScanParts``: the state, with
+the ``rebind`` flag of ``ops/krylov._State``, the step, the count, the
+result and the restart that resets the state from the inputs). The first
+call of a key is its warm-up: it makes the scan from the key's static
+inputs, and ``run_scan`` executes its first step rebinding the state
+(which sets the state's dtypes, and shows whether autograd must see the
+call), then, where the state sees no grad, the rest through a
+``LoopRunner`` that the key keeps: the step is captured at its second
+execution, and the rest of that call and every later call replay it. A
+later call copies its inputs into the static inputs, restarts the state
+and replays the step ``count`` times, with no capture and no read, and
+returns a clone of the result. The grad rule, the CPU, ``eager()`` and a
+sharded operator run a call eagerly (a scan made from the call's own
+inputs, its steps with no runner), and the record of "Stale storage"
+below holds for the key as for a ``Program``'s.
+
 Stale storage. A graph replays the pointers of its capture, while the
 JAX package's closure is handed the operator on every call, so that it
 follows the operator's current storage. So a program keeps, for each
@@ -127,13 +148,15 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import weakref
 
 import torch
 import torch.autograd.forward_ad as fwAD
 from torch.overrides import TorchFunctionMode
 
-__all__ = ["LoopRunner", "Program", "eager", "inline", "masked_copy",
+__all__ = ["LoopRunner", "Program", "Scan", "ScanParts", "run_scan",
+           "eager", "inline", "masked_copy",
            "counts", "executions", "step_launches", "reset_counts",
            "launch_adjustment", "kernel_executions", "sees_grad",
            "held_tensors"]
@@ -658,3 +681,101 @@ class Program:
         self.graphs[key] = (g, static, out[0], inside)
         self.record(key)
         return _clone(out[0])
+
+
+@dataclasses.dataclass
+class ScanParts:
+    """A scan (module doc, "Scans"): ``state`` (its tensors as attributes,
+    with a ``rebind`` flag that the step honours: write in place, or bind
+    the names to new tensors), ``step`` (no arguments), ``count``
+    executions, ``result()`` the outputs (a tensor or a tuple) and
+    ``restart()`` the in-place reset of the state from the inputs."""
+
+    state: object
+    step: object
+    count: int
+    result: object
+    restart: object
+
+
+def run_scan(scan: ScanParts, runner, key, *, last: bool = True):
+    """Execute ``scan.step`` ``scan.count`` times: the first execution
+    rebinding the state, then, where no state tensor requires grad or is
+    wrapped by a ``torch.func`` transform (``sees_grad``), in place through
+    ``runner`` at ``key`` (a replayed graph), else rebinding with no
+    runner. ``runner`` None: every step inline. ``last``: as in
+    ``LoopRunner.repeat`` (False when a later call replays the graph)."""
+    S = scan.state
+    S.rebind = True
+    if runner is None:
+        scan.step()
+    else:
+        runner.repeat(key, "step", scan.step, 1)        # its warm-up
+    S.rebind = sees_grad(vars(S).values())
+    if runner is None or S.rebind:
+        for _ in range(scan.count - 1):
+            scan.step()
+    else:
+        runner.repeat(key, "step", scan.step, scan.count - 1, last=last)
+
+
+class Scan(Program):
+    """A call that is a scan (module doc, "Scans"), with a ``Program``'s
+    keys, grad rule and stale-storage record: per key the static inputs,
+    the scan made from them and the ``LoopRunner`` that keeps its step's
+    graph. ``close`` frees the graphs."""
+
+    def close(self):
+        for runner, *_ in self.graphs.values():
+            runner.close()
+        self.graphs.clear()
+
+    def _drop(self, key):
+        got = self.graphs.pop(key, None)
+        if got is not None:
+            got[0].close()
+        self.touched.pop(key, None)
+        self.records.pop(key, None)
+        counts["recaptures"] += 1
+
+    def __call__(self, key, make, inputs: tuple):
+        """The scan ``make(*inputs)`` run to its end (module doc): the
+        first call of a key its warm-up, later calls replays of its step
+        after ``inputs`` are copied into the key's static inputs; the
+        result of a replayed call is a fresh clone. A call that the grad
+        rule must see runs eagerly."""
+        device = inputs[0].device
+        graphed = (device.type == "cuda" and not self.sharded
+                   and not _eager_only[0] and key not in self.eager_keys)
+        if graphed and key in self.touched and self.stale(key):
+            self._drop(key)
+        got = self.graphs.get(key) if graphed else None
+        if got is not None and not _sees_grad_now(
+                (*inputs, *(r() for r in self.touched[key]))):
+            runner, static, scan = got
+            with torch.no_grad():
+                for st, x in zip(static, inputs):
+                    st.copy_(x)
+                scan.restart()
+            runner.repeat(key, "step", scan.step, scan.count)
+            return _clone(scan.result())
+        if not graphed or key in self.touched or _sees_grad_now(inputs):
+            scan = make(*inputs)
+            _run_step(lambda: run_scan(scan, None, key))
+            counts["eager_steps"] += 1
+            return scan.result()
+        # the key's warm-up: its scan made from static inputs, its step
+        # captured by a runner that the key keeps
+        with _Touched() as rec:
+            static = tuple(x.detach().clone() for x in inputs)
+            runner = LoopRunner(self.what, device)
+            scan = make(*static)
+            run_scan(scan, runner, key, last=False)
+        self.touched[key] = rec.refs(skip=(*inputs, *static))
+        self.record(key)
+        if scan.state.rebind:               # autograd sees the call
+            runner.close()
+            self.eager_keys.add(key)
+            return scan.result()
+        self.graphs[key] = (runner, static, scan)
+        return _clone(scan.result())

@@ -8,6 +8,7 @@ Tolerances, relative to the output's max-norm: 1e-5 in float32 (sum order
 and FMA contraction differ from the twin) and 1e-12 in float64."""
 
 import contextlib
+import ctypes
 import itertools
 
 import numpy as np
@@ -174,10 +175,11 @@ LANCZOS_TOL = {torch.float32: 1e-4, torch.float64: 1e-7}
 @pytest.mark.parametrize("kind", ["7pt", "2d", "13pt", "diff3d", "diff2d"])
 def test_b3_lanczos_two_launches_per_sweep(dev, dt, kind):
     """Pass 1 and the replay on the card: one sweep and one second stage
-    per step (the stage computes the next sweep's scalars), the replay's
-    alphas and betas bitwise equal to pass 1's, both against the drivers'
-    CPU path on the same operator (float32 within 1e-4: the Krylov
-    recurrence amplifies the sums' other order)."""
+    per step (the stage computes the next sweep's scalars; executions,
+    since a pass replays its step from a CUDA graph), the replay's alphas
+    and betas bitwise equal to pass 1's, both against the drivers' CPU
+    path on the same operator (float32 within 1e-4: the Krylov recurrence
+    amplifies the sums' other order)."""
     if kind.startswith("diff"):
         op, cpu = _var_op(kind, dt, dev), _var_op(kind, dt, "cpu")
         name = "fused_sweep_var"
@@ -187,14 +189,14 @@ def test_b3_lanczos_two_launches_per_sweep(dev, dt, kind):
     n, m = op.shape[0], 12
     b = _vec(n, dt, dev, 31)
     c = _vec(m, dt, dev, 32) * 0.1
-    _build.reset_launch_counts()
+    _reset_counts()
     a, bt, b0, mu, br, _ = tf._lanczos_sweeps(op, b, m, LANCZOS_TOL[dt],
                                               what="pass 1")
-    assert (_build.launches[name], _build.launches["sweep_stage"]) == \
+    assert (_executions()[name], _executions()["sweep_stage"]) == \
         (m + 1, m + 1)
     ra, rb, _, rmu, _, w = tf._lanczos_sweeps(op, b, m, LANCZOS_TOL[dt], c,
                                               what="replay")
-    assert (_build.launches[name], _build.launches["sweep_stage"]) == \
+    assert (_executions()[name], _executions()["sweep_stage"]) == \
         (2 * m + 2, 2 * m + 2)
     assert torch.equal(ra, a) and torch.equal(rb, bt)
     assert int(rmu) == int(mu) == m and not bool(br)
@@ -227,9 +229,9 @@ def test_var_and_arnoldi_paths_dispatch_to_kernels(dev):
     assert td.recurrence_engine(op, torch.float64, device=dev,
                                 hermitian=True) is tf.recurrence_apply_fused
     b = _vec(op.shape[0], torch.float64, dev, 23)
-    _build.reset_launch_counts()
+    _reset_counts()
     w1 = et.expv(0.05, op, b, m=20, two_pass=True)
-    assert dict(_build.launches)["fused_sweep_var"] == 42
+    assert _executions()["fused_sweep_var"] == 42
     w2 = et.expv_chebyshev(0.05, op, b, tol=1e-12)
     assert float((w1 - w2).norm() / w1.norm()) < 1e-10
     adv = et.advection_diffusion_1d(500, device=dev)
@@ -297,14 +299,14 @@ def test_main_path_dispatches_to_kernels(dev):
     # a grid this small keeps its state in L2: the one-launch B6
     assert td.recurrence_engine(op3, torch.float64, device=dev) is \
         tr.recurrence_apply_resident_grid
-    _build.reset_launch_counts()
+    _reset_counts()
     b1 = _vec(2000, torch.float64, dev, 5)
     b3 = _vec(op3.shape[0], torch.float64, dev, 6)
     w1 = et.expv_chebyshev(0.5, op1, b1, tol=1e-12)
     w2 = et.expv(0.5, op1, b1, m=30, two_pass=True)
     w3 = et.expv_chebyshev(0.05, op3, b3, tol=1e-12)
     w4 = et.expv(0.05, op3, b3, m=20, two_pass=True)
-    counts = dict(_build.launches)
+    counts = _executions()      # the fused passes replay their step
     assert counts["resident_recurrence"] == 2
     assert counts["resident_lanczos"] == 1
     assert counts["resident_grid"] == 1
@@ -2680,3 +2682,218 @@ def test_error_estimate_loop_on_the_card(dev, kind):
     # step 0 before the runner, then it - 1 live steps and one masked one
     assert graphs.counts["eager_steps"] + graphs.counts["replays"] == it
     _close(w.cpu(), want, torch.float64)
+
+
+# ---- the fused passes and the fixed stepper as replayed masked steps ----
+
+def _ring_case(op, dt, dev, s, seed):
+    """A ring (v0, zero, y0, y1, y2, z0, z1) of random vectors (zero kept
+    zero), W, and a Lanczos state whose coefficients are random and whose
+    counter is s; alphas, betas and the replay's weights."""
+    n = op.shape[0]
+    ring = [_vec(n, dt, dev, seed + i) for i in range(7)]
+    ring[1].zero_()
+    st = torch.zeros(tf._ST_LEN, dtype=dt, device=dev)
+    st[:4].copy_(torch.tensor([0.3, -0.7, 0.2, 0.45], dtype=dt))
+    st[tf._ST["beta_prev"]].fill_(1.3)
+    st[tf._ST["live"]].fill_(1.0)
+    st[tf._ST["step"]].fill_(float(s))
+    m = 6
+    return (ring, _vec(n, dt, dev, seed + 9), st,
+            torch.zeros(m, dtype=dt, device=dev),
+            torch.zeros(m, dtype=dt, device=dev),
+            _vec(m, dt, dev, seed + 10), m)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("kind", ["7pt", "2d", "13pt", "diff3d"])
+@pytest.mark.parametrize("s", [0, 1, 2, 3, 4, 5, 6, 7])
+def test_b3_device_index_form_vs_twin(dev, dt, kind, s):
+    """Sweep s and its stage in the device-index form (the step from the
+    state's counter, the vectors from the ring) against their twins
+    (fused_sweep_ring_ref, sweep_stage_ref) on copies of the same inputs,
+    and bit for bit against the host-index form (the same kernels told
+    s and its pointers); the counter ends at s + 1 (s = 6 is the last
+    stage of m = 6: only betas[5] and broke move; s = 7 is past the end:
+    only the counter moves)."""
+    op = (_var_op(kind, dt, dev) if kind.startswith("diff")
+          else _const_op(kind, dt, dev))
+    dev = op.device             # the plan's key: the vectors' device
+    plan = tf._plan(op, dt, dev)
+    cvals = tf._cvals(op, dt)
+    runs = []
+    for form in ("device", "host", "twin"):
+        ring, W, st, al, be, cf, m = _ring_case(op, dt, dev, s, 40)
+        stream = _build.raw_stream(dev)
+        if form == "device":
+            ptrs = (ctypes.c_void_p * 7)(*(v.data_ptr() for v in ring))
+            plan.sweep_ring(ptrs, st, cvals, W, stream)
+            plan.stage(stream, state=st, alphas=al, betas=be, coeffs=cf,
+                       j=None, m=m, tol=LANCZOS_TOL[dt])
+        elif form == "host":
+            Z, Vc, Vp, Y, Zn = tf.ring_slots(ring, s)
+            plan.sweep(Z, Vc, Vp, st.data_ptr(), cvals, Y, Zn, W, stream)
+            plan.stage(stream, state=st, alphas=al, betas=be, coeffs=cf,
+                       j=s, m=m, tol=LANCZOS_TOL[dt])
+            st[tf._ST["step"]].add_(1)
+        else:
+            mom = tf.fused_sweep_ring_ref(ring, st, op.grid_shape, op.offsets,
+                                          cvals, W)
+            tf.sweep_stage_ref(mom, st, al, be, cf, m, LANCZOS_TOL[dt])
+        runs.append((ring, W, st, al, be))
+    torch.cuda.synchronize()
+    (dring, dW, dst, dal, dbe), host, twin = runs
+    assert float(dst[tf._ST["step"]]) == s + 1
+    for a, b in zip((*dring, dW, dst, dal, dbe), (*host[0], *host[1:])):
+        assert torch.equal(a, b)
+    for a, b in zip((*dring, dW, dst, dal, dbe), (*twin[0], *twin[1:])):
+        _close(a, b, dt)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 12])
+@pytest.mark.parametrize("kind", ["7pt", "2d", "diff3d"])
+def test_fused_passes_graph_vs_eager(dev, kind, m):
+    """A two-pass expv on the fused sweeps: each pass one step captured at
+    its second execution and replayed (m >= 2; m = 1 runs its 2 steps
+    eagerly), no sync anywhere in the call, the kernels' executions 2(m + 1)
+    a call, and every output bit-equal to the same call under
+    graphs.eager()."""
+    from exponentialutilities_jl_torch.utils import graphs
+
+    dt = torch.float64
+    op = (_var_op(kind, dt, dev) if kind.startswith("diff")
+          else _const_op(kind, dt, dev))
+    name = "fused_sweep_var" if kind.startswith("diff") else "fused_sweep"
+    b = _vec(op.shape[0], dt, dev, 61)
+    et.expv(0.05, op, b, m=m, two_pass=True)        # plans, library, pool
+    torch.cuda.synchronize()
+    _reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        w = et.expv(0.05, op, b, m=m, two_pass=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    got = {k: graphs.counts[k] for k in ("eager_steps", "captures",
+                                         "replays", "blocking_reads")}
+    want = ({"eager_steps": 4, "captures": 0, "replays": 0,
+             "blocking_reads": 0} if m == 1 else
+            {"eager_steps": 2, "captures": 2, "replays": 2 * m,
+             "blocking_reads": 0})
+    assert got == want
+    ex = _executions()
+    assert (ex[name], ex["sweep_stage"]) == (2 * (m + 1), 2 * (m + 1))
+    with graphs.eager():
+        we = et.expv(0.05, op, b, m=m, two_pass=True)
+    assert torch.equal(w, we)
+    cpu = (_var_op(kind, dt, "cpu") if kind.startswith("diff")
+           else _const_op(kind, dt, "cpu"))
+    _close(w.cpu(), et.expv(0.05, cpu, b.cpu(), m=m, two_pass=True), dt)
+
+
+def _stepper_case(dev, p=1, n=400):
+    adv = et.advection_diffusion_1d(n, peclet=10.0, device=dev)
+    B = torch.stack([_vec(n, torch.float64, dev, 70 + j) * 0.1 ** j
+                     for j in range(p + 1)], 1)
+    return adv, B
+
+
+@pytest.mark.parametrize("nsteps", [1, 2, 3, 6])
+def test_fixed_stepper_graph_vs_eager(dev, nsteps):
+    """phiv_timestep_fused on config #4's operator at n = 400: one substep
+    run nsteps times by one runner (1 eager, then 1 capture and nsteps - 1
+    replays for nsteps >= 3; all eager below), no sync, B7 executions
+    nsteps (p + m), u and the eps history bit-equal to graphs.eager() and
+    within 1e-12 of the CPU's."""
+    from exponentialutilities_jl_torch.utils import graphs
+
+    op, B = _stepper_case(dev)
+    kw = dict(nsteps=nsteps, m=20)
+    et.phiv_timestep_fused(2e-4, op, B, **kw)
+    torch.cuda.synchronize()
+    _reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        u, eps = et.phiv_timestep_fused(2e-4, op, B, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    got = {k: graphs.counts[k] for k in ("eager_steps", "captures",
+                                         "replays", "blocking_reads")}
+    want = ({"eager_steps": 1, "captures": 1, "replays": nsteps - 1,
+             "blocking_reads": 0} if nsteps >= 3 else
+            {"eager_steps": nsteps, "captures": 0, "replays": 0,
+             "blocking_reads": 0})
+    assert got == want
+    assert _executions()["banded_spmv"] == nsteps * (1 + 20)
+    with graphs.eager():
+        ue, epse = et.phiv_timestep_fused(2e-4, op, B, **kw)
+    assert torch.equal(u, ue) and torch.equal(eps, epse)
+    cu, ceps = et.phiv_timestep_fused(2e-4, _stepper_case("cpu")[0], B.cpu(),
+                                      **kw)
+    _close(u.cpu(), cu, torch.float64)
+
+
+def test_make_phiv_timestep_scan_counts_and_bits(dev):
+    """fn(B) calls 1-5 with a fresh B each: call 1 runs its first substep
+    eagerly and captures the second (1 eager step, 1 capture, nsteps - 1
+    replays), calls 2-5 replay the substep nsteps times each with no
+    capture and no sync, each result bit-equal to the same call under
+    graphs.eager(), no two results alias; B7 executions nsteps (p + m) a
+    call; close() frees the graph."""
+    from exponentialutilities_jl_torch.utils import graphs
+
+    op, B = _stepper_case(dev)
+    fn = et.make_phiv_timestep(2e-4, op, B, tol=1e-7)
+    Bs = [torch.stack([_vec(400, torch.float64, dev, 80 + i),
+                       0.1 * _vec(400, torch.float64, dev, 90 + i)], 1)
+          for i in range(5)]
+    _reset_counts()
+    outs = []
+    for i, Bi in enumerate(Bs):
+        if i >= 1:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs.append(fn(Bi))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert fn.nsteps >= 2
+    assert {k: graphs.counts[k] for k in ("eager_steps", "captures",
+                                          "replays", "blocking_reads")} == \
+        {"eager_steps": 1, "captures": 1, "replays": 5 * fn.nsteps - 1,
+         "blocking_reads": 0}
+    assert _executions()["banded_spmv"] == 5 * fn.nsteps * (1 + fn.m)
+    assert len({u.data_ptr() for u, _ in outs}) == 5
+    with graphs.eager():
+        for Bi, (u, eps) in zip(Bs, outs):
+            ue, epse = fn(Bi)
+            assert torch.equal(u, ue) and torch.equal(eps, epse)
+    fn.close()
+    assert not fn.program.graphs
+
+
+def test_make_phiv_timestep_b_requires_grad_after_capture(dev):
+    """Calls 1-3 (the warm-up that captures the substep, then replays),
+    then a B that requires grad: that call runs eagerly (one eager call,
+    no runner) and its gradient equals the CPU's."""
+    from exponentialutilities_jl_torch.utils import graphs
+
+    gs = {}
+    for where in (dev, "cpu"):
+        op, B = _stepper_case(where, n=200)
+        fn = et.make_phiv_timestep(2e-4, op, B, tol=1e-7)
+        graphs.reset_counts()
+        for _ in range(3):
+            assert not fn(B)[0].requires_grad
+        Bg = B.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(fn(Bg)[0].square().sum(), Bg)
+        gs[str(where)] = g.detach().cpu()
+        if where != "cpu":
+            assert {k: graphs.counts[k] for k in (
+                "eager_steps", "captures", "replays")} == \
+                {"eager_steps": 2, "captures": 1,
+                 "replays": 3 * fn.nsteps - 1}
+        fn.close()
+    _close(gs[str(dev)], gs["cpu"], torch.float64)
