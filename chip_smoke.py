@@ -12,6 +12,8 @@
                                      path and R1's times)
     python3 chip_smoke.py --fixed-fused-only [--profile]
                                      (phases 1-2 and the ninth path)
+    python3 chip_smoke.py --poly-graphs-only [--profile]
+                                     (phases 1-2 and the tenth path)
 
 The main paths are exp(tA)b and the phi-function actions
 [phi_0(tA)b ... phi_3(tA)b] at BASELINE.json's sizes: for Hermitian
@@ -190,6 +192,24 @@ its seconds:
               graph form under sync debug mode "error"; B3 and B3-var in
               their device-index form against their twins and bit-equal
               to the host-index form, both forms timed back to back);
+              then a tenth, the Chebyshev, Leja, Faber and Taylor loops
+              from CUDA graphs (poly_graph_path: 216^3 expv_chebyshev,
+              constant and variable, tol 1e-12, one B3 / B3-var pass in
+              the device-index form with the second stage in recurrence
+              mode, that form bit-equal to the host-index form and within
+              KTOL of the twin; the 216^3 advection expv_faber(m=64); SELL
+              n = 1e6 expv_chebyshev, the plain degree scan on B9; config
+              #3 phiv_timestep_chebyshev, the combination scan on B7;
+              config #4 expv_leja, expv_faber, phiv_leja on B5; the n =
+              1e6 phiv_timestep_leja / _faber with B (n, 3), one B1
+              substep a step; config #4 expv_taylor on B7 and a dense
+              expv_taylor_batched), each cell's captures, replays and
+              kernel executions held exact, its result bit-equal to
+              graphs.eager() and within its oracle's limit, its loop rerun
+              under sync debug mode "error", both forms' CUDA-event
+              medians of 5 and the card's peak memory printed; phase 3
+              also holds B2 on b in an invariant subspace of dimension
+              exactly m (broke and m_used as the plain lanczos_coeffs);
               the whole script profiles its cells at the end of phase 5.
               The builders run from
               graphs on every path but the sharded ones, so a kernel's
@@ -254,6 +274,7 @@ ops of most self time. It prints no result lines then.
 from __future__ import annotations
 
 import argparse
+import collections
 import functools
 import json
 import math
@@ -774,7 +795,7 @@ def poly_integrator_path(et, dev, card, ref_e, bA):
                                             iop=2), {}),
         f"faber {NF}^3 expv_faber m={MF}": (
             lambda: et.expv_faber(tF, opF, bF, m=MF),
-            {"fused_sweep": MF + 1}),
+            {"fused_sweep": MF + 1, "sweep_stage": MF + 1}),
         f"arnoldi {NF}^3 expv m={MF}": (
             lambda: et.expv(tF, opF, bF, m=MF), {}),
         f"{NG}^2 2-D advection expv_leja tol=1e-12": (
@@ -1819,10 +1840,13 @@ GSPMD_DS_WORLD = 4       # the data x shard mesh: 2 x 2
 # exprb43_device test's 1e-10
 MTOL_GSPMD_POLY = 1e-13
 MTOL_GSPMD_ADAPT = 1e-10
-# config #4's drivers at TA and the n = 1e6 Leja/Faber at TL, full depth:
-# seconds a call at P = 2 (gloo), so each is timed by its checked call
-# alone (and the single-device call by one run); every other cell by a
-# median of 5
+# config #4's drivers at TGA and the n = 1e6 Leja/Faber at TL: seconds a
+# call at P = 2 (gloo), so each is timed by its checked call alone (and the
+# single-device call by one run); every other cell by a median of 5. Depth
+# cut: the drivers run a quarter of config #4's time (TA / 4), which keeps
+# the whole script within its time limit as paths are added (at TA the
+# three took 52 s of rank time a call on a slow host)
+TGA = TA / 4
 GSPMD_LONG = ("config4 phiv_timestep_device m=20", "config4 kiops_device",
               "config4 exprb43_device", "leja n=1e6", "faber n=1e6")
 # A halo wider than a shard: poisson_2d(NH, 2) (n = 2 NH, offsets +-1 and
@@ -2083,12 +2107,12 @@ def gspmd_cells(et):
         return {"w": et.expv_chebyshev(TP, o["P"], v["bP"], tol=1e-12)}
 
     def nwdev_A(o, v, comm, cnt):
-        U, s = et.phiv_timestep_device([TA], o["A"], v["BA"], tol=1e-7,
+        U, s = et.phiv_timestep_device([TGA], o["A"], v["BA"], tol=1e-7,
                                        m=20, return_stats=True)
         return {"w": U, "stats": st(s)}
 
     def kiopsdev_A(o, v, comm, cnt):
-        w, s = et.kiops_device([TA], o["A"], v["BA"], tol=1e-7)
+        w, s = et.kiops_device([TGA], o["A"], v["BA"], tol=1e-7)
         return {"w": w, "stats": st(s)}
 
     def exprb_A(o, v, comm, cnt):
@@ -2099,7 +2123,7 @@ def gspmd_cells(et):
             cnt["jvp" if traced else "plain"] += 1
             return A.matvec(u) - u ** 3
 
-        u, s = et.exprb43_device(f, v["uA"], (0.0, TA), adaptive=True,
+        u, s = et.exprb43_device(f, v["uA"], (0.0, TGA), adaptive=True,
                                  m=12, rtol=1e-6, atol=1e-9,
                                  return_stats=True, comm=comm)
         return {"w": u, "stats": st(s), "f": dict(cnt)}
@@ -4088,6 +4112,525 @@ def fixed_fused_only(et, dev, card, profile: bool) -> int:
     return 0
 
 
+POLY_REPS = 5           # CUDA-event median of each form, taken in turns
+
+
+def poly_graph_inputs(et, dev):
+    """The tenth path's operators, vectors and references, made here for
+    ``--poly-graphs-only`` as main makes them (SELL's pack and b as the
+    seventh path's)."""
+    import scipy.linalg as sla
+    import torch
+
+    t0 = time.perf_counter()
+    aV = np.random.default_rng(SEED).uniform(0.5, 2.0, (N3, N3, N3))
+    s = {"op3": et.laplacian_nd_stencil(N3, N3, N3, device=dev),
+         "opV": et.variable_diffusion_nd_stencil(aV, device=dev)}
+    del aV
+    s["opF"] = et.advection_diffusion_3d_stencil(NF, NF, NF, peclet=10.0,
+                                                 device=dev)
+    s["bF"] = torch.as_tensor(np.random.default_rng(SEED + 11)
+                              .standard_normal(NF ** 3), device=dev)
+    rng4 = np.random.default_rng(SEED + 3)
+    A_sell = symmetrized(bench_sell_coo(NS, 8, 700, rng4), NS, rng4)
+    s["opS"] = et.SellOperator.from_scipy(A_sell, rcm=True, is_hermitian=True,
+                                          dtype=np.float64, device=dev)
+    perm = torch.as_tensor(s["opS"].perm, device=dev).long()
+    s["bS"] = torch.as_tensor(rng4.standard_normal(NS), device=dev)[perm]
+    s["opP"] = et.poisson_2d(NP, NP, device=dev)
+    s["bP"] = torch.as_tensor(np.random.default_rng(SEED + 19)
+                              .standard_normal(NP * NP), device=dev)
+    s["opA"] = et.advection_diffusion_1d(NA, peclet=10.0, device=dev)
+    bAnp = np.random.default_rng(SEED).standard_normal(NA)
+    s["bA"] = torch.as_tensor(bAnp, device=dev)
+    s["ref_e"] = sla.expm(TA * banded_csr(s["opA"]).toarray()) @ bAnp
+    s["opL"] = bench_leja_stencil(et, NL, torch.float64, dev)
+    torch.cuda.synchronize()
+    print(f"poly-graphs-only inputs and references: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return s
+
+
+def loop_counts(c: int) -> dict:
+    """Runner counts of a loop of c steps whose step 0 runs before its
+    runner (ops/krylov._run): c - 1 executions through it, captured at the
+    second where at least one more follows."""
+    if c >= 4:
+        return {"eager_steps": 1, "captures": 1, "replays": c - 2,
+                "blocking_reads": 0}
+    return {"eager_steps": max(c - 1, 0), "captures": 0, "replays": 0,
+            "blocking_reads": 0}
+
+
+def pass_counts(c: int) -> dict:
+    """Runner counts of a B3 pass of c (sweep, stage) steps, all through
+    its runner (lanczos_fused._run_pass)."""
+    if c >= 3:
+        return {"eager_steps": 1, "captures": 1, "replays": c - 1,
+                "blocking_reads": 0}
+    return {"eager_steps": c, "captures": 0, "replays": 0,
+            "blocking_reads": 0}
+
+
+def add_counts(*cs) -> dict:
+    out = collections.Counter()
+    for c in cs:
+        out.update(c)
+    return {k: out.get(k, 0) for k in ("eager_steps", "captures", "replays",
+                                       "blocking_reads")}
+
+
+def nw_rows(tl, tfb, op, kind, t_end, p, q, dev):
+    """The (p + 1, m, 4) device rows of one snapshot interval's substeps
+    of phiv_timestep_leja (tol 1e-7, max_z 40) or phiv_timestep_faber
+    (max_z 512): the drivers' host tables, made here as they make them."""
+    import torch
+
+    from exponentialutilities_jl_torch.models.chebyshev import _phi_scalar_np
+
+    tau = t_end / q
+    if kind == "leja":
+        c, s = tl._interval_map(op, None)
+        m_probe = tl._probe_degree(abs(tau) * s, 1e-7)
+        xi, sup = tl._leja_points_sup(m_probe)
+        D = (tl._phi_divided_differences(tau, c, s, xi, p)
+             * (tau ** np.arange(p + 1))[None, :])
+        m = tl._truncate_dd(np.abs(D).max(axis=1) * sup, 1e-7, m_probe, None,
+                            "nw rows")
+        rows = [tl._newton_rows(D[:m, j], xi[:m], c, 1.0 / s)
+                for j in range(p + 1)]
+    else:
+        c, _, _, g, rho = tfb._resolve_ellipse(op, None)
+        m_probe = tfb._probe_degree_faber(abs(tau) * g, 1e-7)
+        V = _phi_scalar_np(tau * tfb._psi_samples(1.0, c, g, rho,
+                                                  tfb._nsamp(m_probe)), p)
+        D = np.stack([tfb.faber_coeffs(V[j], rho, m_probe)[0]
+                      for j in range(p + 1)], axis=1)
+        D = D * (tau ** np.arange(p + 1))[None, :]
+        m = tl._truncate_dd(np.abs(D).max(axis=1)
+                            * (1.0 + rho ** np.arange(m_probe)), 1e-7,
+                            m_probe, None, "nw rows")
+        rows = [tfb._faber_rows(np.real(D[:m, j]), c, 1.0 / g, rho)
+                for j in range(p + 1)]
+    return torch.as_tensor(np.stack(rows), device=dev), tau
+
+
+def recurrence_forms(tf, _build, op, b, rows):
+    """The generic recurrence on the card in the host-index form (a pointer
+    per vector and per row, the vectors rotated on the host, as
+    recurrence_apply_fused ran before its device-index form) and through
+    the plain twin of the sweep (fused_sweep_ref on the card's tensors):
+    (W host-index, W twin)."""
+    import torch
+
+    plan = tf._plan(op, b.dtype, b.device)
+    cvals = tf._cvals(op, b.dtype)
+    zeros = torch.zeros_like(b)
+    W, Wt = torch.zeros_like(b), torch.zeros_like(b)
+    stream = _build.raw_stream(b.device)
+    Ys = [torch.empty_like(b) for _ in range(3)]
+    Zs = [torch.empty_like(b) for _ in range(2)]
+    Z, Vc, Vp = b, b, zeros
+    Zt, Vct, Vpt = b, b, zeros
+    for s_ in range(rows.shape[0] + 1):
+        co = plan.unit if s_ == 0 else rows[s_ - 1]
+        Y, Zn = Ys[s_ % 3], Zs[s_ % 2]
+        plan.sweep(Z, Vc, Vp, co.data_ptr(), cvals, Y, Zn, W, stream)
+        Z, Vc, Vp = Zn, Y, (zeros if s_ == 0 else Vc)
+        Yt, Znt, _ = tf.fused_sweep_ref(Zt, Vct, Vpt, co, op.grid_shape,
+                                        op.offsets, cvals, Wt)
+        Zt, Vct, Vpt = Znt, Yt, (zeros if s_ == 0 else Vct)
+    return W, Wt
+
+
+def poly_graph_path(et, dev, card, s):
+    """The tenth path (module doc): the Chebyshev, Leja, Faber and Taylor
+    loops from CUDA graphs, each a step replayed from one runner a loop
+    call. Each cell's runner counts and kernel executions exact, its result
+    bit-equal to graphs.eager() and within its oracle's limit, its loop
+    (the device part, its inputs on the card) rerun under sync debug mode
+    "error", both forms' CUDA-event medians of POLY_REPS printed. Returns
+    (kernel executions of the path, {cell: call} for the profile, the
+    largest device-index recurrence error of B3 and of B3-var against
+    their twins)."""
+    import scipy.linalg as sla
+    import torch
+    from exponentialutilities_jl_torch.models import chebyshev as tc
+    from exponentialutilities_jl_torch.models import expv_taylor as tt
+    from exponentialutilities_jl_torch.models import faber as tfb
+    from exponentialutilities_jl_torch.models import leja as tl
+    from exponentialutilities_jl_torch.ops.kernels import _build
+    from exponentialutilities_jl_torch.ops.kernels import dispatch as td
+    from exponentialutilities_jl_torch.ops.kernels import lanczos_fused as tf
+    from exponentialutilities_jl_torch.ops.kernels import resident as tr
+    from exponentialutilities_jl_torch.utils import graphs
+
+    t_path = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = np.random.default_rng(SEED + 80)
+    f64 = torch.float64
+    total = collections.Counter()
+    keys = ("eager_steps", "captures", "replays", "blocking_reads")
+
+    def events(fn, eager_form=False):
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        if eager_form:
+            with graphs.eager():
+                out = fn()
+        else:
+            out = fn()
+        z.record()
+        z.synchronize()
+        return a.elapsed_time(z), out
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        graphs.reset_counts()
+        ms, out = events(fn)
+        cnt = {k: graphs.counts.get(k, 0) for k in keys}
+        exe = {k: v for k, v in graphs.kernel_executions(
+            dict(_build.launches)).items() if v}
+        total.update(exe)
+        return ms, out, cnt, exe
+
+    def in_turns(fn):
+        gr, eg = [], []
+        events(fn, True)
+        for _ in range(POLY_REPS):
+            gr.append(events(fn)[0])
+            eg.append(events(fn, True)[0])
+        return statistics.median(gr), statistics.median(eg)
+
+    def sync_free(fn):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return out
+
+    cells = {}
+
+    def cell(name, call, loop, cnt, exe, oracle):
+        cells[name] = (call, loop, cnt, exe, oracle)
+
+    # 216^3 expv_chebyshev, constant (B3) and variable (B3-var), tol 1e-12:
+    # one B3 pass of degree + 1 (sweep, stage) steps in the device-index
+    # form, the stage in recurrence mode; that form bit-equal to the
+    # host-index form on the card and within KTOL of the twin
+    worst = {}
+    for label, op, kname in (("216^3 expv_chebyshev (B3)", s["op3"],
+                              "fused_sweep"),
+                             ("var 216^3 expv_chebyshev (B3-var)", s["opV"],
+                              "fused_sweep_var")):
+        b = torch.as_tensor(gen.standard_normal(op.shape[0]), device=dev)
+        lo, hi = op.spectral_bounds_hint()
+        full, c, h = tc._full_exp_coeffs(T3, lo, hi, 1e-12, None)
+        rows = td.chebyshev_rows(torch.as_tensor(full, device=dev), c, h, f64)
+        d = len(full)
+        for rname, rr in (("Chebyshev", rows), ("random", torch.as_tensor(
+                gen.standard_normal((7, 4)) * 0.1, device=dev))):
+            wd = tf.recurrence_apply_fused(op, b, rr)
+            wh, wt = recurrence_forms(tf, _build, op, b, rr)
+            e = rel_max(wd, wt)
+            check(torch.equal(wd, wh), f"{label} {rname} rows: the "
+                  "device-index recurrence differs from the host-index form")
+            check(e <= KTOL["float64"], f"{label} {rname} rows: device-index "
+                  f"recurrence vs twin {e:.2e}")
+            worst[kname] = max(worst.get(kname, 0.0),
+                               float((wd - wt).abs().max()))
+            print(f"check poly {label} {rname} rows (m={rr.shape[0]}): the "
+                  f"device-index recurrence bit-equal to the host-index "
+                  f"form, {e:.2e} from the twin (tol {KTOL['float64']:g})",
+                  flush=True)
+        cell(f"{label} degree {d}",
+             lambda op=op, b=b: et.expv_chebyshev(T3, op, b, tol=1e-12),
+             lambda op=op, b=b, rows=rows: tf.recurrence_apply_fused(
+                 op, b, rows),
+             pass_counts(d + 1), {kname: d + 1, "sweep_stage": d + 1},
+             lambda out, op=op, b=b: (out, et.expv(T3, op, b, m=20,
+                                                   two_pass=True),
+                                      MTOL3["float64"], "two-pass expv m=20"))
+
+    # 216^3 advection expv_faber(m=64): one substep, one B3 pass of Faber
+    # rows
+    opF, bF = s["opF"], s["bF"]
+    _, _, _, gF, _ = tfb._resolve_ellipse(opF, None)
+    tF = ZF / gF
+    aF, cF, gamF, rhoF, qF, mF, _ = tfb._faber_expv_setup(opF, tF, None, 1e-7,
+                                                          MF, 512.0)
+    check(qF == 1 and mF == MF, f"216^3 expv_faber: q {qF}, m {mF}")
+    rowsF = torch.as_tensor(tfb._faber_rows(np.real(aF[:mF]), cF, 1.0 / gamF,
+                                            rhoF), device=dev)
+    cell(f"216^3 advection expv_faber m={MF} (B3)",
+         lambda: et.expv_faber(tF, opF, bF, m=MF),
+         lambda: tl._engine_substeps(opF, bF, rowsF, qF,
+                                     tf.recurrence_apply_fused,
+                                     "faber substeps"),
+         pass_counts(MF + 1), {"fused_sweep": MF + 1, "sweep_stage": MF + 1},
+         lambda out: (out, et.expv(tF, opF, bF, m=MF), MTOL_POLY,
+                      f"Arnoldi expv(m={MF})"))
+
+    # SELL n = 1e6 expv_chebyshev tol 1e-12: spectral_bounds' two probes
+    # (30 Lanczos steps each), then the plain degree scan on B9
+    opS, bS = s["opS"], s["bS"]
+    loS, hiS = tc.spectral_bounds(opS)
+    fullS, cS, hS = tc._full_exp_coeffs(TS, loS, hiS, 1e-12, None)
+    coefS = torch.as_tensor(fullS, device=dev)
+    dS = len(fullS)
+    cell(f"SELL n=1e6 expv_chebyshev degree {dS} (B9)",
+         lambda: et.expv_chebyshev(TS, opS, bS, tol=1e-12),
+         lambda: tc._chebyshev_apply_scan(opS, bS, coefS, cS, 1.0 / hS),
+         add_counts(loop_counts(30), loop_counts(30), loop_counts(dS)),
+         {"sell_spmv": 60 + dS},
+         lambda out: (out, et.expv(TS, opS, bS, m=40), MTOL_SPARSE,
+                      "Krylov expv(m=40)"))
+
+    # config #3 phiv_timestep_chebyshev, B = [b, 0.1 b], two snapshots:
+    # the combination scan on B7
+    opP, bP = s["opP"], s["bP"]
+    BP = torch.stack([bP, 0.1 * bP], dim=1)
+    tsP = np.asarray([TP / 2, TP])
+    loP, hiP = opP.spectral_bounds_hint()
+    cP, hP = 0.5 * (hiP + loP), 0.5 * (hiP - loP)
+    CP = tc._fun_ucoeffs(lambda x: np.concatenate(
+        [tc._phi_scalar_np(t * (cP + hP * x), 1)
+         * (t ** np.arange(2))[:, None] for t in tsP], axis=0),
+        1e-12, 1024)
+    mP = len(CP)
+    CPj = torch.as_tensor(CP.reshape(mP, 2, 2), device=dev)
+
+    def oracle_P(out):
+        cols = []
+        for t in tsP:
+            W = et.phiv(float(t), opP, bP, 1, m=30)
+            cols.append(W[:, 0] + float(t) * 0.1 * W[:, 1])
+        return (out, torch.stack(cols, dim=1), MTOL_PHI,
+                "phiv(k=1, m=30) columns")
+
+    cell(f"config3 phiv_timestep_chebyshev degree {mP} (B7)",
+         lambda: et.phiv_timestep_chebyshev(list(tsP), opP, BP, tol=1e-12),
+         lambda: tc._chebyshev_combination_scan(opP, BP.T, CPj, cP,
+                                                1.0 / hP),
+         loop_counts(mP), {"banded_spmv": 2 * mP}, oracle_P)
+
+    # config #4's operator: expv_leja, expv_faber, phiv_leja on B5
+    opA, bA, ref_e = s["opA"], s["bA"], torch.as_tensor(s["ref_e"],
+                                                         device=dev)
+    dA, xiA, cA, sA, qA = tl._leja_expv_setup(opA, TA, None, 1e-12, None,
+                                              40.0)
+    rowsA = torch.as_tensor(tl._newton_rows(dA, xiA, cA, 1.0 / sA),
+                            device=dev)
+    cell(f"config4 expv_leja tol=1e-12 q={qA} (B5)",
+         lambda: et.expv_leja(TA, opA, bA, tol=1e-12),
+         lambda: tl._engine_substeps(opA, bA, rowsA, qA,
+                                     tr.recurrence_apply_resident_banded,
+                                     "leja substeps"),
+         loop_counts(qA), {"resident_banded": qA},
+         lambda out: (out, ref_e, MTOL_POLY, "the dense oracle"))
+    aAF, cAF, gAF, rhoAF, qAF, mAF, _ = tfb._faber_expv_setup(
+        opA, TA, None, 1e-12, None, 512.0)
+    rowsAF = torch.as_tensor(tfb._faber_rows(np.real(aAF[:mAF]), cAF,
+                                             1.0 / gAF, rhoAF), device=dev)
+    cell(f"config4 expv_faber tol=1e-12 q={qAF} (B5)",
+         lambda: et.expv_faber(TA, opA, bA, tol=1e-12),
+         lambda: tl._engine_substeps(opA, bA, rowsAF, qAF,
+                                     tr.recurrence_apply_resident_banded,
+                                     "faber substeps"),
+         loop_counts(qAF), {"resident_banded": qAF},
+         lambda out: (out, ref_e, MTOL_POLY, "the dense oracle"))
+    tPL = 20.0 / sA
+    mpr = tl._probe_degree(20.0, 1e-12)
+    xiP, supP = tl._leja_points_sup(mpr)
+    DP = tl._phi_divided_differences(tPL, cA, sA, xiP, 1)
+    mDP = tl._truncate_dd(np.abs(DP).max(axis=1) * supP, 1e-12, mpr, None,
+                          "phiv_leja")
+    rowsPL = torch.as_tensor(np.stack([tl._newton_rows(
+        DP[:mDP, j], xiP[:mDP], cA, 1.0 / sA) for j in range(2)]), device=dev)
+
+    def oracle_PL(out):
+        Ad = banded_csr(opA).toarray()
+        bn = bA.cpu().numpy()
+        aug = np.zeros((NA + 1, NA + 1))
+        aug[:NA, :NA] = tPL * Ad
+        aug[:NA, NA] = tPL * 0.1 * bn
+        F2 = sla.expm(aug)
+        ref = torch.as_tensor(F2[:NA, :NA] @ bn + F2[:NA, NA], device=dev)
+        return (out[:, 0] + tPL * 0.1 * out[:, 1], ref, MTOL_POLY,
+                "phi_0 b + t phi_1 (0.1 b) vs the dense oracle")
+
+    cell("config4 phiv_leja k=1 z=20 (B5, no loop)",
+         lambda: et.phiv_leja(tPL, opA, bA, 1, tol=1e-12),
+         lambda: torch.stack([tr.recurrence_apply_resident_banded(
+             opA, bA, rowsPL[j]) for j in range(2)], dim=-1),
+         loop_counts(0), {"resident_banded": 2}, oracle_PL)
+
+    # bench_leja.py's n = 1e6 operator, B (n, 3): the NW drivers' substeps
+    # on B1, one step a substep (three B1 passes)
+    opL = s["opL"]
+    BL = torch.as_tensor(gen.standard_normal((NL, 3)), device=dev)
+    _, sL = tl._interval_map(opL, None)
+    qL = math.ceil(TL * sL / 40.0)
+    _, _, _, gL, _ = tfb._resolve_ellipse(opL, None)
+    qLF = math.ceil(TL * gL / 512.0)
+    rowsL, tauL = nw_rows(tl, tfb, opL, "leja", TL, 2, qL, dev)
+    rowsLF, tauLF = nw_rows(tl, tfb, opL, "faber", TL, 2, qLF, dev)
+    krylov_L = {}
+
+    def oracle_L(out):
+        if "u" not in krylov_L:
+            u = et.phiv_timestep_device([TL], opL, BL, tol=1e-7, m=30, iop=2)
+            krylov_L["u"] = u[0] if isinstance(u, tuple) else u
+        return (out, krylov_L["u"], MTOL_DRIVER,
+                "Krylov phiv_timestep_device")
+
+    cell(f"n=1e6 phiv_timestep_leja q={qL} (B1)",
+         lambda: et.phiv_timestep_leja([TL], opL, BL, tol=1e-7, max_z=40.0),
+         lambda: tl._nw_engine_substeps(opL, BL[:, 0], BL, rowsL, 0.0, tauL,
+                                        qL, tr.recurrence_apply_resident, 2,
+                                        "nw_leja substeps"),
+         loop_counts(qL), {"resident_recurrence": 3 * qL}, oracle_L)
+    cell(f"n=1e6 phiv_timestep_faber q={qLF} (B1)",
+         lambda: et.phiv_timestep_faber([TL], opL, BL, tol=1e-7),
+         lambda: tl._nw_engine_substeps(opL, BL[:, 0], BL, rowsLF, 0.0,
+                                        tauLF, qLF,
+                                        tr.recurrence_apply_resident, 2,
+                                        "nw_faber substeps"),
+         loop_counts(qLF), {"resident_recurrence": 3 * qLF}, oracle_L)
+
+    # expv_taylor: config #4 (s stages of m* B7 matvecs, one step a stage)
+    # and a small dense stack (cuBLAS products, no kernel of ours)
+    hint = float(opA.opnorm_hint())
+    mT, sT = tt.operator_parameters(TA * hint,
+                                    tt.taylor_theta(torch.float64))
+    cell(f"config4 expv_taylor m*={mT} s={sT} (B7)",
+         lambda: et.expv_taylor(TA, opA, bA),
+         lambda: et.expv_taylor(TA, opA, bA, opnorm=hint),
+         loop_counts(sT), {"banded_spmv": mT * sT},
+         lambda out: (out, ref_e, MTOL_NONHERM, "the dense oracle"))
+    As = gen.standard_normal((8, 64, 64)) * 3.0   # 1-norms ~150: s >= 4
+    bs = gen.standard_normal((8, 64))
+    As_d, bs_d = torch.as_tensor(As, device=dev), torch.as_tensor(bs,
+                                                                  device=dev)
+    partsT = tt._taylor_dense_parts(
+        As_d, bs_d, torch.full((8,), 1.0, dtype=f64, device=dev),
+        torch.zeros(8, dtype=f64, device=dev), True,
+        float(torch.finfo(f64).eps) / 2)
+    sB = partsT[-1]
+    refB = torch.as_tensor(np.stack([sla.expm(As[i]) @ bs[i]
+                                     for i in range(8)]), device=dev)
+    cell(f"dense expv_taylor_batched 8 x 64 s={sB}",
+         lambda: et.expv_taylor_batched(1.0, As_d, bs_d),
+         lambda: tt._taylor_loop(*partsT, what="taylor (dense)"),
+         loop_counts(sB), {},
+         lambda out: (out, refB, MTOL_DENSE["float64"],
+                      "scipy expm per system"))
+
+    calls, outs = {}, {}
+    for name, (call, loop, want_cnt, want_exe, oracle) in cells.items():
+        call()                                  # plans, library, pool
+        ms, out, cnt, exe = counted(call)
+        check(cnt == want_cnt, f"{name}: counts {cnt}, expected {want_cnt}")
+        check(exe == want_exe, f"{name}: kernel executions {exe}, implied "
+              f"{want_exe}")
+        with graphs.eager():
+            oute = call()
+        check(torch.equal(out, oute), f"{name} differs from graphs.eager()")
+        got, ref, tol, what = oracle(out)
+        e = rel_norm(got, ref.reshape(got.shape))
+        check(bool(torch.isfinite(out).all()) and e <= tol,
+              f"{name}: {e:.2e} from {what}")
+        lo_ = sync_free(loop)
+        check(bool(torch.isfinite(lo_).all()), f"{name}: the loop under sync "
+              "debug mode")
+        gms, ems = in_turns(call)
+        print(f"check poly {name}: counts {cnt}; kernel executions {exe}; "
+              f"bit-equal to graphs.eager(); {e:.2e} from {what} (tol "
+              f"{tol:g}); its loop under sync debug mode 'error'", flush=True)
+        print(f"time poly {name}: graph form {gms:.3f} ms, graphs.eager() "
+              f"{ems:.3f} ms (CUDA events, medians of {POLY_REPS} in turns; "
+              f"first counted call {ms:.3f} ms) {card}", flush=True)
+        calls[name] = call
+        if name.startswith("n=1e6"):
+            outs[name.split()[1]] = out
+    e = rel_norm(outs["phiv_timestep_leja"], outs["phiv_timestep_faber"])
+    check(e <= MTOL_DRIVER, f"n=1e6 Leja vs Faber {e:.2e}")
+    print(f"check poly n=1e6 phiv_timestep_leja vs phiv_timestep_faber: "
+          f"{e:.2e} (tol {MTOL_DRIVER:g})", flush=True)
+    # one accumulating B3 sweep of the recurrence at 216^3: the
+    # device-index form (its row copied by the stage's recurrence mode)
+    # beside the host-index form (the row's pointer), 20 back to back
+    import ctypes
+
+    op = s["op3"]
+    n = op.shape[0]
+    plan = tf._plan(op, f64, op.device)
+    cvals = tf._cvals(op, f64)
+    ring = [torch.as_tensor(gen.standard_normal(n), device=dev)
+            for _ in range(7)]
+    ring[1].zero_()
+    W = torch.zeros(n, dtype=f64, device=dev)
+    st = plan.state0.clone()
+    rows = torch.as_tensor(gen.standard_normal((8, 4)) * 0.1, device=dev)
+    ptrs = (ctypes.c_void_p * 7)(*(v.data_ptr() for v in ring))
+    Z, Vc, Vp, Y, Zn = tf.ring_slots(ring, 5)
+
+    def dev_form():
+        st[8].fill_(5.0)
+        stream = _build.raw_stream(op.device)
+        plan.sweep_ring(ptrs, st, cvals, W, stream)
+        plan.stage_rows(stream, st, rows, 8)
+
+    def host_form():
+        stream = _build.raw_stream(op.device)
+        plan.sweep(Z, Vc, Vp, rows[4].data_ptr(), cvals, Y, Zn, W, stream)
+
+    def burst(f, k=20):
+        f()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(k):
+            f()
+        z.record()
+        z.synchronize()
+        return a.elapsed_time(z) / k
+
+    ts = {"device": [], "host": []}
+    for _ in range(3):
+        ts["device"].append(burst(dev_form))
+        ts["host"].append(burst(host_form))
+    print(f"time B3 216^3 accumulating recurrence sweep back to back: "
+          f"device-index form with its stage in recurrence mode (and a fill "
+          f"of the counter) {statistics.median(ts['device']):.4f} ms, "
+          f"host-index form (no stage) {statistics.median(ts['host']):.4f} "
+          f"ms (medians of 3 bursts of 20 in turns) {card}", flush=True)
+    print(f"poly path: {time.perf_counter() - t_path:.1f} s; peak device "
+          f"memory allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB, reserved {torch.cuda.max_memory_reserved() / 2**30:.2f} GiB "
+          f"{card}", flush=True)
+    return dict(total), calls, worst
+
+
+def poly_graphs_only(et, dev, card, profile: bool) -> int:
+    """``--poly-graphs-only``: the tenth path with its inputs and references
+    made here, then, with ``--profile``, torch.profiler over its cells."""
+    s = poly_graph_inputs(et, dev)
+    counts, calls, _ = poly_graph_path(et, dev, card, s)
+    print(f"kernel executions of the poly graph path: "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    if profile:
+        krylov_graph_profile(calls, card, label="poly")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port's main path "
                                  "on one NVIDIA GPU (module doc).")
@@ -4108,6 +4651,11 @@ def main() -> int:
                     "path (the serving closures and the error-estimate "
                     "loop, references computed on the spot) and R1's "
                     "times; prints no result lines")
+    ap.add_argument("--poly-graphs-only", action="store_true",
+                    help="run phases 1-2 and the tenth path alone (the "
+                    "Chebyshev, Leja, Faber and Taylor loops from CUDA "
+                    "graphs, inputs and references made on the spot); "
+                    "prints no result lines")
     ap.add_argument("--fixed-fused-only", action="store_true",
                     help="run phases 1-2 and the ninth path alone (the "
                     "fixed NW stepper and the fused passes from CUDA "
@@ -4177,6 +4725,8 @@ def main() -> int:
         return serving_only(et, dev, card, args.profile)
     if args.fixed_fused_only:
         return fixed_fused_only(et, dev, card, args.profile)
+    if args.poly_graphs_only:
+        return poly_graphs_only(et, dev, card, args.profile)
 
     rng = np.random.default_rng(SEED)
     rng2 = np.random.default_rng(SEED + 1)     # the inputs of B4-B6
@@ -4353,6 +4903,32 @@ def main() -> int:
             print(f"kernel B2 {dname[dt]} n={n} offsets={offs} m=0,1,12 "
                   f"({form} form): max rel err {max(errs):.2e} (tol {tol:g}),"
                   f" bitwise repeat ok", flush=True)
+        # b in an invariant subspace of dimension exactly m: the breakdown
+        # shows only at the last step's |y_m|; B2's pass 1 sets broke and
+        # m_used as the plain lanczos_coeffs (on the card) and its twin do
+        if dt == f64:
+            from exponentialutilities_jl_torch.ops import krylov as tk
+
+            op = ops1(dt)
+            # modes across the spectrum: well-separated eigenvalues, so the
+            # betas stay O(1) and the last |y_m| is roundoff, far below tol
+            for modes in ((25000, 50000, 75000),
+                          (10000, 25000, 40000, 55000, 70000, 85000)):
+                m = len(modes)
+                b = invariant_start(N1, modes, dt)
+                res = tr.lanczos_coeffs_resident(op, b, m)
+                pln = tk.lanczos_coeffs(op, b, m)
+                twin = tr.lanczos_coeffs_resident(et.laplacian_nd_stencil(
+                    N1, dtype=dt, device="cpu"), b.cpu(), m)
+                got = [(bool(r[4]), int(r[3])) for r in (res, pln, twin)]
+                check(got == [(True, m)] * 3, f"B2 invariant subspace m={m}: "
+                      f"(broke, m_used) kernel, plain, twin {got}")
+                e = rel_max(res[0], pln[0])
+                check(e <= 1e2 * tol, f"B2 invariant m={m}: alphas {e:.2e}")
+                print(f"kernel B2 float64 n={N1} b in an invariant subspace "
+                      f"of dimension m={m}: broke and m_used = (True, {m}) "
+                      f"for the kernel, the plain lanczos_coeffs and the "
+                      f"twin; alphas {e:.2e} from the plain pass", flush=True)
         # the ragged shapes: 3 planes of 700 x 900 (more column tiles than
         # the card holds blocks: one z chunk), one plane as a 3-D grid, a
         # 2-D grid, the 27-point box
@@ -4946,7 +5522,7 @@ def main() -> int:
         print(f"main {name}: Gershgorin hint {op.spectral_bounds_hint()}, "
               f"degree {got}", flush=True)
         check(got == deg, f"{name} Chebyshev degree {got}, expected {deg}")
-        expect[name] = {"fused_sweep_var": deg + 1}
+        expect[name] = {"fused_sweep_var": deg + 1, "sweep_stage": deg + 1}
 
     # the non-Hermitian path: config #1 (run_baseline.py:72-74) and config
     # #4's operator (run_baseline.py:210-215), float64
@@ -5024,8 +5600,10 @@ def main() -> int:
                   f"form ({where})", flush=True)
         if name in expect:
             check(delta == expect[name], f"{name} launches {delta}")
-        else:       # Chebyshev 3-D: one sweep per degree plus sweep 0
-            check(set(delta) == {"fused_sweep"} and delta["fused_sweep"] >= 2,
+        else:       # Chebyshev 3-D: one sweep per degree plus sweep 0,
+            # each with its second stage in recurrence mode
+            check(set(delta) == {"fused_sweep", "sweep_stage"}
+                  and delta["fused_sweep"] == delta["sweep_stage"] >= 2,
                   f"{name} launches {delta}")
         print(f"main {name}: kernel launches {delta}", flush=True)
     # the adaptive drivers (run_baseline.py:217-237 and more) on config
@@ -5517,6 +6095,21 @@ def main() -> int:
               "tridiag_exp"):
         check(fixed_counts.get(k, 0) > 0, f"kernel {k} never ran on the "
               "fixed path")
+
+    # the tenth path: the Chebyshev, Leja, Faber and Taylor loops from graphs
+    poly_counts10, _, rec_err = poly_graph_path(et, dev, card, {
+        "op3": op3[f64], "opV": opV[f64], "opF": poly_ops[2],
+        "bF": poly_ops[3], "opS": opS, "bS": bS, "opP": opP, "bP": bP,
+        "opA": opA, "bA": bA, "ref_e": ref_e, "opL": poly_ops[0]})
+    for k, e in rec_err.items():        # the recurrence's device-index form
+        kerr[k] = max(kerr[k], e)
+    print(f"kernel executions of the poly graph path: "
+          f"{ {k: v for k, v in poly_counts10.items() if v} }", flush=True)
+    for k in ("fused_sweep", "fused_sweep_var", "sweep_stage",
+              "resident_recurrence", "resident_banded", "banded_spmv",
+              "sell_spmv"):
+        check(poly_counts10.get(k, 0) > 0, f"kernel {k} never ran on the "
+              "poly graph path")
 
     # the kernel-driving passes make no host syncs
     lo, hi = op3[f64].spectral_bounds_hint()

@@ -21,7 +21,10 @@ hand-written kernels: one real coefficient column through
 small 2-D/3-D grid: B6; larger grids: B3, one sweep per degree), a real
 (m, p) stack on a 1-D stencil through B4 when ``resident_multi_ok``
 holds; otherwise it runs as the plain torch loop ``_chebyshev_apply_scan``
-(whose matvecs reach the SpMV kernels B7-B9). ``chebyshev_apply`` unwraps a
+(whose matvecs reach the SpMV kernels B7-B9), one degree step replayed from
+a CUDA graph on the card (``ops/krylov._run``: step 0 eagerly, the rest
+through a ``utils/graphs.LoopRunner``; eagerly where autograd must see
+the call). ``chebyshev_apply`` unwraps a
 ``SortedSellOperator`` on entry (``hoist_conjugation``). A row-sharded
 operator (``parallel.shard_operator``) takes the plain loop on this rank's
 rows; the recurrence has no reductions, and the drivers' finiteness check
@@ -38,6 +41,7 @@ import torch
 
 from ..ops.kernels.dispatch import (chebyshev_rows, recurrence_engine,
                                     resident_multi_ok)
+from ..ops.krylov import _run, _State, _term
 from ..ops.sparse import hoist_conjugation
 from ..utils.comm import all_finite, operator_comm
 from ..utils.device import action_vector
@@ -244,25 +248,27 @@ def _fun_ucoeffs(f, tol: float, samples: int, m_fixed: int | None = None):
 @full_precision
 def _chebyshev_apply_scan(op, b, coeffs, center, inv_h):
     """w = sum_{k<m} coeffs[k] U_k(A~) b with A~ = inv_h (A - center I), as
-    a plain torch matvec loop (no reductions). coeffs (m,) or (m, p)."""
+    a plain torch matvec loop (no reductions). coeffs (m,) or (m, p).
+    One degree step over state made before the loop, coeffs[k] read at the
+    step counter (``ops/krylov._run``: a replayed graph on a CUDA device)."""
     cdt = coeffs.dtype
-
-    def accum(w, uc, cj):
-        if coeffs.ndim == 1:
-            return w + cj * uc.to(cdt)
-        return w + uc.to(cdt)[:, None] * cj[None, :]
-
-    up = torch.zeros_like(b)
-    uc = b
     z = (b * 0).to(cdt)
     w = z if coeffs.ndim == 1 else z[:, None].expand(
         b.shape + coeffs.shape[1:]).clone()
-    for k in range(coeffs.shape[0]):
-        w = accum(w, uc, coeffs[k])
+    # u_{-1} = 0; u_0 a copy, which the in-place steps overwrite
+    S = _State(b.device, up=torch.zeros_like(b), uc=b.clone(), w=w)
+
+    def step():
+        S.apply("w", torch.add, S.w,
+                _term(S.uc, coeffs.index_select(0, S.jj[:1])[0], cdt))
         # u_{k+1} = 2 A~ u_k - u_{k-1} (u_{-1} = 0: U_1 = 2 A~ U_0)
-        y = (2.0 * inv_h) * (op.matvec(uc) - center * uc) - up
-        up, uc = uc, y
-    return w
+        y = (2.0 * inv_h) * (op.matvec(S.uc) - center * S.uc) - S.up
+        S.set("up", S.uc)
+        S.set("uc", y)
+        S.step_on()
+
+    _run("chebyshev_apply", op, S, step, coeffs.shape[0], b.device)
+    return S.w
 
 
 def chebyshev_apply(A, b, ucoeffs, bounds, *, fused: bool | None = None):
@@ -420,16 +426,26 @@ def funm_chebyshev(f, A, b, *, bounds=None, m: int | None = None,
 def _chebyshev_combination_scan(op, Bt, C, center, inv_h):
     """W[s] = sum_k sum_j C[k, s, j] U_k(A~) Bt[j]: the stacked-column
     recurrence, one pass with p+1 matvecs per term and one small
-    (nt, p+1) @ (p+1, n) product per step folding every snapshot."""
+    (nt, p+1) @ (p+1, n) product per step folding every snapshot. One
+    degree step, C[k] read at the step counter (``ops/krylov._run``)."""
     cdt = C.dtype
-    Up = torch.zeros_like(Bt)
-    Uc = Bt
-    W = torch.zeros((C.shape[1], Bt.shape[1]), dtype=cdt, device=Bt.device)
-    for Ck in C:
-        W = W + Ck @ Uc.to(cdt)
-        AU = torch.stack([op.matvec(u) for u in Uc])
-        Up, Uc = Uc, (2.0 * inv_h) * (AU - center * Uc) - Up
-    return W
+    S = _State(Bt.device, Up=torch.zeros(Bt.shape, dtype=Bt.dtype,
+                                         device=Bt.device),
+               Uc=Bt.clone(memory_format=torch.contiguous_format),
+               W=torch.zeros((C.shape[1], Bt.shape[1]), dtype=cdt,
+                             device=Bt.device))
+
+    def step():
+        Ck = C.index_select(0, S.jj[:1])[0]
+        S.apply("W", torch.add, S.W, Ck @ S.Uc.to(cdt))
+        AU = torch.stack([op.matvec(u) for u in S.Uc])
+        y = (2.0 * inv_h) * (AU - center * S.Uc) - S.Up
+        S.set("Up", S.Uc)
+        S.set("Uc", y)
+        S.step_on()
+
+    _run("chebyshev_combination", op, S, step, C.shape[0], Bt.device)
+    return S.W
 
 
 def phiv_timestep_chebyshev(ts, A, B, *, bounds=None, tol: float = 1e-7,

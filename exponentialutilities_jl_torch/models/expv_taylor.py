@@ -15,7 +15,8 @@ no reduced problem and no basis storage.
   steps. m* and s are host ints here (the JAX package traces them, so it
   masks a loop of the static bound 55); the two-term early-termination
   test and the finiteness stop stay device masks, so the loop makes no
-  host read. With ``opnorm`` given, an operator call makes none at all;
+  host read. A stage is one step over state made before the loop, replayed
+  from a CUDA graph on the card (``_taylor_loop``). With ``opnorm`` given, an operator call makes none at all;
   a dense call reads its norms once to choose (m*, s).
 
 A row-sharded operator (``parallel.shard_operator``) runs the operator
@@ -34,6 +35,7 @@ from fractions import Fraction
 import numpy as np
 import torch
 
+from ..ops.krylov import _State, run_steps
 from ..utils.comm import operator_comm
 from ..utils.device import action_vector, host_tensor
 from ..utils.linop import LinearOperator
@@ -117,14 +119,20 @@ def _select_parameters(nA: float, etas, thetas):
 
 
 def _taylor_loop(matvec, b, scale, eta, m_star, s, eps, m_max: int,
-                 s_max: int, comm=None):
+                 s_max: int, comm=None, what: str = "taylor"):
     """s stages of the degree-m* Taylor recurrence with the two-term
     early-termination test. b is one system (n,) or a stack (B, n); m*
     and s are ints, or (B,) tensors of a stack with each system masked
     past its own, and the loops run to the host bounds ``m_max`` and
     ``s_max``. The early stop and the finiteness stop are device masks:
     no host read. ``comm``: b's rows are sharded, and the maxima and the
-    finiteness are the global ones."""
+    finiteness are the global ones.
+
+    One stage is one step (the JAX package's ``lax.while_loop`` body):
+    its m_max masked terms unrolled, each with its constant scale / j,
+    over the state (F, ok) and the stage index read from the step counter
+    for ``k < s``; the step runs s_max times (``ops/krylov.run_steps``
+    under the label ``what``: a replayed graph on a CUDA device)."""
     rdt = _real(b.dtype)
 
     def amax(*xs):
@@ -142,12 +150,13 @@ def _taylor_loop(matvec, b, scale, eta, m_star, s, eps, m_max: int,
     def col(mask):
         return mask[..., None]
 
-    F = b
-    ok = finite(b)
-    for k in range(s_max):
+    S = _State(b.device, F=b, ok=finite(b))
+
+    def step():
+        F = S.F
         v, F2 = F, F
         (c1,) = amax(v)
-        done = torch.zeros_like(ok)
+        done = torch.zeros_like(S.ok)
         for j in range(1, m_max + 1):
             vn = matvec(v) * (scale / j)
             Fn = F2 + vn
@@ -158,9 +167,13 @@ def _taylor_loop(matvec, b, scale, eta, m_star, s, eps, m_max: int,
             F2 = torch.where(col(live), Fn, F2)
             c1 = torch.where(live, c2, c1)
             done = done | (live & stop)
-        F = torch.where(col(ok & (k < s)), F2 * eta, F)
-        ok = ok & finite(F)
-    return F
+        F = torch.where(col(S.ok & (S.jj[0] < s)), F2 * eta, F)
+        S.set("F", F)
+        S.apply("ok", torch.logical_and, S.ok, finite(F))
+        S.step_on()
+
+    run_steps(what, S, step, s_max, b.device, sharded=comm is not None)
+    return S.F
 
 
 def _onenorm(X):
@@ -168,12 +181,11 @@ def _onenorm(X):
     return X.abs().sum(dim=1).amax(dim=1)
 
 
-@full_precision
-def _taylor_dense(A, b, t, mu, use_trace_shift: bool, eps):
-    """Dense expv_taylor of a (B, n, n) stack with (B, n) vectors and (B,)
-    times: trace shift, (m*, s) per system (a host read of the 1-norms,
-    and a second of the power probes' where a norm is past the simple
-    bound), then the Taylor loop."""
+def _taylor_dense_parts(A, b, t, mu, use_trace_shift: bool, eps):
+    """The arguments of ``_taylor_loop`` for a (B, n, n) stack with (B, n)
+    vectors and (B,) times: trace shift, (m*, s) per system (a host read
+    of the 1-norms, and a second of the power probes' where a norm is past
+    the simple bound). The loop itself makes no read."""
     n = A.shape[1]
     dt = A.dtype
     rdt = _real(dt)
@@ -197,9 +209,17 @@ def _taylor_dense(A, b, t, mu, use_trace_shift: bool, eps):
     s = torch.tensor([q[1] for q in params], device=A.device)
     sd = s.to(dt)
     scale, eta = (t / sd)[:, None], torch.exp(mu * t / sd)[:, None]
-    return _taylor_loop(lambda x: (Ash @ x[..., None])[..., 0], b, scale,
-                        eta, m_star, s, eps, max(q[0] for q in params),
-                        max(q[1] for q in params))
+    return (lambda x: (Ash @ x[..., None])[..., 0], b, scale, eta, m_star,
+            s, eps, max(q[0] for q in params), max(q[1] for q in params))
+
+
+@full_precision
+def _taylor_dense(A, b, t, mu, use_trace_shift: bool, eps):
+    """Dense expv_taylor of a (B, n, n) stack with (B, n) vectors and (B,)
+    times: the parameters (``_taylor_dense_parts``), then the Taylor
+    loop."""
+    return _taylor_loop(*_taylor_dense_parts(A, b, t, mu, use_trace_shift,
+                                             eps), what="taylor (dense)")
 
 
 def expv_taylor(t, A, b, *, tol: float | None = None, opnorm=None,
@@ -267,7 +287,7 @@ def _expv_taylor_op(t, op, b, tol, opnorm, mu):
         return op.matvec(x) - mu * x
 
     return _taylor_loop(mv, b.to(dt), scale, eta, m_star, s, tol, m_star, s,
-                        operator_comm(op))
+                        operator_comm(op), what=f"taylor ({type(op).__name__})")
 
 
 def expv_taylor_batched(t, As, bs, *, tol: float | None = None):

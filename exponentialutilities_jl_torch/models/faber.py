@@ -32,7 +32,10 @@ are copied to the device once per call (once per snapshot interval in
 ``phiv_timestep_faber``). A phi action's (m, p) stack on a 1-D stencil
 that passes ``resident_multi_ok`` is one B4 launch. Complex coefficients,
 every other operator and CPU tensors take the plain torch loops
-``_faber_apply`` and ``_nw_faber_scan``.
+``_faber_apply`` and ``_nw_faber_scan``. Each loop is one masked step run
+its count of times, as in ``models/leja.py`` (its module doc): a plain
+loop's step one Faber term, k = i mod m, with cc_k read from a device
+table; an engine loop's step one substep.
 
 Failure protocol (``_check_finite_faber``, one host read): a non-finite
 result raises, and so does a result whose norm exceeds the bound
@@ -53,6 +56,7 @@ import math
 import numpy as np
 import torch
 
+from ..ops.krylov import _run, _State
 from ..ops.sparse import BandedOperator
 from ..ops.stencil import StencilOperator
 from ..utils.comm import all_finite, operator_comm, vector_norm
@@ -61,8 +65,10 @@ from ..utils.linop import DenseOperator, aslinearoperator
 from ..utils.precision import full_precision
 from .chebyshev import _phi_scalar_np
 from .leja import (_apply_columns, _combo_cols, _constant_combination,
-                   _engine, _host_to, _march, _nw_fused_substep,
-                   _signed_marches, _truncate_dd, real_interval)
+                   _device_time, _engine, _engine_substeps, _host_to, _march,
+                   _nw_engine_substeps, _nw_fused_substep,
+                   _signed_marches, _truncate_dd,
+                   real_interval)
 
 __all__ = ["expv_faber", "phiv_faber", "phiv_timestep_faber",
            "fov_ellipse", "faber_coeffs"]
@@ -170,35 +176,60 @@ def faber_coeffs(fvals, rho, m: int):
     return a[:m], 1.0 + rho ** np.arange(m)
 
 
+def _faber_cc(m: int, rho: float):
+    """The recurrence's cc_k, host numpy: 0, -2 rho (the g_0 = 2b weight),
+    then -rho."""
+    cc = np.full(m, -rho)
+    cc[0] = 0.0
+    if m > 1:
+        cc[1] = -2.0 * rho
+    return cc
+
+
 @full_precision
 def _faber_apply(op, b, a, center: float, inv_gamma: float, rho: float,
                  q: int):
     """q substeps of the degree-(m-1) Faber form, plain torch: ``a`` (m,)
     gives (n,), ``a`` (m, p) gives (n, p) (q must be 1). ``a`` is a tensor
-    on b's device, complex where its coefficients are."""
-    def Ahat(x):
-        return inv_gamma * (op.matvec(x) - center * x)
+    on b's device, complex where its coefficients are. One term a step,
+    g_{k+1} = A^ g_k + cc_k g_{k-1} (``_faber_cc``; the same bits as
+    -rho g_{k-1} and -rho (2 b)), q m steps; with q > 1 a substep's last
+    term starts the next from its result (module doc)."""
+    m = a.shape[0]
+    reset = a.ndim == 1 and q > 1
+    cc = _host_to(_faber_cc(m, rho), b)
 
     def accum(w, g, ak):
         if a.ndim == 1:
             return w + ak * g
         return w + g[:, None] * ak[None, :]
 
-    def substep(v):
-        w = accum(torch.zeros(v.shape + a.shape[1:], dtype=a.dtype,
-                              device=v.device), v, a[0])
-        g_prev, g = 2.0 * v, Ahat(v)
-        for k in range(1, a.shape[0]):
-            w = accum(w, g, a[k])
-            g_prev, g = g, Ahat(g) - rho * g_prev
-        return w
+    def real_of(w):
+        return w.real if w.is_complex() and not b.is_complex() else w
 
+    S = _State(b.device, gp=torch.zeros_like(b), g=b.clone(),
+               w=torch.zeros(b.shape + a.shape[1:], dtype=a.dtype,
+                             device=b.device))
+
+    def step():
+        k = torch.remainder(S.jj[:1], m)
+        g = S.g
+        w = accum(S.w, g, a.index_select(0, k)[0])
+        gn = (inv_gamma * (op.matvec(g) - center * g)
+              + cc.index_select(0, k)[0] * S.gp)
+        if reset:           # a substep's last term: its w starts the next
+            last = k[0] == m - 1
+            gn = torch.where(last, real_of(w), gn)
+            w = torch.where(last, 0, w)
+        S.set("w", w)
+        S.set("gp", g)
+        S.set("g", gn)
+        S.step_on()
+
+    _run("faber_apply", op, S, step, q * m if a.ndim == 1 else m, b.device)
     if a.ndim == 2:
-        return substep(b)
-    for _ in range(q):
-        w = substep(b)
-        b = w.real if w.is_complex() and not b.is_complex() else w
-    return b
+        return S.w
+    return S.g if reset else real_of(S.w)
 
 
 def _faber_rows(a_col, c, inv_gamma, rho):
@@ -206,12 +237,8 @@ def _faber_rows(a_col, c, inv_gamma, rho):
     (A - c) g_k - rho g_{k-1}, w += a_k g_k, the k = 1 step's cc = -2 rho
     carrying the g_0 = 2b weight."""
     m = len(a_col)
-    cc = np.full(m, -rho)
-    cc[0] = 0.0
-    if m > 1:
-        cc[1] = -2.0 * rho
     return np.stack([np.full(m, inv_gamma), np.full(m, -inv_gamma * c),
-                     cc, np.asarray(a_col)], axis=1)
+                     _faber_cc(m, rho), np.asarray(a_col)], axis=1)
 
 
 def _apply_fused_faber(op, b, A_coeffs, c, inv_gamma, rho, q: int, apply,
@@ -222,10 +249,7 @@ def _apply_fused_faber(op, b, A_coeffs, c, inv_gamma, rho, q: int, apply,
     A_coeffs = np.asarray(A_coeffs)
     if A_coeffs.ndim == 1:
         rows = _host_to(_faber_rows(A_coeffs, c, inv_gamma, rho), b)
-        w = b
-        for _ in range(q):
-            w = apply(op, w, rows)
-        return w
+        return _engine_substeps(op, b, rows, q, apply, "faber substeps")
     rows = np.stack([_faber_rows(A_coeffs[:, j], c, inv_gamma, rho)
                      for j in range(A_coeffs.shape[1])])
     return _apply_columns(op, b, rows, A_coeffs, apply, fused)
@@ -428,24 +452,42 @@ def _nw_faber_scan(op, u, B, D, center: float, inv_gamma: float, rho: float,
                    t0: float, tau: float, p: int, q: int):
     """q substeps of the direct phi combination of
     ``leja._nw_leja_scan`` with the Faber recurrence, plain torch. ``D``
-    (m, p+1), tau^j folded in."""
-    def Ahat(X):
-        return inv_gamma * (torch.stack([op.matvec(r) for r in X])
-                            - center * X)
+    (m, p+1), tau^j folded in. One term a step, q m steps (module doc)."""
+    m = D.shape[0]
+    cdt = D.dtype
+    cc = _host_to(_faber_cc(m, rho), u)
 
-    tcur = t0
-    for _ in range(q):
-        Om = _combo_cols(u, B, tcur, p)
-        Omc = Om.to(D.dtype)
-        w = D[0] @ Omc
-        if D.shape[0] > 1:
-            g_prev, g = 2.0 * Om, Ahat(Om)
-            for k in range(1, D.shape[0]):
-                w = w + D[k] @ g.to(D.dtype)
-                g_prev, g = g, Ahat(g) - rho * g_prev
-        u = w.real if w.is_complex() and not u.is_complex() else w
-        tcur = tcur + tau
-    return u
+    def real_of(w):
+        return w.real if w.is_complex() and not u.is_complex() else w
+
+    tcur = _device_time(t0, u)
+    G = _combo_cols(u, B, tcur, p)
+    S = _State(u.device, G=G, Gp=torch.zeros_like(G),
+               w=torch.zeros(u.shape, dtype=cdt, device=u.device), tcur=tcur)
+
+    def step():
+        k = torch.remainder(S.jj[:1], m)
+        G = S.G
+        w = S.w + D.index_select(0, k)[0] @ G.to(cdt)
+        Gn = G
+        if m > 1:
+            AG = torch.stack([op.matvec(r) for r in G])
+            Gn = (inv_gamma * (AG - center * G)
+                  + cc.index_select(0, k)[0] * S.Gp)
+        if q > 1:
+            last = k[0] == m - 1
+            tn = S.tcur + tau
+            Gn = torch.where(last, _combo_cols(real_of(w), B, tn, p), Gn)
+            w = torch.where(last, 0, w)
+            S.apply("tcur", torch.where, last, tn, S.tcur)
+        S.set("w", w)
+        if m > 1:
+            S.set("Gp", G)
+        S.set("G", Gn)
+        S.step_on()
+
+    _run("nw_faber", op, S, step, q * m, u.device)
+    return S.G[0] if q > 1 else real_of(S.w)
 
 
 # One NW substep through an engine: the Leja driver's, with Faber rows.
@@ -523,10 +565,8 @@ def phiv_timestep_faber(ts, A, B, *, ellipse=None, tol: float = 1e-7,
                 rows = _host_to(np.stack([
                     _faber_rows(Dk[:, j], c, 1.0 / gamma, rho)
                     for j in range(p + 1)]), u)
-                tcur = t_prev
-                for _ in range(q):
-                    u = _nw_fused_substep_faber(op, u, B, tcur, rows, eng, p)
-                    tcur += tau
+                u = _nw_engine_substeps(op, u, B, rows, t_prev, tau, q, eng,
+                                        p, "nw_faber substeps")
             else:
                 if np.iscomplexobj(Dk):
                     _no_engine_for_complex(fused, "phiv_timestep_faber")

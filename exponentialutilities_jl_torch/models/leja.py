@@ -27,6 +27,19 @@ B4; elsewhere each column is one pass. Everything else, and every CPU
 tensor, runs the plain torch loops ``_leja_apply`` and ``_nw_leja_scan``.
 ``fused=True`` demands an engine and raises where none applies.
 
+Each loop is one masked step over state made before it, run its count of
+times by ``ops/krylov._run`` (step 0 eagerly, then, on a CUDA device,
+through a ``utils/graphs.LoopRunner``: captured at its second execution
+and replayed; eagerly on the CPU, under ``graphs.eager()``, for a
+sharded operator and where autograd must see the call): a plain loop's
+step is one Newton term (the term's index k = i mod m and its
+coefficients read at the step counter i; with q > 1 substeps the step
+that ends a substep starts the next from its result, by masks), an
+engine loop's step one substep (``_engine_substeps``, and for the NW
+drivers ``_nw_engine_substeps``, whose time t_0 + i tau is a device
+scalar that the step advances). No step reads the device or copies
+host data: the tables reach the device before the loop.
+
 Failure protocol: a divided-difference table that does not converge
 within its probe degree raises ValueError, one that overflows raises
 FloatingPointError, and ``phiv_timestep_leja`` raises on a non-finite
@@ -47,6 +60,7 @@ import numpy as np
 import torch
 
 from ..ops.kernels.dispatch import recurrence_engine, resident_multi_ok
+from ..ops.krylov import _run, _State
 from ..utils.comm import all_finite, operator_comm
 from ..utils.device import action_vector
 from ..utils.linop import DenseOperator, aslinearoperator
@@ -174,25 +188,35 @@ def _phi_divided_differences(t, c, s, xi, k: int):
 def _leja_apply(op, b, d, xi, center: float, inv_s: float, q: int):
     """q substeps of the degree-(m-1) Newton form, plain torch: ``d``
     (m,) gives (n,), ``d`` (m, p) gives (n, p) (every column from one
-    pass; q must be 1). ``d`` and ``xi`` are tensors on b's device."""
+    pass; q must be 1). ``d`` and ``xi`` are tensors on b's device. One
+    Newton term a step (module doc), q m steps."""
+    m = d.shape[0]
+    reset = d.ndim == 1 and q > 1
+
     def accum(w, om, dk):
         if d.ndim == 1:
             return w + dk * om
         return w + om[:, None] * dk[None, :]
 
-    def substep(v):
-        w = torch.zeros(v.shape + d.shape[1:], dtype=d.dtype, device=v.device)
-        om = v
-        for k in range(d.shape[0]):
-            w = accum(w, om, d[k])
-            om = inv_s * (op.matvec(om) - center * om) - xi[k] * om
-        return w
+    S = _State(b.device, om=b, w=torch.zeros(
+        b.shape + d.shape[1:], dtype=d.dtype, device=b.device))
 
-    if d.ndim == 2:
-        return substep(b)
-    for _ in range(q):
-        b = substep(b)
-    return b
+    def step():
+        k = torch.remainder(S.jj[:1], m)
+        om = S.om
+        w = accum(S.w, om, d.index_select(0, k)[0])
+        om = (inv_s * (op.matvec(om) - center * om)
+              - xi.index_select(0, k)[0] * om)
+        if reset:           # a substep's last term: its w starts the next
+            last = k[0] == m - 1
+            om = torch.where(last, w, om)
+            w = torch.where(last, 0, w)
+        S.set("w", w)
+        S.set("om", om)
+        S.step_on()
+
+    _run("leja_apply", op, S, step, q * m if d.ndim == 1 else m, b.device)
+    return S.om if reset else S.w
 
 
 def _engine(op, b, fused):
@@ -226,17 +250,27 @@ def _apply_columns(op, b, rows, cw, apply, fused):
     return torch.stack([apply(op, b, dev[j]) for j in range(p)], dim=-1)
 
 
+def _engine_substeps(op, b, rows, q: int, apply, what: str):
+    """q exact substeps w <- apply(op, w, rows) from w = b, one engine pass
+    each: one step run q times (module doc). ``rows`` (m, 4) on the
+    device."""
+    S = _State(b.device, w=b)
+
+    def step():
+        S.set("w", apply(op, S.w, rows))
+
+    _run(what, op, S, step, q, b.device)
+    return S.w
+
+
 def _apply_fused_newton(op, b, D, xi, c, inv_s, q: int, apply, fused=None):
     """Engine twin of ``_leja_apply``: (m,) D gives q exact substeps, one
-    launch each with rows copied once; (m, p) D gives the p columns
-    (``_apply_columns``)."""
+    launch each with rows copied once (``_engine_substeps``); (m, p) D
+    gives the p columns (``_apply_columns``)."""
     D = np.asarray(D)
     if D.ndim == 1:
         rows = _host_to(_newton_rows(D, xi, c, inv_s), b)
-        w = b
-        for _ in range(q):
-            w = apply(op, w, rows)
-        return w
+        return _engine_substeps(op, b, rows, q, apply, "leja substeps")
     rows = np.stack([_newton_rows(D[:, j], xi, c, inv_s)
                      for j in range(D.shape[1])])
     return _apply_columns(op, b, rows, D, apply, fused)
@@ -336,9 +370,10 @@ def phiv_leja(t, A, b, k: int, *, interval=None, tol: float = 1e-7,
                        c, 1.0 / s, 1)
 
 
-def _combo_cols(u, B, tcur: float, p: int):
+def _combo_cols(u, B, tcur, p: int):
     """(p+1, n) columns [u, v_1(t) ... v_p(t)] of the NW substep,
-    v_j(t) = sum_l t^l / l! b_{j+l}."""
+    v_j(t) = sum_l t^l / l! b_{j+l}; ``tcur`` a 0-d float64 tensor (the
+    loops' device time) or a host float."""
     cols = [u]
     for j in range(1, p + 1):
         vj = torch.zeros_like(u)
@@ -348,6 +383,11 @@ def _combo_cols(u, B, tcur: float, p: int):
     return torch.stack(cols, dim=0)
 
 
+def _device_time(t0: float, like):
+    """t0 as the NW loops' 0-d float64 device time (a fill, no copy)."""
+    return torch.full((), t0, dtype=torch.float64, device=like.device)
+
+
 @full_precision
 def _nw_leja_scan(op, u, B, D, xi, center: float, inv_s: float, t0: float,
                   tau: float, p: int, q: int):
@@ -355,21 +395,35 @@ def _nw_leja_scan(op, u, B, D, xi, center: float, inv_s: float, t0: float,
     phi_j(tau A) v_j(t), plain torch. The direct phi combination keeps
     every column O(|B|) (the Krylov driver's W recurrence cancels
     (tau |A|)^j / j! terms); ``D`` (m, p+1) holds column j's divided
-    differences scaled by tau^j."""
-    tcur = t0
-    for _ in range(q):
-        Om = _combo_cols(u, B, tcur, p)
-        w = torch.zeros_like(u)
-        for k in range(D.shape[0]):
-            w = w + D[k] @ Om
-            AOm = torch.stack([op.matvec(r) for r in Om])
-            Om = inv_s * (AOm - center * Om) - xi[k] * Om
-        u = w
-        tcur = tcur + tau
-    return u
+    differences scaled by tau^j. One Newton term a step (module doc), q m
+    steps; a substep's last term makes the next substep's columns at the
+    device time t + tau."""
+    m = D.shape[0]
+    tcur = _device_time(t0, u)
+    S = _State(u.device, Om=_combo_cols(u, B, tcur, p),
+               w=torch.zeros_like(u), tcur=tcur)
+
+    def step():
+        k = torch.remainder(S.jj[:1], m)
+        Om = S.Om
+        w = S.w + D.index_select(0, k)[0] @ Om
+        AOm = torch.stack([op.matvec(r) for r in Om])
+        Om = inv_s * (AOm - center * Om) - xi.index_select(0, k)[0] * Om
+        if q > 1:
+            last = k[0] == m - 1
+            tn = S.tcur + tau
+            Om = torch.where(last, _combo_cols(w, B, tn, p), Om)
+            w = torch.where(last, 0, w)
+            S.apply("tcur", torch.where, last, tn, S.tcur)
+        S.set("w", w)
+        S.set("Om", Om)
+        S.step_on()
+
+    _run("nw_leja", op, S, step, q * m, u.device)
+    return S.Om[0] if q > 1 else S.w
 
 
-def _nw_fused_substep(op, u, B, tcur: float, rows, apply, p: int):
+def _nw_fused_substep(op, u, B, tcur, rows, apply, p: int):
     """One NW substep through an engine: each of the p+1 combination
     columns runs its own pass (the same chain scalars, the coefficient
     column D[:, j]) from its own start vector, and the passes sum.
@@ -381,6 +435,21 @@ def _nw_fused_substep(op, u, B, tcur: float, rows, apply, p: int):
         wj = apply(op, cols[j], rows[j])
         out = wj if out is None else out + wj
     return out
+
+
+def _nw_engine_substeps(op, u, B, rows, t0: float, tau: float, q: int,
+                        apply, p: int, what: str):
+    """q NW substeps through an engine from u at time t0 (module doc): one
+    substep (``_nw_fused_substep``) a step, its time a device scalar that
+    the step advances by tau."""
+    S = _State(u.device, u=u, tcur=_device_time(t0, u))
+
+    def step():
+        S.set("u", _nw_fused_substep(op, S.u, B, S.tcur, rows, apply, p))
+        S.apply("tcur", torch.add, S.tcur, tau)
+
+    _run(what, op, S, step, q, u.device)
+    return S.u
 
 
 def _march(snaps, state, step_interval):
@@ -481,11 +550,8 @@ def phiv_timestep_leja(ts, A, B, *, interval=None, tol: float = 1e-7,
             if eng is not None:
                 rows = _host_to(np.stack([_newton_rows(D[:, j], xi, c, 1.0 / s)
                                           for j in range(p + 1)]), u)
-                tcur = t_prev
-                for _ in range(q):
-                    u = _nw_fused_substep(op, u, B, tcur, rows, eng, p)
-                    tcur += tau
-                return u
+                return _nw_engine_substeps(op, u, B, rows, t_prev, tau, q,
+                                           eng, p, "nw_leja substeps")
             return _nw_leja_scan(op, u, B, _host_to(D, u, real=False),
                                  _host_to(xi, u), c, 1.0 / s, t_prev, tau,
                                  p, q)

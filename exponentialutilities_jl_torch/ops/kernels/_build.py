@@ -129,6 +129,9 @@ def _declare(lib):
         f.argtypes = [_VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I,
                       ctypes.c_double, _VP]
         f.restype = _I
+        f = getattr(lib, f"eu_sweep_stage_rows_{suf}")
+        f.argtypes = [_VP, _VP, _I, _VP]
+        f.restype = _I
         f = getattr(lib, f"eu_banded_spmv_{suf}")
         f.argtypes = [_VP, _VP, _VP, _VP]
         f.restype = _I

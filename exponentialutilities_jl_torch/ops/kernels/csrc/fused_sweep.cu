@@ -83,7 +83,11 @@
 // sweep s writes y_s and A y_s into their ring slots and sweep s + 1 reads
 // them there. The host-index form (a pointer per vector, j from the host)
 // stays for the callers whose loops the host drives: the sharded slab
-// sweeps, the Chebyshev recurrence and the one-sweep wrapper.
+// sweeps and the one-sweep wrapper. The generic (m, 4)-rows recurrence
+// (the Chebyshev, Leja and Faber passes, lanczos_fused.recurrence_apply_fused)
+// takes the device-index form too: sweep s reads row s - 1 from the state's
+// coefficient slots (sweep 0 the unit row of the initial state), where the
+// second stage's recurrence mode copied it after sweep s - 1.
 #include <algorithm>
 #include <cstdlib>
 #include <limits>
@@ -372,12 +376,27 @@ fused_sweep_kernel(const T* __restrict__ Z, const T* __restrict__ Vc,
 //     cc = live ? -beta / beta_prev : 0 (a zero beta divides as 1), and in
 //     the replay cw = live ? coeffs[j] / beta : 0; it writes them to the
 //     state, alphas[j] = live ? alpha : 0 and m_used = j + 1 where live.
+// In recurrence mode (`rows`, the (m, 4) rows of the generic recurrence in
+// the device-index form: lanczos_fused.recurrence_apply_fused) no moment
+// is read: after sweep s (s = the state's counter) one thread copies row s
+// into the state's coefficient slots, the coefficients of sweep s + 1,
+// where s < m, and advances the counter.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 sweep_stage_kernel(const T* __restrict__ partials, int nblocks, T* __restrict__ moments,
                    T* __restrict__ st, T* __restrict__ alphas, T* __restrict__ betas,
-                   const T* __restrict__ coeffs, int j, int m, T tol, T tiny) {
+                   const T* __restrict__ coeffs, int j, int m, T tol, T tiny,
+                   const T* __restrict__ rows) {
   __shared__ T red[kThreads];
+  if (rows != nullptr) {                // uniform: the whole block returns
+    if (threadIdx.x == 0) {
+      const int s = (int)st[kStep];
+      if (s < m)
+        for (int c = 0; c < 4; ++c) st[kCa + c] = rows[4 * (size_t)s + c];
+      st[kStep] = T(s + 1);
+    }
+    return;
+  }
   const T ypy = fixed_order_total(partials, nblocks, 2, red);
   const T yzy = fixed_order_total(partials + 1, nblocks, 2, red);
   if (threadIdx.x != 0) return;
@@ -529,7 +548,19 @@ int launch_stage(const T* partials, int nblocks, T* moments, T* state, T* alphas
     return (int)cudaErrorInvalidValue;
   sweep_stage_kernel<T><<<1, kThreads, 0, stream>>>(
       partials, nblocks, moments, state, alphas, betas, coeffs, j, m, (T)tol,
-      std::numeric_limits<T>::min());
+      std::numeric_limits<T>::min(), nullptr);
+  return (int)cudaGetLastError();
+}
+
+// The stage's recurrence mode (sweep_stage_kernel): one warp.
+template <typename T>
+int launch_stage_rows(T* state, const T* rows, int m, cudaStream_t stream) {
+  if (state == nullptr || m < 0 || (m > 0 && rows == nullptr))
+    return (int)cudaErrorInvalidValue;
+  // m = 0: a non-null pointer that the kernel never reads (s < 0 is false)
+  sweep_stage_kernel<T><<<1, 32, 0, stream>>>(nullptr, 0, nullptr, state, nullptr, nullptr,
+                                              nullptr, -1, m, T(0), T(0),
+                                              rows != nullptr ? rows : state);
   return (int)cudaGetLastError();
 }
 
@@ -635,6 +666,10 @@ int launch_sweep_ring(const void* const* ring, const T* state, const T* cvals,
                                       int j, int m, double tol, void* stream) {       \
     return eu::launch_stage<T>(partials, nblocks, moments, state, alphas, betas,      \
                                coeffs, j, m, tol, (cudaStream_t)stream);              \
+  }                                                                                   \
+  extern "C" int eu_sweep_stage_rows_##SUF(T* state, const T* rows, int m,           \
+                                           void* stream) {                            \
+    return eu::launch_stage_rows<T>(state, rows, m, (cudaStream_t)stream);            \
   }
 
 EU_SWEEP_API(float, f32)

@@ -21,7 +21,9 @@ step and serve both operator kinds:
   scalars from their own moments (bitwise-repeatable reductions make them
   equal to pass 1's) while accumulating w = sum_j c_j v_j.
 * ``recurrence_apply_fused``: the generic (m, 4)-rows recurrence (the
-  Chebyshev apply), no moment feedback, so no second stage.
+  Chebyshev, Leja and Faber passes), no moment feedback: its second stage
+  runs in recurrence mode, which copies the next sweep's row into the
+  state (``sweep_rows_ref``).
 
 The Lanczos scalars live in a small state buffer on the device (``_ST``):
 the second stage after sweep j writes the next sweep's (ca, cb, cc, cw),
@@ -42,10 +44,16 @@ driver's step) the pass runs inline. On CPU tensors the same step runs
 the twins, ``fused_sweep_ring_ref`` and ``sweep_stage_ref``
 (``_lanczos_scalars``), whose writes are masked by the counter, not
 branched on it on the host; on CUDA tensors it launches B3 (or B3-var)
-and the stage, or raises. ``fused_lanczos_step``, the Chebyshev
-recurrence and the sharded slab sweeps (``parallel/stencil_fused.py``,
-whose collectives run on gloo, which a graph cannot capture) keep the
-host-index form: a pointer per vector and j from the host.
+and the stage, or raises. ``fused_lanczos_step`` and the sharded slab
+sweeps (``parallel/stencil_fused.py``, whose collectives run on gloo,
+which a graph cannot capture) keep the host-index form: a pointer per
+vector and j from the host. The generic recurrence takes the
+device-index form too: sweep s reads its
+coefficients, row s - 1 of the (m, 4) rows (sweep 0 the unit row of the
+initial state), from the state, where the second stage's recurrence mode
+(``_SweepPlan.stage_rows``) copied them after sweep s - 1 without reading
+any moment; the recurrence is then one (sweep, stage) step too, run m + 1
+times like a pass.
 
 What does not change between sweeps is planned once per (operator, dtype,
 device) and kept on the operator (``_SweepPlan``): the support check, the
@@ -73,6 +81,7 @@ from .dispatch import refuse_grad
 
 __all__ = ["fused_supported", "fused_lanczos_step", "fused_sweep_ref",
            "fused_sweep_ring_ref", "ring_slots", "sweep_stage_ref",
+           "sweep_rows_ref",
            "lanczos_coeffs_fused", "lanczos_replay_fused",
            "recurrence_apply_fused", "stencil_matvec_fused", "MAX_HALO"]
 
@@ -233,6 +242,19 @@ def sweep_stage_ref(moments, state, alphas, betas, coeffs, m: int,
     step.add_(1)
 
 
+def sweep_rows_ref(state, rows, m: int):
+    """Plain twin of the second stage's recurrence mode: after sweep s (the
+    state's counter, which it advances) row s of the (m, 4) ``rows`` into
+    the state's coefficient slots where s < m, masked by the counter, not
+    branched on it on the host."""
+    step = state[_ST["step"]:_ST["step"] + 1]
+    if m > 0:
+        s = step.to(torch.int64)
+        row = rows.index_select(0, torch.clamp(s, max=m - 1))[0]
+        state[:4] = torch.where(s < m, row, state[:4])
+    step.add_(1)
+
+
 def ring_slots(ring, s: int):
     """(Z, Vc, Vp, Y, Zn) of sweep s from a pass's ring (v0, zero, y0, y1,
     y2, z0, z1): Z = A y_{s-1} (v0 at s = 0), Vc = y_{s-1}, Vp = y_{s-2}
@@ -301,6 +323,7 @@ class _SweepPlan:
         self.sweep_fn = getattr(lib, f"eu_{self.name}_{suf}")
         self.ring_fn = getattr(lib, f"eu_{self.name}_ring_{suf}")
         self.stage_fn = getattr(lib, f"eu_sweep_stage_{suf}")
+        self.rows_fn = getattr(lib, f"eu_sweep_stage_rows_{suf}")
         flat = [int(v) for off in offs3 for v in off]
         self.offs = (ctypes.c_int * len(flat))(*flat)
         self.k = len(offs3)
@@ -364,6 +387,15 @@ class _SweepPlan:
                              _ptr(betas), _ptr(coeffs),
                              -1 if j is None else j, m, tol, stream)
         _build.check(code, "second stage of the fused sweep")
+        _build.launches["sweep_stage"] += 1
+
+    def stage_rows(self, stream, state, rows, m: int):
+        """Launch the second stage in recurrence mode: row s of the (m, 4)
+        ``rows`` into ``state``'s coefficient slots (s the state's
+        counter, which it advances; ``sweep_rows_ref``)."""
+        code = self.rows_fn(state.data_ptr(), _ptr(rows), m, stream)
+        _build.check(code, "second stage of the fused sweep (recurrence "
+                     "mode)")
         _build.launches["sweep_stage"] += 1
 
 
@@ -450,6 +482,18 @@ def _start(b):
     return beta0, v0
 
 
+def _run_pass(label: str, dev, step, m: int):
+    """Run a pass's (sweep, stage) step m + 1 times (module doc): inline
+    where ``graphs.inline`` says so, else through a runner of the call's
+    own (key m, step ``"sweep"``)."""
+    if graphs.inline(dev):
+        for _ in range(m + 1):
+            step()
+        return
+    with graphs.LoopRunner(label, dev) as runner:
+        runner.repeat(m, "sweep", step, m + 1, last=True)
+
+
 def _lanczos_sweeps(op, b, m: int, tol: float, coeffs=None, *, what):
     """Lanczos pass 1 (``coeffs`` None) or its replay with weights
     ``coeffs`` ((m,)): m + 1 sweeps from v0 = b / |b|, each followed by
@@ -493,13 +537,7 @@ def _lanczos_sweeps(op, b, m: int, tol: float, coeffs=None, *, what):
                                            op.offsets, cvals, W)
             sweep_stage_ref(moments, state, alphas, betas, coeffs, m, tol)
     state[_ST["broke"]].copy_(beta0 == 0)
-    if graphs.inline(dev):
-        for _ in range(m + 1):
-            step()
-    else:
-        with graphs.LoopRunner(f"{what} ({type(op).__name__})",
-                               dev) as runner:
-            runner.repeat(m, "sweep", step, m + 1, last=True)
+    _run_pass(f"{what} ({type(op).__name__})", dev, step, m)
     m_used = state[_ST["m_used"]].to(torch.int32)
     return alphas, betas, beta0, m_used, state[_ST["broke"]] != 0, W
 
@@ -547,30 +585,38 @@ def recurrence_apply_fused(op, b, rows):
         w          += cw_k omega_k,          k = 0..m-1,  omega_0 = b.
 
     ``rows`` is a (m, 4) tensor on b's device (the Chebyshev rows of
-    ``ops.kernels.dispatch.chebyshev_rows``). Nothing reads the moments,
-    so on CUDA no second stage runs."""
+    ``ops.kernels.dispatch.chebyshev_rows``, the Newton and Faber rows of
+    ``models/leja.py`` and ``models/faber.py``). In the device-index form
+    (module doc): the ring of a pass with v0 = b, sweep s's coefficients
+    row s - 1 from the state (sweep 0: the unit row), each sweep followed
+    by the second stage in recurrence mode; m + 1 (sweep, stage) steps.
+    Sweep 0 emits omega_0 = b and Z = A omega_0 (accumulating cw = 0);
+    sweep s + 1 accumulates cw_s omega_s from its Vc input while emitting
+    omega_{s+1}."""
     plan = _plan(op, b.dtype, b.device)
     b = _vector(plan, b, "recurrence_apply_fused")
-    rows = torch.as_tensor(rows, dtype=b.dtype, device=b.device).contiguous()
-    zeros = torch.zeros_like(b)
+    dev = b.device
+    rows = torch.as_tensor(rows, dtype=b.dtype, device=dev).contiguous()
+    m = rows.shape[0]
+    ring = (b, torch.zeros_like(b), *(torch.empty_like(b) for _ in range(5)))
     W = torch.zeros_like(b)
     cvals = _cvals(op, b.dtype)
     if plan.kernel:
         refuse_grad("recurrence_apply_fused (B3)", op, b, rows)
-        stream = _build.raw_stream(b.device)
-        Ys = [torch.empty_like(b) for _ in range(3)]
-        Zs = [torch.empty_like(b) for _ in range(2)]
-    # sweep 0 emits omega_0 = b and Z = A omega_0 (no accumulation yet);
-    # sweep k+1 accumulates cw_k omega_k from its Vc input while emitting
-    # omega_{k+1}
-    Z, Vc, Vp = b, b, zeros
-    for s in range(rows.shape[0] + 1):
-        co = _unit(plan, b) if s == 0 else rows[s - 1]
-        if plan.kernel:
-            Y, Zn = Ys[s % 3], Zs[s % 2]
-            plan.sweep(Z, Vc, Vp, co.data_ptr(), cvals, Y, Zn, W, stream)
-        else:
-            Y, Zn, _ = fused_sweep_ref(Z, Vc, Vp, co, op.grid_shape,
-                                       op.offsets, cvals, W)
-        Z, Vc, Vp = Zn, Y, (zeros if s == 0 else Vc)
+        state = plan.state
+        state.copy_(plan.state0)
+        ptrs = (ctypes.c_void_p * len(ring))(*(v.data_ptr() for v in ring))
+
+        def step():
+            stream = _build.raw_stream(dev)
+            plan.sweep_ring(ptrs, state, cvals, W, stream)
+            plan.stage_rows(stream, state, rows, m)
+    else:
+        state = _const(_STATE0, b)
+
+        def step():
+            fused_sweep_ring_ref(ring, state, op.grid_shape, op.offsets,
+                                 cvals, W)
+            sweep_rows_ref(state, rows, m)
+    _run_pass(f"recurrence_apply_fused ({type(op).__name__})", dev, step, m)
     return W

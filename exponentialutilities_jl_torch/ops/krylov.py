@@ -184,6 +184,16 @@ def _run(what: str, op, S: _State, step, m: int, device):
     """Run ``step`` m times (module doc): step 0 rebinding, then the rest
     as its state says, inline, or through a runner of the call's own that
     captures and replays it where it can."""
+    run_steps(f"{what} ({type(op).__name__})", S, step, m, device,
+              sharded=operator_comm(op) is not None)
+
+
+def run_steps(label: str, S: _State, step, m: int, device, *,
+              sharded: bool = False):
+    """``_run`` for a loop named ``label`` whose steps may make collectives
+    (``sharded``): the polynomial actions' and the Taylor action's loops
+    (``models/``) run this way too. The runner's key is m, its step
+    ``"step"``."""
     if m <= 0:
         return
     S.rebind = True
@@ -195,8 +205,7 @@ def _run(what: str, op, S: _State, step, m: int, device):
         return
     if m == 1:
         return
-    with graphs.LoopRunner(f"{what} ({type(op).__name__})", device,
-                           sharded=operator_comm(op) is not None) as runner:
+    with graphs.LoopRunner(label, device, sharded=sharded) as runner:
         runner.repeat(m, "step", step, m - 1, last=True)
 
 

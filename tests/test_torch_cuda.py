@@ -1352,10 +1352,14 @@ def test_nonsymmetric_engines_vs_twin(dev, dt, rows_kind, kind):
     rows = _poly_rows(rows_kind, op, 24, dt, dev)
     op_cpu = _nonsym_op(kind, dt, "cpu")
     for engine in engines:
-        _build.reset_launch_counts()
+        _reset_counts()
         w = engine(op, x, rows)
         key = _COUNTER[engine.__name__]
-        assert _build.launches[key] == (25 if key == "fused_sweep" else 1)
+        ex = _executions()
+        if key == "fused_sweep":    # 25 (sweep, stage) steps, replayed
+            assert (ex[key], ex["sweep_stage"]) == (25, 25)
+        else:
+            assert ex[key] == 1
         _close(w.cpu(), engine(op_cpu, x.cpu(), rows.cpu()), dt)
 
 
@@ -1373,16 +1377,16 @@ def test_leja_faber_take_the_engines(dev):
             op, torch.float64, device=dev, hermitian=False).__name__]
         for fn, kw in ((et.expv_leja, dict(tol=1e-10)),
                        (et.expv_faber, dict(tol=1e-10))):
-            _build.reset_launch_counts()
+            _reset_counts()
             w = fn(t, op, b.to(dev), fused=True, **kw)
-            assert _build.launches[key] >= 1
+            assert _executions()[key] >= 1
             _close(w.cpu(), fn(t, op_cpu, b, **kw), torch.float64)
-        _build.reset_launch_counts()
+        _reset_counts()
         W = et.phiv_leja(t / 2, op, b.to(dev), 1, tol=1e-10)
         if kind == "1d":        # one start vector, two columns: one B4
-            assert _build.launches["resident_multi"] == 1
+            assert _executions()["resident_multi"] == 1
         else:
-            assert _build.launches[key] == 2
+            assert _executions()[key] == 2
         _close(W.cpu(), et.phiv_leja(t / 2, op_cpu, b, 1, tol=1e-10),
                torch.float64)
 
@@ -1393,9 +1397,9 @@ def test_nw_polynomial_drivers_launch_p1_passes_a_substep(dev):
     B = torch.as_tensor(np.random.default_rng(84).standard_normal((3001, 3)))
     c, s = et.models.leja._interval_map(op_cpu, None)
     t = 100.0 / s                                   # q = 3 at max_z = 40
-    _build.reset_launch_counts()
+    _reset_counts()
     U = et.phiv_timestep_leja(t, op, B.to(dev), tol=1e-8)
-    assert _build.launches["resident_recurrence"] == 3 * 3
+    assert _executions()["resident_recurrence"] == 3 * 3
     _close(U.cpu(), et.phiv_timestep_leja(t, op_cpu, B, tol=1e-8),
            torch.float64)
     _build.reset_launch_counts()
@@ -2897,3 +2901,108 @@ def test_make_phiv_timestep_b_requires_grad_after_capture(dev):
                  "replays": 3 * fn.nsteps - 1}
         fn.close()
     _close(gs[str(dev)], gs["cpu"], torch.float64)
+
+
+# ---- the polynomial and Taylor loops as replayed steps ----------------------
+
+def _loop_counts(c):
+    """Runner counts of a loop of c steps whose step 0 runs before the
+    runner (ops/krylov._run): c - 1 executions, captured at the second
+    where at least one more follows."""
+    if c >= 4:
+        return {"eager_steps": 1, "captures": 1, "replays": c - 2}
+    return {"eager_steps": max(c - 1, 0), "captures": 0, "replays": 0}
+
+
+def _poly_loop_case(name, dev):
+    """(call, loop steps, {kernel: executions}) of one loop on the card."""
+    from exponentialutilities_jl_torch.models import expv_taylor as tt
+    from exponentialutilities_jl_torch.models import faber as tfb
+    from exponentialutilities_jl_torch.models import leja as tl
+
+    g = np.random.default_rng(90)
+    if name == "chebyshev scan (B7)":
+        op = et.poisson_2d(40, 30, device=dev)
+        b = _vec(1200, torch.float64, dev, 91)
+        cf = torch.as_tensor(g.standard_normal(9) * 0.1, device=dev)
+        return (lambda: et.models.chebyshev._chebyshev_apply_scan(
+            op, b, cf, -4.0, 0.2), 9, {"banded_spmv": 9})
+    if name == "leja substeps (B1)":
+        op = _nonsym_op("1d", torch.float64, dev)
+        c, s = tl._interval_map(op, None)
+        d, xi, c, s, q = tl._leja_expv_setup(op, 200.0 / s, None, 1e-10,
+                                             None, 40.0)
+        rows = torch.as_tensor(tl._newton_rows(d, xi, c, 1.0 / s),
+                               device=dev)
+        b = _vec(op.shape[0], torch.float64, dev, 92)
+        return (lambda: tl._engine_substeps(
+            op, b, rows, q, tr.recurrence_apply_resident, "leja substeps"),
+            q, {"resident_recurrence": q})
+    if name == "faber substeps (B5)":
+        op = _nonsym_op("banded", torch.float64, dev)
+        c, _, _, gm, rho = tfb._resolve_ellipse(op, None)
+        a = g.standard_normal(12) * 0.1
+        rows = torch.as_tensor(tfb._faber_rows(a, c, 1.0 / gm, rho),
+                               device=dev)
+        b = _vec(op.shape[0], torch.float64, dev, 93)
+        return (lambda: tl._engine_substeps(
+            op, b, rows, 5, tr.recurrence_apply_resident_banded,
+            "faber substeps"), 5, {"resident_banded": 5})
+    if name == "nw substeps (B1)":
+        op = _nonsym_op("1d", torch.float64, dev)
+        c, s = tl._interval_map(op, None)
+        xi, _ = tl._leja_points_sup(30)
+        D = tl._phi_divided_differences(0.02, c, s, xi, 2)
+        rows = torch.as_tensor(np.stack([tl._newton_rows(D[:, j], xi, c,
+                                                         1.0 / s)
+                                         for j in range(3)]), device=dev)
+        B = torch.stack([_vec(op.shape[0], torch.float64, dev, 94 + j)
+                         for j in range(3)], 1)
+        return (lambda: tl._nw_engine_substeps(
+            op, B[:, 0], B, rows, 0.1, 0.02, 4, tr.recurrence_apply_resident,
+            2, "nw_leja substeps"), 4, {"resident_recurrence": 12})
+    if name == "B3 recurrence":
+        op = _nonsym_op("3d", torch.float64, dev)
+        rows = _poly_rows("faber", op, 24, torch.float64, dev)
+        x = _vec(op.shape[0], torch.float64, dev, 97)
+        return (lambda: tf.recurrence_apply_fused(op, x, rows), None,
+                {"fused_sweep": 25, "sweep_stage": 25})
+    op = et.advection_diffusion_1d(500, peclet=10.0, device=dev)
+    b = _vec(500, torch.float64, dev, 98)
+    t = 100.0 / float(op.opnorm_hint())
+    hint = float(op.opnorm_hint())      # a device norm: read it before
+    m_star, s = tt.operator_parameters(t * hint,
+                                       tt.taylor_theta(torch.float64))
+    return (lambda: et.expv_taylor(t, op, b, opnorm=hint), s,
+            {"banded_spmv": m_star * s})
+
+
+@pytest.mark.parametrize("name", [
+    "chebyshev scan (B7)", "leja substeps (B1)", "faber substeps (B5)",
+    "nw substeps (B1)", "B3 recurrence", "taylor (B7)"])
+def test_poly_loops_graph_vs_eager(dev, name):
+    """Each loop one step replayed from a CUDA graph (B1 and B5 are
+    cooperative launches: their captures replay with the eager bits), no
+    sync anywhere in the call, its kernel executions exact, bit-equal to
+    graphs.eager()."""
+    from exponentialutilities_jl_torch.utils import graphs
+
+    call, c, want_exe = _poly_loop_case(name, dev)
+    call()                                  # plans, library, pool
+    torch.cuda.synchronize()
+    _reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        w = call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    got = {k: graphs.counts[k] for k in ("eager_steps", "captures",
+                                         "replays")}
+    want = ({"eager_steps": 1, "captures": 1, "replays": 24} if c is None
+            else _loop_counts(c))
+    assert got == want
+    assert {k: v for k, v in _executions().items() if v} == want_exe
+    with graphs.eager():
+        we = call()
+    assert torch.equal(w, we)

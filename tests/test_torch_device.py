@@ -28,6 +28,12 @@ CONSTRUCTORS = {
     "aslinearoperator": lambda: et.aslinearoperator(A2),
     "expm": lambda: et.expm(A2),
     "expv numpy": lambda: et.expv(0.5, A2, np.ones(4), m=3),
+    "expv_chebyshev numpy": lambda: et.expv_chebyshev(0.5, A2, np.ones(4)),
+    "expv_leja numpy": lambda: et.expv_leja(0.5, A2, np.ones(4)),
+    "expv_faber numpy": lambda: et.expv_faber(0.5, A2, np.ones(4)),
+    "expv_taylor numpy": lambda: et.expv_taylor(0.5, A2, np.ones(4)),
+    "expv_taylor_batched numpy": lambda: et.expv_taylor_batched(
+        0.5, A2[None], np.ones((1, 4))),
     "banded_from_scipy": lambda: et.banded_from_scipy(sp.eye(6, format="csr")),
     "SellOperator.from_scipy": lambda: et.SellOperator.from_scipy(
         sp.eye(40, format="csr")),
