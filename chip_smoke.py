@@ -14,6 +14,8 @@
                                      (phases 1-2 and the ninth path)
     python3 chip_smoke.py --poly-graphs-only [--profile]
                                      (phases 1-2 and the tenth path)
+    python3 chip_smoke.py --batched-only [--profile]
+                                     (phases 1-2 and the eleventh path)
 
 The main paths are exp(tA)b and the phi-function actions
 [phi_0(tA)b ... phi_3(tA)b] at BASELINE.json's sizes: for Hermitian
@@ -131,8 +133,8 @@ its seconds:
               float64 through expm and phi(X, 4), against the per-matrix
               call and scipy; expm_dd at n = 32 against expm_mp at 300
               bits, the card's bits equal to the CPU's), expv_batched on
-              config #2 (8 columns, two-pass: 8 B2 + 8 B1) and config #3
-              (4 columns, m = 30: 120 B7), and the gradients: config #4's
+              config #2 (8 columns, two-pass: one K3, one K2, K4's groups)
+              and config #3 (4 columns, m = 30: 30 K1, one K2), and the gradients: config #4's
               ||expv(t, op, b, m=40)||^2 in b and op.diags (40 B7 forward
               + 40 backward, held to the plain twin's autograd on the
               card), the x-gradient of the n = 1e6 SELL matrix (2 B9),
@@ -210,13 +212,24 @@ its seconds:
               medians of 5 and the card's peak memory printed; phase 3
               also holds B2 on b in an invariant subspace of dimension
               exactly m (broke and m_used as the plain lanczos_coeffs);
-              the whole script profiles its cells at the end of phase 5.
+              the whole script profiles its cells at the end of phase 5;
+              then an eleventh, expv_batched as one batched build
+              (batched_path: config #3 with B (16, n), Lanczos on K1 and
+              one K2; config #2 two-pass with B (8, n), K3, K2 and K4, a
+              zero row and an eigenvector row; config #4 with B (16, n),
+              Arnoldi m = 250 on K1; each cell's kernel executions and
+              captures exact, each row within 1e-13 of its scalar expv,
+              the cell within 1e-10 of its oracle, batched against
+              per-row timed in turns; K1-K4 against their twins and bit
+              for bit against B7, R1, B2 and B1 on each row, K4's sums
+              within 1e-14; K1-K4's times, bounds and library calls).
               The builders run from
               graphs on every path but the sharded ones, so a kernel's
               count is its executions (captured launches times replays),
               not its host launches
-  5. times    CUDA-event medians of >= 10 runs after warm-up (of 5 after
-              one for the adaptive drivers), each kernel
+  5. times    CUDA-event medians of 10 runs after warm-up for the
+              kernels, of 5 for the main-path calls (of 3 after one for
+              the adaptive drivers), each kernel
               beside its plain twin, B6 (its main-path form and its
               family kernel) beside the B3 sweeps on the same grid at
               512^2, 1000^2, 64^3, 100^3, 128^3, 160^3 and 216^3 (the
@@ -463,7 +476,17 @@ REPLACES = {
     # eigh formula that XLA compiles there (the Hermitian reduced
     # exponential, _exp_reduced_e1)
     "tridiag_exp": "exponentialutilities_jl_tpu/models/expv.py:72",
+    # the batched forms of expv_batched (JAX vmaps B7's, R1's, B2's and
+    # B1's callers): K1 for B7, K2 for R1, K3 for B2, K4 for B1
+    "banded_spmm": "exponentialutilities_jl_tpu/ops/kernels/spmv.py:134",
+    "tridiag_exp_batched": "exponentialutilities_jl_tpu/models/expv.py:72",
+    "resident_lanczos_batched":
+        "exponentialutilities_jl_tpu/ops/kernels/resident.py:461",
+    "resident_recurrence_batched":
+        "exponentialutilities_jl_tpu/ops/kernels/resident.py:89",
 }
+BATCHED_KERNELS = ("banded_spmm", "tridiag_exp_batched",
+                   "resident_lanczos_batched", "resident_recurrence_batched")
 SOURCES = {
     "resident_recurrence": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_family.cu",
     "resident_lanczos": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_cluster.cu",
@@ -477,6 +500,10 @@ SOURCES = {
     "sell_spmv": "exponentialutilities_jl_torch/ops/kernels/csrc/sell.cu",
     "seg_compact": "exponentialutilities_jl_torch/ops/kernels/csrc/sell.cu",
     "tridiag_exp": "exponentialutilities_jl_torch/ops/kernels/csrc/tridiag.cu",
+    "banded_spmm": "exponentialutilities_jl_torch/ops/kernels/csrc/spmv.cu",
+    "tridiag_exp_batched": "exponentialutilities_jl_torch/ops/kernels/csrc/tridiag.cu",
+    "resident_lanczos_batched": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_cluster.cu",
+    "resident_recurrence_batched": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_family.cu",
 }
 
 
@@ -1126,12 +1153,17 @@ def dense_grad_path(et, dev, card, A1np, op1, opP, opS):
         "config1 funm torch.exp": lambda: et.funm(
             A1c, torch.exp, matfunc=torch.linalg.matrix_exp),
     })
+    from exponentialutilities_jl_torch.ops.kernels import resident as tr
+
+    # one batched build a call: K3, one K2 and K4's groups (config #2);
+    # 30 K1 steps for the 4 rows and one K2 (config #3)
+    k4 = tr.recurrence_batch_plan(op1, torch.float64, op1.device, NBATCH2)
     expect = {
-        "expv_batched config2": {"resident_lanczos": NBATCH2,
-                                 "resident_recurrence": NBATCH2,
-                                 "tridiag_exp": NBATCH2},
-        "expv_batched config3": {"banded_spmv": NBATCH3 * 30,
-                                 "tridiag_exp": NBATCH3},
+        "expv_batched config2": {
+            "resident_lanczos_batched": 1, "tridiag_exp_batched": 1,
+            "resident_recurrence_batched": k4.launches_per_call},
+        "expv_batched config3": {"banded_spmm": 30,
+                                 "tridiag_exp_batched": 1},
         "grad config4 expv m=40": {"banded_spmv": 40 + 40},
         "grad sell x": {"sell_spmv": 2},
     }
@@ -1267,11 +1299,13 @@ def dense_grad_path(et, dev, card, A1np, op1, opP, opS):
           f"JAX on the CPU {DENSE_JAX['expv_batched config2']:.1e})",
           flush=True)
     W3 = out["expv_batched config3"]
-    same = all(torch.equal(W3[i], et.expv(TP, opP, B3[i], m=30))
-               for i in range(NBATCH3))
-    check(same, "expv_batched config3: a column differs from its expv")
-    print(f"check expv_batched config3: each of {NBATCH3} columns equals its "
-          "scalar expv bit for bit", flush=True)
+    e = max(rel_max(W3[i], et.expv(TP, opP, B3[i], m=30))
+            for i in range(NBATCH3))
+    check(e <= MTOL_ROWS, f"expv_batched config3: a column {e:.2e} from its "
+          "expv")
+    print(f"check expv_batched config3: each of {NBATCH3} columns within "
+          f"{e:.2e} of its scalar expv (tol {MTOL_ROWS:g}: the batched "
+          "build's dots and norms sum in another order)", flush=True)
     gD, gb = out["grad config4 expv m=40"]
     saved = tsparse.kernel_device_ok
     tsparse.kernel_device_ok = lambda dt, device: False
@@ -2479,7 +2513,12 @@ def gspmd_path(et, dev, card, opB3):
                     hop_checks(tag, ranks)
                     continue
                 if mode == "gspmd-ds":
-                    want_l = {"banded_spmv": 2 * 30, "tridiag_exp": 2}
+                    # one batched build of the rank's 2 rows: B7 on each
+                    # row's slab (the sharded view's matvec, one halo
+                    # exchange a row a step), one K2; the reductions one
+                    # (2,) psum each: 1 + 2 m
+                    want_l = {"banded_spmv": 2 * 30, "tridiag_exp_batched": 1}
+                    want_c = {"psum": 1 + 2 * 30, "ppermute": 2 * 30}
                     for rk in ranks:
                         c = rk["cells"][name]
                         check(c["launches"] == want_l,
@@ -2488,6 +2527,11 @@ def gspmd_path(et, dev, card, opB3):
                         check(not any(c["census"]["data"].values()),
                               f"{tag} {name}: a collective on 'data': "
                               f"{c['census']}")
+                        got_c = {k: v for k, v in c["census"]["shard"].items()
+                                 if v}
+                        check(got_c == want_c,
+                              f"{tag} {name} rank {rk['rank']}: collectives "
+                              f"on 'shard' {got_c} != {want_c}")
                     e = (max(rk["cells"][name]["diff"] for rk in ranks)
                          / max(rk["cells"][name]["scale"] for rk in ranks))
                     check(e <= MTOL_SHARD, f"{tag} {name} vs single-device "
@@ -2915,13 +2959,13 @@ def krylov_graph_path(et, dev, card, g):
             lambda r: [("phi identities", phi_identity(opP, r, bP, TP),
                         MTOL_PHI)],
             lambda r: {"banded_spmv": 30}, [30]),
+        # one batched build: one builder call of 30 steps for the rows
         f"config3 expv_batched {NBATCH3} columns m=30": (
             lambda: et.expv_batched(TP, opP, BB, m=30), lambda r: r,
-            lambda r: [("each column vs its scalar expv (bit for bit)",
+            lambda r: [("each column vs its scalar expv",
                         max(rel_norm(r[i], et.expv(TP, opP, BB[i], m=30))
-                            for i in range(NBATCH3)), 0.0)],
-            lambda r: {"banded_spmv": NBATCH3 * 30,
-                       "tridiag_exp": NBATCH3}, [30] * NBATCH3),
+                            for i in range(NBATCH3)), MTOL_ROWS)],
+            lambda r: {"banded_spmm": 30, "tridiag_exp_batched": 1}, [30]),
         "config1 expv m=40": (
             lambda: et.expv(1.0, g["A1c"], g["b1c"], m=40), lambda r: r,
             lambda r: [("vs scipy expm(A) b", rel_norm(r, ref_1),
@@ -3036,10 +3080,11 @@ def krylov_graph_path(et, dev, card, g):
     return dict(total), {name: c[0] for name, c in cells.items()}
 
 
-def krylov_graph_profile(calls, card, label="krylov-graph"):
+def krylov_graph_profile(calls, card, label="krylov-graph",
+                         forms=("graph", "eager")):
     """torch.profiler over one warm call of each seventh-path cell in each
-    form: wall (host clock, profiled), device busy (the union of the
-    device intervals), device ops, and the host's launch calls (runtime
+    of ``forms``: wall (host clock, profiled), device busy (the union of
+    the device intervals), device ops, and the host's launch calls (runtime
     and driver API events named *Launch*: kernel launches and graph
     launches)."""
     import collections
@@ -3051,7 +3096,7 @@ def krylov_graph_profile(calls, card, label="krylov-graph"):
     from exponentialutilities_jl_torch.utils import graphs
 
     for name, fn in calls.items():
-        for form in ("graph", "eager"):
+        for form in forms:
             ctx = (graphs.eager() if form == "eager"
                    else contextlib.nullcontext())
             with ctx:
@@ -3742,7 +3787,7 @@ def serving_only(et, dev, card, profile: bool) -> int:
 # under sync debug mode "error"; B3 and B3-var in the device-index form
 # against their twins and bit-equal to the host-index form; CUDA-event
 # medians of FIXED_REPS beside the eager form.
-FIXED_REPS = 10
+FIXED_REPS = 5
 FIXED_M = 20
 FIXED_CUT = 40          # config #4's time over this: the cut fn(B) cell
 
@@ -3929,8 +3974,10 @@ def fixed_fused_path(et, dev, card, s):
 
     # make_phiv_timestep's fn(B), calls 1, 2, 3 with a fresh B each, and
     # phiv_timestep_fused at its grid: at config #4's time (full depth:
-    # the graph form alone, the eager form costing tens of seconds a call)
-    # and at FIXED_CUT of it (depth cut: beside graphs.eager())
+    # the graph form alone, the eager form costing tens of seconds a call;
+    # calls 1 and 2 only, the capture and a replay, ~5 s each: depth cut
+    # for the script's time limit) and at FIXED_CUT of it (depth cut:
+    # beside graphs.eager())
     calls = {}
     for depth, t_end in (("full", TA), ("cut", TA / FIXED_CUT)):
         fn = et.make_phiv_timestep(t_end, opA, torch.as_tensor(
@@ -3943,7 +3990,7 @@ def fixed_fused_path(et, dev, card, s):
                     {"eager_steps": 0, "captures": 0, "replays": fn.nsteps,
                      "blocking_reads": 0})
         call_ms = []
-        for i in range(3):
+        for i in range(2 if depth == "full" else 3):
             Bn = fresh_B()
             Bt = torch.as_tensor(Bn, device=dev)
             ms, (u, eps), cnt, exe = run_counted(lambda: fn(Bt), i >= 1)
@@ -3970,6 +4017,15 @@ def fixed_fused_path(et, dev, card, s):
                   + (" under sync debug mode 'error'" if i >= 1 else ""),
                   flush=True)
 
+        if depth == "full":
+            # phiv_timestep_fused is held to fn(B) at the cut depth below
+            print(f"time fixed {label}: fn(B) call 1 (a substep eager, one "
+                  f"captured, the rest replayed) {call_ms[0]:.3f} ms, call "
+                  f"2 (a replay) {call_ms[1]:.3f} ms (CUDA events) {card}",
+                  flush=True)
+            fn.close()
+            continue
+
         # the same stepper through phiv_timestep_fused: a runner a call
         def direct(fn=fn, Bt=Bt, t_end=t_end):
             return et.phiv_timestep_fused(t_end, opA, Bt, nsteps=fn.nsteps,
@@ -3986,14 +4042,6 @@ def fixed_fused_path(et, dev, card, s):
         print(f"check fixed {label} phiv_timestep_fused: counts {cnt} "
               f"(under sync debug mode 'error'); kernel executions {exe}; "
               f"bit-equal to fn(B)'s replay", flush=True)
-        if depth == "full":
-            print(f"time fixed {label}: fn(B) call 1 (a substep eager, one "
-                  f"captured, the rest replayed) {call_ms[0]:.3f} ms, calls "
-                  f"2 and 3 (replays) {call_ms[1]:.3f} / {call_ms[2]:.3f} "
-                  f"ms; phiv_timestep_fused {dms:.3f} ms (CUDA events) "
-                  f"{card}", flush=True)
-            fn.close()
-            continue
         rep, eag = in_turns(lambda fn=fn, Bt=Bt: fn(Bt))
         gms, ems = in_turns(direct)
         print(f"time fixed {label}: fn(B) call 1 {call_ms[0]:.3f} ms, calls "
@@ -4631,6 +4679,349 @@ def poly_graphs_only(et, dev, card, profile: bool) -> int:
     return 0
 
 
+# ---- the eleventh path: expv_batched as one batched build ----
+# expv_batched at full width in float64, each call one batched build (a
+# masked step with a batch axis replayed from one graph a builder call):
+#   config #3, poisson_2d(1000, 1000), t = 1e-4, m = 30, B (NB3, n): Lanczos
+#     on K1 (B7 batched) and one K2 (R1 batched); row NB3 - 1 zeros;
+#   config #2, the 1-D Laplacian at n = 1e5, t = 0.5, m = 40, two-pass, B
+#     (NB2, n): K3 (B2 batched) -> K2 -> K4 (B1 batched); rows 6 and 7 zeros
+#     and an eigenvector of the Laplacian (a breakdown at step 1);
+#   config #4, advection_diffusion_1d(2000, Pe = 10), t = 1e-4, m = 250, B
+#     (NB4, n): Arnoldi (CGS2) on K1, the stack's Higham 2005 with its
+#     1-norm on the device.
+# Each cell: its kernel executions and captures exact, each row against
+# the row's scalar expv (MTOL_ROWS: the batched dots and norms sum in
+# another order) and the cell's oracle (MTOL_DENSE: scipy expm_multiply,
+# the semigroup identity at n = 1e6, the dense expm), batched against
+# per-row in turns (CUDA-event medians of BATCH_REPS); K1-K4 against their
+# twins at these shapes, K1-K3 bit for bit against B7, R1 and B2 on each
+# row and K4's w against B1's (its sums of w^2 within K4_SUM_TOL).
+NB3, NB2, NB4 = 16, 8, 16
+MTOL_ROWS = 1e-13
+K4_SUM_TOL = 1e-14       # float64: the blocks' partials grouped otherwise
+BATCH_REPS = 5
+
+
+def batched_path(et, dev, card):
+    """The eleventh path (the comment above). Returns (kernel executions of
+    the cells' counted calls, {cell: call} for the profile, {kernel:
+    (ms, plain ms, library ms or None, (bytes, operations), max abs err)},
+    the profiler jobs [(kernel, dtype name, call, kernel name)])."""
+    import scipy.linalg as sla
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    import torch
+    from exponentialutilities_jl_torch.ops.kernels import _build
+    from exponentialutilities_jl_torch.ops.kernels import resident as tr
+    from exponentialutilities_jl_torch.ops.kernels import spmv as tsp
+    from exponentialutilities_jl_torch.ops.kernels import tridiag as tt
+    from exponentialutilities_jl_torch.utils import graphs
+
+    t_path = time.perf_counter()
+    f64 = torch.float64
+    gen = np.random.default_rng(SEED + 110)
+    total = collections.Counter()
+    opP = et.poisson_2d(NP, NP, device=dev)
+    op1 = et.laplacian_nd_stencil(N1, device=dev)
+    opA = et.advection_diffusion_1d(NA, peclet=10.0, device=dev)
+    nP = NP * NP
+    B3 = torch.as_tensor(gen.standard_normal((NB3, nP)), device=dev)
+    B3[NB3 - 1] = 0.0
+    B2n = gen.standard_normal((NB2, N1))
+    B2n[6] = 0.0
+    B2n[7] = np.sin(np.pi * 5 * np.arange(1, N1 + 1) / (N1 + 1))
+    B2 = torch.as_tensor(B2n, device=dev)
+    B4 = torch.as_tensor(gen.standard_normal((NB4, NA)), device=dev)
+
+    def median_ms(fn, reps=10, warmup=2):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(reps):
+            ts.append(event_ms(fn)[1])
+        return statistics.median(ts)
+
+    def burst_ms(fn, k=20):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(k):
+            fn()
+        z.record()
+        z.synchronize()
+        return a.elapsed_time(z) / k
+
+    # ---- K1-K4 against their twins at the cells' shapes ----
+    kinfo, jobs, errs = {}, [], {}
+    X3 = torch.as_tensor(gen.standard_normal((NB3, nP)), device=dev)
+    k5 = len(opP.offsets)
+    for dt in (torch.float32, f64):
+        Xd = X3.to(dt)
+        opd = et.BandedOperator(opP.diags.to(dt), opP.offsets,
+                                is_hermitian=True)
+        _build.reset_launch_counts()
+        Y = opd.matmat(Xd)
+        check(_build.launches["banded_spmm"] == 1, "K1: one launch a block")
+        e = rel_max(Y, tsp.banded_spmm_ref(opd.diags, opd.offsets, Xd))
+        check(e <= KTOL[str(dt)[6:]], f"K1 {dt}: {e:.2e} from its twin")
+        same = all(torch.equal(Y[i], opd.matvec(Xd[i])) for i in range(NB3))
+        check(same, f"K1 {dt}: a row differs from B7 on that row")
+        print(f"kernel K1 banded_spmm {str(dt)[6:]} config #3 ({NB3}, {nP}): "
+              f"max rel err {e:.2e} vs banded_spmm_ref (tol "
+              f"{KTOL[str(dt)[6:]]:g}); every row bit for bit B7 on that row",
+              flush=True)
+        if dt == f64:
+            errs["banded_spmm"] = float((Y - tsp.banded_spmm_ref(
+                opd.diags, opd.offsets, Xd)).abs().max())
+    for m in (30, 250):
+        ins = [r1_inputs(m, f64, dev, SEED + 120 + i,
+                         tail=(m - 4 if i == 1 else 0)) for i in range(NB3)]
+        A = torch.stack([a for a, _ in ins])
+        Bt = torch.stack([b for _, b in ins])
+        t = torch.tensor(0.6, dtype=f64, device=dev)
+        s = torch.as_tensor(gen.uniform(0.5, 2.0, NB3), device=dev)
+        _build.reset_launch_counts()
+        out = tt.tridiag_exp_e1_batched(A, Bt, t, s)
+        check(_build.launches["tridiag_exp_batched"] == 1, "K2: one launch")
+        ref = tt.tridiag_exp_e1_batched_ref(A, Bt, t, s)
+        e = rel_max(out, ref)
+        check(e <= 1e-13, f"K2 m={m}: {e:.2e} from its twin")
+        same = all(torch.equal(out[i], tt.tridiag_exp_e1(A[i], Bt[i], t,
+                                                         s[i]))
+                   for i in range(NB3))
+        check(same, f"K2 m={m}: a row differs from R1 on that row")
+        print(f"kernel K2 tridiag_exp_e1_batched float64 m={m} batch {NB3} "
+              f"(row 1 broken down at step 4): max rel err {e:.2e} vs the "
+              "batched eigh twin (tol 1e-13); every row bit for bit R1 on "
+              "that row", flush=True)
+        errs.setdefault("tridiag_exp_batched", 0.0)
+        errs["tridiag_exp_batched"] = max(errs["tridiag_exp_batched"],
+                                          float((out - ref).abs().max()))
+        if m == 30:
+            k2_in = (A, Bt, t, s)
+    nrm = torch.linalg.vector_norm(B2, dim=-1, keepdim=True)
+    V0 = torch.where(nrm > 0, B2 / torch.where(nrm > 0, nrm, 1.0), 0.0)
+    offs1 = tr._flat_offsets(op1)
+    _build.reset_launch_counts()
+    ab = tr.resident_lanczos(op1, V0, 40, 1e-7)
+    check(_build.launches["resident_lanczos_batched"] == 1, "K3: one launch")
+    abr = tr.resident_lanczos_batched_ref(V0, op1.coeffs, offs1, 40, 1e-7)
+    e = rel_max(ab, abr)
+    check(e <= KTOL["float64"], f"K3: {e:.2e} from its twin")
+    same = all(torch.equal(ab[i], tr.resident_lanczos(op1, V0[i], 40, 1e-7))
+               for i in range(NB2))
+    check(same, "K3: a row differs from B2 on that row")
+    used = [int((ab[i, :, 1] > 0).sum()) for i in range(NB2)]
+    print(f"kernel K3 resident_lanczos batched float64 config #2 ({NB2}, "
+          f"{N1}), m=40: max rel err {e:.2e} vs the batched twin (tol "
+          f"{KTOL['float64']:g}); every row bit for bit B2 on that row; "
+          f"nonzero betas a row {used}", flush=True)
+    errs["resident_lanczos_batched"] = float((ab - abr).abs().max())
+    rows = torch.as_tensor(gen.standard_normal((NB2, 40, 4)) * 0.3,
+                           device=dev)
+    rows[..., 0] *= 0.25
+    sc = torch.as_tensor(gen.uniform(0.5, 2.0, NB2), device=dev)
+    plan4 = tr.recurrence_batch_plan(op1, f64, op1.device, NB2)
+    _build.reset_launch_counts()
+    W, s2 = tr.resident_recurrence(op1, B2, rows, sc)
+    check(_build.launches["resident_recurrence_batched"]
+          == plan4.launches_per_call, "K4: launches")
+    Wr, s2r = tr.resident_recurrence_batched_ref(B2, rows, op1.coeffs, offs1,
+                                                  sc)
+    e = max(rel_max(W, Wr), rel_max(s2, s2r))
+    check(e <= KTOL["float64"], f"K4: {e:.2e} from its twin")
+    es = 0.0
+    for i in range(NB2):
+        w1, n1 = tr.resident_recurrence(op1, B2[i], rows[i], sc[i])
+        check(torch.equal(W[i], w1), f"K4: row {i}'s w differs from B1's")
+        es = max(es, abs(float(s2[i] - n1)) / max(float(n1), 1e-300))
+    check(es <= K4_SUM_TOL, f"K4: sum w^2 {es:.2e} from B1's")
+    print(f"kernel K4 resident_recurrence batched float64 config #2 ({NB2}, "
+          f"{N1}), m=40: {plan4.rows_per_launch} rows a launch of "
+          f"{plan4.rows_per_launch} x {plan4.grid} blocks of {plan4.chunk} "
+          f"rows ({plan4.launches_per_call} launch(es) a call; B1 alone: "
+          f"{tr.recurrence_plan(op1, f64, op1.device).grid} blocks); max rel "
+          f"err {e:.2e} vs the batched twin (tol {KTOL['float64']:g}); every "
+          f"row's w bit for bit B1's, its sum of w^2 within {es:.2e} (tol "
+          f"{K4_SUM_TOL:g})", flush=True)
+    errs["resident_recurrence_batched"] = float(max((W - Wr).abs().max(),
+                                                    (s2 - s2r).abs().max()))
+
+    # ---- the cells ----
+    A4 = banded_csr(opA).toarray()
+    E4 = sla.expm(TA * A4)
+    A1s = banded_csr(op1.to_banded())
+    cells = {
+        f"config3 expv_batched {NB3} x m=30": (
+            lambda: et.expv_batched(TP, opP, B3, m=30), B3,
+            lambda b: et.expv(TP, opP, b, m=30),
+            {"banded_spmm": 30, "tridiag_exp_batched": 1}, 1),
+        f"config2 expv_batched {NB2} x two-pass m=40": (
+            lambda: et.expv_batched(T1, op1, B2, m=40, two_pass=True), B2,
+            lambda b: et.expv(T1, op1, b, m=40, two_pass=True),
+            {"resident_lanczos_batched": 1, "tridiag_exp_batched": 1,
+             "resident_recurrence_batched": plan4.launches_per_call}, 0),
+        f"config4 expv_batched {NB4} x m={MA}": (
+            lambda: et.expv_batched(TA, opA, B4, m=MA), B4,
+            lambda b: et.expv(TA, opA, b, m=MA),
+            {"banded_spmm": MA}, 1),
+    }
+    calls = {}
+    for name, (fn, Bm, row, want, caps) in cells.items():
+        fn()
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        graphs.reset_counts()
+        W, ms = event_ms(fn)
+        torch.cuda.synchronize()
+        exe = {k: v for k, v in graphs.kernel_executions(
+            dict(_build.launches)).items() if v}
+        total.update(exe)
+        check(exe == want, f"batched {name}: kernel executions {exe}, "
+              f"expected {want}")
+        ncap = graphs.counts["captures"]
+        check(ncap == caps, f"batched {name}: {ncap} captures, expected "
+              f"{caps}")
+        with graphs.eager():
+            check(torch.equal(W, fn()), f"batched {name}: differs from "
+                  "graphs.eager()")
+        Wr = torch.stack([row(b) for b in Bm.unbind(0)])
+        er = rel_max(W, Wr)
+        check(er <= MTOL_ROWS, f"batched {name}: {er:.2e} from the rows' "
+              "expv")
+        check(not W[Bm.abs().amax(1) == 0].any(),
+              f"batched {name}: a zero row is not zero")
+        if name.startswith("config3"):
+            half = et.expv_batched(TP / 2, opP, et.expv_batched(
+                TP / 2, opP, B3, m=30), m=30)
+            eo = rel_max(W, half)
+            oracle = "the semigroup identity exp(t/2 A)^2 B"
+        elif name.startswith("config2"):
+            ref = spla.expm_multiply(T1 * A1s, B2n.T).T
+            eo = max(rel_norm(W[i].cpu(), torch.as_tensor(ref[i]))
+                     for i in range(NB2) if i != 6)
+            oracle = "scipy expm_multiply (each row)"
+        else:
+            ref = torch.as_tensor((E4 @ B4.cpu().numpy().T).T, device=dev)
+            eo = rel_max(W, ref)
+            oracle = "the dense expm"
+        check(eo <= MTOL_DENSE["float64"], f"batched {name}: {eo:.2e} from "
+              f"{oracle}")
+        print(f"check batched {name}: kernel executions {exe}, captures "
+              f"{ncap} (one a builder call), "
+              f"bit-equal to graphs.eager(); each row vs its scalar expv "
+              f"{er:.2e} (tol {MTOL_ROWS:g}), vs {oracle} {eo:.2e} (tol "
+              f"{MTOL_DENSE['float64']:g}); the zero row zero; one call "
+              f"{ms:.3f} ms {card}", flush=True)
+        bt, rt = [], []
+        for _ in range(BATCH_REPS):
+            bt.append(event_ms(fn)[1])
+            rt.append(event_ms(lambda: [row(b) for b in Bm.unbind(0)])[1])
+        print(f"time batched {name}: batched {statistics.median(bt):.3f} ms, "
+              f"per-row expv {statistics.median(rt):.3f} ms (CUDA events, "
+              f"medians of {BATCH_REPS} in turns) {card}", flush=True)
+        calls[f"{name} batched"] = fn
+        calls[f"{name} per-row"] = (lambda row=row, Bm=Bm: [
+            row(b) for b in Bm.unbind(0)])
+
+    # ---- K1-K4 times: plain, kernel, kernel, plain; library call ----
+    Pd = opP
+    csr = banded_csr(Pd).tocsr()
+    csrP = torch.sparse_csr_tensor(
+        torch.as_tensor(csr.indptr, dtype=torch.int64, device=dev),
+        torch.as_tensor(csr.indices, dtype=torch.int64, device=dev),
+        torch.as_tensor(csr.data, dtype=f64, device=dev), csr.shape)
+    A30, B30, t30, s30 = k2_in
+    T30 = (torch.diag_embed(A30) + torch.diag_embed(B30, 1)
+           + torch.diag_embed(B30, -1))
+
+    def k2_lib():
+        w, Q = torch.linalg.eigh(T30)
+        return (Q @ (torch.exp(t30 * w) * Q[..., 0, :])[..., None])[..., 0] \
+            * s30[:, None]
+
+    cases = {
+        "banded_spmm": (lambda: Pd.matmat(X3),
+                        lambda: tsp.banded_spmm_ref(Pd.diags, Pd.offsets, X3),
+                        lambda: torch.sparse.mm(csrP, X3.T),
+                        ((k5 + 2 * NB3) * nP * 8, 2 * k5 * nP * NB3),
+                        "banded_spmm_kernel",
+                        f"config #3 ({NB3}, {nP}), torch.sparse.mm(CSR, X^T)"),
+        "tridiag_exp_batched": (
+            lambda: tt.tridiag_exp_e1_batched(A30, B30, t30, s30),
+            lambda: tt.tridiag_exp_e1_batched_ref(A30, B30, t30, s30),
+            k2_lib, tuple(NB3 * v for v in r1_work(30)),
+            "tridiag_exp_kernel",
+            f"m=30 batch {NB3}, batched torch.linalg.eigh + combination"),
+        "resident_lanczos_batched": (
+            lambda: tr.resident_lanczos(op1, V0, 40, 1e-7),
+            lambda: tr.resident_lanczos_batched_ref(V0, op1.coeffs, offs1,
+                                                    40, 1e-7),
+            None, (NB2 * (N1 + 2 * 40) * 8, NB2 * 40 * N1 * (2 * 3 + 8)),
+            "resident_lanczos_cluster_kernel", f"config #2 ({NB2}, {N1}) m=40"),
+        "resident_recurrence_batched": (
+            lambda: tr.resident_recurrence(op1, B2, rows, sc),
+            lambda: tr.resident_recurrence_batched_ref(B2, rows, op1.coeffs,
+                                                       offs1, sc),
+            None, (NB2 * (2 * N1 + 4 * 40 + 1) * 8,
+                   NB2 * (40 * N1 * (2 * 3 + 6) + 2 * N1)),
+            "resident_nbr_kernel", f"config #2 ({NB2}, {N1}) m=40"),
+    }
+    for name, (kfn, pfn, lfn, wk, kname, what) in cases.items():
+        p1, k1, k2, p2 = (median_ms(f) for f in (pfn, kfn, kfn, pfn))
+        kb = burst_ms(kfn)
+        l1 = median_ms(lfn) if lfn is not None else None
+        bms, bby = bound(*wk, "float64")
+        km = statistics.median([k1, k2])
+        kinfo[name] = (km, statistics.median([p1, p2]), l1, wk, errs[name])
+        jobs.append((name, "float64", kfn, kname))
+        print(f"time {name} float64 {what}: kernel {k1:.4f} / {k2:.4f} ms, "
+              f"plain {p1:.4f} / {p2:.4f} ms, back-to-back {kb:.4f} ms"
+              + (f", library {l1:.4f} ms" if l1 is not None else
+                 ", no library call")
+              + f"; bound {bms:.4f} ms by {bby} ({km / bms:.1f}x) {card}",
+              flush=True)
+    print(f"batched path: {time.perf_counter() - t_path:.1f} s; peak device "
+          f"memory allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB {card}", flush=True)
+    return dict(total), calls, kinfo, jobs
+
+
+def batched_only(et, dev, card, profile: bool) -> int:
+    """``--batched-only``: the eleventh path with its inputs made here,
+    then its kernels' device times under torch.profiler and, with
+    ``--profile``, one call of each cell in its graph form."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof_
+
+    counts, calls, _, jobs = batched_path(et, dev, card)
+    print(f"kernel executions of the batched path: {counts}", flush=True)
+    for name, dn, kfn, kname in jobs:
+        kfn()
+        torch.cuda.synchronize()
+        with prof_(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                kfn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and kname in e.name]
+        print(f"device {name} {dn}: " + (
+            f"{sum(e.time_range.elapsed_us() for e in evs) / 20e3:.4f} ms "
+            f"a call (profiler, {len(evs)} launches in 20 calls)" if evs
+            else "not measured (the profiler saw no launch)") + f" {card}",
+            flush=True)
+    if profile:
+        krylov_graph_profile(calls, card, label="batched", forms=("graph",))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port's main path "
                                  "on one NVIDIA GPU (module doc).")
@@ -4656,6 +5047,11 @@ def main() -> int:
                     "Chebyshev, Leja, Faber and Taylor loops from CUDA "
                     "graphs, inputs and references made on the spot); "
                     "prints no result lines")
+    ap.add_argument("--batched-only", action="store_true",
+                    help="run phases 1-2 and the eleventh path alone "
+                    "(expv_batched as one batched build, inputs and "
+                    "references made on the spot, its kernels' device "
+                    "times last); prints no result lines")
     ap.add_argument("--fixed-fused-only", action="store_true",
                     help="run phases 1-2 and the ninth path alone (the "
                     "fixed NW stepper and the fused passes from CUDA "
@@ -4727,6 +5123,8 @@ def main() -> int:
         return fixed_fused_only(et, dev, card, args.profile)
     if args.poly_graphs_only:
         return poly_graphs_only(et, dev, card, args.profile)
+    if args.batched_only:
+        return batched_only(et, dev, card, args.profile)
 
     rng = np.random.default_rng(SEED)
     rng2 = np.random.default_rng(SEED + 1)     # the inputs of B4-B6
@@ -5740,7 +6138,9 @@ def main() -> int:
     torch.cuda.synchronize()
     main_counts = graphs.kernel_executions(dict(_build.launches))
     for k, v in main_counts.items():
-        check(v > 0, f"kernel {k} never launched on the main path")
+        # the batched kernels run on the third and eleventh paths
+        check(v > 0 or k in BATCHED_KERNELS,
+              f"kernel {k} never launched on the main path")
     print(f"main launches: {main_counts}", flush=True)
     # the plans config #2's B2 and B4 launches went through (kept on its
     # operator): B2's cluster form, and every B4 launch on the neighbour
@@ -6017,7 +6417,8 @@ def main() -> int:
         et, dev, card, A1np, op1[f64], opP, opS)
     print(f"main launches of the dense and gradient path: {dense_counts}",
           flush=True)
-    for k in ("resident_lanczos", "resident_recurrence", "banded_spmv",
+    for k in ("resident_lanczos_batched", "resident_recurrence_batched",
+              "banded_spmm", "tridiag_exp_batched", "banded_spmv",
               "sell_spmv"):
         check(dense_counts[k] > 0, f"kernel {k} never launched on the "
               "dense and gradient path")
@@ -6110,6 +6511,15 @@ def main() -> int:
               "sell_spmv"):
         check(poly_counts10.get(k, 0) > 0, f"kernel {k} never ran on the "
               "poly graph path")
+
+    # the eleventh path: expv_batched as one batched build
+    batched_counts, batched_calls, batched_kinfo, batched_jobs = \
+        batched_path(et, dev, card)
+    print(f"kernel executions of the batched path: "
+          f"{ {k: v for k, v in batched_counts.items() if v} }", flush=True)
+    for k in BATCHED_KERNELS:
+        check(batched_counts.get(k, 0) > 0, f"kernel {k} never ran on the "
+              "batched path")
 
     # the kernel-driving passes make no host syncs
     lo, hi = op3[f64].spectral_bounds_hint()
@@ -6268,6 +6678,8 @@ def main() -> int:
         krylov_graph_profile(krylov_calls, card)
         serving_profile(serving_calls, card)
         krylov_graph_profile(fixed_calls, card, label="fixed")
+        krylov_graph_profile(batched_calls, card, label="batched",
+                             forms=("graph",))
         phase_done("5 profile")
         return 0
 
@@ -6815,8 +7227,10 @@ def main() -> int:
     tmain = {}
     for name, fn in {**calls, **phi_calls, **sparse_calls, **var_calls,
                      **nh_calls}.items():
-        k = tmain[name] = median_ms(fn)
-        line = f"time main {name}: {k:.3f} ms"
+        # medians of 5: most of these cells are host-bound launch chains
+        # (depth cut, for the script's time limit)
+        k = tmain[name] = median_ms(fn, reps=5)
+        line = f"time main {name}: {k:.3f} ms (median of 5)"
         if name in plain_calls:
             # kernel against plain twin with both loops eager (the SELL
             # twin reads the device, so it cannot run from graphs): the
@@ -6861,13 +7275,13 @@ def main() -> int:
               "exchanges and psums take "
               f"{shard_ms[(tag, 'staging share')]:.1%} of a step {card}",
               flush=True)
-    # the adaptive drivers: up to hundreds of ms a call, so a median of 5
-    # after one warm-up
+    # the adaptive drivers: up to seconds a call, so a median of 3 after
+    # one warm-up (depth cut from 5, for the script's time limit)
     for name, fn in {**drv_calls,
                      "config4 make_phiv_timestep fn(B)": lambda: fn4(B4)
                      }.items():
-        print(f"time main {name}: {median_ms(fn, reps=5, warmup=1):.3f} ms "
-              f"(median of 5) {card}", flush=True)
+        print(f"time main {name}: {median_ms(fn, reps=3, warmup=1):.3f} ms "
+              f"(median of 3) {card}", flush=True)
     # the sixth path's cells from their CUDA graphs (each call captures
     # anew: the graphs live for one call)
     for name, fn in graph_calls.items():
@@ -6894,6 +7308,14 @@ def main() -> int:
     device_jobs.append(("tridiag_exp", "float64",
                         lambda: tt.tridiag_exp_e1(a40, b40, t40),
                         "tridiag_exp_kernel"))
+    # K1-K4, timed on the eleventh path
+    for name, (km, pm, lm, wk, err) in batched_kinfo.items():
+        times[(name, "float64")] = (km, pm)
+        work[(name, "float64")] = wk
+        if lm is not None:
+            lib_ms[(name, "float64")] = lm
+        kerr[name] = err
+    device_jobs.extend(batched_jobs)
     for name, dn, kfn, kname in device_jobs:
         ms, cnt = device_ms(kfn, kname)
         print(f"device {name} {dn}: " + (
@@ -6907,6 +7329,8 @@ def main() -> int:
     krylov_graph_profile(krylov_calls, card)
     serving_profile(serving_calls, card)
     krylov_graph_profile(fixed_calls, card, label="fixed")
+    krylov_graph_profile(batched_calls, card, label="batched",
+                         forms=("graph",))
 
     phase_done("5 times")
     kernels = []
@@ -6922,7 +7346,9 @@ def main() -> int:
                                      + graph_counts.get(name, 0)
                                      + krylov_counts.get(name, 0)
                                      + serving_counts.get(name, 0)
-                                     + fixed_counts.get(name, 0)),
+                                     + fixed_counts.get(name, 0)
+                                     + poly_counts10.get(name, 0)
+                                     + batched_counts.get(name, 0)),
                         "max_abs_err": kerr[name], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by,

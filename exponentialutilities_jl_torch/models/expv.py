@@ -31,9 +31,19 @@ Breakdown is masked, not truncated: trailing basis rows and H entries are
 zero, which makes the reduced matrix block-triangular, so exp(tH) e1 is
 exact for the effective dimension.
 
-``expv_batched(t, A, B)`` runs ``expv`` on each row of B ((batch, n) ->
-(batch, n)): each column takes the path, kernels included, that its
-scalar call takes (``torch.func.vmap`` cannot enter a raw-pointer kernel).
+``expv_batched(t, A, B)`` is exp(tA) b for each row b of B ((batch, n)
+-> (batch, n)), as JAX's vmapped ``expv``: one batched build per call
+(``ops/krylov.py``'s builders on the (batch, n) block: one masked step
+with a batch axis, replayed from one CUDA graph a builder call, the
+matvec the operator's ``matmat``, each row with its own breakdown and
+``m_used``), then the batched reduced problem (the Hermitian one in one
+launch of K2, R1's batched form; the non-Hermitian one Higham 2005 on the
+stack with the 1-norm taken on the device) and the batched combination.
+Routed as JAX routes it: the basis path, the two-pass forms (Hermitian:
+on a 1-D constant stencil K3 -> K2 -> K4 on the card; on a 2-D/3-D box
+stencil each row's fused sweeps, B3/B3-var, whose batched form is
+queued; else the plain batched passes; non-Hermitian: the batched IOP
+pair) and ``reduced="host"`` (one read of the whole batch's record).
 
 The Hermitian reduced exponential. On a CUDA device it is kernel R1
 (``ops/kernels/tridiag.py``), which reads t, beta0 and the diagonals from
@@ -73,12 +83,13 @@ from ..ops.expm import _onenorm, expm_higham2005
 from ..ops.host_reduced import (host_expm_e1, host_lanczos_coeffs,
                                 reduced_default)
 from ..ops.kernels.dispatch import grad_gate, kernel_device_ok
-from ..ops.kernels.tridiag import scalar_operand, tridiag_exp_e1
-from ..ops.krylov import (KrylovBasis, _sees_grad, _State, arnoldi,
-                          arnoldi_coeffs, arnoldi_replay,
+from ..ops.kernels.tridiag import (scalar_operand, tridiag_exp_e1,
+                                   tridiag_exp_e1_batched)
+from ..ops.krylov import (KrylovBasis, _col, _comb, _sees_grad, _State,
+                          arnoldi, arnoldi_coeffs, arnoldi_replay,
                           expand_compact_hessenberg, lanczos, lanczos_coeffs,
                           lanczos_replay)
-from ..ops.sparse import hoist_conjugation
+from ..ops.sparse import SortedSellOperator, hoist_conjugation
 from ..utils import graphs
 from ..utils.comm import operator_comm, vdot, vector_norm
 from ..utils.device import action_vector
@@ -94,7 +105,8 @@ def build_subspace(op: LinearOperator, b, m: int, *, tol: float = 1e-7,
                    hermitian: bool | None = None) -> KrylovBasis:
     """Lanczos factorization of a Hermitian operator, Arnoldi of any
     other (the reference's auto-switch on ``ishermitian``). A row-sharded
-    ``op`` takes this rank's rows of b (``ops/krylov.arnoldi``)."""
+    ``op`` takes this rank's rows of b (``ops/krylov.arnoldi``); a (batch,
+    n) b builds each row's subspace (``ops/krylov.py``)."""
     herm = op.is_hermitian if hermitian is None else hermitian
     if herm:
         return lanczos(op, b, m, tol=tol)
@@ -113,27 +125,33 @@ def _exp_reduced_e1(Ks: KrylovBasis, t, differentiable: bool = False):
     Otherwise ``expm_higham2005(t H_m)[:, 0]``: its form with no host read
     when ``differentiable``, or with the 1-norm taken on the device when
     the call runs inside a step that may be captured (``graphs.inline``: a
-    serving program's call, a loop step), else the host form."""
+    serving program's call, a loop step), else the host form. A batched
+    basis: (batch, m), R1's batched form K2 (one launch) for the
+    Hermitian rows, the stack's Higham 2005 with its 1-norm on the device
+    (no host read) otherwise."""
     m = Ks.m
-    Hm = Ks.H[:m, :m]
+    Hm = Ks.H[..., :m, :m]
+    batched = Hm.ndim > 2
     if Ks.hermitian and not Hm.is_complex():
-        return tridiag_exp_e1(torch.diagonal(Hm), torch.diagonal(Hm, -1), t)
+        a, b = torch.diagonal(Hm, 0, -2, -1), torch.diagonal(Hm, -1, -2, -1)
+        return (tridiag_exp_e1_batched if batched else tridiag_exp_e1)(a, b, t)
     Ht = t * Hm.to(torch.promote_types(Hm.dtype, _t_dtype(t)))
-    if not differentiable and graphs.inline(Ht.device):
-        return expm_higham2005(Ht, onenorm=_onenorm(Ht))[:, 0]
-    return expm_higham2005(Ht, differentiable=differentiable)[:, 0]
+    if not differentiable and (batched or graphs.inline(Ht.device)):
+        return expm_higham2005(Ht, onenorm=_onenorm(Ht))[..., :, 0]
+    return expm_higham2005(Ht, differentiable=differentiable)[..., :, 0]
 
 
 @full_precision
 def _combine_expv(Ks: KrylovBasis, expHe):
     """w = beta V^T expHe with the zero-start guard, in the common type of
     the basis and the coefficients (a complex b on a real Hermitian
-    operator keeps its imaginary part)."""
+    operator keeps its imaginary part); each row's of a batched basis
+    (one batched product)."""
     m = Ks.m
     dt = torch.promote_types(expHe.dtype, Ks.V.dtype)
-    w = expHe.to(dt) @ Ks.V[:m].to(dt)
-    out = Ks.beta.to(w.dtype) * w
-    return torch.where(Ks.beta > 0, out, 0.0)
+    w = _comb(expHe.to(dt), Ks.V[..., :m, :].to(dt))
+    beta = _col(Ks.beta)
+    return torch.where(beta > 0, beta.to(w.dtype) * w, 0.0)
 
 
 def _reduced_where(reduced, differentiable: bool = False,
@@ -161,7 +179,7 @@ def expv_from_basis(t, Ks: KrylovBasis, *, reduced: str = "device",
     (``reduced``, ``differentiable``: module doc)."""
     if _reduced_where(reduced, differentiable) == "host":
         m = Ks.m
-        return _combine_expv(Ks, host_expm_e1(Ks.H[:m, :m], t))
+        return _combine_expv(Ks, host_expm_e1(Ks.H[..., :m, :m], t))
     return _combine_expv(Ks, _exp_reduced_e1(Ks, t, differentiable))
 
 
@@ -169,9 +187,12 @@ def _lanczos_reduced_coeffs(alphas, betas, beta0, t, reduced="device"):
     """Reduced stage of every two-pass Hermitian expv: the masked
     tridiagonal T of the record -> the replay combination coefficients
     beta0 Q e^{t Lambda} Q^T e1 (``tridiag_exp_e1`` with s = beta0; on
-    the host with ``reduced="host"``)."""
+    the host with ``reduced="host"``); each row's of (batch, m) records,
+    K2 in one launch."""
     if reduced == "host":
         return host_lanczos_coeffs(alphas, betas, beta0, t)
+    if alphas.ndim > 1:
+        return tridiag_exp_e1_batched(alphas, betas[..., :-1], t, beta0)
     return tridiag_exp_e1(alphas, betas[:-1], t, beta0)
 
 
@@ -183,7 +204,7 @@ def _expv_two_pass(op, b, t, m: int, reduced: str = "device"):
     alphas, betas, beta0, m_used, broke = lanczos_coeffs(op, b, m)
     coeffs = _lanczos_reduced_coeffs(alphas, betas, beta0, t, reduced)
     out = lanczos_replay(op, b, coeffs, alphas, betas, m)
-    return torch.where(beta0 > 0, out, 0.0)
+    return torch.where(_col(beta0) > 0, out, 0.0)
 
 
 def _expv_two_pass_fused(op, b, t, m: int, tol: float = 1e-7,
@@ -206,17 +227,22 @@ def _expv_two_pass_arnoldi(op, b, t, m: int, win: int,
     """Storage-free non-Hermitian expv: two IOP-Arnoldi passes over a
     (win, n) rolling window (``ops.krylov.arnoldi_coeffs`` /
     ``arnoldi_replay``); the same recurrence as ``expv(iop=win,
-    reorth=False)`` without the basis."""
+    reorth=False)`` without the basis. A (batch, n) b: each row's, the
+    reduced problems as one stack (Higham 2005 with the 1-norm on the
+    device, or one host read)."""
     Hc, beta0, m_used, broke = arnoldi_coeffs(op, b, m, win)
     H = expand_compact_hessenberg(Hc, win)
     dt = torch.promote_types(H.dtype, _t_dtype(t))
     if reduced == "host":
-        expHe = host_expm_e1(H[:m, :m], t, dt)
+        expHe = host_expm_e1(H[..., :m, :m], t, dt)
+    elif b.ndim > 1 and not differentiable:
+        Ht = t * H[..., :m, :m].to(dt)
+        expHe = expm_higham2005(Ht, onenorm=_onenorm(Ht))[..., :, 0]
     else:
-        expHe = expm_higham2005(t * H[:m, :m].to(dt),
-                                differentiable=differentiable)[:, 0]
-    w = arnoldi_replay(op, b, expHe * beta0.to(dt), Hc, m, win)
-    return torch.where(beta0 > 0, w, 0.0)
+        expHe = expm_higham2005(t * H[..., :m, :m].to(dt),
+                                differentiable=differentiable)[..., :, 0]
+    w = arnoldi_replay(op, b, expHe * _col(beta0).to(dt), Hc, m, win)
+    return torch.where(_col(beta0) > 0, w, 0.0)
 
 
 def _errest_step(op, S, t, m: int, eps, beta0, comm):
@@ -476,19 +502,55 @@ def expv_batched(t, A, B, *, m: int = 30, tol: float = 1e-7,
                  hermitian: bool | None = None, reduced: str | None = None,
                  two_pass: bool = False, iop: int = 0, reorth: bool = True):
     """exp(tA) b_i for each row b_i of B (batch, n): one Krylov subspace per
-    row, each through ``expv`` (module doc), so each column takes its scalar
-    call's path and kernels. With a row-sharded operator B holds this
+    row, all built at once (module doc: one batched build a call, each row
+    with its own breakdown). With a row-sharded operator B holds this
     rank's columns of each row (and, on a data x shard mesh, only its
     data slice of the rows): the reductions run over the operator's axis
-    alone. Returns (batch, n). ``reduced``: as in ``expv`` (each row's
-    reduced problem on the host with "host")."""
+    alone, one collective a reduction for the whole batch. Returns (batch,
+    n). ``reduced``: as in ``expv`` (with "host" the whole batch's reduced
+    problems in one read and one write). ``two_pass``, ``iop``: as in
+    ``expv``; a row of zeros gives zeros."""
     reduced = _reduced_where(reduced)
     op = aslinearoperator(A)
     B = action_vector(B, op)
     if B.ndim != 2:
         raise ValueError(f"expv_batched takes B as (batch, n), got "
                          f"{tuple(B.shape)}")
-    return torch.stack([
-        expv(t, op, b, m=m, tol=tol, hermitian=hermitian, iop=iop,
-             reorth=reorth, reduced=reduced, two_pass=two_pass)
-        for b in B.unbind(0)])
+    if isinstance(op, SortedSellOperator):
+        # the solve in the sorted basis (hoist_conjugation): B's columns
+        # permuted once in, the result's once out
+        W = expv_batched(t, op.inner, B.index_select(1, op.order), m=m,
+                         tol=tol, hermitian=hermitian, reduced=reduced,
+                         two_pass=two_pass, iop=iop, reorth=reorth)
+        return W.index_select(1, op._inv)
+    m = min(m, op.shape[0])
+    herm = op.is_hermitian if hermitian is None else hermitian
+    if not two_pass:
+        return expv_from_basis(t, build_subspace(op, B, m, tol=tol, iop=iop,
+                                                 reorth=reorth,
+                                                 hermitian=herm),
+                               reduced=reduced)
+    if not herm:
+        if iop <= 0:
+            raise ValueError(
+                "non-Hermitian two_pass expv requires an IOP window "
+                "(iop > 0): the rolling-window recurrence is what makes the "
+                "replay storage-free")
+        return _expv_two_pass_arnoldi(op, B, t, m, iop, reduced=reduced)
+    from ..ops.kernels.lanczos_fused import fused_supported
+    from ..ops.kernels.resident import (expv_two_pass_resident,
+                                        resident_supported)
+
+    kernels = (kernel_device_ok(B.dtype, B.device)
+               and not torch.as_tensor(t).is_complex()
+               and (resident_supported(op)
+                    or fused_supported(op, hermitian=True))
+               and not grad_gate(op, (B, t)))
+    if kernels and resident_supported(op):
+        return expv_two_pass_resident(op, B, t, m, tol=tol, reduced=reduced)
+    if kernels:
+        # B3/B3-var have no batched form yet: each row's fused passes
+        return torch.stack([_expv_two_pass_fused(op, b, t, m, tol=tol,
+                                                 reduced=reduced)
+                            for b in B.unbind(0)])
+    return _expv_two_pass(op, B, t, m, reduced)

@@ -294,9 +294,15 @@ def expm_higham2005(A, *, max_squarings: int = 32, balance: bool = False,
     device) selects the form with no host read, with the host form's
     solve (a loop step of ``utils/graphs.py``). ``balance=True``: exp(A) =
     D exp(D^-1 A D) D^-1 with ``balance_matrix``'s exact factors. A stack
-    (..., n, n) goes to ``expm_higham2005_batched``. ``differentiable``:
+    (..., n, n) goes to ``expm_higham2005_batched``, or with a 0-d tensor
+    ``onenorm`` (the stack's largest 1-norm on the device) to the stack's
+    form with no host read, one degree and s for the stack
+    (``expv_batched``'s non-Hermitian reduced problems). ``differentiable``:
     the form with no host read (module doc)."""
     A = _square(A, "expm_higham2005")
+    if (A.ndim > 2 and isinstance(onenorm, torch.Tensor) and not balance
+            and not differentiable):
+        return _higham_device(A, max_squarings, onenorm, False)
     if A.ndim > 2:
         return expm_higham2005_batched(A, max_squarings=max_squarings,
                                        balance=balance,

@@ -8,7 +8,11 @@ complex128) instead of on the device, the reference's device/host split.
 It costs one device-to-host read of the m-sized record and one
 host-to-device write of the m-sized result per reduced problem; the
 results come back as tensors on the record's device, in the dtype the
-device form would give.
+device form would give. A batch (``expv_batched``; JAX's
+``_expv_batched_host`` and ``_expv_batched_two_pass_host``) is staged
+whole: ``host_expm_e1`` of a (batch, m, m) stack and
+``host_lanczos_coeffs`` of (batch, m) records make one read of the whole
+batch's record, scipy on each row, and one write back.
 
 The JAX package needs this split on the TPU (no float64 LU there). The
 H100 has native float64, so ``reduced_default()`` is "device", as the JAX
@@ -65,12 +69,18 @@ def host_expm(M, out_dtype=None):
 
 
 def host_expm_e1(H, t, out_dtype=None):
-    """First column of exp(t H), on the host; a tensor on H's device."""
+    """First column of exp(t H), on the host; a tensor on H's device. A
+    (batch, m, m) stack: each row's, (batch, m), in one read and one
+    write."""
     import scipy.linalg as sla
 
     th, tdt = _scalar(t)
     dt = out_dtype or torch.promote_types(H.dtype, tdt)
-    return _back(sla.expm(th * _host(H))[:, 0], dt, H.device)
+    Hh = _host(H)
+    if Hh.ndim == 2:
+        return _back(sla.expm(th * Hh)[:, 0], dt, H.device)
+    return _back(np.stack([sla.expm(th * Hi)[:, 0] for Hi in Hh]), dt,
+                 H.device)
 
 
 def _phiv_e1_np(M: np.ndarray, k: int) -> np.ndarray:
@@ -129,11 +139,21 @@ def host_phi(A, k: int, out_dtype=None):
 def host_lanczos_coeffs(alphas, betas, beta0, t):
     """The two-pass Hermitian replay coefficients beta0 Q e^{t Lambda}
     Q^T e1 of the recorded tridiagonal (scipy ``eigh_tridiagonal``), on
-    the recording's device."""
+    the recording's device. (batch, m) records and a (batch,) beta0:
+    each row's, (batch, m), in one read and one write."""
     import scipy.linalg as sla
 
     th, tdt = _scalar(t)
-    w, Q = sla.eigh_tridiagonal(_host(alphas), _host(betas)[:-1])
-    coeffs = (Q @ (np.exp(th * w) * Q[0, :])) * float(beta0)
+    m = alphas.shape[-1]
+    rec = _host(torch.cat([alphas, betas, beta0[..., None].to(alphas.dtype)],
+                          -1))          # one read
+    a, b, b0 = rec[..., :m], rec[..., m:2 * m], rec[..., 2 * m]
+
+    def row(ai, bi, b0i):
+        w, Q = sla.eigh_tridiagonal(ai, bi[:-1])
+        return (Q @ (np.exp(th * w) * Q[0, :])) * float(b0i)
+
+    coeffs = (row(a, b, b0) if a.ndim == 1 else
+              np.stack([row(*r) for r in zip(a, b, b0)]))
     return _back(coeffs, torch.promote_types(alphas.dtype, tdt),
                  alphas.device)

@@ -15,7 +15,11 @@ non-zero code into an exception, so a refused launch never passes silently.
 where it launches its kernel, so a run can show that it went through the
 kernels rather than their plain twins. ``sweep_stage`` counts the second
 stage of B3 and B3-var (the moments and the Lanczos scalars), ``tridiag_exp``
-R1, the Hermitian reduced exponential (``ops/kernels/tridiag.py``).
+R1, the Hermitian reduced exponential (``ops/kernels/tridiag.py``). The
+batched forms of ``expv_batched`` count apart: ``banded_spmm`` (K1, B7
+batched), ``tridiag_exp_batched`` (K2, R1 batched),
+``resident_lanczos_batched`` (K3, B2's cluster form batched) and
+``resident_recurrence_batched`` (K4, B1's neighbour form batched).
 """
 
 from __future__ import annotations
@@ -49,7 +53,9 @@ launches = {"resident_recurrence": 0, "resident_lanczos": 0,
             "resident_multi": 0, "resident_banded": 0, "resident_grid": 0,
             "fused_sweep": 0, "fused_sweep_var": 0, "sweep_stage": 0,
             "banded_spmv": 0, "blockell_spmv": 0, "sell_spmv": 0,
-            "seg_compact": 0, "tridiag_exp": 0}
+            "seg_compact": 0, "tridiag_exp": 0, "banded_spmm": 0,
+            "tridiag_exp_batched": 0, "resident_lanczos_batched": 0,
+            "resident_recurrence_batched": 0}
 
 
 def reset_launch_counts():
@@ -87,6 +93,9 @@ def _declare(lib):
         f = getattr(lib, f"eu_resident_lanczos_cluster_{suf}")
         f.argtypes = [_VP, _VP, _I, real, _VP, _VP]
         f.restype = _I
+        f = getattr(lib, f"eu_resident_lanczos_cluster_batched_{suf}")
+        f.argtypes = [_VP, _VP, _I, real, _VP, _I, _VP]
+        f.restype = _I
         f = getattr(lib, f"eu_resident_multi_{suf}")
         f.argtypes = [_VP, _VP, _VP, _I, _VP, _VP, _I, _LL, _I, _VP, _VP, _VP]
         f.restype = _I
@@ -98,6 +107,9 @@ def _declare(lib):
         f.restype = _I
         f = getattr(lib, f"eu_resident_recurrence_nbr_{suf}")
         f.argtypes = [_VP, _VP, _VP, _VP, _I, _VP, _VP, _VP]
+        f.restype = _I
+        f = getattr(lib, f"eu_resident_recurrence_nbr_batched_{suf}")
+        f.argtypes = [_VP, _VP, _VP, _VP, _I, _VP, _VP, _I, _VP]
         f.restype = _I
         f = getattr(lib, f"eu_resident_banded_nbr_{suf}")
         f.argtypes = [_VP, _VP, _VP, _I, _VP, _VP]
@@ -135,6 +147,9 @@ def _declare(lib):
         f = getattr(lib, f"eu_banded_spmv_{suf}")
         f.argtypes = [_VP, _VP, _VP, _VP]
         f.restype = _I
+        f = getattr(lib, f"eu_banded_spmm_{suf}")
+        f.argtypes = [_VP, _VP, _VP, _I, _VP]
+        f.restype = _I
         f = getattr(lib, f"eu_blockell_spmv_{suf}")
         f.argtypes = [_VP, _VP, _VP, _LL, _I, _I, _I, _VP, _VP]
         f.restype = _I
@@ -147,6 +162,10 @@ def _declare(lib):
         f = getattr(lib, f"eu_tridiag_exp_{suf}")
         f.argtypes = [_VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _I, _LL, _I, _I,
                       _VP, _VP]
+        f.restype = _I
+        f = getattr(lib, f"eu_tridiag_exp_batched_{suf}")
+        f.argtypes = [_VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _I, _LL, _I, _I,
+                      _I, _VP]
         f.restype = _I
     lib.eu_device_sms.argtypes = []
     lib.eu_device_sms.restype = _I

@@ -54,6 +54,14 @@
 // pass k + 1, which every reader of pass k's values reached after reading
 // them. A first barrier lets every block start before any DSMEM store, a
 // last one keeps every block alive until no block reads its memory.
+// K3, B2's batched form (pass 1 of expv_batched's 1-D two-pass): the same
+// kernel over a grid of batch x C blocks in clusters of C, cluster c
+// recording row c of v0 (batch, n) into its (m, 2) slice of ab. The
+// clusters never wait on each other (every barrier and DSMEM access is
+// within a cluster), so the batch needs no co-residency across rows: the
+// card runs as many clusters at once as it holds and queues the rest.
+// Each row runs B2's arithmetic on the cluster's geometry, so its record
+// is bit for bit a B2 launch's on that row.
 #include <cooperative_groups.h>
 
 #include <cstddef>
@@ -146,6 +154,11 @@ resident_lanczos_cluster_kernel(const T* __restrict__ v0, const __grid_constant_
   const int t = threadIdx.x;
   const int rank = (int)cl.block_rank();
   const int C = L.cluster, k = K > 0 ? K : L.k;
+  {   // K3: cluster c of a batched launch records row c (c = 0: B2)
+    const long long c = blockIdx.x / C;
+    v0 += c * L.n;
+    ab += c * 2 * (long long)m;
+  }
   const int rows = (int)L.rows;
   const long long n = L.n, lo = (long long)rank * rows;
   const int len = (int)(n - lo < rows ? (n - lo > 0 ? n - lo : 0) : rows);
@@ -317,9 +330,10 @@ static cudaError_t prepare(size_t smem) {   // static: one flag per library
 }
 
 static cudaLaunchConfig_t cluster_config(const LanczosLaunch& L, size_t smem,
-                                         cudaStream_t stream, cudaLaunchAttribute* attr) {
+                                         cudaStream_t stream, cudaLaunchAttribute* attr,
+                                         int batch = 1) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(L.cluster);
+  cfg.gridDim = dim3(L.cluster * batch);
   cfg.blockDim = dim3(kClusterThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -359,12 +373,12 @@ int cluster_fits(const LanczosLaunch& L) {
 
 template <typename T, int R, int K>
 int launch_cluster(const LanczosLaunch& L, const T* v0, int m, T tol, T* ab,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, int batch) {
   const size_t smem = cluster_smem(L, sizeof(T));
   cudaError_t e = prepare<T, R, K>(smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = cluster_config(L, smem, stream, &attr);
+  cudaLaunchConfig_t cfg = cluster_config(L, smem, stream, &attr, batch);
   e = cudaLaunchKernelEx(&cfg, resident_lanczos_cluster_kernel<T, R, K>, v0, L, m, tol, ab);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -397,18 +411,21 @@ int fits_for(const LanczosLaunch& L) {
 }
 
 template <typename T, int K, int R = 1>
-int launch_r(const LanczosLaunch& L, const T* v0, int m, T tol, T* ab, cudaStream_t s) {
+int launch_r(const LanczosLaunch& L, const T* v0, int m, T tol, T* ab, cudaStream_t s,
+             int batch) {
   if ((long long)R * kClusterThreads >= L.rows)
-    return launch_cluster<T, R, K>(L, v0, m, tol, ab, s);
-  if constexpr (R < kMaxRowsPerThread<T>) return launch_r<T, K, 2 * R>(L, v0, m, tol, ab, s);
+    return launch_cluster<T, R, K>(L, v0, m, tol, ab, s, batch);
+  if constexpr (R < kMaxRowsPerThread<T>)
+    return launch_r<T, K, 2 * R>(L, v0, m, tol, ab, s, batch);
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
-int launch_for(const LanczosLaunch& L, const T* v0, int m, T tol, T* ab, cudaStream_t s) {
-  return L.k == 3   ? launch_r<T, 3>(L, v0, m, tol, ab, s)
-         : L.k == 5 ? launch_r<T, 5>(L, v0, m, tol, ab, s)
-                    : launch_r<T, 0>(L, v0, m, tol, ab, s);
+int launch_for(const LanczosLaunch& L, const T* v0, int m, T tol, T* ab, cudaStream_t s,
+               int batch = 1) {
+  return L.k == 3   ? launch_r<T, 3>(L, v0, m, tol, ab, s, batch)
+         : L.k == 5 ? launch_r<T, 5>(L, v0, m, tol, ab, s, batch)
+                    : launch_r<T, 0>(L, v0, m, tol, ab, s, batch);
 }
 
 }  // namespace eu
@@ -416,7 +433,8 @@ int launch_for(const LanczosLaunch& L, const T* v0, int m, T tol, T* ab, cudaStr
 // eu_lanczos_cluster_fits_*: clusters of the plan's shape the card holds at
 // once (0: the cluster form does not fit; negative: a CUDA error code).
 // eu_resident_lanczos_cluster_*: the (m, 2) record into ab; a CUDA error
-// code, 0 on success.
+// code, 0 on success. eu_resident_lanczos_cluster_batched_*: K3, one
+// cluster a row of v0 (batch, n), the records into ab (batch, m, 2).
 #define EU_CLUSTER_API(T, SUF)                                                        \
   extern "C" int eu_lanczos_cluster_fits_##SUF(const eu::LanczosLaunch* L) {          \
     if (!eu::valid(*L)) return -(int)cudaErrorInvalidValue;                           \
@@ -427,6 +445,14 @@ int launch_for(const LanczosLaunch& L, const T* v0, int m, T tol, T* ab, cudaStr
                                                    void* stream) {                    \
     if (!eu::valid(*L) || m < 0) return (int)cudaErrorInvalidValue;                   \
     return eu::launch_for<T>(*L, v0, m, tol, ab, (cudaStream_t)stream);               \
+  }                                                                                   \
+  extern "C" int eu_resident_lanczos_cluster_batched_##SUF(                           \
+      const eu::LanczosLaunch* L, const T* v0, int m, T tol, T* ab, int batch,        \
+      void* stream) {                                                                 \
+    if (!eu::valid(*L) || m < 0 || batch < 1 || (long long)batch * L->cluster >       \
+        0x7fffffffLL)                                                                 \
+      return (int)cudaErrorInvalidValue;                                              \
+    return eu::launch_for<T>(*L, v0, m, tol, ab, (cudaStream_t)stream, batch);        \
   }
 
 EU_CLUSTER_API(float, f32)

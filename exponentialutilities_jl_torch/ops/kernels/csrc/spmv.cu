@@ -34,6 +34,19 @@
 // 5 x 512), so staging would save no L2 traffic; the re-reads of the
 // near offsets hit L1.
 //
+// K1, B7's batched form (banded_spmm, the batched Krylov builders' product
+// of expv_batched): Y[b, i] = sum_k D[k, i] X[b, i + o_k] for each row of
+// X (batch, n). It replaces the same TPU kernel (JAX vmaps B7's callers,
+// models/expv.py _batched_build). Bound: HBM, with (k + 2 batch) n
+// sizeof(T) bytes for the block, against batch (k + 2) n for a B7 launch
+// a row: the point is that the diagonals cross HBM once for every row of
+// a block (up to kSpmmRows rows; more rows take more blocks along y). A
+// block keeps B7's geometry and interior/edge split (the same blo, bhi)
+// and holds kSpmmRows x V accumulators; each group of kSpmmGroup
+// diagonals' pieces is loaded once and applied to every row, so each
+// row's terms are B7's, in offset order, one FMA each: a row's bits are
+// a B7 launch's on that row.
+//
 // B8 replaces exponentialutilities_jl_tpu/ops/kernels/spmv.py
 //   _spmv_kernel  (blockell_spmv, spmv.py:42)
 //   y[r br + i] = sum_k sum_j blocks[r, k, i, j] x[bcols[r, k] bc + j]
@@ -144,6 +157,8 @@ __device__ __forceinline__ typename Piece16<T>::type load_scalars(const T* p) {
 }
 
 constexpr int kGroup = 8;       // B7: diagonals whose loads precede their FMAs
+constexpr int kSpmmRows = 16;   // K1: batch rows of a block (spmv.SPMM_ROWS)
+constexpr int kSpmmGroup = 4;   // K1: diagonals of a group (registers: 16 rows)
 
 // B7 (module note): block b owns rows [b R, b R + R), R = kThreads V, and
 // thread t of it rows i0 .. i0 + V - 1; the blocks in [blo, bhi) are
@@ -223,6 +238,95 @@ banded_spmv_kernel(const T* __restrict__ diags, Offsets1D offs,
 #pragma unroll
   for (int v = 0; v < V; ++v)
     if (i0 + v < n) y[i0 + v] = acc[v];
+}
+
+// K1, B7's batched form (module note): block (b, c) owns rows [b R, b R +
+// R) of the batch rows [c kSpmmRows, c kSpmmRows + kSpmmRows), thread t
+// rows i0 .. i0 + V - 1 of each. A group of diagonals' pieces is loaded
+// once and serves every batch row of the block, so the diagonals cross
+// HBM once for up to kSpmmRows rows; each row's sum is B7's, term for
+// term (the same loads, zeros and FMAs in offset order), so its bits are
+// a B7 launch's on that row.
+template <typename T, bool ALIGNED>
+__global__ void __launch_bounds__(kThreads)
+banded_spmm_kernel(const T* __restrict__ diags, Offsets1D offs,
+                   const T* __restrict__ X, long long n, long long blo,
+                   long long bhi, int batch, T* __restrict__ Y) {
+  using P = Piece16<T>;
+  using VT = typename P::type;
+  constexpr int V = 16 / sizeof(T);
+  __shared__ int o_sh[kMaxPoints];
+  const int k = offs.k;
+  for (int j = threadIdx.x; j < k; j += kThreads) o_sh[j] = offs.o[j];
+  __syncthreads();
+  const long long b = blockIdx.x;
+  const int r0 = blockIdx.y * kSpmmRows;
+  const int nr = batch - r0 < kSpmmRows ? batch - r0 : kSpmmRows;
+  const long long i0 = (b * kThreads + threadIdx.x) * V;
+  if (i0 >= n) return;
+  X += (long long)r0 * n;
+  Y += (long long)r0 * n;
+  const bool interior = b >= blo && b < bhi;   // uniform in the block
+  T acc[kSpmmRows][V];
+#pragma unroll
+  for (int r = 0; r < kSpmmRows; ++r)
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[r][v] = T(0);
+  for (int j0 = 0; j0 < k; j0 += kSpmmGroup) {
+    T d[kSpmmGroup][V];
+#pragma unroll
+    for (int g = 0; g < kSpmmGroup; ++g) {
+      if (j0 + g < k) {
+        const T* dp = diags + (long long)(j0 + g) * n;
+        if (interior) {
+          if constexpr (ALIGNED) P::split(__ldcs(reinterpret_cast<const VT*>(dp + i0)), d[g]);
+          else P::split(load_scalars<T, true>(dp + i0), d[g]);
+        } else {
+#pragma unroll
+          for (int v = 0; v < V; ++v) d[g][v] = i0 + v < n ? __ldcs(dp + i0 + v) : T(0);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kSpmmRows; ++r) {
+      if (r < nr) {
+        const T* xr = X + (long long)r * n;
+        T xv[kSpmmGroup][V];
+#pragma unroll
+        for (int g = 0; g < kSpmmGroup; ++g) {
+          if (j0 + g < k) {
+            const long long o = o_sh[j0 + g];
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+              const long long i = i0 + v, q = i + o;
+              xv[g][v] = interior ? __ldg(xr + q)
+                                  : ((i < n && q >= 0 && q < n) ? __ldg(xr + q) : T(0));
+            }
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < kSpmmGroup; ++g) {
+          if (j0 + g < k) {
+#pragma unroll
+            for (int v = 0; v < V; ++v) acc[r][v] = P::fma1(d[g][v], xv[g][v], acc[r][v]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kSpmmRows; ++r) {
+    if (r < nr) {
+      T* yr = Y + (long long)r * n;
+      if (ALIGNED && interior) {
+        *reinterpret_cast<VT*>(yr + i0) = P::join(acc[r]);
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          if (i0 + v < n) yr[i0 + v] = acc[r][v];
+      }
+    }
+  }
 }
 
 // B8 for (BR, BC) blocks whose rows hold whole 16-byte pieces (module note)
@@ -331,6 +435,38 @@ int launch_banded_spmv(const BandedLaunch* p, const T* x, T* y,
   return (int)cudaGetLastError();
 }
 
+// K1: B7's checks, then a (row blocks, batch / kSpmmRows) grid.
+template <typename T>
+int launch_banded_spmm(const BandedLaunch* p, const T* X, T* Y, int batch,
+                       cudaStream_t stream) {
+  constexpr long long R = (long long)kThreads * (16 / sizeof(T));
+  const long long n = p->n, blo = p->blo, bhi = p->bhi;
+  const Offsets1D& o = p->offs;
+  if (n < 1 || o.k < 1 || o.k > kMaxPoints || blo < 0 || bhi < blo || batch < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long grid = (n + R - 1) / R;
+  const long long chunks = (batch + kSpmmRows - 1) / kSpmmRows;
+  if (grid > 0x7fffffffLL || chunks > 65535) return (int)cudaErrorInvalidValue;
+  if (bhi > blo) {
+    int lo = o.o[0], hi = o.o[0];
+    for (int j = 1; j < o.k; ++j) {
+      lo = lo < o.o[j] ? lo : o.o[j];
+      hi = hi > o.o[j] ? hi : o.o[j];
+    }
+    if (blo * R + lo < 0 || bhi * R + (hi > 0 ? hi : 0) > n)
+      return (int)cudaErrorInvalidValue;
+  }
+  const T* diags = static_cast<const T*>(p->diags);
+  const dim3 g((unsigned)grid, (unsigned)chunks);
+  if (aligned16(diags) && aligned16(Y) && n % (16 / sizeof(T)) == 0)
+    banded_spmm_kernel<T, true><<<g, kThreads, 0, stream>>>(diags, o, X, n, blo, bhi,
+                                                            batch, Y);
+  else
+    banded_spmm_kernel<T, false><<<g, kThreads, 0, stream>>>(diags, o, X, n, blo, bhi,
+                                                             batch, Y);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_blockell_spmv(const T* blocks, const int* bcols, const T* x,
                          long long nbr, int w, int br, int bc, T* y,
@@ -363,6 +499,10 @@ int launch_blockell_spmv(const T* blocks, const int* bcols, const T* x,
   extern "C" int eu_banded_spmv_##SUF(const eu::BandedLaunch* p, const T* x, T* y,  \
                                       void* stream) {                                \
     return eu::launch_banded_spmv<T>(p, x, y, (cudaStream_t)stream);                 \
+  }                                                                                  \
+  extern "C" int eu_banded_spmm_##SUF(const eu::BandedLaunch* p, const T* X, T* Y,  \
+                                      int batch, void* stream) {                     \
+    return eu::launch_banded_spmm<T>(p, X, Y, batch, (cudaStream_t)stream);          \
   }                                                                                  \
   extern "C" int eu_blockell_spmv_##SUF(const T* blocks, const int* bcols,           \
                                         const T* x, long long nbr, int w, int br,    \

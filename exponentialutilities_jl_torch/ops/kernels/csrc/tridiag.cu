@@ -71,6 +71,13 @@
 // scratch buffer that the wrapper allocates. t, s and the diagonals are
 // read from device memory, so a launch captured into a CUDA graph reads
 // the values of each replay.
+// K2, the batched form (tridiag_exp_e1_batched, expv_batched's reduced
+// exponentials): a grid of one block per row, each running the body above
+// unchanged on its own row (its own leading unreduced block, its own
+// workspace: shared memory up to m = 302, else its slice of a global
+// scratch of batch x work_bytes(m)), so each row's bits are R1's on that
+// row; the rows share t. It replaces XLA's batched eigh under JAX's vmap
+// of _exp_reduced_e1 and _lanczos_reduced_coeffs.
 // Bound: about 25 K^2 operations a node for one evaluation of each
 // secular function, the recomputed z, the rows and the way down, O(n^2)
 // work spread over ceil(log2 n) levels, against the ~n^2 dependent
@@ -526,8 +533,19 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
                        const T* __restrict__ beta, const T* __restrict__ tp,
                        int t_complex, const T* __restrict__ sp,
                        T* __restrict__ out, double* scratch, int m,
-                       int max_iter, int G, long long* clocks) {
+                       int max_iter, int G, long long* clocks,
+                       long long scratch_stride) {
   extern __shared__ double smem[];
+  // K2 (the batched form): block r runs R1 on row r of (alpha, beta, s,
+  // out) and of the global scratch; a launch of one block is R1
+  {
+    const long long r = blockIdx.x;
+    alpha += r * m;
+    beta += r * (m > 0 ? m - 1 : 0);
+    if (sp) sp += r;
+    out += r * m * (t_complex ? 2 : 1);
+    if (scratch) scratch += r * scratch_stride;
+  }
   __shared__ int s_n, s_bad;
   __shared__ unsigned long long s_max;
   const int nt = blockDim.x, tid = threadIdx.x;
@@ -857,12 +875,15 @@ template <typename T>
 cudaError_t launch(const T* alpha, const T* beta, const T* t, int t_complex,
                    const T* s, T* out, double* scratch, int m, int threads,
                    long long bytes, int max_iter, int group,
-                   long long* clocks, cudaStream_t stream) {
+                   long long* clocks, int batch, cudaStream_t stream) {
   static long long allowed = 48 * 1024;  // one flag per instantiation
-  if (m <= 0) return cudaSuccess;
+  if (m <= 0 || batch == 0) return cudaSuccess;
   if (threads < 32 || threads > kMaxThreads || threads % 32 || group < 1 ||
-      group > 32 || (group & (group - 1)) || bytes < (long long)work_bytes(m))
+      group > 32 || (group & (group - 1)) || bytes < (long long)work_bytes(m) ||
+      batch < 0 || (batch > 1 && clocks))
     return cudaErrorInvalidValue;
+  // a row's slice of the global scratch, in doubles
+  const long long stride = (bytes + 7) / 8;
   // the workspace: ``bytes`` of the global scratch, else of shared memory
   const long long smem = scratch ? 0 : bytes;
   if (!scratch) {
@@ -873,13 +894,13 @@ cudaError_t launch(const T* alpha, const T* beta, const T* t, int t_complex,
       if (e != cudaSuccess) return e;
       allowed = smem;
     }
-    tridiag_exp_kernel<T, true><<<1, threads, (size_t)smem, stream>>>(
+    tridiag_exp_kernel<T, true><<<batch, threads, (size_t)smem, stream>>>(
         alpha, beta, t, t_complex, s, out, scratch, m, max_iter, group,
-        clocks);
+        clocks, stride);
   } else {
-    tridiag_exp_kernel<T, false><<<1, threads, 0, stream>>>(
+    tridiag_exp_kernel<T, false><<<batch, threads, 0, stream>>>(
         alpha, beta, t, t_complex, s, out, scratch, m, max_iter, group,
-        clocks);
+        clocks, stride);
   }
   return cudaGetLastError();
 }
@@ -893,7 +914,7 @@ extern "C" int eu_tridiag_exp_f32(const float* alpha, const float* beta,
                                   int max_iter, int group, long long* clocks,
                                   void* stream) {
   return (int)launch<float>(alpha, beta, t, t_complex, s, out, scratch, m,
-                            threads, bytes, max_iter, group, clocks,
+                            threads, bytes, max_iter, group, clocks, 1,
                             (cudaStream_t)stream);
 }
 
@@ -904,6 +925,32 @@ extern "C" int eu_tridiag_exp_f64(const double* alpha, const double* beta,
                                   long long bytes, int max_iter, int group,
                                   long long* clocks, void* stream) {
   return (int)launch<double>(alpha, beta, t, t_complex, s, out, scratch, m,
-                             threads, bytes, max_iter, group, clocks,
+                             threads, bytes, max_iter, group, clocks, 1,
+                             (cudaStream_t)stream);
+}
+
+// K2: R1 on each of ``batch`` rows, one block a row: alpha (batch, m),
+// beta (batch, m - 1), s (batch,) or null, out (batch, m) (complex:
+// (batch, m) pairs), t shared; the global scratch (when given) holds
+// ``batch`` slices of ``bytes``, rounded up to doubles.
+extern "C" int eu_tridiag_exp_batched_f32(const float* alpha, const float* beta,
+                                          const float* t, int t_complex,
+                                          const float* s, float* out,
+                                          double* scratch, int m, int threads,
+                                          long long bytes, int max_iter,
+                                          int group, int batch, void* stream) {
+  return (int)launch<float>(alpha, beta, t, t_complex, s, out, scratch, m,
+                            threads, bytes, max_iter, group, nullptr, batch,
+                            (cudaStream_t)stream);
+}
+
+extern "C" int eu_tridiag_exp_batched_f64(const double* alpha, const double* beta,
+                                          const double* t, int t_complex,
+                                          const double* s, double* out,
+                                          double* scratch, int m, int threads,
+                                          long long bytes, int max_iter,
+                                          int group, int batch, void* stream) {
+  return (int)launch<double>(alpha, beta, t, t_complex, s, out, scratch, m,
+                             threads, bytes, max_iter, group, nullptr, batch,
                              (cudaStream_t)stream);
 }

@@ -19,6 +19,15 @@ and cooperative, except B2's cluster form):
   B5), its sum of w^2 taken by the last block of the launch, where a
   block's state fits on chip; the grid-barrier kernel of
   ``csrc/resident.cu`` otherwise.
+* K3 and K4, the batched forms of B2 and B1 (``expv_batched``'s 1-D
+  two-pass, ``expv_two_pass_resident`` on a (batch, n) b): B2's cluster
+  form with one cluster a row (``LanczosPlan.batched``, a launch for the
+  batch; above the cluster gate each row takes B2's grid form, counted
+  as B2 launches, as a scalar call would), and B1's neighbour form over
+  the rows at once (``RecurrenceBatchPlan``: the SMs split among the rows
+  of a launch, which must all be resident, the batch in groups of the
+  rows a launch holds, each group one launch). Their twins are
+  ``resident_lanczos_batched_ref`` and ``resident_recurrence_batched_ref``.
 * B2 ``lanczos_coeffs_resident``: Lanczos pass 1 with alpha and beta
   reduced inside the kernel each step (deterministic fixed-order
   reductions), breakdown masking the remaining steps. Two forms, chosen
@@ -71,6 +80,7 @@ import torch
 
 from ..sparse import BandedOperator
 from ..stencil import StencilOperator, stencil_apply
+from ..krylov import _col
 from . import _build
 from .dispatch import refuse_grad
 from .spmv import banded_spmv_ref
@@ -89,7 +99,9 @@ __all__ = ["recurrence_apply_resident", "resident_recurrence",
            "banded_plan", "nbr_geometry", "nbr_smem", "CLUSTER_SIZES",
            "CLUSTER_MAX_ROWS", "GridRecurrencePlan", "grid_plan", "GridTiles",
            "grid_tiles", "grid_smem", "grid_dirs", "grid_halo_lines",
-           "GRID_MAX_ROWS", "GRID_MAX_HALO"]
+           "GRID_MAX_ROWS", "GRID_MAX_HALO", "resident_lanczos_batched_ref",
+           "resident_recurrence_batched_ref", "RecurrenceBatchPlan",
+           "recurrence_batch_plan"]
 
 # The gates of B4 (dispatch.resident_multi_ok) and B6
 # (resident_grid_supported): their state (3 recurrence vectors plus the
@@ -198,6 +210,45 @@ def resident_lanczos_ref(v0, cvals, offsets, m: int, tol: float):
         ab[k, 1] = torch.where(ok, beta, 0.0)
         inv = torch.where(ok, 1.0 / torch.where(beta > 0, beta, 1.0), 0.0)
         vp, vc = vc, y * inv
+        beta_prev = torch.where(ok, beta, 0.0)
+        alive = ok
+    return ab
+
+
+def resident_recurrence_batched_ref(X, rows, cvals, offsets, scale):
+    """Plain twin of K4: (W, sum w^2 per row) for each row of X (batch, n)
+    with its own rows (batch, m, 4) and scale (batch,), the arithmetic of
+    ``resident_recurrence_ref`` on that row."""
+    wc = _col(scale) * X
+    wp = torch.zeros_like(X)
+    w = torch.zeros_like(X)
+    for k in range(rows.shape[1]):
+        ca, cb, cc, cw = (_col(c) for c in rows[:, k].unbind(-1))
+        w = w + cw * wc
+        z = _stencil(wc, offsets, cvals)
+        wp, wc = wc, ca * z + cb * wc + cc * wp
+    return w, (w * w).sum(-1)
+
+
+def resident_lanczos_batched_ref(V0, cvals, offsets, m: int, tol: float):
+    """Plain twin of K3: each row's (m, 2) record from the normalized rows
+    of V0 (batch, n), (batch, m, 2), as ``resident_lanczos_ref`` on it."""
+    nb = V0.shape[0]
+    vp = torch.zeros_like(V0)
+    vc = V0
+    beta_prev = torch.zeros(nb, dtype=V0.dtype, device=V0.device)
+    alive = torch.ones(nb, dtype=torch.bool, device=V0.device)
+    ab = torch.zeros((nb, m, 2), dtype=V0.dtype, device=V0.device)
+    for k in range(m):
+        z = _stencil(vc, offsets, cvals)
+        alpha = (vc * z).sum(-1)
+        y = (z - _col(alpha) * vc) - _col(beta_prev) * vp
+        beta = torch.sqrt(torch.clamp_min((y * y).sum(-1), 0.0))
+        ok = alive & (beta >= tol)
+        ab[:, k, 0] = torch.where(alive, alpha, 0.0)
+        ab[:, k, 1] = torch.where(ok, beta, 0.0)
+        inv = torch.where(ok, 1.0 / torch.where(beta > 0, beta, 1.0), 0.0)
+        vp, vc = vc, y * _col(inv)
         beta_prev = torch.where(ok, beta, 0.0)
         alive = ok
     return ab
@@ -367,6 +418,8 @@ class LanczosPlan:
             self.cluster, rows = shape
             self.launch.cluster, self.launch.rows = shape
             self.fn = getattr(lib, f"eu_resident_lanczos_cluster_{suf}")
+            self.bfn = getattr(lib,
+                               f"eu_resident_lanczos_cluster_batched_{suf}")
             return
         self.form, self.cluster = "grid", 0
         with _on(self.device):
@@ -411,6 +464,31 @@ class LanczosPlan:
         _build.launches["resident_lanczos"] += 1
         return ab
 
+    def batched(self, V0, m: int, tol: float):
+        """The (batch, m, 2) records of the normalized rows of V0 (batch,
+        n): the cluster form as K3, one launch and one cluster a row; the
+        grid form one B2 launch a row (module doc)."""
+        if (V0.dtype != self.dtype or V0.device != self.device
+                or V0.dim() != 2 or V0.shape[1:] != self.shape):
+            raise ValueError(f"resident_lanczos: expected a (batch,) + "
+                             f"{self.shape} {self.dtype} block on "
+                             f"{self.device}, got {tuple(V0.shape)} "
+                             f"{V0.dtype} on {V0.device}")
+        if self.form != "cluster":
+            return torch.stack([self(v, m, tol) for v in V0.unbind(0)])
+        V0 = V0.contiguous()
+        m, nb = int(m), V0.shape[0]
+        ab = torch.empty((nb, m, 2), dtype=self.dtype, device=self.device)
+        if nb == 0:
+            return ab
+        code = self.bfn(self.addr, V0.data_ptr(), m, float(tol),
+                        ab.data_ptr(), nb, _build.raw_stream(self.device))
+        if code:
+            _build.check(code, "batched resident Lanczos kernel (K3, "
+                         "cluster form)")
+        _build.launches["resident_lanczos_batched"] += 1
+        return ab
+
 
 def nbr_geometry(n: int, sms: int):
     """(grid, chunk) of the neighbour form: at most one block per SM and
@@ -453,6 +531,7 @@ class _NbrForm:
         self.coef = coef
         with _on(self.device):
             sms = _checked(self.lib.eu_device_sms(), "SM count query")
+        self.sms = sms
         self.grid, self.chunk = nbr_geometry(n, sms)
         self.o = _offsets_field(offsets)
         self.kd = 0
@@ -463,16 +542,17 @@ class _NbrForm:
         """Bytes of shared memory a neighbour-form block needs."""
         return nbr_smem(self.chunk, self.h, p, kd, self.itemsize, self.spans)
 
-    def _fits(self, p: int = 1, kd: int = 0) -> bool:
+    def _fits(self, p: int = 1, kd: int = 0, copies: int = 1) -> bool:
         """The neighbour form takes p columns and kd kept diagonals: max|o|
-        within a block's rows, and the card holds the whole grid with that
-        much shared memory a block (its answer)."""
+        within a block's rows, and the card holds the whole grid (``copies``
+        grids, K4's rows of a launch) with that much shared memory a block
+        (its answer)."""
         if self.h > self.chunk:
             return False
         with _on(self.device):
             cap = _checked(getattr(self.lib, f"eu_nbr_capacity_{self.suf}")(
                 self.kind, self.smem(p, kd)), "neighbour-form occupancy query")
-        return cap >= self.grid
+        return cap >= self.grid * copies
 
     def _nbr_launch(self, stream, reduce: bool = False) -> int:
         """The address of the neighbour form's descriptor for ``stream``,
@@ -667,6 +747,92 @@ class RecurrencePlan(_NbrForm):
         _build.launches["resident_recurrence"] += 1
         self.nbr_launches += self.form == "neighbour"
         return w, nrm2
+
+
+class RecurrenceBatchPlan(_NbrForm):
+    """What every K4 launch on one 1-D constant stencil, for blocks of
+    ``batch`` rows of one dtype on one CUDA device, shares: B1's checks
+    and coefficients, and the batched neighbour form's geometry, chosen
+    once: the most rows a launch R (at most ``batch``) for which
+    ``nbr_geometry`` over the SMs / R gives a grid whose R copies the card
+    holds at once with max|o| within a block's rows (its answer), the
+    batch then in ceil(batch / R) launches (``launches_per_call``). Where
+    no R fits, ``form`` is "rows": each row takes the operator's B1 plan
+    (``recurrence_plan``), as a scalar call would. Per stream: flags and
+    halos for R x grid blocks, R x grid partials and R tickets. A call
+    compares its operands, makes W and the sums with ``torch.empty`` and
+    makes one ctypes call a group."""
+
+    def __init__(self, op, dtype, device, batch: int):
+        self.device = _plan_device(device)
+        _plan_checks("resident_recurrence (batched)", op, dtype, self.device)
+        self.dtype, self.n, self.batch = dtype, op.shape[0], int(batch)
+        self.shape = (self.batch, self.n)
+        offsets = _flat_offsets(op)
+        self.cvals = op.coeffs.to(dtype).contiguous()
+        self._nbr_init(self.n, offsets, self.cvals)
+        self.rows_per_launch = 0
+        for r in range(min(self.batch, self.sms), 0, -1):
+            self.grid, self.chunk = nbr_geometry(self.n, self.sms // r)
+            if self._fits(copies=r):
+                self.rows_per_launch = r
+                break
+        if not self.rows_per_launch:
+            self.form, self.launches_per_call = "rows", self.batch
+            self.row_plan = recurrence_plan(op, dtype, self.device)
+            return
+        self.form = "neighbour"
+        self.launches_per_call = -(-self.batch // self.rows_per_launch)
+        self.fn = getattr(self.lib,
+                          f"eu_resident_recurrence_nbr_batched_{self.suf}")
+
+    def _batch_launch(self, stream) -> int:
+        """The descriptor's address for ``stream`` (``_nbr_launch``'s, with
+        buffers for the R rows of a launch: block q's flag at ``flags[q
+        NBR_FLAG_STRIDE]``, then one ticket a row)."""
+        hit = self.nbr.get(stream)
+        if hit is None:
+            q = self.rows_per_launch * self.grid
+            flags = torch.zeros(q * NBR_FLAG_STRIDE + self.rows_per_launch,
+                                dtype=torch.int64, device=self.device)
+            halo = torch.empty(max(1, 4 * q * self.h), dtype=self.dtype,
+                               device=self.device)
+            partials = torch.empty(q, dtype=self.dtype, device=self.device)
+            launch = _NbrLaunch(
+                self.coef.data_ptr(), flags.data_ptr(), halo.data_ptr(),
+                partials.data_ptr(), flags[q * NBR_FLAG_STRIDE:].data_ptr(),
+                self.n, self.grid, self.chunk, self.h, self.k, 0, self.o)
+            hit = self.nbr[stream] = (ctypes.addressof(launch), launch, flags,
+                                      halo, partials)
+        return hit[0]
+
+    def __call__(self, X, rows, scale):
+        m = rows.shape[1]
+        self._operands("resident_recurrence (batched)",
+                       (("block", X, self.shape),
+                        ("rows", rows, (self.batch, m, 4)),
+                        ("scale", scale, (self.batch,))))
+        if self.form == "rows":
+            out = [self.row_plan(x, r, s) for x, r, s in
+                   zip(X.unbind(0), rows.unbind(0), scale.unbind(0))]
+            return (torch.stack([w for w, _ in out]),
+                    torch.stack([s for _, s in out]))
+        X, rows, scale = X.contiguous(), rows.contiguous(), scale.contiguous()
+        W = torch.empty_like(X)
+        nrm2 = torch.empty(self.batch, dtype=self.dtype, device=self.device)
+        stream = _build.raw_stream(self.device)
+        addr = self._batch_launch(stream)
+        for r0 in range(0, self.batch, self.rows_per_launch):
+            nr = min(self.rows_per_launch, self.batch - r0)
+            code = self.fn(addr, X[r0].data_ptr(), scale[r0:].data_ptr(),
+                           rows[r0].data_ptr(), m, W[r0].data_ptr(),
+                           nrm2[r0:].data_ptr(), nr, stream)
+            if code:
+                _build.check(code, "batched resident recurrence kernel (K4, "
+                             "neighbour form)")
+            _build.launches["resident_recurrence_batched"] += 1
+            self.nbr_launches += 1
+        return W, nrm2
 
 
 class BandedRecurrencePlan(_NbrForm):
@@ -946,22 +1112,22 @@ class GridRecurrencePlan:
         return w
 
 
-def _op_plan(op, cls, dtype, device):
-    """``cls``'s plan for ``op``, kept per (dtype, device) with the
-    coefficients (a ``BandedOperator``'s diagonals, in their ``_promoted``
-    form) and offsets it was built from, rebuilt when either is reassigned
-    or the cast copy is made anew."""
+def _op_plan(op, cls, dtype, device, *extra):
+    """``cls``'s plan for ``op``, kept per (dtype, device, ``extra``) with
+    the coefficients (a ``BandedOperator``'s diagonals, in their
+    ``_promoted`` form) and offsets it was built from, rebuilt when either
+    is reassigned or the cast copy is made anew."""
     from ..sparse import _promoted
 
     device = _plan_device(device)
     plans = op.__dict__.setdefault("_resident_plans", {})
-    hit = plans.get((cls, dtype, device))
+    key = (cls, dtype, device) + extra
+    hit = plans.get(key)
     source = getattr(cls, "source", "coeffs")
     src = (_promoted(op, source, dtype) if source == "diags"
            else getattr(op, source))
     if hit is None or hit[0] is not src or hit[1] != op.offsets:
-        hit = plans[(cls, dtype, device)] = (src, op.offsets,
-                                             cls(op, dtype, device))
+        hit = plans[key] = (src, op.offsets, cls(op, dtype, device, *extra))
     return hit[2]
 
 
@@ -980,6 +1146,13 @@ def recurrence_plan(op, dtype, device) -> RecurrencePlan:
     return _op_plan(op, RecurrencePlan, dtype, device)
 
 
+def recurrence_batch_plan(op, dtype, device, batch: int
+                          ) -> RecurrenceBatchPlan:
+    """K4's plan for ``op`` and blocks of ``batch`` rows of ``dtype`` on
+    CUDA ``device``."""
+    return _op_plan(op, RecurrenceBatchPlan, dtype, device, int(batch))
+
+
 def banded_plan(op, dtype, device) -> BandedRecurrencePlan:
     """B5's plan for the ``BandedOperator`` ``op`` and vectors of ``dtype``
     on CUDA ``device``."""
@@ -995,9 +1168,12 @@ def grid_plan(op, dtype, device) -> GridRecurrencePlan:
 # ------------------------------------------------------------ wrappers --
 
 def _as_rows(rows, x):
+    """(m, 4) rows for a vector x, (batch, m, 4) for a (batch, n) x."""
     rows = torch.as_tensor(rows, dtype=x.dtype, device=x.device)
-    if rows.ndim != 2 or rows.shape[1] != 4:
-        raise ValueError(f"rows must be (m, 4), got {tuple(rows.shape)}")
+    if rows.ndim != x.ndim + 1 or rows.shape[-1] != 4 or (
+            x.ndim == 2 and rows.shape[0] != x.shape[0]):
+        raise ValueError(f"rows must be (m, 4) (a (batch, m, 4) stack for "
+                         f"a (batch, n) x), got {tuple(rows.shape)}")
     return rows
 
 
@@ -1010,12 +1186,23 @@ def resident_recurrence(op, x, rows, scale=1.0):
     """(w, sum w^2) of the module-doc recurrence for a 1-D constant
     ``StencilOperator``: kernel B1 on CUDA (through the operator's
     ``recurrence_plan``), its twin on CPU. ``rows`` is (m, 4) and
-    ``scale`` a number or a one-element tensor, both on x's device."""
+    ``scale`` a number or a one-element tensor, both on x's device. A
+    (batch, n) x takes K4 (``recurrence_batch_plan``) with rows (batch,
+    m, 4) and scale a (batch,) tensor, and returns (W, sums (batch,))."""
     if not resident_supported(op):
         raise ValueError("resident_recurrence requires a 1-D real constant "
                          f"StencilOperator (got {type(op).__name__})")
     _require_device(x, "resident_recurrence")
     rows = _as_rows(rows, x)
+    if x.ndim == 2:
+        scale = torch.as_tensor(scale, dtype=x.dtype, device=x.device)
+        if x.device.type == "cuda":
+            refuse_grad("resident_recurrence (K4)", op, x, rows, scale)
+            return recurrence_batch_plan(op, x.dtype, x.device, x.shape[0])(
+                x, rows, scale.expand(x.shape[0]))
+        return resident_recurrence_batched_ref(
+            x, rows, op.coeffs.to(x.dtype), _flat_offsets(op),
+            scale.expand(x.shape[0]))
     if x.device.type == "cuda":
         refuse_grad("resident_recurrence (B1)", op, x, rows, scale)
         return recurrence_plan(op, x.dtype, x.device)(x, rows, scale)
@@ -1092,31 +1279,37 @@ def recurrence_apply_resident_grid(op, b, rows):
 def resident_lanczos(op, v0, m: int, tol: float):
     """The (m, 2) (alpha, beta) record of Lanczos pass 1 from the
     normalized v0: kernel B2 on CUDA (through the operator's
-    ``lanczos_plan``), its twin on CPU."""
+    ``lanczos_plan``), its twin on CPU. A (batch, n) v0: each row's,
+    (batch, m, 2), by K3 (``LanczosPlan.batched``)."""
     if not resident_supported(op):
         raise ValueError("resident_lanczos requires a 1-D real constant "
                          f"StencilOperator (got {type(op).__name__})")
     _require_device(v0, "resident_lanczos")
     if v0.device.type == "cpu":
-        return resident_lanczos_ref(v0, op.coeffs.to(v0.dtype),
-                                    _flat_offsets(op), int(m), float(tol))
+        ref = (resident_lanczos_ref if v0.ndim == 1
+               else resident_lanczos_batched_ref)
+        return ref(v0, op.coeffs.to(v0.dtype), _flat_offsets(op), int(m),
+                   float(tol))
     refuse_grad("resident_lanczos (B2)", op, v0)
-    return lanczos_plan(op, v0.dtype, v0.device)(v0, m, tol)
+    plan = lanczos_plan(op, v0.dtype, v0.device)
+    return plan(v0, m, tol) if v0.ndim == 1 else plan.batched(v0, m, tol)
 
 
 def lanczos_coeffs_resident(op, b, m: int, *, tol: float = 1e-7):
     """(alphas, betas, beta0, m_used, broke): drop-in twin of
     ``ops.krylov.lanczos_coeffs`` for 1-D constant stencils, the whole
-    pass in one launch of kernel B2 on CUDA."""
-    beta0 = torch.linalg.vector_norm(b)
-    v0 = torch.where(beta0 > 0, b / torch.where(beta0 > 0, beta0, 1.0), 0.0)
+    pass in one launch of kernel B2 on CUDA (K3 for a (batch, n) b, each
+    row's)."""
+    beta0 = torch.linalg.vector_norm(b, dim=-1 if b.ndim > 1 else None)
+    v0 = torch.where(_col(beta0) > 0,
+                     b / _col(torch.where(beta0 > 0, beta0, 1.0)), 0.0)
     ab = resident_lanczos(op, v0, m, tol)
-    alphas, betas = ab[:, 0], ab[:, 1]
+    alphas, betas = ab[..., 0], ab[..., 1]
     # alpha_k is recorded through the first sub-tol beta (inclusive):
     # m_used = index of the first zero beta + 1, or m when none broke
     zero = betas == 0
-    any0 = zero.any()
-    first0 = torch.argmax(zero.to(torch.int32)).to(torch.int32)
+    any0 = zero.any(-1)
+    first0 = torch.argmax(zero.to(torch.int32), -1).to(torch.int32)
     m_used = torch.where(any0, first0 + 1, m)
     m_used = torch.where(beta0 > 0, m_used, 0).to(torch.int32)
     broke = any0 | (beta0 == 0)
@@ -1129,11 +1322,12 @@ def _replay_rows(alphas, betas, cw):
     accumulation weights ``cw`` (cc_0 multiplies omega_{-1} = 0)."""
     live = betas > 0
     safe = torch.where(live, betas, 1.0)
-    bprev = torch.cat([torch.zeros_like(betas[:1]), betas[:-1]])
+    bprev = torch.cat([torch.zeros_like(betas[..., :1]), betas[..., :-1]],
+                      -1)
     ca = torch.where(live, 1.0 / safe, 0.0)
     cb = -alphas * ca
     cc = torch.where(live, -bprev / safe, 0.0)
-    return torch.stack([ca, cb, cc, cw], dim=1)
+    return torch.stack([ca, cb, cc, cw], dim=-1)
 
 
 def _inv_or_zero(beta0):
@@ -1147,7 +1341,8 @@ def expv_two_pass_resident(op, b, t, m: int, *, tol: float = 1e-7,
     pass 1 = ``lanczos_coeffs_resident`` (B2), the m x m reduced
     tridiagonal exponential (kernel R1, ``ops/kernels/tridiag.py``, with
     no host read; host scipy with ``reduced="host"``), pass 2 = the B1
-    recurrence with the replay rows of the record."""
+    recurrence with the replay rows of the record. A (batch, n) b: each
+    row's, by K3, K2 (one R1 launch for the batch) and K4."""
     from ...models.expv import _lanczos_reduced_coeffs
 
     alphas, betas, beta0, m_used, broke = lanczos_coeffs_resident(
@@ -1155,7 +1350,7 @@ def expv_two_pass_resident(op, b, t, m: int, *, tol: float = 1e-7,
     coeffs = _lanczos_reduced_coeffs(alphas, betas, beta0, t, reduced)
     rows = _replay_rows(alphas, betas, coeffs.to(b.dtype))
     w = recurrence_apply_resident(op, b, rows, scale=_inv_or_zero(beta0))
-    return torch.where(beta0 > 0, w, 0.0)
+    return torch.where(_col(beta0) > 0, w, 0.0)
 
 
 def phiv_two_pass_resident(op, b, t, m: int, k: int, *, tol: float = 1e-7,

@@ -3,7 +3,10 @@
 
 * B7 ``banded_spmv(diags, offsets, x)``: diagonal storage,
   y_i = sum_k D[k, i] x[i + o_k] with x read as zero outside the vector
-  (``BandedOperator``).
+  (``BandedOperator``); its batched form K1 ``banded_spmm(diags,
+  offsets, X)`` takes each row of X (batch, n) in one launch that reads
+  the diagonals once for every row (``BandedOperator.matmat``, the
+  batched Krylov builders' product).
 * B8 ``blockell_spmv(blocks, bcols, x)``: blocked ELL,
   y[r br + i] = sum_k sum_j blocks[r, k, i, j] x[bcols[r, k] bc + j]
   (``BlockELLOperator``).
@@ -32,24 +35,37 @@ import torch.nn.functional as F
 from ...utils.precision import full_precision
 from . import _build
 
-__all__ = ["banded_spmv", "banded_spmv_ref", "BandedPlan", "banded_interior",
+__all__ = ["banded_spmv", "banded_spmv_ref", "banded_spmm", "banded_spmm_ref",
+           "BandedPlan", "banded_interior", "SPMM_ROWS",
            "blockell_spmv", "blockell_spmv_ref", "ROW_THREADS"]
 
 ROW_THREADS = 256       # threads of a B7 block: eu::kThreads in csrc/common.cuh
+SPMM_ROWS = 16          # K1: batch rows a block carries (eu::kSpmmRows)
 
 
 def banded_spmv_ref(diags, offsets, x):
     """Plain twin of B7: shifted slices of x zero-padded by the widest
-    offset (out-of-range reads see the pad zeros)."""
-    n = x.shape[0]
+    offset (out-of-range reads see the pad zeros). x may carry leading
+    batch axes (each row of a (batch, n) x, ``banded_spmm_ref``)."""
+    n = x.shape[-1]
     h = max((abs(o) for o in offsets), default=0)
     rt = torch.promote_types(diags.dtype, x.dtype)
     xe = F.pad(x.to(rt), (h, h))
     D = diags.to(rt)
-    y = torch.zeros(n, dtype=rt, device=x.device)
+    y = torch.zeros(x.shape, dtype=rt, device=x.device)
     for k, o in enumerate(offsets):
-        y = y + D[k] * xe[h + o:h + o + n]
+        y = y + D[k] * xe[..., h + o:h + o + n]
     return y
+
+
+def banded_spmm_ref(diags, offsets, X):
+    """Plain twin of K1 (``banded_spmm``): B7's twin on each row of X
+    (batch, n), Y[b, i] = sum_k D[k, i] X[b, i + o_k], the same per-element
+    arithmetic as a row's ``banded_spmv_ref``."""
+    if X.dim() != 2:
+        raise ValueError(f"banded_spmm: X must be (batch, n), got "
+                         f"{tuple(X.shape)}")
+    return banded_spmv_ref(diags, offsets, X)
 
 
 @full_precision
@@ -120,7 +136,7 @@ class BandedPlan:
                              f"takes at most {_build.MAX_POINTS}")
         self.diags = _operand("banded_spmv", diags, dtype)
         self.n = diags.shape[1]
-        self.shape, self.fn = (self.n,), None
+        self.shape, self.fn, self.mm = (self.n,), None, None
         if self.n == 0 or self.k == 0:
             return
         blo, bhi = banded_interior(
@@ -130,8 +146,9 @@ class BandedPlan:
                                     self.k, (ctypes.c_int * _build.MAX_POINTS)(
                                         *self.offsets))
         self.addr = ctypes.addressof(self.launch)
-        self.fn = getattr(_build.library(),
-                          f"eu_banded_spmv_{_build.suffix(dtype)}")
+        lib, suf = _build.library(), _build.suffix(dtype)
+        self.fn = getattr(lib, f"eu_banded_spmv_{suf}")
+        self.mm = getattr(lib, f"eu_banded_spmm_{suf}")
 
     def __call__(self, x):
         if (x.dtype != self.dtype or x.device != self.device
@@ -151,6 +168,28 @@ class BandedPlan:
         _build.launches["banded_spmv"] += 1
         return y
 
+    def spmm(self, X):
+        """Y = X A^T for X (batch, n): one launch of K1, B7's batched form
+        (``csrc/spmv.cu`` ``banded_spmm_kernel``), every row's bits those
+        of a B7 launch on that row."""
+        if (X.dtype != self.dtype or X.device != self.device or X.dim() != 2
+                or X.shape[1:] != self.shape):
+            raise ValueError(f"banded_spmm: expected a (batch,) + "
+                             f"{self.shape} {self.dtype} block on "
+                             f"{self.device}, got {tuple(X.shape)} {X.dtype} "
+                             f"on {X.device}")
+        if not X.is_contiguous():
+            X = X.contiguous()
+        Y = torch.empty_like(X)
+        if self.fn is None or X.shape[0] == 0:
+            return Y.zero_()
+        code = self.mm(self.addr, X.data_ptr(), Y.data_ptr(), X.shape[0],
+                       _build.raw_stream(self.device))
+        if code:
+            _build.check(code, "batched banded SpMV kernel (K1)")
+        _build.launches["banded_spmm"] += 1
+        return Y
+
 
 def banded_spmv(diags, offsets, x):
     """y = A x for diagonal storage (module doc): kernel B7 on CUDA, its
@@ -160,6 +199,16 @@ def banded_spmv(diags, offsets, x):
     if x.device.type == "cpu":
         return banded_spmv_ref(diags, tuple(int(o) for o in offsets), x)
     return BandedPlan(diags, offsets, x.dtype, x.device)(x)
+
+
+def banded_spmm(diags, offsets, X):
+    """Y[b] = A X[b] for each row of X (batch, n) in diagonal storage:
+    kernel K1 on CUDA (one launch for the block), its twin on CPU. Each
+    call builds a ``BandedPlan``; ``BandedOperator.matmat`` keeps its
+    plans."""
+    if X.device.type == "cpu":
+        return banded_spmm_ref(diags, tuple(int(o) for o in offsets), X)
+    return BandedPlan(diags, offsets, X.dtype, X.device).spmm(X)
 
 
 def blockell_spmv(blocks, bcols, x):

@@ -27,6 +27,11 @@ eigh's gradient. t (a number or a 0-d tensor) becomes a 0-d tensor on the
 diagonals' device without a host-to-device copy (``scalar_operand``), and
 s is a 0-d tensor there: the kernel reads both from device memory, so a
 captured launch reads each replay's values.
+
+``tridiag_exp_e1_batched`` is K2, the batched form (``expv_batched``'s
+reduced exponentials): one launch, one block a row running R1's body on
+its own row, so each row's result is R1's on that row; its twin
+``tridiag_exp_e1_batched_ref`` is the batched eigh formula.
 """
 
 from __future__ import annotations
@@ -39,7 +44,8 @@ from ...utils.graphs import sees_grad
 from . import _build
 from .dispatch import grad_gate
 
-__all__ = ["tridiag_exp_e1", "tridiag_exp_e1_ref", "scalar_operand",
+__all__ = ["tridiag_exp_e1", "tridiag_exp_e1_ref", "tridiag_exp_e1_batched",
+           "tridiag_exp_e1_batched_ref", "scalar_operand",
            "launch_shape", "work_bytes", "SMEM_BUDGET", "MAX_THREADS",
            "MAX_ITER", "MAX_ORDER"]
 
@@ -85,6 +91,18 @@ def tridiag_exp_e1_ref(alphas, betas, t, s=None):
     return out if s is None else out * s.to(cdt)
 
 
+def tridiag_exp_e1_batched_ref(alphas, betas, t, s=None):
+    """Plain twin of K2: the eigh formula on each row of alphas (batch, m),
+    betas (batch, m - 1), with s (batch,) or None; (batch, m)."""
+    T = (torch.diag_embed(alphas) + torch.diag_embed(betas, 1)
+         + torch.diag_embed(betas, -1))
+    w, Q = torch.linalg.eigh(T)
+    cdt = torch.promote_types(Q.dtype, torch.as_tensor(t).dtype)
+    out = (Q.to(cdt) @ (torch.exp(t * w) * Q[..., 0, :].to(cdt))[..., None]
+           )[..., 0]
+    return out if s is None else out * s.to(cdt)[..., None]
+
+
 def scalar_operand(t, like):
     """t as R1 reads it: a 0-d tensor on ``like``'s device in the promoted
     type of ``like`` and t (a Python t in like's precision), made by a
@@ -118,6 +136,59 @@ def tridiag_exp_e1(alphas, betas, t, s=None):
             or grad_gate(None, (alphas, betas, t, s))):
         return tridiag_exp_e1_ref(alphas, betas, t, s)
     return _launch(alphas, betas, scalar_operand(t, alphas), s)
+
+
+def tridiag_exp_e1_batched(alphas, betas, t, s=None):
+    """K2, R1 on each row (one launch for the batch, one block a row, each
+    row's bits R1's on that row): alphas (batch, m), betas (batch, m - 1),
+    a shared t, s (batch,) or None. Kernel K2 for CUDA tensors, the twin
+    ``tridiag_exp_e1_batched_ref`` on the CPU and under the grad rule.
+    Returns (batch, m) in the promoted type of the diagonals and t."""
+    if (alphas.device.type == "cpu"
+            or grad_gate(None, (alphas, betas, t, s))):
+        return tridiag_exp_e1_batched_ref(alphas, betas, t, s)
+    return _launch_batched(alphas, betas, scalar_operand(t, alphas), s)
+
+
+def _launch_batched(alphas, betas, t, s):
+    dev = alphas.device
+    _check("alphas", alphas, 2, dev)
+    _check("betas", betas, 2, dev)
+    _check("t", t, 0, dev)
+    nb, m = alphas.shape
+    if s is not None:
+        _check("s", s, 1, dev)
+        if s.shape[0] != nb:
+            raise ValueError(f"K2 tridiag_exp_e1_batched: s must hold "
+                             f"{nb} values, got {s.shape[0]}")
+    if betas.shape != (nb, max(m - 1, 0)):
+        raise ValueError(f"K2 tridiag_exp_e1_batched: betas must be "
+                         f"({nb}, {max(m - 1, 0)}), got "
+                         f"{tuple(betas.shape)}")
+    odt = torch.promote_types(alphas.dtype, t.dtype)
+    rdt = odt.to_real() if odt.is_complex else odt
+    if rdt not in _build.KERNEL_DTYPES:
+        raise ValueError(f"K2 tridiag_exp_e1_batched takes float32/float64 "
+                         f"diagonals, got {alphas.dtype} with t {t.dtype}")
+    a = alphas.to(rdt).contiguous()
+    b = betas.to(rdt).contiguous()
+    tt = t.to(odt).reshape(1)
+    ss = None if s is None else s.to(rdt).contiguous()
+    out = torch.empty((nb, m), dtype=odt, device=dev)
+    if m == 0 or nb == 0:
+        return out
+    nt, lanes, nbytes, shared = launch_shape(m)
+    scratch = (None if shared else torch.empty(
+        nb * -(-nbytes // 8), dtype=torch.float64, device=dev))
+    fn = getattr(_build.library(),
+                 f"eu_tridiag_exp_batched_{_build.suffix(rdt)}")
+    _build.check(fn(_build.ptr(a), _build.ptr(b), _build.ptr(tt),
+                    int(odt.is_complex), _build.ptr(ss), _build.ptr(out),
+                    _build.ptr(scratch), m, nt, nbytes, MAX_ITER, lanes, nb,
+                    _build.raw_stream(dev)),
+                 "K2 tridiag_exp_e1_batched")
+    _build.launches["tridiag_exp_batched"] += 1
+    return out
 
 
 def _launch(alphas, betas, t, s, clocks=None):

@@ -433,32 +433,47 @@ class BandedOperator(LinearOperator):
             return banded_spmv_ref(self.diags, self.offsets, x)
         return self._kernel_matvec(x, self.diags)
 
+    def matmat(self, X):
+        """A applied to each row of X (batch, n): one launch of K1 (B7's
+        batched form) on CUDA, the twin on CPU; autograd as ``matvec``."""
+        kern, rt = _kernel(self.dtype, X)
+        if not kern:
+            return banded_spmv_ref(self.diags, self.offsets, X)
+        return self._kernel_matvec(X, self.diags)
+
     def _kernel_matvec(self, x, D):
-        """A(D) x on B7; through ``_KernelMatvec`` when autograd must see
-        it. D is the operator's diagonals (their plan) or, under a
-        ``torch.func`` transform, their unwrapped value (a plan of its
-        own)."""
+        """A(D) x on B7, or on K1 for a (batch, n) x; through
+        ``_KernelMatvec`` when autograd must see it. D is the operator's
+        diagonals (their plan) or, under a ``torch.func`` transform, their
+        unwrapped value (a plan of its own)."""
         if _graph_wanted(x, D):
             return _KernelMatvec.apply(x, self, D)
         rt = torch.promote_types(D.dtype, x.dtype)
         if D is self.diags:
-            return self.plan(rt, x.device)(x.to(rt))
-        return BandedPlan(D.to(rt), self.offsets, rt, x.device)(x.to(rt))
+            plan = self.plan(rt, x.device)
+        else:
+            plan = BandedPlan(D.to(rt), self.offsets, rt, x.device)
+        return (plan if x.dim() == 1 else plan.spmm)(x.to(rt))
 
     def _kernel_vjp(self, x, D, g, need_x, need_D):
-        """(A^H g, dD): A^H g by one B7 launch on the adjoint storage;
-        dD[k, i] = g_i x_{i+o_k} (zero where i + o_k leaves [0, n)) in
-        plain torch."""
+        """(A^H g, dD): A^H g by one B7 (K1 for a block) launch on the
+        adjoint storage; dD[k, i] = sum over rows of g_i x_{i+o_k} (zero
+        where i + o_k leaves [0, n)) in plain torch."""
         gx = gD = None
         if need_x:
-            gx = self.adjoint(D).matvec(g).to(x.dtype)
+            adj = self.adjoint(D)
+            gx = (adj.matvec(g) if g.dim() == 1
+                  else adj.matmat(g)).to(x.dtype)
         if need_D:
-            n = x.shape[0]
+            n = x.shape[-1]
             h = max((abs(o) for o in self.offsets), default=0)
             rt = torch.promote_types(D.dtype, x.dtype)
             xe = F.pad(x.to(rt).conj(), (h, h))
-            gD = torch.stack([g.to(rt) * xe[h + o:h + o + n]
-                              for o in self.offsets]).to(D.dtype)
+            terms = [g.to(rt) * xe[..., h + o:h + o + n]
+                     for o in self.offsets]
+            if x.dim() == 2:
+                terms = [t.sum(0) for t in terms]
+            gD = torch.stack(terms).to(D.dtype)
         return gx, gD
 
     def _storage_jvp(self, x, D_t):

@@ -40,11 +40,12 @@ __all__ = ["StencilOperator", "VariableStencilOperator",
 def stencil_apply(X, offsets, cvals):
     """sum_k cvals[k] * shift(X, offsets[k]) on the grid tensor X, with
     zero (Dirichlet) values outside the grid: each shift is a slice of the
-    zero-padded grid. ``cvals[k]`` is a scalar, or a field of X's shape
-    read at the output cell. The plain form of every stencil kernel's
-    matvec."""
-    shape = X.shape
-    d = len(shape)
+    zero-padded grid. X is a grid or a stack of grids (its last d axes the
+    grid, d the offsets' length). ``cvals[k]`` is a scalar, or a field of
+    the grid's shape read at the output cell. The plain form of every
+    stencil kernel's matvec."""
+    d = len(offsets[0])
+    shape = X.shape[X.ndim - d:]
     h = [max(abs(off[a]) for off in offsets) for a in range(d)]
     pad = []
     for a in reversed(range(d)):
@@ -52,8 +53,8 @@ def stencil_apply(X, offsets, cvals):
     Xp = F.pad(X, pad)
     y = None
     for k, off in enumerate(offsets):
-        sl = tuple(slice(h[a] + off[a], h[a] + off[a] + shape[a])
-                   for a in range(d))
+        sl = (...,) + tuple(slice(h[a] + off[a], h[a] + off[a] + shape[a])
+                            for a in range(d))
         term = cvals[k] * Xp[sl]
         y = term if y is None else y + term
     return y
@@ -109,6 +110,14 @@ class StencilOperator(LinearOperator):
         rt = torch.promote_types(self.dtype, x.dtype)
         X = x.reshape(self.grid_shape).to(rt)
         return stencil_apply(X, self.offsets, self.coeffs.to(rt)).reshape(-1)
+
+    def matmat(self, X):
+        """Each row of X (batch, n): the plain stencil on the stack of
+        grids, one pass for the whole block."""
+        rt = torch.promote_types(self.dtype, X.dtype)
+        G = X.reshape(X.shape[:1] + self.grid_shape).to(rt)
+        return stencil_apply(G, self.offsets,
+                             self.coeffs.to(rt)).reshape(X.shape[0], -1)
 
     def opnorm_hint(self):
         return self.coeffs.abs().sum()
@@ -216,6 +225,14 @@ class VariableStencilOperator(LinearOperator):
         X = x.reshape(self.grid_shape).to(rt)
         Fk = self.fields(rt).reshape((-1,) + self.grid_shape)
         return stencil_apply(X, self.offsets, Fk).reshape(-1)
+
+    def matmat(self, X):
+        """Each row of X (batch, n): the plain stencil on the stack of
+        grids, the fields broadcast over the rows."""
+        rt = torch.promote_types(self.dtype, X.dtype)
+        G = X.reshape(X.shape[:1] + self.grid_shape).to(rt)
+        Fk = self.fields(rt).reshape((-1,) + self.grid_shape)
+        return stencil_apply(G, self.offsets, Fk).reshape(X.shape[0], -1)
 
     def opnorm_hint(self):
         return self.coeff_fields.abs().sum(dim=0).max()

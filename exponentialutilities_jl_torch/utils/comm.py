@@ -50,27 +50,38 @@ def pmax(x, comm):
 
 def vector_norm(x, comm, dim=None):
     """2-norm of x over every rank's rows: of the whole vector x, or of
-    each column along ``dim`` (the rows' axis). One psum of the local
-    squared sums, each entry of an augmented tail taken once."""
+    each column along ``dim`` (the rows' axis; -1 for the rows of a
+    (batch, n) block). One psum of the local squared sums, each entry of
+    an augmented tail taken once."""
     if comm is None:
         return torch.linalg.vector_norm(x, dim=dim)
     x = owned(x, comm, 0 if dim is None else dim)
     return torch.sqrt(comm.psum((x.conj() * x).real.sum(dim=dim)))
 
 
+def _vdot(x, y):
+    return torch.vdot(x, y) if x.ndim == 1 else torch.linalg.vecdot(x, y)
+
+
+def _dots(W, y):
+    return W.conj() @ y if y.ndim == 1 else (W.conj() @ y[..., None])[..., 0]
+
+
 def vdot(x, y, comm):
-    """x^H y over every rank's rows (one psum)."""
+    """x^H y over every rank's rows (one psum); (batch, n) rows give the
+    (batch,) dots, reduced in one psum."""
     if comm is None:
-        return torch.vdot(x, y)
-    return comm.psum(torch.vdot(owned(x, comm), owned(y, comm)))
+        return _vdot(x, y)
+    return comm.psum(_vdot(owned(x, comm), owned(y, comm)))
 
 
 def dots(W, y, comm):
     """W^H y: each row of W (k, n) against y (n,), over every rank's rows
-    (one psum)."""
+    (one psum); W (batch, k, n) against y (batch, n) gives (batch, k), in
+    one psum."""
     if comm is None:
-        return W.conj() @ y
-    return comm.psum(owned(W, comm).conj() @ owned(y, comm, 0))
+        return _dots(W, y)
+    return comm.psum(_dots(owned(W, comm), owned(y, comm)))
 
 
 def all_finite(x, comm, *more):

@@ -5,6 +5,17 @@ Any object exposing ``shape``, ``dtype``, ``device``, a ``matvec`` and
 ``is_hermitian`` (plus an optional ``opnorm_hint``) works with every
 Krylov-level API of the port. Operators hold tensors; the device of those
 tensors is the device of the computation.
+
+``matmat(X)`` applies the operator to each row of a (batch, n) block (the
+batched Krylov builders' product, ``ops/krylov.py``). Its default is the
+operator's own ``matvec`` on each row, stacked: each row then launches
+that operator's own kernel where it has one (SELL: B9, block-ELL: B8),
+the explicit dispatch for operators whose kernel has no batched form.
+``DenseOperator`` takes one GEMM, ``DiagonalOperator`` one broadcast
+product, ``NegatedOperator`` its inner operator's ``matmat``; the stencils
+and ``BandedOperator`` (kernel K1, B7's batched form) override it too.
+``apply_rows`` is the same for any object of the protocol, with or
+without a ``matmat``.
 """
 
 from __future__ import annotations
@@ -17,7 +28,7 @@ from .device import host_tensor, resolve_device
 
 __all__ = ["LinearOperator", "DenseOperator", "MatrixFreeOperator",
            "DiagonalOperator", "NegatedOperator", "aslinearoperator",
-           "JacobianOperator"]
+           "JacobianOperator", "apply_rows"]
 
 
 class LinearOperator:
@@ -34,11 +45,25 @@ class LinearOperator:
     def matvec(self, x):  # pragma: no cover - interface
         raise NotImplementedError
 
+    def matmat(self, X):
+        """A applied to each row of X (batch, n): ``matvec`` row by row,
+        stacked (module doc)."""
+        return torch.stack([self.matvec(x) for x in X.unbind(0)])
+
     def opnorm_hint(self) -> Optional[torch.Tensor]:
         return None
 
     def __call__(self, x):
         return self.matvec(x)
+
+
+def apply_rows(op, X):
+    """``op.matmat(X)`` for X (batch, n), or the rows' ``matvec``s
+    stacked for an operator of the protocol without one."""
+    mm = getattr(op, "matmat", None)
+    if mm is not None:
+        return mm(X)
+    return torch.stack([op.matvec(x) for x in X.unbind(0)])
 
 
 class DenseOperator(LinearOperator):
@@ -74,6 +99,11 @@ class DenseOperator(LinearOperator):
         rt = torch.promote_types(self.A.dtype, x.dtype)
         return self.A.to(rt) @ x.to(rt)
 
+    def matmat(self, X):
+        """X A^T: one GEMM for the whole block."""
+        rt = torch.promote_types(self.A.dtype, X.dtype)
+        return X.to(rt) @ self.A.to(rt).mT
+
     def opnorm_hint(self):
         return self.A.abs().sum(dim=1).max()
 
@@ -106,6 +136,9 @@ class DiagonalOperator(LinearOperator):
 
     def matvec(self, x):
         return self.d * x
+
+    def matmat(self, X):
+        return self.d * X
 
     def opnorm_hint(self):
         return self.d.abs().max()
@@ -166,6 +199,9 @@ class NegatedOperator(LinearOperator):
 
     def matvec(self, x):
         return -self.inner.matvec(x)
+
+    def matmat(self, X):
+        return -apply_rows(self.inner, X)
 
     def opnorm_hint(self):
         return self.inner.opnorm_hint()

@@ -326,7 +326,9 @@ def test_phi_path_dispatches_to_kernels(dev):
         "resident_recurrence": 0, "resident_lanczos": 1, "resident_multi": 2,
         "resident_banded": 0, "resident_grid": 0, "fused_sweep": 0,
         "fused_sweep_var": 0, "sweep_stage": 0, "banded_spmv": 0, "blockell_spmv": 0, "sell_spmv": 0,
-        "seg_compact": 0, "tridiag_exp": 0}
+        "seg_compact": 0, "tridiag_exp": 0, "banded_spmm": 0,
+        "tridiag_exp_batched": 0, "resident_lanczos_batched": 0,
+        "resident_recurrence_batched": 0}
     for w in (w1, w2):
         assert float((w - w3).norm() / w3.norm()) < 1e-10
 
@@ -3006,3 +3008,196 @@ def test_poly_loops_graph_vs_eager(dev, name):
     with graphs.eager():
         we = call()
     assert torch.equal(w, we)
+
+
+# --- expv_batched's batched kernels K1-K4 and its one batched build ------
+
+def _banded_block(n, k, dt, dev, seed, batch):
+    """A random k-diagonal BandedOperator (offsets spread over +-3k) and a
+    (batch, n) block on the card."""
+    g = np.random.default_rng(seed)
+    offs = sorted(g.choice(np.arange(-3 * k, 3 * k + 1), k, replace=False))
+    D = torch.as_tensor(g.standard_normal((k, n)), dtype=dt, device=dev)
+    X = torch.as_tensor(g.standard_normal((batch, n)), dtype=dt, device=dev)
+    return et.BandedOperator(D, [int(o) for o in offs]), X
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("n,k,batch", [(4096, 5, 1), (4096, 5, 16),
+                                       (10007, 5, 3), (1000, 17, 17),
+                                       (3, 1, 2)])
+def test_k1_banded_spmm_bits(dev, dt, n, k, batch):
+    """K1 on each row is bit for bit B7 on that row (aligned and ragged n,
+    one block of rows and more than one, every block an edge block at n =
+    3), and within RTOL of the twin; one launch a product."""
+    from exponentialutilities_jl_torch.ops.kernels import spmv as ts
+
+    op, X = _banded_block(n, k, dt, dev, 900 + n + k, batch)
+    _build.reset_launch_counts()
+    Y = op.matmat(X)
+    assert _build.launches["banded_spmm"] == 1
+    assert _build.launches["banded_spmv"] == 0
+    for i in range(batch):
+        assert torch.equal(Y[i], op.matvec(X[i])), i
+    _close(Y, ts.banded_spmm_ref(op.diags, op.offsets, X), dt)
+    assert torch.equal(Y, ts.banded_spmm(op.diags, op.offsets, X))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("m", [1, 30, 250, 400])
+def test_k2_tridiag_batched_bits(dev, dt, m):
+    """K2 on each row is bit for bit R1 on that row (real and complex t,
+    with and without s, one row broken down early, one all zero), with
+    its workspace in shared memory and (m = 400) in the global scratch;
+    within the R1 tolerance of the batched twin; one launch."""
+    from exponentialutilities_jl_torch.ops.kernels import tridiag as tt
+
+    rows = [_tridiag(m, dt, dev, 300 + m + i, tail=(m - 3 if i == 1 and m > 4
+                                                    else 0))
+            for i in range(4)]
+    A = torch.stack([a for a, _ in rows])
+    Bt = torch.stack([b for _, b in rows])
+    A[3].zero_()
+    Bt[3].zero_()
+    s = torch.as_tensor([1.7, 0.5, 2.0, 0.0], dtype=dt, device=dev)
+    cdt = torch.complex64 if dt == torch.float32 else torch.complex128
+    for t in (torch.tensor(0.6, dtype=dt, device=dev),
+              torch.tensor(0.6 - 0.8j, dtype=cdt, device=dev)):
+        for sc in (None, s):
+            _build.reset_launch_counts()
+            got = tt.tridiag_exp_e1_batched(A, Bt, t, sc)
+            assert _build.launches["tridiag_exp_batched"] == 1
+            for i in range(4):
+                one = tt.tridiag_exp_e1(A[i], Bt[i], t,
+                                        None if sc is None else sc[i])
+                assert torch.equal(got[i], one), i
+            want = tt.tridiag_exp_e1_batched_ref(A, Bt, t, sc)
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            assert err <= {torch.float32: 1e-5,
+                           torch.float64: 1e-13}[dt] * scale, (err, scale)
+
+
+def _laplacian_rows(n, dt, dev, batch, seed):
+    """(batch, n) rows: random, one of zeros and one eigenvector of the
+    1-D Laplacian (an invariant subspace of dimension 1)."""
+    g = np.random.default_rng(seed)
+    X = g.standard_normal((batch, n))
+    X[1] = 0.0
+    X[2] = np.sin(np.pi * 3 * np.arange(1, n + 1) / (n + 1))
+    return torch.as_tensor(X, dtype=dt, device=dev)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("n", [20000, 100000])
+def test_k3_lanczos_batched_bits(dev, dt, n):
+    """K3 (B2's cluster form, one cluster a row) on each row is bit for
+    bit B2 on that row, rows breaking down at different steps; one launch
+    for the batch."""
+    op = et.laplacian_nd_stencil(n, dtype=dt, device=dev)
+    X = _laplacian_rows(n, dt, dev, 5, 40 + n)
+    nrm = torch.linalg.vector_norm(X, dim=-1, keepdim=True)
+    V0 = torch.where(nrm > 0, X / torch.where(nrm > 0, nrm, 1.0), 0.0)
+    plan = tr.lanczos_plan(op, dt, dev)
+    assert plan.form == "cluster"
+    _build.reset_launch_counts()
+    ab = tr.resident_lanczos(op, V0, 40, 1e-7)
+    assert _build.launches["resident_lanczos_batched"] == 1
+    assert _build.launches["resident_lanczos"] == 0
+    for i in range(5):
+        assert torch.equal(ab[i], tr.resident_lanczos(op, V0[i], 40, 1e-7))
+    _close(ab, tr.resident_lanczos_batched_ref(
+        V0, op.coeffs, tr._flat_offsets(op), 40, 1e-7), dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("batch", [1, 8, 20])
+def test_k4_recurrence_batched(dev, dt, batch):
+    """K4 (B1's neighbour form over the rows at once) on each row: w bit
+    for bit B1's on that row; sum w^2 within 1e-14 (float64) or 1e-6
+    (float32) relative, the blocks' partials added in another grouping;
+    launches = the plan's groups."""
+    n, m = 100000, 12
+    op = et.laplacian_nd_stencil(n, dtype=dt, device=dev)
+    X = _laplacian_rows(n, dt, dev, max(batch, 3), 7)[:batch]
+    g = np.random.default_rng(8)
+    rows = torch.as_tensor(g.standard_normal((batch, m, 4)) * 0.3, dtype=dt,
+                           device=dev)
+    rows[..., 0] *= 0.25
+    scale = torch.as_tensor(g.uniform(0.5, 2.0, batch), dtype=dt, device=dev)
+    plan = tr.recurrence_batch_plan(op, dt, dev, batch)
+    assert plan.form == "neighbour"
+    _build.reset_launch_counts()
+    W, s2 = tr.resident_recurrence(op, X, rows, scale)
+    assert _build.launches["resident_recurrence_batched"] == \
+        plan.launches_per_call == -(-batch // plan.rows_per_launch)
+    for i in range(batch):
+        w1, n1 = tr.resident_recurrence(op, X[i], rows[i], scale[i])
+        assert torch.equal(W[i], w1), i
+        tol = {torch.float32: 1e-6, torch.float64: 1e-14}[dt]
+        assert abs(float(s2[i] - n1)) <= tol * float(n1), i
+    Wr, sr = tr.resident_recurrence_batched_ref(
+        X, rows, op.coeffs, tr._flat_offsets(op), scale)
+    _close(W, Wr, dt)
+    _close(s2, sr, dt)
+
+
+def _batched_cells(dev):
+    """expv_batched cells: {name: (call of B, B, per-row call, exact
+    executions)}."""
+    P = et.poisson_2d(200, 200, device=dev)
+    g = np.random.default_rng(31)
+    BP = torch.as_tensor(g.standard_normal((6, P.shape[0])), device=dev)
+    BP[4] = 0.0
+    S = et.laplacian_nd_stencil(100000, device=dev)
+    BS = _laplacian_rows(100000, torch.float64, dev, 8, 32)
+    A = et.advection_diffusion_1d(500, peclet=10.0, device=dev)
+    BA = torch.as_tensor(g.standard_normal((5, 500)), device=dev)
+    k4 = tr.recurrence_batch_plan(S, torch.float64, S.device, 8)
+    return {
+        "lanczos": (lambda B: et.expv_batched(1e-4, P, B, m=30), BP,
+                    lambda b: et.expv(1e-4, P, b, m=30),
+                    {"banded_spmm": 30, "tridiag_exp_batched": 1}),
+        "two-pass": (lambda B: et.expv_batched(0.5, S, B, m=40,
+                                               two_pass=True), BS,
+                     lambda b: et.expv(0.5, S, b, m=40, two_pass=True),
+                     {"resident_lanczos_batched": 1,
+                      "tridiag_exp_batched": 1,
+                      "resident_recurrence_batched": k4.launches_per_call}),
+        "arnoldi": (lambda B: et.expv_batched(1e-4, A, B, m=60), BA,
+                    lambda b: et.expv(1e-4, A, b, m=60),
+                    {"banded_spmm": 60}),
+        "iop two-pass": (lambda B: et.expv_batched(1e-4, A, B, m=60,
+                                                   two_pass=True, iop=2), BA,
+                         lambda b: et.expv(1e-4, A, b, m=60, two_pass=True,
+                                           iop=2),
+                         {"banded_spmm": 120}),
+    }
+
+
+@pytest.mark.parametrize("name", ["lanczos", "two-pass", "arnoldi",
+                                  "iop two-pass"])
+def test_expv_batched_one_build(dev, name):
+    """One expv_batched call is one batched build: its kernels' executions
+    exact (K1 once a step for the whole batch, one K2 launch, one K3 and
+    the K4 groups), one capture a builder call, the result bit-equal to
+    the call under graphs.eager() and within 1e-13 of the rows' expv (the
+    batched norms and dots sum in another order than a row's)."""
+    from exponentialutilities_jl_torch.utils import graphs
+
+    call, B, row, want = _batched_cells(dev)[name]
+    call(B)                          # the plans and the pool, made once
+    torch.cuda.synchronize()
+    _reset_counts()
+    W = call(B)
+    torch.cuda.synchronize()
+    exe = {k: v for k, v in _executions().items() if v}
+    assert exe == want, exe
+    assert graphs.counts["captures"] == {"lanczos": 1, "two-pass": 0,
+                                         "arnoldi": 1,
+                                         "iop two-pass": 2}[name]
+    with graphs.eager():
+        assert torch.equal(W, call(B))
+    rows = torch.stack([row(b) for b in B.unbind(0)])
+    scale = float(rows.abs().max())
+    assert float((W - rows).abs().max()) <= 1e-13 * scale

@@ -110,3 +110,56 @@ def test_complex_batches_vs_scipy(case):
     E = sla.expm(0.4 * A)
     for i in range(2):
         assert_close(W[i], E @ B[i], 1e-10, f"{case} row {i}")
+
+
+# one batched build: rows that break down at different steps, a zero row
+
+def _breakdown_batch(n, seed):
+    """(4, n) rows of the diagonal operator's problem: random, in
+    invariant subspaces of dimension 3 and 6, and zeros."""
+    B = _batch(n, 4, seed)
+    B[1, 3:] = 0.0
+    B[2, 6:] = 0.0
+    B[3] = 0.0
+    return B
+
+
+@pytest.mark.parametrize("two_pass", [False, True])
+def test_breakdown_rows_vs_jax_and_scipy(two_pass):
+    """Rows whose Lanczos breaks down at steps 3 and 6 and a zero row,
+    in one batched build: each row against scipy (1e-10) and the batch
+    against JAX's batched call (reduced="host", 1e-12); the zero row is
+    zero."""
+    n = 48
+    d = np.linspace(-4.0, 0.0, n)
+    B = _breakdown_batch(n, 10)
+    W = t2n(et.expv_batched(0.6, et.DiagonalOperator(torch.as_tensor(d)),
+                            torch.as_tensor(B), m=20, two_pass=two_pass))
+    Wj = np.asarray(ej.expv_batched(0.6, ej.DiagonalOperator(jnp.asarray(d)),
+                                    jnp.asarray(B), m=20, reduced="host",
+                                    two_pass=two_pass))
+    assert_close(W, Wj, 1e-12, "vs JAX reduced=host")
+    for i in range(4):
+        assert_close(W[i], np.exp(0.6 * d) * B[i], 1e-10, f"row {i}")
+    assert not W[3].any()
+
+
+def test_iop_two_pass_batch_vs_jax_rows():
+    """The batched IOP two-pass (window 2) on config #4's operator at n =
+    200 against JAX's scalar IOP two-pass on each row (1e-12; JAX's
+    batched call vmaps the same) and the batched Arnoldi basis path with
+    iop=2, reorth=False, the same recurrence."""
+    n = 200
+    A = ej.advection_diffusion_1d(n, peclet=10.0)
+    At = et.advection_diffusion_1d(n, peclet=10.0)
+    B = _batch(n, 3, 11)
+    B[1] = 0.0
+    W = t2n(et.expv_batched(1e-4, At, torch.as_tensor(B), m=40,
+                            two_pass=True, iop=2))
+    for i in range(3):
+        wj = np.asarray(ej.expv(1e-4, A, jnp.asarray(B[i]), m=40,
+                                two_pass=True, iop=2, reduced="device"))
+        assert_close(W[i], wj, 1e-12, f"row {i} vs JAX")
+    Wb = t2n(et.expv_batched(1e-4, At, torch.as_tensor(B), m=40, iop=2,
+                             reorth=False))
+    assert_close(W, Wb, 1e-12, "vs the basis path")

@@ -166,7 +166,10 @@ def test_cpu_runs_twin_not_kernel():
                                "fused_sweep": 0, "fused_sweep_var": 0,
                                "sweep_stage": 0, "banded_spmv": 0,
                                "blockell_spmv": 0, "sell_spmv": 0,
-                               "seg_compact": 0, "tridiag_exp": 0}
+                               "seg_compact": 0, "tridiag_exp": 0,
+                               "banded_spmm": 0, "tridiag_exp_batched": 0,
+                               "resident_lanczos_batched": 0,
+                               "resident_recurrence_batched": 0}
 
 
 def test_resident_supported_and_rejects():
