@@ -134,7 +134,9 @@ its seconds:
               call and scipy; expm_dd at n = 32 against expm_mp at 300
               bits, the card's bits equal to the CPU's), expv_batched on
               config #2 (8 columns, two-pass: one K3, one K2, K4's groups)
-              and config #3 (4 columns, m = 30: 30 K1, one K2), and the gradients: config #4's
+              and config #3 (4 columns, m = 30: 30 fused Lanczos
+              steps, each K1's Lanczos form and K5, one K2), and the
+              gradients: config #4's
               ||expv(t, op, b, m=40)||^2 in b and op.diags (40 B7 forward
               + 40 backward, held to the plain twin's autograd on the
               card), the x-gradient of the n = 1e6 SELL matrix (2 B9),
@@ -214,15 +216,19 @@ its seconds:
               exactly m (broke and m_used as the plain lanczos_coeffs);
               the whole script profiles its cells at the end of phase 5;
               then an eleventh, expv_batched as one batched build
-              (batched_path: config #3 with B (16, n), Lanczos on K1 and
-              one K2; config #2 two-pass with B (8, n), K3, K2 and K4, a
-              zero row and an eigenvector row; config #4 with B (16, n),
-              Arnoldi m = 250 on K1; each cell's kernel executions and
-              captures exact, each row within 1e-13 of its scalar expv,
-              the cell within 1e-10 of its oracle, batched against
-              per-row timed in turns; K1-K4 against their twins and bit
-              for bit against B7, R1, B2 and B1 on each row, K4's sums
-              within 1e-14; K1-K4's times, bounds and library calls).
+              (batched_path: config #3 with B (16, n), Lanczos by the
+              fused step, K1's Lanczos form and K5 a step, no torch op
+              over (16, n) in the step, and one K2; config #2 two-pass
+              with B (8, n), K3, K2 and K4, a zero row and an
+              eigenvector row; config #4 with B (16, n), Arnoldi m = 250
+              on K1; each cell's kernel executions and captures exact,
+              each row within 1e-13 of its scalar expv, the cell within
+              1e-10 of its oracle, batched against per-row timed in
+              turns; K1-K4 against their twins and bit for bit against
+              B7, R1, B2 and B1 on each row, K4's sums within 1e-14; K1's
+              Lanczos form and K5 each against its twin at the cell's
+              shape, bits repeating; a replayed step, fused and unfused;
+              the kernels' times, bounds and library calls).
               The builders run from
               graphs on every path but the sharded ones, so a kernel's
               count is its executions (captured launches times replays),
@@ -484,9 +490,15 @@ REPLACES = {
         "exponentialutilities_jl_tpu/ops/kernels/resident.py:461",
     "resident_recurrence_batched":
         "exponentialutilities_jl_tpu/ops/kernels/resident.py:89",
+    # the fused batched Lanczos step: K1's Lanczos form (B7 under the
+    # vmapped step) and K5, which replaces no Pallas kernel but the
+    # vmapped step's elementwise tail that XLA fuses there
+    "banded_spmm_alpha": "exponentialutilities_jl_tpu/ops/kernels/spmv.py:134",
+    "lanczos_update": "exponentialutilities_jl_tpu/ops/krylov.py:290",
 }
 BATCHED_KERNELS = ("banded_spmm", "tridiag_exp_batched",
-                   "resident_lanczos_batched", "resident_recurrence_batched")
+                   "resident_lanczos_batched", "resident_recurrence_batched",
+                   "banded_spmm_alpha", "lanczos_update")
 SOURCES = {
     "resident_recurrence": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_family.cu",
     "resident_lanczos": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_cluster.cu",
@@ -504,6 +516,8 @@ SOURCES = {
     "tridiag_exp_batched": "exponentialutilities_jl_torch/ops/kernels/csrc/tridiag.cu",
     "resident_lanczos_batched": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_cluster.cu",
     "resident_recurrence_batched": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_family.cu",
+    "banded_spmm_alpha": "exponentialutilities_jl_torch/ops/kernels/csrc/spmv.cu",
+    "lanczos_update": "exponentialutilities_jl_torch/ops/kernels/csrc/lanczos_step.cu",
 }
 
 
@@ -1156,13 +1170,15 @@ def dense_grad_path(et, dev, card, A1np, op1, opP, opS):
     from exponentialutilities_jl_torch.ops.kernels import resident as tr
 
     # one batched build a call: K3, one K2 and K4's groups (config #2);
-    # 30 K1 steps for the 4 rows and one K2 (config #3)
+    # 30 fused Lanczos steps (K1's Lanczos form and K5) for the 4 rows and
+    # one K2 (config #3)
     k4 = tr.recurrence_batch_plan(op1, torch.float64, op1.device, NBATCH2)
     expect = {
         "expv_batched config2": {
             "resident_lanczos_batched": 1, "tridiag_exp_batched": 1,
             "resident_recurrence_batched": k4.launches_per_call},
-        "expv_batched config3": {"banded_spmm": 30,
+        "expv_batched config3": {"banded_spmm_alpha": 30,
+                                 "lanczos_update": 30,
                                  "tridiag_exp_batched": 1},
         "grad config4 expv m=40": {"banded_spmv": 40 + 40},
         "grad sell x": {"sell_spmv": 2},
@@ -1351,6 +1367,7 @@ SHARD_WORLDS = (2, 4)
 SHARD_DEVICE = "cuda:0"  # every rank's tensors: the one card
 SHARD_TIMEOUT = 420      # seconds a rank may take before the run fails
 SHARD_REPS = 5           # CUDA-event median of each sharded call (rank 0)
+GSPMD_REPS = 3           # ... of each GSPMD gloo cell (its depth cut)
 # sharded vs the single-device port on the same card: the summation order
 # of the reductions only (CPU parity: tests/test_torch_parallel.py and
 # test_torch_stencil_fused_sharded.py hold them to 1e-12 as well)
@@ -2320,7 +2337,7 @@ def gspmd_rank_main(args) -> int:
             "diff": float((W - ref.to(dev)).abs().max()),
             "scale": float(ref.abs().max()), "data": di, "shard": si}
         out["ms"]["config3 expv_batched 4 columns m=30"] = timed(
-            lambda: et.expv_batched(TP, op_s, Bl, m=30), 5)
+            lambda: et.expv_batched(TP, op_s, Bl, m=30), GSPMD_REPS)
         # a halo wider than a shard on the same ranks' 1-D mesh
         mesh = par.make_mesh(device=dev)
         op_h = par.shard_operator(ops["H"], mesh)
@@ -2340,7 +2357,8 @@ def gspmd_rank_main(args) -> int:
             "finite": bool(torch.isfinite(w).all()),
             "diff": float((w - ref).abs().max()),
             "scale": float(ref.abs().max())}
-        out["ms"][HOP_CELL] = timed(lambda: et.expv(TP, op_h, b_h, m=30), 5)
+        out["ms"][HOP_CELL] = timed(lambda: et.expv(TP, op_h, b_h, m=30),
+                                    GSPMD_REPS)
     else:
         mesh = par.make_mesh(device=dev)
         ax = mesh.axis()
@@ -2390,7 +2408,8 @@ def gspmd_rank_main(args) -> int:
                 out["ms"][name] = first_ms
             else:
                 out["ms"][name] = timed(
-                    lambda: call(sh, loc, ax, collections.Counter()), 5)
+                    lambda: call(sh, loc, ax, collections.Counter()),
+                    GSPMD_REPS)
     with open(os.path.join(d, f"gspmd_{mode}_rank{r}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -2965,7 +2984,8 @@ def krylov_graph_path(et, dev, card, g):
             lambda r: [("each column vs its scalar expv",
                         max(rel_norm(r[i], et.expv(TP, opP, BB[i], m=30))
                             for i in range(NBATCH3)), MTOL_ROWS)],
-            lambda r: {"banded_spmm": 30, "tridiag_exp_batched": 1}, [30]),
+            lambda r: {"banded_spmm_alpha": 30, "lanczos_update": 30,
+                       "tridiag_exp_batched": 1}, [30]),
         "config1 expv m=40": (
             lambda: et.expv(1.0, g["A1c"], g["b1c"], m=40), lambda r: r,
             lambda r: [("vs scipy expm(A) b", rel_norm(r, ref_1),
@@ -4683,7 +4703,11 @@ def poly_graphs_only(et, dev, card, profile: bool) -> int:
 # expv_batched at full width in float64, each call one batched build (a
 # masked step with a batch axis replayed from one graph a builder call):
 #   config #3, poisson_2d(1000, 1000), t = 1e-4, m = 30, B (NB3, n): Lanczos
-#     on K1 (B7 batched) and one K2 (R1 batched); row NB3 - 1 zeros;
+#     by the fused batched step (K1's Lanczos form and K5, two launches a
+#     step, no torch op over (NB3, n) in the step: the ops over blocks of
+#     that size per call are counted at m = 4 and m = 6 under a dispatch
+#     mode and must not differ) and one K2 (R1 batched); row
+#     NB3 - 1 zeros;
 #   config #2, the 1-D Laplacian at n = 1e5, t = 0.5, m = 40, two-pass, B
 #     (NB2, n): K3 (B2 batched) -> K2 -> K4 (B1 batched); rows 6 and 7 zeros
 #     and an eigenvector of the Laplacian (a breakdown at step 1);
@@ -4696,11 +4720,146 @@ def poly_graphs_only(et, dev, card, profile: bool) -> int:
 # the semigroup identity at n = 1e6, the dense expm), batched against
 # per-row in turns (CUDA-event medians of BATCH_REPS); K1-K4 against their
 # twins at these shapes, K1-K3 bit for bit against B7, R1 and B2 on each
-# row and K4's w against B1's (its sums of w^2 within K4_SUM_TOL).
+# row and K4's w against B1's (its sums of w^2 within K4_SUM_TOL); K1's
+# Lanczos form and K5 each against its twin on a state at step PAIR_J of
+# the cell's shape (K5 on pass A's own output), alpha against B7 on each
+# row, the bits repeating from the same state; a replayed step of the
+# cell's builder (the slope of lanczos between m = 10 and 30), fused and
+# unfused.
+PAIR_J = 3
 NB3, NB2, NB4 = 16, 8, 16
 MTOL_ROWS = 1e-13
 K4_SUM_TOL = 1e-14       # float64: the blocks' partials grouped otherwise
 BATCH_REPS = 5
+
+
+def unfused_operator(op):
+    """``op`` (a ``BandedOperator``) behind a wrapper that is no
+    ``BandedOperator``: the batched builders take the unfused step on it (K1
+    and torch ops), the step the fused pair replaced."""
+    from exponentialutilities_jl_torch.utils.linop import LinearOperator
+
+    class Unfused(LinearOperator):
+        shape, dtype, device = op.shape, op.dtype, op.device
+        is_hermitian = op.is_hermitian
+
+        def matvec(self, x):
+            return op.matvec(x)
+
+        def matmat(self, X):
+            return op.matmat(X)
+
+        def opnorm_hint(self):
+            return op.opnorm_hint()
+
+    return Unfused()
+
+
+def big_ops(fn, numel):
+    """{aten op: calls} of the ops that read or write a tensor of at least
+    ``numel`` elements in one call of fn under ``graphs.eager()`` (every
+    step dispatched, none replayed), seen by a dispatch mode."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    from exponentialutilities_jl_torch.utils import graphs
+
+    seen = collections.Counter()
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if any(isinstance(t, torch.Tensor) and t.numel() >= numel
+                   for t in tree_leaves((args, kwargs, out))):
+                seen[str(func)] += 1
+            return out
+
+    with graphs.eager(), Count():
+        fn()
+    torch.cuda.synchronize()
+    return seen
+
+
+def pair_checks(et, dev, opP, X3, dt, gen):
+    """K1's Lanczos form and K5 of the fused batched Lanczos step, each on
+    its own, against its twin on a state at step PAIR_J of config #3's
+    (NB3, n) shape in ``dt`` (the ring layout, the last row broken down
+    before the step): pass A's v_j and alpha (alpha also against B7 on
+    each row), then K5 on pass A's output (u, the records, broke, m_used,
+    scale); then both again from the same state, bit for bit. Returns
+    (pass A's max abs error, K5's, {"pair": the pair on its state,
+    "plain_a", "plain_u": the twins on it}) for the times."""
+    import torch
+    from exponentialutilities_jl_torch.ops.kernels import _build
+    from exponentialutilities_jl_torch.ops.kernels import lanczos_step as tls
+
+    dn = str(dt)[6:]
+    op = et.BandedOperator(opP.diags.to(dt), opP.offsets, is_hermitian=True)
+    nb, n = X3.shape
+    j = PAIR_J
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dt, device=dev)
+
+    st = dict(u=X3.to(dt).clone(), scale=t(gen.uniform(0.5, 2.0, nb)),
+              slots=t(gen.standard_normal((nb, 2, n))),
+              alphas=t(np.zeros((nb, 30))), betas=t(np.zeros((nb, 30))),
+              bprev=t(gen.uniform(0.5, 1.0, nb)),
+              broke=torch.zeros(nb, dtype=torch.bool, device=dev),
+              m_used=torch.full((nb,), j, dtype=torch.int64, device=dev),
+              jj=torch.tensor([j, j + 1], device=dev))
+    st["broke"][nb - 1] = True
+    pair = tls.LanczosPair(op, st["u"], st["scale"], st["slots"], 2,
+                           st["alphas"], st["betas"], st["bprev"],
+                           st["broke"], st["m_used"], st["jj"], 1e-7)
+    init = {k: v.clone() for k, v in st.items()}
+    stream = _build.raw_stream(st["u"].device)
+    _build.check(pair.fa(pair.addr, stream), "K1's Lanczos form")
+    torch.cuda.synchronize()
+    vc_ref, a_ref = tls.spmm_alpha_ref(op.diags, op.offsets, init["u"],
+                                       init["scale"], init["broke"])
+    vc, vp = st["slots"][:, j % 2], st["slots"][:, (j - 1) % 2]
+    ea = max(rel_max(vc, vc_ref), rel_max(pair.alpha, a_ref))
+    yb = torch.stack([op.matvec(vc[i]) for i in range(nb)])
+    eb = rel_max(pair.alpha, torch.linalg.vecdot(vc, yb))
+    check(ea <= KTOL[dn], f"K1's Lanczos form {dn}: {ea:.2e} from its twin")
+    check(eb <= KTOL[dn], f"K1's Lanczos form {dn}: alpha {eb:.2e} from B7")
+    u2, a2, b2, br2, mu2, sc2 = tls.lanczos_update_ref(
+        op.diags, op.offsets, vc, vp, pair.alpha, init["bprev"],
+        init["broke"], init["m_used"], init["jj"][1], 1e-7)
+    want = (u2, a2, b2, b2, br2, mu2, sc2)      # in got's order
+    _build.check(pair.fu(pair.addr, stream), "K5")
+    torch.cuda.synchronize()
+    got = (st["u"], st["alphas"][:, j], st["betas"][:, j], st["bprev"],
+           st["broke"], st["m_used"], st["scale"])
+    eu = max(rel_max(got[i], want[i]) for i in (0, 1, 2, 3, 6))
+    check(eu <= KTOL[dn], f"K5 {dn}: {eu:.2e} from its twin")
+    check(torch.equal(got[4], want[4]) and torch.equal(got[5], want[5]),
+          f"K5 {dn}: broke or m_used differ from its twin")
+    abs_a = float(max((vc - vc_ref).abs().max(),
+                      (pair.alpha - a_ref).abs().max()))
+    abs_u = float(max((got[i] - want[i]).abs().max() for i in (0, 1, 2, 3, 6)))
+    keep = {k: v.clone() for k, v in st.items()}
+    for k, v in st.items():
+        v.copy_(init[k])
+    _build.check(pair.fa(pair.addr, stream), "K1's Lanczos form")
+    _build.check(pair.fu(pair.addr, stream), "K5")
+    torch.cuda.synchronize()
+    same = all(torch.equal(st[k], keep[k]) for k in st)
+    check(same, f"K1's Lanczos form and K5 {dn}: bits differ between two "
+          "runs from one state")
+    print(f"kernel K1 Lanczos form and K5 {dn} config #3 ({nb}, {n}), step "
+          f"{j}, row {nb - 1} broken down: pass A {ea:.2e} from its twin, "
+          f"alpha {eb:.2e} from B7 on each row; K5 {eu:.2e} from its twin "
+          f"on pass A's output (tol {KTOL[dn]:g}), broke and m_used equal; "
+          "bits repeat from one state", flush=True)
+    return abs_a, abs_u, dict(
+        pair=pair,
+        plain_a=lambda: tls.spmm_alpha_ref(op.diags, op.offsets, st["u"],
+                                           st["scale"], st["broke"]),
+        plain_u=lambda: tls.lanczos_update_ref(
+            op.diags, op.offsets, vc, vp, pair.alpha, st["bprev"],
+            st["broke"], st["m_used"], st["jj"][1], 1e-7))
 
 
 def batched_path(et, dev, card):
@@ -4778,6 +4937,12 @@ def batched_path(et, dev, card):
         if dt == f64:
             errs["banded_spmm"] = float((Y - tsp.banded_spmm_ref(
                 opd.diags, opd.offsets, Xd)).abs().max())
+    pair_in = {}
+    for dt in (torch.float32, f64):
+        e1, e2, pin = pair_checks(et, dev, opP, X3, dt, gen)
+        if dt == f64:
+            errs["banded_spmm_alpha"], errs["lanczos_update"] = e1, e2
+            pair_in = pin
     for m in (30, 250):
         ins = [r1_inputs(m, f64, dev, SEED + 120 + i,
                          tail=(m - 4 if i == 1 else 0)) for i in range(NB3)]
@@ -4860,7 +5025,8 @@ def batched_path(et, dev, card):
         f"config3 expv_batched {NB3} x m=30": (
             lambda: et.expv_batched(TP, opP, B3, m=30), B3,
             lambda b: et.expv(TP, opP, b, m=30),
-            {"banded_spmm": 30, "tridiag_exp_batched": 1}, 1),
+            {"banded_spmm_alpha": 30, "lanczos_update": 30,
+             "tridiag_exp_batched": 1}, 1),
         f"config2 expv_batched {NB2} x two-pass m=40": (
             lambda: et.expv_batched(T1, op1, B2, m=40, two_pass=True), B2,
             lambda b: et.expv(T1, op1, b, m=40, two_pass=True),
@@ -4929,6 +5095,39 @@ def batched_path(et, dev, card):
         calls[f"{name} per-row"] = (lambda row=row, Bm=Bm: [
             row(b) for b in Bm.unbind(0)])
 
+    # ---- no torch pass over (NB3, n) in the fused step; a replayed step ----
+    big = {m: big_ops(lambda m=m: et.expv_batched(TP, opP, B3, m=m), NB3 * nP)
+           for m in (4, 6)}
+    unf = unfused_operator(opP)
+    ubig = {m: big_ops(lambda m=m: et.expv_batched(TP, unf, B3, m=m), NB3 * nP)
+            for m in (4, 6)}
+    per_step = {k: (big[6][k] - big[4][k]) / 2
+                for k in set(big[6]) | set(big[4])}
+    uper_step = {k: (ubig[6][k] - ubig[4][k]) / 2
+                 for k in set(ubig[6]) | set(ubig[4])}
+    check(not any(per_step.values()), f"batched config3: torch ops over "
+          f"({NB3}, {nP}) inside the fused step: {per_step}")
+    check(sum(uper_step.values()) > 0, f"batched config3: the dispatch mode "
+          f"saw no torch op over ({NB3}, {nP}) in the unfused step")
+    print(f"check batched config3 fused step: torch ops over ({NB3}, {nP}) "
+          f"a step {sum(per_step.values()):g} (ops a call at m = 4 / 6: "
+          f"{sum(big[4].values())} / {sum(big[6].values())}); the unfused "
+          f"step's {sum(uper_step.values()):g} a step "
+          f"{ {k: v for k, v in sorted(uper_step.items()) if v} }",
+          flush=True)
+    from exponentialutilities_jl_torch.ops import krylov as tk
+    steps = {}
+    for form, o in (("fused", opP), ("unfused", unf)):
+        t = {m: statistics.median([event_ms(lambda m=m: tk.lanczos(
+            o, B3, m))[1] for _ in range(3)]) for m in (10, 30)}
+        steps[form] = (t[30] - t[10]) / 20
+    sb = (k5 + 4 * NB3) * nP * 8 / HBM_BYTES_PER_S * 1e3
+    print(f"time batched config3 replayed step (lanczos, ({NB3}, {nP}), the "
+          f"slope between m = 10 and 30, medians of 3): fused "
+          f"{steps['fused']:.4f} ms, unfused {steps['unfused']:.4f} ms; "
+          f"bound {sb:.4f} ms by bytes ((k + 3 batch) n 8 + the basis row) "
+          f"{card}", flush=True)
+
     # ---- K1-K4 times: plain, kernel, kernel, plain; library call ----
     Pd = opP
     csr = banded_csr(Pd).tocsr()
@@ -4972,6 +5171,16 @@ def batched_path(et, dev, card):
                    NB2 * (40 * N1 * (2 * 3 + 6) + 2 * N1)),
             "resident_nbr_kernel", f"config #2 ({NB2}, {N1}) m=40"),
     }
+    pa = pair_in["pair"]
+    stream = _build.raw_stream(pa.u.device)
+    cases["banded_spmm_alpha"] = (
+        lambda: pa.fa(pa.addr, stream), pair_in["plain_a"], None,
+        ((k5 + 2 * NB3) * nP * 8, 2 * k5 * nP * NB3 + 3 * nP * NB3),
+        "banded_spmm_kernel", f"config #3 ({NB3}, {nP}), step {PAIR_J}")
+    cases["lanczos_update"] = (
+        lambda: pa.fu(pa.addr, stream), pair_in["plain_u"], None,
+        ((k5 + 3 * NB3) * nP * 8, 2 * k5 * nP * NB3 + 6 * nP * NB3),
+        "lanczos_update_kernel", f"config #3 ({NB3}, {nP}), step {PAIR_J}")
     for name, (kfn, pfn, lfn, wk, kname, what) in cases.items():
         p1, k1, k2, p2 = (median_ms(f) for f in (pfn, kfn, kfn, pfn))
         kb = burst_ms(kfn)
@@ -6418,8 +6627,8 @@ def main() -> int:
     print(f"main launches of the dense and gradient path: {dense_counts}",
           flush=True)
     for k in ("resident_lanczos_batched", "resident_recurrence_batched",
-              "banded_spmm", "tridiag_exp_batched", "banded_spmv",
-              "sell_spmv"):
+              "banded_spmm_alpha", "lanczos_update", "tridiag_exp_batched",
+              "banded_spmv", "sell_spmv"):
         check(dense_counts[k] > 0, f"kernel {k} never launched on the "
               "dense and gradient path")
 

@@ -19,7 +19,10 @@ R1, the Hermitian reduced exponential (``ops/kernels/tridiag.py``). The
 batched forms of ``expv_batched`` count apart: ``banded_spmm`` (K1, B7
 batched), ``tridiag_exp_batched`` (K2, R1 batched),
 ``resident_lanczos_batched`` (K3, B2's cluster form batched) and
-``resident_recurrence_batched`` (K4, B1's neighbour form batched).
+``resident_recurrence_batched`` (K4, B1's neighbour form batched). The
+fused batched Lanczos step (``ops/kernels/lanczos_step.py``) counts its
+two kernels: ``banded_spmm_alpha`` (K1's Lanczos form) and
+``lanczos_update`` (K5).
 """
 
 from __future__ import annotations
@@ -40,9 +43,9 @@ __all__ = ["library", "check", "check_operands", "require_cuda",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
-SOURCES = ("common.cuh", "resident.cu", "resident_cluster.cu",
-           "resident_family.cu", "fused_sweep.cu", "spmv.cu", "sell.cu",
-           "tridiag.cu")
+SOURCES = ("common.cuh", "banded_rows.cuh", "resident.cu",
+           "resident_cluster.cu", "resident_family.cu", "fused_sweep.cu",
+           "spmv.cu", "sell.cu", "tridiag.cu", "lanczos_step.cu")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-Xcompiler", "-fPIC")
 
@@ -55,7 +58,8 @@ launches = {"resident_recurrence": 0, "resident_lanczos": 0,
             "banded_spmv": 0, "blockell_spmv": 0, "sell_spmv": 0,
             "seg_compact": 0, "tridiag_exp": 0, "banded_spmm": 0,
             "tridiag_exp_batched": 0, "resident_lanczos_batched": 0,
-            "resident_recurrence_batched": 0}
+            "resident_recurrence_batched": 0, "banded_spmm_alpha": 0,
+            "lanczos_update": 0}
 
 
 def reset_launch_counts():
@@ -150,6 +154,15 @@ def _declare(lib):
         f = getattr(lib, f"eu_banded_spmm_{suf}")
         f.argtypes = [_VP, _VP, _VP, _I, _VP]
         f.restype = _I
+        for name in (f"eu_banded_spmm_alpha_{suf}", f"eu_lanczos_update_{suf}"):
+            f = getattr(lib, name)
+            f.argtypes = [_VP, _VP]
+            f.restype = _I
+        for name in (f"eu_banded_spmm_alpha_grid_{suf}",
+                     f"eu_lanczos_update_grid_{suf}"):
+            f = getattr(lib, name)
+            f.argtypes = [_VP]
+            f.restype = _I
         f = getattr(lib, f"eu_blockell_spmv_{suf}")
         f.argtypes = [_VP, _VP, _VP, _LL, _I, _I, _I, _VP, _VP]
         f.restype = _I

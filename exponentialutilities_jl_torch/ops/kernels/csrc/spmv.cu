@@ -39,13 +39,33 @@
 // X (batch, n). It replaces the same TPU kernel (JAX vmaps B7's callers,
 // models/expv.py _batched_build). Bound: HBM, with (k + 2 batch) n
 // sizeof(T) bytes for the block, against batch (k + 2) n for a B7 launch
-// a row: the point is that the diagonals cross HBM once for every row of
-// a block (up to kSpmmRows rows; more rows take more blocks along y). A
-// block keeps B7's geometry and interior/edge split (the same blo, bhi)
-// and holds kSpmmRows x V accumulators; each group of kSpmmGroup
-// diagonals' pieces is loaded once and applied to every row, so each
-// row's terms are B7's, in offset order, one FMA each: a row's bits are
-// a B7 launch's on that row.
+// a row: the diagonals cross HBM once for every row. The first design
+// held 16 rows x V accumulators and a group's x values a thread:
+// over 100 registers, one block of 256 threads an SM, few loads in flight,
+// 47-52 % of the bound. This one (banded_rows.cuh) keeps B7's segments
+// and interior/edge split but:
+//  * holds the pieces of the k diagonals in registers (instantiated for
+//    k = 3 and 5, banded_dispatch) and streams the batch rows past them,
+//    one row's x loads then its FMAs: ~V (2k + 2) live values, built for
+//    kMinBlocksR = 3 blocks an SM;
+//  * sizes the grid to the blocks the card holds at once
+//    (max_coresident_blocks), each block striding over the segments, so
+//    no batch limit and no second wave of a few blocks;
+//  * takes the interior path as a template argument, and reads an x piece
+//    whose offset keeps the 16-byte alignment as one vector load.
+// Each row's sum stays B7's, in offset order, one FMA a term (any other
+// k: kGroupR diagonals at a time, the pieces re-read through L1 for each
+// row), so a row's bits are a B7 launch's on that row.
+//
+// K1's Lanczos form (pass A of the fused batched Lanczos step; K5 in
+// csrc/lanczos_step.cu is pass B): the same kernel under the mode
+// SpmmLanczos. It reads x = u_r scale_r (the previous step's
+// normalization folded into this read), writes v_j = x's own rows to the
+// step's slot (a basis row or a ring slot, picked by j read on the
+// device), and adds v_j . A v_j per row into the block's partials; the
+// launch's last block (a ticket the kernel resets itself) sums them in
+// block order into alpha (batch,): no float atomics. A broken-down row is
+// skipped (its slot written zero). Bound: (k + 2 batch) n sizeof(T) bytes.
 //
 // B8 replaces exponentialutilities_jl_tpu/ops/kernels/spmv.py
 //   _spmv_kernel  (blockell_spmv, spmv.py:42)
@@ -73,10 +93,10 @@
 // depend on the operands' alignment. Any other (br, bc) takes the general
 // kernel: the lanes stride over the w bc products of each of the br rows.
 //
-// No float atomics: every other result is bitwise repeatable.
+// No float atomics: every result is bitwise repeatable.
 #include <cstddef>
 
-#include "common.cuh"
+#include "banded_rows.cuh"
 
 namespace eu {
 
@@ -107,58 +127,9 @@ blockell_spmv_kernel(const T* __restrict__ blocks, const int* __restrict__ bcols
   }
 }
 
-template <typename T> struct Piece16;
-template <> struct Piece16<float> {
-  using type = float4;
-  static __device__ __forceinline__ float dot(float4 a, float4 b, float acc) {
-    acc = fmaf(a.x, b.x, acc);
-    acc = fmaf(a.y, b.y, acc);
-    acc = fmaf(a.z, b.z, acc);
-    return fmaf(a.w, b.w, acc);
-  }
-  static __device__ __forceinline__ float fma1(float a, float b, float c) {
-    return fmaf(a, b, c);
-  }
-  static __device__ __forceinline__ void split(float4 a, float (&e)[4]) {
-    e[0] = a.x; e[1] = a.y; e[2] = a.z; e[3] = a.w;
-  }
-  static __device__ __forceinline__ float4 join(const float (&e)[4]) {
-    return make_float4(e[0], e[1], e[2], e[3]);
-  }
-};
-template <> struct Piece16<double> {
-  using type = double2;
-  static __device__ __forceinline__ double dot(double2 a, double2 b, double acc) {
-    acc = fma(a.x, b.x, acc);
-    return fma(a.y, b.y, acc);
-  }
-  static __device__ __forceinline__ double fma1(double a, double b, double c) {
-    return fma(a, b, c);
-  }
-  static __device__ __forceinline__ void split(double2 a, double (&e)[2]) {
-    e[0] = a.x; e[1] = a.y;
-  }
-  static __device__ __forceinline__ double2 join(const double (&e)[2]) {
-    return make_double2(e[0], e[1]);
-  }
-};
-
 constexpr int kStepsB = 8;      // warp steps of loads issued before their FMAs
 
-// The 16-byte piece at a p that may not be 16-byte aligned, as V scalar
-// loads (the values of one vector load). EVICT: the block stream.
-template <typename T, bool EVICT>
-__device__ __forceinline__ typename Piece16<T>::type load_scalars(const T* p) {
-  typename Piece16<T>::type v;
-  T* e = reinterpret_cast<T*>(&v);
-#pragma unroll
-  for (int u = 0; u < (int)(16 / sizeof(T)); ++u) e[u] = EVICT ? __ldcs(p + u) : __ldg(p + u);
-  return v;
-}
-
 constexpr int kGroup = 8;       // B7: diagonals whose loads precede their FMAs
-constexpr int kSpmmRows = 16;   // K1: batch rows of a block (spmv.SPMM_ROWS)
-constexpr int kSpmmGroup = 4;   // K1: diagonals of a group (registers: 16 rows)
 
 // B7 (module note): block b owns rows [b R, b R + R), R = kThreads V, and
 // thread t of it rows i0 .. i0 + V - 1; the blocks in [blo, bhi) are
@@ -240,93 +211,113 @@ banded_spmv_kernel(const T* __restrict__ diags, Offsets1D offs,
     if (i0 + v < n) y[i0 + v] = acc[v];
 }
 
-// K1, B7's batched form (module note): block (b, c) owns rows [b R, b R +
-// R) of the batch rows [c kSpmmRows, c kSpmmRows + kSpmmRows), thread t
-// rows i0 .. i0 + V - 1 of each. A group of diagonals' pieces is loaded
-// once and serves every batch row of the block, so the diagonals cross
-// HBM once for up to kSpmmRows rows; each row's sum is B7's, term for
-// term (the same loads, zeros and FMAs in offset order), so its bits are
-// a B7 launch's on that row.
-template <typename T, bool ALIGNED>
-__global__ void __launch_bounds__(kThreads)
-banded_spmm_kernel(const T* __restrict__ diags, Offsets1D offs,
-                   const T* __restrict__ X, long long n, long long blo,
-                   long long bhi, int batch, T* __restrict__ Y) {
-  using P = Piece16<T>;
-  using VT = typename P::type;
-  constexpr int V = 16 / sizeof(T);
+// K1's modes (module note; the row body is banded_rows.cuh's). Plain:
+// Y[r] = A X[r]. Lanczos (pass A of the fused batched Lanczos step,
+// csrc/lanczos_step.cu): X[r] = u_r scale_r is v_j, written to its slot,
+// and each block's partials of alpha_r = v_j . A v_j; the launch's last
+// block sums them in block order into alpha.
+template <typename T>
+struct SpmmPlain {
+  static constexpr bool kScaled = false;
+  static constexpr int V = 16 / sizeof(T);
+  const T* X;
+  T* Y;
+  long long n;
+  int batch;
+  __device__ void begin(unsigned char*) {}
+  __device__ void end() {}
+  __device__ bool skip(int) const { return false; }
+  template <bool A, bool I>
+  __device__ void skipped(int, long long) {}
+  __device__ const T* x(int r) const { return X + (long long)r * n; }
+  __device__ T scale(int) const { return T(1); }
+  template <bool A, bool I>
+  __device__ void out(int r, long long i0, const T (&acc)[V], const T (&)[V]) {
+    store_own<T, A, I>(Y + (long long)r * n, i0, n, acc);
+  }
+};
+
+template <typename T>
+struct SpmmLanczos {
+  static constexpr bool kScaled = true;
+  static constexpr int V = 16 / sizeof(T);
+  const T* u;
+  T* v;
+  long long n, urow, vrow, vslot;
+  int nslots, batch;
+  const T* sc;
+  const unsigned char* broke;
+  T* alpha;
+  T* partial;
+  int* ticket;
+  const long long* jj;
+  bool have_xc;
+  T* vc;          // slot j of row 0 (begin)
+  T* red;         // the warps' partials in shared memory (begin)
+  static SpmmLanczos make(const LanczosLaunch& p) {
+    return SpmmLanczos{static_cast<const T*>(p.u), static_cast<T*>(p.v), p.n, p.urow,
+                       p.vrow, p.vslot, p.nslots, p.batch,
+                       static_cast<const T*>(p.scale), p.broke,
+                       static_cast<T*>(p.alpha), static_cast<T*>(p.partial), p.ticket,
+                       p.jj, p.zc >= 0, nullptr, nullptr};
+  }
+  __device__ void begin(unsigned char* smem) {
+    const long long j = *jj;
+    vc = v + (nslots ? j % nslots : j) * vslot;
+    red = reinterpret_cast<T*>(smem);
+    clear_partials(red, batch);
+  }
+  __device__ bool skip(int r) const { return broke[r] != 0; }
+  template <bool A, bool I>
+  __device__ void skipped(int r, long long i0) {
+    T z[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) z[e] = T(0);
+    store_own<T, A, I>(vc + r * vrow, i0, n, z);
+  }
+  __device__ const T* x(int r) const { return u + r * urow; }
+  __device__ T scale(int r) const { return sc[r]; }
+  template <bool A, bool I>
+  __device__ void out(int r, long long i0, const T (&acc)[V], const T (&xc)[V]) {
+    T w[V];
+    if (have_xc) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) w[e] = xc[e];
+    } else {                      // no zero offset: v_j's own rows again
+      load_own<T, A, I, false>(u + r * urow, i0, n, w);
+      const T s = sc[r];
+#pragma unroll
+      for (int e = 0; e < V; ++e) w[e] = w[e] * s;
+    }
+    store_own<T, A, I>(vc + r * vrow, i0, n, w);
+    T part = T(0);
+#pragma unroll
+    for (int e = 0; e < V; ++e) part = fma_rn(w[e], acc[e], part);
+    warp_partial(red, batch, r, part);
+  }
+  __device__ void end() {
+    if (!publish_partials(red, batch, partial, ticket)) return;
+    T* a = alpha;
+    reduce_partials(partial, batch, ticket, [a](int r, T t) { a[r] = t; });
+  }
+};
+
+// K1 (module note): every mode's rows through banded_segments; the mode's
+// begin and end frame it (K1's Lanczos form: the partials and the last
+// block's sums). Dynamic shared memory: the mode's (kWarpsR x batch
+// partials in the Lanczos form).
+template <typename T, int KH, bool ALIGNED, typename Mode>
+__global__ void __launch_bounds__(kThreads, kMinBlocksR)
+banded_spmm_kernel(const T* __restrict__ diags, Offsets1D offs, long long n,
+                   long long blo, long long bhi, int zc, Mode md) {
+  extern __shared__ __align__(16) unsigned char spmm_smem[];
   __shared__ int o_sh[kMaxPoints];
   const int k = offs.k;
   for (int j = threadIdx.x; j < k; j += kThreads) o_sh[j] = offs.o[j];
+  md.begin(spmm_smem);
   __syncthreads();
-  const long long b = blockIdx.x;
-  const int r0 = blockIdx.y * kSpmmRows;
-  const int nr = batch - r0 < kSpmmRows ? batch - r0 : kSpmmRows;
-  const long long i0 = (b * kThreads + threadIdx.x) * V;
-  if (i0 >= n) return;
-  X += (long long)r0 * n;
-  Y += (long long)r0 * n;
-  const bool interior = b >= blo && b < bhi;   // uniform in the block
-  T acc[kSpmmRows][V];
-#pragma unroll
-  for (int r = 0; r < kSpmmRows; ++r)
-#pragma unroll
-    for (int v = 0; v < V; ++v) acc[r][v] = T(0);
-  for (int j0 = 0; j0 < k; j0 += kSpmmGroup) {
-    T d[kSpmmGroup][V];
-#pragma unroll
-    for (int g = 0; g < kSpmmGroup; ++g) {
-      if (j0 + g < k) {
-        const T* dp = diags + (long long)(j0 + g) * n;
-        if (interior) {
-          if constexpr (ALIGNED) P::split(__ldcs(reinterpret_cast<const VT*>(dp + i0)), d[g]);
-          else P::split(load_scalars<T, true>(dp + i0), d[g]);
-        } else {
-#pragma unroll
-          for (int v = 0; v < V; ++v) d[g][v] = i0 + v < n ? __ldcs(dp + i0 + v) : T(0);
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kSpmmRows; ++r) {
-      if (r < nr) {
-        const T* xr = X + (long long)r * n;
-        T xv[kSpmmGroup][V];
-#pragma unroll
-        for (int g = 0; g < kSpmmGroup; ++g) {
-          if (j0 + g < k) {
-            const long long o = o_sh[j0 + g];
-#pragma unroll
-            for (int v = 0; v < V; ++v) {
-              const long long i = i0 + v, q = i + o;
-              xv[g][v] = interior ? __ldg(xr + q)
-                                  : ((i < n && q >= 0 && q < n) ? __ldg(xr + q) : T(0));
-            }
-          }
-        }
-#pragma unroll
-        for (int g = 0; g < kSpmmGroup; ++g) {
-          if (j0 + g < k) {
-#pragma unroll
-            for (int v = 0; v < V; ++v) acc[r][v] = P::fma1(d[g][v], xv[g][v], acc[r][v]);
-          }
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kSpmmRows; ++r) {
-    if (r < nr) {
-      T* yr = Y + (long long)r * n;
-      if (ALIGNED && interior) {
-        *reinterpret_cast<VT*>(yr + i0) = P::join(acc[r]);
-      } else {
-#pragma unroll
-        for (int v = 0; v < V; ++v)
-          if (i0 + v < n) yr[i0 + v] = acc[r][v];
-      }
-    }
-  }
+  banded_segments<T, KH, ALIGNED>(diags, o_sh, k, zc, n, blo, bhi, md);
+  md.end();
 }
 
 // B8 for (BR, BC) blocks whose rows hold whole 16-byte pieces (module note)
@@ -388,10 +379,6 @@ blockell_spmv_tiled(const T* __restrict__ blocks, const int* __restrict__ bcols,
   if (q == 0 && e % kRowLanes == 0) y[r * BR + i] = acc;
 }
 
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<size_t>(p) & 15) == 0;
-}
-
 // What every B7 launch on one matrix shares, built once on the host by
 // its plan (ops/kernels/spmv.py BandedPlan, whose ctypes mirror is
 // _BandedLaunch), so a launch passes 4 arguments (ctypes converts every
@@ -405,26 +392,16 @@ static_assert(sizeof(BandedLaunch) == 296 && offsetof(BandedLaunch, offs) == 32,
               "the ctypes mirror in ops/kernels/spmv.py assumes this layout");
 
 // Refused unless every x read of the interior blocks lies in [0, n) (the
-// kernel does not check there).
+// kernel does not check there: check_banded).
 template <typename T>
 int launch_banded_spmv(const BandedLaunch* p, const T* x, T* y,
                        cudaStream_t stream) {
   constexpr long long R = (long long)kThreads * (16 / sizeof(T));
   const long long n = p->n, blo = p->blo, bhi = p->bhi;
   const Offsets1D& o = p->offs;
-  if (n < 1 || o.k < 1 || o.k > kMaxPoints || blo < 0 || bhi < blo)
-    return (int)cudaErrorInvalidValue;
+  const int e = check_banded(n, blo, bhi, o, R);
+  if (e) return e;
   const long long grid = (n + R - 1) / R;
-  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  if (bhi > blo) {
-    int lo = o.o[0], hi = o.o[0];
-    for (int j = 1; j < o.k; ++j) {
-      lo = lo < o.o[j] ? lo : o.o[j];
-      hi = hi > o.o[j] ? hi : o.o[j];
-    }
-    if (blo * R + lo < 0 || bhi * R + (hi > 0 ? hi : 0) > n)
-      return (int)cudaErrorInvalidValue;
-  }
   const T* diags = static_cast<const T*>(p->diags);
   if (aligned16(diags) && n % (16 / sizeof(T)) == 0)
     banded_spmv_kernel<T, true><<<(unsigned)grid, kThreads, 0, stream>>>(
@@ -435,36 +412,69 @@ int launch_banded_spmv(const BandedLaunch* p, const T* x, T* y,
   return (int)cudaGetLastError();
 }
 
-// K1: B7's checks, then a (row blocks, batch / kSpmmRows) grid.
+// K1: B7's checks, then the segments' grid.
 template <typename T>
 int launch_banded_spmm(const BandedLaunch* p, const T* X, T* Y, int batch,
                        cudaStream_t stream) {
   constexpr long long R = (long long)kThreads * (16 / sizeof(T));
-  const long long n = p->n, blo = p->blo, bhi = p->bhi;
-  const Offsets1D& o = p->offs;
-  if (n < 1 || o.k < 1 || o.k > kMaxPoints || blo < 0 || bhi < blo || batch < 1)
-    return (int)cudaErrorInvalidValue;
-  const long long grid = (n + R - 1) / R;
-  const long long chunks = (batch + kSpmmRows - 1) / kSpmmRows;
-  if (grid > 0x7fffffffLL || chunks > 65535) return (int)cudaErrorInvalidValue;
-  if (bhi > blo) {
-    int lo = o.o[0], hi = o.o[0];
-    for (int j = 1; j < o.k; ++j) {
-      lo = lo < o.o[j] ? lo : o.o[j];
-      hi = hi > o.o[j] ? hi : o.o[j];
-    }
-    if (blo * R + lo < 0 || bhi * R + (hi > 0 ? hi : 0) > n)
-      return (int)cudaErrorInvalidValue;
-  }
+  const long long n = p->n;
+  const int e = check_banded(n, p->blo, p->bhi, p->offs, R);
+  if (e) return e;
+  if (batch < 1) return (int)cudaErrorInvalidValue;
   const T* diags = static_cast<const T*>(p->diags);
-  const dim3 g((unsigned)grid, (unsigned)chunks);
-  if (aligned16(diags) && aligned16(Y) && n % (16 / sizeof(T)) == 0)
-    banded_spmm_kernel<T, true><<<g, kThreads, 0, stream>>>(diags, o, X, n, blo, bhi,
-                                                            batch, Y);
-  else
-    banded_spmm_kernel<T, false><<<g, kThreads, 0, stream>>>(diags, o, X, n, blo, bhi,
-                                                             batch, Y);
-  return (int)cudaGetLastError();
+  const SpmmPlain<T> md{X, Y, n, batch};
+  const bool al = aligned16(diags) && aligned16(X) && aligned16(Y) &&
+                  n % (16 / sizeof(T)) == 0;
+  return banded_dispatch(p->offs.k, [&](auto kh) -> int {
+    constexpr int KH = decltype(kh)::value;
+    const void* fn = al ? (const void*)banded_spmm_kernel<T, KH, true, SpmmPlain<T>>
+                        : (const void*)banded_spmm_kernel<T, KH, false, SpmmPlain<T>>;
+    int grid = 0;
+    const int g = segment_grid(fn, n, R, &grid);
+    if (g) return g;
+    if (al)
+      banded_spmm_kernel<T, KH, true><<<grid, kThreads, 0, stream>>>(
+          diags, p->offs, n, p->blo, p->bhi, -1, md);
+    else
+      banded_spmm_kernel<T, KH, false><<<grid, kThreads, 0, stream>>>(
+          diags, p->offs, n, p->blo, p->bhi, -1, md);
+    return (int)cudaGetLastError();
+  });
+}
+
+// K1's Lanczos form: the grid the descriptor's query chose (the partials
+// were sized for it).
+template <typename T>
+int launch_banded_spmm_alpha(const LanczosLaunch* p, cudaStream_t stream) {
+  const int e = check_lanczos<T>(*p);
+  if (e) return e;
+  if (p->grid_alpha < 1) return (int)cudaErrorInvalidConfiguration;
+  const size_t smem = (size_t)kWarpsR * p->batch * sizeof(T);
+  const T* diags = static_cast<const T*>(p->diags);
+  const SpmmLanczos<T> md = SpmmLanczos<T>::make(*p);
+  const bool al = lanczos_aligned<T>(*p);
+  return banded_dispatch(p->offs.k, [&](auto kh) -> int {
+    constexpr int KH = decltype(kh)::value;
+    if (al)
+      banded_spmm_kernel<T, KH, true><<<p->grid_alpha, kThreads, smem, stream>>>(
+          diags, p->offs, p->n, p->blo, p->bhi, p->zc, md);
+    else
+      banded_spmm_kernel<T, KH, false><<<p->grid_alpha, kThreads, smem, stream>>>(
+          diags, p->offs, p->n, p->blo, p->bhi, p->zc, md);
+    return (int)cudaGetLastError();
+  });
+}
+
+template <typename T>
+int spmm_alpha_grid(LanczosLaunch* p) {
+  constexpr long long R = (long long)kThreads * (16 / sizeof(T));
+  const bool al = lanczos_aligned<T>(*p);
+  return banded_dispatch(p->offs.k, [&](auto kh) -> int {
+    constexpr int KH = decltype(kh)::value;
+    const void* fn = al ? (const void*)banded_spmm_kernel<T, KH, true, SpmmLanczos<T>>
+                        : (const void*)banded_spmm_kernel<T, KH, false, SpmmLanczos<T>>;
+    return segment_grid(fn, p->n, R, &p->grid_alpha);
+  });
 }
 
 template <typename T>
@@ -503,6 +513,13 @@ int launch_blockell_spmv(const T* blocks, const int* bcols, const T* x,
   extern "C" int eu_banded_spmm_##SUF(const eu::BandedLaunch* p, const T* X, T* Y,  \
                                       int batch, void* stream) {                     \
     return eu::launch_banded_spmm<T>(p, X, Y, batch, (cudaStream_t)stream);          \
+  }                                                                                  \
+  extern "C" int eu_banded_spmm_alpha_##SUF(const eu::LanczosLaunch* p,           \
+                                            void* stream) {                          \
+    return eu::launch_banded_spmm_alpha<T>(p, (cudaStream_t)stream);                 \
+  }                                                                                  \
+  extern "C" int eu_banded_spmm_alpha_grid_##SUF(eu::LanczosLaunch* p) {             \
+    return eu::spmm_alpha_grid<T>(p);                                                \
   }                                                                                  \
   extern "C" int eu_blockell_spmv_##SUF(const T* blocks, const int* bcols,           \
                                         const T* x, long long nbr, int w, int br,    \

@@ -6,7 +6,8 @@
   (``BandedOperator``); its batched form K1 ``banded_spmm(diags,
   offsets, X)`` takes each row of X (batch, n) in one launch that reads
   the diagonals once for every row (``BandedOperator.matmat``, the
-  batched Krylov builders' product).
+  batched Krylov builders' product); its Lanczos form is pass A of the
+  fused batched Lanczos step (``lanczos_step.py``).
 * B8 ``blockell_spmv(blocks, bcols, x)``: blocked ELL,
   y[r br + i] = sum_k sum_j blocks[r, k, i, j] x[bcols[r, k] bc + j]
   (``BlockELLOperator``).
@@ -36,11 +37,10 @@ from ...utils.precision import full_precision
 from . import _build
 
 __all__ = ["banded_spmv", "banded_spmv_ref", "banded_spmm", "banded_spmm_ref",
-           "BandedPlan", "banded_interior", "SPMM_ROWS",
+           "BandedPlan", "banded_interior",
            "blockell_spmv", "blockell_spmv_ref", "ROW_THREADS"]
 
 ROW_THREADS = 256       # threads of a B7 block: eu::kThreads in csrc/common.cuh
-SPMM_ROWS = 16          # K1: batch rows a block carries (eu::kSpmmRows)
 
 
 def banded_spmv_ref(diags, offsets, x):

@@ -78,6 +78,18 @@ with the scalar builder to rounding (tests/test_torch_batched_build.py
 holds 1e-14), not bit for bit. A batched call runs through the same
 ``_run``: step 0 eagerly, one capture, then m - 2 replays a builder call,
 whatever the batch.
+
+The fused batched Lanczos step. Where ``_fused_ok`` holds (a
+``BandedOperator``, a (batch, n) real float32/float64 block, no ``comm``,
+no ``full_reorth``, nothing autograd must see), ``lanczos`` and
+``lanczos_coeffs`` take ``_fused_lanczos_step`` instead: two kernels a
+step on the card (K1's Lanczos form and K5, ``ops/kernels/
+lanczos_step.py``), their plain twin on the CPU, and no torch op over the
+(batch, n) block. Its state keeps the next vector before its
+normalization (``vc`` as ``u``, with a per-row ``scale``) and v_j in
+slots (V's rows, or a ring of two in place of ``vp``), so the
+normalization and vp <- vc cost no pass; ``lanczos`` writes V's last row
+after the loop. Every other batched or scalar case keeps the step above.
 """
 
 from __future__ import annotations
@@ -436,8 +448,10 @@ def lanczos(op, b, m: int, *, tol: float = 1e-7,
         betas=torch.zeros(lead + (m,), dtype=rdt, device=dev),
         rows=torch.arange(m + 1, device=dev))
     V[..., 0, :] = S.vc
-    _run("lanczos", op, S, _lanczos_step(op, S, tol, comm, full_reorth),
-         m, dev)
+    step = _lanczos_step(op, S, tol, comm, full_reorth)
+    _run("lanczos", op, S, step, m, dev)
+    if hasattr(step, "finish"):
+        step.finish()
     m_used = torch.where(beta0 == 0, 0, S.m_used).to(torch.int32)
 
     H = torch.zeros(lead + (m + 1, m), dtype=rdt, device=dev)
@@ -450,11 +464,61 @@ def lanczos(op, b, m: int, *, tol: float = 1e-7,
                        breakdown=S.broke, hermitian=True)
 
 
+def _fused_ok(op, S: _State, comm, full_reorth) -> bool:
+    """The gate of the fused batched Lanczos step (module doc): a
+    ``BandedOperator`` (whose ``matmat`` is K1 on CUDA), a (batch, n)
+    block, no ``comm``, no ``full_reorth``, a real float32/float64 block
+    within ``lanczos_step.pair_ok``'s shapes, and nothing that autograd or
+    a ``torch.func`` transform must see (the grad rule of
+    ``utils/graphs``, on the block and the diagonals)."""
+    from .kernels.lanczos_step import pair_ok
+    from .sparse import BandedOperator
+
+    return (comm is None and not full_reorth and S.lead == 1
+            and isinstance(op, BandedOperator) and pair_ok(op, S.vc)
+            and not graphs._sees_grad_now([S.vc, op.diags]))
+
+
+def _fused_lanczos_step(op, S: _State, tol: float, basis: bool):
+    """The fused step (``ops/kernels/lanczos_step.py``) on S: ``vc`` (v_0,
+    made contiguous: a transposed b gives a strided one) becomes the
+    pair's ``u``, ``scale`` 1; the slots are V (``basis``) or
+    a (batch, 2, n) ring in place of ``vp``. The counter advances in place
+    (the pair's descriptor holds it). With ``basis`` the step carries
+    ``finish``, which writes V's last row after the loop."""
+    from .kernels.lanczos_step import LanczosPair
+
+    u = S.vc = S.vc.contiguous()
+    S.scale = torch.ones(u.shape[0], dtype=u.dtype, device=u.device)
+    if basis:
+        slots, nslots = S.V, 0
+    else:
+        slots, nslots = torch.zeros((u.shape[0], 2, u.shape[1]),
+                                    dtype=u.dtype, device=u.device), 2
+    S.vp = slots
+    pair = LanczosPair(op, u, S.scale, slots, nslots, S.alphas, S.betas,
+                       S.bprev, S.broke, S.m_used, S.jj, tol)
+
+    def step():
+        pair()
+        S.jj.add_(1)
+
+    if basis:
+        def finish():
+            S.V.select(1, -1).copy_(pair.last_row())
+        step.finish = finish
+    return step
+
+
 def _lanczos_step(op, S: _State, tol: float, comm, full_reorth=None):
     """The Lanczos step on S (``_lanczos_state``): alpha_j and beta_j
     recorded, v_{j+1} into ``vc`` (and row j + 1 of V where S keeps the
-    basis: ``full_reorth`` not None)."""
+    basis: ``full_reorth`` not None). Where ``_fused_ok`` holds, the fused
+    step (``_fused_lanczos_step``) instead; the builder then calls its
+    ``finish``, where it has one, after the loop."""
 
+    if _fused_ok(op, S, comm, full_reorth):
+        return _fused_lanczos_step(op, S, tol, full_reorth is not None)
     L = S.lead
 
     def step():

@@ -20,6 +20,7 @@ from exponentialutilities_jl_torch.ops.kernels import _build
 from exponentialutilities_jl_torch.ops.kernels import dispatch as td
 from exponentialutilities_jl_torch.ops.kernels import lanczos_fused as tf
 from exponentialutilities_jl_torch.ops.kernels import resident as tr
+from exponentialutilities_jl_torch.utils.linop import LinearOperator
 from tridiag_cases import case_tol, hard_cases
 
 pytestmark = pytest.mark.cuda
@@ -328,7 +329,8 @@ def test_phi_path_dispatches_to_kernels(dev):
         "fused_sweep_var": 0, "sweep_stage": 0, "banded_spmv": 0, "blockell_spmv": 0, "sell_spmv": 0,
         "seg_compact": 0, "tridiag_exp": 0, "banded_spmm": 0,
         "tridiag_exp_batched": 0, "resident_lanczos_batched": 0,
-        "resident_recurrence_batched": 0}
+        "resident_recurrence_batched": 0, "banded_spmm_alpha": 0,
+        "lanczos_update": 0}
     for w in (w1, w2):
         assert float((w - w3).norm() / w3.norm()) < 1e-10
 
@@ -3142,6 +3144,215 @@ def test_k4_recurrence_batched(dev, dt, batch):
     _close(s2, sr, dt)
 
 
+# --- the fused batched Lanczos step: K1's Lanczos form and K5 -------------
+
+class _Unfused(LinearOperator):
+    """A ``BandedOperator`` behind a wrapper that is no ``BandedOperator``:
+    the batched builders take their unfused step (K1 and torch ops)."""
+
+    def __init__(self, op):
+        self.op, self.is_hermitian = op, True
+        self.shape, self.dtype, self.device = op.shape, op.dtype, op.device
+
+    def matvec(self, x):
+        return self.op.matvec(x)
+
+    def matmat(self, X):
+        return self.op.matmat(X)
+
+    def opnorm_hint(self):
+        return self.op.opnorm_hint()
+
+
+def _pair_case(case, dt, dev):
+    """(operator, batch) of a pair test: the zero offset present or not,
+    aligned and odd n, more diagonals than the kernels hold in registers,
+    one row and more than 16, every segment an edge segment."""
+    g = np.random.default_rng(700)
+    if case == "poisson":
+        return et.poisson_2d(64, 64, dtype=dt, device=dev), 5
+    if case == "batch 1":
+        return et.poisson_2d(64, 64, dtype=dt, device=dev), 1
+    if case == "batch 17":
+        return et.poisson_2d(40, 40, dtype=dt, device=dev), 17
+    n, offs = {"no zero offset": (4096, (-3, -1, 1, 3)),
+               "odd n": (4099, (-70, -1, 0, 1, 70)),
+               "k17": (5000, tuple(range(-40, 45, 5))),
+               "tiny": (3, (-1, 0, 1))}[case]
+    D = torch.as_tensor(g.standard_normal((len(offs), n)) * 0.3, dtype=dt,
+                        device=dev)
+    return et.BandedOperator(D, offs, is_hermitian=True), 3
+
+
+def _pair_state(op, batch, m, j, nslots, dt, dev, seed):
+    """A fused step's state at step j on the card: random u, scale, slots
+    and bprev (0 at j = 0), row 1 broken down, m_used = j."""
+    n = op.shape[0]
+    g = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dt, device=dev)
+
+    broke = torch.zeros(batch, dtype=torch.bool, device=dev)
+    broke[1:2] = True
+    return dict(
+        u=t(g.standard_normal((batch, n))), scale=t(g.uniform(0.5, 2, batch)),
+        slots=t(g.standard_normal((batch, m + 1 if nslots == 0 else 2, n))),
+        nslots=nslots, alphas=t(np.zeros((batch, m))),
+        betas=t(np.zeros((batch, m))),
+        bprev=t(g.uniform(0.5, 1.0, batch) if j else np.zeros(batch)),
+        broke=broke, m_used=torch.full((batch,), j, dtype=torch.int64,
+                                       device=dev),
+        jj=torch.tensor([j, j + 1], device=dev))
+
+
+def _pair(op, st):
+    from exponentialutilities_jl_torch.ops.kernels import lanczos_step as tl
+    c = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+         for k, v in st.items()}
+    return tl.LanczosPair(op, c["u"], c["scale"], c["slots"], c["nslots"],
+                          c["alphas"], c["betas"], c["bprev"], c["broke"],
+                          c["m_used"], c["jj"], 1e-7)
+
+
+PAIR_FIELDS = ("slots", "u", "alphas", "betas", "bprev", "scale")
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("case", ["poisson", "no zero offset", "odd n", "k17",
+                                  "batch 1", "batch 17", "tiny"])
+@pytest.mark.parametrize("j,nslots", [(0, 0), (3, 0), (0, 2), (3, 2)])
+def test_k1_lanczos_form_and_k5_vs_twin(dev, dt, case, j, nslots):
+    """One fused step (K1's Lanczos form, then K5) against the pair's twin
+    on the same state: v_j in its slot (a basis row or the ring), u, the
+    records, scale within RTOL, broke and m_used equal; one launch of each
+    kernel; the bits repeat from the same state (fixed-order sums)."""
+    op, batch = _pair_case(case, dt, dev)
+    st = _pair_state(op, batch, 6, j, nslots, dt, dev, 800 + j)
+    kern, twin = _pair(op, st), _pair(op, st)
+    _build.reset_launch_counts()
+    kern()
+    assert (_build.launches["banded_spmm_alpha"],
+            _build.launches["lanczos_update"]) == (1, 1)
+    twin.plain_step()
+    for name in PAIR_FIELDS:
+        _close(getattr(kern, name), getattr(twin, name), dt)
+    assert torch.equal(kern.broke, twin.broke)
+    assert torch.equal(kern.m_used, twin.m_used)
+    again = _pair(op, st)
+    again()
+    for name in PAIR_FIELDS:
+        assert torch.equal(getattr(again, name), getattr(kern, name)), name
+
+
+def _fused_rows(op, dt, dev):
+    """(5, n) rows on a poisson_2d(64, 64): random, zero (row 1) and the
+    lowest eigenvector (row 2, a breakdown at step 1)."""
+    g = np.random.default_rng(810)
+    X = g.standard_normal((5, op.shape[0]))
+    X[1] = 0.0
+    s = np.sin(np.pi * np.arange(1, 65) / 65)
+    X[2] = np.outer(s, s).ravel() / np.sum(s * s)
+    return torch.as_tensor(X, dtype=dt, device=dev)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("builder", ["lanczos", "lanczos_coeffs"])
+def test_fused_builder_vs_unfused(dev, dt, builder):
+    """The batched builder on a BandedOperator runs the pair (executions:
+    one of each kernel a step, no K1 and no B7) against the unfused step
+    (K1 a step): records and basis within the recurrence's tolerance,
+    broke and m_used equal, the zero row zero, the eigenvector row broken
+    down at step 1; bit-equal to its call under graphs.eager()."""
+    from exponentialutilities_jl_torch.ops import krylov as tk
+    from exponentialutilities_jl_torch.utils import graphs
+
+    op = et.poisson_2d(64, 64, dtype=dt, device=dev)
+    B = _fused_rows(op, dt, dev)
+    m, tol = 16, {torch.float32: 1e-4, torch.float64: 1e-7}[dt]
+    rtol = {torch.float32: 1e-4, torch.float64: 1e-12}[dt]
+    fn = getattr(tk, builder)
+    call = (lambda o: fn(o, B, m, tol=tol))
+    call(op)
+    torch.cuda.synchronize()
+    _reset_counts()
+    got = call(op)
+    torch.cuda.synchronize()
+    exe = {k: v for k, v in _executions().items() if v}
+    assert exe == {"banded_spmm_alpha": m, "lanczos_update": m}, exe
+    _reset_counts()
+    ref = call(_Unfused(op))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _executions().items() if v} == \
+        {"banded_spmm": m}
+    with graphs.eager():
+        eager = call(op)
+    if builder == "lanczos":
+        pairs = [(got.H, ref.H, eager.H), (got.V, ref.V, eager.V)]
+        flags = [(got.m_used, ref.m_used), (got.breakdown, ref.breakdown)]
+        assert not got.V[1].any() and not got.V[2, 2:].any()
+        mu = got.m_used
+    else:
+        pairs = [(got[i], ref[i], eager[i]) for i in (0, 1, 2)]
+        flags = [(got[3], ref[3]), (got[4], ref[4])]
+        mu = got[3]
+    for a, b, c in pairs:
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= rtol * max(scale, 1e-300)
+        assert torch.equal(a, c)
+    for a, b in flags:
+        assert torch.equal(a, b)
+    assert mu.tolist()[1:3] == [0, 1]
+
+
+def _outputs(out):
+    """The tensors of a builder's or ``expv_batched``'s result."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, tuple):
+        return list(out)
+    return [out.V, out.H, out.beta, out.m_used, out.breakdown]
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("entry", ["lanczos", "lanczos_coeffs",
+                                   "expv_batched"])
+def test_fused_builder_transposed_block(dev, dt, entry):
+    """A block passed as the transpose of an (n, batch) array (rows with a
+    stride of 1 between elements' rows) runs the pair: the same result as
+    the unfused step on that block and as the fused step on its contiguous
+    copy (the start vector's norm may round apart between the layouts)."""
+    from exponentialutilities_jl_torch.ops import krylov as tk
+
+    op = et.poisson_2d(64, 64, dtype=dt, device=dev)
+    B = _fused_rows(op, dt, dev)
+    Bt = B.T.contiguous().T
+    assert torch.equal(Bt, B) and not Bt.is_contiguous()
+    m, tol = 16, {torch.float32: 1e-4, torch.float64: 1e-7}[dt]
+    rtol = {torch.float32: 1e-4, torch.float64: 1e-12}[dt]
+    if entry == "expv_batched":
+        def call(o, X):
+            return et.expv_batched(1e-3, o, X, m=m, tol=tol)
+    else:
+        fn = getattr(tk, entry)
+
+        def call(o, X):
+            return fn(o, X, m, tol=tol)
+    _reset_counts()
+    got = _outputs(call(op, Bt))
+    torch.cuda.synchronize()
+    exe = _executions()
+    assert (exe["banded_spmm_alpha"], exe["lanczos_update"]) == (m, m), exe
+    ref = _outputs(call(_Unfused(op), Bt))
+    same = _outputs(call(op, B))
+    for a, b in [*zip(got, ref), *zip(got, same)]:
+        if a.is_floating_point():
+            scale = float(b.abs().max())
+            assert float((a - b).abs().max()) <= rtol * max(scale, 1e-300)
+        else:
+            assert torch.equal(a, b)
+
+
 def _batched_cells(dev):
     """expv_batched cells: {name: (call of B, B, per-row call, exact
     executions)}."""
@@ -3157,7 +3368,8 @@ def _batched_cells(dev):
     return {
         "lanczos": (lambda B: et.expv_batched(1e-4, P, B, m=30), BP,
                     lambda b: et.expv(1e-4, P, b, m=30),
-                    {"banded_spmm": 30, "tridiag_exp_batched": 1}),
+                    {"banded_spmm_alpha": 30, "lanczos_update": 30,
+                     "tridiag_exp_batched": 1}),
         "two-pass": (lambda B: et.expv_batched(0.5, S, B, m=40,
                                                two_pass=True), BS,
                      lambda b: et.expv(0.5, S, b, m=40, two_pass=True),
@@ -3179,9 +3391,9 @@ def _batched_cells(dev):
                                   "iop two-pass"])
 def test_expv_batched_one_build(dev, name):
     """One expv_batched call is one batched build: its kernels' executions
-    exact (K1 once a step for the whole batch, one K2 launch, one K3 and
-    the K4 groups), one capture a builder call, the result bit-equal to
-    the call under graphs.eager() and within 1e-13 of the rows' expv (the
+    exact (the fused Lanczos pair or K1 once a step for the whole batch,
+    one K2 launch, one K3 and the K4 groups), one capture a builder call,
+    the result bit-equal to the call under graphs.eager() and within 1e-13 of the rows' expv (the
     batched norms and dots sum in another order than a row's)."""
     from exponentialutilities_jl_torch.utils import graphs
 

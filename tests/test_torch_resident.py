@@ -169,7 +169,8 @@ def test_cpu_runs_twin_not_kernel():
                                "seg_compact": 0, "tridiag_exp": 0,
                                "banded_spmm": 0, "tridiag_exp_batched": 0,
                                "resident_lanczos_batched": 0,
-                               "resident_recurrence_batched": 0}
+                               "resident_recurrence_batched": 0,
+                               "banded_spmm_alpha": 0, "lanczos_update": 0}
 
 
 def test_resident_supported_and_rejects():
