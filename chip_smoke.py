@@ -225,7 +225,11 @@ its seconds:
               each row within 1e-13 of its scalar expv, the cell within
               1e-10 of its oracle, batched against per-row timed in
               turns; K1-K4 against their twins and bit for bit against
-              B7, R1, B2 and B1 on each row, K4's sums within 1e-14; K1's
+              B7, R1, B2 and B1 on each row, K4's sums within 1e-14; K3's
+              geometry (clusters of B2's shape carrying P rows, the
+              card's active clusters for each P, one wave required) and
+              K4's (s steps a halo exchange, its chunk, a step's time as
+              the slope between m = 12 and 41); K1's
               Lanczos form and K5 each against its twin at the cell's
               shape, bits repeating; a replayed step, fused and unfused;
               the kernels' times, bounds and library calls).
@@ -514,8 +518,8 @@ SOURCES = {
     "tridiag_exp": "exponentialutilities_jl_torch/ops/kernels/csrc/tridiag.cu",
     "banded_spmm": "exponentialutilities_jl_torch/ops/kernels/csrc/spmv.cu",
     "tridiag_exp_batched": "exponentialutilities_jl_torch/ops/kernels/csrc/tridiag.cu",
-    "resident_lanczos_batched": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_cluster.cu",
-    "resident_recurrence_batched": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_family.cu",
+    "resident_lanczos_batched": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_cluster_batched.cu",
+    "resident_recurrence_batched": "exponentialutilities_jl_torch/ops/kernels/csrc/resident_nbr_batched.cu",
     "banded_spmm_alpha": "exponentialutilities_jl_torch/ops/kernels/csrc/spmv.cu",
     "lanczos_update": "exponentialutilities_jl_torch/ops/kernels/csrc/lanczos_step.cu",
 }
@@ -4986,6 +4990,18 @@ def batched_path(et, dev, card):
           f"{N1}), m=40: max rel err {e:.2e} vs the batched twin (tol "
           f"{KTOL['float64']:g}); every row bit for bit B2 on that row; "
           f"nonzero betas a row {used}", flush=True)
+    plan3 = tr.lanczos_plan(op1, f64, op1.device)
+    g3 = plan3.batch_geometry(NB2)
+    check(g3.waves == 1, f"K3: {g3.waves} waves at ({NB2}, {N1})")
+    k3_kernel = ("resident_lanczos_cluster_kernel" if g3.per == 1 else
+                 "resident_lanczos_cluster_rows_kernel")
+    print(f"geometry K3 float64 config #2 ({NB2}, {N1}): clusters of C = "
+          f"{g3.cluster} blocks of L = {g3.rows} rows carrying P = {g3.per} "
+          f"rows, R = {g3.per_thread} rows of a row a thread; "
+          f"{g3.clusters} clusters, the card holds {g3.active} at once: "
+          f"{g3.waves} wave(s); active clusters for P = "
+          f"{dict(zip(tr.CLUSTER_BATCH_ROWS, g3.counts))} ({k3_kernel}) "
+          f"{card}", flush=True)
     errs["resident_lanczos_batched"] = float((ab - abr).abs().max())
     rows = torch.as_tensor(gen.standard_normal((NB2, 40, 4)) * 0.3,
                            device=dev)
@@ -5006,6 +5022,7 @@ def batched_path(et, dev, card):
         check(torch.equal(W[i], w1), f"K4: row {i}'s w differs from B1's")
         es = max(es, abs(float(s2[i] - n1)) / max(float(n1), 1e-300))
     check(es <= K4_SUM_TOL, f"K4: sum w^2 {es:.2e} from B1's")
+    g4 = plan4.geometry
     print(f"kernel K4 resident_recurrence batched float64 config #2 ({NB2}, "
           f"{N1}), m=40: {plan4.rows_per_launch} rows a launch of "
           f"{plan4.rows_per_launch} x {plan4.grid} blocks of {plan4.chunk} "
@@ -5014,6 +5031,19 @@ def batched_path(et, dev, card):
           f"err {e:.2e} vs the batched twin (tol {KTOL['float64']:g}); every "
           f"row's w bit for bit B1's, its sum of w^2 within {es:.2e} (tol "
           f"{K4_SUM_TOL:g})", flush=True)
+    k4_ms = {}
+    for mm in (12, 41):
+        rr = torch.as_tensor(gen.standard_normal((NB2, mm, 4)) * 0.3,
+                             device=dev)
+        rr[..., 0] *= 0.25
+        k4_ms[mm] = burst_ms(lambda rr=rr: tr.resident_recurrence(
+            op1, B2, rr, sc))
+    print(f"geometry K4 float64 config #2 ({NB2}, {N1}): s = {g4.s} steps a "
+          f"halo exchange, chunk = {g4.chunk} rows a block, J = "
+          f"{g4.per_thread} rows a thread, {g4.threads} threads a block; "
+          f"back to back m = 12 {k4_ms[12]:.4f} ms, m = 41 {k4_ms[41]:.4f} "
+          f"ms: {(k4_ms[41] - k4_ms[12]) / 29 * 1e3:.3f} us a step (slope) "
+          f"{card}", flush=True)
     errs["resident_recurrence_batched"] = float(max((W - Wr).abs().max(),
                                                     (s2 - s2r).abs().max()))
 
@@ -5162,14 +5192,14 @@ def batched_path(et, dev, card):
             lambda: tr.resident_lanczos_batched_ref(V0, op1.coeffs, offs1,
                                                     40, 1e-7),
             None, (NB2 * (N1 + 2 * 40) * 8, NB2 * 40 * N1 * (2 * 3 + 8)),
-            "resident_lanczos_cluster_kernel", f"config #2 ({NB2}, {N1}) m=40"),
+            k3_kernel, f"config #2 ({NB2}, {N1}) m=40"),
         "resident_recurrence_batched": (
             lambda: tr.resident_recurrence(op1, B2, rows, sc),
             lambda: tr.resident_recurrence_batched_ref(B2, rows, op1.coeffs,
                                                        offs1, sc),
             None, (NB2 * (2 * N1 + 4 * 40 + 1) * 8,
                    NB2 * (40 * N1 * (2 * 3 + 6) + 2 * N1)),
-            "resident_nbr_kernel", f"config #2 ({NB2}, {N1}) m=40"),
+            "resident_nbr_rows_kernel", f"config #2 ({NB2}, {N1}) m=40"),
     }
     pa = pair_in["pair"]
     stream = _build.raw_stream(pa.u.device)

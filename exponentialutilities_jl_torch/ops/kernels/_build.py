@@ -18,8 +18,9 @@ stage of B3 and B3-var (the moments and the Lanczos scalars), ``tridiag_exp``
 R1, the Hermitian reduced exponential (``ops/kernels/tridiag.py``). The
 batched forms of ``expv_batched`` count apart: ``banded_spmm`` (K1, B7
 batched), ``tridiag_exp_batched`` (K2, R1 batched),
-``resident_lanczos_batched`` (K3, B2's cluster form batched) and
-``resident_recurrence_batched`` (K4, B1's neighbour form batched). The
+``resident_lanczos_batched`` (K3, B2's cluster form batched: B2's
+kernel or the rows kernel, whichever the batch's geometry takes) and
+``resident_recurrence_batched`` (K4, B1 batched, the rows in registers). The
 fused batched Lanczos step (``ops/kernels/lanczos_step.py``) counts its
 two kernels: ``banded_spmm_alpha`` (K1's Lanczos form) and
 ``lanczos_update`` (K5).
@@ -43,8 +44,9 @@ __all__ = ["library", "check", "check_operands", "require_cuda",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
-SOURCES = ("common.cuh", "banded_rows.cuh", "resident.cu",
-           "resident_cluster.cu", "resident_family.cu", "fused_sweep.cu",
+SOURCES = ("common.cuh", "banded_rows.cuh", "cluster.cuh", "flags.cuh",
+           "resident.cu", "resident_cluster.cu", "resident_cluster_batched.cu",
+           "resident_family.cu", "resident_nbr_batched.cu", "fused_sweep.cu",
            "spmv.cu", "sell.cu", "tridiag.cu", "lanczos_step.cu")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-Xcompiler", "-fPIC")
@@ -99,6 +101,15 @@ def _declare(lib):
         f.restype = _I
         f = getattr(lib, f"eu_resident_lanczos_cluster_batched_{suf}")
         f.argtypes = [_VP, _VP, _I, real, _VP, _I, _VP]
+        f.restype = _I
+        f = getattr(lib, f"eu_lanczos_cluster_rows_fits_{suf}")
+        f.argtypes = [_VP, _I]
+        f.restype = _I
+        f = getattr(lib, f"eu_resident_lanczos_cluster_rows_{suf}")
+        f.argtypes = [_VP, _VP, _I, real, _VP, _I, _I, _VP]
+        f.restype = _I
+        f = getattr(lib, f"eu_nbr_rows_capacity_{suf}")
+        f.argtypes = [_I, _I, _I]
         f.restype = _I
         f = getattr(lib, f"eu_resident_multi_{suf}")
         f.argtypes = [_VP, _VP, _VP, _I, _VP, _VP, _I, _LL, _I, _VP, _VP, _VP]

@@ -54,62 +54,29 @@
 // pass k + 1, which every reader of pass k's values reached after reading
 // them. A first barrier lets every block start before any DSMEM store, a
 // last one keeps every block alive until no block reads its memory.
-// K3, B2's batched form (pass 1 of expv_batched's 1-D two-pass): the same
-// kernel over a grid of batch x C blocks in clusters of C, cluster c
-// recording row c of v0 (batch, n) into its (m, 2) slice of ab. The
-// clusters never wait on each other (every barrier and DSMEM access is
-// within a cluster), so the batch needs no co-residency across rows: the
-// card runs as many clusters at once as it holds and queues the rest.
+// K3, B2's batched form (pass 1 of expv_batched's 1-D two-pass), where it
+// takes one row a cluster (resident.cluster_batch_geometry's P = 1: the
+// card holds the batch's clusters at once, or no P does): the same kernel
+// over a grid of batch x C blocks in clusters of C, cluster c recording row
+// c of v0 (batch, n) into its (m, 2) slice of ab. The clusters never wait
+// on each other (every barrier and DSMEM access is within a cluster), so
+// the card runs as many clusters at once as it holds and queues the rest.
 // Each row runs B2's arithmetic on the cluster's geometry, so its record
-// is bit for bit a B2 launch's on that row.
+// is bit for bit a B2 launch's on that row. Clusters of two or four rows:
+// csrc/resident_cluster_batched.cu.
 #include <cooperative_groups.h>
 
-#include <cstddef>
-
-#include "common.cuh"
+#include "cluster.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace eu {
-
-constexpr int kClusterThreads = 1024;   // threads of a block of the cluster
-static_assert(kClusterThreads == 32 * 32, "block_total2 reads one value per warp");
-
-// What a cluster launch reads on the host, built once per plan (mirrored by
-// resident._LanczosLaunch).
-struct LanczosLaunch {
-  const void* cvals;   // k coefficients, in the launch's dtype
-  long long n;
-  long long rows;      // L: rows a block owns
-  int cluster;         // C blocks
-  int k;
-  int o[kMaxPoints];
-};
-static_assert(offsetof(LanczosLaunch, n) == 8 && offsetof(LanczosLaunch, rows) == 16 &&
-                  offsetof(LanczosLaunch, cluster) == 24 && offsetof(LanczosLaunch, k) == 28 &&
-                  offsetof(LanczosLaunch, o) == 32 && sizeof(LanczosLaunch) == 288,
-              "LanczosLaunch layout is mirrored by resident._LanczosLaunch");
-
-__host__ __device__ inline int halo_of(const LanczosLaunch& L) {
-  int h = 0;
-  for (int j = 0; j < L.k; ++j) h = L.o[j] > h ? L.o[j] : (-L.o[j] > h ? -L.o[j] : h);
-  return h;
-}
 
 // Dynamic shared memory of a block: two y spans of L + 2h (own rows and
 // halo rows) and the published edges pub[2][2 sides][3][h].
 inline size_t cluster_smem(const LanczosLaunch& L, size_t itemsize) {
   const size_t h = (size_t)halo_of(L);
   return (2 * (size_t)L.rows + 4 * h + 12 * h) * itemsize;
-}
-
-// Sum over a warp by butterfly: every lane ends with the same bits (each
-// level adds the same two values, in either order).
-template <typename T>
-__device__ __forceinline__ T warp_total(T v) {
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
-  return v;
 }
 
 // Two block sums in a fixed order, the same bits in every thread. red holds
@@ -126,19 +93,6 @@ __device__ __forceinline__ void block_total2(T& a, T& b, T* red) {
   a = warp_total(red[threadIdx.x & 31]);
   b = warp_total(red[32 + (threadIdx.x & 31)]);
 }
-
-// y_{k+1} of one row: ca u_k + cb y_k + cc y_{k-1}. One function for the
-// owner's rows and a neighbour's halo rows: the same bits in both.
-template <typename T>
-__device__ __forceinline__ T row_y(T ca, T cb, T cc, T u, T y, T yp) {
-  return fma_rn(ca, u, fma_rn(cb, y, cc * yp));
-}
-
-template <typename T, int K>
-struct RowStencil {
-  T c[K > 0 ? K : 1];
-  int o[K > 0 ? K : 1];
-};
 
 template <typename T, int R, int K>
 __global__ void __launch_bounds__(kClusterThreads, 1)
@@ -382,12 +336,6 @@ int launch_cluster(const LanczosLaunch& L, const T* v0, int m, T tol, T* ab,
   e = cudaLaunchKernelEx(&cfg, resident_lanczos_cluster_kernel<T, R, K>, v0, L, m, tol, ab);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
-}
-
-inline bool valid(const LanczosLaunch& L) {
-  return L.k >= 1 && L.k <= kMaxPoints && L.n >= 1 && L.cluster >= 1 && L.cluster <= 16 &&
-         L.rows >= 1 && L.rows <= (1 << 20) && (long long)L.cluster * L.rows >= L.n &&
-         halo_of(L) <= L.rows;   // halo rows come from rank r - 1 or r + 1 only
 }
 
 // Rows a thread: the smallest power of two R with 1024 R >= L, at most 8

@@ -34,18 +34,8 @@
 //     x-lines of the grid and wait for the tiles around them (a 3-D stencil
 //     reaches a plane, nx ny rows, away: more than a block's share of rows
 //     in row order, but one plane of a tile's neighbour).
-// K4, B1's batched form (pass 2 of expv_batched's 1-D two-pass, each row
-// with its own replay rows, scale and sum w^2): resident_nbr_kernel<T,
-// NbrStencil> launched over R rows at once, R x grid blocks, block q being
-// block q % grid of row q / grid. The flags stay between neighbouring
-// blocks of one row, so the rows never wait for each other, but a
-// cooperative launch needs all R x grid blocks resident at once: the host
-// splits the SMs among the rows (grid from SMs / R, so a block owns more
-// rows than in a B1 launch) and launches the batch in groups of R rows
-// where one launch cannot hold it (resident.RecurrenceBatchPlan). Each
-// element's arithmetic is B1's, whatever the block boundaries, so w is
-// bit for bit B1's on that row; sum w^2 adds other blocks' partials in
-// another order (PERF.md states its tolerance).
+// K4, B1's batched form, keeps its rows in registers and exchanges halos
+// every few steps: csrc/resident_nbr_batched.cu.
 // What bounds them on the H100: synchronisation (a neighbour's flag is
 // ~0.9 us, sync_bench.cu) for B1, B4 and B6, HBM bandwidth for B5 in
 // float64 at config #3 (its 40 MB of diagonals every step). The family
@@ -61,6 +51,7 @@
 #include <cstddef>
 
 #include "common.cuh"
+#include "flags.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -261,34 +252,8 @@ static_assert(offsetof(NbrLaunch, partials) == 24 && offsetof(NbrLaunch, ticket)
                   offsetof(NbrLaunch, o) == 68 && sizeof(NbrLaunch) == 328,
               "NbrLaunch layout is mirrored by resident._NbrLaunch");
 
-__device__ __forceinline__ unsigned long long load_acquire(const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_release(unsigned long long* p, unsigned long long v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
-
-// A neighbour is at most one step behind a co-resident block, so a wait of
-// seconds means a broken launch: trap (a launch error the wrapper raises)
-// rather than hang the card.
-__device__ __forceinline__ void wait_flag(const unsigned long long* p, unsigned long long want) {
-  int tries = 0;
-  while (load_acquire(p) < want) {
-    if (++tries > 16) __nanosleep(tries < 64 ? 32 : 128);
-    if (tries > (1 << 25)) __trap();
-  }
-}
-
 constexpr int kNbrThreads = 1024;   // a block of the neighbour form
 constexpr int kMaxCols = 8;         // p <= dispatch.MAX_COLS
-// Block b's flag is flags[b kFlagStride]: one flag per 128-byte line. With
-// the flags packed, sixteen blocks' releases and their neighbours' polls
-// shared a line, and a step cost 0.1-0.2 us more on the H100, depending on
-// where the buffer landed (PERF.md).
-constexpr int kFlagStride = 16;
 
 // B4 (p accumulators).
 // Dynamic shared memory of one block: 3 spans of omega, p accumulator rows.
@@ -472,19 +437,9 @@ resident_nbr_kernel(const T* __restrict__ x, const T* __restrict__ scale,
   __shared__ T red[kNbrThreads / 32];
   __shared__ unsigned long long base_sh;   // the flags' count when the launch started
   __shared__ int last_sh;
-  // K4 (B1 batched): a launch of R rows runs R x L.grid blocks, block q
-  // the block b = q % L.grid of row r = q / L.grid, with that row's x,
-  // scale, rows, w and sum; flags, halo slots and partials by q. A launch
-  // of L.grid blocks is B1's (r = 0, q = b).
-  const int q = blockIdx.x, nq = gridDim.x, r = q / L.grid;
-  const int t = threadIdx.x, b = q - r * L.grid, warp = t >> 5, lane = t & 31;
+  const int t = threadIdx.x, b = blockIdx.x, warp = t >> 5, lane = t & 31;
   const int h = L.h, k = L.k, kd = L.kd, chunk = L.chunk, span = chunk + 2 * h;
   const long long n = L.n, lo = (long long)b * chunk;
-  x += r * n;
-  w += r * n;
-  rows += (long long)r * 4 * m;
-  if (scale) scale += r;
-  if (nrm2) nrm2 += r;
   const int len = (int)(n - lo < chunk ? n - lo : chunk);
   T* wc = reinterpret_cast<T*>(smem_nbr);   // omega_k; span index h + i is row lo + i
   T* wp = wc + span;                         // omega_{k-1}, then omega_{k+1} in place
@@ -512,7 +467,7 @@ resident_nbr_kernel(const T* __restrict__ x, const T* __restrict__ scale,
       for (int i = t; i < len; i += kNbrThreads)
         dsh[(size_t)j * chunk + i] = coefs[(size_t)j * n + lo + i];
   if (fetcher >= 0 && fetcher < 4) coef[0][fetcher] = m > 0 ? rows[fetcher] : T(0);
-  unsigned long long* own = flags + (size_t)q * kFlagStride;
+  unsigned long long* own = flags + (size_t)b * kFlagStride;
   if (t == 0) base_sh = load_acquire(own);
   __syncthreads();
   const unsigned long long base = base_sh;
@@ -569,7 +524,7 @@ resident_nbr_kernel(const T* __restrict__ x, const T* __restrict__ scale,
       break;
     }
     const int par = (step + 1) & 1;
-    T* mine = halo + ((size_t)par * nq + q) * 2 * h;
+    T* mine = halo + ((size_t)par * L.grid + b) * 2 * h;
     // the edge rows first, published as they are computed: [0, h) of the
     // halo slot holds the first h rows, [h, 2h) the last h
     for (int e = t; e < 2 * h; e += kNbrThreads) {
@@ -626,19 +581,19 @@ resident_nbr_kernel(const T* __restrict__ x, const T* __restrict__ scale,
   T sq = T(0);
   for (int i = t; i < len; i += kNbrThreads) sq = fma_rn(acc[i], acc[i], sq);
   sq = nbr_block_sum(sq, red);
-  T* partials = static_cast<T*>(L.partials) + (size_t)r * L.grid;
+  T* partials = static_cast<T*>(L.partials);
   if (t == 0) {
     partials[b] = sq;
     __threadfence();   // the partial is visible before the ticket is
     const unsigned long long done =
-        atomicAdd(static_cast<unsigned long long*>(L.ticket) + r, 1ull) + 1;
+        atomicAdd(static_cast<unsigned long long*>(L.ticket), 1ull) + 1;
     last_sh = done % (unsigned long long)L.grid == 0;
   }
   __syncthreads();
   if (!last_sh) return;
   __threadfence();
   T a = T(0);
-  for (int p = t; p < L.grid; p += kNbrThreads) a += __ldcg(partials + p);
+  for (int q = t; q < L.grid; q += kNbrThreads) a += __ldcg(partials + q);
   a = nbr_block_sum(a, red);
   if (t == 0) nrm2[0] = a;
 }
@@ -1059,16 +1014,10 @@ int launch_multi_nbr(const NbrLaunch& L, const T* x, const T* rows, const T* cw,
   return (int)cudaGetLastError();
 }
 
-// batch > 1 (K4, NbrStencil): ``batch`` rows in one launch of batch x
-// L.grid blocks, the flags, halo and partials sized for them and one ticket
-// a row (the kernel's note); co-residency of the whole launch is the
-// host's choice of L.grid (resident.RecurrenceBatchPlan), and a launch the
-// card cannot hold at once is refused by the cooperative launch.
 template <typename T, typename Op>
 int launch_nbr(const NbrLaunch& L, const T* x, const T* scale, const T* rows, int m, T* w,
-               T* nrm2, cudaStream_t stream, int batch = 1) {
-  if (!nbr_valid(L) || m < 0 || (!Op::kBanded && L.kd != 0) || batch < 1 ||
-      (batch > 1 && Op::kBanded) || (long long)batch * L.grid > 0x7fffffffLL ||
+               T* nrm2, cudaStream_t stream) {
+  if (!nbr_valid(L) || m < 0 || (!Op::kBanded && L.kd != 0) ||
       (nrm2 != nullptr && (L.partials == nullptr || L.ticket == nullptr)))
     return (int)cudaErrorInvalidValue;
   const size_t smem = nbr_smem(L, sizeof(T));
@@ -1076,9 +1025,8 @@ int launch_nbr(const NbrLaunch& L, const T* x, const T* scale, const T* rows, in
   if (e != cudaSuccess) return (int)e;
   void* args[] = {(void*)&x, (void*)&scale, (void*)&rows, (void*)&L,
                   (void*)&m, (void*)&w, (void*)&nrm2};
-  e = cudaLaunchCooperativeKernel((const void*)resident_nbr_kernel<T, Op>,
-                                  dim3(L.grid * batch), dim3(kNbrThreads), args, smem,
-                                  stream);
+  e = cudaLaunchCooperativeKernel((const void*)resident_nbr_kernel<T, Op>, dim3(L.grid),
+                                  dim3(kNbrThreads), args, smem, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -1255,12 +1203,6 @@ int launch_grid(const GridLaunch& L, const T* x, const T* rows, int m, T* w, T* 
       T* w, T* nrm2, void* stream) {                                                \
     return eu::launch_nbr<T, eu::NbrStencil>(*L, x, scale, rows, m, w, nrm2,        \
                                              (cudaStream_t)stream);                 \
-  }                                                                                 \
-  extern "C" int eu_resident_recurrence_nbr_batched_##SUF(                           \
-      const eu::NbrLaunch* L, const T* x, const T* scale, const T* rows, int m,     \
-      T* w, T* nrm2, int batch, void* stream) {                                     \
-    return eu::launch_nbr<T, eu::NbrStencil>(*L, x, scale, rows, m, w, nrm2,        \
-                                             (cudaStream_t)stream, batch);          \
   }                                                                                 \
   extern "C" int eu_resident_banded_nbr_##SUF(                                       \
       const eu::NbrLaunch* L, const T* x, const T* rows, int m, T* w,               \

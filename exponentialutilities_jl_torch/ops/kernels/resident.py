@@ -20,13 +20,18 @@ and cooperative, except B2's cluster form):
   block's state fits on chip; the grid-barrier kernel of
   ``csrc/resident.cu`` otherwise.
 * K3 and K4, the batched forms of B2 and B1 (``expv_batched``'s 1-D
-  two-pass, ``expv_two_pass_resident`` on a (batch, n) b): B2's cluster
-  form with one cluster a row (``LanczosPlan.batched``, a launch for the
-  batch; above the cluster gate each row takes B2's grid form, counted
-  as B2 launches, as a scalar call would), and B1's neighbour form over
-  the rows at once (``RecurrenceBatchPlan``: the SMs split among the rows
-  of a launch, which must all be resident, the batch in groups of the
-  rows a launch holds, each group one launch). Their twins are
+  two-pass, ``expv_two_pass_resident`` on a (batch, n) b). K3
+  (``LanczosPlan.batched``, one launch for the batch): clusters of B2's
+  shape carrying P rows each (``cluster_batch_geometry``: P = 1 is B2's
+  kernel, one cluster a row; P = 2, 4 ``csrc/resident_cluster_batched.cu``,
+  the rows' y in shared memory), the smallest P whose clusters the card
+  holds in one wave; above the cluster gate each row takes B2's grid
+  form, counted as B2 launches, as a scalar call would. K4
+  (``RecurrenceBatchPlan``, ``csrc/resident_nbr_batched.cu``): the SMs
+  split among the rows of a launch, which must all be resident, each
+  block's rows in registers with s steps a halo exchange
+  (``nbr_rows_geometry``), the batch in groups of the rows a launch
+  holds, each group one launch. Their twins are
   ``resident_lanczos_batched_ref`` and ``resident_recurrence_batched_ref``.
 * B2 ``lanczos_coeffs_resident``: Lanczos pass 1 with alpha and beta
   reduced inside the kernel each step (deterministic fixed-order
@@ -101,7 +106,10 @@ __all__ = ["recurrence_apply_resident", "resident_recurrence",
            "grid_tiles", "grid_smem", "grid_dirs", "grid_halo_lines",
            "GRID_MAX_ROWS", "GRID_MAX_HALO", "resident_lanczos_batched_ref",
            "resident_recurrence_batched_ref", "RecurrenceBatchPlan",
-           "recurrence_batch_plan"]
+           "recurrence_batch_plan", "ClusterBatch", "cluster_batch_geometry",
+           "CLUSTER_BATCH_ROWS", "RowsGeometry", "nbr_rows_geometry",
+           "NBR_ROWS_THREADS", "NBR_ROWS_PER_THREAD", "NBR_ROWS_MAX_HALO",
+           "NBR_ROWS_STEPS"]
 
 # The gates of B4 (dispatch.resident_multi_ok) and B6
 # (resident_grid_supported): their state (3 recurrence vectors plus the
@@ -122,6 +130,19 @@ CLUSTER_SIZES = (16, 8)
 # float32 won at 18750 and lost at 28750, and 23,000 is where the two
 # lines of those four times cross
 CLUSTER_MAX_ROWS = {torch.float32: 23_000, torch.float64: 8_192}
+# K3: rows a cluster carries, fastest first (1: B2's kernel, u and y in
+# registers; 2 and 4: the rows kernel, y in shared memory), and the u
+# values a thread of the rows kernel keeps over its rows (eu::kRowRegs)
+CLUSTER_BATCH_ROWS = (1, 2, 4)
+CLUSTER_ROW_REGS = {torch.float32: 32, torch.float64: 14}
+# K4 (csrc/resident_nbr_batched.cu): threads a block at most
+# (eu::kRowsThreads), the rows a thread its instantiations keep (J), the
+# widest stencil reach they take (H), and the steps a halo exchange tried,
+# the most first
+NBR_ROWS_THREADS = 512
+NBR_ROWS_PER_THREAD = (4, 8, 13)
+NBR_ROWS_MAX_HALO = 2
+NBR_ROWS_STEPS = (8, 4, 2, 1)
 NBR_MIN_ROWS = 256              # rows a block of the neighbour form owns at least
 NBR_MAX_COLS = 8                # eu::kMaxCols: accumulators of the neighbour form
 NBR_FLAG_STRIDE = 16            # eu::kFlagStride: one flag per 128-byte line
@@ -363,6 +384,18 @@ class _NbrLaunch(ctypes.Structure):
                 ("o", ctypes.c_int * _build.MAX_POINTS)]
 
 
+class _RowsLaunch(ctypes.Structure):
+    """``eu::RowsLaunch`` (csrc/resident_nbr_batched.cu), built once per
+    plan and stream."""
+    _fields_ = [("coef", ctypes.c_void_p), ("flags", ctypes.c_void_p),
+                ("halo", ctypes.c_void_p), ("partials", ctypes.c_void_p),
+                ("ticket", ctypes.c_void_p), ("n", ctypes.c_longlong),
+                ("grid", ctypes.c_int), ("chunk", ctypes.c_int),
+                ("h", ctypes.c_int), ("k", ctypes.c_int), ("s", ctypes.c_int),
+                ("threads", ctypes.c_int), ("per_thread", ctypes.c_int),
+                ("o", ctypes.c_int * _build.MAX_POINTS)]
+
+
 def cluster_shape(n: int, halo: int, max_rows: int, fits):
     """(C, L) of B2's cluster form for n rows and max|o| = ``halo``, or
     None for the grid form: the first C of ``CLUSTER_SIZES`` whose block
@@ -376,6 +409,50 @@ def cluster_shape(n: int, halo: int, max_rows: int, fits):
         if halo <= rows <= max_rows and fits(c, rows) >= 1:
             return c, rows
     return None
+
+
+class ClusterBatch(NamedTuple):
+    """K3's geometry for a batch (``cluster_batch_geometry``): clusters of
+    ``cluster`` blocks owning ``rows`` rows of each of their ``per`` batch
+    rows (B2's slab split), ``per_thread`` rows of a batch row a thread,
+    ``clusters`` clusters of which the card holds ``active`` at once, so
+    ``waves`` waves; ``counts`` the card's answer for every candidate P, in
+    ``CLUSTER_BATCH_ROWS`` order."""
+    cluster: int
+    rows: int
+    per: int
+    per_thread: int
+    clusters: int
+    active: int
+    waves: int
+    counts: tuple
+
+
+def cluster_batch_geometry(n: int, halo: int, batch: int, max_rows: int,
+                           row_regs: int, probe):
+    """K3's geometry for ``batch`` rows of n, or None where B2 takes its
+    grid form. B2's (C, L) come from ``cluster_shape`` (with ``probe(c,
+    rows, 1)``, B2's own kernel); every candidate P of
+    ``CLUSTER_BATCH_ROWS`` keeps them, and ``probe(C, L, P)`` is the number
+    of such clusters carrying P rows the card holds at once (0 where they
+    do not fit). The first P, the fastest, whose ceil(batch / P) clusters
+    are all resident at once is taken; where none is, the batch runs in
+    waves of P = 1. A thread keeps B2's rows (the least power of two R with
+    1024 R >= L) for P = 1 and ``row_regs`` / P rows of each batch row
+    otherwise."""
+    shape = cluster_shape(n, halo, max_rows, lambda c, rows: probe(c, rows, 1))
+    if shape is None:
+        return None
+    c, rows = shape
+    counts = tuple(probe(c, rows, p) for p in CLUSTER_BATCH_ROWS)
+    per = next((p for p, a in zip(CLUSTER_BATCH_ROWS, counts)
+                if a >= 1 and -(-batch // p) <= a), 1)
+    active = counts[CLUSTER_BATCH_ROWS.index(per)]
+    clusters = -(-batch // per)
+    per_thread = (1 << max(0, (-(-rows // 1024) - 1).bit_length()) if per == 1
+                  else row_regs // per)
+    return ClusterBatch(c, rows, per, per_thread, clusters, active,
+                        -(-clusters // active), counts)
 
 
 class LanczosPlan:
@@ -405,11 +482,13 @@ class LanczosPlan:
                                      self.k, _offsets_field(offsets))
         self.addr = ctypes.addressof(self.launch)
 
+        self._b2_fits = getattr(lib, f"eu_lanczos_cluster_fits_{suf}")
+
         def fits(c, rows):
             self.launch.cluster, self.launch.rows = c, rows
             with _on(self.device):
-                return _checked(getattr(lib, f"eu_lanczos_cluster_fits_{suf}")(
-                    self.addr), "B2 cluster occupancy query")
+                return _checked(self._b2_fits(self.addr),
+                                "B2 cluster occupancy query")
 
         shape = cluster_shape(self.n, max(abs(o) for o in offsets),
                               CLUSTER_MAX_ROWS[dtype], fits)
@@ -417,9 +496,14 @@ class LanczosPlan:
             self.form = "cluster"
             self.cluster, rows = shape
             self.launch.cluster, self.launch.rows = shape
+            self.halo = max(abs(o) for o in offsets)
             self.fn = getattr(lib, f"eu_resident_lanczos_cluster_{suf}")
             self.bfn = getattr(lib,
                                f"eu_resident_lanczos_cluster_batched_{suf}")
+            self.rfn = getattr(lib, f"eu_resident_lanczos_cluster_rows_{suf}")
+            self._rows_fits = getattr(lib,
+                                      f"eu_lanczos_cluster_rows_fits_{suf}")
+            self._geometries = {}
             return
         self.form, self.cluster = "grid", 0
         with _on(self.device):
@@ -464,10 +548,33 @@ class LanczosPlan:
         _build.launches["resident_lanczos"] += 1
         return ab
 
+    def batch_geometry(self, batch: int) -> ClusterBatch:
+        """K3's geometry for ``batch`` rows (``cluster_batch_geometry`` on
+        the card's answers for B2's (C, L)), chosen once per batch size."""
+        hit = self._geometries.get(batch)
+        if hit is None:
+            probe_launch = _LanczosLaunch.from_buffer_copy(self.launch)
+            addr = ctypes.addressof(probe_launch)
+
+            def probe(c, rows, per):
+                probe_launch.cluster, probe_launch.rows = c, rows
+                with _on(self.device):
+                    if per == 1:
+                        return _checked(self._b2_fits(addr),
+                                        "B2 cluster occupancy query")
+                    return _checked(self._rows_fits(addr, per),
+                                    "K3 cluster occupancy query")
+
+            hit = self._geometries[batch] = cluster_batch_geometry(
+                self.n, self.halo, batch, CLUSTER_MAX_ROWS[self.dtype],
+                CLUSTER_ROW_REGS[self.dtype], probe)
+        return hit
+
     def batched(self, V0, m: int, tol: float):
         """The (batch, m, 2) records of the normalized rows of V0 (batch,
-        n): the cluster form as K3, one launch and one cluster a row; the
-        grid form one B2 launch a row (module doc)."""
+        n): the cluster form as K3, one launch of clusters of P rows
+        (``batch_geometry``); the grid form one B2 launch a row (module
+        doc)."""
         if (V0.dtype != self.dtype or V0.device != self.device
                 or V0.dim() != 2 or V0.shape[1:] != self.shape):
             raise ValueError(f"resident_lanczos: expected a (batch,) + "
@@ -481,11 +588,17 @@ class LanczosPlan:
         ab = torch.empty((nb, m, 2), dtype=self.dtype, device=self.device)
         if nb == 0:
             return ab
-        code = self.bfn(self.addr, V0.data_ptr(), m, float(tol),
-                        ab.data_ptr(), nb, _build.raw_stream(self.device))
+        geom = self.batch_geometry(nb)
+        stream = _build.raw_stream(self.device)
+        if geom.per == 1:
+            code = self.bfn(self.addr, V0.data_ptr(), m, float(tol),
+                            ab.data_ptr(), nb, stream)
+        else:
+            code = self.rfn(self.addr, V0.data_ptr(), m, float(tol),
+                            ab.data_ptr(), nb, geom.per, stream)
         if code:
             _build.check(code, "batched resident Lanczos kernel (K3, "
-                         "cluster form)")
+                         f"{geom.per} rows a cluster)")
         _build.launches["resident_lanczos_batched"] += 1
         return ab
 
@@ -749,19 +862,56 @@ class RecurrencePlan(_NbrForm):
         return w, nrm2
 
 
-class RecurrenceBatchPlan(_NbrForm):
+class RowsGeometry(NamedTuple):
+    """K4's blocks for one row (``nbr_rows_geometry``): ``grid`` blocks of
+    ``chunk`` rows, ``s`` steps a halo exchange, ``per_thread`` rows a
+    thread (the instantiation) and ``threads`` threads a block."""
+    grid: int
+    chunk: int
+    s: int
+    per_thread: int
+    threads: int
+
+
+def nbr_rows_geometry(n: int, h: int, blocks: int):
+    """K4's geometry for one row of n with max|o| = h on ``blocks`` SMs, or
+    None: ``nbr_geometry``'s grid and chunk; the most steps s of
+    ``NBR_ROWS_STEPS`` with s h <= chunk whose span, the chunk and s h halo
+    rows each side, a block of at most ``NBR_ROWS_THREADS`` threads holds
+    at the fewest rows a thread J of ``NBR_ROWS_PER_THREAD``; threads the
+    warps that span needs at J. None where h exceeds
+    ``NBR_ROWS_MAX_HALO`` or no s fits."""
+    if h > NBR_ROWS_MAX_HALO:
+        return None
+    grid, chunk = nbr_geometry(n, blocks)
+    for s in NBR_ROWS_STEPS:
+        span = chunk + 2 * s * h
+        if s * h > chunk:
+            continue
+        per = next((j for j in NBR_ROWS_PER_THREAD
+                    if j * NBR_ROWS_THREADS >= span), None)
+        if per is not None:
+            return RowsGeometry(grid, chunk, s, per,
+                                32 * -(-span // (32 * per)))
+    return None
+
+
+class RecurrenceBatchPlan:
     """What every K4 launch on one 1-D constant stencil, for blocks of
     ``batch`` rows of one dtype on one CUDA device, shares: B1's checks
-    and coefficients, and the batched neighbour form's geometry, chosen
-    once: the most rows a launch R (at most ``batch``) for which
-    ``nbr_geometry`` over the SMs / R gives a grid whose R copies the card
-    holds at once with max|o| within a block's rows (its answer), the
-    batch then in ceil(batch / R) launches (``launches_per_call``). Where
-    no R fits, ``form`` is "rows": each row takes the operator's B1 plan
-    (``recurrence_plan``), as a scalar call would. Per stream: flags and
-    halos for R x grid blocks, R x grid partials and R tickets. A call
+    and coefficients, and K4's geometry, chosen once: the most rows a
+    launch R (at most ``batch``) for which ``nbr_rows_geometry`` over the
+    SMs / R gives blocks whose R x grid the card holds at once (its answer
+    for that instantiation and block size), the batch then in ceil(batch /
+    R) launches (``launches_per_call``). Where no R fits (max|o| above
+    ``NBR_ROWS_MAX_HALO``, or a block's span past what its registers
+    hold), ``form`` is "rows": each row takes the operator's B1 plan
+    (``recurrence_plan``), as a scalar call would. Per stream: flags for R
+    x grid blocks and R tickets, the halo slots, R x grid partials. A call
     compares its operands, makes W and the sums with ``torch.empty`` and
     makes one ctypes call a group."""
+
+    _operands = _NbrForm._operands
 
     def __init__(self, op, dtype, device, batch: int):
         self.device = _plan_device(device)
@@ -770,38 +920,53 @@ class RecurrenceBatchPlan(_NbrForm):
         self.shape = (self.batch, self.n)
         offsets = _flat_offsets(op)
         self.cvals = op.coeffs.to(dtype).contiguous()
-        self._nbr_init(self.n, offsets, self.cvals)
-        self.rows_per_launch = 0
+        self.k, self.h = len(offsets), max(abs(o) for o in offsets)
+        self.o = _offsets_field(offsets)
+        lib = _build.library()
+        suf = _build.suffix(dtype)
+        with _on(self.device):
+            self.sms = _checked(lib.eu_device_sms(), "SM count query")
+        capacity = getattr(lib, f"eu_nbr_rows_capacity_{suf}")
+        self.rows_per_launch, self.nbr_launches = 0, 0
         for r in range(min(self.batch, self.sms), 0, -1):
-            self.grid, self.chunk = nbr_geometry(self.n, self.sms // r)
-            if self._fits(copies=r):
-                self.rows_per_launch = r
+            g = nbr_rows_geometry(self.n, self.h, self.sms // r)
+            if g is None:
+                continue
+            with _on(self.device):
+                cap = _checked(capacity(g.per_thread, self.h, g.threads),
+                               "K4 occupancy query")
+            if cap >= r * g.grid:
+                self.rows_per_launch, self.geometry = r, g
                 break
         if not self.rows_per_launch:
             self.form, self.launches_per_call = "rows", self.batch
             self.row_plan = recurrence_plan(op, dtype, self.device)
             return
         self.form = "neighbour"
+        self.grid, self.chunk = self.geometry.grid, self.geometry.chunk
         self.launches_per_call = -(-self.batch // self.rows_per_launch)
-        self.fn = getattr(self.lib,
-                          f"eu_resident_recurrence_nbr_batched_{self.suf}")
+        self.nbr = {}           # stream -> (address, descriptor, buffers...)
+        self.fn = getattr(lib, f"eu_resident_recurrence_nbr_batched_{suf}")
 
     def _batch_launch(self, stream) -> int:
-        """The descriptor's address for ``stream`` (``_nbr_launch``'s, with
-        buffers for the R rows of a launch: block q's flag at ``flags[q
-        NBR_FLAG_STRIDE]``, then one ticket a row)."""
+        """The descriptor's address for ``stream``, with buffers for the R
+        rows of a launch: block q's flag at ``flags[q NBR_FLAG_STRIDE]``,
+        then one ticket a row; two parities of q slots of 4 s h halo
+        values; q partials."""
         hit = self.nbr.get(stream)
         if hit is None:
-            q = self.rows_per_launch * self.grid
+            g = self.geometry
+            q = self.rows_per_launch * g.grid
             flags = torch.zeros(q * NBR_FLAG_STRIDE + self.rows_per_launch,
                                 dtype=torch.int64, device=self.device)
-            halo = torch.empty(max(1, 4 * q * self.h), dtype=self.dtype,
+            halo = torch.empty(max(1, 8 * q * g.s * self.h), dtype=self.dtype,
                                device=self.device)
             partials = torch.empty(q, dtype=self.dtype, device=self.device)
-            launch = _NbrLaunch(
-                self.coef.data_ptr(), flags.data_ptr(), halo.data_ptr(),
+            launch = _RowsLaunch(
+                self.cvals.data_ptr(), flags.data_ptr(), halo.data_ptr(),
                 partials.data_ptr(), flags[q * NBR_FLAG_STRIDE:].data_ptr(),
-                self.n, self.grid, self.chunk, self.h, self.k, 0, self.o)
+                self.n, g.grid, g.chunk, self.h, self.k, g.s, g.threads,
+                g.per_thread, self.o)
             hit = self.nbr[stream] = (ctypes.addressof(launch), launch, flags,
                                       halo, partials)
         return hit[0]
@@ -829,7 +994,7 @@ class RecurrenceBatchPlan(_NbrForm):
                            nrm2[r0:].data_ptr(), nr, stream)
             if code:
                 _build.check(code, "batched resident recurrence kernel (K4, "
-                             "neighbour form)")
+                             "rows in registers)")
             _build.launches["resident_recurrence_batched"] += 1
             self.nbr_launches += 1
         return W, nrm2

@@ -399,7 +399,9 @@ def test_k2_launch_args(monkeypatch, m, shared):
 
 def test_k3_plan_batched(monkeypatch):
     """B2's plan in its cluster form takes a block as K3: one call with
-    the batch; its grid form takes each row as a B2 launch."""
+    the batch, B2's kernel where its clusters of one row hold the batch
+    (or nothing does), else the rows kernel with the smallest P that holds
+    it; its grid form takes each row as a B2 launch."""
     from exponentialutilities_jl_torch.ops.kernels import _build
 
     lib = use_fake_kernel_library(monkeypatch, {
@@ -415,6 +417,16 @@ def test_k3_plan_batched(monkeypatch):
     assert name == "eu_resident_lanczos_cluster_batched_f64"
     assert args[1:] == (V0.data_ptr(), 40, 1e-7, ab.data_ptr(), 3, 0)
     assert _build.launches["resident_lanczos_batched"] == 1
+    # clusters of two rows fit where three clusters of one do not: one
+    # launch of the rows kernel
+    lib.returns["eu_lanczos_cluster_rows_fits_f64"] = 7
+    rows2 = tr.LanczosPlan(op, torch.float64, V0.device)
+    assert rows2.batch_geometry(3)[2:] == (2, 7, 2, 7, 1, (2, 7, 7))
+    ab = rows2.batched(V0, 40, 1e-7)
+    name, args = lib.calls[-1]
+    assert name == "eu_resident_lanczos_cluster_rows_f64"
+    assert args[1:] == (V0.data_ptr(), 40, 1e-7, ab.data_ptr(), 3, 2, 0)
+    assert _build.launches["resident_lanczos_batched"] == 2
     lib.returns["eu_lanczos_cluster_fits_f64"] = 0
     grid = tr.LanczosPlan(op, torch.float64, V0.device)
     assert grid.form == "grid"
@@ -424,18 +436,19 @@ def test_k3_plan_batched(monkeypatch):
 
 
 @pytest.mark.parametrize("batch,rows,grid,launches", [
-    (1, 1, 132, 1), (8, 8, 16, 1), (16, 12, 11, 2), (40, 12, 11, 4)])
+    (1, 1, 132, 1), (8, 8, 16, 1), (16, 8, 16, 2), (40, 8, 16, 5)])
 def test_k4_plan_geometry(monkeypatch, batch, rows, grid, launches):
     """K4's plan at config #2's n = 1e5 float64 on a card of 132 SMs that
-    holds one 1024-thread block an SM up to 227 KB of shared memory: the
-    most rows a launch whose blocks all fit, each group one launch with
-    its rows' pointers, flags for R x grid blocks and R tickets."""
+    holds one block of the rows kernel an SM: the most rows a launch whose
+    blocks' spans (chunk + 2 s h rows) a block's registers hold (at most
+    13 rows a thread of 512), each group one launch with its rows'
+    pointers, flags for R x grid blocks and R tickets, the descriptor with
+    the geometry's s, J and threads."""
     from exponentialutilities_jl_torch.ops.kernels import _build
 
-    optin = 232448 - 4096       # the kernel's static shared memory aside
     lib = use_fake_kernel_library(monkeypatch, {
         "eu_device_sms": 132,
-        "eu_nbr_capacity_f64": lambda kind, smem: 132 if smem <= optin else 0})
+        "eu_nbr_rows_capacity_f64": lambda per, h, threads: 132})
     n = 100000
     op = et.laplacian_nd_stencil(n)
     plan = tr.RecurrenceBatchPlan(op, torch.float64, torch.device("cpu"),
@@ -458,6 +471,11 @@ def test_k4_plan_geometry(monkeypatch, batch, rows, grid, launches):
         assert args[7] == min(rows, batch - r0)
     flags = plan.nbr[0][2]
     assert flags.numel() == rows * grid * tr.NBR_FLAG_STRIDE + rows
+    g = tr.nbr_rows_geometry(n, 1, 132 // rows)
+    L = tr._RowsLaunch.from_address(calls[0][1][0])
+    assert (L.grid, L.chunk, L.h, L.k, L.s, L.per_thread, L.threads) == (
+        grid, g.chunk, 1, 3, g.s, g.per_thread, g.threads)
+    assert g.s * L.h <= L.chunk <= L.threads * L.per_thread - 2 * g.s
 
 
 def test_k4_plan_rows_form(monkeypatch):

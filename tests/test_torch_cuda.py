@@ -3090,37 +3090,73 @@ def _laplacian_rows(n, dt, dev, batch, seed):
     return torch.as_tensor(X, dtype=dt, device=dev)
 
 
+def _breakdown_rows(n, dt, dev, batch, seed):
+    """(batch, n) rows breaking down at different steps: row i with i % 5
+    == 1 zeros, i % 5 = j in (2, 3, 4) the sum of j - 1 eigenvectors of the
+    1-D Laplacian with eigenvalues spread over its spectrum (Lanczos breaks
+    down after j - 1 steps, its last beta ~1e-15), else random."""
+    g = np.random.default_rng(seed)
+    X = g.standard_normal((batch, n))
+    i = np.arange(1, n + 1)
+    for r in range(batch):
+        j = r % 5
+        if j == 1:
+            X[r] = 0.0
+        elif j >= 2:
+            X[r] = sum(np.sin(np.pi * ((q + 1) * n // 4 + r) * i / (n + 1))
+                       for q in range(j - 1))
+    return torch.as_tensor(X, dtype=dt, device=dev)
+
+
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("n", [20000, 100000])
-def test_k3_lanczos_batched_bits(dev, dt, n):
-    """K3 (B2's cluster form, one cluster a row) on each row is bit for
-    bit B2 on that row, rows breaking down at different steps; one launch
-    for the batch."""
+@pytest.mark.parametrize("batch", [1, 5, 8, 9, 16])
+def test_k3_lanczos_batched_bits(dev, dt, n, batch):
+    """K3 (clusters of B2's shape carrying P rows each, one launch for the
+    batch) on each row is bit for bit B2 on that row, rows breaking down at
+    different steps (a threshold of 1e-4 in float32, whose rounding
+    leaves a breakdown's beta near 1e-7); config #2's 8 rows of 1e5 in
+    float64 in one wave."""
     op = et.laplacian_nd_stencil(n, dtype=dt, device=dev)
-    X = _laplacian_rows(n, dt, dev, 5, 40 + n)
+    X = _breakdown_rows(n, dt, dev, batch, 40 + n + batch)
     nrm = torch.linalg.vector_norm(X, dim=-1, keepdim=True)
     V0 = torch.where(nrm > 0, X / torch.where(nrm > 0, nrm, 1.0), 0.0)
     plan = tr.lanczos_plan(op, dt, dev)
     assert plan.form == "cluster"
+    geom = plan.batch_geometry(batch)
+    assert geom.clusters == -(-batch // geom.per)
+    if batch <= geom.per * geom.active:
+        assert geom.waves == 1
+    if (n, batch, dt) == (100000, 8, torch.float64):
+        assert geom.waves == 1, geom
+    tol = {torch.float32: 1e-4, torch.float64: 1e-7}[dt]
     _build.reset_launch_counts()
-    ab = tr.resident_lanczos(op, V0, 40, 1e-7)
+    ab = tr.resident_lanczos(op, V0, 40, tol)
     assert _build.launches["resident_lanczos_batched"] == 1
     assert _build.launches["resident_lanczos"] == 0
-    for i in range(5):
-        assert torch.equal(ab[i], tr.resident_lanczos(op, V0[i], 40, 1e-7))
+    for i in range(batch):
+        assert torch.equal(ab[i], tr.resident_lanczos(op, V0[i], 40, tol)), i
+    used = [int((ab[i, :, 1] > 0).sum()) for i in range(batch)]
+    assert used == [(40, 0, 0, 1, 2)[i % 5] for i in range(batch)], used
     _close(ab, tr.resident_lanczos_batched_ref(
-        V0, op.coeffs, tr._flat_offsets(op), 40, 1e-7), dt)
+        V0, op.coeffs, tr._flat_offsets(op), 40, tol), dt)
 
 
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("batch", [1, 8, 20])
-def test_k4_recurrence_batched(dev, dt, batch):
-    """K4 (B1's neighbour form over the rows at once) on each row: w bit
-    for bit B1's on that row; sum w^2 within 1e-14 (float64) or 1e-6
-    (float32) relative, the blocks' partials added in another grouping;
-    launches = the plan's groups."""
-    n, m = 100000, 12
-    op = et.laplacian_nd_stencil(n, dtype=dt, device=dev)
+@pytest.mark.parametrize("m", [12, 41])
+@pytest.mark.parametrize("stencil", ["laplacian", "wide"])
+def test_k4_recurrence_batched(dev, dt, batch, m, stencil):
+    """K4 (the rows in registers, s steps a halo exchange; m = 41 is no
+    multiple of s) on each row: w bit for bit B1's on that row; sum w^2
+    within 1e-14 (float64) or 1e-6 (float32) relative, the blocks'
+    partials added in another grouping; launches = the plan's groups. The
+    wide stencil reaches two rows, asymmetrically."""
+    n = 100000
+    op = (et.laplacian_nd_stencil(n, dtype=dt, device=dev)
+          if stencil == "laplacian" else et.StencilOperator(
+              (n,), [(1,), (-2,), (0,), (2,)], [0.4, 0.3, -1.2, 0.5],
+              dtype=dt, device=dev))
     X = _laplacian_rows(n, dt, dev, max(batch, 3), 7)[:batch]
     g = np.random.default_rng(8)
     rows = torch.as_tensor(g.standard_normal((batch, m, 4)) * 0.3, dtype=dt,
@@ -3129,10 +3165,12 @@ def test_k4_recurrence_batched(dev, dt, batch):
     scale = torch.as_tensor(g.uniform(0.5, 2.0, batch), dtype=dt, device=dev)
     plan = tr.recurrence_batch_plan(op, dt, dev, batch)
     assert plan.form == "neighbour"
+    assert m % plan.geometry.s != 0 or m == 12
     _build.reset_launch_counts()
     W, s2 = tr.resident_recurrence(op, X, rows, scale)
     assert _build.launches["resident_recurrence_batched"] == \
         plan.launches_per_call == -(-batch // plan.rows_per_launch)
+    assert _build.launches["resident_recurrence"] == 0
     for i in range(batch):
         w1, n1 = tr.resident_recurrence(op, X[i], rows[i], scale[i])
         assert torch.equal(W[i], w1), i
@@ -3142,6 +3180,31 @@ def test_k4_recurrence_batched(dev, dt, batch):
         X, rows, op.coeffs, tr._flat_offsets(op), scale)
     _close(W, Wr, dt)
     _close(s2, sr, dt)
+
+
+def test_b1_b2_scalar_launches_keep_their_kernels(dev):
+    """A vector's B1 and B2 launch their own kernels (their counters, not
+    K3's or K4's), bit for bit the batched forms' rows."""
+    n = 100000
+    op = et.laplacian_nd_stencil(n, dtype=torch.float64, device=dev)
+    X = _laplacian_rows(n, torch.float64, dev, 8, 11)
+    V0 = X / torch.linalg.vector_norm(X, dim=-1, keepdim=True).clamp_min(1)
+    rows = torch.as_tensor(np.random.default_rng(12).standard_normal(
+        (8, 40, 4)) * 0.1, dtype=torch.float64, device=dev)
+    scale = torch.ones(8, dtype=torch.float64, device=dev)
+    _build.reset_launch_counts()
+    ab1 = tr.resident_lanczos(op, V0[0], 40, 1e-7)
+    w1, _ = tr.resident_recurrence(op, X[0], rows[0], scale[0])
+    assert {k: v for k, v in _build.launches.items() if v} == {
+        "resident_lanczos": 1, "resident_recurrence": 1}
+    assert tr.recurrence_plan(op, torch.float64, dev).form == "neighbour"
+    assert tr.lanczos_plan(op, torch.float64, dev).form == "cluster"
+    _build.reset_launch_counts()
+    ab = tr.resident_lanczos(op, V0, 40, 1e-7)
+    W, _ = tr.resident_recurrence(op, X, rows, scale)
+    assert {k: v for k, v in _build.launches.items() if v} == {
+        "resident_lanczos_batched": 1, "resident_recurrence_batched": 1}
+    assert torch.equal(ab[0], ab1) and torch.equal(W[0], w1)
 
 
 # --- the fused batched Lanczos step: K1's Lanczos form and K5 -------------
@@ -3254,6 +3317,52 @@ def _fused_rows(op, dt, dev):
     s = np.sin(np.pi * np.arange(1, 65) / 65)
     X[2] = np.outer(s, s).ravel() / np.sum(s * s)
     return torch.as_tensor(X, dtype=dt, device=dev)
+
+
+@pytest.mark.parametrize("builder", ["lanczos", "lanczos_coeffs"])
+@pytest.mark.parametrize("m", [1, 2, 3])
+def test_fused_builder_short_runs_eagerly(dev, builder, m):
+    """At m <= 3 the batched builder makes no capture (``krylov._run`` runs
+    its steps eagerly): the pair still runs every step, one of each kernel
+    a step, and a row in an invariant subspace of dimension m breaks down
+    at the last step, ``broke`` and ``m_used`` as the unfused step's, the
+    records within 1e-12."""
+    from exponentialutilities_jl_torch.ops import krylov as tk
+    from exponentialutilities_jl_torch.utils import graphs
+
+    dt = torch.float64
+    op = et.poisson_2d(64, 64, dtype=dt, device=dev)
+    X = np.random.default_rng(820 + m).standard_normal((3, op.shape[0]))
+    i = np.arange(1, 65)
+    sines = lambda p: np.sin(np.pi * p * i / 65)
+    # eigenvectors of distinct eigenvalues: (1, 1), (1, 2), (3, 3)
+    X[1] = sum(np.outer(sines(p), sines(q)).ravel()
+               for p, q in ((1, 1), (1, 2), (3, 3))[:m])
+    X[2] = 0.0
+    B = torch.as_tensor(X, dtype=dt, device=dev)
+    fn = getattr(tk, builder)
+    graphs.reset_counts()
+    _reset_counts()
+    got = fn(op, B, m, tol=1e-7)
+    torch.cuda.synchronize()
+    assert graphs.counts["captures"] == 0
+    assert {k: v for k, v in _executions().items() if v} == {
+        "banded_spmm_alpha": m, "lanczos_update": m}
+    ref = fn(_Unfused(op), B, m, tol=1e-7)
+    if builder == "lanczos":
+        flags = [(got.m_used, ref.m_used), (got.breakdown, ref.breakdown)]
+        pairs = [(got.H, ref.H)]
+    else:
+        flags = [(got[3], ref[3]), (got[4], ref[4])]
+        pairs = [(got[i], ref[i]) for i in (0, 1, 2)]
+    for a, b in flags:
+        assert torch.equal(a, b)
+    assert flags[0][0].tolist() == [m, m, 0]
+    assert flags[1][0].tolist() == [False, True, True]
+    for a, b in pairs:
+        a, b = (torch.where(t.abs() < 1e-7, 0.0, t) for t in (a, b))
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-12 * max(scale, 1e-300)
 
 
 @pytest.mark.parametrize("dt", DTYPES)

@@ -210,6 +210,63 @@ def test_pair_twin_vs_unfused_step(kind, j, nslots):
     assert_close(t2n(pair.last_row()), t2n(S.vc), 1e-13, "v_{j+1}")
 
 
+def _invariant_rows(A, m, seed):
+    """(3, n) rows: random, then the sums of m and of m + 1 eigenvectors
+    of A with distinct, well-separated eigenvalues (Lanczos breaks down at
+    its last step m, and not within m steps)."""
+    w, Q = np.linalg.eigh(A)
+    pick = [0]
+    for i in range(1, len(w)):
+        if len(pick) == m + 1:
+            break
+        if w[i] - w[pick[-1]] > (w[-1] - w[0]) / (4 * m):
+            pick.append(i)
+    assert len(pick) == m + 1
+    B = np.random.default_rng(seed).standard_normal((3, A.shape[0]))
+    B[1] = Q[:, pick[:m]].sum(1)
+    B[2] = Q[:, pick].sum(1)
+    return B
+
+
+@pytest.mark.parametrize("builder", ["lanczos", "lanczos_coeffs"])
+@pytest.mark.parametrize("m", [3, 5, 8])
+@pytest.mark.parametrize("kind", ["poisson", "no zero offset"])
+def test_breakdown_at_the_last_step(kind, m, builder):
+    """The fused step's twin on a row that breaks down at the last step m
+    (an invariant subspace of dimension exactly m) and one that does not
+    (m + 1): ``broke`` and ``m_used`` as the unfused step and each row's
+    scalar builder, the records within their tolerance. The breakdown's
+    beta is rounding noise (1e-11 at m = 5, up to 3e-7 at m = 8, the
+    other betas above 0.2), so the threshold is 1e-5 and the betas below
+    it are compared as zero. Near an invariant subspace the basis loses
+    orthogonality: its rounding grows ~10x a step in every form (at m = 8
+    4e-10 between the unfused and fused steps, 5e-9 against the scalar
+    builder), so the basis is compared on the random row only."""
+    dt, tol = torch.float64, 1e-5
+    _, top, A = _operators(kind, dt)
+    Bt = torch.as_tensor(_invariant_rows(A, m, 60 + m))
+    fn = getattr(tk, builder)
+
+    def run(op, b):
+        f = _fields(fn(op, b, m, tol=tol), builder)
+        for k in ("H", "beta", "betas"):
+            if k in f:
+                f[k] = np.where(np.abs(f[k]) < tol, 0.0, f[k])
+        return f
+
+    got = run(top, Bt)
+    refs = {"vs the unfused step": run(Unfused(top), Bt),
+            "vs each row's scalar builder": _stack_rows(
+                [run(top, Bt[i]) for i in range(3)], builder)}
+    for what, want in refs.items():
+        if "V" in want:
+            assert_close(got["V"][0], want.pop("V")[0], BASIS[dt],
+                         f"{what} V")
+        _compare(got, want, dt, what)
+    assert got["m_used"].tolist() == [m, m, m]
+    assert got["breakdown"].tolist() == [False, True, False]
+
+
 def _gate_builds(monkeypatch):
     """The ``u`` of each fused step the builders make."""
     made = []
